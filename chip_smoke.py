@@ -1,0 +1,348 @@
+#!/usr/bin/env python3
+"""Smoke test of murb_tpu_torch on one CUDA card: the quickest proof that
+the port builds, agrees with its plain versions and runs its main path.
+
+    python3 chip_smoke.py
+
+Phases (each prints its own lines; any failure raises and exits non-zero):
+  1. environment: torch, CUDA, the card, nvidia-smi's name and power limit,
+     whether nvcc and triton are present;
+  2. build: compile the CUDA kernels from murb_tpu_torch/csrc;
+  3. kernel parity: each kernel against its plain PyTorch version (run in
+     float64) at main-path shapes, with the max error and both times;
+  4. the main path: ``tpu+proxy`` on the N=200,000 galaxy through the CLI
+     (``murb_tpu_torch.cli.run``, whose exit code ``cli.main`` returns),
+     plus a small CPU-vs-card trajectory check;
+  5. K3 on the path: one ``acc_proxy`` at m=20 (8000 nodes) on that state;
+  6. K4 on the path: ``--im tpu+hybrid`` (passes 2, which runs K3's
+     kernel) and ``--im tpu+hybrid+x3`` (passes 3, K4's own kernel) at
+     N=30,000 through the CLI.
+Each piece of the path (the CLI run of phase 4, the ``acc_proxy`` of phase
+5, each CLI run of phase 6) starts from zeroed launch counts, which are read
+right after it: K1 and K2 from phase 4, K3 from phase 5, K4 from phase 6.
+Every kernel must have launched in its piece.  The line before the last is
+the kernels' JSON record; the last line is the result object.
+
+Needs a CUDA device and the rest of the repository beside this file; it
+exits non-zero without printing a result otherwise.
+"""
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import statistics
+import subprocess
+import sys
+import time
+
+SEED = 123
+SOFT = 2.0e8
+TOL = 1e-4
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise RuntimeError(f"chip_smoke: FAILED: {msg}")
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import numpy as np
+
+    from murb_tpu_torch import G
+    from murb_tpu_torch import cli
+    from murb_tpu_torch.core.init import init_galaxy, init_random
+    from murb_tpu_torch.ops import cuda
+    from murb_tpu_torch.ops.hybrid import (acc_hybrid_rect,
+                                           acc_hybrid_rect_plain)
+    from murb_tpu_torch.ops.proxy import acc_proxy, bounding_box, heavy_split
+    from murb_tpu_torch.ops.proxy_kernels import (l2p_fused_multi, l2p_plain,
+                                                  p2m_fused, p2m_plain)
+    from murb_tpu_torch.ops.tile import acc_tile_rect, acc_tile_rect_plain
+    from murb_tpu_torch.ops.validate import measured_force_error
+
+    # The plain versions' matrix products run in full fp32, never TF32.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    name = torch.cuda.get_device_name(dev)
+
+    # ---------------------------------------------------- 1. environment
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader", "-i", "0"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    try:
+        import triton
+        triton_v = triton.__version__
+    except ImportError:
+        triton_v = "absent"
+    nvcc = shutil.which("nvcc") or (
+        "/usr/local/cuda/bin/nvcc" if os.path.exists(
+            "/usr/local/cuda/bin/nvcc") else "absent")
+    print(f"[1 env] torch {torch.__version__} cuda {torch.version.cuda} "
+          f"device {name!r} count {torch.cuda.device_count()} nvcc {nvcc} "
+          f"triton {triton_v}")
+    print(smi)
+
+    # ---------------------------------------------------------- 2. build
+    t0 = time.perf_counter()
+    lib_path = cuda.build_kernels()
+    cuda.library()
+    print(f"[2 build] {lib_path.name} in {time.perf_counter() - t0:.1f} s")
+    log = lib_path.with_suffix(".log")
+    if log.exists():
+        for line in log.read_text().splitlines():
+            if "Compiling entry function" in line or "Used" in line or (
+                    "spill" in line and " 0 bytes spill" not in line):
+                print(f"[2 ptxas] {line.strip()}")
+
+    def time_ms(fn, reps: int = 10, runs: int = 5) -> float:
+        """Median over ``runs`` of the mean time of ``reps`` launches."""
+        fn()
+        torch.cuda.synchronize()
+        out = []
+        for _ in range(runs):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            for _ in range(reps):
+                fn()
+            b.record()
+            torch.cuda.synchronize()
+            out.append(a.elapsed_time(b) / reps)
+        return statistics.median(out)
+
+    def norm_rel(got, ref) -> float:
+        """Max per-body force error over max(|a_ref|, 1e-6 max |a_ref|)
+        (the ops/validate statistic)."""
+        g = torch.stack([v.double() for v in got], 1)
+        r = torch.stack([v.double() for v in ref], 1)
+        rn = r.norm(dim=1)
+        floor = torch.clamp(rn, min=1e-6 * float(rn.max()))
+        return float(((g - r).norm(dim=1) / floor).max())
+
+    def within_rel(got, ref, eps: float, rms_floor: float) -> float:
+        """Catch2 WithinRel with an rms floor (tests/conftest.py); returns
+        the largest ratio of |a - b| to its allowance (<= 1 passes)."""
+        worst = 0.0
+        for g, r in zip(got, ref):
+            g, r = g.double(), r.double()
+            allow = (eps * torch.maximum(g.abs(), r.abs())
+                     + rms_floor * float(r.pow(2).mean().sqrt()) + 1e-300)
+            worst = max(worst, float(((g - r).abs() / allow).max()))
+        return worst
+
+    record = {}
+
+    # ------------------------------------------------- 3. kernel parity
+    n_main = 200_000
+    st = init_galaxy(n_main, SEED, device=dev)
+    gm = st.m * torch.tensor(G, dtype=torch.float32).item()
+    c, h = bounding_box(st.qx, st.qy, st.qz, gm > 0)
+    mean_gm = gm.sum() / (gm > 0).sum()
+    gm_eff = heavy_split(st.qx, st.qy, st.qz, gm, 1, 100.0, mean_gm)[4]
+    q64 = [v.double() for v in (st.qx, st.qy, st.qz)]
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    for m in (12, 20):
+        w = p2m_fused(st.qx, st.qy, st.qz, gm_eff, c, h, m=m)
+        w64 = p2m_plain(*q64, gm_eff.double(), c.double(), h.double(), m=m)
+        err_w = float((w.double() - w64).abs().max())
+        scale_w = float(w64.abs().max())
+        check(bool(torch.allclose(w.double(), w64, rtol=1e-4,
+                                  atol=1e-6 * scale_w)),
+              f"K1 m={m}: max|dW| {err_w:.3e} vs rtol 1e-4, atol "
+              f"1e-6*max|W| ({1e-6 * scale_w:.3e})")
+        ms = time_ms(lambda: p2m_fused(st.qx, st.qy, st.qz, gm_eff, c, h,
+                                       m=m))
+        plain_ms = time_ms(lambda: p2m_plain(st.qx, st.qy, st.qz, gm_eff, c,
+                                             h, m=m))
+        print(f"[3 K1 p2m m={m} N={n_main}] max|dW| {err_w:.3e} "
+              f"(max|W| {scale_w:.3e}, tol rtol 1e-4 + 1e-6*max|W|) "
+              f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
+        if m == 12:
+            record["K1"] = (err_w, ms, plain_ms)
+
+        fields = tuple(torch.randn(m ** 3, generator=gen, device=dev)
+                       for _ in range(3))
+        a = torch.stack(l2p_fused_multi(st.qx, st.qy, st.qz, c, h, fields,
+                                        m=m))
+        a64 = torch.stack(l2p_plain(*q64, c.double(), h.double(),
+                                    tuple(f.double() for f in fields), m=m))
+        err_a = float((a.double() - a64).abs().max())
+        scale_a = float(a64.abs().max())
+        check(bool(torch.allclose(a.double(), a64, rtol=1e-4,
+                                  atol=1e-5 * scale_a)),
+              f"K2 m={m}: max|da| {err_a:.3e} vs rtol 1e-4, atol "
+              f"1e-5*max|a| ({1e-5 * scale_a:.3e})")
+        ms = time_ms(lambda: l2p_fused_multi(st.qx, st.qy, st.qz, c, h,
+                                             fields, m=m))
+        plain_ms = time_ms(lambda: l2p_plain(st.qx, st.qy, st.qz, c, h,
+                                             fields, m=m))
+        print(f"[3 K2 l2p m={m} N={n_main} k=3] max|da| {err_a:.3e} "
+              f"(max|a| {scale_a:.3e}, tol rtol 1e-4 + 1e-5*max|a|) "
+              f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
+        if m == 12:
+            record["K2"] = (err_a, ms, plain_ms)
+
+    sr = init_random(16_300, SEED, device=dev)      # npad 16384, 84 ghosts
+    gr = sr.m * torch.tensor(G, dtype=torch.float32).item()
+    jset = (sr.qx, sr.qy, sr.qz, gr)
+    j64 = tuple(v.double() for v in jset)
+    for label, ni in (("square 16384x16384", sr.npad),
+                      ("rect 5000x16384", 5000)):
+        iset = (sr.qx[:ni], sr.qy[:ni], sr.qz[:ni])
+        got = acc_tile_rect(*iset, *jset, SOFT)
+        ref = acc_tile_rect_plain(*(v.double() for v in iset), *j64, SOFT)
+        worst = within_rel(got, ref, 5e-6, 5e-6)
+        err = max(float((g.double() - r).abs().max())
+                  for g, r in zip(got, ref))
+        check(worst <= 1.0, f"K3 {label}: WithinRel 5e-6 (rms floor 5e-6) "
+                            f"exceeded by {worst:.2f}x")
+        ms = time_ms(lambda: acc_tile_rect(*iset, *jset, SOFT))
+        plain_ms = time_ms(lambda: acc_tile_rect_plain(*iset, *jset, SOFT),
+                           reps=3)
+        print(f"[3 K3 tile {label}] max|da| {err:.3e} WithinRel 5e-6 "
+              f"(rms floor 5e-6) at {worst:.3f} of the allowance; "
+              f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
+        if ni == sr.npad:
+            record["K3"] = (err, ms, plain_ms)
+
+    # passes 1/2 run K3's fp32 kernel; passes 3 is K4's own fp64-accumulating
+    # kernel.  On this input the fp32 tier already reads under 1e-6, so the
+    # passes-3 limit sits below the fp32 tier's reading, and passes 3 must
+    # also at least halve the passes-2 error: a passes-3 launch that ran the
+    # fp32 code fails both.
+    ref = acc_tile_rect_plain(*j64[:3], *j64, SOFT)
+    rels = {}
+    for passes, contract in ((1, 3e-5), (2, 3e-5), (3, 4e-7)):
+        got = acc_hybrid_rect(*jset[:3], *jset, SOFT, passes=passes)
+        rel = rels[passes] = norm_rel(got, ref)
+        err = max(float((g.double() - r).abs().max())
+                  for g, r in zip(got, ref))
+        check(rel <= contract, f"K4 passes={passes}: max relative force "
+                               f"error {rel:.3e} > {contract:g}")
+        ms = time_ms(lambda: acc_hybrid_rect(*jset[:3], *jset, SOFT,
+                                             passes=passes))
+        plain_ms = time_ms(lambda: acc_hybrid_rect_plain(
+            *jset[:3], *jset, SOFT, passes=passes), reps=3)
+        print(f"[3 K4 hybrid passes={passes} N=16384] max rel force err "
+              f"{rel:.3e} (contract {contract:g}) max|da| {err:.3e}; "
+              f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
+        if passes == 3:
+            record["K4"] = (err, ms, plain_ms)
+    check(rels[3] <= 0.5 * rels[2], f"K4 passes=3 error {rels[3]:.3e} is not "
+                                    f"at most half of passes=2's "
+                                    f"{rels[2]:.3e}")
+    del st, sr, w64, a64, ref
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------- 4. the main path
+    wrappers = {"K1": p2m_fused, "K2": l2p_fused_multi, "K3": acc_tile_rect,
+                "K4": acc_hybrid_rect}
+
+    def drive(run):
+        """Zero every launch count, run one piece of the path, and return
+        its result with the counts it left."""
+        for fn in wrappers.values():
+            fn.launches = 0
+        out = run()
+        return out, {k: fn.launches for k, fn in wrappers.items()}
+
+    res, counts = drive(lambda: cli.run([
+        "-n", str(n_main), "-i", "100", "--im", "tpu+proxy", "--nv", "--gf",
+        "--scan", "--device", "cuda"]))
+    check(res.rc == 0, f"cli exit code {res.rc}")
+    eng = res.engine
+    eng.assert_finite()
+    launches = {k: counts[k] for k in ("K1", "K2")}
+    check(eng.using_proxy, "tpu+proxy fell back to the exact sweep")
+    check(eng.validated_err is not None and eng.validated_err <= TOL,
+          f"validated error {eng.validated_err} > {TOL}")
+    fin = eng.bodies
+    gm_fin = eng._gm(fin)
+    err_end = measured_force_error(
+        fin.qx, fin.qy, fin.qz, gm_fin, SOFT,
+        lambda a, b, cc, g: acc_proxy(a, b, cc, g, SOFT, m=eng.m))
+    print(f"[4 main] tpu+proxy N={n_main} galaxy: m={eng.m} "
+          f"cells={eng.cells} validated_err {eng.validated_err:.3e} "
+          f"(err after 100 steps {err_end:.3e}, reported, not a contract); "
+          f"{res.fps:.2f} FPS "
+          f"{res.gflops:.1f} ref-GFlop/s ({res.elapsed_ms:.2f} ms for 99 "
+          f"steps) on {smi}; launches {counts}")
+
+    # small input: the card's trajectory agrees with the CPU plain path
+    from murb_tpu_torch.models import create_engine
+
+    small = init_galaxy(2048, SEED)
+    runs = []
+    for d in ("cpu", dev):
+        e = create_engine("tpu+proxy", small.to(d), soft=SOFT, dt=3600.0)
+        e.run(3)
+        runs.append((e.m, e.bodies.unpadded()))
+    check(runs[0][0] == runs[1][0], f"m differs: cpu {runs[0][0]} "
+                                    f"card {runs[1][0]}")
+    worst = max(float(np.max(np.abs(runs[1][1][k] - runs[0][1][k])
+                             / np.maximum(np.abs(runs[0][1][k]), 1e-30)))
+                for k in ("qx", "qy", "qz"))
+    check(worst <= 1e-4, f"card vs cpu positions differ by {worst:.3e}")
+    print(f"[4 small] N=2048 galaxy, 3 steps: card vs CPU plain path "
+          f"positions max rel diff {worst:.3e} (tol 1e-4), m={runs[0][0]}")
+
+    # ------------------------------------------- 5. K3 inside acc_proxy
+    err20, counts = drive(lambda: measured_force_error(
+        fin.qx, fin.qy, fin.qz, gm_fin, SOFT,
+        lambda a, b, cc, g: acc_proxy(a, b, cc, g, SOFT, m=20)))
+    launches["K3"] = counts["K3"]
+    check(err20 <= TOL, f"acc_proxy m=20 force error {err20:.3e} > {TOL}")
+    print(f"[5 K3 path] acc_proxy m=20 (8000 nodes) force error {err20:.3e}; "
+          f"launches {counts}")
+
+    # ------------------------------------------- 6. K4 through the CLI
+    # fp32 state takes passes 2 (K3's kernel, launched by K4's wrapper);
+    # tpu+hybrid+x3 takes passes 3, K4's own kernel, whose count is kept.
+    for tag in ("tpu+hybrid", "tpu+hybrid+x3"):
+        res6, counts = drive(lambda: cli.run([
+            "-n", "30000", "-i", "10", "--im", tag, "--nv", "--gf",
+            "--device", "cuda"]))
+        check(res6.rc == 0, f"cli {tag} exit code {res6.rc}")
+        res6.engine.assert_finite()
+        check(counts["K4"] > 0, f"K4 launched no time under {tag}")
+        print(f"[6 K4 path] {tag} N=30000 (passes {res6.engine.passes}): "
+              f"{res6.fps:.2f} FPS {res6.gflops:.1f} ref-GFlop/s on {smi}; "
+              f"launches {counts}")
+    launches["K4"] = counts["K4"]
+
+    for k, count in launches.items():
+        check(count > 0, f"{k} launched no time on its piece of the path")
+    meta = {
+        "K1": ("p2m", "murb_tpu_torch/csrc/proxy.cu",
+               "murb_tpu/ops/proxy_pallas.py:112"),
+        "K2": ("l2p", "murb_tpu_torch/csrc/proxy.cu",
+               "murb_tpu/ops/proxy_pallas.py:170"),
+        "K3": ("tile_rect", "murb_tpu_torch/csrc/tile.cu",
+               "murb_tpu/ops/tile_pallas.py:39"),
+        "K4": ("hybrid_ext_rect", "murb_tpu_torch/csrc/hybrid.cu",
+               "murb_tpu/ops/hybrid.py:63"),
+    }
+    kernels = []
+    for k, (kname, source, replaces) in meta.items():
+        err, ms, plain_ms = record[k]
+        kernels.append({"name": kname, "route": "cuda", "source": source,
+                        "replaces": replaces, "launches": launches[k],
+                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

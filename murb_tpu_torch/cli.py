@@ -1,0 +1,189 @@
+"""Command-line entry point: the port's ``murb`` binary (ref: src/murb/main.cpp:309-407).
+
+Port of the main-path subset of ``murb_tpu/cli.py``: the configuration
+banner (with the validated proxy order and its measured error), the
+per-iteration frame loop with the verbose status line, the ``--scan``
+timing window, and the final "Entire simulation took ..." summary with the
+reference's FLOPs model (20*N^2/iteration) and GFlop/s convention (1024^3
+divisor).
+
+``--device cuda`` (the default) puts the state and every kernel on the
+first CUDA device and exits with status 1 when there is none: the port
+never carries on on the CPU.  ``--device cpu`` runs the kernels' plain
+PyTorch versions.  Flags and tags of ``murb_tpu`` the port does not carry
+yet exit with status 1 and "not yet ported".
+
+Usage:  python -m murb_tpu_torch -n 200000 -i 100 --im tpu+proxy --nv --gf --scan
+"""
+from __future__ import annotations
+
+import dataclasses
+import sys
+
+import torch
+
+from murb_tpu_torch.core.init import make_bodies
+from murb_tpu_torch.models import (
+    available_implementations,
+    create_engine,
+    resolve_tag,
+    validate_tag,
+)
+from murb_tpu_torch.utils.args import MurbConfig, parse_args
+from murb_tpu_torch.utils.perf import Perf
+from murb_tpu_torch.utils.strdate import str_date
+
+_DTYPES = {"fp32": torch.float32, "fp64": torch.float64}
+
+
+@dataclasses.dataclass
+class CliRun:
+    """What one CLI run produced: the exit code, the engine (None when the
+    run stopped before building one) and the timed window's figures."""
+
+    rc: int
+    engine: object | None = None
+    elapsed_ms: float = 0.0
+    fps: float = 0.0
+    gflops: float = 0.0
+
+
+def build_engine(cfg: MurbConfig, device: torch.device):
+    """The engine for ``cfg`` on ``device`` (raises ValueError for unknown
+    tags and NotImplementedError for what is not yet ported)."""
+    validate_tag(cfg.impl_tag)  # fail fast, before device work
+    if cfg.precision not in _DTYPES:
+        raise NotImplementedError(
+            f"--precision {cfg.precision} is not yet ported to "
+            "murb_tpu_torch (ROADMAP.md Queue 1 item 6)")
+    bodies = make_bodies(cfg.n_bodies, cfg.scheme, cfg.seed,
+                         dtype=_DTYPES[cfg.precision], device=device)
+    # Mid-run order adaptation for the frame loop, off under --scan (the
+    # murb_tpu default; --adapt-every itself is not ported yet).
+    return create_engine(cfg.impl_tag, bodies, soft=cfg.softening, dt=cfg.dt,
+                         tol=cfg.tol, adapt_every=0 if cfg.scan else 64)
+
+
+def print_banner(cfg: MurbConfig, engine, device: torch.device) -> None:
+    # ref: main.cpp:323-334
+    mbytes = engine.allocated_bytes / 1024.0 / 1024.0
+    name = (torch.cuda.get_device_name(device) if device.type == "cuda"
+            else "cpu")
+    print("n-body simulation configuration:")
+    print("--------------------------------")
+    print(f"  -> bodies scheme     (-s    ): {cfg.scheme}")
+    print(f"  -> implementation    (--im  ): {cfg.impl_tag} "
+          f"[{resolve_tag(cfg.impl_tag)}]")
+    print(f"  -> nb. of bodies     (-n    ): {engine.bodies.n}")
+    print(f"  -> nb. of iterations (-i    ): {cfg.n_iterations}")
+    print(f"  -> verbose mode      (-v    ): "
+          f"{'enable' if cfg.verbose else 'disable'}")
+    print(f"  -> precision                 : {cfg.precision}")
+    print(f"  -> mem. allocated            : {mbytes:g} MB")
+    print(f"  -> device                    : {device} ({name})")
+    print(f"  -> time step         (--dt  ): {cfg.dt:g} sec")
+    print(f"  -> softening factor  (--soft): {cfg.softening:g}")
+    err = getattr(engine, "validated_err", None)
+    if err is not None:
+        print(f"  -> validated order           : proxy m={engine.m} "
+              f"(measured err {err:.1e} vs tol {cfg.tol:g})")
+    elif getattr(engine, "using_proxy", True) is False:
+        print("  -> validated order           : exact fallback (the cost "
+              "model rejected the proxy at this N)")
+
+
+def run(argv=None) -> CliRun:
+    """The whole CLI: parse, build, simulate, report.  ``main`` returns
+    its exit code."""
+    cfg = parse_args(argv)
+    if cfg.list_impls:
+        for tag, aliases in sorted(available_implementations().items()):
+            alias_str = f"  (aliases: {', '.join(aliases)})" if aliases else ""
+            print(f"  {tag}{alias_str}")
+        return CliRun(0)
+    if cfg.unported:
+        print(f"{', '.join(cfg.unported)}: not yet ported to murb_tpu_torch "
+              "(ROADMAP.md Queue 1 item 6)", file=sys.stderr)
+        return CliRun(1)
+    if cfg.device == "cuda" and not torch.cuda.is_available():
+        print("--device cuda: no CUDA device is available (torch "
+              f"{torch.__version__}, CUDA build {torch.version.cuda}); "
+              "murb_tpu_torch does not fall back to the CPU -- pass "
+              "--device cpu to run the plain PyTorch versions.",
+              file=sys.stderr)
+        return CliRun(1)
+    device = torch.device(cfg.device)
+
+    try:
+        engine = build_engine(cfg, device)
+    except (ValueError, NotImplementedError) as e:
+        # ref: main.cpp:265-268 -- clean exit on unknown implementation
+        print(e)
+        return CliRun(1)
+    print_banner(cfg, engine, device)
+    print("Simulation started...")
+
+    perf_ite, perf_total = Perf(), Perf()
+    physic_time = 0.0
+    n_done = 0
+    if cfg.scan and cfg.n_iterations > 0:
+        # Time the run as one window after one warm-up step (which builds
+        # the kernels on first use); with a single requested iteration
+        # that iteration itself is timed.
+        warm = 1 if cfg.n_iterations > 1 else 0
+        if warm:
+            engine.run(warm)
+            engine.block_until_ready()
+        perf_total.start()
+        engine.run(cfg.n_iterations - warm)
+        engine.block_until_ready()
+        perf_total.stop()
+        n_done = cfg.n_iterations - warm
+        physic_time = cfg.n_iterations * engine.dt
+    elif not cfg.scan:
+        for i_ite in range(1, cfg.n_iterations + 1):
+            perf_ite.start()
+            engine.compute_one_iteration()
+            engine.block_until_ready()   # analogue of cudaDeviceSynchronize
+            perf_ite.stop()
+            perf_total += perf_ite
+            physic_time += engine.dt
+            n_done = i_ite
+            if cfg.verbose:
+                gflops = ""
+                if cfg.show_gflops:
+                    gflops = (f", {perf_total.get_gflops(engine.flops_per_ite * i_ite):6.1f}"
+                              " Gflop/s")
+                print(f"Iteration n°{i_ite:4d} "
+                      f"({perf_total.get_fps(i_ite):6.1f} FPS{gflops}), "
+                      f"physic time: {str_date(physic_time)}",
+                      end="\r", flush=(i_ite % 5 == 0))
+        if cfg.verbose:
+            print()
+
+    print("Simulation ended.")
+    print()
+    result = CliRun(0, engine, perf_total.get_elapsed_time(),
+                    perf_total.get_fps(n_done),
+                    perf_total.get_gflops(engine.flops_per_ite * n_done))
+    gflops = f", {result.gflops:6.1f} Gflop/s" if cfg.show_gflops else ""
+    print(f"Entire simulation took {result.elapsed_ms:g} ms "
+          f"({result.fps:g} FPS{gflops})")
+
+    if hasattr(engine, "proxy_health"):
+        health = engine.proxy_health()
+        if not health["ok"]:
+            print(f"WARNING: system expanded beyond the proxy design margin "
+                  f"(order m={health['m']}, now requires "
+                  f"m={health['required_m_now']}); forces in late "
+                  f"iterations are less accurate -- rerun with --im "
+                  f"tpu+hybrid for exact forces.")
+    return result
+
+
+def main(argv=None) -> int:
+    return run(argv).rc
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,70 @@
+// Device code shared by the exact all-pairs sweeps (tile.cu: K3,
+// hybrid.cu: K4).
+//
+// Design: the reference's own gpu+tile+full kernel
+// (ref: src/murb/implem/SimulationNBodyCUDATileFullDevice.cu:53-153).  One
+// thread owns one i-body and keeps its position and accumulators in
+// registers; the block stages the j-set through shared memory one tile of
+// kSweepThreads packed {x, y, z, G*m} sources at a time, and every thread
+// reads each staged source as a broadcast.  The kernels mask their ragged
+// edges themselves: i >= ni threads compute and store nothing, j >= nj
+// slots are staged as zero-mass ghosts (they add exactly 0 because the
+// softening keeps d^2 > 0), so no caller pads the sets.
+//
+// What bounds it on an H100: the per-pair chain (3 sub, 3 fma, rsqrt,
+// 3 mul, 3 fma ~ 20 flops with one MUFU op) on the fp32 pipes.  Device
+// memory traffic is O(ni + nj * ni / kSweepThreads) floats and never binds.
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace murb {
+
+constexpr int kSweepThreads = 128;  // i-bodies per block == j-sources per tile
+
+// Stage sources [j0, j0 + kSweepThreads) into `tile`; slots past nj are
+// zero-mass ghosts at the origin.  Every thread of the block must call it.
+__device__ __forceinline__ void stage_sources(float4* tile, const float* qxj,
+                                              const float* qyj,
+                                              const float* qzj,
+                                              const float* gmj, int j0,
+                                              int nj) {
+  const int j = j0 + threadIdx.x;
+  tile[threadIdx.x] = (j < nj)
+      ? make_float4(qxj[j], qyj[j], qzj[j], gmj[j])
+      : make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
+// Softened pair weight G*m_j / (d^2 + eps^2)^{3/2} for the displacement
+// (dx, dy, dz).  `refine` adds one Newton step to the hardware rsqrt
+// (<= 2 ulp) for the extended-precision tier.
+template <bool refine>
+__device__ __forceinline__ float pair_weight(float dx, float dy, float dz,
+                                             float gm, float soft2) {
+  const float d2 = fmaf(dx, dx, fmaf(dy, dy, fmaf(dz, dz, soft2)));
+  float inv = rsqrtf(d2);
+  if (refine) inv = inv * fmaf(-0.5f * d2 * inv, inv, 1.5f);
+  return gm * (inv * inv * inv);
+}
+
+// Sum one staged tile's pair terms for the i-body at (xi, yi, zi) into
+// fp32 tile partials (the caller folds the partials into its running
+// total: a two-level sum whose rounding error grows with the tile count,
+// not with nj).
+__device__ __forceinline__ void tile_sum_f32(const float4* tile, float xi,
+                                             float yi, float zi, float soft2,
+                                             float& tx, float& ty,
+                                             float& tz) {
+  tx = ty = tz = 0.f;
+#pragma unroll 8
+  for (int t = 0; t < kSweepThreads; ++t) {
+    const float4 s = tile[t];
+    const float dx = s.x - xi, dy = s.y - yi, dz = s.z - zi;
+    const float w = pair_weight<false>(dx, dy, dz, s.w, soft2);
+    tx = fmaf(w, dx, tx);
+    ty = fmaf(w, dy, ty);
+    tz = fmaf(w, dz, tz);
+  }
+}
+
+}  // namespace murb

@@ -1,0 +1,98 @@
+"""Implementation registry: the port's ``--im`` factory.
+
+Port of ``murb_tpu/models/__init__.py`` (ref: src/murb/main.cpp:205-270),
+with the same API.  Reference tags are accepted as aliases.  Tags that
+``murb_tpu`` registers but this package does not carry yet are known by
+name: ``validate_tag`` raises "not yet ported" for them, and "does not
+exist" only for tags neither package knows.
+"""
+from __future__ import annotations
+
+from typing import Callable
+
+from murb_tpu_torch.core.state import BodyState
+
+_REGISTRY: dict[str, Callable] = {}
+_ALIASES: dict[str, str] = {}
+
+#: murb_tpu tags (and their aliases) not ported yet
+NOT_YET_PORTED = (
+    "tpu+mxu", "tpu+tracking", "gpu+tracking", "tpu+tracking+multi",
+    "gpu+tracking+multi", "tpu+leapfrog", "gpu+leapfrog",
+    "tpu+leapfrog+tracking", "gpu+leapfrog+tracking", "tpu+kdk",
+    "tpu+yoshida4", "shard+allgather", "mpi", "shard+ring", "shard+uneven",
+    "hetero", "shard+proxy", "shard+fmm", "shard+adaptive",
+)
+
+
+def register(tag: str, factory: Callable, aliases: tuple[str, ...] = ()):
+    _REGISTRY[tag] = factory
+    for a in aliases:
+        _ALIASES[a] = tag
+
+
+def resolve_tag(tag: str) -> str:
+    return _ALIASES.get(tag, tag)
+
+
+def available_implementations() -> dict[str, tuple[str, ...]]:
+    """tag -> aliases, for --list-impls and docs."""
+    return {t: tuple(a for a, t2 in _ALIASES.items() if t2 == t)
+            for t in _REGISTRY}
+
+
+def validate_tag(tag: str) -> str:
+    """Resolve a tag or raise: NotImplementedError for a ``murb_tpu`` tag
+    not ported yet, ValueError for an unknown one (the reference exits
+    with "Implementation '...' does not exist", ref: main.cpp:265-268)."""
+    canonical = resolve_tag(tag)
+    if canonical in _REGISTRY:
+        return canonical
+    if tag in NOT_YET_PORTED:
+        raise NotImplementedError(
+            f"Implementation {tag!r} is not yet ported to murb_tpu_torch "
+            "(ROADMAP.md Queue 1)")
+    known = ", ".join(sorted(set(_REGISTRY) | set(_ALIASES)))
+    raise ValueError(f"Implementation {tag!r} does not exist. "
+                     f"Available: {known}")
+
+
+def create_engine(tag: str, bodies: BodyState, **kwargs):
+    """Build an engine by tag; unknown tags raise with the available list."""
+    return _REGISTRY[validate_tag(tag)](bodies, **kwargs)
+
+
+def _filter(kwargs, *names):
+    return {k: v for k, v in kwargs.items()
+            if k in names or k in ("soft", "dt")}
+
+
+def _build_registry():
+    from murb_tpu_torch.models import engines as E
+
+    register("xla+naive", lambda b, **kw: E.NaiveEngine(b, **_filter(kw)),
+             aliases=("cpu+naive", "naive"))
+    register("nop", lambda b, **kw: E.NopEngine(b, **_filter(kw)),
+             aliases=("cpu+nop",))
+    register("xla+chunked",
+             lambda b, **kw: E.ChunkedEngine(b, **_filter(kw)),
+             aliases=("cpu+optim", "cpu+simd", "cpu+omp", "xla+fused"))
+    register("tpu+tile",
+             lambda b, **kw: E.PallasTileEngine(b, **_filter(kw)),
+             aliases=("gpu+tile",))
+    register("tpu+hybrid",
+             lambda b, **kw: E.HybridEngine(b, **_filter(kw, "passes")),
+             aliases=("gpu+tile+full", "gpu+tile+full200k",
+                      "tpu+tile+full", "tpu+tile+full200k"))
+    register("tpu+proxy",
+             lambda b, **kw: E.ProxyEngine(
+                 b, **_filter(kw, "m", "cells", "levels", "tol",
+                              "adapt_every")),
+             aliases=("fmm", "barnes-hut"))
+    register("tpu+hybrid+fast",
+             lambda b, **kw: E.HybridEngine(b, passes=1, **_filter(kw)))
+    register("tpu+hybrid+x3",
+             lambda b, **kw: E.HybridEngine(b, passes=3, **_filter(kw)))
+
+
+_build_registry()

@@ -1,0 +1,151 @@
+"""Build and load the hand-written CUDA kernels (``murb_tpu_torch/csrc``).
+
+The kernels are plain CUDA C++ for Hopper (``sm_90a``) with a C interface.
+At first use ``build_kernels`` compiles every ``csrc/*.cu`` with ``nvcc``
+into one shared library under ``build/murb_tpu_torch/`` at the repository
+root, keyed by a hash of the sources and the flags, and loads it with
+``ctypes``.  The library is built into a temporary name and renamed into
+place, so concurrent processes never load a half-written file.
+
+There is no fallback: a missing ``nvcc``, a failed build or a refused
+launch raises.  The kernel wrappers (ops/tile.py, ops/hybrid.py,
+ops/proxy_kernels.py) call ``library()`` only for CUDA tensors.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "murb_tpu_torch"
+DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+# C entry points (csrc/*.cu) and their argument types; each returns the
+# cudaError_t of its launches.
+_SIGNATURES = {
+    "murb_tile_rect": [_P, _P, _P, _I, _P, _P, _P, _P, _I, _F,
+                       _P, _P, _P, _P],
+    "murb_hybrid_rect": [_P, _P, _P, _I, _P, _P, _P, _P, _I, _F, _I,
+                         _P, _P, _P, _P],
+    "murb_p2m": [_P, _P, _P, _P, _I, _P, _I, _P, _I, _P, _P],
+    "murb_l2p": [_P, _P, _P, _I, _P, _I, _P, _I, _P, _P],
+}
+
+
+def find_nvcc() -> str:
+    """``nvcc`` from ``$CUDA_HOME/bin``, ``/usr/local/cuda/bin`` or PATH."""
+    candidates = []
+    if os.environ.get("CUDA_HOME"):
+        candidates.append(Path(os.environ["CUDA_HOME"]) / "bin" / "nvcc")
+    candidates.append(DEFAULT_NVCC)
+    for c in candidates:
+        if c.is_file() and os.access(c, os.X_OK):
+            return str(c)
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    raise RuntimeError(
+        "nvcc not found ($CUDA_HOME/bin, /usr/local/cuda/bin, PATH): the "
+        "murb_tpu_torch CUDA kernels are built from source at first use "
+        "and need the CUDA toolkit")
+
+
+def _sources() -> list[Path]:
+    return sorted(list(CSRC.glob("*.cu")) + list(CSRC.glob("*.cuh")))
+
+
+def library_path() -> Path:
+    """Where the library for the current sources and flags lives."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libmurb_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build_kernels() -> Path:
+    """Compile ``csrc/*.cu`` unless the library for these sources exists.
+    Returns the library path; the compiler's report (registers, shared
+    memory, spills per kernel) is kept beside it as ``<lib>.log``."""
+    lib = library_path()
+    if lib.exists():
+        return lib
+    nvcc = find_nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+    cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+           *(str(s) for s in _sources() if s.suffix == ".cu")]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+            f"{proc.stderr[-4000:]}")
+    os.replace(tmp, lib)
+    return lib
+
+
+@functools.lru_cache(maxsize=1)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    lib = ctypes.CDLL(str(build_kernels()))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def launch(name: str, *args) -> None:
+    """Call C entry ``name`` and raise if it reports a CUDA error (a launch
+    that is refused never runs, and no later synchronise reports it)."""
+    status = getattr(library(), name)(*args)
+    if status != 0:
+        raise RuntimeError(f"{name}: CUDA error {status} at launch")
+
+
+def stream(device: torch.device) -> int:
+    """The current PyTorch stream on ``device``, as a pointer for ctypes."""
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def kernel_inputs(tag: str, device: torch.device, n: int, *tensors,
+                  notify) -> list[torch.Tensor]:
+    """Checked float32 contiguous copies (or views) of 1-D kernel inputs.
+
+    Every tensor must lie on ``device`` with shape ``(n,)``.  float32 is
+    taken as it is; float64 state is cast here, at the wrapper, and
+    announced once through ``notify(tag, dtype)`` (the kernels compute in
+    fp32); any other dtype raises."""
+    out = []
+    for t in tensors:
+        if t.device != device:
+            raise ValueError(f"{tag}: tensor on {t.device}, expected {device}")
+        if t.shape != (n,):
+            raise ValueError(f"{tag}: shape {tuple(t.shape)}, expected ({n},)")
+        if t.dtype == torch.float64:
+            notify(tag, t.dtype)
+            t = t.to(torch.float32)
+        elif t.dtype != torch.float32:
+            raise TypeError(f"{tag}: dtype {t.dtype} (float32 or float64)")
+        out.append(t.contiguous())
+    return out
+
+
+def require_cuda(tag: str, t: torch.Tensor) -> None:
+    """Wrappers take their plain version only for CPU tensors; anything
+    that is neither CPU nor CUDA is refused."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{tag}: tensors on {t.device} (cpu or cuda)")

@@ -1,0 +1,151 @@
+"""Chebyshev proxy (single-level black-box FMM) accelerations: O(N*m^3).
+
+Port of ``murb_tpu/ops/proxy.py`` (the single-cell force path).  The
+Plummer-softened kernel has no singularity -- its smoothness scale is the
+softening eps -- so one global Chebyshev expansion with m nodes per
+dimension replaces the O(N^2) sum:
+
+  P2M:  W_uvw = sum_j gm_j Sx_j,u Sy_j,v Sz_j,w        (kernel K1)
+  M2L:  F = exact all-pairs sweep over the m^3 nodes   (plain below 8000
+                                                        nodes, K3 above)
+  L2P:  a_i = sum_uvw S_i,uvw F_uvw                     (kernel K2)
+
+Bodies heavier than ``HEAVY_FACTOR`` times the mean mass (a top-``HEAVY_K``
+selection: the galaxy's central body) are left out of the expansion and
+summed exactly, as sources and as targets.
+
+Every stage stays on the device: the box center and half-widths are device
+tensors the kernels read, and no step calls ``.item()``.  ``cells=2`` (the
+octant grid, kernels K8/K9) is not ported yet and raises.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from murb_tpu_torch.ops.common import Accel
+from murb_tpu_torch.ops.naive import acc_rect
+from murb_tpu_torch.ops.proxy_kernels import l2p_fused, p2m_fused
+from murb_tpu_torch.ops.tile import acc_tile_rect
+
+# Bodies heavier than this multiple of the mean mass are excluded from the
+# proxy and summed exactly (the near-field list); at most HEAVY_K of them,
+# the heaviest (murb_tpu's defaults).
+HEAVY_FACTOR = 100.0
+HEAVY_K = 1
+
+#: node count from which the node sweep runs the K3 kernel instead of the
+#: plain P^2 broadcast (murb_tpu/ops/proxy.py:175-191)
+NODE_SWEEP_KERNEL_MIN = 8000
+
+
+def required_order(halfwidth: float, soft: float, tol: float = 1e-4,
+                   margin: int = 2) -> int:
+    """Chebyshev order per dimension for a target interpolation error."""
+    a = max(soft / max(halfwidth, 1e-30), 1e-6)
+    rho = a + math.sqrt(1.0 + a * a)
+    return max(int(math.ceil(-math.log(tol) / math.log(rho))) + margin, 4)
+
+
+def half_extent(unpadded: dict) -> float:
+    """Largest per-dimension half-extent of the massive bodies, from a
+    host-side ``BodyState.unpadded()`` dict."""
+    sel = unpadded["m"] > 0
+    if not sel.any():
+        return 1.0
+    return max(
+        (unpadded[k][sel].max() - unpadded[k][sel].min()) / 2.0
+        for k in ("qx", "qy", "qz")
+    )
+
+
+def _cheb_nodes(m: int, dtype, device) -> torch.Tensor:
+    """First-kind nodes cos(pi (k + 1/2) / m) in (-1, 1), made on device."""
+    k = torch.arange(m, dtype=torch.float64, device=device)
+    return torch.cos(math.pi * (k + 0.5) / m).to(dtype)
+
+
+# ---------------------------------------------------------------- stages
+def bounding_box(qx, qy, qz, gm_pos):
+    """(center (3,), per-dimension half-widths (3,)) over massive bodies,
+    as device tensors."""
+    big = 3.4e38
+    lo = torch.stack([torch.where(gm_pos, q, big).min() for q in (qx, qy, qz)])
+    hi = torch.stack([torch.where(gm_pos, q, -big).max()
+                      for q in (qx, qy, qz)])
+    c = 0.5 * (lo + hi)
+    h = (0.5 * (hi - lo)).clamp(min=1.0)
+    return c, h
+
+
+def proxy_nodes(c, h, m: int, dtype):
+    """Flat (m^3,) coordinates of the proxy nodes, x-major."""
+    t = _cheb_nodes(m, dtype, c.device)
+    px = (c[0] + h[0] * t)[:, None, None].expand(m, m, m)
+    py = (c[1] + h[1] * t)[None, :, None].expand(m, m, m)
+    pz = (c[2] + h[2] * t)[None, None, :].expand(m, m, m)
+    return px.reshape(-1), py.reshape(-1), pz.reshape(-1)
+
+
+def node_sweep(px, py, pz, w, soft) -> Accel:
+    """Exact all-pairs accelerations over proxy nodes with weights ``w``:
+    the plain broadcast below 8000 nodes, the exact fp32 sweep K3 at 8000
+    or more (Chebyshev weights oscillate with heavy cancellation, so this
+    sweep stays exact fp32, murb_tpu/ops/proxy.py:180-184)."""
+    if px.shape[0] < NODE_SWEEP_KERNEL_MIN:
+        return acc_rect(px, py, pz, px, py, pz, w, soft)
+    return acc_tile_rect(px, py, pz, px, py, pz, w, soft)
+
+
+def m2l(c, h, w, soft, m: int, dtype) -> Accel:
+    """Exact sweep over the m^3 proxy nodes."""
+    px, py, pz = proxy_nodes(c, h, m, dtype)
+    return node_sweep(px, py, pz, w, soft)
+
+
+def heavy_split(qx, qy, qz, gm, k: int, heavy_factor: float, mean_gm):
+    """Top-k heavy-source selection.
+
+    Returns (heavy positions (k,) x3, heavy gm (k,), slot mask (k,),
+    top indices (k,), gm with the heavy bodies zeroed)."""
+    top_gm, top_idx = torch.topk(gm, k)
+    is_heavy = top_gm > heavy_factor * mean_gm
+    heavy_gm = torch.where(is_heavy, top_gm, torch.zeros_like(top_gm))
+    heavy_mask = torch.zeros_like(gm).index_add(0, top_idx,
+                                                is_heavy.to(gm.dtype))
+    return ((qx[top_idx], qy[top_idx], qz[top_idx]), heavy_gm, is_heavy,
+            top_idx, gm * (1.0 - heavy_mask))
+
+
+def heavy_source_acc(qx, qy, qz, hq, heavy_gm, soft) -> torch.Tensor:
+    """Exact N x k sweep: force contribution of the heavy sources, (n, 3)."""
+    a = acc_rect(qx, qy, qz, hq[0], hq[1], hq[2], heavy_gm, soft)
+    return torch.stack(list(a), dim=1)
+
+
+def acc_proxy(qx, qy, qz, gm, soft, *, m: int = 16,
+              cells: int = 1) -> Accel:
+    """All-pairs softened-gravity accelerations via the Chebyshev proxy
+    (ref: murb_tpu/ops/proxy.py:acc_proxy, the fused single-cell path)."""
+    if cells != 1:
+        raise NotImplementedError(
+            f"acc_proxy cells={cells}: the octant grid (kernels K8/K9) is not "
+            "yet ported to murb_tpu_torch (ROADMAP.md Queue 1 item 7)")
+    gm_pos = gm > 0
+    c, h = bounding_box(qx, qy, qz, gm_pos)
+
+    mean_gm = gm.sum() / gm_pos.sum().clamp(min=1)
+    hq, heavy_gm, is_heavy, top_idx, gm_eff = heavy_split(
+        qx, qy, qz, gm, min(HEAVY_K, qx.shape[0]), HEAVY_FACTOR, mean_gm)
+
+    w = p2m_fused(qx, qy, qz, gm_eff, c, h, m=m)
+    f = m2l(c, h, w, soft, m, qx.dtype)
+    acc = l2p_fused(qx, qy, qz, c, h, f.ax, f.ay, f.az, m=m)
+    acc = acc + heavy_source_acc(qx, qy, qz, hq, heavy_gm, soft)
+
+    # heavy targets: replace their force with the exact k x N sweep
+    ht = torch.stack(list(acc_rect(hq[0], hq[1], hq[2], qx, qy, qz, gm,
+                                   soft)), dim=1)
+    acc[top_idx] = torch.where(is_heavy[:, None], ht, acc[top_idx])
+    return Accel(acc[:, 0], acc[:, 1], acc[:, 2])

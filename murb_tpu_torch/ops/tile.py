@@ -1,0 +1,61 @@
+"""Exact fp32 rectangular all-pairs sweep: kernel K3 and its plain version.
+
+Port of ``murb_tpu/ops/tile_pallas.py``.  ``acc_tile_rect`` computes the
+accelerations of an i-set due to a j-set; on CUDA tensors it launches the
+hand-written kernel ``csrc/tile.cu`` (which replaces the TPU kernel
+``tile_pallas._tile_kernel``), on CPU tensors it runs
+``acc_tile_rect_plain``.  The kernel masks ragged edges itself, so callers
+pad nothing.  It serves ``tpu+tile`` / ``gpu+tile`` and the proxy node
+sweep at P >= 8000 nodes (ops/proxy.node_sweep).
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from murb_tpu_torch.ops import cuda
+from murb_tpu_torch.ops.common import Accel, notify_fp32_compute
+from murb_tpu_torch.ops.naive import acc_rect_jchunked
+
+
+def acc_tile_rect_plain(qxi, qyi, qzi, qxj, qyj, qzj, gmj, soft) -> Accel:
+    """The plain PyTorch sweep (``acc_rect``, j-chunked to bound memory),
+    in the inputs' dtype."""
+    return acc_rect_jchunked(qxi, qyi, qzi, qxj, qyj, qzj, gmj, soft,
+                             chunk=4096)
+
+
+def acc_tile_rect(qxi, qyi, qzi, qxj, qyj, qzj, gmj, soft) -> Accel:
+    """Accelerations of the i-set due to the j-set (rectangular sweep).
+
+    CPU tensors run the plain version; CUDA tensors launch K3 (fp32 inside;
+    float64 inputs are cast here and the outputs cast back)."""
+    if qxi.device.type == "cpu":
+        return acc_tile_rect_plain(qxi, qyi, qzi, qxj, qyj, qzj, gmj, soft)
+    cuda.require_cuda("tpu+tile", qxi)
+    if not float(soft) > 0.0:
+        raise ValueError("tpu+tile: the sweep needs a positive softening")
+    dtype, dev = qxi.dtype, qxi.device
+    ni, nj = qxi.shape[0], qxj.shape[0]
+    xi, yi, zi = cuda.kernel_inputs("tpu+tile", dev, ni, qxi, qyi, qzi,
+                                    notify=notify_fp32_compute)
+    xj, yj, zj, gj = cuda.kernel_inputs("tpu+tile", dev, nj, qxj, qyj, qzj,
+                                        gmj, notify=notify_fp32_compute)
+    out = torch.empty((3, ni), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        cuda.launch("murb_tile_rect", xi.data_ptr(), yi.data_ptr(),
+                    zi.data_ptr(), ni, xj.data_ptr(), yj.data_ptr(),
+                    zj.data_ptr(), gj.data_ptr(), nj,
+                    ctypes.c_float(float(soft) ** 2), out[0].data_ptr(),
+                    out[1].data_ptr(), out[2].data_ptr(), cuda.stream(dev))
+    acc_tile_rect.launches += 1
+    return Accel(*(o.to(dtype) for o in out))
+
+
+acc_tile_rect.launches = 0
+
+
+def acc_tile(qx, qy, qz, gm, soft) -> Accel:
+    """Square all-pairs case (the single-device engines)."""
+    return acc_tile_rect(qx, qy, qz, qx, qy, qz, gm, soft)

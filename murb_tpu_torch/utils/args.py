@@ -1,0 +1,130 @@
+"""murb-compatible command-line parsing for the port.
+
+Port of the main-path subset of ``murb_tpu/utils/args.py`` (ref:
+src/murb/main.cpp:61-165): required ``-n``/``-i``; ``-v --dt --nv --im
+--soft -s --gf``; the extensions ``--seed --precision --scan --tol
+--list-impls``; and the port's ``--device`` (default ``cuda``).  Every
+other flag of ``murb_tpu`` still parses, so the CLI can exit with a clear
+"not yet ported" message instead of an argparse error.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+
+
+@dataclasses.dataclass
+class MurbConfig:
+    n_bodies: int
+    n_iterations: int
+    verbose: bool = False
+    dt: float = 3600.0                      # ref: main.cpp:45
+    softening: float = 2.0e8                # ref: main.cpp:47
+    visu_enable: bool = True
+    impl_tag: str = "cpu+naive"             # ref: main.cpp:40
+    scheme: str = "galaxy"                  # ref: main.cpp:51
+    show_gflops: bool = False
+    seed: int = 123
+    precision: str = "fp32"
+    scan: bool = False
+    list_impls: bool = False
+    tol: float = 1e-4
+    device: str = "cuda"
+    # murb_tpu flags given on the command line that the port lacks
+    unported: list[str] = dataclasses.field(default_factory=list)
+
+
+#: murb_tpu flags the port does not carry yet -> takes a value?
+UNPORTED_FLAGS = {
+    "--ngs": False, "--ww": True, "--wh": True, "--nvc": False,
+    "--scheme-file": True, "--shards": True, "--csv": True,
+    "--visu-out": True, "--visu-live": "?", "--chunk": True,
+    "--block-i": True, "--block-j": True, "--gpu-fraction": True,
+    "--save-state": True, "--save-every": True, "--load-state": True,
+    "--profile": True, "--dump-traj": True, "--dump-every": True,
+    "--ite-chunk": True, "--cam-azim": True, "--cam-elev": True,
+    "--kernel": True, "--autotune": False, "--m2l-dots": True,
+    "--near": True, "--adapt-every": True, "--check-finite": False,
+}
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="murb-tpu-torch",
+        description="n-body simulation on PyTorch + CUDA "
+                    "(murb-compatible CLI)",
+        add_help=False,
+    )
+    req = p.add_argument_group("required arguments")
+    req.add_argument("-n", dest="n_bodies", type=int, default=None,
+                     help="the number of generated bodies.")
+    req.add_argument("-i", dest="n_iterations", type=int, default=None,
+                     help="the number of iterations to compute.")
+
+    fac = p.add_argument_group("facultative arguments")
+    fac.add_argument("-v", dest="verbose", action="store_true",
+                     help="enable verbose mode.")
+    fac.add_argument("-h", "--help", action="help",
+                     help="display this help.")
+    fac.add_argument("--dt", dest="dt", type=float, default=3600.0,
+                     help="select a fixed time step in second "
+                          "(default is 3600 sec).")
+    fac.add_argument("--nv", dest="visu_enable", action="store_false",
+                     help="no visualization (the port runs headless "
+                          "either way).")
+    fac.add_argument("--im", dest="impl_tag", type=str, default="cpu+naive",
+                     help="code implementation tag (see --list-impls).")
+    fac.add_argument("--soft", dest="softening", type=float, default=2.0e8,
+                     help="softening factor (default is 2e8 m).")
+    fac.add_argument("-s", dest="scheme", type=str, default="galaxy",
+                     help='bodies scheme ("galaxy" or "random").')
+    fac.add_argument("--gf", dest="show_gflops", action="store_true",
+                     help="display the number of GFlop/s.")
+
+    ext = p.add_argument_group("extensions")
+    ext.add_argument("--seed", type=int, default=123,
+                     help="RNG seed for the initial conditions "
+                          "(default 123).")
+    ext.add_argument("--precision", choices=("fp32", "fp64", "bf16"),
+                     default="fp32",
+                     help="state precision (default fp32; bf16 is not yet "
+                          "ported).")
+    ext.add_argument("--scan", action="store_true",
+                     help="time the whole run as one window after one "
+                          "warm-up step (no per-iteration lines).")
+    ext.add_argument("--list-impls", action="store_true", default=False,
+                     help="list available implementation tags and exit.")
+    ext.add_argument("--tol", dest="tol", type=float, default=1e-4,
+                     help="fast-solver relative force-error target "
+                          "(tpu+proxy; default 1e-4).")
+    ext.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                     help="device for the state and every kernel (default "
+                          "cuda; never falls back to the CPU).")
+
+    todo = p.add_argument_group("murb_tpu flags not yet ported")
+    for flag, value in UNPORTED_FLAGS.items():
+        dest = "unported_" + flag.lstrip("-").replace("-", "_")
+        if value is False:
+            todo.add_argument(flag, dest=dest, action="store_true",
+                              help=argparse.SUPPRESS)
+        else:
+            todo.add_argument(flag, dest=dest, default=None,
+                              nargs=None if value is True else value,
+                              const=True if value == "?" else None,
+                              help=argparse.SUPPRESS)
+    return p
+
+
+def parse_args(argv=None) -> MurbConfig:
+    ns = build_parser().parse_args(argv)
+    if not ns.list_impls and (ns.n_bodies is None or ns.n_iterations is None):
+        build_parser().error("the arguments -n and -i are required")
+    if ns.softening == 0.0:
+        # ref: main.cpp:152-155
+        raise SystemExit("Softening factor can't be equal to 0... exiting.")
+    ns.unported = [
+        flag for flag in UNPORTED_FLAGS
+        if getattr(ns, "unported_" + flag.lstrip("-").replace("-", "_"))
+        not in (None, False)]
+    fields = {f.name for f in dataclasses.fields(MurbConfig)}
+    return MurbConfig(**{k: v for k, v in vars(ns).items() if k in fields})

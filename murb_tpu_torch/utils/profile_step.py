@@ -1,0 +1,101 @@
+"""Where the time of a ``tpu+proxy`` step goes on a CUDA card.
+
+    python -m murb_tpu_torch.utils.profile_step
+
+Builds the N=200,000 galaxy (seed 123) and the ``tpu+proxy`` engine the
+way the CLI does (validated order, no mid-run adaptation), runs warm-up
+steps, and then:
+
+  1. times WINDOWS unprofiled windows of WINDOW_STEPS steps on the host
+     clock, each ending in ``torch.cuda.synchronize``;
+  2. profiles STEPS steps with ``torch.profiler`` and sums the device
+     events: kernels, copies and memsets, the rows whose device type is
+     CUDA.  This is the profiler table's "Self CUDA time total".  Host
+     operator rows are left out, because their device time is the same
+     kernels counted again.
+
+It prints the device time and the device events per step, the busy share
+(device time per step over the median unprofiled window's time per step)
+and the device events that take the most time.  Needs a CUDA device.
+"""
+from __future__ import annotations
+
+import statistics
+import sys
+import time
+
+import torch
+
+from murb_tpu_torch.core.init import make_bodies
+from murb_tpu_torch.models import create_engine
+
+N, SEED = 200_000, 123
+WINDOWS, WINDOW_STEPS = 3, 200
+STEPS = 50      # profiled steps
+TOP = 12        # device events listed
+
+
+def device_rows(prof) -> list:
+    """The profiler's per-name rows of device events (no host operators,
+    no user annotations)."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("profile_step: no CUDA device available", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda", 0)
+    bodies = make_bodies(N, "galaxy", SEED, device=dev)
+    eng = create_engine("tpu+proxy", bodies, soft=2.0e8, dt=3600.0)
+    if not eng.using_proxy:
+        print("profile_step: the cost model took the exact sweep at "
+              f"N={N}; nothing to profile", file=sys.stderr)
+        return 1
+    print(f"tpu+proxy N={N} galaxy: m={eng.m} cells={eng.cells} "
+          f"validated_err {eng.validated_err:.3e} on "
+          f"{torch.cuda.get_device_name(dev)}")
+    eng.run(5)
+    eng.block_until_ready()
+
+    window_ms = []
+    for _ in range(WINDOWS):
+        t0 = time.perf_counter()
+        eng.run(WINDOW_STEPS)
+        eng.block_until_ready()
+        window_ms.append((time.perf_counter() - t0) * 1e3 / WINDOW_STEPS)
+    step_ms = statistics.median(window_ms)
+    print("unprofiled windows: " + ", ".join(f"{w:.4f}" for w in window_ms)
+          + f" ms/step ({WINDOW_STEPS} steps each; median "
+          f"{step_ms:.4f} ms, {1e3 / step_ms:.2f} steps/s)")
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        eng.run(STEPS)
+        eng.block_until_ready()
+    rows = device_rows(prof)
+    dev_us = sum(e.self_device_time_total for e in rows)
+    events = sum(e.count for e in rows)
+    if dev_us <= 0:
+        print("profile_step: the profiler recorded no device time; device "
+              "time not measured", file=sys.stderr)
+        return 1
+    dev_ms = dev_us / 1e3 / STEPS
+    print(f"profiled {STEPS} steps: device time {dev_us / 1e3:.3f} ms "
+          f"= {dev_ms:.4f} ms/step in {events / STEPS:.1f} device "
+          f"events/step; busy share {dev_ms / step_ms:.3f} of the "
+          f"unprofiled step")
+    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:TOP]:
+        print(f"  {e.self_device_time_total / STEPS:9.2f} us/step "
+              f"{e.count / STEPS:6.1f}x  {e.key[:90]}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,275 @@
+"""The CUDA kernels' plain versions against murb_tpu's Pallas kernels.
+
+The CUDA kernels themselves run only on a card (chip_smoke.py holds each
+against its plain version there).  Here, on the CPU, each wrapper must run
+exactly its plain version, and each plain version must agree with the TPU
+kernel it replaces, run in Pallas interpret mode as tests/test_proxy.py
+does:
+
+  K1/K2  p2m_fused / l2p_fused_multi   rtol 1e-4, atol 1e-6 max|W| / 1e-5 max
+  K3     acc_tile_rect                 WithinRel 1e-5
+  K4     acc_hybrid_rect(passes=2)     WithinRel 2e-4, and each tier against
+                                       a numpy float64 oracle (5e-3, 1e-4,
+                                       1e-5 for passes 1, 2, 3)
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from conftest import assert_within_rel
+from murb_tpu import G
+from murb_tpu.core import init as jinit
+from murb_tpu_torch.ops import cuda
+from murb_tpu_torch.ops import hybrid as th
+from murb_tpu_torch.ops import proxy_kernels as tk
+from murb_tpu_torch.ops import tile as tt
+from murb_tpu_torch.ops.proxy import bounding_box
+
+torch.set_num_threads(2)
+SOFT = 2.0e8
+
+
+def state_arrays(scheme, n, seed):
+    s = jinit.SCHEMES[scheme](n, seed)
+    q = [np.array(getattr(s, k), np.float32) for k in ("qx", "qy", "qz")]
+    return q + [(np.asarray(s.m, np.float64) * G).astype(np.float32)]
+
+
+def numpy_oracle(qi, qj, gmj):
+    """float64 double loop over the j-set, vectorized over i."""
+    qi = np.stack(qi, 1).astype(np.float64)
+    qj = np.stack(qj, 1).astype(np.float64)
+    acc = np.zeros_like(qi)
+    for j in range(qj.shape[0]):
+        d = qj[j] - qi
+        w = float(gmj[j]) / (np.sum(d * d, 1) + SOFT ** 2) ** 1.5
+        acc += w[:, None] * d
+    return acc.T
+
+
+# ------------------------------------------------------------- K1 and K2
+@pytest.fixture(scope="module")
+def anterp_case():
+    m = 12
+    a = state_arrays("galaxy", 512, 17)
+    t = list(map(torch.from_numpy, a))
+    c, h = bounding_box(*t[:3], t[3] > 0)
+    return m, a, t, c, h
+
+
+def test_p2m_plain_matches_pallas_p2m(anterp_case):
+    from murb_tpu.ops.proxy_pallas import p2m_fused
+
+    m, a, t, c, h = anterp_case
+    ref = np.asarray(p2m_fused(*map(jnp.asarray, a), jnp.asarray(c.numpy()),
+                               jnp.asarray(h.numpy()), m=m, block=256,
+                               interpret=True))
+    got = tk.p2m_plain(*t, c, h, m=m).numpy()
+    np.testing.assert_allclose(got, ref, rtol=1e-4,
+                               atol=1e-6 * np.abs(ref).max(),
+                               err_msg="K1 plain vs Pallas P2M "
+                                       "(rtol 1e-4, atol 1e-6 max|W|)")
+
+
+def test_l2p_plain_matches_pallas_l2p(anterp_case):
+    from murb_tpu.ops.proxy_pallas import l2p_fused_multi
+
+    m, a, t, c, h = anterp_case
+    rng = np.random.default_rng(0)
+    fields = [rng.normal(size=m ** 3).astype(np.float32) for _ in range(3)]
+    ref = l2p_fused_multi(*map(jnp.asarray, a[:3]), jnp.asarray(c.numpy()),
+                          jnp.asarray(h.numpy()),
+                          tuple(map(jnp.asarray, fields)), m=m, block=256,
+                          interpret=True)
+    ref = np.stack([np.asarray(r) for r in ref], 1)
+    got = tk.l2p_plain(*t[:3], c, h, tuple(map(torch.from_numpy, fields)),
+                       m=m)
+    got = torch.stack(got, 1).numpy()
+    np.testing.assert_allclose(got, ref, rtol=1e-4,
+                               atol=1e-5 * np.abs(ref).max(),
+                               err_msg="K2 plain vs Pallas L2P "
+                                       "(rtol 1e-4, atol 1e-5 max)")
+
+
+def test_l2p_plain_interpolates_low_degree_fields_exactly(anterp_case):
+    """Chebyshev interpolation of order m reproduces polynomials of degree
+    below m: node fields 1 and x_node come back as 1 and each body's x
+    (float64, tolerance 1e-9 of the box)."""
+    from murb_tpu_torch.ops.proxy import proxy_nodes
+
+    m, a, t, c, h = anterp_case
+    q = [v.double() for v in t[:3]]
+    c, h = c.double(), h.double()
+    px, py, pz = proxy_nodes(c, h, m, torch.float64)
+    one, x = tk.l2p_plain(*q, c, h, (torch.ones_like(px), px), m=m)
+    torch.testing.assert_close(one, torch.ones_like(one), rtol=0, atol=1e-9)
+    torch.testing.assert_close(x, q[0], rtol=0, atol=1e-9 * float(h[0]))
+
+
+def test_basis_is_a_partition_of_unity():
+    """Lagrange bases sum to 1 at any point and interpolate the nodes."""
+    for m in (2, 5, 12, 32):
+        t = torch.linspace(-1, 1, 101, dtype=torch.float64)
+        s = tk._basis(t, m)
+        torch.testing.assert_close(s.sum(1), torch.ones(101,
+                                                        dtype=torch.float64))
+        k = torch.arange(m, dtype=torch.float64)
+        nodes = torch.cos(torch.pi * (k + 0.5) / m)
+        torch.testing.assert_close(tk._basis(nodes, m),
+                                   torch.eye(m, dtype=torch.float64),
+                                   atol=1e-12, rtol=0)
+    with pytest.raises(ValueError):
+        tk._basis(torch.zeros(3), 1)
+
+
+# ------------------------------------------------------------------- K3
+def test_tile_plain_matches_pallas_tile_on_rectangle_with_ghosts():
+    from murb_tpu.ops.tile_pallas import acc_tile_rect
+
+    a = state_arrays("random", 500, 21)          # npad 512: 12 ghosts
+    rows = slice(256, 512)                       # i-set holds the ghosts
+    ref = acc_tile_rect(*(jnp.asarray(v[rows]) for v in a[:3]),
+                        *map(jnp.asarray, a), SOFT, interpret=True)
+    t = list(map(torch.from_numpy, a))
+    got = tt.acc_tile_rect_plain(*(v[rows] for v in t[:3]), *t, SOFT)
+    for c, g, r in zip("xyz", got, ref):
+        assert_within_rel(g.numpy(), np.asarray(r), 1e-5,
+                          f"K3 plain vs Pallas tile a{c} (WithinRel 1e-5)",
+                          rms_floor=1e-5)
+
+
+# ------------------------------------------------------------------- K4
+def test_hybrid_plain_matches_pallas_hybrid():
+    from murb_tpu.ops.hybrid import acc_hybrid_rect
+
+    a = state_arrays("galaxy", 512, 5)
+    rows = slice(0, 256)
+    ref = acc_hybrid_rect(*(jnp.asarray(v[rows]) for v in a[:3]),
+                          *map(jnp.asarray, a), SOFT, passes=2,
+                          interpret=True)
+    t = list(map(torch.from_numpy, a))
+    got = th.acc_hybrid_rect_plain(*(v[rows] for v in t[:3]), *t, SOFT,
+                                   passes=2)
+    for c, g, r in zip("xyz", got, ref):
+        assert_within_rel(g.numpy(), np.asarray(r), 2e-4,
+                          f"K4 plain vs Pallas hybrid p2 a{c} "
+                          "(WithinRel 2e-4)", rms_floor=2e-4)
+
+
+@pytest.mark.parametrize("passes,eps", [(1, 5e-3), (2, 1e-4), (3, 1e-5)])
+def test_hybrid_tiers_against_float64_oracle(passes, eps):
+    a = state_arrays("random", 300, 6)           # npad 512, ghosts as sources
+    rows = slice(0, 200)
+    ref = numpy_oracle([v[rows] for v in a[:3]], a[:3], a[3])
+    t = list(map(torch.from_numpy, a))
+    got = th.acc_hybrid_rect_plain(*(v[rows] for v in t[:3]), *t, SOFT,
+                                   passes=passes)
+    assert got.ax.dtype == torch.float32
+    for c, g, r in zip("xyz", got, ref):
+        assert_within_rel(g.numpy(), r, eps,
+                          f"K4 p{passes} plain vs float64 a{c} "
+                          f"(WithinRel {eps})", rms_floor=eps)
+
+
+def test_extended_tier_separates_from_the_fp32_tier():
+    """At N=8000 the passes-3 plain version sits within WithinRel 5e-8 of
+    the float64 oracle, about one float32 rounding of the output, and the
+    fp32 tier does not: a passes-3 path that summed in fp32 fails here."""
+    a = state_arrays("random", 8000, 6)
+    rows = slice(0, 128)
+    ref = numpy_oracle([v[rows] for v in a[:3]], a[:3], a[3])
+    t = list(map(torch.from_numpy, a))
+
+    def check(passes):
+        got = th.acc_hybrid_rect_plain(*(v[rows] for v in t[:3]), *t, SOFT,
+                                       passes=passes)
+        for c, g, r in zip("xyz", got, ref):
+            assert_within_rel(g.numpy(), r, 5e-8,
+                              f"K4 p{passes} plain vs float64 a{c} "
+                              "(WithinRel 5e-8)", rms_floor=5e-8)
+
+    check(3)
+    with pytest.raises(AssertionError, match="beyond rel eps=5e-08"):
+        check(2)
+
+
+# -------------------------------------------------- wrappers on the CPU
+def test_wrappers_run_their_plain_version_on_cpu_tensors():
+    a = state_arrays("galaxy", 512, 3)
+    t = list(map(torch.from_numpy, a))
+    c, h = bounding_box(*t[:3], t[3] > 0)
+    counts = (tk.p2m_fused.launches, tk.l2p_fused_multi.launches,
+              tt.acc_tile_rect.launches, th.acc_hybrid_rect.launches)
+    torch.testing.assert_close(tk.p2m_fused(*t, c, h, m=8),
+                               tk.p2m_plain(*t, c, h, m=8), rtol=0, atol=0)
+    w = tk.p2m_plain(*t, c, h, m=8)
+    for g, r in zip(tk.l2p_fused_multi(*t[:3], c, h, (w, w), m=8),
+                    tk.l2p_plain(*t[:3], c, h, (w, w), m=8)):
+        torch.testing.assert_close(g, r, rtol=0, atol=0)
+    for g, r in zip(tt.acc_tile(*t, SOFT),
+                    tt.acc_tile_rect_plain(*t[:3], *t, SOFT)):
+        torch.testing.assert_close(g, r, rtol=0, atol=0)
+    for p in (1, 2, 3):
+        for g, r in zip(th.acc_hybrid(*t, SOFT, passes=p),
+                        th.acc_hybrid_rect_plain(*t[:3], *t, SOFT,
+                                                 passes=p)):
+            torch.testing.assert_close(g, r, rtol=0, atol=0)
+    # the plain path is no launch
+    assert counts == (tk.p2m_fused.launches, tk.l2p_fused_multi.launches,
+                      tt.acc_tile_rect.launches, th.acc_hybrid_rect.launches)
+
+
+def test_wrappers_refuse_devices_other_than_cpu_and_cuda():
+    m = torch.zeros(256, device="meta")
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        tt.acc_tile_rect(m, m, m, m, m, m, m, SOFT)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        th.acc_hybrid_rect(m, m, m, m, m, m, m, SOFT, passes=2)
+    c = torch.zeros(3, device="meta")
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        tk.p2m_fused(m, m, m, m, c, c, m=8)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        tk.l2p_fused_multi(m, m, m, c, c, (torch.zeros(512, device="meta"),),
+                           m=8)
+    with pytest.raises(ValueError, match="passes"):
+        th.acc_hybrid_rect(m, m, m, m, m, m, m, SOFT, passes=4)
+
+
+def test_kernel_inputs_checks_dtype_shape_and_device():
+    dev = torch.device("cpu")
+    seen = []
+    note = lambda tag, dtype: seen.append((tag, dtype))
+    x = torch.arange(8, dtype=torch.float64)
+    (y,) = cuda.kernel_inputs("k", dev, 8, x, notify=note)
+    assert y.dtype == torch.float32 and seen == [("k", torch.float64)]
+    strided = torch.zeros(16)[::2]
+    (z,) = cuda.kernel_inputs("k", dev, 8, strided, notify=note)
+    assert z.is_contiguous()
+    with pytest.raises(TypeError, match="dtype"):
+        cuda.kernel_inputs("k", dev, 8, torch.zeros(8, dtype=torch.int32),
+                           notify=note)
+    with pytest.raises(ValueError, match="shape"):
+        cuda.kernel_inputs("k", dev, 8, torch.zeros(9), notify=note)
+    with pytest.raises(ValueError, match="meta"):
+        cuda.kernel_inputs("k", dev, 8, torch.zeros(8, device="meta"),
+                           notify=note)
+
+
+# -------------------------------------------------------------- the build
+def test_build_kernels_raises_clearly_without_nvcc(monkeypatch, tmp_path):
+    monkeypatch.setattr(cuda, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(cuda, "DEFAULT_NVCC", tmp_path / "no" / "nvcc")
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    monkeypatch.setenv("PATH", str(tmp_path / "empty"))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        cuda.build_kernels()
+    assert not (tmp_path / "build").exists()
+
+
+def test_library_path_is_keyed_by_the_sources():
+    p = cuda.library_path()
+    assert p.parent == cuda.BUILD_DIR and p.name.startswith("libmurb_kernels_")
+    assert p == cuda.library_path()
+    srcs = {s.name for s in cuda._sources()}
+    assert {"tile.cu", "hybrid.cu", "proxy.cu", "sweep.cuh"} <= srcs
