@@ -16,12 +16,24 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
   5. K3 on the path: one ``acc_proxy`` at m=20 (8000 nodes) on that state;
   6. K4 on the path: ``--im tpu+hybrid`` (passes 2, which runs K3's
      kernel) and ``--im tpu+hybrid+x3`` (passes 3, K4's own kernel) at
-     N=30,000 through the CLI.
+     N=30,000 through the CLI;
+  7. the tracked paths at full width: ``tpu+tracking`` and
+     ``tpu+leapfrog+tracking --kernel proxy`` on the N=200,000 galaxy
+     through the CLI (the fused proxy: K1 and K2; the energy of row 0 held
+     to an exact K6 energy of the same state), and the Milky Way-Andromeda
+     merger (81,920 bodies, made by scripts/make_two_galaxy_tab.py) with
+     ``tpu+tracking+multi`` through the CLI (K4 force, K5 metrics) and
+     through ``create_engine`` with no ``acc_fn`` (K6), beside the
+     untracked exact engine on the same state; then, at N=2048, each
+     tracked and integrator engine on the card against the CPU plain path.
 Each piece of the path (the CLI run of phase 4, the ``acc_proxy`` of phase
-5, each CLI run of phase 6) starts from zeroed launch counts, which are read
-right after it: K1 and K2 from phase 4, K3 from phase 5, K4 from phase 6.
-Every kernel must have launched in its piece.  The line before the last is
-the kernels' JSON record; the last line is the result object.
+5, each CLI run of phase 6, each run of phase 7) starts from zeroed launch
+counts, which are read right after it: K1 and K2 from phase 4, K3 from
+phase 5, K4 from phase 6, K5 and K6 from phase 7.  Every kernel must have
+launched in its piece.  The line before the last is the kernels' JSON
+record (with each kernel's bound: the larger of its bytes over 3.35 TB/s
+and its operations over the 67 TFLOP/s fp32 peak of an H100 SXM); the last
+line is the result object.
 
 Needs a CUDA device and the rest of the repository beside this file; it
 exits non-zero without printing a result otherwise.
@@ -34,11 +46,23 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 SEED = 123
 SOFT = 2.0e8
+DT = 3600.0
 TOL = 1e-4
+ROOT = os.path.dirname(os.path.abspath(__file__))
+# H100 SXM peaks (NVIDIA data sheet, 700 W): HBM bytes/s, fp32 FLOP/s
+PEAK_BYTES, PEAK_FP32 = 3.35e12, 67e12
+
+
+def bound(nbytes: float, flops: float) -> tuple[float, str]:
+    """The least time (ms) the card could take: bytes moved once over the
+    memory rate, or operations over the fp32 rate, whichever is larger."""
+    t_b, t_f = nbytes / PEAK_BYTES, flops / PEAK_FP32
+    return max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations"
 
 
 def check(cond: bool, msg: str) -> None:
@@ -52,15 +76,24 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, ROOT)
     import numpy as np
 
     from murb_tpu_torch import G
     from murb_tpu_torch import cli
-    from murb_tpu_torch.core.init import init_galaxy, init_random
+    from murb_tpu_torch.models import create_engine
+    from murb_tpu_torch.core.init import (init_galaxy,
+                                          init_milkyway_andromeda,
+                                          init_random,
+                                          milkyway_andromeda_masks)
+    from murb_tpu_torch.core.metrics import energy_from_phi
     from murb_tpu_torch.ops import cuda
     from murb_tpu_torch.ops.hybrid import (acc_hybrid_rect,
-                                           acc_hybrid_rect_plain)
+                                           acc_hybrid_rect_plain,
+                                           acc_phi_rows_hybrid,
+                                           acc_phi_rows_plain, phi_rows,
+                                           phi_rows_rect,
+                                           phi_rows_rect_plain)
     from murb_tpu_torch.ops.proxy import acc_proxy, bounding_box, heavy_split
     from murb_tpu_torch.ops.proxy_kernels import (l2p_fused_multi, l2p_plain,
                                                   p2m_fused, p2m_plain)
@@ -141,6 +174,13 @@ def main() -> int:
 
     record = {}
 
+    def keep(k, err, ms, plain_ms, nbytes, flops):
+        b_ms, b_by = bound(nbytes, flops)
+        # no single PyTorch call computes any of these kernels' functions
+        record[k] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+        return b_ms
+
     # ------------------------------------------------- 3. kernel parity
     n_main = 200_000
     st = init_galaxy(n_main, SEED, device=dev)
@@ -167,29 +207,40 @@ def main() -> int:
               f"(max|W| {scale_w:.3e}, tol rtol 1e-4 + 1e-6*max|W|) "
               f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
         if m == 12:
-            record["K1"] = (err_w, ms, plain_ms)
+            # per body: the contraction (2 m^3) and three bases (~6 m^2)
+            keep("K1", err_w, ms, plain_ms, 16 * n_main + 4 * m ** 3,
+                 n_main * (2 * m ** 3 + 6 * m ** 2))
 
-        fields = tuple(torch.randn(m ** 3, generator=gen, device=dev)
-                       for _ in range(3))
-        a = torch.stack(l2p_fused_multi(st.qx, st.qy, st.qz, c, h, fields,
+        # k=3: the force; 4: force + potential (tpu+tracking); 5: force + 2
+        # galaxy potentials (the kernel runs groups of at most 4 fields)
+        for k in ((3, 4, 5) if m == 12 else (3,)):
+            fields = tuple(torch.randn(m ** 3, generator=gen, device=dev)
+                           for _ in range(k))
+            a = torch.stack(l2p_fused_multi(st.qx, st.qy, st.qz, c, h,
+                                            fields, m=m))
+            a64 = torch.stack(l2p_plain(*q64, c.double(), h.double(),
+                                        tuple(f.double() for f in fields),
                                         m=m))
-        a64 = torch.stack(l2p_plain(*q64, c.double(), h.double(),
-                                    tuple(f.double() for f in fields), m=m))
-        err_a = float((a.double() - a64).abs().max())
-        scale_a = float(a64.abs().max())
-        check(bool(torch.allclose(a.double(), a64, rtol=1e-4,
-                                  atol=1e-5 * scale_a)),
-              f"K2 m={m}: max|da| {err_a:.3e} vs rtol 1e-4, atol "
-              f"1e-5*max|a| ({1e-5 * scale_a:.3e})")
-        ms = time_ms(lambda: l2p_fused_multi(st.qx, st.qy, st.qz, c, h,
-                                             fields, m=m))
-        plain_ms = time_ms(lambda: l2p_plain(st.qx, st.qy, st.qz, c, h,
-                                             fields, m=m))
-        print(f"[3 K2 l2p m={m} N={n_main} k=3] max|da| {err_a:.3e} "
-              f"(max|a| {scale_a:.3e}, tol rtol 1e-4 + 1e-5*max|a|) "
-              f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
-        if m == 12:
-            record["K2"] = (err_a, ms, plain_ms)
+            err_a = float((a.double() - a64).abs().max())
+            scale_a = float(a64.abs().max())
+            check(bool(torch.allclose(a.double(), a64, rtol=1e-4,
+                                      atol=1e-5 * scale_a)),
+                  f"K2 m={m} k={k}: max|da| {err_a:.3e} vs rtol 1e-4, atol "
+                  f"1e-5*max|a| ({1e-5 * scale_a:.3e})")
+            ms = time_ms(lambda: l2p_fused_multi(st.qx, st.qy, st.qz, c, h,
+                                                 fields, m=m))
+            plain_ms = time_ms(lambda: l2p_plain(st.qx, st.qy, st.qz, c, h,
+                                                 fields, m=m))
+            b_ms, _ = bound(12 * n_main + 4 * k * (m ** 3 + n_main),
+                            n_main * (2 * k * m ** 3 + 6 * m ** 2))
+            print(f"[3 K2 l2p m={m} N={n_main} k={k}] max|da| {err_a:.3e} "
+                  f"(max|a| {scale_a:.3e}, tol rtol 1e-4 + 1e-5*max|a|) "
+                  f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
+                  f"bound {b_ms:.4f} ms")
+            if (m, k) == (12, 3):
+                keep("K2", err_a, ms, plain_ms,
+                     12 * n_main + 4 * k * (m ** 3 + n_main),
+                     n_main * (2 * k * m ** 3 + 6 * m ** 2))
 
     sr = init_random(16_300, SEED, device=dev)      # npad 16384, 84 ghosts
     gr = sr.m * torch.tensor(G, dtype=torch.float32).item()
@@ -212,7 +263,8 @@ def main() -> int:
               f"(rms floor 5e-6) at {worst:.3f} of the allowance; "
               f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
         if ni == sr.npad:
-            record["K3"] = (err, ms, plain_ms)
+            # 20 flops a pair: the reference's model
+            keep("K3", err, ms, plain_ms, 40 * ni, 20 * ni * ni)
 
     # passes 1/2 run K3's fp32 kernel; passes 3 is K4's own fp64-accumulating
     # kernel.  On this input the fp32 tier already reads under 1e-6, so the
@@ -236,16 +288,77 @@ def main() -> int:
               f"{rel:.3e} (contract {contract:g}) max|da| {err:.3e}; "
               f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
         if passes == 3:
-            record["K4"] = (err, ms, plain_ms)
+            keep("K4", err, ms, plain_ms, 40 * sr.npad, 20 * sr.npad ** 2)
     check(rels[3] <= 0.5 * rels[2], f"K4 passes=3 error {rels[3]:.3e} is not "
                                     f"at most half of passes=2's "
                                     f"{rels[2]:.3e}")
     del st, sr, w64, a64, ref
+
+    # K5 and K6 at the merger's shape, 81,920^2 with R = 2 galaxy rows.  The
+    # float64 reference takes 4096 strided i-rows against every source (as
+    # ops/validate samples); the plain versions are timed at the full shape.
+    # Contracts: phi within 1e-5 relative per element, the force within
+    # K4 passes 2's 3e-5.
+    tmpdir = tempfile.TemporaryDirectory()      # removed at exit
+    tab = os.path.join(tmpdir.name, "milkyway_andromeda.tab")
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, os.path.join(ROOT, "scripts",
+                                                 "make_two_galaxy_tab.py"),
+                    tab], check=True, capture_output=True, timeout=300)
+    mg = init_milkyway_andromeda(tab, device=dev)
+    print(f"[3 merger] {mg.n} bodies from scripts/make_two_galaxy_tab.py in "
+          f"{time.perf_counter() - t0:.1f} s")
+    masks = milkyway_andromeda_masks(mg.npad, mg.n)
+    gmg = mg.m * torch.tensor(G, dtype=torch.float32).item()
+    rows = torch.stack([torch.as_tensor(mk, device=dev) for mk in masks]) \
+        * gmg[None, :]
+    qm = (mg.qx, mg.qy, mg.qz)
+    nm, r = mg.npad, rows.shape[0]
+    idx = torch.linspace(0, nm - 1, 4096, device=dev).long()
+    qm64 = tuple(v.double() for v in qm)
+    qs64 = tuple(v[idx] for v in qm64)
+    ref_phi = phi_rows_rect_plain(*qs64, *qm64, rows.double(), SOFT)
+
+    def phi_err(phi):
+        d = phi[:, idx].double() - ref_phi
+        return float(d.abs().max()), float((d.abs() / ref_phi.abs()).max())
+
+    phi = phi_rows(*qm, rows, SOFT)
+    err5, rel5 = phi_err(phi)
+    check(rel5 <= 1e-5, f"K5: max relative phi error {rel5:.3e} > 1e-5")
+    ms = time_ms(lambda: phi_rows(*qm, rows, SOFT), reps=5)
+    plain_ms = time_ms(lambda: phi_rows_rect_plain(*qm, *qm, rows, SOFT),
+                       reps=1, runs=3)
+    b5 = keep("K5", err5, ms, plain_ms, (24 + 8 * r) * nm,
+              (10 + 2 * r) * nm * nm)
+    print(f"[3 K5 phi_rows {nm}x{nm} R={r}] max rel phi err {rel5:.3e} "
+          f"(contract 1e-5) max|dphi| {err5:.3e}; kernel {ms:.4f} ms plain "
+          f"{plain_ms:.4f} ms bound {b5:.4f} ms")
+
+    acc6, phi6 = acc_phi_rows_hybrid(*qm, gmg, rows, SOFT)
+    ref_acc = acc_tile_rect_plain(*qs64, *qm64, gmg.double(), SOFT)
+    rel6 = norm_rel([a[idx] for a in acc6], ref_acc)
+    err6, prel6 = phi_err(phi6)
+    check(rel6 <= 3e-5, f"K6: max relative force error {rel6:.3e} > 3e-5")
+    check(prel6 <= 1e-5, f"K6: max relative phi error {prel6:.3e} > 1e-5")
+    erra6 = max(float((a[idx].double() - b).abs().max())
+                for a, b in zip(acc6, ref_acc))
+    ms = time_ms(lambda: acc_phi_rows_hybrid(*qm, gmg, rows, SOFT), reps=5)
+    plain_ms = time_ms(lambda: acc_phi_rows_plain(*qm, gmg, rows, SOFT),
+                       reps=1, runs=3)
+    b6 = keep("K6", erra6, ms, plain_ms, (28 + 8 * r) * nm,
+              (20 + 2 * r) * nm * nm)
+    print(f"[3 K6 acc_phi_rows {nm}x{nm} R={r}] max rel force err "
+          f"{rel6:.3e} (contract 3e-5) max|da| {erra6:.3e}; max rel phi "
+          f"err {prel6:.3e} (contract 1e-5) max|dphi| {err6:.3e}; kernel "
+          f"{ms:.4f} ms plain {plain_ms:.4f} ms bound {b6:.4f} ms")
+    del ref_phi, ref_acc, acc6, phi6, phi
     torch.cuda.empty_cache()
 
     # ------------------------------------------------- 4. the main path
     wrappers = {"K1": p2m_fused, "K2": l2p_fused_multi, "K3": acc_tile_rect,
-                "K4": acc_hybrid_rect}
+                "K4": acc_hybrid_rect, "K5": phi_rows_rect,
+                "K6": acc_phi_rows_hybrid}
 
     def drive(run):
         """Zero every launch count, run one piece of the path, and return
@@ -278,9 +391,7 @@ def main() -> int:
           f"steps) on {smi}; launches {counts}")
 
     # small input: the card's trajectory agrees with the CPU plain path
-    from murb_tpu_torch.models import create_engine
-
-    small = init_galaxy(2048, SEED)
+    small = init_galaxy(2048, SEED, device="cpu")
     runs = []
     for d in ("cpu", dev):
         e = create_engine("tpu+proxy", small.to(d), soft=SOFT, dt=3600.0)
@@ -319,6 +430,137 @@ def main() -> int:
               f"launches {counts}")
     launches["K4"] = counts["K4"]
 
+    # ------------------------------------- 7. the tracked paths, full width
+    # The energy of row 0 (the initial state) is held to the exact energy of
+    # the same state from one K6 sweep (R = 1, the total G*m row) at rtol
+    # 1e-3, the tolerance murb_tpu holds proxy energies to
+    # (tests/test_multigalaxy.py:160-173).
+    st0 = init_galaxy(n_main, SEED, device=dev)
+    gm0 = st0.m * torch.tensor(G, dtype=torch.float32).item()
+    e_exact = float(energy_from_phi(
+        st0, acc_phi_rows_hybrid(st0.qx, st0.qy, st0.qz, gm0, gm0[None, :],
+                                 SOFT)[1][0], SOFT))
+    del st0, gm0
+
+    def rows_finite(hist, n_rows, csv):
+        check(hist.num_iterations == n_rows and all(
+            bool(np.isfinite(getattr(hist, k)).all())
+            for k in ("energies", "ang_momentums", "density_centers")),
+            f"{n_rows} finite history rows")
+        with open(csv) as f:
+            lines = f.read().splitlines()
+        check(len(lines) == n_rows + 1, f"{csv}: {len(lines) - 1} rows, "
+                                        f"expected {n_rows}")
+
+    fps = {"tpu+proxy": res.fps}
+    for tag in ("tpu+tracking", "tpu+leapfrog+tracking"):
+        csv = os.path.join(tmpdir.name, f"{tag}.csv")
+        res7, counts = drive(lambda: cli.run([
+            "-n", str(n_main), "-i", "100", "--im", tag, "--kernel", "proxy",
+            "--nv", "--gf", "--scan", "--csv", csv, "--device", "cuda"]))
+        check(res7.rc == 0, f"cli {tag} exit code {res7.rc}")
+        eng7 = res7.engine
+        eng7.assert_finite()
+        check(eng7._fused_proxy_m > 0, f"{tag} did not take the fused proxy")
+        check(counts["K1"] > 0 and counts["K2"] > 0,
+              f"K1/K2 launched no time under {tag}: {counts}")
+        rows_finite(eng7.history, 100, csv)
+        e0 = float(eng7.history.energies[0])
+        rel = abs(e0 / e_exact - 1.0)
+        check(rel <= 1e-3, f"{tag} energy row 0 {e0:.6e} vs exact "
+                           f"{e_exact:.6e}: rel {rel:.3e} > 1e-3")
+        fps[tag] = res7.fps
+        print(f"[7 tracked] {tag} --kernel proxy N={n_main}: m="
+              f"{eng7._fused_proxy_m}, energy row 0 {e0:.9e} vs exact K6 "
+              f"{e_exact:.9e} (rel {rel:.3e}, tol 1e-3); {res7.fps:.2f} FPS "
+              f"vs tpu+proxy {res.fps:.2f} FPS in this run; launches {counts}")
+
+    def galaxies_sum(hist, label):
+        for k in ("energies", "ang_momentums", "density_centers"):
+            total = sum(getattr(g, k) for g in hist.galaxies)
+            check(bool(np.allclose(getattr(hist, k), total, rtol=1e-12,
+                                   atol=0)),
+                  f"{label}: global {k} is not the sum of the galaxies'")
+
+    # the merger through the CLI: default --kernel (K4 force), K5 metrics
+    csv = os.path.join(tmpdir.name, "merger.csv")
+    res7, counts = drive(lambda: cli.run([
+        "-n", str(mg.n), "-i", "50", "--im", "tpu+tracking+multi", "-s",
+        "milkyway_andromeda", "--scheme-file", tab, "--nv", "--gf", "--scan",
+        "--csv", csv, "--device", "cuda"]))
+    check(res7.rc == 0, f"cli tpu+tracking+multi exit code {res7.rc}")
+    res7.engine.assert_finite()
+    launches["K5"] = counts["K5"]
+    check(counts["K4"] > 0, f"K4 launched no time on the merger: {counts}")
+    hist_cli = res7.engine.history
+    rows_finite(hist_cli, 50, csv)
+    galaxies_sum(hist_cli, "merger (CLI)")
+    fps["merger tracked (K4 + K5)"] = res7.fps
+    print(f"[7 merger] tpu+tracking+multi N={mg.n} through the CLI: "
+          f"{res7.fps:.2f} FPS; launches {counts}")
+
+    def timed(engine, n_steps):
+        """Steps per second of ``run`` after one warm-up step."""
+        engine.run(1)
+        engine.block_until_ready()
+        t0 = time.perf_counter()
+        engine.run(n_steps - 1)
+        engine.block_until_ready()
+        return engine, (n_steps - 1) / (time.perf_counter() - t0)
+
+    (eng7, fps_k6), counts = drive(lambda: timed(create_engine(
+        "tpu+tracking+multi", mg, soft=SOFT, dt=DT, num_iterations=50,
+        masks=masks), 50))
+    launches["K6"] = counts["K6"]
+    eng7.assert_finite()
+    check(eng7._use_fused_exact(), "the merger engine did not fuse")
+    hist = eng7.finalize_history()
+    galaxies_sum(hist, "merger (create_engine)")
+    check(all(bool(np.isfinite(getattr(hist, k)).all())
+              for k in ("energies", "ang_momentums", "density_centers")),
+          "finite merger history")
+    d_e = float(np.max(np.abs(hist.energies / hist_cli.energies - 1.0)))
+    check(d_e <= 1e-4, f"merger energies: K6 path vs K4+K5 path differ by "
+                       f"{d_e:.3e} > 1e-4")
+    (_, fps_exact), _ = drive(lambda: timed(create_engine(
+        "tpu+hybrid", mg, soft=SOFT, dt=DT), 50))
+    fps["merger tracked (K6)"] = fps_k6
+    fps["merger untracked (tpu+hybrid)"] = fps_exact
+    print(f"[7 merger] create_engine tpu+tracking+multi (no acc_fn, K6) "
+          f"{fps_k6:.2f} FPS, untracked tpu+hybrid (passes 2) "
+          f"{fps_exact:.2f} FPS: tracked/untracked {fps_k6 / fps_exact:.3f} "
+          f"(K4+K5 through the CLI: {fps['merger tracked (K4 + K5)'] / fps_exact:.3f}); "
+          f"energies of the two tracked paths differ by {d_e:.3e} (tol "
+          f"1e-4); launches {counts}")
+    print(f"[7 fps] {json.dumps(fps)} on {smi}")
+
+    # small input: the card's tracked and integrator engines agree with the
+    # CPU plain path (on the card tpu+tracking takes K6, on the CPU the
+    # chunked force and the metrics' own sweep; the others run K4)
+    for tag in ("tpu+tracking", "tpu+leapfrog+tracking", "tpu+leapfrog",
+                "tpu+kdk", "tpu+yoshida4"):
+        runs = []
+        for d in ("cpu", dev):
+            e = create_engine(tag, small.to(d), soft=SOFT, dt=DT,
+                              num_iterations=5)
+            e.run(5)
+            runs.append(e)
+        pos = max(float(np.max(np.abs(runs[1].bodies.unpadded()[k]
+                                      - runs[0].bodies.unpadded()[k])
+                               / np.maximum(np.abs(
+                                   runs[0].bodies.unpadded()[k]), 1e-30)))
+                  for k in ("qx", "qy", "qz"))
+        hist = 0.0
+        if hasattr(runs[0], "history"):
+            ref = runs[0].history.energies
+            hist = float(np.max(np.abs(runs[1].history.energies / ref - 1)))
+        check(pos <= 1e-4 and hist <= 1e-5,
+              f"{tag}: card vs cpu positions {pos:.3e} (tol 1e-4), energies "
+              f"{hist:.3e} (tol 1e-5)")
+        print(f"[7 small] {tag} N=2048 galaxy, 5 steps: card vs CPU plain "
+              f"path positions max rel diff {pos:.3e} (tol 1e-4), energies "
+              f"{hist:.3e} (tol 1e-5)")
+
     for k, count in launches.items():
         check(count > 0, f"{k} launched no time on its piece of the path")
     meta = {
@@ -330,13 +572,14 @@ def main() -> int:
                "murb_tpu/ops/tile_pallas.py:39"),
         "K4": ("hybrid_ext_rect", "murb_tpu_torch/csrc/hybrid.cu",
                "murb_tpu/ops/hybrid.py:63"),
+        "K5": ("phi_rows", "murb_tpu_torch/csrc/phi.cu",
+               "murb_tpu/ops/hybrid.py:219"),
+        "K6": ("acc_phi_rows", "murb_tpu_torch/csrc/phi.cu",
+               "murb_tpu/ops/hybrid.py:338"),
     }
-    kernels = []
-    for k, (kname, source, replaces) in meta.items():
-        err, ms, plain_ms = record[k]
-        kernels.append({"name": kname, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": launches[k],
-                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+    kernels = [{"name": kname, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches[k], **record[k]}
+               for k, (kname, source, replaces) in meta.items()]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -6,7 +6,8 @@ H100: plain PyTorch tensor code between hand-written CUDA C++ kernels
 the JAX package is the reference the port is tested against.
 
 Layer map (mirrors ``murb_tpu``):
-  - ``murb_tpu_torch.core``   -- body state, initializers, Euler update
+  - ``murb_tpu_torch.core``   -- body state, initializers, integrators,
+                                 metrics and history
   - ``murb_tpu_torch.ops``    -- oracle sweeps, the proxy solver, order
                                  validation and the CUDA kernel wrappers
   - ``murb_tpu_torch.models`` -- engine registry behind one interface

@@ -3,9 +3,10 @@
 Port of the main-path subset of ``murb_tpu/cli.py``: the configuration
 banner (with the validated proxy order and its measured error), the
 per-iteration frame loop with the verbose status line, the ``--scan``
-timing window, and the final "Entire simulation took ..." summary with the
+timing window, the final "Entire simulation took ..." summary with the
 reference's FLOPs model (20*N^2/iteration) and GFlop/s convention (1024^3
-divisor).
+divisor), and for the tracked engines the ``--kernel`` wiring and the
+``--csv`` metrics export.
 
 ``--device cuda`` (the default) puts the state and every kernel on the
 first CUDA device and exits with status 1 when there is none: the port
@@ -48,20 +49,72 @@ class CliRun:
     gflops: float = 0.0
 
 
+#: engines that take the CLI's ``--kernel`` as their acceleration function
+_WRAPPERS = ("tpu+tracking", "tpu+tracking+multi", "tpu+leapfrog",
+             "tpu+leapfrog+tracking", "tpu+kdk")
+#: of those, the ones whose step fuses the proxy's force and potential
+_FUSIBLE = ("tpu+tracking", "tpu+leapfrog+tracking")
+
+
+def _validated_proxy(cfg: MurbConfig, bodies):
+    """``--kernel proxy``: the order ``m`` the box needs (1.5x growth,
+    rounded up to a multiple of 4), held to ``--tol`` by measurement as
+    ``tpu+proxy`` is (ops/validate).  Returns (m, certified half-extent).
+    A box that needs m > 32 or a hierarchy rung raises "not yet ported"
+    (murb_tpu escalates to its fmm kernel there, cli.py:90-106)."""
+    from murb_tpu_torch import G
+    from murb_tpu_torch.ops.common import not_yet_ported
+    from murb_tpu_torch.ops.proxy import (half_extent, required_order,
+                                          validation_ladder)
+    from murb_tpu_torch.ops.validate import certified_half, validate_config
+
+    half = half_extent(bodies.unpadded())
+    m = (required_order(half * 1.5, cfg.softening, cfg.tol, margin=0)
+         + 3) // 4 * 4
+    if m > 32:
+        raise not_yet_ported(f"--kernel proxy on this box (needs m={m} > 32: "
+                             "the fmm kernel)", "Queue 1 item 7")
+
+    gm = bodies.m * torch.tensor(G, dtype=bodies.dtype).item()
+    m, levels, _, err = validate_config(
+        bodies.qx, bodies.qy, bodies.qz, gm, cfg.softening, cfg.tol, m, 0, 1,
+        half, validation_ladder(cfg.softening))
+    return m, certified_half(m, levels, float(half), err, cfg.softening,
+                             cfg.tol)
+
+
 def build_engine(cfg: MurbConfig, device: torch.device):
     """The engine for ``cfg`` on ``device`` (raises ValueError for unknown
     tags and NotImplementedError for what is not yet ported)."""
-    validate_tag(cfg.impl_tag)  # fail fast, before device work
+    canonical = validate_tag(cfg.impl_tag)  # fail fast, before device work
     if cfg.precision not in _DTYPES:
         raise NotImplementedError(
             f"--precision {cfg.precision} is not yet ported to "
             "murb_tpu_torch (ROADMAP.md Queue 1 item 6)")
     bodies = make_bodies(cfg.n_bodies, cfg.scheme, cfg.seed,
-                         dtype=_DTYPES[cfg.precision], device=device)
+                         dtype=_DTYPES[cfg.precision],
+                         scheme_file=cfg.scheme_file, device=device)
+    extra = {}
+    if canonical == "tpu+tracking+multi":
+        from murb_tpu_torch.core.init import milkyway_andromeda_masks
+
+        extra["masks"] = milkyway_andromeda_masks(bodies.npad, bodies.n)
+    if canonical in _WRAPPERS:
+        from murb_tpu_torch.ops import make_acc_fn
+
+        m = 0
+        if cfg.kernel == "proxy":
+            m, cert_half = _validated_proxy(cfg, bodies)
+        if m and canonical in _FUSIBLE:
+            extra["fused_proxy_m"] = m   # one far-field pass per step
+            extra["validated_half"] = cert_half
+        else:
+            extra["acc_fn"] = make_acc_fn(cfg.kernel, m=m or 16)
     # Mid-run order adaptation for the frame loop, off under --scan (the
     # murb_tpu default; --adapt-every itself is not ported yet).
     return create_engine(cfg.impl_tag, bodies, soft=cfg.softening, dt=cfg.dt,
-                         tol=cfg.tol, adapt_every=0 if cfg.scan else 64)
+                         tol=cfg.tol, adapt_every=0 if cfg.scan else 64,
+                         num_iterations=cfg.n_iterations, **extra)
 
 
 def print_banner(cfg: MurbConfig, engine, device: torch.device) -> None:
@@ -116,7 +169,7 @@ def run(argv=None) -> CliRun:
 
     try:
         engine = build_engine(cfg, device)
-    except (ValueError, NotImplementedError) as e:
+    except (ValueError, NotImplementedError, FileNotFoundError) as e:
         # ref: main.cpp:265-268 -- clean exit on unknown implementation
         print(e)
         return CliRun(1)
@@ -170,14 +223,20 @@ def run(argv=None) -> CliRun:
     print(f"Entire simulation took {result.elapsed_ms:g} ms "
           f"({result.fps:g} FPS{gflops})")
 
-    if hasattr(engine, "proxy_health"):
-        health = engine.proxy_health()
-        if not health["ok"]:
-            print(f"WARNING: system expanded beyond the proxy design margin "
-                  f"(order m={health['m']}, now requires "
-                  f"m={health['required_m_now']}); forces in late "
-                  f"iterations are less accurate -- rerun with --im "
-                  f"tpu+hybrid for exact forces.")
+    health = engine.proxy_health() if hasattr(engine, "proxy_health") \
+        else None
+    if health is not None and not health["ok"]:
+        print(f"WARNING: system expanded beyond the proxy design margin "
+              f"(order m={health['m']}, now requires "
+              f"m={health['required_m_now']}); forces in late "
+              f"iterations are less accurate -- rerun with --im "
+              f"tpu+hybrid for exact forces.")
+
+    if cfg.csv and hasattr(engine, "history"):
+        if hasattr(engine, "finalize_history"):
+            engine.finalize_history()
+        engine.history.save_metrics_to_csv(cfg.csv)
+        print(f"Metrics written to {cfg.csv}")
     return result
 
 

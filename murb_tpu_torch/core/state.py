@@ -24,6 +24,26 @@ def round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
+def in_dtype(x: float, dtype: torch.dtype) -> float:
+    """``x`` rounded to ``dtype`` (a constant the JAX package forms in the
+    state's dtype), as a Python float that such a tensor takes exactly."""
+    return float(torch.tensor(x, dtype=dtype))
+
+
+def check_device(device: torch.device | str) -> torch.device:
+    """The device a state builder is asked for.  A CUDA device with no card
+    raises: the builders default to the card and never build on the CPU
+    unless the caller asks for it."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device}: no CUDA device is available (torch "
+            f"{torch.__version__}); murb_tpu_torch builds its states on the "
+            "card by default and does not fall back to the CPU -- pass "
+            "device='cpu' to run the plain PyTorch versions")
+    return device
+
+
 @dataclasses.dataclass(frozen=True)
 class BodyState:
     """SoA body state: masses, radii, positions, velocities.
@@ -66,12 +86,13 @@ class BodyState:
     def from_arrays(cls, m, r, qx, qy, qz, vx, vy, vz, *, n: int | None = None,
                     pad_multiple: int = PAD_MULTIPLE,
                     dtype: torch.dtype = torch.float32,
-                    device: torch.device | str = "cpu",
+                    device: torch.device | str = "cuda",
                     ghost_positions: np.ndarray | None = None,
                     ghost_velocities: np.ndarray | None = None) -> "BodyState":
         """Build a padded state from unpadded per-body arrays (numpy or
         tensors).  Ghosts get zero mass and radius; their positions and
         velocities default to zero."""
+        device = check_device(device)
         m = np.asarray(m)
         if n is None:
             n = int(m.shape[0])
@@ -101,9 +122,10 @@ class BodyState:
 
     @classmethod
     def from_numpy(cls, arrays: dict, n: int, padding: int,
-                   device: torch.device | str = "cpu") -> "BodyState":
+                   device: torch.device | str = "cuda") -> "BodyState":
         """The same state from its eight padded arrays, ghosts included (the
         layout of ``murb_tpu``'s ``BodyState``), copied to ``device``."""
+        device = check_device(device)
         npad = n + padding
         tensors = {}
         for k in FIELDS:

@@ -28,11 +28,18 @@
 // the partials (grid * m^3 floats), which stay in L2 at the main-path m.
 //
 // L2P: a_f[i] = sum_u Sx_i[u] sum_{v,w} F_f[u, v m + w] Sy_i[v] Sz_i[w]
-// for k <= 4 node fields.  One thread per body holds its Sy and Sz rows
-// in registers; the node fields are staged through shared memory one
-// u-slice (k * m^2 floats, zero-padded to MW x MW) at a time, so m = 32
+// for k <= 4 node fields per launch.  One thread per body holds its Sy and
+// Sz rows in registers; the node fields are staged through shared memory
+// one u-slice (k * m^2 floats, zero-padded to MW x MW) at a time, so m = 32
 // fits, and every thread reads the slice as a broadcast.  Work is
-// N m^3 k fmas; traffic is q in and k N floats out.
+// N m^3 k fmas; traffic is q in and k N floats out.  The tracked paths
+// interpolate 3 + G fields (force, then one potential per galaxy, G <= 8):
+// murb_l2p launches the kernel once per group of at most 4 fields.  A group
+// rebuilds each body's bases (about 3 m^2 fmas, 1/8 of a 4-field group's
+// contraction at m = 12), but the kernel keeps its 4-field register and
+// shared-memory footprint: 11 fields in one launch would stage 45 KB a
+// u-slice at m = 32 and hold 11 accumulators where the m = 32 variant
+// already spills.
 #include <cuda_runtime.h>
 
 namespace murb {
@@ -41,7 +48,8 @@ constexpr int kMaxOrder = 32;
 constexpr int kP2MTile = 64;        // bodies whose bases sit in shared memory
 constexpr int kP2MMaxThreads = 256;
 constexpr int kL2PThreads = 128;
-constexpr int kMaxFields = 4;
+constexpr int kMaxFields = 4;        // node fields one L2P launch takes
+constexpr int kMaxTotalFields = 11;  // fields murb_l2p takes (3 + 8)
 constexpr double kPi = 3.14159265358979323846;
 
 // table[k * (m - 1) + (j - 1)] = T_j(t_k), j = 1..m-1, k = 0..m-1.
@@ -285,16 +293,25 @@ extern "C" int murb_p2m(const float* qx, const float* qy, const float* qz,
   return static_cast<int>(cudaGetLastError());
 }
 
-// fmat: (k * m, m^2) node fields, row f * m + u; out: k * n floats.
+// fmat: (k * m, m^2) node fields, row f * m + u; out: k * n floats.  One
+// launch per group of at most kMaxFields fields.
 extern "C" int murb_l2p(const float* qx, const float* qy, const float* qz,
                         int n, const float* box, int m, const float* fmat,
                         int k, float* out, cudaStream_t stream) {
-  if (m < 2 || m > murb::kMaxOrder || k < 1 || k > murb::kMaxFields)
+  if (m < 2 || m > murb::kMaxOrder || k < 1 || k > murb::kMaxTotalFields)
     return static_cast<int>(cudaErrorInvalidValue);
   if (n <= 0) return 0;
+  const long long p3 = static_cast<long long>(m) * m * m;
+  for (int f0 = 0; f0 < k; f0 += murb::kMaxFields) {
+    const int kg = k - f0 < murb::kMaxFields ? k - f0 : murb::kMaxFields;
+    const float* fg = fmat + f0 * p3;
+    float* og = out + static_cast<long long>(f0) * n;
 #define MURB_L2P(MW) \
-  murb::launch_l2p<MW>(qx, qy, qz, n, box, m, fmat, k, out, stream)
-  MURB_DISPATCH_MW(m, MURB_L2P)
+  murb::launch_l2p<MW>(qx, qy, qz, n, box, m, fg, kg, og, stream)
+    MURB_DISPATCH_MW(m, MURB_L2P)
 #undef MURB_L2P
-  return static_cast<int>(cudaGetLastError());
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
 }

@@ -1,5 +1,5 @@
 // Device code shared by the exact all-pairs sweeps (tile.cu: K3,
-// hybrid.cu: K4).
+// hybrid.cu: K4, phi.cu: K5 and K6).
 //
 // Design: the reference's own gpu+tile+full kernel
 // (ref: src/murb/implem/SimulationNBodyCUDATileFullDevice.cu:53-153).  One
@@ -65,6 +65,31 @@ __device__ __forceinline__ void tile_sum_f32(const float4* tile, float xi,
     ty = fmaf(w, dy, ty);
     tz = fmaf(w, dz, tz);
   }
+}
+
+// ------------------------------------------------- potential-row sweeps
+constexpr int kMaxPhiRows = 8;  // source-weight rows a potential sweep takes
+
+// Stage sources [j0, j0 + kSweepThreads) for the potential sweeps: the
+// packed {x, y, z, G*m} tile (G*m only when the sweep also sums the force;
+// `gmj` is not read otherwise) and R weight rows, rows[r * nj + j], one
+// row of kSweepThreads floats each.  Slots past nj are zero-weight ghosts
+// at the origin: with eps > 0 they add exactly 0 to every row.  Every
+// thread of the block must call it.
+template <int R, bool kForce>
+__device__ __forceinline__ void stage_phi_sources(
+    float4* tile, float (*wtile)[kSweepThreads], const float* qxj,
+    const float* qyj, const float* qzj, const float* gmj, const float* rows,
+    int j0, int nj) {
+  const int j = j0 + threadIdx.x;
+  const bool real = j < nj;
+  tile[threadIdx.x] = real
+      ? make_float4(qxj[j], qyj[j], qzj[j], kForce ? gmj[j] : 0.f)
+      : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+    wtile[r][threadIdx.x] =
+        real ? rows[static_cast<long long>(r) * nj + j] : 0.f;
 }
 
 }  // namespace murb

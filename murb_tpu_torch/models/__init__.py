@@ -17,12 +17,15 @@ _ALIASES: dict[str, str] = {}
 
 #: murb_tpu tags (and their aliases) not ported yet
 NOT_YET_PORTED = (
-    "tpu+mxu", "tpu+tracking", "gpu+tracking", "tpu+tracking+multi",
-    "gpu+tracking+multi", "tpu+leapfrog", "gpu+leapfrog",
-    "tpu+leapfrog+tracking", "gpu+leapfrog+tracking", "tpu+kdk",
-    "tpu+yoshida4", "shard+allgather", "mpi", "shard+ring", "shard+uneven",
+    "tpu+mxu", "shard+allgather", "mpi", "shard+ring", "shard+uneven",
     "hetero", "shard+proxy", "shard+fmm", "shard+adaptive",
 )
+
+#: options of the tracked engines (murb_tpu's registry forwards the same,
+#: less the hierarchy's m2l_dots)
+_TRACKED = ("num_iterations", "acc_fn", "metric_dtype", "metrics_method",
+            "metrics_proxy_m", "fused_proxy_m", "fused_fmm",
+            "fused_adaptive", "validated_half")
 
 
 def register(tag: str, factory: Callable, aliases: tuple[str, ...] = ()):
@@ -93,6 +96,25 @@ def _build_registry():
              lambda b, **kw: E.HybridEngine(b, passes=1, **_filter(kw)))
     register("tpu+hybrid+x3",
              lambda b, **kw: E.HybridEngine(b, passes=3, **_filter(kw)))
+    register("tpu+tracking",
+             lambda b, **kw: E.TrackingEngine(
+                 b, **_filter(kw, *_TRACKED, "history", "fused_exact")),
+             aliases=("gpu+tracking",))
+    register("tpu+tracking+multi",
+             lambda b, **kw: E.MultiGalaxyTrackingEngine(
+                 b, **_filter(kw, *_TRACKED, "masks", "fused_exact")),
+             aliases=("gpu+tracking+multi",))
+    register("tpu+leapfrog",
+             lambda b, **kw: E.LeapfrogEngine(
+                 b, **_filter(kw, "num_iterations", "acc_fn")),
+             aliases=("gpu+leapfrog",))
+    register("tpu+leapfrog+tracking",
+             lambda b, **kw: E.LeapfrogTrackingEngine(
+                 b, **_filter(kw, *_TRACKED, "history")),
+             aliases=("gpu+leapfrog+tracking",))
+    register("tpu+kdk", lambda b, **kw: E.KDKEngine(b, **_filter(kw, "acc_fn")))
+    register("tpu+yoshida4",
+             lambda b, **kw: E.Yoshida4Engine(b, **_filter(kw, "acc_fn")))
 
 
 _build_registry()

@@ -1,1 +1,68 @@
-"""Sweeps, the proxy solver, order validation and the CUDA kernel wrappers."""
+"""Sweeps, the proxy solver, order validation and the CUDA kernel wrappers.
+
+``make_acc_fn`` resolves an acceleration sweep by name for the engines
+that wrap any kernel (tracking, leapfrog, KDK, the CLI's ``--kernel``);
+port of ``murb_tpu/ops/__init__.py``.  Signature of what it returns:
+``fn(qx, qy, qz, gm, soft) -> Accel``.
+"""
+from __future__ import annotations
+
+from functools import partial
+
+
+def acc_auto(qx, qy, qz, gm, soft):
+    """The best exact sweep for the tensors' device: K4 at passes 2
+    (fp32-class) on CUDA tensors, the i-chunked plain sweep on CPU tensors
+    (murb_tpu picks the Pallas hybrid on the TPU, chunked elsewhere)."""
+    if qx.device.type == "cuda":
+        from murb_tpu_torch.ops.hybrid import acc_hybrid
+
+        return acc_hybrid(qx, qy, qz, gm, soft, passes=2)
+    from murb_tpu_torch.ops.naive import acc_chunked
+
+    return acc_chunked(qx, qy, qz, gm, soft)
+
+
+def make_acc_fn(name: str = "auto", *, m: int = 16, passes: int = 2):
+    """Resolve an acceleration kernel by name.
+
+    auto     -- ``acc_auto``: K4 passes 2 on CUDA tensors, chunked on CPU
+    naive    -- full-broadcast oracle (O(N^2) memory)
+    chunked  -- i-chunked plain sweep
+    tile     -- the exact fp32 sweep (K3)
+    hybrid   -- the tiered exact sweep (K4) at ``passes``
+    proxy    -- the Chebyshev proxy at order ``m`` (caller owns validity)
+
+    ``mxu``, ``fmm`` and ``adaptive`` raise "not yet ported"."""
+    from murb_tpu_torch.ops.common import not_yet_ported
+
+    if name == "auto":
+        return acc_auto
+    if name == "naive":
+        from murb_tpu_torch.ops.naive import acc_naive
+
+        return acc_naive
+    if name == "chunked":
+        from murb_tpu_torch.ops.naive import acc_chunked
+
+        return acc_chunked
+    if name == "tile":
+        from murb_tpu_torch.ops.tile import acc_tile
+
+        return acc_tile
+    if name == "hybrid":
+        from murb_tpu_torch.ops.hybrid import acc_hybrid
+
+        return partial(acc_hybrid, passes=passes)
+    if name == "proxy":
+        from murb_tpu_torch.ops.proxy import acc_proxy
+
+        return partial(acc_proxy, m=m)
+    if name == "mxu":
+        raise not_yet_ported("kernel 'mxu' (K13)", "Queue 2 K13")
+    if name in ("fmm", "adaptive"):
+        raise not_yet_ported(f"kernel {name!r} (the multi-level and adaptive "
+                             "hierarchies)", "Queue 1 items 7-8")
+    raise ValueError(f"unknown kernel {name!r} "
+                     "(auto, naive, chunked, tile, hybrid, mxu, proxy, fmm, "
+                     "adaptive)")

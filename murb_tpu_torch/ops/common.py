@@ -22,6 +22,13 @@ class Accel(NamedTuple):
     az: torch.Tensor
 
 
+def not_yet_ported(what: str, item: str) -> NotImplementedError:
+    """The error every branch of the JAX package that the port does not
+    carry yet raises (never a silent substitute)."""
+    return NotImplementedError(
+        f"{what} is not yet ported to murb_tpu_torch (ROADMAP.md {item})")
+
+
 def flops_per_iteration(n: int) -> int:
     """The reference's fixed accounting: 20 flops per interaction, N^2
     interactions (ref: src/murb/implem/SimulationNBodyNaive.cpp:15)."""

@@ -2,7 +2,8 @@
 
 The kernels are plain CUDA C++ for Hopper (``sm_90a``) with a C interface.
 At first use ``build_kernels`` compiles every ``csrc/*.cu`` with ``nvcc``
-into one shared library under ``build/murb_tpu_torch/`` at the repository
+(in parallel, one process per source) and links one shared library under
+``build/murb_tpu_torch/`` at the repository
 root, keyed by a hash of the sources and the flags, and loads it with
 ``ctypes``.  The library is built into a temporary name and renamed into
 place, so concurrent processes never load a half-written file.
@@ -27,7 +28,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "murb_tpu_torch"
 DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -40,6 +41,10 @@ _SIGNATURES = {
                          _P, _P, _P, _P],
     "murb_p2m": [_P, _P, _P, _P, _I, _P, _I, _P, _I, _P, _P],
     "murb_l2p": [_P, _P, _P, _I, _P, _I, _P, _I, _P, _P],
+    "murb_phi_rows_rect": [_P, _P, _P, _I, _P, _P, _P, _I, _P, _I, _F,
+                           _P, _P],
+    "murb_acc_phi_rows": [_P, _P, _P, _P, _I, _P, _I, _F, _P, _P, _P, _P,
+                          _P],
 }
 
 
@@ -75,7 +80,8 @@ def library_path() -> Path:
 
 
 def build_kernels() -> Path:
-    """Compile ``csrc/*.cu`` unless the library for these sources exists.
+    """Compile ``csrc/*.cu`` unless the library for these sources exists:
+    one ``nvcc -c`` per source, all started together, then one link.
     Returns the library path; the compiler's report (registers, shared
     memory, spills per kernel) is kept beside it as ``<lib>.log``."""
     lib = library_path()
@@ -83,16 +89,38 @@ def build_kernels() -> Path:
         return lib
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{lib.stem}.{os.getpid()}"
+    objs, procs = [], []
+    for src in (s for s in _sources() if s.suffix == ".cu"):
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-I", str(CSRC), "-o", str(obj),
+               str(src)]
+        objs.append(obj)
+        procs.append((cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-           *(str(s) for s in _sources() if s.suffix == ".cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
+    link = [nvcc, "-shared", *NVCC_FLAGS[:2], "-o", str(tmp),
+            *(str(o) for o in objs)]
+    report, failed = [], None
+    for cmd, proc in procs:
+        report.append(proc.communicate()[0])
+        if proc.returncode != 0 and failed is None:
+            failed = (cmd, proc.returncode, report[-1])
+    if failed is None:
+        proc = subprocess.run(link, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+        report.append(proc.stdout)
+        if proc.returncode != 0:
+            failed = (link, proc.returncode, proc.stdout)
+    lib.with_suffix(".log").write_text("".join(report))
+    for o in objs:
+        o.unlink(missing_ok=True)
+    if failed is not None:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stderr[-4000:]}")
+        cmd, rc, out = failed
+        raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n"
+                           f"{out[-4000:]}")
     os.replace(tmp, lib)
     return lib
 

@@ -1,9 +1,10 @@
-"""Exact all-pairs sweep with precision tiers: kernel K4 and its plain version.
+"""Exact all-pairs sweeps of ``murb_tpu/ops/hybrid.py``: kernels K4 (force
+with precision tiers), K5 (multi-row potential) and K6 (K4 and K5 fused),
+each beside its plain version.
 
-Port of ``murb_tpu/ops/hybrid.py`` (the force kernel; the potential rows
-K5 and the fused K6 are not ported yet).  The TPU kernel split each block
-between the vector unit and bf16 matrix-unit passes; the port keeps the
-accuracy contract of each ``passes`` tier, not the TPU mechanism:
+The TPU kernels split each block between the vector unit and bf16
+matrix-unit passes; the port keeps the accuracy contract of each
+``passes`` tier, not the TPU mechanism.  K4:
 
   passes 2 -- fp32-class, <= ~3e-5 max relative force error: K3's fp32
               sweep kernel.
@@ -16,6 +17,14 @@ accuracy contract of each ``passes`` tier, not the TPU mechanism:
 On CUDA tensors ``acc_hybrid_rect`` launches ``csrc/hybrid.cu`` (which
 hands passes 1/2 to K3's kernel, counted here as K4 launches); on CPU
 tensors it runs ``acc_hybrid_rect_plain``.
+
+K5 ``phi_rows_rect`` and K6 ``acc_phi_rows_hybrid`` (``csrc/phi.cu``) take
+up to 8 source-weight rows (one masked G*m row per galaxy) and return the
+potentials phi_r[i] = sum_j w_r[j] * rsqrt(|r_j - r_i|^2 + eps^2), the
+j == i term 1/eps included (callers subtract G m_i / eps,
+core/metrics.energy_from_phi).  ``passes`` 1 and 2 both keep the fp32-class
+contract (the force as K4 passes 2, phi to ~1e-6 relative): the kernels
+sum in fp32 on every tier.
 """
 from __future__ import annotations
 
@@ -94,3 +103,118 @@ acc_hybrid_rect.launches = 0
 def acc_hybrid(qx, qy, qz, gm, soft, *, passes: int = 1) -> Accel:
     """Square all-pairs case (the single-device exact engine)."""
     return acc_hybrid_rect(qx, qy, qz, qx, qy, qz, gm, soft, passes=passes)
+
+
+# ------------------------------------------------- multi-row potential sweep
+MAX_PHI_ROWS = 8  # csrc/sweep.cuh kMaxPhiRows
+
+
+def _check_rows(tag: str, gm_rows, nj: int, passes: int) -> None:
+    if passes not in (1, 2):
+        raise ValueError(f"{tag}: passes must be 1 or 2, got {passes}")
+    if gm_rows.dim() != 2 or not 1 <= gm_rows.shape[0] <= MAX_PHI_ROWS \
+            or gm_rows.shape[1] != nj:
+        raise ValueError(f"{tag}: gm_rows shape {tuple(gm_rows.shape)}, "
+                         f"expected (R <= {MAX_PHI_ROWS}, {nj})")
+
+
+def phi_rows_rect_plain(qxi, qyi, qzi, qxj, qyj, qzj, gm_rows,
+                        soft) -> torch.Tensor:
+    """The plain PyTorch K5: (R, ni) potentials in the inputs' dtype,
+    j-chunked to bound memory."""
+    soft2 = float(soft) ** 2
+    out = torch.zeros((gm_rows.shape[0], qxi.shape[0]), dtype=qxi.dtype,
+                      device=qxi.device)
+    for s in range(0, qxj.shape[0], 4096):
+        sl = slice(s, s + 4096)
+        d2 = sum((qj[sl][None, :] - qi[:, None]) ** 2
+                 for qi, qj in ((qxi, qxj), (qyi, qyj), (qzi, qzj)))
+        out += gm_rows[:, sl].to(qxi.dtype) @ torch.rsqrt(d2 + soft2).T
+    return out
+
+
+def phi_rows_rect(qxi, qyi, qzi, qxj, qyj, qzj, gm_rows, soft, *,
+                  passes: int = 2) -> torch.Tensor:
+    """(R, ni) potentials of the i-set under R <= 8 source-weight rows
+    ``gm_rows`` (R, nj), which already include G.
+
+    CPU tensors run the plain version; CUDA tensors launch K5 (fp32 inside;
+    float64 inputs are cast here and phi cast back)."""
+    tag = f"phi_rows/p{passes}"
+    ni, nj = qxi.shape[0], qxj.shape[0]
+    _check_rows(tag, gm_rows, nj, passes)
+    if qxi.device.type == "cpu":
+        return phi_rows_rect_plain(qxi, qyi, qzi, qxj, qyj, qzj, gm_rows,
+                                   soft)
+    cuda.require_cuda(tag, qxi)
+    if not float(soft) > 0.0:
+        raise ValueError(f"{tag}: the sweep needs a positive softening")
+    dtype, dev = qxi.dtype, qxi.device
+    xi, yi, zi = cuda.kernel_inputs(tag, dev, ni, qxi, qyi, qzi,
+                                    notify=notify_fp32_compute)
+    xj, yj, zj = cuda.kernel_inputs(tag, dev, nj, qxj, qyj, qzj,
+                                    notify=notify_fp32_compute)
+    rows = torch.stack(cuda.kernel_inputs(tag, dev, nj, *gm_rows,
+                                          notify=notify_fp32_compute))
+    phi = torch.empty((rows.shape[0], ni), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        cuda.launch("murb_phi_rows_rect", xi.data_ptr(), yi.data_ptr(),
+                    zi.data_ptr(), ni, xj.data_ptr(), yj.data_ptr(),
+                    zj.data_ptr(), nj, rows.data_ptr(), rows.shape[0],
+                    ctypes.c_float(float(soft) ** 2), phi.data_ptr(),
+                    cuda.stream(dev))
+    phi_rows_rect.launches += 1
+    return phi.to(dtype)
+
+
+phi_rows_rect.launches = 0
+
+
+def phi_rows(qx, qy, qz, gm_rows, soft, *, passes: int = 2) -> torch.Tensor:
+    """Square all-pairs multi-row potential sweep."""
+    return phi_rows_rect(qx, qy, qz, qx, qy, qz, gm_rows, soft,
+                         passes=passes)
+
+
+# ------------------------------------- fused force + multi-row potential
+def acc_phi_rows_plain(qx, qy, qz, gm, gm_rows, soft):
+    """The plain PyTorch K6, in the inputs' dtype: the force sweep and the
+    potential rows, each as its own plain sweep."""
+    return (acc_tile_rect_plain(qx, qy, qz, qx, qy, qz, gm, soft),
+            phi_rows_rect_plain(qx, qy, qz, qx, qy, qz, gm_rows, soft))
+
+
+def acc_phi_rows_hybrid(qx, qy, qz, gm, gm_rows, soft, *, passes: int = 2):
+    """(Accel, phi (R, n)): forces from the full ``gm`` and up to 8
+    source-weight-row potentials in one all-pairs sweep (the fused exact
+    tracked step).
+
+    CPU tensors run the plain version; CUDA tensors launch K6 (fp32 inside;
+    float64 inputs are cast here and the outputs cast back)."""
+    tag = f"tpu+hybrid+phi/p{passes}"
+    n = qx.shape[0]
+    _check_rows(tag, gm_rows, n, passes)
+    if qx.device.type == "cpu":
+        return acc_phi_rows_plain(qx, qy, qz, gm, gm_rows, soft)
+    cuda.require_cuda(tag, qx)
+    if not float(soft) > 0.0:
+        raise ValueError(f"{tag}: the sweep needs a positive softening")
+    dtype, dev = qx.dtype, qx.device
+    x, y, z, g = cuda.kernel_inputs(tag, dev, n, qx, qy, qz, gm,
+                                    notify=notify_fp32_compute)
+    rows = torch.stack(cuda.kernel_inputs(tag, dev, n, *gm_rows,
+                                          notify=notify_fp32_compute))
+    out = torch.empty((3 + rows.shape[0], n), dtype=torch.float32,
+                      device=dev)
+    with torch.cuda.device(dev):
+        cuda.launch("murb_acc_phi_rows", x.data_ptr(), y.data_ptr(),
+                    z.data_ptr(), g.data_ptr(), n, rows.data_ptr(),
+                    rows.shape[0], ctypes.c_float(float(soft) ** 2),
+                    out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
+                    out[3:].data_ptr(), cuda.stream(dev))
+    acc_phi_rows_hybrid.launches += 1
+    out = out.to(dtype)
+    return Accel(out[0], out[1], out[2]), out[3:]
+
+
+acc_phi_rows_hybrid.launches = 0

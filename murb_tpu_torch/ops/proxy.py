@@ -14,6 +14,12 @@ Bodies heavier than ``HEAVY_FACTOR`` times the mean mass (a top-``HEAVY_K``
 selection: the galaxy's central body) are left out of the expansion and
 summed exactly, as sources and as targets.
 
+The tracking engines take the potential phi_i = sum_j Gm_j rsqrt(d^2 +
+eps^2) (self term included) from the same pass: one P2M per weight set,
+one node sweep for the force and the potential fields, and one L2P of 3 + R
+fields (``force_and_potential_proxy``, and ``..._pergal`` with one masked
+weight set per galaxy).
+
 Every stage stays on the device: the box center and half-widths are device
 tensors the kernels read, and no step calls ``.item()``.  ``cells=2`` (the
 octant grid, kernels K8/K9) is not ported yet and raises.
@@ -26,7 +32,8 @@ import torch
 
 from murb_tpu_torch.ops.common import Accel
 from murb_tpu_torch.ops.naive import acc_rect
-from murb_tpu_torch.ops.proxy_kernels import l2p_fused, p2m_fused
+from murb_tpu_torch.ops.proxy_kernels import (l2p_fused, l2p_fused_multi,
+                                              p2m_fused)
 from murb_tpu_torch.ops.tile import acc_tile_rect
 
 # Bodies heavier than this multiple of the mean mass are excluded from the
@@ -149,3 +156,135 @@ def acc_proxy(qx, qy, qz, gm, soft, *, m: int = 16,
                                    soft)), dim=1)
     acc[top_idx] = torch.where(is_heavy[:, None], ht, acc[top_idx])
     return Accel(acc[:, 0], acc[:, 1], acc[:, 2])
+
+
+def validation_ladder(soft):
+    """``make_acc_fn(m, levels, cells) -> acc(qx, qy, qz, gm)`` for
+    ops/validate.validate_config over the single-level proxy, as
+    ``tpu+proxy`` and ``--kernel proxy`` validate it.  A hierarchy rung
+    (levels > 0, kernels K7-K9) raises "not yet ported"."""
+    from murb_tpu_torch.ops.common import not_yet_ported
+
+    def make_acc(m, levels, cells):
+        if levels:
+            raise not_yet_ported(f"the validation ladder's hierarchy rung "
+                                 f"(m={m}, levels={levels}; kernels K7-K9)",
+                                 "Queue 1 item 7")
+        return lambda qx, qy, qz, g: acc_proxy(qx, qy, qz, g, soft, m=m,
+                                               cells=cells)
+
+    return make_acc
+
+
+# --------------------------------------------------- force and potential
+def _inv_dist(qxi, qyi, qzi, qxj, qyj, qzj, soft) -> torch.Tensor:
+    """rsqrt(|r_j - r_i|^2 + eps^2), (ni, nj) broadcast."""
+    dx = qxj[None, :] - qxi[:, None]
+    dy = qyj[None, :] - qyi[:, None]
+    dz = qzj[None, :] - qzi[:, None]
+    return torch.rsqrt(dx * dx + dy * dy + dz * dz + float(soft) ** 2)
+
+
+def force_and_potential_node_sweep_rows(px, py, pz, w, w_rows, soft):
+    """(Accel, phi_rows (R, P)) over the proxy nodes in one broadcast pass:
+    the force field of the weights ``w`` and R potential fields of
+    ``w_rows`` (R, P) share the distances and the rsqrt.  Callers keep P
+    below NODE_SWEEP_KERNEL_MIN."""
+    dx = px[None, :] - px[:, None]
+    dy = py[None, :] - py[:, None]
+    dz = pz[None, :] - pz[:, None]
+    inv = torch.rsqrt(dx * dx + dy * dy + dz * dz + float(soft) ** 2)
+    wi3 = w[None, :] * (inv * inv * inv)
+    f = Accel((wi3 * dx).sum(1), (wi3 * dy).sum(1), (wi3 * dz).sum(1))
+    return f, w_rows @ inv.T
+
+
+def potential_node_sweep(px, py, pz, w, soft) -> torch.Tensor:
+    """phi_u = sum_v w_v rsqrt(|p_u - p_v|^2 + eps^2) over the proxy nodes,
+    i-chunked (O(2048 P) memory) for grids of NODE_SWEEP_KERNEL_MIN nodes
+    or more."""
+    return torch.cat([
+        (w[None, :] * _inv_dist(px[s:s + 2048], py[s:s + 2048],
+                                pz[s:s + 2048], px, py, pz, soft)).sum(1)
+        for s in range(0, px.shape[0], 2048)])
+
+
+def heavy_source_phi_rows(qx, qy, qz, hq, heavy_gm_rows, soft):
+    """Exact N x k sweep: (R, n) potentials of the heavy sources under R
+    rows of heavy masses ``heavy_gm_rows`` (R, k), one distance build."""
+    return heavy_gm_rows @ _inv_dist(qx, qy, qz, *hq, soft).T
+
+
+def heavy_target_phi_rows(qx, qy, qz, gm_rows, hq, soft):
+    """Exact k x N sweep: (R, k) potentials at the heavy bodies under R
+    rows of source masses ``gm_rows`` (R, n)."""
+    return gm_rows @ _inv_dist(*hq, qx, qy, qz, soft).T
+
+
+def _force_and_potential(qx, qy, qz, gm, soft, m: int, masks):
+    """One proxy pass for the force of ``gm`` and R potential rows: the
+    total (``masks`` None) or one per mask row (``masks`` (G, n)).  Box,
+    heavy split and bases are shared; each weight set costs one P2M, and
+    the L2P interpolates 3 + R fields in one call."""
+    gm_pos = gm > 0
+    c, h = bounding_box(qx, qy, qz, gm_pos)
+    mean_gm = gm.sum() / gm_pos.sum().clamp(min=1)
+    hq, heavy_gm, is_heavy, top_idx, gm_eff = heavy_split(
+        qx, qy, qz, gm, min(HEAVY_K, qx.shape[0]), HEAVY_FACTOR, mean_gm)
+
+    w = p2m_fused(qx, qy, qz, gm_eff, c, h, m=m)
+    if masks is None:
+        wg = w[None, :]
+    else:
+        wg = torch.stack([p2m_fused(qx, qy, qz, gm_eff * mk, c, h, m=m)
+                          for mk in masks])
+    px, py, pz = proxy_nodes(c, h, m, qx.dtype)
+    if px.shape[0] < NODE_SWEEP_KERNEL_MIN:
+        f, phi_nodes = force_and_potential_node_sweep_rows(px, py, pz, w,
+                                                           wg, soft)
+    else:
+        f = node_sweep(px, py, pz, w, soft)
+        phi_nodes = [potential_node_sweep(px, py, pz, wr, soft)
+                     for wr in wg]
+    out = l2p_fused_multi(qx, qy, qz, c, h,
+                          (f.ax, f.ay, f.az, *phi_nodes), m=m)
+    acc = torch.stack(out[:3], dim=1) + heavy_source_acc(qx, qy, qz, hq,
+                                                         heavy_gm, soft)
+    hrows = heavy_gm[None, :] if masks is None else \
+        masks[:, top_idx] * heavy_gm[None, :]
+    phi = torch.stack(out[3:]) + heavy_source_phi_rows(qx, qy, qz, hq,
+                                                       hrows, soft)
+
+    # heavy targets exactly
+    ht = torch.stack(list(acc_rect(hq[0], hq[1], hq[2], qx, qy, qz, gm,
+                                   soft)), dim=1)
+    acc[top_idx] = torch.where(is_heavy[:, None], ht, acc[top_idx])
+    src = gm[None, :] if masks is None else masks * gm[None, :]
+    phi_h = heavy_target_phi_rows(qx, qy, qz, src, hq, soft)
+    phi[:, top_idx] = torch.where(is_heavy[None, :], phi_h, phi[:, top_idx])
+    return Accel(acc[:, 0], acc[:, 1], acc[:, 2]), phi
+
+
+def force_and_potential_proxy(qx, qy, qz, gm, soft, *, m: int = 16):
+    """(Accel, phi (n,)): forces and the potential sweep in one proxy pass,
+    both at the same positions (the reference's metrics-before-update
+    order, ref: SimulationNBodyCUDAPropertyTracking.cu:121-133).  K1 runs
+    once and K2 interpolates 4 fields."""
+    acc, phi = _force_and_potential(qx, qy, qz, gm, soft, m, None)
+    return acc, phi[0]
+
+
+def force_and_potential_proxy_pergal(qx, qy, qz, gm, masks, soft, *,
+                                     m: int = 16):
+    """(Accel, phi (G, n)): forces plus one potential per galaxy in one
+    proxy pass.  ``masks`` (G, n) are 0/1 membership rows; the far field is
+    linear in the source masses, so each galaxy adds one P2M of its masked
+    weights, one node potential field and one L2P field (3 + G <= 11)."""
+    return _force_and_potential(qx, qy, qz, gm, soft, m, masks)
+
+
+def potential_proxy(qx, qy, qz, gm, soft, *, m: int = 16) -> torch.Tensor:
+    """phi_i = sum_j Gm_j rsqrt(|r_ij|^2 + eps^2) via the proxy, self term
+    included (the metrics' ``method="proxy"``).  The fused pass's potential:
+    the force fields it also interpolates cost three L2P fields."""
+    return force_and_potential_proxy(qx, qy, qz, gm, soft, m=m)[1]

@@ -24,6 +24,10 @@ from murb_tpu_torch.ops.common import notify_fp32_compute
 
 #: highest order the kernels take (P = m^3 = 32,768 node outputs)
 MAX_ORDER = 32
+#: node fields one L2P call takes: force (3) plus up to 8 potential rows
+#: (csrc/proxy.cu kMaxTotalFields; the kernel runs them in groups of 4)
+MAX_FIELDS = 11
+_L2P_GROUP = 4  # fields one K2 launch takes (csrc/proxy.cu kMaxFields)
 _TAG = "tpu+proxy (fused anterpolation)"
 _P2M_TILE = 64  # bodies per P2M tile (csrc/proxy.cu kP2MTile)
 
@@ -134,15 +138,17 @@ p2m_fused.launches = 0
 
 
 def l2p_fused_multi(qx, qy, qz, c, h, fields, *, m: int) -> tuple:
-    """Interpolate a tuple of 1 to 4 (m^3,) node fields to the bodies ->
-    tuple of (n,).  CPU tensors run ``l2p_plain``; CUDA tensors launch K2."""
+    """Interpolate a tuple of 1 to 11 (m^3,) node fields to the bodies ->
+    tuple of (n,).  CPU tensors run ``l2p_plain``; CUDA tensors launch K2
+    once per group of at most 4 fields, and count each launch."""
+    k = len(fields)
+    if not 1 <= k <= MAX_FIELDS:
+        raise ValueError(f"{_TAG}: L2P takes 1 to {MAX_FIELDS} node fields, "
+                         f"got {k}")
     if qx.device.type == "cpu":
         return l2p_plain(qx, qy, qz, c, h, fields, m=m)
     cuda.require_cuda(_TAG, qx)
     _check_order(m)
-    k = len(fields)
-    if not 1 <= k <= 4:
-        raise ValueError(f"{_TAG}: L2P takes 1 to 4 node fields, got {k}")
     dtype, dev, n = qx.dtype, qx.device, qx.shape[0]
     x, y, z = cuda.kernel_inputs(_TAG, dev, n, qx, qy, qz,
                                  notify=notify_fp32_compute)
@@ -154,7 +160,7 @@ def l2p_fused_multi(qx, qy, qz, c, h, fields, *, m: int) -> tuple:
         cuda.launch("murb_l2p", x.data_ptr(), y.data_ptr(), z.data_ptr(), n,
                     box.data_ptr(), m, fmat.data_ptr(), k, out.data_ptr(),
                     cuda.stream(dev))
-    l2p_fused_multi.launches += 1
+    l2p_fused_multi.launches += -(-k // _L2P_GROUP)
     return tuple(o.to(dtype) for o in out)
 
 

@@ -2,8 +2,9 @@
 
 Port of the main-path subset of ``murb_tpu/utils/args.py`` (ref:
 src/murb/main.cpp:61-165): required ``-n``/``-i``; ``-v --dt --nv --im
---soft -s --gf``; the extensions ``--seed --precision --scan --tol
---list-impls``; and the port's ``--device`` (default ``cuda``).  Every
+--soft -s --gf``; the extensions ``--seed --precision --scheme-file --scan
+--csv --kernel --tol --list-impls``; and the port's ``--device`` (default
+``cuda``).  Every
 other flag of ``murb_tpu`` still parses, so the CLI can exit with a clear
 "not yet ported" message instead of an argparse error.
 """
@@ -26,8 +27,11 @@ class MurbConfig:
     show_gflops: bool = False
     seed: int = 123
     precision: str = "fp32"
+    scheme_file: str | None = None
     scan: bool = False
+    csv: str | None = None                   # metrics CSV (tracking engines)
     list_impls: bool = False
+    kernel: str = "auto"                     # acc kernel of wrapper engines
     tol: float = 1e-4
     device: str = "cuda"
     # murb_tpu flags given on the command line that the port lacks
@@ -37,13 +41,12 @@ class MurbConfig:
 #: murb_tpu flags the port does not carry yet -> takes a value?
 UNPORTED_FLAGS = {
     "--ngs": False, "--ww": True, "--wh": True, "--nvc": False,
-    "--scheme-file": True, "--shards": True, "--csv": True,
-    "--visu-out": True, "--visu-live": "?", "--chunk": True,
+    "--shards": True, "--visu-out": True, "--visu-live": "?", "--chunk": True,
     "--block-i": True, "--block-j": True, "--gpu-fraction": True,
     "--save-state": True, "--save-every": True, "--load-state": True,
     "--profile": True, "--dump-traj": True, "--dump-every": True,
     "--ite-chunk": True, "--cam-azim": True, "--cam-elev": True,
-    "--kernel": True, "--autotune": False, "--m2l-dots": True,
+    "--autotune": False, "--m2l-dots": True,
     "--near": True, "--adapt-every": True, "--check-finite": False,
 }
 
@@ -77,7 +80,8 @@ def build_parser() -> argparse.ArgumentParser:
     fac.add_argument("--soft", dest="softening", type=float, default=2.0e8,
                      help="softening factor (default is 2e8 m).")
     fac.add_argument("-s", dest="scheme", type=str, default="galaxy",
-                     help='bodies scheme ("galaxy" or "random").')
+                     help='bodies scheme ("galaxy", "random" or a two-galaxy '
+                          '.tab file scheme).')
     fac.add_argument("--gf", dest="show_gflops", action="store_true",
                      help="display the number of GFlop/s.")
 
@@ -89,14 +93,26 @@ def build_parser() -> argparse.ArgumentParser:
                      default="fp32",
                      help="state precision (default fp32; bf16 is not yet "
                           "ported).")
+    ext.add_argument("--scheme-file", dest="scheme_file", type=str,
+                     default=None,
+                     help="path to the two-galaxy .tab file for the merger "
+                          "scheme (scripts/make_two_galaxy_tab.py writes "
+                          "one).")
     ext.add_argument("--scan", action="store_true",
                      help="time the whole run as one window after one "
                           "warm-up step (no per-iteration lines).")
+    ext.add_argument("--csv", type=str, default=None,
+                     help="write tracked metrics to this CSV (tracking "
+                          "engines).")
     ext.add_argument("--list-impls", action="store_true", default=False,
                      help="list available implementation tags and exit.")
+    ext.add_argument("--kernel", type=str, default="auto",
+                     help="acceleration kernel for tracking/leapfrog/kdk "
+                          "engines: auto|naive|chunked|tile|hybrid|proxy "
+                          "(mxu, fmm and adaptive are not yet ported).")
     ext.add_argument("--tol", dest="tol", type=float, default=1e-4,
                      help="fast-solver relative force-error target "
-                          "(tpu+proxy; default 1e-4).")
+                          "(tpu+proxy and --kernel proxy; default 1e-4).")
     ext.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                      help="device for the state and every kernel (default "
                           "cuda; never falls back to the CPU).")

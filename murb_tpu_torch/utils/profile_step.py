@@ -1,9 +1,12 @@
-"""Where the time of a ``tpu+proxy`` step goes on a CUDA card.
+"""Where the time of a ``tpu+proxy`` or tracked step goes on a CUDA card.
 
-    python -m murb_tpu_torch.utils.profile_step
+    python -m murb_tpu_torch.utils.profile_step [TAG ...]
 
-Builds the N=200,000 galaxy (seed 123) and the ``tpu+proxy`` engine the
-way the CLI does (validated order, no mid-run adaptation), runs warm-up
+TAG is ``tpu+proxy`` (the default), ``tpu+tracking`` or
+``tpu+leapfrog+tracking``.  For each, builds the N=200,000 galaxy (seed
+123) and the engine the way ``python -m murb_tpu_torch -n 200000 --im TAG
+--kernel proxy --scan`` does (validated order, the fused force and
+potential proxy for the tracked tags, no mid-run adaptation), runs warm-up
 steps, and then:
 
   1. times WINDOWS unprofiled windows of WINDOW_STEPS steps on the host
@@ -26,13 +29,14 @@ import time
 
 import torch
 
-from murb_tpu_torch.core.init import make_bodies
-from murb_tpu_torch.models import create_engine
+from murb_tpu_torch.cli import build_engine
+from murb_tpu_torch.utils.args import parse_args
 
 N, SEED = 200_000, 123
-WINDOWS, WINDOW_STEPS = 3, 200
+WARMUP, WINDOWS, WINDOW_STEPS = 5, 3, 200
 STEPS = 50      # profiled steps
 TOP = 12        # device events listed
+TAGS = ("tpu+proxy", "tpu+tracking", "tpu+leapfrog+tracking")
 
 
 def device_rows(prof) -> list:
@@ -45,21 +49,36 @@ def device_rows(prof) -> list:
             and not getattr(e, "is_user_annotation", False)]
 
 
-def main() -> int:
+def main(tags=()) -> int:
+    unknown = [t for t in tags if t not in TAGS]
+    if unknown:
+        print(f"profile_step: {unknown} not in {TAGS}", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("profile_step: no CUDA device available", file=sys.stderr)
         return 1
+    for tag in tags or TAGS[:1]:
+        rc = profile_tag(tag)
+        if rc:
+            return rc
+    return 0
+
+
+def profile_tag(tag: str) -> int:
     dev = torch.device("cuda", 0)
-    bodies = make_bodies(N, "galaxy", SEED, device=dev)
-    eng = create_engine("tpu+proxy", bodies, soft=2.0e8, dt=3600.0)
-    if not eng.using_proxy:
-        print("profile_step: the cost model took the exact sweep at "
-              f"N={N}; nothing to profile", file=sys.stderr)
+    # every step of the run records its metrics row (tracked tags)
+    total = WARMUP + WINDOWS * WINDOW_STEPS + STEPS + 1
+    cfg = parse_args(["-n", str(N), "-i", str(total), "--im", tag,
+                      "--kernel", "proxy", "--seed", str(SEED), "--scan"])
+    eng = build_engine(cfg, dev)
+    health = eng.proxy_health()
+    if not health["using_proxy"]:
+        print(f"profile_step: {tag} took the exact sweep at N={N}; nothing "
+              "to profile", file=sys.stderr)
         return 1
-    print(f"tpu+proxy N={N} galaxy: m={eng.m} cells={eng.cells} "
-          f"validated_err {eng.validated_err:.3e} on "
+    print(f"{tag} N={N} galaxy: m={health['m']} cells={health['cells']} on "
           f"{torch.cuda.get_device_name(dev)}")
-    eng.run(5)
+    eng.run(WARMUP)
     eng.block_until_ready()
 
     window_ms = []
@@ -98,4 +117,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -66,15 +66,15 @@ def test_parse_reference_flags():
 
 @pytest.mark.parametrize("argv", [
     ["--im", "no+such+tag"],
-    ["--im", "gpu+tracking"],
+    ["--im", "tpu+mxu"],
     ["--im", "shard+ring"],
-    ["--csv", "m.csv"],
+    ["--dump-traj", "t.bin"],
     ["--save-state", "s.npz"],
     ["--visu-live"],
     ["--shards", "4"],
     ["--profile", "trace"],
     ["--precision", "bf16"],
-    ["-s", "milkyway_andromeda.tab"],
+    ["--im", "shard+fmm"],
 ])
 def test_unknown_or_unported_exits_1(argv, capsys):
     rc = cli.main(["-n", "300", "-i", "1", "--nv", "--device", "cpu",

@@ -92,6 +92,25 @@ def test_l2p_plain_matches_pallas_l2p(anterp_case):
                                        "(rtol 1e-4, atol 1e-5 max)")
 
 
+@pytest.mark.parametrize("k", [4, 5, 11])
+def test_l2p_takes_force_plus_up_to_eight_potential_fields(anterp_case, k):
+    """The tracked paths interpolate 3 + G fields, G <= 8, in one call
+    (the kernel runs them in groups of 4): each field comes back as the
+    one-field L2P of it; a twelfth field is refused."""
+    m, a, t, c, h = anterp_case
+    rng = np.random.default_rng(k)
+    fields = tuple(torch.from_numpy(rng.normal(size=m ** 3).astype(
+        np.float32)) for _ in range(k))
+    got = tk.l2p_fused_multi(*t[:3], c, h, fields, m=m)
+    assert len(got) == k
+    for f, g in zip(fields, got):
+        (one,) = tk.l2p_plain(*t[:3], c, h, (f,), m=m)
+        torch.testing.assert_close(g, one, rtol=1e-5, atol=1e-6)
+    with pytest.raises(ValueError, match="1 to 11 node fields"):
+        tk.l2p_fused_multi(*t[:3], c, h, fields + fields[:1] * (12 - k),
+                           m=m)
+
+
 def test_l2p_plain_interpolates_low_degree_fields_exactly(anterp_case):
     """Chebyshev interpolation of order m reproduces polynomials of degree
     below m: node fields 1 and x_node come back as 1 and each body's x
@@ -272,4 +291,4 @@ def test_library_path_is_keyed_by_the_sources():
     assert p.parent == cuda.BUILD_DIR and p.name.startswith("libmurb_kernels_")
     assert p == cuda.library_path()
     srcs = {s.name for s in cuda._sources()}
-    assert {"tile.cu", "hybrid.cu", "proxy.cu", "sweep.cuh"} <= srcs
+    assert {"tile.cu", "hybrid.cu", "proxy.cu", "phi.cu", "sweep.cuh"} <= srcs

@@ -46,11 +46,11 @@ def test_from_numpy_rejects_wrong_length():
     arrays = {k: np.asarray(getattr(js, k)) for k in FIELDS}
     arrays["qx"] = arrays["qx"][:-1]
     with pytest.raises(ValueError, match="qx"):
-        BodyState.from_numpy(arrays, js.n, js.padding)
+        BodyState.from_numpy(arrays, js.n, js.padding, "cpu")
 
 
 def test_repad_astype_to():
-    s = tinit.init_random(300, 2)                      # npad 512
+    s = tinit.init_random(300, 2, device="cpu")       # npad 512
     assert s.npad == 512 and s.padding == 212
     r = s.repad(2048)
     assert r.npad == 2048 and r.n == 300
@@ -69,7 +69,7 @@ def _stats(a):
 
 def test_galaxy_distribution_matches_jax():
     n = 8192
-    t = tinit.init_galaxy(n, 5).unpadded()
+    t = tinit.init_galaxy(n, 5, device="cpu").unpadded()
     j = jinit.init_galaxy(n, 5).unpadded()
     # body 0: the heavy central mass at rest at the origin
     assert t["m"][0] == np.float32(2.0e24) and t["r"][0] == 0.0
@@ -94,7 +94,7 @@ def test_galaxy_distribution_matches_jax():
 
 def test_random_distribution_matches_jax():
     n = 8192
-    t = tinit.init_random(n, 9).unpadded()
+    t = tinit.init_random(n, 9, device="cpu").unpadded()
     j = jinit.init_random(n, 9).unpadded()
     m = t["m"].astype(np.float64)
     assert m.min() >= 0.0 and m.max() < 5.0e21
@@ -111,7 +111,7 @@ def test_random_distribution_matches_jax():
 
 
 def test_ghosts_are_massless_and_in_the_box():
-    s = tinit.init_random(2049, 4)
+    s = tinit.init_random(2049, 4, device="cpu")
     assert s.padding == 2304 - 2049
     for k in ("m", "r"):
         assert float(getattr(s, k)[s.n:].abs().max()) == 0.0
@@ -120,14 +120,33 @@ def test_ghosts_are_massless_and_in_the_box():
 
 
 def test_init_is_deterministic_by_seed():
-    a, b, c = (tinit.init_galaxy(1000, s).to_numpy() for s in (3, 3, 4))
+    a, b, c = (tinit.init_galaxy(1000, s, device="cpu").to_numpy()
+               for s in (3, 3, 4))
     for k in FIELDS:
         np.testing.assert_array_equal(a[k], b[k])
     assert not np.array_equal(a["qx"], c["qx"])
 
 
-def test_make_bodies_schemes():
-    s = tinit.make_bodies(500, "random", 1, dtype=torch.float64)
+def test_make_bodies_schemes(tmp_path):
+    s = tinit.make_bodies(500, "random", 1, dtype=torch.float64,
+                          device="cpu")
     assert s.dtype == torch.float64 and s.n == 500
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tinit.make_bodies(500, "milkyway_andromeda.tab")
+    # any other scheme falls through to the two-galaxy file
+    with pytest.raises(FileNotFoundError, match="scheme-file"):
+        tinit.make_bodies(500, "milkyway_andromeda.tab", device="cpu",
+                          scheme_file=str(tmp_path / "missing.tab"))
+
+
+@pytest.mark.parametrize("build", [
+    lambda: tinit.make_bodies(300, "random"),
+    lambda: tinit.init_galaxy(300),
+    lambda: tinit.init_random(300),
+    lambda: BodyState.from_arrays(*([np.ones(4)] * 8)),
+])
+def test_builders_default_to_the_card_and_raise_without_one(monkeypatch,
+                                                            build):
+    """No device argument means the card: without one the builders raise
+    instead of building on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build()
