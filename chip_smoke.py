@@ -25,12 +25,21 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      ``tpu+tracking+multi`` through the CLI (K4 force, K5 metrics) and
      through ``create_engine`` with no ``acc_fn`` (K6), beside the
      untracked exact engine on the same state; then, at N=2048, each
-     tracked and integrator engine on the card against the CPU plain path.
+     tracked and integrator engine on the card against the CPU plain path;
+  8. the multi-level hierarchy on the N=200,000 random box: K7 (nf 3 and
+     4), K8 and K9 (k 3 and 4) against their plain versions in float64 at
+     the main-path shape (m=8, C=4) and a deeper one (m=6, C=8, with the
+     near sweep); ``tpu+proxy -s random`` through the CLI (the auto policy
+     picks the hierarchy and validates it); ``tpu+tracking --kernel fmm``
+     through the CLI (the fused hierarchy, row 0's energy held to an exact
+     K6 energy); one ``acc_proxy(cells=2)`` on the 200k galaxy (K8/K9 at
+     C=2); and an N=2048 card-against-CPU check of ``levels=2, m=8``.
 Each piece of the path (the CLI run of phase 4, the ``acc_proxy`` of phase
-5, each CLI run of phase 6, each run of phase 7) starts from zeroed launch
-counts, which are read right after it: K1 and K2 from phase 4, K3 from
-phase 5, K4 from phase 6, K5 and K6 from phase 7.  Every kernel must have
-launched in its piece.  The line before the last is the kernels' JSON
+5, each CLI run of phase 6, each run of phases 7 and 8) starts from zeroed
+launch counts, which are read right after it: K1 and K2 from phase 4, K3
+from phase 5, K4 from phase 6, K5 and K6 from phase 7, K7 to K9 from the
+``tpu+proxy -s random`` run of phase 8.  Every kernel must have launched in
+its piece.  The line before the last is the kernels' JSON
 record (with each kernel's bound: the larger of its bytes over 3.35 TB/s
 and its operations over the 67 TFLOP/s fp32 peak of an H100 SXM); the last
 line is the result object.
@@ -40,6 +49,7 @@ exits non-zero without printing a result otherwise.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import shutil
@@ -88,6 +98,7 @@ def main() -> int:
                                           milkyway_andromeda_masks)
     from murb_tpu_torch.core.metrics import energy_from_phi
     from murb_tpu_torch.ops import cuda
+    from murb_tpu_torch.ops import fmm_kernels as fk
     from murb_tpu_torch.ops.hybrid import (acc_hybrid_rect,
                                            acc_hybrid_rect_plain,
                                            acc_phi_rows_hybrid,
@@ -358,7 +369,8 @@ def main() -> int:
     # ------------------------------------------------- 4. the main path
     wrappers = {"K1": p2m_fused, "K2": l2p_fused_multi, "K3": acc_tile_rect,
                 "K4": acc_hybrid_rect, "K5": phi_rows_rect,
-                "K6": acc_phi_rows_hybrid}
+                "K6": acc_phi_rows_hybrid, "K7": fk.m2l_level_fused,
+                "K8": fk.p2m_grid_fused, "K9": fk.l2p_grid_fused}
 
     def drive(run):
         """Zero every launch count, run one piece of the path, and return
@@ -561,6 +573,205 @@ def main() -> int:
               f"path positions max rel diff {pos:.3e} (tol 1e-4), energies "
               f"{hist:.3e} (tol 1e-5)")
 
+    # ------------------------------ 8. the multi-level hierarchy, random
+    # K7-K9 against their plain versions in float64 on the N=200,000 random
+    # box (the main path's bodies), K7 and K9 on the real expansions and
+    # fields.  Contracts, against the largest magnitude of each output:
+    # K8 1e-5 and K7 3e-5 (fp32 sums of up to 3,128 bodies and 87,808
+    # node pairs), K9 1e-4 (K2's, the basis recurrence in fp32).
+    from murb_tpu_torch.ops.fmm import acc_fmm
+
+    def rel_max(got, ref) -> float:
+        return max(float((g.double() - r).abs().max() / r.abs().max())
+                   for g, r in zip(got, ref))
+
+    def m2l_work(m, C, subset, nf):
+        """Useful flops of one level sweep: 2 nf per node pair of each
+        (target, source) cell pair the subset admits, plus one transfer
+        build (12 ops per node pair) per offset some pair uses."""
+        reach, min_inf = {"expand": (3, 0), "near": (1, 0),
+                          "far": (3, 2)}[subset]
+        par = lambda o, i: i % 2 == 0 if o == 3 else (
+            i % 2 == 1 if o == -3 else True)
+        pairs = used = 0
+        for o in itertools.product(range(-reach, reach + 1), repeat=3):
+            if max(map(abs, o)) < min_inf:
+                continue
+            n_o = sum(
+                all(0 <= i + d < C for i, d in zip(cell, o))
+                and (subset == "near" or all(par(d, i)
+                                             for d, i in zip(o, cell)))
+                for cell in itertools.product(range(C), repeat=3))
+            pairs += n_o
+            used += n_o > 0
+        return pairs, (2 * nf * pairs + 12 * used) * m ** 6
+
+    sr8 = init_random(n_main, SEED, device=dev)
+    g8 = sr8.m * torch.tensor(G, dtype=torch.float32).item()
+    c8, h8 = bounding_box(sr8.qx, sr8.qy, sr8.qz, g8 > 0)
+    ge8 = heavy_split(sr8.qx, sr8.qy, sr8.qz, g8, 1, 100.0,
+                      g8.sum() / (g8 > 0).sum())[4]
+    q8 = (sr8.qx, sr8.qy, sr8.qz)
+    q8_64 = tuple(v.double() for v in q8)
+    n8 = sr8.npad
+    for m, C, subsets in ((8, 4, ("expand",)), (6, 8, ("expand", "near"))):
+        shape = f"m={m} C={C} N={n8}"
+        order = fk.cell_order(*q8, c8, h8, C)
+        glue_ms = time_ms(lambda: fk.cell_order(*q8, c8, h8, C))
+        w = fk.p2m_grid_fused(*q8, ge8, c8, h8, m=m, C=C, order=order)
+        w64 = fk.p2m_grid_plain(*q8_64, ge8.double(), c8.double(),
+                                h8.double(), m=m, C=C)
+        err = rel_max([w], [w64])
+        check(err <= 1e-5, f"K8 {shape}: max|dW| {err:.3e} of max|W|")
+        ms = time_ms(lambda: fk.p2m_grid_fused(*q8, ge8, c8, h8, m=m, C=C,
+                                               order=order))
+        plain_ms = time_ms(lambda: fk.p2m_grid_plain(*q8, ge8, c8, h8, m=m,
+                                                     C=C), reps=3)
+        # q, gm and the permutation in, W out; the contraction and bases
+        nbytes, flops = 24 * n8 + 4 * C ** 3 * m ** 3, \
+            n8 * (2 * m ** 3 + 6 * m ** 2)
+        b_ms = bound(nbytes, flops)[0]
+        print(f"[8 K8 p2m_grid {shape}] max|dW|/max|W| {err:.3e} (tol "
+              f"1e-5); kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound "
+              f"{b_ms:.4f} ms; cell order (ids, sort, bounds) "
+              f"{glue_ms:.4f} ms")
+        if (m, C) == (8, 4):
+            keep("K8", err * float(w64.abs().max()), ms, plain_ms, nbytes,
+                 flops)
+
+        hl = h8 / C
+        fields64 = None
+        for subset in subsets:
+            for nf in (3, 4):
+                f = fk.m2l_level_fused(w64.float(), hl, SOFT, m=m, C=C,
+                                       subset=subset, with_phi=nf == 4)
+                f64 = fk.m2l_level_plain(w64, hl.double(), SOFT, m=m, C=C,
+                                         subset=subset, with_phi=nf == 4)
+                err = rel_max(f, f64)
+                check(err <= 3e-5, f"K7 {shape} {subset} nf={nf}: "
+                                   f"{err:.3e} of max|f|")
+                ms = time_ms(lambda: fk.m2l_level_fused(
+                    w, hl, SOFT, m=m, C=C, subset=subset, with_phi=nf == 4))
+                plain_ms = time_ms(lambda: fk.m2l_level_plain(
+                    w, hl, SOFT, m=m, C=C, subset=subset, with_phi=nf == 4),
+                    reps=2, runs=3)
+                pairs, flops = m2l_work(m, C, subset, nf)
+                nbytes = 4 * (1 + nf) * C ** 3 * m ** 3
+                b_ms = bound(nbytes, flops)[0]
+                print(f"[8 K7 m2l {shape} {subset} nf={nf}] max|df|/max|f| "
+                      f"{err:.3e} (tol 3e-5); {pairs} cell pairs, "
+                      f"{fk.m2l_splits(m, C)} offset splits; kernel "
+                      f"{ms:.4f} ms plain {plain_ms:.4f} ms bound "
+                      f"{b_ms:.4f} ms")
+                if (m, C, subset, nf) == (8, 4, "expand", 3):
+                    keep("K7", err * max(float(x.abs().max()) for x in f64),
+                         ms, plain_ms, nbytes, flops)
+                if subset == "expand" and nf == 4:
+                    fields64 = f64
+        for k in (3, 4):
+            flds = tuple(x.float() for x in fields64[:k])
+            a = fk.l2p_grid_fused(*q8, c8, h8, flds, m=m, C=C, order=order)
+            a64 = fk.l2p_grid_plain(*q8_64, c8.double(), h8.double(),
+                                    fields64[:k], m=m, C=C)
+            err = rel_max(a, a64)
+            check(err <= 1e-4, f"K9 {shape} k={k}: {err:.3e} of max|a|")
+            ms = time_ms(lambda: fk.l2p_grid_fused(*q8, c8, h8, flds, m=m,
+                                                   C=C, order=order))
+            plain_ms = time_ms(lambda: fk.l2p_grid_plain(*q8, c8, h8, flds,
+                                                         m=m, C=C), reps=3)
+            # q and the permutation in, k fields in, k values a body out
+            nbytes = 20 * n8 + 4 * k * (n8 + C ** 3 * m ** 3)
+            flops = n8 * (2 * k * m ** 3 + 6 * m ** 2)
+            b_ms = bound(nbytes, flops)[0]
+            print(f"[8 K9 l2p_grid {shape} k={k}] max|da|/max|a| {err:.3e} "
+                  f"(tol 1e-4); kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
+                  f"bound {b_ms:.4f} ms")
+            if (m, C, k) == (8, 4, 3):
+                keep("K9", err * max(float(x.abs().max()) for x in a64), ms,
+                     plain_ms, nbytes, flops)
+    del w64, fields64, a64, f64
+    torch.cuda.empty_cache()
+
+    # the main path of the random box through the CLI: the auto policy
+    # takes the hierarchy and validates it
+    res8, counts = drive(lambda: cli.run([
+        "-n", str(n_main), "-i", "100", "--im", "tpu+proxy", "-s", "random",
+        "--nv", "--gf", "--scan", "--device", "cuda"]))
+    check(res8.rc == 0, f"cli tpu+proxy -s random exit code {res8.rc}")
+    e8 = res8.engine
+    e8.assert_finite()
+    check(e8.using_proxy and e8.levels >= 2,
+          f"tpu+proxy -s random took m={e8.m} levels={e8.levels} "
+          f"using_proxy={e8.using_proxy}, not the hierarchy")
+    check(e8.validated_err is not None and e8.validated_err <= TOL,
+          f"random box validated error {e8.validated_err} > {TOL}")
+    for k in ("K7", "K8", "K9"):
+        launches[k] = counts[k]
+        check(counts[k] > 0, f"{k} launched no time on the random box")
+    f8 = e8.bodies
+    err_end = measured_force_error(
+        f8.qx, f8.qy, f8.qz, e8._gm(f8), SOFT,
+        lambda a, b, cc, g: acc_fmm(a, b, cc, g, SOFT, m=e8.m,
+                                    levels=e8.levels))
+    print(f"[8 main] tpu+proxy N={n_main} random: m={e8.m} "
+          f"levels={e8.levels} validated_err {e8.validated_err:.3e} (err "
+          f"after 100 steps {err_end:.3e}, reported, not a contract); "
+          f"{res8.fps:.2f} FPS {res8.gflops:.1f} ref-GFlop/s "
+          f"({res8.elapsed_ms:.2f} ms for 99 steps) on {smi}; launches "
+          f"{counts}")
+
+    # the fused tracked hierarchy: row 0's energy against one exact K6
+    # sweep of the same state (rtol 1e-3, as in phase 7)
+    e_exact8 = float(energy_from_phi(
+        sr8, acc_phi_rows_hybrid(*q8, g8, g8[None, :], SOFT)[1][0], SOFT))
+    csv = os.path.join(tmpdir.name, "random_tracking.csv")
+    res8t, counts = drive(lambda: cli.run([
+        "-n", str(n_main), "-i", "20", "--im", "tpu+tracking", "--kernel",
+        "fmm", "-s", "random", "--nv", "--gf", "--scan", "--csv", csv,
+        "--device", "cuda"]))
+    check(res8t.rc == 0, f"cli tpu+tracking --kernel fmm exit {res8t.rc}")
+    et = res8t.engine
+    et.assert_finite()
+    check(len(et._fused_fmm) == 2, "tpu+tracking did not fuse the hierarchy")
+    check(all(counts[k] > 0 for k in ("K7", "K8", "K9")),
+          f"K7-K9 launched no time under the tracked hierarchy: {counts}")
+    rows_finite(et.history, 20, csv)
+    e0 = float(et.history.energies[0])
+    rel = abs(e0 / e_exact8 - 1.0)
+    check(rel <= 1e-3, f"tracked fmm energy row 0 {e0:.6e} vs exact "
+                       f"{e_exact8:.6e}: rel {rel:.3e} > 1e-3")
+    print(f"[8 tracked] tpu+tracking --kernel fmm N={n_main} random: "
+          f"(m, levels)={et._fused_fmm}, energy row 0 {e0:.9e} vs exact K6 "
+          f"{e_exact8:.9e} (rel {rel:.3e}, tol 1e-3); {res8t.fps:.2f} FPS "
+          f"vs tpu+proxy {res8.fps:.2f} FPS in this run; launches {counts}")
+    del sr8, g8, ge8, q8, q8_64
+
+    # the octant proxy: K8/K9 at C=2 on the 200k galaxy (the 13,824-node
+    # sweep runs K3)
+    err_c2, counts = drive(lambda: measured_force_error(
+        fin.qx, fin.qy, fin.qz, gm_fin, SOFT,
+        lambda a, b, cc, g: acc_proxy(a, b, cc, g, SOFT, m=12, cells=2)))
+    check(counts["K8"] > 0 and counts["K9"] > 0,
+          f"acc_proxy cells=2 launched no K8/K9: {counts}")
+    check(err_c2 <= TOL, f"acc_proxy cells=2 force error {err_c2:.3e}")
+    print(f"[8 cells=2] acc_proxy m=12 cells=2 on the galaxy after phase 4: "
+          f"force error {err_c2:.3e} (tol {TOL}); launches {counts}")
+
+    # small input: the hierarchy on the card agrees with the CPU plain path
+    small_r = init_random(2048, SEED, device="cpu")
+    runs = [create_engine("tpu+proxy", small_r.to(d), soft=SOFT, dt=DT,
+                          m=8, levels=2) for d in ("cpu", dev)]
+    for e in runs:
+        e.run(3)
+    worst = max(float(np.max(np.abs(runs[1].bodies.unpadded()[k]
+                                    - runs[0].bodies.unpadded()[k])
+                             / np.maximum(np.abs(
+                                 runs[0].bodies.unpadded()[k]), 1e-30)))
+                for k in ("qx", "qy", "qz"))
+    check(worst <= 1e-4, f"levels=2 m=8: card vs cpu positions {worst:.3e}")
+    print(f"[8 small] tpu+proxy levels=2 m=8 N=2048 random, 3 steps: card "
+          f"vs CPU plain path positions max rel diff {worst:.3e} (tol 1e-4)")
+
     for k, count in launches.items():
         check(count > 0, f"{k} launched no time on its piece of the path")
     meta = {
@@ -576,6 +787,12 @@ def main() -> int:
                "murb_tpu/ops/hybrid.py:219"),
         "K6": ("acc_phi_rows", "murb_tpu_torch/csrc/phi.cu",
                "murb_tpu/ops/hybrid.py:338"),
+        "K7": ("m2l_level", "murb_tpu_torch/csrc/fmm.cu",
+               "murb_tpu/ops/fmm_pallas.py:85"),
+        "K8": ("p2m_grid", "murb_tpu_torch/csrc/fmm.cu",
+               "murb_tpu/ops/fmm_pallas.py:315"),
+        "K9": ("l2p_grid", "murb_tpu_torch/csrc/fmm.cu",
+               "murb_tpu/ops/fmm_pallas.py:371"),
     }
     kernels = [{"name": kname, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches[k], **record[k]}

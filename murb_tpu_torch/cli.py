@@ -5,8 +5,9 @@ banner (with the validated proxy order and its measured error), the
 per-iteration frame loop with the verbose status line, the ``--scan``
 timing window, the final "Entire simulation took ..." summary with the
 reference's FLOPs model (20*N^2/iteration) and GFlop/s convention (1024^3
-divisor), and for the tracked engines the ``--kernel`` wiring and the
-``--csv`` metrics export.
+divisor), and for the tracked engines the ``--kernel`` wiring (with the
+proxy -> fmm escalation and the validated (m, levels)) and the ``--csv``
+metrics export.
 
 ``--device cuda`` (the default) puts the state and every kernel on the
 first CUDA device and exits with status 1 when there is none: the port
@@ -56,31 +57,48 @@ _WRAPPERS = ("tpu+tracking", "tpu+tracking+multi", "tpu+leapfrog",
 _FUSIBLE = ("tpu+tracking", "tpu+leapfrog+tracking")
 
 
-def _validated_proxy(cfg: MurbConfig, bodies):
-    """``--kernel proxy``: the order ``m`` the box needs (1.5x growth,
-    rounded up to a multiple of 4), held to ``--tol`` by measurement as
-    ``tpu+proxy`` is (ops/validate).  Returns (m, certified half-extent).
-    A box that needs m > 32 or a hierarchy rung raises "not yet ported"
-    (murb_tpu escalates to its fmm kernel there, cli.py:90-106)."""
+def _validated_far_field(cfg: MurbConfig, bodies):
+    """``--kernel proxy`` / ``fmm``: the configuration the box needs, held
+    to ``--tol`` by measurement as ``tpu+proxy`` is (ops/validate), as
+    murb_tpu's CLI does (cli.py:87-207).  The proxy takes the order of the
+    1.5x-grown box rounded up to a multiple of 4, and hands over to the
+    hierarchy when that exceeds 32; the hierarchy takes the depth
+    ``required_levels`` gives and ``fmm_order``'s order.  Returns (kernel,
+    m, levels, certified half-extent).  A box whose hierarchy needs m > 16
+    goes to murb_tpu's adaptive kernel, which raises "not yet ported"."""
     from murb_tpu_torch import G
     from murb_tpu_torch.ops.common import not_yet_ported
+    from murb_tpu_torch.ops.fmm import fmm_order, required_levels
     from murb_tpu_torch.ops.proxy import (half_extent, required_order,
                                           validation_ladder)
     from murb_tpu_torch.ops.validate import certified_half, validate_config
 
+    kernel, levels = cfg.kernel, 0
     half = half_extent(bodies.unpadded())
-    m = (required_order(half * 1.5, cfg.softening, cfg.tol, margin=0)
-         + 3) // 4 * 4
-    if m > 32:
-        raise not_yet_ported(f"--kernel proxy on this box (needs m={m} > 32: "
-                             "the fmm kernel)", "Queue 1 item 7")
+    if kernel == "proxy":
+        m = (required_order(half * 1.5, cfg.softening, cfg.tol, margin=0)
+             + 3) // 4 * 4
+        if m > 32:
+            print(f"NOTE: box too large for the single-level proxy (needs "
+                  f"m={m} > 32); using the multi-level fmm kernel.")
+            kernel = "fmm"
+    if kernel == "fmm":
+        levels = required_levels(half, cfg.softening)
+        m = fmm_order(half, cfg.softening, levels, cfg.tol)
+        if m > 16:
+            print(f"NOTE: box/softening ratio too large for the dense "
+                  f"hierarchy (needs m={m}); murb_tpu hands over to its "
+                  f"adaptive sparse kernel here.")
+            raise not_yet_ported("kernel 'adaptive' (the adaptive sparse "
+                                 "hierarchy)", "Queue 1 item 8")
 
     gm = bodies.m * torch.tensor(G, dtype=bodies.dtype).item()
     m, levels, _, err = validate_config(
-        bodies.qx, bodies.qy, bodies.qz, gm, cfg.softening, cfg.tol, m, 0, 1,
-        half, validation_ladder(cfg.softening))
-    return m, certified_half(m, levels, float(half), err, cfg.softening,
-                             cfg.tol)
+        bodies.qx, bodies.qy, bodies.qz, gm, cfg.softening, cfg.tol, m,
+        levels, 1, half, validation_ladder(cfg.softening))
+    return ("fmm" if levels else "proxy", m, levels,
+            certified_half(m, levels, float(half), err, cfg.softening,
+                           cfg.tol))
 
 
 def build_engine(cfg: MurbConfig, device: torch.device):
@@ -91,6 +109,9 @@ def build_engine(cfg: MurbConfig, device: torch.device):
         raise NotImplementedError(
             f"--precision {cfg.precision} is not yet ported to "
             "murb_tpu_torch (ROADMAP.md Queue 1 item 6)")
+    from murb_tpu_torch.ops.fmm import check_m2l_dots
+
+    check_m2l_dots(cfg.m2l_dots)  # the port's level sweep runs fp32 only
     bodies = make_bodies(cfg.n_bodies, cfg.scheme, cfg.seed,
                          dtype=_DTYPES[cfg.precision],
                          scheme_file=cfg.scheme_file, device=device)
@@ -102,14 +123,19 @@ def build_engine(cfg: MurbConfig, device: torch.device):
     if canonical in _WRAPPERS:
         from murb_tpu_torch.ops import make_acc_fn
 
-        m = 0
-        if cfg.kernel == "proxy":
-            m, cert_half = _validated_proxy(cfg, bodies)
+        kernel, m, levels = cfg.kernel, 0, 0
+        if kernel in ("proxy", "fmm"):
+            kernel, m, levels, cert_half = _validated_far_field(cfg, bodies)
         if m and canonical in _FUSIBLE:
-            extra["fused_proxy_m"] = m   # one far-field pass per step
+            # one far-field pass per step for the force and the potential
+            if levels:
+                extra["fused_fmm"] = (m, levels)
+            else:
+                extra["fused_proxy_m"] = m
             extra["validated_half"] = cert_half
         else:
-            extra["acc_fn"] = make_acc_fn(cfg.kernel, m=m or 16)
+            extra["acc_fn"] = make_acc_fn(kernel, m=m or 16,
+                                          levels=levels or 2)
     # Mid-run order adaptation for the frame loop, off under --scan (the
     # murb_tpu default; --adapt-every itself is not ported yet).
     return create_engine(cfg.impl_tag, bodies, soft=cfg.softening, dt=cfg.dt,
@@ -138,7 +164,9 @@ def print_banner(cfg: MurbConfig, engine, device: torch.device) -> None:
     print(f"  -> softening factor  (--soft): {cfg.softening:g}")
     err = getattr(engine, "validated_err", None)
     if err is not None:
-        print(f"  -> validated order           : proxy m={engine.m} "
+        mode = (f"fmm m={engine.m} L={engine.levels}" if engine.levels
+                else f"proxy m={engine.m}")
+        print(f"  -> validated order           : {mode} "
               f"(measured err {err:.1e} vs tol {cfg.tol:g})")
     elif getattr(engine, "using_proxy", True) is False:
         print("  -> validated order           : exact fallback (the cost "

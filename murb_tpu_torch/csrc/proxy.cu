@@ -42,6 +42,8 @@
 // already spills.
 #include <cuda_runtime.h>
 
+#include "cheb.cuh"
+
 namespace murb {
 
 constexpr int kMaxOrder = 32;
@@ -50,37 +52,6 @@ constexpr int kP2MMaxThreads = 256;
 constexpr int kL2PThreads = 128;
 constexpr int kMaxFields = 4;        // node fields one L2P launch takes
 constexpr int kMaxTotalFields = 11;  // fields murb_l2p takes (3 + 8)
-constexpr double kPi = 3.14159265358979323846;
-
-// table[k * (m - 1) + (j - 1)] = T_j(t_k), j = 1..m-1, k = 0..m-1.
-__device__ void fill_node_table(float* table, int m) {
-  const int count = m * (m - 1);
-  for (int idx = threadIdx.x; idx < count; idx += blockDim.x) {
-    const int k = idx / (m - 1);
-    const int j = idx % (m - 1) + 1;
-    const double theta = kPi * (k + 0.5) / m;
-    table[idx] = static_cast<float>(cos(theta * j));
-  }
-}
-
-__device__ __forceinline__ float scaled(float q, float c, float h) {
-  return fminf(fmaxf((q - c) / h, -1.f), 1.f);
-}
-
-// S_k(t) for the node whose table row is `row` (m - 1 entries).
-__device__ __forceinline__ float basis_value(float t, const float* row,
-                                             int m) {
-  float tprev = 1.f, tcur = t, s = 0.f;
-  for (int j = 1; j < m; ++j) {
-    if (j > 1) {
-      const float tnext = 2.f * t * tcur - tprev;
-      tprev = tcur;
-      tcur = tnext;
-    }
-    s = fmaf(tcur, row[j - 1], s);
-  }
-  return 1.f / m + (2.f / m) * s;
-}
 
 // ------------------------------------------------------------------ P2M
 // MW: m rounded up to a multiple of 4 (the register width along w).

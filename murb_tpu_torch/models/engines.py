@@ -8,7 +8,8 @@ registry: src/murb/main.cpp:205-270):
   cpu+optim/simd/omp  -> ChunkedEngine    (i-chunked plain sweep)
   gpu+tile            -> PallasTileEngine (kernel K3, ops/tile.py)
   gpu+tile+full...    -> HybridEngine     (kernel K4, ops/hybrid.py)
-  fmm / barnes-hut    -> ProxyEngine      (kernels K1-K3, ops/proxy.py)
+  fmm / barnes-hut    -> ProxyEngine      (K1-K3, K7-K9; ops/proxy.py,
+                                           ops/fmm.py)
   tpu+kdk, +yoshida4  -> KDKEngine, Yoshida4Engine
   gpu+leapfrog        -> LeapfrogEngine
   gpu+tracking        -> TrackingEngine
@@ -112,41 +113,40 @@ class HybridEngine(EulerAccelEngine):
 
 
 class ProxyEngine(EulerAccelEngine):
-    """Chebyshev-proxy fast solver, single-cell policy (see ops/proxy.py).
+    """Chebyshev-proxy fast solver family (see ops/proxy.py, ops/fmm.py).
 
     Auto policy from the initial bounding box and force tolerance
     (murb_tpu/models/engines.py:406-444): one global expansion while the
-    box admits m <= 20, picked by the calibrated bound and then validated
-    (escalated or descended) by measurement; the exact K4 sweep when the
-    cost model finds the proxy far costlier than the direct sum (small N)
-    -- check ``engine.using_proxy``.  Boxes that need the multi-level
-    hierarchy and ``cells=2`` raise "not yet ported".  The JAX engine's
-    adaptive-solver consideration on a rejected proxy is skipped: that
-    planner is not ported, and its cost model rests on TPU-measured rates.
+    box admits m <= 20; the L-level hierarchy (kernels K7-K9) for wider
+    boxes, its depth from ops/fmm.best_depth; either pick then validated
+    (escalated or descended) by measurement unless ``validate=False``; the
+    exact K4 sweep when the cost model finds the fast solver far costlier
+    than the direct sum (small N) -- check ``engine.using_proxy``.
+    ``cells=2`` runs the octant mode, ``levels=L`` the hierarchy
+    explicitly.  The JAX engine's adaptive-solver consideration on a
+    rejected proxy is skipped: that planner is not ported, and its cost
+    model rests on TPU-measured rates.
     """
 
     tag = "tpu+proxy"
 
     def __init__(self, bodies, soft=None, dt=None, *, m: int = 0,
                  cells: int = 0, levels: int = 0, tol: float = 1e-4,
-                 adapt_every: int = 0, **kw):
+                 adapt_every: int = 0, validate: bool = True, **kw):
         super().__init__(bodies, soft, dt, **kw)
         self.tol = tol
         self.adapt_every = int(adapt_every)
+        self.validate = bool(validate)
         self.validated_err: float | None = None
         self.validated_half: float | None = None
         self._auto = m == 0 and levels == 0
         if self._auto:
             self._configure()
         else:
-            if levels:
-                raise not_yet_ported("tpu+proxy levels > 0 (the multi-level "
-                                     "hierarchy, kernels K7-K9)",
-                                     "Queue 1 item 7")
-            if cells not in (0, 1):
-                raise not_yet_ported(f"tpu+proxy cells={cells} (the octant "
-                                     "grid, kernels K8/K9)", "Queue 1 item 7")
-            self.m, self.levels, self.cells = int(m), 0, 1
+            if m and levels == 0 and cells == 0:
+                cells = 1
+            self.m, self.levels, self.cells = int(m), int(levels), \
+                int(cells or 1)
             self.using_proxy = self.m <= MAX_ORDER
 
     def _configure(self) -> None:
@@ -160,31 +160,43 @@ class ProxyEngine(EulerAccelEngine):
         # (rationale in murb_tpu/models/engines.py:_configure)
         m1 = round4(required_order(half * BOX_MARGIN, self.soft,
                                    self.tol, margin=0))
-        if m1 > 20:
-            raise not_yet_ported(
-                f"tpu+proxy on this box (needs m={m1} > 20: the multi-level "
-                "hierarchy, kernels K7-K9)", "Queue 1 item 7")
-        self.m, self.levels, self.cells = int(m1), 0, 1
+        # wider boxes go to the hierarchy, whose finest cells restore
+        # eps/h ~ 1 at any scale
+        m, levels = (m1, 0) if m1 <= 20 else self._best_depth(half)
+        self.m, self.levels, self.cells = int(m), int(levels), 1
         self._apply_cost_model()
-        if self.using_proxy:
+        if self.using_proxy and self.validate:
             self._validate_order(half)
 
+    def _best_depth(self, half: float) -> tuple[int, int]:
+        """(m, levels) from the shared depth-cost policy (ops/fmm.best_depth,
+        calibrated on a TPU; ROADMAP.md Queue 1 item 7)."""
+        from murb_tpu_torch.ops.fmm import best_depth
+
+        return best_depth(self._state.npad, half, self.soft, self.tol)
+
     def _apply_cost_model(self) -> None:
-        # The proxy must not be drastically costlier than the exact sweep
-        # (at small N the node work dominates); rough op counts with a
-        # generous slack (murb_tpu/models/engines.py:575-592).
+        # The fast solver must not be drastically costlier than the exact
+        # sweep (at small N the node work dominates); rough op counts with
+        # a generous slack (murb_tpu/models/engines.py:575-592).
         self.using_proxy = self.m <= MAX_ORDER
         if self.using_proxy:
             n = self._state.npad
-            p_tot = self.cells ** 3 * self.m ** 3
-            est = self.cells ** 3 * 8 * n * self.m ** 3 + 14 * p_tot ** 2
+            if self.levels:
+                est = 8 * n * self.m ** 3 + 686 * 8 ** self.levels \
+                    * self.m ** 6
+            else:
+                p_tot = self.cells ** 3 * self.m ** 3
+                est = self.cells ** 3 * 8 * n * self.m ** 3 + 14 * p_tot ** 2
             if est > COST_SLACK * 14 * n * n:
                 self.using_proxy = False
 
     def _validate_order(self, half: float) -> None:
         """Measured-order selection (ops/validate): measure the configured
         solver against an exact strided sample and escalate (or descend)
-        until the tol contract is met."""
+        until the tol contract is met; the ladder's hierarchy rungs run
+        acc_fmm.  murb_tpu's drop of a lossy M2L tier after a miss has
+        nothing to drop while the port runs fp32 only."""
         from murb_tpu_torch.ops.proxy import validation_ladder
         from murb_tpu_torch.ops.validate import certified_half, validate_config
 
@@ -225,6 +237,11 @@ class ProxyEngine(EulerAccelEngine):
             from murb_tpu_torch.ops.hybrid import acc_hybrid
 
             return acc_hybrid(qx, qy, qz, gm, self.soft, passes=2)
+        if self.levels:
+            from murb_tpu_torch.ops.fmm import acc_fmm
+
+            return acc_fmm(qx, qy, qz, gm, self.soft, m=self.m,
+                           levels=self.levels)
         from murb_tpu_torch.ops.proxy import acc_proxy
 
         return acc_proxy(qx, qy, qz, gm, self.soft, m=self.m,
@@ -233,10 +250,14 @@ class ProxyEngine(EulerAccelEngine):
     def proxy_health(self) -> dict:
         """Is the order still adequate for the CURRENT box?  Reports the
         order the box would need now (waits on the device)."""
+        from murb_tpu_torch.ops.fmm import fmm_order
         from murb_tpu_torch.ops.proxy import half_extent, required_order
 
         half = half_extent(self._state.unpadded())
-        needed = required_order(half / self.cells, self.soft)
+        if self.levels:
+            needed = fmm_order(half, self.soft, self.levels)
+        else:
+            needed = required_order(half / self.cells, self.soft)
         if self.validated_half is not None:
             # measured contract (ops/validate.certified_half)
             ok = half <= self.validated_half
@@ -260,10 +281,16 @@ def _resolve_metric_dtype(metric_dtype) -> torch.dtype:
     return torch.float64 if metric_dtype is None else metric_dtype
 
 
-def _fused_force_phi(qx, qy, qz, gm, soft, fused_proxy_m):
-    """(Accel, phi) from one far-field pass: the single-level proxy.  The
-    hierarchy and adaptive branches of murb_tpu are refused when the
-    engine is built (``_Tracked._setup_tracking``)."""
+def _fused_force_phi(qx, qy, qz, gm, soft, fused_proxy_m, fused_fmm):
+    """(Accel, phi) from one far-field pass: the L-level hierarchy when
+    ``fused_fmm`` = (m, levels) is set, else the single-level proxy.  The
+    adaptive branch of murb_tpu is refused when the engine is built
+    (``_Tracked._setup_tracking``)."""
+    if fused_fmm:
+        from murb_tpu_torch.ops.fmm import force_and_potential_fmm
+
+        return force_and_potential_fmm(qx, qy, qz, gm, soft, m=fused_fmm[0],
+                                       levels=fused_fmm[1])
     from murb_tpu_torch.ops.proxy import force_and_potential_proxy
 
     return force_and_potential_proxy(qx, qy, qz, gm, soft, m=fused_proxy_m)
@@ -277,22 +304,28 @@ def _phi_metrics(state, phi, soft, out_dtype):
             metrics_mod.density_center(state, out_dtype))
 
 
-def _fused_proxy_health(state, soft, fused_proxy_m,
+def _fused_proxy_health(state, soft, fused_proxy_m, fused_fmm,
                         validated_half=None) -> dict | None:
-    """Validity of a tracking engine's fused proxy (the contract of
-    ProxyEngine.proxy_health); None when the engine runs no fused proxy.
+    """Validity of a tracking engine's fused far-field pass (the contract
+    of ProxyEngine.proxy_health); None when the engine runs none.
     ``validated_half``: the box half-extent a measured order is certified
     for (ops/validate.certified_half), instead of the static bound."""
-    if not fused_proxy_m:
+    if not (fused_proxy_m or fused_fmm):
         return None
+    from murb_tpu_torch.ops.fmm import fmm_order
     from murb_tpu_torch.ops.proxy import half_extent, required_order
 
     half = half_extent(state.unpadded())
-    needed = required_order(half, soft)
+    if fused_fmm:
+        m, levels = fused_fmm
+        needed = fmm_order(half, soft, levels)
+    else:
+        m, levels = fused_proxy_m, 0
+        needed = required_order(half, soft)
     ok = (half <= validated_half if validated_half is not None
-          else needed <= fused_proxy_m)
-    return {"using_proxy": True, "m": fused_proxy_m, "cells": 1,
-            "levels": 0, "required_m_now": needed, "ok": ok}
+          else needed <= m)
+    return {"using_proxy": True, "m": m, "cells": 1, "levels": levels,
+            "required_m_now": needed, "ok": ok}
 
 
 def _pack(mets) -> torch.Tensor:
@@ -384,10 +417,11 @@ class _Tracked:
                         metrics_proxy_m: int = 16, fused_proxy_m: int = 0,
                         fused_fmm: tuple = (), fused_adaptive=None,
                         validated_half: float | None = None) -> None:
-        if fused_fmm or fused_adaptive is not None:
-            raise not_yet_ported("tracked fused_fmm / fused_adaptive (the "
-                                 "multi-level and adaptive hierarchies)",
-                                 "Queue 1 items 7-8")
+        if fused_adaptive is not None:
+            raise not_yet_ported("tracked fused_adaptive (the adaptive "
+                                 "hierarchy)", "Queue 1 item 8")
+        if fused_proxy_m and fused_fmm:
+            raise ValueError("fused_proxy_m / fused_fmm are exclusive")
         if metrics_method not in ("exact", "proxy"):
             raise ValueError(f"unknown metrics method {metrics_method!r} "
                              "(exact, proxy)")
@@ -398,6 +432,7 @@ class _Tracked:
         self._metrics_method = metrics_method
         self._metrics_proxy_m = metrics_proxy_m
         self._fused_proxy_m = fused_proxy_m
+        self._fused_fmm = tuple(fused_fmm)  # (m, levels) or ()
         self._validated_half = validated_half
 
     def _metrics(self, state):
@@ -406,10 +441,11 @@ class _Tracked:
             method=self._metrics_method, proxy_m=self._metrics_proxy_m)
 
     def proxy_health(self) -> dict | None:
-        """Validity of the fused proxy (ProxyEngine.proxy_health's
+        """Validity of the fused far-field pass (ProxyEngine.proxy_health's
         contract); None when the engine runs none."""
         return _fused_proxy_health(self._state, self.soft,
-                                   self._fused_proxy_m, self._validated_half)
+                                   self._fused_proxy_m, self._fused_fmm,
+                                   self._validated_half)
 
     def _record(self, i0: int, rows: np.ndarray) -> None:
         """History rows i0, i0 + 1, ... from packed metrics (k, 5), or
@@ -443,8 +479,9 @@ class TrackingEngine(_Tracked, EulerAccelEngine):
     iteration, at the pre-update state (acceleration -> metrics -> update,
     ref: SimulationNBodyCUDAPropertyTracking.cu:121-133).
 
-    The step takes one of three paths: the fused proxy (``fused_proxy_m``:
-    force and potential from one far-field pass, K1 and K2), the fused
+    The step takes one of three paths: the fused far-field pass (force and
+    potential from one pass: the proxy with ``fused_proxy_m``, K1 and K2,
+    or the hierarchy with ``fused_fmm`` = (m, levels), K7-K9), the fused
     exact sweep (``_use_fused_exact``: K6), or the force kernel ``acc_fn``
     plus the metrics' own potential sweep."""
 
@@ -466,7 +503,7 @@ class TrackingEngine(_Tracked, EulerAccelEngine):
         no custom ``acc_fn`` and no proxy metrics are configured (murb_tpu:
         on the TPU).  ``fused_exact`` forces it either way."""
         if (self._acc is not None or self._metrics_method != "exact"
-                or self._fused_proxy_m):
+                or self._fused_proxy_m or self._fused_fmm):
             return False
         if self._fused_exact is not None:
             return self._fused_exact
@@ -478,9 +515,10 @@ class TrackingEngine(_Tracked, EulerAccelEngine):
     def _step_with_metrics(self, state):
         """(new_state, acc, metrics), the metrics at the pre-update state."""
         gm = self._gm(state)
-        if self._fused_proxy_m:
+        if self._fused_proxy_m or self._fused_fmm:
             acc, phi = _fused_force_phi(state.qx, state.qy, state.qz, gm,
-                                        self.soft, self._fused_proxy_m)
+                                        self.soft, self._fused_proxy_m,
+                                        self._fused_fmm)
             mets = _phi_metrics(state, phi, self.soft, self._metric_dtype)
         elif self._use_fused_exact():
             from murb_tpu_torch.ops.hybrid import acc_phi_rows_hybrid
@@ -522,9 +560,9 @@ class LeapfrogTrackingEngine(_Tracked, LeapfrogEngine):
     def _advance(self):
         q, finish = self._phase()
         gm = self._gm(self._state)
-        if self._fused_proxy_m:
+        if self._fused_proxy_m or self._fused_fmm:
             acc, phi = _fused_force_phi(*q, gm, self.soft,
-                                        self._fused_proxy_m)
+                                        self._fused_proxy_m, self._fused_fmm)
             self._state, self._aux = finish(acc)
             mets = _phi_metrics(self._state, phi, self.soft,
                                 self._metric_dtype)
@@ -589,7 +627,8 @@ class MultiGalaxyTrackingEngine(TrackingEngine):
 
     def _step_with_metrics(self, state):
         """Force and every galaxy's potential from one pass: the per-galaxy
-        proxy with ``fused_proxy_m``, else K6 on the fused exact path."""
+        proxy with ``fused_proxy_m``, the per-galaxy hierarchy with
+        ``fused_fmm``, else K6 on the fused exact path."""
         gm = self._gm(state)
         if self._fused_proxy_m:
             from murb_tpu_torch.ops.proxy import \
@@ -598,6 +637,12 @@ class MultiGalaxyTrackingEngine(TrackingEngine):
             acc, phi = force_and_potential_proxy_pergal(
                 state.qx, state.qy, state.qz, gm, self.masks, self.soft,
                 m=self._fused_proxy_m)
+        elif self._fused_fmm:
+            from murb_tpu_torch.ops.fmm import force_and_potential_fmm_pergal
+
+            acc, phi = force_and_potential_fmm_pergal(
+                state.qx, state.qy, state.qz, gm, self.masks, self.soft,
+                m=self._fused_fmm[0], levels=self._fused_fmm[1])
         elif self._use_fused_exact() and len(self.masks) <= 8:
             from murb_tpu_torch.ops.hybrid import acc_phi_rows_hybrid
 

@@ -23,7 +23,8 @@ def acc_auto(qx, qy, qz, gm, soft):
     return acc_chunked(qx, qy, qz, gm, soft)
 
 
-def make_acc_fn(name: str = "auto", *, m: int = 16, passes: int = 2):
+def make_acc_fn(name: str = "auto", *, m: int = 16, levels: int = 2,
+                passes: int = 2):
     """Resolve an acceleration kernel by name.
 
     auto     -- ``acc_auto``: K4 passes 2 on CUDA tensors, chunked on CPU
@@ -32,8 +33,9 @@ def make_acc_fn(name: str = "auto", *, m: int = 16, passes: int = 2):
     tile     -- the exact fp32 sweep (K3)
     hybrid   -- the tiered exact sweep (K4) at ``passes``
     proxy    -- the Chebyshev proxy at order ``m`` (caller owns validity)
+    fmm      -- the L-level hierarchy at (``m``, ``levels``), K7-K9
 
-    ``mxu``, ``fmm`` and ``adaptive`` raise "not yet ported"."""
+    ``mxu`` and ``adaptive`` raise "not yet ported"."""
     from murb_tpu_torch.ops.common import not_yet_ported
 
     if name == "auto":
@@ -58,11 +60,15 @@ def make_acc_fn(name: str = "auto", *, m: int = 16, passes: int = 2):
         from murb_tpu_torch.ops.proxy import acc_proxy
 
         return partial(acc_proxy, m=m)
+    if name == "fmm":
+        from murb_tpu_torch.ops.fmm import acc_fmm
+
+        return partial(acc_fmm, m=m, levels=levels)
     if name == "mxu":
         raise not_yet_ported("kernel 'mxu' (K13)", "Queue 2 K13")
-    if name in ("fmm", "adaptive"):
-        raise not_yet_ported(f"kernel {name!r} (the multi-level and adaptive "
-                             "hierarchies)", "Queue 1 items 7-8")
+    if name == "adaptive":
+        raise not_yet_ported("kernel 'adaptive' (the adaptive sparse "
+                             "hierarchy)", "Queue 1 item 8")
     raise ValueError(f"unknown kernel {name!r} "
                      "(auto, naive, chunked, tile, hybrid, mxu, proxy, fmm, "
                      "adaptive)")

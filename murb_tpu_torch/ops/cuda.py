@@ -10,7 +10,8 @@ place, so concurrent processes never load a half-written file.
 
 There is no fallback: a missing ``nvcc``, a failed build or a refused
 launch raises.  The kernel wrappers (ops/tile.py, ops/hybrid.py,
-ops/proxy_kernels.py) call ``library()`` only for CUDA tensors.
+ops/proxy_kernels.py, ops/fmm_kernels.py) call ``library()`` only for CUDA
+tensors.
 """
 from __future__ import annotations
 
@@ -45,6 +46,11 @@ _SIGNATURES = {
                            _P, _P],
     "murb_acc_phi_rows": [_P, _P, _P, _P, _I, _P, _I, _F, _P, _P, _P, _P,
                           _P],
+    "murb_p2m_grid": [_P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _I, _P, _P,
+                      _P],
+    "murb_l2p_grid": [_P, _P, _P, _P, _I, _P, _I, _I, _P, _P, _I, _P, _I,
+                      _P, _P],
+    "murb_m2l_level": [_P, _P, _F, _I, _I, _I, _I, _I, _P, _P, _P],
 }
 
 

@@ -1,0 +1,343 @@
+"""Grid and level-sweep stages of the multi-level hierarchy: kernels K7
+(M2L level sweep), K8 (grid P2M) and K9 (grid L2P) and their plain versions.
+
+Port of ``murb_tpu/ops/fmm_pallas.py`` together with the stages it fuses,
+``p2m_grid``, ``m2l_level`` and ``l2p_grid`` of ``murb_tpu/ops/fmm.py``.
+The plain versions are those jnp stages written in PyTorch: the cell
+segment sum of P2M as ``index_add_``, the own-cell gather of L2P, and the
+level sweep over the canonical offset pairs with its mirror identity and
+parity masks.  The CUDA kernels (``csrc/fmm.cu``) compute the same
+functions in fp32.
+
+``p2m_grid_fused``, ``m2l_level_fused`` and ``l2p_grid_fused`` run the
+plain version on CPU tensors and launch the kernel on CUDA tensors, and
+count each launch.  For K8 and K9 the wrapper orders the bodies by cell
+(``cell_order``: the cell ids, a stable sort, the cell bounds), so the
+kernels read each cell's bodies as one run; callers that run both stages
+on one box pass one ``CellOrder`` to both.  The box stays on the device.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from murb_tpu_torch.ops import cuda
+from murb_tpu_torch.ops.common import notify_fp32_compute
+from murb_tpu_torch.ops.proxy_kernels import _basis
+
+#: largest order and cells per dimension the kernels take (csrc/fmm.cu)
+MAX_ORDER = 16
+MAX_CELLS = 16
+#: node fields one grid L2P call takes: force (3) plus up to 8 potentials
+MAX_FIELDS = 11
+_L2P_GROUP = 4       # fields one K9 launch takes (kGridFields)
+_P2M_CHUNK = 512     # bodies per K8 work item (kGridP2MChunk)
+_L2P_CHUNK = 128     # bodies per K9 work item (kGridL2PThreads)
+_M2L_THREADS = 128   # target nodes per K7 block (kM2LThreads)
+_M2L_MAX_SPLIT = 16
+#: resident threads of an H100 (132 SMs x 2048): K7 splits its offsets
+#: until its blocks reach this many threads
+_FILL_THREADS = 132 * 2048
+_SUBSET_IDS = {"expand": 0, "near": 1, "far": 2}
+_PLAIN_CHUNK = 8192  # bodies per step of the plain P2M / L2P
+_TAG = "tpu+proxy/fmm (grid kernels)"
+
+
+def _check_grid(m: int, C: int) -> None:
+    if not 2 <= m <= MAX_ORDER:
+        raise ValueError(f"{_TAG}: order m={m} outside the kernels' range "
+                         f"[2, {MAX_ORDER}]")
+    if not 1 <= C <= MAX_CELLS:
+        raise ValueError(f"{_TAG}: C={C} cells per dimension outside the "
+                         f"kernels' range [1, {MAX_CELLS}]")
+
+
+# ------------------------------------------------------------ plain P2M/L2P
+def _cell_coords(q, lo, cs, C: int):
+    """(cell index (int64), in-cell Chebyshev coordinate t): cell =
+    clip(floor((q - lo) / cs), 0, C - 1), t = 2 ((q - lo) / cs - cell) - 1
+    (murb_tpu/ops/fmm.py:_cell_coords)."""
+    u = (q - lo) / cs
+    cx = torch.floor(u).clamp(0.0, C - 1.0)
+    return cx.long(), 2.0 * (u - cx) - 1.0
+
+
+def _grid_bases(qx, qy, qz, c, h, m: int, C: int):
+    """(cell id, Sx, Sy, Sz) of each body on the C^3 grid over the box."""
+    lo = c - h
+    cs = 2.0 * h / C
+    cx, tx = _cell_coords(qx, lo[0], cs[0], C)
+    cy, ty = _cell_coords(qy, lo[1], cs[1], C)
+    cz, tz = _cell_coords(qz, lo[2], cs[2], C)
+    return (cx * C + cy) * C + cz, _basis(tx, m), _basis(ty, m), _basis(tz, m)
+
+
+def p2m_grid_plain(qx, qy, qz, gm_eff, c, h, *, m: int,
+                   C: int) -> torch.Tensor:
+    """W (C^3, m^3): per-cell source expansions, each body into its own
+    cell (the segment sum as ``index_add_``), in the inputs' dtype."""
+    n = qx.shape[0]
+    w = torch.zeros((C ** 3, m ** 3), dtype=qx.dtype, device=qx.device)
+    for s in range(0, n, _PLAIN_CHUNK):
+        e = s + _PLAIN_CHUNK
+        cid, sx, sy, sz = _grid_bases(qx[s:e], qy[s:e], qz[s:e], c, h, m, C)
+        svw = (sy[:, :, None] * sz[:, None, :]).reshape(-1, m * m)
+        outer = ((gm_eff[s:e, None] * sx)[:, :, None]
+                 * svw[:, None, :]).reshape(-1, m ** 3)
+        w.index_add_(0, cid, outer)
+    return w
+
+
+def l2p_grid_plain(qx, qy, qz, c, h, fields, *, m: int, C: int) -> tuple:
+    """Interpolate (C^3, m^3) node fields back to the bodies, each body
+    from its own cell -> tuple of (n,), in the inputs' dtype."""
+    n = qx.shape[0]
+    outs = [[] for _ in fields]
+    for s in range(0, n, _PLAIN_CHUNK):
+        e = s + _PLAIN_CHUNK
+        cid, sx, sy, sz = _grid_bases(qx[s:e], qy[s:e], qz[s:e], c, h, m, C)
+        b = cid.shape[0]
+        for out, f in zip(outs, fields):
+            fg = f[cid].reshape(b, m, m * m)              # own-cell gather
+            t1 = torch.einsum("bu,bup->bp", sx, fg).reshape(b, m, m)
+            t2 = torch.einsum("bv,bvw->bw", sy, t1)
+            out.append((sz * t2).sum(1))
+    return tuple(torch.cat(o) for o in outs)
+
+
+# ----------------------------------------------------------- plain M2L
+def _node_vectors(hl, m: int, dtype, device):
+    """Flat (m^3,) node coordinates of one cell, x-major, scaled by the
+    level's half-widths ``hl`` (3,)."""
+    k = torch.arange(m, dtype=torch.float64, device=device)
+    t = torch.cos(math.pi * (k + 0.5) / m).to(dtype)
+    m2 = m * m
+    return (hl[0] * t.repeat_interleave(m2),
+            hl[1] * t.repeat_interleave(m).repeat(m),
+            hl[2] * t.repeat(m2))
+
+
+def _parity_mask(o, even, C: int) -> torch.Tensor:
+    """(C^3, 1) target-parity validity of offset o: |o_d| = 3 needs near
+    parents, +3 iff the target index is even, -3 iff odd."""
+    def mk(od):
+        if od == 3:
+            return even
+        if od == -3:
+            return ~even
+        return torch.ones_like(even)
+
+    return (mk(o[0])[:, None, None] & mk(o[1])[None, :, None]
+            & mk(o[2])[None, None, :]).reshape(C ** 3, 1)
+
+
+def m2l_level_plain(w, hl, soft, *, m: int, C: int, subset: str = "expand",
+                    with_phi: bool = False) -> tuple:
+    """Node fields (fx, fy, fz[, phi]), each (C^3, m^3), from the level's
+    expansions ``w`` (murb_tpu/ops/fmm.py:m2l_level): for each canonical
+    offset pair one transfer build T(o), applied to the +o-shifted weights
+    and, by the mirror identity T(-o) = -T(o)^T (+T^T for phi), to the
+    -o-shifted ones.  Out-of-grid offsets read zero-padded weights."""
+    from murb_tpu_torch.ops.fmm import _SUBSETS, _offsets_paired
+
+    dtype, dev = w.dtype, w.device
+    m3 = m ** 3
+    soft2 = torch.tensor(soft, dtype=dtype) ** 2
+    wpad = F.pad(w.reshape(C, C, C, m3), (0, 0, 3, 3, 3, 3, 3, 3))
+    even = (torch.arange(C, device=dev) % 2) == 0
+    offsets, neg_valid = _offsets_paired(*_SUBSETS[subset])
+    pxv, pyv, pzv = _node_vectors(hl, m, dtype, dev)
+
+    def shifted(o):
+        ws = wpad[3 + o[0]:3 + o[0] + C, 3 + o[1]:3 + o[1] + C,
+                  3 + o[2]:3 + o[2] + C].reshape(C ** 3, m3)
+        if subset != "near":
+            ws = torch.where(_parity_mask(o, even, C), ws, 0.0)
+        return ws
+
+    fields = [torch.zeros((C ** 3, m3), dtype=dtype, device=dev)
+              for _ in range(4 if with_phi else 3)]
+    for o, nv in zip(offsets.tolist(), neg_valid.tolist()):
+        if max(map(abs, o)) >= C:
+            continue  # both shifts read only zero padding: adds exactly 0
+        # D[u, v] = p_v - p_u = 2 hl o + (pv[v] - pv[u]), per dimension
+        dx = 2.0 * hl[0] * o[0] + (pxv[None, :] - pxv[:, None])
+        dy = 2.0 * hl[1] * o[1] + (pyv[None, :] - pyv[:, None])
+        dz = 2.0 * hl[2] * o[2] + (pzv[None, :] - pzv[:, None])
+        inv = torch.rsqrt(dx * dx + dy * dy + dz * dz + soft2)
+        inv3 = inv * inv * inv
+        ts = [dx * inv3, dy * inv3, dz * inv3] + ([inv] if with_phi else [])
+        wp = shifted(o)
+        wn = shifted([-x for x in o]) * nv
+        for i, t in enumerate(ts):
+            sign = 1.0 if i == 3 else -1.0
+            fields[i] += wp @ t.T + sign * (wn @ t)
+    return tuple(fields)
+
+
+# ------------------------------------------------------------ cell order
+class CellOrder(NamedTuple):
+    """The bodies of one box ordered by their cell on the C^3 grid, as the
+    K8 and K9 kernels read them (device tensors)."""
+
+    box: torch.Tensor      # (6,) float32: lo (3), cell sizes (3)
+    perm: torch.Tensor     # (n,) int64: body indices, cell by cell
+    bounds: torch.Tensor   # (C^3 + 1,) int64: cell c is
+    C: int                 #   perm[bounds[c]:bounds[c + 1]]
+
+
+def cell_order(qx, qy, qz, c, h, C: int) -> CellOrder:
+    """Each body's cell id from the float32 box [lo, cs] the kernels read,
+    a stable sort of the ids and the cell bounds: glue around K8 and K9,
+    all on the device, no host sync (the bounds come from a search of the
+    sorted ids; ``torch.bincount`` would read the largest id back to the
+    host)."""
+    lo = c - h
+    box = torch.cat([lo, 2.0 * h / C]).to(torch.float32)
+    q = torch.stack([qx, qy, qz]).to(torch.float32)
+    cell = torch.floor((q - box[:3, None]) / box[3:, None]).clamp_(0, C - 1)
+    cell = cell.long()
+    cid = (cell[0] * C + cell[1]) * C + cell[2]
+    ids, perm = torch.sort(cid, stable=True)
+    bounds = torch.searchsorted(
+        ids, torch.arange(C ** 3 + 1, device=ids.device))
+    return CellOrder(box, perm, bounds, C)
+
+
+def _work_items(order: CellOrder, chunk: int) -> tuple[torch.Tensor, int]:
+    """(prefix (C^3 + 1,) of each cell's work items of at most ``chunk``
+    bodies, a grid size that covers them): sum_c ceil(n_c / chunk) <=
+    n / chunk + C^3, so the grid needs no host sync."""
+    per_cell = (order.bounds.diff() + chunk - 1) // chunk
+    nitems = order.perm.shape[0] // chunk + order.C ** 3 + 1
+    return F.pad(per_cell.cumsum(0), (1, 0)), nitems
+
+
+def _order_for(order, x, y, z, c, h, C: int) -> CellOrder:
+    if order is None:
+        return cell_order(x, y, z, c, h, C)
+    if order.C != C or order.perm.shape[0] != x.shape[0]:
+        raise ValueError(f"{_TAG}: cell order for C={order.C}, "
+                         f"n={order.perm.shape[0]}; expected C={C}, "
+                         f"n={x.shape[0]}")
+    return order
+
+
+# ----------------------------------------------------------- K8 wrapper
+def p2m_grid_fused(qx, qy, qz, gm_eff, c, h, *, m: int, C: int,
+                   order: CellOrder | None = None) -> torch.Tensor:
+    """W (C^3, m^3) = grid P2M.  CPU tensors run ``p2m_grid_plain``; CUDA
+    tensors launch K8 (fp32 inside; float64 inputs are cast here, W cast
+    back)."""
+    _check_grid(m, C)
+    if qx.device.type == "cpu":
+        return p2m_grid_plain(qx, qy, qz, gm_eff, c, h, m=m, C=C)
+    cuda.require_cuda(_TAG, qx)
+    dtype, dev, n = qx.dtype, qx.device, qx.shape[0]
+    x, y, z, g = cuda.kernel_inputs(_TAG, dev, n, qx, qy, qz, gm_eff,
+                                    notify=notify_fp32_compute)
+    order = _order_for(order, x, y, z, c, h, C)
+    prefix, nitems = _work_items(order, _P2M_CHUNK)
+    p3 = m ** 3
+    partial = torch.empty(nitems * p3, dtype=torch.float32, device=dev)
+    w = torch.empty((C ** 3, p3), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        cuda.launch("murb_p2m_grid", x.data_ptr(), y.data_ptr(),
+                    z.data_ptr(), g.data_ptr(), order.perm.data_ptr(),
+                    order.box.data_ptr(), m, C, order.bounds.data_ptr(),
+                    prefix.data_ptr(), nitems, partial.data_ptr(),
+                    w.data_ptr(), cuda.stream(dev))
+    p2m_grid_fused.launches += 1
+    return w.to(dtype)
+
+
+p2m_grid_fused.launches = 0
+
+
+# ----------------------------------------------------------- K9 wrapper
+def l2p_grid_fused(qx, qy, qz, c, h, fields, *, m: int, C: int,
+                   order: CellOrder | None = None) -> tuple:
+    """Interpolate 1 to 11 (C^3, m^3) node fields to the bodies -> tuple of
+    (n,).  CPU tensors run ``l2p_grid_plain``; CUDA tensors launch K9 once
+    per group of at most 4 fields, and count each launch."""
+    _check_grid(m, C)
+    k = len(fields)
+    if not 1 <= k <= MAX_FIELDS:
+        raise ValueError(f"{_TAG}: grid L2P takes 1 to {MAX_FIELDS} node "
+                         f"fields, got {k}")
+    for f in fields:
+        if tuple(f.shape) != (C ** 3, m ** 3):
+            raise ValueError(f"{_TAG}: node field of shape "
+                             f"{tuple(f.shape)}, expected {(C ** 3, m ** 3)}")
+    if qx.device.type == "cpu":
+        return l2p_grid_plain(qx, qy, qz, c, h, fields, m=m, C=C)
+    cuda.require_cuda(_TAG, qx)
+    dtype, dev, n = qx.dtype, qx.device, qx.shape[0]
+    x, y, z = cuda.kernel_inputs(_TAG, dev, n, qx, qy, qz,
+                                 notify=notify_fp32_compute)
+    order = _order_for(order, x, y, z, c, h, C)
+    prefix, nitems = _work_items(order, _L2P_CHUNK)
+    fmat = torch.stack(fields).to(torch.float32).contiguous()
+    out = torch.empty((k, n), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        cuda.launch("murb_l2p_grid", x.data_ptr(), y.data_ptr(),
+                    z.data_ptr(), order.perm.data_ptr(), n,
+                    order.box.data_ptr(), m, C, order.bounds.data_ptr(),
+                    prefix.data_ptr(), nitems, fmat.data_ptr(), k,
+                    out.data_ptr(), cuda.stream(dev))
+    l2p_grid_fused.launches += -(-k // _L2P_GROUP)
+    return tuple(o.to(dtype) for o in out)
+
+
+l2p_grid_fused.launches = 0
+
+
+# ----------------------------------------------------------- K7 wrapper
+def m2l_splits(m: int, C: int) -> int:
+    """Offset shares K7 splits a level sweep into: enough blocks to fill
+    the card where C^3 m^3 target threads alone cannot."""
+    threads = C ** 3 * -(-m ** 3 // _M2L_THREADS) * _M2L_THREADS
+    return max(1, min(_M2L_MAX_SPLIT, -(-_FILL_THREADS // threads)))
+
+
+def m2l_level_fused(w, hl, soft, *, m: int, C: int, subset: str = "expand",
+                    with_phi: bool = False) -> tuple:
+    """Node fields (fx, fy, fz[, phi]), each (C^3, m^3), of one level sweep.
+    CPU tensors run ``m2l_level_plain``; CUDA tensors launch K7 (fp32
+    inside, fields cast back to ``w``'s dtype)."""
+    _check_grid(m, C)
+    if subset not in _SUBSET_IDS:
+        raise ValueError(f"unknown offset subset {subset!r} "
+                         f"({', '.join(_SUBSET_IDS)})")
+    if tuple(w.shape) != (C ** 3, m ** 3):
+        raise ValueError(f"{_TAG}: expansions of shape {tuple(w.shape)}, "
+                         f"expected {(C ** 3, m ** 3)}")
+    if w.device.type == "cpu":
+        return m2l_level_plain(w, hl, soft, m=m, C=C, subset=subset,
+                               with_phi=with_phi)
+    cuda.require_cuda(_TAG, w)
+    dev = w.device
+    if w.dtype == torch.float64:
+        notify_fp32_compute(_TAG, w.dtype)
+    w32 = w.to(torch.float32).contiguous()
+    hl32 = hl.to(device=dev, dtype=torch.float32).contiguous()
+    nf = 4 if with_phi else 3
+    nsplit = m2l_splits(m, C)
+    out = torch.empty((nf, C ** 3, m ** 3), dtype=torch.float32, device=dev)
+    partial = (torch.empty(nsplit * out.numel(), dtype=torch.float32,
+                           device=dev) if nsplit > 1 else None)
+    soft2 = float(np.float32(soft) * np.float32(soft))
+    with torch.cuda.device(dev):
+        cuda.launch("murb_m2l_level", w32.data_ptr(), hl32.data_ptr(), soft2,
+                    m, C, _SUBSET_IDS[subset], nf, nsplit,
+                    None if partial is None else partial.data_ptr(),
+                    out.data_ptr(), cuda.stream(dev))
+    m2l_level_fused.launches += 1
+    return tuple(f.to(w.dtype) for f in out)
+
+
+m2l_level_fused.launches = 0

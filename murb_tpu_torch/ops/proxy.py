@@ -20,9 +20,13 @@ one node sweep for the force and the potential fields, and one L2P of 3 + R
 fields (``force_and_potential_proxy``, and ``..._pergal`` with one masked
 weight set per galaxy).
 
+``cells=2`` splits the box into its 2x2x2 octants: the octant grid is the
+C=2 cell grid of the hierarchy, so one grid P2M (K8) builds the eight
+per-octant expansions, one exact sweep joins their nodes, and one grid L2P
+(K9) reads each body's own octant.
+
 Every stage stays on the device: the box center and half-widths are device
-tensors the kernels read, and no step calls ``.item()``.  ``cells=2`` (the
-octant grid, kernels K8/K9) is not ported yet and raises.
+tensors the kernels read, and no step calls ``.item()``.
 """
 from __future__ import annotations
 
@@ -31,6 +35,7 @@ import math
 import torch
 
 from murb_tpu_torch.ops.common import Accel
+from murb_tpu_torch.ops.fmm_kernels import l2p_grid_fused, p2m_grid_fused
 from murb_tpu_torch.ops.naive import acc_rect
 from murb_tpu_torch.ops.proxy_kernels import (l2p_fused, l2p_fused_multi,
                                               p2m_fused)
@@ -134,11 +139,10 @@ def heavy_source_acc(qx, qy, qz, hq, heavy_gm, soft) -> torch.Tensor:
 def acc_proxy(qx, qy, qz, gm, soft, *, m: int = 16,
               cells: int = 1) -> Accel:
     """All-pairs softened-gravity accelerations via the Chebyshev proxy
-    (ref: murb_tpu/ops/proxy.py:acc_proxy, the fused single-cell path)."""
-    if cells != 1:
-        raise NotImplementedError(
-            f"acc_proxy cells={cells}: the octant grid (kernels K8/K9) is not "
-            "yet ported to murb_tpu_torch (ROADMAP.md Queue 1 item 7)")
+    (ref: murb_tpu/ops/proxy.py:acc_proxy, the fused paths): one global
+    expansion (``cells=1``) or one per octant (``cells=2``)."""
+    if cells not in (1, 2):
+        raise ValueError("cells must be 1 or 2")
     gm_pos = gm > 0
     c, h = bounding_box(qx, qy, qz, gm_pos)
 
@@ -146,9 +150,12 @@ def acc_proxy(qx, qy, qz, gm, soft, *, m: int = 16,
     hq, heavy_gm, is_heavy, top_idx, gm_eff = heavy_split(
         qx, qy, qz, gm, min(HEAVY_K, qx.shape[0]), HEAVY_FACTOR, mean_gm)
 
-    w = p2m_fused(qx, qy, qz, gm_eff, c, h, m=m)
-    f = m2l(c, h, w, soft, m, qx.dtype)
-    acc = l2p_fused(qx, qy, qz, c, h, f.ax, f.ay, f.az, m=m)
+    if cells == 2:
+        acc = _two_level(qx, qy, qz, gm_eff, c, h, soft, m)
+    else:
+        w = p2m_fused(qx, qy, qz, gm_eff, c, h, m=m)
+        f = m2l(c, h, w, soft, m, qx.dtype)
+        acc = l2p_fused(qx, qy, qz, c, h, f.ax, f.ay, f.az, m=m)
     acc = acc + heavy_source_acc(qx, qy, qz, hq, heavy_gm, soft)
 
     # heavy targets: replace their force with the exact k x N sweep
@@ -158,18 +165,36 @@ def acc_proxy(qx, qy, qz, gm, soft, *, m: int = 16,
     return Accel(acc[:, 0], acc[:, 1], acc[:, 2])
 
 
+def _two_level(qx, qy, qz, gm_eff, c, h, soft, m: int) -> torch.Tensor:
+    """Octant decomposition (murb_tpu/ops/proxy.py:_two_level, its fused
+    branch): the eight octant expansions from one grid P2M at C=2 (cell id
+    (cx*2 + cy)*2 + cz, the x-major octant order), one exact sweep over the
+    concatenated octant nodes, one grid L2P -> acc (n, 3)."""
+    half = 0.5 * h
+    p = m ** 3
+    w = p2m_grid_fused(qx, qy, qz, gm_eff, c, h, m=m, C=2)     # (8, m^3)
+    nodes = [proxy_nodes(c + torch.tensor([ox, oy, oz], dtype=c.dtype,
+                                          device=c.device) * half,
+                         half, m, qx.dtype)
+             for ox in (-1, 1) for oy in (-1, 1) for oz in (-1, 1)]
+    f = node_sweep(*(torch.cat(v) for v in zip(*nodes)), w.reshape(8 * p),
+                   soft)
+    out = l2p_grid_fused(qx, qy, qz, c, h,
+                         tuple(a.reshape(8, p) for a in f), m=m, C=2)
+    return torch.stack(out, dim=1)
+
+
 def validation_ladder(soft):
     """``make_acc_fn(m, levels, cells) -> acc(qx, qy, qz, gm)`` for
-    ops/validate.validate_config over the single-level proxy, as
-    ``tpu+proxy`` and ``--kernel proxy`` validate it.  A hierarchy rung
-    (levels > 0, kernels K7-K9) raises "not yet ported"."""
-    from murb_tpu_torch.ops.common import not_yet_ported
-
+    ops/validate.validate_config: the single-level proxy, or the hierarchy
+    (``acc_fmm``, kernels K7-K9) on a rung with levels > 0, as
+    ``tpu+proxy`` and ``--kernel proxy`` / ``fmm`` validate them."""
     def make_acc(m, levels, cells):
         if levels:
-            raise not_yet_ported(f"the validation ladder's hierarchy rung "
-                                 f"(m={m}, levels={levels}; kernels K7-K9)",
-                                 "Queue 1 item 7")
+            from murb_tpu_torch.ops.fmm import acc_fmm
+
+            return lambda qx, qy, qz, g: acc_fmm(qx, qy, qz, g, soft, m=m,
+                                                 levels=levels)
         return lambda qx, qy, qz, g: acc_proxy(qx, qy, qz, g, soft, m=m,
                                                cells=cells)
 

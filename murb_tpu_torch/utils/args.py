@@ -3,8 +3,8 @@
 Port of the main-path subset of ``murb_tpu/utils/args.py`` (ref:
 src/murb/main.cpp:61-165): required ``-n``/``-i``; ``-v --dt --nv --im
 --soft -s --gf``; the extensions ``--seed --precision --scheme-file --scan
---csv --kernel --tol --list-impls``; and the port's ``--device`` (default
-``cuda``).  Every
+--csv --kernel --tol --m2l-dots --list-impls``; and the port's ``--device``
+(default ``cuda``).  Every
 other flag of ``murb_tpu`` still parses, so the CLI can exit with a clear
 "not yet ported" message instead of an argparse error.
 """
@@ -33,6 +33,7 @@ class MurbConfig:
     list_impls: bool = False
     kernel: str = "auto"                     # acc kernel of wrapper engines
     tol: float = 1e-4
+    m2l_dots: str = "fp32"                   # hierarchy level-sweep tier
     device: str = "cuda"
     # murb_tpu flags given on the command line that the port lacks
     unported: list[str] = dataclasses.field(default_factory=list)
@@ -46,7 +47,7 @@ UNPORTED_FLAGS = {
     "--save-state": True, "--save-every": True, "--load-state": True,
     "--profile": True, "--dump-traj": True, "--dump-every": True,
     "--ite-chunk": True, "--cam-azim": True, "--cam-elev": True,
-    "--autotune": False, "--m2l-dots": True,
+    "--autotune": False,
     "--near": True, "--adapt-every": True, "--check-finite": False,
 }
 
@@ -108,11 +109,17 @@ def build_parser() -> argparse.ArgumentParser:
                      help="list available implementation tags and exit.")
     ext.add_argument("--kernel", type=str, default="auto",
                      help="acceleration kernel for tracking/leapfrog/kdk "
-                          "engines: auto|naive|chunked|tile|hybrid|proxy "
-                          "(mxu, fmm and adaptive are not yet ported).")
+                          "engines: auto|naive|chunked|tile|hybrid|proxy|fmm "
+                          "(mxu and adaptive are not yet ported).")
     ext.add_argument("--tol", dest="tol", type=float, default=1e-4,
                      help="fast-solver relative force-error target "
-                          "(tpu+proxy and --kernel proxy; default 1e-4).")
+                          "(tpu+proxy and --kernel proxy/fmm; default "
+                          "1e-4).")
+    ext.add_argument("--m2l-dots", dest="m2l_dots", default="fp32",
+                     choices=("fp32", "mixed", "bf16x3"),
+                     help="hierarchy level-sweep tier: fp32 (the default "
+                          "and the only one ported; mixed and bf16x3 exit "
+                          "with 'not yet ported').")
     ext.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                      help="device for the state and every kernel (default "
                           "cuda; never falls back to the CPU).")

@@ -1,13 +1,14 @@
 """Where the time of a ``tpu+proxy`` or tracked step goes on a CUDA card.
 
-    python -m murb_tpu_torch.utils.profile_step [TAG ...]
+    python -m murb_tpu_torch.utils.profile_step [--scheme S] [TAG ...]
 
 TAG is ``tpu+proxy`` (the default), ``tpu+tracking`` or
-``tpu+leapfrog+tracking``.  For each, builds the N=200,000 galaxy (seed
-123) and the engine the way ``python -m murb_tpu_torch -n 200000 --im TAG
---kernel proxy --scan`` does (validated order, the fused force and
-potential proxy for the tracked tags, no mid-run adaptation), runs warm-up
-steps, and then:
+``tpu+leapfrog+tracking``; S is ``galaxy`` (the default) or ``random``.
+For each tag, builds the N=200,000 bodies of the scheme (seed 123) and the
+engine the way ``python -m murb_tpu_torch -n 200000 -s S --im TAG --kernel
+proxy --scan`` does (validated order, the fused force and potential pass
+for the tracked tags, no mid-run adaptation; on the random box the
+hierarchy, kernels K7-K9), runs warm-up steps, and then:
 
   1. times WINDOWS unprofiled windows of WINDOW_STEPS steps on the host
      clock, each ending in ``torch.cuda.synchronize``;
@@ -23,6 +24,7 @@ and the device events that take the most time.  Needs a CUDA device.
 """
 from __future__ import annotations
 
+import argparse
 import statistics
 import sys
 import time
@@ -49,34 +51,41 @@ def device_rows(prof) -> list:
             and not getattr(e, "is_user_annotation", False)]
 
 
-def main(tags=()) -> int:
-    unknown = [t for t in tags if t not in TAGS]
+def main(argv=()) -> int:
+    p = argparse.ArgumentParser(prog="profile_step")
+    p.add_argument("--scheme", choices=("galaxy", "random"),
+                   default="galaxy")
+    p.add_argument("tags", nargs="*", metavar="TAG")
+    args = p.parse_args(list(argv))
+    unknown = [t for t in args.tags if t not in TAGS]
     if unknown:
         print(f"profile_step: {unknown} not in {TAGS}", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("profile_step: no CUDA device available", file=sys.stderr)
         return 1
-    for tag in tags or TAGS[:1]:
-        rc = profile_tag(tag)
+    for tag in args.tags or TAGS[:1]:
+        rc = profile_tag(tag, args.scheme)
         if rc:
             return rc
     return 0
 
 
-def profile_tag(tag: str) -> int:
+def profile_tag(tag: str, scheme: str = "galaxy") -> int:
     dev = torch.device("cuda", 0)
     # every step of the run records its metrics row (tracked tags)
     total = WARMUP + WINDOWS * WINDOW_STEPS + STEPS + 1
-    cfg = parse_args(["-n", str(N), "-i", str(total), "--im", tag,
-                      "--kernel", "proxy", "--seed", str(SEED), "--scan"])
+    cfg = parse_args(["-n", str(N), "-i", str(total), "--im", tag, "-s",
+                      scheme, "--kernel", "proxy", "--seed", str(SEED),
+                      "--scan"])
     eng = build_engine(cfg, dev)
     health = eng.proxy_health()
     if not health["using_proxy"]:
         print(f"profile_step: {tag} took the exact sweep at N={N}; nothing "
               "to profile", file=sys.stderr)
         return 1
-    print(f"{tag} N={N} galaxy: m={health['m']} cells={health['cells']} on "
+    print(f"{tag} N={N} {scheme}: m={health['m']} "
+          f"levels={health['levels']} cells={health['cells']} on "
           f"{torch.cuda.get_device_name(dev)}")
     eng.run(WARMUP)
     eng.block_until_ready()

@@ -1,0 +1,282 @@
+"""The port's multi-level hierarchy (ops/fmm.py, ops/fmm_kernels.py) and
+the octant proxy against murb_tpu's.
+
+On the CPU murb_tpu's fused Pallas stages are ineligible
+(``fmm_fused_block`` and ``m2l_fused_tile`` return None off the TPU), so
+its ``acc_fmm`` runs the jnp stages ``p2m_grid``, ``m2l_level`` and
+``l2p_grid``: the reference the port's plain versions, which the kernel
+wrappers run on CPU tensors, are held to.  Inputs come from
+``murb_tpu.core.init`` and reach both packages as numpy arrays.
+
+Tolerances: the host helpers exactly; the components in float64 within
+1e-10 of the largest magnitude (the same algebra, another summation
+order); ``acc_fmm`` in float32 within 1e-5 net-relative of murb_tpu's
+(the measured gaps are 5e-7 to 2e-6) and, separately, against the naive
+oracle under tests/test_fmm.py's caps; the potential within 1e-5 relative.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from murb_tpu import G
+from murb_tpu.core import init as jinit
+from murb_tpu.ops import fmm as jf
+from murb_tpu.ops import proxy as jp
+from murb_tpu.ops.naive import acc_naive
+from murb_tpu_torch.ops import fmm as tf
+from murb_tpu_torch.ops import fmm_kernels as tk
+from murb_tpu_torch.ops import proxy as tp
+
+torch.set_num_threads(2)
+SOFT = 2.0e8
+
+
+def force_stat(got, ref) -> float:
+    """ops/validate's statistic: max per-body vector error over
+    max(|a_ref|, 1e-6 max |a_ref|)."""
+    g = np.stack([np.asarray(v, np.float64) for v in got], 1)
+    r = np.stack([np.asarray(v, np.float64) for v in ref], 1)
+    rn = np.linalg.norm(r, axis=1)
+    floor = np.maximum(rn, rn.max() * 1e-6)
+    return float((np.linalg.norm(g - r, axis=1) / floor).max())
+
+
+def close64(got, ref, msg):
+    got = np.asarray(got, np.float64)
+    ref = np.asarray(ref, np.float64)
+    err = float(np.abs(got - ref).max() / max(np.abs(ref).max(), 1e-300))
+    assert err <= 1e-10, f"{msg}: {err:.3e} of max|ref| (tol 1e-10)"
+
+
+def state(scheme, n, seed, dtype=jnp.float32):
+    """(JAX arrays qx, qy, qz, gm; torch tensors of the same values)."""
+    s = jinit.SCHEMES[scheme](n, seed).astype(dtype)
+    gm = jnp.asarray(G, s.qx.dtype) * s.m
+    j = (s.qx, s.qy, s.qz, gm)
+    return j, tuple(torch.from_numpy(np.array(v)) for v in j)
+
+
+@pytest.fixture(scope="module")
+def random64():
+    """A random-scheme state in float64 with its bounding box, both
+    packages."""
+    j, t = state("random", 1024, 11, jnp.float64)
+    jc, jh = jp.bounding_box(*j[:3], j[3] > 0)
+    return j, t, (jc, jh), tuple(torch.from_numpy(np.array(v))
+                                for v in (jc, jh))
+
+
+def weights(m, C, seed):
+    return np.random.default_rng(seed).standard_normal(
+        (C ** 3, m ** 3)) * 1e28
+
+
+# ------------------------------------------------------------ host helpers
+@pytest.mark.parametrize("subset", ["expand", "near", "far"])
+def test_offsets_paired_match_jax(subset):
+    assert tf._SUBSETS == jf._SUBSETS
+    for a, b in zip(tf._offsets_paired(*tf._SUBSETS[subset]),
+                    jf._offsets_paired(*jf._SUBSETS[subset])):
+        np.testing.assert_array_equal(a, b)
+        assert a.dtype == b.dtype
+
+
+@pytest.mark.parametrize("m", [4, 6, 8, 12])
+def test_m2m_matrix_and_basis_match_jax(m):
+    np.testing.assert_array_equal(tf._m2m_matrix(m), jf._m2m_matrix(m))
+    t = np.linspace(-1.2, 1.2, 37)
+    np.testing.assert_array_equal(tf._basis_np(t, m), jf._basis_np(t, m))
+
+
+@pytest.mark.parametrize("half", [1.0e8, 2.5e8, 6.65e8, 1.33e9, 3e9, 1e10,
+                                  1e11])
+def test_best_depth_and_levels_match_jax(half):
+    assert tf.LEVEL_OVERHEAD == 3.5e10
+    assert tf.required_levels(half, SOFT) == jf.required_levels(half, SOFT)
+    for n in (1024, 200_192, 1_000_000, 16_777_216):
+        for tol in (1e-3, 1e-4, 1e-5):
+            assert tf.best_depth(n, half, SOFT, tol) == \
+                jf.best_depth(n, half, SOFT, tol), (n, tol)
+
+
+# ------------------------------------------------- components in float64
+@pytest.mark.parametrize("m,C", [(4, 2), (4, 8), (6, 4), (6, 8)])
+def test_p2m_and_l2p_grid_match_jax(random64, m, C):
+    j, t, (jc, jh), (tc, th) = random64
+    close64(tk.p2m_grid_plain(*t, tc, th, m=m, C=C).numpy(),
+            jf.p2m_grid(*j, jc, jh, m=m, C=C), f"p2m_grid m={m} C={C}")
+    # the wrapper runs the plain version on CPU tensors
+    torch.testing.assert_close(
+        tk.p2m_grid_fused(*t, tc, th, m=m, C=C),
+        tk.p2m_grid_plain(*t, tc, th, m=m, C=C), rtol=0, atol=0)
+    fields = tuple(weights(m, C, s) for s in range(4))
+    got = tk.l2p_grid_fused(*t[:3], tc, th,
+                            tuple(torch.from_numpy(f) for f in fields),
+                            m=m, C=C)
+    ref = jf.l2p_grid(*j[:3], jc, jh, tuple(jnp.asarray(f) for f in fields),
+                      m=m, C=C)
+    for g, r in zip(got, ref):
+        close64(g.numpy(), r, f"l2p_grid m={m} C={C}")
+
+
+@pytest.mark.parametrize("m,C", [(4, 2), (4, 8), (6, 4)])
+def test_m2m_and_l2l_match_jax(m, C):
+    w = weights(m, C, 3)
+    close64(tf.m2m(torch.from_numpy(w), m=m, C=C).numpy(),
+            jf.m2m(jnp.asarray(w), m=m, C=C), f"m2m m={m} C={C}")
+    f = weights(m, C // 2, 4)
+    close64(tf.l2l(torch.from_numpy(f), m=m, C=C // 2).numpy(),
+            jf.l2l(jnp.asarray(f), m=m, C=C // 2), f"l2l m={m} C={C // 2}")
+
+
+@pytest.mark.parametrize("with_phi", [False, True])
+@pytest.mark.parametrize("subset", ["expand", "near", "far"])
+@pytest.mark.parametrize("m,C", [(4, 2), (4, 8), (6, 4)])
+def test_m2l_level_matches_jax(random64, m, C, subset, with_phi):
+    _, _, (_, jh), (_, th) = random64
+    w = weights(m, C, 5)
+    got = tk.m2l_level_fused(torch.from_numpy(w), th / C, SOFT, m=m, C=C,
+                             subset=subset, with_phi=with_phi)
+    ref = jf.m2l_level(jnp.asarray(w), jh / C, SOFT, m=m, C=C,
+                       subset=subset, with_phi=with_phi)
+    assert len(got) == len(ref) == (4 if with_phi else 3)
+    for i, (g, r) in enumerate(zip(got, ref)):
+        close64(g.numpy(), r, f"m2l {subset} m={m} C={C} field {i}")
+
+
+@pytest.mark.parametrize("levels,m", [(1, 4), (2, 4), (3, 4), (3, 6)])
+def test_fmm_field_grid_matches_jax(random64, levels, m):
+    _, _, (_, jh), (_, th) = random64
+    w = weights(m, 2 ** levels, 7)
+    got = tf.fmm_field_grid(torch.from_numpy(w), th, SOFT, m=m,
+                            levels=levels, with_phi=True)
+    ref = jf.fmm_field_grid(jnp.asarray(w), jh, SOFT, m=m, levels=levels,
+                            with_phi=True)
+    for i, (g, r) in enumerate(zip(got, ref)):
+        close64(g.numpy(), r, f"fmm_field_grid L={levels} m={m} field {i}")
+
+
+# ------------------------------------------------------- solvers in fp32
+@pytest.mark.parametrize("scheme,n,seed,levels,m,cap", [
+    ("random", 1024, 3, 2, 8, 1e-3),
+    ("random", 1024, 3, 3, 6, 1e-3),
+    ("galaxy", 1024, 5, 1, 12, 1e-4),
+    ("random", 1025, 1, 2, 8, 1e-3),    # the padding tail
+])
+def test_acc_fmm_matches_jax_and_oracle(scheme, n, seed, levels, m, cap):
+    """Against murb_tpu's acc_fmm within 1e-5 (same algorithm, fp32 sums
+    in another order), and against the naive oracle under the caps of
+    tests/test_fmm.py (1e-4 for the galaxy, 1e-3 for m <= 8 on the
+    random box, :57-77)."""
+    j, t = state(scheme, n, seed)
+    got = tf.acc_fmm(*t, SOFT, m=m, levels=levels)
+    ref = jf.acc_fmm(*j, SOFT, m=m, levels=levels)
+    err = force_stat([v.numpy() for v in got], ref)
+    assert err <= 1e-5, f"port vs JAX acc_fmm: {err:.3e} (tol 1e-5)"
+    sel = np.asarray(j[3]) > 0
+    oracle = acc_naive(*j, SOFT)
+    err_o = force_stat([v.numpy()[sel] for v in got],
+                       [np.asarray(v)[sel] for v in oracle])
+    assert err_o < cap, f"acc_fmm vs the naive oracle: {err_o:.3e}"
+
+
+@pytest.mark.parametrize("levels,m", [(2, 8), (3, 6)])
+def test_force_and_potential_fmm_matches_jax(levels, m):
+    j, t = state("random", 1024, 3)
+    acc, phi = tf.force_and_potential_fmm(*t, SOFT, m=m, levels=levels)
+    jacc, jphi = jf.force_and_potential_fmm(*j, SOFT, m=m, levels=levels)
+    assert force_stat([v.numpy() for v in acc], jacc) <= 1e-5
+    jphi = np.asarray(jphi, np.float64)
+    rel = np.abs(phi.numpy() - jphi) / np.abs(jphi)
+    assert rel.max() <= 1e-5, f"phi: {rel.max():.3e} (tol 1e-5)"
+    # the forces of the fused pass are acc_fmm's
+    for a, b in zip(acc, tf.acc_fmm(*t, SOFT, m=m, levels=levels)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def test_force_and_potential_fmm_pergal_matches_jax():
+    j, t = state("random", 1024, 9)
+    n = t[0].shape[0]
+    masks = np.zeros((2, n), np.float32)
+    masks[0, : n // 3] = 1.0
+    masks[1, n // 3:] = 1.0
+    acc, phi = tf.force_and_potential_fmm_pergal(
+        *t, torch.from_numpy(masks), SOFT, m=6, levels=2)
+    jacc, jphi = jf.force_and_potential_fmm_pergal(
+        *j, jnp.asarray(masks), SOFT, m=6, levels=2)
+    assert force_stat([v.numpy() for v in acc], jacc) <= 1e-5
+    jphi = np.asarray(jphi, np.float64)
+    assert phi.shape == jphi.shape == (2, n)
+    rel = np.abs(phi.numpy() - jphi) / np.abs(jphi).max(axis=1,
+                                                        keepdims=True)
+    assert rel.max() <= 1e-5, f"per-galaxy phi: {rel.max():.3e} (tol 1e-5)"
+
+
+@pytest.mark.parametrize("m", [8, 10])
+def test_acc_proxy_cells2_matches_jax(m):
+    """The octant mode: the port runs grid P2M/L2P at C=2 (K8/K9), murb_tpu
+    on the CPU its per-octant loop; both are the same expansion up to fp32
+    rounding.  m=10 puts the 8000-node sweep on K3's wrapper."""
+    j, t = state("random", 2048, 2)
+    got = tp.acc_proxy(*t, SOFT, m=m, cells=2)
+    ref = jp.acc_proxy(*j, SOFT, m=m, cells=2)
+    err = force_stat([v.numpy() for v in got], ref)
+    assert err <= 1e-4, f"port vs JAX acc_proxy cells=2: {err:.3e}"
+
+
+# ------------------------------------------------------ argument checks
+def test_wrappers_check_their_arguments():
+    _, t = state("random", 256, 1)
+    c, h = tp.bounding_box(*t[:3], t[3] > 0)
+    for m, C in ((17, 4), (1, 4), (8, 17), (8, 0)):
+        with pytest.raises(ValueError, match="range"):
+            tk.p2m_grid_fused(*t, c, h, m=m, C=C)
+        with pytest.raises(ValueError, match="range"):
+            tk.m2l_level_fused(torch.zeros(max(C, 1) ** 3, m ** 3), h, SOFT,
+                               m=m, C=C)
+    f = torch.zeros(64, 512)
+    for k in (0, 12):
+        with pytest.raises(ValueError, match="node fields"):
+            tk.l2p_grid_fused(*t[:3], c, h, (f,) * k, m=8, C=4)
+    with pytest.raises(ValueError, match="shape"):
+        tk.l2p_grid_fused(*t[:3], c, h, (torch.zeros(8, 512),), m=8, C=4)
+    with pytest.raises(ValueError, match="shape"):
+        tk.m2l_level_fused(torch.zeros(8, 512), h, SOFT, m=8, C=4)
+    with pytest.raises(ValueError, match="subset"):
+        tk.m2l_level_fused(f, h, SOFT, m=8, C=4, subset="all")
+
+
+def test_unknown_modes_raise():
+    """Values murb_tpu does not know either (the lossy tiers and the P2P
+    near field, which raise "not yet ported", are in
+    tests/test_torch_proxy.py:test_wide_box_raises_not_yet_ported)."""
+    _, t = state("random", 256, 1)
+    with pytest.raises(ValueError, match="m2l_dots"):
+        tf.acc_fmm(*t, SOFT, m=4, levels=2, m2l_dots="fp16")
+    with pytest.raises(ValueError, match="near mode"):
+        tf.acc_fmm(*t, SOFT, m=4, levels=2, near="exact")
+    with pytest.raises(ValueError, match="cells"):
+        tp.acc_proxy(*t, SOFT, m=8, cells=3)
+
+
+def test_cell_order_groups_each_cell():
+    """The glue K8 and K9 read: a stable sort by cell id with the cell
+    bounds, computed from the float32 box the kernels use."""
+    _, t = state("random", 1000, 4)
+    c, h = tp.bounding_box(*t[:3], t[3] > 0)
+    order = tk.cell_order(*t[:3], c, h, 4)
+    lo, cs = order.box[:3].double(), order.box[3:].double()
+    q = torch.stack(t[:3]).double()
+    cell = torch.floor((q - lo[:, None]) / cs[:, None]).clamp(0, 3).long()
+    cid = ((cell[0] * 4 + cell[1]) * 4 + cell[2])
+    n = t[0].shape[0]                                    # 1024, padded
+    assert int(order.bounds[0]) == 0 and int(order.bounds[-1]) == n
+    assert bool((order.bounds.diff() >= 0).all())
+    for k in range(64):
+        run = order.perm[order.bounds[k]:order.bounds[k + 1]]
+        assert bool((cid[run] == k).all())
+        assert bool((run[1:] > run[:-1]).all())          # stable
+    prefix, nitems = tk._work_items(order, 128)
+    assert int(prefix[-1]) <= nitems
+    assert tk.m2l_splits(8, 4) == 9 and tk.m2l_splits(16, 16) == 1

@@ -157,28 +157,42 @@ def test_auto_policy_picks_what_jax_picks(n, seed):
 
 
 def test_wide_box_raises_not_yet_ported():
-    """The random box needs the multi-level hierarchy; the port says so
-    instead of falling back to another solver."""
-    js = jinit.init_random(2048, 1)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tcreate("tpu+proxy", carry(js), soft=SOFT, dt=DT)
-    ts = carry(jinit.init_galaxy(512, 1))
-    for kw in ({"m": 8, "levels": 2}, {"m": 8, "cells": 2}):
+    """The random box takes the multi-level hierarchy, which the port runs
+    in its fp32 interpolated mode; the branches of murb_tpu's hierarchy
+    that are still to be ported raise instead of falling back to another
+    solver: the lossy M2L tiers and the exact P2P near field."""
+    ts = carry(jinit.init_random(2048, 1))
+    for kw in ({"m2l_dots": "bf16x3"}, {"m2l_dots": "mixed"},
+               {"near": "p2p"}):
         with pytest.raises(NotImplementedError, match="not yet ported"):
-            tcreate("tpu+proxy", ts, soft=SOFT, dt=DT, **kw)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tp.acc_proxy(ts.qx, ts.qy, ts.qz, ts.m, SOFT, m=8, cells=2)
+            tfmm.acc_fmm(ts.qx, ts.qy, ts.qz, ts.m, SOFT, m=8, levels=2,
+                         **kw)
+    e = tcreate("tpu+proxy", ts, soft=SOFT, dt=DT, m=8, cells=2)
+    assert (e.m, e.levels, e.cells, e.using_proxy) == (8, 0, 2, True)
+    e.run(1)
+    e.assert_finite()
 
 
-def test_ladder_into_hierarchy_raises_not_yet_ported(monkeypatch):
-    """A miss at m=20 escalates to the hierarchy, which is not ported: the
-    engine raises instead of shipping a config it cannot run."""
-    e = tcreate("tpu+proxy", carry(jinit.init_galaxy(512, 3)), soft=SOFT,
-                dt=DT, m=20)
-    monkeypatch.setattr(tv, "measured_force_error",
-                        lambda *a, **k: 1.0)      # every rung misses tol
-    with pytest.raises(NotImplementedError, match="hierarchy"):
-        e._validate_order(6e8)
+def test_ladder_into_hierarchy_raises_not_yet_ported(monkeypatch, capsys):
+    """A miss at m=20 escalates to the hierarchy, whose rungs the port now
+    runs (acc_fmm): with every rung missing tol the engine keeps the best
+    config tried, as murb_tpu does, and warns."""
+    js = jinit.init_galaxy(512, 3)
+    e = tcreate("tpu+proxy", carry(js), soft=SOFT, dt=DT, m=20)
+    je = jcreate("tpu+proxy", js, soft=SOFT, dt=DT, m=20)
+
+    def falling(mod):
+        errs = iter(np.linspace(1e-2, 2e-3, 6))
+        monkeypatch.setattr(mod, "measured_force_error",
+                            lambda *a, **k: float(next(errs)))
+
+    falling(tv)
+    e._validate_order(6e8)
+    falling(jv)
+    je._validate_order(6e8)
+    assert (e.m, e.levels, e.cells) == (je.m, je.levels, je.cells)
+    assert e.levels >= 2 and e.validated_err == pytest.approx(2e-3)
+    assert "WARNING" in capsys.readouterr().out
 
 
 @pytest.mark.parametrize("half", [1.5e8, 3e8, 6.65e8, 2e9])

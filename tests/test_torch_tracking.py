@@ -142,14 +142,19 @@ def test_run_matches_stepwise_and_copies_once(tag, kw, monkeypatch):
 
 def test_tracked_options_not_ported_raise_and_health():
     s = carry(jinit.init_galaxy(512, 1))
-    for kw in ({"fused_fmm": (10, 2)}, {"fused_adaptive": object()}):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            tcreate("tpu+tracking", s, num_iterations=2, **kw)
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        tcreate("tpu+tracking", s, num_iterations=2,
+                fused_adaptive=object())
+    with pytest.raises(ValueError, match="exclusive"):
+        tcreate("tpu+tracking", s, num_iterations=2, fused_proxy_m=12,
+                fused_fmm=(8, 2))
     with pytest.raises(ValueError, match="metrics method"):
         tcreate("tpu+tracking", s, num_iterations=2, metrics_method="fmm")
     assert tcreate("tpu+tracking", s, num_iterations=2).proxy_health() is None
     js = jinit.init_galaxy(512, 1)
-    for kw in ({"fused_proxy_m": 12}, {"fused_proxy_m": 20},
+    for kw in ({"fused_fmm": (10, 2)}, {"fused_fmm": (6, 3)},
+               {"fused_fmm": (8, 2), "validated_half": 1e12},
+               {"fused_proxy_m": 12}, {"fused_proxy_m": 20},
                {"fused_proxy_m": 12, "validated_half": 1e12}):
         h = tcreate("tpu+leapfrog+tracking", s, num_iterations=2,
                     **kw).proxy_health()
@@ -249,11 +254,13 @@ def test_cli_tracking_csv_matches_murb_tpu(argv, rtol, merger_tab, tmp_path,
 
 
 @pytest.mark.parametrize("argv,msg", [
-    (["--im", "gpu+tracking", "--kernel", "fmm"], "not yet ported"),
+    (["--im", "gpu+tracking", "--kernel", "fmm", "--m2l-dots", "bf16x3"],
+     "not yet ported"),
     (["--im", "tpu+kdk", "--kernel", "mxu"], "not yet ported"),
     (["--im", "tpu+kdk", "--kernel", "bogus"], "unknown kernel"),
-    (["--im", "gpu+tracking", "--kernel", "proxy", "-s", "random"],
-     "not yet ported"),
+    # proxy -> fmm (m > 32) -> murb_tpu's adaptive kernel (m > 16)
+    (["--im", "gpu+tracking", "--kernel", "proxy", "-s", "random", "--soft",
+      "1e6"], "not yet ported"),
     (["--im", "gpu+tracking", "-s", "milkyway_andromeda", "--scheme-file",
       "no/such.tab"], "not found"),
 ])
