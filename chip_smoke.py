@@ -33,13 +33,26 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      picks the hierarchy and validates it); ``tpu+tracking --kernel fmm``
      through the CLI (the fused hierarchy, row 0's energy held to an exact
      K6 energy); one ``acc_proxy(cells=2)`` on the 200k galaxy (K8/K9 at
-     C=2); and an N=2048 card-against-CPU check of ``levels=2, m=8``.
+     C=2); and an N=2048 card-against-CPU check of ``levels=2, m=8``;
+  9. the adaptive sparse hierarchy: ``tpu+proxy`` on murb_tpu's bench box
+     ``adaptive_two_clusters_1m`` (N=1,048,576, two Gaussian clusters, soft
+     0.02, dt 1e-6) through ``create_engine`` with the auto policy, which
+     must take the adaptive solver and validate it, beside the exact
+     ``tpu+hybrid`` on the same state; K10 (nf 3 and 4, and under a pair
+     capacity below the candidate count), K11 and K12 (nf 3 and 4) against
+     their plain versions in float64 on that state's own sorted bodies,
+     slots and fields; the dense hierarchy with K10 as its near field
+     (``acc_fmm(near="p2p")``); the merger through the CLI with ``--near
+     adaptive`` and with ``tpu+tracking --kernel adaptive`` (row 0's energy
+     held to an exact K6 energy); an N=4096 card-against-CPU check of the
+     adaptive step; and the repair (K7-K9 at m=18 and m=32).
 Each piece of the path (the CLI run of phase 4, the ``acc_proxy`` of phase
-5, each CLI run of phase 6, each run of phases 7 and 8) starts from zeroed
-launch counts, which are read right after it: K1 and K2 from phase 4, K3
-from phase 5, K4 from phase 6, K5 and K6 from phase 7, K7 to K9 from the
-``tpu+proxy -s random`` run of phase 8.  Every kernel must have launched in
-its piece.  The line before the last is the kernels' JSON
+5, each CLI run of phase 6, each run of phases 7, 8 and 9) starts from
+zeroed launch counts, which are read right after it: K1 and K2 from phase
+4, K3 from phase 5, K4 from phase 6, K5 and K6 from phase 7, K7 to K9 from
+the ``tpu+proxy -s random`` run of phase 8, K10 to K12 from the
+two-cluster run of phase 9.  Every kernel must have launched in its
+piece.  The line before the last is the kernels' JSON
 record (with each kernel's bound: the larger of its bytes over 3.35 TB/s
 and its operations over the 67 TFLOP/s fp32 peak of an H100 SXM); the last
 line is the result object.
@@ -99,6 +112,7 @@ def main() -> int:
     from murb_tpu_torch.core.metrics import energy_from_phi
     from murb_tpu_torch.ops import cuda
     from murb_tpu_torch.ops import fmm_kernels as fk
+    from murb_tpu_torch.ops.anterp_kernels import l2p_window, p2m_window
     from murb_tpu_torch.ops.hybrid import (acc_hybrid_rect,
                                            acc_hybrid_rect_plain,
                                            acc_phi_rows_hybrid,
@@ -106,6 +120,7 @@ def main() -> int:
                                            phi_rows_rect,
                                            phi_rows_rect_plain)
     from murb_tpu_torch.ops.proxy import acc_proxy, bounding_box, heavy_split
+    from murb_tpu_torch.ops.p2p_kernels import p2p_sweep_kernel_sorted
     from murb_tpu_torch.ops.proxy_kernels import (l2p_fused_multi, l2p_plain,
                                                   p2m_fused, p2m_plain)
     from murb_tpu_torch.ops.tile import acc_tile_rect, acc_tile_rect_plain
@@ -370,7 +385,9 @@ def main() -> int:
     wrappers = {"K1": p2m_fused, "K2": l2p_fused_multi, "K3": acc_tile_rect,
                 "K4": acc_hybrid_rect, "K5": phi_rows_rect,
                 "K6": acc_phi_rows_hybrid, "K7": fk.m2l_level_fused,
-                "K8": fk.p2m_grid_fused, "K9": fk.l2p_grid_fused}
+                "K8": fk.p2m_grid_fused, "K9": fk.l2p_grid_fused,
+                "K10": p2p_sweep_kernel_sorted, "K11": p2m_window,
+                "K12": l2p_window}
 
     def drive(run):
         """Zero every launch count, run one piece of the path, and return
@@ -772,6 +789,332 @@ def main() -> int:
     print(f"[8 small] tpu+proxy levels=2 m=8 N=2048 random, 3 steps: card "
           f"vs CPU plain path positions max rel diff {worst:.3e} (tol 1e-4)")
 
+    # ---------------------------- 9. the adaptive hierarchy, two clusters
+    # murb_tpu's bench row adaptive_two_clusters_1m (bench.py:442-460):
+    # N = 1,048,576 in two Gaussian clusters, soft 0.02, dt 1e-6, through
+    # create_engine with the auto policy, which must take the adaptive
+    # branch.  The kernel parity below runs on that state's own sorted
+    # bodies, slots and fields under the plan the engine picked.
+    from murb_tpu_torch.ops import anterp_kernels as ak
+    from murb_tpu_torch.ops import p2p as pp
+    from murb_tpu_torch.ops import p2p_kernels as pk
+    from murb_tpu_torch.ops import sparse_fmm as sf
+    from murb_tpu_torch.ops.fmm import _heavy_setup
+    from murb_tpu_torch.utils.profile_step import (TWO_CLUSTERS_DT,
+                                                   TWO_CLUSTERS_SOFT,
+                                                   two_clusters)
+
+    soft9, dt9 = TWO_CLUSTERS_SOFT, TWO_CLUSTERS_DT
+    t0 = time.perf_counter()
+    st9 = two_clusters(device=dev)
+    t_state = time.perf_counter() - t0
+
+    def build_and_run(n_steps):
+        t1 = time.perf_counter()
+        engine = create_engine("tpu+proxy", st9, soft=soft9, dt=dt9)
+        return (time.perf_counter() - t1,) + timed(engine, n_steps)
+
+    (t_build, e9, fps9), counts = drive(lambda: build_and_run(4))
+    e9.assert_finite()
+    check(e9.near_mode == "adaptive" and e9.using_proxy,
+          f"the two-cluster box took near_mode={e9.near_mode} "
+          f"using_proxy={e9.using_proxy}, not the adaptive solver")
+    check(e9.validated_err is not None and e9.validated_err <= TOL,
+          f"adaptive validated error {e9.validated_err} > {TOL}")
+    for k in ("K10", "K11", "K12"):
+        launches[k] = counts[k]
+        check(counts[k] > 0, f"{k} launched no time on the adaptive path")
+    plan = e9._plan
+    health9 = e9.proxy_health()
+    (_, fps_exact9), counts_x = drive(lambda: timed(create_engine(
+        "tpu+hybrid", st9, soft=soft9, dt=dt9), 3))
+    print(f"[9 main] tpu+proxy N={st9.n} two clusters (state in "
+          f"{t_state:.1f} s, engine with plan and validation in "
+          f"{t_build:.1f} s): near_mode={e9.near_mode} m={plan.m} dense "
+          f"levels={plan.dense_levels} levels={plan.levels} cell caps "
+          f"{plan.cell_caps} (occupied {health9['n_cells_now']}) pmax "
+          f"{plan.p2p_pmax} n_pairs {health9['p2p_pairs_now']} (host "
+          f"estimate), validated_err {e9.validated_err:.3e}; {fps9:.4f} FPS "
+          f"over 3 steps after one; exact tpu+hybrid {fps_exact9:.4f} FPS "
+          f"over 2 steps after one (launches {counts_x}); adaptive/exact "
+          f"{fps9 / fps_exact9:.2f} on {smi}; launches {counts}")
+    fps["two clusters adaptive"] = fps9
+    fps["two clusters exact (tpu+hybrid)"] = fps_exact9
+
+    # the solve's own preamble: box, heavy split, cubic box, one sort
+    g9 = e9._gm(st9)
+    q9 = (st9.qx, st9.qy, st9.qz)
+    c9, h9, *_rest, ge9 = _heavy_setup(*q9, g9, 1, sf.HEAVY_FACTOR)
+    h9 = h9.max().expand(3)
+    C9 = 2 ** plan.levels
+    key9, ci9 = pp.sorted_cells(*q9, ge9 > 0, c9, h9, C9)
+    key9, perm9 = torch.sort(key9, stable=True)
+    xs9, ys9, zs9, gs9 = (v[perm9] for v in (*q9, ge9))
+    ci9 = tuple(v[perm9] for v in ci9)
+    x64 = tuple(v.double() for v in (xs9, ys9, zs9, gs9))
+    cap9 = plan.cell_caps[-1]
+    cells9, slots9 = sf._occupied_and_slots(key9, cap9)
+    n9, B9 = st9.npad, st9.npad // pp.DEFAULT_K
+    # Contracts, against the largest magnitude of each output: K10 3e-5,
+    # the exact fp32 sweeps' (K4, K6); K11 and K12 1e-4, K9's.  At C=128 a
+    # body's in-cell coordinate comes from (q - lo) / cs near 100 in fp32
+    # (ulp 8e-6), which the float64 plain version on the same fp32 inputs
+    # does not round.
+    def near_body_pairs(ci, pmax, C, chunk=2048):
+        """The body pairs K10's function needs: those of the first
+        ``pmax`` candidate brick pairs (row-major, as K10 keeps them) whose
+        cells pass the mask max|dc| <= 1, both bodies real (no sentinel).
+        Counted on the device from the sort's own cells."""
+        K = pp.DEFAULT_K
+        cells = torch.stack([v.to(torch.int16) for v in ci]).reshape(3, -1,
+                                                                     K)
+        B = cells.shape[1]
+        real = cells[0] < C
+        adj = pp._adjacency(*pp._brick_boxes(ci, K))
+        flat = torch.nonzero(adj.reshape(-1)).reshape(-1)[:pmax]
+        tb, sb = flat // B, flat % B
+        total = torch.zeros((), dtype=torch.int64, device=flat.device)
+        for p0 in range(0, flat.numel(), chunk):
+            t, s = tb[p0:p0 + chunk], sb[p0:p0 + chunk]
+            near = ((cells[:, t, :, None] - cells[:, s, None, :]).abs()
+                    <= 1).all(0)
+            near &= real[t][:, :, None] & real[s][:, None, :]
+            total += near.sum()
+        return int(total), flat.numel() * K * K
+
+    # K10 (nf 3 and 4); the plain version sweeps 1024 pairs a step here.
+    # The bound counts the body pairs that pass the cell mask, the work the
+    # function needs; K10 computes every body pair of a swept brick pair.
+    t0 = time.perf_counter()
+    near9, swept_bodies9 = near_body_pairs(ci9, plan.p2p_pmax, C9)
+    t_count = time.perf_counter() - t0
+    for nf in (3, 4):
+        kw = dict(pmax=plan.p2p_pmax, with_phi=nf == 4)
+        got, npairs = pk.p2p_sweep_kernel_sorted(xs9, ys9, zs9, gs9, ci9,
+                                                 soft9, **kw)
+        ref, npairs64 = pp.p2p_sweep_plain_sorted(*x64, ci9, soft9,
+                                                  chunk=1024, **kw)
+        err = rel_max(got, ref)
+        check(int(npairs) == int(npairs64), f"K10 n_pairs {int(npairs)} vs "
+                                            f"plain {int(npairs64)}")
+        check(err <= 3e-5, f"K10 nf={nf}: {err:.3e} of max|a|")
+        ms = time_ms(lambda: pk.p2p_sweep_kernel_sorted(
+            xs9, ys9, zs9, gs9, ci9, soft9, **kw), reps=5)
+        plain_ms = time_ms(lambda: pp.p2p_sweep_plain_sorted(
+            xs9, ys9, zs9, gs9, ci9, soft9, chunk=1024, **kw), reps=1,
+            runs=3)
+        swept = min(int(npairs), plan.p2p_pmax)
+        nbytes = 28 * n9 + B9 * B9 + 8 * B9 + 4 * nf * n9
+        flops = near9 * (20 if nf == 3 else 22)
+        b_ms = bound(nbytes, flops)[0]
+        print(f"[9 K10 p2p N={n9} B={B9} nf={nf}] {int(npairs)} brick "
+              f"pairs ({swept} swept, pmax {plan.p2p_pmax}); {near9} body "
+              f"pairs pass the cell mask of {swept_bodies9} swept (masked "
+              f"out {1 - near9 / swept_bodies9:.4f}; counted in "
+              f"{t_count:.2f} s); max|da|/max|a| {err:.3e} (tol 3e-5); "
+              f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound {b_ms:.4f} "
+              f"ms")
+        if nf == 3:
+            keep("K10", err * max(float(x.abs().max()) for x in ref), ms,
+                 plain_ms, nbytes, flops)
+        full4 = got
+    # K10 under a capacity below the candidate count: the first pmax pairs
+    # in row-major order are swept, the rest dropped, the true count kept
+    pmax_t = max(int(npairs) // 2 // pp.DEFAULT_CHUNK * pp.DEFAULT_CHUNK,
+                 pp.DEFAULT_CHUNK)
+    got, np_t = pk.p2p_sweep_kernel_sorted(xs9, ys9, zs9, gs9, ci9, soft9,
+                                           pmax=pmax_t, with_phi=True)
+    ref, np_t64 = pp.p2p_sweep_plain_sorted(*x64, ci9, soft9, chunk=1024,
+                                            pmax=pmax_t, with_phi=True)
+    err = rel_max(got, ref)
+    dropped = max(float((a - b).abs().max()) for a, b in zip(full4, got))
+    check(int(np_t) == int(np_t64) == int(npairs),
+          f"K10 pmax={pmax_t}: n_pairs {int(np_t)} vs plain {int(np_t64)} "
+          f"vs {int(npairs)}")
+    check(err <= 3e-5, f"K10 pmax={pmax_t} nf=4: {err:.3e} of max|a|")
+    check(dropped > 0.0, f"K10 pmax={pmax_t} dropped no pair")
+    print(f"[9 K10 p2p N={n9} nf=4 pmax={pmax_t} < n_pairs {int(np_t)}] "
+          f"max|da|/max|a| {err:.3e} (tol 3e-5) against the plain version "
+          f"under the same pmax; max change from the full sweep "
+          f"{dropped:.3e}")
+    del got, ref, full4
+    # K11 and K12 on the finest slots; K12 reads the solve's real fields
+    m9 = plan.m
+    w9 = ak.p2m_window(xs9, ys9, zs9, gs9, c9, h9, slots9, cap9, m=m9, C=C9,
+                       ci=ci9)
+    w64 = ak.p2m_window_plain(*x64, c9.double(), h9.double(), slots9, cap9,
+                              m=m9, C=C9, ci=ci9)
+    err = rel_max([w9[:cap9]], [w64[:cap9]])
+    check(err <= 1e-4, f"K11 m={m9}: {err:.3e} of max|W|")
+    ms = time_ms(lambda: ak.p2m_window(xs9, ys9, zs9, gs9, c9, h9, slots9,
+                                       cap9, m=m9, C=C9, ci=ci9))
+    plain_ms = time_ms(lambda: ak.p2m_window_plain(
+        xs9, ys9, zs9, gs9, c9, h9, slots9, cap9, m=m9, C=C9, ci=ci9),
+        reps=3)
+    nbytes = 32 * n9 + 4 * (cap9 + 1) * m9 ** 3
+    flops = n9 * (2 * m9 ** 3 + 6 * m9 ** 2)
+    b_ms = keep("K11", err * float(w64.abs().max()), ms, plain_ms, nbytes,
+                flops)
+    print(f"[9 K11 p2m_window N={n9} m={m9} C={C9} cap={cap9}] "
+          f"max|dW|/max|W| {err:.3e} (tol 1e-4); kernel {ms:.4f} ms plain "
+          f"{plain_ms:.4f} ms bound {b_ms:.4f} ms")
+    fields9, _ = sf.hierarchy_fields(w9, cells9, c9, h9, soft9, plan,
+                                     with_phi=True)
+    for nf in (3, 4):
+        flds = fields9[:nf]
+        a = ak.l2p_window(xs9, ys9, zs9, c9, h9, slots9, flds, m=m9, C=C9,
+                          ci=ci9)
+        a64 = ak.l2p_window_plain(*x64[:3], c9.double(), h9.double(),
+                                  slots9, tuple(f.double() for f in flds),
+                                  m=m9, C=C9, ci=ci9)
+        err = rel_max(a, a64)
+        check(err <= 1e-4, f"K12 nf={nf}: {err:.3e} of max|a|")
+        ms = time_ms(lambda: ak.l2p_window(xs9, ys9, zs9, c9, h9, slots9,
+                                           flds, m=m9, C=C9, ci=ci9))
+        plain_ms = time_ms(lambda: ak.l2p_window_plain(
+            xs9, ys9, zs9, c9, h9, slots9, flds, m=m9, C=C9, ci=ci9), reps=3)
+        nbytes = 28 * n9 + 4 * nf * ((cap9 + 1) * m9 ** 3 + n9)
+        flops = n9 * (2 * nf * m9 ** 3 + 6 * m9 ** 2)
+        b_ms = bound(nbytes, flops)[0]
+        print(f"[9 K12 l2p_window N={n9} m={m9} nf={nf}] max|da|/max|a| "
+              f"{err:.3e} (tol 1e-4); kernel {ms:.4f} ms plain "
+              f"{plain_ms:.4f} ms bound {b_ms:.4f} ms")
+        if nf == 3:
+            keep("K12", err * max(float(x.abs().max()) for x in a64), ms,
+                 plain_ms, nbytes, flops)
+
+    del w64, a64, x64, fields9
+    torch.cuda.empty_cache()
+
+    # the dense hierarchy with K10 as its near field: acc_fmm(near="p2p")
+    # on a 65,536-body two-cluster box, L=4, m=6, held to the 1e-4 contract
+    s65 = two_clusters(65_536, device=dev)
+    g65 = s65.m * torch.tensor(G, dtype=torch.float32).item()
+    u65 = s65.unpadded()
+    qh65 = np.stack([u65[k] for k in ("qx", "qy", "qz")], 1)
+    pmax65 = pp.size_pmax(pp.estimate_brick_pairs(qh65, s65.npad, 4))
+    err65, counts = drive(lambda: measured_force_error(
+        s65.qx, s65.qy, s65.qz, g65, soft9,
+        lambda a, b, cc, g: acc_fmm(a, b, cc, g, soft9, m=6, levels=4,
+                                    near="p2p", p2p_pmax=pmax65)))
+    check(counts["K10"] > 0, f"acc_fmm near=p2p launched no K10: {counts}")
+    check(err65 <= TOL, f"acc_fmm near=p2p force error {err65:.3e} > {TOL}")
+    print(f"[9 fmm p2p] acc_fmm m=6 L=4 near=p2p N=65536 two clusters: "
+          f"force error {err65:.3e} (tol {TOL}), pmax {pmax65}; launches "
+          f"{counts}")
+
+    # the merger through the CLI: tpu+proxy --near adaptive, and the fused
+    # adaptive tracked step (K10 and K12 with phi), row 0's energy held to
+    # an exact K6 energy of the same state (rtol 1e-3, as in phase 7)
+    res9, counts = drive(lambda: cli.run([
+        "-n", str(mg.n), "-i", "20", "--im", "tpu+proxy", "--near",
+        "adaptive", "-s", "milkyway_andromeda", "--scheme-file", tab,
+        "--nv", "--gf", "--scan", "--device", "cuda"]))
+    check(res9.rc == 0, f"cli tpu+proxy --near adaptive exit {res9.rc}")
+    res9.engine.assert_finite()
+    check(res9.engine.near_mode == "adaptive", "merger --near adaptive did "
+                                               "not take the adaptive solver")
+    check(all(counts[k] > 0 for k in ("K10", "K11", "K12")),
+          f"K10-K12 launched no time on the merger: {counts}")
+    pm = res9.engine._plan
+    print(f"[9 merger] tpu+proxy --near adaptive N={mg.n}: m={pm.m} dense "
+          f"levels={pm.dense_levels} levels={pm.levels} caps {pm.cell_caps} "
+          f"pmax {pm.p2p_pmax}, validated_err "
+          f"{res9.engine.validated_err:.3e}; {res9.fps:.2f} FPS over 19 "
+          f"steps; launches {counts}")
+    fps["merger tpu+proxy --near adaptive"] = res9.fps
+    e_exact_mg = float(energy_from_phi(
+        mg, acc_phi_rows_hybrid(*qm, gmg, gmg[None, :], SOFT)[1][0], SOFT))
+    csv = os.path.join(tmpdir.name, "merger_adaptive.csv")
+    res9t, counts = drive(lambda: cli.run([
+        "-n", str(mg.n), "-i", "20", "--im", "tpu+tracking", "--kernel",
+        "adaptive", "-s", "milkyway_andromeda", "--scheme-file", tab, "--nv",
+        "--gf", "--scan", "--csv", csv, "--device", "cuda"]))
+    check(res9t.rc == 0, f"cli tpu+tracking --kernel adaptive {res9t.rc}")
+    et9 = res9t.engine
+    et9.assert_finite()
+    check(et9._fused_adaptive is not None, "tpu+tracking --kernel adaptive "
+                                           "did not fuse")
+    check(counts["K10"] > 0 and counts["K12"] > 0,
+          f"K10/K12 launched no time under the tracked adaptive step: "
+          f"{counts}")
+    rows_finite(et9.history, 20, csv)
+    e0 = float(et9.history.energies[0])
+    rel = abs(e0 / e_exact_mg - 1.0)
+    check(rel <= 1e-3, f"tracked adaptive energy row 0 {e0:.6e} vs exact "
+                       f"{e_exact_mg:.6e}: rel {rel:.3e} > 1e-3")
+    print(f"[9 tracked] tpu+tracking --kernel adaptive N={mg.n} merger: "
+          f"m={et9._fused_adaptive.m} L={et9._fused_adaptive.levels}, energy "
+          f"row 0 {e0:.9e} vs exact K6 {e_exact_mg:.9e} (rel {rel:.3e}, tol "
+          f"1e-3); {res9t.fps:.2f} FPS; launches {counts}")
+    fps["merger tpu+tracking --kernel adaptive"] = res9t.fps
+    print(f"[9 fps] {json.dumps(fps)} on {smi}")
+
+    # small input: 3 adaptive steps on the card against the CPU plain path
+    # (the same explicit geometry, m=6 L=5, on both devices); dt 0.05 moves
+    # the bodies by about 1e-3 of their coordinates
+    small_c = two_clusters(4096, device="cpu")
+    runs = [create_engine("tpu+proxy", small_c.to(d), soft=soft9, dt=0.05,
+                          m=6, levels=5, near="adaptive")
+            for d in ("cpu", dev)]
+    for e in runs:
+        e.run(3)
+    pos = [e.bodies.unpadded() for e in runs]
+    q0 = small_c.unpadded()
+    worst = max(float(np.max(np.abs(pos[1][k] - pos[0][k])
+                             / np.maximum(np.abs(pos[0][k]), 1e-30)))
+                for k in ("qx", "qy", "qz"))
+    moved = max(float(np.max(np.abs(pos[0][k] - q0[k])
+                             / np.maximum(np.abs(q0[k]), 1e-30)))
+                for k in ("qx", "qy", "qz"))
+    check(worst <= 1e-4, f"adaptive: card vs cpu positions {worst:.3e}")
+    print(f"[9 small] tpu+proxy near=adaptive m=6 L=5 N=4096 two clusters, "
+          f"3 steps of dt 0.05 (bodies moved up to {moved:.3e} of their "
+          f"coordinates): card vs CPU plain path positions max rel diff "
+          f"{worst:.3e} (tol 1e-4)")
+
+    # the repair: K7-K9 at m=18 (the rung after 16) and m=32 (the ladder's
+    # top order) on the two-cluster box, C=2.  K7's fp32 sums run over 8
+    # cells x m^3 source nodes a target (46,656 at m=18, 262,144 at m=32),
+    # so its contract is K9's 1e-4, not the m=8 sweep's 3e-5.  The plain
+    # M2L builds its (m^3, m^3) transfer matrices in row blocks at m=32.
+    C = 2
+    for m in (18, 32):
+        shape = f"m={m} C={C} N={n9}"
+        w = fk.p2m_grid_fused(*q9, ge9, c9, h9, m=m, C=C)
+        w64 = fk.p2m_grid_plain(*(v.double() for v in (*q9, ge9)),
+                                c9.double(), h9.double(), m=m, C=C)
+        e8 = rel_max([w], [w64])
+        del w64
+        t0 = time.perf_counter()
+        f = fk.m2l_level_fused(w, h9 / C, soft9, m=m, C=C, with_phi=True)
+        f64 = fk.m2l_level_plain(w.double(), h9.double() / C, soft9, m=m,
+                                 C=C, with_phi=True)
+        e7 = rel_max(f, f64)
+        t_plain7 = time.perf_counter() - t0
+        del f64
+        a = fk.l2p_grid_fused(*q9, c9, h9, f, m=m, C=C)
+        a64 = fk.l2p_grid_plain(*(v.double() for v in q9), c9.double(),
+                                h9.double(), tuple(x.double() for x in f),
+                                m=m, C=C)
+        e9k = rel_max(a, a64)
+        del a64
+        check(e8 <= 1e-5 and e7 <= 1e-4 and e9k <= 1e-4,
+              f"{shape}: K8 {e8:.3e} (1e-5) K7 {e7:.3e} (1e-4) K9 "
+              f"{e9k:.3e} (1e-4)")
+        ms = [time_ms(fn, reps=3) for fn in (
+            lambda: fk.p2m_grid_fused(*q9, ge9, c9, h9, m=m, C=C),
+            lambda: fk.m2l_level_fused(w, h9 / C, soft9, m=m, C=C,
+                                       with_phi=True),
+            lambda: fk.l2p_grid_fused(*q9, c9, h9, f, m=m, C=C))]
+        print(f"[9 repair {shape}] K8 {e8:.3e} of max|W| (tol 1e-5), K7 "
+              f"expand nf=4 {e7:.3e} of max|f| (tol 1e-4), K9 k=4 "
+              f"{e9k:.3e} of max|a| (tol 1e-4); kernel ms K8 {ms[0]:.4f} "
+              f"K7 {ms[1]:.4f} K9 {ms[2]:.4f}; the K7 check with its plain "
+              f"version took {t_plain7:.1f} s")
+        del w, f, a
+        torch.cuda.empty_cache()
+
     for k, count in launches.items():
         check(count > 0, f"{k} launched no time on its piece of the path")
     meta = {
@@ -789,10 +1132,16 @@ def main() -> int:
                "murb_tpu/ops/hybrid.py:338"),
         "K7": ("m2l_level", "murb_tpu_torch/csrc/fmm.cu",
                "murb_tpu/ops/fmm_pallas.py:85"),
-        "K8": ("p2m_grid", "murb_tpu_torch/csrc/fmm.cu",
+        "K8": ("p2m_grid", "murb_tpu_torch/csrc/cell_runs.cuh",
                "murb_tpu/ops/fmm_pallas.py:315"),
-        "K9": ("l2p_grid", "murb_tpu_torch/csrc/fmm.cu",
+        "K9": ("l2p_grid", "murb_tpu_torch/csrc/cell_runs.cuh",
                "murb_tpu/ops/fmm_pallas.py:371"),
+        "K10": ("p2p_sorted", "murb_tpu_torch/csrc/p2p.cu",
+                "murb_tpu/ops/p2p_pallas.py:56"),
+        "K11": ("p2m_window", "murb_tpu_torch/csrc/cell_runs.cuh",
+                "murb_tpu/ops/anterp_pallas.py:139"),
+        "K12": ("l2p_window", "murb_tpu_torch/csrc/cell_runs.cuh",
+                "murb_tpu/ops/anterp_pallas.py:244"),
     }
     kernels = [{"name": kname, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches[k], **record[k]}

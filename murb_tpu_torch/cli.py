@@ -7,7 +7,10 @@ timing window, the final "Entire simulation took ..." summary with the
 reference's FLOPs model (20*N^2/iteration) and GFlop/s convention (1024^3
 divisor), and for the tracked engines the ``--kernel`` wiring (with the
 proxy -> fmm escalation and the validated (m, levels)) and the ``--csv``
-metrics export.
+metrics export.  ``--kernel adaptive`` (and ``--kernel fmm`` on a box whose
+hierarchy would need m > 16) runs the adaptive sparse hierarchy with its
+plan validated to ``--tol``; ``--near`` picks ``tpu+proxy``'s near-field
+mode.
 
 ``--device cuda`` (the default) puts the state and every kernel on the
 first CUDA device and exits with status 1 when there is none: the port
@@ -58,16 +61,15 @@ _FUSIBLE = ("tpu+tracking", "tpu+leapfrog+tracking")
 
 
 def _validated_far_field(cfg: MurbConfig, bodies):
-    """``--kernel proxy`` / ``fmm``: the configuration the box needs, held
-    to ``--tol`` by measurement as ``tpu+proxy`` is (ops/validate), as
-    murb_tpu's CLI does (cli.py:87-207).  The proxy takes the order of the
-    1.5x-grown box rounded up to a multiple of 4, and hands over to the
-    hierarchy when that exceeds 32; the hierarchy takes the depth
-    ``required_levels`` gives and ``fmm_order``'s order.  Returns (kernel,
-    m, levels, certified half-extent).  A box whose hierarchy needs m > 16
-    goes to murb_tpu's adaptive kernel, which raises "not yet ported"."""
+    """``--kernel proxy`` / ``fmm`` / ``adaptive``: the configuration the
+    box needs, held to ``--tol`` by measurement as ``tpu+proxy`` is
+    (ops/validate), as murb_tpu's CLI does (cli.py:87-207).  The proxy
+    takes the order of the 1.5x-grown box rounded up to a multiple of 4,
+    and hands over to the hierarchy when that exceeds 32; the hierarchy
+    takes the depth ``required_levels`` gives and ``fmm_order``'s order, and
+    hands over to the adaptive solver when that exceeds 16.  Returns
+    (kernel, m, levels, certified half-extent, SparsePlan or None)."""
     from murb_tpu_torch import G
-    from murb_tpu_torch.ops.common import not_yet_ported
     from murb_tpu_torch.ops.fmm import fmm_order, required_levels
     from murb_tpu_torch.ops.proxy import (half_extent, required_order,
                                           validation_ladder)
@@ -87,10 +89,12 @@ def _validated_far_field(cfg: MurbConfig, bodies):
         m = fmm_order(half, cfg.softening, levels, cfg.tol)
         if m > 16:
             print(f"NOTE: box/softening ratio too large for the dense "
-                  f"hierarchy (needs m={m}); murb_tpu hands over to its "
-                  f"adaptive sparse kernel here.")
-            raise not_yet_ported("kernel 'adaptive' (the adaptive sparse "
-                                 "hierarchy)", "Queue 1 item 8")
+                  f"hierarchy (needs m={m}); using the adaptive sparse "
+                  f"kernel (exact P2P near field).")
+            kernel = "adaptive"
+    if kernel == "adaptive":
+        plan = _validated_adaptive_plan(cfg, bodies)
+        return "adaptive", plan.m, plan.levels, None, plan
 
     gm = bodies.m * torch.tensor(G, dtype=bodies.dtype).item()
     m, levels, _, err = validate_config(
@@ -98,7 +102,49 @@ def _validated_far_field(cfg: MurbConfig, bodies):
         levels, 1, half, validation_ladder(cfg.softening))
     return ("fmm" if levels else "proxy", m, levels,
             certified_half(m, levels, float(half), err, cfg.softening,
-                           cfg.tol))
+                           cfg.tol), None)
+
+
+def _validated_adaptive_plan(cfg: MurbConfig, bodies):
+    """The adaptive plan of the initial distribution, its order escalated
+    by 2 (to 12 at most) until the measured error meets ``--tol``
+    (murb_tpu/cli.py:123-172; the compression drop has nothing to drop at
+    the default rank 0)."""
+    import numpy as np
+
+    from murb_tpu_torch import G
+    from murb_tpu_torch.ops.sparse_fmm import (acc_adaptive, adaptive_order,
+                                               best_adaptive_plan,
+                                               default_m2l_rank)
+    from murb_tpu_torch.ops.validate import measured_force_error
+
+    u = bodies.unpadded()
+    sel = u["m"] > 0
+    q = np.stack([u["qx"][sel], u["qy"][sel], u["qz"][sel]],
+                 1).astype(np.float32)
+    plan, _ = best_adaptive_plan(q, bodies.npad, adaptive_order(cfg.tol),
+                                 device=bodies.device)
+    gm = bodies.m * torch.tensor(G, dtype=bodies.dtype).item()
+    tried_rank0 = False
+    while True:
+        err = measured_force_error(
+            bodies.qx, bodies.qy, bodies.qz, gm, cfg.softening,
+            lambda a, b, c, g: acc_adaptive(a, b, c, g, cfg.softening, plan))
+        if err <= cfg.tol:
+            break
+        rank = plan.m2l_rank
+        if (default_m2l_rank(plan.m) if rank < 0 else rank) > 0 \
+                and not tried_rank0:
+            tried_rank0 = True
+            plan = plan._replace(m2l_rank=0)
+            continue
+        if plan.m + 2 > 12:
+            break
+        plan = plan._replace(m=plan.m + 2)
+    if err > cfg.tol:
+        print(f"WARNING: adaptive kernel validation missed tol={cfg.tol:.1e} "
+              f"(measured {err:.1e} at m={plan.m}); keeping it.")
+    return plan
 
 
 def build_engine(cfg: MurbConfig, device: torch.device):
@@ -111,7 +157,7 @@ def build_engine(cfg: MurbConfig, device: torch.device):
             "murb_tpu_torch (ROADMAP.md Queue 1 item 6)")
     from murb_tpu_torch.ops.fmm import check_m2l_dots
 
-    check_m2l_dots(cfg.m2l_dots)  # the port's level sweep runs fp32 only
+    check_m2l_dots(cfg.m2l_dots)  # the port's level sweeps run fp32 only
     bodies = make_bodies(cfg.n_bodies, cfg.scheme, cfg.seed,
                          dtype=_DTYPES[cfg.precision],
                          scheme_file=cfg.scheme_file, device=device)
@@ -123,10 +169,13 @@ def build_engine(cfg: MurbConfig, device: torch.device):
     if canonical in _WRAPPERS:
         from murb_tpu_torch.ops import make_acc_fn
 
-        kernel, m, levels = cfg.kernel, 0, 0
-        if kernel in ("proxy", "fmm"):
-            kernel, m, levels, cert_half = _validated_far_field(cfg, bodies)
-        if m and canonical in _FUSIBLE:
+        kernel, m, levels, plan = cfg.kernel, 0, 0, None
+        if kernel in ("proxy", "fmm", "adaptive"):
+            kernel, m, levels, cert_half, plan = _validated_far_field(
+                cfg, bodies)
+        if canonical in _FUSIBLE and plan is not None:
+            extra["fused_adaptive"] = plan  # the fused sparse + P2P step
+        elif canonical in _FUSIBLE and m:
             # one far-field pass per step for the force and the potential
             if levels:
                 extra["fused_fmm"] = (m, levels)
@@ -135,11 +184,12 @@ def build_engine(cfg: MurbConfig, device: torch.device):
             extra["validated_half"] = cert_half
         else:
             extra["acc_fn"] = make_acc_fn(kernel, m=m or 16,
-                                          levels=levels or 2)
+                                          levels=levels or 2, plan=plan)
     # Mid-run order adaptation for the frame loop, off under --scan (the
     # murb_tpu default; --adapt-every itself is not ported yet).
     return create_engine(cfg.impl_tag, bodies, soft=cfg.softening, dt=cfg.dt,
-                         tol=cfg.tol, adapt_every=0 if cfg.scan else 64,
+                         tol=cfg.tol, near=cfg.near,
+                         adapt_every=0 if cfg.scan else 64,
                          num_iterations=cfg.n_iterations, **extra)
 
 
@@ -164,8 +214,13 @@ def print_banner(cfg: MurbConfig, engine, device: torch.device) -> None:
     print(f"  -> softening factor  (--soft): {cfg.softening:g}")
     err = getattr(engine, "validated_err", None)
     if err is not None:
-        mode = (f"fmm m={engine.m} L={engine.levels}" if engine.levels
-                else f"proxy m={engine.m}")
+        if getattr(engine, "near_mode", "interp") == "adaptive":
+            mode = (f"adaptive m={engine.m} L={engine.levels} (sparse + "
+                    "exact near field)")
+        elif engine.levels:
+            mode = f"fmm m={engine.m} L={engine.levels}"
+        else:
+            mode = f"proxy m={engine.m}"
         print(f"  -> validated order           : {mode} "
               f"(measured err {err:.1e} vs tol {cfg.tol:g})")
     elif getattr(engine, "using_proxy", True) is False:
@@ -254,11 +309,20 @@ def run(argv=None) -> CliRun:
     health = engine.proxy_health() if hasattr(engine, "proxy_health") \
         else None
     if health is not None and not health["ok"]:
-        print(f"WARNING: system expanded beyond the proxy design margin "
-              f"(order m={health['m']}, now requires "
-              f"m={health['required_m_now']}); forces in late "
-              f"iterations are less accurate -- rerun with --im "
-              f"tpu+hybrid for exact forces.")
+        if health.get("near") == "adaptive":
+            print(f"WARNING: the distribution outgrew the adaptive "
+                  f"solver's capacities (occupied cells "
+                  f"{health['n_cells_now']} vs caps {health['cell_caps']}; "
+                  f"p2p pairs {health['p2p_pairs_now']} vs cap "
+                  f"{health['p2p_pmax']}); some near pairs were dropped in "
+                  f"late iterations -- rerun without --scan to re-plan "
+                  f"mid-run, or --im tpu+hybrid for exact forces.")
+        else:
+            print(f"WARNING: system expanded beyond the proxy design margin "
+                  f"(order m={health['m']}, now requires "
+                  f"m={health['required_m_now']}); forces in late "
+                  f"iterations are less accurate -- rerun with --im "
+                  f"tpu+hybrid for exact forces.")
 
     if cfg.csv and hasattr(engine, "history"):
         if hasattr(engine, "finalize_history"):

@@ -1,0 +1,60 @@
+// K11 (windowed P2M) and K12 (windowed L2P): the anterpolation stages of
+// the adaptive sparse hierarchy (murb_tpu_torch/ops/anterp_kernels.py).
+//
+// Replace the TPU kernels murb_tpu/ops/anterp_pallas.py:_p2m_win_kernel
+// (pallas_call at :227, entry p2m_window_pallas :186) and _l2p_win_kernel
+// (pallas_call at :315, entry l2p_window_pallas :272).
+//
+// The bodies arrive Morton-sorted (ops/sparse_fmm.solve_adaptive), each
+// with its finest-level cell coordinates (cx, cy, cz), taken from the one
+// computation that made the sort key, and its slot: the rank of its cell
+// in the sorted list of occupied cells, `cap` for the dump (inactive
+// bodies, capacity overflow).  Sorted order makes the slots non-decreasing,
+// so each slot's bodies are one run [bounds[s], bounds[s + 1]) and the
+// wrapper hands the kernels those bounds and a prefix of work items per
+// slot.  The TPU kernels contracted (B, B) one-hot windows on the MXU in
+// bf16 Dekker splits and carried a boundary row from one grid step to the
+// next; here a work item is a run of one slot's bodies, so no one-hot and
+// no carry exist, and everything is fp32 with fp32 fmas.
+//
+// K11 and K12 are the run kernels of cell_runs.cuh (those of K8 and K9)
+// over the slots (SlotRuns: bodies in place, each with its own cell).  The
+// dump slot `cap` has no bodies: its row of W reads 0, and the dump bodies
+// keep K12's zeroed output.  Both are bound by fp32 issue at the main path
+// (m = 6: 216 fmas per body and field against 16 to 28 bytes per body),
+// far from it at these small per-thread loads.
+#include <cuda_runtime.h>
+
+#include "cell_runs.cuh"
+
+// K11.  Sorted bodies q, gm and their cells (cx, cy, cz); box: [lo(3),
+// cs(3)]; nslot = cap + 1 slots; bounds: nslot + 1 offsets of each slot's
+// run; prefix: nslot + 1 offsets of each slot's work items of kRunP2MChunk
+// bodies; nitems: the grid (at least prefix[nslot]; blocks past it return);
+// partial: nitems * m^3 floats of scratch; w: (nslot, m^3).
+extern "C" int murb_p2m_window(const float* qx, const float* qy,
+                               const float* qz, const float* gm,
+                               const int* cx, const int* cy, const int* cz,
+                               const float* box, int m, int nslot,
+                               const long long* bounds,
+                               const long long* prefix, int nitems,
+                               float* partial, float* w,
+                               cudaStream_t stream) {
+  return murb::p2m_runs(qx, qy, qz, gm, murb::SlotRuns{cx, cy, cz}, box, m,
+                        nslot, bounds, prefix, nitems, partial, w, stream);
+}
+
+// K12.  fields: (nf, nslot, m^3), nf 1 to 4; out: (nf, n), zeroed by the
+// caller (dump bodies are in no work item); prefix: work items of
+// kRunL2PThreads bodies.
+extern "C" int murb_l2p_window(const float* qx, const float* qy,
+                               const float* qz, const int* cx, const int* cy,
+                               const int* cz, int n, const float* box, int m,
+                               int nslot, const long long* bounds,
+                               const long long* prefix, int nitems,
+                               const float* fields, int nf, float* out,
+                               cudaStream_t stream) {
+  return murb::l2p_runs(qx, qy, qz, murb::SlotRuns{cx, cy, cz}, n, box, m,
+                        nslot, bounds, prefix, nitems, fields, nf, out,
+                        stream);
+}

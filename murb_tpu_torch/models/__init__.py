@@ -90,7 +90,7 @@ def _build_registry():
     register("tpu+proxy",
              lambda b, **kw: E.ProxyEngine(
                  b, **_filter(kw, "m", "cells", "levels", "tol",
-                              "adapt_every", "validate")),
+                              "adapt_every", "validate", "near")),
              aliases=("fmm", "barnes-hut"))
     register("tpu+hybrid+fast",
              lambda b, **kw: E.HybridEngine(b, passes=1, **_filter(kw)))

@@ -8,8 +8,9 @@ registry: src/murb/main.cpp:205-270):
   cpu+optim/simd/omp  -> ChunkedEngine    (i-chunked plain sweep)
   gpu+tile            -> PallasTileEngine (kernel K3, ops/tile.py)
   gpu+tile+full...    -> HybridEngine     (kernel K4, ops/hybrid.py)
-  fmm / barnes-hut    -> ProxyEngine      (K1-K3, K7-K9; ops/proxy.py,
-                                           ops/fmm.py)
+  fmm / barnes-hut    -> ProxyEngine      (K1-K3, K7-K9, K10-K12;
+                                           ops/proxy.py, ops/fmm.py,
+                                           ops/sparse_fmm.py)
   tpu+kdk, +yoshida4  -> KDKEngine, Yoshida4Engine
   gpu+leapfrog        -> LeapfrogEngine
   gpu+tracking        -> TrackingEngine
@@ -35,7 +36,7 @@ from murb_tpu_torch.core.integrators import (LeapfrogAux, euler_update,
                                              yoshida4_step)
 from murb_tpu_torch.models.base import EulerAccelEngine, SimulationEngine
 from murb_tpu_torch.ops import acc_auto as _default_exact_acc
-from murb_tpu_torch.ops.common import Accel, not_yet_ported
+from murb_tpu_torch.ops.common import Accel
 from murb_tpu_torch.ops.naive import acc_chunked, acc_naive
 from murb_tpu_torch.ops.proxy_kernels import MAX_ORDER
 
@@ -113,32 +114,43 @@ class HybridEngine(EulerAccelEngine):
 
 
 class ProxyEngine(EulerAccelEngine):
-    """Chebyshev-proxy fast solver family (see ops/proxy.py, ops/fmm.py).
+    """Chebyshev-proxy fast solver family (see ops/proxy.py, ops/fmm.py,
+    ops/sparse_fmm.py).
 
     Auto policy from the initial bounding box and force tolerance
     (murb_tpu/models/engines.py:406-444): one global expansion while the
     box admits m <= 20; the L-level hierarchy (kernels K7-K9) for wider
-    boxes, its depth from ops/fmm.best_depth; either pick then validated
-    (escalated or descended) by measurement unless ``validate=False``; the
-    exact K4 sweep when the cost model finds the fast solver far costlier
-    than the direct sum (small N) -- check ``engine.using_proxy``.
+    boxes, its depth from ops/fmm.best_depth; when the cost model rejects
+    every dense configuration (a clustered box whose softening lies far
+    below the feasible finest cells), the adaptive sparse hierarchy with
+    the exact P2P near field (K10-K12) if its planner finds it cheaper than
+    the exact sweep, else the exact K4 sweep -- check ``engine.using_proxy``
+    and ``engine.near_mode``.  The pick is then validated (escalated or
+    descended) by measurement unless ``validate=False``.  ``near``:
+    "auto", "interp" (never the adaptive solver) or "adaptive" (always).
     ``cells=2`` runs the octant mode, ``levels=L`` the hierarchy
-    explicitly.  The JAX engine's adaptive-solver consideration on a
-    rejected proxy is skipped: that planner is not ported, and its cost
-    model rests on TPU-measured rates.
+    explicitly.
     """
 
     tag = "tpu+proxy"
 
     def __init__(self, bodies, soft=None, dt=None, *, m: int = 0,
                  cells: int = 0, levels: int = 0, tol: float = 1e-4,
-                 adapt_every: int = 0, validate: bool = True, **kw):
+                 adapt_every: int = 0, validate: bool = True,
+                 near: str = "auto", **kw):
         super().__init__(bodies, soft, dt, **kw)
         self.tol = tol
         self.adapt_every = int(adapt_every)
         self.validate = bool(validate)
         self.validated_err: float | None = None
         self.validated_half: float | None = None
+        if near not in ("auto", "interp", "adaptive"):
+            raise ValueError(f"unknown near mode: {near!r} "
+                             "(auto | interp | adaptive)")
+        self.near = near
+        self.near_mode = "interp"   # resolved: "interp" | "adaptive"
+        self._plan = None           # SparsePlan when near_mode == "adaptive"
+        self.m2l_dots = "fp32"      # the M2L tier: the port runs fp32 only
         self._auto = m == 0 and levels == 0
         if self._auto:
             self._configure()
@@ -148,10 +160,13 @@ class ProxyEngine(EulerAccelEngine):
             self.m, self.levels, self.cells = int(m), int(levels), \
                 int(cells or 1)
             self.using_proxy = self.m <= MAX_ORDER
+            if near == "adaptive":
+                self._configure_adaptive(force=True)
 
     def _configure(self) -> None:
-        """Derive (m, levels, cells, using_proxy) from the CURRENT box --
-        the auto policy, shared by construction and mid-run adaptation."""
+        """Derive (m, levels, cells, using_proxy, near_mode) from the
+        CURRENT box -- the auto policy, shared by construction and mid-run
+        adaptation."""
         from murb_tpu_torch.ops.proxy import half_extent, required_order
 
         round4 = lambda x: (x + 3) // 4 * 4
@@ -160,17 +175,124 @@ class ProxyEngine(EulerAccelEngine):
         # (rationale in murb_tpu/models/engines.py:_configure)
         m1 = round4(required_order(half * BOX_MARGIN, self.soft,
                                    self.tol, margin=0))
+        self.near_mode, self._plan = "interp", None
         # wider boxes go to the hierarchy, whose finest cells restore
         # eps/h ~ 1 at any scale
         m, levels = (m1, 0) if m1 <= 20 else self._best_depth(half)
         self.m, self.levels, self.cells = int(m), int(levels), 1
         self._apply_cost_model()
+        if self.near == "adaptive" or (self.near == "auto"
+                                       and not self.using_proxy):
+            # every dense configuration was rejected: try the adaptive
+            # sparse hierarchy before the exact fallback
+            self._configure_adaptive(force=self.near == "adaptive")
         if self.using_proxy and self.validate:
-            self._validate_order(half)
+            if self.near_mode == "adaptive":
+                self._validate_adaptive()
+            else:
+                self._validate_order(half)
+
+    def _active_q(self) -> np.ndarray:
+        """(n_active, 3) float32 positions of the massive bodies (host): the
+        input of the adaptive planner and its health replica."""
+        u = self._state.unpadded()
+        sel = u["m"] > 0
+        return np.stack([u["qx"][sel], u["qy"][sel], u["qz"][sel]],
+                        1).astype(np.float32)
+
+    def _configure_adaptive(self, force: bool = False) -> None:
+        """Plan the adaptive sparse hierarchy for the current distribution
+        (ops/sparse_fmm) and adopt it when its cost model beats the exact
+        kernel's, or always when ``near="adaptive"`` forces it.  The cost
+        models keep murb_tpu's TPU rates (ROADMAP.md: an H100 calibration is
+        open), so the port declines and adopts where murb_tpu does."""
+        from murb_tpu_torch.ops.sparse_fmm import (adaptive_order,
+                                                   best_adaptive_plan,
+                                                   exact_cost_ms,
+                                                   plan_adaptive)
+
+        q = self._active_q()
+        npad, dev = self._state.npad, self._state.device
+        explicit = not self._auto
+        m0 = self.m if (explicit and self.m) else adaptive_order(self.tol)
+        if explicit and self.levels:
+            plan = plan_adaptive(q, npad, m0, min(3, self.levels - 1),
+                                 self.levels, device=dev)
+            est_ms = 0.0
+        else:
+            plan, est_ms = best_adaptive_plan(q, npad, m0, device=dev)
+        if not force and est_ms >= min(1.0, COST_SLACK / 30.0) \
+                * exact_cost_ms(npad):
+            return  # the exact fallback stays the honest pick
+        self._plan = plan
+        self.near_mode = "adaptive"
+        self.m, self.levels, self.cells = plan.m, plan.levels, 1
+        self.using_proxy = True
+
+    def _plan_at(self, m: int, rank: int | None = None):
+        """The current plan at order ``m`` (its geometry and capacities do
+        not depend on m), optionally with another M2L compression rank."""
+        plan = self._plan._replace(m=int(m))
+        return plan if rank is None else plan._replace(m2l_rank=rank)
+
+    def _validate_adaptive(self) -> None:
+        """Measured-order selection for the adaptive solver
+        (murb_tpu/models/engines.py:498-573): its accuracy is scale-free, so
+        the ladder moves m only -- by 2 up to 12 while the error misses tol,
+        else down to 4 while it still meets it.  murb_tpu first drops the
+        M2L compression and the lossy dot tiers on a miss; with rank 0 and
+        fp32, the only tiers the port runs, both have nothing to drop."""
+        from murb_tpu_torch.ops.sparse_fmm import (acc_adaptive,
+                                                   default_m2l_rank)
+        from murb_tpu_torch.ops.validate import measured_force_error
+
+        st = self._state
+        gm = self._gm(st)
+
+        def err_at(m, rank=None):
+            plan, tier = self._plan_at(m, rank), self.m2l_dots
+            return measured_force_error(
+                st.qx, st.qy, st.qz, gm, self.soft,
+                lambda qx, qy, qz, g: acc_adaptive(qx, qy, qz, g, self.soft,
+                                                   plan, m2l_dots=tier))
+
+        m = self.m
+        err = err_at(m)
+        if err <= self.tol:
+            while m - 2 >= 4:
+                derr = err_at(m - 2)
+                if derr > self.tol:
+                    break
+                m, err = m - 2, derr
+        else:
+            rank = self._plan.m2l_rank
+            if (default_m2l_rank(m) if rank < 0 else rank) > 0:
+                err0 = err_at(m, rank=0)
+                if err0 < err:
+                    self._plan, err = self._plan._replace(m2l_rank=0), err0
+            # step a lossy tier through to fp32 (murb_tpu stops at the
+            # first step that does not improve and can skip fp32)
+            stronger = {"bf16x3": "mixed", "mixed": "fp32"}
+            while err > self.tol and self.m2l_dots in stronger:
+                self.m2l_dots = stronger[self.m2l_dots]
+                err = err_at(m)
+            while err > self.tol and m + 2 <= 12:
+                m += 2
+                err = err_at(m)
+            if err > self.tol:
+                print(f"WARNING: adaptive-solver validation missed "
+                      f"tol={self.tol:.1e} at m={m} (measured err "
+                      f"{err:.1e}); keeping m={m}")
+        self.m = int(m)
+        self._plan = self._plan_at(m)
+        self.validated_err = err
+        # scale-free accuracy: box growth never invalidates the order;
+        # proxy_health watches the capacities instead
+        self.validated_half = None
 
     def _best_depth(self, half: float) -> tuple[int, int]:
         """(m, levels) from the shared depth-cost policy (ops/fmm.best_depth,
-        calibrated on a TPU; ROADMAP.md Queue 1 item 7)."""
+        calibrated on a TPU; ROADMAP.md)."""
         from murb_tpu_torch.ops.fmm import best_depth
 
         return best_depth(self._state.npad, half, self.soft, self.tol)
@@ -213,16 +335,18 @@ class ProxyEngine(EulerAccelEngine):
             self._apply_cost_model()
 
     def maybe_adapt(self) -> bool:
-        """Mid-run order adaptation: when the system expanded past the
-        validated order's certified box (``proxy_health`` not ok),
-        re-derive the config from the current box.  Returns True if the
-        engine was reconfigured.  Waits on the device; call between
-        frames."""
+        """Mid-run adaptation: when ``proxy_health`` is not ok (the box
+        outgrew the validated order, or the distribution the adaptive
+        plan's capacities), re-derive the configuration from the current
+        state.  Returns True if the engine was reconfigured.  Waits on the
+        device; call between frames."""
         if not self._auto or self.proxy_health()["ok"]:
             return False
-        old = (self.m, self.levels, self.cells, self.using_proxy)
+        old = (self.m, self.levels, self.cells, self.using_proxy,
+               self.near_mode, self._plan)
         self._configure()
-        return (self.m, self.levels, self.cells, self.using_proxy) != old
+        return (self.m, self.levels, self.cells, self.using_proxy,
+                self.near_mode, self._plan) != old
 
     def compute_one_iteration(self) -> None:
         if (self.adapt_every and self._iteration
@@ -237,6 +361,10 @@ class ProxyEngine(EulerAccelEngine):
             from murb_tpu_torch.ops.hybrid import acc_hybrid
 
             return acc_hybrid(qx, qy, qz, gm, self.soft, passes=2)
+        if self.near_mode == "adaptive":
+            from murb_tpu_torch.ops.sparse_fmm import acc_adaptive
+
+            return acc_adaptive(qx, qy, qz, gm, self.soft, self._plan)
         if self.levels:
             from murb_tpu_torch.ops.fmm import acc_fmm
 
@@ -248,8 +376,13 @@ class ProxyEngine(EulerAccelEngine):
                          cells=self.cells)
 
     def proxy_health(self) -> dict:
-        """Is the order still adequate for the CURRENT box?  Reports the
-        order the box would need now (waits on the device)."""
+        """Is the configuration still adequate for the CURRENT state?  The
+        order the box would need now, or, in adaptive mode (scale-free
+        accuracy), whether the distribution still fits the plan's
+        occupied-cell and pair capacities.  Waits on the device."""
+        if self.near_mode == "adaptive":
+            return _adaptive_health(self._active_q(), self._state.npad,
+                                    self._plan)
         from murb_tpu_torch.ops.fmm import fmm_order
         from murb_tpu_torch.ops.proxy import half_extent, required_order
 
@@ -273,6 +406,31 @@ class ProxyEngine(EulerAccelEngine):
         }
 
 
+def _adaptive_health(q: np.ndarray, npad: int, plan) -> dict:
+    """Capacity health of an adaptive plan on the massive bodies ``q``
+    (host replicas of the device's occupied lists and pair count), the
+    contract of murb_tpu's adaptive proxy_health."""
+    from murb_tpu_torch.ops.p2p import estimate_brick_pairs
+    from murb_tpu_torch.ops.sparse_fmm import level_stats, p2p_capacity_needed
+
+    stats = level_stats(q, plan.dense_levels, plan.levels)
+    npairs = estimate_brick_pairs(q, npad, plan.levels)
+    return {
+        "using_proxy": True,
+        "m": plan.m,
+        "cells": 1,
+        "levels": plan.levels,
+        "near": "adaptive",
+        "required_m_now": plan.m,   # scale-free
+        "n_cells_now": tuple(stats),
+        "cell_caps": plan.cell_caps,
+        "p2p_pairs_now": npairs,
+        "p2p_pmax": plan.p2p_pmax,
+        "ok": (all(nc <= cap for nc, cap in zip(stats, plan.cell_caps))
+               and p2p_capacity_needed(npairs) <= plan.p2p_pmax),
+    }
+
+
 # ------------------------------------------------- integrators and tracking
 def _resolve_metric_dtype(metric_dtype) -> torch.dtype:
     """float64 unless the caller asks otherwise: the reference computes its
@@ -281,11 +439,16 @@ def _resolve_metric_dtype(metric_dtype) -> torch.dtype:
     return torch.float64 if metric_dtype is None else metric_dtype
 
 
-def _fused_force_phi(qx, qy, qz, gm, soft, fused_proxy_m, fused_fmm):
-    """(Accel, phi) from one far-field pass: the L-level hierarchy when
-    ``fused_fmm`` = (m, levels) is set, else the single-level proxy.  The
-    adaptive branch of murb_tpu is refused when the engine is built
-    (``_Tracked._setup_tracking``)."""
+def _fused_force_phi(qx, qy, qz, gm, soft, fused_proxy_m, fused_fmm,
+                     fused_adaptive=None):
+    """(Accel, phi) from one far-field pass: the adaptive hierarchy when
+    ``fused_adaptive`` (a SparsePlan) is set, the L-level hierarchy when
+    ``fused_fmm`` = (m, levels) is, else the single-level proxy."""
+    if fused_adaptive is not None:
+        from murb_tpu_torch.ops.sparse_fmm import force_and_potential_adaptive
+
+        return force_and_potential_adaptive(qx, qy, qz, gm, soft,
+                                            fused_adaptive)
     if fused_fmm:
         from murb_tpu_torch.ops.fmm import force_and_potential_fmm
 
@@ -305,11 +468,18 @@ def _phi_metrics(state, phi, soft, out_dtype):
 
 
 def _fused_proxy_health(state, soft, fused_proxy_m, fused_fmm,
-                        validated_half=None) -> dict | None:
+                        validated_half=None,
+                        fused_adaptive=None) -> dict | None:
     """Validity of a tracking engine's fused far-field pass (the contract
     of ProxyEngine.proxy_health); None when the engine runs none.
     ``validated_half``: the box half-extent a measured order is certified
     for (ops/validate.certified_half), instead of the static bound."""
+    if fused_adaptive is not None:
+        u = state.unpadded()
+        sel = u["m"] > 0
+        q = np.stack([u["qx"][sel], u["qy"][sel], u["qz"][sel]],
+                     1).astype(np.float32)
+        return _adaptive_health(q, state.npad, fused_adaptive)
     if not (fused_proxy_m or fused_fmm):
         return None
     from murb_tpu_torch.ops.fmm import fmm_order
@@ -417,11 +587,10 @@ class _Tracked:
                         metrics_proxy_m: int = 16, fused_proxy_m: int = 0,
                         fused_fmm: tuple = (), fused_adaptive=None,
                         validated_half: float | None = None) -> None:
-        if fused_adaptive is not None:
-            raise not_yet_ported("tracked fused_adaptive (the adaptive "
-                                 "hierarchy)", "Queue 1 item 8")
-        if fused_proxy_m and fused_fmm:
-            raise ValueError("fused_proxy_m / fused_fmm are exclusive")
+        if sum(map(bool, (fused_proxy_m, fused_fmm,
+                          fused_adaptive is not None))) > 1:
+            raise ValueError("fused_proxy_m / fused_fmm / fused_adaptive "
+                             "are exclusive")
         if metrics_method not in ("exact", "proxy"):
             raise ValueError(f"unknown metrics method {metrics_method!r} "
                              "(exact, proxy)")
@@ -433,7 +602,15 @@ class _Tracked:
         self._metrics_proxy_m = metrics_proxy_m
         self._fused_proxy_m = fused_proxy_m
         self._fused_fmm = tuple(fused_fmm)  # (m, levels) or ()
+        self._fused_adaptive = fused_adaptive  # SparsePlan or None
         self._validated_half = validated_half
+
+    @property
+    def _fused(self) -> bool:
+        """Whether the step takes force and potential from one far-field
+        pass (``_fused_force_phi``)."""
+        return bool(self._fused_proxy_m or self._fused_fmm
+                    or self._fused_adaptive is not None)
 
     def _metrics(self, state):
         return metrics_mod.all_metrics(
@@ -445,7 +622,8 @@ class _Tracked:
         contract); None when the engine runs none."""
         return _fused_proxy_health(self._state, self.soft,
                                    self._fused_proxy_m, self._fused_fmm,
-                                   self._validated_half)
+                                   self._validated_half,
+                                   self._fused_adaptive)
 
     def _record(self, i0: int, rows: np.ndarray) -> None:
         """History rows i0, i0 + 1, ... from packed metrics (k, 5), or
@@ -481,7 +659,9 @@ class TrackingEngine(_Tracked, EulerAccelEngine):
 
     The step takes one of three paths: the fused far-field pass (force and
     potential from one pass: the proxy with ``fused_proxy_m``, K1 and K2,
-    or the hierarchy with ``fused_fmm`` = (m, levels), K7-K9), the fused
+    the hierarchy with ``fused_fmm`` = (m, levels), K7-K9, or the adaptive
+    hierarchy with ``fused_adaptive`` (a SparsePlan), K7 and K10-K12), the
+    fused
     exact sweep (``_use_fused_exact``: K6), or the force kernel ``acc_fn``
     plus the metrics' own potential sweep."""
 
@@ -503,7 +683,7 @@ class TrackingEngine(_Tracked, EulerAccelEngine):
         no custom ``acc_fn`` and no proxy metrics are configured (murb_tpu:
         on the TPU).  ``fused_exact`` forces it either way."""
         if (self._acc is not None or self._metrics_method != "exact"
-                or self._fused_proxy_m or self._fused_fmm):
+                or self._fused):
             return False
         if self._fused_exact is not None:
             return self._fused_exact
@@ -515,10 +695,10 @@ class TrackingEngine(_Tracked, EulerAccelEngine):
     def _step_with_metrics(self, state):
         """(new_state, acc, metrics), the metrics at the pre-update state."""
         gm = self._gm(state)
-        if self._fused_proxy_m or self._fused_fmm:
+        if self._fused:
             acc, phi = _fused_force_phi(state.qx, state.qy, state.qz, gm,
                                         self.soft, self._fused_proxy_m,
-                                        self._fused_fmm)
+                                        self._fused_fmm, self._fused_adaptive)
             mets = _phi_metrics(state, phi, self.soft, self._metric_dtype)
         elif self._use_fused_exact():
             from murb_tpu_torch.ops.hybrid import acc_phi_rows_hybrid
@@ -560,9 +740,10 @@ class LeapfrogTrackingEngine(_Tracked, LeapfrogEngine):
     def _advance(self):
         q, finish = self._phase()
         gm = self._gm(self._state)
-        if self._fused_proxy_m or self._fused_fmm:
+        if self._fused:
             acc, phi = _fused_force_phi(*q, gm, self.soft,
-                                        self._fused_proxy_m, self._fused_fmm)
+                                        self._fused_proxy_m, self._fused_fmm,
+                                        self._fused_adaptive)
             self._state, self._aux = finish(acc)
             mets = _phi_metrics(self._state, phi, self.soft,
                                 self._metric_dtype)
@@ -590,6 +771,19 @@ class MultiGalaxyTrackingEngine(TrackingEngine):
 
     def __init__(self, bodies, soft=None, dt=None, *, num_iterations: int,
                  masks, **kw):
+        if kw.get("fused_adaptive") is not None:
+            # murb_tpu/models/engines.py:1413-1425
+            raise ValueError(
+                "per-galaxy fused metrics support the single-level proxy "
+                "(fused_proxy_m), the L-level hierarchy (fused_fmm: masked "
+                "weight channels through P2M/M2M/M2L/L2L, "
+                "ops/fmm.force_and_potential_fmm_pergal) and the exact "
+                "kernel; the ADAPTIVE solver stays rejected -- its "
+                "occupied-cell slot tables and P2P brick packs would need "
+                "a per-galaxy channel through every windowed/sparse stage "
+                "and the near kernel for a workload (1M+ clustered "
+                "multi-galaxy tracking) that metrics_method='proxy' "
+                "already serves with fast masked metrics")
         history = MultiGalaxySimulationHistory(num_iterations,
                                                num_galaxies=len(masks))
         super().__init__(bodies, soft, dt, num_iterations=num_iterations,

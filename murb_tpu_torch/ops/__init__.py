@@ -24,7 +24,7 @@ def acc_auto(qx, qy, qz, gm, soft):
 
 
 def make_acc_fn(name: str = "auto", *, m: int = 16, levels: int = 2,
-                passes: int = 2):
+                passes: int = 2, plan=None):
     """Resolve an acceleration kernel by name.
 
     auto     -- ``acc_auto``: K4 passes 2 on CUDA tensors, chunked on CPU
@@ -34,8 +34,10 @@ def make_acc_fn(name: str = "auto", *, m: int = 16, levels: int = 2,
     hybrid   -- the tiered exact sweep (K4) at ``passes``
     proxy    -- the Chebyshev proxy at order ``m`` (caller owns validity)
     fmm      -- the L-level hierarchy at (``m``, ``levels``), K7-K9
+    adaptive -- the occupied-cell sparse hierarchy with the exact P2P near
+                field, K10-K12 (``plan``: ops/sparse_fmm.SparsePlan)
 
-    ``mxu`` and ``adaptive`` raise "not yet ported"."""
+    ``mxu`` raises "not yet ported"."""
     from murb_tpu_torch.ops.common import not_yet_ported
 
     if name == "auto":
@@ -67,8 +69,12 @@ def make_acc_fn(name: str = "auto", *, m: int = 16, levels: int = 2,
     if name == "mxu":
         raise not_yet_ported("kernel 'mxu' (K13)", "Queue 2 K13")
     if name == "adaptive":
-        raise not_yet_ported("kernel 'adaptive' (the adaptive sparse "
-                             "hierarchy)", "Queue 1 item 8")
+        from murb_tpu_torch.ops.sparse_fmm import acc_adaptive
+
+        if plan is None:
+            raise ValueError("kernel 'adaptive' needs a SparsePlan "
+                             "(ops/sparse_fmm.plan_adaptive)")
+        return partial(acc_adaptive, plan=plan)
     raise ValueError(f"unknown kernel {name!r} "
                      "(auto, naive, chunked, tile, hybrid, mxu, proxy, fmm, "
                      "adaptive)")

@@ -10,8 +10,8 @@ place, so concurrent processes never load a half-written file.
 
 There is no fallback: a missing ``nvcc``, a failed build or a refused
 launch raises.  The kernel wrappers (ops/tile.py, ops/hybrid.py,
-ops/proxy_kernels.py, ops/fmm_kernels.py) call ``library()`` only for CUDA
-tensors.
+ops/proxy_kernels.py, ops/fmm_kernels.py, ops/p2p_kernels.py,
+ops/anterp_kernels.py) call ``library()`` only for CUDA tensors.
 """
 from __future__ import annotations
 
@@ -31,7 +31,8 @@ DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
+    ctypes.c_float
 
 # C entry points (csrc/*.cu) and their argument types; each returns the
 # cudaError_t of its launches.
@@ -51,6 +52,12 @@ _SIGNATURES = {
     "murb_l2p_grid": [_P, _P, _P, _P, _I, _P, _I, _I, _P, _P, _I, _P, _I,
                       _P, _P],
     "murb_m2l_level": [_P, _P, _F, _I, _I, _I, _I, _I, _P, _P, _P],
+    "murb_p2p_sorted": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _L, _F, _I,
+                        _P, _P],
+    "murb_p2m_window": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _I,
+                        _P, _P, _P],
+    "murb_l2p_window": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _P, _P, _I,
+                        _P, _I, _P, _P],
 }
 
 
@@ -175,6 +182,22 @@ def kernel_inputs(tag: str, device: torch.device, n: int, *tensors,
         elif t.dtype != torch.float32:
             raise TypeError(f"{tag}: dtype {t.dtype} (float32 or float64)")
         out.append(t.contiguous())
+    return out
+
+
+def int_inputs(tag: str, device: torch.device, n: int,
+               *tensors) -> list[torch.Tensor]:
+    """Checked int32 contiguous copies (or views) of 1-D integer kernel
+    inputs (cell coordinates, slots) of shape ``(n,)`` on ``device``."""
+    out = []
+    for t in tensors:
+        if t.device != device:
+            raise ValueError(f"{tag}: tensor on {t.device}, expected {device}")
+        if t.shape != (n,):
+            raise ValueError(f"{tag}: shape {tuple(t.shape)}, expected ({n},)")
+        if t.dtype not in (torch.int32, torch.int64):
+            raise TypeError(f"{tag}: dtype {t.dtype} (int32 or int64)")
+        out.append(t.to(torch.int32).contiguous())
     return out
 
 

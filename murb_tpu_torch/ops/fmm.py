@@ -18,10 +18,11 @@ Heavy bodies are excluded and corrected exactly, as in ops/proxy.py.  The
 host helpers (offset lists, transfer matrices, the depth-cost policy)
 match murb_tpu's exactly, so the port picks the same (m, levels).
 
-Not yet ported: ``near="p2p"`` (the exact near field of the adaptive
-slice, kernel K10) and the lossy M2L tiers ``m2l_dots="bf16x3"`` and
-``"mixed"`` (ROADMAP.md Queue 1 items 7-8).  The TPU autotuner knobs
-``block`` and ``m2l_tile`` have no counterpart.
+``near="p2p"`` leaves the finest level's 27-cell neighbourhood out of the
+sweeps (one "far" sweep there) and sums it exactly with the P2P stage of
+ops/p2p.py (kernel K10) in a cubic box.  Not yet ported: the lossy M2L
+tiers ``m2l_dots="bf16x3"`` and ``"mixed"`` (ROADMAP.md Queue 1 item 12).
+The TPU autotuner knobs ``block`` and ``m2l_tile`` have no counterpart.
 """
 from __future__ import annotations
 
@@ -35,6 +36,8 @@ from murb_tpu_torch.ops.common import Accel, not_yet_ported
 from murb_tpu_torch.ops.fmm_kernels import (cell_order, l2p_grid_fused,
                                             m2l_level_fused, p2m_grid_fused)
 from murb_tpu_torch.ops.naive import acc_rect
+from murb_tpu_torch.ops.p2p import DEFAULT_CHUNK as P2P_CHUNK
+from murb_tpu_torch.ops.p2p_kernels import p2p_sweep
 from murb_tpu_torch.ops.proxy import (HEAVY_FACTOR, HEAVY_K, bounding_box,
                                       heavy_source_acc,
                                       heavy_source_phi_rows, heavy_split,
@@ -119,12 +122,18 @@ def l2l(f, *, m: int, C: int):
 
 # --------------------------------------------------------- downward pass
 def fmm_field_grid(w_finest, h, soft, *, m: int, levels: int,
-                   with_phi: bool = False) -> tuple:
+                   with_phi: bool = False,
+                   finest_subset: str = "expand") -> tuple:
     """Finest-level node fields (fx, fy, fz[, phi]) via the full hierarchy:
     coarser expansions by M2M, at each level from l0 = min(2, L) an expand
     sweep, minus a near sweep at every level but the finest, fields carried
-    down by L2L (murb_tpu/ops/fmm.py:fmm_field_grid, finest subset
-    "expand").  Each sweep is one K7 launch on CUDA tensors."""
+    down by L2L (murb_tpu/ops/fmm.py:fmm_field_grid).  ``finest_subset``
+    "far" replaces the finest level's expand sweep by one far sweep (far =
+    expand minus near, pairwise), leaving the finest near neighbourhood to
+    an exact P2P stage.  Each sweep is one K7 launch on CUDA tensors."""
+    if finest_subset not in ("expand", "far"):
+        raise ValueError(f"unknown finest subset {finest_subset!r} "
+                         "(expand, far)")
     l0 = min(2, levels)  # level 1's expand and near lists coincide (C = 2)
     ws = {levels: w_finest}
     for l in range(levels - 1, l0 - 1, -1):
@@ -136,8 +145,9 @@ def fmm_field_grid(w_finest, h, soft, *, m: int, levels: int,
         hl = h / C
         if f is not None:
             f = tuple(l2l(fd, m=m, C=C // 2) for fd in f)
-        contrib = m2l_level_fused(ws[l], hl, soft, m=m, C=C,
-                                  subset="expand", with_phi=with_phi)
+        subset = finest_subset if l == levels else "expand"
+        contrib = m2l_level_fused(ws[l], hl, soft, m=m, C=C, subset=subset,
+                                  with_phi=with_phi)
         f = contrib if f is None else tuple(a + b for a, b in zip(f, contrib))
         if l < levels:
             near = m2l_level_fused(ws[l], hl, soft, m=m, C=C, subset="near",
@@ -201,17 +211,18 @@ def check_m2l_dots(tier: str) -> str:
         raise ValueError(f"unknown m2l_dots tier: {tier!r}")
     if tier != "fp32":
         raise not_yet_ported(f"m2l_dots={tier!r} (a lossy M2L tier; the "
-                             "port's level sweep is fp32)", "Queue 1 item 7")
+                             "port's level sweeps are fp32)",
+                             "Queue 1 item 12")
     return tier
 
 
-def _check_modes(m2l_dots: str, near: str) -> None:
+def _check_modes(m2l_dots: str, near: str, p2p_pmax: int = 0) -> None:
     check_m2l_dots(m2l_dots)
-    if near == "p2p":
-        raise not_yet_ported("near='p2p' (the exact near field, kernel K10)",
-                             "Queue 1 item 8")
-    if near != "interp":
+    if near not in ("interp", "p2p"):
         raise ValueError(f"unknown near mode: {near!r} (interp, p2p)")
+    if near == "p2p" and p2p_pmax <= 0:
+        raise ValueError("near='p2p' requires a sized p2p_pmax "
+                         "(ops/p2p.size_pmax from the distribution)")
 
 
 def _heavy_setup(qx, qy, qz, gm, heavy_k: int, heavy_factor: float):
@@ -225,22 +236,35 @@ def _heavy_setup(qx, qy, qz, gm, heavy_k: int, heavy_factor: float):
 
 def _fmm_solve(qx, qy, qz, gm, soft, *, m: int, levels: int, heavy_k: int,
                heavy_factor: float, m2l_dots: str, with_phi: bool,
-               near: str = "interp"):
+               near: str = "interp", p2p_pmax: int = 0, p2p_chunk: int = 0):
     """The hierarchy pass behind acc_fmm / force_and_potential_fmm: box,
-    heavy split, P2M, level sweeps, L2P, and the exact heavy-body
-    corrections -> (acc (n, 3), phi (n,) or None)."""
-    _check_modes(m2l_dots, near)
+    heavy split, P2M, level sweeps, L2P, the P2P stage when ``near="p2p"``
+    (capacity ``p2p_pmax``), and the exact heavy-body corrections -> (acc
+    (n, 3), phi (n,) or None)."""
+    _check_modes(m2l_dots, near, p2p_pmax)
     C = 2 ** levels
     c, h, hq, heavy_gm, is_heavy, top_idx, gm_eff = _heavy_setup(
         qx, qy, qz, gm, heavy_k, heavy_factor)
+    if near == "p2p":
+        # cubic cells: the far shells' |o| >= 2 separation holds per
+        # dimension only when the cells are cubes (murb_tpu/ops/fmm.py:543)
+        h = h.max().expand(3)
     order = (cell_order(qx, qy, qz, c, h, C) if qx.device.type == "cuda"
              else None)
     w = p2m_grid_fused(qx, qy, qz, gm_eff, c, h, m=m, C=C, order=order)
     fields = fmm_field_grid(w, h, soft, m=m, levels=levels,
-                            with_phi=with_phi)
+                            with_phi=with_phi,
+                            finest_subset="far" if near == "p2p" else
+                            "expand")
     out = l2p_grid_fused(qx, qy, qz, c, h, fields, m=m, C=C, order=order)
-    acc = torch.stack(out[:3], dim=1) + heavy_source_acc(qx, qy, qz, hq,
-                                                         heavy_gm, soft)
+    acc = torch.stack(out[:3], dim=1)
+    phi_near = None
+    if near == "p2p":
+        acc_near, phi_near, _ = p2p_sweep(
+            qx, qy, qz, gm_eff, c, h, soft, C=C, pmax=p2p_pmax,
+            chunk=p2p_chunk or P2P_CHUNK, with_phi=with_phi)
+        acc = acc + acc_near
+    acc = acc + heavy_source_acc(qx, qy, qz, hq, heavy_gm, soft)
     ht = torch.stack(list(acc_rect(hq[0], hq[1], hq[2], qx, qy, qz, gm,
                                    soft)), dim=1)
     acc[top_idx] = torch.where(is_heavy[:, None], ht, acc[top_idx])
@@ -249,6 +273,8 @@ def _fmm_solve(qx, qy, qz, gm, soft, *, m: int, levels: int, heavy_k: int,
     if with_phi:
         phi = out[3] + heavy_source_phi_rows(qx, qy, qz, hq,
                                              heavy_gm[None, :], soft)[0]
+        if phi_near is not None:
+            phi = phi + phi_near
         phi_h = heavy_target_phi_rows(qx, qy, qz, gm[None, :], hq, soft)[0]
         phi[top_idx] = torch.where(is_heavy, phi_h, phi[top_idx])
     return acc, phi
@@ -256,20 +282,25 @@ def _fmm_solve(qx, qy, qz, gm, soft, *, m: int, levels: int, heavy_k: int,
 
 def acc_fmm(qx, qy, qz, gm, soft, *, m: int = 12, levels: int = 2,
             heavy_k: int = HEAVY_K, heavy_factor: float = HEAVY_FACTOR,
-            m2l_dots: str = "fp32", near: str = "interp") -> Accel:
+            m2l_dots: str = "fp32", near: str = "interp", p2p_pmax: int = 0,
+            p2p_chunk: int = 0) -> Accel:
     """All-pairs softened-gravity accelerations via the L-level hierarchy
     (ref: murb_tpu/ops/fmm.py:acc_fmm).  Heavy bodies are excluded from the
-    far field and corrected exactly, as sources and as targets."""
+    far field and corrected exactly, as sources and as targets.
+    ``near="p2p"`` sums the finest near neighbourhood exactly (ops/p2p.py,
+    capacity ``p2p_pmax``)."""
     acc, _ = _fmm_solve(qx, qy, qz, gm, soft, m=m, levels=levels,
                         heavy_k=heavy_k, heavy_factor=heavy_factor,
-                        m2l_dots=m2l_dots, with_phi=False, near=near)
+                        m2l_dots=m2l_dots, with_phi=False, near=near,
+                        p2p_pmax=p2p_pmax, p2p_chunk=p2p_chunk)
     return Accel(acc[:, 0], acc[:, 1], acc[:, 2])
 
 
 def force_and_potential_fmm(qx, qy, qz, gm, soft, *, m: int = 12,
                             levels: int = 2, heavy_k: int = HEAVY_K,
                             heavy_factor: float = HEAVY_FACTOR,
-                            m2l_dots: str = "fp32", near: str = "interp"):
+                            m2l_dots: str = "fp32", near: str = "interp",
+                            p2p_pmax: int = 0, p2p_chunk: int = 0):
     """(Accel, phi (n,)): forces and the potential in one hierarchy pass,
     the potential riding the level sweeps as a fourth node field (K7 with
     nf = 4, K9 with 4 fields).  phi includes the (interpolated) self term,
@@ -277,7 +308,8 @@ def force_and_potential_fmm(qx, qy, qz, gm, soft, *, m: int = 12,
     SimulationNBodyCUDAPropertyTracking.cu:296-302)."""
     acc, phi = _fmm_solve(qx, qy, qz, gm, soft, m=m, levels=levels,
                           heavy_k=heavy_k, heavy_factor=heavy_factor,
-                          m2l_dots=m2l_dots, with_phi=True, near=near)
+                          m2l_dots=m2l_dots, with_phi=True, near=near,
+                          p2p_pmax=p2p_pmax, p2p_chunk=p2p_chunk)
     return Accel(acc[:, 0], acc[:, 1], acc[:, 2]), phi
 
 

@@ -29,14 +29,15 @@ from murb_tpu_torch.ops import cuda
 from murb_tpu_torch.ops.common import notify_fp32_compute
 from murb_tpu_torch.ops.proxy_kernels import _basis
 
-#: largest order and cells per dimension the kernels take (csrc/fmm.cu)
-MAX_ORDER = 16
+#: largest order and cells per dimension the kernels take (csrc/fmm.cu,
+#: csrc/cell_runs.cuh)
+MAX_ORDER = 32
 MAX_CELLS = 16
 #: node fields one grid L2P call takes: force (3) plus up to 8 potentials
 MAX_FIELDS = 11
-_L2P_GROUP = 4       # fields one K9 launch takes (kGridFields)
-_P2M_CHUNK = 512     # bodies per K8 work item (kGridP2MChunk)
-_L2P_CHUNK = 128     # bodies per K9 work item (kGridL2PThreads)
+_L2P_GROUP = 4       # fields one K9 launch takes (kRunFields)
+_P2M_CHUNK = 512     # bodies per K8 work item (kRunP2MChunk)
+_L2P_CHUNK = 128     # bodies per K9 work item (kRunL2PThreads)
 _M2L_THREADS = 128   # target nodes per K7 block (kM2LThreads)
 _M2L_MAX_SPLIT = 16
 #: resident threads of an H100 (132 SMs x 2048): K7 splits its offsets
@@ -44,6 +45,10 @@ _M2L_MAX_SPLIT = 16
 _FILL_THREADS = 132 * 2048
 _SUBSET_IDS = {"expand": 0, "near": 1, "far": 2}
 _PLAIN_CHUNK = 8192  # bodies per step of the plain P2M / L2P
+#: entries of the transfer matrix T the plain M2L builds at a time: all of
+#: it up to m = 20, row blocks above (8.6 GB a whole matrix at m = 32 in
+#: float64)
+_PLAIN_M2L_ENTRIES = 1 << 26
 _TAG = "tpu+proxy/fmm (grid kernels)"
 
 
@@ -161,21 +166,26 @@ def m2l_level_plain(w, hl, soft, *, m: int, C: int, subset: str = "expand",
 
     fields = [torch.zeros((C ** 3, m3), dtype=dtype, device=dev)
               for _ in range(4 if with_phi else 3)]
+    rows = max(1, _PLAIN_M2L_ENTRIES // m3)  # target nodes of T a step
     for o, nv in zip(offsets.tolist(), neg_valid.tolist()):
         if max(map(abs, o)) >= C:
             continue  # both shifts read only zero padding: adds exactly 0
-        # D[u, v] = p_v - p_u = 2 hl o + (pv[v] - pv[u]), per dimension
-        dx = 2.0 * hl[0] * o[0] + (pxv[None, :] - pxv[:, None])
-        dy = 2.0 * hl[1] * o[1] + (pyv[None, :] - pyv[:, None])
-        dz = 2.0 * hl[2] * o[2] + (pzv[None, :] - pzv[:, None])
-        inv = torch.rsqrt(dx * dx + dy * dy + dz * dz + soft2)
-        inv3 = inv * inv * inv
-        ts = [dx * inv3, dy * inv3, dz * inv3] + ([inv] if with_phi else [])
         wp = shifted(o)
         wn = shifted([-x for x in o]) * nv
-        for i, t in enumerate(ts):
-            sign = 1.0 if i == 3 else -1.0
-            fields[i] += wp @ t.T + sign * (wn @ t)
+        for u0 in range(0, m3, rows):
+            u = slice(u0, u0 + rows)
+            # D[u, v] = p_v - p_u = 2 hl o + (pv[v] - pv[u]), per dimension
+            dx = 2.0 * hl[0] * o[0] + (pxv[None, :] - pxv[u, None])
+            dy = 2.0 * hl[1] * o[1] + (pyv[None, :] - pyv[u, None])
+            dz = 2.0 * hl[2] * o[2] + (pzv[None, :] - pzv[u, None])
+            inv = torch.rsqrt(dx * dx + dy * dy + dz * dz + soft2)
+            inv3 = inv * inv * inv
+            ts = [dx * inv3, dy * inv3, dz * inv3] + ([inv] if with_phi
+                                                      else [])
+            for i, t in enumerate(ts):
+                sign = 1.0 if i == 3 else -1.0
+                fields[i][:, u] += wp @ t.T
+                fields[i] += sign * (wn[:, u] @ t)
     return tuple(fields)
 
 

@@ -1,0 +1,662 @@
+"""The adaptive (occupied-cell) hierarchy: sparse levels plus the exact P2P
+near field.
+
+Port of ``murb_tpu/ops/sparse_fmm.py``.  The dense hierarchy (ops/fmm.py)
+stores every cell of a uniform grid, so its depth stops near L = 4.  This
+solver keeps the dense grid for levels 2..Ld and below it stores only the
+occupied cells, down to a finest level L whose 27-cell neighbourhoods the
+P2P stage (ops/p2p.py) sums exactly:
+
+  sort       one stable Morton sort of the bodies per solve, shared by
+             every stage: the occupied lists come from first-occurrence
+             flags, the anterpolation reads each cell's bodies as a run,
+             and the P2P bricks are cut on the same order.  Cell ids are
+             Morton codes (parent = >> 3, octant = & 7).
+  occupancy  each sparse level keeps a sorted list of occupied cells in a
+             capacity the host planner sized (``plan_adaptive``); the
+             engines re-check it as the bodies move.
+  upward     P2M into finest-level slots (kernel K11), sparse M2M (8
+             per-octant (m^3, m^3) products), and the coarsest sparse level
+             scattered into the dense grid at Ld.
+  M2L        per sparse level, the far offsets (2 <= |o|_inf <= 3, parity
+             masked as in the dense sweeps), each applied to the occupied
+             source of every occupied target with ``torch.bmm``.
+  downward   the dense field at Ld (ops/fmm.fmm_field_grid with the finest
+             subset "far"), L2L into the sparse children, each level's
+             M2L, and L2P from the finest slots (kernel K12).
+  near       the exact P2P sweep (kernel K10).
+
+Everything runs on the state's device with no host sync inside a solve;
+the planner and the capacity checks run on the host between steps.  Not
+yet ported: the shared-basis M2L compression (``m2l_rank`` > 0), the fused
+multi-offset M2L (MURB_M2L_FUSED), MURB_M2L_SCAN_CHUNK and the lossy
+``m2l_dots`` tiers (ROADMAP.md Queue 1 item 12); an explicit request for
+any of them raises.
+"""
+from __future__ import annotations
+
+import functools
+import math
+import os
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from murb_tpu_torch.ops.anterp_kernels import l2p_window, p2m_window
+from murb_tpu_torch.ops.common import Accel, not_yet_ported
+from murb_tpu_torch.ops.fmm import (_SUBSETS, _basis_np, _cheb_nodes_np,
+                                    _offsets_paired, check_m2l_dots,
+                                    fmm_field_grid)
+from murb_tpu_torch.ops.fmm_kernels import _node_vectors
+from murb_tpu_torch.ops.p2p import (DEFAULT_CHUNK as P2P_CHUNK, DEFAULT_K,
+                                    estimate_brick_pairs, morton_key,
+                                    size_pmax, sorted_cells)
+from murb_tpu_torch.ops.p2p_kernels import p2p_sweep_kernel_sorted
+
+#: p2p_impl names: the port's own, and murb_tpu's mapped onto them
+_IMPLS = {"plain": "plain", "kernel": "kernel", "jnp": "plain",
+          "pallas": "kernel"}
+
+
+class SparsePlan(NamedTuple):
+    """Static geometry of an adaptive solve (murb_tpu's SparsePlan, field
+    for field).  ``cell_caps``: one occupied-cell capacity per sparse level
+    (dense_levels + 1 .. levels); ``p2p_pmax``: the near field's pair
+    capacity (``size_pmax``'s on every device).  ``p2p_impl`` names the
+    sweep the plan was made for, "plain" (CPU) or "kernel" (K10): the
+    tensors' device picks the sweep that runs.  ``m2l_rank`` -1 resolves to
+    0 (no compression)."""
+
+    m: int
+    dense_levels: int
+    levels: int
+    cell_caps: tuple
+    p2p_pmax: int
+    p2p_chunk: int = P2P_CHUNK
+    p2p_impl: str = "plain"
+    m2l_rank: int = -1
+
+    @classmethod
+    def from_fields(cls, **fields) -> "SparsePlan":
+        """A plan from murb_tpu's fields (``jax_plan._asdict()``):
+        ``p2p_impl`` "jnp" becomes "plain" and "pallas" "kernel"."""
+        fields["p2p_impl"] = _IMPLS[fields.get("p2p_impl", "plain")]
+        fields["cell_caps"] = tuple(int(c) for c in fields["cell_caps"])
+        return cls(**fields)
+
+
+# ------------------------------------------------------------ id helpers
+# Sparse-level cell ids are Morton codes (ops/p2p.morton_key: x << 2 |
+# y << 1 | z per bit), so code & 7 is the octant index of _octant_transfer
+# and sorting bodies by finest code makes their slots non-decreasing.  Only
+# the hand-off to the dense grid (row-major (C^3, m^3)) converts.
+def _pack(cx, cy, cz, C: int):
+    """Row-major cell id: the dense grid's convention (ops/fmm)."""
+    return (cx * C + cy) * C + cz
+
+
+def _munpack(code, C: int):
+    """(cx, cy, cz) from a Morton code on a C^3 grid."""
+    bits = max(int(C - 1).bit_length(), 1)
+    cx, cy, cz = (torch.zeros_like(code) for _ in range(3))
+    for b in range(bits):
+        cx = cx | (((code >> (3 * b + 2)) & 1) << b)
+        cy = cy | (((code >> (3 * b + 1)) & 1) << b)
+        cz = cz | (((code >> (3 * b)) & 1) << b)
+    return cx, cy, cz
+
+
+#: sentinel cell id of inactive rows and padding slots: sorts last, never
+#: a real id (real ids < C^3 <= 2^30)
+_BIG = int(np.iinfo(np.int32).max)
+
+
+def _octant_transfer(m: int) -> np.ndarray:
+    """T (8, m^3, m^3) float32: the Kronecker-factored M2M matrix per octant
+    s = (sx, sy, sz), W_parent += W_child @ T[s]; L2L is the transpose."""
+    t = _cheb_nodes_np(m)
+    Ms = [_basis_np((2 * s - 1) * 0.5 + 0.5 * t, m) for s in (0, 1)]
+    out = np.zeros((8, m ** 3, m ** 3), np.float32)
+    for sx in (0, 1):
+        for sy in (0, 1):
+            for sz in (0, 1):
+                k = np.kron(np.kron(Ms[sx], Ms[sy]), Ms[sz])
+                out[(sx * 2 + sy) * 2 + sz] = k.astype(np.float32)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _octant_tensor(m: int, dtype, device) -> torch.Tensor:
+    """_octant_transfer(m) on ``device`` (read only), built once: every
+    level of every solve applies it."""
+    return torch.from_numpy(_octant_transfer(m)).to(device=device,
+                                                    dtype=dtype)
+
+
+def _far_offsets() -> tuple[np.ndarray, np.ndarray]:
+    """((NO, 3) int32 offsets, (NO, 3) int8 parity codes): both signs of
+    the parity-masked far list (2 <= |o|_inf <= 3)."""
+    canon, neg = _offsets_paired(*_SUBSETS["far"])
+    offs = np.concatenate([canon, -canon[neg > 0]]).astype(np.int32)
+    return offs, _parity_codes(offs)
+
+
+# -------------------------------------------------------- occupied cells
+def _occupied_and_slots(key_s, cap: int):
+    """From sorted ids (_BIG last): ``(cells (cap,), slots (n,))``, int32.
+    ``cells`` are the sorted unique ids (pad = _BIG); ``slots`` each row's
+    rank among them, with _BIG rows and capacity overflow on the dump slot
+    ``cap``.  First-occurrence flags and their running count; the list is
+    scattered into a (cap + 1,) buffer whose last row takes the dump, so
+    there is no host sync."""
+    first = torch.ones_like(key_s, dtype=torch.bool)
+    first[1:] = key_s[1:] != key_s[:-1]
+    first &= key_s != _BIG
+    slot = torch.cumsum(first, 0, dtype=torch.int32) - 1
+    slot = torch.where((key_s == _BIG) | (slot >= cap), cap, slot)
+    cells = torch.full((cap + 1,), _BIG, dtype=key_s.dtype,
+                       device=key_s.device)
+    cells[torch.where(first, slot, cap).long()] = key_s
+    return cells[:cap], slot
+
+
+def _slot_table(cells, C: int):
+    """(C^3 + 1,) dense code -> slot table, -1 = unoccupied; index C^3 is
+    the clamp target of sentinel queries and stays -1."""
+    cap = cells.shape[0]
+    table = torch.full((C ** 3 + 2,), -1, dtype=torch.int32,
+                       device=cells.device)
+    table[torch.where(cells != _BIG, cells, C ** 3 + 1).long()] = \
+        torch.arange(cap, dtype=torch.int32, device=cells.device)
+    return table[:C ** 3 + 1]
+
+
+#: levels with at most this many cells look slots up in a dense table, the
+#: deeper ones by binary search (murb_tpu's gate; 64 MB of int32)
+_TABLE_MAX = 1 << 24
+
+
+def _slot(cells, cids, C: int | None = None):
+    """Slot of each cid in the sorted occupied list; misses (_BIG
+    sentinels, capacity overflow) land on the dump slot len(cells)."""
+    cap = cells.shape[0]
+    if C is not None and C ** 3 <= _TABLE_MAX:
+        sp = _slot_table(cells, C)[cids.clamp(0, C ** 3).long()]
+        return torch.where(sp < 0, cap, sp).to(torch.int32)
+    pos = torch.searchsorted(cells, cids).clamp(0, cap - 1)
+    return torch.where(cells[pos] == cids, pos, cap).to(torch.int32)
+
+
+# ------------------------------------------------------------- M2M / L2L
+def _octant_apply(x, oct_idx, m: int, transpose: bool):
+    """out[i] = x[i] @ T[oct[i]] (or T^T): 8 masked (N, m^3) @ (m^3, m^3)
+    products."""
+    T = _octant_tensor(m, x.dtype, x.device)
+    out = torch.zeros_like(x)
+    for s in range(8):
+        xs = torch.where((oct_idx == s)[:, None], x, 0.0)
+        out += xs @ (T[s].T if transpose else T[s])
+    return out
+
+
+def m2m_sparse(w_child, child_cells, parent_cells, *, m: int, C_child: int):
+    """Child slot expansions -> parent slot expansions (segment sum; a
+    _BIG child maps to the parent dump slot)."""
+    pid = torch.where(child_cells == _BIG, _BIG, child_cells >> 3)
+    up = _octant_apply(w_child[:-1], child_cells & 7, m, transpose=False)
+    cap_p = parent_cells.shape[0]
+    out = torch.zeros((cap_p + 1, up.shape[1]), dtype=up.dtype,
+                      device=up.device)
+    return out.index_add_(0, _slot(parent_cells, pid, C_child // 2).long(),
+                          up)
+
+
+def _with_dump_row(x):
+    return torch.cat([x, x.new_zeros((1, x.shape[1]))])
+
+
+def l2l_sparse(f_parent, parent_cells, child_cells, *, m: int,
+               C_child: int):
+    """Parent slot fields -> child slot fields (the M2M transpose); the
+    dump row stays zero."""
+    pid = torch.where(child_cells == _BIG, _BIG, child_cells >> 3)
+    fp = f_parent[_slot(parent_cells, pid, C_child // 2).long()]
+    return _with_dump_row(_octant_apply(fp, child_cells & 7, m,
+                                        transpose=True))
+
+
+def l2l_from_dense(f_dense, child_cells, *, m: int, C_child: int):
+    """Dense-grid parent fields (C_parent^3, m^3) -> sparse child slots."""
+    px, py, pz = _munpack(child_cells >> 3, C_child // 2)
+    pid = _pack(px, py, pz, C_child // 2).clamp(0, f_dense.shape[0] - 1)
+    fp = torch.where((child_cells == _BIG)[:, None], 0.0,
+                     f_dense[pid.long()])
+    return _with_dump_row(_octant_apply(fp, child_cells & 7, m,
+                                        transpose=True))
+
+
+def densify(w_sparse, cells, C: int):
+    """Sparse slot expansions (Morton ids) -> the dense row-major (C^3,
+    m^3) grid."""
+    cx, cy, cz = _munpack(cells.clamp(max=C ** 3 - 1), C)
+    cid = _pack(cx, cy, cz, C).clamp(0, C ** 3 - 1)
+    w = torch.where((cells == _BIG)[:, None], 0.0, w_sparse[:-1])
+    out = torch.zeros((C ** 3, w.shape[1]), dtype=w.dtype, device=w.device)
+    return out.index_add_(0, cid.long(), w)
+
+
+# ---------------------------------------------------------------- M2L
+def _parity_codes(offs: np.ndarray) -> np.ndarray:
+    """Per-dimension parity code of the expand telescoping: 0 any, 1 target
+    coordinate even (o_d = +3), 2 odd (o_d = -3)."""
+    par = np.zeros_like(offs, np.int8)
+    par[offs == 3] = 1
+    par[offs == -3] = 2
+    return par
+
+
+def _canon_far() -> np.ndarray:
+    """(K, 3) canonical far offsets, one per {+o, -o} pair."""
+    canon, neg = _offsets_paired(*_SUBSETS["far"])
+    assert (neg > 0).all()
+    return canon.astype(np.int32)
+
+
+def _neighbor_slots(cells, C: int, offs: np.ndarray, par: np.ndarray):
+    """((NO, cap) source slots, (NO, cap) found mask): for every listed
+    offset, each occupied target's occupied source, parity masks applied."""
+    cap = cells.shape[0]
+    dev = cells.device
+    cx, cy, cz = _munpack(cells.clamp(max=C ** 3 - 1), C)
+    co = torch.stack([cx, cy, cz], 1)                       # (cap, 3)
+    offs_t = torch.as_tensor(offs, dtype=co.dtype, device=dev)
+    par_t = torch.as_tensor(par.astype(np.int64), device=dev)[:, None, :]
+    nco = co[None] + offs_t[:, None, :]                     # (NO, cap, 3)
+    ok = ((nco >= 0) & (nco < C)).all(-1) & (cells != _BIG)[None]
+    parity = (co % 2)[None]
+    pok = torch.where(par_t == 0, True,
+                      torch.where(par_t == 1, parity == 0, parity == 1))
+    ok &= pok.all(-1)
+    ncc = nco.clamp(0, C - 1)
+    sid = morton_key(ncc[..., 0], ncc[..., 1], ncc[..., 2], C)
+    if C ** 3 <= _TABLE_MAX:
+        spos = _slot_table(cells, C)[torch.where(ok, sid, 0).long()]
+        spos = torch.where(spos < 0, cap, spos).to(torch.int32)
+    else:
+        spos = _slot(cells, torch.where(ok, sid, _BIG))
+    return spos, ok & (spos < cap)
+
+
+def default_m2l_rank(m: int) -> int:
+    """Compression off at every order (murb_tpu's default)."""
+    return 0
+
+
+def _resolve_rank(plan: SparsePlan, cap: int) -> int:
+    """Effective compression rank of one level (murb_tpu's rule): -1 is the
+    m-dependent default, and a level below the cap crossover runs
+    uncompressed."""
+    rank = plan.m2l_rank
+    if rank < 0:
+        rank = default_m2l_rank(plan.m)
+    return rank if cap >= 2 * rank else 0
+
+
+#: bytes of gathered weights, products and transfer matrices one batch of
+#: offsets may hold: the finest 1M-body level takes a few offsets a batch,
+#: coarse levels all 158 at once
+_M2L_BATCH_BYTES = 512 << 20
+
+
+def _check_m2l_tiers(m2l_dots: str, rank: int) -> None:
+    check_m2l_dots(m2l_dots)
+    if rank > 0:
+        raise not_yet_ported(f"m2l_rank={rank} (the shared-basis M2L "
+                             "compression)", "Queue 1 item 12")
+    if os.environ.get("MURB_M2L_FUSED", "") == "1":
+        raise not_yet_ported("MURB_M2L_FUSED=1 (the fused multi-offset "
+                             "M2L)", "Queue 1 item 12")
+    if os.environ.get("MURB_M2L_SCAN_CHUNK", "1") not in ("", "1"):
+        raise not_yet_ported("MURB_M2L_SCAN_CHUNK (chunked M2L offsets)",
+                             "Queue 1 item 12")
+
+
+def m2l_sparse_level(w, cells, hl, soft, *, m: int, C: int,
+                     with_phi: bool, m2l_dots: str = "fp32",
+                     rank: int = 0) -> tuple:
+    """Far sweep at one sparse level: nf fields (cap, m^3) of the occupied
+    targets from the expansions ``w`` (cap + 1, m^3) of their occupied far
+    sources (murb_tpu's per-offset scheduling).  Each canonical offset o
+    builds its transfer matrices once and applies them to the sources at
+    +o and, by the mirror identity T_d(-o) = -T_d(o)^T (T_phi(-o) =
+    +T_phi(o)^T), at -o.  Offsets go in batches under _M2L_BATCH_BYTES:
+    one batched product per sign, every field in its columns."""
+    _check_m2l_tiers(m2l_dots, rank)
+    dtype, dev = w.dtype, w.device
+    cap = cells.shape[0]
+    m3 = m ** 3
+    nf = 4 if with_phi else 3
+    canon = _canon_far()
+    spos_p, fnd_p = _neighbor_slots(cells, C, canon, _parity_codes(canon))
+    spos_n, fnd_n = _neighbor_slots(cells, C, -canon, _parity_codes(-canon))
+    pv = _node_vectors(hl, m, dtype, dev)
+    soft2 = torch.tensor(soft, dtype=dtype) ** 2
+    signs = torch.tensor([-1.0, -1.0, -1.0, 1.0][:nf], dtype=dtype,
+                         device=dev)
+    per = w.element_size() * (cap * (2 + 2 * nf) * m3 + 10 * m3 * m3)
+    batch = max(1, min(len(canon), _M2L_BATCH_BYTES // per))
+    acc = torch.zeros((cap, nf * m3), dtype=dtype, device=dev)
+
+    def sources(spos, fnd):
+        return torch.where(fnd[..., None], w[spos.clamp(max=cap).long()],
+                           0.0)
+
+    for k0 in range(0, len(canon), batch):
+        o = torch.as_tensor(canon[k0:k0 + batch], dtype=dtype, device=dev)
+        # D[k, u, v] = p_v - p_u + 2 hl o_k, per dimension
+        D = [2.0 * hl[d] * o[:, d, None, None]
+             + (pv[d][None, :] - pv[d][:, None])[None] for d in range(3)]
+        inv = torch.rsqrt(D[0] * D[0] + D[1] * D[1] + D[2] * D[2] + soft2)
+        inv3 = inv * inv * inv
+        T = torch.stack([d * inv3 for d in D] + ([inv] if with_phi else []),
+                        1)                                  # (b, nf, m3, m3)
+        b = T.shape[0]
+        t_pos = T.transpose(2, 3).permute(0, 2, 1, 3).reshape(b, m3,
+                                                              nf * m3)
+        t_neg = (T * signs[None, :, None, None]).permute(0, 2, 1, 3) \
+            .reshape(b, m3, nf * m3)
+        sl = slice(k0, k0 + b)
+        part = torch.baddbmm(torch.bmm(sources(spos_p[sl], fnd_p[sl]), t_pos),
+                             sources(spos_n[sl], fnd_n[sl]), t_neg)
+        acc += part.sum(0)
+    return tuple(acc[:, i * m3:(i + 1) * m3] for i in range(nf))
+
+
+# ----------------------------------------------------------- full solver
+def hierarchy_fields(w_fin, cells_fin, c, h, soft, plan: SparsePlan,
+                     with_phi: bool, m2l_dots: str = "fp32"):
+    """Finest-level slot fields from the finest occupied expansions: the
+    parent occupied chain, M2M upward, the dense base, L2L and M2L downward.
+    Returns (nf fields (cap + 1, m^3) with a zero dump row, diagnostics)."""
+    m = plan.m
+    Ld, L = plan.dense_levels, plan.levels
+    cells = {L: cells_fin}
+    for l in range(L - 1, Ld, -1):
+        ids = torch.where(cells[l + 1] == _BIG, _BIG, cells[l + 1] >> 3)
+        cells[l], _ = _occupied_and_slots(ids, plan.cell_caps[l - Ld - 1])
+    diag = {"n_cells": tuple((cells[l] != _BIG).sum()
+                             for l in range(Ld + 1, L + 1))}
+
+    w = {L: w_fin}
+    for l in range(L - 1, Ld, -1):
+        w[l] = m2m_sparse(w[l + 1], cells[l + 1], cells[l], m=m,
+                          C_child=2 ** (l + 1))
+    code = cells[Ld + 1]
+    up = _octant_apply(w[Ld + 1][:-1], code & 7, m, transpose=False)
+    is_pad = code == _BIG
+    px, py, pz = _munpack(code.clamp(max=8 ** (Ld + 1) - 1) >> 3, 2 ** Ld)
+    pid = torch.where(is_pad, 0, _pack(px, py, pz, 2 ** Ld))
+    up = torch.where(is_pad[:, None], 0.0, up)
+    w_dense = torch.zeros((8 ** Ld, m ** 3), dtype=up.dtype,
+                          device=up.device).index_add_(0, pid.long(), up)
+
+    f_dense = fmm_field_grid(w_dense, h, soft, m=m, levels=Ld,
+                             with_phi=with_phi, finest_subset="far")
+    f = None
+    for l in range(Ld + 1, L + 1):
+        C = 2 ** l
+        cap = plan.cell_caps[l - Ld - 1]
+        if f is None:
+            f = tuple(l2l_from_dense(fd, cells[l], m=m, C_child=C)
+                      for fd in f_dense)
+        else:
+            f = tuple(l2l_sparse(fi, cells[l - 1], cells[l], m=m,
+                                 C_child=C) for fi in f)
+        contrib = m2l_sparse_level(w[l], cells[l], h / C, soft, m=m, C=C,
+                                   with_phi=with_phi, m2l_dots=m2l_dots,
+                                   rank=_resolve_rank(plan, cap))
+        # L2L gave (cap + 1, m^3), M2L (cap, m^3): keep the zero dump row
+        # (the next L2L and the final L2P read it for missing slots)
+        f = tuple(_with_dump_row(fi[:cap] + ci) for fi, ci in zip(f, contrib))
+    return f, diag
+
+
+def adaptive_field(xs, ys, zs, gs, key_s, c, h, soft, plan: SparsePlan,
+                   with_phi: bool, m2l_dots: str = "fp32", ci=None):
+    """Far fields of every Morton-sorted body (``key_s``: the sorted finest
+    codes, _BIG for inactive rows; ``ci``: the bodies' int32 cells) via the
+    dense levels 2..Ld and the sparse levels Ld+1..L, the finest near
+    neighbourhood excluded.  Returns (per-body field tuple in sorted order,
+    diagnostics)."""
+    m, Cfin, cap = plan.m, 2 ** plan.levels, plan.cell_caps[-1]
+    cells_fin, slots = _occupied_and_slots(key_s, cap)
+    w_fin = p2m_window(xs, ys, zs, gs, c, h, slots, cap, m=m, C=Cfin, ci=ci)
+    f, diag = hierarchy_fields(w_fin, cells_fin, c, h, soft, plan, with_phi,
+                               m2l_dots)
+    return l2p_window(xs, ys, zs, c, h, slots, f, m=m, C=Cfin, ci=ci), diag
+
+
+def solve_adaptive(qx, qy, qz, gm, soft, plan: SparsePlan, *, heavy_k: int,
+                   heavy_factor: float, with_phi: bool,
+                   m2l_dots: str = "fp32"):
+    """(acc (n, 3), phi or None): the adaptive counterpart of
+    ops/fmm._fmm_solve -- cubic box, heavy split, sparse far field, exact
+    P2P near field, exact heavy corrections."""
+    from murb_tpu_torch.ops.fmm import _heavy_setup
+    from murb_tpu_torch.ops.naive import acc_rect
+    from murb_tpu_torch.ops.proxy import (heavy_source_acc,
+                                          heavy_source_phi_rows,
+                                          heavy_target_phi_rows)
+
+    n = qx.shape[0]
+    c, h, hq, heavy_gm, is_heavy, top_idx, gm_eff = _heavy_setup(
+        qx, qy, qz, gm, heavy_k, heavy_factor)
+    h = h.max().expand(3)       # cubic cells: see ops/fmm._fmm_solve
+
+    # one stable Morton sort shared by every sparse stage, one unsort
+    key, ci = sorted_cells(qx, qy, qz, gm_eff > 0, c, h, 2 ** plan.levels)
+    key_s, perm = torch.sort(key, stable=True)
+    xs, ys, zs, gs = (v[perm] for v in (qx, qy, qz, gm_eff))
+    ci = tuple(v[perm] for v in ci)
+    vals, _ = adaptive_field(xs, ys, zs, gs, key_s, c, h, soft, plan,
+                             with_phi, m2l_dots, ci=ci)
+    near, _ = p2p_sweep_kernel_sorted(xs, ys, zs, gs, ci, soft,
+                                      pmax=plan.p2p_pmax,
+                                      chunk=plan.p2p_chunk,
+                                      with_phi=with_phi)
+
+    def unsort(a):
+        out = torch.empty(n, dtype=qx.dtype, device=qx.device)
+        out[perm] = a
+        return out
+
+    tot = [unsort(v + p.reshape(n)) for v, p in zip(vals, near)]
+    acc = torch.stack(tot[:3], 1) + heavy_source_acc(qx, qy, qz, hq,
+                                                     heavy_gm, soft)
+    ht = torch.stack(list(acc_rect(hq[0], hq[1], hq[2], qx, qy, qz, gm,
+                                   soft)), dim=1)
+    acc[top_idx] = torch.where(is_heavy[:, None], ht, acc[top_idx])
+    phi = None
+    if with_phi:
+        phi = tot[3] + heavy_source_phi_rows(qx, qy, qz, hq,
+                                             heavy_gm[None, :], soft)[0]
+        phi_h = heavy_target_phi_rows(qx, qy, qz, gm[None, :], hq, soft)[0]
+        phi[top_idx] = torch.where(is_heavy, phi_h, phi[top_idx])
+    return acc, phi
+
+
+#: murb_tpu's heavy split for the adaptive solver (sparse_fmm.py:1139)
+HEAVY_K, HEAVY_FACTOR = 1, 64.0
+
+
+def acc_adaptive(qx, qy, qz, gm, soft, plan: SparsePlan, *,
+                 heavy_k: int = HEAVY_K, heavy_factor: float = HEAVY_FACTOR,
+                 m2l_dots: str = "fp32") -> Accel:
+    """All-pairs softened gravity via the adaptive hierarchy (``plan`` from
+    ``plan_adaptive``; murb_tpu/ops/sparse_fmm.py:acc_adaptive)."""
+    acc, _ = solve_adaptive(qx, qy, qz, gm, soft, plan, heavy_k=heavy_k,
+                            heavy_factor=heavy_factor, with_phi=False,
+                            m2l_dots=m2l_dots)
+    return Accel(acc[:, 0], acc[:, 1], acc[:, 2])
+
+
+def force_and_potential_adaptive(qx, qy, qz, gm, soft, plan: SparsePlan, *,
+                                 heavy_k: int = HEAVY_K,
+                                 heavy_factor: float = HEAVY_FACTOR,
+                                 m2l_dots: str = "fp32"):
+    """(Accel, phi) in one adaptive pass: the tracking engines' entry.  phi
+    includes the self term G m_i / eps, as the exact sweeps do."""
+    acc, phi = solve_adaptive(qx, qy, qz, gm, soft, plan, heavy_k=heavy_k,
+                              heavy_factor=heavy_factor, with_phi=True,
+                              m2l_dots=m2l_dots)
+    return Accel(acc[:, 0], acc[:, 1], acc[:, 2]), phi
+
+
+# ---------------------------------------------------------- host planner
+def _host_cells(q: np.ndarray, L: int):
+    C = 2 ** L
+    q = np.asarray(q, np.float32)
+    lo, hi = q.min(0), q.max(0)
+    ctr = (np.float32(0.5) * (lo + hi)).astype(np.float32)
+    hh = np.maximum(np.float32(0.5) * (hi - lo), np.float32(1.0))
+    hh = np.full(3, hh.max(), np.float32)
+    cs = (np.float32(2.0) * hh / np.float32(C)).astype(np.float32)
+    return np.clip(np.floor((q - (ctr - hh)) / cs), 0, C - 1).astype(np.int64)
+
+
+def level_stats(q: np.ndarray, dense_levels: int, levels: int):
+    """Occupied-cell counts per sparse level of the current distribution:
+    the host replica of the device occupied lists."""
+    ci_fin = _host_cells(q, levels)
+    out = []
+    for l in range(dense_levels + 1, levels + 1):
+        ci = ci_fin >> (levels - l)
+        C = 2 ** l
+        out.append(int(len(np.unique((ci[:, 0] * C + ci[:, 1]) * C
+                                     + ci[:, 2]))))
+    return out
+
+
+def _impl(device) -> str:
+    return "kernel" if torch.device(device).type == "cuda" else "plain"
+
+
+def plan_adaptive(q: np.ndarray, npad: int, m: int, dense_levels: int,
+                  levels: int, *, cell_margin: float = 1.3,
+                  p2p_margin: float = 1.5, p2p_impl: str | None = None,
+                  m2l_rank: int = -1, device="cuda") -> SparsePlan:
+    """A SparsePlan for the distribution ``q`` (n_active, 3) at the given
+    geometry, with margined capacities.  ``p2p_impl`` defaults to the sweep
+    of ``device``: K10 ("kernel") on a card, "plain" on the CPU; the pair
+    capacity is ``size_pmax``'s for both."""
+    stats = level_stats(q, dense_levels, levels)
+    return SparsePlan(
+        m=m, dense_levels=dense_levels, levels=levels,
+        cell_caps=tuple(int(nc * cell_margin) + 9 for nc in stats),
+        p2p_pmax=size_pmax(estimate_brick_pairs(q, npad, levels),
+                           margin=p2p_margin),
+        p2p_impl=_IMPLS[p2p_impl or _impl(device)], m2l_rank=m2l_rank)
+
+
+def p2p_capacity_needed(n_pairs: int) -> int:
+    """The pair capacity the current distribution needs (the health-check
+    counterpart of plan_adaptive's sizing, margin 1).  murb_tpu's also takes
+    npad and the plan, for the TPU kernel's run padding, which K10 does not
+    need."""
+    return size_pmax(n_pairs, margin=1.0)
+
+
+# Stage rates murb_tpu measured on a TPU v5e (sparse_fmm.py:1230-1240),
+# kept so the port plans what murb_tpu plans.  They wait for an H100
+# calibration (ROADMAP.md): the offset M2L at the fp32 matmul rate, the
+# plain P2P sweep (the CPU's), the kernel sweep (K10 on a card, at the TPU
+# kernel's rate), the anterpolation per body, the exact kernel.
+_MAC_PER_MS = 2.2e10
+_GATHER_BYTES_PER_MS = 150e9 / 1e3
+_P2P_SLOTS_PER_MS = 1.2e9
+_P2P_SLOTS_PER_MS_KERNEL = 2.1e9
+_ANTERP_US_PER_BODY = 0.38
+_EXACT_SLOTS_PER_MS = 3.9e9
+
+
+def _p2p_rate(device) -> float:
+    return (_P2P_SLOTS_PER_MS_KERNEL if _impl(device) == "kernel"
+            else _P2P_SLOTS_PER_MS)
+
+
+def _cost_from_stats(stats, n_bricks, npad, m, dense_levels, levels,
+                     nf: int = 3, m2l_rank: int = -1,
+                     device="cuda") -> float:
+    NO = len(_far_offsets()[0])
+    rank = default_m2l_rank(m) if m2l_rank < 0 else m2l_rank
+    m3 = m ** 3
+    m2l = 0.0
+    for nc in stats:
+        rows = NO * nc
+        cap = int(nc * 1.3) + 9              # plan_adaptive's cap sizing
+        r = rank if (rank and cap >= 2 * rank) else 0
+        if r:
+            per_field = rows * r * r + NO * (m3 * m3 * r + m3 * r * r)
+        else:
+            per_field = rows * m3 * m3
+        m2l += per_field * nf / _MAC_PER_MS
+        m2l += rows * (r or m3) * 4 / _GATHER_BYTES_PER_MS
+    m2l += 686 * 8 ** dense_levels * m ** 6 * nf / _MAC_PER_MS
+    p2p = n_bricks * DEFAULT_K ** 2 * 26 / _p2p_rate(device)
+    anterp = npad * _ANTERP_US_PER_BODY / 1e3
+    misc = 0.5 * (levels - dense_levels) + 2.0
+    # murb_tpu's end-to-end factor: the solve measured ~2x the stage sum
+    return 2.0 * (m2l + p2p + anterp + misc)
+
+
+def plan_cost_ms(q: np.ndarray, npad: int, m: int, dense_levels: int,
+                 levels: int, nf: int = 3, m2l_rank: int = -1,
+                 device="cuda") -> float:
+    """Estimated adaptive step cost in ms from the stage rates above."""
+    return _cost_from_stats(level_stats(q, dense_levels, levels),
+                            estimate_brick_pairs(q, npad, levels),
+                            npad, m, dense_levels, levels, nf, m2l_rank,
+                            device)
+
+
+def exact_cost_ms(npad: int) -> float:
+    """The exact kernel's cost model (murb_tpu's TPU rate)."""
+    return 14.0 * npad * npad / _EXACT_SLOTS_PER_MS
+
+
+#: error prefactor of the adaptive far shell, err ~ C rho^-m with rho =
+#: 2 + sqrt(5) (murb_tpu measured C ~ 0.6-0.75; 1.0 is the safe pick)
+ADAPTIVE_ERR_PREFACTOR = 1.0
+
+
+def adaptive_order(tol: float = 1e-4) -> int:
+    """Initial Chebyshev order of the adaptive solver: scale-free, set by
+    the |o|_inf >= 2 far shell, rounded up to even (the ladder's rungs)."""
+    rho = 2.0 + math.sqrt(5.0)
+    m = math.ceil(math.log(ADAPTIVE_ERR_PREFACTOR / max(tol, 1e-12))
+                  / math.log(rho))
+    return max(4, m + (m % 2))
+
+
+def best_adaptive_plan(q: np.ndarray, npad: int, m: int,
+                       max_levels: int = 9, m2l_rank: int = -1,
+                       device="cuda") -> tuple[SparsePlan, float]:
+    """(plan, est_ms): the cheapest (dense_levels, levels) for the current
+    distribution under the cost model, the per-level counts and pair
+    estimates shared across candidates."""
+    per_level = level_stats(q, 2, max_levels)
+    nc_at = {l: per_level[l - 3] for l in range(3, max_levels + 1)}
+    bricks_at = {L: estimate_brick_pairs(q, npad, L)
+                 for L in range(3, max_levels + 1)}
+    best = None
+    for Ld in (2, 3):
+        for L in range(Ld + 1, max_levels + 1):
+            stats = [nc_at[l] for l in range(Ld + 1, L + 1)]
+            cost = _cost_from_stats(stats, bricks_at[L], npad, m, Ld, L,
+                                    m2l_rank=m2l_rank, device=device)
+            if best is None or cost < best[0]:
+                best = (cost, Ld, L)
+    cost, Ld, L = best
+    return plan_adaptive(q, npad, m, Ld, L, m2l_rank=m2l_rank,
+                         device=device), cost

@@ -3,10 +3,10 @@
 Port of the main-path subset of ``murb_tpu/utils/args.py`` (ref:
 src/murb/main.cpp:61-165): required ``-n``/``-i``; ``-v --dt --nv --im
 --soft -s --gf``; the extensions ``--seed --precision --scheme-file --scan
---csv --kernel --tol --m2l-dots --list-impls``; and the port's ``--device``
-(default ``cuda``).  Every
-other flag of ``murb_tpu`` still parses, so the CLI can exit with a clear
-"not yet ported" message instead of an argparse error.
+--csv --kernel --tol --m2l-dots --near --list-impls``; and the port's
+``--device`` (default ``cuda``).  Every other flag of ``murb_tpu`` still
+parses, so the CLI can exit with a clear "not yet ported" message instead
+of an argparse error.
 """
 from __future__ import annotations
 
@@ -34,6 +34,7 @@ class MurbConfig:
     kernel: str = "auto"                     # acc kernel of wrapper engines
     tol: float = 1e-4
     m2l_dots: str = "fp32"                   # hierarchy level-sweep tier
+    near: str = "auto"                       # tpu+proxy near-field mode
     device: str = "cuda"
     # murb_tpu flags given on the command line that the port lacks
     unported: list[str] = dataclasses.field(default_factory=list)
@@ -47,8 +48,7 @@ UNPORTED_FLAGS = {
     "--save-state": True, "--save-every": True, "--load-state": True,
     "--profile": True, "--dump-traj": True, "--dump-every": True,
     "--ite-chunk": True, "--cam-azim": True, "--cam-elev": True,
-    "--autotune": False,
-    "--near": True, "--adapt-every": True, "--check-finite": False,
+    "--autotune": False, "--adapt-every": True, "--check-finite": False,
 }
 
 
@@ -109,8 +109,10 @@ def build_parser() -> argparse.ArgumentParser:
                      help="list available implementation tags and exit.")
     ext.add_argument("--kernel", type=str, default="auto",
                      help="acceleration kernel for tracking/leapfrog/kdk "
-                          "engines: auto|naive|chunked|tile|hybrid|proxy|fmm "
-                          "(mxu and adaptive are not yet ported).")
+                          "engines: auto|naive|chunked|tile|hybrid|proxy|fmm|"
+                          "adaptive (fmm hands over to adaptive when the "
+                          "dense hierarchy cannot meet --tol; mxu is not yet "
+                          "ported).")
     ext.add_argument("--tol", dest="tol", type=float, default=1e-4,
                      help="fast-solver relative force-error target "
                           "(tpu+proxy and --kernel proxy/fmm; default "
@@ -120,6 +122,15 @@ def build_parser() -> argparse.ArgumentParser:
                      help="hierarchy level-sweep tier: fp32 (the default "
                           "and the only one ported; mixed and bf16x3 exit "
                           "with 'not yet ported').")
+    ext.add_argument("--near", dest="near", default="auto",
+                     choices=("auto", "interp", "adaptive"),
+                     help="tpu+proxy near-field mode: interp = the dense "
+                          "hierarchy's interpolated near list; adaptive = "
+                          "the occupied-cell sparse hierarchy with an exact "
+                          "P2P near field (clustered boxes at any "
+                          "softening); auto (default) = interp where "
+                          "feasible, adaptive when its cost model beats the "
+                          "exact kernel.")
     ext.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                      help="device for the state and every kernel (default "
                           "cuda; never falls back to the CPU).")

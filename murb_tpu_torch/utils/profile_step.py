@@ -1,14 +1,22 @@
 """Where the time of a ``tpu+proxy`` or tracked step goes on a CUDA card.
 
-    python -m murb_tpu_torch.utils.profile_step [--scheme S] [TAG ...]
+    python -m murb_tpu_torch.utils.profile_step [--scheme S] [--near M]
+                                                [TAG ...]
 
 TAG is ``tpu+proxy`` (the default), ``tpu+tracking`` or
-``tpu+leapfrog+tracking``; S is ``galaxy`` (the default) or ``random``.
-For each tag, builds the N=200,000 bodies of the scheme (seed 123) and the
-engine the way ``python -m murb_tpu_torch -n 200000 -s S --im TAG --kernel
-proxy --scan`` does (validated order, the fused force and potential pass
-for the tracked tags, no mid-run adaptation; on the random box the
-hierarchy, kernels K7-K9), runs warm-up steps, and then:
+``tpu+leapfrog+tracking``; S is ``galaxy`` (the default), ``random``,
+``milkyway_andromeda`` or ``two_clusters``; M is the ``--near`` mode of
+``tpu+proxy`` (``auto`` by default).  For the first three schemes, builds
+the bodies (N=200,000, seed 123; the merger's 81,920 from
+scripts/make_two_galaxy_tab.py) and the engine the way ``python -m
+murb_tpu_torch -n N -s S --near M --im TAG --kernel proxy --scan`` does
+(validated order, the fused force and potential pass for the tracked
+tags, no mid-run adaptation; on the random box the hierarchy, kernels
+K7-K9; with ``--near adaptive`` the adaptive hierarchy, K10-K12).
+``two_clusters`` is the N=1,048,576 two-cluster box of murb_tpu's bench
+row ``adaptive_two_clusters_1m`` (``two_clusters``), built through
+``create_engine("tpu+proxy", ..., soft=0.02, dt=1e-6)`` with the auto
+policy, as that row drives it.  It then runs warm-up steps, and:
 
   1. times WINDOWS unprofiled windows of WINDOW_STEPS steps on the host
      clock, each ending in ``torch.cuda.synchronize``;
@@ -39,6 +47,32 @@ WARMUP, WINDOWS, WINDOW_STEPS = 5, 3, 200
 STEPS = 50      # profiled steps
 TOP = 12        # device events listed
 TAGS = ("tpu+proxy", "tpu+tracking", "tpu+leapfrog+tracking")
+SCHEMES = ("galaxy", "random", "milkyway_andromeda", "two_clusters")
+#: (warm-up steps, steps per window, profiled steps) of the slower steps
+SHORT = {"milkyway_andromeda": (2, 20, 10), "two_clusters": (1, 5, 3)}
+#: murb_tpu's bench row adaptive_two_clusters_1m (bench.py:442-460)
+TWO_CLUSTERS_N, TWO_CLUSTERS_SOFT, TWO_CLUSTERS_DT = 1_048_576, 0.02, 1e-6
+
+
+def two_clusters(n: int = TWO_CLUSTERS_N, seed: int = 42, *,
+                 device="cuda"):
+    """murb_tpu's bench state ``two_clusters`` (bench.py:72-90), built with
+    numpy: two Gaussian clusters (sigma 5 at x = -75 and at (75, 20, -10))
+    of n/2 bodies, masses U(0.5, 2) 1e10, at rest."""
+    import numpy as np
+
+    from murb_tpu_torch.core.state import BodyState
+
+    rng = np.random.default_rng(seed)
+    q = np.concatenate([
+        rng.normal(0, 5.0, (n // 2, 3)) + [-75.0, 0.0, 0.0],
+        rng.normal(0, 5.0, (n - n // 2, 3)) + [75.0, 20.0, -10.0],
+    ]).astype(np.float32)
+    m = (rng.uniform(0.5, 2.0, n) * 1e10).astype(np.float32)
+    v = np.zeros((n, 3), np.float32)
+    return BodyState.from_arrays(m, np.ones(n, np.float32), q[:, 0],
+                                 q[:, 1], q[:, 2], v[:, 0], v[:, 1],
+                                 v[:, 2], device=device)
 
 
 def device_rows(prof) -> list:
@@ -53,59 +87,92 @@ def device_rows(prof) -> list:
 
 def main(argv=()) -> int:
     p = argparse.ArgumentParser(prog="profile_step")
-    p.add_argument("--scheme", choices=("galaxy", "random"),
-                   default="galaxy")
+    p.add_argument("--scheme", choices=SCHEMES, default="galaxy")
+    p.add_argument("--near", choices=("auto", "interp", "adaptive"),
+                   default="auto")
     p.add_argument("tags", nargs="*", metavar="TAG")
     args = p.parse_args(list(argv))
     unknown = [t for t in args.tags if t not in TAGS]
     if unknown:
         print(f"profile_step: {unknown} not in {TAGS}", file=sys.stderr)
         return 2
+    if args.scheme == "two_clusters" and set(args.tags) - {"tpu+proxy"}:
+        print("profile_step: two_clusters runs tpu+proxy only",
+              file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("profile_step: no CUDA device available", file=sys.stderr)
         return 1
     for tag in args.tags or TAGS[:1]:
-        rc = profile_tag(tag, args.scheme)
+        rc = profile_tag(tag, args.scheme, args.near)
         if rc:
             return rc
     return 0
 
 
-def profile_tag(tag: str, scheme: str = "galaxy") -> int:
-    dev = torch.device("cuda", 0)
-    # every step of the run records its metrics row (tracked tags)
-    total = WARMUP + WINDOWS * WINDOW_STEPS + STEPS + 1
-    cfg = parse_args(["-n", str(N), "-i", str(total), "--im", tag, "-s",
+def _engine(tag: str, scheme: str, near: str, total: int, dev, tmp: str):
+    """(engine, N) the way the CLI (or, for two_clusters, the bench row)
+    builds it."""
+    if scheme == "two_clusters":
+        from murb_tpu_torch.models import create_engine
+
+        return create_engine("tpu+proxy", two_clusters(device=dev),
+                             soft=TWO_CLUSTERS_SOFT, dt=TWO_CLUSTERS_DT,
+                             near=near), TWO_CLUSTERS_N
+    n, extra = N, []
+    if scheme == "milkyway_andromeda":
+        import os
+        import subprocess
+
+        tab = os.path.join(tmp, "milkyway_andromeda.tab")
+        script = os.path.join(os.path.dirname(__file__), "..", "..",
+                              "scripts", "make_two_galaxy_tab.py")
+        subprocess.run([sys.executable, script, tab], check=True,
+                       capture_output=True)
+        n, extra = 81_920, ["--scheme-file", tab]
+    cfg = parse_args(["-n", str(n), "-i", str(total), "--im", tag, "-s",
                       scheme, "--kernel", "proxy", "--seed", str(SEED),
-                      "--scan"])
-    eng = build_engine(cfg, dev)
+                      "--near", near, "--scan", *extra])
+    return build_engine(cfg, dev), n
+
+
+def profile_tag(tag: str, scheme: str = "galaxy", near: str = "auto") -> int:
+    import tempfile
+
+    dev = torch.device("cuda", 0)
+    warmup, window_steps, steps = SHORT.get(
+        scheme, (WARMUP, WINDOW_STEPS, STEPS))
+    # every step of the run records its metrics row (tracked tags)
+    total = warmup + WINDOWS * window_steps + steps + 1
+    with tempfile.TemporaryDirectory() as tmp:
+        eng, n = _engine(tag, scheme, near, total, dev, tmp)
     health = eng.proxy_health()
     if not health["using_proxy"]:
-        print(f"profile_step: {tag} took the exact sweep at N={N}; nothing "
+        print(f"profile_step: {tag} took the exact sweep at N={n}; nothing "
               "to profile", file=sys.stderr)
         return 1
-    print(f"{tag} N={N} {scheme}: m={health['m']} "
-          f"levels={health['levels']} cells={health['cells']} on "
-          f"{torch.cuda.get_device_name(dev)}")
-    eng.run(WARMUP)
+    print(f"{tag} N={n} {scheme} near={health.get('near', 'interp')}: "
+          f"m={health['m']} levels={health['levels']} "
+          f"cells={health['cells']} on {torch.cuda.get_device_name(dev)}")
+    eng.run(warmup)
     eng.block_until_ready()
 
     window_ms = []
     for _ in range(WINDOWS):
         t0 = time.perf_counter()
-        eng.run(WINDOW_STEPS)
+        eng.run(window_steps)
         eng.block_until_ready()
-        window_ms.append((time.perf_counter() - t0) * 1e3 / WINDOW_STEPS)
+        window_ms.append((time.perf_counter() - t0) * 1e3 / window_steps)
     step_ms = statistics.median(window_ms)
     print("unprofiled windows: " + ", ".join(f"{w:.4f}" for w in window_ms)
-          + f" ms/step ({WINDOW_STEPS} steps each; median "
+          + f" ms/step ({window_steps} steps each; median "
           f"{step_ms:.4f} ms, {1e3 / step_ms:.2f} steps/s)")
 
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        eng.run(STEPS)
+        eng.run(steps)
         eng.block_until_ready()
     rows = device_rows(prof)
     dev_us = sum(e.self_device_time_total for e in rows)
@@ -114,14 +181,14 @@ def profile_tag(tag: str, scheme: str = "galaxy") -> int:
         print("profile_step: the profiler recorded no device time; device "
               "time not measured", file=sys.stderr)
         return 1
-    dev_ms = dev_us / 1e3 / STEPS
-    print(f"profiled {STEPS} steps: device time {dev_us / 1e3:.3f} ms "
-          f"= {dev_ms:.4f} ms/step in {events / STEPS:.1f} device "
+    dev_ms = dev_us / 1e3 / steps
+    print(f"profiled {steps} steps: device time {dev_us / 1e3:.3f} ms "
+          f"= {dev_ms:.4f} ms/step in {events / steps:.1f} device "
           f"events/step; busy share {dev_ms / step_ms:.3f} of the "
           f"unprofiled step")
     for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:TOP]:
-        print(f"  {e.self_device_time_total / STEPS:9.2f} us/step "
-              f"{e.count / STEPS:6.1f}x  {e.key[:90]}")
+        print(f"  {e.self_device_time_total / steps:9.2f} us/step "
+              f"{e.count / steps:6.1f}x  {e.key[:90]}")
     return 0
 
 

@@ -85,14 +85,15 @@ def test_fp64_state_is_honest():
 
 def test_exact_fallback_when_cost_model_rejects_the_proxy():
     """Small N: the node work would dominate, so the engine takes the
-    fp32-class K4 sweep (murb_tpu/models/engines.py:767-772).  murb_tpu
-    tries its adaptive planner before that fallback, which the port skips:
-    on this state murb_tpu declines the plan too."""
+    fp32-class K4 sweep (murb_tpu/models/engines.py:767-772).  Both
+    packages try the adaptive planner before that fallback, and on this
+    state both decline it."""
     js = jinit.init_galaxy(256, 3)
     j = jcreate("tpu+proxy", js, soft=SOFT, dt=DT)
     assert not j.using_proxy and j.near_mode == "interp"
     t = tcreate("tpu+proxy", carry(js), soft=SOFT, dt=DT)
     assert not t.using_proxy and t.validated_err is None
+    assert t.near_mode == "interp" and t._plan is None
     assert t.proxy_health()["ok"]
     st = t.bodies
     gm = t._gm(st)

@@ -145,6 +145,23 @@ def test_m2l_level_matches_jax(random64, m, C, subset, with_phi):
         close64(g.numpy(), r, f"m2l {subset} m={m} C={C} field {i}")
 
 
+@pytest.mark.parametrize("rows", [1, 7, 64])
+def test_m2l_level_plain_row_blocks_match_jax(random64, monkeypatch, rows):
+    """The plain M2L builds T a block of target rows at a time above m=20
+    (8.6 GB a whole float64 matrix at m=32): blocks of 1, 7 (ragged) and
+    64 rows at m=4 give murb_tpu's fields."""
+    _, _, (_, jh), (_, th) = random64
+    m, C = 4, 4
+    monkeypatch.setattr(tk, "_PLAIN_M2L_ENTRIES", rows * m ** 3)
+    w = weights(m, C, 9)
+    got = tk.m2l_level_plain(torch.from_numpy(w), th / C, SOFT, m=m, C=C,
+                             with_phi=True)
+    ref = jf.m2l_level(jnp.asarray(w), jh / C, SOFT, m=m, C=C,
+                       with_phi=True)
+    for i, (g, r) in enumerate(zip(got, ref)):
+        close64(g.numpy(), r, f"m2l rows={rows} field {i}")
+
+
 @pytest.mark.parametrize("levels,m", [(1, 4), (2, 4), (3, 4), (3, 6)])
 def test_fmm_field_grid_matches_jax(random64, levels, m):
     _, _, (_, jh), (_, th) = random64
@@ -179,6 +196,19 @@ def test_acc_fmm_matches_jax_and_oracle(scheme, n, seed, levels, m, cap):
     err_o = force_stat([v.numpy()[sel] for v in got],
                        [np.asarray(v)[sel] for v in oracle])
     assert err_o < cap, f"acc_fmm vs the naive oracle: {err_o:.3e}"
+
+
+def test_acc_fmm_above_order_16_matches_jax():
+    """The grid kernels take every order the engine configures (m <= 32,
+    proxy_kernels.MAX_ORDER): at m = 18, the validation ladder's rung
+    after 16, the port's acc_fmm agrees with murb_tpu's.  levels=1 (C = 2)
+    keeps the (m^3)^2 = 3.4e7-entry transfer builds to a few offsets."""
+    j, t = state("random", 512, 3)
+    got = tf.acc_fmm(*t, SOFT, m=18, levels=1)
+    ref = jf.acc_fmm(*j, SOFT, m=18, levels=1)
+    err = force_stat([v.numpy() for v in got], ref)
+    assert err <= 1e-5, f"port vs JAX acc_fmm m=18: {err:.3e} (tol 1e-5)"
+    assert tk.MAX_ORDER == 32
 
 
 @pytest.mark.parametrize("levels,m", [(2, 8), (3, 6)])
@@ -229,7 +259,7 @@ def test_acc_proxy_cells2_matches_jax(m):
 def test_wrappers_check_their_arguments():
     _, t = state("random", 256, 1)
     c, h = tp.bounding_box(*t[:3], t[3] > 0)
-    for m, C in ((17, 4), (1, 4), (8, 17), (8, 0)):
+    for m, C in ((33, 4), (1, 4), (8, 17), (8, 0)):
         with pytest.raises(ValueError, match="range"):
             tk.p2m_grid_fused(*t, c, h, m=m, C=C)
         with pytest.raises(ValueError, match="range"):
@@ -248,8 +278,8 @@ def test_wrappers_check_their_arguments():
 
 
 def test_unknown_modes_raise():
-    """Values murb_tpu does not know either (the lossy tiers and the P2P
-    near field, which raise "not yet ported", are in
+    """Values murb_tpu does not know either (the lossy tiers, which raise
+    "not yet ported", are in
     tests/test_torch_proxy.py:test_wide_box_raises_not_yet_ported)."""
     _, t = state("random", 256, 1)
     with pytest.raises(ValueError, match="m2l_dots"):

@@ -141,10 +141,24 @@ def test_run_matches_stepwise_and_copies_once(tag, kw, monkeypatch):
 
 
 def test_tracked_options_not_ported_raise_and_health():
+    from murb_tpu.ops.sparse_fmm import plan_adaptive as jplan
+    from murb_tpu_torch.ops.sparse_fmm import SparsePlan
+
     s = carry(jinit.init_galaxy(512, 1))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tcreate("tpu+tracking", s, num_iterations=2,
-                fused_adaptive=object())
+    u = s.unpadded()
+    q = np.stack([u["qx"], u["qy"], u["qz"]], 1)[u["m"] > 0]
+    plan = jplan(q, s.npad, 6, 2, 4)
+    with pytest.raises(ValueError, match="exclusive"):
+        tcreate("tpu+tracking", s, num_iterations=2, fused_proxy_m=12,
+                fused_adaptive=SparsePlan.from_fields(**plan._asdict()))
+    # the adaptive capacity health: murb_tpu's, field for field
+    h = tcreate("tpu+tracking", s, num_iterations=2,
+                fused_adaptive=SparsePlan.from_fields(
+                    **plan._asdict())).proxy_health()
+    assert h == jcreate("tpu+tracking", jinit.init_galaxy(512, 1),
+                        num_iterations=2,
+                        fused_adaptive=plan).proxy_health()
+    assert h["ok"] and h["near"] == "adaptive"
     with pytest.raises(ValueError, match="exclusive"):
         tcreate("tpu+tracking", s, num_iterations=2, fused_proxy_m=12,
                 fused_fmm=(8, 2))
@@ -258,9 +272,10 @@ def test_cli_tracking_csv_matches_murb_tpu(argv, rtol, merger_tab, tmp_path,
      "not yet ported"),
     (["--im", "tpu+kdk", "--kernel", "mxu"], "not yet ported"),
     (["--im", "tpu+kdk", "--kernel", "bogus"], "unknown kernel"),
-    # proxy -> fmm (m > 32) -> murb_tpu's adaptive kernel (m > 16)
+    # proxy -> fmm (m > 32) -> the adaptive kernel (m > 16) runs
+    # (tests/test_torch_adaptive_engines.py); a lossy M2L tier is refused
     (["--im", "gpu+tracking", "--kernel", "proxy", "-s", "random", "--soft",
-      "1e6"], "not yet ported"),
+      "1e6", "--m2l-dots", "mixed"], "not yet ported"),
     (["--im", "gpu+tracking", "-s", "milkyway_andromeda", "--scheme-file",
       "no/such.tab"], "not found"),
 ])
