@@ -45,14 +45,25 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      (``acc_fmm(near="p2p")``); the merger through the CLI with ``--near
      adaptive`` and with ``tpu+tracking --kernel adaptive`` (row 0's energy
      held to an exact K6 energy); an N=4096 card-against-CPU check of the
-     adaptive step; and the repair (K7-K9 at m=18 and m=32).
+     adaptive step; and the repair (K7-K9 at m=18 and m=32);
+ 10. the exact large-N path: K13 against its plain version in float64 (a
+     4096-row strided sample of the N=200,000 galaxy against all of it,
+     and the 16384^2 galaxy) at every block pair it is compiled for;
+     ``tpu+mxu`` on the N=200,000 galaxy through the CLI (its force error
+     after 10 steps held to 5e-4) and ``tpu+tracking --kernel mxu`` (row
+     0's energy held to the exact K6 energy); ``--autotune`` for tpu+mxu
+     at 200k and tpu+hybrid at 16384 and 200k under a temporary cache,
+     each candidate's time printed and a second run reading the winner
+     without a sweep; ``--save-state`` after 10 steps and ``--load-state``
+     for 10 more against 20 straight (bit for bit); ``--dump-traj
+     --dump-every 5`` read back.
 Each piece of the path (the CLI run of phase 4, the ``acc_proxy`` of phase
-5, each CLI run of phase 6, each run of phases 7, 8 and 9) starts from
-zeroed launch counts, which are read right after it: K1 and K2 from phase
-4, K3 from phase 5, K4 from phase 6, K5 and K6 from phase 7, K7 to K9 from
-the ``tpu+proxy -s random`` run of phase 8, K10 to K12 from the
-two-cluster run of phase 9.  Every kernel must have launched in its
-piece.  The line before the last is the kernels' JSON
+5, each CLI run of phase 6, each run of phases 7 to 10) starts from zeroed
+launch counts, which are read right after it: K1 and K2 from phase 4, K3
+from phase 5, K4 from phase 6, K5 and K6 from phase 7, K7 to K9 from the
+``tpu+proxy -s random`` run of phase 8, K10 to K12 from the two-cluster
+run of phase 9, K13 from the ``tpu+mxu`` run of phase 10.  Every kernel
+must have launched in its piece.  The line before the last is the kernels' JSON
 record (with each kernel's bound: the larger of its bytes over 3.35 TB/s
 and its operations over the 67 TFLOP/s fp32 peak of an H100 SXM); the last
 line is the result object.
@@ -1115,6 +1126,198 @@ def main() -> int:
         del w, f, a
         torch.cuda.empty_cache()
 
+    # ------------------------------- 10. the exact large-N path, K13
+    # murb_tpu's exact-ladder row (bench.py:373-377): tpu+mxu on the
+    # N=200,000 galaxy, nothing cut.  K13 against its plain version run in
+    # float64 on the same inputs: a 4096-row strided i-sample against all
+    # 200k sources (the rect entry; the centre comes from the j-set, as in
+    # the square run) and the 16384^2 galaxy, for every block pair the
+    # kernel is compiled for.  Contract: tests/test_oracle.py:99-100,
+    # WithinRel 5e-4 with an rms floor of 5e-4, on every component.
+    from murb_tpu_torch.ops.mxu import acc_mxu_rect, acc_mxu_rect_plain
+    from murb_tpu_torch.utils import autotune as at
+
+    wrappers["K13"] = acc_mxu_rect
+    s10 = init_galaxy(n_main, SEED, device=dev)
+    g10 = s10.m * torch.tensor(G, dtype=torch.float32).item()
+    q10 = (s10.qx, s10.qy, s10.qz, g10)
+    q10_64 = tuple(v.double() for v in q10)
+    idx10 = torch.linspace(0, s10.npad - 1, 4096, device=dev).long()
+    s16 = init_galaxy(16_384, SEED, device=dev)
+    g16 = s16.m * torch.tensor(G, dtype=torch.float32).item()
+    q16 = (s16.qx, s16.qy, s16.qz, g16)
+    q16_64 = tuple(v.double() for v in q16)
+    cases10 = {
+        "rect 4096x200k": (tuple(v[idx10] for v in q10[:3]), q10,
+                           acc_mxu_rect_plain(*(v[idx10] for v in q10_64[:3]),
+                                              *q10_64, SOFT)),
+        "square 16384^2": (q16[:3], q16,
+                           acc_mxu_rect_plain(*q16_64[:3], *q16_64, SOFT)),
+    }
+    worst13, max_rel13, abs13 = 0.0, 0.0, 0.0
+    for label, (iset, jset, ref) in cases10.items():
+        scale = max(float(r.abs().max()) for r in ref)
+        for bi, bj in itertools.product(cuda.SWEEP_BLOCKS, repeat=2):
+            got = acc_mxu_rect(*iset, *jset, SOFT, block_i=bi, block_j=bj)
+            torch.cuda.synchronize()
+            w = within_rel(got, ref, 5e-4, 5e-4)
+            err = max(float((g.double() - r).abs().max())
+                      for g, r in zip(got, ref))
+            rel = norm_rel(got, ref)
+            check(w <= 1.0, f"K13 {label} blocks {bi}x{bj}: WithinRel 5e-4 "
+                            f"(rms floor 5e-4) exceeded by {w:.2f}x")
+            ms = time_ms(lambda: acc_mxu_rect(*iset, *jset, SOFT, block_i=bi,
+                                              block_j=bj), reps=3, runs=3)
+            print(f"[10 K13 {label} blocks {bi}x{bj}] max|da|/max|a| "
+                  f"{err / scale:.3e}, per-body rel {rel:.3e}, WithinRel "
+                  f"5e-4 at {w:.3f} of the allowance; kernel {ms:.4f} ms")
+            worst13 = max(worst13, w)
+            max_rel13 = max(max_rel13, err / scale)
+            if label.startswith("rect"):   # the main path's bodies
+                abs13 = max(abs13, err)
+    plain13 = {label: time_ms(lambda: acc_mxu_rect_plain(*iset, *jset, SOFT),
+                              reps=1, runs=3)
+               for label, (iset, jset, _) in cases10.items()}
+    print(f"[10 K13] worst WithinRel share {worst13:.3f}, worst "
+          f"max|da|/max|a| {max_rel13:.3e} over {len(cases10)} shapes x "
+          f"{len(cuda.SWEEP_BLOCKS) ** 2} block pairs; plain (fp32) "
+          f"{json.dumps(plain13)} ms")
+    del cases10, q10_64, q16_64
+    torch.cuda.empty_cache()
+
+    # the main path through the CLI, from zeroed counts; the step's last
+    # acceleration held to a float64 direct sweep on 512 strided rows
+    res10, counts = drive(lambda: cli.run([
+        "-n", str(n_main), "-i", "10", "--im", "tpu+mxu", "--nv", "--gf",
+        "--scan", "--device", "cuda"]))
+    check(res10.rc == 0, f"cli tpu+mxu exit code {res10.rc}")
+    e10 = res10.engine
+    e10.assert_finite()
+    launches["K13"] = counts["K13"]
+    check(counts["K13"] > 0, f"K13 launched no time on tpu+mxu: {counts}")
+    f10 = e10.bodies
+    err10 = measured_force_error(
+        f10.qx, f10.qy, f10.qz, e10._gm(f10), SOFT,
+        lambda a, b, cc, g: e10._acc_fn(a, b, cc, g))
+    check(err10 <= 5e-4, f"tpu+mxu force error {err10:.3e} > 5e-4")
+    bi0, bj0 = e10.block_i, e10.block_j
+    ms13 = time_ms(lambda: acc_mxu_rect(*q10[:3], *q10, SOFT, block_i=bi0,
+                                        block_j=bj0), reps=5, runs=3)
+    plain_ms13 = time_ms(lambda: acc_mxu_rect_plain(*q10[:3], *q10, SOFT),
+                         reps=1, runs=3)
+    n10 = s10.npad
+    # A (8 rows) and gm per source; B (8 rows), the centred target and the
+    # output per target, each once; 20 flops a pair (the reference's model)
+    b13 = keep("K13", abs13, ms13, plain_ms13, 4 * (9 * n10 + 14 * n10),
+               20 * n10 * n10)
+    fps["tpu+mxu 200k"] = res10.fps
+    print(f"[10 main] tpu+mxu N={n_main} galaxy through the CLI: blocks "
+          f"{bi0}x{bj0} (kernel default), {res10.fps:.3f} FPS "
+          f"{res10.gflops:.1f} ref-GFlop/s ({res10.elapsed_ms:.2f} ms for 9 "
+          f"steps); force error after 10 steps {err10:.3e} (tol 5e-4); K13 "
+          f"at {n10}^2 {ms13:.4f} ms, plain {plain_ms13:.4f} ms, bound "
+          f"{b13:.4f} ms on {smi}; launches {counts}")
+
+    # the wrapper engines on K13: tpu+tracking --kernel mxu, row 0's energy
+    # against the exact K6 energy of the same state (phase 7)
+    csv = os.path.join(tmpdir.name, "mxu_tracking.csv")
+    res10t, counts = drive(lambda: cli.run([
+        "-n", str(n_main), "-i", "3", "--im", "tpu+tracking", "--kernel",
+        "mxu", "--nv", "--scan", "--csv", csv, "--device", "cuda"]))
+    check(res10t.rc == 0, f"cli tpu+tracking --kernel mxu exit {res10t.rc}")
+    res10t.engine.assert_finite()
+    check(counts["K13"] > 0, f"K13 launched no time under --kernel mxu: "
+                             f"{counts}")
+    rows_finite(res10t.engine.history, 3, csv)
+    e0 = float(res10t.engine.history.energies[0])
+    rel = abs(e0 / e_exact - 1.0)
+    check(rel <= 1e-5, f"tracked mxu energy row 0 {e0:.6e} vs exact "
+                       f"{e_exact:.6e}: rel {rel:.3e} > 1e-5")
+    print(f"[10 tracked] tpu+tracking --kernel mxu N={n_main}: energy row 0 "
+          f"{e0:.9e} vs exact K6 {e_exact:.9e} (rel {rel:.3e}, tol 1e-5); "
+          f"{res10t.fps:.3f} FPS; launches {counts}")
+
+    # --autotune through the CLI under a temporary cache: each candidate's
+    # time, then a second run that reads the winner without sweeping
+    os.environ["MURB_TUNE_CACHE"] = os.path.join(tmpdir.name, "tune.json")
+    sweep_calls = []
+    measure = at.measure_steps
+
+    def counted(*a, **k):
+        sweep_calls.append(1)
+        return measure(*a, **k)
+
+    at.measure_steps = counted
+    tuned = {}
+    try:
+        for tag, n in (("tpu+mxu", n_main), ("tpu+hybrid", 16_384),
+                       ("tpu+hybrid", n_main)):
+            argv = ["-n", str(n), "-i", "3", "--im", tag, "--nv", "--scan",
+                    "--device", "cuda"]
+            del sweep_calls[:]
+            r1 = cli.run(argv + ["--autotune"])
+            n_swept = len(sweep_calls)
+            r2 = cli.run(argv)
+            check(r1.rc == 0 and r2.rc == 0, f"--autotune {tag} n={n}")
+            t1 = r1.engine.tuned
+            check(t1 is not None and "sweep" in t1 and n_swept > 0,
+                  f"--autotune {tag} n={n} did not sweep")
+            check(len(sweep_calls) == n_swept and "sweep" not in
+                  r2.engine.tuned and (r2.engine.block_i, r2.engine.block_j)
+                  == (r1.engine.block_i, r1.engine.block_j),
+                  f"{tag} n={n}: the second run did not read the winner")
+            cands = {f"{p['block_i']}x{p['block_j']}": ms
+                     for p, ms in t1["sweep"]}
+            tuned[f"{tag} n={n}"] = cands
+            print(f"[10 autotune] {tag} N={n} ({n_swept} candidates): "
+                  f"winner {r1.engine.block_i}x{r1.engine.block_j} "
+                  f"{t1['ms_per_step']:.4f} ms/step; second run read "
+                  f"{r2.engine.block_i}x{r2.engine.block_j} with no sweep; "
+                  f"ms/step by blocks {json.dumps(cands)} on {smi}")
+    finally:
+        at.measure_steps = measure
+        del os.environ["MURB_TUNE_CACHE"]
+
+    # checkpoint and resume: 10 steps, save, load, 10 more, against 20
+    # straight (K13 sums in a fixed order, so the two must agree bit for
+    # bit)
+    ck = os.path.join(tmpdir.name, "mxu.npz")
+    base = ["-n", str(n_main), "--im", "tpu+mxu", "--nv", "--scan",
+            "--device", "cuda"]
+    ra = cli.run(base + ["-i", "10", "--save-state", ck])
+    rb = cli.run(base + ["-i", "10", "--load-state", ck])
+    rc_ = cli.run(base + ["-i", "20"])
+    check(ra.rc == rb.rc == rc_.rc == 0, "checkpoint runs")
+    pb, pc = rb.engine.bodies.to_numpy(), rc_.engine.bodies.to_numpy()
+    diff = max(float(np.max(np.abs(pb[k].astype(np.float64) - pc[k])))
+               for k in ("qx", "qy", "qz", "vx", "vy", "vz"))
+    check(diff == 0.0, f"resumed run differs from the straight run by "
+                       f"{diff:.3e}")
+    print(f"[10 checkpoint] tpu+mxu N={n_main}: 10 steps, save, load, 10 "
+          f"more against 20 straight: max |difference| {diff:g} (bit "
+          f"for bit)")
+
+    # trajectory dump: frames 0, 5, 10, the last one the final state
+    tr = os.path.join(tmpdir.name, "mxu.traj")
+    rd = cli.run(base + ["-i", "10", "--dump-traj", tr, "--dump-every", "5"])
+    check(rd.rc == 0, "cli --dump-traj")
+    from murb_tpu_torch.io import read_trajectory
+
+    fidx, fpos = read_trajectory(tr)
+    fin10 = rd.engine.bodies.unpadded()
+    check(fidx.tolist() == [0, 5, 10] and fpos.shape == (3, n_main, 3),
+          f"trajectory frames {fidx.tolist()} shape {fpos.shape}")
+    check(all(np.array_equal(fpos[2][:, c], fin10[k])
+              for c, k in enumerate(("qx", "qy", "qz"))),
+          "the last frame is not the final state")
+    check(np.array_equal(fpos[0][:, 0], s10.unpadded()["qx"]),
+          "frame 0 is not the initial state")
+    print(f"[10 dump] tpu+mxu --dump-traj --dump-every 5: frames "
+          f"{fidx.tolist()}, {fpos.shape}, frame 10 equals the final state")
+    print(f"[10 fps] {json.dumps(fps)} on {smi}")
+    del s10, g10, q10, s16, q16, e10, f10
+    torch.cuda.empty_cache()
+
     for k, count in launches.items():
         check(count > 0, f"{k} launched no time on its piece of the path")
     meta = {
@@ -1142,6 +1345,8 @@ def main() -> int:
                 "murb_tpu/ops/anterp_pallas.py:139"),
         "K12": ("l2p_window", "murb_tpu_torch/csrc/cell_runs.cuh",
                 "murb_tpu/ops/anterp_pallas.py:244"),
+        "K13": ("mxu_rect", "murb_tpu_torch/csrc/mxu.cu",
+                "murb_tpu/ops/mxu.py:49"),
     }
     kernels = [{"name": kname, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches[k], **record[k]}

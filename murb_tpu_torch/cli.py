@@ -1,8 +1,9 @@
 """Command-line entry point: the port's ``murb`` binary (ref: src/murb/main.cpp:309-407).
 
-Port of the main-path subset of ``murb_tpu/cli.py``: the configuration
-banner (with the validated proxy order and its measured error), the
-per-iteration frame loop with the verbose status line, the ``--scan``
+Port of ``murb_tpu/cli.py`` but its viewer, profiler and shard flags: the
+configuration banner (with the validated proxy order and its measured
+error, or the exact sweep's block geometry), the frame loop with the
+verbose status line (``--ite-chunk`` iterations a frame), the ``--scan``
 timing window, the final "Entire simulation took ..." summary with the
 reference's FLOPs model (20*N^2/iteration) and GFlop/s convention (1024^3
 divisor), and for the tracked engines the ``--kernel`` wiring (with the
@@ -10,7 +11,14 @@ proxy -> fmm escalation and the validated (m, levels)) and the ``--csv``
 metrics export.  ``--kernel adaptive`` (and ``--kernel fmm`` on a box whose
 hierarchy would need m > 16) runs the adaptive sparse hierarchy with its
 plan validated to ``--tol``; ``--near`` picks ``tpu+proxy``'s near-field
-mode.
+mode.  ``--block-i/--block-j/--autotune`` set the exact sweeps' geometry
+(K3, K4, K13), ``--chunk`` the chunked sweep's.  A long run checkpoints
+(``--save-state``, ``--save-every``), resumes (``--load-state``: the
+checkpoint's dt and softening hold unless given again, and the iteration
+counter carries on), records positions (``--dump-traj``: frame 0 and
+every ``--dump-every``-th; a ``--scan`` run is cut into segments at the
+record and checkpoint points) and can stop on a non-finite state
+(``--check-finite``).
 
 ``--device cuda`` (the default) puts the state and every kernel on the
 first CUDA device and exits with status 1 when there is none: the port
@@ -18,7 +26,7 @@ never carries on on the CPU.  ``--device cpu`` runs the kernels' plain
 PyTorch versions.  Flags and tags of ``murb_tpu`` the port does not carry
 yet exit with status 1 and "not yet ported".
 
-Usage:  python -m murb_tpu_torch -n 200000 -i 100 --im tpu+proxy --nv --gf --scan
+Usage:  python -m murb_tpu_torch -n 200000 -i 100 --im tpu+mxu --nv --gf --scan
 """
 from __future__ import annotations
 
@@ -148,19 +156,38 @@ def _validated_adaptive_plan(cfg: MurbConfig, bodies):
 
 
 def build_engine(cfg: MurbConfig, device: torch.device):
-    """The engine for ``cfg`` on ``device`` (raises ValueError for unknown
-    tags and NotImplementedError for what is not yet ported)."""
+    """(engine, start iteration) for ``cfg`` on ``device`` (raises
+    ValueError for unknown tags and NotImplementedError for what is not
+    yet ported).  The start iteration is the checkpoint's when resuming
+    from ``--load-state``, so a later ``--save-state`` carries the
+    cumulative count."""
     canonical = validate_tag(cfg.impl_tag)  # fail fast, before device work
     if cfg.precision not in _DTYPES:
         raise NotImplementedError(
             f"--precision {cfg.precision} is not yet ported to "
-            "murb_tpu_torch (ROADMAP.md Queue 1 item 6)")
+            "murb_tpu_torch (ROADMAP.md Queue 1 item 1)")
     from murb_tpu_torch.ops.fmm import check_m2l_dots
 
     check_m2l_dots(cfg.m2l_dots)  # the port's level sweeps run fp32 only
-    bodies = make_bodies(cfg.n_bodies, cfg.scheme, cfg.seed,
-                         dtype=_DTYPES[cfg.precision],
-                         scheme_file=cfg.scheme_file, device=device)
+    start_iteration = 0
+    if cfg.load_state:
+        from murb_tpu_torch.core.checkpoint import load_state
+
+        bodies, meta = load_state(cfg.load_state, device=device)
+        start_iteration = int(meta["iteration"])
+        # a run saved with other physics must not silently continue with
+        # the defaults; an explicit flag still wins
+        if not cfg.dt_explicit:
+            cfg.dt = float(meta["dt"])
+        if not cfg.soft_explicit:
+            cfg.softening = float(meta["soft"])
+        print(f"Resumed state from {cfg.load_state} (iteration "
+              f"{start_iteration}, n={bodies.n}, dt={cfg.dt:g}, "
+              f"soft={cfg.softening:g})")
+    else:
+        bodies = make_bodies(cfg.n_bodies, cfg.scheme, cfg.seed,
+                             dtype=_DTYPES[cfg.precision],
+                             scheme_file=cfg.scheme_file, device=device)
     extra = {}
     if canonical == "tpu+tracking+multi":
         from murb_tpu_torch.core.init import milkyway_andromeda_masks
@@ -183,14 +210,22 @@ def build_engine(cfg: MurbConfig, device: torch.device):
                 extra["fused_proxy_m"] = m
             extra["validated_half"] = cert_half
         else:
-            extra["acc_fn"] = make_acc_fn(kernel, m=m or 16,
-                                          levels=levels or 2, plan=plan)
-    # Mid-run order adaptation for the frame loop, off under --scan (the
-    # murb_tpu default; --adapt-every itself is not ported yet).
-    return create_engine(cfg.impl_tag, bodies, soft=cfg.softening, dt=cfg.dt,
-                         tol=cfg.tol, near=cfg.near,
-                         adapt_every=0 if cfg.scan else 64,
-                         num_iterations=cfg.n_iterations, **extra)
+            extra["acc_fn"] = make_acc_fn(
+                kernel, block_i=cfg.block_i, block_j=cfg.block_j,
+                chunk=cfg.chunk, m=m or 16, levels=levels or 2, plan=plan)
+    # Mid-run order adaptation every 64 iterations of the frame loop, off
+    # under --scan (the post-run warning covers it); an explicit
+    # --adapt-every, 0 included, wins.
+    adapt_every = cfg.adapt_every
+    if adapt_every is None:
+        adapt_every = 0 if cfg.scan else 64
+    engine = create_engine(
+        cfg.impl_tag, bodies, soft=cfg.softening, dt=cfg.dt, tol=cfg.tol,
+        near=cfg.near, adapt_every=adapt_every, chunk=cfg.chunk,
+        block_i=cfg.block_i, block_j=cfg.block_j,
+        autotune=True if cfg.autotune else None,
+        num_iterations=cfg.n_iterations, **extra)
+    return engine, start_iteration
 
 
 def print_banner(cfg: MurbConfig, engine, device: torch.device) -> None:
@@ -226,6 +261,13 @@ def print_banner(cfg: MurbConfig, engine, device: torch.device) -> None:
     elif getattr(engine, "using_proxy", True) is False:
         print("  -> validated order           : exact fallback (the cost "
               "model rejected the proxy at this N)")
+    if hasattr(engine, "block_i"):
+        tuned = engine.tuned
+        how = (f"tuned, {tuned['ms_per_step']:g} ms/step" if tuned
+               else "given" if engine.block_i or engine.block_j
+               else "kernel default")
+        print(f"  -> sweep blocks (i x j)      : {engine.block_i} x "
+              f"{engine.block_j} ({how})")
 
 
 def run(argv=None) -> CliRun:
@@ -239,7 +281,7 @@ def run(argv=None) -> CliRun:
         return CliRun(0)
     if cfg.unported:
         print(f"{', '.join(cfg.unported)}: not yet ported to murb_tpu_torch "
-              "(ROADMAP.md Queue 1 item 6)", file=sys.stderr)
+              "(ROADMAP.md Queue 1)", file=sys.stderr)
         return CliRun(1)
     if cfg.device == "cuda" and not torch.cuda.is_available():
         print("--device cuda: no CUDA device is available (torch "
@@ -250,8 +292,11 @@ def run(argv=None) -> CliRun:
         return CliRun(1)
     device = torch.device(cfg.device)
 
+    if cfg.save_every > 0 and not cfg.save_state:
+        print("--save-every requires --save-state", file=sys.stderr)
+        return CliRun(1)
     try:
-        engine = build_engine(cfg, device)
+        engine, start_iteration = build_engine(cfg, device)
     except (ValueError, NotImplementedError, FileNotFoundError) as e:
         # ref: main.cpp:265-268 -- clean exit on unknown implementation
         print(e)
@@ -259,32 +304,90 @@ def run(argv=None) -> CliRun:
     print_banner(cfg, engine, device)
     print("Simulation started...")
 
+    traj = ckpt = None
+    if cfg.dump_traj:
+        from murb_tpu_torch.io import TrajectoryWriter
+
+        traj = TrajectoryWriter(cfg.dump_traj, engine.bodies.n)
+    if cfg.save_every > 0:
+        from murb_tpu_torch.core.checkpoint import AsyncCheckpointWriter
+
+        ckpt = AsyncCheckpointWriter(cfg.save_state)
+    every = max(cfg.dump_every, 1)
+
+    def record(i_ite: int) -> None:
+        """Frame ``i_ite`` of the trajectory, at --dump-every points: only
+        the positions leave the device."""
+        if traj is not None and i_ite % every == 0:
+            b = engine.bodies
+            traj.append(i_ite, *(getattr(b, k)[:b.n].cpu().numpy()
+                                 for k in ("qx", "qy", "qz")))
+
+    def checkpoint(i_ite: int) -> None:
+        """The asynchronous checkpoint at --save-every points."""
+        if ckpt is not None and i_ite > 0 and i_ite % cfg.save_every == 0:
+            ckpt.save(engine.bodies, iteration=start_iteration + i_ite,
+                      dt=engine.dt, soft=engine.soft)
+
+    def to_next_stop(i_ite: int) -> int:
+        """Iterations from ``i_ite`` to the next record or checkpoint."""
+        steps = [every - i_ite % every] if traj is not None else []
+        if ckpt is not None:
+            steps.append(cfg.save_every - i_ite % cfg.save_every)
+        return min(steps, default=cfg.n_iterations - i_ite)
+
+    record(0)  # frame 0: the initial conditions
     perf_ite, perf_total = Perf(), Perf()
     physic_time = 0.0
-    n_done = 0
+    n_done = n_run = 0
     if cfg.scan and cfg.n_iterations > 0:
         # Time the run as one window after one warm-up step (which builds
         # the kernels on first use); with a single requested iteration
-        # that iteration itself is timed.
+        # that iteration itself is timed.  The window runs in segments
+        # that end at each record and checkpoint point.
         warm = 1 if cfg.n_iterations > 1 else 0
         if warm:
             engine.run(warm)
             engine.block_until_ready()
         perf_total.start()
-        engine.run(cfg.n_iterations - warm)
+        if warm:
+            record(warm)
+            checkpoint(warm)
+        current = warm
+        while current < cfg.n_iterations:
+            stop = min(cfg.n_iterations, current + to_next_stop(current))
+            engine.run(stop - current)
+            current = stop
+            record(current)
+            checkpoint(current)
         engine.block_until_ready()
         perf_total.stop()
-        n_done = cfg.n_iterations - warm
+        n_done = cfg.n_iterations - warm   # the timed iterations (for FPS)
+        n_run = cfg.n_iterations
         physic_time = cfg.n_iterations * engine.dt
+        if cfg.check_finite:
+            engine.assert_finite()
     elif not cfg.scan:
-        for i_ite in range(1, cfg.n_iterations + 1):
+        i_ite = 0
+        while i_ite < cfg.n_iterations:
+            # land on every record and checkpoint point
+            k = min(max(cfg.ite_chunk, 1), cfg.n_iterations - i_ite,
+                    to_next_stop(i_ite))
             perf_ite.start()
-            engine.compute_one_iteration()
+            if k == 1:
+                engine.compute_one_iteration()
+            else:
+                engine.run(k)
             engine.block_until_ready()   # analogue of cudaDeviceSynchronize
             perf_ite.stop()
             perf_total += perf_ite
-            physic_time += engine.dt
-            n_done = i_ite
+            i_ite += k
+            physic_time += engine.dt * k
+            n_done = n_run = i_ite
+            record(i_ite)
+            checkpoint(i_ite)
+            if cfg.check_finite:
+                engine.assert_finite()
             if cfg.verbose:
                 gflops = ""
                 if cfg.show_gflops:
@@ -297,6 +400,10 @@ def run(argv=None) -> CliRun:
         if cfg.verbose:
             print()
 
+    if traj is not None:
+        dropped = traj.close()
+        msg = f" ({dropped} frames dropped)" if dropped else ""
+        print(f"Trajectory written to {cfg.dump_traj}{msg}")
     print("Simulation ended.")
     print()
     result = CliRun(0, engine, perf_total.get_elapsed_time(),
@@ -315,20 +422,36 @@ def run(argv=None) -> CliRun:
                   f"{health['n_cells_now']} vs caps {health['cell_caps']}; "
                   f"p2p pairs {health['p2p_pairs_now']} vs cap "
                   f"{health['p2p_pmax']}); some near pairs were dropped in "
-                  f"late iterations -- rerun without --scan to re-plan "
+                  f"late iterations -- rerun with --adapt-every to re-plan "
                   f"mid-run, or --im tpu+hybrid for exact forces.")
         else:
             print(f"WARNING: system expanded beyond the proxy design margin "
                   f"(order m={health['m']}, now requires "
                   f"m={health['required_m_now']}); forces in late "
                   f"iterations are less accurate -- rerun with --im "
-                  f"tpu+hybrid for exact forces.")
+                  f"tpu+hybrid for exact forces, or resume from a "
+                  f"checkpoint with a fresh engine.")
 
     if cfg.csv and hasattr(engine, "history"):
         if hasattr(engine, "finalize_history"):
             engine.finalize_history()
         engine.history.save_metrics_to_csv(cfg.csv)
         print(f"Metrics written to {cfg.csv}")
+
+    if cfg.save_state:
+        from murb_tpu_torch.core.checkpoint import save_state
+
+        if ckpt is not None:
+            ckpt.flush()  # never race the final synchronous write
+        save_state(cfg.save_state, engine.bodies,
+                   iteration=start_iteration + n_run, dt=engine.dt,
+                   soft=engine.soft)
+        extra = ""
+        if ckpt is not None:
+            extra = (f" ({ckpt.written} periodic"
+                     + (f", {ckpt.skipped} skipped while busy"
+                        if ckpt.skipped else "") + ")")
+        print(f"State checkpoint written to {cfg.save_state}{extra}")
     return result
 
 

@@ -3,9 +3,9 @@
 Port of ``murb_tpu/core/history.py`` (ref:
 src/common/core/SimulationHistory.hpp:10-80, SimulationHistory.cpp).  A
 host-side numpy store: the tracking engines keep a run's metrics in device
-buffers and hand the whole series over in one copy.  The CSV is written with
-numpy and Python only (``murb_tpu``'s C++ writer in ``native.py`` is host
-code not ported yet); the text is the same, ``%.17g`` per value.
+buffers and hand the whole series over in one copy.  The CSV is written by
+the native writer (native.py), or in Python without it; the text is the
+same, ``%.17g`` per value.
 """
 from __future__ import annotations
 
@@ -73,6 +73,11 @@ class SimulationHistory:
     def save_metrics_to_csv(self, file_path: str) -> None:
         """Exact column schema of the reference exporter
         (ref: src/common/core/SimulationHistory.cpp:104-122)."""
+        from murb_tpu_torch.native import write_history_csv
+
+        if write_history_csv(file_path, self.energies, self.ang_momentums,
+                             self.density_centers):
+            return
         with open(file_path, "w") as out:
             out.write(CSV_HEADER + "\n")
             for i in range(self.num_iterations):

@@ -143,7 +143,9 @@ def init_milkyway_andromeda(path: str = "milkyway_andromeda.tab", *,
             f"two-galaxy initial conditions file not found: {path!r} "
             "(the reference hardcodes 'milkyway_andromeda.tab'; "
             "pass --scheme-file to point at the data file)")
-    data = np.loadtxt(path, dtype=np.float64, ndmin=2)
+    from murb_tpu_torch.native import parse_tab
+
+    data = parse_tab(path, cols=7)  # the native parser, numpy without it
     if data.shape[1] != 7:
         raise ValueError(f"expected 7 columns (m qx qy qz vx vy vz), got "
                          f"{data.shape[1]}")

@@ -146,6 +146,11 @@ class BodyState:
         call at observation points, never inside the step loop)."""
         return {k: getattr(self, k)[: self.n].cpu().numpy() for k in FIELDS}
 
+    def clone(self) -> "BodyState":
+        """A copy that shares no storage with this state."""
+        return dataclasses.replace(
+            self, **{k: getattr(self, k).clone() for k in FIELDS})
+
     def astype(self, dtype: torch.dtype) -> "BodyState":
         return dataclasses.replace(
             self, **{k: getattr(self, k).to(dtype) for k in FIELDS})

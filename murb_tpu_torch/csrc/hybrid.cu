@@ -27,12 +27,13 @@ extern "C" int murb_tile_rect(const float* qxi, const float* qyi,
                               const float* qzi, int ni, const float* qxj,
                               const float* qyj, const float* qzj,
                               const float* gmj, int nj, float soft2,
-                              float* ax, float* ay, float* az,
-                              cudaStream_t stream);
+                              int block_i, int block_j, float* ax, float* ay,
+                              float* az, cudaStream_t stream);
 
 namespace murb {
 
-__global__ void __launch_bounds__(kSweepThreads)
+template <int BI, int BJ>
+__global__ void __launch_bounds__(BI)
 hybrid_ext_rect_kernel(const float* __restrict__ qxi,
                        const float* __restrict__ qyi,
                        const float* __restrict__ qzi, int ni,
@@ -42,18 +43,18 @@ hybrid_ext_rect_kernel(const float* __restrict__ qxi,
                        const float* __restrict__ gmj, int nj, float soft2,
                        float* __restrict__ ax, float* __restrict__ ay,
                        float* __restrict__ az) {
-  __shared__ float4 tile[kSweepThreads];
-  const int i = blockIdx.x * kSweepThreads + threadIdx.x;
+  __shared__ float4 tile[BJ];
+  const int i = blockIdx.x * BI + threadIdx.x;
   const bool own = i < ni;
   const float xi = own ? qxi[i] : 0.f;
   const float yi = own ? qyi[i] : 0.f;
   const float zi = own ? qzi[i] : 0.f;
   double sx = 0.0, sy = 0.0, sz = 0.0;
-  for (int j0 = 0; j0 < nj; j0 += kSweepThreads) {
-    stage_sources(tile, qxj, qyj, qzj, gmj, j0, nj);
+  for (int j0 = 0; j0 < nj; j0 += BJ) {
+    stage_sources<BI, BJ>(tile, qxj, qyj, qzj, gmj, j0, nj);
     __syncthreads();
 #pragma unroll 4
-    for (int t = 0; t < kSweepThreads; ++t) {
+    for (int t = 0; t < BJ; ++t) {
       const float4 s = tile[t];
       const float dx = s.x - xi, dy = s.y - yi, dz = s.z - zi;
       const double w = pair_weight<true>(dx, dy, dz, s.w, soft2);
@@ -72,20 +73,27 @@ hybrid_ext_rect_kernel(const float* __restrict__ qxi,
 
 }  // namespace murb
 
+// block_i, block_j: 0 (kSweepThreads each) or a pair of {64, 128, 256, 512}.
 extern "C" int murb_hybrid_rect(const float* qxi, const float* qyi,
                                 const float* qzi, int ni, const float* qxj,
                                 const float* qyj, const float* qzj,
                                 const float* gmj, int nj, float soft2,
-                                int passes, float* ax, float* ay, float* az,
+                                int passes, int block_i, int block_j,
+                                float* ax, float* ay, float* az,
                                 cudaStream_t stream) {
   if (passes < 1 || passes > 3) return static_cast<int>(cudaErrorInvalidValue);
   if (passes < 3) {
     return murb_tile_rect(qxi, qyi, qzi, ni, qxj, qyj, qzj, gmj, nj, soft2,
-                          ax, ay, az, stream);
+                          block_i, block_j, ax, ay, az, stream);
   }
   if (ni <= 0) return 0;
-  const int blocks = (ni + murb::kSweepThreads - 1) / murb::kSweepThreads;
-  murb::hybrid_ext_rect_kernel<<<blocks, murb::kSweepThreads, 0, stream>>>(
-      qxi, qyi, qzi, ni, qxj, qyj, qzj, gmj, nj, soft2, ax, ay, az);
-  return static_cast<int>(cudaGetLastError());
+  return murb::with_blocks(
+      block_i, block_j, murb::kSweepThreads, murb::kSweepThreads,
+      [&](auto bi, auto bj) {
+        constexpr int BI = decltype(bi)::value, BJ = decltype(bj)::value;
+        murb::hybrid_ext_rect_kernel<BI, BJ>
+            <<<(ni + BI - 1) / BI, BI, 0, stream>>>(
+                qxi, qyi, qzi, ni, qxj, qyj, qzj, gmj, nj, soft2, ax, ay, az);
+        return static_cast<int>(cudaGetLastError());
+      });
 }

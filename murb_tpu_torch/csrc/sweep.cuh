@@ -1,38 +1,78 @@
 // Device code shared by the exact all-pairs sweeps (tile.cu: K3,
-// hybrid.cu: K4, phi.cu: K5 and K6).
+// hybrid.cu: K4, phi.cu: K5 and K6, mxu.cu: K13).
 //
 // Design: the reference's own gpu+tile+full kernel
 // (ref: src/murb/implem/SimulationNBodyCUDATileFullDevice.cu:53-153).  One
 // thread owns one i-body and keeps its position and accumulators in
 // registers; the block stages the j-set through shared memory one tile of
-// kSweepThreads packed {x, y, z, G*m} sources at a time, and every thread
-// reads each staged source as a broadcast.  The kernels mask their ragged
-// edges themselves: i >= ni threads compute and store nothing, j >= nj
-// slots are staged as zero-mass ghosts (they add exactly 0 because the
-// softening keeps d^2 > 0), so no caller pads the sets.
+// packed {x, y, z, G*m} sources at a time, and every thread reads each
+// staged source as a broadcast.  The kernels mask their ragged edges
+// themselves: i >= ni threads compute and store nothing, j >= nj slots are
+// staged as zero-mass ghosts (they add exactly 0 because the softening
+// keeps d^2 > 0), so no caller pads the sets.
+//
+// Block geometry: K3, K4 and K13 are compiled for every (BI, BJ) pair of
+// {64, 128, 256, 512} (ops/cuda.SWEEP_BLOCKS) -- BI i-bodies (threads) per
+// block, BJ j-sources per staged tile -- and take the pair at run time
+// (with_blocks); K5/K6 keep kSweepThreads for both.
 //
 // What bounds it on an H100: the per-pair chain (3 sub, 3 fma, rsqrt,
 // 3 mul, 3 fma ~ 20 flops with one MUFU op) on the fp32 pipes.  Device
-// memory traffic is O(ni + nj * ni / kSweepThreads) floats and never binds.
+// memory traffic is O(ni + nj * ni / BI) floats and never binds.
 #pragma once
 
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 namespace murb {
 
-constexpr int kSweepThreads = 128;  // i-bodies per block == j-sources per tile
+constexpr int kSweepThreads = 128;  // the default BI and BJ
 
-// Stage sources [j0, j0 + kSweepThreads) into `tile`; slots past nj are
-// zero-mass ghosts at the origin.  Every thread of the block must call it.
+// Stage sources [j0, j0 + BJ) into `tile` with the block's BI threads;
+// slots past nj are zero-mass ghosts at the origin.  Every thread of the
+// block must call it.
+template <int BI, int BJ>
 __device__ __forceinline__ void stage_sources(float4* tile, const float* qxj,
                                               const float* qyj,
                                               const float* qzj,
                                               const float* gmj, int j0,
                                               int nj) {
-  const int j = j0 + threadIdx.x;
-  tile[threadIdx.x] = (j < nj)
-      ? make_float4(qxj[j], qyj[j], qzj[j], gmj[j])
-      : make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int t = threadIdx.x; t < BJ; t += BI) {
+    const int j = j0 + t;
+    tile[t] = (j < nj) ? make_float4(qxj[j], qyj[j], qzj[j], gmj[j])
+                       : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+}
+
+// Run launch(std::integral_constant<int, BI>, std::integral_constant<int,
+// BJ>) for the compiled pair (block_i, block_j); 0 picks the default given.
+// A pair outside that set launches nothing and returns
+// cudaErrorInvalidValue (the wrappers refuse it first, ops/cuda.py).
+template <int BI, class F>
+int with_block_j(int block_j, F& launch) {
+  using std::integral_constant;
+  const std::integral_constant<int, BI> bi{};
+  switch (block_j) {
+    case 64: return launch(bi, integral_constant<int, 64>{});
+    case 128: return launch(bi, integral_constant<int, 128>{});
+    case 256: return launch(bi, integral_constant<int, 256>{});
+    case 512: return launch(bi, integral_constant<int, 512>{});
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+template <class F>
+int with_blocks(int block_i, int block_j, int default_i, int default_j,
+                F&& launch) {
+  const int bj = block_j ? block_j : default_j;
+  switch (block_i ? block_i : default_i) {
+    case 64: return with_block_j<64>(bj, launch);
+    case 128: return with_block_j<128>(bj, launch);
+    case 256: return with_block_j<256>(bj, launch);
+    case 512: return with_block_j<512>(bj, launch);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // Softened pair weight G*m_j / (d^2 + eps^2)^{3/2} for the displacement
@@ -47,17 +87,18 @@ __device__ __forceinline__ float pair_weight(float dx, float dy, float dz,
   return gm * (inv * inv * inv);
 }
 
-// Sum one staged tile's pair terms for the i-body at (xi, yi, zi) into
-// fp32 tile partials (the caller folds the partials into its running
-// total: a two-level sum whose rounding error grows with the tile count,
-// not with nj).
+// Sum one staged tile of BJ sources' pair terms for the i-body at
+// (xi, yi, zi) into fp32 tile partials (the caller folds the partials into
+// its running total: a two-level sum whose rounding error grows with the
+// tile count, not with nj).
+template <int BJ>
 __device__ __forceinline__ void tile_sum_f32(const float4* tile, float xi,
                                              float yi, float zi, float soft2,
                                              float& tx, float& ty,
                                              float& tz) {
   tx = ty = tz = 0.f;
 #pragma unroll 8
-  for (int t = 0; t < kSweepThreads; ++t) {
+  for (int t = 0; t < BJ; ++t) {
     const float4 s = tile[t];
     const float dx = s.x - xi, dy = s.y - yi, dz = s.z - zi;
     const float w = pair_weight<false>(dx, dy, dz, s.w, soft2);

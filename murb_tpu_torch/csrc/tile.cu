@@ -7,31 +7,32 @@
 //
 // On the TPU the accumulator was carried across a sequential j grid axis
 // in VMEM.  Here one thread owns one i-body for the whole j sweep, so the
-// sum never leaves registers; see sweep.cuh for the tile staging and for
-// what bounds the kernel.
+// sum never leaves registers; see sweep.cuh for the tile staging, the
+// block geometries and what bounds the kernel.
 #include "sweep.cuh"
 
 namespace murb {
 
-__global__ void __launch_bounds__(kSweepThreads)
+template <int BI, int BJ>
+__global__ void __launch_bounds__(BI)
 tile_rect_kernel(const float* __restrict__ qxi, const float* __restrict__ qyi,
                  const float* __restrict__ qzi, int ni,
                  const float* __restrict__ qxj, const float* __restrict__ qyj,
                  const float* __restrict__ qzj, const float* __restrict__ gmj,
                  int nj, float soft2, float* __restrict__ ax,
                  float* __restrict__ ay, float* __restrict__ az) {
-  __shared__ float4 tile[kSweepThreads];
-  const int i = blockIdx.x * kSweepThreads + threadIdx.x;
+  __shared__ float4 tile[BJ];
+  const int i = blockIdx.x * BI + threadIdx.x;
   const bool own = i < ni;
   const float xi = own ? qxi[i] : 0.f;
   const float yi = own ? qyi[i] : 0.f;
   const float zi = own ? qzi[i] : 0.f;
   float sx = 0.f, sy = 0.f, sz = 0.f;
-  for (int j0 = 0; j0 < nj; j0 += kSweepThreads) {
-    stage_sources(tile, qxj, qyj, qzj, gmj, j0, nj);
+  for (int j0 = 0; j0 < nj; j0 += BJ) {
+    stage_sources<BI, BJ>(tile, qxj, qyj, qzj, gmj, j0, nj);
     __syncthreads();
     float tx, ty, tz;
-    tile_sum_f32(tile, xi, yi, zi, soft2, tx, ty, tz);
+    tile_sum_f32<BJ>(tile, xi, yi, zi, soft2, tx, ty, tz);
     sx += tx;
     sy += ty;
     sz += tz;
@@ -46,15 +47,20 @@ tile_rect_kernel(const float* __restrict__ qxi, const float* __restrict__ qyi,
 
 }  // namespace murb
 
+// block_i, block_j: 0 (kSweepThreads each) or a pair of {64, 128, 256, 512}.
 extern "C" int murb_tile_rect(const float* qxi, const float* qyi,
                               const float* qzi, int ni, const float* qxj,
                               const float* qyj, const float* qzj,
                               const float* gmj, int nj, float soft2,
-                              float* ax, float* ay, float* az,
-                              cudaStream_t stream) {
+                              int block_i, int block_j, float* ax, float* ay,
+                              float* az, cudaStream_t stream) {
   if (ni <= 0) return 0;
-  const int blocks = (ni + murb::kSweepThreads - 1) / murb::kSweepThreads;
-  murb::tile_rect_kernel<<<blocks, murb::kSweepThreads, 0, stream>>>(
-      qxi, qyi, qzi, ni, qxj, qyj, qzj, gmj, nj, soft2, ax, ay, az);
-  return static_cast<int>(cudaGetLastError());
+  return murb::with_blocks(
+      block_i, block_j, murb::kSweepThreads, murb::kSweepThreads,
+      [&](auto bi, auto bj) {
+        constexpr int BI = decltype(bi)::value, BJ = decltype(bj)::value;
+        murb::tile_rect_kernel<BI, BJ><<<(ni + BI - 1) / BI, BI, 0, stream>>>(
+            qxi, qyi, qzi, ni, qxj, qyj, qzj, gmj, nj, soft2, ax, ay, az);
+        return static_cast<int>(cudaGetLastError());
+      });
 }

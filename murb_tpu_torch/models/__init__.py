@@ -17,9 +17,12 @@ _ALIASES: dict[str, str] = {}
 
 #: murb_tpu tags (and their aliases) not ported yet
 NOT_YET_PORTED = (
-    "tpu+mxu", "shard+allgather", "mpi", "shard+ring", "shard+uneven",
-    "hetero", "shard+proxy", "shard+fmm", "shard+adaptive",
+    "shard+allgather", "mpi", "shard+ring", "shard+uneven", "hetero",
+    "shard+proxy", "shard+fmm", "shard+adaptive",
 )
+
+#: block geometry options of the exact sweep engines (K3, K4, K13)
+_BLOCKS = ("block_i", "block_j", "autotune")
 
 #: options of the tracked engines (murb_tpu's registry forwards the same,
 #: less the hierarchy's m2l_dots)
@@ -78,13 +81,14 @@ def _build_registry():
     register("nop", lambda b, **kw: E.NopEngine(b, **_filter(kw)),
              aliases=("cpu+nop",))
     register("xla+chunked",
-             lambda b, **kw: E.ChunkedEngine(b, **_filter(kw)),
+             lambda b, **kw: E.ChunkedEngine(b, **_filter(kw, "chunk")),
              aliases=("cpu+optim", "cpu+simd", "cpu+omp", "xla+fused"))
     register("tpu+tile",
-             lambda b, **kw: E.PallasTileEngine(b, **_filter(kw)),
+             lambda b, **kw: E.PallasTileEngine(b, **_filter(kw, *_BLOCKS)),
              aliases=("gpu+tile",))
     register("tpu+hybrid",
-             lambda b, **kw: E.HybridEngine(b, **_filter(kw, "passes")),
+             lambda b, **kw: E.HybridEngine(
+                 b, **_filter(kw, "passes", *_BLOCKS)),
              aliases=("gpu+tile+full", "gpu+tile+full200k",
                       "tpu+tile+full", "tpu+tile+full200k"))
     register("tpu+proxy",
@@ -93,9 +97,14 @@ def _build_registry():
                               "adapt_every", "validate", "near")),
              aliases=("fmm", "barnes-hut"))
     register("tpu+hybrid+fast",
-             lambda b, **kw: E.HybridEngine(b, passes=1, **_filter(kw)))
+             lambda b, **kw: E.HybridEngine(b, passes=1,
+                                            **_filter(kw, *_BLOCKS)))
     register("tpu+hybrid+x3",
-             lambda b, **kw: E.HybridEngine(b, passes=3, **_filter(kw)))
+             lambda b, **kw: E.HybridEngine(b, passes=3,
+                                            **_filter(kw, *_BLOCKS)))
+    register("tpu+mxu",
+             lambda b, **kw: E.MXUEngine(
+                 b, **_filter(kw, "precision", *_BLOCKS)))
     register("tpu+tracking",
              lambda b, **kw: E.TrackingEngine(
                  b, **_filter(kw, *_TRACKED, "history", "fused_exact")),

@@ -14,13 +14,11 @@ later work.)
 """
 from __future__ import annotations
 
-import dataclasses
-
 import torch
 
 from murb_tpu_torch import DEFAULT_DT, DEFAULT_SOFTENING, G
 from murb_tpu_torch.core.integrators import euler_update
-from murb_tpu_torch.core.state import FIELDS, BodyState
+from murb_tpu_torch.core.state import BodyState
 from murb_tpu_torch.ops.common import Accel, flops_per_iteration
 
 
@@ -38,8 +36,7 @@ class SimulationEngine:
                             f"for {type(self).__name__}")
         # Private copy: the caller's state is never aliased by the engine
         # (differential tests feed one initial state to two engines).
-        self._state = dataclasses.replace(
-            bodies, **{k: getattr(bodies, k).clone() for k in FIELDS})
+        self._state = bodies.clone()
         self.soft = float(DEFAULT_SOFTENING if soft is None else soft)
         self._dt = float(DEFAULT_DT if dt is None else dt)
         self.G = G

@@ -8,6 +8,7 @@ registry: src/murb/main.cpp:205-270):
   cpu+optim/simd/omp  -> ChunkedEngine    (i-chunked plain sweep)
   gpu+tile            -> PallasTileEngine (kernel K3, ops/tile.py)
   gpu+tile+full...    -> HybridEngine     (kernel K4, ops/hybrid.py)
+  tpu+mxu             -> MXUEngine        (kernel K13, ops/mxu.py)
   fmm / barnes-hut    -> ProxyEngine      (K1-K3, K7-K9, K10-K12;
                                            ops/proxy.py, ops/fmm.py,
                                            ops/sparse_fmm.py)
@@ -71,30 +72,94 @@ class NaiveEngine(EulerAccelEngine):
 
 class ChunkedEngine(EulerAccelEngine):
     """i-chunked plain sweep (the reference's cpu+optim / cpu+simd /
-    cpu+omp family)."""
+    cpu+omp family), ``chunk`` targets at a time."""
 
     tag = "xla+chunked"
 
+    def __init__(self, bodies, soft=None, dt=None, *, chunk: int = 1024,
+                 **kw):
+        super().__init__(bodies, soft, dt, **kw)
+        self.chunk = min(int(chunk), bodies.npad)
+
     def _acc_fn(self, qx, qy, qz, gm):
-        return acc_chunked(qx, qy, qz, gm, self.soft)
+        return acc_chunked(qx, qy, qz, gm, self.soft, chunk=self.chunk)
 
 
 class PallasTileEngine(EulerAccelEngine):
     """Exact fp32 sweep engine on kernel K3 (``tpu+tile`` / ``gpu+tile``).
-    The JAX engine's block autotuner is TPU-only and not ported."""
+
+    Block geometry (murb_tpu/models/engines.py:219-291): explicit
+    ``block_i``/``block_j`` win; otherwise a persisted autotune result for
+    this (kernel, npad, device) is used when one exists, and
+    ``autotune=True`` (or MURB_AUTOTUNE=1) runs the first-use sweep
+    (utils/autotune.py), whose result stays in ``tuned``; with none of
+    these the kernel's default geometry (0, 0)."""
 
     tag = "tpu+tile"
 
-    def _acc_fn(self, qx, qy, qz, gm):
+    def __init__(self, bodies, soft=None, dt=None, *, block_i: int = 0,
+                 block_j: int = 0, autotune: bool | None = None, **kw):
+        super().__init__(bodies, soft, dt, **kw)
+        from murb_tpu_torch.ops.cuda import check_blocks
+
+        check_blocks(self.tag, block_i, block_j)
+        self.block_i, self.block_j = int(block_i), int(block_j)
+        self.tuned: dict | None = None
+        if not (block_i or block_j):
+            self._resolve_blocks(autotune)
+
+    @property
+    def _tune_tag(self) -> str:
+        return self.tag
+
+    def _resolve_blocks(self, autotune: bool | None) -> None:
+        from murb_tpu_torch.utils import autotune as at
+
+        if autotune is None:
+            autotune = at.enabled()
+        tuned = at.lookup(self._tune_tag, self._state.npad,
+                          device=self._state.device)
+        if tuned is None and autotune:
+            tuned = self._run_autotune()
+        if tuned:
+            self.tuned = tuned
+            self.block_i = int(tuned.get("block_i", 0))
+            self.block_j = int(tuned.get("block_j", 0))
+
+    def _run_autotune(self) -> dict:
+        """Time every candidate geometry over a few Euler steps of a copy
+        of the state (utils/autotune.tune) and keep the fastest."""
+        from murb_tpu_torch.utils import autotune as at
+
+        def make_run(params):
+            bi, bj = params["block_i"], params["block_j"]
+
+            def run(st, n):
+                for _ in range(n):
+                    acc = self._acc_blocks(st.qx, st.qy, st.qz, self._gm(st),
+                                           bi, bj)
+                    st = euler_update(st, acc, self._dt)
+                return st
+
+            return run
+
+        return at.tune(self._tune_tag, self._state.npad, make_run,
+                       self._state, device=self._state.device)
+
+    def _acc_blocks(self, qx, qy, qz, gm, bi, bj):
         from murb_tpu_torch.ops.tile import acc_tile
 
-        return acc_tile(qx, qy, qz, gm, self.soft)
+        return acc_tile(qx, qy, qz, gm, self.soft, block_i=bi, block_j=bj)
+
+    def _acc_fn(self, qx, qy, qz, gm):
+        return self._acc_blocks(qx, qy, qz, gm, self.block_i, self.block_j)
 
 
-class HybridEngine(EulerAccelEngine):
+class HybridEngine(PallasTileEngine):
     """Tiered exact sweep engine on kernel K4 (``tpu+hybrid``, the
     reference's gpu+tile+full).  fp64 state defaults to the extended tier
-    (passes=3), fp32 state to passes=2."""
+    (passes=3), fp32 state to passes=2; each tier tunes its blocks
+    separately."""
 
     tag = "tpu+hybrid"
 
@@ -104,13 +169,41 @@ class HybridEngine(EulerAccelEngine):
             passes = 3 if bodies.dtype == torch.float64 else 2
         if passes not in (1, 2, 3):
             raise ValueError(f"passes must be 1, 2 or 3, got {passes}")
-        self.passes = passes
+        self.passes = passes  # _resolve_blocks may time the kernel
         super().__init__(bodies, soft, dt, **kw)
 
-    def _acc_fn(self, qx, qy, qz, gm):
+    @property
+    def _tune_tag(self) -> str:
+        return f"{self.tag}/p{self.passes}"
+
+    def _acc_blocks(self, qx, qy, qz, gm, bi, bj):
         from murb_tpu_torch.ops.hybrid import acc_hybrid
 
-        return acc_hybrid(qx, qy, qz, gm, self.soft, passes=self.passes)
+        return acc_hybrid(qx, qy, qz, gm, self.soft, passes=self.passes,
+                          block_i=bi, block_j=bj)
+
+
+class MXUEngine(PallasTileEngine):
+    """Norm-expansion all-pairs engine on kernel K13 (``tpu+mxu``), the
+    large-N flagship of murb_tpu's exact ladder and the analogue of the
+    reference's gpu+tile+full200k.  ``precision``: murb_tpu's tiers
+    (ops/mxu.py), each computed in fp32 by K13."""
+
+    tag = "tpu+mxu"
+
+    def __init__(self, bodies, soft=None, dt=None, *,
+                 precision: str = "high", **kw):
+        from murb_tpu_torch.ops.mxu import check_precisions
+
+        check_precisions(precision)
+        self.precision = precision  # _resolve_blocks may time the kernel
+        super().__init__(bodies, soft, dt, **kw)
+
+    def _acc_blocks(self, qx, qy, qz, gm, bi, bj):
+        from murb_tpu_torch.ops.mxu import acc_mxu
+
+        return acc_mxu(qx, qy, qz, gm, self.soft, block_i=bi, block_j=bj,
+                       precision=self.precision)
 
 
 class ProxyEngine(EulerAccelEngine):

@@ -10,7 +10,7 @@ place, so concurrent processes never load a half-written file.
 
 There is no fallback: a missing ``nvcc``, a failed build or a refused
 launch raises.  The kernel wrappers (ops/tile.py, ops/hybrid.py,
-ops/proxy_kernels.py, ops/fmm_kernels.py, ops/p2p_kernels.py,
+ops/mxu.py, ops/proxy_kernels.py, ops/fmm_kernels.py, ops/p2p_kernels.py,
 ops/anterp_kernels.py) call ``library()`` only for CUDA tensors.
 """
 from __future__ import annotations
@@ -37,10 +37,12 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
 # C entry points (csrc/*.cu) and their argument types; each returns the
 # cudaError_t of its launches.
 _SIGNATURES = {
-    "murb_tile_rect": [_P, _P, _P, _I, _P, _P, _P, _P, _I, _F,
+    "murb_tile_rect": [_P, _P, _P, _I, _P, _P, _P, _P, _I, _F, _I, _I,
                        _P, _P, _P, _P],
-    "murb_hybrid_rect": [_P, _P, _P, _I, _P, _P, _P, _P, _I, _F, _I,
+    "murb_hybrid_rect": [_P, _P, _P, _I, _P, _P, _P, _P, _I, _F, _I, _I, _I,
                          _P, _P, _P, _P],
+    "murb_mxu_rect": [_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P,
+                      _P],
     "murb_p2m": [_P, _P, _P, _P, _I, _P, _I, _P, _I, _P, _P],
     "murb_l2p": [_P, _P, _P, _I, _P, _I, _P, _I, _P, _P],
     "murb_phi_rows_rect": [_P, _P, _P, _I, _P, _P, _P, _I, _P, _I, _F,
@@ -199,6 +201,20 @@ def int_inputs(tag: str, device: torch.device, n: int,
             raise TypeError(f"{tag}: dtype {t.dtype} (int32 or int64)")
         out.append(t.to(torch.int32).contiguous())
     return out
+
+
+#: the block sizes K3, K4 and K13 are compiled for (csrc/sweep.cuh): each
+#: of block_i (targets per block) and block_j (sources per staged tile)
+SWEEP_BLOCKS = (64, 128, 256, 512)
+
+
+def check_blocks(tag: str, block_i: int, block_j: int) -> None:
+    """Refuse a block geometry the sweeps are not compiled for: 0 (the
+    kernel's default) or one of ``SWEEP_BLOCKS`` each, never rounded."""
+    for name, b in (("block_i", block_i), ("block_j", block_j)):
+        if b != 0 and b not in SWEEP_BLOCKS:
+            raise ValueError(f"{tag}: {name}={b} is not supported (0 or one "
+                             f"of {SWEEP_BLOCKS})")
 
 
 def require_cuda(tag: str, t: torch.Tensor) -> None:

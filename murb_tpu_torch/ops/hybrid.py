@@ -15,8 +15,9 @@ matrix-unit passes; the port keeps the accuracy contract of each
               for fp64 state.
 
 On CUDA tensors ``acc_hybrid_rect`` launches ``csrc/hybrid.cu`` (which
-hands passes 1/2 to K3's kernel, counted here as K4 launches); on CPU
-tensors it runs ``acc_hybrid_rect_plain``.
+hands passes 1/2 to K3's kernel, counted here as K4 launches) in the block
+geometry ``block_i``/``block_j`` (as K3's); on CPU tensors it runs
+``acc_hybrid_rect_plain``.
 
 K5 ``phi_rows_rect`` and K6 ``acc_phi_rows_hybrid`` (``csrc/phi.cu``) take
 up to 8 source-weight rows (one masked G*m row per galaxy) and return the
@@ -61,13 +62,15 @@ def acc_hybrid_rect_plain(qxi, qyi, qzi, qxj, qyj, qzj, gmj, soft, *,
 
 
 def acc_hybrid_rect(qxi, qyi, qzi, qxj, qyj, qzj, gmj, soft, *,
-                    passes: int = 1) -> Accel:
+                    passes: int = 1, block_i: int = 0,
+                    block_j: int = 0) -> Accel:
     """Accelerations of the i-set due to the j-set at tier ``passes``.
 
     CPU tensors run the plain version; CUDA tensors launch K4 (fp32 inputs
     inside; float64 inputs are cast here and the outputs cast back)."""
     if passes not in (1, 2, 3):
         raise ValueError(f"passes must be 1, 2 or 3, got {passes}")
+    cuda.check_blocks(f"tpu+hybrid/p{passes}", block_i, block_j)
     if qxi.device.type == "cpu":
         return acc_hybrid_rect_plain(qxi, qyi, qzi, qxj, qyj, qzj, gmj,
                                      soft, passes=passes)
@@ -90,9 +93,9 @@ def acc_hybrid_rect(qxi, qyi, qzi, qxj, qyj, qzj, gmj, soft, *,
         cuda.launch("murb_hybrid_rect", xi.data_ptr(), yi.data_ptr(),
                     zi.data_ptr(), ni, xj.data_ptr(), yj.data_ptr(),
                     zj.data_ptr(), gj.data_ptr(), nj,
-                    ctypes.c_float(float(soft) ** 2), passes,
-                    out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
-                    cuda.stream(dev))
+                    ctypes.c_float(float(soft) ** 2), passes, block_i,
+                    block_j, out[0].data_ptr(), out[1].data_ptr(),
+                    out[2].data_ptr(), cuda.stream(dev))
     acc_hybrid_rect.launches += 1
     return Accel(*(o.to(dtype) for o in out))
 
@@ -100,9 +103,11 @@ def acc_hybrid_rect(qxi, qyi, qzi, qxj, qyj, qzj, gmj, soft, *,
 acc_hybrid_rect.launches = 0
 
 
-def acc_hybrid(qx, qy, qz, gm, soft, *, passes: int = 1) -> Accel:
+def acc_hybrid(qx, qy, qz, gm, soft, *, passes: int = 1, block_i: int = 0,
+               block_j: int = 0) -> Accel:
     """Square all-pairs case (the single-device exact engine)."""
-    return acc_hybrid_rect(qx, qy, qz, qx, qy, qz, gm, soft, passes=passes)
+    return acc_hybrid_rect(qx, qy, qz, qx, qy, qz, gm, soft, passes=passes,
+                           block_i=block_i, block_j=block_j)
 
 
 # ------------------------------------------------- multi-row potential sweep

@@ -5,8 +5,11 @@ accelerations of an i-set due to a j-set; on CUDA tensors it launches the
 hand-written kernel ``csrc/tile.cu`` (which replaces the TPU kernel
 ``tile_pallas._tile_kernel``), on CPU tensors it runs
 ``acc_tile_rect_plain``.  The kernel masks ragged edges itself, so callers
-pad nothing.  It serves ``tpu+tile`` / ``gpu+tile`` and the proxy node
-sweep at P >= 8000 nodes (ops/proxy.node_sweep).
+pad nothing.  ``block_i``/``block_j`` pick one of its compiled geometries
+(0 each: 128 targets a block, 128 sources a tile; ops/cuda.check_blocks);
+the plain version has none and ignores them.  It serves ``tpu+tile`` /
+``gpu+tile`` and the proxy node sweep at P >= 8000 nodes
+(ops/proxy.node_sweep).
 """
 from __future__ import annotations
 
@@ -26,11 +29,13 @@ def acc_tile_rect_plain(qxi, qyi, qzi, qxj, qyj, qzj, gmj, soft) -> Accel:
                              chunk=4096)
 
 
-def acc_tile_rect(qxi, qyi, qzi, qxj, qyj, qzj, gmj, soft) -> Accel:
+def acc_tile_rect(qxi, qyi, qzi, qxj, qyj, qzj, gmj, soft, *,
+                  block_i: int = 0, block_j: int = 0) -> Accel:
     """Accelerations of the i-set due to the j-set (rectangular sweep).
 
     CPU tensors run the plain version; CUDA tensors launch K3 (fp32 inside;
     float64 inputs are cast here and the outputs cast back)."""
+    cuda.check_blocks("tpu+tile", block_i, block_j)
     if qxi.device.type == "cpu":
         return acc_tile_rect_plain(qxi, qyi, qzi, qxj, qyj, qzj, gmj, soft)
     cuda.require_cuda("tpu+tile", qxi)
@@ -47,8 +52,9 @@ def acc_tile_rect(qxi, qyi, qzi, qxj, qyj, qzj, gmj, soft) -> Accel:
         cuda.launch("murb_tile_rect", xi.data_ptr(), yi.data_ptr(),
                     zi.data_ptr(), ni, xj.data_ptr(), yj.data_ptr(),
                     zj.data_ptr(), gj.data_ptr(), nj,
-                    ctypes.c_float(float(soft) ** 2), out[0].data_ptr(),
-                    out[1].data_ptr(), out[2].data_ptr(), cuda.stream(dev))
+                    ctypes.c_float(float(soft) ** 2), block_i, block_j,
+                    out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
+                    cuda.stream(dev))
     acc_tile_rect.launches += 1
     return Accel(*(o.to(dtype) for o in out))
 
@@ -56,6 +62,8 @@ def acc_tile_rect(qxi, qyi, qzi, qxj, qyj, qzj, gmj, soft) -> Accel:
 acc_tile_rect.launches = 0
 
 
-def acc_tile(qx, qy, qz, gm, soft) -> Accel:
+def acc_tile(qx, qy, qz, gm, soft, *, block_i: int = 0,
+             block_j: int = 0) -> Accel:
     """Square all-pairs case (the single-device engines)."""
-    return acc_tile_rect(qx, qy, qz, qx, qy, qz, gm, soft)
+    return acc_tile_rect(qx, qy, qz, qx, qy, qz, gm, soft, block_i=block_i,
+                         block_j=block_j)

@@ -3,8 +3,10 @@
     python -m murb_tpu_torch.utils.profile_step [--scheme S] [--near M]
                                                 [TAG ...]
 
-TAG is ``tpu+proxy`` (the default), ``tpu+tracking`` or
-``tpu+leapfrog+tracking``; S is ``galaxy`` (the default), ``random``,
+TAG is ``tpu+proxy`` (the default), ``tpu+tracking``,
+``tpu+leapfrog+tracking`` or ``tpu+mxu`` (the exact norm-expansion sweep,
+K13, in the block geometry a tuned entry or the kernel gives); S is
+``galaxy`` (the default), ``random``,
 ``milkyway_andromeda`` or ``two_clusters``; M is the ``--near`` mode of
 ``tpu+proxy`` (``auto`` by default).  For the first three schemes, builds
 the bodies (N=200,000, seed 123; the merger's 81,920 from
@@ -46,10 +48,12 @@ N, SEED = 200_000, 123
 WARMUP, WINDOWS, WINDOW_STEPS = 5, 3, 200
 STEPS = 50      # profiled steps
 TOP = 12        # device events listed
-TAGS = ("tpu+proxy", "tpu+tracking", "tpu+leapfrog+tracking")
+TAGS = ("tpu+proxy", "tpu+tracking", "tpu+leapfrog+tracking", "tpu+mxu")
 SCHEMES = ("galaxy", "random", "milkyway_andromeda", "two_clusters")
-#: (warm-up steps, steps per window, profiled steps) of the slower steps
-SHORT = {"milkyway_andromeda": (2, 20, 10), "two_clusters": (1, 5, 3)}
+#: (warm-up steps, steps per window, profiled steps) of the slower steps,
+#: by scheme or tag
+SHORT = {"milkyway_andromeda": (2, 20, 10), "two_clusters": (1, 5, 3),
+         "tpu+mxu": (2, 20, 10)}
 #: murb_tpu's bench row adaptive_two_clusters_1m (bench.py:442-460)
 TWO_CLUSTERS_N, TWO_CLUSTERS_SOFT, TWO_CLUSTERS_DT = 1_048_576, 0.02, 1e-6
 
@@ -133,7 +137,7 @@ def _engine(tag: str, scheme: str, near: str, total: int, dev, tmp: str):
     cfg = parse_args(["-n", str(n), "-i", str(total), "--im", tag, "-s",
                       scheme, "--kernel", "proxy", "--seed", str(SEED),
                       "--near", near, "--scan", *extra])
-    return build_engine(cfg, dev), n
+    return build_engine(cfg, dev)[0], n
 
 
 def profile_tag(tag: str, scheme: str = "galaxy", near: str = "auto") -> int:
@@ -141,19 +145,24 @@ def profile_tag(tag: str, scheme: str = "galaxy", near: str = "auto") -> int:
 
     dev = torch.device("cuda", 0)
     warmup, window_steps, steps = SHORT.get(
-        scheme, (WARMUP, WINDOW_STEPS, STEPS))
+        scheme, SHORT.get(tag, (WARMUP, WINDOW_STEPS, STEPS)))
     # every step of the run records its metrics row (tracked tags)
     total = warmup + WINDOWS * window_steps + steps + 1
     with tempfile.TemporaryDirectory() as tmp:
         eng, n = _engine(tag, scheme, near, total, dev, tmp)
-    health = eng.proxy_health()
-    if not health["using_proxy"]:
-        print(f"profile_step: {tag} took the exact sweep at N={n}; nothing "
-              "to profile", file=sys.stderr)
-        return 1
-    print(f"{tag} N={n} {scheme} near={health.get('near', 'interp')}: "
-          f"m={health['m']} levels={health['levels']} "
-          f"cells={health['cells']} on {torch.cuda.get_device_name(dev)}")
+    card = torch.cuda.get_device_name(dev)
+    if tag == "tpu+mxu":
+        print(f"{tag} N={n} {scheme}: blocks {eng.block_i} x {eng.block_j} "
+              f"(0: the kernel's default) on {card}")
+    else:
+        health = eng.proxy_health()
+        if not health["using_proxy"]:
+            print(f"profile_step: {tag} took the exact sweep at N={n}; "
+                  "nothing to profile", file=sys.stderr)
+            return 1
+        print(f"{tag} N={n} {scheme} near={health.get('near', 'interp')}: "
+              f"m={health['m']} levels={health['levels']} "
+              f"cells={health['cells']} on {card}")
     eng.run(warmup)
     eng.block_until_ready()
 

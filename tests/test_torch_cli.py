@@ -66,10 +66,7 @@ def test_parse_reference_flags():
 
 @pytest.mark.parametrize("argv", [
     ["--im", "no+such+tag"],
-    ["--im", "tpu+mxu"],
     ["--im", "shard+ring"],
-    ["--dump-traj", "t.bin"],
-    ["--save-state", "s.npz"],
     ["--visu-live"],
     ["--shards", "4"],
     ["--profile", "trace"],
@@ -83,6 +80,61 @@ def test_unknown_or_unported_exits_1(argv, capsys):
     out = capsys.readouterr()
     assert ("not yet ported" in out.out + out.err
             or "does not exist" in out.out), out
+
+
+@pytest.mark.parametrize("argv,out", [
+    (["--im", "tpu+mxu"], "sweep blocks (i x j)      : 0 x 0 (kernel default)"),
+    (["--im", "tpu+mxu", "--block-i", "64", "--block-j", "512",
+      "--dump-traj", "{tmp}/t.bin"], "Trajectory written to {tmp}/t.bin"),
+    (["--im", "cpu+optim", "--save-state", "{tmp}/s.npz"],
+     "State checkpoint written to {tmp}/s.npz"),
+])
+def test_flags_ported_in_the_exact_slice_run(argv, out, tmp_path, capsys):
+    """tpu+mxu, --dump-traj and --save-state run to the end (their
+    results: tests/test_torch_{mxu,native_io,checkpoint}.py)."""
+    argv = [a.format(tmp=tmp_path) for a in argv]
+    res = cli.run(["-n", "300", "-i", "2", "--nv", "--device", "cpu", *argv])
+    assert res.rc == 0 and res.engine._iteration == 2
+    res.engine.assert_finite()
+    assert out.format(tmp=tmp_path) in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("argv,attr,value", [
+    (["--im", "tpu+proxy"], "adapt_every", 64),
+    (["--im", "tpu+proxy", "--scan"], "adapt_every", 0),
+    (["--im", "tpu+proxy", "--adapt-every", "0"], "adapt_every", 0),
+    (["--im", "tpu+proxy", "--scan", "--adapt-every", "5"], "adapt_every",
+     5),
+    (["--im", "cpu+optim", "--chunk", "256"], "chunk", 256),
+    (["--im", "tpu+mxu", "--block-i", "512", "--block-j", "64"], "block_i",
+     512),
+])
+def test_engine_options_from_the_cli(argv, attr, value):
+    """--adapt-every: 64 in the frame loop, off under --scan, an explicit
+    value (0 included) wins; --chunk and --block-i reach the engine."""
+    res = cli.run(["-n", "2048", "-i", "1", "--nv", "--device", "cpu",
+                   *argv])
+    assert res.rc == 0 and getattr(res.engine, attr) == value
+
+
+def test_check_finite_stops_on_a_non_finite_state(monkeypatch):
+    from murb_tpu_torch.core.init import init_random
+
+    s = init_random(300, 1, device="cpu")
+    s.vx[3] = float("inf")
+    monkeypatch.setattr(cli, "make_bodies", lambda *a, **k: s)
+    argv = ["-n", "300", "-i", "2", "--im", "cpu+optim", "--nv", "--device",
+            "cpu"]
+    assert cli.run(argv).rc == 0       # unguarded, the run goes on
+    with pytest.raises(FloatingPointError, match="after iteration 1"):
+        cli.run(argv + ["--check-finite"])
+
+
+def test_block_flags_are_checked_before_a_run(capsys):
+    rc = cli.main(["-n", "300", "-i", "1", "--im", "tpu+hybrid", "--nv",
+                   "--device", "cpu", "--block-j", "100"])
+    assert rc == 1
+    assert "block_j=100 is not supported" in capsys.readouterr().out
 
 
 def test_cuda_device_without_cuda_exits_1(monkeypatch, capsys):

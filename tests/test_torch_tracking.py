@@ -270,7 +270,6 @@ def test_cli_tracking_csv_matches_murb_tpu(argv, rtol, merger_tab, tmp_path,
 @pytest.mark.parametrize("argv,msg", [
     (["--im", "gpu+tracking", "--kernel", "fmm", "--m2l-dots", "bf16x3"],
      "not yet ported"),
-    (["--im", "tpu+kdk", "--kernel", "mxu"], "not yet ported"),
     (["--im", "tpu+kdk", "--kernel", "bogus"], "unknown kernel"),
     # proxy -> fmm (m > 32) -> the adaptive kernel (m > 16) runs
     # (tests/test_torch_adaptive_engines.py); a lossy M2L tier is refused
