@@ -56,14 +56,27 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      each candidate's time printed and a second run reading the winner
      without a sweep; ``--save-state`` after 10 steps and ``--load-state``
      for 10 more against 20 straight (bit for bit); ``--dump-traj
-     --dump-every 5`` read back.
+     --dump-every 5`` read back;
+ 11. the distributed modes, with shards on this one card (an explicit
+     device list: the protocol is checked, not a link): K14 against its
+     plain version in float64 on the 200k galaxy at D = 1 to 4 shards, with
+     and without a sleep before every copy and compute; ``--im shard+ring
+     --shards 1`` through the CLI (its force error after 10 steps held to
+     5e-4); ``shard+ring`` on 4 shards against ``tpu+tile`` (accelerations,
+     positions after 10 steps, FPS) and its sharded checkpoint round trip
+     (bit for bit); ``shard+allgather`` and ``shard+uneven`` (0.6) on 4
+     shards against ``tpu+hybrid``; ``shard+proxy`` on the galaxy (K1/K2)
+     and on the random box (promoted to the hierarchy at phase 8's (m, L):
+     K7-K9); ``shard+adaptive`` on the 1M two-cluster box (1 shard) and the
+     merger (2 shards): K10-K12, health ok.
 Each piece of the path (the CLI run of phase 4, the ``acc_proxy`` of phase
-5, each CLI run of phase 6, each run of phases 7 to 10) starts from zeroed
+5, each CLI run of phase 6, each run of phases 7 to 11) starts from zeroed
 launch counts, which are read right after it: K1 and K2 from phase 4, K3
 from phase 5, K4 from phase 6, K5 and K6 from phase 7, K7 to K9 from the
 ``tpu+proxy -s random`` run of phase 8, K10 to K12 from the two-cluster
-run of phase 9, K13 from the ``tpu+mxu`` run of phase 10.  Every kernel
-must have launched in its piece.  The line before the last is the kernels' JSON
+run of phase 9, K13 from the ``tpu+mxu`` run of phase 10, K14 from the
+4-shard ``shard+ring`` run of phase 11.  Every kernel must have launched in
+its piece.  The line before the last is the kernels' JSON
 record (with each kernel's bound: the larger of its bytes over 3.35 TB/s
 and its operations over the 67 TFLOP/s fp32 peak of an H100 SXM); the last
 line is the result object.
@@ -736,6 +749,7 @@ def main() -> int:
     for k in ("K7", "K8", "K9"):
         launches[k] = counts[k]
         check(counts[k] > 0, f"{k} launched no time on the random box")
+    pick8 = (e8.m, e8.levels)     # shard+fmm must pick the same (phase 11)
     f8 = e8.bodies
     err_end = measured_force_error(
         f8.qx, f8.qy, f8.qz, e8._gm(f8), SOFT,
@@ -1318,6 +1332,229 @@ def main() -> int:
     del s10, g10, q10, s16, q16, e10, f10
     torch.cuda.empty_cache()
 
+    # ----------------------------- 11. the distributed modes, K14
+    # Shards on one card (an explicit device list): the protocol is
+    # checked, not a link.  K14 against its plain version in float64 on the
+    # 200k galaxy at D = 1 to 4 (D = 3 the smallest with the capacity
+    # handshake), each with and without a 5 us sleep before every copy and
+    # compute; contract WithinRel 1e-5 (tests/test_ring_pallas.py:67-69)
+    # with the rms floor 5e-6 of K3's 16384^2 check (sums over 200k
+    # sources in fp32).  One float64 plain sweep of the whole state is the
+    # reference: ghost rows (zero mass) change no real row, so each D's
+    # padding compares its own rows.
+    from murb_tpu_torch.ops.ring import (acc_ring_pipelined,
+                                         acc_ring_pipelined_plain)
+    from murb_tpu_torch.parallel.mesh import make_mesh, shard_state
+
+    wrappers["K14"] = acc_ring_pipelined
+    g_of = lambda s: s.m * torch.tensor(G, dtype=torch.float32).item()
+    s11 = init_galaxy(n_main, SEED, device=dev).repad(256 * 4)
+    q11 = [v.double() for v in (s11.qx, s11.qy, s11.qz, g_of(s11))]
+    ref_parts = [acc_tile_rect_plain(*(v[i:i + 8192] for v in q11[:3]),
+                                     *q11, SOFT)
+                 for i in range(0, s11.npad, 8192)]
+    ref11 = [torch.cat([p[c] for p in ref_parts]) for c in range(3)]
+    del q11, ref_parts
+    k14 = {}
+    for d in (1, 2, 3, 4):
+        sd = init_galaxy(n_main, SEED, device=dev).repad(256 * d)
+        mesh_d = make_mesh(devices=[dev] * d)
+        blocks = shard_state(sd, mesh_d)
+        qs = [(b.qx, b.qy, b.qz) for b in blocks]
+        gs = [g_of(b) for b in blocks]
+        nd = sd.npad
+        for delay in (0, 5000):
+            acc = acc_ring_pipelined(mesh_d, qs, gs, SOFT, delay_ns=delay)
+            torch.cuda.synchronize()
+            got = [torch.cat([a[c] for a in acc]) for c in range(3)]
+            ref_d = [r[:nd] for r in ref11]
+            w = within_rel(got, ref_d, 1e-5, 5e-6)
+            err = max(float((g.double() - r).abs().max())
+                      for g, r in zip(got, ref_d))
+            check(w <= 1.0, f"K14 D={d} delay={delay} ns: WithinRel 1e-5 "
+                            f"(rms floor 5e-6) exceeded by {w:.2f}x")
+            ms = time_ms(lambda: acc_ring_pipelined(mesh_d, qs, gs, SOFT,
+                                                    delay_ns=delay),
+                         reps=5, runs=3)
+            # the plain version: the same protocol with torch ops, fp32
+            plain = "" if delay else "{:.4f} ms".format(time_ms(
+                lambda: acc_ring_pipelined_plain(mesh_d, qs, gs, SOFT),
+                reps=1, runs=1))
+            b_ms, _ = bound(28 * nd, 20 * nd * nd)
+            print(f"[11 K14 ring N={nd} D={d} delay={delay} ns] max|da| "
+                  f"{err:.3e}, WithinRel 1e-5 (rms floor 5e-6) at {w:.4f} "
+                  f"of the allowance; kernel {ms:.4f} ms ({d * d} sweeps, "
+                  f"{d * (d - 1)} slot copies of {16 * nd // d} bytes) "
+                  f"bound {b_ms:.4f} ms" + (f" plain {plain}" if plain
+                                            else ""))
+            if delay == 0:
+                k14[d] = (err, ms, float(plain.split()[0]))
+        if d == 4:
+            keep("K14", *k14[4], 28 * nd, 20 * nd * nd)
+    del ref11, blocks, qs, gs, acc, got
+    torch.cuda.empty_cache()
+
+    # the main path through the CLI: --shards 1 is the mesh this card has,
+    # K14 at D = 1 (pure compute); the force error after 10 steps held to
+    # 5e-4 as tpu+mxu's
+    res11, counts = drive(lambda: cli.run([
+        "-n", str(n_main), "-i", "10", "--im", "shard+ring", "--shards", "1",
+        "--nv", "--gf", "--scan", "--device", "cuda"]))
+    check(res11.rc == 0, f"cli shard+ring exit code {res11.rc}")
+    e11 = res11.engine
+    e11.assert_finite()
+    check(e11.ring_impl == "pipelined" and e11.n_shards == 1,
+          f"shard+ring took {e11.ring_impl} on {e11.n_shards} shards")
+    check(counts["K14"] > 0, f"K14 launched no time on shard+ring: {counts}")
+    f11 = e11.bodies
+    err11 = measured_force_error(
+        f11.qx, f11.qy, f11.qz, g_of(f11), SOFT,
+        lambda a, b, cc, g: acc_ring_pipelined(e11.mesh, [(a, b, cc)], [g],
+                                               SOFT)[0])
+    check(err11 <= 5e-4, f"shard+ring force error {err11:.3e} > 5e-4")
+    fps["shard+ring --shards 1"] = res11.fps
+    print(f"[11 main] shard+ring --shards 1 N={n_main} galaxy through the "
+          f"CLI: {res11.fps:.3f} FPS {res11.gflops:.1f} ref-GFlop/s "
+          f"({res11.elapsed_ms:.2f} ms for 9 steps); force error after 10 "
+          f"steps {err11:.3e} (tol 5e-4) on {smi}; launches {counts}")
+
+    # 4 shards on cuda:0 against the single-device exact sweep (tpu+tile,
+    # K3): one step's accelerations, the positions after 10 steps at
+    # tests/test_parallel.py:33-34's 1e-3 (rms floor 1e-6)
+    s4 = init_galaxy(n_main, SEED, device=dev)
+    quad = [dev] * 4
+    (e4, fps4), counts = drive(lambda: timed(create_engine(
+        "shard+ring", s4, soft=SOFT, dt=DT, devices=quad), 10))
+    launches["K14"] = counts["K14"]
+    check(counts["K14"] > 0, f"K14 launched no time on 4 shards: {counts}")
+    e4.assert_finite()
+    (et4, fps_t4), counts_t = drive(lambda: timed(create_engine(
+        "tpu+tile", s4, soft=SOFT, dt=DT), 10))
+    p4, pt4 = e4.bodies.unpadded(), et4.bodies.unpadded()
+    for c in ("qx", "qy", "qz"):
+        wpos = within_rel([torch.from_numpy(p4[c])],
+                          [torch.from_numpy(pt4[c])], 1e-3, 1e-6)
+        check(wpos <= 1.0, f"shard+ring 4 shards vs tpu+tile {c} after 10 "
+                           f"steps: WithinRel 1e-3 exceeded by {wpos:.2f}x")
+    a1 = create_engine("shard+ring", s4, soft=SOFT, dt=DT, devices=quad)
+    t1 = create_engine("tpu+tile", s4, soft=SOFT, dt=DT)
+    a1.compute_one_iteration()
+    t1.compute_one_iteration()
+    acc_a = [a[:s4.npad] for a in a1.accelerations]
+    acc_t = list(t1.accelerations)
+    wacc = within_rel(acc_a, acc_t, 1e-5, 1e-7)
+    check(wacc <= 1.0, f"shard+ring 4 shards vs tpu+tile: one step's "
+                       f"accelerations exceed WithinRel 1e-5 (rms floor "
+                       f"1e-7) by {wacc:.2f}x")
+    print(f"[11 ring 4 shards] create_engine shard+ring devices=[cuda:0]*4 "
+          f"N={n_main}: {fps4:.3f} FPS over 9 steps after one, tpu+tile "
+          f"{fps_t4:.3f} FPS (K3 launches {counts_t['K3']}); one step's "
+          f"accelerations against tpu+tile at {wacc:.4f} of WithinRel 1e-5 "
+          f"(rms floor 1e-7); positions after 10 steps within 1e-3; "
+          f"launches {counts}")
+    fps["shard+ring 4 shards"] = fps4
+    fps["tpu+tile"] = fps_t4
+
+    # the sharded checkpoint: a 4-shard state on the card, bit for bit
+    ck11 = os.path.join(tmpdir.name, "ring4")
+    e4.save_sharded(ck11)
+    e4b = create_engine("shard+ring", s4, soft=SOFT, dt=DT, devices=quad)
+    meta11 = e4b.load_sharded(ck11)
+    same = all(torch.equal(getattr(x, k), getattr(y, k))
+               for x, y in zip(e4.blocks, e4b.blocks)
+               for k in ("m", "r", "qx", "qy", "qz", "vx", "vy", "vz"))
+    check(same and meta11["iteration"] == 10,
+          f"sharded checkpoint round trip: same={same} meta={meta11}")
+    print(f"[11 checkpoint] save_sharded -> load_sharded of 4 shards on the "
+          f"card: bit for bit, iteration {meta11['iteration']}")
+    del e4, e4b, et4, a1, t1
+    torch.cuda.empty_cache()
+
+    # shard+allgather and shard+uneven (0.6) on 4 shards of the card against
+    # the single-device exact engine (tpu+hybrid, passes 2): 3 steps each,
+    # positions at 1e-3 (rms floor 1e-6); both run K4's wrapper
+    (eh, _), _ = drive(lambda: timed(create_engine(
+        "tpu+hybrid", s4, soft=SOFT, dt=DT), 3))
+    ph = eh.bodies.unpadded()
+    for tag, kw in (("shard+allgather", {}),
+                    ("shard+uneven", {"gpu_fraction": 0.6})):
+        (es, fps_s), counts = drive(lambda: timed(create_engine(
+            tag, s4, soft=SOFT, dt=DT, devices=quad, **kw), 3))
+        es.assert_finite()
+        check(counts["K4"] > 0, f"K4 launched no time under {tag}: {counts}")
+        ps = es.bodies.unpadded()
+        worst = max(within_rel([torch.from_numpy(ps[c])],
+                               [torch.from_numpy(ph[c])], 1e-3, 1e-6)
+                    for c in ("qx", "qy", "qz"))
+        check(worst <= 1.0, f"{tag} vs tpu+hybrid: {worst:.2f}x of 1e-3")
+        fps[f"{tag} 4 shards"] = fps_s
+        print(f"[11 {tag}] 4 shards on the card {kw}: {fps_s:.3f} FPS over "
+              f"2 steps after one; positions after 3 steps at {worst:.4f} "
+              f"of WithinRel 1e-3 against tpu+hybrid; launches {counts}")
+    del eh, es
+    torch.cuda.empty_cache()
+
+    # shard+proxy on the 200k galaxy (4 shards): one expansion, K1/K2
+    (ep, fps_p), counts = drive(lambda: timed(create_engine(
+        "shard+proxy", s4, soft=SOFT, dt=DT, devices=quad), 20))
+    ep.assert_finite()
+    check(ep.mode == "proxy", f"shard+proxy took mode {ep.mode}")
+    check(ep.validated_err is not None and ep.validated_err <= TOL,
+          f"shard+proxy validated error {ep.validated_err}")
+    check(counts["K1"] > 0 and counts["K2"] > 0,
+          f"K1/K2 launched no time under shard+proxy: {counts}")
+    fps["shard+proxy 4 shards"] = fps_p
+    print(f"[11 shard+proxy] 4 shards, N={n_main} galaxy: m={ep.m}, "
+          f"validated_err {ep.validated_err:.3e}; {fps_p:.3f} FPS over 19 "
+          f"steps after one; launches {counts}")
+    del ep
+
+    # shard+fmm: shard+proxy promoted on the 200k random box, the (m, L)
+    # of the single-device policy (phase 8's pick)
+    r11 = init_random(n_main, SEED, device=dev)
+    (ef, fps_f), counts = drive(lambda: timed(create_engine(
+        "shard+proxy", r11, soft=SOFT, dt=DT, devices=quad), 20))
+    ef.assert_finite()
+    check(ef.mode == "fmm" and (ef.m, ef.levels) == pick8,
+          f"shard+proxy -s random took {ef.mode} ({ef.m}, {ef.levels}), "
+          f"tpu+proxy {pick8}")
+    check(all(counts[k] > 0 for k in ("K7", "K8", "K9")),
+          f"K7-K9 launched no time under shard+fmm: {counts}")
+    check(ef.validated_err is not None and ef.validated_err <= TOL,
+          f"shard+fmm validated error {ef.validated_err}")
+    fps["shard+fmm 4 shards"] = fps_f
+    print(f"[11 shard+fmm] 4 shards, N={n_main} random: (m, L)=({ef.m}, "
+          f"{ef.levels}) as tpu+proxy, validated_err {ef.validated_err:.3e};"
+          f" {fps_f:.3f} FPS over 19 steps after one; launches {counts}")
+    del ef, r11
+
+    # shard+adaptive: the 1M two-cluster box of phase 9 on 1 shard, and the
+    # merger on 2 shards of the card
+    for label, state, kw, soft_a, dt_a, steps in (
+            ("1M two clusters, 1 shard", st9, {"shards": 1}, soft9, dt9, 4),
+            (f"merger N={mg.n}, 2 shards", mg, {"devices": [dev] * 2}, SOFT,
+             DT, 10)):
+        t1 = time.perf_counter()
+        (ea, fps_a), counts = drive(lambda: timed(create_engine(
+            "shard+adaptive", state, soft=soft_a, dt=dt_a, **kw), steps))
+        t_a = time.perf_counter() - t1
+        ea.assert_finite()
+        ha = ea.proxy_health()
+        check(ha["ok"], f"shard+adaptive {label}: health {ha}")
+        check(all(counts[k] > 0 for k in ("K10", "K11", "K12")),
+              f"K10-K12 launched no time under shard+adaptive {label}: "
+              f"{counts}")
+        check(ea.validated_err is not None and ea.validated_err <= TOL,
+              f"shard+adaptive validated error {ea.validated_err}")
+        fps[f"shard+adaptive {label}"] = fps_a
+        print(f"[11 shard+adaptive] {label}: m={ea.m} L={ea.levels}, "
+              f"validated_err {ea.validated_err:.3e}, health {ha}; "
+              f"{fps_a:.4f} FPS over {steps - 1} steps after one (build and "
+              f"steps {t_a:.1f} s); launches {counts}")
+        del ea
+        torch.cuda.empty_cache()
+    print(f"[11 fps] {json.dumps(fps)} on {smi}")
+
     for k, count in launches.items():
         check(count > 0, f"{k} launched no time on its piece of the path")
     meta = {
@@ -1347,6 +1584,8 @@ def main() -> int:
                 "murb_tpu/ops/anterp_pallas.py:244"),
         "K13": ("mxu_rect", "murb_tpu_torch/csrc/mxu.cu",
                 "murb_tpu/ops/mxu.py:49"),
+        "K14": ("ring_pipelined", "murb_tpu_torch/csrc/ring.cu",
+                "murb_tpu/ops/ring_pallas.py:50"),
     }
     kernels = [{"name": kname, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches[k], **record[k]}

@@ -11,6 +11,7 @@ Layer map (mirrors ``murb_tpu``):
   - ``murb_tpu_torch.ops``    -- oracle sweeps, the proxy solver, order
                                  validation and the CUDA kernel wrappers
   - ``murb_tpu_torch.models`` -- engine registry behind one interface
+  - ``murb_tpu_torch.parallel`` -- the device mesh and the sharded engines
   - ``murb_tpu_torch.utils``  -- CLI args, Perf timers
 """
 

@@ -1,6 +1,6 @@
 """Command-line entry point: the port's ``murb`` binary (ref: src/murb/main.cpp:309-407).
 
-Port of ``murb_tpu/cli.py`` but its viewer, profiler and shard flags: the
+Port of ``murb_tpu/cli.py`` but its viewer and profiler flags: the
 configuration banner (with the validated proxy order and its measured
 error, or the exact sweep's block geometry), the frame loop with the
 verbose status line (``--ite-chunk`` iterations a frame), the ``--scan``
@@ -18,7 +18,10 @@ checkpoint's dt and softening hold unless given again, and the iteration
 counter carries on), records positions (``--dump-traj``: frame 0 and
 every ``--dump-every``-th; a ``--scan`` run is cut into segments at the
 record and checkpoint points) and can stop on a non-finite state
-(``--check-finite``).
+(``--check-finite``).  ``--shards`` and ``--gpu-fraction`` set the
+``shard+...`` engines' mesh and row split; with ``MURB_COORDINATOR``,
+``MURB_NUM_PROCESSES`` and ``MURB_PROCESS_ID`` set, the run joins a
+``torch.distributed`` group first (parallel/mesh.maybe_init_distributed).
 
 ``--device cuda`` (the default) puts the state and every kernel on the
 first CUDA device and exits with status 1 when there is none: the port
@@ -224,6 +227,7 @@ def build_engine(cfg: MurbConfig, device: torch.device):
         near=cfg.near, adapt_every=adapt_every, chunk=cfg.chunk,
         block_i=cfg.block_i, block_j=cfg.block_j,
         autotune=True if cfg.autotune else None,
+        shards=cfg.shards, gpu_fraction=cfg.gpu_fraction,
         num_iterations=cfg.n_iterations, **extra)
     return engine, start_iteration
 
@@ -291,6 +295,13 @@ def run(argv=None) -> CliRun:
               file=sys.stderr)
         return CliRun(1)
     device = torch.device(cfg.device)
+    from murb_tpu_torch.parallel.mesh import maybe_init_distributed
+
+    if maybe_init_distributed(device):
+        import torch.distributed as dist
+
+        print(f"distributed runtime up: process {dist.get_rank()}/"
+              f"{dist.get_world_size()}")
 
     if cfg.save_every > 0 and not cfg.save_state:
         print("--save-every requires --save-state", file=sys.stderr)
@@ -416,7 +427,14 @@ def run(argv=None) -> CliRun:
     health = engine.proxy_health() if hasattr(engine, "proxy_health") \
         else None
     if health is not None and not health["ok"]:
-        if health.get("near") == "adaptive":
+        if health.get("using_adaptive"):
+            print(f"WARNING: the distribution outgrew the sharded adaptive "
+                  f"plan (strays {health['strays']}/{health['stray_cap']}, "
+                  f"exports {health['exports']}/{health['export_cap']}, "
+                  f"cells {health['global_cells']}/{health['global_cap']}, "
+                  f"out of box {health['out_of_box']}); rerun with "
+                  f"--adapt-every to re-plan mid-run.")
+        elif health.get("near") == "adaptive":
             print(f"WARNING: the distribution outgrew the adaptive "
                   f"solver's capacities (occupied cells "
                   f"{health['n_cells_now']} vs caps {health['cell_caps']}; "

@@ -8,13 +8,18 @@ softening and a format version -- murb_tpu's format, key for key, so a
 checkpoint written by either package loads in the other.  A newer format
 version is refused.
 
-The orbax backend of murb_tpu (multi-host, sharded) waits for the
-distributed slice (ROADMAP.md Queue 1 item 9).
+The sharded counterpart of murb_tpu's orbax backend (``save_state_orbax``
+/ ``load_state_orbax``) is ``save_state_sharded`` / ``load_state_sharded``
+on ``torch.distributed.checkpoint``: a checkpoint directory in which each
+shard's blocks sit under their own keys, written by the process that holds
+them, beside the layout and the metadata.  It runs in one process without
+a process group, and across the processes of one.
 """
 from __future__ import annotations
 
 import os
 import threading
+import warnings
 
 import numpy as np
 import torch
@@ -111,3 +116,64 @@ class AsyncCheckpointWriter:
         synchronous ``save_state`` to the same path)."""
         if self._thread is not None:
             self._thread.join()
+
+
+# ------------------------------------------------------ sharded checkpoint
+def _dcp(fn, *args, **kw):
+    """Call torch.distributed.checkpoint's ``fn``; without a process group
+    it runs in this process alone (and says so in a warning, dropped)."""
+    import torch.distributed.checkpoint as dcp
+
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message=".*torch.distributed is "
+                                "disabled.*")
+        return getattr(dcp, fn)(*args, **kw)
+
+
+def save_state_sharded(path: str, blocks, mesh, *, n: int, padding: int,
+                       iteration: int = 0, dt: float = 3600.0,
+                       soft: float = 2.0e8) -> None:
+    """Write a sharded state (``blocks``: this process's blocks, one per
+    local shard of ``mesh``, as ``ShardedEngine.blocks`` holds them) to the
+    checkpoint directory ``path``: block g's fields under ``shard{g}/{k}``,
+    the layout (shards, rows a block, n, padding, format version) and the
+    metadata (iteration, dt, soft).  Collective across processes."""
+    sd = {f"shard{mesh.axis_index(j)}/{k}": getattr(b, k)
+          for j, b in enumerate(blocks) for k in FIELDS}
+    sd["layout"] = torch.tensor([mesh.size, blocks[0].npad, n, padding,
+                                 FORMAT_VERSION], dtype=torch.int64)
+    sd["meta/iteration"] = torch.tensor([iteration], dtype=torch.int64)
+    sd["meta/step"] = torch.tensor([dt, soft], dtype=torch.float64)
+    _dcp("save", sd, checkpoint_id=os.path.abspath(path))
+
+
+def load_state_sharded(path: str, mesh) -> tuple[list, dict]:
+    """Read a ``save_state_sharded`` checkpoint back onto ``mesh``, which
+    must have its number of shards -> (this process's blocks, one per local
+    shard on its device, metadata dict with ``n``, ``padding``,
+    ``iteration``, ``dt``, ``soft``)."""
+    path = os.path.abspath(path)
+    head = {"layout": torch.zeros(5, dtype=torch.int64),
+            "meta/iteration": torch.zeros(1, dtype=torch.int64),
+            "meta/step": torch.zeros(2, dtype=torch.float64)}
+    _dcp("load", head, checkpoint_id=path)
+    shards, rows, n, padding, version = (int(x) for x in head["layout"])
+    if version > FORMAT_VERSION:
+        raise ValueError(f"checkpoint {path!r} has format version {version}; "
+                         f"this build reads <= {FORMAT_VERSION}")
+    if shards != mesh.size:
+        raise ValueError(f"checkpoint {path!r} holds {shards} shards, the "
+                         f"mesh has {mesh.size}")
+    from torch.distributed.checkpoint import FileSystemReader
+
+    dtypes = FileSystemReader(path).read_metadata().state_dict_metadata
+    sd = {f"shard{mesh.axis_index(j)}/{k}": torch.empty(
+        rows, dtype=dtypes[f"shard{mesh.axis_index(j)}/{k}"].properties.dtype,
+        device=dev) for j, dev in enumerate(mesh.devices) for k in FIELDS}
+    _dcp("load", sd, checkpoint_id=path)
+    blocks = [BodyState(**{k: sd[f"shard{mesh.axis_index(j)}/{k}"]
+                           for k in FIELDS}, n=rows, padding=0)
+              for j in range(mesh.local_size)]
+    dt, soft = (float(x) for x in head["meta/step"])
+    return blocks, {"n": n, "padding": padding, "dt": dt, "soft": soft,
+                    "iteration": int(head["meta/iteration"][0])}

@@ -1,10 +1,10 @@
 """Implementation registry: the port's ``--im`` factory.
 
 Port of ``murb_tpu/models/__init__.py`` (ref: src/murb/main.cpp:205-270),
-with the same API.  Reference tags are accepted as aliases.  Tags that
-``murb_tpu`` registers but this package does not carry yet are known by
-name: ``validate_tag`` raises "not yet ported" for them, and "does not
-exist" only for tags neither package knows.
+with the same API and every tag of it.  Reference tags are accepted as
+aliases.  A tag that ``murb_tpu`` registers but this package did not carry
+would be listed in ``NOT_YET_PORTED`` (``validate_tag`` raises "not yet
+ported" for it); "does not exist" is for tags neither package knows.
 """
 from __future__ import annotations
 
@@ -16,10 +16,7 @@ _REGISTRY: dict[str, Callable] = {}
 _ALIASES: dict[str, str] = {}
 
 #: murb_tpu tags (and their aliases) not ported yet
-NOT_YET_PORTED = (
-    "shard+allgather", "mpi", "shard+ring", "shard+uneven", "hetero",
-    "shard+proxy", "shard+fmm", "shard+adaptive",
-)
+NOT_YET_PORTED: tuple[str, ...] = ()
 
 #: block geometry options of the exact sweep engines (K3, K4, K13)
 _BLOCKS = ("block_i", "block_j", "autotune")
@@ -124,6 +121,26 @@ def _build_registry():
     register("tpu+kdk", lambda b, **kw: E.KDKEngine(b, **_filter(kw, "acc_fn")))
     register("tpu+yoshida4",
              lambda b, **kw: E.Yoshida4Engine(b, **_filter(kw, "acc_fn")))
+
+    # the distributed engines (murb_tpu_torch.parallel), imported at first
+    # use; ``devices`` (the port's) may put several shards on one card
+    def _shard(mode):
+        def factory(b, **kw):
+            from murb_tpu_torch.parallel.shard_engine import ShardedEngine
+
+            return ShardedEngine(b, mode=mode, **_filter(
+                kw, "shards", "gpu_fraction", "block_i", "block_j",
+                "ring_impl", "kernel", "m", "levels", "m2l_dots", "validate",
+                "adapt_every", "devices"))
+
+        return factory
+
+    register("shard+allgather", _shard("allgather"), aliases=("mpi",))
+    register("shard+ring", _shard("ring"))
+    register("shard+uneven", _shard("uneven"), aliases=("hetero",))
+    register("shard+proxy", _shard("proxy"))
+    register("shard+fmm", _shard("fmm"))
+    register("shard+adaptive", _shard("adaptive"))
 
 
 _build_registry()

@@ -113,12 +113,19 @@ class PallasTileEngine(EulerAccelEngine):
         return self.tag
 
     def _resolve_blocks(self, autotune: bool | None) -> None:
+        from murb_tpu_torch.ops.cuda import check_blocks
         from murb_tpu_torch.utils import autotune as at
 
         if autotune is None:
             autotune = at.enabled()
         tuned = at.lookup(self._tune_tag, self._state.npad,
                           device=self._state.device)
+        if tuned is not None:
+            try:   # a cached pair the sweeps are not compiled for is skipped
+                check_blocks(self._tune_tag, int(tuned.get("block_i", 0)),
+                             int(tuned.get("block_j", 0)))
+            except ValueError:
+                tuned = None
         if tuned is None and autotune:
             tuned = self._run_autotune()
         if tuned:

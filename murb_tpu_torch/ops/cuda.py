@@ -11,7 +11,8 @@ place, so concurrent processes never load a half-written file.
 There is no fallback: a missing ``nvcc``, a failed build or a refused
 launch raises.  The kernel wrappers (ops/tile.py, ops/hybrid.py,
 ops/mxu.py, ops/proxy_kernels.py, ops/fmm_kernels.py, ops/p2p_kernels.py,
-ops/anterp_kernels.py) call ``library()`` only for CUDA tensors.
+ops/anterp_kernels.py, ops/ring.py) call ``library()`` only for CUDA
+tensors.
 """
 from __future__ import annotations
 
@@ -60,6 +61,10 @@ _SIGNATURES = {
                         _P, _P, _P],
     "murb_l2p_window": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _P, _P, _I,
                         _P, _I, _P, _P],
+    # host arrays of D pointers (qx, qy, qz, bufs, ax, ay, az), D device
+    # ids, D origin, compute and copy streams
+    "murb_ring_pipelined": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                            _P, _F, _I, _I, _L],
 }
 
 

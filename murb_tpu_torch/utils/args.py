@@ -1,9 +1,10 @@
 """murb-compatible command-line parsing for the port.
 
 Port of ``murb_tpu/utils/args.py`` (ref: src/murb/main.cpp:61-165) but its
-viewer, profiler and shard flags: required ``-n``/``-i``; ``-v --dt --nv
---im --soft -s --gf``; the extensions ``--seed --precision --scheme-file
---scan --csv --chunk --block-i --block-j --autotune --save-state
+viewer and profiler flags: required ``-n``/``-i``; ``-v --dt --nv --im
+--soft -s --gf``; the extensions ``--seed --precision --scheme-file
+--shards --gpu-fraction --scan --csv --chunk --block-i --block-j
+--autotune --save-state
 --save-every --load-state --dump-traj --dump-every --ite-chunk --kernel
 --tol --m2l-dots --near --adapt-every --check-finite --list-impls``; and
 the port's ``--device`` (default ``cuda``).  Every other flag of
@@ -30,6 +31,8 @@ class MurbConfig:
     seed: int = 123
     precision: str = "fp32"
     scheme_file: str | None = None
+    shards: int = 0                          # 0 = all local devices
+    gpu_fraction: float | None = None        # shard+uneven's row fraction
     scan: bool = False
     csv: str | None = None                   # metrics CSV (tracking engines)
     list_impls: bool = False
@@ -63,9 +66,8 @@ class MurbConfig:
 #: murb_tpu flags the port does not carry yet -> takes a value?
 UNPORTED_FLAGS = {
     "--ngs": False, "--ww": True, "--wh": True, "--nvc": False,
-    "--shards": True, "--visu-out": True, "--visu-live": "?",
-    "--gpu-fraction": True, "--profile": True, "--cam-azim": True,
-    "--cam-elev": True,
+    "--visu-out": True, "--visu-live": "?", "--profile": True,
+    "--cam-azim": True, "--cam-elev": True,
 }
 
 
@@ -116,6 +118,16 @@ def build_parser() -> argparse.ArgumentParser:
                      help="path to the two-galaxy .tab file for the merger "
                           "scheme (scripts/make_two_galaxy_tab.py writes "
                           "one).")
+    ext.add_argument("--shards", type=int, default=0,
+                     help="shards of the shard+... engines (0 = all local "
+                          "devices: every card for --device cuda, one CPU "
+                          "shard for --device cpu; across processes, the "
+                          "global count).")
+    ext.add_argument("--gpu-fraction", dest="gpu_fraction", type=float,
+                     default=None,
+                     help="shard+uneven / hetero: the fraction of rows "
+                          "shard 0 sweeps, in (0, 1] (default 0.60; "
+                          "reference env MURB_HETERO_GPU_FRACTION).")
     ext.add_argument("--scan", action="store_true",
                      help="time the whole run as one window after one "
                           "warm-up step (no per-iteration lines).")

@@ -12,8 +12,10 @@ no hand-set constants.
 Enable with ``MURB_AUTOTUNE=1`` (or ``autotune=True`` on the exact
 engines, ``--autotune`` on the CLI); the cache file is
 ``$MURB_TUNE_CACHE`` or ``build/murb_tpu_torch/autotune.json``.  A key
-carries the device's name (``torch.cuda.get_device_name``, or ``cpu``),
-so a cache never hands one card's geometry to another.
+(``torch/{kernel}/n{npad}/{device}``) carries the device's name
+(``torch.cuda.get_device_name``, or ``cpu``), so a cache never hands one
+card's geometry to another, and the ``torch/`` prefix keeps it apart from
+``murb_tpu``'s entries in a shared cache.
 """
 from __future__ import annotations
 
@@ -52,11 +54,17 @@ def _save(db: dict) -> None:
         pass  # read-only filesystem: tuning still applies in-process
 
 
+#: prefix of every key: ``murb_tpu`` reads the same ``$MURB_TUNE_CACHE``
+#: with keys ``{kernel}/n{npad}/{backend}`` and tunes blocks the port's
+#: sweeps are not compiled for, so the two packages keep apart entries
+KEY_PREFIX = "torch/"
+
+
 def _key(kernel: str, npad: int, device) -> str:
     device = torch.device(device)
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else device.type)
-    return f"{kernel}/n{npad}/{name}"
+    return f"{KEY_PREFIX}{kernel}/n{npad}/{name}"
 
 
 def lookup(kernel: str, npad: int, *, device="cuda") -> dict | None:

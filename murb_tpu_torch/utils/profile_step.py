@@ -1,11 +1,14 @@
 """Where the time of a ``tpu+proxy`` or tracked step goes on a CUDA card.
 
     python -m murb_tpu_torch.utils.profile_step [--scheme S] [--near M]
-                                                [TAG ...]
+                                                [--shards D] [TAG ...]
 
 TAG is ``tpu+proxy`` (the default), ``tpu+tracking``,
-``tpu+leapfrog+tracking`` or ``tpu+mxu`` (the exact norm-expansion sweep,
-K13, in the block geometry a tuned entry or the kernel gives); S is
+``tpu+leapfrog+tracking``, ``tpu+mxu`` (the exact norm-expansion sweep,
+K13, in the block geometry a tuned entry or the kernel gives) or one of the
+distributed modes ``shard+ring``, ``shard+allgather``, ``shard+proxy`` and
+``shard+adaptive``, built through ``create_engine`` with D shards (default
+1) on the one card (``devices=[cuda:0] * D``); S is
 ``galaxy`` (the default), ``random``,
 ``milkyway_andromeda`` or ``two_clusters``; M is the ``--near`` mode of
 ``tpu+proxy`` (``auto`` by default).  For the first three schemes, builds
@@ -48,12 +51,14 @@ N, SEED = 200_000, 123
 WARMUP, WINDOWS, WINDOW_STEPS = 5, 3, 200
 STEPS = 50      # profiled steps
 TOP = 12        # device events listed
-TAGS = ("tpu+proxy", "tpu+tracking", "tpu+leapfrog+tracking", "tpu+mxu")
+TAGS = ("tpu+proxy", "tpu+tracking", "tpu+leapfrog+tracking", "tpu+mxu",
+        "shard+ring", "shard+allgather", "shard+proxy", "shard+adaptive")
 SCHEMES = ("galaxy", "random", "milkyway_andromeda", "two_clusters")
 #: (warm-up steps, steps per window, profiled steps) of the slower steps,
 #: by scheme or tag
 SHORT = {"milkyway_andromeda": (2, 20, 10), "two_clusters": (1, 5, 3),
-         "tpu+mxu": (2, 20, 10)}
+         "tpu+mxu": (2, 20, 10), "shard+ring": (2, 20, 10),
+         "shard+allgather": (2, 20, 10)}
 #: murb_tpu's bench row adaptive_two_clusters_1m (bench.py:442-460)
 TWO_CLUSTERS_N, TWO_CLUSTERS_SOFT, TWO_CLUSTERS_DT = 1_048_576, 0.02, 1e-6
 
@@ -94,35 +99,47 @@ def main(argv=()) -> int:
     p.add_argument("--scheme", choices=SCHEMES, default="galaxy")
     p.add_argument("--near", choices=("auto", "interp", "adaptive"),
                    default="auto")
+    p.add_argument("--shards", type=int, default=1,
+                   help="shards of the shard+... tags, all on cuda:0")
     p.add_argument("tags", nargs="*", metavar="TAG")
     args = p.parse_args(list(argv))
     unknown = [t for t in args.tags if t not in TAGS]
     if unknown:
         print(f"profile_step: {unknown} not in {TAGS}", file=sys.stderr)
         return 2
-    if args.scheme == "two_clusters" and set(args.tags) - {"tpu+proxy"}:
-        print("profile_step: two_clusters runs tpu+proxy only",
-              file=sys.stderr)
+    if args.scheme == "two_clusters" and set(args.tags) - {
+            "tpu+proxy", "shard+adaptive"}:
+        print("profile_step: two_clusters runs tpu+proxy and shard+adaptive "
+              "only", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("profile_step: no CUDA device available", file=sys.stderr)
         return 1
     for tag in args.tags or TAGS[:1]:
-        rc = profile_tag(tag, args.scheme, args.near)
+        rc = profile_tag(tag, args.scheme, args.near, args.shards)
         if rc:
             return rc
     return 0
 
 
-def _engine(tag: str, scheme: str, near: str, total: int, dev, tmp: str):
+def _engine(tag: str, scheme: str, near: str, total: int, dev, tmp: str,
+            shards: int = 1):
     """(engine, N) the way the CLI (or, for two_clusters, the bench row)
-    builds it."""
-    if scheme == "two_clusters":
-        from murb_tpu_torch.models import create_engine
+    builds it; the shard+... tags through ``create_engine`` with ``shards``
+    shards on ``dev``."""
+    from murb_tpu_torch.models import create_engine
 
-        return create_engine("tpu+proxy", two_clusters(device=dev),
+    if scheme == "two_clusters":
+        kw = ({"devices": [dev] * shards} if tag.startswith("shard+")
+              else {"near": near})
+        return create_engine(tag, two_clusters(device=dev),
                              soft=TWO_CLUSTERS_SOFT, dt=TWO_CLUSTERS_DT,
-                             near=near), TWO_CLUSTERS_N
+                             **kw), TWO_CLUSTERS_N
+    if tag.startswith("shard+"):
+        from murb_tpu_torch.core.init import make_bodies
+
+        return create_engine(tag, make_bodies(N, scheme, SEED, device=dev),
+                             devices=[dev] * shards), N
     n, extra = N, []
     if scheme == "milkyway_andromeda":
         import os
@@ -140,7 +157,8 @@ def _engine(tag: str, scheme: str, near: str, total: int, dev, tmp: str):
     return build_engine(cfg, dev)[0], n
 
 
-def profile_tag(tag: str, scheme: str = "galaxy", near: str = "auto") -> int:
+def profile_tag(tag: str, scheme: str = "galaxy", near: str = "auto",
+                shards: int = 1) -> int:
     import tempfile
 
     dev = torch.device("cuda", 0)
@@ -149,20 +167,22 @@ def profile_tag(tag: str, scheme: str = "galaxy", near: str = "auto") -> int:
     # every step of the run records its metrics row (tracked tags)
     total = warmup + WINDOWS * window_steps + steps + 1
     with tempfile.TemporaryDirectory() as tmp:
-        eng, n = _engine(tag, scheme, near, total, dev, tmp)
+        eng, n = _engine(tag, scheme, near, total, dev, tmp, shards)
     card = torch.cuda.get_device_name(dev)
-    if tag == "tpu+mxu":
-        print(f"{tag} N={n} {scheme}: blocks {eng.block_i} x {eng.block_j} "
-              f"(0: the kernel's default) on {card}")
+    where = f" on {shards} shards" if tag.startswith("shard+") else ""
+    health = None if tag == "tpu+mxu" else eng.proxy_health()
+    if health is None:   # an exact sweep
+        print(f"{tag} N={n} {scheme}{where}: blocks {eng.block_i} x "
+              f"{eng.block_j} (0: the kernel's default) on {card}")
     else:
-        health = eng.proxy_health()
-        if not health["using_proxy"]:
+        if not health.get("using_proxy", True):
             print(f"profile_step: {tag} took the exact sweep at N={n}; "
                   "nothing to profile", file=sys.stderr)
             return 1
-        print(f"{tag} N={n} {scheme} near={health.get('near', 'interp')}: "
+        print(f"{tag} N={n} {scheme}{where} near="
+              f"{health.get('near', getattr(eng, 'near_mode', 'interp'))}: "
               f"m={health['m']} levels={health['levels']} "
-              f"cells={health['cells']} on {card}")
+              f"cells={health.get('cells', 1)} on {card}")
     eng.run(warmup)
     eng.block_until_ready()
 

@@ -50,8 +50,9 @@ def test_keys_carry_the_device_name(tune_cache, monkeypatch):
     at.store("k", 1024, {"block_i": 64, "block_j": 64}, 2.0, device="cuda")
     assert at.lookup("k", 1024, **CPU) is None
     assert at.lookup("k", 1024, device="cuda")["block_i"] == 64
-    assert at._key("k", 1024, "cuda") == "k/n1024/NVIDIA H100 80GB HBM3"
-    assert at._key("k", 1024, "cpu") == "k/n1024/cpu"
+    assert at._key("k", 1024, "cuda") == \
+        "torch/k/n1024/NVIDIA H100 80GB HBM3"
+    assert at._key("k", 1024, "cpu") == "torch/k/n1024/cpu"
 
 
 def test_cache_path_defaults_to_the_build_directory(monkeypatch):
@@ -146,6 +147,35 @@ def test_engine_autotune_sweep_runs(tune_cache, tag):
     a, b = ref.bodies.unpadded(), e.bodies.unpadded()
     np.testing.assert_allclose(b["qx"], a["qx"],
                                rtol=1e-5 if tag == "tpu+tile" else 5e-4)
+
+
+def test_cache_written_by_murb_tpu_is_not_read(tune_cache):
+    """murb_tpu keys ``tpu+mxu/n2048/cpu`` in the same ``$MURB_TUNE_CACHE``
+    with block sizes the port's sweeps are not compiled for: a port engine
+    must step past such an entry, and its own entry lands under its own
+    key."""
+    import json
+
+    with open(tune_cache, "w") as f:
+        json.dump({"tpu+mxu/n2048/cpu": {"block_i": 1024, "block_j": 512,
+                                          "ms_per_step": 1.0}}, f)
+    js = jinit.init_galaxy(2000, 3)
+    assert js.npad == 2048
+    e = create_engine("tpu+mxu", carry(js), soft=SOFT, dt=DT)
+    assert (e.block_i, e.block_j) == (0, 0) and e.tuned is None
+    e.compute_one_iteration()
+    e.assert_finite()
+    at.store("tpu+mxu", 2048, {"block_i": 64, "block_j": 128}, 0.5, **CPU)
+    with open(tune_cache) as f:
+        db = json.load(f)
+    assert db["tpu+mxu/n2048/cpu"]["block_i"] == 1024
+    assert db["torch/tpu+mxu/n2048/cpu"]["block_i"] == 64
+    assert create_engine("tpu+mxu", carry(js), soft=SOFT,
+                         dt=DT).block_i == 64
+    # a port entry the sweeps are not compiled for is skipped too
+    at.store("tpu+mxu", 2048, {"block_i": 96, "block_j": 128}, 0.5, **CPU)
+    assert create_engine("tpu+mxu", carry(js), soft=SOFT,
+                         dt=DT).block_i == 0
 
 
 def test_hybrid_pass_counts_tune_separately(tune_cache):

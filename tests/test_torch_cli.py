@@ -66,12 +66,12 @@ def test_parse_reference_flags():
 
 @pytest.mark.parametrize("argv", [
     ["--im", "no+such+tag"],
-    ["--im", "shard+ring"],
+    ["--ngs"],
     ["--visu-live"],
-    ["--shards", "4"],
+    ["--visu-out", "frames"],
     ["--profile", "trace"],
     ["--precision", "bf16"],
-    ["--im", "shard+fmm"],
+    ["--cam-azim", "30"],
 ])
 def test_unknown_or_unported_exits_1(argv, capsys):
     rc = cli.main(["-n", "300", "-i", "1", "--nv", "--device", "cpu",
