@@ -9,7 +9,10 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      whether nvcc and triton are present;
   2. build: compile the CUDA kernels from murb_tpu_torch/csrc;
   3. kernel parity: each kernel against its plain PyTorch version (run in
-     float64) at main-path shapes, with the max error and both times;
+     float64) at main-path shapes, with the max error and both times (K3
+     at 16384^2, 5000x16384 and 8000^2, the m=20 node sweep's shape, each
+     launched twice for the same bits; K4's passes 3 held to at most half
+     the error of the fp32 sum with no j split);
   4. the main path: ``tpu+proxy`` on the N=200,000 galaxy through the CLI
      (``murb_tpu_torch.cli.run``, whose exit code ``cli.main`` returns),
      plus a small CPU-vs-card trajectory check;
@@ -39,9 +42,10 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      0.02, dt 1e-6) through ``create_engine`` with the auto policy, which
      must take the adaptive solver and validate it, beside the exact
      ``tpu+hybrid`` on the same state; K10 (nf 3 and 4, and under a pair
-     capacity below the candidate count), K11 and K12 (nf 3 and 4) against
-     their plain versions in float64 on that state's own sorted bodies,
-     slots and fields; the dense hierarchy with K10 as its near field
+     capacity below the candidate count; launched twice for the same
+     bits; its sub-tile class shares and row lengths printed), K11 and K12
+     (nf 3 and 4) against their plain versions in float64 on that state's
+     own sorted bodies, slots and fields; the dense hierarchy with K10 as its near field
      (``acc_fmm(near="p2p")``); the merger through the CLI with ``--near
      adaptive`` and with ``tpu+tracking --kernel adaptive`` (row 0's energy
      held to an exact K6 energy); an N=4096 card-against-CPU check of the
@@ -60,7 +64,8 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
  11. the distributed modes, with shards on this one card (an explicit
      device list: the protocol is checked, not a link): K14 against its
      plain version in float64 on the 200k galaxy at D = 1 to 4 shards, with
-     and without a sleep before every copy and compute; ``--im shard+ring
+     and without a sleep before every copy and compute, and K3 and K4's
+     tiers at 200,192^2 against the same float64 sweep; ``--im shard+ring
      --shards 1`` through the CLI (its force error after 10 steps held to
      5e-4); ``shard+ring`` on 4 shards against ``tpu+tile`` (accelerations,
      positions after 10 steps, FPS) and its sharded checkpoint round trip
@@ -86,6 +91,7 @@ exits non-zero without printing a result otherwise.
 """
 from __future__ import annotations
 
+import ctypes
 import itertools
 import json
 import os
@@ -296,35 +302,66 @@ def main() -> int:
     gr = sr.m * torch.tensor(G, dtype=torch.float32).item()
     jset = (sr.qx, sr.qy, sr.qz, gr)
     j64 = tuple(v.double() for v in jset)
-    for label, ni in (("square 16384x16384", sr.npad),
-                      ("rect 5000x16384", 5000)):
+    # K3 at the default geometry; 8000^2 is the shape of the m=20 node
+    # sweep (phase 5).  Until its blocks fill the card's resident slots
+    # four times K3 splits its j range (ops/cuda.tile_split); two launches
+    # must give the same bits.
+    sms, resident = cuda.sm_count(dev), cuda.tile_resident(dev)
+    print(f"[3 K3 geometry] {cuda.TILE_BLOCK_I}x{cuda.TILE_BLOCK_J}: "
+          f"{resident} resident blocks an SM (occupancy), {sms} SMs")
+    for label, ni, nj in (("square 16384x16384", sr.npad, sr.npad),
+                          ("rect 5000x16384", 5000, sr.npad),
+                          ("square 8000x8000", 8000, 8000)):
         iset = (sr.qx[:ni], sr.qy[:ni], sr.qz[:ni])
-        got = acc_tile_rect(*iset, *jset, SOFT)
-        ref = acc_tile_rect_plain(*(v.double() for v in iset), *j64, SOFT)
+        js = tuple(v[:nj] for v in jset)
+        got = acc_tile_rect(*iset, *js, SOFT)
+        again = acc_tile_rect(*iset, *js, SOFT)
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"K3 {label}: two launches differ")
+        ref = acc_tile_rect_plain(*(v.double() for v in iset),
+                                  *(v[:nj] for v in j64), SOFT)
         worst = within_rel(got, ref, 5e-6, 5e-6)
         err = max(float((g.double() - r).abs().max())
                   for g, r in zip(got, ref))
         check(worst <= 1.0, f"K3 {label}: WithinRel 5e-6 (rms floor 5e-6) "
                             f"exceeded by {worst:.2f}x")
-        ms = time_ms(lambda: acc_tile_rect(*iset, *jset, SOFT))
-        plain_ms = time_ms(lambda: acc_tile_rect_plain(*iset, *jset, SOFT),
+        ms = time_ms(lambda: acc_tile_rect(*iset, *js, SOFT))
+        plain_ms = time_ms(lambda: acc_tile_rect_plain(*iset, *js, SOFT),
                            reps=3)
-        print(f"[3 K3 tile {label}] max|da| {err:.3e} WithinRel 5e-6 "
-              f"(rms floor 5e-6) at {worst:.3f} of the allowance; "
-              f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
+        b_ms = bound(24 * ni + 16 * nj, 20 * ni * nj)[0]
+        print(f"[3 K3 tile {label}] "
+              f"{cuda.tile_split(ni, nj, sms, resident)[0]} "
+              f"j slices; max|da| {err:.3e} WithinRel 5e-6 (rms floor "
+              f"5e-6) at {worst:.3f} of the allowance; the same bits twice; "
+              f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound "
+              f"{b_ms:.4f} ms")
         if ni == sr.npad:
             # 20 flops a pair: the reference's model
             keep("K3", err, ms, plain_ms, 40 * ni, 20 * ni * ni)
 
+    def k4_whole(q, g):
+        """K4 passes 2 in one j slice at 128x128: the fp32 sum with no
+        split, the first design's bits.  Through the C entry, so it counts
+        no launch."""
+        n = q[0].shape[0]
+        out = torch.empty((3, n), dtype=torch.float32, device=dev)
+        cuda.launch("murb_hybrid_rect", *(v.data_ptr() for v in q), n,
+                    *(v.data_ptr() for v in q), g.data_ptr(), n,
+                    ctypes.c_float(SOFT ** 2), 2, 128, 128, 1, -(-n // 128),
+                    None, *(o.data_ptr() for o in out), cuda.stream(dev))
+        return list(out)
+
     # passes 1/2 run K3's fp32 kernel; passes 3 is K4's own fp64-accumulating
-    # kernel.  On this input the fp32 tier already reads under 1e-6, so the
-    # passes-3 limit sits below the fp32 tier's reading, and passes 3 must
-    # also at least halve the passes-2 error: a passes-3 launch that ran the
-    # fp32 code fails both.
+    # kernel.  On this input the fp32 tier reads under 1e-6, and how far
+    # under moves with K3's j split, which can take it below passes 3's
+    # limit.  So the tiers are told apart against the fp32 sum with no
+    # split: passes 3 must read at most half of its error (a passes-3
+    # launch that ran the fp32 code fails that).
     ref = acc_tile_rect_plain(*j64[:3], *j64, SOFT)
-    rels = {}
+    rels, sums = {}, {}
     for passes, contract in ((1, 3e-5), (2, 3e-5), (3, 4e-7)):
-        got = acc_hybrid_rect(*jset[:3], *jset, SOFT, passes=passes)
+        got = sums[passes] = acc_hybrid_rect(*jset[:3], *jset, SOFT,
+                                             passes=passes)
         rel = rels[passes] = norm_rel(got, ref)
         err = max(float((g.double() - r).abs().max())
                   for g, r in zip(got, ref))
@@ -339,10 +376,17 @@ def main() -> int:
               f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
         if passes == 3:
             keep("K4", err, ms, plain_ms, 40 * sr.npad, 20 * sr.npad ** 2)
-    check(rels[3] <= 0.5 * rels[2], f"K4 passes=3 error {rels[3]:.3e} is not "
-                                    f"at most half of passes=2's "
-                                    f"{rels[2]:.3e}")
-    del st, sr, w64, a64, ref
+    rel_whole = norm_rel(k4_whole([v.contiguous() for v in jset[:3]],
+                                  jset[3].contiguous()), ref)
+    check(rels[3] <= 0.5 * rel_whole,
+          f"K4 passes=3 error {rels[3]:.3e} is not at most half of the "
+          f"unsplit fp32 sum's {rel_whole:.3e}")
+    print(f"[3 K4 tiers N=16384] passes 2 unsplit (128x128, one slice) "
+          f"{rel_whole:.3e}, in K3's split "
+          f"{cuda.tile_split(sr.npad, sr.npad, sms, resident)[0]} slices "
+          f"{rels[2]:.3e}; passes 3 {rels[3]:.3e}, at most half the "
+          f"unsplit reading")
+    del st, sr, w64, a64, ref, sums
 
     # K5 and K6 at the merger's shape, 81,920^2 with R = 2 galaxy rows.  The
     # float64 reference takes 4096 strided i-rows against every source (as
@@ -889,8 +933,10 @@ def main() -> int:
         """The body pairs K10's function needs: those of the first
         ``pmax`` candidate brick pairs (row-major, as K10 keeps them) whose
         cells pass the mask max|dc| <= 1, both bodies real (no sentinel).
-        Counted on the device from the sort's own cells."""
-        K = pp.DEFAULT_K
+        Counted on the device from the sort's own cells.  Also K10's
+        sub-tile classes of those brick pairs (ops/p2p.subtile_class: far,
+        mixed, all-near), counted in (32 x 32)-body sub-tile pairs."""
+        K, S = pp.DEFAULT_K, pp.SUB_K
         cells = torch.stack([v.to(torch.int16) for v in ci]).reshape(3, -1,
                                                                      K)
         B = cells.shape[1]
@@ -898,25 +944,46 @@ def main() -> int:
         adj = pp._adjacency(*pp._brick_boxes(ci, K))
         flat = torch.nonzero(adj.reshape(-1)).reshape(-1)[:pmax]
         tb, sb = flat // B, flat % B
+        lo, hi = (v.reshape(B, K // S, 3) for v in pp._brick_boxes(ci, S))
         total = torch.zeros((), dtype=torch.int64, device=flat.device)
+        classes = torch.zeros(3, dtype=torch.int64, device=flat.device)
         for p0 in range(0, flat.numel(), chunk):
             t, s = tb[p0:p0 + chunk], sb[p0:p0 + chunk]
             near = ((cells[:, t, :, None] - cells[:, s, None, :]).abs()
                     <= 1).all(0)
             near &= real[t][:, :, None] & real[s][:, None, :]
             total += near.sum()
-        return int(total), flat.numel() * K * K
+            cls = pp.subtile_class(lo[t][:, :, None], hi[t][:, :, None],
+                                   lo[s][:, None], hi[s][:, None])
+            classes += torch.bincount(cls.reshape(-1).long(), minlength=3)
+        return int(total), flat.numel() * K * K, classes.tolist()
 
     # K10 (nf 3 and 4); the plain version sweeps 1024 pairs a step here.
     # The bound counts the body pairs that pass the cell mask, the work the
     # function needs; K10 computes every body pair of a swept brick pair.
     t0 = time.perf_counter()
-    near9, swept_bodies9 = near_body_pairs(ci9, plan.p2p_pmax, C9)
+    near9, swept_bodies9, cls9 = near_body_pairs(ci9, plan.p2p_pmax, C9)
     t_count = time.perf_counter() - t0
+    rows9 = pk.pair_rows(pp._adjacency(*pp._brick_boxes(
+        ci9, pp.DEFAULT_K)))[0].double()
+    share = [c / sum(cls9) for c in cls9]
+    print(f"[9 K10 sub-tiles] (32 x 32)-body sub-tile pairs of the swept "
+          f"brick pairs, by class: far {share[pp.FAR]:.4f}, all-near "
+          f"{share[pp.ALL_NEAR]:.4f}, mixed {share[pp.MIXED]:.4f} "
+          f"({sum(cls9)} sub-tile pairs; the kernel sweeps "
+          f"{(1 - share[pp.FAR]) * swept_bodies9:.6e} body pairs, "
+          f"{near9} pass the mask); candidate bricks a row: mean "
+          f"{float(rows9.mean()):.2f}, p99 "
+          f"{float(torch.quantile(rows9, 0.99)):.1f}, max "
+          f"{int(rows9.max())} over {B9} rows")
     for nf in (3, 4):
         kw = dict(pmax=plan.p2p_pmax, with_phi=nf == 4)
         got, npairs = pk.p2p_sweep_kernel_sorted(xs9, ys9, zs9, gs9, ci9,
                                                  soft9, **kw)
+        again, _ = pk.p2p_sweep_kernel_sorted(xs9, ys9, zs9, gs9, ci9,
+                                              soft9, **kw)
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"K10 nf={nf}: two launches differ")
         ref, npairs64 = pp.p2p_sweep_plain_sorted(*x64, ci9, soft9,
                                                   chunk=1024, **kw)
         err = rel_max(got, ref)
@@ -937,8 +1004,8 @@ def main() -> int:
               f"pairs pass the cell mask of {swept_bodies9} swept (masked "
               f"out {1 - near9 / swept_bodies9:.4f}; counted in "
               f"{t_count:.2f} s); max|da|/max|a| {err:.3e} (tol 3e-5); "
-              f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound {b_ms:.4f} "
-              f"ms")
+              f"the same bits twice; kernel {ms:.4f} ms plain "
+              f"{plain_ms:.4f} ms bound {b_ms:.4f} ms")
         if nf == 3:
             keep("K10", err * max(float(x.abs().max()) for x in ref), ms,
                  plain_ms, nbytes, flops)
@@ -1132,11 +1199,13 @@ def main() -> int:
             lambda: fk.m2l_level_fused(w, h9 / C, soft9, m=m, C=C,
                                        with_phi=True),
             lambda: fk.l2p_grid_fused(*q9, c9, h9, f, m=m, C=C))]
+        b7 = bound(4 * 5 * C ** 3 * m ** 3, m2l_work(m, C, "expand", 4)[1])
         print(f"[9 repair {shape}] K8 {e8:.3e} of max|W| (tol 1e-5), K7 "
               f"expand nf=4 {e7:.3e} of max|f| (tol 1e-4), K9 k=4 "
               f"{e9k:.3e} of max|a| (tol 1e-4); kernel ms K8 {ms[0]:.4f} "
-              f"K7 {ms[1]:.4f} K9 {ms[2]:.4f}; the K7 check with its plain "
-              f"version took {t_plain7:.1f} s")
+              f"K7 {ms[1]:.4f} (bound {b7[0]:.4f} ms, {b7[1]}) K9 "
+              f"{ms[2]:.4f}; the K7 check with its plain version took "
+              f"{t_plain7:.1f} s")
         del w, f, a
         torch.cuda.empty_cache()
 
@@ -1355,6 +1424,47 @@ def main() -> int:
                  for i in range(0, s11.npad, 8192)]
     ref11 = [torch.cat([p[c] for p in ref_parts]) for c in range(3)]
     del q11, ref_parts
+
+    # K3 at 200,192^2 (the galaxy, in K3's j split) against the same
+    # float64 sweep, at the contract of these 200k sums: WithinRel 1e-5,
+    # rms floor 5e-6; two launches must give the same bits
+    s3 = init_galaxy(n_main, SEED, device=dev)
+    q3, n3 = (s3.qx, s3.qy, s3.qz, g_of(s3)), s3.npad
+    got = acc_tile_rect(*q3[:3], *q3, SOFT)
+    again = acc_tile_rect(*q3[:3], *q3, SOFT)
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"K3 {n3}^2: two launches differ")
+    ref3 = [r[:n3] for r in ref11]
+    w3 = within_rel(got, ref3, 1e-5, 5e-6)
+    err3 = max(float((g.double() - r).abs().max())
+               for g, r in zip(got, ref3))
+    check(w3 <= 1.0, f"K3 {n3}^2: WithinRel 1e-5 (rms floor 5e-6) "
+                     f"exceeded by {w3:.2f}x")
+    ms3 = time_ms(lambda: acc_tile_rect(*q3[:3], *q3, SOFT), reps=5,
+                  runs=3)
+    print(f"[11 K3 tile {n3}x{n3}] galaxy, "
+          f"{cuda.tile_split(n3, n3, sms, resident)[0]} j slice(s): max|da| "
+          f"{err3:.3e}, WithinRel 1e-5 (rms floor 5e-6) against the "
+          f"float64 sweep at {w3:.4f} of the allowance; the same bits "
+          f"twice; kernel {ms3:.4f} ms bound "
+          f"{bound(40 * n3, 20 * n3 * n3)[0]:.4f} ms on {smi}")
+    # the K4 tiers at this size against the same sweep: passes 2 in K3's
+    # split and unsplit, and passes 3, which must read at most half of the
+    # unsplit fp32 sum's error (as at 16384^2)
+    tiers = {"passes 2 split": norm_rel(got, ref3),
+             "passes 2 unsplit": norm_rel(k4_whole(
+                 [v.contiguous() for v in q3[:3]], q3[3].contiguous()), ref3),
+             "passes 3": norm_rel(acc_hybrid_rect(*q3[:3], *q3, SOFT,
+                                                  passes=3), ref3)}
+    check(tiers["passes 3"] <= 0.5 * tiers["passes 2 unsplit"],
+          f"K4 passes=3 error {tiers['passes 3']:.3e} at {n3}^2 is not at "
+          f"most half of the unsplit fp32 sum's "
+          f"{tiers['passes 2 unsplit']:.3e}")
+    print(f"[11 K4 tiers {n3}x{n3}] max relative force error against the "
+          f"float64 sweep: " + ", ".join(f"{k} {v:.3e}"
+                                         for k, v in tiers.items())
+          + "; passes 3 at most half the unsplit reading")
+    del s3, q3, got, again, ref3
     k14 = {}
     for d in (1, 2, 3, 4):
         sd = init_galaxy(n_main, SEED, device=dev).repad(256 * d)

@@ -27,8 +27,9 @@ extern "C" int murb_tile_rect(const float* qxi, const float* qyi,
                               const float* qzi, int ni, const float* qxj,
                               const float* qyj, const float* qzj,
                               const float* gmj, int nj, float soft2,
-                              int block_i, int block_j, float* ax, float* ay,
-                              float* az, cudaStream_t stream);
+                              int block_i, int block_j, int slices,
+                              int tiles_per_slice, float* scratch, float* ax,
+                              float* ay, float* az, cudaStream_t stream);
 
 namespace murb {
 
@@ -74,18 +75,23 @@ hybrid_ext_rect_kernel(const float* __restrict__ qxi,
 }  // namespace murb
 
 // block_i, block_j: 0 (kSweepThreads each) or a pair of {64, 128, 256, 512}.
+// slices, tiles_per_slice, scratch: K3's j split (murb_tile_rect), for
+// passes 1 and 2; passes 3 takes slices 1.
 extern "C" int murb_hybrid_rect(const float* qxi, const float* qyi,
                                 const float* qzi, int ni, const float* qxj,
                                 const float* qyj, const float* qzj,
                                 const float* gmj, int nj, float soft2,
                                 int passes, int block_i, int block_j,
-                                float* ax, float* ay, float* az,
-                                cudaStream_t stream) {
+                                int slices, int tiles_per_slice,
+                                float* scratch, float* ax, float* ay,
+                                float* az, cudaStream_t stream) {
   if (passes < 1 || passes > 3) return static_cast<int>(cudaErrorInvalidValue);
   if (passes < 3) {
     return murb_tile_rect(qxi, qyi, qzi, ni, qxj, qyj, qzj, gmj, nj, soft2,
-                          block_i, block_j, ax, ay, az, stream);
+                          block_i, block_j, slices, tiles_per_slice, scratch,
+                          ax, ay, az, stream);
   }
+  if (slices != 1) return static_cast<int>(cudaErrorInvalidValue);
   if (ni <= 0) return 0;
   return murb::with_blocks(
       block_i, block_j, murb::kSweepThreads, murb::kSweepThreads,

@@ -1,5 +1,8 @@
 // Device code shared by the exact all-pairs sweeps (tile.cu: K3,
-// hybrid.cu: K4, phi.cu: K5 and K6, mxu.cu: K13).
+// hybrid.cu: K4, phi.cu: K5 and K6, mxu.cu: K13, ring.cu: K14) and K10
+// (p2p.cu: the rsqrt and cp.async helpers).  K3 has its own
+// register-tiled sweep since its redesign (tile.cu's note); what follows
+// describes the one-target-a-thread sweep that K5, K6, K13 and K14 keep.
 //
 // Design: the reference's own gpu+tile+full kernel
 // (ref: src/murb/implem/SimulationNBodyCUDATileFullDevice.cu:53-153).  One
@@ -73,6 +76,40 @@ int with_blocks(int block_i, int block_j, int default_i, int default_j,
     case 512: return with_block_j<512>(bj, launch);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// ----------------------------------------- Hopper helpers (K3's and K10's)
+// 1/sqrt(x) on the MUFU with no denormal fix-up: for x = d^2 + eps^2 with
+// eps > 0, never denormal, the same bits as rsqrtf.
+__device__ __forceinline__ float rsqrt_ftz(float x) {
+  float y;
+  asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Asynchronous copies global -> shared (sm_80+): `bytes` of src land at dst
+// when `valid`, zeros otherwise (src-size 0: src is not read).
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Wait for every copy this thread issued; a __syncthreads after it makes
+// the whole block's copies visible.
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 // Softened pair weight G*m_j / (d^2 + eps^2)^{3/2} for the displacement

@@ -96,6 +96,10 @@ class PallasTileEngine(EulerAccelEngine):
     these the kernel's default geometry (0, 0)."""
 
     tag = "tpu+tile"
+    #: the sweep's design in its autotune key: K3's register-tiled, split-j
+    #: kernel (csrc/tile.cu) has other best blocks than its first design, so
+    #: a pick cached for that one is not read for this one
+    design = "@k3rows"
 
     def __init__(self, bodies, soft=None, dt=None, *, block_i: int = 0,
                  block_j: int = 0, autotune: bool | None = None, **kw):
@@ -110,7 +114,7 @@ class PallasTileEngine(EulerAccelEngine):
 
     @property
     def _tune_tag(self) -> str:
-        return self.tag
+        return f"{self.tag}{self.design}"
 
     def _resolve_blocks(self, autotune: bool | None) -> None:
         from murb_tpu_torch.ops.cuda import check_blocks
@@ -181,7 +185,9 @@ class HybridEngine(PallasTileEngine):
 
     @property
     def _tune_tag(self) -> str:
-        return f"{self.tag}/p{self.passes}"
+        # passes 1/2 launch K3's kernel; passes 3 is K4's own
+        design = self.design if self.passes < 3 else ""
+        return f"{self.tag}/p{self.passes}{design}"
 
     def _acc_blocks(self, qx, qy, qz, gm, bi, bj):
         from murb_tpu_torch.ops.hybrid import acc_hybrid
@@ -197,6 +203,7 @@ class MXUEngine(PallasTileEngine):
     (ops/mxu.py), each computed in fp32 by K13."""
 
     tag = "tpu+mxu"
+    design = ""
 
     def __init__(self, bodies, soft=None, dt=None, *,
                  precision: str = "high", **kw):

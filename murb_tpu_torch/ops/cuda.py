@@ -39,9 +39,10 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
 # cudaError_t of its launches.
 _SIGNATURES = {
     "murb_tile_rect": [_P, _P, _P, _I, _P, _P, _P, _P, _I, _F, _I, _I,
-                       _P, _P, _P, _P],
+                       _I, _I, _P, _P, _P, _P, _P],
+    "murb_tile_resident": [_I, _I, _P],
     "murb_hybrid_rect": [_P, _P, _P, _I, _P, _P, _P, _P, _I, _F, _I, _I, _I,
-                         _P, _P, _P, _P],
+                         _I, _I, _P, _P, _P, _P, _P],
     "murb_mxu_rect": [_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P,
                       _P],
     "murb_p2m": [_P, _P, _P, _P, _I, _P, _I, _P, _I, _P, _P],
@@ -55,8 +56,7 @@ _SIGNATURES = {
     "murb_l2p_grid": [_P, _P, _P, _P, _I, _P, _I, _I, _P, _P, _I, _P, _I,
                       _P, _P],
     "murb_m2l_level": [_P, _P, _F, _I, _I, _I, _I, _I, _P, _P, _P],
-    "murb_p2p_sorted": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _L, _F, _I,
-                        _P, _P],
+    "murb_p2p_sorted": [_P, _P, _P, _P, _I, _P, _P, _L, _F, _I, _P, _P],
     "murb_p2m_window": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _I,
                         _P, _P, _P],
     "murb_l2p_window": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _P, _P, _I,
@@ -220,6 +220,66 @@ def check_blocks(tag: str, block_i: int, block_j: int) -> None:
         if b != 0 and b not in SWEEP_BLOCKS:
             raise ValueError(f"{tag}: {name}={b} is not supported (0 or one "
                              f"of {SWEEP_BLOCKS})")
+
+
+#: K3's targets a thread at block_i 128 and more (csrc/tile.cu tile_rows,
+#: a constexpr); block_i 64 takes 2, so that a block keeps a warp
+TILE_ROWS = 4
+
+#: K3's default targets a block and sources a tile (csrc/tile.cu
+#: kTileTargets, kTileSources)
+TILE_BLOCK_I = 128
+TILE_BLOCK_J = 512
+
+#: K3 splits its j range until its blocks fill the card's resident slots
+#: this many times over: timed at 200,192^2, 16384^2 and 8000^2 in four
+#: geometries (scripts/torch_kernel_ab.py), the count it gives was within
+#: 1% of the fastest in ten of the twelve and within 8% in the others
+TILE_WAVES = 4
+
+
+def tile_rows(block_i: int = 0) -> int:
+    """Targets a thread of K3 at ``block_i`` (csrc/tile.cu tile_rows)."""
+    return TILE_ROWS if (block_i or TILE_BLOCK_I) >= 128 else 2
+
+
+def tile_split(ni: int, nj: int, sm_count: int, resident: int,
+               block_i: int = 0, block_j: int = 0) -> tuple[int, int]:
+    """K3's j split, ``(slices, tiles_per_slice)``: slice s sweeps source
+    tiles [s * tiles_per_slice, (s + 1) * tiles_per_slice) of the
+    ceil(nj / block_j) tiles, every slice at least one.  ``resident``: the
+    blocks of this geometry one SM holds at once (``tile_resident``).  One
+    slice once the target blocks fill the card's ``resident * sm_count``
+    slots ``TILE_WAVES`` times; else as many as that takes, at most one a
+    tile."""
+    bi, bj = block_i or TILE_BLOCK_I, block_j or TILE_BLOCK_J
+    tiles = -(-nj // bj)
+    blocks = -(-ni // bi)
+    want = TILE_WAVES * resident * sm_count
+    if tiles <= 1 or blocks >= want:
+        return 1, tiles
+    per = -(-tiles // min(-(-want // blocks), tiles))
+    return -(-tiles // per), per
+
+
+@functools.lru_cache(maxsize=None)
+def tile_resident(device: torch.device, block_i: int = 0,
+                  block_j: int = 0) -> int:
+    """Blocks of K3's sweep at (block_i, block_j) that one SM of ``device``
+    holds at once (csrc/tile.cu murb_tile_resident, the CUDA occupancy
+    calculator)."""
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        launch("murb_tile_resident", block_i, block_j, ctypes.byref(blocks))
+    if blocks.value < 1:
+        raise RuntimeError(f"K3 at {block_i}x{block_j}: no block fits an SM")
+    return blocks.value
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def require_cuda(tag: str, t: torch.Tensor) -> None:

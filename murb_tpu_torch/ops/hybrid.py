@@ -15,9 +15,9 @@ matrix-unit passes; the port keeps the accuracy contract of each
               for fp64 state.
 
 On CUDA tensors ``acc_hybrid_rect`` launches ``csrc/hybrid.cu`` (which
-hands passes 1/2 to K3's kernel, counted here as K4 launches) in the block
-geometry ``block_i``/``block_j`` (as K3's); on CPU tensors it runs
-``acc_hybrid_rect_plain``.
+hands passes 1/2 to K3's kernel, with K3's j split, counted here as K4
+launches) in the block geometry ``block_i``/``block_j`` (as K3's); on CPU
+tensors it runs ``acc_hybrid_rect_plain``.
 
 K5 ``phi_rows_rect`` and K6 ``acc_phi_rows_hybrid`` (``csrc/phi.cu``) take
 up to 8 source-weight rows (one masked G*m row per galaxy) and return the
@@ -36,7 +36,7 @@ import torch
 from murb_tpu_torch.ops import cuda
 from murb_tpu_torch.ops.common import Accel, notify_fp32_compute
 from murb_tpu_torch.ops.naive import _pair_weights
-from murb_tpu_torch.ops.tile import acc_tile_rect_plain
+from murb_tpu_torch.ops.tile import acc_tile_rect_plain, split_args
 
 
 def acc_hybrid_rect_plain(qxi, qyi, qzi, qxj, qyj, qzj, gmj, soft, *,
@@ -89,12 +89,14 @@ def acc_hybrid_rect(qxi, qyi, qzi, qxj, qyj, qzj, gmj, soft, *,
     xj, yj, zj, gj = cuda.kernel_inputs(tag, dev, nj, qxj, qyj, qzj, gmj,
                                         notify=notify)
     out = torch.empty((3, ni), dtype=torch.float32, device=dev)
+    split, _scratch = (split_args(ni, nj, block_i, block_j, dev)
+                       if passes < 3 else ((1, 0, None), None))
     with torch.cuda.device(dev):
         cuda.launch("murb_hybrid_rect", xi.data_ptr(), yi.data_ptr(),
                     zi.data_ptr(), ni, xj.data_ptr(), yj.data_ptr(),
                     zj.data_ptr(), gj.data_ptr(), nj,
                     ctypes.c_float(float(soft) ** 2), passes, block_i,
-                    block_j, out[0].data_ptr(), out[1].data_ptr(),
+                    block_j, *split, out[0].data_ptr(), out[1].data_ptr(),
                     out[2].data_ptr(), cuda.stream(dev))
     acc_hybrid_rect.launches += 1
     return Accel(*(o.to(dtype) for o in out))

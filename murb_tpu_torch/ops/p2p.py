@@ -79,6 +79,26 @@ def _brick_boxes(ci_s, K: int):
     return lo, hi
 
 
+#: bodies per sub-brick: K10's warp (csrc/p2p.cu kSub)
+SUB_K = 32
+
+#: K10's classes of a (32-target, 32-source) sub-tile pair (csrc/p2p.cu)
+FAR, MIXED, ALL_NEAR = 0, 1, 2
+
+
+def subtile_class(lo_t, hi_t, lo_s, hi_s) -> torch.Tensor:
+    """K10's class of target and source sub-bricks with cell boxes
+    ``lo``/``hi`` (..., 3), broadcast: FAR when some axis has a gap > 1 (no
+    body pair passes the cell mask), ALL_NEAR when every body pair does
+    (max |dc| <= 1 over both boxes), MIXED otherwise.  int8."""
+    far = ((lo_s > hi_t + 1) | (lo_t > hi_s + 1)).any(-1)
+    near = (torch.maximum(hi_s - lo_t, hi_t - lo_s) <= 1).all(-1)
+    out = torch.full(far.shape, MIXED, dtype=torch.int8, device=far.device)
+    out[near] = ALL_NEAR
+    out[far] = FAR
+    return out
+
+
 def _adjacency(lo, hi) -> torch.Tensor:
     """(B, B) bool: brick bounding boxes within Chebyshev distance 1."""
     out = None

@@ -9,7 +9,11 @@ over the rows of the (B, B) adjacency -- the running count of the rows,
 made on the device with no host sync -- and the capacity is ``size_pmax``'s
 on every device: the first ``pmax`` candidates in row-major order are
 swept, as by the plain sweep (ops/p2p.p2p_sweep_plain_sorted).
-``size_pmax_runs`` and ``build_pair_runs`` have no counterpart.
+``size_pmax_runs`` and ``build_pair_runs`` have no counterpart.  The
+wrapper also hands K10 the bodies packed as {x, y, z, G m} and {cx, cy, cz,
+0} rows, the cell box of every 32-body sub-brick (the warp's sub-tile
+classes, ops/p2p.subtile_class) and the target bricks in decreasing row
+length (the launch order), all made on the device with no host sync.
 
 ``p2p_sweep_kernel_sorted`` runs the plain sweep on CPU tensors and
 launches K10 on CUDA tensors (fp32 inside; float64 inputs are cast here
@@ -24,18 +28,37 @@ import torch
 
 from murb_tpu_torch.ops import cuda
 from murb_tpu_torch.ops.common import Accel, notify_fp32_compute
-from murb_tpu_torch.ops.p2p import (DEFAULT_CHUNK, DEFAULT_K, _adjacency,
-                                    _brick_boxes, p2p_sweep_plain_sorted,
-                                    sorted_cells)
+from murb_tpu_torch.ops.p2p import (DEFAULT_CHUNK, DEFAULT_K, SUB_K,
+                                    _adjacency, _brick_boxes,
+                                    p2p_sweep_plain_sorted, sorted_cells)
 
 _TAG = "tpu+proxy/adaptive (P2P kernel)"
 
 
 def pair_rows(adj: torch.Tensor):
-    """(starts (B,) int64: candidates of the rows before each row, n_pairs):
-    the CSR of the row-major candidate list, on the adjacency's device."""
+    """(counts (B,) int64: candidates of each row, starts (B,): candidates
+    of the rows before each row, n_pairs): the CSR of the row-major
+    candidate list, on the adjacency's device."""
     counts = adj.sum(1)
-    return counts.cumsum(0) - counts, counts.sum()
+    return counts, counts.cumsum(0) - counts, counts.sum()
+
+
+def launch_order(counts: torch.Tensor) -> torch.Tensor:
+    """K10's launch order: the target bricks by decreasing row length (ties
+    in brick order), int32, so that the longest rows start first."""
+    return torch.argsort(counts, descending=True, stable=True).to(
+        torch.int32)
+
+
+def subbrick_boxes(cells) -> torch.Tensor:
+    """(n / 32, 2, 4) int32: the cell box {lo, hi} of every 32-body
+    sub-brick of the sorted cells, padded to 16-byte rows for K10."""
+    lo, hi = _brick_boxes(cells, SUB_K)
+    box = torch.zeros((lo.shape[0], 2, 4), dtype=torch.int32,
+                      device=lo.device)
+    box[:, 0, :3] = lo
+    box[:, 1, :3] = hi
+    return box
 
 
 def p2p_sweep_kernel_sorted(xs, ys, zs, gs, ci, soft, *, pmax: int,
@@ -59,15 +82,19 @@ def p2p_sweep_kernel_sorted(xs, ys, zs, gs, ci, soft, *, pmax: int,
     cells = cuda.int_inputs(_TAG, dev, n, *ci)
     B = n // DEFAULT_K
     adj = _adjacency(*_brick_boxes(cells, DEFAULT_K)).contiguous()
-    starts, n_pairs = pair_rows(adj)
+    counts, starts, n_pairs = pair_rows(adj)
+    order = launch_order(counts)
+    body = torch.stack((x, y, z, g), 1)
+    cell = torch.stack((*cells, torch.zeros_like(cells[0])), 1)
+    box = subbrick_boxes(cells)
     nf = 4 if with_phi else 3
     out = torch.empty((nf, n), dtype=torch.float32, device=dev)
     soft2 = float(torch.tensor(soft, dtype=torch.float32) ** 2)
     with torch.cuda.device(dev):
-        cuda.launch("murb_p2p_sorted", x.data_ptr(), y.data_ptr(),
-                    z.data_ptr(), g.data_ptr(), *(c.data_ptr() for c in cells),
-                    B, adj.data_ptr(), starts.data_ptr(), int(pmax), soft2,
-                    int(with_phi), out.data_ptr(), cuda.stream(dev))
+        cuda.launch("murb_p2p_sorted", body.data_ptr(), cell.data_ptr(),
+                    box.data_ptr(), order.data_ptr(), B, adj.data_ptr(),
+                    starts.data_ptr(), int(pmax), soft2, int(with_phi),
+                    out.data_ptr(), cuda.stream(dev))
     p2p_sweep_kernel_sorted.launches += 1
     return tuple(o.reshape(B, DEFAULT_K).to(dtype) for o in out), n_pairs
 

@@ -6,10 +6,13 @@ hand-written kernel ``csrc/tile.cu`` (which replaces the TPU kernel
 ``tile_pallas._tile_kernel``), on CPU tensors it runs
 ``acc_tile_rect_plain``.  The kernel masks ragged edges itself, so callers
 pad nothing.  ``block_i``/``block_j`` pick one of its compiled geometries
-(0 each: 128 targets a block, 128 sources a tile; ops/cuda.check_blocks);
-the plain version has none and ignores them.  It serves ``tpu+tile`` /
-``gpu+tile`` and the proxy node sweep at P >= 8000 nodes
-(ops/proxy.node_sweep).
+(0 each: 128 targets a block, 512 sources a tile; ops/cuda.check_blocks);
+the plain version has none and ignores them.  When the target blocks
+cannot fill the card, the wrapper splits the j range into slices of whole
+tiles (ops/cuda.tile_split) and hands the kernel a (slices, 3, ni)
+scratch, which the kernel folds in slice order.  It serves ``tpu+tile`` /
+``gpu+tile``, K4 passes 1/2 (ops/hybrid.py) and the proxy node sweep at
+P >= 8000 nodes (ops/proxy.node_sweep).
 """
 from __future__ import annotations
 
@@ -27,6 +30,21 @@ def acc_tile_rect_plain(qxi, qyi, qzi, qxj, qyj, qzj, gmj, soft) -> Accel:
     in the inputs' dtype."""
     return acc_rect_jchunked(qxi, qyi, qzi, qxj, qyj, qzj, gmj, soft,
                              chunk=4096)
+
+
+def split_args(ni: int, nj: int, block_i: int, block_j: int,
+               device: torch.device):
+    """K3's j split on ``device``: ``((slices, tiles_per_slice, scratch
+    pointer or None), scratch)``, the scratch a fresh (slices, 3, ni)
+    float32 tensor (None for one slice) that the caller keeps until the
+    launch is enqueued."""
+    slices, per = cuda.tile_split(ni, nj, cuda.sm_count(device),
+                                  cuda.tile_resident(device, block_i, block_j),
+                                  block_i, block_j)
+    scratch = (torch.empty((slices, 3, ni), dtype=torch.float32,
+                           device=device) if slices > 1 else None)
+    return (slices, per, None if scratch is None else scratch.data_ptr()), \
+        scratch
 
 
 def acc_tile_rect(qxi, qyi, qzi, qxj, qyj, qzj, gmj, soft, *,
@@ -48,13 +66,14 @@ def acc_tile_rect(qxi, qyi, qzi, qxj, qyj, qzj, gmj, soft, *,
     xj, yj, zj, gj = cuda.kernel_inputs("tpu+tile", dev, nj, qxj, qyj, qzj,
                                         gmj, notify=notify_fp32_compute)
     out = torch.empty((3, ni), dtype=torch.float32, device=dev)
+    split, _scratch = split_args(ni, nj, block_i, block_j, dev)
     with torch.cuda.device(dev):
         cuda.launch("murb_tile_rect", xi.data_ptr(), yi.data_ptr(),
                     zi.data_ptr(), ni, xj.data_ptr(), yj.data_ptr(),
                     zj.data_ptr(), gj.data_ptr(), nj,
                     ctypes.c_float(float(soft) ** 2), block_i, block_j,
-                    out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
-                    cuda.stream(dev))
+                    *split, out[0].data_ptr(), out[1].data_ptr(),
+                    out[2].data_ptr(), cuda.stream(dev))
     acc_tile_rect.launches += 1
     return Accel(*(o.to(dtype) for o in out))
 

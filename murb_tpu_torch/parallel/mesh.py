@@ -180,21 +180,23 @@ def gather_state(blocks, mesh: Mesh, n: int, padding: int) -> BodyState:
                         for k in FIELDS}, n=n, padding=padding)
 
 
-def maybe_init_distributed(device=None) -> bool:
+def maybe_init_distributed(device="cuda") -> bool:
     """Multi-process bring-up: initialise ``torch.distributed`` when the
     environment names a coordinator (the variables murb_tpu reads):
     ``MURB_COORDINATOR`` (host:port), ``MURB_NUM_PROCESSES`` and
-    ``MURB_PROCESS_ID``.  gloo for CPU shards, NCCL for CUDA shards
-    (``device``; by default CUDA when a card is present).  Returns True if
-    the runtime is up."""
+    ``MURB_PROCESS_ID``.  gloo for CPU shards (``device="cpu"``), NCCL for
+    CUDA shards (the default); CUDA with no card raises and starts nothing.
+    Returns True if the runtime is up."""
     coord = os.environ.get("MURB_COORDINATOR")
     if not coord:
         return False
     if dist.is_initialized():
         return True
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
     cuda = torch.device(device).type == "cuda"
+    if cuda and not torch.cuda.is_available():
+        raise RuntimeError("maybe_init_distributed: CUDA shards asked for but "
+                           "no CUDA device is available (pass device='cpu' "
+                           "for gloo on CPU shards)")
     rank = int(os.environ.get("MURB_PROCESS_ID", "0"))
     if cuda:
         torch.cuda.set_device(rank % torch.cuda.device_count())

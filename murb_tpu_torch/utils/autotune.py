@@ -12,7 +12,8 @@ no hand-set constants.
 Enable with ``MURB_AUTOTUNE=1`` (or ``autotune=True`` on the exact
 engines, ``--autotune`` on the CLI); the cache file is
 ``$MURB_TUNE_CACHE`` or ``build/murb_tpu_torch/autotune.json``.  A key
-(``torch/{kernel}/n{npad}/{device}``) carries the device's name
+(``torch/{kernel}/n{npad}/{device}``; an engine's kernel name may carry
+its sweep's design, ``tpu+tile@k3rows``) carries the device's name
 (``torch.cuda.get_device_name``, or ``cpu``), so a cache never hands one
 card's geometry to another, and the ``torch/`` prefix keeps it apart from
 ``murb_tpu``'s entries in a shared cache.

@@ -4,8 +4,9 @@
                                                 [--shards D] [TAG ...]
 
 TAG is ``tpu+proxy`` (the default), ``tpu+tracking``,
-``tpu+leapfrog+tracking``, ``tpu+mxu`` (the exact norm-expansion sweep,
-K13, in the block geometry a tuned entry or the kernel gives) or one of the
+``tpu+leapfrog+tracking``, ``tpu+mxu`` or ``tpu+tile`` (the exact
+norm-expansion sweep K13 or the exact fp32 sweep K3, in the block geometry
+a tuned entry or the kernel gives) or one of the
 distributed modes ``shard+ring``, ``shard+allgather``, ``shard+proxy`` and
 ``shard+adaptive``, built through ``create_engine`` with D shards (default
 1) on the one card (``devices=[cuda:0] * D``); S is
@@ -52,12 +53,14 @@ WARMUP, WINDOWS, WINDOW_STEPS = 5, 3, 200
 STEPS = 50      # profiled steps
 TOP = 12        # device events listed
 TAGS = ("tpu+proxy", "tpu+tracking", "tpu+leapfrog+tracking", "tpu+mxu",
-        "shard+ring", "shard+allgather", "shard+proxy", "shard+adaptive")
+        "tpu+tile", "shard+ring", "shard+allgather", "shard+proxy",
+        "shard+adaptive")
 SCHEMES = ("galaxy", "random", "milkyway_andromeda", "two_clusters")
 #: (warm-up steps, steps per window, profiled steps) of the slower steps,
 #: by scheme or tag
 SHORT = {"milkyway_andromeda": (2, 20, 10), "two_clusters": (1, 5, 3),
-         "tpu+mxu": (2, 20, 10), "shard+ring": (2, 20, 10),
+         "tpu+mxu": (2, 20, 10), "tpu+tile": (2, 20, 10),
+         "shard+ring": (2, 20, 10),
          "shard+allgather": (2, 20, 10)}
 #: murb_tpu's bench row adaptive_two_clusters_1m (bench.py:442-460)
 TWO_CLUSTERS_N, TWO_CLUSTERS_SOFT, TWO_CLUSTERS_DT = 1_048_576, 0.02, 1e-6
@@ -170,7 +173,7 @@ def profile_tag(tag: str, scheme: str = "galaxy", near: str = "auto",
         eng, n = _engine(tag, scheme, near, total, dev, tmp, shards)
     card = torch.cuda.get_device_name(dev)
     where = f" on {shards} shards" if tag.startswith("shard+") else ""
-    health = None if tag == "tpu+mxu" else eng.proxy_health()
+    health = None if tag in ("tpu+mxu", "tpu+tile") else eng.proxy_health()
     if health is None:   # an exact sweep
         print(f"{tag} N={n} {scheme}{where}: blocks {eng.block_i} x "
               f"{eng.block_j} (0: the kernel's default) on {card}")

@@ -3,6 +3,8 @@ murb_tpu's tests/test_autotune.py cases that apply to the port's exact
 sweeps (K3, K4, K13), on the CPU (where the sweep times the plain
 versions: only the wiring is under test here; chip_smoke.py phase 10
 times the kernels)."""
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -53,6 +55,25 @@ def test_keys_carry_the_device_name(tune_cache, monkeypatch):
     assert at._key("k", 1024, "cuda") == \
         "torch/k/n1024/NVIDIA H100 80GB HBM3"
     assert at._key("k", 1024, "cpu") == "torch/k/n1024/cpu"
+
+
+@pytest.mark.parametrize("im,key", [
+    ("tpu+tile", "torch/tpu+tile@k3rows/n512/cpu"),
+    ("tpu+hybrid+fast", "torch/tpu+hybrid/p1@k3rows/n512/cpu"),
+    ("tpu+hybrid", "torch/tpu+hybrid/p2@k3rows/n512/cpu"),
+    ("tpu+hybrid+x3", "torch/tpu+hybrid/p3/n512/cpu"),
+    ("tpu+mxu", "torch/tpu+mxu/n512/cpu")])
+def test_keys_of_k3_carry_its_design(tune_cache, im, key):
+    """The engines that launch K3 tag its design in their key, so a pick
+    cached for the first design is not read; the others keep their keys."""
+    bodies = carry(jinit.init_galaxy(500, 3))
+    e = create_engine(im, bodies, soft=SOFT, dt=DT)
+    assert at._key(e._tune_tag, bodies.npad, "cpu") == key
+    old = key.replace("@k3rows", "")
+    with open(at._cache_path(), "w") as f:
+        json.dump({old: {"block_i": 512, "block_j": 512}}, f)
+    again = create_engine(im, bodies, soft=SOFT, dt=DT)
+    assert (again.tuned is None) == ("@" in key)
 
 
 def test_cache_path_defaults_to_the_build_directory(monkeypatch):
@@ -119,7 +140,9 @@ def test_engine_uses_cached_blocks(tune_cache, tag):
     """An engine with unspecified blocks picks up a persisted tune result
     even with autotuning off; explicit blocks always win."""
     bodies = carry(jinit.init_galaxy(500, 3))
-    at.store(tag, bodies.npad, {"block_i": 256, "block_j": 512}, 0.5, **CPU)
+    key = create_engine(tag, bodies, soft=SOFT, dt=DT, block_i=64,
+                        block_j=64)._tune_tag
+    at.store(key, bodies.npad, {"block_i": 256, "block_j": 512}, 0.5, **CPU)
     e = create_engine(tag, bodies, soft=SOFT, dt=DT)
     assert (e.block_i, e.block_j) == (256, 512)
     assert e.tuned["ms_per_step"] == 0.5
@@ -182,8 +205,9 @@ def test_hybrid_pass_counts_tune_separately(tune_cache):
     bodies = carry(jinit.init_galaxy(500, 3))
     e1 = create_engine("tpu+hybrid", bodies, soft=SOFT, dt=DT)
     e2 = create_engine("tpu+hybrid+fast", bodies, soft=SOFT, dt=DT)
-    assert e1._tune_tag == "tpu+hybrid/p2" and e2._tune_tag == "tpu+hybrid/p1"
-    at.store("tpu+hybrid/p1", bodies.npad, {"block_i": 64, "block_j": 64},
+    assert e1._tune_tag == "tpu+hybrid/p2@k3rows" and \
+        e2._tune_tag == "tpu+hybrid/p1@k3rows"
+    at.store(e2._tune_tag, bodies.npad, {"block_i": 64, "block_j": 64},
              0.1, **CPU)
     e3 = create_engine("tpu+hybrid+fast", bodies, soft=SOFT, dt=DT)
     e4 = create_engine("tpu+hybrid", bodies, soft=SOFT, dt=DT)

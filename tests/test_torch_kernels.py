@@ -16,6 +16,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from conftest import assert_within_rel
 from murb_tpu import G
@@ -273,6 +275,45 @@ def test_kernel_inputs_checks_dtype_shape_and_device():
     with pytest.raises(ValueError, match="meta"):
         cuda.kernel_inputs("k", dev, 8, torch.zeros(8, device="meta"),
                            notify=note)
+
+
+# ------------------------------------------------------- K3's j split
+@settings(max_examples=300, deadline=None)
+@given(ni=st.integers(1, 400_000), nj=st.integers(0, 400_000),
+       sms=st.integers(1, 200), resident=st.integers(1, 32),
+       bi=st.sampled_from((0,) + cuda.SWEEP_BLOCKS),
+       bj=st.sampled_from((0,) + cuda.SWEEP_BLOCKS))
+def test_tile_split_covers_every_source_once_in_order(ni, nj, sms, resident,
+                                                      bi, bj):
+    """Slices of whole tiles, in order, cover the j tiles exactly once,
+    none empty, as csrc/tile.cu checks; one slice once the target blocks
+    fill the card's resident slots TILE_WAVES times."""
+    slices, per = cuda.tile_split(ni, nj, sms, resident, bi, bj)
+    tiles = -(-nj // (bj or cuda.TILE_BLOCK_J))
+    assert 1 <= slices <= max(tiles, 1)
+    assert slices * per >= tiles and (slices == 1
+                                      or (slices - 1) * per < tiles)
+    covered = [t for s in range(slices)
+               for t in range(s * per, min((s + 1) * per, tiles))]
+    assert covered == list(range(tiles))
+    blocks = -(-ni // (bi or cuda.TILE_BLOCK_I))
+    if blocks >= cuda.TILE_WAVES * resident * sms:
+        assert slices == 1
+
+
+@pytest.mark.parametrize("ni,nj,want", [
+    (1_048_576, 1_048_576, 1), (200_192, 200_192, 5), (16_384, 16_384, 32),
+    (8_000, 8_000, 16), (5_000, 16_384, 32), (50_176, 200_704, 18),
+    (2_048, 2_048, 4)])
+def test_tile_split_at_the_main_path_shapes(ni, nj, want):
+    """On 132 SMs at the default geometry (128 targets a block, 4 a
+    thread, 512 sources a tile), of which an H100 SM holds 13 blocks: the
+    1M sweep keeps one slice, the others split until they fill the slots
+    four times or have one tile a slice."""
+    assert cuda.tile_rows() == 4 and cuda.tile_rows(64) == 2
+    slices, per = cuda.tile_split(ni, nj, 132, 13)
+    assert slices == want
+    assert (slices - 1) * per < -(-nj // 512) <= slices * per
 
 
 # -------------------------------------------------------------- the build

@@ -90,3 +90,21 @@ def test_make_mesh_devices(monkeypatch):
 def test_maybe_init_distributed_needs_the_coordinator(monkeypatch):
     monkeypatch.delenv("MURB_COORDINATOR", raising=False)
     assert M.maybe_init_distributed("cpu") is False
+
+
+def test_maybe_init_distributed_without_a_card_raises(monkeypatch):
+    """No device given means CUDA shards: with no card the call raises and
+    starts no process group, and never falls back to gloo."""
+    started = []
+    monkeypatch.setenv("MURB_COORDINATOR", "localhost:1")
+    monkeypatch.setenv("MURB_NUM_PROCESSES", "1")
+    monkeypatch.setenv("MURB_PROCESS_ID", "0")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(M.dist, "is_initialized", lambda: False)
+    monkeypatch.setattr(M.dist, "init_process_group",
+                        lambda *a, **k: started.append((a, k)))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        M.maybe_init_distributed()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        M.maybe_init_distributed("cuda")
+    assert started == []

@@ -17,6 +17,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from murb_tpu.ops import fmm as jf
 from murb_tpu.ops import p2p as jp
@@ -126,9 +128,10 @@ def test_pair_rows_is_the_row_major_list():
     the kept pairs are the first pmax of the row-major list."""
     rng = np.random.default_rng(3)
     adj = torch.from_numpy(rng.random((40, 40)) < 0.2)
-    starts, n_pairs = tk.pair_rows(adj)
+    counts, starts, n_pairs = tk.pair_rows(adj)
     flat = torch.nonzero(adj.reshape(-1)).reshape(-1)
     assert int(n_pairs) == flat.numel()
+    assert counts.tolist() == adj.sum(1).tolist()
     for t in range(40):
         row = flat[(flat // 40) == t]
         if row.numel():
@@ -194,6 +197,84 @@ def test_kernel_wrapper_runs_the_plain_sweep_on_cpu(clusters):
         tk.p2p_sweep_kernel_sorted(*(v[:200] for v in args[0]),
                                    tuple(v[:200] for v in args[1]), SOFT,
                                    pmax=128)
+
+
+# ------------------------------------------------ K10's sub-tile classes
+def sorted_cells_of(kind: str, n: int = 3990, C: int = 8):
+    """(n_pad, 3) sorted int32 cells of a test box at C=8, sentinel rows
+    last; n = 3990 leaves a sub-brick of 22 real and 10 sentinel rows."""
+    _, t, _ = bodies(kind, n, 4096)
+    c, h = tbox(*t[:3], t[3] > 0)
+    key, ci = tp.sorted_cells(*t[:3], t[3] > 0, c, h.max().expand(3), C)
+    _, perm = torch.sort(key, stable=True)
+    return tuple(v[perm] for v in ci)
+
+
+@pytest.mark.parametrize("kind", ["clusters", "uniform"])
+def test_subtile_classes_hold_the_cell_mask(kind):
+    """On the tests' two-cluster and random boxes: every body pair that
+    passes the cell mask lies in a sub-tile pair not classed far, every
+    body pair of an all-near sub-tile pair passes it, and no all-near
+    sub-tile pair mixes a sentinel row with a real body."""
+    ci = sorted_cells_of(kind)
+    S, n = tp.SUB_K, ci[0].shape[0]
+    lo, hi = tp._brick_boxes(ci, S)
+    cls = tp.subtile_class(lo[:, None], hi[:, None], lo[None], hi[None])
+    mask = torch.ones((n, n), dtype=torch.bool)
+    for c in ci:
+        c = c.to(torch.int16)
+        mask &= (c[:, None] - c[None, :]).abs() <= 1
+    blocks = mask.reshape(n // S, S, n // S, S)
+    any_pass, all_pass = blocks.any(3).any(1), blocks.all(3).all(1)
+    assert not (any_pass & (cls == tp.FAR)).any()
+    assert all_pass[cls == tp.ALL_NEAR].all()
+    assert torch.equal(cls == tp.ALL_NEAR, all_pass)
+    sent = (ci[0] >= 8).reshape(n // S, S)
+    has_sent, has_real = sent.any(1), (~sent).any(1)
+    mixes = ((has_sent[:, None] | has_sent[None])
+             & (has_real[:, None] | has_real[None]))
+    assert not (mixes & (cls == tp.ALL_NEAR)).any()
+    assert (has_sent & has_real).any()      # the case is there
+    assert set(cls.unique().tolist()) == {tp.FAR, tp.MIXED, tp.ALL_NEAR}
+
+
+@settings(max_examples=200, deadline=None)
+@given(seed=st.integers(0, 2 ** 32 - 1), span=st.integers(1, 5),
+       sent_t=st.integers(0, 32), sent_s=st.integers(0, 32))
+def test_subtile_class_against_every_body_pair(seed, span, sent_t, sent_s):
+    """Two 32-body sub-bricks of random cells (the last rows sentinels):
+    all-near exactly when every body pair passes the mask, far only when
+    none does."""
+    rng = np.random.default_rng(seed)
+    C = 8
+
+    def sub(n_sent):
+        c = rng.integers(0, C - span + 1, 3) + rng.integers(0, span, (32, 3))
+        c[32 - n_sent:] = 2 * C + tp._SENTINEL_SHIFT
+        return torch.from_numpy(c.astype(np.int32))
+
+    a, b = sub(sent_t), sub(sent_s)
+    cls = int(tp.subtile_class(a.amin(0), a.amax(0), b.amin(0), b.amax(0)))
+    mask = ((a[:, None] - b[None]).abs() <= 1).all(-1)
+    assert (cls == tp.ALL_NEAR) == bool(mask.all())
+    if cls == tp.FAR:
+        assert not mask.any()
+
+
+def test_kernel_inputs_on_the_host():
+    """What the K10 wrapper hands the kernel besides the bodies: the
+    sub-brick boxes in 16-byte rows and the launch order, longest rows
+    first, ties in brick order."""
+    ci = sorted_cells_of("clusters")
+    box = tk.subbrick_boxes(ci)
+    lo, hi = tp._brick_boxes(ci, tp.SUB_K)
+    assert box.shape == (4096 // 32, 2, 4) and box.dtype == torch.int32
+    assert torch.equal(box[:, 0, :3], lo) and torch.equal(box[:, 1, :3], hi)
+    assert not box[:, :, 3].any()
+    counts = torch.tensor([3, 7, 7, 0, 7, 1])
+    order = tk.launch_order(counts)
+    assert order.dtype == torch.int32
+    assert order.tolist() == [1, 2, 4, 0, 5, 3]
 
 
 # ------------------------------------------------- the hierarchy with P2P
