@@ -50,30 +50,39 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      adaptive`` and with ``tpu+tracking --kernel adaptive`` (row 0's energy
      held to an exact K6 energy); an N=4096 card-against-CPU check of the
      adaptive step; and the repair (K7-K9 at m=18 and m=32);
- 10. the exact large-N path: K13 against its plain version in float64 (a
-     4096-row strided sample of the N=200,000 galaxy against all of it,
-     and the 16384^2 galaxy) at every block pair it is compiled for;
+ 10. the exact large-N path: K13 (TF32 tensor-core products) against
+     float64 (a 4096-row strided sample of the N=200,000 galaxy against all
+     of it, held to the direct sweep of the whole galaxy, and the 16384^2
+     galaxy, to its plain version in float64) at every block pair
+     it is compiled for, and at "high" and "default" against float64 and
+     against its plain version at the same tier, each launched twice for
+     the same bits ("highest" must give "high"'s bits; at "default" the
+     worst body's gap shown to be one-TF32-ulp flips of W, the rms gap over
+     all bodies bounded, and a truncating control read to fail it); the
+     study of one TF32 product on S that decides S's tier mapping;
      ``tpu+mxu`` on the N=200,000 galaxy through the CLI (its force error
-     after 10 steps held to 5e-4) and ``tpu+tracking --kernel mxu`` (row
-     0's energy held to the exact K6 energy); ``--autotune`` for tpu+mxu
+     after 10 steps held to 5e-4; its 200,192^2 launch held to its plain
+     version and to the float64 sweep of the whole galaxy) and
+     ``tpu+tracking --kernel mxu`` (row 0's energy held to the exact K6
+     energy); ``--autotune`` for tpu+mxu
      at 200k and tpu+hybrid at 16384 and 200k under a temporary cache,
      each candidate's time printed and a second run reading the winner
      without a sweep; ``--save-state`` after 10 steps and ``--load-state``
      for 10 more against 20 straight (bit for bit); ``--dump-traj
      --dump-every 5`` read back;
- 11. the distributed modes, with shards on this one card (an explicit
-     device list: the protocol is checked, not a link): K14 against its
-     plain version in float64 on the 200k galaxy at D = 1 to 4 shards, with
-     and without a sleep before every copy and compute, and K3 and K4's
-     tiers at 200,192^2 against the same float64 sweep; ``--im shard+ring
-     --shards 1`` through the CLI (its force error after 10 steps held to
-     5e-4); ``shard+ring`` on 4 shards against ``tpu+tile`` (accelerations,
-     positions after 10 steps, FPS) and its sharded checkpoint round trip
-     (bit for bit); ``shard+allgather`` and ``shard+uneven`` (0.6) on 4
-     shards against ``tpu+hybrid``; ``shard+proxy`` on the galaxy (K1/K2)
-     and on the random box (promoted to the hierarchy at phase 8's (m, L):
-     K7-K9); ``shard+adaptive`` on the 1M two-cluster box (1 shard) and the
-     merger (2 shards): K10-K12, health ok.
+ 11. the distributed modes, with shards on this one card (an explicit device
+     list: the protocol is checked, not a link): K14 (whose ring steps are K3's
+     sweeps) against its plain version in float64 on the 200k galaxy at D = 1
+     to 4 shards, with and without a sleep before every copy and compute, at D
+     = 1 bit for bit K3's output, and K3 and K4's tiers at 200,192^2 against
+     the same float64 sweep; ``--im shard+ring --shards 1`` through the CLI
+     (its force error after 10 steps held to 5e-4); ``shard+ring`` on 4 shards
+     against ``tpu+tile`` (accelerations, positions after 10 steps, FPS) and
+     its sharded checkpoint round trip (bit for bit); ``shard+allgather`` and
+     ``shard+uneven`` (0.6) on 4 shards against ``tpu+hybrid``; ``shard+proxy``
+     on the galaxy (K1/K2) and on the random box (promoted to the hierarchy at
+     phase 8's (m, L): K7-K9); ``shard+adaptive`` on the 1M two-cluster box (1
+     shard) and the merger (2 shards): K10-K12, health ok.
 Each piece of the path (the CLI run of phase 4, the ``acc_proxy`` of phase
 5, each CLI run of phase 6, each run of phases 7 to 11) starts from zeroed
 launch counts, which are read right after it: K1 and K2 from phase 4, K3
@@ -83,8 +92,9 @@ run of phase 9, K13 from the ``tpu+mxu`` run of phase 10, K14 from the
 4-shard ``shard+ring`` run of phase 11.  Every kernel must have launched in
 its piece.  The line before the last is the kernels' JSON
 record (with each kernel's bound: the larger of its bytes over 3.35 TB/s
-and its operations over the 67 TFLOP/s fp32 peak of an H100 SXM); the last
-line is the result object.
+and its operations over the 67 TFLOP/s fp32 peak of an H100 SXM; K13's the
+largest of its MUFU rsqrt floor, its TF32 products at 495 TFLOP/s and its
+fp32 work); the last line is the result object.
 
 Needs a CUDA device and the rest of the repository beside this file; it
 exits non-zero without printing a result otherwise.
@@ -230,8 +240,10 @@ def main() -> int:
 
     record = {}
 
-    def keep(k, err, ms, plain_ms, nbytes, flops):
+    def keep(k, err, ms, plain_ms, nbytes, flops, bound_ms=None):
         b_ms, b_by = bound(nbytes, flops)
+        if bound_ms is not None:    # K13: its own operations' floor
+            b_ms, b_by = max(b_ms, bound_ms), "operations"
         # no single PyTorch call computes any of these kernels' functions
         record[k] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
@@ -306,7 +318,8 @@ def main() -> int:
     # sweep (phase 5).  Until its blocks fill the card's resident slots
     # four times K3 splits its j range (ops/cuda.tile_split); two launches
     # must give the same bits.
-    sms, resident = cuda.sm_count(dev), cuda.tile_resident(dev)
+    sms = cuda.sm_count(dev)
+    resident = cuda.resident("murb_tile_resident", dev)
     print(f"[3 K3 geometry] {cuda.TILE_BLOCK_I}x{cuda.TILE_BLOCK_J}: "
           f"{resident} resident blocks an SM (occupancy), {sms} SMs")
     for label, ni, nj in (("square 16384x16384", sr.npad, sr.npad),
@@ -1211,35 +1224,159 @@ def main() -> int:
 
     # ------------------------------- 10. the exact large-N path, K13
     # murb_tpu's exact-ladder row (bench.py:373-377): tpu+mxu on the
-    # N=200,000 galaxy, nothing cut.  K13 against its plain version run in
-    # float64 on the same inputs: a 4096-row strided i-sample against all
-    # 200k sources (the rect entry; the centre comes from the j-set, as in
-    # the square run) and the 16384^2 galaxy, for every block pair the
-    # kernel is compiled for.  Contract: tests/test_oracle.py:99-100,
-    # WithinRel 5e-4 with an rms floor of 5e-4, on every component.
+    # N=200,000 galaxy, nothing cut.  Two shapes: a 4096-row strided
+    # i-sample against all 200k sources (the rect entry; the centre comes
+    # from the j-set, as in the square run) and the 16384^2 galaxy.  K13
+    # runs S and P on the tensor cores in TF32 (ops/mxu.py); its plain
+    # version computes the same TF32 arithmetic with torch ops.
+    #   - "high" (the engines' tier) at every block pair the kernel is
+    #     compiled for, "default" at the default pair; "highest" is
+    #     "high"'s code (two products on P) and must give its bits;
+    #   - against float64 (the direct sweep of the whole galaxy for the
+    #     sample, the plain version run in float64 for 16384^2): WithinRel
+    #     5e-4 with an rms floor of 5e-4 (tests/test_oracle.py:99-100) at
+    #     "high", 1e-3 (rms floor 1e-3) at "default", the bound
+    #     tests/test_torch_mxu.py states for its one TF32 pass on P;
+    #   - against its plain version at the same tier, on the card: the
+    #     same TF32 products, summed in another order (and the card's
+    #     rsqrt).  "high": WithinRel 1e-5 (rms floor 1e-5).  "default"
+    #     rounds W to TF32, so where the two S differ in the last bit and W
+    #     sits at a TF32 tie, the two take neighbouring TF32 values of W
+    #     and the body moves by one TF32 ulp (2^-11 to 2^-10) of that
+    #     pair's term.  The worst body's gap, where it passes the summation
+    #     noise (WithinRel 1e-5), must be such flips: its 16 strongest pairs
+    #     are launched alone in both, and the pairs whose results differ by
+    #     one TF32 ulp must account for the gap.  Each body is held to that
+    #     one ulp (WithinRel 1e-3, rms floor 1e-3), and the rms of the
+    #     difference over all bodies to 2e-5 of the force's rms, which the
+    #     control, the plain version with W truncated to TF32 instead of
+    #     rounded (a bias of about 2^-12), is read to fail;
+    #   - launched twice at each tier for the same bits.
+    from murb_tpu_torch.ops import mxu as mxu_ops
     from murb_tpu_torch.ops.mxu import acc_mxu_rect, acc_mxu_rect_plain
     from murb_tpu_torch.utils import autotune as at
 
     wrappers["K13"] = acc_mxu_rect
+    g_of = lambda s: s.m * torch.tensor(G, dtype=torch.float32).item()
+    # the float64 direct sweep of the whole 200k galaxy, padded for D = 4
+    # (phase 11): ghost rows have no mass, so each padding compares its own
+    # rows.  The reference of K13's main-path launch, its sample, and of K3
+    # and K14 in phase 11.
+    s11 = init_galaxy(n_main, SEED, device=dev).repad(256 * 4)
+    q11 = [v.double() for v in (s11.qx, s11.qy, s11.qz, g_of(s11))]
+    ref_parts = [acc_tile_rect_plain(*(v[i:i + 8192] for v in q11[:3]),
+                                     *q11, SOFT)
+                 for i in range(0, s11.npad, 8192)]
+    ref11 = [torch.cat([p[c] for p in ref_parts]) for c in range(3)]
+    del s11, q11, ref_parts
     s10 = init_galaxy(n_main, SEED, device=dev)
-    g10 = s10.m * torch.tensor(G, dtype=torch.float32).item()
-    q10 = (s10.qx, s10.qy, s10.qz, g10)
-    q10_64 = tuple(v.double() for v in q10)
+    q10 = (s10.qx, s10.qy, s10.qz, g_of(s10))
     idx10 = torch.linspace(0, s10.npad - 1, 4096, device=dev).long()
     s16 = init_galaxy(16_384, SEED, device=dev)
-    g16 = s16.m * torch.tensor(G, dtype=torch.float32).item()
-    q16 = (s16.qx, s16.qy, s16.qz, g16)
+    q16 = (s16.qx, s16.qy, s16.qz, g_of(s16))
     q16_64 = tuple(v.double() for v in q16)
     cases10 = {
         "rect 4096x200k": (tuple(v[idx10] for v in q10[:3]), q10,
-                           acc_mxu_rect_plain(*(v[idx10] for v in q10_64[:3]),
-                                              *q10_64, SOFT)),
+                           [r[idx10] for r in ref11]),
         "square 16384^2": (q16[:3], q16,
                            acc_mxu_rect_plain(*q16_64[:3], *q16_64, SOFT)),
     }
-    worst13, max_rel13, abs13 = 0.0, 0.0, 0.0
+
+    def rms_rel(got, ref) -> float:
+        """The rms of got - ref over all bodies and components, over that
+        of ref."""
+        d = sum(float((g.double() - r.double()).pow(2).sum())
+                for g, r in zip(got, ref))
+        return (d / sum(float(r.double().pow(2).sum()) for r in ref)) ** 0.5
+
+    def w_flips(iset, jset, got, plain):
+        """The body where K13 at "default" and its plain version differ
+        most against WithinRel 1e-5 (rms floor 1e-5): (its share of that
+        allowance, its gap in the worst component, the gap its W flips
+        explain, the flips).  A flip is one of its 16 strongest pairs
+        (float64 pair forces) whose single-pair results, kernel and plain,
+        differ by one TF32 ulp of W: (source, ratio - 1)."""
+        best = (0.0, 0, 0)
+        for c, (g, p) in enumerate(zip(got, plain)):
+            g, p = g.double(), p.double()
+            ratio = (g - p).abs() / (1e-5 * torch.maximum(g.abs(), p.abs())
+                                     + 1e-5 * float(p.pow(2).mean().sqrt()))
+            if float(ratio.max()) > best[0]:
+                best = (float(ratio.max()), c, int(ratio.argmax()))
+        share, c, i = best
+        x64 = [v.double() for v in jset]
+        d = [x64[k] - float(iset[k][i]) for k in range(3)]
+        r2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2] + SOFT * SOFT
+        strongest = (x64[3] * r2.rsqrt() ** 3 * d[c].abs()).argsort(
+            descending=True)[:16].tolist()
+        cp = mxu_ops._centered_with_point(*jset)[3]
+        flips, explained = [], 0.0
+        for j in strongest:
+            k, p1 = (f(*(v[i:i + 1] for v in iset),
+                       *(v[j:j + 1] for v in jset), SOFT,
+                       precision="default", center_point=cp)
+                     for f in (acc_mxu_rect, acc_mxu_rect_plain))
+            big = max(range(3), key=lambda e: abs(float(p1[e][0])))
+            ratio = float(k[big][0]) / float(p1[big][0]) - 1.0
+            if abs(ratio) > 2.0 ** -12:
+                flips.append((j, ratio))
+                explained += float(k[c][0]) - float(p1[c][0])
+        return share, float(got[c][i]) - float(plain[c][i]), explained, flips
+
+    worst13, max_rel13 = 0.0, 0.0
     for label, (iset, jset, ref) in cases10.items():
         scale = max(float(r.abs().max()) for r in ref)
+        for prec, eps in (("high", 5e-4), ("default", 1e-3)):
+            got = acc_mxu_rect(*iset, *jset, SOFT, precision=prec)
+            again = acc_mxu_rect(*iset, *jset, SOFT, precision=prec)
+            plain = acc_mxu_rect_plain(*iset, *jset, SOFT, precision=prec)
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  f"K13 {label} {prec}: two launches differ")
+            w64 = within_rel(got, ref, eps, eps)
+            rel = max(float((g.double() - r).abs().max())
+                      for g, r in zip(got, ref)) / scale
+            check(w64 <= 1.0, f"K13 {label} {prec}: WithinRel {eps:g} (rms "
+                              f"floor {eps:g}) against float64 exceeded by "
+                              f"{w64:.2f}x")
+            line = (f"[10 K13 tier {label} {prec}] max|da|/max|a| {rel:.3e} "
+                    f"against float64 (WithinRel {eps:g} at {w64:.4f} of "
+                    f"the allowance); the same bits twice; ")
+            if prec == "high":
+                wpl = within_rel(got, plain, 1e-5, 1e-5)
+                check(wpl <= 1.0, f"K13 {label} high: WithinRel 1e-5 "
+                                  f"against its plain version exceeded by "
+                                  f"{wpl:.2f}x")
+                top = acc_mxu_rect(*iset, *jset, SOFT, precision="highest")
+                check(all(torch.equal(a, b) for a, b in zip(got, top)),
+                      f"K13 {label}: 'highest' differs from 'high'")
+                print(line + f"against its plain version WithinRel 1e-5 at "
+                             f"{wpl:.4f}; 'highest' the same bits")
+                continue
+            wpl = within_rel(got, plain, 1e-3, 1e-3)
+            rms_k = rms_rel(got, plain)
+            rms_c = rms_rel(mxu_ops._acc_plain(
+                *iset, *jset, SOFT, 2, 1, w_round=mxu_ops.tf32_trunc), plain)
+            share, gap, explained, flips = w_flips(iset, jset, got, plain)
+            check(wpl <= 1.0, f"K13 {label} default: WithinRel 1e-3 against "
+                              f"its plain version exceeded by {wpl:.2f}x")
+            check(rms_k <= 2e-5, f"K13 {label} default: rms gap to its "
+                                 f"plain version {rms_k:.3e} > 2e-5")
+            check(rms_c > 2e-5, f"K13 {label} default: the truncating "
+                                f"control reads {rms_c:.3e}, within 2e-5")
+            check(share <= 1.0 or (
+                flips and all(2.0 ** -11 * 0.99 <= abs(r) <= 2.0 ** -10 * 1.01
+                              for _, r in flips)
+                and abs(explained - gap) <= 0.1 * abs(gap)),
+                f"K13 {label} default: the worst body's gap {gap:.3e} "
+                f"({share:.2f}x WithinRel 1e-5) is not one-ulp W flips: "
+                f"{flips} explain {explained:.3e}")
+            print(line + f"against its plain version WithinRel 1e-3 at "
+                         f"{wpl:.4f}, rms {rms_k:.3e} of the force's (tol "
+                         f"2e-5; the truncating control {rms_c:.3e}); the "
+                         f"worst body at {share:.2f}x WithinRel 1e-5, gap "
+                         f"{gap:.4e}, of which its W flips (source, ratio "
+                         f"- 1: {flips}) give {explained:.4e}")
         for bi, bj in itertools.product(cuda.SWEEP_BLOCKS, repeat=2):
             got = acc_mxu_rect(*iset, *jset, SOFT, block_i=bi, block_j=bj)
             torch.cuda.synchronize()
@@ -1256,16 +1393,37 @@ def main() -> int:
                   f"5e-4 at {w:.3f} of the allowance; kernel {ms:.4f} ms")
             worst13 = max(worst13, w)
             max_rel13 = max(max_rel13, err / scale)
-            if label.startswith("rect"):   # the main path's bodies
-                abs13 = max(abs13, err)
     plain13 = {label: time_ms(lambda: acc_mxu_rect_plain(*iset, *jset, SOFT),
                               reps=1, runs=3)
                for label, (iset, jset, _) in cases10.items()}
     print(f"[10 K13] worst WithinRel share {worst13:.3f}, worst "
           f"max|da|/max|a| {max_rel13:.3e} over {len(cases10)} shapes x "
-          f"{len(cuda.SWEEP_BLOCKS) ** 2} block pairs; plain (fp32) "
-          f"{json.dumps(plain13)} ms")
-    del cases10, q10_64, q16_64
+          f"{len(cuda.SWEEP_BLOCKS) ** 2} block pairs; plain (fp32, TF32 "
+          f"arithmetic) {json.dumps(plain13)} ms")
+    # S's tier mapping: one TF32 product on S (the plain version without
+    # the targets' small parts) on the 200k galaxy's sample and the 16384^2
+    # random box; S takes one product at s_precision "default" only if both
+    # stay within WithinRel 5e-4 (rms floor 5e-4) against float64
+    r16 = init_random(16_384, SEED, device=dev)
+    qr16 = (r16.qx, r16.qy, r16.qz,
+            r16.m * torch.tensor(G, dtype=torch.float32).item())
+    qr16_64 = tuple(v.double() for v in qr16)
+    study = {}
+    for label, (iset, jset, ref) in (
+            ("galaxy rect 4096x200k", cases10["rect 4096x200k"]),
+            ("random 16384^2", (qr16[:3], qr16,
+                                acc_mxu_rect_plain(*qr16_64[:3], *qr16_64,
+                                                   SOFT)))):
+        one = mxu_ops._acc_plain(*iset, *jset, SOFT, 1, 2)
+        study[label] = within_rel(one, ref, 5e-4, 5e-4)
+    one_ok = all(v <= 1.0 for v in study.values())
+    check(mxu_ops.tier_passes("high", "default")[0] == (1 if one_ok else 2),
+          f"S's mapping at s_precision 'default' disagrees with the study "
+          f"{study}")
+    print(f"[10 K13 S study] one TF32 product on S against float64, share "
+          f"of WithinRel 5e-4: {json.dumps(study)}; s_precision 'default' "
+          f"takes {mxu_ops.tier_passes('high', 'default')[0]} products")
+    del cases10, q16_64, r16, qr16, qr16_64
     torch.cuda.empty_cache()
 
     # the main path through the CLI, from zeroed counts; the step's last
@@ -1284,22 +1442,66 @@ def main() -> int:
         lambda a, b, cc, g: e10._acc_fn(a, b, cc, g))
     check(err10 <= 5e-4, f"tpu+mxu force error {err10:.3e} > 5e-4")
     bi0, bj0 = e10.block_i, e10.block_j
+    # the main path's launch (its blocks, "high") on the initial 200k
+    # galaxy against its plain version at the same tier (WithinRel 1e-5,
+    # rms floor 1e-5) and against the float64 direct sweep of the whole
+    # galaxy (the tier's WithinRel 5e-4, rms floor 5e-4; the share of K3's
+    # contract, 1e-5 with an rms floor of 5e-6, printed beside)
+    n10 = s10.npad
+    got13 = acc_mxu_rect(*q10[:3], *q10, SOFT, block_i=bi0, block_j=bj0)
+    plain13_main = acc_mxu_rect_plain(*q10[:3], *q10, SOFT)
+    ref13 = [r[:n10] for r in ref11]
+    wpl13 = within_rel(got13, plain13_main, 1e-5, 1e-5)
+    w64_13 = within_rel(got13, ref13, 5e-4, 5e-4)
+    w64_13k3 = within_rel(got13, ref13, 1e-5, 5e-6)
+    abs13 = max(float((g.double() - r).abs().max())
+                for g, r in zip(got13, ref13))
+    check(wpl13 <= 1.0, f"K13 {n10}^2 (the main path's launch): WithinRel "
+                        f"1e-5 against its plain version exceeded by "
+                        f"{wpl13:.2f}x")
+    check(w64_13 <= 1.0, f"K13 {n10}^2 (the main path's launch): WithinRel "
+                         f"5e-4 against float64 exceeded by {w64_13:.2f}x")
+    print(f"[10 K13 main launch {n10}x{n10} blocks {bi0}x{bj0} high] "
+          f"against its plain version WithinRel 1e-5 (rms floor 1e-5) at "
+          f"{wpl13:.4f}; against the float64 sweep of the whole galaxy "
+          f"WithinRel 5e-4 at {w64_13:.4f} (1e-5 with rms floor 5e-6 at "
+          f"{w64_13k3:.4f}), max|da| {abs13:.3e}, max|da|/max|a| "
+          f"{abs13 / max(float(r.abs().max()) for r in ref13):.3e}")
+    del got13, plain13_main, ref13
     ms13 = time_ms(lambda: acc_mxu_rect(*q10[:3], *q10, SOFT, block_i=bi0,
                                         block_j=bj0), reps=5, runs=3)
+    ms13d = time_ms(lambda: acc_mxu_rect(*q10[:3], *q10, SOFT, block_i=bi0,
+                                         block_j=bj0, precision="default"),
+                    reps=5, runs=3)
     plain_ms13 = time_ms(lambda: acc_mxu_rect_plain(*q10[:3], *q10, SOFT),
                          reps=1, runs=3)
-    n10 = s10.npad
-    # A (8 rows) and gm per source; B (8 rows), the centred target and the
-    # output per target, each once; 20 flops a pair (the reference's model)
+    # K13's floor is the larger of: one MUFU rsqrt a pair at 16 a clock an
+    # SM (the card's SMs at clocks.max.sm), its TF32 products at the 495
+    # TFLOP/s dense peak ("high": two m16n8k8 for S and two for P a 16 x 8
+    # tile, 64 flops a pair; "default" 48), and the fp32 work left (3 flops
+    # a pair) at 67 TFLOP/s.  Bytes: A (8 rows) and
+    # gm per source; B (8 rows), the centred target and the output per
+    # target, each once.  The 20-flop model of K3 is printed beside it.
+    clk = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,"
+         "nounits", "-i", "0"], capture_output=True, text=True,
+        check=True).stdout.split()[0]) * 1e6
+    pairs = float(n10) * n10
+    floors = {"mufu": pairs / (16 * sms * clk) * 1e3,
+              "tensor": 64 * pairs / 495e12 * 1e3,
+              "fp32": 3 * pairs / PEAK_FP32 * 1e3}
     b13 = keep("K13", abs13, ms13, plain_ms13, 4 * (9 * n10 + 14 * n10),
-               20 * n10 * n10)
+               3 * pairs, max(floors.values()))
+    b13_20 = bound(4 * (9 * n10 + 14 * n10), 20 * pairs)[0]
     fps["tpu+mxu 200k"] = res10.fps
     print(f"[10 main] tpu+mxu N={n_main} galaxy through the CLI: blocks "
           f"{bi0}x{bj0} (kernel default), {res10.fps:.3f} FPS "
           f"{res10.gflops:.1f} ref-GFlop/s ({res10.elapsed_ms:.2f} ms for 9 "
           f"steps); force error after 10 steps {err10:.3e} (tol 5e-4); K13 "
-          f"at {n10}^2 {ms13:.4f} ms, plain {plain_ms13:.4f} ms, bound "
-          f"{b13:.4f} ms on {smi}; launches {counts}")
+          f"at {n10}^2 {ms13:.4f} ms (\"default\" {ms13d:.4f} ms), plain "
+          f"{plain_ms13:.4f} ms, bound {b13:.4f} ms (floors, ms: "
+          f"{json.dumps(floors)} at {clk / 1e6:.0f} MHz; the 20-flop model "
+          f"{b13_20:.4f}) on {smi}; launches {counts}")
 
     # the wrapper engines on K13: tpu+tracking --kernel mxu, row 0's energy
     # against the exact K6 energy of the same state (phase 7)
@@ -1398,7 +1600,7 @@ def main() -> int:
     print(f"[10 dump] tpu+mxu --dump-traj --dump-every 5: frames "
           f"{fidx.tolist()}, {fpos.shape}, frame 10 equals the final state")
     print(f"[10 fps] {json.dumps(fps)} on {smi}")
-    del s10, g10, q10, s16, q16, e10, f10
+    del s10, q10, s16, q16, e10, f10
     torch.cuda.empty_cache()
 
     # ----------------------------- 11. the distributed modes, K14
@@ -1408,22 +1610,14 @@ def main() -> int:
     # handshake), each with and without a 5 us sleep before every copy and
     # compute; contract WithinRel 1e-5 (tests/test_ring_pallas.py:67-69)
     # with the rms floor 5e-6 of K3's 16384^2 check (sums over 200k
-    # sources in fp32).  One float64 plain sweep of the whole state is the
-    # reference: ghost rows (zero mass) change no real row, so each D's
-    # padding compares its own rows.
+    # sources in fp32).  The reference is phase 10's float64 sweep of the
+    # whole state (ref11): ghost rows (zero mass) change no real row, so
+    # each D's padding compares its own rows.
     from murb_tpu_torch.ops.ring import (acc_ring_pipelined,
-                                         acc_ring_pipelined_plain)
+                                         acc_ring_pipelined_plain, ring_split)
     from murb_tpu_torch.parallel.mesh import make_mesh, shard_state
 
     wrappers["K14"] = acc_ring_pipelined
-    g_of = lambda s: s.m * torch.tensor(G, dtype=torch.float32).item()
-    s11 = init_galaxy(n_main, SEED, device=dev).repad(256 * 4)
-    q11 = [v.double() for v in (s11.qx, s11.qy, s11.qz, g_of(s11))]
-    ref_parts = [acc_tile_rect_plain(*(v[i:i + 8192] for v in q11[:3]),
-                                     *q11, SOFT)
-                 for i in range(0, s11.npad, 8192)]
-    ref11 = [torch.cat([p[c] for p in ref_parts]) for c in range(3)]
-    del q11, ref_parts
 
     # K3 at 200,192^2 (the galaxy, in K3's j split) against the same
     # float64 sweep, at the contract of these 200k sums: WithinRel 1e-5,
@@ -1476,6 +1670,13 @@ def main() -> int:
         for delay in (0, 5000):
             acc = acc_ring_pipelined(mesh_d, qs, gs, SOFT, delay_ns=delay)
             torch.cuda.synchronize()
+            if d == 1:
+                # one ring step is one K3 sweep at K3's own geometry and
+                # split: the same bits
+                k3 = acc_tile_rect(*qs[0], *qs[0], gs[0], SOFT)
+                check(all(torch.equal(a, b) for a, b in zip(acc[0], k3)),
+                      f"K14 D=1 delay={delay} ns differs from K3 at the "
+                      f"same geometry and split")
             got = [torch.cat([a[c] for a in acc]) for c in range(3)]
             ref_d = [r[:nd] for r in ref11]
             w = within_rel(got, ref_d, 1e-5, 5e-6)
@@ -1491,12 +1692,15 @@ def main() -> int:
                 lambda: acc_ring_pipelined_plain(mesh_d, qs, gs, SOFT),
                 reps=1, runs=1))
             b_ms, _ = bound(28 * nd, 20 * nd * nd)
+            split = ring_split(nd // d, sms, resident, d)
             print(f"[11 K14 ring N={nd} D={d} delay={delay} ns] max|da| "
                   f"{err:.3e}, WithinRel 1e-5 (rms floor 5e-6) at {w:.4f} "
-                  f"of the allowance; kernel {ms:.4f} ms ({d * d} sweeps, "
-                  f"{d * (d - 1)} slot copies of {16 * nd // d} bytes) "
-                  f"bound {b_ms:.4f} ms" + (f" plain {plain}" if plain
-                                            else ""))
+                  f"of the allowance" + (", bit for bit K3's sweep" if d == 1
+                                         else "")
+                  + f"; kernel {ms:.4f} ms ({d * d} K3 sweeps in "
+                  f"{split[0]} j slices each, {d * (d - 1)} slot copies of "
+                  f"{16 * nd // d} bytes) bound {b_ms:.4f} ms"
+                  + (f" plain {plain}" if plain else ""))
             if delay == 0:
                 k14[d] = (err, ms, float(plain.split()[0]))
         if d == 4:

@@ -1,4 +1,5 @@
-// K13: the norm-expansion all-pairs sweep (the tpu+mxu engine).
+// K13: the norm-expansion all-pairs sweep (the tpu+mxu engine) on the
+// tensor cores.
 //
 // Replaces the TPU kernel murb_tpu/ops/mxu.py:_mxu_kernel (pallas_call at
 // mxu.py:159; entries acc_mxu_rect :96 and acc_mxu :193).  The wrapper
@@ -10,111 +11,396 @@
 //
 // and this kernel computes, for every target i,
 //
-//   S[j,i] = A[:,j] . B[:,i]      = |r_j - r_i|^2 + eps^2 (norm expansion)
-//   W[j,i] = gm_j * rsqrt(S[j,i])^3
-//   P[:,i] = sum_j A[:,j] W[j,i]  (rows 0-2: sum_j w cq_j; row 4: sum_j w)
-//   a_i    = P[0:3,i] - cq_i * P[4,i]
+//   S[i,j] = A[:,j] . B[:,i]          = |r_j - r_i|^2 + eps^2
+//   W[i,j] = rsqrt(S[i,j])^3
+//   P[i,:] = sum_j W[i,j] Q[j,:]      Q[j,:] = G m_j (cq_j, 1)
+//   a_i    = P[i,0:3] - cq_i * P[i,3]
 //
-// Self-pairs stay in the sum (w_ii * cq_i in P[0:3] cancels against
-// cq_i * w_ii in the epilogue), as on the TPU.  Rows 5-7 of A and B are
-// zero and rows 3/4 hold the expansion's constant 1s, so the kernel reads
-// rows 0-3 of A and rows 0-2 and 4 of B and forms S as
-// A0 B0 + A1 B1 + A2 B2 + (A3 + B4): three FMAs and one add per pair; W is
-// one rsqrt and three multiplies; P three FMAs and one add.
+// (murb_tpu's W = G m_j rsqrt(S)^3 against A; G m_j is folded into Q here,
+// which saves a multiply a pair.)  Self-pairs stay in the sum and cancel in
+// the epilogue, as on the TPU.
 //
-// On the TPU, S and P were matrix-unit products (the precision tiers chose
-// bf16 passes for P); here every tier computes in fp32 on the CUDA cores,
-// which meets each tier's error bound.  The design is K3's (sweep.cuh):
-// one thread owns one target for the whole j sweep and keeps B[:,i] and
-// P[:,i] in registers; the block stages BJ sources at a time in shared
-// memory as (cqx, cqy, cqz, |cq|^2) and gm, read by every thread as
-// broadcasts.  Each tile's terms are summed into fp32 partials that are
-// added to P in tile order (the TPU's per-block P added to its
-// accumulator): a fixed order, so the kernel is deterministic.  Ragged
-// edges are masked here: targets past ni store nothing, source slots past
-// nj are staged as zero-mass sources at the centre (S = B4 > 0, w = 0).
+// S and P are TF32 tensor-core products, mma.sync.m16n8k8 (PTX ISA,
+// "Matrix Fragments for mma.m16n8k8", .tf32): in a warp, lane = 4 g + t
+// holds A's (row g, col t), (g + 8, t), (g, t + 4), (g + 8, t + 4); B's
+// (row t, col g), (t + 4, g); C's (g, 2t), (g, 2t + 1), (g + 8, 2t),
+// (g + 8, 2t + 1).
 //
-// What bounds it on an H100: the fp32 pipes and the MUFU rsqrt (per pair
-// 11 fp32 instructions and one rsqrt, the 20 flops of the reference's
-// model); device memory traffic is O(ni + nj * ni / BI) floats.
+//   * S product, M = 16 targets, N = 8 sources, K = 8 rows, twice.  Every
+//     value is split into big = tf32(x) and small = tf32(x - big) (round to
+//     nearest, ties away), and the two products hold every term of the
+//     expansion with both sides split:
+//       sources [x_b, y_b, z_b, x_s, y_s, z_s, n_b, 1] and [... n_s, 1]
+//       targets [bx_b, by_b, bz_b, bx_b, by_b, bz_b, 1, nB_b] and the same
+//               of the small parts
+//     (n = |cq_j|^2, nB = |cq_i|^2 + eps^2: the large terms whose rounding
+//     close pairs cancel against).  The targets' fragments live in
+//     registers for the whole sweep.
+//   * P product, M = 16 targets, N = 8 columns, K = 8 sources: Q's columns
+//     are G m (x, y, z, 1) big, then small, so one product gives
+//     W (Q_b + Q_s); "high" adds W_s (Q_b + Q_s).  P's K runs over the
+//     chunk's sources in the order 0, 2, 4, 6, 1, 3, 5, 7: lane (g, t)
+//     then needs W at sources 2t and 2t + 1 of targets g and g + 8, which
+//     are exactly S's accumulators in that lane, so W goes from the S
+//     product's accumulator registers to the P product's operand registers
+//     with no shuffle; the lane's B fragment is column g of sources 2t and
+//     2t + 1, a contiguous pair.
+//   * W = rsqrt.approx.ftz(S)^3 (S >= eps^2 > 0, never denormal), W_b =
+//     tf32(W) by integer rounding (two integer ops, the same bits as
+//     cvt.rna), W_s = W - W_b (exact) read by the tensor core as TF32,
+//     which ignores its 13 low bits.  A pair costs one MUFU op, two FMUL,
+//     two integer ops and, at "high", one FSUB.
+//
+// The sources are split once a call: mxu_pack_kernel writes each chunk of 8
+// sources as the two fragments its lanes read (kChunkFloats floats: 32 float4
+// (R_t, R1_{t+4}, R2_{t+4}, 0) for S, 32 float2 for P), padded with zero-mass
+// sources at the centre to kPackSources (S = nB_i > 0, Q = 0). The main kernel
+// stages BJ sources a tile into shared memory with cp.async, double-buffered,
+// and reads one 16-byte and one 8-byte fragment a chunk, conflict-free.  A
+// warp owns kMxuTiles m16 tiles (32 targets; BI targets a block are BI / 32
+// warps), so each staged fragment feeds two independent chains.  (Two other
+// arrangements of S, nB as the first product's accumulator with an m16n8k4 or
+// a second m16n8k8 for the small parts, timed 2 to 5% slower in turns, but
+// each from a build of its own, and two builds of one source differ by as
+// much: the comparison is unresolved.)  P is summed into fp32 partials of
+// kPartChunks chunks that are added to the running P in order: a fixed
+// order, no atomics, the same bits every run.  Targets past ni compute on a
+// zero row (nB = 1) and store nothing.  Where the grid is under the card's
+// resident slots the j tiles are split into slices (grid.y;
+// ops/cuda.tile_split with this kernel's resident blocks), each slice writes
+// its four P columns to a (slices, 4, ni) scratch, and mxu_fold_kernel adds
+// the slices in order and applies the epilogue once, so the epilogue's
+// cancellation is that of one sum.
+//
+// What bounds it on an H100: the tensor pipe at mma.sync's rate.  At
+// 200,192^2 "default" (three m16n8k8 products a 16 x 8 tile) takes three
+// quarters of the time of "high" (four) at every geometry
+// (scripts/torch_kernel_ab.py), so the products, not the MUFU, set the
+// pace: an m16n8k8 TF32 product issues about once every 16 clocks on an SM
+// sub-partition, a quarter of the dense TF32 peak that wgmma reaches.
+// Next come the MUFU rsqrt (N^2 at 16 a clock an SM, 9.6 ms at 200,192^2
+// and 1.98 GHz) and instruction issue (about 6 slots a pair).  Device
+// memory traffic is O(ni + nj).
 #include "sweep.cuh"
 
 namespace murb {
 
-constexpr int kMxuBlockI = 128;  // K13's default targets per block
-constexpr int kMxuBlockJ = 256;  // and sources per staged tile
+constexpr int kMxuBlockI = 512;   // K13's default targets a block
+constexpr int kMxuBlockJ = 512;   // and sources a staged tile
+constexpr int kMxuTiles = 2;      // m16 target tiles a warp
+constexpr int kChunkFloats = 192;  // one chunk of 8 packed sources
+constexpr int kPackSources = 512;  // the packed sources' padding
+// chunks a P partial sums before it joins the running P: 128 sources, so
+// the fp32 partials stay as short at 512 sources a tile as at 128
+constexpr int kPartChunks = 16;
 
-template <int BI, int BJ>
-__global__ void __launch_bounds__(BI)
-mxu_rect_kernel(const float* __restrict__ a, const float* __restrict__ gmj,
-                int nj, const float* __restrict__ b,
-                const float* __restrict__ cqxi,
-                const float* __restrict__ cqyi,
-                const float* __restrict__ cqzi, int ni,
-                float* __restrict__ ax, float* __restrict__ ay,
-                float* __restrict__ az) {
-  __shared__ float4 src[BJ];   // (cqx, cqy, cqz, |cq|^2) of each source
-  __shared__ float gms[BJ];
-  const long long sj = nj, si = ni;  // row strides of A and B
-  const int i = blockIdx.x * BI + threadIdx.x;
-  const bool own = i < ni;
-  const float b0 = own ? b[i] : 0.f;
-  const float b1 = own ? b[si + i] : 0.f;
-  const float b2 = own ? b[2 * si + i] : 0.f;
-  const float b4 = own ? b[4 * si + i] : 1.f;
-  float p0 = 0.f, p1 = 0.f, p2 = 0.f, p4 = 0.f;
-  for (int j0 = 0; j0 < nj; j0 += BJ) {
-    for (int t = threadIdx.x; t < BJ; t += BI) {
-      const int j = j0 + t;
-      const bool real = j < nj;
-      src[t] = real ? make_float4(a[j], a[sj + j], a[2 * sj + j],
-                                  a[3 * sj + j])
-                    : make_float4(0.f, 0.f, 0.f, 0.f);
-      gms[t] = real ? gmj[j] : 0.f;
+// x rounded to TF32 (10 mantissa bits), to nearest, ties away from zero:
+// half a TF32 ulp added to the magnitude bits, the 13 low bits cleared
+// (the bits of cvt.rna.tf32.f32 for finite x).
+__device__ __forceinline__ float tf32_rna(float x) {
+  return __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xFFFFE000u);
+}
+
+__device__ __forceinline__ void tf32_split(float x, float& big,
+                                           float& small) {
+  big = tf32_rna(x);
+  small = tf32_rna(__fsub_rn(x, big));
+}
+
+// d += a b on the tensor cores: m16n8k8, TF32 operands, fp32 accumulators.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], float a0, float a1,
+                                         float a2, float a3, float b0,
+                                         float b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(__float_as_uint(a0)), "r"(__float_as_uint(a1)),
+        "r"(__float_as_uint(a2)), "r"(__float_as_uint(a3)),
+        "r"(__float_as_uint(b0)), "r"(__float_as_uint(b1)));
+}
+
+// One thread a (chunk c, lane 4 g + t): the S fragment of source 8c + g
+// (rows t and t + 4 of both products) and the P fragment of sources
+// 8c + 2t and 8c + 2t + 1 (column g).  Sources past nj are zero-mass
+// sources at the centre.
+__global__ void mxu_pack_kernel(const float* __restrict__ a,
+                                const float* __restrict__ gmj, int nj,
+                                int chunks, float* __restrict__ packed) {
+  const long long idx =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (idx >= 32LL * chunks) return;
+  const int c = static_cast<int>(idx >> 5), lane = idx & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const long long sj = nj;
+  const int j = 8 * c + g;
+  const bool real = j < nj;
+  float xb, xs, yb, ys, zb, zs, nb, ns;
+  tf32_split(real ? a[j] : 0.f, xb, xs);
+  tf32_split(real ? a[sj + j] : 0.f, yb, ys);
+  tf32_split(real ? a[2 * sj + j] : 0.f, zb, zs);
+  tf32_split(real ? a[3 * sj + j] : 0.f, nb, ns);
+  // rows: R[t] = x_b, y_b, z_b, x_s; R1[t + 4] = y_s, z_s, n_b, 1;
+  // R2[t + 4] = y_s, z_s, n_s, 1
+  const float r_t = t == 0 ? xb : t == 1 ? yb : t == 2 ? zb : xs;
+  const float r1 = t == 0 ? ys : t == 1 ? zs : t == 2 ? nb : 1.f;
+  const float r2 = t == 0 ? ys : t == 1 ? zs : t == 2 ? ns : 1.f;
+  float q[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int jj = 8 * c + 2 * t + e;
+    float v = 0.f;
+    if (jj < nj) {
+      const int comp = g & 3;  // columns G m (x, y, z, 1), big then small
+      v = comp == 3 ? gmj[jj] : __fmul_rn(gmj[jj], a[comp * sj + jj]);
     }
-    __syncthreads();
-    float t0 = 0.f, t1 = 0.f, t2 = 0.f, t4 = 0.f;
-#pragma unroll 8
-    for (int t = 0; t < BJ; ++t) {
-      const float4 s = src[t];
-      const float sji = fmaf(s.x, b0, fmaf(s.y, b1, fmaf(s.z, b2, s.w + b4)));
-      const float inv = rsqrtf(sji);
-      const float w = gms[t] * (inv * inv * inv);
-      t0 = fmaf(s.x, w, t0);
-      t1 = fmaf(s.y, w, t1);
-      t2 = fmaf(s.z, w, t2);
-      t4 += w;
+    float big, small;
+    tf32_split(v, big, small);
+    q[e] = g < 4 ? big : small;
+  }
+  float* chunk = packed + static_cast<long long>(c) * kChunkFloats;
+  reinterpret_cast<float4*>(chunk)[lane] = make_float4(r_t, r1, r2, 0.f);
+  reinterpret_cast<float2*>(chunk + 128)[lane] = make_float2(q[0], q[1]);
+}
+
+// grid (ceil(ni / BI), S), BI threads (BI / 32 warps of kMxuTiles m16 tiles),
+// at most 64 registers a thread so that an SM holds 1024 threads at every BI.
+// Slice blockIdx.y sweeps tiles [y * tiles_per_slice, min((y + 1) *
+// tiles_per_slice, ceil(nj / BJ))).  NP: TF32 products on P (1 or 2).  With
+// S == 1 the accelerations go to ax/ay/az, else P's columns (G m x, G m y,
+// G m z, G m; the small half added) to scratch[(y * 4 + c) * ni + i].
+template <int BI, int BJ, int NP>
+__global__ void __launch_bounds__(BI, 1024 / BI)
+mxu_mma_kernel(const float* __restrict__ packed, int nj,
+               const float* __restrict__ b, const float* __restrict__ cqxi,
+               const float* __restrict__ cqyi,
+               const float* __restrict__ cqzi, int ni, int tiles_per_slice,
+               float* __restrict__ ax, float* __restrict__ ay,
+               float* __restrict__ az, float* __restrict__ scratch) {
+  constexpr int RT = kMxuTiles;
+  constexpr int CH = BJ / 8;                     // chunks a tile
+  constexpr int TILE = CH * kChunkFloats;        // floats a tile
+  constexpr int PART = CH < kPartChunks ? CH : kPartChunks;
+  extern __shared__ __align__(16) float smem[];  // two tiles
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int base = blockIdx.x * BI + (threadIdx.x >> 5) * 16 * RT;
+  const long long si = ni;
+
+  // the targets' S fragments: T1 (big) and T2 (small) rows t and t + 4 of
+  // targets g and g + 8 of each m16 tile
+  float a1[RT][4], a2[RT][4];
+#pragma unroll
+  for (int r = 0; r < RT; ++r) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = base + 16 * r + g + 8 * h;
+      const bool own = i < ni;
+      float bxb, bxs, byb, bys, bzb, bzs, nbb, nbs;
+      tf32_split(own ? b[i] : 0.f, bxb, bxs);
+      tf32_split(own ? b[si + i] : 0.f, byb, bys);
+      tf32_split(own ? b[2 * si + i] : 0.f, bzb, bzs);
+      tf32_split(own ? b[4 * si + i] : 1.f, nbb, nbs);
+      // T[t] = bx, by, bz, bx; T[t + 4] = by, bz, 1, nB
+      a1[r][h] = t == 0 ? bxb : t == 1 ? byb : t == 2 ? bzb : bxb;
+      a2[r][h] = t == 0 ? bxs : t == 1 ? bys : t == 2 ? bzs : bxs;
+      a1[r][2 + h] = t == 0 ? byb : t == 1 ? bzb : t == 2 ? 1.f : nbb;
+      a2[r][2 + h] = t == 0 ? bys : t == 1 ? bzs : t == 2 ? 1.f : nbs;
     }
-    p0 += t0;
-    p1 += t1;
-    p2 += t2;
-    p4 += t4;
-    __syncthreads();
   }
-  if (own) {
-    ax[i] = p0 - cqxi[i] * p4;
-    ay[i] = p1 - cqyi[i] * p4;
-    az[i] = p2 - cqzi[i] * p4;
+
+  const int tiles = (nj + BJ - 1) / BJ;
+  const int t0 = blockIdx.y * tiles_per_slice;
+  const int t1 = min(t0 + tiles_per_slice, tiles);
+  auto stage = [&](int tile, float* buf) {
+    const float* src = packed + static_cast<long long>(tile) * TILE;
+    for (int u = threadIdx.x; u < TILE / 4; u += BI)
+      cp_async16(buf + 4 * u, src + 4 * u);
+    cp_async_commit();
+  };
+  float tot[RT][4];
+#pragma unroll
+  for (int r = 0; r < RT; ++r)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) tot[r][e] = 0.f;
+  if (t0 < t1) stage(t0, smem);
+  for (int tile = t0; tile < t1; ++tile) {
+    cp_async_wait_all();  // this thread's copies of the tile landed
+    __syncthreads();      // everyone's did; the other buffer is free
+    if (tile + 1 < t1) stage(tile + 1, smem + ((tile + 1 - t0) & 1) * TILE);
+    const float* buf = smem + ((tile - t0) & 1) * TILE;
+    for (int c0 = 0; c0 < CH; c0 += PART) {
+      float pt[RT][4];
+#pragma unroll
+      for (int r = 0; r < RT; ++r)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) pt[r][e] = 0.f;
+#pragma unroll 2
+      for (int c = c0; c < c0 + PART; ++c) {
+        const float4 sv =
+            reinterpret_cast<const float4*>(buf + c * kChunkFloats)[lane];
+        const float2 qv = reinterpret_cast<const float2*>(
+            buf + c * kChunkFloats + 128)[lane];
+#pragma unroll
+        for (int r = 0; r < RT; ++r) {
+          float s[4] = {0.f, 0.f, 0.f, 0.f};
+          mma_tf32(s, a1[r][0], a1[r][1], a1[r][2], a1[r][3], sv.x, sv.y);
+          mma_tf32(s, a2[r][0], a2[r][1], a2[r][2], a2[r][3], sv.x, sv.z);
+          // s: (g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1); P's A
+          // fragment: (g, K t) = source 2t, (g + 8, t), (g, t + 4) = source
+          // 2t + 1, (g + 8, t + 4)
+          float wb[4], ws[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float inv = rsqrt_ftz(s[e]);
+            const float w = __fmul_rn(__fmul_rn(inv, inv), inv);
+            wb[e] = tf32_rna(w);
+            ws[e] = __fsub_rn(w, wb[e]);
+          }
+          mma_tf32(pt[r], wb[0], wb[2], wb[1], wb[3], qv.x, qv.y);
+          if (NP == 2)
+            mma_tf32(pt[r], ws[0], ws[2], ws[1], ws[3], qv.x, qv.y);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < RT; ++r)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) tot[r][e] += pt[r][e];
+    }
   }
+
+  // epilogue: lane t holds P columns 2t, 2t + 1 of targets g, g + 8; the
+  // small half (t = 2, 3) joins the big (t = 0, 1), then lane t = 0 (x, y)
+  // takes the column G m from lane t = 1 (z, G m)
+#pragma unroll
+  for (int r = 0; r < RT; ++r) {
+    float v[4], m[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      v[e] = tot[r][e] + __shfl_xor_sync(0xffffffffu, tot[r][e], 2);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) m[e] = __shfl_xor_sync(0xffffffffu, v[e], 1);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = base + 16 * r + g + 8 * h;
+      if (i >= ni || t > 1) continue;
+      if (gridDim.y > 1) {  // lane t = 0: columns 0, 1; t = 1: 2, 3
+        float* out = scratch + (blockIdx.y * 4 + 2 * t) * si + i;
+        out[0] = v[2 * h];
+        out[si] = v[2 * h + 1];
+      } else if (t == 0) {
+        const float gm = m[2 * h + 1];
+        ax[i] = v[2 * h] - cqxi[i] * gm;
+        ay[i] = v[2 * h + 1] - cqyi[i] * gm;
+      } else {
+        az[i] = v[2 * h] - cqzi[i] * v[2 * h + 1];
+      }
+    }
+  }
+}
+
+// The slices' P columns, added in slice order, and the epilogue:
+// a_c[i] = sum_y P_c - cq_c[i] sum_y P_3.
+__global__ void mxu_fold_kernel(const float* __restrict__ scratch,
+                                int slices, int ni,
+                                const float* __restrict__ cqxi,
+                                const float* __restrict__ cqyi,
+                                const float* __restrict__ cqzi,
+                                float* __restrict__ ax, float* __restrict__ ay,
+                                float* __restrict__ az) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= ni) return;
+  const long long n = ni;
+  float p[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int y = 0; y < slices; ++y)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) p[c] += scratch[(y * 4 + c) * n + i];
+  ax[i] = p[0] - cqxi[i] * p[3];
+  ay[i] = p[1] - cqyi[i] * p[3];
+  az[i] = p[2] - cqzi[i] * p[3];
+}
+
+template <int BI, int BJ, int NP>
+int mxu_prepare() {
+  constexpr int bytes = 2 * (BJ / 8) * kChunkFloats * sizeof(float);
+  return static_cast<int>(cudaFuncSetAttribute(
+      mxu_mma_kernel<BI, BJ, NP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes));
 }
 
 }  // namespace murb
 
 // a: A (8, nj) row-major; gmj: (nj,); b: B (8, ni) row-major; cqxi..cqzi:
 // the centred target coordinates (ni,).  block_i, block_j: 0 (kMxuBlockI,
-// kMxuBlockJ) or a pair of {64, 128, 256, 512}.
+// kMxuBlockJ) or a pair of {64, 128, 256, 512}.  p_passes: TF32 products
+// on P, 1 ("default") or 2 ("high", "highest").  slices, tiles_per_slice:
+// the j split (ops/cuda.tile_split); slices > 1 needs scratch, (slices,
+// 4, ni) floats.  packed: ceil(nj / kPackSources) * kPackSources / 8 *
+// kChunkFloats floats, written here before the sweep reads them.
 extern "C" int murb_mxu_rect(const float* a, const float* gmj, int nj,
                              const float* b, const float* cqxi,
                              const float* cqyi, const float* cqzi, int ni,
-                             int block_i, int block_j, float* ax, float* ay,
-                             float* az, cudaStream_t stream) {
+                             int block_i, int block_j, int p_passes,
+                             int slices, int tiles_per_slice, float* packed,
+                             float* scratch, float* ax, float* ay, float* az,
+                             cudaStream_t stream) {
   if (ni <= 0) return 0;
+  if ((p_passes != 1 && p_passes != 2) || slices < 1 || slices > 65535 ||
+      tiles_per_slice < 0 || (slices > 1 && scratch == nullptr) ||
+      (nj > 0 && packed == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int chunks = (nj + murb::kPackSources - 1) / murb::kPackSources *
+                     (murb::kPackSources / 8);
+  if (chunks > 0) {
+    const long long threads = 32LL * chunks;
+    murb::mxu_pack_kernel<<<static_cast<unsigned>((threads + 255) / 256),
+                            256, 0, stream>>>(a, gmj, nj, chunks, packed);
+    const int err = static_cast<int>(cudaGetLastError());
+    if (err != 0) return err;
+  }
   return murb::with_blocks(
       block_i, block_j, murb::kMxuBlockI, murb::kMxuBlockJ,
       [&](auto bi, auto bj) {
         constexpr int BI = decltype(bi)::value, BJ = decltype(bj)::value;
-        murb::mxu_rect_kernel<BI, BJ><<<(ni + BI - 1) / BI, BI, 0, stream>>>(
-            a, gmj, nj, b, cqxi, cqyi, cqzi, ni, ax, ay, az);
+        constexpr int bytes = 2 * (BJ / 8) * murb::kChunkFloats * 4;
+        const long long tiles = (nj + BJ - 1) / BJ;
+        if (static_cast<long long>(slices) * tiles_per_slice < tiles ||
+            (slices > 1 &&
+             static_cast<long long>(slices - 1) * tiles_per_slice >= tiles))
+          return static_cast<int>(cudaErrorInvalidValue);
+        const dim3 grid((ni + BI - 1) / BI, slices);
+        int err;
+        if (p_passes == 1) {
+          err = murb::mxu_prepare<BI, BJ, 1>();
+          if (err != 0) return err;
+          murb::mxu_mma_kernel<BI, BJ, 1><<<grid, BI, bytes, stream>>>(
+              packed, nj, b, cqxi, cqyi, cqzi, ni, tiles_per_slice, ax, ay,
+              az, scratch);
+        } else {
+          err = murb::mxu_prepare<BI, BJ, 2>();
+          if (err != 0) return err;
+          murb::mxu_mma_kernel<BI, BJ, 2><<<grid, BI, bytes, stream>>>(
+              packed, nj, b, cqxi, cqyi, cqzi, ni, tiles_per_slice, ax, ay,
+              az, scratch);
+        }
+        err = static_cast<int>(cudaGetLastError());
+        if (err != 0 || slices == 1) return err;
+        murb::mxu_fold_kernel<<<(ni + 255) / 256, 256, 0, stream>>>(
+            scratch, slices, ni, cqxi, cqyi, cqzi, ax, ay, az);
         return static_cast<int>(cudaGetLastError());
+      });
+}
+
+// Blocks of K13's sweep ("high") at (block_i, block_j) that one SM of the
+// current device holds at once, into *blocks: the wrapper's j split counts
+// the card's slots with it.
+extern "C" int murb_mxu_resident(int block_i, int block_j, int* blocks) {
+  return murb::with_blocks(
+      block_i, block_j, murb::kMxuBlockI, murb::kMxuBlockJ,
+      [&](auto bi, auto bj) {
+        constexpr int BI = decltype(bi)::value, BJ = decltype(bj)::value;
+        constexpr int bytes = 2 * (BJ / 8) * murb::kChunkFloats * 4;
+        int err = murb::mxu_prepare<BI, BJ, 2>();
+        if (err != 0) return err;
+        return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            blocks, murb::mxu_mma_kernel<BI, BJ, 2>, BI, bytes));
       });
 }

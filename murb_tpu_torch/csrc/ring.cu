@@ -12,8 +12,13 @@
 // n_l) device buffer (slot 0 packed with its own block by the caller) and
 // two streams, one for compute and one for copies.  murb_ring_pipelined
 // issues the whole D-step ring from the host:
-//   * compute(s, k): ring_sweep_kernel over slot k % 2 of shard s, which
-//     writes (k = 0) or adds to (k > 0) the shard's ax, ay, az;
+//   * compute(s, k): K3's register-tiled sweep (tile.cu, through
+//     tile_rect_launch) of the shard's targets against slot k % 2 of shard
+//     s, whose rows slot, slot + n, slot + 2n and slot + 3n are the
+//     block's x, y, z and G*m; it writes (k = 0) or adds to (k > 0) the
+//     shard's ax, ay, az.  Where K3 splits its j range, its fold runs on
+//     the compute stream before comp(s, k) is recorded, so "done reading
+//     the slot" still means the sweep and its fold;
 //   * send(s, k), k < D - 1: one cudaMemcpyAsync (cudaMemcpyPeerAsync
 //     across cards) of that slot, 16 n_l bytes, into slot (k + 1) % 2 of
 //     the right neighbour.
@@ -30,56 +35,20 @@
 // before every copy and every compute, so that a missing edge shows up as a
 // wrong sum instead of hiding behind lucky timing.
 //
-// What bounds it on an H100: the sweep is K3's (sweep.cuh: fp32 pair chain
-// on the CUDA cores, 20 flops and one MUFU rsqrt a pair); D^2 launches of
-// n_l^2 pairs do N^2 pairs in all.  A copy moves 16 n_l bytes and hides
-// behind the next step's sweep.
+// What bounds it on an H100: the sweep is K3's (tile.cu: 4 targets a
+// thread, 512-source cp.async tiles, ftz rsqrt; instruction issue and the
+// MUFU rsqrt, 20 flops a pair); D^2 launches of n_l^2 pairs do N^2 pairs
+// in all.  Each sweep is a small shape (50,176^2 at D = 4 for the 200k
+// galaxy), where K3's j split pays most: the wrapper counts the card's SMs
+// divided by the shards that share the card (ops/ring.ring_split), since
+// their compute streams sweep at once.  A shard's sweeps run in order on
+// one stream, so one (slices, 3, n) scratch a shard serves all of them.
+// A copy moves 16 n_l bytes and hides behind the next step's sweep.
 #include <vector>
 
-#include "sweep.cuh"
+#include "tile.cuh"
 
 namespace murb {
-
-template <int BI, int BJ>
-__global__ void __launch_bounds__(BI)
-ring_sweep_kernel(const float* __restrict__ qxi, const float* __restrict__ qyi,
-                  const float* __restrict__ qzi, int n,
-                  const float* __restrict__ slot, float soft2, int accumulate,
-                  float* __restrict__ ax, float* __restrict__ ay,
-                  float* __restrict__ az) {
-  __shared__ float4 tile[BJ];
-  const int i = blockIdx.x * BI + threadIdx.x;
-  const bool own = i < n;
-  const float xi = own ? qxi[i] : 0.f;
-  const float yi = own ? qyi[i] : 0.f;
-  const float zi = own ? qzi[i] : 0.f;
-  const float* xj = slot;
-  const float* yj = slot + n;
-  const float* zj = slot + 2 * static_cast<long long>(n);
-  const float* gj = slot + 3 * static_cast<long long>(n);
-  float sx = 0.f, sy = 0.f, sz = 0.f;
-  for (int j0 = 0; j0 < n; j0 += BJ) {
-    stage_sources<BI, BJ>(tile, xj, yj, zj, gj, j0, n);
-    __syncthreads();
-    float tx, ty, tz;
-    tile_sum_f32<BJ>(tile, xi, yi, zi, soft2, tx, ty, tz);
-    sx += tx;
-    sy += ty;
-    sz += tz;
-    __syncthreads();
-  }
-  if (own) {
-    if (accumulate) {
-      ax[i] += sx;
-      ay[i] += sy;
-      az[i] += sz;
-    } else {
-      ax[i] = sx;
-      ay[i] = sy;
-      az[i] = sz;
-    }
-  }
-}
 
 // Holds its stream for at least `ns` nanoseconds (the protocol check).
 __global__ void ring_delay_kernel(unsigned long long ns) {
@@ -102,16 +71,19 @@ __global__ void ring_delay_kernel(unsigned long long ns) {
 
 // d shards of n bodies each.  Host arrays of d entries: qx/qy/qz (targets,
 // float32 (n,)), bufs ((2, 4, n) float32, slot 0 packed by the caller on
-// its origin stream), ax/ay/az (outputs, (n,)), devices, and the origin,
-// compute and copy streams of each shard.  block_i, block_j: 0 (128 each)
-// or a pair of {64, 128, 256, 512}.  The origin streams wait for the whole
-// ring before this returns; nothing is synchronised on the host.
+// its origin stream), ax/ay/az (outputs, (n,)), scratch (K3's (slices, 3,
+// n) floats, unused at one slice), devices, and the origin, compute and
+// copy streams of each shard.  block_i, block_j: 0 (K3's default) or a
+// pair of {64, 128, 256, 512}; slices, tiles_per_slice: K3's j split of
+// every sweep.  The origin streams wait for the whole ring before this
+// returns; nothing is synchronised on the host.
 extern "C" int murb_ring_pipelined(
     int d, int n, float* const* qx, float* const* qy, float* const* qz,
     float* const* bufs, float* const* ax, float* const* ay, float* const* az,
-    const int* devices, const cudaStream_t* origin,
+    float* const* scratch, const int* devices, const cudaStream_t* origin,
     const cudaStream_t* compute, const cudaStream_t* copy, float soft2,
-    int block_i, int block_j, long long delay_ns) {
+    int block_i, int block_j, int slices, int tiles_per_slice,
+    long long delay_ns) {
   if (d <= 0 || n <= 0) return 0;
   int err = 0;
   int prev = 0;
@@ -150,17 +122,10 @@ extern "C" int murb_ring_pipelined(
                                           sent[left * d + k - 1], 0));
       delay(compute[s]);
       const float* src = bufs[s] + (k % 2) * slot;
-      const int acc = k > 0;
-      const int st = murb::with_blocks(
-          block_i, block_j, murb::kSweepThreads, murb::kSweepThreads,
-          [&](auto bi, auto bj) {
-            constexpr int BI = decltype(bi)::value, BJ = decltype(bj)::value;
-            murb::ring_sweep_kernel<BI, BJ>
-                <<<(n + BI - 1) / BI, BI, 0, compute[s]>>>(
-                    qx[s], qy[s], qz[s], n, src, soft2, acc, ax[s], ay[s],
-                    az[s]);
-            return static_cast<int>(cudaGetLastError());
-          });
+      const int st = murb::tile_rect_launch(
+          qx[s], qy[s], qz[s], n, src, src + n, src + 2LL * n, src + 3LL * n,
+          n, soft2, block_i, block_j, slices, tiles_per_slice, scratch[s],
+          k > 0, ax[s], ay[s], az[s], compute[s]);
       if (st && err == 0) err = st;
       MURB_RING_TRY(cudaEventRecord(comp[s * d + k], compute[s]));
     }

@@ -1,8 +1,11 @@
 // Device code shared by the exact all-pairs sweeps (tile.cu: K3,
-// hybrid.cu: K4, phi.cu: K5 and K6, mxu.cu: K13, ring.cu: K14) and K10
-// (p2p.cu: the rsqrt and cp.async helpers).  K3 has its own
-// register-tiled sweep since its redesign (tile.cu's note); what follows
-// describes the one-target-a-thread sweep that K5, K6, K13 and K14 keep.
+// hybrid.cu: K4, phi.cu: K5 and K6) and by K10 and K13 (p2p.cu, mxu.cu:
+// the rsqrt, cp.async and block-geometry helpers).  K3 has its own
+// register-tiled sweep since its redesign (tile.cu's note), which K14
+// (ring.cu) launches for its ring steps; K13 runs on the tensor cores
+// (mxu.cu's note).  What follows describes the one-target-a-thread sweep
+// that K4's passes 3 (stage_sources, pair_weight), K5 and K6
+// (stage_phi_sources) keep.
 //
 // Design: the reference's own gpu+tile+full kernel
 // (ref: src/murb/implem/SimulationNBodyCUDATileFullDevice.cu:53-153).  One
@@ -15,8 +18,8 @@
 // keeps d^2 > 0), so no caller pads the sets.
 //
 // Block geometry: K3, K4 and K13 are compiled for every (BI, BJ) pair of
-// {64, 128, 256, 512} (ops/cuda.SWEEP_BLOCKS) -- BI i-bodies (threads) per
-// block, BJ j-sources per staged tile -- and take the pair at run time
+// {64, 128, 256, 512} (ops/cuda.SWEEP_BLOCKS) -- BI i-bodies per block,
+// BJ j-sources per staged tile -- and take the pair at run time
 // (with_blocks); K5/K6 keep kSweepThreads for both.
 //
 // What bounds it on an H100: the per-pair chain (3 sub, 3 fma, rsqrt,
@@ -122,27 +125,6 @@ __device__ __forceinline__ float pair_weight(float dx, float dy, float dz,
   float inv = rsqrtf(d2);
   if (refine) inv = inv * fmaf(-0.5f * d2 * inv, inv, 1.5f);
   return gm * (inv * inv * inv);
-}
-
-// Sum one staged tile of BJ sources' pair terms for the i-body at
-// (xi, yi, zi) into fp32 tile partials (the caller folds the partials into
-// its running total: a two-level sum whose rounding error grows with the
-// tile count, not with nj).
-template <int BJ>
-__device__ __forceinline__ void tile_sum_f32(const float4* tile, float xi,
-                                             float yi, float zi, float soft2,
-                                             float& tx, float& ty,
-                                             float& tz) {
-  tx = ty = tz = 0.f;
-#pragma unroll 8
-  for (int t = 0; t < BJ; ++t) {
-    const float4 s = tile[t];
-    const float dx = s.x - xi, dy = s.y - yi, dz = s.z - zi;
-    const float w = pair_weight<false>(dx, dy, dz, s.w, soft2);
-    tx = fmaf(w, dx, tx);
-    ty = fmaf(w, dy, ty);
-    tz = fmaf(w, dz, tz);
-  }
 }
 
 // ------------------------------------------------- potential-row sweeps

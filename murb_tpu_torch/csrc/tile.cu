@@ -11,7 +11,7 @@
 // What bounds it on an H100: instruction issue.  A pair costs 12 fp32
 // instructions (3 sub, 3 fma for d^2, 3 mul for G m inv^3, 3 fma into the
 // sums) and one MUFU rsqrt, all through one issue slot a scheduler a clock.
-// The first design (one target a thread, sweep.cuh's tile_sum_f32) also
+// The first design (one target a thread, a two-level fp32 sum) also
 // paid, for every pair, one shared-memory load of the staged source and the
 // rsqrt's denormal fix-up around MUFU.RSQ (about 14 to 17 slots a pair:
 // 25.88 ms at 200,192^2 against a 20-flop bound of 11.96 ms); and at
@@ -40,9 +40,14 @@
 //     kernel folds the slices in slice order.  No atomics: the same bits
 //     every run.
 // Every target still folds fp32 tile partials in tile order (the two-level
-// sum of tile_sum_f32), so unsplit sums at 128 sources a tile equal the
+// sum of the first design), so unsplit sums at 128 sources a tile equal the
 // first design's bits.
+//
+// K14 (ring.cu) launches this sweep for each ring step through
+// tile_rect_launch (tile.cuh), adding to the step's running sums
+// (accumulate).
 #include "sweep.cuh"
+#include "tile.cuh"
 
 namespace murb {
 
@@ -75,7 +80,8 @@ __device__ __forceinline__ void stage_source_async(float4* slot,
 }
 
 // One staged tile of BJ sources against R targets: per target, fp32 tile
-// partials in source order (tile_sum_f32's arithmetic, R chains at once).
+// partials in source order (the first design's arithmetic, R chains at
+// once).
 template <int BJ, int R>
 __device__ __forceinline__ void tile_sum_rows(const float4* tile,
                                               const float (&xi)[R],
@@ -105,7 +111,8 @@ __device__ __forceinline__ void tile_sum_rows(const float4* tile,
 // grid (ceil(ni / BI), S), BI / R threads.  Slice blockIdx.y sweeps tiles
 // [y * tiles_per_slice, min((y + 1) * tiles_per_slice, ceil(nj / BJ))).
 // Thread t owns targets blockIdx.x * BI + t + r * (BI / R), r < R.  With
-// S == 1 the sums go to ax/ay/az, else to scratch[(y * 3 + c) * ni + i].
+// S == 1 the sums go to ax/ay/az (added to them when accumulate != 0),
+// else to scratch[(y * 3 + c) * ni + i].
 template <int BI, int BJ, int R>
 __global__ void __launch_bounds__(BI / R)
 tile_rect_rows_kernel(const float* __restrict__ qxi,
@@ -115,7 +122,7 @@ tile_rect_rows_kernel(const float* __restrict__ qxi,
                       const float* __restrict__ qyj,
                       const float* __restrict__ qzj,
                       const float* __restrict__ gmj, int nj,
-                      int tiles_per_slice, float soft2,
+                      int tiles_per_slice, float soft2, int accumulate,
                       float* __restrict__ ax, float* __restrict__ ay,
                       float* __restrict__ az, float* __restrict__ scratch) {
   constexpr int T = BI / R;
@@ -160,9 +167,9 @@ tile_rect_rows_kernel(const float* __restrict__ qxi,
     const int i = i0 + r * T;
     if (i >= ni) continue;
     if (gridDim.y == 1) {
-      ax[i] = sx[r];
-      ay[i] = sy[r];
-      az[i] = sz[r];
+      ax[i] = accumulate ? ax[i] + sx[r] : sx[r];
+      ay[i] = accumulate ? ay[i] + sy[r] : sy[r];
+      az[i] = accumulate ? az[i] + sz[r] : sz[r];
     } else {
       float* out = scratch + blockIdx.y * 3 * n + i;
       out[0] = sx[r];
@@ -172,9 +179,11 @@ tile_rect_rows_kernel(const float* __restrict__ qxi,
   }
 }
 
-// The slices' sums, folded in slice order: a_c[i] = sum_y scratch[y][c][i].
+// The slices' sums, folded in slice order: a_c[i] = sum_y scratch[y][c][i]
+// (added to a_c[i] when accumulate != 0).
 __global__ void tile_fold_kernel(const float* __restrict__ scratch,
-                                 int slices, int ni, float* __restrict__ ax,
+                                 int slices, int ni, int accumulate,
+                                 float* __restrict__ ax,
                                  float* __restrict__ ay,
                                  float* __restrict__ az) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -184,9 +193,40 @@ __global__ void tile_fold_kernel(const float* __restrict__ scratch,
   for (int y = 0; y < slices; ++y)
 #pragma unroll
     for (int c = 0; c < 3; ++c) s[c] += scratch[(y * 3 + c) * n + i];
-  ax[i] = s[0];
-  ay[i] = s[1];
-  az[i] = s[2];
+  ax[i] = accumulate ? ax[i] + s[0] : s[0];
+  ay[i] = accumulate ? ay[i] + s[1] : s[1];
+  az[i] = accumulate ? az[i] + s[2] : s[2];
+}
+
+int tile_rect_launch(const float* qxi, const float* qyi, const float* qzi,
+                     int ni, const float* qxj, const float* qyj,
+                     const float* qzj, const float* gmj, int nj, float soft2,
+                     int block_i, int block_j, int slices,
+                     int tiles_per_slice, float* scratch, int accumulate,
+                     float* ax, float* ay, float* az, cudaStream_t stream) {
+  if (ni <= 0) return 0;
+  if (slices < 1 || slices > 65535 || tiles_per_slice < 0 ||
+      (slices > 1 && scratch == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return with_blocks(
+      block_i, block_j, kTileTargets, kTileSources, [&](auto bi, auto bj) {
+        constexpr int BI = decltype(bi)::value, BJ = decltype(bj)::value;
+        constexpr int R = tile_rows(BI);
+        const long long tiles = (nj + BJ - 1) / BJ;
+        if (static_cast<long long>(slices) * tiles_per_slice < tiles ||
+            (slices > 1 &&
+             static_cast<long long>(slices - 1) * tiles_per_slice >= tiles))
+          return static_cast<int>(cudaErrorInvalidValue);
+        const dim3 grid((ni + BI - 1) / BI, slices);
+        tile_rect_rows_kernel<BI, BJ, R><<<grid, BI / R, 0, stream>>>(
+            qxi, qyi, qzi, ni, qxj, qyj, qzj, gmj, nj, tiles_per_slice, soft2,
+            accumulate, ax, ay, az, scratch);
+        const int err = static_cast<int>(cudaGetLastError());
+        if (err != 0 || slices == 1) return err;
+        tile_fold_kernel<<<(ni + 255) / 256, 256, 0, stream>>>(
+            scratch, slices, ni, accumulate, ax, ay, az);
+        return static_cast<int>(cudaGetLastError());
+      });
 }
 
 }  // namespace murb
@@ -203,30 +243,10 @@ extern "C" int murb_tile_rect(const float* qxi, const float* qyi,
                               int block_i, int block_j, int slices,
                               int tiles_per_slice, float* scratch, float* ax,
                               float* ay, float* az, cudaStream_t stream) {
-  if (ni <= 0) return 0;
-  if (slices < 1 || slices > 65535 || tiles_per_slice < 0 ||
-      (slices > 1 && scratch == nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
-  return murb::with_blocks(
-      block_i, block_j, murb::kTileTargets, murb::kTileSources,
-      [&](auto bi, auto bj) {
-        constexpr int BI = decltype(bi)::value, BJ = decltype(bj)::value;
-        constexpr int R = murb::tile_rows(BI);
-        const long long tiles = (nj + BJ - 1) / BJ;
-        if (static_cast<long long>(slices) * tiles_per_slice < tiles ||
-            (slices > 1 &&
-             static_cast<long long>(slices - 1) * tiles_per_slice >= tiles))
-          return static_cast<int>(cudaErrorInvalidValue);
-        const dim3 grid((ni + BI - 1) / BI, slices);
-        murb::tile_rect_rows_kernel<BI, BJ, R><<<grid, BI / R, 0, stream>>>(
-            qxi, qyi, qzi, ni, qxj, qyj, qzj, gmj, nj, tiles_per_slice, soft2,
-            ax, ay, az, scratch);
-        int err = static_cast<int>(cudaGetLastError());
-        if (err != 0 || slices == 1) return err;
-        murb::tile_fold_kernel<<<(ni + 255) / 256, 256, 0, stream>>>(
-            scratch, slices, ni, ax, ay, az);
-        return static_cast<int>(cudaGetLastError());
-      });
+  return murb::tile_rect_launch(qxi, qyi, qzi, ni, qxj, qyj, qzj, gmj, nj,
+                                soft2, block_i, block_j, slices,
+                                tiles_per_slice, scratch, 0, ax, ay, az,
+                                stream);
 }
 
 // Blocks of K3's sweep at (block_i, block_j) that one SM of the current

@@ -199,11 +199,13 @@ class HybridEngine(PallasTileEngine):
 class MXUEngine(PallasTileEngine):
     """Norm-expansion all-pairs engine on kernel K13 (``tpu+mxu``), the
     large-N flagship of murb_tpu's exact ladder and the analogue of the
-    reference's gpu+tile+full200k.  ``precision``: murb_tpu's tiers
-    (ops/mxu.py), each computed in fp32 by K13."""
+    reference's gpu+tile+full200k.  ``precision``: murb_tpu's tiers, met
+    in TF32 on the tensor cores by K13 (ops/mxu.py)."""
 
     tag = "tpu+mxu"
-    design = ""
+    #: K13's tensor-core design (csrc/mxu.cu) has other best blocks than
+    #: its first, fp32 design, so a pick cached for that one is not read
+    design = "@k13mma"
 
     def __init__(self, bodies, soft=None, dt=None, *,
                  precision: str = "high", **kw):

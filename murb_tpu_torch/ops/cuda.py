@@ -43,8 +43,9 @@ _SIGNATURES = {
     "murb_tile_resident": [_I, _I, _P],
     "murb_hybrid_rect": [_P, _P, _P, _I, _P, _P, _P, _P, _I, _F, _I, _I, _I,
                          _I, _I, _P, _P, _P, _P, _P],
-    "murb_mxu_rect": [_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P,
-                      _P],
+    "murb_mxu_rect": [_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                      _P, _P, _P, _P, _P, _P],
+    "murb_mxu_resident": [_I, _I, _P],
     "murb_p2m": [_P, _P, _P, _P, _I, _P, _I, _P, _I, _P, _P],
     "murb_l2p": [_P, _P, _P, _I, _P, _I, _P, _I, _P, _P],
     "murb_phi_rows_rect": [_P, _P, _P, _I, _P, _P, _P, _I, _P, _I, _F,
@@ -61,10 +62,10 @@ _SIGNATURES = {
                         _P, _P, _P],
     "murb_l2p_window": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _P, _P, _I,
                         _P, _I, _P, _P],
-    # host arrays of D pointers (qx, qy, qz, bufs, ax, ay, az), D device
-    # ids, D origin, compute and copy streams
+    # host arrays of D pointers (qx, qy, qz, bufs, ax, ay, az, scratch), D
+    # device ids, D origin, compute and copy streams
     "murb_ring_pipelined": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                            _P, _F, _I, _I, _L],
+                            _P, _P, _F, _I, _I, _I, _I, _L],
 }
 
 
@@ -248,7 +249,7 @@ def tile_split(ni: int, nj: int, sm_count: int, resident: int,
     """K3's j split, ``(slices, tiles_per_slice)``: slice s sweeps source
     tiles [s * tiles_per_slice, (s + 1) * tiles_per_slice) of the
     ceil(nj / block_j) tiles, every slice at least one.  ``resident``: the
-    blocks of this geometry one SM holds at once (``tile_resident``).  One
+    blocks of this geometry one SM holds at once (``resident``).  One
     slice once the target blocks fill the card's ``resident * sm_count``
     slots ``TILE_WAVES`` times; else as many as that takes, at most one a
     tile."""
@@ -263,16 +264,18 @@ def tile_split(ni: int, nj: int, sm_count: int, resident: int,
 
 
 @functools.lru_cache(maxsize=None)
-def tile_resident(device: torch.device, block_i: int = 0,
-                  block_j: int = 0) -> int:
-    """Blocks of K3's sweep at (block_i, block_j) that one SM of ``device``
-    holds at once (csrc/tile.cu murb_tile_resident, the CUDA occupancy
-    calculator)."""
+def resident(entry: str, device: torch.device, block_i: int = 0,
+             block_j: int = 0) -> int:
+    """Blocks of a sweep at (block_i, block_j) that one SM of ``device``
+    holds at once, from its C entry ``entry`` (``murb_tile_resident``:
+    K3, csrc/tile.cu; ``murb_mxu_resident``: K13, csrc/mxu.cu; the CUDA
+    occupancy calculator)."""
     blocks = ctypes.c_int(0)
     with torch.cuda.device(device):
-        launch("murb_tile_resident", block_i, block_j, ctypes.byref(blocks))
+        launch(entry, block_i, block_j, ctypes.byref(blocks))
     if blocks.value < 1:
-        raise RuntimeError(f"K3 at {block_i}x{block_j}: no block fits an SM")
+        raise RuntimeError(f"{entry} at {block_i}x{block_j}: no block fits "
+                           "an SM")
     return blocks.value
 
 

@@ -6,12 +6,13 @@ shard s computes against the block that started on shard (s - k) mod D,
 held in slot k % 2 of its two-slot buffer, while the same slot travels on
 to the right neighbour's other slot.
 
-``acc_ring_pipelined`` launches K14 (``csrc/ring.cu``: the sweep kernel
-and the event protocol in one C entry) when every shard lies on a CUDA
-device, and runs ``acc_ring_pipelined_plain`` when every shard lies on the
-CPU; there is no other path.  The plain version plays the same two-slot
-protocol on host-side lists, the sweep in the inputs' dtype.  A ring that
-spans processes is not ported (ROADMAP.md Queue 3).
+``acc_ring_pipelined`` launches K14 (``csrc/ring.cu``: the event protocol
+in one C entry, each ring step swept by K3's register-tiled kernel,
+csrc/tile.cu) when every shard lies on a CUDA device, and runs
+``acc_ring_pipelined_plain`` when every shard lies on the CPU; there is no
+other path.  The plain version plays the same two-slot protocol on
+host-side lists, the sweep in the inputs' dtype.  A ring that spans
+processes is not ported (ROADMAP.md Queue 1, item 1).
 """
 from __future__ import annotations
 
@@ -32,7 +33,7 @@ def _check_mesh(mesh, qs, gms) -> None:
         raise not_yet_ported("the pipelined ring across processes "
                              "(ring_impl='pipelined' with more than one "
                              "process; ring_impl='ppermute' runs there)",
-                             "Queue 3")
+                             "Queue 1")
     if not len(qs) == len(gms) == mesh.local_size:
         raise ValueError(f"{TAG}: {len(qs)} position and {len(gms)} mass "
                          f"blocks for {mesh.local_size} shards")
@@ -69,6 +70,16 @@ def acc_ring_pipelined_plain(mesh, qs, gms, soft, *, log=None) -> list:
     return acc
 
 
+def ring_split(n: int, sm_count: int, resident: int, sharing: int,
+               block_i: int = 0, block_j: int = 0) -> tuple[int, int]:
+    """K3's j split of each of K14's n x n ring sweeps,
+    ``(slices, tiles_per_slice)`` (ops/cuda.tile_split): the ``sharing``
+    shards of one card sweep at once on their own compute streams, so
+    each counts the card's SMs divided among them (at least one)."""
+    return cuda.tile_split(n, n, max(1, sm_count // max(1, sharing)),
+                           resident, block_i, block_j)
+
+
 _STREAMS: dict = {}
 
 
@@ -86,11 +97,12 @@ def acc_ring_pipelined(mesh, qs, gms, soft, *, block_i: int = 0,
 
     CPU shards run the plain version; CUDA shards launch K14 (fp32 inside;
     float64 inputs are cast here and the outputs cast back): one C call
-    issues the D^2 sweeps and D(D - 1) slot copies on each shard's compute
-    and copy streams, and each shard's current stream waits for the whole
-    ring.  ``block_i``/``block_j`` pick the sweep's compiled geometry (as
-    K3's); ``delay_ns`` > 0 sleeps before every copy and compute (the
-    protocol check of chip_smoke.py)."""
+    issues the D^2 sweeps (K3's kernel, split by ``ring_split``; each
+    shard's (slices, 3, n) scratch is allocated here) and D(D - 1) slot
+    copies on each shard's compute and copy streams, and each shard's
+    current stream waits for the whole ring.  ``block_i``/``block_j`` pick
+    the sweep's compiled geometry (K3's); ``delay_ns`` > 0 sleeps before
+    every copy and compute (the protocol check of chip_smoke.py)."""
     _check_mesh(mesh, qs, gms)
     cuda.check_blocks(TAG, block_i, block_j)
     if all(dv.type == "cpu" for dv in mesh.devices):
@@ -102,7 +114,13 @@ def acc_ring_pipelined(mesh, qs, gms, soft, *, block_i: int = 0,
         raise ValueError(f"{TAG}: the sweep needs a positive softening")
     d, n = mesh.local_size, qs[0][0].shape[0]
     dtype = qs[0][0].dtype
-    tgts, bufs, outs = [], [], []
+    # one split for every sweep, from the card that the most shards share
+    dev0 = max(mesh.devices, key=mesh.devices.count)
+    slices, per = ring_split(n, cuda.sm_count(dev0),
+                             cuda.resident("murb_tile_resident", dev0, block_i,
+                                           block_j),
+                             mesh.devices.count(dev0), block_i, block_j)
+    tgts, bufs, outs, scratch = [], [], [], []
     for dev, q, g in zip(mesh.devices, qs, gms):
         x, y, z, gg = cuda.kernel_inputs(TAG, dev, n, *q, g,
                                          notify=notify_fp32_compute)
@@ -110,11 +128,14 @@ def acc_ring_pipelined(mesh, qs, gms, soft, *, block_i: int = 0,
             buf = torch.empty((2, 4, n), dtype=torch.float32, device=dev)
             buf[0] = torch.stack([x, y, z, gg])
             outs.append(torch.empty((3, n), dtype=torch.float32, device=dev))
+            scratch.append(torch.empty((slices, 3, n) if slices > 1 else 0,
+                                       dtype=torch.float32, device=dev))
         tgts.append((x, y, z))
         bufs.append(buf)
     ptrs = lambda ts: (ctypes.c_void_p * d)(*(t.data_ptr() for t in ts))
     arrays = [ptrs(t[c] for t in tgts) for c in range(3)]
     arrays += [ptrs(bufs)] + [ptrs(o[c] for o in outs) for c in range(3)]
+    arrays += [ptrs(scratch)]
     ids = (ctypes.c_int * d)(*(dv.index for dv in mesh.devices))
     side = [_side_streams(dv, s) for s, dv in enumerate(mesh.devices)]
     streams = [(ctypes.c_void_p * d)(*v) for v in (
@@ -123,8 +144,8 @@ def acc_ring_pipelined(mesh, qs, gms, soft, *, block_i: int = 0,
     cuda.launch("murb_ring_pipelined", d, n,
                 *(ctypes.addressof(a) for a in arrays), ctypes.addressof(ids),
                 *(ctypes.addressof(s) for s in streams),
-                ctypes.c_float(float(soft) ** 2), block_i, block_j,
-                int(delay_ns))
+                ctypes.c_float(float(soft) ** 2), block_i, block_j, slices,
+                per, int(delay_ns))
     acc_ring_pipelined.launches += d * d
     return [Accel(*(o.to(dtype) for o in out)) for out in outs]
 

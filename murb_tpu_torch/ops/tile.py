@@ -39,7 +39,8 @@ def split_args(ni: int, nj: int, block_i: int, block_j: int,
     float32 tensor (None for one slice) that the caller keeps until the
     launch is enqueued."""
     slices, per = cuda.tile_split(ni, nj, cuda.sm_count(device),
-                                  cuda.tile_resident(device, block_i, block_j),
+                                  cuda.resident("murb_tile_resident", device,
+                                                block_i, block_j),
                                   block_i, block_j)
     scratch = (torch.empty((slices, 3, ni), dtype=torch.float32,
                            device=device) if slices > 1 else None)

@@ -123,15 +123,17 @@ class Mesh:
                 for b, d in zip(moved, self.devices)]
 
 
-def make_mesh(shards: int = 0, *, device="cpu", devices=None) -> Mesh:
+def make_mesh(shards: int = 0, *, device="cuda", devices=None) -> Mesh:
     """A 1-D mesh of ``shards`` shards over the global mesh (0 = all local
     devices in every process).
 
     ``devices`` (an explicit list, one entry per local shard) may put
     several shards on one card: the API's way to check a multi-shard mode
-    on one card.  Without it, CUDA shards take the first local cards, one
-    each, and may not outnumber them (murb_tpu/parallel/mesh.py:21-22); CPU
-    shards are virtual, any number of them on the CPU."""
+    on one card.  Without it, CUDA shards (the default) take the first
+    local cards, one each, and may not outnumber them
+    (murb_tpu/parallel/mesh.py:21-22); with no card at all this raises
+    before building anything.  CPU shards (``device="cpu"``) are virtual,
+    any number of them on the CPU."""
     pi, pc = _world()
     if devices is not None:
         devices = [torch.device(d) for d in devices]
@@ -141,6 +143,10 @@ def make_mesh(shards: int = 0, *, device="cpu", devices=None) -> Mesh:
         return Mesh(devices, process_index=pi, process_count=pc)
     device = torch.device(device)
     avail = torch.cuda.device_count() if device.type == "cuda" else None
+    if avail == 0:
+        raise RuntimeError("make_mesh: CUDA shards asked for but no CUDA "
+                           "device is available (pass device='cpu' for "
+                           "virtual CPU shards)")
     total = shards or pc * (avail if avail is not None else 1)
     if total % pc:
         raise ValueError(f"requested {total} shards over {pc} processes")

@@ -4,6 +4,7 @@ sweeps (K3, K4, K13), on the CPU (where the sweep times the plain
 versions: only the wiring is under test here; chip_smoke.py phase 10
 times the kernels)."""
 import json
+import re
 
 import numpy as np
 import pytest
@@ -62,14 +63,15 @@ def test_keys_carry_the_device_name(tune_cache, monkeypatch):
     ("tpu+hybrid+fast", "torch/tpu+hybrid/p1@k3rows/n512/cpu"),
     ("tpu+hybrid", "torch/tpu+hybrid/p2@k3rows/n512/cpu"),
     ("tpu+hybrid+x3", "torch/tpu+hybrid/p3/n512/cpu"),
-    ("tpu+mxu", "torch/tpu+mxu/n512/cpu")])
+    ("tpu+mxu", "torch/tpu+mxu@k13mma/n512/cpu")])
 def test_keys_of_k3_carry_its_design(tune_cache, im, key):
-    """The engines that launch K3 tag its design in their key, so a pick
-    cached for the first design is not read; the others keep their keys."""
+    """The engines that launch K3, and K13's, tag the kernel's redesign in
+    their key, so a pick cached for the first design is not read; the
+    others keep their keys."""
     bodies = carry(jinit.init_galaxy(500, 3))
     e = create_engine(im, bodies, soft=SOFT, dt=DT)
     assert at._key(e._tune_tag, bodies.npad, "cpu") == key
-    old = key.replace("@k3rows", "")
+    old = re.sub(r"@\w+", "", key)
     with open(at._cache_path(), "w") as f:
         json.dump({old: {"block_i": 512, "block_j": 512}}, f)
     again = create_engine(im, bodies, soft=SOFT, dt=DT)
@@ -188,17 +190,33 @@ def test_cache_written_by_murb_tpu_is_not_read(tune_cache):
     assert (e.block_i, e.block_j) == (0, 0) and e.tuned is None
     e.compute_one_iteration()
     e.assert_finite()
-    at.store("tpu+mxu", 2048, {"block_i": 64, "block_j": 128}, 0.5, **CPU)
+    at.store(e._tune_tag, 2048, {"block_i": 64, "block_j": 128}, 0.5, **CPU)
     with open(tune_cache) as f:
         db = json.load(f)
     assert db["tpu+mxu/n2048/cpu"]["block_i"] == 1024
-    assert db["torch/tpu+mxu/n2048/cpu"]["block_i"] == 64
+    assert db["torch/tpu+mxu@k13mma/n2048/cpu"]["block_i"] == 64
     assert create_engine("tpu+mxu", carry(js), soft=SOFT,
                          dt=DT).block_i == 64
     # a port entry the sweeps are not compiled for is skipped too
-    at.store("tpu+mxu", 2048, {"block_i": 96, "block_j": 128}, 0.5, **CPU)
+    at.store(e._tune_tag, 2048, {"block_i": 96, "block_j": 128}, 0.5, **CPU)
     assert create_engine("tpu+mxu", carry(js), soft=SOFT,
                          dt=DT).block_i == 0
+
+
+def test_k13_pick_of_its_first_design_is_not_read(tune_cache):
+    """A K13 block pair cached under the first design's key (``tpu+mxu``,
+    before the tensor-core redesign) is not read: the engine keeps the
+    kernel default, and its own pick lands under ``tpu+mxu@k13mma``."""
+    bodies = carry(jinit.init_galaxy(500, 3))
+    at.store("tpu+mxu", bodies.npad, {"block_i": 512, "block_j": 512}, 0.5,
+             **CPU)
+    e = create_engine("tpu+mxu", bodies, soft=SOFT, dt=DT)
+    assert e._tune_tag == "tpu+mxu@k13mma"
+    assert (e.block_i, e.block_j) == (0, 0) and e.tuned is None
+    at.store(e._tune_tag, bodies.npad, {"block_i": 128, "block_j": 64}, 0.4,
+             **CPU)
+    again = create_engine("tpu+mxu", bodies, soft=SOFT, dt=DT)
+    assert (again.block_i, again.block_j) == (128, 64)
 
 
 def test_hybrid_pass_counts_tune_separately(tune_cache):

@@ -87,6 +87,18 @@ def test_make_mesh_devices(monkeypatch):
     assert M.make_mesh(5, device="cpu").size == 5
 
 
+def test_make_mesh_defaults_to_the_card_and_raises_without_one(monkeypatch):
+    """With no card, CUDA shards (the default) raise before anything is
+    built and name the CPU alternative; CPU shards still come as asked."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    for call in (lambda: M.make_mesh(2), lambda: M.make_mesh(),
+                 lambda: M.make_mesh(0, device="cuda")):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    cpu = M.make_mesh(2, device="cpu")
+    assert cpu.devices == [torch.device("cpu")] * 2 and not cpu.all_cuda
+
+
 def test_maybe_init_distributed_needs_the_coordinator(monkeypatch):
     monkeypatch.delenv("MURB_COORDINATOR", raising=False)
     assert M.maybe_init_distributed("cpu") is False

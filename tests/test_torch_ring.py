@@ -14,6 +14,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 from jax.experimental.pallas import tpu as pltpu
 from jax.sharding import PartitionSpec as P
 
@@ -23,7 +25,7 @@ from murb_tpu.ops.ring_pallas import acc_ring_pipelined as j_ring
 from murb_tpu.parallel.mesh import SHARD_AXIS, make_mesh as j_mesh
 from murb_tpu_torch.core.state import FIELDS, BodyState
 from murb_tpu_torch.models import create_engine
-from murb_tpu_torch.ops import ring
+from murb_tpu_torch.ops import cuda, ring
 from murb_tpu_torch.parallel.mesh import make_mesh, shard_state
 
 from conftest import assert_within_rel
@@ -91,6 +93,41 @@ def test_wrapper_refuses_what_it_does_not_run(monkeypatch):
     monkeypatch.setattr(mesh, "process_count", 2)
     with pytest.raises(NotImplementedError, match="not yet ported"):
         ring.acc_ring_pipelined(mesh, qs, gms, SOFT)
+
+
+@settings(max_examples=300, deadline=None)
+@given(n=st.integers(1, 400_000), sms=st.integers(1, 200),
+       resident=st.integers(1, 32), d=st.integers(1, 8),
+       bi=st.sampled_from((0,) + cuda.SWEEP_BLOCKS),
+       bj=st.sampled_from((0,) + cuda.SWEEP_BLOCKS))
+def test_ring_split_covers_every_tile_once_in_order(n, sms, resident, d, bi,
+                                                    bj):
+    """Each of K14's n x n sweeps, with d shards sweeping at once on one
+    card: slices of whole tiles, in order, cover the j tiles exactly once,
+    none empty (as csrc/tile.cu checks), and more shards on the card never
+    take more slices (each counts its share of the SMs)."""
+    slices, per = ring.ring_split(n, sms, resident, d, bi, bj)
+    tiles = -(-n // (bj or cuda.TILE_BLOCK_J))
+    assert 1 <= slices <= max(tiles, 1)
+    covered = [t for s in range(slices)
+               for t in range(s * per, min((s + 1) * per, tiles))]
+    assert covered == list(range(tiles))
+    assert slices == 1 or (slices - 1) * per < tiles
+    assert (slices, per) == cuda.tile_split(n, n, max(1, sms // d),
+                                            resident, bi, bj)
+    assert ring.ring_split(n, sms, resident, d + 1, bi, bj)[0] <= slices
+
+
+@pytest.mark.parametrize("d,n,want", [(1, 200_192, 5), (2, 100_096, 5),
+                                      (3, 66_816, 5), (4, 50_176, 5)])
+def test_ring_split_at_the_main_path_shapes(d, n, want):
+    """The 200k galaxy on D shards of one H100 (132 SMs, 13 resident K3
+    blocks an SM): at D = 1 K14's split is K3's own (so the sums are K3's
+    bits); each shard's sweep counts 132 // D SMs."""
+    slices, per = ring.ring_split(n, 132, 13, d)
+    assert slices == want
+    if d == 1:
+        assert (slices, per) == cuda.tile_split(n, n, 132, 13)
 
 
 def test_engine_pipelined_matches_ppermute():
