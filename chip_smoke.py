@@ -12,7 +12,10 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      float64) at main-path shapes, with the max error and both times (K3
      at 16384^2, 5000x16384 and 8000^2, the m=20 node sweep's shape, each
      launched twice for the same bits; K4's passes 3 held to at most half
-     the error of the fp32 sum with no j split);
+     the error of the fp32 sum with no j split; K5 and K6 on the merger,
+     81,920^2, at R = 2, 1 and 8 weight rows, each launched twice for the
+     same bits, K6's force bit for bit K3's and K5's rows bit for bit K6's
+     at K6's geometry and j split);
   4. the main path: ``tpu+proxy`` on the N=200,000 galaxy through the CLI
      (``murb_tpu_torch.cli.run``, whose exit code ``cli.main`` returns),
      plus a small CPU-vs-card trajectory check;
@@ -92,9 +95,10 @@ run of phase 9, K13 from the ``tpu+mxu`` run of phase 10, K14 from the
 4-shard ``shard+ring`` run of phase 11.  Every kernel must have launched in
 its piece.  The line before the last is the kernels' JSON
 record (with each kernel's bound: the larger of its bytes over 3.35 TB/s
-and its operations over the 67 TFLOP/s fp32 peak of an H100 SXM; K13's the
-largest of its MUFU rsqrt floor, its TF32 products at 495 TFLOP/s and its
-fp32 work); the last line is the result object.
+and its operations over the 67 TFLOP/s fp32 peak of an H100 SXM; K5's and
+K6's also no less than their MUFU rsqrt floor, one a pair at 16 a clock
+an SM; K13's the largest of its MUFU rsqrt floor, its TF32 products at
+495 TFLOP/s and its fp32 work); the last line is the result object.
 
 Needs a CUDA device and the rest of the repository beside this file; it
 exits non-zero without printing a result otherwise.
@@ -158,7 +162,8 @@ def main() -> int:
                                            acc_phi_rows_hybrid,
                                            acc_phi_rows_plain, phi_rows,
                                            phi_rows_rect,
-                                           phi_rows_rect_plain)
+                                           phi_rows_rect_plain,
+                                           phi_split_args)
     from murb_tpu_torch.ops.proxy import acc_proxy, bounding_box, heavy_split
     from murb_tpu_torch.ops.p2p_kernels import p2p_sweep_kernel_sorted
     from murb_tpu_torch.ops.proxy_kernels import (l2p_fused_multi, l2p_plain,
@@ -242,7 +247,7 @@ def main() -> int:
 
     def keep(k, err, ms, plain_ms, nbytes, flops, bound_ms=None):
         b_ms, b_by = bound(nbytes, flops)
-        if bound_ms is not None:    # K13: its own operations' floor
+        if bound_ms is not None:    # K5, K6, K13: their MUFU floor and more
             b_ms, b_by = max(b_ms, bound_ms), "operations"
         # no single PyTorch call computes any of these kernels' functions
         record[k] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -401,11 +406,24 @@ def main() -> int:
           f"unsplit reading")
     del st, sr, w64, a64, ref, sums
 
-    # K5 and K6 at the merger's shape, 81,920^2 with R = 2 galaxy rows.  The
-    # float64 reference takes 4096 strided i-rows against every source (as
-    # ops/validate samples); the plain versions are timed at the full shape.
-    # Contracts: phi within 1e-5 relative per element, the force within
-    # K4 passes 2's 3e-5.
+    # K5 and K6 at the merger's shape, 81,920^2: R = 2 (the merger's two
+    # galaxy rows; the kernels' record), R = 1 (the total G*m row of the
+    # exact tpu+tracking) and R = 8 (the largest instance: the galaxies,
+    # the total and 5 seeded random masks).  The float64 reference takes
+    # 4096 strided i-rows against every source (as ops/validate samples);
+    # the plain versions are timed at the full shape.  Contracts: phi
+    # within 1e-5 relative per element, the force within K4 passes 2's
+    # 3e-5.  Both run K3's register-tiled sweep with R weight rows
+    # (csrc/tile.cuh), so at K6's geometry and j split K6's force must be
+    # K3's bits (K3's C entry) and K5's rows K6's (K5's C entry at K6's
+    # split; its wrapper may split otherwise).  Each kernel launches twice
+    # for the same bits.  Bound: the larger of the fp32 operations (K5 10 +
+    # 2R flops a pair, K6 20 + 2R) and the MUFU floor (one rsqrt a pair at
+    # 16 a clock an SM, the card's SMs at clocks.max.sm).
+    clk = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,"
+         "nounits", "-i", "0"], capture_output=True, text=True,
+        check=True).stdout.split()[0]) * 1e6
     tmpdir = tempfile.TemporaryDirectory()      # removed at exit
     tab = os.path.join(tmpdir.name, "milkyway_andromeda.tab")
     t0 = time.perf_counter()
@@ -417,49 +435,118 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s")
     masks = milkyway_andromeda_masks(mg.npad, mg.n)
     gmg = mg.m * torch.tensor(G, dtype=torch.float32).item()
-    rows = torch.stack([torch.as_tensor(mk, device=dev) for mk in masks]) \
-        * gmg[None, :]
+    mask_t = [torch.as_tensor(mk, device=dev) for mk in masks]
     qm = (mg.qx, mg.qy, mg.qz)
-    nm, r = mg.npad, rows.shape[0]
+    nm = mg.npad
     idx = torch.linspace(0, nm - 1, 4096, device=dev).long()
     qm64 = tuple(v.double() for v in qm)
     qs64 = tuple(v[idx] for v in qm64)
-    ref_phi = phi_rows_rect_plain(*qs64, *qm64, rows.double(), SOFT)
-
-    def phi_err(phi):
-        d = phi[:, idx].double() - ref_phi
-        return float(d.abs().max()), float((d.abs() / ref_phi.abs()).max())
-
-    phi = phi_rows(*qm, rows, SOFT)
-    err5, rel5 = phi_err(phi)
-    check(rel5 <= 1e-5, f"K5: max relative phi error {rel5:.3e} > 1e-5")
-    ms = time_ms(lambda: phi_rows(*qm, rows, SOFT), reps=5)
-    plain_ms = time_ms(lambda: phi_rows_rect_plain(*qm, *qm, rows, SOFT),
-                       reps=1, runs=3)
-    b5 = keep("K5", err5, ms, plain_ms, (24 + 8 * r) * nm,
-              (10 + 2 * r) * nm * nm)
-    print(f"[3 K5 phi_rows {nm}x{nm} R={r}] max rel phi err {rel5:.3e} "
-          f"(contract 1e-5) max|dphi| {err5:.3e}; kernel {ms:.4f} ms plain "
-          f"{plain_ms:.4f} ms bound {b5:.4f} ms")
-
-    acc6, phi6 = acc_phi_rows_hybrid(*qm, gmg, rows, SOFT)
     ref_acc = acc_tile_rect_plain(*qs64, *qm64, gmg.double(), SOFT)
-    rel6 = norm_rel([a[idx] for a in acc6], ref_acc)
-    err6, prel6 = phi_err(phi6)
-    check(rel6 <= 3e-5, f"K6: max relative force error {rel6:.3e} > 3e-5")
-    check(prel6 <= 1e-5, f"K6: max relative phi error {prel6:.3e} > 1e-5")
-    erra6 = max(float((a[idx].double() - b).abs().max())
-                for a, b in zip(acc6, ref_acc))
-    ms = time_ms(lambda: acc_phi_rows_hybrid(*qm, gmg, rows, SOFT), reps=5)
-    plain_ms = time_ms(lambda: acc_phi_rows_plain(*qm, gmg, rows, SOFT),
-                       reps=1, runs=3)
-    b6 = keep("K6", erra6, ms, plain_ms, (28 + 8 * r) * nm,
-              (20 + 2 * r) * nm * nm)
-    print(f"[3 K6 acc_phi_rows {nm}x{nm} R={r}] max rel force err "
-          f"{rel6:.3e} (contract 3e-5) max|da| {erra6:.3e}; max rel phi "
-          f"err {prel6:.3e} (contract 1e-5) max|dphi| {err6:.3e}; kernel "
-          f"{ms:.4f} ms plain {plain_ms:.4f} ms bound {b6:.4f} ms")
-    del ref_phi, ref_acc, acc6, phi6, phi
+    mufu_ms = float(nm) * nm / (16 * sms * clk) * 1e3
+
+    def merger_rows(nr):
+        if nr == 1:
+            return gmg[None, :].contiguous()
+        out = [mask_t[0] * gmg, mask_t[1] * gmg]
+        if nr > 2:
+            g8 = torch.Generator(device=dev).manual_seed(SEED)
+            out.append(gmg)
+            out += [(torch.rand(nm, generator=g8, device=dev) < 0.5).float()
+                    * gmg for _ in range(nr - 3)]
+        return torch.stack(out[:nr]).contiguous()
+
+    def phi_c_entry(rows_r, split):
+        """K5 through its C entry at ``split`` (counts no launch)."""
+        out = torch.empty((rows_r.shape[0], nm), dtype=torch.float32,
+                          device=dev)
+        cuda.launch("murb_phi_rows_rect", *(v.data_ptr() for v in qm), nm,
+                    *(v.data_ptr() for v in qm), nm, rows_r.data_ptr(),
+                    rows_r.shape[0], ctypes.c_float(SOFT ** 2), *split,
+                    out.data_ptr(), cuda.stream(dev))
+        return out
+
+    def k3_c_entry(bi, bj, slices, per):
+        """K3 through its C entry at K6's geometry and split."""
+        out = torch.empty((3, nm), dtype=torch.float32, device=dev)
+        scr = torch.empty((slices, 3, nm), dtype=torch.float32, device=dev)
+        cuda.launch("murb_tile_rect", *(v.data_ptr() for v in qm), nm,
+                    *(v.data_ptr() for v in qm), gmg.data_ptr(), nm,
+                    ctypes.c_float(SOFT ** 2), bi, bj, slices, per,
+                    scr.data_ptr() if slices > 1 else None,
+                    *(o.data_ptr() for o in out), cuda.stream(dev))
+        return out
+
+    for r in (2, 1, 8):
+        rows = merger_rows(r)
+        ref_phi = phi_rows_rect_plain(*qs64, *qm64, rows.double(), SOFT)
+
+        def phi_err(phi):
+            d = phi[:, idx].double() - ref_phi
+            return float(d.abs().max()), float((d.abs() / ref_phi.abs())
+                                               .max())
+
+        phi = phi_rows(*qm, rows, SOFT)
+        check(torch.equal(phi, phi_rows(*qm, rows, SOFT)),
+              f"K5 R={r}: two launches differ")
+        err5, rel5 = phi_err(phi)
+        check(rel5 <= 1e-5, f"K5 R={r}: max relative phi error {rel5:.3e} "
+                            f"> 1e-5")
+        acc6, phi6 = acc_phi_rows_hybrid(*qm, gmg, rows, SOFT)
+        acc6b, phi6b = acc_phi_rows_hybrid(*qm, gmg, rows, SOFT)
+        check(all(torch.equal(a, b) for a, b in zip((*acc6, phi6),
+                                                     (*acc6b, phi6b))),
+              f"K6 R={r}: two launches differ")
+        rel6 = norm_rel([a[idx] for a in acc6], ref_acc)
+        err6, prel6 = phi_err(phi6)
+        check(rel6 <= 3e-5, f"K6 R={r}: max relative force error {rel6:.3e} "
+                            f"> 3e-5")
+        check(prel6 <= 1e-5, f"K6 R={r}: max relative phi error {prel6:.3e} "
+                             f"> 1e-5")
+        erra6 = max(float((a[idx].double() - b).abs().max())
+                    for a, b in zip(acc6, ref_acc))
+        (bi6, bj6, sl6, per6, _), scr6 = phi_split_args(nm, nm, r, True, 0,
+                                                        0, dev)
+        a3 = k3_c_entry(bi6, bj6, sl6, per6)
+        check(all(torch.equal(a, b) for a, b in zip(acc6, a3)),
+              f"K6 R={r}: the force is not K3's bit for bit at {bi6}x{bj6} "
+              f"in {sl6} slices")
+        scr5 = torch.empty((sl6, r, nm), dtype=torch.float32, device=dev)
+        phi5 = phi_c_entry(rows, (bi6, bj6, sl6, per6,
+                                  scr5.data_ptr() if sl6 > 1 else None))
+        check(torch.equal(phi5, phi6),
+              f"K5 R={r}: phi is not K6's bit for bit at K6's geometry "
+              f"and split")
+        split5 = phi_split_args(nm, nm, r, False, 0, 0, dev)[0]
+        ms5 = time_ms(lambda: phi_rows(*qm, rows, SOFT), reps=5)
+        ms6 = time_ms(lambda: acc_phi_rows_hybrid(*qm, gmg, rows, SOFT),
+                      reps=5)
+        plain5 = time_ms(lambda: phi_rows_rect_plain(*qm, *qm, rows, SOFT),
+                         reps=1, runs=3 if r == 2 else 1)
+        plain6 = time_ms(lambda: acc_phi_rows_plain(*qm, gmg, rows, SOFT),
+                         reps=1, runs=3 if r == 2 else 1)
+        bytes5, flops5 = (24 + 8 * r) * nm, (10 + 2 * r) * nm * nm
+        bytes6, flops6 = (28 + 8 * r) * nm, (20 + 2 * r) * nm * nm
+        if r == 2:
+            b5 = keep("K5", err5, ms5, plain5, bytes5, flops5, mufu_ms)
+            b6 = keep("K6", erra6, ms6, plain6, bytes6, flops6, mufu_ms)
+        else:
+            b5 = max(bound(bytes5, flops5)[0], mufu_ms)
+            b6 = max(bound(bytes6, flops6)[0], mufu_ms)
+        print(f"[3 K5 phi_rows {nm}x{nm} R={r}] {split5[0]}x{split5[1]} in "
+              f"{split5[2]} slices; max rel phi err {rel5:.3e} (contract "
+              f"1e-5) max|dphi| {err5:.3e}; the same bits twice; at K6's "
+              f"geometry and split K6's bits; kernel {ms5:.4f} ms plain "
+              f"{plain5:.4f} ms bound {b5:.4f} ms (MUFU {mufu_ms:.4f} at "
+              f"{clk / 1e6:.0f} MHz, fp32 {flops5 / PEAK_FP32 * 1e3:.4f})")
+        print(f"[3 K6 acc_phi_rows {nm}x{nm} R={r}] {bi6}x{bj6} in {sl6} "
+              f"slices; max rel force err {rel6:.3e} (contract 3e-5) max|da| "
+              f"{erra6:.3e}; max rel phi err {prel6:.3e} (contract 1e-5) "
+              f"max|dphi| {err6:.3e}; the same bits twice; force K3's bit "
+              f"for bit; kernel {ms6:.4f} ms plain {plain6:.4f} ms bound "
+              f"{b6:.4f} ms (fp32 {flops6 / PEAK_FP32 * 1e3:.4f}, MUFU "
+              f"{mufu_ms:.4f})")
+        del ref_phi, acc6, phi6, acc6b, phi6b, phi, phi5, a3, scr5, scr6
+    del ref_acc
     torch.cuda.empty_cache()
 
     # ------------------------------------------------- 4. the main path
@@ -1482,10 +1569,6 @@ def main() -> int:
     # a pair) at 67 TFLOP/s.  Bytes: A (8 rows) and
     # gm per source; B (8 rows), the centred target and the output per
     # target, each once.  The 20-flop model of K3 is printed beside it.
-    clk = float(subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,"
-         "nounits", "-i", "0"], capture_output=True, text=True,
-        check=True).stdout.split()[0]) * 1e6
     pairs = float(n10) * n10
     floors = {"mufu": pairs / (16 * sms * clk) * 1e3,
               "tensor": 64 * pairs / 495e12 * 1e3,

@@ -17,84 +17,63 @@
 //
 // On the TPU the weight rows rode the matrix unit's padded dimension as
 // bf16 splits (passes 1/2), and the force came out as a = P[0:3] - q P[3],
-// which cancels in fp32.  Here one thread owns one i-body for the whole j
-// sweep, as in K3 (sweep.cuh): the block stages one tile of sources and
-// their R weights through shared memory, every thread reads them as
-// broadcasts, and the force sums w (r_j - r_i) directly.  Each row and the
-// force are summed in fp32 per tile and the tile partials in fp32 again, so
-// passes 1 and 2 both give the fp32-class contract (force as K4 passes 2,
-// phi to ~1e-6 relative).  The R accumulators live in registers: R is a
-// template parameter.
+// which cancels in fp32.  Here both run K3's register-tiled sweep
+// (tile.cuh, sweep_rows_kernel with R weight rows; K5 without the force):
+// each row and the force are summed in fp32 per tile and the tile partials
+// in fp32 again, so passes 1 and 2 both give the fp32-class contract (force
+// as K4 passes 2, phi to ~1e-6 relative), and K6's force is K3's bits at
+// the same block_j and j split.
 //
-// What bounds it on an H100: the fp32 pipes.  Per pair K5 does 3 sub,
-// 3 fma, one rsqrt (MUFU) and R fma; K6 adds 3 mul and 3 fma for the
-// force.  Device memory traffic is O((R + 4) nj ni / kSweepThreads) floats
-// and never binds.
-#include "sweep.cuh"
+// What bounds them on an H100: instruction issue and the MUFU rsqrt.  A
+// pair of K6 issues 3 sub, 3 fma for d^2, 3 mul, 3 fma for the force and R
+// fma, plus one MUFU.RSQ (about 15 slots at R = 2); K5 drops the 3 mul and
+// 3 fma of the force (about 9 slots), close to the MUFU floor (16 a clock
+// an SM: 1.60 ms at 81,920^2 and 1.98 GHz).  The first design (one target
+// a thread, 128 sources a tile staged with synchronous loads and two
+// barriers, the rows in R separate shared slices, rsqrtf with its denormal
+// fix-up, no j split: 640 four-warp blocks at the merger) paid for every
+// pair 1 + R shared loads and the fix-up.  This design:
+//   - 4 targets a thread (sweep_rows: K3's tile_rows at every R, 2 at
+//     block_i 64), so a staged source's loads cost 1/4 slot a pair;
+//   - each source staged as {x, y, z, G*m} and one weight record of
+//     weight_stride(R) floats (1, 2, 4 or 8), read as one float4 and one or
+//     two vector loads, through double-buffered cp.async, one barrier a
+//     tile;
+//   - rsqrt.approx.ftz.f32 (d^2 + eps^2 is never denormal for eps > 0);
+//   - the j split of K3 (ops/cuda.tile_split), with this kernel's own
+//     resident blocks (murb_phi_resident, keyed by R): (S, C, ni) partials
+//     (C = 3 + R for K6, R for K5) folded in slice order.  No atomics.
+// Geometry: 256 targets a block (64 threads) and 256 sources a tile at
+// every R (a 12 to 24 KB double buffer).  At 81,920^2 these kernels want
+// more resident warps than K3's 128 x 512 gives them (9 one-warp blocks an
+// SM at R = 2, the shared memory's limit): at tile_split's slices, K6 at
+// R = 2 took 4.38 ms there and 3.93 ms at 256 x 256 (12 two-warp blocks),
+// K5 2.82 and 2.52 ms (scripts/torch_kernel_ab.py; PERF.md).
+// Registers: 48 to 128 at 256 x 256 (K6 79 at R = 2), no spills in any
+// instance.
+#include "tile.cuh"
 
 namespace murb {
 
-template <int R, bool kForce>
-__global__ void __launch_bounds__(kSweepThreads)
-phi_rows_kernel(const float* __restrict__ qxi, const float* __restrict__ qyi,
-                const float* __restrict__ qzi, int ni,
-                const float* __restrict__ qxj, const float* __restrict__ qyj,
-                const float* __restrict__ qzj, const float* __restrict__ gmj,
-                const float* __restrict__ rows, int nj, float soft2,
-                float* __restrict__ ax, float* __restrict__ ay,
-                float* __restrict__ az, float* __restrict__ phi) {
-  __shared__ float4 tile[kSweepThreads];
-  __shared__ float wtile[R][kSweepThreads];
-  const int i = blockIdx.x * kSweepThreads + threadIdx.x;
-  const bool own = i < ni;
-  const float xi = own ? qxi[i] : 0.f;
-  const float yi = own ? qyi[i] : 0.f;
-  const float zi = own ? qzi[i] : 0.f;
-  float sx = 0.f, sy = 0.f, sz = 0.f;
-  float sp[R];
-#pragma unroll
-  for (int r = 0; r < R; ++r) sp[r] = 0.f;
+// K5's and K6's default geometry (ops/cuda.PHI_BLOCK_I, PHI_BLOCK_J):
+// targets a block and sources a tile.
+constexpr int kPhiTargets = 256;
+constexpr int kPhiSources = 256;
 
-  for (int j0 = 0; j0 < nj; j0 += kSweepThreads) {
-    stage_phi_sources<R, kForce>(tile, wtile, qxj, qyj, qzj, gmj, rows, j0,
-                                 nj);
-    __syncthreads();
-    float tx = 0.f, ty = 0.f, tz = 0.f;
-    float tp[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) tp[r] = 0.f;
-#pragma unroll 4
-    for (int t = 0; t < kSweepThreads; ++t) {
-      const float4 s = tile[t];
-      const float dx = s.x - xi, dy = s.y - yi, dz = s.z - zi;
-      const float inv = rsqrtf(fmaf(dx, dx, fmaf(dy, dy, fmaf(dz, dz,
-                                                              soft2))));
-      if (kForce) {
-        const float w = s.w * (inv * inv * inv);
-        tx = fmaf(w, dx, tx);
-        ty = fmaf(w, dy, ty);
-        tz = fmaf(w, dz, tz);
-      }
-#pragma unroll
-      for (int r = 0; r < R; ++r) tp[r] = fmaf(wtile[r][t], inv, tp[r]);
-    }
-    if (kForce) {
-      sx += tx;
-      sy += ty;
-      sz += tz;
-    }
-#pragma unroll
-    for (int r = 0; r < R; ++r) sp[r] += tp[r];
-    __syncthreads();
-  }
-  if (own) {
-    if (kForce) {
-      ax[i] = sx;
-      ay[i] = sy;
-      az[i] = sz;
-    }
-#pragma unroll
-    for (int r = 0; r < R; ++r) phi[static_cast<long long>(r) * ni + i] = sp[r];
+// Run launch(std::integral_constant<int, NR>) for nr in [1, kMaxPhiRows].
+template <class F>
+int with_rows(int nr, F&& launch) {
+  using std::integral_constant;
+  switch (nr) {
+    case 1: return launch(integral_constant<int, 1>{});
+    case 2: return launch(integral_constant<int, 2>{});
+    case 3: return launch(integral_constant<int, 3>{});
+    case 4: return launch(integral_constant<int, 4>{});
+    case 5: return launch(integral_constant<int, 5>{});
+    case 6: return launch(integral_constant<int, 6>{});
+    case 7: return launch(integral_constant<int, 7>{});
+    case 8: return launch(integral_constant<int, 8>{});
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
@@ -102,51 +81,63 @@ template <bool kForce>
 int launch_phi_rows(const float* qxi, const float* qyi, const float* qzi,
                     int ni, const float* qxj, const float* qyj,
                     const float* qzj, const float* gmj, const float* rows,
-                    int nr, int nj, float soft2, float* ax, float* ay,
-                    float* az, float* phi, cudaStream_t stream) {
-  if (nr < 1 || nr > kMaxPhiRows || nj < 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (ni <= 0) return 0;
-  const int blocks = (ni + kSweepThreads - 1) / kSweepThreads;
-#define MURB_PHI_CASE(R)                                                  \
-  case R:                                                                 \
-    phi_rows_kernel<R, kForce><<<blocks, kSweepThreads, 0, stream>>>(     \
-        qxi, qyi, qzi, ni, qxj, qyj, qzj, gmj, rows, nj, soft2, ax, ay,   \
-        az, phi);                                                         \
-    break;
-  switch (nr) {
-    MURB_PHI_CASE(1)
-    MURB_PHI_CASE(2)
-    MURB_PHI_CASE(3)
-    MURB_PHI_CASE(4)
-    MURB_PHI_CASE(5)
-    MURB_PHI_CASE(6)
-    MURB_PHI_CASE(7)
-    MURB_PHI_CASE(8)
-  }
-#undef MURB_PHI_CASE
-  return static_cast<int>(cudaGetLastError());
+                    int nr, int nj, float soft2, int block_i, int block_j,
+                    int slices, int tiles_per_slice, float* scratch,
+                    float* ax, float* ay, float* az, float* phi,
+                    cudaStream_t stream) {
+  return with_rows(nr, [&](auto r) {
+    constexpr int NR = decltype(r)::value;
+    return sweep_launch<NR, kForce>(
+        qxi, qyi, qzi, ni, qxj, qyj, qzj, gmj, rows, nj, soft2,
+        block_i ? block_i : kPhiTargets,
+        block_j ? block_j : kPhiSources, slices, tiles_per_slice,
+        scratch, 0, ax, ay, az, phi, stream);
+  });
 }
 
 }  // namespace murb
 
-// K5.  rows: (nr, nj) weights; phi: (nr, ni).
+// K5.  rows: (nr, nj) weights; phi: (nr, ni).  block_i, block_j: 0 (the
+// defaults above) or a pair of {64, 128, 256, 512}; slices,
+// tiles_per_slice: the j split (ops/cuda.tile_split); slices > 1 needs
+// scratch, (slices, nr, ni) floats.
 extern "C" int murb_phi_rows_rect(const float* qxi, const float* qyi,
                                   const float* qzi, int ni, const float* qxj,
                                   const float* qyj, const float* qzj, int nj,
                                   const float* rows, int nr, float soft2,
+                                  int block_i, int block_j, int slices,
+                                  int tiles_per_slice, float* scratch,
                                   float* phi, cudaStream_t stream) {
-  return murb::launch_phi_rows<false>(qxi, qyi, qzi, ni, qxj, qyj, qzj,
-                                      nullptr, rows, nr, nj, soft2, nullptr,
-                                      nullptr, nullptr, phi, stream);
+  return murb::launch_phi_rows<false>(
+      qxi, qyi, qzi, ni, qxj, qyj, qzj, nullptr, rows, nr, nj, soft2,
+      block_i, block_j, slices, tiles_per_slice, scratch, nullptr, nullptr,
+      nullptr, phi, stream);
 }
 
-// K6.  gm: (n,) force weights; rows: (nr, n); phi: (nr, n).
+// K6.  gm: (n,) force weights; rows: (nr, n); phi: (nr, n); scratch
+// (slices, 3 + nr, n) floats when slices > 1.
 extern "C" int murb_acc_phi_rows(const float* qx, const float* qy,
                                  const float* qz, const float* gm, int n,
                                  const float* rows, int nr, float soft2,
+                                 int block_i, int block_j, int slices,
+                                 int tiles_per_slice, float* scratch,
                                  float* ax, float* ay, float* az, float* phi,
                                  cudaStream_t stream) {
-  return murb::launch_phi_rows<true>(qx, qy, qz, n, qx, qy, qz, gm, rows, nr,
-                                     n, soft2, ax, ay, az, phi, stream);
+  return murb::launch_phi_rows<true>(
+      qx, qy, qz, n, qx, qy, qz, gm, rows, nr, n, soft2, block_i, block_j,
+      slices, tiles_per_slice, scratch, ax, ay, az, phi, stream);
+}
+
+// Blocks of K6 (force != 0) or K5 at (block_i, block_j) and nr rows that
+// one SM of the current device holds at once, into *blocks
+// (ops/hybrid counts the card's slots with it for the j split).
+extern "C" int murb_phi_resident(int block_i, int block_j, int nr,
+                                 int force, int* blocks) {
+  return murb::with_rows(nr, [&](auto r) {
+    constexpr int NR = decltype(r)::value;
+    const int bi = block_i ? block_i : murb::kPhiTargets;
+    const int bj = block_j ? block_j : murb::kPhiSources;
+    return force ? murb::sweep_resident<NR, true>(bi, bj, blocks)
+                 : murb::sweep_resident<NR, false>(bi, bj, blocks);
+  });
 }

@@ -1,11 +1,10 @@
-// Device code shared by the exact all-pairs sweeps (tile.cu: K3,
-// hybrid.cu: K4, phi.cu: K5 and K6) and by K10 and K13 (p2p.cu, mxu.cu:
-// the rsqrt, cp.async and block-geometry helpers).  K3 has its own
-// register-tiled sweep since its redesign (tile.cu's note), which K14
+// Device code shared by the exact all-pairs sweeps (tile.cuh: K3, K5 and
+// K6; hybrid.cu: K4's passes 3) and by K10 and K13 (p2p.cu, mxu.cu): the
+// rsqrt, cp.async and block-geometry helpers.  K3, K5 and K6 run the
+// register-tiled sweep of tile.cuh (several targets a thread), which K14
 // (ring.cu) launches for its ring steps; K13 runs on the tensor cores
 // (mxu.cu's note).  What follows describes the one-target-a-thread sweep
-// that K4's passes 3 (stage_sources, pair_weight), K5 and K6
-// (stage_phi_sources) keep.
+// that K4's passes 3 keeps (stage_sources, pair_weight).
 //
 // Design: the reference's own gpu+tile+full kernel
 // (ref: src/murb/implem/SimulationNBodyCUDATileFullDevice.cu:53-153).  One
@@ -17,10 +16,10 @@
 // staged as zero-mass ghosts (they add exactly 0 because the softening
 // keeps d^2 > 0), so no caller pads the sets.
 //
-// Block geometry: K3, K4 and K13 are compiled for every (BI, BJ) pair of
+// Block geometry: K3-K6 and K13 are compiled for every (BI, BJ) pair of
 // {64, 128, 256, 512} (ops/cuda.SWEEP_BLOCKS) -- BI i-bodies per block,
 // BJ j-sources per staged tile -- and take the pair at run time
-// (with_blocks); K5/K6 keep kSweepThreads for both.
+// (with_blocks).
 //
 // What bounds it on an H100: the per-pair chain (3 sub, 3 fma, rsqrt,
 // 3 mul, 3 fma ~ 20 flops with one MUFU op) on the fp32 pipes.  Device
@@ -81,7 +80,7 @@ int with_blocks(int block_i, int block_j, int default_i, int default_j,
   }
 }
 
-// ----------------------------------------- Hopper helpers (K3's and K10's)
+// ------------------------- Hopper helpers (K3's, K5's, K6's, K10's, K13's)
 // 1/sqrt(x) on the MUFU with no denormal fix-up: for x = d^2 + eps^2 with
 // eps > 0, never denormal, the same bits as rsqrtf.
 __device__ __forceinline__ float rsqrt_ftz(float x) {
@@ -125,31 +124,6 @@ __device__ __forceinline__ float pair_weight(float dx, float dy, float dz,
   float inv = rsqrtf(d2);
   if (refine) inv = inv * fmaf(-0.5f * d2 * inv, inv, 1.5f);
   return gm * (inv * inv * inv);
-}
-
-// ------------------------------------------------- potential-row sweeps
-constexpr int kMaxPhiRows = 8;  // source-weight rows a potential sweep takes
-
-// Stage sources [j0, j0 + kSweepThreads) for the potential sweeps: the
-// packed {x, y, z, G*m} tile (G*m only when the sweep also sums the force;
-// `gmj` is not read otherwise) and R weight rows, rows[r * nj + j], one
-// row of kSweepThreads floats each.  Slots past nj are zero-weight ghosts
-// at the origin: with eps > 0 they add exactly 0 to every row.  Every
-// thread of the block must call it.
-template <int R, bool kForce>
-__device__ __forceinline__ void stage_phi_sources(
-    float4* tile, float (*wtile)[kSweepThreads], const float* qxj,
-    const float* qyj, const float* qzj, const float* gmj, const float* rows,
-    int j0, int nj) {
-  const int j = j0 + threadIdx.x;
-  const bool real = j < nj;
-  tile[threadIdx.x] = real
-      ? make_float4(qxj[j], qyj[j], qzj[j], kForce ? gmj[j] : 0.f)
-      : make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-  for (int r = 0; r < R; ++r)
-    wtile[r][threadIdx.x] =
-        real ? rows[static_cast<long long>(r) * nj + j] : 0.f;
 }
 
 }  // namespace murb

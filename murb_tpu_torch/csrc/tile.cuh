@@ -1,10 +1,330 @@
-// K3's launches (tile.cu), for the kernel that reuses them: K14 (ring.cu)
-// sweeps each ring step with K3's register-tiled kernel.
+// The register-tiled exact sweep that K3 (tile.cu), K5 and K6 (phi.cu)
+// share, and K3's launch that K14 (ring.cu) reuses for its ring steps.
+//
+// sweep_rows_kernel<BI, BJ, NR, kForce>: BI targets a block, sweep_rows(BI,
+// NR) of them a thread; BJ sources a tile; NR source-weight rows (0 for
+// K3); kForce the force sum (K3, K6) or not (K5).  Each pair runs one
+// distance chain and one rsqrt, which feed the force (3 mul, 3 fma) and
+// every potential row (one fma each).  K3, K5 and K6 are compiled for
+// every (BI, BJ) of {64, 128, 256, 512}^2, with BI / R threads as the
+// launch bound and the tiles in static shared memory, as K3 was before
+// the template was shared.  A run-time tile in dynamic shared memory
+// (four instances a row count, not sixteen) was tried: ptxas, which then
+// cannot see that the tiles hold an SM to 13 blocks, kept K3 at 128 x 512
+// to 64 registers (91 with static tiles), and K3 lost 4 to 12%, K5 at
+// R = 2 13% (PERF.md).
+// Per target, each channel (force component or potential row) is summed
+// in fp32 over a tile in source order, the tile partials are added in tile
+// order, and j slices fold in slice order: K6's force is K3's bit for bit
+// at the same (block_j, slices), and K5's rows K6's.
 #pragma once
 
 #include <cuda_runtime.h>
 
+#include "sweep.cuh"
+
 namespace murb {
+
+constexpr int kMaxPhiRows = 8;  // source-weight rows a potential sweep takes
+
+// Targets a thread at block_i `bi`: 4, and 2 at block_i 64 so that a block
+// keeps a whole warp (ops/cuda.tile_rows mirrors it).
+__host__ __device__ constexpr int tile_rows(int bi) {
+  return bi >= 128 ? 4 : 2;
+}
+
+// Targets a thread of a sweep with `nr` weight rows (ops/cuda.sweep_rows):
+// K3's at every nr.  Each target holds 3 + nr sums and 3 + nr tile
+// partials in registers; at nr = 8 and 4 targets that is 100 floats, and
+// no instance spills (the build's -Xptxas -v report, CHANGES.md).
+__host__ __device__ constexpr int sweep_rows(int bi, int /*nr*/) {
+  return tile_rows(bi);
+}
+
+// Floats of a source's weight record in shared memory: nr rounded up to
+// 1, 2, 4 or 8, so that it loads as one float, float2 or one or two
+// float4 (the slots past nr are not staged, and load_weights drops them).
+__host__ __device__ constexpr int weight_stride(int nr) {
+  return nr <= 0 ? 0 : nr == 1 ? 1 : nr == 2 ? 2 : nr <= 4 ? 4 : 8;
+}
+
+// Shared-memory bytes of one staged source: the {x, y, z, G*m} float4 and
+// the weight record (ops/cuda.staged_bytes).
+__host__ __device__ constexpr int staged_bytes(int nr) {
+  return 16 + 4 * weight_stride(nr);
+}
+
+// One source into a float4 slot: four 4-byte cp.async (x, y, z, G*m); a
+// slot past nj is zero-filled (src-size 0), a zero-mass ghost.  Without
+// the force the G*m slot is zero-filled and gmj is not read.
+template <bool kForce>
+__device__ __forceinline__ void stage_source_async(float4* slot,
+                                                   const float* qxj,
+                                                   const float* qyj,
+                                                   const float* qzj,
+                                                   const float* gmj, int j,
+                                                   int nj) {
+  const bool real = j < nj;
+  const int k = real ? j : 0;
+  float* s = &slot->x;
+  cp_async4(s + 0, qxj + k, real);
+  cp_async4(s + 1, qyj + k, real);
+  cp_async4(s + 2, qzj + k, real);
+  cp_async4(s + 3, kForce ? gmj + k : qxj + k, kForce && real);
+}
+
+// A staged source's NR weights from its record `w` (weight_stride(NR)
+// floats, aligned to its size).
+template <int NR>
+__device__ __forceinline__ void load_weights(const float* w,
+                                             float (&out)[NR > 0 ? NR : 1]) {
+  constexpr int W = weight_stride(NR);
+  if constexpr (W == 1) {
+    out[0] = w[0];
+  } else if constexpr (W == 2) {
+    const float2 v = *reinterpret_cast<const float2*>(w);
+    out[0] = v.x;
+    out[1] = v.y;
+  } else if constexpr (W >= 4) {
+#pragma unroll
+    for (int q = 0; q < W / 4; ++q) {
+      const float4 v = reinterpret_cast<const float4*>(w)[q];
+      const float e[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        if (4 * q + c < NR) out[4 * q + c] = e[c];
+    }
+  }
+}
+
+// One staged tile of BJ sources (a multiple of 4) against R targets: per
+// target and channel, fp32 tile partials in source order, R chains at
+// once.
+template <int BJ, int R, int NR, bool kForce>
+__device__ __forceinline__ void tile_sum_rows(
+    const float4* tile, const float* wts, const float (&xi)[R],
+    const float (&yi)[R], const float (&zi)[R], float soft2, float (&tx)[R],
+    float (&ty)[R], float (&tz)[R], float (&tp)[R][NR > 0 ? NR : 1]) {
+  constexpr int W = weight_stride(NR);
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    tx[r] = ty[r] = tz[r] = 0.f;
+#pragma unroll
+    for (int k = 0; k < NR; ++k) tp[r][k] = 0.f;
+  }
+  for (int t = 0; t < BJ; t += 4) {
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const float4 s = tile[t + u];
+      float w[NR > 0 ? NR : 1];
+      load_weights<NR>(wts + (t + u) * W, w);
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const float dx = s.x - xi[r], dy = s.y - yi[r], dz = s.z - zi[r];
+        const float d2 = fmaf(dx, dx, fmaf(dy, dy, fmaf(dz, dz, soft2)));
+        const float inv = rsqrt_ftz(d2);
+        if constexpr (kForce) {
+          const float wf = s.w * (inv * inv * inv);
+          tx[r] = fmaf(wf, dx, tx[r]);
+          ty[r] = fmaf(wf, dy, ty[r]);
+          tz[r] = fmaf(wf, dz, tz[r]);
+        }
+#pragma unroll
+        for (int k = 0; k < NR; ++k) tp[r][k] = fmaf(w[k], inv, tp[r][k]);
+      }
+    }
+  }
+}
+
+// grid (ceil(ni / BI), S), BI / R threads, 2 * BJ * staged_bytes(NR)
+// bytes of static shared memory.  Slice blockIdx.y sweeps tiles
+// [y * tiles_per_slice, min((y + 1) * tiles_per_slice, ceil(nj / BJ))).
+// Thread t owns targets blockIdx.x * BI + t + r * (BI / R), r < R.
+// Channels: the force (ax, ay, az) when kForce, then the NR rows
+// (phi[k * ni + i]).  With S == 1 they go to the outputs (the force added
+// to ax, ay, az when accumulate != 0), else to scratch[(y * C + c) * ni +
+// i], C channels.  Tile k + 1 lands (cp.async) while tile k is swept, one
+// barrier a tile.
+template <int BI, int BJ, int NR, bool kForce>
+__global__ void __launch_bounds__(BI / sweep_rows(BI, NR))
+sweep_rows_kernel(const float* __restrict__ qxi, const float* __restrict__ qyi,
+                  const float* __restrict__ qzi, int ni,
+                  const float* __restrict__ qxj, const float* __restrict__ qyj,
+                  const float* __restrict__ qzj, const float* __restrict__ gmj,
+                  const float* __restrict__ rows, int nj,
+                  int tiles_per_slice, float soft2, int accumulate,
+                  float* __restrict__ ax, float* __restrict__ ay,
+                  float* __restrict__ az, float* __restrict__ phi,
+                  float* __restrict__ scratch) {
+  constexpr int R = sweep_rows(BI, NR);
+  constexpr int T = BI / R;
+  constexpr int NRa = NR > 0 ? NR : 1;
+  constexpr int W = weight_stride(NR);
+  constexpr int C = (kForce ? 3 : 0) + NR;
+  __shared__ __align__(16) float4 pos[2 * BJ];               // [2][BJ]
+  __shared__ __align__(16) float wts[W > 0 ? 2 * BJ * W : 1];  // [2][BJ][W]
+  const int tid = threadIdx.x;
+  const int i0 = blockIdx.x * BI + tid;
+  float xi[R], yi[R], zi[R], sx[R], sy[R], sz[R], sp[R][NRa];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int i = i0 + r * T;
+    const bool own = i < ni;
+    xi[r] = own ? qxi[i] : 0.f;
+    yi[r] = own ? qyi[i] : 0.f;
+    zi[r] = own ? qzi[i] : 0.f;
+    sx[r] = sy[r] = sz[r] = 0.f;
+#pragma unroll
+    for (int k = 0; k < NR; ++k) sp[r][k] = 0.f;
+  }
+  const int tiles = (nj + BJ - 1) / BJ;
+  const int t0 = blockIdx.y * tiles_per_slice;
+  const int t1 = min(t0 + tiles_per_slice, tiles);
+  auto stage = [&](int t, int b) {
+    float4* p = pos + b * BJ;
+    for (int k = tid; k < BJ; k += T)
+      stage_source_async<kForce>(p + k, qxj, qyj, qzj, gmj, t * BJ + k, nj);
+    if constexpr (NR > 0) {
+      float* w = wts + b * BJ * W;
+      for (int k = tid; k < BJ; k += T) {
+        const int j = t * BJ + k;
+        const bool real = j < nj;
+        const float* src = rows + (real ? j : 0);
+#pragma unroll
+        for (int q = 0; q < NR; ++q)
+          cp_async4(w + k * W + q, src + static_cast<long long>(q) * nj,
+                    real);
+      }
+    }
+    cp_async_commit();
+  };
+  if (t0 < t1) stage(t0, 0);
+  for (int t = t0; t < t1; ++t) {
+    cp_async_wait_all();  // this thread's copies of tile t landed
+    __syncthreads();      // everyone's did; the other buffer is free
+    if (t + 1 < t1) stage(t + 1, (t + 1 - t0) & 1);
+    const int b = (t - t0) & 1;
+    float tx[R], ty[R], tz[R], tp[R][NRa];
+    tile_sum_rows<BJ, R, NR, kForce>(pos + b * BJ, wts + b * BJ * W, xi,
+                                     yi, zi, soft2, tx, ty, tz, tp);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if constexpr (kForce) {
+        sx[r] += tx[r];
+        sy[r] += ty[r];
+        sz[r] += tz[r];
+      }
+#pragma unroll
+      for (int k = 0; k < NR; ++k) sp[r][k] += tp[r][k];
+    }
+  }
+  const long long n = ni;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int i = i0 + r * T;
+    if (i >= ni) continue;
+    if (gridDim.y == 1) {
+      if constexpr (kForce) {
+        ax[i] = accumulate ? ax[i] + sx[r] : sx[r];
+        ay[i] = accumulate ? ay[i] + sy[r] : sy[r];
+        az[i] = accumulate ? az[i] + sz[r] : sz[r];
+      }
+#pragma unroll
+      for (int k = 0; k < NR; ++k) phi[k * n + i] = sp[r][k];
+    } else {
+      float* out = scratch + blockIdx.y * C * n + i;
+      if constexpr (kForce) {
+        out[0] = sx[r];
+        out[n] = sy[r];
+        out[2 * n] = sz[r];
+      }
+#pragma unroll
+      for (int k = 0; k < NR; ++k) out[((kForce ? 3 : 0) + k) * n] = sp[r][k];
+    }
+  }
+}
+
+// The slices' sums, folded in slice order, channel by channel, into the
+// outputs of sweep_rows_kernel (the force added to ax, ay, az when
+// accumulate != 0).
+template <int NR, bool kForce>
+__global__ void sweep_fold_kernel(const float* __restrict__ scratch,
+                                  int slices, int ni, int accumulate,
+                                  float* __restrict__ ax,
+                                  float* __restrict__ ay,
+                                  float* __restrict__ az,
+                                  float* __restrict__ phi) {
+  constexpr int C = (kForce ? 3 : 0) + NR;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= ni) return;
+  const long long n = ni;
+  float s[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) s[c] = 0.f;
+  for (int y = 0; y < slices; ++y)
+#pragma unroll
+    for (int c = 0; c < C; ++c) s[c] += scratch[(y * C + c) * n + i];
+  if constexpr (kForce) {
+    ax[i] = accumulate ? ax[i] + s[0] : s[0];
+    ay[i] = accumulate ? ay[i] + s[1] : s[1];
+    az[i] = accumulate ? az[i] + s[2] : s[2];
+  }
+#pragma unroll
+  for (int k = 0; k < NR; ++k) phi[k * n + i] = s[(kForce ? 3 : 0) + k];
+}
+
+inline bool sweep_block(int b) {
+  return b == 64 || b == 128 || b == 256 || b == 512;
+}
+
+// The sweep at (bi, bj) targets a block and sources a tile, each of {64,
+// 128, 256, 512}, in `slices` j slices of `tiles_per_slice` tiles
+// (ops/cuda.tile_split; every slice holds a tile when nj > 0), with the
+// fold when slices > 1 (scratch: (slices, C, ni) floats).  rows: (NR, nj)
+// weights; phi: (NR, ni).  Returns the cudaError_t of the launches.
+template <int NR, bool kForce>
+int sweep_launch(const float* qxi, const float* qyi, const float* qzi,
+                 int ni, const float* qxj, const float* qyj, const float* qzj,
+                 const float* gmj, const float* rows, int nj, float soft2,
+                 int bi, int bj, int slices, int tiles_per_slice,
+                 float* scratch, int accumulate, float* ax, float* ay,
+                 float* az, float* phi, cudaStream_t stream) {
+  if (!sweep_block(bi) || !sweep_block(bj) || nj < 0 || slices < 1 ||
+      slices > 65535 || tiles_per_slice < 0 ||
+      (slices > 1 && scratch == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (ni <= 0) return 0;
+  const long long tiles = (nj + bj - 1) / bj;
+  if (static_cast<long long>(slices) * tiles_per_slice < tiles ||
+      (slices > 1 &&
+       static_cast<long long>(slices - 1) * tiles_per_slice >= tiles))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((ni + bi - 1) / bi, slices);
+  const int err = with_blocks(bi, bj, bi, bj, [&](auto bic, auto bjc) {
+    constexpr int BI = decltype(bic)::value, BJ = decltype(bjc)::value;
+    sweep_rows_kernel<BI, BJ, NR, kForce>
+        <<<grid, BI / sweep_rows(BI, NR), 0, stream>>>(
+            qxi, qyi, qzi, ni, qxj, qyj, qzj, gmj, rows, nj, tiles_per_slice,
+            soft2, accumulate, ax, ay, az, phi, scratch);
+    return static_cast<int>(cudaGetLastError());
+  });
+  if (err != 0 || slices == 1) return err;
+  sweep_fold_kernel<NR, kForce><<<(ni + 255) / 256, 256, 0, stream>>>(
+      scratch, slices, ni, accumulate, ax, ay, az, phi);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Blocks of the sweep at (bi, bj) that one SM of the current device holds
+// at once (registers, shared memory, threads), into *blocks.
+template <int NR, bool kForce>
+int sweep_resident(int bi, int bj, int* blocks) {
+  return with_blocks(bi, bj, bi, bj, [&](auto bic, auto bjc) {
+    constexpr int BI = decltype(bic)::value, BJ = decltype(bjc)::value;
+    return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks, sweep_rows_kernel<BI, BJ, NR, kForce>,
+        BI / sweep_rows(BI, NR), 0));
+  });
+}
 
 // K3's sweep of ni targets against nj sources on `stream` (csrc/tile.cu,
 // murb_tile_rect's arguments): block_i, block_j 0 or a pair of {64, 128,

@@ -49,9 +49,10 @@ _SIGNATURES = {
     "murb_p2m": [_P, _P, _P, _P, _I, _P, _I, _P, _I, _P, _P],
     "murb_l2p": [_P, _P, _P, _I, _P, _I, _P, _I, _P, _P],
     "murb_phi_rows_rect": [_P, _P, _P, _I, _P, _P, _P, _I, _P, _I, _F,
-                           _P, _P],
-    "murb_acc_phi_rows": [_P, _P, _P, _P, _I, _P, _I, _F, _P, _P, _P, _P,
-                          _P],
+                           _I, _I, _I, _I, _P, _P, _P],
+    "murb_acc_phi_rows": [_P, _P, _P, _P, _I, _P, _I, _F, _I, _I, _I, _I,
+                          _P, _P, _P, _P, _P, _P],
+    "murb_phi_resident": [_I, _I, _I, _I, _P],
     "murb_p2m_grid": [_P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _I, _P, _P,
                       _P],
     "murb_l2p_grid": [_P, _P, _P, _P, _I, _P, _I, _I, _P, _P, _I, _P, _I,
@@ -209,7 +210,7 @@ def int_inputs(tag: str, device: torch.device, n: int,
     return out
 
 
-#: the block sizes K3, K4 and K13 are compiled for (csrc/sweep.cuh): each
+#: the block sizes K3-K6 and K13 take (csrc/sweep.cuh, csrc/tile.cuh): each
 #: of block_i (targets per block) and block_j (sources per staged tile)
 SWEEP_BLOCKS = (64, 128, 256, 512)
 
@@ -240,8 +241,32 @@ TILE_WAVES = 4
 
 
 def tile_rows(block_i: int = 0) -> int:
-    """Targets a thread of K3 at ``block_i`` (csrc/tile.cu tile_rows)."""
+    """Targets a thread of K3 at ``block_i`` (csrc/tile.cuh tile_rows)."""
     return TILE_ROWS if (block_i or TILE_BLOCK_I) >= 128 else 2
+
+
+#: K5's and K6's default targets a block and sources a tile (csrc/phi.cu
+#: kPhiTargets, kPhiSources) at every row count (the timings in PERF.md)
+PHI_BLOCK_I = 256
+PHI_BLOCK_J = 256
+
+
+def sweep_rows(block_i: int, nr: int) -> int:
+    """Targets a thread of the shared sweep (csrc/tile.cuh sweep_rows) at
+    ``block_i`` with ``nr`` weight rows: K3's ``tile_rows`` at every nr."""
+    return tile_rows(block_i)
+
+
+def weight_stride(nr: int) -> int:
+    """Floats of a staged source's weight record (csrc/tile.cuh): ``nr``
+    rounded up to 1, 2, 4 or 8 (0 for K3)."""
+    return 0 if nr <= 0 else next(w for w in (1, 2, 4, 8) if w >= nr)
+
+
+def staged_bytes(nr: int) -> int:
+    """Shared-memory bytes of one staged source with ``nr`` weight rows:
+    the {x, y, z, G*m} float4 and its weight record."""
+    return 16 + 4 * weight_stride(nr)
 
 
 def tile_split(ni: int, nj: int, sm_count: int, resident: int,
@@ -265,17 +290,18 @@ def tile_split(ni: int, nj: int, sm_count: int, resident: int,
 
 @functools.lru_cache(maxsize=None)
 def resident(entry: str, device: torch.device, block_i: int = 0,
-             block_j: int = 0) -> int:
+             block_j: int = 0, *key: int) -> int:
     """Blocks of a sweep at (block_i, block_j) that one SM of ``device``
     holds at once, from its C entry ``entry`` (``murb_tile_resident``:
-    K3, csrc/tile.cu; ``murb_mxu_resident``: K13, csrc/mxu.cu; the CUDA
-    occupancy calculator)."""
+    K3, csrc/tile.cu; ``murb_phi_resident``: K5 and K6, csrc/phi.cu, whose
+    ``key`` is (weight rows, force); ``murb_mxu_resident``: K13,
+    csrc/mxu.cu; the CUDA occupancy calculator)."""
     blocks = ctypes.c_int(0)
     with torch.cuda.device(device):
-        launch(entry, block_i, block_j, ctypes.byref(blocks))
+        launch(entry, block_i, block_j, *key, ctypes.byref(blocks))
     if blocks.value < 1:
-        raise RuntimeError(f"{entry} at {block_i}x{block_j}: no block fits "
-                           "an SM")
+        raise RuntimeError(f"{entry} at {block_i}x{block_j} {key}: no block "
+                           "fits an SM")
     return blocks.value
 
 

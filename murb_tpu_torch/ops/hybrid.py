@@ -25,7 +25,17 @@ potentials phi_r[i] = sum_j w_r[j] * rsqrt(|r_j - r_i|^2 + eps^2), the
 j == i term 1/eps included (callers subtract G m_i / eps,
 core/metrics.energy_from_phi).  ``passes`` 1 and 2 both keep the fp32-class
 contract (the force as K4 passes 2, phi to ~1e-6 relative): the kernels
-sum in fp32 on every tier.
+sum in fp32 on every tier.  Both run K3's register-tiled sweep with R
+weight rows (csrc/tile.cuh): 4 targets a thread at every R (2 at block_i
+64, ``cuda.sweep_rows``), each source staged once as {x, y, z, G*m} and
+one weight record, and K3's j split with their own resident count
+(``phi_split_args``).  They are bound by instruction issue and the MUFU
+rsqrt (about 15 slots a pair for K6 and 9 for K5 at R = 2, csrc/phi.cu's
+note).  The default geometry is 256 targets a block and 256 sources a
+tile at every R (``cuda.PHI_BLOCK_I``, ``PHI_BLOCK_J``): unlike K3, these
+sweeps want many resident warps, and K3's 128 x 512 leaves an SM 9
+one-warp blocks at R = 2.  At the same block_j and j split K6's force is
+K3's bit for bit and K5's rows are K6's.
 """
 from __future__ import annotations
 
@@ -113,7 +123,7 @@ def acc_hybrid(qx, qy, qz, gm, soft, *, passes: int = 1, block_i: int = 0,
 
 
 # ------------------------------------------------- multi-row potential sweep
-MAX_PHI_ROWS = 8  # csrc/sweep.cuh kMaxPhiRows
+MAX_PHI_ROWS = 8  # csrc/tile.cuh kMaxPhiRows
 
 
 def _check_rows(tag: str, gm_rows, nj: int, passes: int) -> None:
@@ -140,16 +150,40 @@ def phi_rows_rect_plain(qxi, qyi, qzi, qxj, qyj, qzj, gm_rows,
     return out
 
 
+def phi_split_args(ni: int, nj: int, nr: int, force: bool, block_i: int,
+                   block_j: int, device: torch.device):
+    """K5's (``force`` False) or K6's geometry and j split on ``device``:
+    ``((block_i, block_j, slices, tiles_per_slice, scratch pointer or
+    None), scratch)``, the geometry resolved from its defaults, the split
+    from the kernel's own resident blocks at ``nr`` rows, and the scratch
+    a fresh (slices, 3 + nr or nr, ni) float32 tensor (None for one slice)
+    that the caller keeps until the launch is enqueued."""
+    bi = block_i or cuda.PHI_BLOCK_I
+    bj = block_j or cuda.PHI_BLOCK_J
+    slices, per = cuda.tile_split(
+        ni, nj, cuda.sm_count(device),
+        cuda.resident("murb_phi_resident", device, bi, bj, nr, int(force)),
+        bi, bj)
+    scratch = (torch.empty((slices, (3 if force else 0) + nr, ni),
+                           dtype=torch.float32, device=device)
+               if slices > 1 else None)
+    return (bi, bj, slices, per,
+            None if scratch is None else scratch.data_ptr()), scratch
+
+
 def phi_rows_rect(qxi, qyi, qzi, qxj, qyj, qzj, gm_rows, soft, *,
-                  passes: int = 2) -> torch.Tensor:
+                  passes: int = 2, block_i: int = 0,
+                  block_j: int = 0) -> torch.Tensor:
     """(R, ni) potentials of the i-set under R <= 8 source-weight rows
     ``gm_rows`` (R, nj), which already include G.
 
     CPU tensors run the plain version; CUDA tensors launch K5 (fp32 inside;
-    float64 inputs are cast here and phi cast back)."""
+    float64 inputs are cast here and phi cast back) at ``block_i`` targets
+    a block and ``block_j`` sources a tile (0: the defaults)."""
     tag = f"phi_rows/p{passes}"
     ni, nj = qxi.shape[0], qxj.shape[0]
     _check_rows(tag, gm_rows, nj, passes)
+    cuda.check_blocks(tag, block_i, block_j)
     if qxi.device.type == "cpu":
         return phi_rows_rect_plain(qxi, qyi, qzi, qxj, qyj, qzj, gm_rows,
                                    soft)
@@ -163,13 +197,16 @@ def phi_rows_rect(qxi, qyi, qzi, qxj, qyj, qzj, gm_rows, soft, *,
                                     notify=notify_fp32_compute)
     rows = torch.stack(cuda.kernel_inputs(tag, dev, nj, *gm_rows,
                                           notify=notify_fp32_compute))
-    phi = torch.empty((rows.shape[0], ni), dtype=torch.float32, device=dev)
+    nr = rows.shape[0]
+    phi = torch.empty((nr, ni), dtype=torch.float32, device=dev)
+    split, _scratch = phi_split_args(ni, nj, nr, False, block_i, block_j,
+                                     dev)
     with torch.cuda.device(dev):
         cuda.launch("murb_phi_rows_rect", xi.data_ptr(), yi.data_ptr(),
                     zi.data_ptr(), ni, xj.data_ptr(), yj.data_ptr(),
-                    zj.data_ptr(), nj, rows.data_ptr(), rows.shape[0],
-                    ctypes.c_float(float(soft) ** 2), phi.data_ptr(),
-                    cuda.stream(dev))
+                    zj.data_ptr(), nj, rows.data_ptr(), nr,
+                    ctypes.c_float(float(soft) ** 2), *split,
+                    phi.data_ptr(), cuda.stream(dev))
     phi_rows_rect.launches += 1
     return phi.to(dtype)
 
@@ -177,10 +214,11 @@ def phi_rows_rect(qxi, qyi, qzi, qxj, qyj, qzj, gm_rows, soft, *,
 phi_rows_rect.launches = 0
 
 
-def phi_rows(qx, qy, qz, gm_rows, soft, *, passes: int = 2) -> torch.Tensor:
+def phi_rows(qx, qy, qz, gm_rows, soft, *, passes: int = 2,
+             block_i: int = 0, block_j: int = 0) -> torch.Tensor:
     """Square all-pairs multi-row potential sweep."""
     return phi_rows_rect(qx, qy, qz, qx, qy, qz, gm_rows, soft,
-                         passes=passes)
+                         passes=passes, block_i=block_i, block_j=block_j)
 
 
 # ------------------------------------- fused force + multi-row potential
@@ -191,16 +229,19 @@ def acc_phi_rows_plain(qx, qy, qz, gm, gm_rows, soft):
             phi_rows_rect_plain(qx, qy, qz, qx, qy, qz, gm_rows, soft))
 
 
-def acc_phi_rows_hybrid(qx, qy, qz, gm, gm_rows, soft, *, passes: int = 2):
+def acc_phi_rows_hybrid(qx, qy, qz, gm, gm_rows, soft, *, passes: int = 2,
+                        block_i: int = 0, block_j: int = 0):
     """(Accel, phi (R, n)): forces from the full ``gm`` and up to 8
     source-weight-row potentials in one all-pairs sweep (the fused exact
     tracked step).
 
     CPU tensors run the plain version; CUDA tensors launch K6 (fp32 inside;
-    float64 inputs are cast here and the outputs cast back)."""
+    float64 inputs are cast here and the outputs cast back) at ``block_i``
+    targets a block and ``block_j`` sources a tile (0: the defaults)."""
     tag = f"tpu+hybrid+phi/p{passes}"
     n = qx.shape[0]
     _check_rows(tag, gm_rows, n, passes)
+    cuda.check_blocks(tag, block_i, block_j)
     if qx.device.type == "cpu":
         return acc_phi_rows_plain(qx, qy, qz, gm, gm_rows, soft)
     cuda.require_cuda(tag, qx)
@@ -211,12 +252,13 @@ def acc_phi_rows_hybrid(qx, qy, qz, gm, gm_rows, soft, *, passes: int = 2):
                                     notify=notify_fp32_compute)
     rows = torch.stack(cuda.kernel_inputs(tag, dev, n, *gm_rows,
                                           notify=notify_fp32_compute))
-    out = torch.empty((3 + rows.shape[0], n), dtype=torch.float32,
-                      device=dev)
+    nr = rows.shape[0]
+    out = torch.empty((3 + nr, n), dtype=torch.float32, device=dev)
+    split, _scratch = phi_split_args(n, n, nr, True, block_i, block_j, dev)
     with torch.cuda.device(dev):
         cuda.launch("murb_acc_phi_rows", x.data_ptr(), y.data_ptr(),
-                    z.data_ptr(), g.data_ptr(), n, rows.data_ptr(),
-                    rows.shape[0], ctypes.c_float(float(soft) ** 2),
+                    z.data_ptr(), g.data_ptr(), n, rows.data_ptr(), nr,
+                    ctypes.c_float(float(soft) ** 2), *split,
                     out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
                     out[3:].data_ptr(), cuda.stream(dev))
     acc_phi_rows_hybrid.launches += 1

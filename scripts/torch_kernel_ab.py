@@ -1,5 +1,5 @@
-"""K3's and K13's block geometries on one card; optionally K10, K3, K13
-and K14 against the first designs of another source tree.
+"""K3's, K5's, K6's and K13's block geometries on one card; optionally
+kernels against another source tree's builds of them.
 
     python scripts/torch_kernel_ab.py [--parent DIR]
 
@@ -11,36 +11,48 @@ Without ``--parent`` (this checkout only):
     (the N=200,000 galaxy), 16384^2 (the random box) and 8000^2 (the m=20
     node sweep) at forced j-slice counts, with the count
     ``ops/cuda.tile_split`` picks marked;
+  - for K5 and K6 on the merger (81,920^2, ``scripts/make_two_galaxy_tab.py``)
+    at R = 1 (the total G*m row), 2 (the two galaxies, the merger's
+    path) and 8 weight rows: resident blocks, the split ``tile_split``
+    picks and the time at each candidate geometry and at forced slice
+    counts, launches of the C entries only;
   - for K13 (the tensor-core sweep) at 200,192^2: its resident blocks, j
     slices and time through the wrapper at each tier ("high", "default")
     and a few block geometries;
-  - the SASS of each K3, K10 and K13 kernel (``cuobjdump -sass``, where the
-    toolkit has it): its instructions, MUFU.RSQ, FMUL and HMMA counts, and
-    the instructions a MUFU.RSQ (about the instructions a pair of the
-    unrolled sweep; K13's HMMA a MUFU.RSQ is its tensor products a pair of
-    a thread, each covering 4 of the thread's pairs).
+  - the SASS of each K3/K5/K6 (``sweep_rows_kernel<R, NR, force>``), K10
+    and K13 kernel (``cuobjdump -sass``, where the toolkit has it): its
+    instructions, MUFU.RSQ, FMUL and HMMA counts, and the instructions a
+    MUFU.RSQ (about the instructions a pair of the unrolled sweep; K13's
+    HMMA a MUFU.RSQ is its tensor products a pair of a thread, each
+    covering 4 of the thread's pairs); and the compiler's registers and
+    spills of each sweep instance (the build's ``-Xptxas -v`` report).
 
-With ``--parent DIR``, DIR the root of a tree that holds first designs (its
-C entries are checked against DIR's ``ops/cuda.py``, kernel by kernel; the
-script refuses a tree that holds none), also DIR's sources of those
-kernels built into a library of their own with the flags of ops/cuda.py,
-and for each first design found:
+With ``--parent DIR``, DIR the root of another tree (its C entries are
+read from DIR's ``ops/cuda.py``, kernel by kernel; the script refuses a
+tree that holds none of the entries below), DIR's sources of those
+kernels are built into a library of their own with the flags of
+ops/cuda.py, and each kernel is timed in turns (DIR, this, this, DIR) on
+the same inputs:
 
-  - K10 (one target a thread, every body pair masked) on the 1M
+  - first designs, where DIR's entry has the first design's signature:
+    K10 (one target a thread, every body pair masked) on the 1M
     two-cluster box (murb_tpu's bench row ``adaptive_two_clusters_1m``,
-    the plan ``create_engine`` picks, as chip_smoke.py phase 9 builds it):
-    the C entries of both trees on the same inputs, nf 3 and 4, whether
-    the sums agree bit for bit, and the kernel times in turns (DIR, this,
-    this, DIR); this checkout's K10 also with the target bricks launched
-    in brick order instead of the longest rows first;
-  - K3 (one target a thread) at the three shapes: both trees in turns, and
-    whether the sums agree bit for bit (this checkout splits j below the
-    card's fill, so they then differ by rounding);
-  - K13 (fp32 on the CUDA cores) at 200,192^2 on the galaxy's packed
-    operands: both in turns, this checkout at "high" and "default", and
-    their largest difference over max|a|;
-  - K14 (its own copy of the first sweep) at D = 1 to 4 shards of the 200k
-    galaxy on this card: both in turns, and their largest difference.
+    the plan ``create_engine`` picks, as chip_smoke.py phase 9 builds it),
+    nf 3 and 4, whether the sums agree bit for bit, and this checkout's
+    K10 also in brick order; K3 (one target a thread) at the three
+    shapes; K13 (fp32 on the CUDA cores) at 200,192^2 on the galaxy's
+    packed operands, this checkout at "high" and "default"; K14 (its own
+    copy of the first sweep) at D = 1 to 4 shards of the 200k galaxy on
+    this card; K5 and K6 (one target a thread, 128 sources a tile, no j
+    split) on the merger at R = 1, 2 and 8, with the largest difference
+    over max|phi| and max|a|;
+  - the parent's build of an entry whose signature this checkout keeps
+    (K3 at the three shapes, K14 at D = 1 and 4): both must give the same
+    bits where the arithmetic is unchanged;
+  - the merger's tracked steps through each tree's own package, in turns
+    (subprocesses in DIR and here): ``create_engine("tpu+tracking+multi")``
+    with no ``acc_fn`` (K6) and the CLI (K4 force, K5 metrics), FPS over
+    49 steps after one.
 
 Kernel times are medians of CUDA-event runs, launches only (the inputs are
 packed once beforehand).  The last line is one JSON object with every
@@ -79,11 +91,24 @@ FIRST_SIGNATURES = {
                       _P],
     "murb_ring_pipelined": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                             _P, _F, _I, _I, _L],
+    "murb_phi_rows_rect": [_P, _P, _P, _I, _P, _P, _P, _I, _P, _I, _F, _P,
+                           _P],
+    "murb_acc_phi_rows": [_P, _P, _P, _P, _I, _P, _I, _F, _P, _P, _P, _P,
+                          _P],
 }
-FIRST_SOURCES = {"murb_p2p_sorted": "p2p.cu", "murb_tile_rect": "tile.cu",
-                 "murb_mxu_rect": "mxu.cu", "murb_ring_pipelined": "ring.cu"}
+#: each entry's sources (ring.cu launches tile.cu's sweep)
+SOURCES = {"murb_p2p_sorted": ["p2p.cu"], "murb_tile_rect": ["tile.cu"],
+           "murb_mxu_rect": ["mxu.cu"],
+           "murb_ring_pipelined": ["ring.cu", "tile.cu"],
+           "murb_phi_rows_rect": ["phi.cu"], "murb_acc_phi_rows": ["phi.cu"]}
+#: entries compared with the parent's build when their signatures match
+#: this checkout's (their arithmetic is meant to be unchanged)
+SAME_ENTRIES = ("murb_tile_rect", "murb_ring_pipelined",
+                "murb_phi_rows_rect", "murb_acc_phi_rows")
 OUT = cuda.BUILD_DIR / "kernel_ab"
-SOFT2 = ctypes.c_float(2.0e8 ** 2)
+SOFT = 2.0e8
+SOFT2 = ctypes.c_float(SOFT ** 2)
+ROOT = Path(__file__).resolve().parents[1]
 
 
 def tree_signatures(root: Path) -> dict:
@@ -99,16 +124,22 @@ def tree_signatures(root: Path) -> dict:
 
 
 def build(name: str, csrc: Path, sources: list[str]) -> Path:
-    """One shared library from ``sources`` of ``csrc``."""
+    """One shared library from ``sources`` of ``csrc`` (one nvcc each, all
+    started together)."""
     OUT.mkdir(parents=True, exist_ok=True)
     nvcc = cuda.find_nvcc()
-    objs = []
+    objs, procs = [], []
     for src in sources:
         obj = OUT / f"{name}.{Path(src).stem}.o"
-        subprocess.run([nvcc, *cuda.NVCC_FLAGS, "-c", "-I", str(csrc), "-o",
-                        str(obj), str(csrc / src)], check=True,
-                       capture_output=True)
+        procs.append(subprocess.Popen(
+            [nvcc, *cuda.NVCC_FLAGS, "-c", "-I", str(csrc), "-o", str(obj),
+             str(csrc / src)], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
         objs.append(str(obj))
+    for src, proc in zip(sources, procs):
+        out = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc {src} failed:\n{out[-4000:]}")
     lib = OUT / f"lib{name}.so"
     subprocess.run([nvcc, "-shared", *cuda.NVCC_FLAGS[:2], "-o", str(lib),
                     *objs], check=True, capture_output=True)
@@ -178,6 +209,372 @@ def sass_counts(lib: Path, pattern: str) -> dict:
                      "HMMA": ops.get("HMMA", 0),
                      "HMMA_per_rsq": ops.get("HMMA", 0) / rsq if rsq
                      else None}
+    return out
+
+
+def sweep_label(name: str) -> str:
+    """``sweep BI=<targets a block> BJ=<sources a tile> NR=<rows>
+    force|no force`` for a mangled sweep_rows_kernel<BI, BJ, NR, kForce>
+    name, else the name."""
+    m = re.search(r"sweep_rows_kernelILi(\d+)ELi(\d+)ELi(\d+)ELb([01])",
+                  name)
+    if not m:
+        return name
+    bj = m.group(2) if m.group(2) != "0" else "run-time"
+    return (f"sweep BI={m.group(1)} BJ={bj} NR={m.group(3)} "
+            f"{'force' if m.group(4) == '1' else 'no force'}")
+
+
+def ptxas_report(lib: Path, pattern: str) -> dict:
+    """{kernel: {registers, stack, spill_stores, spill_loads}} of the
+    kernels whose name matches ``pattern``, from the build's -Xptxas -v
+    report beside ``lib``."""
+    log = lib.with_suffix(".log")
+    out, name = {}, None
+    if not log.exists():
+        return out
+    for line in log.read_text().splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1) if re.search(pattern, m.group(1)) else None
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            out.setdefault(sweep_label(name), {}).update(
+                stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out.setdefault(sweep_label(name), {}).update(
+                registers=int(m.group(1)))
+    return out
+
+
+def merger_tab() -> Path:
+    """The merger's .tab (scripts/make_two_galaxy_tab.py), written once
+    into the build directory."""
+    tab = OUT / "milkyway_andromeda.tab"
+    if not tab.exists():
+        OUT.mkdir(parents=True, exist_ok=True)
+        subprocess.run([sys.executable, str(ROOT / "scripts" /
+                                             "make_two_galaxy_tab.py"),
+                        str(tab)], check=True, capture_output=True)
+    return tab
+
+
+def merger_rows(masks, gm, nr: int, seed: int = 123):
+    """K5's and K6's weight rows on the merger: R = 1 the total G*m row (the
+    exact tpu+tracking row), R = 2 the two galaxies (the merger's own),
+    R = 8 the two galaxies, the total and 5 random 0/1 masks (seeded)."""
+    if nr == 1:
+        return gm[None, :].contiguous()
+    rows = [masks[0] * gm, masks[1] * gm]
+    if nr > 2:
+        gen = torch.Generator(device=gm.device).manual_seed(seed)
+        rows.append(gm)
+        rows += [(torch.rand(gm.shape, generator=gen, device=gm.device)
+                  < 0.5).float() * gm for _ in range(nr - 3)]
+    return torch.stack(rows[:nr]).contiguous()
+
+
+def merger_case(dev):
+    """The merger's positions, G*m and galaxy masks, fp32 on ``dev``."""
+    from murb_tpu_torch import G
+    from murb_tpu_torch.core.init import (init_milkyway_andromeda,
+                                          milkyway_andromeda_masks)
+
+    mg = init_milkyway_andromeda(str(merger_tab()), device=dev)
+    q = [v.float().contiguous() for v in (mg.qx, mg.qy, mg.qz)]
+    gm = (mg.m * G).float().contiguous()
+    masks = [torch.as_tensor(m, device=dev)
+             for m in milkyway_andromeda_masks(mg.npad, mg.n)]
+    return q, gm, masks
+
+
+def phi_call(dll, force: bool, q, gm, rows, out, bi=0, bj=0, split=None):
+    """One launch of this checkout's K6 (force) or K5 entry at (bi, bj) and
+    ``split`` = (slices, tiles_per_slice, scratch) (None: one slice)."""
+    n, nr = q[0].shape[0], rows.shape[0]
+    slices, per, scratch = split or (1, -(-n // (bj or cuda.PHI_BLOCK_J)),
+                                     None)
+    sp = None if scratch is None else scratch.data_ptr()
+    ptrs = [v.data_ptr() for v in q]
+    if force:
+        call(dll, "murb_acc_phi_rows", *ptrs, gm.data_ptr(), n,
+             rows.data_ptr(), nr, SOFT2, bi, bj, slices, per, sp,
+             out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
+             out[3:].data_ptr(), cuda.stream(q[0].device))
+    else:
+        call(dll, "murb_phi_rows_rect", *ptrs, n, *ptrs, n, rows.data_ptr(),
+             nr, SOFT2, bi, bj, slices, per, sp, out.data_ptr(),
+             cuda.stream(q[0].device))
+
+
+def phi_split(n: int, nr: int, force: bool, bi: int, bj: int, dev,
+              want: int | None = None):
+    """(slices, tiles_per_slice, scratch) of K5/K6 at (bi, bj): the count
+    tile_split picks, or ``want`` slices of whole tiles."""
+    tiles = -(-n // bj)
+    if want is None:
+        slices, per = cuda.tile_split(
+            n, n, cuda.sm_count(dev),
+            cuda.resident("murb_phi_resident", dev, bi, bj, nr, int(force)),
+            bi, bj)
+    else:
+        per = -(-tiles // min(want, tiles))
+        slices = -(-tiles // per)
+    scratch = (torch.empty((slices, (3 if force else 0) + nr, n),
+                           dtype=torch.float32, device=dev)
+               if slices > 1 else None)
+    return slices, per, scratch
+
+
+def run_phi_geometries(dev) -> dict:
+    """K5 and K6 on the merger at R = 1, 2, 8: resident blocks, the picked
+    split and the time at each candidate geometry and slice count."""
+    q, gm, masks = merger_case(dev)
+    n = q[0].shape[0]
+    res = {"n": n}
+    geoms = ((128, 512), (128, 256), (128, 128), (256, 512), (256, 256),
+             (256, 128), (512, 256), (64, 256))
+    for nr in (1, 2, 8):
+        rows = merger_rows(masks, gm, nr)
+        for force in (True, False):
+            k = "K6" if force else "K5"
+            out = torch.empty(((3 if force else 0) + nr, n),
+                              dtype=torch.float32, device=dev)
+            for bi, bj in geoms:
+                resident = cuda.resident("murb_phi_resident", dev, bi, bj, nr,
+                                         int(force))
+                pick = phi_split(n, nr, force, bi, bj, dev)[0]
+                row = {}
+                for want in sorted({1, pick // 2 or 1, pick, 2 * pick}):
+                    split = phi_split(n, nr, force, bi, bj, dev, want)
+                    row[split[0]] = time_ms(lambda: phi_call(
+                        cuda.library(), force, q, gm, rows, out, bi, bj,
+                        split))
+                res[f"{k} R={nr} {bi}x{bj}"] = {
+                    "resident": resident, "split_pick": pick,
+                    "ms_by_slices": row}
+                print(f"[{k} R={nr} {n}^2 {bi}x{bj}] resident {resident}, "
+                      f"tile_split picks {pick}; ms by slices "
+                      + ", ".join(f"{s}: {t:.4f}" for s, t in row.items()))
+    return res
+
+
+def run_phi_first(old, dev) -> dict:
+    """K5's and K6's first designs (one target a thread, 128 sources a
+    tile, no split) against this checkout's at its defaults (through the
+    wrappers' geometry and split), on the merger, in turns."""
+    from murb_tpu_torch.ops.hybrid import phi_split_args
+
+    q, gm, masks = merger_case(dev)
+    n, s = q[0].shape[0], cuda.stream(dev)
+    ptrs = [v.data_ptr() for v in q]
+    res = {}
+    for nr in (1, 2, 8):
+        rows = merger_rows(masks, gm, nr)
+        for force in (True, False):
+            k = "K6" if force else "K5"
+            c = (3 if force else 0) + nr
+            outs = [torch.empty((c, n), dtype=torch.float32, device=dev)
+                    for _ in range(2)]
+            (bi, bj, slices, per, _), scratch = phi_split_args(
+                n, n, nr, force, 0, 0, dev)
+
+            def f_old():
+                if force:
+                    o = outs[0]
+                    call(old, "murb_acc_phi_rows", *ptrs, gm.data_ptr(), n,
+                         rows.data_ptr(), nr, SOFT2, o[0].data_ptr(),
+                         o[1].data_ptr(), o[2].data_ptr(), o[3:].data_ptr(),
+                         s)
+                else:
+                    call(old, "murb_phi_rows_rect", *ptrs, n, *ptrs, n,
+                         rows.data_ptr(), nr, SOFT2, outs[0].data_ptr(), s)
+
+            def f_new():
+                phi_call(cuda.library(), force, q, gm, rows, outs[1], bi, bj,
+                         (slices, per, scratch))
+
+            f_old()
+            f_new()
+            torch.cuda.synchronize()
+            po, pn = (o[c - nr:] for o in outs)
+            r = {"geometry": f"{bi}x{bj}", "slices": slices,
+                 "phi_max_rel_diff": float((po - pn).abs().max()
+                                           / po.abs().max()),
+                 **in_turns(f_old, f_new)}
+            if force:
+                r["acc_max_rel_diff"] = float((outs[0][:3] - outs[1][:3])
+                                              .abs().max()
+                                              / outs[0][:3].abs().max())
+            res[f"{k} R={nr}"] = r
+            print(f"[{k} first vs this, R={nr}, {n}^2] this at {bi}x{bj} in "
+                  f"{slices} slices; max|dphi|/max|phi| "
+                  f"{r['phi_max_rel_diff']:.3e}"
+                  + (f", max|da|/max|a| {r['acc_max_rel_diff']:.3e}"
+                     if force else "")
+                  + f"; old {r['old_ms']} ms, new {r['new_ms']} ms")
+    return res
+
+
+def run_k3_parent(old, dev) -> dict:
+    """The parent's K3 (same C entry) against this checkout's at the three
+    shapes, at the wrapper's split, in turns; the sums must agree bit for
+    bit."""
+    from murb_tpu_torch.ops.tile import split_args
+
+    res = {}
+    for label, q, g in k3_shapes(dev):
+        ni = q[0].shape[0]
+        ptrs = [v.data_ptr() for v in q]
+        outs = [torch.empty((3, ni), dtype=torch.float32, device=dev)
+                for _ in range(2)]
+        split, scratch = split_args(ni, ni, 0, 0, dev)
+        scratches = [scratch, None if scratch is None
+                     else torch.empty_like(scratch)]
+        s = cuda.stream(dev)
+
+        def f(dll, k):
+            sp = None if scratches[k] is None else scratches[k].data_ptr()
+            call(dll, "murb_tile_rect", *ptrs, ni, *ptrs, g.data_ptr(), ni,
+                 SOFT2, 0, 0, split[0], split[1], sp,
+                 *(o.data_ptr() for o in outs[k]), s)
+
+        f(old, 0)
+        f(cuda.library(), 1)
+        torch.cuda.synchronize()
+        r = {"slices": split[0], "bit_for_bit": bool(torch.equal(*outs)),
+             **in_turns(lambda: f(old, 0), lambda: f(cuda.library(), 1))}
+        res[label] = r
+        print(f"[K3 parent vs this, {label}] {split[0]} slices; bit for bit "
+              f"{r['bit_for_bit']}; parent {r['old_ms']} ms, this "
+              f"{r['new_ms']} ms")
+    return res
+
+
+def run_k14_parent(old, dev) -> dict:
+    """The parent's K14 (same C entry) against this checkout's at D = 1
+    and 4 shards of the 200k galaxy on this card, in turns; bit for bit,
+    and at D = 1 against this checkout's K3."""
+    from murb_tpu_torch import G
+    from murb_tpu_torch.core.init import init_galaxy
+    from murb_tpu_torch.ops.tile import split_args
+
+    res = {}
+    for d in (1, 4):
+        st = init_galaxy(200_000, 123, device=dev).repad(256 * d)
+        b = st.npad // d
+        blocks = [[v[k * b:(k + 1) * b].float().contiguous()
+                   for v in (st.qx, st.qy, st.qz, st.m * G)]
+                  for k in range(d)]
+        f_old = ring_call(old, "murb_ring_pipelined", blocks, dev, False)
+        f_new = ring_call(cuda.library(), "murb_ring_pipelined", blocks,
+                          dev, False)
+        f_old()
+        f_new()
+        torch.cuda.synchronize()
+        a_old, a_new = (torch.cat(f.outs, 1) for f in (f_old, f_new))
+        r = {"n": st.npad, "bit_for_bit": bool(torch.equal(a_old, a_new)),
+             **in_turns(f_old, f_new, reps=3, runs=3)}
+        if d == 1:
+            q = blocks[0]
+            split, scratch = split_args(b, b, 0, 0, dev)
+            a3 = torch.empty((3, b), dtype=torch.float32, device=dev)
+            call(cuda.library(), "murb_tile_rect",
+                 *(v.data_ptr() for v in q[:3]), b,
+                 *(v.data_ptr() for v in q), b, SOFT2, 0, 0, *split,
+                 *(o.data_ptr() for o in a3), cuda.stream(dev))
+            torch.cuda.synchronize()
+            r["bit_for_bit_k3"] = bool(torch.equal(a3, a_new))
+        res[f"D={d}"] = r
+        print(f"[K14 parent vs this, D={d}, N={st.npad}] bit for bit "
+              f"{r['bit_for_bit']}"
+              + (f" (and K3's: {r['bit_for_bit_k3']})" if d == 1 else "")
+              + f"; parent {r['old_ms']} ms, this {r['new_ms']} ms")
+    return res
+
+
+def run_phi_parent(old, dev) -> dict:
+    """The parent's K5 and K6 (same C entries) against this checkout's at
+    this checkout's default geometry and split, on the merger at R = 1, 2
+    and 8, in turns; the sums must agree bit for bit."""
+    from murb_tpu_torch.ops.hybrid import phi_split_args
+
+    q, gm, masks = merger_case(dev)
+    n = q[0].shape[0]
+    res = {}
+    for nr in (1, 2, 8):
+        rows = merger_rows(masks, gm, nr)
+        for force in (True, False):
+            k = "K6" if force else "K5"
+            c = (3 if force else 0) + nr
+            outs = [torch.empty((c, n), dtype=torch.float32, device=dev)
+                    for _ in range(2)]
+            (bi, bj, slices, per, _), scratch = phi_split_args(
+                n, n, nr, force, 0, 0, dev)
+            scratches = [scratch, None if scratch is None
+                         else torch.empty_like(scratch)]
+            f = [lambda dll=dll, k=k2: phi_call(
+                dll, force, q, gm, rows, outs[k], bi, bj,
+                (slices, per, scratches[k])) for k2, dll in
+                enumerate((old, cuda.library()))]
+            f[0]()
+            f[1]()
+            torch.cuda.synchronize()
+            r = {"geometry": f"{bi}x{bj}", "slices": slices,
+                 "bit_for_bit": bool(torch.equal(*outs)),
+                 **in_turns(f[0], f[1])}
+            res[f"{k} R={nr}"] = r
+            print(f"[{k} parent vs this, R={nr}, {n}^2] {bi}x{bj} in "
+                  f"{slices} slices; bit for bit {r['bit_for_bit']}; parent "
+                  f"{r['old_ms']} ms, this {r['new_ms']} ms")
+    return res
+
+
+MERGER_FPS = r"""
+import json, sys, time
+from murb_tpu_torch import cli
+from murb_tpu_torch.core.init import (init_milkyway_andromeda,
+                                      milkyway_andromeda_masks)
+from murb_tpu_torch.models import create_engine
+tab = sys.argv[1]
+mg = init_milkyway_andromeda(tab, device="cuda")
+masks = milkyway_andromeda_masks(mg.npad, mg.n)
+eng = create_engine("tpu+tracking+multi", mg, soft=2.0e8, dt=3600.0,
+                    num_iterations=50, masks=masks)
+eng.run(1)
+eng.block_until_ready()
+t0 = time.perf_counter()
+eng.run(49)
+eng.block_until_ready()
+k6 = 49 / (time.perf_counter() - t0)
+res = cli.run(["-n", str(mg.n), "-i", "50", "--im", "tpu+tracking+multi",
+               "-s", "milkyway_andromeda", "--scheme-file", tab, "--nv",
+               "--gf", "--scan", "--device", "cuda"])
+assert res.rc == 0
+print(json.dumps({"k6_fps": k6, "cli_k4_k5_fps": res.fps}))
+"""
+
+
+def merger_fps_turns(parent: Path) -> dict:
+    """The merger's tracked FPS through each tree's own package, in turns
+    (parent, this, this, parent), one process each."""
+    tab = str(merger_tab())
+    out = {"parent": [], "this": []}
+    for side, root in (("parent", parent), ("this", ROOT), ("this", ROOT),
+                       ("parent", parent)):
+        proc = subprocess.run([sys.executable, "-c", MERGER_FPS, tab],
+                              cwd=root, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"merger FPS in {root} failed:\n"
+                               f"{proc.stderr[-3000:]}")
+        out[side].append(json.loads(proc.stdout.strip().splitlines()[-1]))
+        print(f"[merger FPS, {side}] {out[side][-1]}")
     return out
 
 
@@ -503,21 +900,25 @@ def run_k14_first(old, dev) -> dict:
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="torch_kernel_ab")
     p.add_argument("--parent", type=Path,
-                   help="root of a tree with first designs of K10, K3, K13 "
-                        "or K14")
+                   help="root of a tree with first designs of K10, K3, K13, "
+                        "K14, K5 or K6, or with this tree's entries of K3, "
+                        "K14, K5 and K6")
+    p.add_argument("--no-scan", action="store_true",
+                   help="skip the geometry scans (K3, K5/K6, K13)")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("torch_kernel_ab: no CUDA device available", file=sys.stderr)
         return 1
-    firsts = []
+    firsts, same = [], []
     if args.parent is not None:
         theirs = tree_signatures(args.parent)
         firsts = [k for k, v in FIRST_SIGNATURES.items()
                   if theirs.get(k) == v]
-        if not firsts:
-            print(f"torch_kernel_ab: {args.parent} holds none of the first "
-                  f"designs' C entries {sorted(FIRST_SIGNATURES)}",
-                  file=sys.stderr)
+        same = [k for k in SAME_ENTRIES
+                if theirs.get(k) == cuda._SIGNATURES[k]]
+        if not firsts and not same:
+            print(f"torch_kernel_ab: {args.parent} holds none of the C "
+                  f"entries {sorted(FIRST_SIGNATURES)}", file=sys.stderr)
             return 1
     dev = torch.device("cuda", 0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -525,30 +926,53 @@ def main(argv=None) -> int:
                          capture_output=True, text=True).stdout.strip()
     print(smi)
     libs = {"this": cuda.build_kernels()}
-    if firsts:
-        print(f"[first designs in {args.parent}] {firsts}")
-        libs["first"] = build("ab_first",
-                              args.parent / "murb_tpu_torch" / "csrc",
-                              [FIRST_SOURCES[k] for k in firsts])
-    sass = {side: sass_counts(lib, r"p2p_kernel|tile_rect|mxu_")
+    if firsts or same:
+        print(f"[{args.parent}] first designs {firsts}; same entries {same}")
+        libs["parent"] = build("ab_parent",
+                               args.parent / "murb_tpu_torch" / "csrc",
+                               sorted({s for k in firsts + same
+                                       for s in SOURCES[k]}))
+    pattern = r"p2p_kernel|tile_rect|mxu_|sweep_rows|phi_rows"
+    sass = {side: {sweep_label(k): v
+                   for k, v in sass_counts(lib, pattern).items()}
             for side, lib in libs.items()}
     for side, kernels in sass.items():
         for name, c in kernels.items():
             print(f"[sass {side}] {name}: {c}")
-    result = {"device": smi, "sass": sass, "k3_geometry": run_geometries(dev),
-              "k13_geometry": run_k13_geometries(dev)}
-    if firsts:
-        first = load(libs["first"], {k: FIRST_SIGNATURES[k] for k in firsts})
-        runs = {"murb_tile_rect": ("k3_first", lambda: run_k3(first, dev)),
+    ptxas = ptxas_report(libs["this"], r"sweep_rows_kernel")
+    for name, c in ptxas.items():
+        print(f"[ptxas this] {name}: {c}")
+    result = {"device": smi, "sass": sass, "ptxas": ptxas}
+    if not args.no_scan:
+        result.update(k3_geometry=run_geometries(dev),
+                      phi_geometry=run_phi_geometries(dev),
+                      k13_geometry=run_k13_geometries(dev))
+    if firsts or same:
+        parent = load(libs["parent"],
+                      {**{k: FIRST_SIGNATURES[k] for k in firsts},
+                       **{k: cuda._SIGNATURES[k] for k in same}})
+        runs = {"murb_tile_rect": ("k3_first", lambda: run_k3(parent, dev)),
                 "murb_p2p_sorted": ("k10_first", lambda: run_k10(
-                    first, cuda.library(), dev)),
-                "murb_mxu_rect": ("k13_first", lambda: run_k13_first(first,
+                    parent, cuda.library(), dev)),
+                "murb_mxu_rect": ("k13_first", lambda: run_k13_first(parent,
                                                                      dev)),
                 "murb_ring_pipelined": ("k14_first", lambda: run_k14_first(
-                    first, dev))}
+                    parent, dev)),
+                "murb_acc_phi_rows": ("phi_first", lambda: run_phi_first(
+                    parent, dev))}
         for k in firsts:
-            key, run = runs[k]
-            result[key] = run()
+            if k != "murb_phi_rows_rect":    # run with murb_acc_phi_rows
+                key, run = runs[k]
+                result[key] = run()
+        same_runs = {"murb_tile_rect": ("k3_parent", run_k3_parent),
+                     "murb_ring_pipelined": ("k14_parent", run_k14_parent),
+                     "murb_acc_phi_rows": ("phi_parent", run_phi_parent)}
+        for k in same:
+            if k in same_runs:    # murb_phi_rows_rect: with K6's
+                key, run = same_runs[k]
+                result[key] = run(parent, dev)
+        if "murb_acc_phi_rows" in firsts:
+            result["merger_fps"] = merger_fps_turns(args.parent)
     print(json.dumps(result))
     return 0
 

@@ -11,6 +11,8 @@ which are held to:
     fused-vs-naive tolerance of murb_tpu's own test);
   * a numpy float64 sweep: WithinRel 1e-5 on phi, 1e-4 on the force.
 """
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -20,6 +22,7 @@ from conftest import assert_within_rel
 from murb_tpu import G
 from murb_tpu.core import init as jinit
 from murb_tpu.ops import hybrid as jh
+from murb_tpu_torch.ops import cuda
 from murb_tpu_torch.ops import hybrid as th
 
 torch.set_num_threads(2)
@@ -148,3 +151,98 @@ def test_wrappers_run_the_plain_versions_on_cpu_and_check_arguments():
     with pytest.raises(ValueError, match="cpu or cuda"):
         th.acc_phi_rows_hybrid(m, m, m, m, torch.zeros(1, 256, device="meta"),
                                SOFT)
+
+
+# ------------------------------------------- the kernels' geometry (K3's)
+@pytest.mark.parametrize("nr", range(1, 9))
+def test_sweep_geometry_mirror_fits_and_keeps_k3s_targets(nr):
+    """ops/cuda's mirrors of csrc/tile.cuh and csrc/phi.cu at R rows: the
+    weight record holds the rows and loads as one float, float2 or float4
+    pieces; the staged double buffer of every block_j fits the 48 KB a
+    kernel may use without opting in, the default's stays within 24 KB;
+    every block keeps whole warps; at R <= 2 the targets a thread are
+    K3's tile_rows (K5 and K6 keep them at every R)."""
+    w = cuda.weight_stride(nr)
+    assert w in (1, 2, 4, 8) and nr <= w < 2 * nr + 1
+    assert cuda.staged_bytes(nr) == 16 + 4 * w
+    for bj in cuda.SWEEP_BLOCKS:
+        # static shared memory: 48 KB a block at most
+        assert 2 * bj * cuda.staged_bytes(nr) <= 48 * 1024
+        # the records start after 2 * bj float4 and stay aligned to w floats
+        assert (2 * bj * 16) % (4 * w) == 0
+    bj = cuda.PHI_BLOCK_J
+    assert bj in cuda.SWEEP_BLOCKS and 2 * bj * cuda.staged_bytes(nr) \
+        <= 24 * 1024
+    for bi in cuda.SWEEP_BLOCKS:
+        rt = cuda.sweep_rows(bi, nr)
+        assert bi % rt == 0 and (bi // rt) % 32 == 0
+        assert rt == cuda.tile_rows(bi)
+    assert cuda.PHI_BLOCK_I in cuda.SWEEP_BLOCKS
+
+
+def test_sweep_geometry_mirror_matches_the_sources():
+    """The constants ops/cuda mirrors, read from csrc/tile.cuh and
+    csrc/phi.cu."""
+    tile = (cuda.CSRC / "tile.cuh").read_text()
+    phi = (cuda.CSRC / "phi.cu").read_text()
+    assert f"kMaxPhiRows = {th.MAX_PHI_ROWS};" in tile
+    assert f"kPhiTargets = {cuda.PHI_BLOCK_I};" in phi
+    assert "nr == 1 ? 1 : nr == 2 ? 2 : nr <= 4 ? 4 : 8" in tile
+    assert f"kPhiSources = {cuda.PHI_BLOCK_J};" in phi
+    assert re.search(r"int sweep_rows\(int bi, int /\*nr\*/\) \{\s*"
+                     r"return tile_rows\(bi\);", tile)
+    assert "murb_phi_resident" in cuda._SIGNATURES
+
+
+@pytest.mark.parametrize("block_i,block_j", [(0, 0), (64, 512), (512, 64),
+                                             (128, 256)])
+def test_wrappers_take_a_block_geometry_and_run_the_plain_versions(
+        block_i, block_j):
+    """block_i/block_j pick the kernels' geometry on the card; on CPU
+    tensors the wrappers run the plain versions whatever the geometry, and
+    still agree with murb_tpu's Pallas kernels (interpret mode) at 1e-5 on
+    phi and 2e-4 on the force."""
+    q, gm, rows = case("random", 1024, 31, 2)
+    t = [torch.from_numpy(v) for v in q]
+    g, w = torch.from_numpy(gm), torch.from_numpy(rows)
+    jq = [jnp.asarray(v) for v in q]
+    phi = th.phi_rows(*t, w, SOFT, block_i=block_i, block_j=block_j)
+    torch.testing.assert_close(phi, th.phi_rows_rect_plain(*t, *t, w, SOFT),
+                               rtol=0, atol=0)
+    ref = np.asarray(jh.phi_rows(*jq, jnp.asarray(rows), SOFT,
+                                 interpret=True))
+    assert_within_rel(phi.numpy(), ref, 1e-5,
+                      f"K5 {block_i}x{block_j} vs Pallas", rms_floor=1e-5)
+    rect = th.phi_rows_rect(*(v[:300] for v in t), *t, w, SOFT,
+                            block_i=block_i, block_j=block_j)
+    torch.testing.assert_close(rect, phi[:, :300], rtol=0, atol=0)
+    acc, phi6 = th.acc_phi_rows_hybrid(*t, g, w, SOFT, block_i=block_i,
+                                       block_j=block_j)
+    jacc, jphi = jh.acc_phi_rows_hybrid(*jq, jnp.asarray(gm),
+                                        jnp.asarray(rows), SOFT,
+                                        interpret=True)
+    for c, a, ref in zip("xyz", acc, jacc):
+        assert_within_rel(a.numpy(), np.asarray(ref), 2e-4,
+                          f"K6 {block_i}x{block_j} a{c} vs Pallas",
+                          rms_floor=2e-4)
+    assert_within_rel(phi6.numpy(), np.asarray(jphi), 1e-5,
+                      f"K6 {block_i}x{block_j} phi vs Pallas",
+                      rms_floor=1e-5)
+
+
+@pytest.mark.parametrize("block_i,block_j", [(96, 0), (0, 1024), (32, 128),
+                                             (128, 48)])
+def test_wrappers_refuse_other_block_pairs_on_cpu_too(block_i, block_j):
+    """A geometry outside {0} and ops/cuda.SWEEP_BLOCKS raises before any
+    device is looked at, as K3's does: never rounded, never ignored."""
+    q, gm, rows = case("galaxy", 512, 6, 2)
+    t = [torch.from_numpy(v) for v in q]
+    g, w = torch.from_numpy(gm), torch.from_numpy(rows)
+    name = "block_j" if block_i in (0,) + cuda.SWEEP_BLOCKS else "block_i"
+    with pytest.raises(ValueError, match=name):
+        th.phi_rows(*t, w, SOFT, block_i=block_i, block_j=block_j)
+    with pytest.raises(ValueError, match=name):
+        th.phi_rows_rect(*t, *t, w, SOFT, block_i=block_i, block_j=block_j)
+    with pytest.raises(ValueError, match=name):
+        th.acc_phi_rows_hybrid(*t, g, w, SOFT, block_i=block_i,
+                               block_j=block_j)

@@ -16,7 +16,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from hypothesis import given, settings
+from hypothesis import example, given, settings
 from hypothesis import strategies as st
 
 from conftest import assert_within_rel
@@ -283,6 +283,12 @@ def test_kernel_inputs_checks_dtype_shape_and_device():
        sms=st.integers(1, 200), resident=st.integers(1, 32),
        bi=st.sampled_from((0,) + cuda.SWEEP_BLOCKS),
        bj=st.sampled_from((0,) + cuda.SWEEP_BLOCKS))
+# K5's and K6's geometry on the merger (256 x 256, the H100's resident
+# blocks of K6 at R = 2, K5 at R = 2 and both at R = 8)
+@example(ni=81_920, nj=81_920, sms=132, resident=12, bi=256, bj=256)
+@example(ni=81_920, nj=81_920, sms=132, resident=17, bi=256, bj=256)
+@example(ni=81_920, nj=81_920, sms=132, resident=8, bi=256, bj=256)
+@example(ni=81_920, nj=81_920, sms=132, resident=9, bi=128, bj=512)
 def test_tile_split_covers_every_source_once_in_order(ni, nj, sms, resident,
                                                       bi, bj):
     """Slices of whole tiles, in order, cover the j tiles exactly once,
@@ -314,6 +320,25 @@ def test_tile_split_at_the_main_path_shapes(ni, nj, want):
     slices, per = cuda.tile_split(ni, nj, 132, 13)
     assert slices == want
     assert (slices - 1) * per < -(-nj // 512) <= slices * per
+
+
+@pytest.mark.parametrize("nr,force,resident,want", [
+    (2, True, 12, 20), (2, False, 17, 27), (1, True, 14, 23),
+    (1, False, 20, 32), (8, True, 8, 14), (8, False, 8, 14)])
+def test_phi_split_at_the_merger(nr, force, resident, want):
+    """K5's and K6's j split on the merger (81,920^2) at their default
+    geometry (256 targets a block, 256 sources a tile: 320 target blocks)
+    on 132 SMs, keyed by R through the blocks an H100 SM holds of each
+    instance (murb_phi_resident, the occupancy calculator; read by
+    scripts/torch_kernel_ab.py): whole tiles, every source once, in
+    order."""
+    bi, bj = cuda.PHI_BLOCK_I, cuda.PHI_BLOCK_J
+    slices, per = cuda.tile_split(81_920, 81_920, 132, resident, bi, bj)
+    assert (bi, bj) == (256, 256) and slices == want
+    tiles = 81_920 // bj
+    covered = [t for s in range(slices)
+               for t in range(s * per, min((s + 1) * per, tiles))]
+    assert covered == list(range(tiles))
 
 
 # -------------------------------------------------------------- the build
