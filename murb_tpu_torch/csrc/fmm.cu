@@ -35,120 +35,291 @@
 //     f_i[c, u] += sum_v T_i(o)[u, v] w[c + o, v],
 //     T_d = D_d (D.D + eps^2)^-3/2, T_phi = (D.D + eps^2)^-1/2,
 //     D = 2 h_l o + p_v - p_u
-// is an exact softened sweep between the m^3 target nodes and the m^3
-// source nodes shifted by 2 h_l o, so a block runs the sweep kernels'
-// scheme (sweep.cuh): one thread owns one target node u and its nf
-// accumulators, the block stages {2 h_l o + p_v, w_v} through shared memory
-// and every thread reads each staged source as a broadcast.  T is rebuilt
-// for every (target cell, offset) pair: one rsqrt and about 12 flops per
-// (u, v), about 3x the apply, in exchange for no (m^3, m^3) matrix in
-// memory and no shifted weight copies.  Only the (target, source) pairs
-// the subset admits are visited: at C = 4 the expand list admits 4,096 of
-// the 21,952 pairs the TPU's dense grid multiplies.  A block owns a tile of
-// target nodes of one cell and walks a contiguous share of the offsets;
-// where C^3 m^3 threads cannot fill the card the offsets are split over
-// `nsplit` blocks, each writes its own partial fields, and a second kernel
-// adds the splits in order: no two blocks write the same output, no
-// atomics.  Bound: fp32 issue and the MUFU rsqrt, 1.07e9 pairs at the main
-// path (C = 4, m = 8).
+// is, for each offset, one transfer matrix T(o) applied to the weights of
+// every target cell the offset admits.  T depends on the offset and the
+// level alone, so the kernel builds each entry T(o)[u, v] once for up to
+// kM2LGroup admitted target cells and applies it to all of them: at the
+// main path (m = 8, C = 4, expand) 444 builds of the 512^2 entries instead
+// of one per (target cell, offset) pair, 4,096 (the first design, which
+// spent most of its time rebuilding T).
+//
+// Work items.  The wrapper (ops/fmm_kernels.m2l_plan) lists, per tile of
+// target cells (kM2LCellTile^3 cells; the whole grid up to C = 4), each
+// offset's admitted target cells -- a box of per-dimension ranges, in-grid
+// and under the parity rule, taken in order -- in items of at most
+// kM2LGroup cells: {ox, oy, oz, the linear offset, the cell count, the
+// target cell ids}.  It splits each tile's items into `nsplit` contiguous
+// runs of about equal work, one block row each: {first item, end, split,
+// the tile's cell box}.  The kernel reads the table and computes no
+// admission itself.
+//
+// A block owns kM2LTargets target nodes u (grid.x) of one row's items
+// (grid.y), kM2LSlices source-node slices of them: thread (s, u) owns node
+// u and, for the item at hand, its cells' nf accumulators in registers
+// (the item's cell count is a template argument, so no slot is wasted).
+// For every source node v of its slice the thread builds T(o)[u, v] in
+// registers (3 sub, 3 fma, one rsqrt.approx.ftz, 5 mul) and applies it to
+// each cell's weight with nf fmas; the weights and the source nodes come
+// from shared memory as broadcasts, kM2LChunk source nodes a chunk, staged
+// (the weights by cp.async) into one buffer while the other is swept, one
+// barrier a chunk.  When an item ends, the slices' sums are added in slice
+// order through shared memory and slice 0 adds them to the block's fields:
+// the output, or with nsplit > 1 the row's split of the scratch, which a
+// second kernel adds in split order.  A block zeroes its tile's fields
+// first; every element is written by one thread, in item order.  No
+// atomics, the same bits every launch.
+//
+// Arithmetic: fp32 fmas throughout (the node fields cancel).  Bound: fp32
+// issue, 2 nf flops per node pair of each admitted cell pair plus one
+// build per (item, u, v); at the main path the apply is 6.4e9 flops.
 #include <cuda_runtime.h>
 
 #include "cell_runs.cuh"
+#include "sweep.cuh"
 
 namespace murb {
 
 constexpr int kGridMaxOrder = kRunMaxOrder;
 constexpr int kGridMaxCells = 16;       // C, cells per dimension
 constexpr int kGridMaxTotalFields = 11;
-constexpr int kM2LThreads = 128;        // target nodes per K7 block
-constexpr int kM2LTile = 256;           // source nodes staged at a time
+constexpr int kM2LTargets = 128;        // target nodes u a K7 block
+constexpr int kM2LSlices = 4;           // source-node slices a block
+constexpr int kM2LThreads = kM2LTargets * kM2LSlices;
+constexpr int kM2LSliceNodes = 64;      // source nodes of a slice a chunk
+constexpr int kM2LChunk = kM2LSlices * kM2LSliceNodes;
+constexpr int kM2LGroup = 16;           // target cells an item
+constexpr int kM2LItemInts = 8 + 2 * kM2LGroup;  // M2L_ITEM_INTS
+constexpr int kM2LRowInts = 12;         // ops/fmm_kernels.M2L_ROW_INTS
 constexpr int kM2LMaxSplit = 64;
+constexpr int kM2LMaxTileCells = 64;    // target cells of a cell tile
+// a padded source node: far enough that its T is finite and tiny, and its
+// weight is 0, so it adds exactly 0
+constexpr float kM2LFar = 1e18f;
 
-// ------------------------------------------------------------------ K7
-// Target-parity validity of one offset component (the expand list's
-// |o_d| = 3 entries have near parents only from one parity of target).
-__device__ __forceinline__ bool parity_ok(int o, int i) {
-  return o == 3 ? (i & 1) == 0 : (o == -3 ? (i & 1) == 1 : true);
+// Dynamic shared memory of K7's nf-field kernel: its tile's fields.
+constexpr int m2l_fields_bytes(int nf) {
+  return nf * kM2LMaxTileCells * kM2LTargets * 4;
 }
 
-template <bool kPhi>
-__global__ void __launch_bounds__(kM2LThreads)
-m2l_kernel(const float* __restrict__ w, const float* __restrict__ hl,
-           float soft2, int m, int C, int reach, int min_inf, int parity,
-           int nsplit, float* __restrict__ out) {
-  __shared__ float nodes[kGridMaxOrder];
-  __shared__ float4 src[kM2LTile];
+// ------------------------------------------------------------------ K7
+// One chunk of source nodes: their coordinates (unshifted; the offset's
+// shift goes into the target's) and the item's cells' weights.
+struct M2LChunk {
+  float x[kM2LChunk], y[kM2LChunk], z[kM2LChunk];
+  float w[kM2LGroup][kM2LChunk];
+};
 
-  const int m2 = m * m, m3 = m2 * m, ncell = C * C * C;
-  const int utiles = (m3 + kM2LThreads - 1) / kM2LThreads;
-  const int ut = blockIdx.x % utiles;
-  const int cell = (blockIdx.x / utiles) % ncell;
-  const int split = blockIdx.x / (utiles * ncell);
-  if (threadIdx.x < m)
-    nodes[threadIdx.x] =
-        static_cast<float>(cos(kPi * (threadIdx.x + 0.5) / m));
-  __syncthreads();
+struct M2LShared {
+  M2LChunk chunk[2];
+  float node[3][kGridMaxOrder];  // h_l,d cos(pi (i + 1/2) / m)
+};
 
-  const int ix = cell / (C * C), iy = (cell / C) % C, iz = cell % C;
-  const float hx = hl[0], hy = hl[1], hz = hl[2];
-  const int u = ut * kM2LThreads + threadIdx.x;
-  const bool own = u < m3;
-  const int uu = own ? u : 0;
-  const float pux = hx * nodes[uu / m2];
-  const float puy = hy * nodes[(uu / m) % m];
-  const float puz = hz * nodes[uu % m];
-  float ax = 0.f, ay = 0.f, az = 0.f, phi = 0.f;
+// Stage chunk c (source nodes [c kM2LChunk, (c + 1) kM2LChunk)) of item
+// `it` into `st`: the weights of the item's cells by cp.async (zero past
+// m^3), the coordinates computed (kM2LFar past m^3).  Every thread of the
+// block calls it; it commits one cp.async group.
+__device__ __forceinline__ void m2l_stage(M2LChunk& st, const M2LShared& sh,
+                                          const int* __restrict__ item,
+                                          const float* __restrict__ w, int m,
+                                          int m3, int c) {
+  const int v0 = c * kM2LChunk;
+  const int tid = threadIdx.x;
+  if (tid < kM2LChunk) {
+    const int v = v0 + tid;
+    const bool real = v < m3;
+    const int vv = real ? v : 0;
+    st.x[tid] = real ? sh.node[0][vv / (m * m)] : kM2LFar;
+    st.y[tid] = real ? sh.node[1][(vv / m) % m] : kM2LFar;
+    st.z[tid] = real ? sh.node[2][vv % m] : kM2LFar;
+  }
+  const int olin = item[3], ncell = item[4];
+  for (int e = tid; e < ncell * kM2LChunk; e += kM2LThreads) {
+    const int k = e / kM2LChunk, j = e % kM2LChunk, v = v0 + j;
+    const bool real = v < m3;
+    const long long src =
+        static_cast<long long>(item[8 + k] + olin) * m3 + (real ? v : 0);
+    cp_async4(&st.w[k][j], w + src, real);
+  }
+  cp_async_commit();
+}
 
-  const int side = 2 * reach + 1;
-  const int K = side * side * side;
-  const int k0 = split * K / nsplit, k1 = (split + 1) * K / nsplit;
-  for (int k = k0; k < k1; ++k) {  // every condition below is block-uniform
-    const int ox = k / (side * side) - reach;
-    const int oy = (k / side) % side - reach;
-    const int oz = k % side - reach;
-    if (max(abs(ox), max(abs(oy), abs(oz))) < min_inf) continue;
-    const int sx = ix + ox, sy = iy + oy, sz = iz + oz;
-    if (sx < 0 || sx >= C || sy < 0 || sy >= C || sz < 0 || sz >= C) continue;
-    if (parity && !(parity_ok(ox, ix) && parity_ok(oy, iy) &&
-                    parity_ok(oz, iz)))
-      continue;
-    const float* ws = w + static_cast<long long>((sx * C + sy) * C + sz) * m3;
-    const float shx = 2.f * hx * static_cast<float>(ox);
-    const float shy = 2.f * hy * static_cast<float>(oy);
-    const float shz = 2.f * hz * static_cast<float>(oz);
-    for (int v0 = 0; v0 < m3; v0 += kM2LTile) {
-      const int nv = min(kM2LTile, m3 - v0);
-      __syncthreads();  // the previous tile is consumed
-      for (int idx = threadIdx.x; idx < nv; idx += kM2LThreads) {
-        const int v = v0 + idx;
-        src[idx] = make_float4(shx + hx * nodes[v / m2],
-                               shy + hy * nodes[(v / m) % m],
-                               shz + hz * nodes[v % m], ws[v]);
+// Add a thread's sums of the item's cells k = K0, K0 + kM2LSlices, ... to
+// the tile's fields (`local`: the cells' indices in the tile).
+template <int K0, int MG, int NF>
+__device__ __forceinline__ void m2l_add(const float (&acc)[MG][NF],
+                                        float* fields, const int* local,
+                                        int tcells, int ut) {
+#pragma unroll
+  for (int k = K0; k < MG; k += kM2LSlices) {
+    float* o = fields + local[k] * kM2LTargets + ut;
+#pragma unroll
+    for (int f = 0; f < NF; ++f) o[f * tcells * kM2LTargets] += acc[k][f];
+  }
+}
+
+// One item: MG target cells (its count), NF fields.  `buf` is the buffer
+// that holds (or is receiving) the item's chunk 0; on return it holds the
+// next item's chunk 0 when there is a next item (`next`, or null).  The
+// item's sums go into `fields` (the tile's, in shared memory: [NF][tile
+// cells][kM2LTargets]).
+template <int MG, int NF>
+__device__ __forceinline__ void m2l_item(
+    M2LShared& sh, float* fields, int tcells, int& buf,
+    const int* __restrict__ item, const int* __restrict__ next,
+    const float* __restrict__ w, int m, int m3, float pux, float puy,
+    float puz, float soft2) {
+  const int s = threadIdx.x / kM2LTargets, ut = threadIdx.x % kM2LTargets;
+  const int nch = (m3 + kM2LChunk - 1) / kM2LChunk;
+  float acc[MG][NF];
+#pragma unroll
+  for (int k = 0; k < MG; ++k)
+#pragma unroll
+    for (int f = 0; f < NF; ++f) acc[k][f] = 0.f;
+  for (int c = 0; c < nch; ++c) {
+    cp_async_wait_all();  // this thread's copies of chunk c landed
+    __syncthreads();      // everyone's did; the other buffer is free
+    if (c + 1 < nch)
+      m2l_stage(sh.chunk[buf ^ 1], sh, item, w, m, m3, c + 1);
+    else if (next != nullptr)
+      m2l_stage(sh.chunk[buf ^ 1], sh, next, w, m, m3, 0);
+    const M2LChunk& st = sh.chunk[buf];
+    // this slice's source nodes of the chunk, whole groups of 4 past m^3
+    // (padded: they add 0) dropped
+    const int j0 = s * kM2LSliceNodes;
+    const int j1 = min(j0 + kM2LSliceNodes, (m3 - c * kM2LChunk + 3) & ~3);
+#pragma unroll 1
+    for (int j = j0; j < j1; j += 4) {
+      const float4 x4 = *reinterpret_cast<const float4*>(&st.x[j]);
+      const float4 y4 = *reinterpret_cast<const float4*>(&st.y[j]);
+      const float4 z4 = *reinterpret_cast<const float4*>(&st.z[j]);
+      const float xs[4] = {x4.x, x4.y, x4.z, x4.w};
+      const float ys[4] = {y4.x, y4.y, y4.z, y4.w};
+      const float zs[4] = {z4.x, z4.y, z4.z, z4.w};
+      float t[4][NF];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float dx = xs[q] - pux, dy = ys[q] - puy, dz = zs[q] - puz;
+        const float d2 = fmaf(dx, dx, fmaf(dy, dy, fmaf(dz, dz, soft2)));
+        const float inv = rsqrt_ftz(d2);
+        const float inv3 = inv * inv * inv;
+        t[q][0] = dx * inv3;
+        t[q][1] = dy * inv3;
+        t[q][2] = dz * inv3;
+        if constexpr (NF == 4) t[q][3] = inv;
       }
-      __syncthreads();
-#pragma unroll 4
-      for (int jj = 0; jj < nv; ++jj) {
-        const float4 s = src[jj];
-        const float dx = s.x - pux, dy = s.y - puy, dz = s.z - puz;
-        const float r2 = fmaf(dx, dx, fmaf(dy, dy, fmaf(dz, dz, soft2)));
-        const float inv = rsqrtf(r2);
-        if (kPhi) phi = fmaf(s.w, inv, phi);
-        const float wi3 = s.w * (inv * inv * inv);
-        ax = fmaf(wi3, dx, ax);
-        ay = fmaf(wi3, dy, ay);
-        az = fmaf(wi3, dz, az);
+#pragma unroll
+      for (int k = 0; k < MG; ++k) {
+        const float4 w4 = *reinterpret_cast<const float4*>(&st.w[k][j]);
+        const float ws[4] = {w4.x, w4.y, w4.z, w4.w};
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+#pragma unroll
+          for (int f = 0; f < NF; ++f)
+            acc[k][f] = fmaf(t[q][f], ws[q], acc[k][f]);
       }
     }
+    buf ^= 1;
   }
-  if (own) {
-    const long long plane = static_cast<long long>(ncell) * m3;
-    float* o = out + static_cast<long long>(split) * (kPhi ? 4 : 3) * plane +
-               static_cast<long long>(cell) * m3 + u;
-    o[0] = ax;
-    o[plane] = ay;
-    o[2 * plane] = az;
-    if (kPhi) o[3 * plane] = phi;
+  // The slices' sums into the tile's fields, in kM2LSlices turns: in turn
+  // r slice s adds its cells k with k = s + r (mod kM2LSlices), so every
+  // slice works in every turn, and cell k receives the slices k, k - 1,
+  // ... (mod kM2LSlices) in that order, every launch.
+  static_assert(kM2LSlices <= 4, "the turns below name 4 cell classes");
+  const int* local = item + 8 + kM2LGroup;
+  for (int r = 0; r < kM2LSlices; ++r) {
+    if (r > 0) __syncthreads();  // turn r - 1's adds are stored
+    switch ((s + r) % kM2LSlices) {
+      case 0: m2l_add<0>(acc, fields, local, tcells, ut); break;
+      case 1: m2l_add<1>(acc, fields, local, tcells, ut); break;
+      case 2: m2l_add<2>(acc, fields, local, tcells, ut); break;
+      default: m2l_add<3>(acc, fields, local, tcells, ut); break;
+    }
   }
+}
+
+// grid (ceil(m^3 / kM2LTargets), rows), kM2LThreads threads,
+// m2l_fields_bytes(NF) bytes of dynamic shared memory.  Row y = rows[y *
+// kM2LRowInts ...]: {first item, end, split, x0, x1, y0, y1, z0, z1}.  The
+// block keeps the fields of its tile's cells for its target nodes in
+// shared memory, runs its items, and stores the fields once (nsplit > 1:
+// into dst = partial + split * NF C^3 m^3; else into the output).
+template <int NF>
+__global__ void __launch_bounds__(kM2LThreads, 1)
+m2l_kernel(const float* __restrict__ w, const float* __restrict__ hl,
+           float soft2, int m, int C, const int* __restrict__ items,
+           const int* __restrict__ rows, int nsplit,
+           float* __restrict__ out) {
+  __shared__ __align__(16) M2LShared sh;
+  extern __shared__ __align__(16) float fields[];  // [NF][tcells][targets]
+  const int* row = rows + blockIdx.y * kM2LRowInts;
+  const int first = row[0], end = row[1];
+  const int m3 = m * m * m;
+  const long long cells = static_cast<long long>(C) * C * C;
+  const int nx = row[4] - row[3], ny = row[6] - row[5], nz = row[8] - row[7];
+  const int tcells = nx * ny * nz;
+  const int tid = threadIdx.x;
+  if (tid < 3 * m) {
+    const int d = tid / m, i = tid % m;
+    sh.node[d][i] =
+        hl[d] * static_cast<float>(cos(kPi * (i + 0.5) / m));
+  }
+  for (int e = tid; e < NF * tcells * kM2LTargets; e += kM2LThreads)
+    fields[e] = 0.f;
+  const int ut = tid % kM2LTargets;
+  const int u = blockIdx.x * kM2LTargets + ut;
+  const bool own = u < m3;
+  __syncthreads();  // the node table and the zeros are stored
+  const int uu = own ? u : 0;
+  const float pux = sh.node[0][uu / (m * m)];
+  const float puy = sh.node[1][(uu / m) % m];
+  const float puz = sh.node[2][uu % m];
+  int buf = 0;
+  if (first < end)
+    m2l_stage(sh.chunk[0], sh, items + first * kM2LItemInts, w, m, m3, 0);
+  for (int it = first; it < end; ++it) {
+    const int* item = items + it * kM2LItemInts;
+    const int* next = it + 1 < end ? item + kM2LItemInts : nullptr;
+    // the target node relative to the shift 2 h_l o of the item's offset
+    const float sx = pux - 2.f * hl[0] * static_cast<float>(item[0]);
+    const float sy = puy - 2.f * hl[1] * static_cast<float>(item[1]);
+    const float sz = puz - 2.f * hl[2] * static_cast<float>(item[2]);
+    switch (item[4]) {
+#define MURB_M2L_CASE(G)                                                    \
+  case G:                                                                   \
+    if constexpr (G <= kM2LGroup)                                           \
+      m2l_item<G, NF>(sh, fields, tcells, buf, item, next, w, m, m3, sx,    \
+                      sy, sz, soft2);                                       \
+    break;
+      MURB_M2L_CASE(1) MURB_M2L_CASE(2) MURB_M2L_CASE(3) MURB_M2L_CASE(4)
+      MURB_M2L_CASE(5) MURB_M2L_CASE(6) MURB_M2L_CASE(7) MURB_M2L_CASE(8)
+      MURB_M2L_CASE(9) MURB_M2L_CASE(10) MURB_M2L_CASE(11)
+      MURB_M2L_CASE(12) MURB_M2L_CASE(13) MURB_M2L_CASE(14)
+      MURB_M2L_CASE(15) MURB_M2L_CASE(16)
+#undef MURB_M2L_CASE
+      default: break;  // the wrapper's plan holds 1..kM2LGroup cells
+    }
+  }
+  cp_async_wait_all();
+  __syncthreads();  // the last item's turns are stored
+  // the tile's fields for this block's nodes, into dst
+  float* dst = out + (nsplit > 1 ? row[2] * NF * cells * m3 : 0);
+  const long long plane = cells * m3;
+  for (int e = tid / kM2LTargets; e < NF * tcells && own; e += kM2LSlices) {
+    const int f = e / tcells, k = e % tcells;
+    const int ix = row[3] + k / (ny * nz), iy = row[5] + (k / nz) % ny,
+              iz = row[7] + k % nz;
+    dst[f * plane + ((ix * C + iy) * C + iz) * static_cast<long long>(m3) +
+        u] = fields[e * kM2LTargets + ut];
+  }
+}
+
+// Let K7's nf-field kernel take its fields' dynamic shared memory (above
+// the 48 KB default) on the current device.
+template <int NF>
+cudaError_t m2l_allow_fields() {
+  return cudaFuncSetAttribute(m2l_kernel<NF>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              m2l_fields_bytes(NF));
 }
 
 // out[i] = sum over s of partial[s * count + i], in split order.
@@ -210,35 +381,49 @@ extern "C" int murb_l2p_grid(const float* qx, const float* qy,
 }
 
 // K7.  w: (C^3, m^3) level expansions; hl: the level's cell half-widths (3,)
-// in device memory; subset: 0 expand (|o| <= 3, parity), 1 near (|o| <= 1),
-// 2 far (2 <= |o| <= 3, parity); nf: 3 (force) or 4 (force and potential);
-// out: (nf, C^3, m^3); partial: nsplit * nf * C^3 * m^3 floats of scratch
-// when nsplit > 1 (unused, may be null, when nsplit == 1).
+// in device memory; nf: 3 (force) or 4 (force and potential); items:
+// (n, kM2LItemInts) and rows: (nrows, kM2LRowInts) int32 in device memory,
+// the plan of ops/fmm_kernels.m2l_plan (nrows = cell tiles x nsplit); out:
+// (nf, C^3, m^3); partial: nsplit * nf * C^3 * m^3 floats of scratch when
+// nsplit > 1 (unused, may be null, when nsplit == 1).
 extern "C" int murb_m2l_level(const float* w, const float* hl, float soft2,
-                              int m, int C, int subset, int nf, int nsplit,
+                              int m, int C, int nf, const int* items,
+                              const int* rows, int nrows, int nsplit,
                               float* partial, float* out,
                               cudaStream_t stream) {
-  if (!murb::grid_ok(m, C) || subset < 0 || subset > 2 ||
-      (nf != 3 && nf != 4) || nsplit < 1 || nsplit > murb::kM2LMaxSplit ||
+  if (!murb::grid_ok(m, C) || (nf != 3 && nf != 4) || nrows < 1 ||
+      nrows > 65535 || nsplit < 1 || nsplit > murb::kM2LMaxSplit ||
       (nsplit > 1 && partial == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int reach = subset == 1 ? 1 : 3;
-  const int min_inf = subset == 2 ? 2 : 0;
-  const int parity = subset == 1 ? 0 : 1;
   const int m3 = m * m * m, ncell = C * C * C;
-  const int utiles = (m3 + murb::kM2LThreads - 1) / murb::kM2LThreads;
-  const int blocks = utiles * ncell * nsplit;
+  const dim3 grid((m3 + murb::kM2LTargets - 1) / murb::kM2LTargets, nrows);
   float* dst = nsplit > 1 ? partial : out;
+  const int smem = murb::m2l_fields_bytes(nf);
+  cudaError_t err = nf == 4 ? murb::m2l_allow_fields<4>()
+                            : murb::m2l_allow_fields<3>();
+  if (err != cudaSuccess) return static_cast<int>(err);
   if (nf == 4)
-    murb::m2l_kernel<true><<<blocks, murb::kM2LThreads, 0, stream>>>(
-        w, hl, soft2, m, C, reach, min_inf, parity, nsplit, dst);
+    murb::m2l_kernel<4><<<grid, murb::kM2LThreads, smem, stream>>>(
+        w, hl, soft2, m, C, items, rows, nsplit, dst);
   else
-    murb::m2l_kernel<false><<<blocks, murb::kM2LThreads, 0, stream>>>(
-        w, hl, soft2, m, C, reach, min_inf, parity, nsplit, dst);
-  cudaError_t err = cudaGetLastError();
+    murb::m2l_kernel<3><<<grid, murb::kM2LThreads, smem, stream>>>(
+        w, hl, soft2, m, C, items, rows, nsplit, dst);
+  err = cudaGetLastError();
   if (err != cudaSuccess || nsplit == 1) return static_cast<int>(err);
   const long long count = static_cast<long long>(nf) * ncell * m3;
   murb::sum_splits_kernel<<<static_cast<int>((count + 255) / 256), 256, 0,
                             stream>>>(partial, nsplit, count, out);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Blocks of K7's nf-field kernel one SM of the current device holds at
+// once, into *blocks (ops/fmm_kernels.m2l_slots sizes the split with it).
+extern "C" int murb_m2l_resident(int nf, int* blocks) {
+  if (nf != 3 && nf != 4) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = nf == 4 ? murb::m2l_allow_fields<4>()
+                            : murb::m2l_allow_fields<3>();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, nf == 4 ? murb::m2l_kernel<4> : murb::m2l_kernel<3>,
+      murb::kM2LThreads, murb::m2l_fields_bytes(nf)));
 }

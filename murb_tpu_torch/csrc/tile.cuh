@@ -17,6 +17,17 @@
 // in fp32 over a tile in source order, the tile partials are added in tile
 // order, and j slices fold in slice order: K6's force is K3's bit for bit
 // at the same (block_j, slices), and K5's rows K6's.
+//
+// kExt (K4's passes 3, hybrid.cu; NR = 0, the force): the extended tier.
+// The pair weight takes one Newton step on the ftz rsqrt (the hardware's
+// <= 2 ulp to about 1 ulp); each group of kExtRun = 4 sources, one step
+// of the unrolled source loop, is summed in fp32 and folded into fp64
+// running sums (3 F2F and 3 DADD a target a group); the j slices' fp64
+// sums go to an fp64 scratch and fold in fp64, in slice order.  Longer
+// fp32 runs lose the tier's contract on the galaxy (ext_run_sum in
+// tests/test_torch_kernels.py: runs of 32 sources read 0.54 of the
+// unsplit fp32 sum's error at 8192^2, runs of 4 0.43).  K3, K5 and K6
+// (kExt false) do not take this path.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -26,6 +37,11 @@
 namespace murb {
 
 constexpr int kMaxPhiRows = 8;  // source-weight rows a potential sweep takes
+constexpr int kExtRun = 4;      // sources a run of the extended tier
+
+// The running sums and j-slice scratch of a sweep: fp32, fp64 for kExt.
+template <bool kExt>
+using sweep_acc_t = std::conditional_t<kExt, double, float>;
 
 // Targets a thread at block_i `bi`: 4, and 2 at block_i 64 so that a block
 // keeps a whole warp (ops/cuda.tile_rows mirrors it).
@@ -136,6 +152,46 @@ __device__ __forceinline__ void tile_sum_rows(
   }
 }
 
+// The extended tier's tile: R targets against BJ staged sources, each
+// group of kExtRun sources summed in fp32 (a refined rsqrt a pair) and
+// added to the fp64 sums.
+template <int BJ, int R>
+__device__ __forceinline__ void tile_sum_ext(const float4* tile,
+                                             const float (&xi)[R],
+                                             const float (&yi)[R],
+                                             const float (&zi)[R],
+                                             float soft2, double (&sx)[R],
+                                             double (&sy)[R],
+                                             double (&sz)[R]) {
+  static_assert(BJ % kExtRun == 0 && kExtRun == 4, "a run is one step");
+  for (int t = 0; t < BJ; t += kExtRun) {
+    float tx[R], ty[R], tz[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) tx[r] = ty[r] = tz[r] = 0.f;
+#pragma unroll
+    for (int u = 0; u < kExtRun; ++u) {
+      const float4 s = tile[t + u];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const float dx = s.x - xi[r], dy = s.y - yi[r], dz = s.z - zi[r];
+        const float d2 = fmaf(dx, dx, fmaf(dy, dy, fmaf(dz, dz, soft2)));
+        float inv = rsqrt_ftz(d2);
+        inv = inv * fmaf(-0.5f * d2 * inv, inv, 1.5f);
+        const float wf = s.w * (inv * inv * inv);
+        tx[r] = fmaf(wf, dx, tx[r]);
+        ty[r] = fmaf(wf, dy, ty[r]);
+        tz[r] = fmaf(wf, dz, tz[r]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      sx[r] += static_cast<double>(tx[r]);
+      sy[r] += static_cast<double>(ty[r]);
+      sz[r] += static_cast<double>(tz[r]);
+    }
+  }
+}
+
 // grid (ceil(ni / BI), S), BI / R threads, 2 * BJ * staged_bytes(NR)
 // bytes of static shared memory.  Slice blockIdx.y sweeps tiles
 // [y * tiles_per_slice, min((y + 1) * tiles_per_slice, ceil(nj / BJ))).
@@ -143,9 +199,9 @@ __device__ __forceinline__ void tile_sum_rows(
 // Channels: the force (ax, ay, az) when kForce, then the NR rows
 // (phi[k * ni + i]).  With S == 1 they go to the outputs (the force added
 // to ax, ay, az when accumulate != 0), else to scratch[(y * C + c) * ni +
-// i], C channels.  Tile k + 1 lands (cp.async) while tile k is swept, one
-// barrier a tile.
-template <int BI, int BJ, int NR, bool kForce>
+// i], C channels (fp64 sums and scratch for kExt).  Tile k + 1 lands
+// (cp.async) while tile k is swept, one barrier a tile.
+template <int BI, int BJ, int NR, bool kForce, bool kExt = false>
 __global__ void __launch_bounds__(BI / sweep_rows(BI, NR))
 sweep_rows_kernel(const float* __restrict__ qxi, const float* __restrict__ qyi,
                   const float* __restrict__ qzi, int ni,
@@ -155,7 +211,8 @@ sweep_rows_kernel(const float* __restrict__ qxi, const float* __restrict__ qyi,
                   int tiles_per_slice, float soft2, int accumulate,
                   float* __restrict__ ax, float* __restrict__ ay,
                   float* __restrict__ az, float* __restrict__ phi,
-                  float* __restrict__ scratch) {
+                  sweep_acc_t<kExt>* __restrict__ scratch) {
+  static_assert(!kExt || (NR == 0 && kForce), "the extended tier: force");
   constexpr int R = sweep_rows(BI, NR);
   constexpr int T = BI / R;
   constexpr int NRa = NR > 0 ? NR : 1;
@@ -165,7 +222,8 @@ sweep_rows_kernel(const float* __restrict__ qxi, const float* __restrict__ qyi,
   __shared__ __align__(16) float wts[W > 0 ? 2 * BJ * W : 1];  // [2][BJ][W]
   const int tid = threadIdx.x;
   const int i0 = blockIdx.x * BI + tid;
-  float xi[R], yi[R], zi[R], sx[R], sy[R], sz[R], sp[R][NRa];
+  float xi[R], yi[R], zi[R], sp[R][NRa];
+  sweep_acc_t<kExt> sx[R], sy[R], sz[R];
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     const int i = i0 + r * T;
@@ -204,18 +262,22 @@ sweep_rows_kernel(const float* __restrict__ qxi, const float* __restrict__ qyi,
     __syncthreads();      // everyone's did; the other buffer is free
     if (t + 1 < t1) stage(t + 1, (t + 1 - t0) & 1);
     const int b = (t - t0) & 1;
-    float tx[R], ty[R], tz[R], tp[R][NRa];
-    tile_sum_rows<BJ, R, NR, kForce>(pos + b * BJ, wts + b * BJ * W, xi,
-                                     yi, zi, soft2, tx, ty, tz, tp);
+    if constexpr (kExt) {
+      tile_sum_ext<BJ, R>(pos + b * BJ, xi, yi, zi, soft2, sx, sy, sz);
+    } else {
+      float tx[R], ty[R], tz[R], tp[R][NRa];
+      tile_sum_rows<BJ, R, NR, kForce>(pos + b * BJ, wts + b * BJ * W, xi,
+                                       yi, zi, soft2, tx, ty, tz, tp);
 #pragma unroll
-    for (int r = 0; r < R; ++r) {
-      if constexpr (kForce) {
-        sx[r] += tx[r];
-        sy[r] += ty[r];
-        sz[r] += tz[r];
+      for (int r = 0; r < R; ++r) {
+        if constexpr (kForce) {
+          sx[r] += tx[r];
+          sy[r] += ty[r];
+          sz[r] += tz[r];
+        }
+#pragma unroll
+        for (int k = 0; k < NR; ++k) sp[r][k] += tp[r][k];
       }
-#pragma unroll
-      for (int k = 0; k < NR; ++k) sp[r][k] += tp[r][k];
     }
   }
   const long long n = ni;
@@ -225,14 +287,17 @@ sweep_rows_kernel(const float* __restrict__ qxi, const float* __restrict__ qyi,
     if (i >= ni) continue;
     if (gridDim.y == 1) {
       if constexpr (kForce) {
-        ax[i] = accumulate ? ax[i] + sx[r] : sx[r];
-        ay[i] = accumulate ? ay[i] + sy[r] : sy[r];
-        az[i] = accumulate ? az[i] + sz[r] : sz[r];
+        const float fx = static_cast<float>(sx[r]);
+        const float fy = static_cast<float>(sy[r]);
+        const float fz = static_cast<float>(sz[r]);
+        ax[i] = accumulate ? ax[i] + fx : fx;
+        ay[i] = accumulate ? ay[i] + fy : fy;
+        az[i] = accumulate ? az[i] + fz : fz;
       }
 #pragma unroll
       for (int k = 0; k < NR; ++k) phi[k * n + i] = sp[r][k];
     } else {
-      float* out = scratch + blockIdx.y * C * n + i;
+      sweep_acc_t<kExt>* out = scratch + blockIdx.y * C * n + i;
       if constexpr (kForce) {
         out[0] = sx[r];
         out[n] = sy[r];
@@ -246,9 +311,9 @@ sweep_rows_kernel(const float* __restrict__ qxi, const float* __restrict__ qyi,
 
 // The slices' sums, folded in slice order, channel by channel, into the
 // outputs of sweep_rows_kernel (the force added to ax, ay, az when
-// accumulate != 0).
-template <int NR, bool kForce>
-__global__ void sweep_fold_kernel(const float* __restrict__ scratch,
+// accumulate != 0); in fp64 for kExt.
+template <int NR, bool kForce, bool kExt = false>
+__global__ void sweep_fold_kernel(const sweep_acc_t<kExt>* __restrict__ scratch,
                                   int slices, int ni, int accumulate,
                                   float* __restrict__ ax,
                                   float* __restrict__ ay,
@@ -258,16 +323,19 @@ __global__ void sweep_fold_kernel(const float* __restrict__ scratch,
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= ni) return;
   const long long n = ni;
-  float s[C];
+  sweep_acc_t<kExt> s[C];
 #pragma unroll
   for (int c = 0; c < C; ++c) s[c] = 0.f;
   for (int y = 0; y < slices; ++y)
 #pragma unroll
     for (int c = 0; c < C; ++c) s[c] += scratch[(y * C + c) * n + i];
   if constexpr (kForce) {
-    ax[i] = accumulate ? ax[i] + s[0] : s[0];
-    ay[i] = accumulate ? ay[i] + s[1] : s[1];
-    az[i] = accumulate ? az[i] + s[2] : s[2];
+    const float fx = static_cast<float>(s[0]);
+    const float fy = static_cast<float>(s[1]);
+    const float fz = static_cast<float>(s[2]);
+    ax[i] = accumulate ? ax[i] + fx : fx;
+    ay[i] = accumulate ? ay[i] + fy : fy;
+    az[i] = accumulate ? az[i] + fz : fz;
   }
 #pragma unroll
   for (int k = 0; k < NR; ++k) phi[k * n + i] = s[(kForce ? 3 : 0) + k];
@@ -280,15 +348,16 @@ inline bool sweep_block(int b) {
 // The sweep at (bi, bj) targets a block and sources a tile, each of {64,
 // 128, 256, 512}, in `slices` j slices of `tiles_per_slice` tiles
 // (ops/cuda.tile_split; every slice holds a tile when nj > 0), with the
-// fold when slices > 1 (scratch: (slices, C, ni) floats).  rows: (NR, nj)
-// weights; phi: (NR, ni).  Returns the cudaError_t of the launches.
-template <int NR, bool kForce>
+// fold when slices > 1 (scratch: (slices, C, ni), doubles for kExt).
+// rows: (NR, nj) weights; phi: (NR, ni).  Returns the cudaError_t of the
+// launches.
+template <int NR, bool kForce, bool kExt = false>
 int sweep_launch(const float* qxi, const float* qyi, const float* qzi,
                  int ni, const float* qxj, const float* qyj, const float* qzj,
                  const float* gmj, const float* rows, int nj, float soft2,
                  int bi, int bj, int slices, int tiles_per_slice,
-                 float* scratch, int accumulate, float* ax, float* ay,
-                 float* az, float* phi, cudaStream_t stream) {
+                 sweep_acc_t<kExt>* scratch, int accumulate, float* ax,
+                 float* ay, float* az, float* phi, cudaStream_t stream) {
   if (!sweep_block(bi) || !sweep_block(bj) || nj < 0 || slices < 1 ||
       slices > 65535 || tiles_per_slice < 0 ||
       (slices > 1 && scratch == nullptr))
@@ -302,26 +371,26 @@ int sweep_launch(const float* qxi, const float* qyi, const float* qzi,
   const dim3 grid((ni + bi - 1) / bi, slices);
   const int err = with_blocks(bi, bj, bi, bj, [&](auto bic, auto bjc) {
     constexpr int BI = decltype(bic)::value, BJ = decltype(bjc)::value;
-    sweep_rows_kernel<BI, BJ, NR, kForce>
+    sweep_rows_kernel<BI, BJ, NR, kForce, kExt>
         <<<grid, BI / sweep_rows(BI, NR), 0, stream>>>(
             qxi, qyi, qzi, ni, qxj, qyj, qzj, gmj, rows, nj, tiles_per_slice,
             soft2, accumulate, ax, ay, az, phi, scratch);
     return static_cast<int>(cudaGetLastError());
   });
   if (err != 0 || slices == 1) return err;
-  sweep_fold_kernel<NR, kForce><<<(ni + 255) / 256, 256, 0, stream>>>(
+  sweep_fold_kernel<NR, kForce, kExt><<<(ni + 255) / 256, 256, 0, stream>>>(
       scratch, slices, ni, accumulate, ax, ay, az, phi);
   return static_cast<int>(cudaGetLastError());
 }
 
 // Blocks of the sweep at (bi, bj) that one SM of the current device holds
 // at once (registers, shared memory, threads), into *blocks.
-template <int NR, bool kForce>
+template <int NR, bool kForce, bool kExt = false>
 int sweep_resident(int bi, int bj, int* blocks) {
   return with_blocks(bi, bj, bi, bj, [&](auto bic, auto bjc) {
     constexpr int BI = decltype(bic)::value, BJ = decltype(bjc)::value;
     return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        blocks, sweep_rows_kernel<BI, BJ, NR, kForce>,
+        blocks, sweep_rows_kernel<BI, BJ, NR, kForce, kExt>,
         BI / sweep_rows(BI, NR), 0));
   });
 }

@@ -43,6 +43,7 @@ _SIGNATURES = {
     "murb_tile_resident": [_I, _I, _P],
     "murb_hybrid_rect": [_P, _P, _P, _I, _P, _P, _P, _P, _I, _F, _I, _I, _I,
                          _I, _I, _P, _P, _P, _P, _P],
+    "murb_hybrid_resident": [_I, _I, _P],
     "murb_mxu_rect": [_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                       _P, _P, _P, _P, _P, _P],
     "murb_mxu_resident": [_I, _I, _P],
@@ -57,7 +58,9 @@ _SIGNATURES = {
                       _P],
     "murb_l2p_grid": [_P, _P, _P, _P, _I, _P, _I, _I, _P, _P, _I, _P, _I,
                       _P, _P],
-    "murb_m2l_level": [_P, _P, _F, _I, _I, _I, _I, _I, _P, _P, _P],
+    "murb_m2l_level": [_P, _P, _F, _I, _I, _I, _P, _P, _I, _I, _P, _P,
+                       _P],
+    "murb_m2l_resident": [_I, _P],
     "murb_p2p_sorted": [_P, _P, _P, _P, _I, _P, _P, _L, _F, _I, _P, _P],
     "murb_p2m_window": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _I,
                         _P, _P, _P],
@@ -293,7 +296,8 @@ def resident(entry: str, device: torch.device, block_i: int = 0,
              block_j: int = 0, *key: int) -> int:
     """Blocks of a sweep at (block_i, block_j) that one SM of ``device``
     holds at once, from its C entry ``entry`` (``murb_tile_resident``:
-    K3, csrc/tile.cu; ``murb_phi_resident``: K5 and K6, csrc/phi.cu, whose
+    K3, csrc/tile.cu; ``murb_hybrid_resident``: K4's passes 3,
+    csrc/hybrid.cu; ``murb_phi_resident``: K5 and K6, csrc/phi.cu, whose
     ``key`` is (weight rows, force); ``murb_mxu_resident``: K13,
     csrc/mxu.cu; the CUDA occupancy calculator)."""
     blocks = ctypes.c_int(0)

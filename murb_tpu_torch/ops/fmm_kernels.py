@@ -15,9 +15,16 @@ count each launch.  For K8 and K9 the wrapper orders the bodies by cell
 (``cell_order``: the cell ids, a stable sort, the cell bounds), so the
 kernels read each cell's bodies as one run; callers that run both stages
 on one box pass one ``CellOrder`` to both.  The box stays on the device.
+For K7 the wrapper hands the kernel its plan (``m2l_plan``, host numpy,
+copied to the device once a shape): each offset's admitted target cells
+in items of up to ``M2L_GROUP``, whose transfer entries the kernel builds
+once, and their split over the card.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
+import itertools
 import math
 from typing import NamedTuple
 
@@ -38,12 +45,19 @@ MAX_FIELDS = 11
 _L2P_GROUP = 4       # fields one K9 launch takes (kRunFields)
 _P2M_CHUNK = 512     # bodies per K8 work item (kRunP2MChunk)
 _L2P_CHUNK = 128     # bodies per K9 work item (kRunL2PThreads)
-_M2L_THREADS = 128   # target nodes per K7 block (kM2LThreads)
-_M2L_MAX_SPLIT = 16
-#: resident threads of an H100 (132 SMs x 2048): K7 splits its offsets
-#: until its blocks reach this many threads
-_FILL_THREADS = 132 * 2048
-_SUBSET_IDS = {"expand": 0, "near": 1, "far": 2}
+#: K7's geometry (csrc/fmm.cu): target nodes a block, target cells an
+#: item, cells per dimension of a cell tile, the most offset splits
+M2L_TARGETS = 128    # kM2LTargets
+M2L_GROUP = 16       # kM2LGroup
+M2L_CELL_TILE = 4
+M2L_MAX_SPLIT = 64   # kM2LMaxSplit
+#: int32 fields of an item and of a block row of the plan (kM2LItemInts,
+#: kM2LRowInts)
+M2L_ITEM_INTS = 8 + 2 * M2L_GROUP
+M2L_ROW_INTS = 12
+#: the offset subsets: (reach, least |o|_inf, parity rule)
+_M2L_SUBSETS = {"expand": (3, 0, True), "near": (1, 0, False),
+            "far": (3, 2, True)}
 _PLAIN_CHUNK = 8192  # bodies per step of the plain P2M / L2P
 #: entries of the transfer matrix T the plain M2L builds at a time: all of
 #: it up to m = 20, row blocks above (8.6 GB a whole matrix at m = 32 in
@@ -307,22 +321,144 @@ l2p_grid_fused.launches = 0
 
 
 # ----------------------------------------------------------- K7 wrapper
-def m2l_splits(m: int, C: int) -> int:
-    """Offset shares K7 splits a level sweep into: enough blocks to fill
-    the card where C^3 m^3 target threads alone cannot."""
-    threads = C ** 3 * -(-m ** 3 // _M2L_THREADS) * _M2L_THREADS
-    return max(1, min(_M2L_MAX_SPLIT, -(-_FILL_THREADS // threads)))
+def m2l_axis(o: int, C: int, parity: bool) -> range:
+    """Target indices along one dimension that offset component ``o``
+    admits: the source index i + o inside [0, C) and, under the parity
+    rule, an even i for o = +3 and an odd i for o = -3 (``_parity_mask``)."""
+    lo, hi = max(0, -o), min(C, C - o)
+    if parity and abs(o) == 3:
+        lo += (lo - (0 if o == 3 else 1)) % 2
+        return range(lo, hi, 2)
+    return range(lo, hi)
+
+
+class M2LPlan(NamedTuple):
+    """K7's work for one (m, C, subset) on a card with ``slots`` resident
+    blocks (SMs times the blocks an SM holds at once): the items
+    (offset, up to ``M2L_GROUP`` admitted target cells) of each cell tile in
+    offset order, and the block rows that split each tile's items into
+    ``nsplit`` runs of about equal work (csrc/fmm.cu reads both)."""
+
+    items: np.ndarray    # (n, M2L_ITEM_INTS) int32: ox, oy, oz, linear
+    #                      offset, cells, 3 x 0, M2L_GROUP target cell
+    #                      ids, M2L_GROUP indices in the tile (0 past)
+    rows: np.ndarray     # (tiles * nsplit, M2L_ROW_INTS) int32: first
+    #                      item, end, split, x0, x1, y0, y1, z0, z1, 3 x 0
+    nsplit: int
+    utiles: int          # blocks along the target nodes (grid.x)
+    cell_pairs: int      # (target cell, offset) pairs the subset admits
+
+    def scratch(self, m: int, C: int, nf: int) -> int:
+        """Floats of the split partials (0 with one split)."""
+        return self.nsplit * nf * C ** 3 * m ** 3 if self.nsplit > 1 else 0
+
+    def builds(self, m: int) -> int:
+        """Transfer entries T(o)[u, v] one launch builds: one per item and
+        node pair."""
+        return len(self.items) * m ** 6
+
+
+def _item_work(cells: int) -> int:
+    """An item's cost per node pair, in fp32 issue slots (about): the
+    build (13 with the staged loads) and 3.25 a cell (3 fmas and a
+    quarter of a broadcast load), times 4."""
+    return 52 + 13 * cells
+
+
+def m2l_plan(m: int, C: int, subset: str, slots: int) -> M2LPlan:
+    """K7's plan (host numpy, cached): cell tiles of ``M2L_CELL_TILE``^3
+    cells (the whole grid up to C = 4); per tile, for each offset of the
+    subset in order (ox, oy, oz from -reach), the admitted target cells
+    -- the box of ``m2l_axis`` ranges, clipped to the tile, x-major -- in
+    items of at most ``M2L_GROUP`` (the kernel's kM2LGroup); as many
+    splits as keep the blocks within the card's ``slots`` (one wave; at
+    most ``M2L_MAX_SPLIT``), each tile's items cut where the running work
+    crosses a split's share."""
+    return _m2l_plan(m, C, subset, slots, M2L_GROUP)
+
+
+@functools.lru_cache(maxsize=None)
+def _m2l_plan(m: int, C: int, subset: str, slots: int,
+              group: int) -> M2LPlan:
+    """``m2l_plan`` in items of at most ``group`` cells: another value than
+    ``M2L_GROUP`` serves only a kernel compiled with that kM2LGroup (the
+    A/B script's variants of csrc/fmm.cu)."""
+    _check_grid(m, C)
+    if subset not in _M2L_SUBSETS:
+        raise ValueError(f"unknown offset subset {subset!r} "
+                         f"({', '.join(_M2L_SUBSETS)})")
+    reach, min_inf, parity = _M2L_SUBSETS[subset]
+    T = min(C, M2L_CELL_TILE)
+    tiles = [(x, y, z) for x in range(0, C, T) for y in range(0, C, T)
+             for z in range(0, C, T)]
+    utiles = -(-m ** 3 // M2L_TARGETS)
+    nsplit = max(1, min(M2L_MAX_SPLIT, slots // (utiles * len(tiles))))
+    items, rows, pairs = [], [], 0
+    span = range(-reach, reach + 1)
+    for t0 in tiles:
+        box = [(b, min(b + T, C)) for b in t0]
+        first = len(items)
+        for o in itertools.product(span, span, span):
+            if max(map(abs, o)) < min_inf:
+                continue
+            ax = [[i for i in m2l_axis(od, C, parity) if lo <= i < hi]
+                  for od, (lo, hi) in zip(o, box)]
+            cells = [(ix, iy, iz) for ix in ax[0] for iy in ax[1]
+                     for iz in ax[2]]
+            pairs += len(cells)
+            olin = (o[0] * C + o[1]) * C + o[2]
+            ext = [hi - lo for lo, hi in box]
+            for g in range(0, len(cells), group):
+                grp = cells[g:g + group]
+                pad = [0] * (group - len(grp))
+                items.append(
+                    [*o, olin, len(grp), 0, 0, 0]
+                    + [(ix * C + iy) * C + iz for ix, iy, iz in grp] + pad
+                    + [((ix - box[0][0]) * ext[1] + iy - box[1][0]) * ext[2]
+                       + iz - box[2][0] for ix, iy, iz in grp] + pad)
+        work = np.cumsum([0] + [_item_work(it[4]) for it in items[first:]])
+        # item i goes to the split its work's start falls in
+        split = np.minimum(work[:-1] * nsplit // max(int(work[-1]), 1),
+                           nsplit - 1)
+        for sp in range(nsplit):
+            lo = first + int(np.searchsorted(split, sp, "left"))
+            hi = first + int(np.searchsorted(split, sp, "right"))
+            rows.append([lo, hi, sp, *(v for b in box for v in b), 0, 0, 0])
+    return M2LPlan(np.asarray(items, np.int32).reshape(-1, 8 + 2 * group),
+                   np.asarray(rows, np.int32), nsplit, utiles, pairs)
+
+
+@functools.lru_cache(maxsize=None)
+def m2l_slots(device: torch.device, nf: int) -> int:
+    """K7's blocks the card holds at once: its SMs times the blocks of the
+    nf-field kernel an SM holds (the occupancy calculator,
+    ``murb_m2l_resident``)."""
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        cuda.launch("murb_m2l_resident", nf, ctypes.byref(blocks))
+    if blocks.value < 1:
+        raise RuntimeError(f"murb_m2l_resident nf={nf}: no block fits an SM")
+    return cuda.sm_count(device) * blocks.value
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_on(m: int, C: int, subset: str, nf: int, device: torch.device):
+    """The plan for ``device``'s resident blocks and its tables on the
+    device (copied once per shape)."""
+    plan = m2l_plan(m, C, subset, m2l_slots(device, nf))
+    return plan, (torch.from_numpy(plan.items).to(device),
+                  torch.from_numpy(plan.rows).to(device))
 
 
 def m2l_level_fused(w, hl, soft, *, m: int, C: int, subset: str = "expand",
                     with_phi: bool = False) -> tuple:
     """Node fields (fx, fy, fz[, phi]), each (C^3, m^3), of one level sweep.
-    CPU tensors run ``m2l_level_plain``; CUDA tensors launch K7 (fp32
-    inside, fields cast back to ``w``'s dtype)."""
+    CPU tensors run ``m2l_level_plain``; CUDA tensors launch K7 on the
+    plan ``m2l_plan`` (fp32 inside, fields cast back to ``w``'s dtype)."""
     _check_grid(m, C)
-    if subset not in _SUBSET_IDS:
+    if subset not in _M2L_SUBSETS:
         raise ValueError(f"unknown offset subset {subset!r} "
-                         f"({', '.join(_SUBSET_IDS)})")
+                         f"({', '.join(_M2L_SUBSETS)})")
     if tuple(w.shape) != (C ** 3, m ** 3):
         raise ValueError(f"{_TAG}: expansions of shape {tuple(w.shape)}, "
                          f"expected {(C ** 3, m ** 3)}")
@@ -336,14 +472,16 @@ def m2l_level_fused(w, hl, soft, *, m: int, C: int, subset: str = "expand",
     w32 = w.to(torch.float32).contiguous()
     hl32 = hl.to(device=dev, dtype=torch.float32).contiguous()
     nf = 4 if with_phi else 3
-    nsplit = m2l_splits(m, C)
+    plan, (items, rows) = _plan_on(m, C, subset, nf, dev)
     out = torch.empty((nf, C ** 3, m ** 3), dtype=torch.float32, device=dev)
-    partial = (torch.empty(nsplit * out.numel(), dtype=torch.float32,
-                           device=dev) if nsplit > 1 else None)
+    nscratch = plan.scratch(m, C, nf)
+    partial = (torch.empty(nscratch, dtype=torch.float32, device=dev)
+               if nscratch else None)
     soft2 = float(np.float32(soft) * np.float32(soft))
     with torch.cuda.device(dev):
         cuda.launch("murb_m2l_level", w32.data_ptr(), hl32.data_ptr(), soft2,
-                    m, C, _SUBSET_IDS[subset], nf, nsplit,
+                    m, C, nf, items.data_ptr(), rows.data_ptr(),
+                    rows.shape[0], plan.nsplit,
                     None if partial is None else partial.data_ptr(),
                     out.data_ptr(), cuda.stream(dev))
     m2l_level_fused.launches += 1

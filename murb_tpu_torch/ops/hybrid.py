@@ -10,9 +10,11 @@ matrix-unit passes; the port keeps the accuracy contract of each
               sweep kernel.
   passes 1 -- runs the passes-2 code in this port (a faster tier is later
               work, ROADMAP.md Queue 2 K4).
-  passes 3 -- the extended tier, <= ~1e-6: fp64 accumulation of every
-              pair term, K4's own kernel.  The tier ``tpu+hybrid`` picks
-              for fp64 state.
+  passes 3 -- the extended tier, <= ~1e-6: K3's register-tiled sweep
+              with a Newton-refined rsqrt, each run of ``EXT_RUN`` = 4
+              sources summed in fp32 and folded into fp64 sums, and K3's j
+              split with fp64 slice partials (``ext_split_args``).  The
+              tier ``tpu+hybrid`` picks for fp64 state.
 
 On CUDA tensors ``acc_hybrid_rect`` launches ``csrc/hybrid.cu`` (which
 hands passes 1/2 to K3's kernel, with K3's j split, counted here as K4
@@ -48,6 +50,14 @@ from murb_tpu_torch.ops.common import Accel, notify_fp32_compute
 from murb_tpu_torch.ops.naive import _pair_weights
 from murb_tpu_torch.ops.tile import acc_tile_rect_plain, split_args
 
+#: sources a run of passes 3 sums in fp32 before its fp64 fold
+#: (csrc/tile.cuh kExtRun)
+EXT_RUN = 4
+#: passes 3's default targets a block and sources a tile (csrc/hybrid.cu
+#: kExtTargets, kExtSources)
+EXT_BLOCK_I = 128
+EXT_BLOCK_J = 128
+
 
 def acc_hybrid_rect_plain(qxi, qyi, qzi, qxj, qyj, qzj, gmj, soft, *,
                           passes: int = 1) -> Accel:
@@ -71,6 +81,15 @@ def acc_hybrid_rect_plain(qxi, qyi, qzi, qxj, qyj, qzj, gmj, soft, *,
     return Accel(*(a.to(qxi.dtype) for a in sums))
 
 
+def ext_split_args(ni: int, nj: int, block_i: int, block_j: int,
+                   device: torch.device):
+    """Passes 3's j split (``ops/tile.split_args``) at (block_i, block_j),
+    0 for ``EXT_BLOCK_I`` x ``EXT_BLOCK_J``: its own resident count and
+    float64 slice sums."""
+    return split_args(ni, nj, block_i or EXT_BLOCK_I, block_j or EXT_BLOCK_J,
+                      device, "murb_hybrid_resident", torch.float64)
+
+
 def acc_hybrid_rect(qxi, qyi, qzi, qxj, qyj, qzj, gmj, soft, *,
                     passes: int = 1, block_i: int = 0,
                     block_j: int = 0) -> Accel:
@@ -80,18 +99,18 @@ def acc_hybrid_rect(qxi, qyi, qzi, qxj, qyj, qzj, gmj, soft, *,
     inside; float64 inputs are cast here and the outputs cast back)."""
     if passes not in (1, 2, 3):
         raise ValueError(f"passes must be 1, 2 or 3, got {passes}")
-    cuda.check_blocks(f"tpu+hybrid/p{passes}", block_i, block_j)
+    tag = f"tpu+hybrid/p{passes}"
+    cuda.check_blocks(tag, block_i, block_j)
     if qxi.device.type == "cpu":
         return acc_hybrid_rect_plain(qxi, qyi, qzi, qxj, qyj, qzj, gmj,
                                      soft, passes=passes)
-    tag = f"tpu+hybrid/p{passes}"
     cuda.require_cuda(tag, qxi)
     if not float(soft) > 0.0:
         raise ValueError(f"{tag}: the sweep needs a positive softening")
     notify = lambda t, d: notify_fp32_compute(
         t, d, detail=("fp64 state runs the extended tier (fp32 pair "
-                      "weights, fp64 accumulation, ~1e-6 relative force "
-                      "error)" if passes == 3 else None))
+                      "weights and runs of 4 sources, fp64 sums, ~1e-6 "
+                      "relative force error)" if passes == 3 else None))
     dtype, dev = qxi.dtype, qxi.device
     ni, nj = qxi.shape[0], qxj.shape[0]
     xi, yi, zi = cuda.kernel_inputs(tag, dev, ni, qxi, qyi, qzi,
@@ -99,8 +118,8 @@ def acc_hybrid_rect(qxi, qyi, qzi, qxj, qyj, qzj, gmj, soft, *,
     xj, yj, zj, gj = cuda.kernel_inputs(tag, dev, nj, qxj, qyj, qzj, gmj,
                                         notify=notify)
     out = torch.empty((3, ni), dtype=torch.float32, device=dev)
-    split, _scratch = (split_args(ni, nj, block_i, block_j, dev)
-                       if passes < 3 else ((1, 0, None), None))
+    split, _scratch = (ext_split_args if passes == 3 else split_args)(
+        ni, nj, block_i, block_j, dev)
     with torch.cuda.device(dev):
         cuda.launch("murb_hybrid_rect", xi.data_ptr(), yi.data_ptr(),
                     zi.data_ptr(), ni, xj.data_ptr(), yj.data_ptr(),

@@ -52,7 +52,12 @@ the same inputs:
   - the merger's tracked steps through each tree's own package, in turns
     (subprocesses in DIR and here): ``create_engine("tpu+tracking+multi")``
     with no ``acc_fn`` (K6) and the CLI (K4 force, K5 metrics), FPS over
-    49 steps after one.
+    49 steps after one;
+  - K7 (one thread a cell pair) at every shape of ``K7_SHAPES`` and K4's
+    passes 3 (one target a thread, fp64 per pair) at 16384^2, 30,208^2
+    and 200,192^2, where DIR holds those first designs, and then the FPS
+    of each path of ``FPS_RUNS`` through both trees' packages in
+    ``FPS_ROUNDS`` rounds of turns (``--no-fps`` skips them).
 
 Kernel times are medians of CUDA-event runs, launches only (the inputs are
 packed once beforehand).  The last line is one JSON object with every
@@ -63,6 +68,7 @@ from __future__ import annotations
 import argparse
 import ast
 import ctypes
+import functools
 import json
 import re
 import shutil
@@ -95,12 +101,16 @@ FIRST_SIGNATURES = {
                            _P],
     "murb_acc_phi_rows": [_P, _P, _P, _P, _I, _P, _I, _F, _P, _P, _P, _P,
                           _P],
+    # K7's first design: the offset subset and a split count, no plan
+    "murb_m2l_level": [_P, _P, _F, _I, _I, _I, _I, _I, _P, _P, _P],
 }
 #: each entry's sources (ring.cu launches tile.cu's sweep)
 SOURCES = {"murb_p2p_sorted": ["p2p.cu"], "murb_tile_rect": ["tile.cu"],
            "murb_mxu_rect": ["mxu.cu"],
            "murb_ring_pipelined": ["ring.cu", "tile.cu"],
-           "murb_phi_rows_rect": ["phi.cu"], "murb_acc_phi_rows": ["phi.cu"]}
+           "murb_phi_rows_rect": ["phi.cu"], "murb_acc_phi_rows": ["phi.cu"],
+           "murb_m2l_level": ["fmm.cu"],
+           "murb_hybrid_rect": ["hybrid.cu", "tile.cu"]}
 #: entries compared with the parent's build when their signatures match
 #: this checkout's (their arithmetic is meant to be unchanged)
 SAME_ENTRIES = ("murb_tile_rect", "murb_ring_pipelined",
@@ -123,27 +133,41 @@ def tree_signatures(root: Path) -> dict:
     raise ValueError(f"{root}: no _SIGNATURES in murb_tpu_torch/ops/cuda.py")
 
 
-def build(name: str, csrc: Path, sources: list[str]) -> Path:
-    """One shared library from ``sources`` of ``csrc`` (one nvcc each, all
-    started together)."""
+def build_many(specs) -> list[Path]:
+    """One shared library for each (name, csrc, sources) of ``specs``: one
+    nvcc a source, all of them started together; each library's compiler
+    report (-Xptxas -v) beside it as ``<lib>.log``."""
     OUT.mkdir(parents=True, exist_ok=True)
     nvcc = cuda.find_nvcc()
-    objs, procs = [], []
-    for src in sources:
-        obj = OUT / f"{name}.{Path(src).stem}.o"
-        procs.append(subprocess.Popen(
-            [nvcc, *cuda.NVCC_FLAGS, "-c", "-I", str(csrc), "-o", str(obj),
-             str(csrc / src)], stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True))
-        objs.append(str(obj))
-    for src, proc in zip(sources, procs):
+    jobs = []
+    for name, csrc, sources in specs:
+        for src in sources:
+            obj = OUT / f"{name}.{Path(src).stem}.o"
+            jobs.append((name, src, obj, subprocess.Popen(
+                [nvcc, *cuda.NVCC_FLAGS, "-c", "-I", str(csrc), "-o",
+                 str(obj), str(csrc / src)], stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True)))
+    reports = {name: [] for name, _, _ in specs}
+    for name, src, _, proc in jobs:
         out = proc.communicate()[0]
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc {src} failed:\n{out[-4000:]}")
-    lib = OUT / f"lib{name}.so"
-    subprocess.run([nvcc, "-shared", *cuda.NVCC_FLAGS[:2], "-o", str(lib),
-                    *objs], check=True, capture_output=True)
-    return lib
+            raise RuntimeError(f"nvcc {name} {src} failed:\n{out[-4000:]}")
+        reports[name].append(out)
+    libs = []
+    for name, _, _ in specs:
+        lib = OUT / f"lib{name}.so"
+        subprocess.run([nvcc, "-shared", *cuda.NVCC_FLAGS[:2], "-o",
+                        str(lib), *(str(o) for n, _, o, _ in jobs
+                                    if n == name)],
+                       check=True, capture_output=True)
+        lib.with_suffix(".log").write_text("".join(reports[name]))
+        libs.append(lib)
+    return libs
+
+
+def build(name: str, csrc: Path, sources: list[str]) -> Path:
+    """One shared library from ``sources`` of ``csrc`` (``build_many``)."""
+    return build_many([(name, csrc, sources)])[0]
 
 
 def load(lib: Path, signatures: dict) -> ctypes.CDLL:
@@ -184,7 +208,8 @@ def in_turns(old, new, **kw) -> dict:
 
 def sass_counts(lib: Path, pattern: str) -> dict:
     """{kernel: {instructions, MUFU.RSQ, instructions a MUFU.RSQ, FFMA,
-    FMUL, FADD, LDS, HMMA, HMMA a MUFU.RSQ}} of the kernels in ``lib``
+    FMUL, FADD, LDS, HMMA, DFMA, DADD, F2F, HMMA a MUFU.RSQ}} of the
+    kernels in ``lib``
     whose name matches ``pattern`` (cuobjdump)."""
     tool = shutil.which("cuobjdump") or str(
         Path(cuda.find_nvcc()).with_name("cuobjdump"))
@@ -206,7 +231,8 @@ def sass_counts(lib: Path, pattern: str) -> dict:
                      "per_rsq": total / rsq if rsq else None,
                      "FFMA": ops.get("FFMA", 0), "FMUL": ops.get("FMUL", 0),
                      "FADD": ops.get("FADD", 0), "LDS": ops.get("LDS", 0),
-                     "HMMA": ops.get("HMMA", 0),
+                     "HMMA": ops.get("HMMA", 0), "DFMA": ops.get("DFMA", 0),
+                     "DADD": ops.get("DADD", 0), "F2F": ops.get("F2F", 0),
                      "HMMA_per_rsq": ops.get("HMMA", 0) / rsq if rsq
                      else None}
     return out
@@ -214,15 +240,16 @@ def sass_counts(lib: Path, pattern: str) -> dict:
 
 def sweep_label(name: str) -> str:
     """``sweep BI=<targets a block> BJ=<sources a tile> NR=<rows>
-    force|no force`` for a mangled sweep_rows_kernel<BI, BJ, NR, kForce>
-    name, else the name."""
-    m = re.search(r"sweep_rows_kernelILi(\d+)ELi(\d+)ELi(\d+)ELb([01])",
-                  name)
+    force|no force[ ext]`` for a mangled sweep_rows_kernel<BI, BJ, NR,
+    kForce[, kExt]> name (ext: K4's passes 3), else the name."""
+    m = re.search(r"sweep_rows_kernelILi(\d+)ELi(\d+)ELi(\d+)ELb([01])"
+                  r"(?:ELb([01]))?", name)
     if not m:
         return name
     bj = m.group(2) if m.group(2) != "0" else "run-time"
     return (f"sweep BI={m.group(1)} BJ={bj} NR={m.group(3)} "
-            f"{'force' if m.group(4) == '1' else 'no force'}")
+            f"{'force' if m.group(4) == '1' else 'no force'}"
+            + (" ext" if m.group(5) == "1" else ""))
 
 
 def ptxas_report(lib: Path, pattern: str) -> dict:
@@ -897,6 +924,356 @@ def run_k14_first(old, dev) -> dict:
     return res
 
 
+# ------------------------------------------------------ K7 and K4 passes 3
+#: K7's shapes on the main paths, (m, C, subset, nf): the random-box step,
+#: tracked --kernel fmm and shard+fmm (m=8, C=4); chip_smoke.py phase 8's
+#: deeper shape (m=6, C=8); the 1M adaptive step's far sweep (m=6, C=4);
+#: the ladder's repair (m=18, 32 at C=2)
+K7_SHAPES = ((8, 4, "expand", 3), (8, 4, "expand", 4), (6, 8, "expand", 3),
+             (6, 8, "near", 3), (6, 4, "far", 3), (6, 4, "far", 4),
+             (18, 2, "expand", 4), (32, 2, "expand", 4))
+#: K7's first design's offset-split rule (its ops/fmm_kernels.m2l_splits):
+#: 128 target nodes a block, splits until the blocks hold 132 x 2048
+#: threads, at most 16
+_K7_FIRST_TARGETS, _K7_FIRST_FILL, _K7_FIRST_MAX = 128, 132 * 2048, 16
+_K7_FIRST_SUBSETS = {"expand": 0, "near": 1, "far": 2}
+
+
+def k7_first_splits(m: int, C: int) -> int:
+    threads = C ** 3 * -(-m ** 3 // _K7_FIRST_TARGETS) * _K7_FIRST_TARGETS
+    return max(1, min(_K7_FIRST_MAX, -(-_K7_FIRST_FILL // threads)))
+
+
+@functools.lru_cache(maxsize=None)
+def k7_case(m: int, C: int, dev):
+    """(w (C^3, m^3), hl (3,)) float32 on ``dev``: seeded weights at the
+    scale of the 200k random box's expansions, and that box's level
+    half-widths at C cells a side."""
+    from murb_tpu_torch.core.init import init_random
+    from murb_tpu_torch.ops.proxy import bounding_box
+
+    st = init_random(200_000, 123, device=dev)
+    _, h = bounding_box(st.qx, st.qy, st.qz, st.m > 0)
+    g = torch.Generator(device="cpu").manual_seed(1000 * m + C)
+    w = torch.randn(C ** 3, m ** 3, generator=g) * 1e28
+    return w.float().to(dev), (h / C).float().contiguous()
+
+
+def k7_this(dll, m, C, subset, nf, dev, group=None, slots=None):
+    """A launcher of this checkout's (or a variant's) K7 C entry on
+    ``k7_case``, its plan made for ``group`` cells an item and ``slots``
+    resident blocks (None: the package's)."""
+    from murb_tpu_torch.ops import fmm_kernels as fk
+
+    w, hl = k7_case(m, C, dev)
+    if group is None:
+        plan, (items, rows) = fk._plan_on(m, C, subset, nf, dev)
+    else:
+        plan = fk._m2l_plan(m, C, subset, slots, group)
+        items, rows = (torch.from_numpy(t).to(dev)
+                       for t in (plan.items, plan.rows))
+    out = torch.empty((nf, C ** 3, m ** 3), dtype=torch.float32, device=dev)
+    n = plan.scratch(m, C, nf)
+    part = torch.empty(n, dtype=torch.float32, device=dev) if n else None
+
+    def f():
+        call(dll, "murb_m2l_level", w.data_ptr(), hl.data_ptr(),
+             ctypes.c_float(SOFT ** 2), m, C, nf, items.data_ptr(),
+             rows.data_ptr(), rows.shape[0], plan.nsplit,
+             None if part is None else part.data_ptr(), out.data_ptr(),
+             cuda.stream(dev))
+    f.out, f.plan, f.keep = out, plan, (items, rows, part)
+    return f
+
+
+def k7_first(dll, m, C, subset, nf, dev):
+    """A launcher of K7's first design (a parent tree's C entry)."""
+    w, hl = k7_case(m, C, dev)
+    nsplit = k7_first_splits(m, C)
+    out = torch.empty((nf, C ** 3, m ** 3), dtype=torch.float32, device=dev)
+    part = (torch.empty(nsplit * out.numel(), dtype=torch.float32,
+                        device=dev) if nsplit > 1 else None)
+
+    def f():
+        call(dll, "murb_m2l_level", w.data_ptr(), hl.data_ptr(),
+             ctypes.c_float(SOFT ** 2), m, C, _K7_FIRST_SUBSETS[subset], nf,
+             nsplit, None if part is None else part.data_ptr(),
+             out.data_ptr(), cuda.stream(dev))
+    f.out, f.nsplit, f.keep = out, nsplit, part
+    return f
+
+
+def run_k7_parent(old, dev) -> dict:
+    """K7's first design (the parent tree's build) against this checkout's
+    at every main-path shape, in turns, launches only; the fields'
+    largest difference over max|f|, whether this checkout gives the same
+    bits twice, and the transfer entries each builds a launch."""
+    from chip_smoke import m2l_work
+
+    res = {}
+    for m, C, subset, nf in K7_SHAPES:
+        f_old = k7_first(old, m, C, subset, nf, dev)
+        f_new = k7_this(cuda.library(), m, C, subset, nf, dev)
+        f_old()
+        f_new()
+        torch.cuda.synchronize()
+        first = f_new.out.clone()
+        f_new()
+        torch.cuda.synchronize()
+        pairs = m2l_work(m, C, subset, nf)[0]
+        reps = 1 if m >= 18 else 5
+        r = {"pairs": pairs, "builds_old": pairs * m ** 6,
+             "builds_new": f_new.plan.builds(m),
+             "splits_old": f_old.nsplit, "splits_new": f_new.plan.nsplit,
+             "max_rel_diff": float((f_old.out - f_new.out).abs().max()
+                                   / f_old.out.abs().max()),
+             "same_bits": bool(torch.equal(first, f_new.out)),
+             **in_turns(f_old, f_new, reps=reps, runs=3 if m >= 18 else 5)}
+        key = f"m={m} C={C} {subset} nf={nf}"
+        res[key] = r
+        print(f"[K7 first vs this, {key}] {pairs} cell pairs; T builds a "
+              f"launch {r['builds_old']:.4g} -> {r['builds_new']:.4g}; "
+              f"splits {r['splits_old']} -> {r['splits_new']}; max|df|/max|f| "
+              f"{r['max_rel_diff']:.3e}; same bits twice {r['same_bits']}; "
+              f"parent {r['old_ms']} ms, this {r['new_ms']} ms")
+    return res
+
+
+#: compile-time variants of K7 (csrc/fmm.cu edited in a copy): group = the
+#: cells an item (the plan follows), slices = the source-node slices of a
+#: 128-target block, unroll = the source loop's unroll, chunk = the source
+#: nodes staged a chunk
+K7_VARIANTS = {
+    "group8": ({"kM2LGroup = 16;": "kM2LGroup = 8;"}, 8),
+    "group12": ({"kM2LGroup = 16;": "kM2LGroup = 12;"}, 12),
+    "unroll2": ({"#pragma unroll 1\n    for (int j = j0;":
+                 "#pragma unroll 2\n    for (int j = j0;"}, 16),
+    "slices2": ({"kM2LSlices = 4;": "kM2LSlices = 2;",
+                 "__launch_bounds__(kM2LThreads, 1)":
+                 "__launch_bounds__(kM2LThreads, 2)"}, 16),
+    "chunk128": ({"kM2LSliceNodes = 64;": "kM2LSliceNodes = 32;"}, 16),
+    "slices2_group8": ({"kM2LSlices = 4;": "kM2LSlices = 2;",
+                        "__launch_bounds__(kM2LThreads, 1)":
+                        "__launch_bounds__(kM2LThreads, 2)",
+                        "kM2LGroup = 16;": "kM2LGroup = 8;"}, 8),
+}
+
+
+def run_k7_variants(dev) -> dict:
+    """K7's compile-time variants (``K7_VARIANTS``) against this checkout's
+    kernel at the main-path shapes, each from its own build (so a few
+    percent between builds is noise): registers and spills, resident
+    blocks, the largest difference from this checkout's fields, and the
+    time, in turns (this, variant, variant, this)."""
+    specs = []
+    for name, (edits, _) in K7_VARIANTS.items():
+        src = (cuda.CSRC / "fmm.cu").read_text()
+        for a, b in edits.items():
+            if a not in src:
+                raise RuntimeError(f"K7 variant {name}: {a!r} not in fmm.cu")
+            src = src.replace(a, b)
+        d = OUT / f"k7_{name}"
+        if d.exists():
+            shutil.rmtree(d)
+        shutil.copytree(cuda.CSRC, d)
+        (d / "fmm.cu").write_text(src)
+        specs.append((f"k7_{name}", d, ["fmm.cu"]))
+    libs = dict(zip(K7_VARIANTS, build_many(specs)))
+    res = {"this": ptxas_report(cuda.build_kernels(), r"m2l_kernel")}
+    shapes = [s for s in K7_SHAPES if s[:3] != (18, 2, "expand")]
+    for name, lib in libs.items():
+        dll = load(lib, {"murb_m2l_level": cuda._SIGNATURES["murb_m2l_level"],
+                         "murb_m2l_resident": [_I, _P]})
+        group = K7_VARIANTS[name][1]
+        row = {"ptxas": ptxas_report(lib, r"m2l_kernel")}
+        for m, C, subset, nf in shapes:
+            blocks = ctypes.c_int(0)
+            call(dll, "murb_m2l_resident", nf, ctypes.byref(blocks))
+            slots = blocks.value * cuda.sm_count(dev)
+            f_new = k7_this(cuda.library(), m, C, subset, nf, dev)
+            f_var = k7_this(dll, m, C, subset, nf, dev, group, slots)
+            f_new()
+            f_var()
+            torch.cuda.synchronize()
+            reps = 1 if m >= 18 else 5
+            r = {"resident": blocks.value, "nsplit": f_var.plan.nsplit,
+                 "items": len(f_var.plan.items),
+                 "max_rel_diff": float((f_var.out - f_new.out).abs().max()
+                                       / f_new.out.abs().max()),
+                 **in_turns(f_new, f_var, reps=reps,
+                            runs=3 if m >= 18 else 5)}
+            row[f"m={m} C={C} {subset} nf={nf}"] = r
+            print(f"[K7 variant {name}, m={m} C={C} {subset} nf={nf}] "
+                  f"resident {r['resident']}, {r['items']} items, "
+                  f"{r['nsplit']} splits; max|df|/max|f| "
+                  f"{r['max_rel_diff']:.3e}; this {r['old_ms']} ms, "
+                  f"variant {r['new_ms']} ms")
+        print(f"[K7 variant {name} ptxas] {row['ptxas']}")
+        res[name] = row
+    return res
+
+
+def k4_shapes(dev):
+    """(label, positions, G*m) of K4 passes 3's shapes: the 16384^2 random
+    box (chip_smoke.py phase 3), the 30,000-body galaxy (``--im
+    tpu+hybrid+x3`` through the CLI) and the 200,192^2 galaxy."""
+    from murb_tpu_torch import G
+    from murb_tpu_torch.core.init import init_galaxy, init_random
+
+    for label, st in (("16384^2 random", init_random(16_300, 123,
+                                                      device=dev)),
+                      ("30208^2 galaxy", init_galaxy(30_000, 123,
+                                                     device=dev)),
+                      ("200192^2 galaxy", init_galaxy(200_000, 123,
+                                                      device=dev))):
+        q = [v.float().contiguous() for v in (st.qx, st.qy, st.qz)]
+        yield label, q, (st.m * G).float().contiguous()
+
+
+def run_k4p3_parent(old, dev) -> dict:
+    """K4 passes 3's first design (the parent tree's build: one target a
+    thread, fp64 sums of every pair term, no j split) against this
+    checkout's (K3's sweep, runs of 4 in fp32 folded into fp64, j split)
+    at K4's shapes, in turns; each side's max relative force error against
+    float64 on a 4096-row strided sample, and this side's bits twice."""
+    from murb_tpu_torch.ops.hybrid import ext_split_args
+    from murb_tpu_torch.ops.tile import acc_tile_rect_plain
+
+    res = {}
+    for label, q, g in k4_shapes(dev):
+        n = q[0].shape[0]
+        ptrs = [v.data_ptr() for v in q]
+        outs = [torch.empty((3, n), dtype=torch.float32, device=dev)
+                for _ in range(2)]
+        split, scratch = ext_split_args(n, n, 0, 0, dev)
+        s = cuda.stream(dev)
+
+        def f(dll, k, split):
+            call(dll, "murb_hybrid_rect", *ptrs, n, *ptrs, g.data_ptr(), n,
+                 SOFT2, 3, 0, 0, *split, *(o.data_ptr() for o in outs[k]), s)
+
+        f_old = lambda: f(old, 0, (1, 0, None))
+        f_new = lambda: f(cuda.library(), 1, split)
+        f_old()
+        f_new()
+        torch.cuda.synchronize()
+        first = outs[1].clone()
+        f_new()
+        torch.cuda.synchronize()
+        rows = torch.arange(0, n, max(1, n // 4096), device=dev)
+        ref = torch.stack(acc_tile_rect_plain(
+            *(v.double()[rows] for v in q), *(v.double() for v in q),
+            g.double(), SOFT), 1)
+        rn = ref.norm(dim=1)
+        floor = torch.clamp(rn, min=1e-6 * float(rn.max()))
+        err = [float(((o[:, rows].double().T - ref).norm(dim=1)
+                      / floor).max()) for o in outs]
+        reps = 1 if n > 100_000 else 5
+        r = {"slices": split[0], "err_old": err[0], "err_new": err[1],
+             "same_bits": bool(torch.equal(first, outs[1])),
+             **in_turns(f_old, f_new, reps=reps,
+                        runs=3 if n > 100_000 else 5)}
+        res[label] = r
+        print(f"[K4 p3 first vs this, {label}] this in {split[0]} slices; "
+              f"max rel force err parent {err[0]:.3e}, this {err[1]:.3e}; "
+              f"same bits twice {r['same_bits']}; parent {r['old_ms']} ms, "
+              f"this {r['new_ms']} ms")
+    return res
+
+
+def run_k4p3_geometries(dev) -> dict:
+    """K4 passes 3 at several block geometries, each at the j split
+    ``ops/cuda.tile_split`` picks from its resident blocks
+    (``murb_hybrid_resident``), at 16384^2 and 200,192^2."""
+    from murb_tpu_torch.ops.hybrid import ext_split_args
+
+    res = {}
+    for label, q, g in k4_shapes(dev):
+        if label.startswith("30208"):
+            continue
+        n = q[0].shape[0]
+        ptrs = [v.data_ptr() for v in q]
+        out = torch.empty((3, n), dtype=torch.float32, device=dev)
+        for bi, bj in ((128, 512), (256, 512), (128, 256), (256, 256),
+                       (512, 512), (128, 128)):
+            split, _scratch = ext_split_args(n, n, bi, bj, dev)
+            resident = cuda.resident("murb_hybrid_resident", dev, bi, bj)
+            ms = time_ms(lambda: call(
+                cuda.library(), "murb_hybrid_rect", *ptrs, n, *ptrs,
+                g.data_ptr(), n, SOFT2, 3, bi, bj, *split,
+                *(o.data_ptr() for o in out), cuda.stream(dev)),
+                reps=1 if n > 100_000 else 5, runs=3)
+            res[f"{label} {bi}x{bj}"] = {"resident": resident,
+                                         "slices": split[0], "ms": ms}
+            print(f"[K4 p3 {label} {bi}x{bj}] resident {resident}, "
+                  f"{split[0]} slices: {ms:.4f} ms")
+    return res
+
+
+FPS_CODE = r"""
+import json, sys, time
+import torch
+from murb_tpu_torch import cli
+kind = sys.argv[1]
+if kind == "adaptive1m":
+    from murb_tpu_torch.models import create_engine
+    from murb_tpu_torch.utils.profile_step import (TWO_CLUSTERS_DT,
+                                                   TWO_CLUSTERS_SOFT,
+                                                   two_clusters)
+    st = two_clusters(device="cuda")
+    eng = create_engine("tpu+proxy", st, soft=TWO_CLUSTERS_SOFT,
+                        dt=TWO_CLUSTERS_DT)
+    eng.run(1)
+    eng.block_until_ready()
+    t0 = time.perf_counter()
+    eng.run(4)
+    eng.block_until_ready()
+    print(json.dumps({"fps": 4 / (time.perf_counter() - t0)}))
+else:
+    res = cli.run(sys.argv[2:] + ["--device", "cuda"])
+    assert res.rc == 0
+    print(json.dumps({"fps": res.fps}))
+"""
+#: the paths through K7 and K4 passes 3 whose FPS both trees are timed at;
+#: the CLI's iteration counts keep each timed window near a second or more
+#: (100 random-box steps, a quarter of a second, spread by a third)
+FPS_RUNS = {
+    "tpu+proxy -s random 200k": ["-n", "200000", "-i", "500", "--im",
+                                 "tpu+proxy", "-s", "random", "--nv",
+                                 "--gf", "--scan"],
+    "tpu+tracking --kernel fmm -s random 200k": [
+        "-n", "200000", "-i", "300", "--im", "tpu+tracking", "--kernel",
+        "fmm", "-s", "random", "--nv", "--gf", "--scan"],
+    "tpu+hybrid+x3 30000": ["-n", "30000", "-i", "1000", "--im",
+                            "tpu+hybrid+x3", "--nv", "--gf", "--scan"],
+    "two clusters 1M adaptive (5 steps)": None,
+}
+#: rounds of (parent, this, this, parent): 10 pairs a path
+FPS_ROUNDS = 5
+
+
+def fps_turns(parent: Path) -> dict:
+    """FPS of each of ``FPS_RUNS`` through each tree's own package, in
+    ``FPS_ROUNDS`` rounds of turns (parent, this, this, parent), one
+    process each."""
+    res = {}
+    for label, argv in FPS_RUNS.items():
+        out = {"parent": [], "this": []}
+        for side, root in FPS_ROUNDS * (("parent", parent), ("this", ROOT),
+                                        ("this", ROOT), ("parent", parent)):
+            args = ["adaptive1m"] if argv is None else ["cli", *argv]
+            proc = subprocess.run([sys.executable, "-c", FPS_CODE, *args],
+                                  cwd=root, capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(f"{label} in {root} failed:\n"
+                                   f"{proc.stderr[-3000:]}")
+            out[side].append(json.loads(
+                proc.stdout.strip().splitlines()[-1])["fps"])
+        res[label] = out
+        print(f"[FPS {label}] parent {out['parent']}, this {out['this']}")
+    return res
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="torch_kernel_ab")
     p.add_argument("--parent", type=Path,
@@ -905,6 +1282,12 @@ def main(argv=None) -> int:
                         "K14, K5 and K6")
     p.add_argument("--no-scan", action="store_true",
                    help="skip the geometry scans (K3, K5/K6, K13)")
+    p.add_argument("--variants", action="store_true",
+                   help="time K7's compile-time variants (K7_VARIANTS) and "
+                        "K4 passes 3's block geometries")
+    p.add_argument("--no-fps", action="store_true",
+                   help="with --parent, skip the FPS runs through both "
+                        "trees")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("torch_kernel_ab: no CUDA device available", file=sys.stderr)
@@ -914,6 +1297,11 @@ def main(argv=None) -> int:
         theirs = tree_signatures(args.parent)
         firsts = [k for k, v in FIRST_SIGNATURES.items()
                   if theirs.get(k) == v]
+        # K4's passes 3 keeps its entry's signature: its first design is
+        # told by its kernel in the tree's csrc/hybrid.cu
+        if "hybrid_ext_rect_kernel" in (args.parent / "murb_tpu_torch" /
+                                        "csrc" / "hybrid.cu").read_text():
+            firsts.append("murb_hybrid_rect")
         same = [k for k in SAME_ENTRIES
                 if theirs.get(k) == cuda._SIGNATURES[k]]
         if not firsts and not same:
@@ -932,14 +1320,15 @@ def main(argv=None) -> int:
                                args.parent / "murb_tpu_torch" / "csrc",
                                sorted({s for k in firsts + same
                                        for s in SOURCES[k]}))
-    pattern = r"p2p_kernel|tile_rect|mxu_|sweep_rows|phi_rows"
+    pattern = (r"p2p_kernel|tile_rect|mxu_|sweep_rows|phi_rows|m2l_kernel|"
+               r"hybrid_ext")
     sass = {side: {sweep_label(k): v
                    for k, v in sass_counts(lib, pattern).items()}
             for side, lib in libs.items()}
     for side, kernels in sass.items():
         for name, c in kernels.items():
             print(f"[sass {side}] {name}: {c}")
-    ptxas = ptxas_report(libs["this"], r"sweep_rows_kernel")
+    ptxas = ptxas_report(libs["this"], r"sweep_rows_kernel|m2l_kernel")
     for name, c in ptxas.items():
         print(f"[ptxas this] {name}: {c}")
     result = {"device": smi, "sass": sass, "ptxas": ptxas}
@@ -947,9 +1336,13 @@ def main(argv=None) -> int:
         result.update(k3_geometry=run_geometries(dev),
                       phi_geometry=run_phi_geometries(dev),
                       k13_geometry=run_k13_geometries(dev))
+    if args.variants:
+        result["k7_variants"] = run_k7_variants(dev)
+        result["k4p3_geometry"] = run_k4p3_geometries(dev)
     if firsts or same:
         parent = load(libs["parent"],
-                      {**{k: FIRST_SIGNATURES[k] for k in firsts},
+                      {**{k: FIRST_SIGNATURES.get(k, cuda._SIGNATURES[k])
+                          for k in firsts},
                        **{k: cuda._SIGNATURES[k] for k in same}})
         runs = {"murb_tile_rect": ("k3_first", lambda: run_k3(parent, dev)),
                 "murb_p2p_sorted": ("k10_first", lambda: run_k10(
@@ -959,6 +1352,10 @@ def main(argv=None) -> int:
                 "murb_ring_pipelined": ("k14_first", lambda: run_k14_first(
                     parent, dev)),
                 "murb_acc_phi_rows": ("phi_first", lambda: run_phi_first(
+                    parent, dev)),
+                "murb_m2l_level": ("k7_first", lambda: run_k7_parent(
+                    parent, dev)),
+                "murb_hybrid_rect": ("k4p3_first", lambda: run_k4p3_parent(
                     parent, dev))}
         for k in firsts:
             if k != "murb_phi_rows_rect":    # run with murb_acc_phi_rows
@@ -973,6 +1370,9 @@ def main(argv=None) -> int:
                 result[key] = run(parent, dev)
         if "murb_acc_phi_rows" in firsts:
             result["merger_fps"] = merger_fps_turns(args.parent)
+        if ({"murb_m2l_level", "murb_hybrid_rect"} & set(firsts)
+                and not args.no_fps):
+            result["fps"] = fps_turns(args.parent)
     print(json.dumps(result))
     return 0
 

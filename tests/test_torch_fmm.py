@@ -162,6 +162,183 @@ def test_m2l_level_plain_row_blocks_match_jax(random64, monkeypatch, rows):
         close64(g.numpy(), r, f"m2l rows={rows} field {i}")
 
 
+# ------------------------------------------------------------- K7's plan
+#: the shapes chip_smoke.py launches K7 at: (m, C, subset)
+K7_SHAPES = [(8, 4, "expand"), (6, 8, "expand"), (6, 8, "near"),
+             (6, 4, "far"), (18, 2, "expand"), (32, 2, "expand")]
+
+
+def plan_cells(plan):
+    """{offset: sorted target cells} of a plan's items."""
+    out = {}
+    for it in plan.items:
+        out.setdefault(tuple(int(v) for v in it[:3]), []).extend(
+            int(v) for v in it[8:8 + it[4]])
+    return {o: sorted(c) for o, c in out.items()}
+
+
+@pytest.mark.parametrize("m,C,subset", K7_SHAPES)
+def test_m2l_plan_admits_the_plain_versions_pairs(m, C, subset):
+    """Each offset's target cells in K7's items are those the plain
+    version's masks admit (the source cell in the grid; ``_parity_mask``
+    for expand and far), each once; the pair count is chip_smoke's
+    ``m2l_work`` (4,096 at m=8, C=4, expand)."""
+    from chip_smoke import m2l_work
+    from murb_tpu_torch.ops.fmm import _SUBSETS, _offsets_paired
+
+    plan = tk.m2l_plan(m, C, subset, 132)
+    cells = plan_cells(plan)
+    even = (torch.arange(C) % 2) == 0
+    idx = torch.arange(C)
+    canon = _offsets_paired(*_SUBSETS[subset])[0].tolist()
+    offsets = {tuple(o) for o in canon} | {tuple(-x for x in o)
+                                           for o in canon}
+    n_pairs = 0
+    for o in sorted(offsets):
+        ok = [((idx + d) >= 0) & ((idx + d) < C) for d in o]
+        grid = (ok[0][:, None, None] & ok[1][None, :, None]
+                & ok[2][None, None, :]).reshape(-1)
+        if subset != "near":
+            grid &= tk._parity_mask(o, even, C)[:, 0]
+        want = torch.nonzero(grid).flatten().tolist()
+        assert cells.get(tuple(o), []) == want, f"offset {o}"
+        n_pairs += len(want)
+    assert set(cells) <= offsets
+    assert plan.cell_pairs == n_pairs == m2l_work(m, C, subset, 3)[0]
+    if (m, C, subset) == (8, 4, "expand"):
+        assert n_pairs == 4096
+
+
+@pytest.mark.parametrize("slots", [132, 264])
+@pytest.mark.parametrize("m,C,subset", K7_SHAPES + [(4, 16, "near"),
+                                                    (3, 5, "far")])
+def test_m2l_plan_tables(m, C, subset, slots):
+    """The tables csrc/fmm.cu reads: items of 1 to 16 cells (zeros past),
+    their linear offset and in-grid sources; per cell tile (4^3 cells, the
+    grid up to C = 4) ``nsplit`` rows whose item runs cover the tile's
+    items once, in order, with about equal work; the blocks within the
+    card's slots; the scratch one set of fields a split."""
+    plan = tk.m2l_plan(m, C, subset, slots)
+    it = plan.items
+    assert it.dtype == np.int32 and it.shape[1] == tk.M2L_ITEM_INTS
+    assert plan.rows.dtype == np.int32
+    assert plan.rows.shape[1] == tk.M2L_ROW_INTS
+    ncell = it[:, 4]
+    assert ((ncell >= 1) & (ncell <= tk.M2L_GROUP)).all()
+    G = tk.M2L_GROUP
+    assert tk.M2L_ITEM_INTS == 8 + 2 * G
+    for row in it:
+        o, n = row[:3], row[4]
+        assert row[3] == (o[0] * C + o[1]) * C + o[2]
+        assert (row[5:8] == 0).all()
+        assert (row[8 + n:8 + G] == 0).all() and (row[8 + G + n:] == 0).all()
+        t = row[8:8 + n]
+        t3 = np.stack([t // (C * C), (t // C) % C, t % C], 1) + o
+        assert ((t3 >= 0) & (t3 < C)).all()          # sources in the grid
+    T = min(C, tk.M2L_CELL_TILE)
+    ntiles = (-(-C // T)) ** 3
+    assert plan.utiles == -(-m ** 3 // tk.M2L_TARGETS)
+    assert plan.rows.shape[0] == ntiles * plan.nsplit
+    assert 1 <= plan.nsplit <= tk.M2L_MAX_SPLIT
+    assert plan.nsplit == 1 or plan.utiles * plan.rows.shape[0] <= slots
+    end = 0
+    for k in range(ntiles):
+        rows = plan.rows[k * plan.nsplit:(k + 1) * plan.nsplit]
+        assert (rows[:, 2] == np.arange(plan.nsplit)).all()
+        assert rows[0, 0] == end and (rows[1:, 0] == rows[:-1, 1]).all()
+        box = rows[0, 3:9]
+        assert (rows[:, 3:9] == box).all() and (rows[:, 9:] == 0).all()
+        ext = box[1::2] - box[0::2]
+        for r in rows:
+            for row in it[r[0]:r[1]]:
+                t = row[8:8 + row[4]]
+                t3 = np.stack([t // (C * C), (t // C) % C, t % C], 1)
+                assert ((t3 >= box[0::2]) & (t3 < box[1::2])).all()
+                # the index in the tile's fields, x-major over its box
+                loc = t3 - box[0::2]
+                assert (row[8 + G:8 + G + row[4]]
+                        == (loc[:, 0] * ext[1] + loc[:, 1]) * ext[2]
+                        + loc[:, 2]).all()
+        work = [sum(tk._item_work(n) for n in it[r[0]:r[1], 4]) for r in rows]
+        assert max(work) <= sum(work) / plan.nsplit + tk._item_work(
+            tk.M2L_GROUP)
+        end = rows[-1, 1]
+    assert end == len(it)
+    for nf in (3, 4):
+        want = plan.nsplit * nf * C ** 3 * m ** 3 if plan.nsplit > 1 else 0
+        assert plan.scratch(m, C, nf) == want
+    assert plan.builds(m) == len(it) * m ** 6
+
+
+def test_m2l_plan_shares_each_transfer_build():
+    """At the main path (m=8, C=4, expand) an item shares one build of
+    T(o) among up to 16 target cells: 444 builds of the 512^2 entries
+    for the 4,096 cell pairs; nsplit fills a card of 132 one-block SMs."""
+    plan = tk.m2l_plan(8, 4, "expand", 132)
+    assert len(plan.items) == 444 and plan.cell_pairs == 4096
+    assert plan.nsplit == 33 and plan.utiles == 4
+    assert plan.builds(8) == 444 * 512 ** 2
+
+
+@pytest.mark.parametrize("group", [8, 12])
+def test_m2l_plan_group_sets_the_items_width(group):
+    """A plan for a kernel compiled with another kM2LGroup (the A/B
+    script's variants): items 8 + 2 group ints wide, at most ``group``
+    cells each, and the default plan's cells for every offset."""
+    base = tk.m2l_plan(8, 4, "expand", 132)
+    plan = tk._m2l_plan(8, 4, "expand", 132, group)
+    assert plan.items.shape[1] == 8 + 2 * group
+    assert (plan.items[:, 4] <= group).all()
+    assert len(plan.items) > len(base.items)
+    assert plan_cells(plan) == plan_cells(base)
+    assert plan.cell_pairs == base.cell_pairs == 4096
+
+
+def emulate_plan(w, hl, soft, m, C, subset, with_phi, slots):
+    """K7's arithmetic on its plan, in float64 numpy: per row (tile,
+    split) and item, T(o)[u, v] from D = p_v - (p_u - 2 hl o), applied to
+    the item's cells' source weights into the row's split; the splits
+    added in order."""
+    plan = tk.m2l_plan(m, C, subset, slots)
+    k = np.arange(m)
+    node = np.cos(np.pi * (k + 0.5) / m)
+    m2 = m * m
+    p = [hl[d] * node[[(u // m2, (u // m) % m, u % m)[d]
+                       for u in range(m ** 3)]] for d in range(3)]
+    nf = 4 if with_phi else 3
+    part = np.zeros((plan.nsplit, nf, C ** 3, m ** 3))
+    soft2 = soft * soft
+    for row in plan.rows:
+        for it in plan.items[row[0]:row[1]]:
+            o, olin, n = it[:3], it[3], it[4]
+            d = [p[i][None, :] - (p[i][:, None] - 2.0 * hl[i] * o[i])
+                 for i in range(3)]
+            inv = 1.0 / np.sqrt(d[0] ** 2 + d[1] ** 2 + d[2] ** 2 + soft2)
+            ts = [d[i] * inv ** 3 for i in range(3)] + ([inv] if with_phi
+                                                        else [])
+            t = it[8:8 + n]
+            for f, tf in enumerate(ts):
+                part[row[2], f][t] += w[t + olin] @ tf.T
+    return part.sum(0)
+
+
+@pytest.mark.parametrize("slots", [8, 132])
+@pytest.mark.parametrize("m,C,subset", [(4, 4, "expand"), (3, 8, "near"),
+                                        (3, 8, "far"), (2, 5, "expand")])
+def test_m2l_plan_computes_murb_tpus_sweep(random64, m, C, subset, slots):
+    """Running K7's plan (its items and splits, in float64) gives
+    murb_tpu's level sweep: the tables name every admitted pair once, with
+    the shift's sign, cell tiles (C=8, 5) and splits included."""
+    _, _, (_, jh), _ = random64
+    hl = np.asarray(jh) / C
+    w = weights(m, C, 13)
+    got = emulate_plan(w, hl, SOFT, m, C, subset, True, slots)
+    ref = jf.m2l_level(jnp.asarray(w), jnp.asarray(hl), SOFT, m=m, C=C,
+                       subset=subset, with_phi=True)
+    for i, r in enumerate(ref):
+        close64(got[i], r, f"K7 plan {subset} m={m} C={C} field {i}")
+
+
 @pytest.mark.parametrize("levels,m", [(1, 4), (2, 4), (3, 4), (3, 6)])
 def test_fmm_field_grid_matches_jax(random64, levels, m):
     _, _, (_, jh), (_, th) = random64
@@ -309,4 +486,5 @@ def test_cell_order_groups_each_cell():
         assert bool((run[1:] > run[:-1]).all())          # stable
     prefix, nitems = tk._work_items(order, 128)
     assert int(prefix[-1]) <= nitems
-    assert tk.m2l_splits(8, 4) == 9 and tk.m2l_splits(16, 16) == 1
+    assert tk.m2l_plan(8, 4, "expand", 132).nsplit == 33
+    assert tk.m2l_plan(16, 16, "expand", 132).nsplit == 1

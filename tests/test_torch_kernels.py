@@ -215,6 +215,164 @@ def test_extended_tier_separates_from_the_fp32_tier():
         check(2)
 
 
+def ext_run_sum(qxi, qyi, qzi, qxj, qyj, qzj, gmj, soft, *,
+                run: int = th.EXT_RUN, chunk: int = 4096):
+    """K4 passes 3's arithmetic with torch ops, in float64 sums: each pair
+    weight in fp32 with one Newton step on the rsqrt, each run of ``run``
+    sources summed in fp32 in source order, the runs added in float64
+    (any j split folds its float64 partials, so it rounds the same).  For
+    float32 inputs."""
+    if run < 1 or chunk % run:
+        raise ValueError(f"run={run} must divide chunk={chunk}")
+    f32 = torch.float32
+    s2 = torch.tensor(float(soft) ** 2, dtype=f32)
+    qi = [v.to(f32) for v in (qxi, qyi, qzi)]
+    sums = [torch.zeros(qi[0].shape[0], dtype=torch.float64)
+            for _ in range(3)]
+    nj = qxj.shape[0]
+    for s in range(0, nj, chunk):
+        sl = slice(s, min(s + chunk, nj))
+        d = [qj[sl].to(f32)[None, :] - q[:, None]
+             for q, qj in zip(qi, (qxj, qyj, qzj))]
+        d2 = d[0] * d[0] + (d[1] * d[1] + (d[2] * d[2] + s2))
+        inv = torch.rsqrt(d2)
+        inv = inv * ((-0.5 * d2 * inv) * inv + 1.5)
+        w = gmj[sl].to(f32)[None, :] * (inv * inv * inv)
+        for c in range(3):
+            # runs of `run` terms (a ragged end padded with zero terms,
+            # as the kernel's ghost sources add exactly 0)
+            t = torch.nn.functional.pad(w * d[c], (0, -d2.shape[1] % run))
+            t = t.reshape(t.shape[0], -1, run)
+            part = t[:, :, 0]
+            for j in range(1, run):
+                part = part + t[:, :, j]
+            sums[c] += part.double().sum(1)
+    return sums
+
+
+def unsplit_fp32_sum(qi, qj, gmj, tile=128):
+    """K4 passes 2 with no j split at 128x128 (K3's arithmetic): fp32 pair
+    terms summed in source order over each tile of ``tile`` sources, the
+    tile partials added in fp32 in tile order."""
+    f32 = torch.float32
+    d = [b[None, :] - a[:, None] for a, b in zip(qi, qj)]
+    d2 = d[0] * d[0] + (d[1] * d[1] + (d[2] * d[2]
+                                       + torch.tensor(SOFT ** 2, dtype=f32)))
+    w = gmj[None, :] * torch.rsqrt(d2) ** 3
+    out = []
+    for c in range(3):
+        t = torch.nn.functional.pad(w * d[c], (0, -d2.shape[1] % tile))
+        t = t.reshape(t.shape[0], -1, tile)
+        part = t[:, :, 0]
+        for j in range(1, tile):
+            part = part + t[:, :, j]
+        acc = part[:, 0]
+        for k in range(1, part.shape[1]):
+            acc = acc + part[:, k]
+        out.append(acc.double())
+    return out
+
+
+def force_stat(got, ref) -> float:
+    """ops/validate's statistic: max per-body vector error over
+    max(|a_ref|, 1e-6 max |a_ref|)."""
+    g = torch.stack([v.double() for v in got], 1)
+    r = torch.stack([v.double() for v in ref], 1)
+    rn = r.norm(dim=1)
+    return float(((g - r).norm(dim=1)
+                  / torch.clamp(rn, min=1e-6 * float(rn.max()))).max())
+
+
+@pytest.mark.parametrize("scheme", ["galaxy", "random"])
+def test_passes3_runs_hold_half_the_unsplit_fp32_error(scheme):
+    """K4 passes 3's arithmetic (``ext_run_sum``: fp32 pair terms with a
+    Newton-refined rsqrt, runs of ``EXT_RUN`` sources in fp32, fp64 sums)
+    at 8192^2 against float64 on a 2048-row strided sample: at most half
+    the error of the unsplit fp32 sum, and within the tier's 4e-7 (the
+    contract chip_smoke.py holds the kernel to at 16384^2 and
+    200,192^2).  It pins the run length: runs of 32 read 0.54 of the
+    unsplit error on the galaxy."""
+    a = [torch.from_numpy(v) for v in state_arrays(scheme, 8192, 123)]
+    rows = torch.arange(0, 8192, 4)
+    qi = [v[rows] for v in a[:3]]
+    ref = tt.acc_tile_rect_plain(*(v.double() for v in qi),
+                                 *(v.double() for v in a), SOFT)
+    ext = force_stat(ext_run_sum(*qi, *a, SOFT), ref)
+    fp32 = force_stat(unsplit_fp32_sum(qi, a[:3], a[3]), ref)
+    assert ext <= 0.5 * fp32, (scheme, ext, fp32)
+    assert ext <= 4e-7, (scheme, ext)
+
+
+def test_passes3_run_and_geometry_are_the_kernels():
+    """``EXT_RUN`` and passes 3's default geometry mirror csrc/tile.cuh's
+    kExtRun and csrc/hybrid.cu's kExtTargets, kExtSources; a run that does
+    not divide the emulation's chunk is refused."""
+    import re
+
+    src = (cuda.CSRC / "tile.cuh").read_text()
+    assert int(re.search(r"kExtRun = (\d+);", src).group(1)) == th.EXT_RUN
+    src = (cuda.CSRC / "hybrid.cu").read_text()
+    assert int(re.search(r"kExtTargets = (\d+);", src).group(1)) \
+        == th.EXT_BLOCK_I
+    assert int(re.search(r"kExtSources = (\d+);", src).group(1)) \
+        == th.EXT_BLOCK_J
+    t = [torch.ones(8)] * 3
+    with pytest.raises(ValueError, match="divide"):
+        ext_run_sum(*t, *t, torch.ones(8), SOFT, run=3, chunk=8)
+
+
+@pytest.mark.parametrize("block_i,block_j,bi,bj", [
+    (0, 0, 128, 128), (64, 0, 64, 128), (0, 512, 128, 512),
+    (256, 256, 256, 256)])
+def test_ext_split_args_counts_passes3s_own_blocks(monkeypatch, block_i,
+                                                   block_j, bi, bj):
+    """Passes 3's j split is ops/tile.split_args at its own geometry (0:
+    ``EXT_BLOCK_I`` x ``EXT_BLOCK_J``) and resident count
+    (murb_hybrid_resident), with float64 slice sums."""
+    asked = []
+    monkeypatch.setattr(cuda, "sm_count", lambda dev: 132)
+    monkeypatch.setattr(cuda, "resident", lambda entry, dev, i, j:
+                        asked.append((entry, i, j)) or 4)
+    (slices, per, ptr), scratch = th.ext_split_args(
+        16384, 16384, block_i, block_j, torch.device("cpu"))
+    assert asked == [("murb_hybrid_resident", bi, bj)]
+    assert (slices, per) == cuda.tile_split(16384, 16384, 132, 4, bi, bj)
+    assert slices > 1 and ptr == scratch.data_ptr()
+    assert scratch.dtype == torch.float64
+    assert scratch.shape == (slices, 3, 16384)
+
+
+def test_split_args_defaults_to_k3s_blocks_and_fp32(monkeypatch):
+    """Without ``entry`` and ``dtype`` the split is K3's: its resident
+    count (murb_tile_resident) and float32 slice sums."""
+    asked = []
+    monkeypatch.setattr(cuda, "sm_count", lambda dev: 132)
+    monkeypatch.setattr(cuda, "resident", lambda entry, dev, i, j:
+                        asked.append((entry, i, j)) or 4)
+    (slices, per, ptr), scratch = tt.split_args(16384, 16384, 0, 0,
+                                                torch.device("cpu"))
+    assert asked == [("murb_tile_resident", 0, 0)]
+    assert (slices, per) == cuda.tile_split(16384, 16384, 132, 4)
+    assert scratch.dtype == torch.float32 and ptr == scratch.data_ptr()
+
+
+@pytest.mark.parametrize("passes", [1, 2, 3])
+def test_hybrid_wrapper_checks_its_geometry_on_cpu(passes):
+    """The block geometry is checked before the CPU branch: a refused pair
+    raises on CPU tensors too; an accepted one runs the plain version."""
+    t = list(map(torch.from_numpy, state_arrays("random", 300, 6)))
+    ref = th.acc_hybrid_rect_plain(*t[:3], *t, SOFT, passes=passes)
+    for bi, bj in ((0, 0), (64, 512), (256, 128)):
+        got = th.acc_hybrid_rect(*t[:3], *t, SOFT, passes=passes,
+                                 block_i=bi, block_j=bj)
+        for g, r in zip(got, ref):
+            torch.testing.assert_close(g, r, rtol=0, atol=0)
+    with pytest.raises(ValueError, match="block_i=96"):
+        th.acc_hybrid_rect(*t[:3], *t, SOFT, passes=passes, block_i=96)
+    with pytest.raises(ValueError, match="block_j=100"):
+        th.acc_hybrid_rect(*t[:3], *t, SOFT, passes=passes, block_j=100)
+
+
 # -------------------------------------------------- wrappers on the CPU
 def test_wrappers_run_their_plain_version_on_cpu_tensors():
     a = state_arrays("galaxy", 512, 3)
