@@ -36,8 +36,10 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
   8. the multi-level hierarchy on the N=200,000 random box: K7 (nf 3 and
      4), K8 and K9 (k 3 and 4) against their plain versions in float64 at
      the main-path shape (m=8, C=4) and a deeper one (m=6, C=8, with the
-     near sweep), K7 launched twice for the same bits, with the transfer
-     entries it builds a launch; ``tpu+proxy -s random`` through the CLI
+     near sweep), each launched twice for the same bits, K7 with the
+     transfer entries it builds a launch, K8 and K9 timed through the
+     wrapper and alone (prebuilt cell order and work items, launches in a
+     CUDA graph) beside the share of their bound; ``tpu+proxy -s random`` through the CLI
      (the auto policy picks the hierarchy and validates it);
      ``tpu+tracking --kernel fmm``
      through the CLI (the fused hierarchy, row 0's energy held to an exact
@@ -51,13 +53,15 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      capacity below the candidate count; launched twice for the same
      bits; its sub-tile class shares and row lengths printed), K11 and K12
      (nf 3 and 4) against their plain versions in float64 on that state's
-     own sorted bodies, slots and fields; the dense hierarchy with K10 as its near field
+     own sorted bodies, slots and fields, each launched twice for the same
+     bits and timed through the wrapper and alone; the dense hierarchy with K10 as its near field
      (``acc_fmm(near="p2p")``); the merger through the CLI with ``--near
      adaptive`` and with ``tpu+tracking --kernel adaptive`` (row 0's energy
      held to an exact K6 energy); an N=4096 card-against-CPU check of the
      adaptive step; the dense far sweep (K7 at m=6, C=4, nf 3 and 4, twice
-     for the same bits); and the repair (K7-K9 at m=18 and m=32, K7 twice
-     for the same bits, K8 and K9 beside their bounds);
+     for the same bits); and the repair (K7-K9 at m=18 and m=32 on a
+     prebuilt cell order, each twice for the same bits, K8 and K9 through
+     the wrapper and alone beside their bounds);
  10. the exact large-N path: K13 (TF32 tensor-core products) against
      float64 (a 4096-row strided sample of the N=200,000 galaxy against all
      of it, held to the direct sweep of the whole galaxy, and the 16384^2
@@ -218,6 +222,7 @@ def main() -> int:
                                                   p2m_fused, p2m_plain)
     from murb_tpu_torch.ops.tile import acc_tile_rect, acc_tile_rect_plain
     from murb_tpu_torch.ops.validate import measured_force_error
+    from murb_tpu_torch.utils.profile_step import graph_ms
 
     # The plain versions' matrix products run in full fp32, never TF32.
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -883,8 +888,14 @@ def main() -> int:
                                 h8.double(), m=m, C=C)
         err = rel_max([w], [w64])
         check(err <= 1e-5, f"K8 {shape}: max|dW| {err:.3e} of max|W|")
+        check(torch.equal(w, fk.p2m_grid_fused(*q8, ge8, c8, h8, m=m, C=C,
+                                               order=order)),
+              f"K8 {shape}: two launches differ")
         ms = time_ms(lambda: fk.p2m_grid_fused(*q8, ge8, c8, h8, m=m, C=C,
                                                order=order))
+        items = fk.p2m_grid_items(order, m)
+        alone = graph_ms(lambda: fk.p2m_grid_launch(*q8, ge8, order, items,
+                                                    m))
         plain_ms = time_ms(lambda: fk.p2m_grid_plain(*q8, ge8, c8, h8, m=m,
                                                      C=C), reps=3)
         # q, gm and the permutation in, W out; the contraction and bases
@@ -892,8 +903,11 @@ def main() -> int:
             n8 * (2 * m ** 3 + 6 * m ** 2)
         b_ms = bound(nbytes, flops)[0]
         print(f"[8 K8 p2m_grid {shape}] max|dW|/max|W| {err:.3e} (tol "
-              f"1e-5); kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound "
-              f"{b_ms:.4f} ms; cell order (ids, sort, bounds) "
+              f"1e-5); the same bits twice; {items.chunk} bodies an item; "
+              f"kernel {ms:.4f} ms through the wrapper (prebuilt order), "
+              f"alone (prebuilt items, a CUDA graph) {alone:.4f}, plain "
+              f"{plain_ms:.4f} ms bound {b_ms:.4f} ms ({b_ms / alone:.3f} "
+              f"of it alone); cell order (ids, sort, bounds) "
               f"{glue_ms:.4f} ms")
         if (m, C) == (8, 4):
             keep("K8", err * float(w64.abs().max()), ms, plain_ms, nbytes,
@@ -926,8 +940,14 @@ def main() -> int:
                                     fields64[:k], m=m, C=C)
             err = rel_max(a, a64)
             check(err <= 1e-4, f"K9 {shape} k={k}: {err:.3e} of max|a|")
+            check(all(torch.equal(x, y) for x, y in zip(a, fk.l2p_grid_fused(
+                *q8, c8, h8, flds, m=m, C=C, order=order))),
+                f"K9 {shape} k={k}: two launches differ")
             ms = time_ms(lambda: fk.l2p_grid_fused(*q8, c8, h8, flds, m=m,
                                                    C=C, order=order))
+            items = fk.l2p_grid_items(order, m)
+            alone = graph_ms(lambda: fk.l2p_grid_launch(*q8, order, items,
+                                                        m, flds))
             plain_ms = time_ms(lambda: fk.l2p_grid_plain(*q8, c8, h8, flds,
                                                          m=m, C=C), reps=3)
             # q and the permutation in, k fields in, k values a body out
@@ -935,8 +955,10 @@ def main() -> int:
             flops = n8 * (2 * k * m ** 3 + 6 * m ** 2)
             b_ms = bound(nbytes, flops)[0]
             print(f"[8 K9 l2p_grid {shape} k={k}] max|da|/max|a| {err:.3e} "
-                  f"(tol 1e-4); kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
-                  f"bound {b_ms:.4f} ms")
+                  f"(tol 1e-4); the same bits twice; kernel {ms:.4f} ms "
+                  f"through the wrapper, alone {alone:.4f}, plain "
+                  f"{plain_ms:.4f} ms bound {b_ms:.4f} ms "
+                  f"({b_ms / alone:.3f} of it alone)")
             if (m, C, k) == (8, 4, 3):
                 keep("K9", err * max(float(x.abs().max()) for x in a64), ms,
                      plain_ms, nbytes, flops)
@@ -1204,8 +1226,20 @@ def main() -> int:
                               m=m9, C=C9, ci=ci9)
     err = rel_max([w9[:cap9]], [w64[:cap9]])
     check(err <= 1e-4, f"K11 m={m9}: {err:.3e} of max|W|")
+    check(torch.equal(w9, ak.p2m_window(xs9, ys9, zs9, gs9, c9, h9, slots9,
+                                        cap9, m=m9, C=C9, ci=ci9)),
+          f"K11 m={m9}: two launches differ")
     ms = time_ms(lambda: ak.p2m_window(xs9, ys9, zs9, gs9, c9, h9, slots9,
                                        cap9, m=m9, C=C9, ci=ci9))
+    # the kernel alone: the sorted bodies' int32 cells, the box and the
+    # slots' work items built once
+    cells32 = [v.to(torch.int32).contiguous() for v in ci9]
+    box9 = torch.cat([c9 - h9, 2.0 * h9 / C9]).to(torch.float32)
+    sl32 = slots9.to(torch.int32)
+    items = ak.window_items(sl32, cap9, fk.p2m_chunk(n9, m9,
+                                                     cuda.sm_count(dev)))
+    alone = graph_ms(lambda: ak.p2m_window_launch(
+        xs9, ys9, zs9, gs9, cells32, box9, items, m9))
     plain_ms = time_ms(lambda: ak.p2m_window_plain(
         xs9, ys9, zs9, gs9, c9, h9, slots9, cap9, m=m9, C=C9, ci=ci9),
         reps=3)
@@ -1214,8 +1248,11 @@ def main() -> int:
     b_ms = keep("K11", err * float(w64.abs().max()), ms, plain_ms, nbytes,
                 flops)
     print(f"[9 K11 p2m_window N={n9} m={m9} C={C9} cap={cap9}] "
-          f"max|dW|/max|W| {err:.3e} (tol 1e-4); kernel {ms:.4f} ms plain "
-          f"{plain_ms:.4f} ms bound {b_ms:.4f} ms")
+          f"max|dW|/max|W| {err:.3e} (tol 1e-4); the same bits twice; "
+          f"{items.chunk} bodies an item; kernel {ms:.4f} ms through the "
+          f"wrapper, alone (a CUDA graph) {alone:.4f}, plain "
+          f"{plain_ms:.4f} ms bound {b_ms:.4f} ms ({b_ms / alone:.3f} of it "
+          f"alone)")
     fields9, _ = sf.hierarchy_fields(w9, cells9, c9, h9, soft9, plan,
                                      with_phi=True)
     for nf in (3, 4):
@@ -1227,16 +1264,25 @@ def main() -> int:
                                   m=m9, C=C9, ci=ci9)
         err = rel_max(a, a64)
         check(err <= 1e-4, f"K12 nf={nf}: {err:.3e} of max|a|")
+        check(all(torch.equal(x, y) for x, y in zip(a, ak.l2p_window(
+            xs9, ys9, zs9, c9, h9, slots9, flds, m=m9, C=C9, ci=ci9))),
+            f"K12 nf={nf}: two launches differ")
         ms = time_ms(lambda: ak.l2p_window(xs9, ys9, zs9, c9, h9, slots9,
                                            flds, m=m9, C=C9, ci=ci9))
+        items = ak.window_items(sl32, cap9, fk.l2p_item(m9))
+        f32 = [f.float().contiguous() for f in flds]
+        alone = graph_ms(lambda: ak.l2p_window_launch(
+            xs9, ys9, zs9, cells32, box9, items, m9, f32))
         plain_ms = time_ms(lambda: ak.l2p_window_plain(
             xs9, ys9, zs9, c9, h9, slots9, flds, m=m9, C=C9, ci=ci9), reps=3)
         nbytes = 28 * n9 + 4 * nf * ((cap9 + 1) * m9 ** 3 + n9)
         flops = n9 * (2 * nf * m9 ** 3 + 6 * m9 ** 2)
         b_ms = bound(nbytes, flops)[0]
         print(f"[9 K12 l2p_window N={n9} m={m9} nf={nf}] max|da|/max|a| "
-              f"{err:.3e} (tol 1e-4); kernel {ms:.4f} ms plain "
-              f"{plain_ms:.4f} ms bound {b_ms:.4f} ms")
+              f"{err:.3e} (tol 1e-4); the same bits twice; kernel {ms:.4f} "
+              f"ms through the wrapper, alone (a CUDA graph) {alone:.4f}, "
+              f"plain {plain_ms:.4f} ms bound {b_ms:.4f} ms "
+              f"({b_ms / alone:.3f} of it alone)")
         if nf == 3:
             keep("K12", err * max(float(x.abs().max()) for x in a64), ms,
                  plain_ms, nbytes, flops)
@@ -1357,13 +1403,17 @@ def main() -> int:
     # transfer matrices in row blocks at m=32.  K8's and K9's bounds as in
     # phase 8 (bytes once; the contraction and the bases).
     C = 2
+    order9 = fk.cell_order(*q9, c9, h9, C)
     for m in (18, 32):
         shape = f"m={m} C={C} N={n9}"
-        w = fk.p2m_grid_fused(*q9, ge9, c9, h9, m=m, C=C)
+        w = fk.p2m_grid_fused(*q9, ge9, c9, h9, m=m, C=C, order=order9)
         w64 = fk.p2m_grid_plain(*(v.double() for v in (*q9, ge9)),
                                 c9.double(), h9.double(), m=m, C=C)
         e8 = rel_max([w], [w64])
         del w64
+        check(torch.equal(w, fk.p2m_grid_fused(*q9, ge9, c9, h9, m=m, C=C,
+                                               order=order9)),
+              f"K8 {shape}: two launches differ")
         t0 = time.perf_counter()
         f = fk.m2l_level_fused(w, h9 / C, soft9, m=m, C=C, with_phi=True)
         f64 = fk.m2l_level_plain(w.double(), h9.double() / C, soft9, m=m,
@@ -1371,31 +1421,47 @@ def main() -> int:
         e7 = rel_max(f, f64)
         t_plain7 = time.perf_counter() - t0
         del f64
-        a = fk.l2p_grid_fused(*q9, c9, h9, f, m=m, C=C)
+        a = fk.l2p_grid_fused(*q9, c9, h9, f, m=m, C=C, order=order9)
         a64 = fk.l2p_grid_plain(*(v.double() for v in q9), c9.double(),
                                 h9.double(), tuple(x.double() for x in f),
                                 m=m, C=C)
         e9k = rel_max(a, a64)
         del a64
+        check(all(torch.equal(x, y) for x, y in zip(a, fk.l2p_grid_fused(
+            *q9, c9, h9, f, m=m, C=C, order=order9))),
+            f"K9 {shape}: two launches differ")
         check(e8 <= 1e-5 and e7 <= 1e-4 and e9k <= 1e-4,
               f"{shape}: K8 {e8:.3e} (1e-5) K7 {e7:.3e} (1e-4) K9 "
               f"{e9k:.3e} (1e-4)")
         ms7 = k7_launches(f"9 repair K7 {shape} expand nf=4", w, h9 / C,
                           soft9, m, C, "expand", 4, f, e7, 1e-4,
                           reps=3 if m < 32 else 1)[0]
+        items8 = fk.p2m_grid_items(order9, m)
+        items9 = fk.l2p_grid_items(order9, m)
+        f32 = [x.contiguous() for x in f]
         ms = [time_ms(fn, reps=3) for fn in (
-            lambda: fk.p2m_grid_fused(*q9, ge9, c9, h9, m=m, C=C),
-            lambda: fk.l2p_grid_fused(*q9, c9, h9, f, m=m, C=C))]
+            lambda: fk.p2m_grid_fused(*q9, ge9, c9, h9, m=m, C=C,
+                                      order=order9),
+            lambda: fk.l2p_grid_fused(*q9, c9, h9, f, m=m, C=C,
+                                      order=order9))]
+        alone8 = graph_ms(lambda: fk.p2m_grid_launch(*q9, ge9, order9,
+                                                     items8, m), reps=3)
+        alone9 = graph_ms(lambda: fk.l2p_grid_launch(*q9, order9, items9, m,
+                                                     f32), reps=3)
         b8 = bound(24 * n9 + 4 * C ** 3 * m ** 3,
                    n9 * (2 * m ** 3 + 6 * m ** 2))
         b9 = bound(20 * n9 + 16 * (n9 + C ** 3 * m ** 3),
                    n9 * (8 * m ** 3 + 6 * m ** 2))
         print(f"[9 repair {shape}] K8 {e8:.3e} of max|W| (tol 1e-5), K7 "
               f"expand nf=4 {e7:.3e} of max|f| (tol 1e-4), K9 k=4 "
-              f"{e9k:.3e} of max|a| (tol 1e-4); kernel ms K8 {ms[0]:.4f} "
-              f"(bound {b8[0]:.4f} ms, {b8[1]}) K7 {ms7:.4f} K9 {ms[1]:.4f} "
-              f"(bound {b9[0]:.4f} ms, {b9[1]}) on {smi}; the K7 check with "
-              f"its plain version took {t_plain7:.1f} s")
+              f"{e9k:.3e} of max|a| (tol 1e-4); K8 and K9 the same bits "
+              f"twice; kernel ms (prebuilt cell order) K8 {ms[0]:.4f}, "
+              f"alone (a CUDA graph) {alone8:.4f} ({items8.chunk} bodies an "
+              f"item; bound {b8[0]:.4f} ms, {b8[1]}, {b8[0] / alone8:.3f} "
+              f"of it) K7 {ms7:.4f} K9 {ms[1]:.4f}, alone {alone9:.4f} "
+              f"(bound {b9[0]:.4f} ms, {b9[1]}, {b9[0] / alone9:.3f} of it) "
+              f"on {smi}; the K7 check with its plain version took "
+              f"{t_plain7:.1f} s")
         del w, f, a
         torch.cuda.empty_cache()
 

@@ -20,41 +20,45 @@
 // K11 and K12 are the run kernels of cell_runs.cuh (those of K8 and K9)
 // over the slots (SlotRuns: bodies in place, each with its own cell).  The
 // dump slot `cap` has no bodies: its row of W reads 0, and the dump bodies
-// keep K12's zeroed output.  Both are bound by fp32 issue at the main path
-// (m = 6: 216 fmas per body and field against 16 to 28 bytes per body),
-// far from it at these small per-thread loads.
+// keep K12's zeroed output.  At the main path (m = 6, 48 bodies a slot on
+// average) a warp runs an item, four a block (cell_runs.cuh's warp tier):
+// device memory (28 to 32 bytes a body, the fields once) and fp32 issue
+// (216 fmas per body and field) are about even there.
 #include <cuda_runtime.h>
 
 #include "cell_runs.cuh"
 
 // K11.  Sorted bodies q, gm and their cells (cx, cy, cz); box: [lo(3),
 // cs(3)]; nslot = cap + 1 slots; bounds: nslot + 1 offsets of each slot's
-// run; prefix: nslot + 1 offsets of each slot's work items of kRunP2MChunk
-// bodies; nitems: the grid (at least prefix[nslot]; blocks past it return);
-// partial: nitems * m^3 floats of scratch; w: (nslot, m^3).
+// run; prefix: nslot + 1 offsets of each slot's work items of `chunk`
+// bodies; nitems: the items (at least prefix[nslot]); table: the node
+// table of order m; partial: nitems * m^3 floats of scratch, or null when
+// no slot has two items (w zeroed by the caller); w: (nslot, m^3).
 extern "C" int murb_p2m_window(const float* qx, const float* qy,
                                const float* qz, const float* gm,
                                const int* cx, const int* cy, const int* cz,
                                const float* box, int m, int nslot,
                                const long long* bounds,
                                const long long* prefix, int nitems,
-                               float* partial, float* w,
-                               cudaStream_t stream) {
+                               int chunk, const float* table, float* partial,
+                               float* w, cudaStream_t stream) {
   return murb::p2m_runs(qx, qy, qz, gm, murb::SlotRuns{cx, cy, cz}, box, m,
-                        nslot, bounds, prefix, nitems, partial, w, stream);
+                        nslot, bounds, prefix, nitems, chunk, table,
+                        partial, w, stream);
 }
 
-// K12.  fields: (nf, nslot, m^3), nf 1 to 4; out: (nf, n), zeroed by the
-// caller (dump bodies are in no work item); prefix: work items of
-// kRunL2PThreads bodies.
+// K12.  fields: nf (1 to 4) device pointers (a host array) to (nslot, m^3)
+// fields; out: (nf, n), zeroed by the caller (dump bodies are in no work
+// item); prefix: work items of L2PGeom<MW>::kItem bodies.
 extern "C" int murb_l2p_window(const float* qx, const float* qy,
                                const float* qz, const int* cx, const int* cy,
                                const int* cz, int n, const float* box, int m,
                                int nslot, const long long* bounds,
                                const long long* prefix, int nitems,
-                               const float* fields, int nf, float* out,
+                               const float* table,
+                               const float* const* fields, int nf, float* out,
                                cudaStream_t stream) {
   return murb::l2p_runs(qx, qy, qz, murb::SlotRuns{cx, cy, cz}, n, box, m,
-                        nslot, bounds, prefix, nitems, fields, nf, out,
-                        stream);
+                        nslot, bounds, prefix, nitems, table, fields, nf,
+                        out, stream);
 }

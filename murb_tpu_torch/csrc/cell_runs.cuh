@@ -1,9 +1,13 @@
 // The anterpolation kernels that read their bodies as runs of one cell:
 // the grid P2M and L2P of the dense hierarchy (fmm.cu: K8, K9) and the
-// windowed P2M and L2P of the adaptive one (anterp.cu: K11, K12).  Both
-// pairs compute the same functions over a list of runs; they differ only
-// in where a run's bodies live and how a body's cell is found, which a
-// `Runs` accessor supplies:
+// windowed P2M and L2P of the adaptive one (anterp.cu: K11, K12).
+//
+// Replace the TPU kernels murb_tpu/ops/fmm_pallas.py:_p2m_grid_kernel
+// (K8, pallas_call :355) and _l2p_grid_kernel (K9, :406), and
+// murb_tpu/ops/anterp_pallas.py:_p2m_win_kernel (K11, :227) and
+// _l2p_win_kernel (K12, :315).  Both pairs compute the same functions over
+// a list of runs; they differ only in where a run's bodies live and how a
+// body's cell is found, which a `Runs` accessor supplies:
 //
 //   CellRuns  run = a cell of the C^3 grid, bodies read through the
 //             permutation that orders them by cell; every body of the run
@@ -13,53 +17,80 @@
 //             coordinates from the computation that made the sort key
 //             (K11, K12).
 //
-// The run bounds (nrun + 1 offsets) and a prefix of work items per run come
-// from the wrapper.  A body's cell comes from the accessor, never from a
-// second floor here, so the sort and the bases cannot disagree.
+// The wrapper hands the kernels the run bounds (nrun + 1 offsets), a prefix
+// of work items per run and the node table T_j(t_k) of order m, built once
+// per (m, device) in float64 on the host (ops/fmm_kernels.node_table): no
+// block rebuilds it.  Each warp finds its item's run by a 32-way search of
+// the prefix (warp_item_run).  A body's cell comes
+// from the accessor, never from a second floor here, so the sort and the
+// bases cannot disagree.  Everything is fp32 with fp32 fmas (the node fields
+// cancel, fmm.cu's note), no atomics, every sum in a fixed order: the same
+// bits on every run.
 //
-// P2M: W[r, (u, v, w)] = sum_{j in r} gm_j Sx_j[u] Sy_j[v] Sz_j[w].  A work
-// item is a run of at most kRunP2MChunk bodies of one run, and a block runs
-// K1's scheme on it: a thread owns one (u, v) pair and the m outputs along
-// w in registers, the bases of 64 bodies at a time sit in shared memory.
-// Above m = 16 (m^2 > 256 pairs) the block makes one pass over its bodies
-// per 256 (u, v) pairs.  Each item writes its own partial W; a second
-// kernel adds a run's partials in item order.  No atomics, the same bits
-// every run.  Work is N m^3 fmas.
-//
+// P2M: W[r, (u, v, w)] = sum_{j in r} gm_j Sx_j[u] Sy_j[v] Sz_j[w], an
+// (m^2 x nb) . (nb x m) product per run that reduces over its bodies.
 // L2P: a_f[j] = sum_{uvw} Sx_j[u] Sy_j[v] Sz_j[w] F_f[r_j, (u, v, w)] for
-// k <= kRunFields fields a launch.  A work item is up to kRunL2PThreads
-// bodies of one run, one thread per body; the block stages one u-slice of
-// the run's k fields in shared memory at a time (K2's scheme: 16 KB at
-// m = 32) and every thread reads it as a broadcast.  Bodies in no work item
-// keep the caller's output.  Work is N m^3 k fmas.
+// k <= kRunFields fields a launch.  Work is N m^3 fmas (P2M) and N m^3 k
+// (L2P), plus 3 m^2 a body for the bases; bytes are O(N) and the fields
+// once: the least time is the fp32 fma work at m >= 8 (67 TFLOP/s on the
+// H100 SXM), device memory only at m = 6 on short runs.  At m = 18 and
+// 32 both kernels reach 0.29 to 0.44 of it at the card's full clock,
+// issuing about half their slots with 2 to 4 warps a scheduler; the
+// stalls that hold them there are not measured.
+//
+// What the first design lost, and what this one does about it:
+//   - each pass of a P2M block (one per 256 (u, v) pairs: four at m = 32)
+//     rebuilt every body's bases, 64 of up to 256 threads computing them
+//     with basis_value's (m - 1)-step recurrence and one shared-memory load
+//     a step, the rest waiting at the barrier.  Now a body's 3m basis values
+//     are computed once per work item, by all threads at once
+//     (basis_span: T_j(t) once, then S_k for a span of nodes, the table
+//     read 4 nodes a load), and one pass covers all m^3 outputs;
+//   - P2M's product was not register-tiled (2 scalar loads and a multiply
+//     a body for MW fmas).  Now a thread owns a TU x TV x TW tile of
+//     (u, v, w) (P2MGeom: 2 x 4 x 8 at m = 32), so a body costs TU + TV +
+//     TW loaded values and TU TV multiplies for TU TV TW fmas; the bodies
+//     of the next tile arrive by cp.async while this one is summed;
+//   - every 512-body P2M item wrote m^3 partials and a second launch added
+//     them (0.27 GB at m = 32, N = 1M).  Now the wrapper sizes the items
+//     from N and the card (ops/fmm_kernels.p2m_chunk: 1024 bodies at
+//     N = 1M), a run of one item writes W itself, and the second launch
+//     adds only runs of several items in item order; it is skipped when
+//     every run fits in one item;
+//   - L2P fed 4 fmas per shared-memory load (one body a thread) and
+//     re-read each run's k m^3 field values once per 128 bodies.  Now the
+//     block tier computes H[b, (u, v)] = sum_w Sz[b, w] F[(u, v), w] as a
+//     register-tiled product (8 bodies x 8 pairs a thread: 16 LDS.128 for
+//     256 fmas, each loaded a step ahead), then a_b = sum Sx[b, u] Sy[b, v]
+//     H[b, (u, v)] into per-warp partial sums in shared memory, folded
+//     across the warps in a fixed order; an item is 256 bodies, and the
+//     field chunks arrive by cp.async, double-buffered;
+//   - every block ran a binary search for its run (15 dependent loads on
+//     the 1M step's slots) and the node table's fp64 cos; short runs (48
+//     bodies a slot on average) left most of a 128-thread L2P block idle.
+//     Now a warp's lanes probe 32 points of the prefix at once (3 rounds
+//     of one load on those slots), the table comes from the wrapper, and
+//     at MW <= 8 a
+//     warp runs an item (4 a block): P2M one body a lane a pass, L2P two
+//     bodies a lane (64 an item) against the run's fields staged once.
 #pragma once
+
+#include <atomic>
 
 #include <cuda_runtime.h>
 
 #include "cheb.cuh"
+#include "sweep.cuh"
 
 namespace murb {
 
 constexpr int kRunMaxOrder = 32;
-constexpr int kRunP2MChunk = 512;      // bodies per P2M work item
-constexpr int kRunP2MTile = 64;        // bodies whose bases sit in shared
-constexpr int kRunP2MMaxThreads = 256;
-constexpr int kRunL2PThreads = 128;    // bodies per L2P work item
 constexpr int kRunFields = 4;          // fields one L2P launch takes
-
-// The run holding work item b: prefix[r] <= b < prefix[r + 1] (prefix has
-// nrun + 1 entries, prefix[0] = 0, empty runs repeat a value).  -1 past the
-// last item.
-__device__ __forceinline__ int item_run(const long long* prefix, int nrun,
-                                        long long b) {
-  if (b >= prefix[nrun]) return -1;
-  int lo = 0, hi = nrun;  // prefix[lo] <= b < prefix[hi]
-  while (hi - lo > 1) {
-    const int mid = (lo + hi) >> 1;
-    if (prefix[mid] <= b) lo = mid; else hi = mid;
-  }
-  return lo;
-}
+constexpr int kRunWarpMaxMW = 8;       // MW <= 8: a warp runs an item
+constexpr int kRunWarpItems = 4;       // warp items a block
+constexpr int kRunP2MTile = 64;        // bodies a staged tile (block tier)
+constexpr int kRunL2PLaneBodies = 2;   // L2P warp tier: 64 bodies an item
+constexpr int kRunL2PThreadBodies = 8; // L2P block tier: 256 bodies an item
 
 // In-cell Chebyshev coordinate of q in the cell with index `cell` along one
 // dimension, clipped to [-1, 1] as the basis requires.
@@ -68,12 +99,42 @@ __device__ __forceinline__ float cell_t(float q, float lo, float cs,
   return clip_unit(2.f * ((q - lo) / cs - static_cast<float>(cell)) - 1.f);
 }
 
+// The run holding work item `item` (the same in every lane of the warp):
+// the r < nrun with prefix[r] <= item < prefix[r + 1] (empty runs repeat a
+// prefix value and hold none), -1 for item >= prefix[nrun].  The 32 lanes
+// probe 32 points of the interval at once and a ballot keeps the part
+// that holds the item: ceil(log32(nrun)) rounds of one load a lane (2 at
+// 64 cells, 3 at the 1M step's 21,954 slots, where a binary search makes
+// 6 and 15 dependent loads).  Every lane of the warp calls it.
+__device__ __forceinline__ int warp_item_run(const long long* prefix,
+                                             int nrun, long long item) {
+  if (item >= prefix[nrun]) return -1;
+  const int lane = threadIdx.x & 31;
+  int lo = 0, hi = nrun;  // prefix[lo] <= item < prefix[hi]
+  while (hi - lo > 1) {
+    const int step = (hi - lo + 31) / 32;
+    const int probe = lo + (lane + 1) * step;
+    const bool below = probe < hi && prefix[probe] <= item;
+    const int c = __popc(__ballot_sync(0xffffffffu, below));
+    hi = min(hi, lo + (c + 1) * step);
+    lo += c * step;
+  }
+  return lo;
+}
+
+// A run accessor also stages a body's cell for P2M (stage_cell: cp.async
+// into dst[0..2], or nothing where the run gives the cell) and reads it
+// back (staged_cell).
 struct CellRuns {
   const long long* perm;
   int C;
   __device__ long long body(long long j) const { return perm[j]; }
   __device__ int3 cell(int run, long long) const {
     return make_int3(run / (C * C), (run / C) % C, run % C);
+  }
+  __device__ void stage_cell(int*, int, long long, bool) const {}
+  __device__ int3 staged_cell(const int*, int run) const {
+    return cell(run, 0);
   }
 };
 
@@ -85,189 +146,647 @@ struct SlotRuns {
   __device__ int3 cell(int, long long body) const {
     return make_int3(cx[body], cy[body], cz[body]);
   }
+  __device__ void stage_cell(int* dst, int, long long body,
+                             bool valid) const {
+    cp_async4(dst, cx + body, valid);
+    cp_async4(dst + 1, cy + body, valid);
+    cp_async4(dst + 2, cz + body, valid);
+  }
+  __device__ int3 staged_cell(const int* src, int) const {
+    return make_int3(src[0], src[1], src[2]);
+  }
 };
 
-template <int MW, class Runs>
-__global__ void __launch_bounds__(kRunP2MMaxThreads)
-p2m_runs_partial_kernel(const float* __restrict__ qx,
-                        const float* __restrict__ qy,
-                        const float* __restrict__ qz,
-                        const float* __restrict__ gm, Runs runs,
-                        const float* __restrict__ box, int m, int nrun,
-                        const long long* __restrict__ bounds,
-                        const long long* __restrict__ prefix,
-                        float* __restrict__ partial) {
-  __shared__ float table[MW * (MW - 1)];
-  __shared__ float gsx[kRunP2MTile * MW];
-  __shared__ float sy[kRunP2MTile * MW];
-  __shared__ __align__(16) float sz[kRunP2MTile * MW];
+// The k <= kRunFields node fields of one L2P launch, each (nrun, m^3).
+struct RunFields {
+  const float* f[kRunFields];
+  // f[i] for a run-time i without a local-memory copy of the array
+  __device__ const float* at(int i) const {
+    return i == 0 ? f[0] : i == 1 ? f[1] : i == 2 ? f[2] : f[3];
+  }
+};
 
-  const int run = item_run(prefix, nrun, blockIdx.x);
-  if (run < 0) return;  // the whole block: no barrier is skipped
-  fill_node_table(table, m);
-  const float lox = box[0], loy = box[1], loz = box[2];
-  const float csx = box[3], csy = box[4], csz = box[5];
-  const long long j0 = bounds[run] +
-      (blockIdx.x - prefix[run]) * static_cast<long long>(kRunP2MChunk);
-  const long long j1 = min(j0 + kRunP2MChunk, bounds[run + 1]);
-  const int p2 = m * m;
-  float* out = partial + static_cast<long long>(blockIdx.x) * p2 * m;
+// One body of a run as L2P reads it: its coordinates and cell (zeros for
+// a slot past the run's end).
+struct RunBody {
+  float x, y, z;
+  int3 c;
+};
 
-  // one pass over the item per blockDim.x (u, v) pairs: one pass up to
-  // m = 16, four at m = 32
-  for (int uv0 = 0; uv0 < p2; uv0 += blockDim.x) {
-    const int uv = uv0 + threadIdx.x;
-    const bool active = uv < p2;
-    const int u = active ? uv / m : 0;
-    const int v = active ? uv % m : 0;
-    float acc[MW];
-#pragma unroll
-    for (int w = 0; w < MW; ++w) acc[w] = 0.f;
+template <class Runs>
+__device__ __forceinline__ RunBody run_body(const Runs& runs, int run,
+                                            long long body, bool valid,
+                                            const float* qx, const float* qy,
+                                            const float* qz) {
+  RunBody r{0.f, 0.f, 0.f, make_int3(0, 0, 0)};
+  if (valid) {
+    r.x = qx[body];
+    r.y = qy[body];
+    r.z = qz[body];
+    r.c = runs.cell(run, body);
+  }
+  return r;
+}
 
-    for (long long j = j0; j < j1; j += kRunP2MTile) {
-      __syncthreads();  // the node table is ready; the last tile is consumed
-      const int b = threadIdx.x;
-      if (b < kRunP2MTile) {
-        const bool real = j + b < j1;
-        const long long body = real ? runs.body(j + b) : 0;
-        const int3 ci = real ? runs.cell(run, body) : make_int3(0, 0, 0);
-        const float g = real ? gm[body] : 0.f;
-        const float tx = real ? cell_t(qx[body], lox, csx, ci.x) : 0.f;
-        const float ty = real ? cell_t(qy[body], loy, csy, ci.y) : 0.f;
-        const float tz = real ? cell_t(qz[body], loz, csz, ci.z) : 0.f;
-        for (int k = 0; k < m; ++k) {
-          const float* row = table + k * (m - 1);
-          gsx[b * MW + k] = g * basis_value(tx, row, m);
-          sy[b * MW + k] = basis_value(ty, row, m);
-        }
-#pragma unroll
-        for (int k = 0; k < MW; ++k)
-          sz[b * MW + k] = k < m ? basis_value(tz, table + k * (m - 1), m)
-                                 : 0.f;
-      }
-      __syncthreads();
-      if (active) {
-        const int nb = static_cast<int>(min(static_cast<long long>(
-            kRunP2MTile), j1 - j));
-        for (int bb = 0; bb < nb; ++bb) {
-          const float t = gsx[bb * MW + u] * sy[bb * MW + v];
-          const float4* zr = reinterpret_cast<const float4*>(sz + bb * MW);
-#pragma unroll
-          for (int w4 = 0; w4 < MW / 4; ++w4) {
-            const float4 z = zr[w4];
-            acc[4 * w4 + 0] = fmaf(t, z.x, acc[4 * w4 + 0]);
-            acc[4 * w4 + 1] = fmaf(t, z.y, acc[4 * w4 + 1]);
-            acc[4 * w4 + 2] = fmaf(t, z.z, acc[4 * w4 + 2]);
-            acc[4 * w4 + 3] = fmaf(t, z.w, acc[4 * w4 + 3]);
-          }
-        }
-      }
-    }
-    if (active) {
-#pragma unroll
-      for (int w = 0; w < MW; ++w)
-        if (w < m) out[u * p2 + v * m + w] = acc[w];
-    }
+// The node table transposed into shared memory: tab[(j - 1) MW + k] =
+// T_j(t_k) for j = 1..m-1 and k < MW (0 past m), from the wrapper's
+// [k][j - 1] table.  Every thread of the block calls it; the caller
+// synchronises before use.
+template <int MW>
+__device__ __forceinline__ void stage_table(float* tab,
+                                            const float* node_table, int m,
+                                            int tid, int nthreads) {
+  for (int i = tid; i < (m - 1) * MW; i += nthreads) {
+    const int j1 = i / MW, k = i % MW;
+    tab[i] = k < m ? node_table[k * (m - 1) + j1] : 0.f;
   }
 }
 
-// W[r, p] = sum of the partials of run r's work items, in item order; runs
-// without bodies get 0.  Internal linkage: fmm.cu and anterp.cu each keep
-// their own copy.
+// S_k(t) * scale for the NK nodes k = k0 .. k0 + NK - 1 of order m (0 for
+// k >= m) into v: basis_value's arithmetic for each k (cheb.cuh: the
+// recurrence for T_j(t), s = fma(T_j(t), T_j(t_k), s) for j = 1..m-1),
+// with T_j(t) computed once for all NK nodes and the table (stage_table)
+// read 4 nodes a load.
+template <int MW, int NK>
+__device__ __forceinline__ void basis_span(float t, const float* tab, int m,
+                                           int k0, float scale,
+                                           float (&v)[NK]) {
+  static_assert(NK % 4 == 0, "nodes are read 4 at a time");
+  float s[NK];
+#pragma unroll
+  for (int q = 0; q < NK; ++q) s[q] = 0.f;
+  float tprev = 1.f, tcur = t;
+  for (int j = 1; j < m; ++j) {
+    if (j > 1) {
+      const float tnext = 2.f * t * tcur - tprev;
+      tprev = tcur;
+      tcur = tnext;
+    }
+    const float4* row = reinterpret_cast<const float4*>(
+        tab + (j - 1) * MW + k0);
+#pragma unroll
+    for (int q4 = 0; q4 < NK / 4; ++q4) {
+      const float4 r = row[q4];
+      s[4 * q4 + 0] = fmaf(tcur, r.x, s[4 * q4 + 0]);
+      s[4 * q4 + 1] = fmaf(tcur, r.y, s[4 * q4 + 1]);
+      s[4 * q4 + 2] = fmaf(tcur, r.z, s[4 * q4 + 2]);
+      s[4 * q4 + 3] = fmaf(tcur, r.w, s[4 * q4 + 3]);
+    }
+  }
+  const float c0 = 1.f / m, c1 = 2.f / m;
+#pragma unroll
+  for (int q = 0; q < NK; ++q)
+    v[q] = k0 + q < m ? scale * (c0 + c1 * s[q]) : 0.f;
+}
+
+// n consecutive floats of shared memory into registers, 16 or 8 bytes a
+// load where n allows (p aligned to match).
+template <int N>
+__device__ __forceinline__ void lds_row(const float* p, float (&r)[N]) {
+  if constexpr (N % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < N; i += 4) {
+      const float4 q = *reinterpret_cast<const float4*>(p + i);
+      r[i] = q.x; r[i + 1] = q.y; r[i + 2] = q.z; r[i + 3] = q.w;
+    }
+  } else if constexpr (N % 2 == 0) {
+#pragma unroll
+    for (int i = 0; i < N; i += 2) {
+      const float2 q = *reinterpret_cast<const float2*>(p + i);
+      r[i] = q.x; r[i + 1] = q.y;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) r[i] = p[i];
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void sts_row(float* p, const float (&r)[N]) {
+  static_assert(N % 4 == 0, "rows are stored 16 bytes at a time");
+#pragma unroll
+  for (int i = 0; i < N; i += 4)
+    *reinterpret_cast<float4*>(p + i) =
+        make_float4(r[i], r[i + 1], r[i + 2], r[i + 3]);
+}
+
+// ------------------------------------------------------------------ P2M
+// Geometry of the P2M at padded order MW.  A thread owns a TU x TV x TW
+// tile of the (u, v, w) outputs; kActive threads cover the MW^3 cube.  At
+// MW <= 8 a warp runs an item (kGroups warp items a block) and stages 32
+// bodies a pass, one a lane; above it a block runs an item and stages
+// kRunP2MTile bodies a tile, their bases computed by 3 kTile kSplitK tasks.
+template <int MW>
+struct P2MGeom {
+  static constexpr bool kWarp = MW <= kRunWarpMaxMW;
+  static constexpr int TU = MW <= kRunWarpMaxMW ? 1 : 2;
+  static constexpr int TV = MW <= 4 ? 1 : MW <= kRunWarpMaxMW ? 2 : 4;
+  static constexpr int TW = MW <= 4 ? 2
+                            : (MW == 8 || MW == 24 || MW == 32) ? 8 : 4;
+  static constexpr int kActive = (MW / TU) * (MW / TV) * (MW / TW);
+  static constexpr int kGroups = kWarp ? kRunWarpItems : 1;
+  static constexpr int kThreads =
+      kWarp ? 32 * kRunWarpItems : (kActive + 31) / 32 * 32;
+  static constexpr int kTile = kWarp ? 32 : kRunP2MTile;
+  static constexpr int kSplitK = MW == 32 ? 2 : 1;
+  static_assert(!kWarp || kActive == 32, "a warp item: one tile a lane");
+};
+
+// P2M over one work item per group (a warp or the block): the item's
+// bodies [j0, j1) of its run r (warp_item_run), j0 = bounds[r] + (item -
+// prefix[r]) chunk.  A run of one item writes its row of W; an item of a
+// run of several writes its partial (partial + item m^3), which
+// p2m_runs_fold_kernel adds.  partial == nullptr: every run has at most one
+// item (the wrapper zeroes W for the empty ones).  Stager s < kTile of a
+// group owns body slot s of every tile: it copies the slot's coordinates
+// (and cell) of the next tile by cp.async while the group computes this
+// one, the body index (through the permutation) one tile further ahead.
+template <int MW, class Runs>
+__global__ void __launch_bounds__(P2MGeom<MW>::kThreads)
+p2m_runs_kernel(const float* __restrict__ qx, const float* __restrict__ qy,
+                const float* __restrict__ qz, const float* __restrict__ gm,
+                Runs runs, const float* __restrict__ box, int m,
+                const long long* __restrict__ bounds,
+                const long long* __restrict__ prefix,
+                int nrun, int nitems, int chunk,
+                const float* __restrict__ node_table,
+                float* __restrict__ partial, float* __restrict__ w) {
+  using G = P2MGeom<MW>;
+  constexpr int S = G::kTile;
+  __shared__ __align__(16) float tab[(MW - 1) * MW];
+  __shared__ __align__(16) float sa[G::kGroups][S * MW];  // gm Sx
+  __shared__ __align__(16) float sy[G::kGroups][S * MW];
+  __shared__ __align__(16) float sz[G::kGroups][S * MW];
+  __shared__ float4 raw[G::kGroups][2][S];  // x, y, z, gm of a slot
+  __shared__ int rawc[G::kGroups][2][S][3];  // its cell (SlotRuns)
+  __shared__ float4 tq[G::kWarp ? 1 : S];  // block tier: t values and gm
+
+  stage_table<MW>(tab, node_table, m, threadIdx.x, blockDim.x);
+  __syncthreads();
+  const int group = G::kWarp ? static_cast<int>(threadIdx.x >> 5) : 0;
+  const int gt = G::kWarp ? static_cast<int>(threadIdx.x & 31)
+                          : static_cast<int>(threadIdx.x);
+  const int item = blockIdx.x * G::kGroups + group;
+  const int run = item < nitems ? warp_item_run(prefix, nrun, item) : -1;
+  if (run < 0) return;  // the whole group: no barrier of it is skipped
+
+  const float lox = box[0], loy = box[1], loz = box[2];
+  const float csx = box[3], csy = box[4], csz = box[5];
+  const long long ib = prefix[run];
+  const long long j0 = bounds[run] + (item - ib) * static_cast<long long>(
+      chunk);
+  const long long j1 = min(j0 + chunk, bounds[run + 1]);
+  const long long p3 = static_cast<long long>(m) * m * m;
+  float* dst = (partial == nullptr || prefix[run + 1] - ib == 1)
+                   ? w + run * p3
+                   : partial + item * p3;
+
+  constexpr int NW = MW / G::TW, NV = MW / G::TV;
+  const bool owner = gt < G::kActive;
+  const int tt = owner ? gt : 0;
+  const int wg = tt % NW, vg = (tt / NW) % NV, ug = tt / (NW * NV);
+  float acc[G::TU][G::TV][G::TW];
+#pragma unroll
+  for (int a = 0; a < G::TU; ++a)
+#pragma unroll
+    for (int b = 0; b < G::TV; ++b)
+#pragma unroll
+      for (int c = 0; c < G::TW; ++c) acc[a][b][c] = 0.f;
+
+  const bool stager = gt < S;
+  float4(*rq)[S] = raw[group];
+  int(*rc)[S][3] = rawc[group];
+  // copy slot gt of the tile at j (index `body`) into buffer `buf`
+  auto fetch = [&](int buf, long long body, bool valid) {
+    float* d = reinterpret_cast<float*>(&rq[buf][gt]);
+    cp_async4(d, qx + body, valid);
+    cp_async4(d + 1, qy + body, valid);
+    cp_async4(d + 2, qz + body, valid);
+    cp_async4(d + 3, gm + body, valid);
+    runs.stage_cell(rc[buf][gt], run, body, valid);
+    cp_async_commit();
+  };
+  long long idx_next = 0;
+  if (stager) {
+    fetch(0, j0 + gt < j1 ? runs.body(j0 + gt) : 0, j0 + gt < j1);
+    idx_next = j0 + S + gt < j1 ? runs.body(j0 + S + gt) : 0;
+  }
+  float* rowa = sa[group];
+  float* rowy = sy[group];
+  float* rowz = sz[group];
+  int buf = 0;
+  for (long long j = j0; j < j1; j += S, buf ^= 1) {
+    if (stager) {
+      cp_async_wait_all();  // this slot of the tile landed
+      const bool valid = j + gt < j1;
+      const float4 q = rq[buf][gt];
+      const int3 ci = runs.staged_cell(rc[buf][gt], run);
+      const float tx = valid ? cell_t(q.x, lox, csx, ci.x) : 0.f;
+      const float ty = valid ? cell_t(q.y, loy, csy, ci.y) : 0.f;
+      const float tz = valid ? cell_t(q.z, loz, csz, ci.z) : 0.f;
+      const float g = valid ? q.w : 0.f;
+      const long long jn = j + S + gt;
+      fetch(buf ^ 1, idx_next, jn < j1);
+      idx_next = jn + S < j1 ? runs.body(jn + S) : 0;
+      if constexpr (G::kWarp) {
+        float v[MW];
+        basis_span<MW, MW>(tx, tab, m, 0, g, v);
+        sts_row(rowa + gt * MW, v);
+        basis_span<MW, MW>(ty, tab, m, 0, 1.f, v);
+        sts_row(rowy + gt * MW, v);
+        basis_span<MW, MW>(tz, tab, m, 0, 1.f, v);
+        sts_row(rowz + gt * MW, v);
+      } else {
+        tq[gt] = make_float4(tx, ty, tz, g);
+      }
+    }
+    if constexpr (G::kWarp) {
+      __syncwarp();
+    } else {
+      __syncthreads();  // tq staged; the last tile's bases consumed
+      constexpr int NK = MW / G::kSplitK;
+      for (int task = gt; task < 3 * S * G::kSplitK; task += G::kThreads) {
+        const int part = task % G::kSplitK;
+        const int b = (task / G::kSplitK) % S;
+        const int d = task / (G::kSplitK * S);
+        const float4 q = tq[b];
+        float v[NK];
+        basis_span<MW, NK>(d == 0 ? q.x : d == 1 ? q.y : q.z, tab, m,
+                           part * NK, d == 0 ? q.w : 1.f, v);
+        sts_row((d == 0 ? rowa : d == 1 ? rowy : rowz) + b * MW + part * NK,
+                v);
+      }
+      __syncthreads();
+    }
+    const int nb = static_cast<int>(min(static_cast<long long>(S), j1 - j));
+    if (owner) {
+      for (int bb = 0; bb < nb; ++bb) {
+        float ra[G::TU], ry[G::TV], rz[G::TW];
+        lds_row(rowa + bb * MW + ug * G::TU, ra);
+        lds_row(rowy + bb * MW + vg * G::TV, ry);
+        lds_row(rowz + bb * MW + wg * G::TW, rz);
+#pragma unroll
+        for (int a = 0; a < G::TU; ++a)
+#pragma unroll
+          for (int b = 0; b < G::TV; ++b) {
+            const float p = ra[a] * ry[b];
+#pragma unroll
+            for (int c = 0; c < G::TW; ++c)
+              acc[a][b][c] = fmaf(p, rz[c], acc[a][b][c]);
+          }
+      }
+    }
+    if constexpr (G::kWarp) __syncwarp();  // the pass is consumed
+  }
+  if (owner) {
+#pragma unroll
+    for (int a = 0; a < G::TU; ++a)
+#pragma unroll
+      for (int b = 0; b < G::TV; ++b)
+#pragma unroll
+        for (int c = 0; c < G::TW; ++c) {
+          const int u = ug * G::TU + a, v = vg * G::TV + b,
+                    x = wg * G::TW + c;
+          if (u < m && v < m && x < m) dst[(u * m + v) * m + x] = acc[a][b][c];
+        }
+  }
+}
+
+// W[r, p] = the sum of the partials of run r's items, in item order, for
+// the runs of several items; 0 for runs of none; runs of one item wrote
+// their row themselves.  Block (r, y) takes run r's p in [256 y, 256 y +
+// 256) and leaves at once for a run of one item.  Internal linkage: fmm.cu
+// and anterp.cu each keep their own copy.
+constexpr int kRunFoldThreads = 256;
 namespace {
-__global__ void p2m_runs_reduce_kernel(const float* __restrict__ partial,
-                                       const long long* __restrict__ prefix,
-                                       int nrun, int p3,
-                                       float* __restrict__ w) {
-  const long long idx = static_cast<long long>(blockIdx.x) * blockDim.x +
-                        threadIdx.x;
-  if (idx >= static_cast<long long>(nrun) * p3) return;
-  const int run = static_cast<int>(idx / p3);
-  const int p = static_cast<int>(idx % p3);
+__global__ void __launch_bounds__(kRunFoldThreads)
+p2m_runs_fold_kernel(const float* __restrict__ partial,
+                     const long long* __restrict__ prefix, int p3,
+                     float* __restrict__ w) {
+  const int run = blockIdx.x;
+  const long long b0 = prefix[run], b1 = prefix[run + 1];
+  const int p = blockIdx.y * kRunFoldThreads + threadIdx.x;
+  if (b1 - b0 == 1 || p >= p3) return;
   float s = 0.f;
-  for (long long b = prefix[run]; b < prefix[run + 1]; ++b)
-    s += partial[b * p3 + p];
-  w[idx] = s;
+  for (long long b = b0; b < b1; ++b) s += partial[b * p3 + p];
+  w[static_cast<long long>(run) * p3 + p] = s;
 }
 }  // namespace
 
+// ------------------------------------------------------------------ L2P
+// Geometry of the L2P at padded order MW.  Warp tier (MW <= 8): a warp
+// runs an item of 32 kTB bodies (interleaved, lane + 32 i), each lane its
+// kTB bodies' bases in registers, the run's k fields staged once in the
+// warp's shared memory (Fs[f][u][v][w], rows u, v < m).  Block tier: an
+// item of 32 kTB = 256 bodies; the fields arrive kUC u-rows at a time (kUC
+// MW (u, v) pairs of MW w's a field); of the chunk's kPG groups of 4 pairs
+// (4 consecutive v of one u), warp w owns groups w and w + kWarps, and lane
+// bg the bodies bg + 32 i: 8 bodies x 8 pairs a thread.  Basis rows sit
+// kStride floats apart, an odd number of 16-byte quads, so 8 lanes reading
+// 8 consecutive rows hit 8 different bank quads.
+template <int MW>
+struct L2PGeom {
+  static constexpr bool kWarp = MW <= kRunWarpMaxMW;
+  static constexpr int kTB = kWarp ? kRunL2PLaneBodies : kRunL2PThreadBodies;
+  static constexpr int kItem = 32 * kTB;
+  static constexpr int kUC = MW <= 16 ? 4 : 2;
+  static constexpr int kPG = kUC * MW / 4;
+  static constexpr int kWarps = kPG / 2;
+  static constexpr int kThreads = kWarp ? 32 * kRunWarpItems : 32 * kWarps;
+  static constexpr int kStride = (MW / 4) % 2 ? MW : MW + 4;
+  static constexpr int kChunk = kRunFields * kUC * MW * MW;  // floats
+  static constexpr int kBases = 3 * kItem * kStride;
+  static constexpr int kSums = kWarps * kRunFields * kItem;
+  // dynamic shared memory of the block tier: bases, each warp's partial
+  // sums a body and field (the bodies' t values before them), two field
+  // chunks, body indices, the node table
+  static constexpr int kDynBytes =
+      4 * (kBases + kSums + 2 * kChunk) + 8 * kItem + 4 * MW * (MW - 1);
+  static_assert(kSums >= 4 * kItem, "the t values fit in the sums");
+  static_assert(kWarp || kPG % 2 == 0, "two pair groups a warp");
+};
+
 template <int MW, class Runs>
-__global__ void __launch_bounds__(kRunL2PThreads)
+__global__ void __launch_bounds__(L2PGeom<MW>::kThreads)
 l2p_runs_kernel(const float* __restrict__ qx, const float* __restrict__ qy,
                 const float* __restrict__ qz, Runs runs,
-                const float* __restrict__ box, int m, int nrun,
+                const float* __restrict__ box, int m,
                 const long long* __restrict__ bounds,
                 const long long* __restrict__ prefix,
-                const float* __restrict__ fields, int k, int n,
-                float* __restrict__ out) {
-  __shared__ float table[MW * (MW - 1)];
-  __shared__ __align__(16) float slice[kRunFields * MW * MW];
+                int nrun, int nitems,
+                const float* __restrict__ node_table, RunFields fields,
+                int k, int n, float* __restrict__ out) {
+  using G = L2PGeom<MW>;
+  constexpr int TB = G::kTB;
+  const float lox = box[0], loy = box[1], loz = box[2];
+  const float csx = box[3], csy = box[4], csz = box[5];
+  const long long p3 = static_cast<long long>(m) * m * m;
 
-  const int run = item_run(prefix, nrun, blockIdx.x);
-  if (run < 0) return;  // the whole block
-  fill_node_table(table, m);
-  __syncthreads();
-  const long long j = bounds[run] +
-      (blockIdx.x - prefix[run]) * static_cast<long long>(kRunL2PThreads) +
-      threadIdx.x;
-  const bool own = j < bounds[run + 1];
-  const long long body = own ? runs.body(j) : 0;
-  const int3 ci = own ? runs.cell(run, body) : make_int3(0, 0, 0);
-  const float tx = own ? cell_t(qx[body], box[0], box[3], ci.x) : 0.f;
-  const float ty = own ? cell_t(qy[body], box[1], box[4], ci.y) : 0.f;
-  const float tz = own ? cell_t(qz[body], box[2], box[5], ci.z) : 0.f;
-  float sy[MW], sz[MW];
-#pragma unroll
-  for (int c = 0; c < MW; ++c) {
-    sy[c] = c < m ? basis_value(ty, table + c * (m - 1), m) : 0.f;
-    sz[c] = c < m ? basis_value(tz, table + c * (m - 1), m) : 0.f;
-  }
-  const int p2 = m * m;
-  const long long p3 = static_cast<long long>(p2) * m;
-  const float* fr = fields + static_cast<long long>(run) * p3;
-  const long long fstride = static_cast<long long>(nrun) * p3;
-  float acc[kRunFields] = {0.f, 0.f, 0.f, 0.f};
-
-  for (int u = 0; u < m; ++u) {
-    __syncthreads();  // the previous slice is consumed
-    for (int idx = threadIdx.x; idx < kRunFields * MW * MW;
-         idx += kRunL2PThreads) {
-      const int f = idx / (MW * MW);
-      const int r = idx % (MW * MW);
-      const int v = r / MW, w = r % MW;
-      slice[idx] = (f < k && v < m && w < m)
-          ? fr[f * fstride + u * p2 + v * m + w]
-          : 0.f;
-    }
+  if constexpr (G::kWarp) {
+    __shared__ __align__(16) float tab[(MW - 1) * MW];
+    __shared__ __align__(16) float fs[kRunWarpItems][kRunFields * MW * MW * MW];
+    stage_table<MW>(tab, node_table, m, threadIdx.x, blockDim.x);
     __syncthreads();
-    const float su = basis_value(tx, table + u * (m - 1), m);
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int item = blockIdx.x * kRunWarpItems + warp;
+    const int run = item < nitems ? warp_item_run(prefix, nrun, item) : -1;
+    if (run < 0) return;  // the whole warp
+    const long long j0 = bounds[run] +
+        (item - prefix[run]) * static_cast<long long>(G::kItem);
+    const long long j1 = min(j0 + G::kItem, bounds[run + 1]);
+
+    // the lane's bodies first (their loads fly while the fields' copies
+    // are issued), then the run's fields, once: Fs[f][u][v][w] for u, v <
+    // m, zeros past m along w (rows past m are never read)
+    long long body[TB];
+    bool own[TB];
+    RunBody rb[TB];
 #pragma unroll
-    for (int f = 0; f < kRunFields; ++f) {
-      if (f < k) {
-        const float* ff = slice + f * MW * MW;
-        float b = 0.f;
-#pragma unroll
-        for (int v = 0; v < MW; ++v) {
-          const float4* row = reinterpret_cast<const float4*>(ff + v * MW);
-          float t = 0.f;
-#pragma unroll
-          for (int w4 = 0; w4 < MW / 4; ++w4) {
-            const float4 F = row[w4];
-            t = fmaf(F.x, sz[4 * w4 + 0], t);
-            t = fmaf(F.y, sz[4 * w4 + 1], t);
-            t = fmaf(F.z, sz[4 * w4 + 2], t);
-            t = fmaf(F.w, sz[4 * w4 + 3], t);
-          }
-          b = fmaf(sy[v], t, b);
-        }
-        acc[f] = fmaf(su, b, acc[f]);
-      }
+    for (int i = 0; i < TB; ++i) {
+      const long long j = j0 + 32 * i + lane;
+      own[i] = j < j1;
+      body[i] = own[i] ? runs.body(j) : 0;
+      rb[i] = run_body(runs, run, body[i], own[i], qx, qy, qz);
     }
-  }
-  if (own) {
+    float* F = fs[warp];
+    for (int f = 0; f < k; ++f) {
+      const float* src = fields.at(f) + run * p3;
+      for (int u = 0; u < m; ++u)
+        for (int vw = lane; vw < m * MW; vw += 32) {
+          const int v = vw / MW, x = vw % MW;
+          cp_async4(F + ((f * MW + u) * MW + v) * MW + x,
+                    src + (x < m ? (u * m + v) * m + x : 0), x < m);
+        }
+    }
+    cp_async_commit();
+
+    float sx[TB][MW], sy[TB][MW], sz[TB][MW];
+#pragma unroll
+    for (int i = 0; i < TB; ++i) {
+      const RunBody& r = rb[i];
+      basis_span<MW, MW>(own[i] ? cell_t(r.x, lox, csx, r.c.x) : 0.f, tab,
+                         m, 0, 1.f, sx[i]);
+      basis_span<MW, MW>(own[i] ? cell_t(r.y, loy, csy, r.c.y) : 0.f, tab,
+                         m, 0, 1.f, sy[i]);
+      basis_span<MW, MW>(own[i] ? cell_t(r.z, loz, csz, r.c.z) : 0.f, tab,
+                         m, 0, 1.f, sz[i]);
+    }
+    cp_async_wait_all();
+    __syncwarp();
+
+    float acc[kRunFields][TB];
 #pragma unroll
     for (int f = 0; f < kRunFields; ++f)
-      if (f < k) out[static_cast<long long>(f) * n + body] = acc[f];
+#pragma unroll
+      for (int i = 0; i < TB; ++i) acc[f][i] = 0.f;
+#pragma unroll
+    for (int u = 0; u < MW; ++u) {
+      if (u < m) {
+        float bu[kRunFields][TB];
+#pragma unroll
+        for (int f = 0; f < kRunFields; ++f)
+#pragma unroll
+          for (int i = 0; i < TB; ++i) bu[f][i] = 0.f;
+#pragma unroll
+        for (int v = 0; v < MW; ++v) {
+          if (v < m) {
+#pragma unroll
+            for (int f = 0; f < kRunFields; ++f) {
+              if (f < k) {
+                const float4* row = reinterpret_cast<const float4*>(
+                    F + ((f * MW + u) * MW + v) * MW);
+                float t[TB];
+#pragma unroll
+                for (int i = 0; i < TB; ++i) t[i] = 0.f;
+#pragma unroll
+                for (int w4 = 0; w4 < MW / 4; ++w4) {
+                  const float4 q = row[w4];
+#pragma unroll
+                  for (int i = 0; i < TB; ++i) {
+                    t[i] = fmaf(q.x, sz[i][4 * w4 + 0], t[i]);
+                    t[i] = fmaf(q.y, sz[i][4 * w4 + 1], t[i]);
+                    t[i] = fmaf(q.z, sz[i][4 * w4 + 2], t[i]);
+                    t[i] = fmaf(q.w, sz[i][4 * w4 + 3], t[i]);
+                  }
+                }
+#pragma unroll
+                for (int i = 0; i < TB; ++i)
+                  bu[f][i] = fmaf(sy[i][v], t[i], bu[f][i]);
+              }
+            }
+          }
+        }
+#pragma unroll
+        for (int f = 0; f < kRunFields; ++f)
+#pragma unroll
+          for (int i = 0; i < TB; ++i)
+            acc[f][i] = fmaf(sx[i][u], bu[f][i], acc[f][i]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < TB; ++i)
+      if (own[i]) {
+#pragma unroll
+        for (int f = 0; f < kRunFields; ++f)
+          if (f < k) out[static_cast<long long>(f) * n + body[i]] = acc[f][i];
+      }
+  } else {
+    extern __shared__ __align__(16) float smem[];
+    constexpr int SS = G::kStride, NB = G::kItem;
+    float* bsx = smem;                     // Sx rows
+    float* bsy = bsx + NB * SS;
+    float* bsz = bsy + NB * SS;
+    float* sums = smem + G::kBases;        // sums[warp][f][b]
+    float4* tq = reinterpret_cast<float4*>(sums);  // until the bases exist
+    float* fbuf = sums + G::kSums;         // two field chunks
+    long long* bidx = reinterpret_cast<long long*>(fbuf + 2 * G::kChunk);
+    float* tab = reinterpret_cast<float*>(bidx + NB);
+
+    // every warp finds the block's run
+    const int run = static_cast<int>(blockIdx.x) < nitems
+                        ? warp_item_run(prefix, nrun, blockIdx.x) : -1;
+    if (run < 0) return;  // the whole block
+    const int tid = threadIdx.x;
+    const long long j0 = bounds[run] +
+        (blockIdx.x - prefix[run]) * static_cast<long long>(NB);
+    const long long j1 = min(j0 + NB, bounds[run + 1]);
+    const long long base = run * p3;
+    // chunk c: rows u = c kUC + ul, Fc[f][ul][v][w], zeros past m
+    auto issue = [&](int c, float* dstc) {
+      for (int idx = tid; idx < k * G::kUC * MW * MW; idx += G::kThreads) {
+        const int x = idx % MW, v = (idx / MW) % MW;
+        const int u = c * G::kUC + (idx / (MW * MW)) % G::kUC;
+        const int f = idx / (G::kUC * MW * MW);
+        const bool valid = u < m && v < m && x < m;
+        cp_async4(dstc + idx,
+                  fields.at(f) + (valid ? base + (u * m + v) * m + x : 0),
+                  valid);
+      }
+      cp_async_commit();
+    };
+    issue(0, fbuf);
+    stage_table<MW>(tab, node_table, m, tid, G::kThreads);
+    for (int b = tid; b < NB; b += G::kThreads) {
+      const long long j = j0 + b;
+      const bool valid = j < j1;
+      const long long body = valid ? runs.body(j) : 0;
+      const RunBody r = run_body(runs, run, body, valid, qx, qy, qz);
+      bidx[b] = valid ? body : -1;
+      tq[b] = make_float4(valid ? cell_t(r.x, lox, csx, r.c.x) : 0.f,
+                          valid ? cell_t(r.y, loy, csy, r.c.y) : 0.f,
+                          valid ? cell_t(r.z, loz, csz, r.c.z) : 0.f, 0.f);
+    }
+    __syncthreads();
+    for (int task = tid; task < 3 * NB; task += G::kThreads) {
+      const int b = task % NB, d = task / NB;
+      const float4 q = tq[b];
+      float v[MW];
+      basis_span<MW, MW>(d == 0 ? q.x : d == 1 ? q.y : q.z, tab, m, 0, 1.f,
+                         v);
+      sts_row(bsx + d * NB * SS + b * SS, v);
+    }
+
+    const int wp = tid >> 5, bg = tid & 31;
+    int ul[2], v0[2];
+#pragma unroll
+    for (int gi = 0; gi < 2; ++gi) {
+      const int pg = wp + gi * G::kWarps;
+      ul[gi] = (4 * pg) / MW;
+      v0[gi] = (4 * pg) % MW;
+    }
+    float* mine = sums + wp * kRunFields * NB + bg;  // [f * NB + 32 i]
+    const int nchunk = (m + G::kUC - 1) / G::kUC;
+    const int nw4 = (m + 3) / 4;
+    for (int c = 0; c < nchunk; ++c) {
+      cp_async_wait_all();
+      __syncthreads();  // chunk c and the bases visible; chunk c - 1 consumed
+      if (c == 0) {     // tq is consumed
+#pragma unroll
+        for (int f = 0; f < kRunFields; ++f)
+#pragma unroll
+          for (int i = 0; i < TB; ++i) mine[f * NB + 32 * i] = 0.f;
+      }
+      if (c + 1 < nchunk) issue(c + 1, fbuf + ((c + 1) & 1) * G::kChunk);
+      const float* fc = fbuf + (c & 1) * G::kChunk;
+#pragma unroll
+      for (int f = 0; f < kRunFields; ++f) {
+        if (f < k) {
+          const float* fr0 = fc + ((f * G::kUC + ul[0]) * MW + v0[0]) * MW;
+          const float* fr1 = fc + ((f * G::kUC + ul[1]) * MW + v0[1]) * MW;
+          float h[TB][8];
+#pragma unroll
+          for (int i = 0; i < TB; ++i)
+#pragma unroll
+            for (int p = 0; p < 8; ++p) h[i][p] = 0.f;
+          // each step: the 8 pairs' 4 w's and the 8 bodies' Sz, then the
+          // fmas one component at a time, so that consecutive fmas feed
+          // different sums
+          for (int w4 = 0; w4 < nw4; ++w4) {
+            float4 Fq[8], z[TB];
+#pragma unroll
+            for (int p = 0; p < 4; ++p) {
+              Fq[p] = *reinterpret_cast<const float4*>(fr0 + p * MW + 4 * w4);
+              Fq[4 + p] =
+                  *reinterpret_cast<const float4*>(fr1 + p * MW + 4 * w4);
+            }
+#pragma unroll
+            for (int i = 0; i < TB; ++i)
+              z[i] = *reinterpret_cast<const float4*>(
+                  bsz + (bg + 32 * i) * SS + 4 * w4);
+#pragma unroll
+            for (int i = 0; i < TB; ++i)
+#pragma unroll
+              for (int p = 0; p < 8; ++p) h[i][p] = fmaf(Fq[p].x, z[i].x,
+                                                         h[i][p]);
+#pragma unroll
+            for (int i = 0; i < TB; ++i)
+#pragma unroll
+              for (int p = 0; p < 8; ++p) h[i][p] = fmaf(Fq[p].y, z[i].y,
+                                                         h[i][p]);
+#pragma unroll
+            for (int i = 0; i < TB; ++i)
+#pragma unroll
+              for (int p = 0; p < 8; ++p) h[i][p] = fmaf(Fq[p].z, z[i].z,
+                                                         h[i][p]);
+#pragma unroll
+            for (int i = 0; i < TB; ++i)
+#pragma unroll
+              for (int p = 0; p < 8; ++p) h[i][p] = fmaf(Fq[p].w, z[i].w,
+                                                         h[i][p]);
+          }
+#pragma unroll
+          for (int i = 0; i < TB; ++i) {
+            const int b = bg + 32 * i;
+            float a = mine[f * NB + 32 * i];
+#pragma unroll
+            for (int gi = 0; gi < 2; ++gi) {
+              const int u = c * G::kUC + ul[gi];
+              const float4 y = *reinterpret_cast<const float4*>(
+                  bsy + b * SS + v0[gi]);
+              const float4 x = *reinterpret_cast<const float4*>(
+                  bsx + b * SS + (u & ~3));
+              const int r = u & 3;
+              const float xu = r == 0 ? x.x : r == 1 ? x.y : r == 2 ? x.z
+                                                                  : x.w;
+              float t = y.x * h[i][4 * gi];
+              t = fmaf(y.y, h[i][4 * gi + 1], t);
+              t = fmaf(y.z, h[i][4 * gi + 2], t);
+              t = fmaf(y.w, h[i][4 * gi + 3], t);
+              a = fmaf(xu, t, a);
+            }
+            mine[f * NB + 32 * i] = a;
+          }
+        }
+      }
+    }
+    __syncthreads();  // every warp's sums written
+    for (int t = tid; t < k * NB; t += G::kThreads) {
+      const int f = t / NB, b = t % NB;
+      float s = 0.f;
+      for (int q = 0; q < G::kWarps; ++q)
+        s += sums[(q * kRunFields + f) * NB + b];
+      if (bidx[b] >= 0) out[static_cast<long long>(f) * n + bidx[b]] = s;
+    }
   }
 }
 
@@ -291,50 +810,119 @@ l2p_runs_kernel(const float* __restrict__ qx, const float* __restrict__ qy,
 
 namespace murb {
 
-// P2M over nrun runs: partial holds nitems * m^3 floats of scratch (nitems
-// at least prefix[nrun]; blocks past it return), w is (nrun, m^3).
+// Lets the L2P block tier at MW take its dynamic shared memory (above the
+// 48 KB default), once per device: a race between host threads only sets
+// it twice.
+template <int MW, class Runs>
+cudaError_t l2p_allow_smem() {
+  constexpr int kDevices = 64;
+  static std::atomic<bool> done[kDevices];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess || (dev < kDevices && done[dev].load())) return e;
+  e = cudaFuncSetAttribute(l2p_runs_kernel<MW, Runs>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           L2PGeom<MW>::kDynBytes);
+  if (e == cudaSuccess && dev < kDevices) done[dev].store(true);
+  return e;
+}
+
+// P2M over nrun runs into w (nrun, m^3), in nitems work items of `chunk`
+// bodies (prefix: nrun + 1 offsets of each run's items); node_table: m (m
+// - 1) floats of T_j(t_k); partial: nitems m^3 floats of scratch, or
+// nullptr when every run has at most one item (w zeroed by the caller).
 template <class Runs>
 int p2m_runs(const float* qx, const float* qy, const float* qz,
              const float* gm, Runs runs, const float* box, int m, int nrun,
-             const long long* bounds, const long long* prefix, int nitems,
-             float* partial, float* w, cudaStream_t stream) {
-  if (m < 2 || m > kRunMaxOrder || nrun < 1 || nitems < 1)
+             const long long* bounds, const long long* prefix,
+             int nitems, int chunk, const float* node_table, float* partial,
+             float* w, cudaStream_t stream) {
+  if (m < 2 || m > kRunMaxOrder || nrun < 1 || nitems < 1 || chunk < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  // a thread per (u, v) pair, at most kRunP2MMaxThreads (the kernel loops
-  // over the rest), at least one per body of a tile
-  int threads = (m * m + 31) / 32 * 32;
-  threads = threads > kRunP2MMaxThreads ? kRunP2MMaxThreads : threads;
-  threads = threads < kRunP2MTile ? kRunP2MTile : threads;
 #define MURB_P2M_RUNS(MW)                                                  \
-  p2m_runs_partial_kernel<MW, Runs><<<nitems, threads, 0, stream>>>(       \
-      qx, qy, qz, gm, runs, box, m, nrun, bounds, prefix, partial)
+  {                                                                        \
+    using G = P2MGeom<MW>;                                                 \
+    p2m_runs_kernel<MW, Runs>                                              \
+        <<<(nitems + G::kGroups - 1) / G::kGroups, G::kThreads, 0,         \
+           stream>>>(qx, qy, qz, gm, runs, box, m, bounds, prefix, nrun,   \
+                     nitems, chunk, node_table, partial, w);               \
+  }
   MURB_DISPATCH_MW(m, MURB_P2M_RUNS)
 #undef MURB_P2M_RUNS
   const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (err != cudaSuccess || partial == nullptr) return static_cast<int>(err);
   const int p3 = m * m * m;
-  const long long total = static_cast<long long>(nrun) * p3;
-  p2m_runs_reduce_kernel<<<static_cast<int>((total + 255) / 256), 256, 0,
-                           stream>>>(partial, prefix, nrun, p3, w);
+  const dim3 grid(nrun, (p3 + kRunFoldThreads - 1) / kRunFoldThreads);
+  p2m_runs_fold_kernel<<<grid, kRunFoldThreads, 0, stream>>>(partial, prefix,
+                                                             p3, w);
   return static_cast<int>(cudaGetLastError());
 }
 
-// L2P of 1 to kRunFields fields (k, nrun, m^3) into out (k, n).
+// L2P of 1 to kRunFields fields (each (nrun, m^3), their device pointers in
+// the host array `fields`) into out (k, n), in nitems work items of
+// L2PGeom<MW>::kItem bodies.
 template <class Runs>
 int l2p_runs(const float* qx, const float* qy, const float* qz, Runs runs,
              int n, const float* box, int m, int nrun,
              const long long* bounds, const long long* prefix, int nitems,
-             const float* fields, int k, float* out, cudaStream_t stream) {
+             const float* node_table, const float* const* fields, int k,
+             float* out, cudaStream_t stream) {
   if (m < 2 || m > kRunMaxOrder || nrun < 1 || nitems < 1 || k < 1 ||
       k > kRunFields)
     return static_cast<int>(cudaErrorInvalidValue);
   if (n <= 0) return 0;
+  RunFields f{};
+  for (int i = 0; i < kRunFields; ++i) f.f[i] = fields[i < k ? i : 0];
 #define MURB_L2P_RUNS(MW)                                                  \
-  l2p_runs_kernel<MW, Runs><<<nitems, kRunL2PThreads, 0, stream>>>(        \
-      qx, qy, qz, runs, box, m, nrun, bounds, prefix, fields, k, n, out)
+  {                                                                        \
+    using G = L2PGeom<MW>;                                                 \
+    if constexpr (G::kWarp) {                                              \
+      l2p_runs_kernel<MW, Runs>                                            \
+          <<<(nitems + kRunWarpItems - 1) / kRunWarpItems, G::kThreads, 0, \
+             stream>>>(qx, qy, qz, runs, box, m, bounds, prefix, nrun,     \
+                       nitems, node_table, f, k, n, out);                  \
+    } else {                                                               \
+      const cudaError_t e = l2p_allow_smem<MW, Runs>();                    \
+      if (e != cudaSuccess) return static_cast<int>(e);                    \
+      l2p_runs_kernel<MW, Runs><<<nitems, G::kThreads, G::kDynBytes,       \
+                                  stream>>>(qx, qy, qz, runs, box, m,      \
+                                            bounds, prefix, nrun, nitems,  \
+                                            node_table, f, k, n, out);     \
+    }                                                                      \
+  }
   MURB_DISPATCH_MW(m, MURB_L2P_RUNS)
 #undef MURB_L2P_RUNS
   return static_cast<int>(cudaGetLastError());
+}
+
+// The blocks of the run P2M (l2p false) or L2P kernel at order m that one
+// SM holds at once (the CUDA occupancy calculator), and its threads a
+// block.
+template <class Runs>
+int runs_resident(int m, bool l2p, int* blocks, int* threads) {
+  if (m < 2 || m > kRunMaxOrder)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t e = cudaSuccess;
+#define MURB_RUNS_RESIDENT(MW)                                             \
+  {                                                                        \
+    using P = P2MGeom<MW>;                                                 \
+    using L = L2PGeom<MW>;                                                 \
+    if (!l2p) {                                                            \
+      *threads = P::kThreads;                                              \
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(                   \
+          blocks, p2m_runs_kernel<MW, Runs>, P::kThreads, 0);              \
+    } else {                                                               \
+      *threads = L::kThreads;                                              \
+      if constexpr (!L::kWarp) e = l2p_allow_smem<MW, Runs>();             \
+      if (e == cudaSuccess)                                                \
+        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(                 \
+            blocks, l2p_runs_kernel<MW, Runs>, L::kThreads,                \
+            L::kWarp ? 0 : L::kDynBytes);                                  \
+    }                                                                      \
+  }
+  MURB_DISPATCH_MW(m, MURB_RUNS_RESIDENT)
+#undef MURB_RUNS_RESIDENT
+  return static_cast<int>(e);
 }
 
 }  // namespace murb

@@ -15,8 +15,8 @@
 // body's cell id, orders the bodies by cell (a stable sort of the ids: glue,
 // not the contraction) and hands the kernels the permutation, the cell
 // bounds (C^3 + 1 offsets into it) and, per kernel, a prefix of work items
-// per cell.  The kernels take each body's cell from that table, never from
-// a second floor, so the sort and the bases cannot disagree.
+// per cell and the node table (cell_runs.cuh).  The kernels take each body's cell from that table, never from a second
+// floor, so the sort and the bases cannot disagree.
 //
 // K8, P2M: W[c, (u, v, w)] = sum_{j in c} gm_j Sx_j[u] Sy_j[v] Sz_j[w],
 // and K9, L2P: a_f[i] = sum_{uvw} Sx_i[u] Sy_i[v] Sz_i[w] F_f[c_i, (u, v, w)]
@@ -342,38 +342,40 @@ inline bool grid_ok(int m, int C) {
 
 // K8.  box: [lo(3), cs(3)]; perm: the bodies ordered by cell; bounds: C^3 +
 // 1 offsets into perm; prefix: C^3 + 1 offsets of each cell's work items of
-// kRunP2MChunk bodies; nitems: the grid (at least prefix[C^3]; blocks past
-// it return); partial: nitems * m^3 floats of scratch; w: (C^3, m^3).
+// `chunk` bodies; nitems: the items (at least prefix[C^3]); table: the
+// node table of order m; partial: nitems * m^3 floats of scratch, or null
+// when no cell has two items (w zeroed by the caller); w: (C^3, m^3).
 extern "C" int murb_p2m_grid(const float* qx, const float* qy,
                              const float* qz, const float* gm,
                              const long long* perm, const float* box, int m,
                              int C, const long long* bounds,
-                             const long long* prefix, int nitems,
-                             float* partial, float* w, cudaStream_t stream) {
+                             const long long* prefix, int nitems, int chunk,
+                             const float* table, float* partial, float* w,
+                             cudaStream_t stream) {
   if (!murb::grid_ok(m, C)) return static_cast<int>(cudaErrorInvalidValue);
   return murb::p2m_runs(qx, qy, qz, gm, murb::CellRuns{perm, C}, box, m,
-                        C * C * C, bounds, prefix, nitems, partial, w,
-                        stream);
+                        C * C * C, bounds, prefix, nitems, chunk, table,
+                        partial, w, stream);
 }
 
-// K9.  fields: (k, C^3, m^3); out: (k, n) in the bodies' own order; prefix:
-// work items of kRunL2PThreads bodies.  One launch per group of at most
-// kRunFields fields.
+// K9.  fields: k device pointers (a host array) to (C^3, m^3) fields; out:
+// (k, n) in the bodies' own order; prefix: work items of L2PGeom<MW>::kItem
+// bodies.  One launch per group of at most kRunFields fields.
 extern "C" int murb_l2p_grid(const float* qx, const float* qy,
                              const float* qz, const long long* perm, int n,
                              const float* box, int m, int C,
                              const long long* bounds, const long long* prefix,
-                             int nitems, const float* fields, int k,
-                             float* out, cudaStream_t stream) {
+                             int nitems, const float* table,
+                             const float* const* fields, int k, float* out,
+                             cudaStream_t stream) {
   if (!murb::grid_ok(m, C) || k < 1 || k > murb::kGridMaxTotalFields)
     return static_cast<int>(cudaErrorInvalidValue);
   const int ncell = C * C * C;
-  const long long plane = static_cast<long long>(ncell) * m * m * m;
   for (int f0 = 0; f0 < k; f0 += murb::kRunFields) {
     const int kg = k - f0 < murb::kRunFields ? k - f0 : murb::kRunFields;
     const int err = murb::l2p_runs(
         qx, qy, qz, murb::CellRuns{perm, C}, n, box, m, ncell, bounds,
-        prefix, nitems, fields + f0 * plane, kg,
+        prefix, nitems, table, fields + f0, kg,
         out + static_cast<long long>(f0) * n, stream);
     if (err != 0) return err;
   }
@@ -414,6 +416,13 @@ extern "C" int murb_m2l_level(const float* w, const float* hl, float soft2,
   murb::sum_splits_kernel<<<static_cast<int>((count + 255) / 256), 256, 0,
                             stream>>>(partial, nsplit, count, out);
   return static_cast<int>(cudaGetLastError());
+}
+
+// K8 (l2p 0) and K9 (l2p 1) at order m: the blocks one SM of the current
+// device holds at once and the threads a block.
+extern "C" int murb_runs_resident(int m, int l2p, int* blocks,
+                                  int* threads) {
+  return murb::runs_resident<murb::CellRuns>(m, l2p != 0, blocks, threads);
 }
 
 // Blocks of K7's nf-field kernel one SM of the current device holds at

@@ -23,7 +23,8 @@ MURB_ANTERP_PALLAS switch exist only for the TPU and are not ported.
 ``p2m_window`` and ``l2p_window`` run the plain version on CPU tensors and
 launch the kernel on CUDA tensors (fp32 inside, results cast back), and
 count each launch.  The kernels read each slot's bodies as one run from
-the slot bounds and work items that ``slot_items`` makes on the device.
+the slot bounds and work items that ``slot_items`` makes on the device
+(``window_items``: the run kernels' items, shared with K8 and K9).
 """
 from __future__ import annotations
 
@@ -32,12 +33,13 @@ import torch.nn.functional as F
 
 from murb_tpu_torch.ops import cuda
 from murb_tpu_torch.ops.common import notify_fp32_compute
+from murb_tpu_torch.ops.fmm_kernels import (RunItems, field_pointers,
+                                            l2p_item, node_table, p2m_chunk,
+                                            p2m_outputs)
 from murb_tpu_torch.ops.p2p import _cell_ixyz
 from murb_tpu_torch.ops.proxy_kernels import _basis
 
 MAX_ORDER = 32       # kRunMaxOrder (csrc/cell_runs.cuh)
-_P2M_CHUNK = 512     # bodies per K11 work item (kRunP2MChunk)
-_L2P_CHUNK = 128     # bodies per K12 work item (kRunL2PThreads)
 _PLAIN_CHUNK = 8192  # bodies per step of the plain versions
 _TAG = "tpu+proxy/adaptive (window kernels)"
 
@@ -113,6 +115,11 @@ def slot_items(slots: torch.Tensor, cap: int, chunk: int):
             slots.shape[0] // chunk + cap + 2)
 
 
+def window_items(slots: torch.Tensor, cap: int, chunk: int) -> RunItems:
+    """The run kernels' work items over the slots (``slot_items``)."""
+    return RunItems(*slot_items(slots, cap, chunk), chunk)
+
+
 def _kernel_args(xs, ys, zs, slots, c, h, ci, C: int):
     dev, n = xs.device, xs.shape[0]
     x, y, z = cuda.kernel_inputs(_TAG, dev, n, xs, ys, zs,
@@ -124,6 +131,23 @@ def _kernel_args(xs, ys, zs, slots, c, h, ci, C: int):
 
 
 # ----------------------------------------------------------- K11 wrapper
+def p2m_window_launch(x, y, z, g, cells, box, items: RunItems,
+                      m: int) -> torch.Tensor:
+    """K11 alone on float32 sorted bodies, their int32 cells, the box and
+    the slots' work items -> W (cap + 1, m^3) float32 (the dump row 0)."""
+    dev, nslot = x.device, items.bounds.shape[0] - 1
+    w, partial = p2m_outputs(items, x.shape[0], nslot, m, dev)
+    with torch.cuda.device(dev):
+        cuda.launch("murb_p2m_window", x.data_ptr(), y.data_ptr(),
+                    z.data_ptr(), g.data_ptr(),
+                    *(v.data_ptr() for v in cells), box.data_ptr(), m,
+                    nslot, items.bounds.data_ptr(), items.prefix.data_ptr(),
+                    items.nitems, items.chunk, node_table(m, dev).data_ptr(),
+                    None if partial is None else partial.data_ptr(),
+                    w.data_ptr(), cuda.stream(dev))
+    return w
+
+
 def p2m_window(xs, ys, zs, gs, c, h, slots, cap: int, *, m: int, C: int,
                ci=None) -> torch.Tensor:
     """(cap + 1, m^3) slot expansions of Morton-sorted bodies (the contract
@@ -137,20 +161,11 @@ def p2m_window(xs, ys, zs, gs, c, h, slots, cap: int, *, m: int, C: int,
         return p2m_window_plain(xs, ys, zs, gs, c, h, slots, cap, m=m, C=C,
                                 ci=ci)
     cuda.require_cuda(_TAG, xs)
-    dev, dtype = xs.device, xs.dtype
+    dev, dtype, n = xs.device, xs.dtype, xs.shape[0]
     (x, y, z), cells, sl, box = _kernel_args(xs, ys, zs, slots, c, h, ci, C)
-    (g,) = cuda.kernel_inputs(_TAG, dev, xs.shape[0], gs,
-                              notify=notify_fp32_compute)
-    bounds, prefix, nitems = slot_items(sl, cap, _P2M_CHUNK)
-    p3 = m ** 3
-    partial = torch.empty(nitems * p3, dtype=torch.float32, device=dev)
-    w = torch.empty((cap + 1, p3), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        cuda.launch("murb_p2m_window", x.data_ptr(), y.data_ptr(),
-                    z.data_ptr(), g.data_ptr(),
-                    *(v.data_ptr() for v in cells), box.data_ptr(), m,
-                    cap + 1, bounds.data_ptr(), prefix.data_ptr(), nitems,
-                    partial.data_ptr(), w.data_ptr(), cuda.stream(dev))
+    (g,) = cuda.kernel_inputs(_TAG, dev, n, gs, notify=notify_fp32_compute)
+    items = window_items(sl, cap, p2m_chunk(n, m, cuda.sm_count(dev)))
+    w = p2m_window_launch(x, y, z, g, cells, box, items, m)
     p2m_window.launches += 1
     return w.to(dtype)
 
@@ -159,6 +174,24 @@ p2m_window.launches = 0
 
 
 # ----------------------------------------------------------- K12 wrapper
+def l2p_window_launch(x, y, z, cells, box, items: RunItems, m: int,
+                      fields) -> torch.Tensor:
+    """K12 alone on float32 sorted bodies, their int32 cells, the box, the
+    slots' work items and 1 to 4 float32 contiguous (cap + 1, m^3) fields
+    -> (nf, n) float32, the dump bodies 0."""
+    dev, n, nf = x.device, x.shape[0], len(fields)
+    out = torch.zeros((nf, n), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        cuda.launch("murb_l2p_window", x.data_ptr(), y.data_ptr(),
+                    z.data_ptr(), *(v.data_ptr() for v in cells), n,
+                    box.data_ptr(), m, items.bounds.shape[0] - 1,
+                    items.bounds.data_ptr(), items.prefix.data_ptr(),
+                    items.nitems, node_table(m, dev).data_ptr(),
+                    field_pointers(fields), nf, out.data_ptr(),
+                    cuda.stream(dev))
+    return out
+
+
 def l2p_window(xs, ys, zs, c, h, slots, fields, *, m: int, C: int,
                ci=None) -> tuple:
     """Per-body values of 1 to 4 (cap + 1, m^3) slot fields (the contract
@@ -178,17 +211,11 @@ def l2p_window(xs, ys, zs, c, h, slots, fields, *, m: int, C: int,
         return l2p_window_plain(xs, ys, zs, c, h, slots, fields, m=m, C=C,
                                 ci=ci)
     cuda.require_cuda(_TAG, xs)
-    dev, dtype, n = xs.device, xs.dtype, xs.shape[0]
+    dtype = xs.dtype
     (x, y, z), cells, sl, box = _kernel_args(xs, ys, zs, slots, c, h, ci, C)
-    bounds, prefix, nitems = slot_items(sl, rows - 1, _L2P_CHUNK)
-    fmat = torch.stack(fields).to(torch.float32).contiguous()
-    out = torch.zeros((nf, n), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        cuda.launch("murb_l2p_window", x.data_ptr(), y.data_ptr(),
-                    z.data_ptr(), *(v.data_ptr() for v in cells), n,
-                    box.data_ptr(), m, rows, bounds.data_ptr(),
-                    prefix.data_ptr(), nitems, fmat.data_ptr(), nf,
-                    out.data_ptr(), cuda.stream(dev))
+    flds = [f.to(torch.float32).contiguous() for f in fields]
+    out = l2p_window_launch(x, y, z, cells, box,
+                            window_items(sl, rows - 1, l2p_item(m)), m, flds)
     l2p_window.launches += 1
     return tuple(o.to(dtype) for o in out)
 

@@ -54,18 +54,19 @@ _SIGNATURES = {
     "murb_acc_phi_rows": [_P, _P, _P, _P, _I, _P, _I, _F, _I, _I, _I, _I,
                           _P, _P, _P, _P, _P, _P],
     "murb_phi_resident": [_I, _I, _I, _I, _P],
-    "murb_p2m_grid": [_P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _I, _P, _P,
-                      _P],
-    "murb_l2p_grid": [_P, _P, _P, _P, _I, _P, _I, _I, _P, _P, _I, _P, _I,
-                      _P, _P],
+    "murb_p2m_grid": [_P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _I, _I, _P,
+                      _P, _P, _P],
+    "murb_l2p_grid": [_P, _P, _P, _P, _I, _P, _I, _I, _P, _P, _I, _P, _P,
+                      _I, _P, _P],
     "murb_m2l_level": [_P, _P, _F, _I, _I, _I, _P, _P, _I, _I, _P, _P,
                        _P],
     "murb_m2l_resident": [_I, _P],
+    "murb_runs_resident": [_I, _I, _P, _P],
     "murb_p2p_sorted": [_P, _P, _P, _P, _I, _P, _P, _L, _F, _I, _P, _P],
     "murb_p2m_window": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _I,
-                        _P, _P, _P],
+                        _I, _P, _P, _P, _P],
     "murb_l2p_window": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _P, _P, _I,
-                        _P, _I, _P, _P],
+                        _P, _P, _I, _P, _P],
     # host arrays of D pointers (qx, qy, qz, bufs, ax, ay, az, scratch), D
     # device ids, D origin, compute and copy streams
     "murb_ring_pipelined": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,

@@ -43,8 +43,17 @@ MAX_CELLS = 16
 #: node fields one grid L2P call takes: force (3) plus up to 8 potentials
 MAX_FIELDS = 11
 _L2P_GROUP = 4       # fields one K9 launch takes (kRunFields)
-_P2M_CHUNK = 512     # bodies per K8 work item (kRunP2MChunk)
-_L2P_CHUNK = 128     # bodies per K9 work item (kRunL2PThreads)
+#: the run kernels' geometry (csrc/cell_runs.cuh): the largest padded order
+#: at which a warp runs an item, the bodies a P2M block stages a tile above
+#: it (a warp stages 32), the L2P's bodies an item (a warp's, a block's),
+#: the most bodies a P2M item takes, and the P2M items a card's SM should
+#: get (warp items; block items above RUN_WARP_MAX_MW)
+RUN_WARP_MAX_MW = 8        # kRunWarpMaxMW
+RUN_P2M_TILE = 64          # kRunP2MTile
+RUN_L2P_WARP_ITEM = 64     # 32 kRunL2PLaneBodies
+RUN_L2P_BLOCK_ITEM = 256   # 32 kRunL2PThreadBodies
+RUN_P2M_MAX_CHUNK = 1024
+RUN_P2M_ITEMS_AN_SM = (8, 4)
 #: K7's geometry (csrc/fmm.cu): target nodes a block, target cells an
 #: item, cells per dimension of a cell tile, the most offset splits
 M2L_TARGETS = 128    # kM2LTargets
@@ -232,13 +241,84 @@ def cell_order(qx, qy, qz, c, h, C: int) -> CellOrder:
     return CellOrder(box, perm, bounds, C)
 
 
-def _work_items(order: CellOrder, chunk: int) -> tuple[torch.Tensor, int]:
-    """(prefix (C^3 + 1,) of each cell's work items of at most ``chunk``
-    bodies, a grid size that covers them): sum_c ceil(n_c / chunk) <=
-    n / chunk + C^3, so the grid needs no host sync."""
-    per_cell = (order.bounds.diff() + chunk - 1) // chunk
-    nitems = order.perm.shape[0] // chunk + order.C ** 3 + 1
-    return F.pad(per_cell.cumsum(0), (1, 0)), nitems
+# ------------------------------------------------- the run kernels' glue
+class RunItems(NamedTuple):
+    """The work items of a run kernel (K8, K9, K11, K12) over runs with
+    bounds ``bounds``: run r's items are prefix[r] .. prefix[r + 1] - 1,
+    each of at most ``chunk`` bodies, ``nitems`` at least prefix[-1] (the
+    kernels find each item's run in the prefix themselves)."""
+
+    bounds: torch.Tensor
+    prefix: torch.Tensor
+    nitems: int
+    chunk: int
+
+
+def padded_order(m: int) -> int:
+    """m rounded up to a multiple of 4: the width the kernels compile for
+    (MURB_DISPATCH_MW)."""
+    return (m + 3) // 4 * 4
+
+
+def run_items(bounds: torch.Tensor, n: int, chunk: int) -> RunItems:
+    """The work items of at most ``chunk`` bodies over runs with ``bounds``
+    (nrun + 1 offsets into n bodies): sum_r ceil(n_r / chunk) <= n /
+    chunk + nrun, so the item count needs no host sync."""
+    per = (bounds.diff() + chunk - 1) // chunk
+    prefix = F.pad(per.cumsum(0), (1, 0))
+    return RunItems(bounds, prefix, n // chunk + bounds.shape[0], chunk)
+
+
+def p2m_chunk(n: int, m: int, sms: int) -> int:
+    """Bodies a P2M work item of n bodies at order m on a card of ``sms``
+    SMs: the tile (32 bodies a warp item, RUN_P2M_TILE a block item)
+    doubled while the items would still give each SM its
+    RUN_P2M_ITEMS_AN_SM, up to RUN_P2M_MAX_CHUNK (at N = 1M and m > 8,
+    1024 bodies: the partials' round trip stays under a tenth of the
+    product)."""
+    warp = padded_order(m) <= RUN_WARP_MAX_MW
+    chunk = 32 if warp else RUN_P2M_TILE
+    want = RUN_P2M_ITEMS_AN_SM[0 if warp else 1] * sms
+    while chunk < RUN_P2M_MAX_CHUNK and 2 * chunk * want <= n:
+        chunk *= 2
+    return chunk
+
+
+def l2p_item(m: int) -> int:
+    """Bodies an L2P work item at order m (a warp's or a block's)."""
+    return (RUN_L2P_WARP_ITEM if padded_order(m) <= RUN_WARP_MAX_MW
+            else RUN_L2P_BLOCK_ITEM)
+
+
+@functools.lru_cache(maxsize=None)
+def node_table(m: int, device: torch.device) -> torch.Tensor:
+    """T_j(t_k) of order m, t_k = cos(pi (k + 1/2) / m), as the run kernels
+    read it: (m, m - 1) float32, [k, j - 1] = T_j(t_k) for j = 1..m-1,
+    computed in float64 once per (m, device) (csrc/cheb.cuh's table)."""
+    theta = np.pi * (np.arange(m)[:, None] + 0.5) / m
+    t = np.cos(theta * np.arange(1, m)[None, :])
+    return torch.from_numpy(t.astype(np.float32).ravel()).to(device)
+
+
+def p2m_outputs(items: RunItems, n: int, nrun: int, m: int, dev):
+    """(W (nrun, m^3), partial scratch or None) of a P2M run kernel over n
+    bodies: when a run may have several items (chunk < n) their partials
+    go through scratch and the kernel's second launch adds them; else
+    every run has at most one item, which writes its row of W, and W is
+    zeroed for the runs of none."""
+    fold = items.chunk < n
+    w = (torch.empty if fold else torch.zeros)((nrun, m ** 3),
+                                               dtype=torch.float32,
+                                               device=dev)
+    partial = (torch.empty(items.nitems * m ** 3, dtype=torch.float32,
+                           device=dev) if fold else None)
+    return w, partial
+
+
+def field_pointers(fields) -> ctypes.Array:
+    """A host array of the fields' device pointers, the L2P entries'
+    ``fields`` argument (the tensors must outlive the call)."""
+    return (ctypes.c_void_p * len(fields))(*(f.data_ptr() for f in fields))
 
 
 def _order_for(order, x, y, z, c, h, C: int) -> CellOrder:
@@ -252,6 +332,30 @@ def _order_for(order, x, y, z, c, h, C: int) -> CellOrder:
 
 
 # ----------------------------------------------------------- K8 wrapper
+def p2m_grid_items(order: CellOrder, m: int) -> RunItems:
+    """K8's work items over ``order``'s cells."""
+    n = order.perm.shape[0]
+    return run_items(order.bounds, n,
+                     p2m_chunk(n, m, cuda.sm_count(order.perm.device)))
+
+
+def p2m_grid_launch(x, y, z, g, order: CellOrder, items: RunItems,
+                    m: int) -> torch.Tensor:
+    """K8 alone on float32 inputs, their cell order and work items -> W
+    (C^3, m^3) float32."""
+    dev, C = x.device, order.C
+    w, partial = p2m_outputs(items, x.shape[0], C ** 3, m, dev)
+    with torch.cuda.device(dev):
+        cuda.launch("murb_p2m_grid", x.data_ptr(), y.data_ptr(),
+                    z.data_ptr(), g.data_ptr(), order.perm.data_ptr(),
+                    order.box.data_ptr(), m, C, items.bounds.data_ptr(),
+                    items.prefix.data_ptr(), items.nitems, items.chunk,
+                    node_table(m, dev).data_ptr(),
+                    None if partial is None else partial.data_ptr(),
+                    w.data_ptr(), cuda.stream(dev))
+    return w
+
+
 def p2m_grid_fused(qx, qy, qz, gm_eff, c, h, *, m: int, C: int,
                    order: CellOrder | None = None) -> torch.Tensor:
     """W (C^3, m^3) = grid P2M.  CPU tensors run ``p2m_grid_plain``; CUDA
@@ -265,16 +369,7 @@ def p2m_grid_fused(qx, qy, qz, gm_eff, c, h, *, m: int, C: int,
     x, y, z, g = cuda.kernel_inputs(_TAG, dev, n, qx, qy, qz, gm_eff,
                                     notify=notify_fp32_compute)
     order = _order_for(order, x, y, z, c, h, C)
-    prefix, nitems = _work_items(order, _P2M_CHUNK)
-    p3 = m ** 3
-    partial = torch.empty(nitems * p3, dtype=torch.float32, device=dev)
-    w = torch.empty((C ** 3, p3), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        cuda.launch("murb_p2m_grid", x.data_ptr(), y.data_ptr(),
-                    z.data_ptr(), g.data_ptr(), order.perm.data_ptr(),
-                    order.box.data_ptr(), m, C, order.bounds.data_ptr(),
-                    prefix.data_ptr(), nitems, partial.data_ptr(),
-                    w.data_ptr(), cuda.stream(dev))
+    w = p2m_grid_launch(x, y, z, g, order, p2m_grid_items(order, m), m)
     p2m_grid_fused.launches += 1
     return w.to(dtype)
 
@@ -283,6 +378,29 @@ p2m_grid_fused.launches = 0
 
 
 # ----------------------------------------------------------- K9 wrapper
+def l2p_grid_items(order: CellOrder, m: int) -> RunItems:
+    """K9's work items over ``order``'s cells."""
+    return run_items(order.bounds, order.perm.shape[0], l2p_item(m))
+
+
+def l2p_grid_launch(x, y, z, order: CellOrder, items: RunItems, m: int,
+                    fields) -> torch.Tensor:
+    """K9 alone on float32 inputs, their cell order and work items and 1
+    to 11 float32 contiguous (C^3, m^3) fields -> (k, n) float32, one
+    launch per group of at most 4 fields."""
+    dev, n, k = x.device, x.shape[0], len(fields)
+    out = torch.empty((k, n), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        cuda.launch("murb_l2p_grid", x.data_ptr(), y.data_ptr(),
+                    z.data_ptr(), order.perm.data_ptr(), n,
+                    order.box.data_ptr(), m, order.C,
+                    items.bounds.data_ptr(), items.prefix.data_ptr(),
+                    items.nitems, node_table(m, dev).data_ptr(),
+                    field_pointers(fields), k, out.data_ptr(),
+                    cuda.stream(dev))
+    return out
+
+
 def l2p_grid_fused(qx, qy, qz, c, h, fields, *, m: int, C: int,
                    order: CellOrder | None = None) -> tuple:
     """Interpolate 1 to 11 (C^3, m^3) node fields to the bodies -> tuple of
@@ -304,15 +422,8 @@ def l2p_grid_fused(qx, qy, qz, c, h, fields, *, m: int, C: int,
     x, y, z = cuda.kernel_inputs(_TAG, dev, n, qx, qy, qz,
                                  notify=notify_fp32_compute)
     order = _order_for(order, x, y, z, c, h, C)
-    prefix, nitems = _work_items(order, _L2P_CHUNK)
-    fmat = torch.stack(fields).to(torch.float32).contiguous()
-    out = torch.empty((k, n), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        cuda.launch("murb_l2p_grid", x.data_ptr(), y.data_ptr(),
-                    z.data_ptr(), order.perm.data_ptr(), n,
-                    order.box.data_ptr(), m, C, order.bounds.data_ptr(),
-                    prefix.data_ptr(), nitems, fmat.data_ptr(), k,
-                    out.data_ptr(), cuda.stream(dev))
+    flds = [f.to(torch.float32).contiguous() for f in fields]
+    out = l2p_grid_launch(x, y, z, order, l2p_grid_items(order, m), m, flds)
     l2p_grid_fused.launches += -(-k // _L2P_GROUP)
     return tuple(o.to(dtype) for o in out)
 

@@ -87,6 +87,37 @@ def two_clusters(n: int = TWO_CLUSTERS_N, seed: int = 42, *,
                                  v[:, 2], device=device)
 
 
+def graph_ms(fn, reps: int = 20, runs: int = 5) -> float:
+    """Device time (ms) of one call of ``fn``: ``reps`` calls captured in
+    one CUDA graph (after one call outside it, for caches and kernel
+    attributes), replayed ``runs`` times between CUDA events, the median
+    per call.  Unlike events around calls from the host, no host time
+    sits between the launches.  ``fn`` must launch only on the current
+    stream and read nothing back to the host."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(runs):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        torch.cuda.synchronize()
+        out.append(a.elapsed_time(b) / reps)
+    del graph
+    return statistics.median(out)
+
+
 def device_rows(prof) -> list:
     """The profiler's per-name rows of device events (no host operators,
     no user annotations)."""

@@ -46,9 +46,24 @@ the same inputs:
     this card; K5 and K6 (one target a thread, 128 sources a tile, no j
     split) on the merger at R = 1, 2 and 8, with the largest difference
     over max|phi| and max|a|;
+  - the cell-run kernels' first design (K8, K9, K11, K12: each block
+    searching its run, items of 512 and 128 bodies, the fields stacked) at
+    (m, C) = (8, 4) and (6, 8) on the 200k random box, m = 18 and 32 at
+    C = 2 on the 1M two-cluster box and that box's slots (``cell_run_cases``),
+    k = 3 and 4: in turns by CUDA events around launches from the host and
+    in a CUDA graph (``profile_step.graph_ms``), each side's largest
+    difference from the float64 plain version and whether this checkout
+    gives the same bits twice; K8's and K9's blocks an SM at m = 8, 18 and
+    32 and the SM clock and power under their load at m = 18 and 32; the
+    SASS counts (FFMA, LDS, BAR among them) and the compiler's registers
+    and spills of every instance; then the wrappers through each tree's
+    package in turns (``WRAPPERS_CODE``: before and after one profiler
+    session, and the glue alone) and the FPS of the paths of
+    ``CELL_RUN_FPS`` (``--no-fps`` skips them);
   - the parent's build of an entry whose signature this checkout keeps
-    (K3 at the three shapes, K14 at D = 1 and 4): both must give the same
-    bits where the arithmetic is unchanged;
+    (K3 at the three shapes, K14 at D = 1 and 4, K5 and K6, K1 and K2 on
+    the galaxy at m = 12, K7 at every shape of ``K7_SHAPES``): both must
+    give the same bits where the arithmetic is unchanged;
   - the merger's tracked steps through each tree's own package, in turns
     (subprocesses in DIR and here): ``create_engine("tpu+tracking+multi")``
     with no ``acc_fn`` (K6) and the CLI (K4 force, K5 metrics), FPS over
@@ -75,13 +90,17 @@ import shutil
 import statistics
 import subprocess
 import sys
+import threading
+import time
 from collections import Counter
 from pathlib import Path
 
 import torch
+import torch.nn.functional as F
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from murb_tpu_torch.ops import cuda  # noqa: E402
+from murb_tpu_torch.utils.profile_step import graph_ms  # noqa: E402
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
@@ -103,18 +122,35 @@ FIRST_SIGNATURES = {
                           _P],
     # K7's first design: the offset subset and a split count, no plan
     "murb_m2l_level": [_P, _P, _F, _I, _I, _I, _I, _I, _P, _P, _P],
+    # the cell-run kernels' first design (K8, K9, K11, K12): a prefix of
+    # items each block searched, the fields stacked
+    "murb_p2m_grid": [_P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _I, _P, _P,
+                      _P],
+    "murb_l2p_grid": [_P, _P, _P, _P, _I, _P, _I, _I, _P, _P, _I, _P, _I,
+                      _P, _P],
+    "murb_p2m_window": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _I,
+                        _P, _P, _P],
+    "murb_l2p_window": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _P, _P, _I,
+                        _P, _I, _P, _P],
 }
+#: the cell-run kernels' entries (one comparison covers all four)
+CELL_RUN_ENTRIES = ("murb_p2m_grid", "murb_l2p_grid", "murb_p2m_window",
+                    "murb_l2p_window")
 #: each entry's sources (ring.cu launches tile.cu's sweep)
 SOURCES = {"murb_p2p_sorted": ["p2p.cu"], "murb_tile_rect": ["tile.cu"],
            "murb_mxu_rect": ["mxu.cu"],
            "murb_ring_pipelined": ["ring.cu", "tile.cu"],
            "murb_phi_rows_rect": ["phi.cu"], "murb_acc_phi_rows": ["phi.cu"],
            "murb_m2l_level": ["fmm.cu"],
-           "murb_hybrid_rect": ["hybrid.cu", "tile.cu"]}
+           "murb_hybrid_rect": ["hybrid.cu", "tile.cu"],
+           "murb_p2m_grid": ["fmm.cu"], "murb_l2p_grid": ["fmm.cu"],
+           "murb_p2m_window": ["anterp.cu"], "murb_l2p_window": ["anterp.cu"],
+           "murb_p2m": ["proxy.cu"], "murb_l2p": ["proxy.cu"]}
 #: entries compared with the parent's build when their signatures match
 #: this checkout's (their arithmetic is meant to be unchanged)
 SAME_ENTRIES = ("murb_tile_rect", "murb_ring_pipelined",
-                "murb_phi_rows_rect", "murb_acc_phi_rows")
+                "murb_phi_rows_rect", "murb_acc_phi_rows", "murb_p2m",
+                "murb_l2p", "murb_m2l_level")
 OUT = cuda.BUILD_DIR / "kernel_ab"
 SOFT = 2.0e8
 SOFT2 = ctypes.c_float(SOFT ** 2)
@@ -208,7 +244,7 @@ def in_turns(old, new, **kw) -> dict:
 
 def sass_counts(lib: Path, pattern: str) -> dict:
     """{kernel: {instructions, MUFU.RSQ, instructions a MUFU.RSQ, FFMA,
-    FMUL, FADD, LDS, HMMA, DFMA, DADD, F2F, HMMA a MUFU.RSQ}} of the
+    FMUL, FADD, LDS, HMMA, BAR, DFMA, DADD, F2F, HMMA a MUFU.RSQ}} of the
     kernels in ``lib``
     whose name matches ``pattern`` (cuobjdump)."""
     tool = shutil.which("cuobjdump") or str(
@@ -231,7 +267,8 @@ def sass_counts(lib: Path, pattern: str) -> dict:
                      "per_rsq": total / rsq if rsq else None,
                      "FFMA": ops.get("FFMA", 0), "FMUL": ops.get("FMUL", 0),
                      "FADD": ops.get("FADD", 0), "LDS": ops.get("LDS", 0),
-                     "HMMA": ops.get("HMMA", 0), "DFMA": ops.get("DFMA", 0),
+                     "HMMA": ops.get("HMMA", 0), "BAR": ops.get("BAR", 0),
+                     "DFMA": ops.get("DFMA", 0),
                      "DADD": ops.get("DADD", 0), "F2F": ops.get("F2F", 0),
                      "HMMA_per_rsq": ops.get("HMMA", 0) / rsq if rsq
                      else None}
@@ -241,7 +278,11 @@ def sass_counts(lib: Path, pattern: str) -> dict:
 def sweep_label(name: str) -> str:
     """``sweep BI=<targets a block> BJ=<sources a tile> NR=<rows>
     force|no force[ ext]`` for a mangled sweep_rows_kernel<BI, BJ, NR,
-    kForce[, kExt]> name (ext: K4's passes 3), else the name."""
+    kForce[, kExt]> name (ext: K4's passes 3), ``p2m_runs MW=<w> <Runs>``
+    or ``l2p_runs ...`` for a cell-run kernel, else the name."""
+    r = re.search(r"(p2m_runs|l2p_runs)_kernelILi(\d+)ENS_(\d+)(\w+)", name)
+    if r:
+        return f"{r.group(1)} MW={r.group(2)} {r.group(4)[:int(r.group(3))]}"
     m = re.search(r"sweep_rows_kernelILi(\d+)ELi(\d+)ELi(\d+)ELb([01])"
                   r"(?:ELb([01]))?", name)
     if not m:
@@ -1250,16 +1291,502 @@ FPS_RUNS = {
 }
 #: rounds of (parent, this, this, parent): 10 pairs a path
 FPS_ROUNDS = 5
+#: the paths of FPS_RUNS that launch the cell-run kernels on every step
+#: (K8 and K9; K11 and K12), and their rounds: 6 pairs a path
+CELL_RUN_FPS = ("tpu+proxy -s random 200k",
+                "two clusters 1M adaptive (5 steps)")
+CELL_RUN_FPS_ROUNDS = 3
 
 
-def fps_turns(parent: Path) -> dict:
-    """FPS of each of ``FPS_RUNS`` through each tree's own package, in
-    ``FPS_ROUNDS`` rounds of turns (parent, this, this, parent), one
-    process each."""
+def graph_turns(old, new, reps: int = 20) -> dict:
+    """``profile_step.graph_ms`` (launches captured in a CUDA graph: no
+    host time between them) in turns, old, new, new, old."""
+    t = [graph_ms(f, reps=reps) for f in (old, new, new, old)]
+    return {"old_graph_ms": [t[0], t[3]], "new_graph_ms": [t[1], t[2]]}
+
+
+def clock_under_load(fn, seconds: float = 2.0) -> dict:
+    """The SM clock (MHz) and power draw (W) nvidia-smi reads while ``fn``
+    runs back to back for about ``seconds``: the medians of its samples,
+    and how many."""
+    samples, stop = [], threading.Event()
+
+    def poll():
+        while not stop.is_set():
+            out = subprocess.run(
+                ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                 "--format=csv,noheader,nounits", "-i", "0"],
+                capture_output=True, text=True).stdout
+            try:
+                samples.append([float(v) for v in out.split(",")])
+            except ValueError:
+                pass
+            time.sleep(0.05)
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    watch = threading.Thread(target=poll)
+    watch.start()
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < seconds:
+        for _ in range(5):
+            fn()
+        torch.cuda.synchronize()
+    stop.set()
+    watch.join()
+    return {"sm_mhz": statistics.median(v[0] for v in samples),
+            "watts": statistics.median(v[1] for v in samples),
+            "samples": len(samples)} if samples else {}
+
+
+def runs_resident(m: int, l2p: bool, dev) -> dict:
+    """K8's (l2p False) or K9's blocks an SM at order m (the occupancy
+    calculator), threads a block and warps a scheduler (4 an SM)."""
+    blocks, threads = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(dev):
+        cuda.launch("murb_runs_resident", m, int(l2p), ctypes.byref(blocks),
+                    ctypes.byref(threads))
+    return {"blocks": blocks.value, "threads": threads.value,
+            "warps_a_scheduler": blocks.value * threads.value / 128}
+
+
+def cell_run_cases(dev):
+    """The cell-run kernels' shapes: (label, kind, m, C, k, inputs).  K8 and
+    K9 (k 3 and 4) at (m, C) = (8, 4) and (6, 8) on the 200k random box
+    (chip_smoke.py phase 8) and at m = 18 and 32, C = 2 on the 1M
+    two-cluster box (phase 9's repair); K11 and K12 (nf 3 and 4) on that
+    box's sorted bodies and slots under the plan the auto policy picks
+    (phase 9).  Fields: seeded normals at the scale of a node field."""
+    from murb_tpu_torch import G
+    from murb_tpu_torch.core.init import init_random
+    from murb_tpu_torch.models import create_engine
+    from murb_tpu_torch.ops import fmm_kernels as fk
+    from murb_tpu_torch.ops import p2p as pp
+    from murb_tpu_torch.ops import sparse_fmm as sf
+    from murb_tpu_torch.ops.fmm import _heavy_setup
+    from murb_tpu_torch.ops.proxy import bounding_box
+    from murb_tpu_torch.utils.profile_step import (TWO_CLUSTERS_DT,
+                                                   TWO_CLUSTERS_SOFT,
+                                                   two_clusters)
+
+    gen = torch.Generator(device="cpu").manual_seed(11)
+    rnd = lambda *shape: torch.randn(*shape, generator=gen).to(dev)
+    cases = []
+    st = init_random(200_000, 123, device=dev)
+    g = (st.m * G).float().contiguous()
+    c, h = bounding_box(st.qx, st.qy, st.qz, g > 0)
+    q = (st.qx, st.qy, st.qz)
+    for m, C in ((8, 4), (6, 8)):
+        order = fk.cell_order(*q, c, h, C)
+        cases.append((f"random 200k m={m} C={C}", "grid", m, C,
+                      {"q": q, "g": g, "order": order, "c": c, "h": h,
+                       "fields": [rnd(C ** 3, m ** 3) for _ in range(4)]}))
+    st = two_clusters(device=dev)
+    eng = create_engine("tpu+proxy", st, soft=TWO_CLUSTERS_SOFT,
+                        dt=TWO_CLUSTERS_DT)
+    plan = eng._plan
+    q = (st.qx, st.qy, st.qz)
+    c, h, *_rest, ge = _heavy_setup(*q, eng._gm(st), 1, sf.HEAVY_FACTOR)
+    h = h.max().expand(3)
+    ge = ge.float().contiguous()
+    for m in (18, 32):
+        order = fk.cell_order(*q, c, h, 2)
+        cases.append((f"two clusters 1M m={m} C=2", "grid", m, 2,
+                      {"q": q, "g": ge, "order": order, "c": c, "h": h,
+                       "fields": [rnd(8, m ** 3) for _ in range(4)]}))
+    C = 2 ** plan.levels
+    key, ci = pp.sorted_cells(*q, ge > 0, c, h, C)
+    key, perm = torch.sort(key, stable=True)
+    cap = plan.cell_caps[-1]
+    _, slots = sf._occupied_and_slots(key, cap)
+    cases.append((f"two clusters 1M slots m={plan.m} cap={cap}", "window",
+                  plan.m, C,
+                  {"q": [v[perm].contiguous() for v in q],
+                   "g": ge[perm].contiguous(),
+                   "cells": [v[perm].to(torch.int32).contiguous()
+                             for v in ci],
+                   "box": torch.cat([c - h, 2.0 * h / C]).float(),
+                   "c": c, "h": h, "ci": tuple(v[perm] for v in ci),
+                   "slots64": slots,
+                   "slots": slots.to(torch.int32), "cap": cap,
+                   "fields": [torch.cat([rnd(cap, plan.m ** 3), torch.zeros(
+                       1, plan.m ** 3, device=dev)]) for _ in range(4)]}))
+    return cases
+
+
+def cell_run_launchers(old, kind: str, m: int, C: int, k: int, a: dict,
+                       dev) -> dict:
+    """{"K8"/"K11": (old, new), "K9"/"K12": (old, new)}: launchers of the
+    first design's entries (a parent tree's: items of 512 and 128 bodies
+    found by each block's search, stacked fields) and of this checkout's
+    (the package's glue, built once), each keeping its output as
+    ``.out``."""
+    from murb_tpu_torch.ops import anterp_kernels as ak
+    from murb_tpu_torch.ops import fmm_kernels as fk
+
+    n = a["q"][0].shape[0]
+    p3 = m ** 3
+    fmat = torch.stack(a["fields"][:k]).contiguous()
+    flds = [f.contiguous() for f in a["fields"][:k]]
+    if kind == "grid":
+        order = a["order"]
+        nrun, bounds = C ** 3, order.bounds
+        runs_arg = (order.perm.data_ptr(),)
+        box = order.box
+        new_p2m_items = fk.p2m_grid_items(order, m)
+        new_l2p_items = fk.l2p_grid_items(order, m)
+    else:
+        nrun = a["cap"] + 1
+        bounds = ak.slot_items(a["slots"], a["cap"], 512)[0]
+        runs_arg = tuple(v.data_ptr() for v in a["cells"])
+        box = a["box"]
+        new_p2m_items = ak.window_items(a["slots"], a["cap"], fk.p2m_chunk(
+            n, m, cuda.sm_count(dev)))
+        new_l2p_items = ak.window_items(a["slots"], a["cap"],
+                                        fk.l2p_item(m))
+    per = lambda chunk: F.pad(((bounds.diff() + chunk - 1) // chunk
+                               ).cumsum(0), (1, 0))
+    pre512, items512 = per(512), n // 512 + nrun + 1
+    pre128, items128 = per(128), n // 128 + nrun + 1
+    partial = torch.empty(items512 * p3, dtype=torch.float32, device=dev)
+    w_old = torch.empty((nrun, p3), dtype=torch.float32, device=dev)
+    o_old = torch.zeros((k, n), dtype=torch.float32, device=dev)
+    q = [v.data_ptr() for v in a["q"]]
+    grid = kind == "grid"
+
+    def p2m_old():
+        if grid:
+            call(old, "murb_p2m_grid", *q, a["g"].data_ptr(), *runs_arg,
+                 box.data_ptr(), m, C, bounds.data_ptr(), pre512.data_ptr(),
+                 items512, partial.data_ptr(), w_old.data_ptr(),
+                 cuda.stream(dev))
+        else:
+            call(old, "murb_p2m_window", *q, a["g"].data_ptr(), *runs_arg,
+                 box.data_ptr(), m, nrun, bounds.data_ptr(),
+                 pre512.data_ptr(), items512, partial.data_ptr(),
+                 w_old.data_ptr(), cuda.stream(dev))
+
+    def l2p_old():
+        if grid:
+            call(old, "murb_l2p_grid", *q, *runs_arg, n, box.data_ptr(), m, C,
+                 bounds.data_ptr(), pre128.data_ptr(), items128,
+                 fmat.data_ptr(), k, o_old.data_ptr(), cuda.stream(dev))
+        else:
+            call(old, "murb_l2p_window", *q, *runs_arg, n, box.data_ptr(), m,
+                 nrun, bounds.data_ptr(), pre128.data_ptr(), items128,
+                 fmat.data_ptr(), k, o_old.data_ptr(), cuda.stream(dev))
+
+    def p2m_new():
+        if grid:
+            p2m_new.out = fk.p2m_grid_launch(*a["q"], a["g"], a["order"],
+                                             new_p2m_items, m)
+        else:
+            p2m_new.out = ak.p2m_window_launch(*a["q"], a["g"], a["cells"],
+                                               box, new_p2m_items, m)
+
+    def l2p_new():
+        if grid:
+            l2p_new.out = fk.l2p_grid_launch(*a["q"], a["order"],
+                                             new_l2p_items, m, flds)
+        else:
+            l2p_new.out = ak.l2p_window_launch(*a["q"], a["cells"], box,
+                                               new_l2p_items, m, flds)
+
+    p2m_old.out, l2p_old.out = w_old, o_old
+    p2m_new.chunk = new_p2m_items.chunk
+    return {("K8" if grid else "K11"): (p2m_old, p2m_new),
+            ("K9" if grid else "K12"): (l2p_old, l2p_new)}
+
+
+def cell_run_plain64(name: str, m: int, C: int, k: int, a: dict):
+    """The float64 plain version of ``name`` on a ``cell_run_cases`` case:
+    W (rows of the occupied slots for K11) or the (k, n) values."""
+    from murb_tpu_torch.ops import anterp_kernels as ak
+    from murb_tpu_torch.ops import fmm_kernels as fk
+
+    q = [v.double() for v in a["q"]]
+    c, h = a["c"].double(), a["h"].double()
+    flds = [f.double() for f in a["fields"][:k]]
+    if name == "K8":
+        return fk.p2m_grid_plain(*q, a["g"].double(), c, h, m=m, C=C)
+    if name == "K9":
+        return torch.stack(fk.l2p_grid_plain(*q, c, h, flds, m=m, C=C))
+    if name == "K11":
+        return ak.p2m_window_plain(*q, a["g"].double(), c, h, a["slots64"],
+                                   a["cap"], m=m, C=C,
+                                   ci=a["ci"])[:a["cap"]]
+    return torch.stack(ak.l2p_window_plain(*q, c, h, a["slots64"], flds,
+                                           m=m, C=C, ci=a["ci"]))
+
+
+def run_cell_runs_parent(old, dev) -> dict:
+    """K8, K9, K11 and K12: the first design (the parent tree's build)
+    against this checkout's at every shape of ``cell_run_cases``, in turns:
+    CUDA events over launches from the host (each side's wrapper-free
+    launch, this side's glue built once) and the launches captured in a
+    CUDA graph (``graph_ms``: no host time between them); each side's
+    largest difference from the float64 plain version over its largest
+    value, and whether this checkout gives the same bits twice.  At m = 18
+    and 32 also this checkout's SM clock and power under K8's and K9's
+    load; and K8's and K9's blocks an SM at m = 8, 18 and 32."""
     res = {}
-    for label, argv in FPS_RUNS.items():
+    for label, kind, m, C, a in cell_run_cases(dev):
+        for k in (3, 4):
+            for name, (f_old, f_new) in cell_run_launchers(
+                    old, kind, m, C, k, a, dev).items():
+                if name in ("K8", "K11") and k == 4:
+                    continue        # P2M has no fields
+                f_old()
+                f_new()
+                torch.cuda.synchronize()
+                first = f_new.out.clone()
+                f_new()
+                torch.cuda.synchronize()
+                ref = cell_run_plain64(name, m, C, k, a)
+                rows = slice(0, a["cap"]) if name == "K11" else slice(None)
+
+                def err(out):
+                    return float((out[rows].double() - ref).abs().max()
+                                 / ref.abs().max())
+
+                big = m >= 18
+                r = {"max_rel_diff": float((f_old.out - f_new.out).abs().max()
+                                           / f_old.out.abs().max()),
+                     "parent_err64": err(f_old.out),
+                     "this_err64": err(f_new.out),
+                     "same_bits": bool(torch.equal(first, f_new.out)),
+                     **in_turns(f_old, f_new, reps=3 if big else 20,
+                                runs=3 if big else 5),
+                     **graph_turns(f_old, f_new, reps=3 if big else 20)}
+                del ref
+                if name in ("K8", "K11"):
+                    r["chunk"] = f_new.chunk
+                if big and kind == "grid":
+                    r["load"] = clock_under_load(f_new)
+                key = f"{name} {label}" + ("" if name in ("K8", "K11")
+                                           else f" k={k}")
+                res[key] = r
+                print(f"[{key}] parent vs this max|d|/max {r['max_rel_diff']:.3e}"
+                      f"; against float64: parent {r['parent_err64']:.3e}, "
+                      f"this {r['this_err64']:.3e}; this the same bits twice "
+                      f"{r['same_bits']}; events: parent {r['old_ms']} ms, "
+                      f"this {r['new_ms']} ms; graph: parent "
+                      f"{r['old_graph_ms']} ms, this {r['new_graph_ms']} ms"
+                      + (f"; this under load {r['load']}" if "load" in r
+                         else ""))
+        del a
+        torch.cuda.empty_cache()
+    for m in (8, 18, 32):
+        for name, l2p in (("K8", False), ("K9", True)):
+            r = runs_resident(m, l2p, dev)
+            res[f"{name} m={m} resident"] = r
+            print(f"[{name} m={m} resident] {r}")
+    return res
+
+
+#: the wrappers through each tree's package (``WRAPPERS_CODE``): K8 and K9
+#: (k = 3) on the random box at (8, 4), K11 and K12 (nf = 3) on the 1M
+#: slots, K8 and K9 (k = 4) at m = 18 and 32 on the 1M box's C = 2 grid,
+#: each cell order prebuilt; then each tree's glue alone (the work items);
+#: then the wrappers again after one profiler session in the process
+WRAPPERS_CODE = r"""
+import json, statistics, sys
+import torch
+from torch.profiler import ProfilerActivity, profile
+from murb_tpu_torch import G
+from murb_tpu_torch.core.init import init_random
+from murb_tpu_torch.models import create_engine
+from murb_tpu_torch.ops import anterp_kernels as ak
+from murb_tpu_torch.ops import fmm_kernels as fk
+from murb_tpu_torch.ops import p2p as pp
+from murb_tpu_torch.ops import sparse_fmm as sf
+from murb_tpu_torch.ops.fmm import _heavy_setup
+from murb_tpu_torch.ops.proxy import bounding_box
+from murb_tpu_torch.utils.profile_step import (TWO_CLUSTERS_DT,
+                                               TWO_CLUSTERS_SOFT,
+                                               two_clusters)
+
+
+def time_ms(fn, reps, runs):
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(runs):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        out.append(a.elapsed_time(b) / reps)
+    return statistics.median(out)
+
+
+dev = torch.device("cuda", 0)
+gen = torch.Generator(device="cpu").manual_seed(11)
+rnd = lambda *shape: torch.randn(*shape, generator=gen).to(dev)
+calls, glue = {}, {}
+st = init_random(200_000, 123, device=dev)
+g = (st.m * G).float().contiguous()
+c, h = bounding_box(st.qx, st.qy, st.qz, g > 0)
+q = (st.qx, st.qy, st.qz)
+order = fk.cell_order(*q, c, h, 4)
+f8 = [rnd(64, 512) for _ in range(3)]
+calls["K8 m=8 C=4"] = lambda: fk.p2m_grid_fused(*q, g, c, h, m=8, C=4,
+                                                order=order)
+calls["K9 m=8 C=4 k=3"] = lambda: fk.l2p_grid_fused(*q, c, h, f8, m=8, C=4,
+                                                    order=order)
+st9 = two_clusters(device=dev)
+eng = create_engine("tpu+proxy", st9, soft=TWO_CLUSTERS_SOFT,
+                    dt=TWO_CLUSTERS_DT)
+plan = eng._plan
+q9 = (st9.qx, st9.qy, st9.qz)
+c9, h9, *_rest, ge9 = _heavy_setup(*q9, eng._gm(st9), 1, sf.HEAVY_FACTOR)
+h9 = h9.max().expand(3)
+C9, m9 = 2 ** plan.levels, plan.m
+key, ci = pp.sorted_cells(*q9, ge9 > 0, c9, h9, C9)
+key, perm = torch.sort(key, stable=True)
+xs, ys, zs, gs = (v[perm] for v in (*q9, ge9))
+ci = tuple(v[perm] for v in ci)
+cap = plan.cell_caps[-1]
+_, slots = sf._occupied_and_slots(key, cap)
+f9 = [torch.cat([rnd(cap, m9 ** 3), torch.zeros(1, m9 ** 3, device=dev)])
+      for _ in range(3)]
+calls["K11 1M slots"] = lambda: ak.p2m_window(xs, ys, zs, gs, c9, h9, slots,
+                                              cap, m=m9, C=C9, ci=ci)
+calls["K12 1M slots nf=3"] = lambda: ak.l2p_window(xs, ys, zs, c9, h9, slots,
+                                                   f9, m=m9, C=C9, ci=ci)
+order2 = fk.cell_order(*q9, c9, h9, 2)
+for m in (18, 32):
+    fm = [rnd(8, m ** 3) for _ in range(4)]
+    calls[f"K8 m={m} C=2"] = lambda m=m: fk.p2m_grid_fused(
+        *q9, ge9, c9, h9, m=m, C=2, order=order2)
+    calls[f"K9 m={m} C=2 k=4"] = lambda m=m, fm=fm: fk.l2p_grid_fused(
+        *q9, c9, h9, fm, m=m, C=2, order=order2)
+sl32 = slots.to(torch.int32)
+if hasattr(fk, "run_items"):
+    glue["K8 items m=8 C=4"] = lambda: fk.p2m_grid_items(order, 8)
+    glue["K9 items m=8 C=4"] = lambda: fk.l2p_grid_items(order, 8)
+    glue["K11 items 1M slots"] = lambda: ak.window_items(
+        sl32, cap, fk.p2m_chunk(xs.shape[0], m9, torch.cuda.
+                                get_device_properties(dev).
+                                multi_processor_count))
+    glue["K12 items 1M slots"] = lambda: ak.window_items(
+        sl32, cap, fk.l2p_item(m9))
+else:
+    glue["K8 items m=8 C=4"] = lambda: fk._work_items(order, 512)
+    glue["K9 items m=8 C=4"] = lambda: fk._work_items(order, 128)
+    glue["K11 items 1M slots"] = lambda: ak.slot_items(sl32, cap, 512)
+    glue["K12 items 1M slots"] = lambda: ak.slot_items(sl32, cap, 128)
+
+
+def timed(fns):
+    return {k: time_ms(f, 3 if "m=18" in k or "m=32" in k else 20,
+                       3 if "m=18" in k or "m=32" in k else 5)
+            for k, f in fns.items()}
+
+
+res = {"wrapper_ms": timed(calls), "glue_ms": timed(glue)}
+with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+    for f in calls.values():
+        f()
+    torch.cuda.synchronize()
+res["wrapper_ms_after_profiler"] = timed(calls)
+print(json.dumps(res))
+"""
+
+
+def wrapper_turns(parent: Path) -> dict:
+    """``WRAPPERS_CODE`` through each tree's own package in turns (parent,
+    this, this, parent), one process each: every reading of each side."""
+    out = {"parent": [], "this": []}
+    for side, root in (("parent", parent), ("this", ROOT), ("this", ROOT),
+                       ("parent", parent)):
+        proc = subprocess.run([sys.executable, "-c", WRAPPERS_CODE], cwd=root,
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"wrappers in {root} failed:\n"
+                               f"{proc.stderr[-3000:]}")
+        out[side].append(json.loads(proc.stdout.strip().splitlines()[-1]))
+    for part in ("wrapper_ms", "glue_ms", "wrapper_ms_after_profiler"):
+        for key in out["this"][0][part]:
+            print(f"[{part} {key}] parent "
+                  f"{[r[part][key] for r in out['parent']]}, this "
+                  f"{[r[part][key] for r in out['this']]}")
+    return out
+
+
+def run_proxy_parent(old, dev) -> dict:
+    """K1 and K2 (csrc/proxy.cu, which shares cheb.cuh with the cell runs)
+    from the parent's build and this one on the 200k galaxy at m=12 (k = 3,
+    4 and 5 for K2): the same bits expected."""
+    from murb_tpu_torch import G
+    from murb_tpu_torch.core.init import init_galaxy
+    from murb_tpu_torch.ops.proxy import bounding_box
+
+    st = init_galaxy(200_000, 123, device=dev)
+    g = (st.m * G).float().contiguous()
+    c, h = bounding_box(st.qx, st.qy, st.qz, g > 0)
+    box = torch.cat([c.reshape(3), h.reshape(3)]).float()
+    q = [v.data_ptr() for v in (st.qx, st.qy, st.qz)]
+    n, m, s = st.qx.shape[0], 12, cuda.stream(dev)
+    nblocks = max(1, min(-(-n // 64), 4 * cuda.sm_count(dev)))
+    res = {}
+    outs = {}
+    for side, dll in (("parent", old), ("this", cuda.library())):
+        part = torch.empty(nblocks * m ** 3, dtype=torch.float32, device=dev)
+        w = torch.empty(m ** 3, dtype=torch.float32, device=dev)
+        call(dll, "murb_p2m", *q, g.data_ptr(), n, box.data_ptr(), m,
+             part.data_ptr(), nblocks, w.data_ptr(), s)
+        gen = torch.Generator(device="cpu").manual_seed(5)
+        got = [w]
+        for k in (3, 4, 5):
+            f = torch.randn(k, m ** 3, generator=gen).to(dev)
+            o = torch.empty((k, n), dtype=torch.float32, device=dev)
+            call(dll, "murb_l2p", *q, n, box.data_ptr(), m, f.data_ptr(), k,
+                 o.data_ptr(), s)
+            got.append(o)
+        torch.cuda.synchronize()
+        outs[side] = got
+    for i, label in enumerate(("K1", "K2 k=3", "K2 k=4", "K2 k=5")):
+        res[label] = bool(torch.equal(outs["parent"][i], outs["this"][i]))
+    print(f"[K1/K2 parent vs this, 200k galaxy m=12] bit for bit {res}")
+    return res
+
+
+def run_k7_same(old, dev) -> dict:
+    """K7 (csrc/fmm.cu, which holds K8's and K9's entries) from the
+    parent's build and this one at every shape of ``K7_SHAPES``: the same
+    bits expected, times in turns."""
+    res = {}
+    for m, C, subset, nf in K7_SHAPES:
+        f_old = k7_this(old, m, C, subset, nf, dev)
+        f_new = k7_this(cuda.library(), m, C, subset, nf, dev)
+        f_old()
+        f_new()
+        torch.cuda.synchronize()
+        big = m >= 18
+        r = {"bit_for_bit": bool(torch.equal(f_old.out, f_new.out)),
+             **in_turns(f_old, f_new, reps=1 if big else 5,
+                        runs=3 if big else 5)}
+        key = f"m={m} C={C} {subset} nf={nf}"
+        res[key] = r
+        print(f"[K7 parent vs this, {key}] bit for bit {r['bit_for_bit']}; "
+              f"parent {r['old_ms']} ms, this {r['new_ms']} ms")
+    return res
+
+
+def fps_turns(parent: Path, runs: dict = FPS_RUNS,
+              rounds: int = FPS_ROUNDS) -> dict:
+    """FPS of each of ``runs`` (``FPS_RUNS``) through each tree's own
+    package, in ``rounds`` rounds of turns (parent, this, this, parent),
+    one process each."""
+    res = {}
+    for label, argv in runs.items():
         out = {"parent": [], "this": []}
-        for side, root in FPS_ROUNDS * (("parent", parent), ("this", ROOT),
+        for side, root in rounds * (("parent", parent), ("this", ROOT),
                                         ("this", ROOT), ("parent", parent)):
             args = ["adaptive1m"] if argv is None else ["cli", *argv]
             proc = subprocess.run([sys.executable, "-c", FPS_CODE, *args],
@@ -1278,8 +1805,9 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="torch_kernel_ab")
     p.add_argument("--parent", type=Path,
                    help="root of a tree with first designs of K10, K3, K13, "
-                        "K14, K5 or K6, or with this tree's entries of K3, "
-                        "K14, K5 and K6")
+                        "K14, K5, K6, K7, K4's passes 3 or the cell runs "
+                        "(K8, K9, K11, K12), or with this tree's entries of "
+                        "K3, K14, K5, K6, K1, K2 and K7")
     p.add_argument("--no-scan", action="store_true",
                    help="skip the geometry scans (K3, K5/K6, K13)")
     p.add_argument("--variants", action="store_true",
@@ -1321,14 +1849,15 @@ def main(argv=None) -> int:
                                sorted({s for k in firsts + same
                                        for s in SOURCES[k]}))
     pattern = (r"p2p_kernel|tile_rect|mxu_|sweep_rows|phi_rows|m2l_kernel|"
-               r"hybrid_ext")
+               r"hybrid_ext|p2m_runs|l2p_runs")
     sass = {side: {sweep_label(k): v
                    for k, v in sass_counts(lib, pattern).items()}
             for side, lib in libs.items()}
     for side, kernels in sass.items():
         for name, c in kernels.items():
             print(f"[sass {side}] {name}: {c}")
-    ptxas = ptxas_report(libs["this"], r"sweep_rows_kernel|m2l_kernel")
+    ptxas = ptxas_report(libs["this"],
+                         r"sweep_rows_kernel|m2l_kernel|p2m_runs|l2p_runs")
     for name, c in ptxas.items():
         print(f"[ptxas this] {name}: {c}")
     result = {"device": smi, "sass": sass, "ptxas": ptxas}
@@ -1358,12 +1887,21 @@ def main(argv=None) -> int:
                 "murb_hybrid_rect": ("k4p3_first", lambda: run_k4p3_parent(
                     parent, dev))}
         for k in firsts:
-            if k != "murb_phi_rows_rect":    # run with murb_acc_phi_rows
-                key, run = runs[k]
+            if k not in ("murb_phi_rows_rect", *CELL_RUN_ENTRIES):
+                key, run = runs[k]         # K5 runs with murb_acc_phi_rows
                 result[key] = run()
+        if set(CELL_RUN_ENTRIES) & set(firsts):
+            result["cell_runs_first"] = run_cell_runs_parent(parent, dev)
+            result["cell_run_wrappers"] = wrapper_turns(args.parent)
+            if not args.no_fps:
+                result["cell_run_fps"] = fps_turns(
+                    args.parent, {k: FPS_RUNS[k] for k in CELL_RUN_FPS},
+                    CELL_RUN_FPS_ROUNDS)
         same_runs = {"murb_tile_rect": ("k3_parent", run_k3_parent),
                      "murb_ring_pipelined": ("k14_parent", run_k14_parent),
-                     "murb_acc_phi_rows": ("phi_parent", run_phi_parent)}
+                     "murb_acc_phi_rows": ("phi_parent", run_phi_parent),
+                     "murb_p2m": ("k1k2_parent", run_proxy_parent),
+                     "murb_m2l_level": ("k7_parent", run_k7_same)}
         for k in same:
             if k in same_runs:    # murb_phi_rows_rect: with K6's
                 key, run = same_runs[k]

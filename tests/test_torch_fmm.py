@@ -484,7 +484,7 @@ def test_cell_order_groups_each_cell():
         run = order.perm[order.bounds[k]:order.bounds[k + 1]]
         assert bool((cid[run] == k).all())
         assert bool((run[1:] > run[:-1]).all())          # stable
-    prefix, nitems = tk._work_items(order, 128)
-    assert int(prefix[-1]) <= nitems
+    items = tk.run_items(order.bounds, n, 128)
+    assert int(items.prefix[-1]) <= items.nitems
     assert tk.m2l_plan(8, 4, "expand", 132).nsplit == 33
     assert tk.m2l_plan(16, 16, "expand", 132).nsplit == 1
