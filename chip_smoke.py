@@ -9,7 +9,10 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      whether nvcc and triton are present;
   2. build: compile the CUDA kernels from murb_tpu_torch/csrc;
   3. kernel parity: each kernel against its plain PyTorch version (run in
-     float64) at main-path shapes, with the max error and both times (K3
+     float64) at main-path shapes, with the max error and both times (K1
+     at m 12 and 20 and K2 at k 3, 4, 5 and 11 at m=12 and k=3 at m=20 on
+     the 200k galaxy, each launched twice for the same bits and timed
+     through the wrapper and alone, its launches in a CUDA graph; K3
      at 16384^2, 5000x16384 and 8000^2, the m=20 node sweep's shape, each
      launched twice for the same bits; K4's passes 3 held to 4e-7 and to
      at most half the error of the fp32 sum with no j split, launched
@@ -218,6 +221,7 @@ def main() -> int:
                                            phi_split_args)
     from murb_tpu_torch.ops.proxy import acc_proxy, bounding_box, heavy_split
     from murb_tpu_torch.ops.p2p_kernels import p2p_sweep_kernel_sorted
+    from murb_tpu_torch.ops import proxy_kernels as tk
     from murb_tpu_torch.ops.proxy_kernels import (l2p_fused_multi, l2p_plain,
                                                   p2m_fused, p2m_plain)
     from murb_tpu_torch.ops.tile import acc_tile_rect, acc_tile_rect_plain
@@ -316,6 +320,9 @@ def main() -> int:
     gm_eff = heavy_split(st.qx, st.qy, st.qz, gm, 1, 100.0, mean_gm)[4]
     q64 = [v.double() for v in (st.qx, st.qy, st.qz)]
     gen = torch.Generator(device=dev).manual_seed(SEED)
+    # K1 and K2 alone: float32 inputs and the (6,) box as the wrappers
+    # hand them, the run's items and node table built (cached) beforehand
+    box = torch.cat([c.reshape(3), h.reshape(3)]).float()
     for m in (12, 20):
         w = p2m_fused(st.qx, st.qy, st.qz, gm_eff, c, h, m=m)
         w64 = p2m_plain(*q64, gm_eff.double(), c.double(), h.double(), m=m)
@@ -325,21 +332,32 @@ def main() -> int:
                                   atol=1e-6 * scale_w)),
               f"K1 m={m}: max|dW| {err_w:.3e} vs rtol 1e-4, atol "
               f"1e-6*max|W| ({1e-6 * scale_w:.3e})")
+        check(torch.equal(w, p2m_fused(st.qx, st.qy, st.qz, gm_eff, c, h,
+                                       m=m)), f"K1 m={m}: two launches differ")
         ms = time_ms(lambda: p2m_fused(st.qx, st.qy, st.qz, gm_eff, c, h,
                                        m=m))
+        alone = graph_ms(lambda: tk.p2m_launch(st.qx, st.qy, st.qz, gm_eff,
+                                               box, m))
         plain_ms = time_ms(lambda: p2m_plain(st.qx, st.qy, st.qz, gm_eff, c,
                                              h, m=m))
+        # per body: the contraction (2 m^3) and three bases (~6 m^2)
+        nbytes, flops = 16 * n_main + 4 * m ** 3, \
+            n_main * (2 * m ** 3 + 6 * m ** 2)
+        b_ms = bound(nbytes, flops)[0]
+        run = tk.one_run(n_main, m, dev)
         print(f"[3 K1 p2m m={m} N={n_main}] max|dW| {err_w:.3e} "
-              f"(max|W| {scale_w:.3e}, tol rtol 1e-4 + 1e-6*max|W|) "
-              f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
+              f"(max|W| {scale_w:.3e}, tol rtol 1e-4 + 1e-6*max|W|); the "
+              f"same bits twice; {run.nitems} items of {run.chunk} bodies; "
+              f"kernel {ms:.4f} ms through the wrapper, alone {alone:.4f} "
+              f"({b_ms / alone:.3f} of the bound {b_ms:.4f}), plain "
+              f"{plain_ms:.4f} ms")
         if m == 12:
-            # per body: the contraction (2 m^3) and three bases (~6 m^2)
-            keep("K1", err_w, ms, plain_ms, 16 * n_main + 4 * m ** 3,
-                 n_main * (2 * m ** 3 + 6 * m ** 2))
+            keep("K1", err_w, ms, plain_ms, nbytes, flops)
 
         # k=3: the force; 4: force + potential (tpu+tracking); 5: force + 2
-        # galaxy potentials (the kernel runs groups of at most 4 fields)
-        for k in ((3, 4, 5) if m == 12 else (3,)):
+        # galaxy potentials; 11: force + 8 (the most; groups of at most 4
+        # fields a launch)
+        for k in ((3, 4, 5, 11) if m == 12 else (3,)):
             fields = tuple(torch.randn(m ** 3, generator=gen, device=dev)
                            for _ in range(k))
             a = torch.stack(l2p_fused_multi(st.qx, st.qy, st.qz, c, h,
@@ -353,20 +371,26 @@ def main() -> int:
                                       atol=1e-5 * scale_a)),
                   f"K2 m={m} k={k}: max|da| {err_a:.3e} vs rtol 1e-4, atol "
                   f"1e-5*max|a| ({1e-5 * scale_a:.3e})")
+            check(torch.equal(a, torch.stack(l2p_fused_multi(
+                st.qx, st.qy, st.qz, c, h, fields, m=m))),
+                f"K2 m={m} k={k}: two launches differ")
             ms = time_ms(lambda: l2p_fused_multi(st.qx, st.qy, st.qz, c, h,
                                                  fields, m=m))
+            alone = graph_ms(lambda: tk.l2p_launch(st.qx, st.qy, st.qz, box,
+                                                   m, fields))
             plain_ms = time_ms(lambda: l2p_plain(st.qx, st.qy, st.qz, c, h,
                                                  fields, m=m))
-            b_ms, _ = bound(12 * n_main + 4 * k * (m ** 3 + n_main),
-                            n_main * (2 * k * m ** 3 + 6 * m ** 2))
+            nbytes = 12 * n_main + 4 * k * (m ** 3 + n_main)
+            flops = n_main * (2 * k * m ** 3 + 6 * m ** 2)
+            b_ms = bound(nbytes, flops)[0]
             print(f"[3 K2 l2p m={m} N={n_main} k={k}] max|da| {err_a:.3e} "
-                  f"(max|a| {scale_a:.3e}, tol rtol 1e-4 + 1e-5*max|a|) "
-                  f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
-                  f"bound {b_ms:.4f} ms")
+                  f"(max|a| {scale_a:.3e}, tol rtol 1e-4 + 1e-5*max|a|); "
+                  f"the same bits twice; {-(-k // 4)} launches; kernel "
+                  f"{ms:.4f} ms through the wrapper, alone {alone:.4f} "
+                  f"({b_ms / alone:.3f} of the bound {b_ms:.4f}), plain "
+                  f"{plain_ms:.4f} ms")
             if (m, k) == (12, 3):
-                keep("K2", err_a, ms, plain_ms,
-                     12 * n_main + 4 * k * (m ** 3 + n_main),
-                     n_main * (2 * k * m ** 3 + 6 * m ** 2))
+                keep("K2", err_a, ms, plain_ms, nbytes, flops)
 
     sr = init_random(16_300, SEED, device=dev)      # npad 16384, 84 ghosts
     gr = sr.m * torch.tensor(G, dtype=torch.float32).item()
@@ -2125,9 +2149,9 @@ def main() -> int:
     for k, count in launches.items():
         check(count > 0, f"{k} launched no time on its piece of the path")
     meta = {
-        "K1": ("p2m", "murb_tpu_torch/csrc/proxy.cu",
+        "K1": ("p2m", "murb_tpu_torch/csrc/cell_runs.cuh",
                "murb_tpu/ops/proxy_pallas.py:112"),
-        "K2": ("l2p", "murb_tpu_torch/csrc/proxy.cu",
+        "K2": ("l2p", "murb_tpu_torch/csrc/cell_runs.cuh",
                "murb_tpu/ops/proxy_pallas.py:170"),
         "K3": ("tile_rect", "murb_tpu_torch/csrc/tile.cu",
                "murb_tpu/ops/tile_pallas.py:39"),

@@ -1,25 +1,31 @@
-// The anterpolation kernels that read their bodies as runs of one cell:
-// the grid P2M and L2P of the dense hierarchy (fmm.cu: K8, K9) and the
-// windowed P2M and L2P of the adaptive one (anterp.cu: K11, K12).
+// The anterpolation kernels that read their bodies as runs: the grid P2M
+// and L2P of the dense hierarchy (fmm.cu: K8, K9), the windowed P2M and
+// L2P of the adaptive one (anterp.cu: K11, K12) and the single-cell P2M of
+// the proxy (proxy.cu: K1; its L2P, K2, is proxy.cu's own kernel, which
+// takes basis_span and stage_table from here).
 //
 // Replace the TPU kernels murb_tpu/ops/fmm_pallas.py:_p2m_grid_kernel
-// (K8, pallas_call :355) and _l2p_grid_kernel (K9, :406), and
+// (K8, pallas_call :355) and _l2p_grid_kernel (K9, :406),
 // murb_tpu/ops/anterp_pallas.py:_p2m_win_kernel (K11, :227) and
-// _l2p_win_kernel (K12, :315).  Both pairs compute the same functions over
-// a list of runs; they differ only in where a run's bodies live and how a
-// body's cell is found, which a `Runs` accessor supplies:
+// _l2p_win_kernel (K12, :315), and murb_tpu/ops/proxy_pallas.py:_p2m_kernel
+// (K1, :154).  They compute the same functions over a list of runs; they
+// differ only in where a run's bodies live and how a body's Chebyshev
+// coordinate t is found, which a `Runs` accessor supplies from the box the
+// kernel reads:
 //
 //   CellRuns  run = a cell of the C^3 grid, bodies read through the
 //             permutation that orders them by cell; every body of the run
-//             lies in the run's cell (K8, K9);
+//             lies in the run's cell (K8, K9); box [lo, cs], t = cell_t;
 //   SlotRuns  run = an occupied slot, bodies read in place (they arrive
 //             Morton-sorted), each with its own finest-level cell
 //             coordinates from the computation that made the sort key
-//             (K11, K12).
+//             (K11, K12); box [lo, cs], t = cell_t;
+//   OneRun    one run of all n bodies, read in place (K1); box [c, h],
+//             t = clip((q - c) / h), murb_tpu's proxy coordinate.
 //
 // The wrapper hands the kernels the run bounds (nrun + 1 offsets), a prefix
 // of work items per run and the node table T_j(t_k) of order m, built once
-// per (m, device) in float64 on the host (ops/fmm_kernels.node_table): no
+// per (m, device) in float64 on the host (ops/proxy_kernels.node_table): no
 // block rebuilds it.  Each warp finds its item's run by a 32-way search of
 // the prefix (warp_item_run).  A body's cell comes
 // from the accessor, never from a second floor here, so the sort and the
@@ -41,8 +47,9 @@
 // What the first design lost, and what this one does about it:
 //   - each pass of a P2M block (one per 256 (u, v) pairs: four at m = 32)
 //     rebuilt every body's bases, 64 of up to 256 threads computing them
-//     with basis_value's (m - 1)-step recurrence and one shared-memory load
-//     a step, the rest waiting at the barrier.  Now a body's 3m basis values
+//     each node's S_k by its own (m - 1)-step recurrence with one
+//     shared-memory load a step, the rest waiting at the barrier.  Now a
+//     body's 3m basis values
 //     are computed once per work item, by all threads at once
 //     (basis_span: T_j(t) once, then S_k for a span of nodes, the table
 //     read 4 nodes a load), and one pass covers all m^3 outputs;
@@ -55,8 +62,10 @@
 //     them (0.27 GB at m = 32, N = 1M).  Now the wrapper sizes the items
 //     from N and the card (ops/fmm_kernels.p2m_chunk: 1024 bodies at
 //     N = 1M), a run of one item writes W itself, and the second launch
-//     adds only runs of several items in item order; it is skipped when
-//     every run fits in one item;
+//     adds only runs of several items, in a fixed order: a thread an
+//     output, or where runs hold kRunFoldSplit items or more on average
+//     (K1's one run, K8's eight at C = 2) kRunFoldSplit lanes of items an
+//     output; it is skipped when every run fits in one item;
 //   - L2P fed 4 fmas per shared-memory load (one body a thread) and
 //     re-read each run's k m^3 field values once per 128 bodies.  Now the
 //     block tier computes H[b, (u, v)] = sum_w Sz[b, w] F[(u, v), w] as a
@@ -92,6 +101,9 @@ constexpr int kRunP2MTile = 64;        // bodies a staged tile (block tier)
 constexpr int kRunL2PLaneBodies = 2;   // L2P warp tier: 64 bodies an item
 constexpr int kRunL2PThreadBodies = 8; // L2P block tier: 256 bodies an item
 
+constexpr int kRunFoldThreads = 256;  // threads a fold block
+constexpr int kRunFoldSplit = 32;     // item lanes an output of a split fold
+
 // In-cell Chebyshev coordinate of q in the cell with index `cell` along one
 // dimension, clipped to [-1, 1] as the basis requires.
 __device__ __forceinline__ float cell_t(float q, float lo, float cs,
@@ -122,9 +134,12 @@ __device__ __forceinline__ int warp_item_run(const long long* prefix,
   return lo;
 }
 
-// A run accessor also stages a body's cell for P2M (stage_cell: cp.async
-// into dst[0..2], or nothing where the run gives the cell) and reads it
-// back (staged_cell).
+// A run accessor gives the index of a run's j-th body (body), a body's
+// cell (cell), stages a body's cell for P2M (stage_cell: cp.async into
+// dst[0..2], or nothing where the run gives the cell) and reads it back
+// (staged_cell), and maps a coordinate q along one dimension to the
+// body's Chebyshev coordinate t from the box's two values b0, b1 of that
+// dimension and the body's cell index (coord).
 struct CellRuns {
   const long long* perm;
   int C;
@@ -135,6 +150,9 @@ struct CellRuns {
   __device__ void stage_cell(int*, int, long long, bool) const {}
   __device__ int3 staged_cell(const int*, int run) const {
     return cell(run, 0);
+  }
+  __device__ float coord(float q, float lo, float cs, int cell) const {
+    return cell_t(q, lo, cs, cell);
   }
 };
 
@@ -154,6 +172,24 @@ struct SlotRuns {
   }
   __device__ int3 staged_cell(const int* src, int) const {
     return make_int3(src[0], src[1], src[2]);
+  }
+  __device__ float coord(float q, float lo, float cs, int cell) const {
+    return cell_t(q, lo, cs, cell);
+  }
+};
+
+// One run of all n bodies in place, in the box [c, h]: no cells, and t =
+// clip((q - c) / h) (murb_tpu/ops/proxy_pallas.py:103-109), not the cell_t
+// of a one-cell grid, which rounds differently.
+struct OneRun {
+  __device__ long long body(long long j) const { return j; }
+  __device__ int3 cell(int, long long) const { return make_int3(0, 0, 0); }
+  __device__ void stage_cell(int*, int, long long, bool) const {}
+  __device__ int3 staged_cell(const int*, int) const {
+    return make_int3(0, 0, 0);
+  }
+  __device__ float coord(float q, float c, float h, int) const {
+    return clip_unit((q - c) / h);
   }
 };
 
@@ -203,10 +239,10 @@ __device__ __forceinline__ void stage_table(float* tab,
 }
 
 // S_k(t) * scale for the NK nodes k = k0 .. k0 + NK - 1 of order m (0 for
-// k >= m) into v: basis_value's arithmetic for each k (cheb.cuh: the
-// recurrence for T_j(t), s = fma(T_j(t), T_j(t_k), s) for j = 1..m-1),
-// with T_j(t) computed once for all NK nodes and the table (stage_table)
-// read 4 nodes a load.
+// k >= m) into v: T_j(t) by the recurrence T_j = 2 t T_{j-1} - T_{j-2},
+// computed once for all NK nodes, s_k = fma(T_j(t), T_j(t_k), s_k) for j =
+// 1..m-1 with the table (stage_table) read 4 nodes a load, then S_k =
+// 1/m + (2/m) s_k.
 template <int MW, int NK>
 __device__ __forceinline__ void basis_span(float t, const float* tab, int m,
                                            int k0, float scale,
@@ -330,8 +366,10 @@ p2m_runs_kernel(const float* __restrict__ qx, const float* __restrict__ qy,
   const int run = item < nitems ? warp_item_run(prefix, nrun, item) : -1;
   if (run < 0) return;  // the whole group: no barrier of it is skipped
 
-  const float lox = box[0], loy = box[1], loz = box[2];
-  const float csx = box[3], csy = box[4], csz = box[5];
+  // box: [lo, cs] (CellRuns, SlotRuns) or [c, h] (OneRun), as runs.coord
+  // reads them
+  const float bx0 = box[0], by0 = box[1], bz0 = box[2];
+  const float bx1 = box[3], by1 = box[4], bz1 = box[5];
   const long long ib = prefix[run];
   const long long j0 = bounds[run] + (item - ib) * static_cast<long long>(
       chunk);
@@ -381,9 +419,9 @@ p2m_runs_kernel(const float* __restrict__ qx, const float* __restrict__ qy,
       const bool valid = j + gt < j1;
       const float4 q = rq[buf][gt];
       const int3 ci = runs.staged_cell(rc[buf][gt], run);
-      const float tx = valid ? cell_t(q.x, lox, csx, ci.x) : 0.f;
-      const float ty = valid ? cell_t(q.y, loy, csy, ci.y) : 0.f;
-      const float tz = valid ? cell_t(q.z, loz, csz, ci.z) : 0.f;
+      const float tx = valid ? runs.coord(q.x, bx0, bx1, ci.x) : 0.f;
+      const float ty = valid ? runs.coord(q.y, by0, by1, ci.y) : 0.f;
+      const float tz = valid ? runs.coord(q.z, bz0, bz1, ci.z) : 0.f;
       const float g = valid ? q.w : 0.f;
       const long long jn = j + S + gt;
       fetch(buf ^ 1, idx_next, jn < j1);
@@ -452,26 +490,58 @@ p2m_runs_kernel(const float* __restrict__ qx, const float* __restrict__ qy,
   }
 }
 
-// W[r, p] = the sum of the partials of run r's items, in item order, for
-// the runs of several items; 0 for runs of none; runs of one item wrote
-// their row themselves.  Block (r, y) takes run r's p in [256 y, 256 y +
-// 256) and leaves at once for a run of one item.  Internal linkage: fmm.cu
-// and anterp.cu each keep their own copy.
-constexpr int kRunFoldThreads = 256;
+// W[r, p] = the sum of the partials of run r's items for the runs of
+// several items; 0 for runs of none; runs of one item wrote their row
+// themselves.  `split` lanes of items an output (1 or kRunFoldSplit,
+// fold_split): block (r, y) takes the kRunFoldThreads / split outputs p of
+// run r from y kRunFoldThreads / split on, lane l of an output sums items
+// l, l + split, ... of the run in order, and the lanes' sums are added in
+// lane order (at split 1: the items in order, a thread an output).  A
+// block of a run of one item leaves at once.  Internal linkage: each
+// entry's source keeps its own copy.
 namespace {
 __global__ void __launch_bounds__(kRunFoldThreads)
 p2m_runs_fold_kernel(const float* __restrict__ partial,
-                     const long long* __restrict__ prefix, int p3,
+                     const long long* __restrict__ prefix, int p3, int split,
                      float* __restrict__ w) {
+  __shared__ float lanes[kRunFoldThreads];
   const int run = blockIdx.x;
   const long long b0 = prefix[run], b1 = prefix[run + 1];
-  const int p = blockIdx.y * kRunFoldThreads + threadIdx.x;
-  if (b1 - b0 == 1 || p >= p3) return;
+  if (b1 - b0 == 1) return;  // the whole block
+  const int per = kRunFoldThreads / split;
+  const int o = threadIdx.x % per, lane = threadIdx.x / per;
+  const int p = blockIdx.y * per + o;
   float s = 0.f;
-  for (long long b = b0; b < b1; ++b) s += partial[b * p3 + p];
-  w[static_cast<long long>(run) * p3 + p] = s;
+  if (p < p3) {
+#pragma unroll 4
+    for (long long b = b0 + lane; b < b1; b += split)
+      s += partial[b * p3 + p];
+  }
+  float* dst = w + static_cast<long long>(run) * p3 + p;
+  if (split == 1) {
+    if (p < p3) *dst = s;
+    return;
+  }
+  lanes[threadIdx.x] = s;
+  __syncthreads();
+  if (lane == 0 && p < p3) {
+    float t = 0.f;
+    for (int l = 0; l < split; ++l) t += lanes[l * per + o];
+    *dst = t;
+  }
 }
 }  // namespace
+
+// The fold's item lanes an output: kRunFoldSplit where the runs hold at
+// least kRunFoldSplit items on average (nitems, an upper bound of the
+// items, over nrun), else 1.  Both come from the shape alone, so every
+// launch of a shape sums in one order.
+inline int fold_split(int nitems, int nrun) {
+  return static_cast<long long>(nitems) >=
+                 static_cast<long long>(kRunFoldSplit) * nrun
+             ? kRunFoldSplit
+             : 1;
+}
 
 // ------------------------------------------------------------------ L2P
 // Geometry of the L2P at padded order MW.  Warp tier (MW <= 8): a warp
@@ -518,8 +588,8 @@ l2p_runs_kernel(const float* __restrict__ qx, const float* __restrict__ qy,
                 int k, int n, float* __restrict__ out) {
   using G = L2PGeom<MW>;
   constexpr int TB = G::kTB;
-  const float lox = box[0], loy = box[1], loz = box[2];
-  const float csx = box[3], csy = box[4], csz = box[5];
+  const float bx0 = box[0], by0 = box[1], bz0 = box[2];  // as in P2M
+  const float bx1 = box[3], by1 = box[4], bz1 = box[5];
   const long long p3 = static_cast<long long>(m) * m * m;
 
   if constexpr (G::kWarp) {
@@ -564,12 +634,12 @@ l2p_runs_kernel(const float* __restrict__ qx, const float* __restrict__ qy,
 #pragma unroll
     for (int i = 0; i < TB; ++i) {
       const RunBody& r = rb[i];
-      basis_span<MW, MW>(own[i] ? cell_t(r.x, lox, csx, r.c.x) : 0.f, tab,
-                         m, 0, 1.f, sx[i]);
-      basis_span<MW, MW>(own[i] ? cell_t(r.y, loy, csy, r.c.y) : 0.f, tab,
-                         m, 0, 1.f, sy[i]);
-      basis_span<MW, MW>(own[i] ? cell_t(r.z, loz, csz, r.c.z) : 0.f, tab,
-                         m, 0, 1.f, sz[i]);
+      basis_span<MW, MW>(own[i] ? runs.coord(r.x, bx0, bx1, r.c.x) : 0.f,
+                         tab, m, 0, 1.f, sx[i]);
+      basis_span<MW, MW>(own[i] ? runs.coord(r.y, by0, by1, r.c.y) : 0.f,
+                         tab, m, 0, 1.f, sy[i]);
+      basis_span<MW, MW>(own[i] ? runs.coord(r.z, bz0, bz1, r.c.z) : 0.f,
+                         tab, m, 0, 1.f, sz[i]);
     }
     cp_async_wait_all();
     __syncwarp();
@@ -672,9 +742,10 @@ l2p_runs_kernel(const float* __restrict__ qx, const float* __restrict__ qy,
       const long long body = valid ? runs.body(j) : 0;
       const RunBody r = run_body(runs, run, body, valid, qx, qy, qz);
       bidx[b] = valid ? body : -1;
-      tq[b] = make_float4(valid ? cell_t(r.x, lox, csx, r.c.x) : 0.f,
-                          valid ? cell_t(r.y, loy, csy, r.c.y) : 0.f,
-                          valid ? cell_t(r.z, loz, csz, r.c.z) : 0.f, 0.f);
+      tq[b] = make_float4(valid ? runs.coord(r.x, bx0, bx1, r.c.x) : 0.f,
+                          valid ? runs.coord(r.y, by0, by1, r.c.y) : 0.f,
+                          valid ? runs.coord(r.z, bz0, bz1, r.c.z) : 0.f,
+                          0.f);
     }
     __syncthreads();
     for (int task = tid; task < 3 * NB; task += G::kThreads) {
@@ -812,7 +883,11 @@ namespace murb {
 
 // Lets the L2P block tier at MW take its dynamic shared memory (above the
 // 48 KB default), once per device: a race between host threads only sets
-// it twice.
+// it twice.  Internal linkage: a template's static flag would otherwise be
+// one symbol for every library of these sources loaded in a process (two
+// builds compared in one process), and a flag set by one library's kernel
+// would skip the other's.
+namespace {
 template <int MW, class Runs>
 cudaError_t l2p_allow_smem() {
   constexpr int kDevices = 64;
@@ -826,6 +901,7 @@ cudaError_t l2p_allow_smem() {
   if (e == cudaSuccess && dev < kDevices) done[dev].store(true);
   return e;
 }
+}  // namespace
 
 // P2M over nrun runs into w (nrun, m^3), in nitems work items of `chunk`
 // bodies (prefix: nrun + 1 offsets of each run's items); node_table: m (m
@@ -852,9 +928,11 @@ int p2m_runs(const float* qx, const float* qy, const float* qz,
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || partial == nullptr) return static_cast<int>(err);
   const int p3 = m * m * m;
-  const dim3 grid(nrun, (p3 + kRunFoldThreads - 1) / kRunFoldThreads);
-  p2m_runs_fold_kernel<<<grid, kRunFoldThreads, 0, stream>>>(partial, prefix,
-                                                             p3, w);
+  const int split = fold_split(nitems, nrun);
+  const int per = kRunFoldThreads / split;
+  const dim3 grid(nrun, (p3 + per - 1) / per);
+  p2m_runs_fold_kernel<<<grid, kRunFoldThreads, 0, stream>>>(
+      partial, prefix, p3, split, w);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,288 +1,312 @@
 // K1 (P2M) and K2 (L2P): the anterpolation stages of the single-cell
-// Chebyshev proxy solver, with the interpolation bases rebuilt on chip.
+// Chebyshev proxy solver (murb_tpu_torch/ops/proxy_kernels.py).
 //
 // Replace the TPU kernels murb_tpu/ops/proxy_pallas.py:_p2m_kernel
 // (pallas_call at :154, entry p2m_fused :137) and _l2p_kernel (pallas_call
 // at :209, entries l2p_fused_multi :185 and l2p_fused :224).
 //
-// Both kernels take body coordinates and the box (device memory: center
-// c[3], half-widths h[3]), and rebuild each body's per-dimension bases
-//     S_k(t) = 1/m + (2/m) sum_{j=1}^{m-1} T_j(t) T_j(t_k),
-//     t = clip((q - c) / h, -1, 1),  t_k = cos(pi (k + 1/2) / m),
-// with the three-term recurrence for T_j(t) and a table of T_j(t_k) that
-// each block computes itself in fp64 (the table murb_tpu builds on the
-// host, proxy_pallas.py:_tj_nodes).  So, as on the TPU, the only device
-// memory traffic is the coordinates in and the result out: the (N, m^2)
-// combined basis never exists in device memory.
+//   P2M: W[(u, v, w)] = sum_j gm_j Sx_j[u] Sy_j[v] Sz_j[w],
+//   L2P: a_f[j] = sum_u Sx_j[u] sum_v Sy_j[v] sum_w Sz_j[w] F_f[(u, v, w)],
 //
-// P2M: W[u, v m + w] = sum_j gm_j Sx_j[u] Sy_j[v] Sz_j[w].  The TPU kernel
-// carried W across a sequential grid in VMEM.  Blocks on Hopper run in
-// parallel and in no order, so each block sums a fixed, strided set of
-// body tiles into its own partial W in a scratch buffer, and a second
-// kernel adds the partials in block order: no atomics, the same bits on
-// every run.  A thread owns one (u, v) pair and the m outputs along w in
-// registers; per body it does one multiply and m fmas, reading the body's
-// Sz row from shared memory as a broadcast.  Orders up to kMaxOrder = 32
-// (P = m^3 = 32,768 outputs per block) loop over (u, v) chunks.
-// Bound: fp32 fma issue (N m^3 fmas); device memory traffic is O(N) plus
-// the partials (grid * m^3 floats), which stay in L2 at the main-path m.
+// with S_k(t) the Chebyshev Lagrange basis of order m at t = clip((q - c)
+// / h) in the box [c, h] (a (6,) device array), for 1 to kMaxTotalFields
+// node fields: the force (3) and up to 8 potential rows of the tracked
+// paths.  Both take the node table from the wrapper and build each body's
+// bases once with cell_runs.cuh's basis_span.  Work is N m^3 fmas (P2M)
+// and N m^3 k (L2P), plus 3 m^2 a body for the bases; no atomics, every sum
+// in a fixed order: the same bits on every run.
 //
-// L2P: a_f[i] = sum_u Sx_i[u] sum_{v,w} F_f[u, v m + w] Sy_i[v] Sz_i[w]
-// for k <= 4 node fields per launch.  One thread per body holds its Sy and
-// Sz rows in registers; the node fields are staged through shared memory
-// one u-slice (k * m^2 floats, zero-padded to MW x MW) at a time, so m = 32
-// fits, and every thread reads the slice as a broadcast.  Work is
-// N m^3 k fmas; traffic is q in and k N floats out.  The tracked paths
-// interpolate 3 + G fields (force, then one potential per galaxy, G <= 8):
-// murb_l2p launches the kernel once per group of at most 4 fields.  A group
-// rebuilds each body's bases (about 3 m^2 fmas, 1/8 of a 4-field group's
-// contraction at m = 12), but the kernel keeps its 4-field register and
-// shared-memory footprint: 11 fields in one launch would stage 45 KB a
-// u-slice at m = 32 and hold 11 accumulators where the m = 32 variant
-// already spills.
+// K1 is cell_runs.cuh's P2M over one run of all n bodies in place (OneRun):
+// the wrapper hands it the run's bounds {0, n} and prefix of work items
+// {0, nitems}, built once per (n, m, device) (ops/proxy_kernels.one_run).
+// An item of `chunk` bodies (ops/fmm_kernels.p2m_chunk: 256 at N = 200k,
+// m = 12) writes its m^3 partials and the fold adds them, kRunFoldSplit
+// lanes of items an output; a run of one item writes W itself.
+//
+// K2 is its own kernel, not cell_runs.cuh's L2P over the one run: every
+// body reads the same fields, so a thread keeps its TB bodies' Sy and Sz
+// rows in registers and reads the fields as broadcasts (one LDS.128 for 4
+// TB fmas), where the run kernels' H = Sz.F tiles read each body's Sz row
+// from shared memory and their epilogue each body's Sx and Sy rows once per
+// field and chunk.  Per body and field the sums run t_v = sum_w F[u, v, w]
+// Sz[w] (w in order), b_u = sum_v Sy[v] t_v, a = sum_u Sx[u] b_u, each one
+// fp32 fma a term: the order of the run kernels' warp tier.  A block of
+// kOneThreads threads owns kOneThreads TB bodies (body i of thread t: i
+// kOneThreads + t, so loads and stores coalesce); the fields arrive kUC
+// u-rows at a time by cp.async, double-buffered, all k fields of the
+// launch in one chunk; each body's Sx row waits in shared memory, read
+// once a u.  One launch per group of at most kRunFields fields.
+#include <atomic>
+
 #include <cuda_runtime.h>
 
-#include "cheb.cuh"
+#include "cell_runs.cuh"
 
 namespace murb {
 
-constexpr int kMaxOrder = 32;
-constexpr int kP2MTile = 64;        // bodies whose bases sit in shared memory
-constexpr int kP2MMaxThreads = 256;
-constexpr int kL2PThreads = 128;
-constexpr int kMaxFields = 4;        // node fields one L2P launch takes
 constexpr int kMaxTotalFields = 11;  // fields murb_l2p takes (3 + 8)
+constexpr int kOneThreads = 128;     // K2: threads a block
+constexpr int kOneMaxTBMW = 20;      // K2 takes 2 bodies a thread up to here
 
-// ------------------------------------------------------------------ P2M
-// MW: m rounded up to a multiple of 4 (the register width along w).
-template <int MW>
-__global__ void __launch_bounds__(kP2MMaxThreads)
-p2m_partial_kernel(const float* __restrict__ qx, const float* __restrict__ qy,
-                   const float* __restrict__ qz, const float* __restrict__ gm,
-                   int n, const float* __restrict__ box, int m,
-                   float* __restrict__ partial) {
-  __shared__ float table[kMaxOrder * (kMaxOrder - 1)];
-  __shared__ float gsx[kP2MTile * kMaxOrder];
-  __shared__ float sy[kP2MTile * kMaxOrder];
-  __shared__ __align__(16) float sz[kP2MTile * MW];
+// K2's geometry at padded order MW and TB bodies a thread (their Sy and Sz
+// rows in registers; 2 where the blocks fill the card, else 1: the
+// wrapper's l2p_bodies): bodies a block, u-rows a field chunk, and the
+// dynamic shared memory: the node table, two chunks of kRunFields fields,
+// the Sx rows.
+template <int MW, int TB>
+struct OneL2PGeom {
+  static_assert(TB == 1 || (TB == 2 && MW <= kOneMaxTBMW), "bodies a thread");
+  static constexpr int kTB = TB;
+  // blocks an SM the registers must allow: at MW <= 12 and 2 bodies a
+  // thread six (80 registers), so the galaxy's 782 blocks run in one wave
+  // on 132 SMs
+  static constexpr int kMinBlocks = MW <= 12 && TB == 2 ? 6 : 1;
+  static constexpr int kItem = kOneThreads * kTB;
+  static constexpr int kUC = MW <= 16 ? 4 : 2;
+  static constexpr int kChunk = kRunFields * kUC * MW * MW;  // floats
+  static constexpr int kTab = (MW - 1) * MW;
+  static constexpr int kDynBytes = 4 * (kTab + 2 * kChunk + MW * kItem);
+  static_assert(kTab % 4 == 0 && kChunk % 4 == 0, "16-byte aligned parts");
+};
 
-  fill_node_table(table, m);
-  const float cx = box[0], cy = box[1], cz = box[2];
-  const float hx = box[3], hy = box[4], hz = box[5];
-  const int p2 = m * m;
-  const long long p3 = static_cast<long long>(p2) * m;
-  const int ntiles = (n + kP2MTile - 1) / kP2MTile;
-  float* out = partial + static_cast<long long>(blockIdx.x) * p3;
+template <int MW, int TB>
+__global__ void __launch_bounds__(kOneThreads, OneL2PGeom<MW, TB>::kMinBlocks)
+l2p_one_run_kernel(const float* __restrict__ qx, const float* __restrict__ qy,
+                   const float* __restrict__ qz, int n,
+                   const float* __restrict__ box, int m,
+                   const float* __restrict__ node_table, RunFields fields,
+                   int k, float* __restrict__ out) {
+  using G = OneL2PGeom<MW, TB>;
+  constexpr int UC = G::kUC;
+  extern __shared__ __align__(16) float smem[];
+  float* tab = smem;                   // the node table, stage_table's
+  float* fbuf = tab + G::kTab;         // two chunks: Fc[f][ul][v][w]
+  float* sxs = fbuf + 2 * G::kChunk;   // Sx rows: sxs[u kItem + body]
+  const int tid = threadIdx.x;
+  const long long j0 = static_cast<long long>(blockIdx.x) * G::kItem;
 
-  for (int uv0 = 0; uv0 < p2; uv0 += blockDim.x) {
-    const int uv = uv0 + threadIdx.x;
-    const bool active = uv < p2;
-    const int u = active ? uv / m : 0;
-    const int v = active ? uv % m : 0;
-    float acc[MW];
-#pragma unroll
-    for (int w = 0; w < MW; ++w) acc[w] = 0.f;
-
-    for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-      __syncthreads();  // the node table is ready; the last tile is consumed
-      const int b = threadIdx.x;
-      if (b < kP2MTile) {
-        const int j = tile * kP2MTile + b;
-        const bool real = j < n;
-        const float g = real ? gm[j] : 0.f;
-        const float tx = scaled(real ? qx[j] : cx, cx, hx);
-        const float ty = scaled(real ? qy[j] : cy, cy, hy);
-        const float tz = scaled(real ? qz[j] : cz, cz, hz);
-        for (int k = 0; k < m; ++k) {
-          const float* row = table + k * (m - 1);
-          gsx[b * kMaxOrder + k] = g * basis_value(tx, row, m);
-          sy[b * kMaxOrder + k] = basis_value(ty, row, m);
-        }
-#pragma unroll
-        for (int k = 0; k < MW; ++k)
-          sz[b * MW + k] = k < m ? basis_value(tz, table + k * (m - 1), m)
-                                 : 0.f;
-      }
-      __syncthreads();
-      if (active) {
-        for (int bb = 0; bb < kP2MTile; ++bb) {
-          const float t = gsx[bb * kMaxOrder + u] * sy[bb * kMaxOrder + v];
-          const float4* zr = reinterpret_cast<const float4*>(sz + bb * MW);
-#pragma unroll
-          for (int w4 = 0; w4 < MW / 4; ++w4) {
-            const float4 z = zr[w4];
-            acc[4 * w4 + 0] = fmaf(t, z.x, acc[4 * w4 + 0]);
-            acc[4 * w4 + 1] = fmaf(t, z.y, acc[4 * w4 + 1]);
-            acc[4 * w4 + 2] = fmaf(t, z.z, acc[4 * w4 + 2]);
-            acc[4 * w4 + 3] = fmaf(t, z.w, acc[4 * w4 + 3]);
-          }
-        }
-      }
+  // chunk c: rows u = c UC + ul of the k fields, zeros past m along v and w
+  // (with Sy, Sz 0 past m their terms add exact zeros)
+  auto stage_chunk = [&](int c, float* dst) {
+    for (int idx = tid; idx < k * UC * MW * MW; idx += kOneThreads) {
+      const int x = idx % MW, v = (idx / MW) % MW;
+      const int u = c * UC + (idx / (MW * MW)) % UC;
+      const int f = idx / (UC * MW * MW);
+      const bool valid = u < m && v < m && x < m;
+      cp_async4(dst + idx,
+                fields.at(f) + (valid ? (u * m + v) * m + x : 0), valid);
     }
-    if (active) {
-#pragma unroll
-      for (int w = 0; w < MW; ++w)
-        if (w < m) out[static_cast<long long>(u) * p2 + v * m + w] = acc[w];
-    }
-  }
-}
-
-// W[p] = sum over blocks of partial[b][p], in block order.
-__global__ void p2m_reduce_kernel(const float* __restrict__ partial,
-                                  int nblocks, long long p3,
-                                  float* __restrict__ w) {
-  const long long p = static_cast<long long>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  if (p >= p3) return;
-  float s = 0.f;
-  for (int b = 0; b < nblocks; ++b) s += partial[b * p3 + p];
-  w[p] = s;
-}
-
-// ------------------------------------------------------------------ L2P
-template <int MW>
-__global__ void __launch_bounds__(kL2PThreads)
-l2p_kernel(const float* __restrict__ qx, const float* __restrict__ qy,
-           const float* __restrict__ qz, int n,
-           const float* __restrict__ box, int m,
-           const float* __restrict__ fmat, int k, float* __restrict__ out) {
-  __shared__ float table[kMaxOrder * (kMaxOrder - 1)];
-  __shared__ __align__(16) float slice[kMaxFields * MW * MW];
-
-  fill_node_table(table, m);
+    cp_async_commit();
+  };
+  stage_chunk(0, fbuf);
+  stage_table<MW>(tab, node_table, m, tid, kOneThreads);
   __syncthreads();
+
+  const OneRun run{};
   const float cx = box[0], cy = box[1], cz = box[2];
   const float hx = box[3], hy = box[4], hz = box[5];
-  const int i = blockIdx.x * kL2PThreads + threadIdx.x;
-  const bool own = i < n;
-  const float tx = scaled(own ? qx[i] : cx, cx, hx);
-  const float ty = scaled(own ? qy[i] : cy, cy, hy);
-  const float tz = scaled(own ? qz[i] : cz, cz, hz);
-  float sy[MW], sz[MW];
+  float sy[TB][MW], sz[TB][MW];
+  bool own[TB];
 #pragma unroll
-  for (int c = 0; c < MW; ++c) {
-    sy[c] = c < m ? basis_value(ty, table + c * (m - 1), m) : 0.f;
-    sz[c] = c < m ? basis_value(tz, table + c * (m - 1), m) : 0.f;
+  for (int i = 0; i < TB; ++i) {
+    const long long j = j0 + i * kOneThreads + tid;
+    own[i] = j < n;
+    const float tx = own[i] ? run.coord(qx[j], cx, hx, 0) : 0.f;
+    const float ty = own[i] ? run.coord(qy[j], cy, hy, 0) : 0.f;
+    const float tz = own[i] ? run.coord(qz[j], cz, hz, 0) : 0.f;
+    float sx[MW];
+    basis_span<MW, MW>(tx, tab, m, 0, 1.f, sx);
+#pragma unroll
+    for (int u = 0; u < MW; ++u)
+      sxs[u * G::kItem + i * kOneThreads + tid] = sx[u];
+    basis_span<MW, MW>(ty, tab, m, 0, 1.f, sy[i]);
+    basis_span<MW, MW>(tz, tab, m, 0, 1.f, sz[i]);
   }
-  const int p2 = m * m;
-  float acc[kMaxFields] = {0.f, 0.f, 0.f, 0.f};
 
-  for (int u = 0; u < m; ++u) {
-    __syncthreads();  // the previous slice is consumed
-    for (int idx = threadIdx.x; idx < kMaxFields * MW * MW;
-         idx += kL2PThreads) {
-      const int f = idx / (MW * MW);
-      const int r = idx % (MW * MW);
-      const int v = r / MW, w = r % MW;
-      slice[idx] = (f < k && v < m && w < m)
-          ? fmat[static_cast<long long>(f * m + u) * p2 + v * m + w]
-          : 0.f;
-    }
-    __syncthreads();
-    const float su = basis_value(tx, table + u * (m - 1), m);
+  float acc[kRunFields][TB];
 #pragma unroll
-    for (int f = 0; f < kMaxFields; ++f) {
-      if (f < k) {
-        const float* ff = slice + f * MW * MW;
-        float b = 0.f;
+  for (int f = 0; f < kRunFields; ++f)
 #pragma unroll
-        for (int v = 0; v < MW; ++v) {
-          const float4* row = reinterpret_cast<const float4*>(ff + v * MW);
-          float t = 0.f;
+    for (int i = 0; i < TB; ++i) acc[f][i] = 0.f;
+  const int nchunk = (m + UC - 1) / UC;
+  for (int c = 0; c < nchunk; ++c) {
+    cp_async_wait_all();
+    __syncthreads();  // chunk c and the Sx rows visible; chunk c - 1 consumed
+    if (c + 1 < nchunk)
+      stage_chunk(c + 1, fbuf + ((c + 1) & 1) * G::kChunk);
+    const float* fc = fbuf + (c & 1) * G::kChunk;
+#pragma unroll 1
+    for (int ul = 0; ul < UC; ++ul) {
+      const int u = c * UC + ul;
+      if (u >= m) break;
+      float sxu[TB];
 #pragma unroll
-          for (int w4 = 0; w4 < MW / 4; ++w4) {
-            const float4 F = row[w4];
-            t = fmaf(F.x, sz[4 * w4 + 0], t);
-            t = fmaf(F.y, sz[4 * w4 + 1], t);
-            t = fmaf(F.z, sz[4 * w4 + 2], t);
-            t = fmaf(F.w, sz[4 * w4 + 3], t);
+      for (int i = 0; i < TB; ++i)
+        sxu[i] = sxs[u * G::kItem + i * kOneThreads + tid];
+#pragma unroll
+      for (int f = 0; f < kRunFields; ++f) {
+        if (f < k) {
+          float bu[TB];
+#pragma unroll
+          for (int i = 0; i < TB; ++i) bu[i] = 0.f;
+#pragma unroll
+          for (int v = 0; v < MW; ++v) {
+            const float4* row = reinterpret_cast<const float4*>(
+                fc + ((f * UC + ul) * MW + v) * MW);
+            float t[TB];
+#pragma unroll
+            for (int i = 0; i < TB; ++i) t[i] = 0.f;
+#pragma unroll
+            for (int w4 = 0; w4 < MW / 4; ++w4) {
+              const float4 q = row[w4];
+#pragma unroll
+              for (int i = 0; i < TB; ++i) {
+                t[i] = fmaf(q.x, sz[i][4 * w4 + 0], t[i]);
+                t[i] = fmaf(q.y, sz[i][4 * w4 + 1], t[i]);
+                t[i] = fmaf(q.z, sz[i][4 * w4 + 2], t[i]);
+                t[i] = fmaf(q.w, sz[i][4 * w4 + 3], t[i]);
+              }
+            }
+#pragma unroll
+            for (int i = 0; i < TB; ++i) bu[i] = fmaf(sy[i][v], t[i], bu[i]);
           }
-          b = fmaf(sy[v], t, b);
+#pragma unroll
+          for (int i = 0; i < TB; ++i)
+            acc[f][i] = fmaf(sxu[i], bu[i], acc[f][i]);
         }
-        acc[f] = fmaf(su, b, acc[f]);
       }
     }
   }
-  if (own) {
 #pragma unroll
-    for (int f = 0; f < kMaxFields; ++f)
-      if (f < k) out[static_cast<long long>(f) * n + i] = acc[f];
+  for (int i = 0; i < TB; ++i) {
+    if (own[i]) {
+      const long long j = j0 + i * kOneThreads + tid;
+#pragma unroll
+      for (int f = 0; f < kRunFields; ++f)
+        if (f < k) out[static_cast<long long>(f) * n + j] = acc[f][i];
+    }
   }
 }
 
-template <int MW>
-void launch_p2m(const float* qx, const float* qy, const float* qz,
-                const float* gm, int n, const float* box, int m,
-                float* partial, int nblocks, cudaStream_t stream) {
-  int threads = (m * m + 31) / 32 * 32;
-  threads = threads < kP2MTile ? kP2MTile : threads;
-  threads = threads > kP2MMaxThreads ? kP2MMaxThreads : threads;
-  p2m_partial_kernel<MW><<<nblocks, threads, 0, stream>>>(
-      qx, qy, qz, gm, n, box, m, partial);
+// Lets K2 at (MW, TB) take its dynamic shared memory, once per device (as
+// cell_runs.cuh's l2p_allow_smem, with internal linkage for the same
+// reason).
+namespace {
+template <int MW, int TB>
+cudaError_t one_run_allow_smem() {
+  constexpr int kDevices = 64;
+  static std::atomic<bool> done[kDevices];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess || (dev < kDevices && done[dev].load())) return e;
+  e = cudaFuncSetAttribute(l2p_one_run_kernel<MW, TB>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           OneL2PGeom<MW, TB>::kDynBytes);
+  if (e == cudaSuccess && dev < kDevices) done[dev].store(true);
+  return e;
+}
+}  // namespace
+
+// K2's blocks an SM at (MW, TB) (the CUDA occupancy calculator).
+template <int MW, int TB>
+cudaError_t one_run_resident(int* blocks) {
+  const cudaError_t e = one_run_allow_smem<MW, TB>();
+  if (e != cudaSuccess) return e;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, l2p_one_run_kernel<MW, TB>, kOneThreads,
+      OneL2PGeom<MW, TB>::kDynBytes);
 }
 
-template <int MW>
-void launch_l2p(const float* qx, const float* qy, const float* qz, int n,
-                const float* box, int m, const float* fmat, int k,
-                float* out, cudaStream_t stream) {
-  const int blocks = (n + kL2PThreads - 1) / kL2PThreads;
-  l2p_kernel<MW><<<blocks, kL2PThreads, 0, stream>>>(qx, qy, qz, n, box, m,
-                                                     fmat, k, out);
+// K2 at MW with TB bodies a thread on the current device.
+template <int MW, int TB>
+cudaError_t l2p_one_run(const float* qx, const float* qy, const float* qz,
+                        int n, const float* box, int m, const float* table,
+                        const RunFields& fields, int k, float* out,
+                        cudaStream_t stream) {
+  using G = OneL2PGeom<MW, TB>;
+  const cudaError_t e = one_run_allow_smem<MW, TB>();
+  if (e != cudaSuccess) return e;
+  l2p_one_run_kernel<MW, TB>
+      <<<static_cast<int>((n + G::kItem - 1) / G::kItem), kOneThreads,
+         G::kDynBytes, stream>>>(qx, qy, qz, n, box, m, table, fields, k,
+                                 out);
+  return cudaGetLastError();
 }
 
 }  // namespace murb
 
-#define MURB_DISPATCH_MW(m, CALL)                       \
-  switch ((m + 3) / 4 * 4) {                            \
-    case 4: CALL(4); break;                             \
-    case 8: CALL(8); break;                             \
-    case 12: CALL(12); break;                           \
-    case 16: CALL(16); break;                           \
-    case 20: CALL(20); break;                           \
-    case 24: CALL(24); break;                           \
-    case 28: CALL(28); break;                           \
-    case 32: CALL(32); break;                           \
-    default: return static_cast<int>(cudaErrorInvalidValue); \
-  }
-
-// partial: nblocks * m^3 floats of scratch; w: m^3 floats.
+// K1.  box: [c(3), h(3)]; bounds: {0, n}; prefix: {0, items of `chunk`
+// bodies}; nitems: at least prefix[1]; table: the node table of order m;
+// partial: nitems * m^3 floats of scratch, or null when n <= chunk; w:
+// m^3 floats.
 extern "C" int murb_p2m(const float* qx, const float* qy, const float* qz,
                         const float* gm, int n, const float* box, int m,
-                        float* partial, int nblocks, float* w,
-                        cudaStream_t stream) {
-  if (m < 2 || m > murb::kMaxOrder || nblocks < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-#define MURB_P2M(MW) \
-  murb::launch_p2m<MW>(qx, qy, qz, gm, n, box, m, partial, nblocks, stream)
-  MURB_DISPATCH_MW(m, MURB_P2M)
-#undef MURB_P2M
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long p3 = static_cast<long long>(m) * m * m;
-  murb::p2m_reduce_kernel<<<static_cast<int>((p3 + 255) / 256), 256, 0,
-                            stream>>>(partial, nblocks, p3, w);
-  return static_cast<int>(cudaGetLastError());
+                        const long long* bounds, const long long* prefix,
+                        int nitems, int chunk, const float* table,
+                        float* partial, float* w, cudaStream_t stream) {
+  if (n < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return murb::p2m_runs(qx, qy, qz, gm, murb::OneRun{}, box, m, 1, bounds,
+                        prefix, nitems, chunk, table, partial, w, stream);
 }
 
-// fmat: (k * m, m^2) node fields, row f * m + u; out: k * n floats.  One
-// launch per group of at most kMaxFields fields.
+// K2.  box: [c(3), h(3)]; tb: bodies a thread (1, or 2 at m <=
+// kOneMaxTBMW); table: the node table of order m; fields: k device
+// pointers (a host array) to (m^3,) fields; out: (k, n).  One launch per
+// group of at most kRunFields fields.
 extern "C" int murb_l2p(const float* qx, const float* qy, const float* qz,
-                        int n, const float* box, int m, const float* fmat,
+                        int n, const float* box, int m, int tb,
+                        const float* table, const float* const* fields,
                         int k, float* out, cudaStream_t stream) {
-  if (m < 2 || m > murb::kMaxOrder || k < 1 || k > murb::kMaxTotalFields)
+  if (m < 2 || m > murb::kRunMaxOrder || k < 1 ||
+      k > murb::kMaxTotalFields || tb < 1 || tb > 2 ||
+      (tb == 2 && (m + 3) / 4 * 4 > murb::kOneMaxTBMW))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n <= 0) return 0;
-  const long long p3 = static_cast<long long>(m) * m * m;
-  for (int f0 = 0; f0 < k; f0 += murb::kMaxFields) {
-    const int kg = k - f0 < murb::kMaxFields ? k - f0 : murb::kMaxFields;
-    const float* fg = fmat + f0 * p3;
+  for (int f0 = 0; f0 < k; f0 += murb::kRunFields) {
+    const int kg = k - f0 < murb::kRunFields ? k - f0 : murb::kRunFields;
+    murb::RunFields f{};
+    for (int i = 0; i < murb::kRunFields; ++i)
+      f.f[i] = fields[f0 + (i < kg ? i : 0)];
     float* og = out + static_cast<long long>(f0) * n;
-#define MURB_L2P(MW) \
-  murb::launch_l2p<MW>(qx, qy, qz, n, box, m, fg, kg, og, stream)
-    MURB_DISPATCH_MW(m, MURB_L2P)
-#undef MURB_L2P
-    const cudaError_t err = cudaGetLastError();
+    cudaError_t err = cudaSuccess;
+#define MURB_L2P_ONE(MW)                                                   \
+  {                                                                        \
+    constexpr int kTB2 = MW <= murb::kOneMaxTBMW ? 2 : 1;                  \
+    err = tb == 2 ? murb::l2p_one_run<MW, kTB2>(qx, qy, qz, n, box, m,     \
+                                                table, f, kg, og, stream)  \
+                  : murb::l2p_one_run<MW, 1>(qx, qy, qz, n, box, m, table, \
+                                             f, kg, og, stream);           \
+  }
+    MURB_DISPATCH_MW(m, MURB_L2P_ONE)
+#undef MURB_L2P_ONE
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return 0;
+}
+
+// The blocks of K1 (l2p 0) or K2 (l2p 1, tb bodies a thread) at order m
+// that one SM holds at once (the CUDA occupancy calculator), and its
+// threads a block.
+extern "C" int murb_proxy_resident(int m, int l2p, int tb, int* blocks,
+                                   int* threads) {
+  if (m < 2 || m > murb::kRunMaxOrder || tb < 1 || tb > 2 ||
+      (tb == 2 && (m + 3) / 4 * 4 > murb::kOneMaxTBMW))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t e = cudaSuccess;
+#define MURB_PROXY_RESIDENT(MW)                                            \
+  {                                                                        \
+    constexpr int kTB2 = MW <= murb::kOneMaxTBMW ? 2 : 1;                  \
+    if (!l2p) {                                                            \
+      *threads = murb::P2MGeom<MW>::kThreads;                              \
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(                   \
+          blocks, murb::p2m_runs_kernel<MW, murb::OneRun>, *threads, 0);   \
+    } else {                                                               \
+      *threads = murb::kOneThreads;                                        \
+      e = tb == 2 ? murb::one_run_resident<MW, kTB2>(blocks)               \
+                  : murb::one_run_resident<MW, 1>(blocks);                 \
+    }                                                                      \
+  }
+  MURB_DISPATCH_MW(m, MURB_PROXY_RESIDENT)
+#undef MURB_PROXY_RESIDENT
+  return static_cast<int>(e);
 }

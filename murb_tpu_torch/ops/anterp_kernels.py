@@ -33,8 +33,8 @@ import torch.nn.functional as F
 
 from murb_tpu_torch.ops import cuda
 from murb_tpu_torch.ops.common import notify_fp32_compute
-from murb_tpu_torch.ops.fmm_kernels import (RunItems, field_pointers,
-                                            l2p_item, node_table, p2m_chunk,
+from murb_tpu_torch.ops.fmm_kernels import (RunItems, l2p_item,
+                                            node_table, p2m_chunk,
                                             p2m_outputs)
 from murb_tpu_torch.ops.p2p import _cell_ixyz
 from murb_tpu_torch.ops.proxy_kernels import _basis
@@ -187,7 +187,7 @@ def l2p_window_launch(x, y, z, cells, box, items: RunItems, m: int,
                     box.data_ptr(), m, items.bounds.shape[0] - 1,
                     items.bounds.data_ptr(), items.prefix.data_ptr(),
                     items.nitems, node_table(m, dev).data_ptr(),
-                    field_pointers(fields), nf, out.data_ptr(),
+                    cuda.field_pointers(fields), nf, out.data_ptr(),
                     cuda.stream(dev))
     return out
 

@@ -47,8 +47,10 @@ _SIGNATURES = {
     "murb_mxu_rect": [_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                       _P, _P, _P, _P, _P, _P],
     "murb_mxu_resident": [_I, _I, _P],
-    "murb_p2m": [_P, _P, _P, _P, _I, _P, _I, _P, _I, _P, _P],
-    "murb_l2p": [_P, _P, _P, _I, _P, _I, _P, _I, _P, _P],
+    "murb_p2m": [_P, _P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _P, _P, _P,
+                 _P],
+    "murb_l2p": [_P, _P, _P, _I, _P, _I, _I, _P, _P, _I, _P, _P],
+    "murb_proxy_resident": [_I, _I, _I, _P, _P],
     "murb_phi_rows_rect": [_P, _P, _P, _I, _P, _P, _P, _I, _P, _I, _F,
                            _I, _I, _I, _I, _P, _P, _P],
     "murb_acc_phi_rows": [_P, _P, _P, _P, _I, _P, _I, _F, _I, _I, _I, _I,
@@ -308,6 +310,12 @@ def resident(entry: str, device: torch.device, block_i: int = 0,
         raise RuntimeError(f"{entry} at {block_i}x{block_j} {key}: no block "
                            "fits an SM")
     return blocks.value
+
+
+def field_pointers(fields) -> ctypes.Array:
+    """A host array of the fields' device pointers, the L2P entries'
+    ``fields`` argument (the tensors must outlive the call)."""
+    return (ctypes.c_void_p * len(fields))(*(f.data_ptr() for f in fields))
 
 
 @functools.lru_cache(maxsize=None)

@@ -34,7 +34,7 @@ import torch.nn.functional as F
 
 from murb_tpu_torch.ops import cuda
 from murb_tpu_torch.ops.common import notify_fp32_compute
-from murb_tpu_torch.ops.proxy_kernels import _basis
+from murb_tpu_torch.ops.proxy_kernels import _basis, node_table
 
 #: largest order and cells per dimension the kernels take (csrc/fmm.cu,
 #: csrc/cell_runs.cuh)
@@ -54,6 +54,9 @@ RUN_L2P_WARP_ITEM = 64     # 32 kRunL2PLaneBodies
 RUN_L2P_BLOCK_ITEM = 256   # 32 kRunL2PThreadBodies
 RUN_P2M_MAX_CHUNK = 1024
 RUN_P2M_ITEMS_AN_SM = (8, 4)
+#: the P2M fold's item lanes an output where the runs hold that many items
+#: on average (kRunFoldSplit; else 1)
+RUN_FOLD_SPLIT = 32
 #: K7's geometry (csrc/fmm.cu): target nodes a block, target cells an
 #: item, cells per dimension of a cell tile, the most offset splits
 M2L_TARGETS = 128    # kM2LTargets
@@ -284,20 +287,18 @@ def p2m_chunk(n: int, m: int, sms: int) -> int:
     return chunk
 
 
+def fold_split(nitems: int, nrun: int) -> int:
+    """The P2M fold's item lanes an output (csrc/cell_runs.cuh fold_split):
+    RUN_FOLD_SPLIT where ``nitems`` (the items' upper bound) is at least
+    RUN_FOLD_SPLIT a run, else 1 (a thread an output, the items in
+    order)."""
+    return RUN_FOLD_SPLIT if nitems >= RUN_FOLD_SPLIT * nrun else 1
+
+
 def l2p_item(m: int) -> int:
     """Bodies an L2P work item at order m (a warp's or a block's)."""
     return (RUN_L2P_WARP_ITEM if padded_order(m) <= RUN_WARP_MAX_MW
             else RUN_L2P_BLOCK_ITEM)
-
-
-@functools.lru_cache(maxsize=None)
-def node_table(m: int, device: torch.device) -> torch.Tensor:
-    """T_j(t_k) of order m, t_k = cos(pi (k + 1/2) / m), as the run kernels
-    read it: (m, m - 1) float32, [k, j - 1] = T_j(t_k) for j = 1..m-1,
-    computed in float64 once per (m, device) (csrc/cheb.cuh's table)."""
-    theta = np.pi * (np.arange(m)[:, None] + 0.5) / m
-    t = np.cos(theta * np.arange(1, m)[None, :])
-    return torch.from_numpy(t.astype(np.float32).ravel()).to(device)
 
 
 def p2m_outputs(items: RunItems, n: int, nrun: int, m: int, dev):
@@ -313,12 +314,6 @@ def p2m_outputs(items: RunItems, n: int, nrun: int, m: int, dev):
     partial = (torch.empty(items.nitems * m ** 3, dtype=torch.float32,
                            device=dev) if fold else None)
     return w, partial
-
-
-def field_pointers(fields) -> ctypes.Array:
-    """A host array of the fields' device pointers, the L2P entries'
-    ``fields`` argument (the tensors must outlive the call)."""
-    return (ctypes.c_void_p * len(fields))(*(f.data_ptr() for f in fields))
 
 
 def _order_for(order, x, y, z, c, h, C: int) -> CellOrder:
@@ -396,7 +391,7 @@ def l2p_grid_launch(x, y, z, order: CellOrder, items: RunItems, m: int,
                     order.box.data_ptr(), m, order.C,
                     items.bounds.data_ptr(), items.prefix.data_ptr(),
                     items.nitems, node_table(m, dev).data_ptr(),
-                    field_pointers(fields), k, out.data_ptr(),
+                    cuda.field_pointers(fields), k, out.data_ptr(),
                     cuda.stream(dev))
     return out
 

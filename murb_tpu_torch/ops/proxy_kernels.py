@@ -5,18 +5,25 @@ Port of ``murb_tpu/ops/proxy_pallas.py`` together with the stages it
 fuses, ``bases`` / ``p2m`` / ``l2p`` of ``murb_tpu/ops/proxy.py``.  The
 plain versions build the per-body bases Sx, Sy, Sz (n, m) and the combined
 Syz (n, m^2) as tensors and contract them; the CUDA kernels
-(``csrc/proxy.cu``) rebuild the bases on chip from the coordinates, so the
-only device memory traffic is the coordinates in and the result out.
+(``csrc/proxy.cu``) build the bases on chip from the coordinates and the
+node table, so the only device memory traffic is the coordinates in, the
+result out and, for K1, the work items' partials.  K1 is the run kernels'
+P2M over one run of all the bodies (``csrc/cell_runs.cuh``), K2 a kernel
+of its own that reads the fields as broadcasts (``csrc/proxy.cu``).
 
 ``p2m_fused`` and ``l2p_fused_multi`` run the plain version on CPU tensors
 and launch the kernel on CUDA tensors.  The box center ``c`` and
 half-widths ``h`` stay on the device; the kernels read them from device
-memory, so a step never waits on the device.
+memory, and K1's run bounds and work items (``one_run``) and the node
+table (``node_table``) are built once per (n, m, device), so a step never
+waits on the device.
 """
 from __future__ import annotations
 
+import functools
 import math
 
+import numpy as np
 import torch
 
 from murb_tpu_torch.ops import cuda
@@ -27,9 +34,14 @@ MAX_ORDER = 32
 #: node fields one L2P call takes: force (3) plus up to 8 potential rows
 #: (csrc/proxy.cu kMaxTotalFields; the kernel runs them in groups of 4)
 MAX_FIELDS = 11
-_L2P_GROUP = 4  # fields one K2 launch takes (csrc/proxy.cu kMaxFields)
+_L2P_GROUP = 4  # fields one K2 launch takes (csrc/cell_runs.cuh kRunFields)
+#: K2's geometry (csrc/proxy.cu): threads a block, the largest padded
+#: order at which a thread takes 2 bodies, and the blocks of 2 bodies a
+#: thread an SM must get for K2 to take them (else 1 body a thread)
+ONE_L2P_THREADS = 128     # kOneThreads
+ONE_L2P_MAX_TB_MW = 20    # kOneMaxTBMW
+ONE_L2P_BLOCKS_AN_SM = 4
 _TAG = "tpu+proxy (fused anterpolation)"
-_P2M_TILE = 64  # bodies per P2M tile (csrc/proxy.cu kP2MTile)
 
 
 def _tj_nodes(m: int, dtype: torch.dtype, device) -> torch.Tensor:
@@ -110,6 +122,60 @@ def _check_order(m: int) -> None:
                          f"range [2, {MAX_ORDER}]")
 
 
+@functools.lru_cache(maxsize=None)
+def node_table(m: int, device) -> torch.Tensor:
+    """T_j(t_k) of order m, t_k = cos(pi (k + 1/2) / m), as the run kernels
+    and K2 read it: (m, m - 1) float32, [k, j - 1] = T_j(t_k) for j =
+    1..m-1, computed in float64 on the host once per (m, device) (murb_tpu's
+    proxy_pallas.py:_tj_nodes)."""
+    theta = np.pi * (np.arange(m)[:, None] + 0.5) / m
+    t = np.cos(theta * np.arange(1, m)[None, :])
+    return torch.from_numpy(t.astype(np.float32).ravel()).to(device)
+
+
+@functools.lru_cache(maxsize=64)
+def one_run_items(n: int, chunk: int, device):
+    """The ``fmm_kernels.RunItems`` of one run of n bodies in items of
+    ``chunk`` bodies: bounds {0, n}, prefix {0, nitems}, built once per
+    (n, chunk, device)."""
+    from murb_tpu_torch.ops.fmm_kernels import RunItems
+
+    nitems = -(-n // chunk)
+    bounds = torch.tensor([0, n], dtype=torch.int64, device=device)
+    prefix = torch.tensor([0, nitems], dtype=torch.int64, device=device)
+    return RunItems(bounds, prefix, max(nitems, 1), chunk)
+
+
+@functools.lru_cache(maxsize=64)
+def one_run(n: int, m: int, device, sms: int | None = None):
+    """K1's one run of n bodies at order m: ``one_run_items`` of
+    ``fmm_kernels.p2m_chunk`` bodies for a card of ``sms`` SMs (by default
+    the device's), looked up once per (n, m, device)."""
+    from murb_tpu_torch.ops.fmm_kernels import p2m_chunk
+
+    chunk = p2m_chunk(n, m, cuda.sm_count(device) if sms is None else sms)
+    return one_run_items(n, chunk, device)
+
+
+def p2m_launch(x, y, z, g, box, m: int) -> torch.Tensor:
+    """K1 alone on n >= 1 float32 bodies and the (6,) box -> W (m^3,)
+    float32: the items' partials through scratch and the fold when the run
+    has several items."""
+    dev, n = x.device, x.shape[0]
+    run = one_run(n, m, dev)
+    w = torch.empty(m ** 3, dtype=torch.float32, device=dev)
+    partial = (torch.empty(run.nitems * m ** 3, dtype=torch.float32,
+                           device=dev) if run.nitems > 1 else None)
+    with torch.cuda.device(dev):
+        cuda.launch("murb_p2m", x.data_ptr(), y.data_ptr(), z.data_ptr(),
+                    g.data_ptr(), n, box.data_ptr(), m, run.bounds.data_ptr(),
+                    run.prefix.data_ptr(), run.nitems, run.chunk,
+                    node_table(m, dev).data_ptr(),
+                    None if partial is None else partial.data_ptr(),
+                    w.data_ptr(), cuda.stream(dev))
+    return w
+
+
 def p2m_fused(qx, qy, qz, gm_eff, c, h, *, m: int) -> torch.Tensor:
     """W (m^3,) = P2M.  CPU tensors run ``p2m_plain``; CUDA tensors launch
     K1 (fp32 inside; float64 inputs are cast here, W cast back)."""
@@ -118,23 +184,43 @@ def p2m_fused(qx, qy, qz, gm_eff, c, h, *, m: int) -> torch.Tensor:
     cuda.require_cuda(_TAG, qx)
     _check_order(m)
     dtype, dev, n = qx.dtype, qx.device, qx.shape[0]
+    if n == 0:
+        return torch.zeros(m ** 3, dtype=dtype, device=dev)
     x, y, z, g = cuda.kernel_inputs(_TAG, dev, n, qx, qy, qz, gm_eff,
                                     notify=notify_fp32_compute)
-    box = _box(c, h, dev)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    nblocks = max(1, min(-(-n // _P2M_TILE), 4 * sms))
-    p3 = m * m * m
-    partial = torch.empty(nblocks * p3, dtype=torch.float32, device=dev)
-    w = torch.empty(p3, dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        cuda.launch("murb_p2m", x.data_ptr(), y.data_ptr(), z.data_ptr(),
-                    g.data_ptr(), n, box.data_ptr(), m, partial.data_ptr(),
-                    nblocks, w.data_ptr(), cuda.stream(dev))
+    w = p2m_launch(x, y, z, g, _box(c, h, dev), m)
     p2m_fused.launches += 1
     return w.to(dtype)
 
 
 p2m_fused.launches = 0
+
+
+def l2p_bodies(n: int, m: int, sms: int) -> int:
+    """K2's bodies a thread for n bodies at order m on a card of ``sms``
+    SMs: 2 (blocks of 256 bodies) where that gives every SM at least
+    ONE_L2P_BLOCKS_AN_SM blocks and the padded order is at most
+    ONE_L2P_MAX_TB_MW, else 1 (blocks of 128: twice the warps for the
+    same bodies)."""
+    if (m + 3) // 4 * 4 > ONE_L2P_MAX_TB_MW:
+        return 1
+    per = 2 * ONE_L2P_THREADS
+    return 2 if -(-n // per) >= ONE_L2P_BLOCKS_AN_SM * sms else 1
+
+
+def l2p_launch(x, y, z, box, m: int, fields) -> torch.Tensor:
+    """K2 alone on float32 bodies, the (6,) box and 1 to 11 float32
+    contiguous (m^3,) fields -> (k, n) float32, one launch per group of at
+    most 4 fields."""
+    dev, n, k = x.device, x.shape[0], len(fields)
+    out = torch.empty((k, n), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        cuda.launch("murb_l2p", x.data_ptr(), y.data_ptr(), z.data_ptr(), n,
+                    box.data_ptr(), m, l2p_bodies(n, m, cuda.sm_count(dev)),
+                    node_table(m, dev).data_ptr(),
+                    cuda.field_pointers(fields), k, out.data_ptr(),
+                    cuda.stream(dev))
+    return out
 
 
 def l2p_fused_multi(qx, qy, qz, c, h, fields, *, m: int) -> tuple:
@@ -152,14 +238,9 @@ def l2p_fused_multi(qx, qy, qz, c, h, fields, *, m: int) -> tuple:
     dtype, dev, n = qx.dtype, qx.device, qx.shape[0]
     x, y, z = cuda.kernel_inputs(_TAG, dev, n, qx, qy, qz,
                                  notify=notify_fp32_compute)
-    fmat = torch.stack(cuda.kernel_inputs(_TAG, dev, m ** 3, *fields,
-                                          notify=notify_fp32_compute))
-    box = _box(c, h, dev)
-    out = torch.empty((k, n), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        cuda.launch("murb_l2p", x.data_ptr(), y.data_ptr(), z.data_ptr(), n,
-                    box.data_ptr(), m, fmat.data_ptr(), k, out.data_ptr(),
-                    cuda.stream(dev))
+    flds = cuda.kernel_inputs(_TAG, dev, m ** 3, *fields,
+                              notify=notify_fp32_compute)
+    out = l2p_launch(x, y, z, _box(c, h, dev), m, flds)
     l2p_fused_multi.launches += -(-k // _L2P_GROUP)
     return tuple(o.to(dtype) for o in out)
 

@@ -1,7 +1,7 @@
 """K3's, K5's, K6's and K13's block geometries on one card; optionally
 kernels against another source tree's builds of them.
 
-    python scripts/torch_kernel_ab.py [--parent DIR]
+    python scripts/torch_kernel_ab.py [--parent DIR] [--proxy]
 
 Without ``--parent`` (this checkout only):
 
@@ -60,10 +60,26 @@ the same inputs:
     package in turns (``WRAPPERS_CODE``: before and after one profiler
     session, and the glue alone) and the FPS of the paths of
     ``CELL_RUN_FPS`` (``--no-fps`` skips them);
+  - K1's and K2's first design (each block building the node table, K1
+    a grid of 4 SMs' blocks and a reduce, K2 one body a thread) against
+    the one-run design at ``PROXY_SHAPES`` (the 200k galaxy at m = 12,
+    K2 at k = 3, 4, 5 and 11, and m = 20, and one 50k shard of
+    ``shard+proxy``): alone in a CUDA graph and by CUDA events in turns,
+    each side's largest difference from float64, this side's K1 at each
+    chunk of ``PROXY_CHUNKS``, the SASS counts and the compiler's
+    registers and spills of both builds' instances, the wrappers through
+    each tree's package in fresh processes (``PROXY_WRAPPERS_CODE``,
+    ``PROXY_WRAPPER_ROUNDS`` rounds, no profiler) and the FPS of
+    ``PROXY_FPS`` in turns (``--no-fps`` skips them); ``--proxy`` runs
+    this alone (without ``--parent``: this checkout's kernels alone and
+    its wrappers);
   - the parent's build of an entry whose signature this checkout keeps
-    (K3 at the three shapes, K14 at D = 1 and 4, K5 and K6, K1 and K2 on
-    the galaxy at m = 12, K7 at every shape of ``K7_SHAPES``): both must
-    give the same bits where the arithmetic is unchanged;
+    (K3 at the three shapes, K14 at D = 1 and 4, K5 and K6, K7 at every
+    shape of ``K7_SHAPES``, K8, K9, K11 and K12 at ``cell_run_cases``
+    through this checkout's glue): both must give the same bits where
+    the arithmetic is unchanged (K8's and K11's P2M fold splits runs of
+    many items since the one-run redesign: there each side's distance
+    from float64);
   - the merger's tracked steps through each tree's own package, in turns
     (subprocesses in DIR and here): ``create_engine("tpu+tracking+multi")``
     with no ``acc_fn`` (K6) and the CLI (K4 force, K5 metrics), FPS over
@@ -132,6 +148,10 @@ FIRST_SIGNATURES = {
                         _P, _P, _P],
     "murb_l2p_window": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _P, _P, _I,
                         _P, _I, _P, _P],
+    # K1's and K2's first design (csrc/proxy.cu): each block built the node
+    # table, K1 a grid of 4 SMs' blocks and a reduce, K2's fields stacked
+    "murb_p2m": [_P, _P, _P, _P, _I, _P, _I, _P, _I, _P, _P],
+    "murb_l2p": [_P, _P, _P, _I, _P, _I, _P, _I, _P, _P],
 }
 #: the cell-run kernels' entries (one comparison covers all four)
 CELL_RUN_ENTRIES = ("murb_p2m_grid", "murb_l2p_grid", "murb_p2m_window",
@@ -149,8 +169,8 @@ SOURCES = {"murb_p2p_sorted": ["p2p.cu"], "murb_tile_rect": ["tile.cu"],
 #: entries compared with the parent's build when their signatures match
 #: this checkout's (their arithmetic is meant to be unchanged)
 SAME_ENTRIES = ("murb_tile_rect", "murb_ring_pipelined",
-                "murb_phi_rows_rect", "murb_acc_phi_rows", "murb_p2m",
-                "murb_l2p", "murb_m2l_level")
+                "murb_phi_rows_rect", "murb_acc_phi_rows", "murb_m2l_level",
+                *CELL_RUN_ENTRIES)
 OUT = cuda.BUILD_DIR / "kernel_ab"
 SOFT = 2.0e8
 SOFT2 = ctypes.c_float(SOFT ** 2)
@@ -279,10 +299,14 @@ def sweep_label(name: str) -> str:
     """``sweep BI=<targets a block> BJ=<sources a tile> NR=<rows>
     force|no force[ ext]`` for a mangled sweep_rows_kernel<BI, BJ, NR,
     kForce[, kExt]> name (ext: K4's passes 3), ``p2m_runs MW=<w> <Runs>``
-    or ``l2p_runs ...`` for a cell-run kernel, else the name."""
+    or ``l2p_runs ...`` for a cell-run kernel, ``l2p_one_run MW=<w>
+    TB=<bodies a thread>`` for K2, else the name."""
     r = re.search(r"(p2m_runs|l2p_runs)_kernelILi(\d+)ENS_(\d+)(\w+)", name)
     if r:
         return f"{r.group(1)} MW={r.group(2)} {r.group(4)[:int(r.group(3))]}"
+    r = re.search(r"l2p_one_run_kernelILi(\d+)ELi(\d+)E", name)
+    if r:
+        return f"l2p_one_run MW={r.group(1)} TB={r.group(2)}"
     m = re.search(r"sweep_rows_kernelILi(\d+)ELi(\d+)ELi(\d+)ELb([01])"
                   r"(?:ELb([01]))?", name)
     if not m:
@@ -1585,6 +1609,67 @@ def run_cell_runs_parent(old, dev) -> dict:
     return res
 
 
+class using:
+    """Route ``ops/cuda.launch`` to another build (a parent's library with
+    this checkout's C entries) while the block runs."""
+
+    def __init__(self, dll):
+        self.dll = dll
+
+    def __enter__(self):
+        self.saved = cuda.library
+        cuda.library = lambda: self.dll
+
+    def __exit__(self, *exc):
+        cuda.library = self.saved
+
+
+def run_cell_runs_same(old, dev) -> dict:
+    """K8, K9, K11 and K12 from a parent's build whose entries this
+    checkout keeps, against this build, through this checkout's glue at
+    every shape of ``cell_run_cases``: the same bits expected except where
+    the P2M's fold splits a run's items (``fmm_kernels.fold_split``), each
+    side's largest difference from the float64 plain version, times alone
+    in a CUDA graph in turns."""
+    res = {}
+    for label, kind, m, C, a in cell_run_cases(dev):
+        for k in (3, 4):
+            for name, (_, f_new) in cell_run_launchers(
+                    old, kind, m, C, k, a, dev).items():
+                if name in ("K8", "K11") and k == 4:
+                    continue
+
+                def f_old(f=f_new):
+                    with using(old):
+                        f()
+                    f_old.out = f.out
+
+                f_old()
+                torch.cuda.synchronize()
+                out_old = f_old.out.clone()
+                f_new()
+                torch.cuda.synchronize()
+                ref = cell_run_plain64(name, m, C, k, a)
+                rows = slice(0, a["cap"]) if name == "K11" else slice(None)
+                err = lambda out: float((out[rows].double() - ref).abs().max()
+                                        / ref.abs().max())
+                big = m >= 18
+                r = {"bit_for_bit": bool(torch.equal(out_old, f_new.out)),
+                     "max_rel_diff": float((out_old - f_new.out).abs().max()
+                                           / out_old.abs().max()),
+                     "parent_err64": err(out_old),
+                     "this_err64": err(f_new.out),
+                     **graph_turns(f_old, f_new, reps=3 if big else 20)}
+                del ref
+                key = f"{name} {label}" + ("" if name in ("K8", "K11")
+                                           else f" k={k}")
+                res[key] = r
+                print(f"[{key} parent vs this] {r}")
+        del a
+        torch.cuda.empty_cache()
+    return res
+
+
 #: the wrappers through each tree's package (``WRAPPERS_CODE``): K8 and K9
 #: (k = 3) on the random box at (8, 4), K11 and K12 (nf = 3) on the 1M
 #: slots, K8 and K9 (k = 4) at m = 18 and 32 on the 1M box's C = 2 grid,
@@ -1718,41 +1803,342 @@ def wrapper_turns(parent: Path) -> dict:
     return out
 
 
-def run_proxy_parent(old, dev) -> dict:
-    """K1 and K2 (csrc/proxy.cu, which shares cheb.cuh with the cell runs)
-    from the parent's build and this one on the 200k galaxy at m=12 (k = 3,
-    4 and 5 for K2): the same bits expected."""
+#: K1 and K2 at the proxy paths' shapes: (label, bodies, m, the k of K2)
+#: -- the 200k galaxy (tpu+proxy, the tracked proxies: k = 3 + G), and one
+#: of the four shards of shard+proxy (its first 50,000 bodies, the whole
+#: galaxy's box)
+PROXY_SHAPES = (("galaxy 200k", 200_000, 12, (3, 4, 5, 11)),
+                ("galaxy 200k", 200_000, 20, (3,)),
+                ("shard 50k", 50_000, 12, (3,)))
+#: the bodies K1's chunk scan tries an item (this checkout's design)
+PROXY_CHUNKS = (64, 128, 256, 512, 1024)
+
+
+def proxy_case(dev):
+    """The 200k galaxy's float32 positions, heavy-split weights and the
+    (6,) box [c, h] the K1/K2 entries read (ops/proxy.acc_proxy's)."""
     from murb_tpu_torch import G
     from murb_tpu_torch.core.init import init_galaxy
-    from murb_tpu_torch.ops.proxy import bounding_box
+    from murb_tpu_torch.ops.proxy import (HEAVY_FACTOR, HEAVY_K, bounding_box,
+                                          heavy_split)
 
     st = init_galaxy(200_000, 123, device=dev)
-    g = (st.m * G).float().contiguous()
-    c, h = bounding_box(st.qx, st.qy, st.qz, g > 0)
+    gm = (st.m * G).float()
+    c, h = bounding_box(st.qx, st.qy, st.qz, gm > 0)
+    mean_gm = gm.sum() / (gm > 0).sum()
+    ge = heavy_split(st.qx, st.qy, st.qz, gm, HEAVY_K, HEAVY_FACTOR,
+                     mean_gm)[4].contiguous()
     box = torch.cat([c.reshape(3), h.reshape(3)]).float()
-    q = [v.data_ptr() for v in (st.qx, st.qy, st.qz)]
-    n, m, s = st.qx.shape[0], 12, cuda.stream(dev)
-    nblocks = max(1, min(-(-n // 64), 4 * cuda.sm_count(dev)))
+    return (st.qx, st.qy, st.qz), ge, c, h, box
+
+
+def proxy_resident(m: int, l2p: bool, tb: int, dev) -> dict:
+    """K1's (l2p False) or K2's (``tb`` bodies a thread) blocks an SM at
+    order m (the occupancy calculator), threads a block and warps a
+    scheduler (4 an SM)."""
+    blocks, threads = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(dev):
+        cuda.launch("murb_proxy_resident", m, int(l2p), tb,
+                    ctypes.byref(blocks), ctypes.byref(threads))
+    return {"blocks": blocks.value, "threads": threads.value,
+            "warps_a_scheduler": blocks.value * threads.value / 128}
+
+
+def proxy_is_first(signatures: dict) -> bool:
+    """Whether a tree's K1/K2 entries are the first design's."""
+    return (signatures.get("murb_p2m") == FIRST_SIGNATURES["murb_p2m"]
+            and signatures.get("murb_l2p") == FIRST_SIGNATURES["murb_l2p"])
+
+
+def proxy_launchers(dll, first: bool, q, g, box, m: int, fields, dev,
+                    chunk: int | None = None, tb: int | None = None):
+    """(K1 launcher, {k: K2 launcher}) of one build, each keeping its
+    output as ``.out``: the first design's entries (a grid of 4 SMs'
+    blocks, partials and a reduce; the fields stacked) or this design's
+    with this checkout's glue (``ops/proxy_kernels.one_run``; K1's items
+    of ``chunk`` bodies and K2's ``tb`` bodies a thread when given, else
+    the wrapper's)."""
+    from murb_tpu_torch.ops import proxy_kernels as tk
+
+    n, p3 = q[0].shape[0], m ** 3
+    ptrs = [v.data_ptr() for v in q]
+    w = torch.empty(p3, dtype=torch.float32, device=dev)
+    outs = {k: torch.empty((k, n), dtype=torch.float32, device=dev)
+            for k in fields}
+    if first:
+        nblocks = max(1, min(-(-n // 64), 4 * cuda.sm_count(dev)))
+        part = torch.empty(nblocks * p3, dtype=torch.float32, device=dev)
+
+        def p2m():
+            call(dll, "murb_p2m", *ptrs, g.data_ptr(), n, box.data_ptr(), m,
+                 part.data_ptr(), nblocks, w.data_ptr(),
+                 cuda.stream(dev))
+
+        def l2p_of(k):
+            fmat = torch.stack(fields[k]).contiguous()
+
+            def l2p():
+                call(dll, "murb_l2p", *ptrs, n, box.data_ptr(), m,
+                     fmat.data_ptr(), k, outs[k].data_ptr(),
+                     cuda.stream(dev))
+            return l2p
+    else:
+        its = (tk.one_run(n, m, dev) if chunk is None
+               else tk.one_run_items(n, chunk, dev))
+        tb = tk.l2p_bodies(n, m, cuda.sm_count(dev)) if tb is None else tb
+        table = tk.node_table(m, dev)
+        part = (torch.empty(its.nitems * p3, dtype=torch.float32, device=dev)
+                if its.nitems > 1 else None)
+
+        def p2m():
+            call(dll, "murb_p2m", *ptrs, g.data_ptr(), n, box.data_ptr(), m,
+                 its.bounds.data_ptr(), its.prefix.data_ptr(), its.nitems,
+                 its.chunk, table.data_ptr(),
+                 None if part is None else part.data_ptr(), w.data_ptr(),
+                 cuda.stream(dev))
+
+        def l2p_of(k):
+            flds = [f.contiguous() for f in fields[k]]
+            ptr = cuda.field_pointers(flds)
+
+            def l2p():
+                call(dll, "murb_l2p", *ptrs, n, box.data_ptr(), m, tb,
+                     table.data_ptr(), ptr, k, outs[k].data_ptr(),
+                     cuda.stream(dev))
+            l2p.keep = flds
+            return l2p
+    p2m.out = w
+    l2ps = {}
+    for k in fields:
+        l2ps[k] = l2p_of(k)
+        l2ps[k].out = outs[k]
+    return p2m, l2ps
+
+
+def run_proxy(old, dev) -> dict:
+    """K1 and K2 at every shape of ``PROXY_SHAPES``: this checkout's
+    build alone in a CUDA graph (``graph_ms``) and its largest difference
+    from the float64 plain version over its largest value, the same bits
+    twice; with ``old`` (a parent's build of the first design) both in
+    turns, by CUDA events around launches from the host and in the graph.
+    With this checkout's design also K1 alone at each chunk of
+    ``PROXY_CHUNKS`` and K2 (k = 3) at 1 and 2 bodies a thread, their
+    blocks an SM and, on the galaxy at m = 12, the SM clock and power
+    under their load."""
+    from murb_tpu_torch.ops import proxy_kernels as tk
+
+    first_this = proxy_is_first(cuda._SIGNATURES)
+    q_all, g_all, c, h, box = proxy_case(dev)
+    gen = torch.Generator(device="cpu").manual_seed(5)
     res = {}
-    outs = {}
-    for side, dll in (("parent", old), ("this", cuda.library())):
-        part = torch.empty(nblocks * m ** 3, dtype=torch.float32, device=dev)
-        w = torch.empty(m ** 3, dtype=torch.float32, device=dev)
-        call(dll, "murb_p2m", *q, g.data_ptr(), n, box.data_ptr(), m,
-             part.data_ptr(), nblocks, w.data_ptr(), s)
-        gen = torch.Generator(device="cpu").manual_seed(5)
-        got = [w]
-        for k in (3, 4, 5):
-            f = torch.randn(k, m ** 3, generator=gen).to(dev)
-            o = torch.empty((k, n), dtype=torch.float32, device=dev)
-            call(dll, "murb_l2p", *q, n, box.data_ptr(), m, f.data_ptr(), k,
-                 o.data_ptr(), s)
-            got.append(o)
+    for label, n, m, ks in PROXY_SHAPES:
+        q = [v[:n].contiguous() for v in q_all]
+        g = g_all[:n].contiguous()
+        fields = {k: [torch.randn(m ** 3, generator=gen).to(dev)
+                      for _ in range(k)] for k in ks}
+        sides = {"this": proxy_launchers(cuda.library(), first_this, q, g,
+                                         box, m, fields, dev)}
+        if old is not None:
+            sides["parent"] = proxy_launchers(old, True, q, g, box, m,
+                                              fields, dev)
+        q64 = [v.double() for v in q]
+        w64 = tk.p2m_plain(*q64, g.double(), c.double(), h.double(), m=m)
+        jobs = [("K1", w64, {s: v[0] for s, v in sides.items()})]
+        for k in ks:
+            a64 = torch.stack(tk.l2p_plain(*q64, c.double(), h.double(),
+                                           [f.double() for f in fields[k]],
+                                           m=m))
+            jobs.append((f"K2 k={k}", a64,
+                         {s: v[1][k] for s, v in sides.items()}))
+        for name, ref, fns in jobs:
+            key = f"{name} {label} m={m}"
+            new = fns["this"]
+            new()
+            torch.cuda.synchronize()
+            first = new.out.clone()
+            new()
+            torch.cuda.synchronize()
+            err = lambda out: float((out.double() - ref).abs().max()
+                                    / ref.abs().max())
+            r = {"this_err64": err(new.out),
+                 "same_bits": bool(torch.equal(first, new.out))}
+            if old is None:
+                r["this_graph_ms"] = graph_ms(new)
+            else:
+                f_old = fns["parent"]
+                f_old()
+                torch.cuda.synchronize()
+                r.update(parent_err64=err(f_old.out),
+                         max_rel_diff=float((f_old.out - new.out).abs().max()
+                                            / f_old.out.abs().max()),
+                         **in_turns(f_old, new, reps=20),
+                         **graph_turns(f_old, new))
+            res[key] = r
+            print(f"[{key}] {r}")
+        if not first_this and label == "galaxy 200k":
+            scan = {}
+            for chunk in PROXY_CHUNKS:
+                f = proxy_launchers(cuda.library(), False, q, g, box, m,
+                                    {}, dev, chunk=chunk)[0]
+                f()
+                torch.cuda.synchronize()
+                scan[chunk] = {"graph_ms": graph_ms(f), "err64": float(
+                    (f.out.double() - w64).abs().max() / w64.abs().max())}
+            res[f"K1 {label} m={m} chunks"] = scan
+            print(f"[K1 {label} m={m} chunk scan] {scan}")
+        if not first_this:
+            scan = {}
+            for tb in (1, 2):
+                f = proxy_launchers(cuda.library(), False, q, g, box, m,
+                                    {3: fields[3]}, dev, tb=tb)[1][3]
+                f()
+                torch.cuda.synchronize()
+                scan[tb] = {"graph_ms": graph_ms(f),
+                            "same_bits": bool(torch.equal(
+                                f.out, sides["this"][1][3].out))}
+            res[f"K2 k=3 {label} m={m} bodies a thread"] = scan
+            tb = tk.l2p_bodies(n, m, cuda.sm_count(dev))
+            print(f"[K2 k=3 {label} m={m} bodies a thread] {scan} (the "
+                  f"wrapper takes {tb})")
+            occ = {"K1": proxy_resident(m, False, 1, dev),
+                   "K2": proxy_resident(m, True, tb, dev)}
+            if (label, m) == ("galaxy 200k", 12):
+                occ["K1 load"] = clock_under_load(sides["this"][0])
+                occ["K2 k=3 load"] = clock_under_load(sides["this"][1][3])
+            res[f"{label} m={m} resident"] = occ
+            print(f"[K1/K2 {label} m={m} resident] {occ}")
+        del sides, w64
+        torch.cuda.empty_cache()
+    return res
+
+
+#: K1 and K2 through a tree's own package (``p2m_fused``,
+#: ``l2p_fused_multi``) at ``PROXY_SHAPES``, by CUDA events around calls
+#: from the host, and the host's own time a call (200 calls queued
+#: without a wait, a perf_counter around them), in a fresh process that
+#: opens no profiler
+PROXY_WRAPPERS_CODE = r"""
+import json, statistics, time
+import torch
+from murb_tpu_torch import G
+from murb_tpu_torch.core.init import init_galaxy
+from murb_tpu_torch.ops.proxy import (HEAVY_FACTOR, HEAVY_K, bounding_box,
+                                      heavy_split)
+from murb_tpu_torch.ops.proxy_kernels import l2p_fused_multi, p2m_fused
+
+
+def time_ms(fn, reps=20, runs=5):
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(runs):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
         torch.cuda.synchronize()
-        outs[side] = got
-    for i, label in enumerate(("K1", "K2 k=3", "K2 k=4", "K2 k=5")):
-        res[label] = bool(torch.equal(outs["parent"][i], outs["this"][i]))
-    print(f"[K1/K2 parent vs this, 200k galaxy m=12] bit for bit {res}")
+        out.append(a.elapsed_time(b) / reps)
+    return statistics.median(out)
+
+
+def host_ms(fn, reps=200, runs=5):
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        out.append((time.perf_counter() - t0) * 1e3 / reps)
+        torch.cuda.synchronize()
+    return statistics.median(out)
+
+
+dev = torch.device("cuda", 0)
+st = init_galaxy(200_000, 123, device=dev)
+gm = (st.m * G).float()
+c, h = bounding_box(st.qx, st.qy, st.qz, gm > 0)
+ge = heavy_split(st.qx, st.qy, st.qz, gm, HEAVY_K, HEAVY_FACTOR,
+                 gm.sum() / (gm > 0).sum())[4]
+gen = torch.Generator(device="cpu").manual_seed(5)
+res = {}
+for label, n, m, ks in SHAPES:
+    q = [v[:n].contiguous() for v in (st.qx, st.qy, st.qz)]
+    g = ge[:n].contiguous()
+    calls = {f"K1 {label} m={m}": lambda: p2m_fused(*q, g, c, h, m=m)}
+    for k in ks:
+        f = tuple(torch.randn(m ** 3, generator=gen).to(dev)
+                  for _ in range(k))
+        calls[f"K2 k={k} {label} m={m}"] = (
+            lambda f=f: l2p_fused_multi(*q, c, h, f, m=m))
+    for key, fn in calls.items():
+        res[key] = time_ms(fn)
+        res[f"{key} host"] = host_ms(fn)
+print(json.dumps(res))
+"""
+
+
+#: rounds of (parent, this, this, parent) of the wrappers' processes
+PROXY_WRAPPER_ROUNDS = 3
+
+
+def proxy_wrapper_turns(parent: Path | None) -> dict:
+    """``PROXY_WRAPPERS_CODE`` through each tree's package, one fresh
+    process each: ``PROXY_WRAPPER_ROUNDS`` rounds of parent, this, this,
+    parent (this, this without a parent); every reading of each side."""
+    code = f"SHAPES = {PROXY_SHAPES!r}\n" + PROXY_WRAPPERS_CODE
+    order = (PROXY_WRAPPER_ROUNDS * (("parent", parent), ("this", ROOT),
+                                     ("this", ROOT), ("parent", parent))
+             if parent is not None else (("this", ROOT), ("this", ROOT)))
+    out = {side: [] for side, _ in order}
+    for side, root in order:
+        proc = subprocess.run([sys.executable, "-c", code], cwd=root,
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"K1/K2 wrappers in {root} failed:\n"
+                               f"{proc.stderr[-3000:]}")
+        out[side].append(json.loads(proc.stdout.strip().splitlines()[-1]))
+    for key in out["this"][0]:
+        print(f"[wrapper_ms {key}] "
+              + ", ".join(f"{side} {[r[key] for r in rows]}"
+                          for side, rows in out.items()))
+    return out
+
+
+#: the galaxy's proxy paths whose FPS both trees are timed at (K1 and K2
+#: on every step), 3 rounds of turns: 6 pairs a path
+PROXY_FPS = {
+    "tpu+proxy galaxy 200k": ["-n", "200000", "-i", "500", "--im",
+                              "tpu+proxy", "--nv", "--gf", "--scan"],
+    "tpu+tracking --kernel proxy galaxy 200k": [
+        "-n", "200000", "-i", "300", "--im", "tpu+tracking", "--kernel",
+        "proxy", "--nv", "--gf", "--scan"],
+}
+PROXY_FPS_ROUNDS = 3
+
+
+def proxy_section(parent_root: Path | None, parent, libs: dict,
+                  fps: bool) -> dict:
+    """K1 and K2: SASS counts and the compiler's registers and spills of
+    each build's instances, ``run_proxy``, the wrappers in fresh
+    processes and, against a parent, the proxy paths' FPS in turns."""
+    pattern = (r"p2m_partial|p2m_reduce|l2p_kernel|p2m_runs|l2p_runs|fold|"
+               r"l2p_one_run")
+    res = {"sass": {}, "ptxas": {}}
+    for side, lib in libs.items():
+        res["sass"][side] = {sweep_label(k): v for k, v in
+                             sass_counts(lib, pattern).items()}
+        res["ptxas"][side] = ptxas_report(lib, pattern)
+        for name, c in res["sass"][side].items():
+            print(f"[K1/K2 sass {side}] {name}: {c}")
+        for name, c in res["ptxas"][side].items():
+            print(f"[K1/K2 ptxas {side}] {name}: {c}")
+    res["kernels"] = run_proxy(parent, torch.device("cuda", 0))
+    res["wrappers"] = proxy_wrapper_turns(parent_root)
+    if parent_root is not None and fps:
+        res["fps"] = fps_turns(parent_root, PROXY_FPS, PROXY_FPS_ROUNDS)
     return res
 
 
@@ -1805,9 +2191,13 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="torch_kernel_ab")
     p.add_argument("--parent", type=Path,
                    help="root of a tree with first designs of K10, K3, K13, "
-                        "K14, K5, K6, K7, K4's passes 3 or the cell runs "
-                        "(K8, K9, K11, K12), or with this tree's entries of "
-                        "K3, K14, K5, K6, K1, K2 and K7")
+                        "K14, K5, K6, K7, K4's passes 3, the cell runs "
+                        "(K8, K9, K11, K12) or K1 and K2, or with this "
+                        "tree's entries of K3, K14, K5, K6, K7 and the cell "
+                        "runs")
+    p.add_argument("--proxy", action="store_true",
+                   help="only K1 and K2 (and, with --parent, the proxy "
+                        "paths' FPS): no other kernel")
     p.add_argument("--no-scan", action="store_true",
                    help="skip the geometry scans (K3, K5/K6, K13)")
     p.add_argument("--variants", action="store_true",
@@ -1842,12 +2232,26 @@ def main(argv=None) -> int:
                          capture_output=True, text=True).stdout.strip()
     print(smi)
     libs = {"this": cuda.build_kernels()}
+    if args.proxy:
+        firsts = [k for k in firsts if k in ("murb_p2m", "murb_l2p")]
+        same = []
+    parent = None
     if firsts or same:
         print(f"[{args.parent}] first designs {firsts}; same entries {same}")
         libs["parent"] = build("ab_parent",
                                args.parent / "murb_tpu_torch" / "csrc",
                                sorted({s for k in firsts + same
                                        for s in SOURCES[k]}))
+        parent = load(libs["parent"],
+                      {**{k: FIRST_SIGNATURES.get(k, cuda._SIGNATURES[k])
+                          for k in firsts},
+                       **{k: cuda._SIGNATURES[k] for k in same}})
+    if args.proxy:
+        result = {"device": smi, "k1k2": proxy_section(
+            args.parent if firsts else None, parent if firsts else None,
+            libs, not args.no_fps)}
+        print(json.dumps(result))
+        return 0
     pattern = (r"p2p_kernel|tile_rect|mxu_|sweep_rows|phi_rows|m2l_kernel|"
                r"hybrid_ext|p2m_runs|l2p_runs")
     sass = {side: {sweep_label(k): v
@@ -1869,10 +2273,6 @@ def main(argv=None) -> int:
         result["k7_variants"] = run_k7_variants(dev)
         result["k4p3_geometry"] = run_k4p3_geometries(dev)
     if firsts or same:
-        parent = load(libs["parent"],
-                      {**{k: FIRST_SIGNATURES.get(k, cuda._SIGNATURES[k])
-                          for k in firsts},
-                       **{k: cuda._SIGNATURES[k] for k in same}})
         runs = {"murb_tile_rect": ("k3_first", lambda: run_k3(parent, dev)),
                 "murb_p2p_sorted": ("k10_first", lambda: run_k10(
                     parent, cuda.library(), dev)),
@@ -1887,7 +2287,8 @@ def main(argv=None) -> int:
                 "murb_hybrid_rect": ("k4p3_first", lambda: run_k4p3_parent(
                     parent, dev))}
         for k in firsts:
-            if k not in ("murb_phi_rows_rect", *CELL_RUN_ENTRIES):
+            if k not in ("murb_phi_rows_rect", "murb_p2m", "murb_l2p",
+                         *CELL_RUN_ENTRIES):
                 key, run = runs[k]         # K5 runs with murb_acc_phi_rows
                 result[key] = run()
         if set(CELL_RUN_ENTRIES) & set(firsts):
@@ -1897,13 +2298,17 @@ def main(argv=None) -> int:
                 result["cell_run_fps"] = fps_turns(
                     args.parent, {k: FPS_RUNS[k] for k in CELL_RUN_FPS},
                     CELL_RUN_FPS_ROUNDS)
+        if "murb_p2m" in firsts:
+            result["k1k2_first"] = proxy_section(args.parent, parent, libs,
+                                                 not args.no_fps)
         same_runs = {"murb_tile_rect": ("k3_parent", run_k3_parent),
                      "murb_ring_pipelined": ("k14_parent", run_k14_parent),
                      "murb_acc_phi_rows": ("phi_parent", run_phi_parent),
-                     "murb_p2m": ("k1k2_parent", run_proxy_parent),
-                     "murb_m2l_level": ("k7_parent", run_k7_same)}
+                     "murb_m2l_level": ("k7_parent", run_k7_same),
+                     "murb_p2m_grid": ("cell_runs_parent",
+                                       run_cell_runs_same)}
         for k in same:
-            if k in same_runs:    # murb_phi_rows_rect: with K6's
+            if k in same_runs:    # K5 with K6's, K9/K11/K12 with K8's
                 key, run = same_runs[k]
                 result[key] = run(parent, dev)
         if "murb_acc_phi_rows" in firsts:

@@ -10,8 +10,10 @@ and is held to float64:
   - P2M: work items of ``p2m_chunk`` bodies of one run (``run_items``),
     each summing its bodies in order into every (u, v, w) (a thread's
     tile: p = gm Sx[u] * Sy[v], acc = fma(p, Sz[w], acc)); a run of one
-    item keeps its sum, a run of several adds its items' partials in item
-    order (the fold launch), a run of none reads 0;
+    item keeps its sum, a run of several adds its items' partials (the
+    fold launch: in item order, or where runs hold 32 items or more on
+    average in 32 lanes of items, each in order, then the lanes in order;
+    ``fold_split``), a run of none reads 0;
   - L2P at MW <= 8 (a warp an item): per body t = sum_w F Sz, b = sum_v
     Sy t, a = sum_u Sx b; above it (a block an item) H[(u, v)] = sum_w Sz
     F, each group of 4 pairs' t = sum of 4 Sy H in order, a warp's partial
@@ -94,6 +96,7 @@ def emulate_p2m(tx, ty, tz, g, bounds, items: fk.RunItems, m: int):
     mw = fk.padded_order(m)
     A, Y, Z = bases(tx, m, g), bases(ty, m), bases(tz, m)
     nrun = bounds.shape[0] - 1
+    split = fk.fold_split(items.nitems, nrun)
     w = torch.zeros((nrun, m, m, m), dtype=torch.float32)
     for r in range(nrun):
         i0, i1 = int(items.prefix[r]), int(items.prefix[r + 1])
@@ -109,12 +112,21 @@ def emulate_p2m(tx, ty, tz, g, bounds, items: fk.RunItems, m: int):
             parts.append(acc[:m, :m, :m])
         if len(parts) == 1:
             w[r] = parts[0]
-        else:
-            s = torch.zeros((m, m, m), dtype=torch.float32)
-            for part in parts:
-                s = s + part
-            w[r] = s
+        elif parts:                     # a run of none reads 0
+            w[r] = fold(parts, split)
     return w.reshape(nrun, m ** 3)
+
+
+def fold(parts, split: int):
+    """The fold launch's sum of a run's item partials: lane l adds items l,
+    l + split, ... in order, then the lanes' sums in lane order."""
+    total = torch.zeros_like(parts[0])
+    for lane in range(split):
+        s = torch.zeros_like(total)
+        for part in parts[lane::split]:
+            s = s + part
+        total = total + s
+    return total
 
 
 def emulate_l2p(tx, ty, tz, runs_of, fields, m: int, block: int = 256):
