@@ -99,7 +99,26 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      ``shard+uneven`` (0.6) on 4 shards against ``tpu+hybrid``; ``shard+proxy``
      on the galaxy (K1/K2) and on the random box (promoted to the hierarchy at
      phase 8's (m, L): K7-K9); ``shard+adaptive`` on the 1M two-cluster box (1
-     shard) and the merger (2 shards): K10-K12, health ok.
+     shard) and the merger (2 shards): K10-K12, health ok;
+ 12. the differentiable rollouts (murb_tpu_torch.diff), which launch no
+     kernel (every count stays 0 across the phase): the exact adjoint
+     (chunked, 16,384 random bodies, float64, 5 Euler steps, remat) against
+     central differences at 3 bodies (rel 1e-5) and in fp32 against float64
+     (WithinRel 1e-3); loss, gradients w.r.t. vx, m, qx, dt and soft and
+     the final state of the card against the CPU (N=2048, float64, chunked
+     and proxy, 1e-9); the proxy adjoint (m=12) on the 200k galaxy (finite,
+     nonzero on the bodies, 0 on the ghosts) and against the chunked one at
+     16,384 (WithinRel 1e-2, rms floor 1e-3); a vmapped ensemble of 3
+     against its members (1e-6); KDK and Yoshida4 gradients;
+     fit_initial_velocities (below 0.05 of its first loss) and
+     scripts/torch_fit_ic.py's defaults; a grad-requiring input refused by
+     K1's and K3's wrappers; the ms of a forward + backward step and the
+     peak memory of the exact fp32 adjoint and the 200k proxy adjoint;
+ 13. the viewer and the profiler through the CLI, each run a process of its
+     own: ``tpu+proxy -n 200000 --visu-live 0`` (frames served, one decoded,
+     space pauses, close ends it with exit 0) and ``-i 20 --nv --profile
+     DIR`` (the Chrome trace parses and holds K1's and K2's kernels; the
+     device time printed).
 Each piece of the path (the CLI run of phase 4, the ``acc_proxy`` of phase
 5, each CLI run of phase 6, each run of phases 7 to 11) starts from zeroed
 launch counts, which are read right after it: K1 and K2 from phase 4, K3
@@ -135,6 +154,8 @@ SOFT = 2.0e8
 DT = 3600.0
 TOL = 1e-4
 ROOT = os.path.dirname(os.path.abspath(__file__))
+#: rms floor of phase 12's fp32-against-float64 adjoint check
+RMS_FLOOR_32 = 1e-3
 # H100 SXM peaks (NVIDIA data sheet, 700 W): HBM bytes/s, fp32 FLOP/s
 PEAK_BYTES, PEAK_FP32 = 3.35e12, 67e12
 
@@ -189,6 +210,321 @@ def ext_bound_ms(ni: int, nj: int, sms: int, clk: float) -> dict:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke: FAILED: {msg}")
+
+
+def phase12(dev, smi, drive, within_rel, n_exact=16_384, n_full=200_000,
+            n_cmp=2048, fit_script=True):
+    """The differentiable rollouts (murb_tpu_torch.diff) on ``dev``: the
+    exact adjoint, the card against the CPU, the full-width proxy adjoint,
+    the ensemble, the other integrators and the fit.  No kernel may launch:
+    ``drive`` returns the launch counts of the whole phase.  Sizes are
+    arguments so that the phase can be rehearsed small on the CPU."""
+    import dataclasses
+
+    import torch
+
+    from murb_tpu_torch.core.init import init_galaxy, init_random
+    from murb_tpu_torch.diff import (ensemble, fit_initial_velocities,
+                                     rollout, stack_states, target_loss)
+
+    def target_of(s):
+        return (torch.stack([s.qx, s.qy, s.qz], 1)[: s.n] * 1.001).detach()
+
+    def loss_of(s, target, steps, **kw):
+        return target_loss(rollout(s, steps=steps, dt=DT, soft=SOFT, **kw),
+                           target)
+
+    def grads(s, steps, comps=("vx",), dt=DT, soft=SOFT, **kw):
+        """(loss, {name: gradient}) of the 1.001-scaled target's loss, for
+        the fields in ``comps`` and, as tensors, ``dt`` and ``soft``."""
+        target = target_of(s)
+        leaves = {k: getattr(s, k).clone().requires_grad_() for k in comps
+                  if k not in ("dt", "soft")}
+        phys = {k: torch.tensor(v, dtype=torch.float64,
+                                requires_grad=True)
+                for k, v in (("dt", dt), ("soft", soft)) if k in comps}
+        st = dataclasses.replace(s, **leaves)
+        loss = target_loss(rollout(st, steps=steps, dt=phys.get("dt", dt),
+                                   soft=phys.get("soft", soft), **kw),
+                           target)
+        names = [*leaves, *phys]
+        g = torch.autograd.grad(loss, [*leaves.values(), *phys.values()])
+        return loss.detach(), dict(zip(names, g))
+
+    def rel(a, b) -> float:
+        a, b = a.detach().double().cpu(), b.detach().double().cpu()
+        return float((a - b).abs().max() / b.abs().max().clamp(min=1e-300))
+
+    def step_cost(fn, steps):
+        """(ms a forward + backward step, peak bytes) of ``fn``'s second
+        call (the first warms the allocator); the peak is counted above
+        the tensors already live (earlier phases' states)."""
+        fn()
+        if dev.type != "cuda":
+            return float("nan"), 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        live = torch.cuda.memory_allocated(dev)
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return ((time.perf_counter() - t0) * 1e3 / steps,
+                torch.cuda.max_memory_allocated(dev) - live)
+
+    def run():
+        # (a) the exact adjoint, float64, against central differences
+        s64 = init_random(n_exact, SEED, device=dev).astype(torch.float64)
+        t64 = target_of(s64)
+        _, g = grads(s64, 5)
+        g64 = g["vx"]
+        worst_fd = 0.0
+        with torch.no_grad():
+            for i in (0, 7, 31):
+                h = max(abs(float(s64.vx[i])), 1e3) * 1e-4
+                vp, vm = s64.vx.clone(), s64.vx.clone()
+                vp[i] += h
+                vm[i] -= h
+                fd = (float(loss_of(dataclasses.replace(s64, vx=vp), t64, 5))
+                      - float(loss_of(dataclasses.replace(s64, vx=vm), t64,
+                                      5))) / (2 * h)
+                r = abs(fd - float(g64[i])) / abs(float(g64[i]))
+                worst_fd = max(worst_fd, r)
+                check(r <= 1e-5, f"exact adjoint vs central differences at "
+                                 f"body {i}: rel {r:.3e} > 1e-5")
+        s32 = s64.astype(torch.float32)
+        _, g = grads(s32, 5)
+        # an rms floor for the components near zero, where the fp32
+        # gradient cancels (tests/test_diff.py's convention for gradients)
+        share32 = within_rel([g["vx"][: s32.n]], [g64[: s64.n]], 1e-3,
+                             RMS_FLOOR_32)
+        check(share32 <= 1.0, f"fp32 adjoint vs float64: {share32:.3f}x of "
+                              f"WithinRel 1e-3 (rms floor {RMS_FLOOR_32})")
+        ms_a, peak_a = step_cost(lambda: grads(s32, 5), 5)
+        print(f"[12 exact] chunked, {n_exact} random bodies, 5 Euler steps, "
+              f"remat: d loss/d vx against central differences (float64) "
+              f"worst rel {worst_fd:.3e} (limit 1e-5); fp32 against float64 "
+              f"at {share32:.4g} of WithinRel 1e-3 (rms floor "
+              f"{RMS_FLOOR_32}); fp32 forward + backward "
+              f"{ms_a:.3f} ms a step, peak {peak_a / 2**30:.3f} GiB above the "
+              f"live tensors on {smi}")
+        del s64, s32, g64, g
+
+        # (b) the card against the CPU, float64
+        small = init_random(n_cmp, SEED, device="cpu").astype(torch.float64)
+        comps = ("vx", "m", "qx", "dt", "soft")
+        worst_b = {}
+        for method in ("chunked", "proxy"):
+            res = [grads(small.to(d), 3, comps, method=method)
+                   for d in ("cpu", dev)]
+            fin = [rollout(small.to(d), steps=3, dt=DT, soft=SOFT,
+                           method=method) for d in ("cpu", dev)]
+            errs = [rel(res[1][0], res[0][0])]
+            errs += [rel(res[1][1][k], res[0][1][k]) for k in comps]
+            errs += [rel(getattr(fin[1], k), getattr(fin[0], k))
+                     for k in ("qx", "vy")]
+            worst_b[method] = max(errs)
+            check(worst_b[method] <= 1e-9, f"{method} card vs CPU (float64, "
+                                           f"N={n_cmp}): {errs}")
+        print(f"[12 card vs cpu] N={n_cmp} float64, 3 steps: loss, "
+              f"gradients w.r.t. vx, m, qx, dt, soft and the final state, "
+              f"worst rel {worst_b} (limit 1e-9)")
+
+        # (c) full width: the proxy adjoint on the galaxy
+        gal = init_galaxy(n_full, SEED, device=dev)
+        comps_v = ("vx", "vy", "vz")
+        _, g = grads(gal, 5, comps_v, method="proxy", m=12)
+        for k in comps_v:
+            check(bool(torch.isfinite(g[k]).all()), f"proxy grad {k} finite")
+            check(float(g[k][: gal.n].abs().max()) > 0, f"proxy grad {k} 0")
+            if gal.padding:
+                check(float(g[k][gal.n:].abs().max()) == 0.0,
+                      f"proxy grad {k} on ghosts")
+        ms_c, peak_c = step_cost(
+            lambda: grads(gal, 5, comps_v, method="proxy", m=12), 5)
+        del gal, g
+        g16 = init_galaxy(n_exact, SEED, device=dev)
+        g_px = grads(g16, 3, method="proxy", m=12)[1]["vx"][: g16.n]
+        g_ch = grads(g16, 3)[1]["vx"][: g16.n]
+        share_c = within_rel([g_px], [g_ch], 1e-2, 1e-3)
+        check(share_c <= 1.0, f"proxy vs chunked gradient: {share_c:.3f}x "
+                              "of WithinRel 1e-2 (rms floor 1e-3)")
+        print(f"[12 full width] proxy m=12, {n_full} galaxy bodies fp32, 5 "
+              f"Euler steps, remat: d loss/d v finite, nonzero on the bodies, "
+              f"0 on the ghosts; forward + backward {ms_c:.3f} ms a step, "
+              f"peak {peak_c / 2**30:.3f} GiB above the live tensors on "
+              f"{smi}; at {n_exact} the proxy "
+              f"gradient at {share_c:.4g} of WithinRel 1e-2 (rms floor 1e-3) "
+              f"of the chunked one")
+        del g16, g_px, g_ch
+
+        # (d) the ensemble
+        members = [init_random(n_exact, k, device=dev) for k in (1, 2, 3)]
+        batch = ensemble(rollout, steps=4, dt=DT, soft=SOFT,
+                         method="chunked")(stack_states(members))
+        share_d = max(within_rel([batch.qx[k]], [rollout(
+            mb, steps=4, dt=DT, soft=SOFT, method="chunked").qx], 1e-6, 0.0)
+            for k, mb in enumerate(members))
+        check(share_d <= 1.0, f"ensemble vs members: {share_d:.3f}x of 1e-6")
+        print(f"[12 ensemble] 3 x {n_exact} fp32, 4 steps, vmapped: members' "
+              f"qx at {share_d:.4g} of WithinRel 1e-6")
+        del members, batch
+
+        # (e) the other integrators and the fit
+        s = init_random(n_exact, SEED, device=dev)
+        for integ in ("kdk", "yoshida4"):
+            g = grads(s, 3, integrator=integ)[1]["vx"]
+            check(bool(torch.isfinite(g).all())
+                  and float(g[: s.n].abs().max()) > 0,
+                  f"{integ} gradient finite and nonzero")
+        f0 = init_random(32, 5, device=dev).astype(torch.float64)
+        tgt = rollout(dataclasses.replace(f0, vx=f0.vx * 1.2, vy=f0.vy * 0.8),
+                      steps=8, dt=DT, soft=SOFT)
+        tgt = torch.stack([tgt.qx, tgt.qy, tgt.qz], 1)[: f0.n].detach()
+        _, losses = fit_initial_velocities(f0, tgt, steps=8, dt=DT,
+                                           soft=SOFT, iters=25)
+        check(losses[-1] < 0.05 * losses[0], f"fit: {losses[0]:.3e} -> "
+                                             f"{losses[-1]:.3e}")
+        print(f"[12 integrators, fit] kdk and yoshida4 gradients at "
+              f"{n_exact} finite and nonzero; fit_initial_velocities (N=32, "
+              f"8 steps, 25 iterations) loss ratio "
+              f"{losses[-1] / losses[0]:.3e} (limit 0.05)")
+
+    _, counts = drive(run)
+    check(all(c == 0 for c in counts.values()),
+          f"a kernel launched on the differentiable path: {counts}")
+
+    if fit_script:
+        p = subprocess.run([sys.executable, os.path.join(
+            ROOT, "scripts", "torch_fit_ic.py")], capture_output=True,
+            text=True, cwd=ROOT, timeout=600)
+        lines = p.stdout.strip().splitlines()
+        check(p.returncode == 0 and lines and lines[-1].startswith(
+            "loss ratio"), f"torch_fit_ic.py rc {p.returncode}: "
+                           f"{p.stdout[-500:]}{p.stderr[-1500:]}")
+        ratio = float(lines[-1].split()[-1])
+        check(ratio < 0.05, f"torch_fit_ic.py loss ratio {ratio}")
+        print(f"[12 fit script] scripts/torch_fit_ic.py (defaults: 256 "
+              f"bodies, 20 steps, 40 iterations, chunked) on the card: "
+              f"{lines[-2]}; loss ratio {ratio:.3e}")
+
+    # the guard: a grad-requiring input to a kernel wrapper raises
+    from murb_tpu_torch.ops.proxy import bounding_box
+    from murb_tpu_torch.ops.proxy_kernels import p2m_fused
+    from murb_tpu_torch.ops.tile import acc_tile_rect
+
+    s = init_random(4096, SEED, device=dev)
+    c, h = bounding_box(s.qx, s.qy, s.qz, s.m > 0)
+    qx = s.qx.clone().requires_grad_()
+    for name, call in (
+            ("p2m_fused (K1)", lambda: p2m_fused(qx, s.qy, s.qz, s.m, c, h,
+                                                 m=12)),
+            ("acc_tile_rect (K3)", lambda: acc_tile_rect(
+                qx, s.qy, s.qz, s.qx, s.qy, s.qz, s.m, SOFT))):
+        try:
+            call()
+        except RuntimeError as e:
+            check("no backward" in str(e), f"{name}: {e}")
+        else:
+            check(False, f"{name} took a grad-requiring input")
+    print(f"[12 guard] p2m_fused and acc_tile_rect on the card refuse a "
+          f"grad-requiring input; launches across the phase {counts}")
+
+
+def phase13(smi, n=200_000, device="cuda"):
+    """The viewer and the profiler through the CLI on the card, each in a
+    process of its own: ``--visu-live 0`` (frames, a decoded frame, pause
+    and close) and ``--profile DIR`` (the trace, K1's and K2's kernels in
+    it, the device time)."""
+    import re
+    import urllib.request
+
+    from murb_tpu_torch.visu.live import decode_header
+
+    max_pts = 100_000
+    env = dict(os.environ, PYTHONUNBUFFERED="1",
+               MURB_VISU_MAX_POINTS=str(max_pts))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "murb_tpu_torch", "--im", "tpu+proxy", "-n",
+         str(n), "-i", "100000", "--visu-live", "0", "--device", device],
+        cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    lines = []
+    try:
+        port, deadline = None, time.time() + 300
+        while port is None and time.time() < deadline:
+            line = proc.stdout.readline()
+            if not line:
+                break
+            lines.append(line)
+            hit = re.search(r"http://127\.0\.0\.1:(\d+)", line)
+            port = int(hit.group(1)) if hit else None
+        check(port is not None, "viewer URL never printed:\n"
+                                + "".join(lines[-30:]))
+        url = f"http://127.0.0.1:{port}"
+
+        def get(path):
+            with urllib.request.urlopen(url + path, timeout=60) as r:
+                return r.read()
+
+        def info():
+            return json.loads(get("/info"))
+
+        def key(k):
+            urllib.request.urlopen(urllib.request.Request(
+                url + "/key", data=json.dumps({"key": k}).encode(),
+                method="POST"), timeout=60).read()
+
+        deadline = time.time() + 300
+        while info()["frame"] < 2 and time.time() < deadline:
+            time.sleep(0.1)
+        frames = info()["frame"]
+        check(frames >= 2, f"viewer frames {frames}")
+        head = decode_header(get("/frame?since=-1"))
+        check(head["n"] == min(n, max_pts),
+              f"frame of {head['n']} bodies, expected {min(n, max_pts)}")
+        key("space")
+        time.sleep(1.0)
+        f0 = info()
+        time.sleep(1.0)
+        f1 = info()
+        check(f0["paused"] and f1["frame"] == f0["frame"],
+              f"pause: {f0} then {f1}")
+        key("close")
+        rest, _ = proc.communicate(timeout=300)
+        lines.append(rest)
+        check(proc.returncode == 0 and "Simulation ended." in rest,
+              f"viewer run rc {proc.returncode}: {rest[-1500:]}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    print(f"[13 viewer] tpu+proxy N={n} --visu-live 0 through the CLI: "
+          f"{frames} frames served, /frame decoded ({head['n']} bodies, "
+          f"stride {head['stride']}, MURB_VISU_MAX_POINTS={max_pts}), space "
+          f"paused at frame {f0['frame']}, close ended it (exit 0)")
+
+    out_dir = os.path.join(ROOT, "build", "chip_smoke_profile")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    p = subprocess.run(
+        [sys.executable, "-m", "murb_tpu_torch", "--im", "tpu+proxy", "-n",
+         str(n), "-i", "20", "--nv", "--profile", out_dir, "--device",
+         device], cwd=ROOT,
+        capture_output=True, text=True, timeout=600)
+    check(p.returncode == 0 and f"Profiler trace written to {out_dir}"
+          in p.stdout, f"--profile rc {p.returncode}: {p.stdout[-1500:]}"
+                       f"{p.stderr[-1500:]}")
+    with open(os.path.join(out_dir, "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    k1 = sum("p2m_runs_kernel" in k and "OneRun" in k for k in kernels)
+    k2 = sum("l2p_one_run_kernel" in k for k in kernels)
+    check(k1 > 0 and k2 > 0, f"trace kernels: K1 {k1}, K2 {k2} of "
+                             f"{len(kernels)}")
+    hit = re.search(r"Profiled device time: ([0-9.]+) ms", p.stdout)
+    check(hit is not None, f"no device time printed: {p.stdout[-800:]}")
+    print(f"[13 profile] tpu+proxy N={n} -i 20 --profile: trace of "
+          f"{len(events)} events, {len(kernels)} kernel events (K1 {k1}, K2 "
+          f"{k2}); device time {hit.group(1)} ms over the 20 steps on {smi}")
 
 
 def main() -> int:
@@ -2145,6 +2481,14 @@ def main() -> int:
         del ea
         torch.cuda.empty_cache()
     print(f"[11 fps] {json.dumps(fps)} on {smi}")
+    torch.cuda.empty_cache()
+
+    # ------------------------------- 12. the differentiable rollouts
+    phase12(dev, smi, drive, within_rel)
+    torch.cuda.empty_cache()
+
+    # -------------------- 13. the viewer and the profiler through the CLI
+    phase13(smi)
 
     for k, count in launches.items():
         check(count > 0, f"{k} launched no time on its piece of the path")

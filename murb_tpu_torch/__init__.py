@@ -13,6 +13,8 @@ Layer map (mirrors ``murb_tpu``):
   - ``murb_tpu_torch.models`` -- engine registry behind one interface
   - ``murb_tpu_torch.parallel`` -- the device mesh and the sharded engines
   - ``murb_tpu_torch.utils``  -- CLI args, Perf timers
+  - ``murb_tpu_torch.diff``   -- differentiable rollouts, ensembles, fits
+  - ``murb_tpu_torch.visu``   -- offline frames and the live viewer
 """
 
 __version__ = "0.1.0"

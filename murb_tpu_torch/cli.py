@@ -1,10 +1,9 @@
 """Command-line entry point: the port's ``murb`` binary (ref: src/murb/main.cpp:309-407).
 
-Port of ``murb_tpu/cli.py`` but its viewer and profiler flags: the
-configuration banner (with the validated proxy order and its measured
-error, or the exact sweep's block geometry), the frame loop with the
-verbose status line (``--ite-chunk`` iterations a frame), the ``--scan``
-timing window, the final "Entire simulation took ..." summary with the
+Port of ``murb_tpu/cli.py``: the configuration banner (with the validated
+proxy order and its measured error, or the exact sweep's block geometry),
+the frame loop with the verbose status line (``--ite-chunk`` iterations a
+frame), the ``--scan`` timing window, the final "Entire simulation took ..." summary with the
 reference's FLOPs model (20*N^2/iteration) and GFlop/s convention (1024^3
 divisor), and for the tracked engines the ``--kernel`` wiring (with the
 proxy -> fmm escalation and the validated (m, levels)) and the ``--csv``
@@ -22,19 +21,25 @@ record and checkpoint points) and can stop on a non-finite state
 ``shard+...`` engines' mesh and row split; with ``MURB_COORDINATOR``,
 ``MURB_NUM_PROCESSES`` and ``MURB_PROCESS_ID`` set, the run joins a
 ``torch.distributed`` group first (parallel/mesh.maybe_init_distributed).
+The frame loop feeds a viewer (``--visu-out`` PNG frames, ``--visu-live``
+the browser viewer, whose keys pause the run, double or halve dt and end
+it), and ``--profile DIR`` runs the whole run under ``torch.profiler``,
+writes a Chrome trace into DIR and prints the device time.
 
 ``--device cuda`` (the default) puts the state and every kernel on the
 first CUDA device and exits with status 1 when there is none: the port
 never carries on on the CPU.  ``--device cpu`` runs the kernels' plain
-PyTorch versions.  Flags and tags of ``murb_tpu`` the port does not carry
-yet exit with status 1 and "not yet ported".
+PyTorch versions.  ``--precision bf16``, which the port does not carry
+yet, exits with status 1 and "not yet ported".
 
 Usage:  python -m murb_tpu_torch -n 200000 -i 100 --im tpu+mxu --nv --gf --scan
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 import sys
+import time
 
 import torch
 
@@ -48,6 +53,7 @@ from murb_tpu_torch.models import (
 from murb_tpu_torch.utils.args import MurbConfig, parse_args
 from murb_tpu_torch.utils.perf import Perf
 from murb_tpu_torch.utils.strdate import str_date
+from murb_tpu_torch.visu import create_visu
 
 _DTYPES = {"fp32": torch.float32, "fp64": torch.float64}
 
@@ -274,6 +280,28 @@ def print_banner(cfg: MurbConfig, engine, device: torch.device) -> None:
               f"{engine.block_j} ({how})")
 
 
+def _write_profile(prof, out_dir: str, device: torch.device) -> None:
+    """Stop the ``--profile`` session, write its Chrome trace into
+    ``out_dir`` and print the device time: the sum of the device rows only
+    (kernels, copies, memsets), never the host operators' rows, which
+    count the same kernels again (utils/profile_step.device_rows)."""
+    from murb_tpu_torch.utils.profile_step import device_rows
+
+    prof.stop()
+    os.makedirs(out_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(out_dir, "trace.json"))
+    print(f"Profiler trace written to {out_dir}")
+    rows = device_rows(prof) if device.type == "cuda" else []
+    dev_us = sum(e.self_device_time_total for e in rows)
+    if dev_us > 0:
+        print(f"Profiled device time: {dev_us / 1e3:.3f} ms in "
+              f"{sum(e.count for e in rows)} device events on "
+              f"{torch.cuda.get_device_name(device)}")
+    else:
+        print(f"Profiled device time: not measured (no device events on "
+              f"{device})")
+
+
 def run(argv=None) -> CliRun:
     """The whole CLI: parse, build, simulate, report.  ``main`` returns
     its exit code."""
@@ -283,10 +311,6 @@ def run(argv=None) -> CliRun:
             alias_str = f"  (aliases: {', '.join(aliases)})" if aliases else ""
             print(f"  {tag}{alias_str}")
         return CliRun(0)
-    if cfg.unported:
-        print(f"{', '.join(cfg.unported)}: not yet ported to murb_tpu_torch "
-              "(ROADMAP.md Queue 1)", file=sys.stderr)
-        return CliRun(1)
     if cfg.device == "cuda" and not torch.cuda.is_available():
         print("--device cuda: no CUDA device is available (torch "
               f"{torch.__version__}, CUDA build {torch.version.cuda}); "
@@ -313,6 +337,7 @@ def run(argv=None) -> CliRun:
         print(e)
         return CliRun(1)
     print_banner(cfg, engine, device)
+    visu = create_visu(cfg)
     print("Simulation started...")
 
     traj = ckpt = None
@@ -348,6 +373,13 @@ def run(argv=None) -> CliRun:
         return min(steps, default=cfg.n_iterations - i_ite)
 
     record(0)  # frame 0: the initial conditions
+    prof = None
+    if cfg.profile:
+        from torch.profiler import ProfilerActivity, profile
+
+        prof = profile(activities=[ProfilerActivity.CPU] + (
+            [ProfilerActivity.CUDA] if device.type == "cuda" else []))
+        prof.start()
     perf_ite, perf_total = Perf(), Perf()
     physic_time = 0.0
     n_done = n_run = 0
@@ -381,6 +413,25 @@ def run(argv=None) -> CliRun:
     elif not cfg.scan:
         i_ite = 0
         while i_ite < cfg.n_iterations:
+            if visu.window_should_close():
+                break
+            visu.dt = engine.dt
+            visu.refresh_display(engine.bodies, time_s=physic_time)
+            # Viewer key events -- the interface the reference declares but
+            # never polls (ref: src/common/ogl/SpheresVisu.hpp:4-15): space
+            # pauses the loop, PgUp/PgDn double/halve dt.
+            if visu.pressed_space_bar():
+                visu.paused = True
+                visu.refresh_display(engine.bodies, time_s=physic_time)
+                while not (visu.pressed_space_bar()
+                           or visu.window_should_close()):
+                    time.sleep(0.05)
+                visu.paused = False
+                visu.refresh_display(engine.bodies, time_s=physic_time)
+            if visu.pressed_page_up():
+                engine.set_dt(engine.dt * 2.0)
+            if visu.pressed_page_down():
+                engine.set_dt(engine.dt / 2.0)
             # land on every record and checkpoint point
             k = min(max(cfg.ite_chunk, 1), cfg.n_iterations - i_ite,
                     to_next_stop(i_ite))
@@ -410,6 +461,10 @@ def run(argv=None) -> CliRun:
                       end="\r", flush=(i_ite % 5 == 0))
         if cfg.verbose:
             print()
+    if prof is not None:
+        _write_profile(prof, cfg.profile, device)
+    if hasattr(visu, "close"):
+        visu.close()
 
     if traj is not None:
         dropped = traj.close()

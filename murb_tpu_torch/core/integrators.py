@@ -17,7 +17,8 @@ iteration, carry = (x_n, v_{n-1/2}); ref: src/common/core/CUDABodies.cu:
 
 Every update returns new tensors; the inputs are not modified.  A time step
 is a Python float: PyTorch multiplies a tensor by it in the tensor's dtype,
-as ``murb_tpu`` casts ``dt`` to the state dtype.
+as ``murb_tpu`` casts ``dt`` to the state dtype.  It may also be a 0-dim
+tensor, through which autograd reaches dt (murb_tpu_torch.diff).
 """
 from __future__ import annotations
 
@@ -120,8 +121,13 @@ def yoshida4_step(state: BodyState, acc_fn, dt: float) -> BodyState:
     w0 = -cbrt2 * w1
     cs = (w1 / 2.0, (w0 + w1) / 2.0, (w0 + w1) / 2.0, w1 / 2.0)
     ds = (w1, w0, w1)
-    coef = lambda k: float(torch.tensor(k, dtype=state.dtype)
-                           * torch.tensor(dt, dtype=state.dtype))
+    dtb = in_dtype(dt, state.dtype)
+    if isinstance(dtb, torch.Tensor):
+        coef = lambda k: torch.tensor(k, dtype=state.dtype,
+                                      device=dtb.device) * dtb
+    else:
+        coef = lambda k: float(torch.tensor(k, dtype=state.dtype)
+                               * torch.tensor(dtb, dtype=state.dtype))
 
     qx, qy, qz = state.qx, state.qy, state.qz
     vx, vy, vz = state.vx, state.vy, state.vz

@@ -12,6 +12,7 @@ import dataclasses
 
 import numpy as np
 import torch
+import torch.utils._pytree as pytree
 
 # Pad bodies to a multiple of this (kept from the JAX package so padded
 # shapes, and so the differential tests' inputs, agree across the two).
@@ -24,9 +25,13 @@ def round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
-def in_dtype(x: float, dtype: torch.dtype) -> float:
+def in_dtype(x, dtype: torch.dtype):
     """``x`` rounded to ``dtype`` (a constant the JAX package forms in the
-    state's dtype), as a Python float that such a tensor takes exactly."""
+    state's dtype): a Python float that such a tensor takes exactly, or,
+    for a tensor (a time step that autograd reaches), the tensor cast to
+    ``dtype``."""
+    if isinstance(x, torch.Tensor):
+        return x.to(dtype)
     return float(torch.tensor(x, dtype=dtype))
 
 
@@ -169,3 +174,11 @@ class BodyState:
         return dataclasses.replace(
             self, **{k: pad(getattr(self, k)) for k in FIELDS},
             padding=self.padding + extra)
+
+
+# A pytree node (the eight tensors its leaves, n and padding its context),
+# so that torch.func.vmap maps over a stacked state (murb_tpu_torch.diff's
+# ensemble), as jax.vmap does over murb_tpu's registered BodyState.
+pytree.register_pytree_node(
+    BodyState, lambda s: ([getattr(s, k) for k in FIELDS], (s.n, s.padding)),
+    lambda leaves, ctx: BodyState(*leaves, n=ctx[0], padding=ctx[1]))

@@ -53,6 +53,11 @@ class SimulationEngine:
     def dt(self) -> float:
         return self._dt
 
+    def set_dt(self, dt: float) -> None:
+        """A new time step from the next iteration on (the viewer's PgUp
+        and PgDn, murb_tpu/models/base.py:73)."""
+        self._dt = float(dt)
+
     @property
     def allocated_bytes(self) -> int:
         return self._state.allocated_bytes

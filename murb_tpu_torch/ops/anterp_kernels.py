@@ -122,6 +122,7 @@ def window_items(slots: torch.Tensor, cap: int, chunk: int) -> RunItems:
 
 def _kernel_args(xs, ys, zs, slots, c, h, ci, C: int):
     dev, n = xs.device, xs.shape[0]
+    cuda.refuse_grad(_TAG, c, h)
     x, y, z = cuda.kernel_inputs(_TAG, dev, n, xs, ys, zs,
                                  notify=notify_fp32_compute)
     cells = cuda.int_inputs(_TAG, dev, n, *ci)
@@ -211,6 +212,7 @@ def l2p_window(xs, ys, zs, c, h, slots, fields, *, m: int, C: int,
         return l2p_window_plain(xs, ys, zs, c, h, slots, fields, m=m, C=C,
                                 ci=ci)
     cuda.require_cuda(_TAG, xs)
+    cuda.refuse_grad(_TAG, *fields)
     dtype = xs.dtype
     (x, y, z), cells, sl, box = _kernel_args(xs, ys, zs, slots, c, h, ci, C)
     flds = [f.to(torch.float32).contiguous() for f in fields]

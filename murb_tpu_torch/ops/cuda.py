@@ -177,14 +177,30 @@ def stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def refuse_grad(tag: str, *values) -> None:
+    """Raise if autograd is recording and any tensor among ``values``
+    requires grad: a kernel has no backward, so its output would carry no
+    gradient (murb_tpu's Pallas kernels define no VJP either).  Non-tensors
+    (a Python softening, None) are ignored."""
+    if torch.is_grad_enabled() and any(
+            isinstance(v, torch.Tensor) and v.requires_grad for v in values):
+        raise RuntimeError(
+            f"{tag}: an input requires grad, and this CUDA kernel has no "
+            "backward; differentiate through murb_tpu_torch.diff's methods "
+            "(naive | chunked | proxy, which runs acc_proxy(fused=False)), "
+            "or call it under torch.no_grad()")
+
+
 def kernel_inputs(tag: str, device: torch.device, n: int, *tensors,
                   notify) -> list[torch.Tensor]:
     """Checked float32 contiguous copies (or views) of 1-D kernel inputs.
 
-    Every tensor must lie on ``device`` with shape ``(n,)``.  float32 is
-    taken as it is; float64 state is cast here, at the wrapper, and
-    announced once through ``notify(tag, dtype)`` (the kernels compute in
-    fp32); any other dtype raises."""
+    Every tensor must lie on ``device`` with shape ``(n,)`` and need no
+    gradient (``refuse_grad``).  float32 is taken as it is; float64 state
+    is cast here, at the wrapper, and announced once through
+    ``notify(tag, dtype)`` (the kernels compute in fp32); any other dtype
+    raises."""
+    refuse_grad(tag, *tensors)
     out = []
     for t in tensors:
         if t.device != device:
@@ -204,6 +220,7 @@ def int_inputs(tag: str, device: torch.device, n: int,
                *tensors) -> list[torch.Tensor]:
     """Checked int32 contiguous copies (or views) of 1-D integer kernel
     inputs (cell coordinates, slots) of shape ``(n,)`` on ``device``."""
+    refuse_grad(tag, *tensors)
     out = []
     for t in tensors:
         if t.device != device:

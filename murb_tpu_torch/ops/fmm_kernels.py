@@ -360,6 +360,7 @@ def p2m_grid_fused(qx, qy, qz, gm_eff, c, h, *, m: int, C: int,
     if qx.device.type == "cpu":
         return p2m_grid_plain(qx, qy, qz, gm_eff, c, h, m=m, C=C)
     cuda.require_cuda(_TAG, qx)
+    cuda.refuse_grad(_TAG, c, h)
     dtype, dev, n = qx.dtype, qx.device, qx.shape[0]
     x, y, z, g = cuda.kernel_inputs(_TAG, dev, n, qx, qy, qz, gm_eff,
                                     notify=notify_fp32_compute)
@@ -413,6 +414,7 @@ def l2p_grid_fused(qx, qy, qz, c, h, fields, *, m: int, C: int,
     if qx.device.type == "cpu":
         return l2p_grid_plain(qx, qy, qz, c, h, fields, m=m, C=C)
     cuda.require_cuda(_TAG, qx)
+    cuda.refuse_grad(_TAG, c, h, *fields)
     dtype, dev, n = qx.dtype, qx.device, qx.shape[0]
     x, y, z = cuda.kernel_inputs(_TAG, dev, n, qx, qy, qz,
                                  notify=notify_fp32_compute)
@@ -572,6 +574,7 @@ def m2l_level_fused(w, hl, soft, *, m: int, C: int, subset: str = "expand",
         return m2l_level_plain(w, hl, soft, m=m, C=C, subset=subset,
                                with_phi=with_phi)
     cuda.require_cuda(_TAG, w)
+    cuda.refuse_grad(_TAG, w, hl, soft)
     dev = w.device
     if w.dtype == torch.float64:
         notify_fp32_compute(_TAG, w.dtype)

@@ -105,6 +105,7 @@ def acc_hybrid_rect(qxi, qyi, qzi, qxj, qyj, qzj, gmj, soft, *,
         return acc_hybrid_rect_plain(qxi, qyi, qzi, qxj, qyj, qzj, gmj,
                                      soft, passes=passes)
     cuda.require_cuda(tag, qxi)
+    cuda.refuse_grad(tag, soft)
     if not float(soft) > 0.0:
         raise ValueError(f"{tag}: the sweep needs a positive softening")
     notify = lambda t, d: notify_fp32_compute(
@@ -207,6 +208,7 @@ def phi_rows_rect(qxi, qyi, qzi, qxj, qyj, qzj, gm_rows, soft, *,
         return phi_rows_rect_plain(qxi, qyi, qzi, qxj, qyj, qzj, gm_rows,
                                    soft)
     cuda.require_cuda(tag, qxi)
+    cuda.refuse_grad(tag, soft)
     if not float(soft) > 0.0:
         raise ValueError(f"{tag}: the sweep needs a positive softening")
     dtype, dev = qxi.dtype, qxi.device
@@ -264,6 +266,7 @@ def acc_phi_rows_hybrid(qx, qy, qz, gm, gm_rows, soft, *, passes: int = 2,
     if qx.device.type == "cpu":
         return acc_phi_rows_plain(qx, qy, qz, gm, gm_rows, soft)
     cuda.require_cuda(tag, qx)
+    cuda.refuse_grad(tag, soft)
     if not float(soft) > 0.0:
         raise ValueError(f"{tag}: the sweep needs a positive softening")
     dtype, dev = qx.dtype, qx.device

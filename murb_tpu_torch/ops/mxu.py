@@ -274,6 +274,8 @@ def acc_mxu_rect(qxi, qyi, qzi, qxj, qyj, qzj, gmj, soft, *,
                                   s_precision=s_precision, center=center,
                                   center_point=center_point)
     cuda.require_cuda(TAG, qxi)
+    cuda.refuse_grad(TAG, soft,
+                     *(() if center_point is None else center_point))
     if not float(soft) > 0.0:
         raise ValueError(f"{TAG}: the sweep needs a positive softening")
     dtype, dev = qxi.dtype, qxi.device

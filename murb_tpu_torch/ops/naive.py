@@ -7,7 +7,9 @@ src/murb/implem/SimulationNBodyNaive.cpp:34-53): for every pair (i, j)
 
 Softening keeps the j == i self-term and every zero-mass ghost contribution
 exactly zero, so no masking is needed.  All sweeps compute in the dtype of
-their inputs (float64 inputs give a float64 oracle).
+their inputs (float64 inputs give a float64 oracle).  ``soft`` is a Python
+float or a 0-dim tensor, through which autograd reaches the softening
+(murb_tpu_torch.diff).
 
   * ``acc_naive``         -- one (N, N) broadcast; the differential oracle.
   * ``acc_rect``          -- the rectangular (i-set x j-set) broadcast.
@@ -21,6 +23,17 @@ import torch
 from murb_tpu_torch.ops.common import Accel
 
 
+def soft_squared(soft, dtype: torch.dtype):
+    """eps^2 for sweeps in ``dtype``: a Python float squared in double
+    precision (each sweep's bits since the port began), a tensor cast to
+    ``dtype`` and squared there, as murb_tpu forms it, so that a gradient
+    reaches it."""
+    if isinstance(soft, torch.Tensor):
+        s = soft.to(dtype)
+        return s * s
+    return float(soft) ** 2
+
+
 def _pair_weights(dx, dy, dz, gm_j, soft2):
     """w_ij = G*m_j / (|r_ij|^2 + eps^2)^{3/2} via rsqrt (no pow)."""
     inv = torch.rsqrt(dx * dx + dy * dy + dz * dz + soft2)
@@ -29,7 +42,7 @@ def _pair_weights(dx, dy, dz, gm_j, soft2):
 
 def acc_rect(qxi, qyi, qzi, qxj, qyj, qzj, gmj, soft) -> Accel:
     """Accelerations of the i-set due to the j-set (one broadcast)."""
-    soft2 = float(soft) ** 2
+    soft2 = soft_squared(soft, qxi.dtype)
     dx = qxj[None, :] - qxi[:, None]
     dy = qyj[None, :] - qyi[:, None]
     dz = qzj[None, :] - qzi[:, None]

@@ -74,6 +74,7 @@ def p2p_sweep_kernel_sorted(xs, ys, zs, gs, ci, soft, *, pmax: int,
         return p2p_sweep_plain_sorted(xs, ys, zs, gs, ci, soft, pmax=pmax,
                                       chunk=chunk, with_phi=with_phi)
     cuda.require_cuda(_TAG, xs)
+    cuda.refuse_grad(_TAG, soft)
     dtype, dev, n = xs.dtype, xs.device, xs.shape[0]
     if n % DEFAULT_K:
         raise ValueError(f"{_TAG}: n={n} is not a multiple of {DEFAULT_K}")

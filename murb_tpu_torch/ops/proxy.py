@@ -36,10 +36,11 @@ import torch
 
 from murb_tpu_torch.ops.common import Accel
 from murb_tpu_torch.ops.fmm_kernels import l2p_grid_fused, p2m_grid_fused
-from murb_tpu_torch.ops.naive import acc_rect
-from murb_tpu_torch.ops.proxy_kernels import (l2p_fused, l2p_fused_multi,
+from murb_tpu_torch.ops.naive import acc_rect, soft_squared
+from murb_tpu_torch.ops.proxy_kernels import (bases, l2p, l2p_fused,
+                                              l2p_fused_multi, p2m,
                                               p2m_fused)
-from murb_tpu_torch.ops.tile import acc_tile_rect
+from murb_tpu_torch.ops.tile import acc_tile_rect, acc_tile_rect_plain
 
 # Bodies heavier than this multiple of the mean mass are excluded from the
 # proxy and summed exactly (the near-field list); at most HEAVY_K of them,
@@ -100,20 +101,22 @@ def proxy_nodes(c, h, m: int, dtype):
     return px.reshape(-1), py.reshape(-1), pz.reshape(-1)
 
 
-def node_sweep(px, py, pz, w, soft) -> Accel:
+def node_sweep(px, py, pz, w, soft, *, fused: bool = True) -> Accel:
     """Exact all-pairs accelerations over proxy nodes with weights ``w``:
     the plain broadcast below 8000 nodes, the exact fp32 sweep K3 at 8000
     or more (Chebyshev weights oscillate with heavy cancellation, so this
-    sweep stays exact fp32, murb_tpu/ops/proxy.py:180-184)."""
+    sweep stays exact fp32, murb_tpu/ops/proxy.py:180-184), or with
+    ``fused=False`` K3's plain version, j-chunked, on any device."""
     if px.shape[0] < NODE_SWEEP_KERNEL_MIN:
         return acc_rect(px, py, pz, px, py, pz, w, soft)
-    return acc_tile_rect(px, py, pz, px, py, pz, w, soft)
+    sweep = acc_tile_rect if fused else acc_tile_rect_plain
+    return sweep(px, py, pz, px, py, pz, w, soft)
 
 
-def m2l(c, h, w, soft, m: int, dtype) -> Accel:
+def m2l(c, h, w, soft, m: int, dtype, *, fused: bool = True) -> Accel:
     """Exact sweep over the m^3 proxy nodes."""
     px, py, pz = proxy_nodes(c, h, m, dtype)
-    return node_sweep(px, py, pz, w, soft)
+    return node_sweep(px, py, pz, w, soft, fused=fused)
 
 
 def heavy_split(qx, qy, qz, gm, k: int, heavy_factor: float, mean_gm):
@@ -136,13 +139,22 @@ def heavy_source_acc(qx, qy, qz, hq, heavy_gm, soft) -> torch.Tensor:
     return torch.stack(list(a), dim=1)
 
 
-def acc_proxy(qx, qy, qz, gm, soft, *, m: int = 16,
-              cells: int = 1) -> Accel:
+def acc_proxy(qx, qy, qz, gm, soft, *, m: int = 16, cells: int = 1,
+              fused: bool = True) -> Accel:
     """All-pairs softened-gravity accelerations via the Chebyshev proxy
-    (ref: murb_tpu/ops/proxy.py:acc_proxy, the fused paths): one global
-    expansion (``cells=1``) or one per octant (``cells=2``)."""
+    (ref: murb_tpu/ops/proxy.py:acc_proxy): one global expansion
+    (``cells=1``) or one per octant (``cells=2``).
+
+    ``fused=False`` (``cells=1`` only) runs the plain stages on any device,
+    ``bases`` -> ``p2m`` -> the node sweep's plain version -> ``l2p``, and
+    launches no kernel: the differentiable path of murb_tpu_torch.diff, as
+    murb_tpu's ``fused=False`` pins its jnp stages."""
     if cells not in (1, 2):
         raise ValueError("cells must be 1 or 2")
+    if cells == 2 and not fused:
+        raise ValueError("acc_proxy: cells=2 has no plain (fused=False) "
+                         "path in murb_tpu_torch yet (ROADMAP.md, "
+                         "Divergences kept on purpose)")
     gm_pos = gm > 0
     c, h = bounding_box(qx, qy, qz, gm_pos)
 
@@ -152,6 +164,11 @@ def acc_proxy(qx, qy, qz, gm, soft, *, m: int = 16,
 
     if cells == 2:
         acc = _two_level(qx, qy, qz, gm_eff, c, h, soft, m)
+    elif not fused:
+        sx, syz = bases(qx, qy, qz, c, h, m)
+        f = m2l(c, h, p2m(sx, syz, gm_eff, m), soft, m, qx.dtype,
+                fused=False)
+        acc = torch.stack(l2p(sx, syz, (f.ax, f.ay, f.az), m), dim=1)
     else:
         w = p2m_fused(qx, qy, qz, gm_eff, c, h, m=m)
         f = m2l(c, h, w, soft, m, qx.dtype)
@@ -207,7 +224,8 @@ def _inv_dist(qxi, qyi, qzi, qxj, qyj, qzj, soft) -> torch.Tensor:
     dx = qxj[None, :] - qxi[:, None]
     dy = qyj[None, :] - qyi[:, None]
     dz = qzj[None, :] - qzi[:, None]
-    return torch.rsqrt(dx * dx + dy * dy + dz * dz + float(soft) ** 2)
+    return torch.rsqrt(dx * dx + dy * dy + dz * dz
+                       + soft_squared(soft, qxi.dtype))
 
 
 def force_and_potential_node_sweep_rows(px, py, pz, w, w_rows, soft):

@@ -59,7 +59,10 @@ def _basis(t: torch.Tensor, m: int) -> torch.Tensor:
     three-term recurrence (ref: murb_tpu/ops/proxy.py:_basis)."""
     if m < 2:
         raise ValueError(f"Chebyshev order must be >= 2, got {m}")
-    t = t.clamp(-1.0, 1.0)
+    # jnp.clip's form: at t = +-1 (the box's extreme bodies) maximum and
+    # minimum split the gradient in half, as JAX's do; clamp passes it whole
+    one = t.new_ones(())
+    t = torch.minimum(torch.maximum(t, -one), one)
     cols = [t]
     if m > 2:
         cols.append(2.0 * t * t - 1.0)
@@ -110,6 +113,7 @@ def l2p_plain(qx, qy, qz, c, h, fields, *, m: int) -> tuple:
 
 def _box(c, h, dev) -> torch.Tensor:
     """The (6,) float32 device box [c, h] the kernels read."""
+    cuda.refuse_grad(_TAG, c, h)
     if c.device != dev or h.device != dev:
         raise ValueError(f"{_TAG}: box on {c.device}/{h.device}, "
                          f"expected {dev}")

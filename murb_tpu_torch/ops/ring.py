@@ -110,6 +110,7 @@ def acc_ring_pipelined(mesh, qs, gms, soft, *, block_i: int = 0,
     if not mesh.all_cuda:
         raise ValueError(f"{TAG}: shards on {mesh.devices} (all cpu or all "
                          "cuda)")
+    cuda.refuse_grad(TAG, soft)
     if not float(soft) > 0.0:
         raise ValueError(f"{TAG}: the sweep needs a positive softening")
     d, n = mesh.local_size, qs[0][0].shape[0]

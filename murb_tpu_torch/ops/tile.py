@@ -60,6 +60,7 @@ def acc_tile_rect(qxi, qyi, qzi, qxj, qyj, qzj, gmj, soft, *,
     if qxi.device.type == "cpu":
         return acc_tile_rect_plain(qxi, qyi, qzi, qxj, qyj, qzj, gmj, soft)
     cuda.require_cuda("tpu+tile", qxi)
+    cuda.refuse_grad("tpu+tile", soft)
     if not float(soft) > 0.0:
         raise ValueError("tpu+tile: the sweep needs a positive softening")
     dtype, dev = qxi.dtype, qxi.device

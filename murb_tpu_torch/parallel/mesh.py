@@ -206,7 +206,10 @@ def maybe_init_distributed(device="cuda") -> bool:
     rank = int(os.environ.get("MURB_PROCESS_ID", "0"))
     if cuda:
         torch.cuda.set_device(rank % torch.cuda.device_count())
+    # use_libuv=0: with the TCP store's libuv backend a process now and
+    # then aborted at exit ("terminate called without an active
+    # exception") after destroy_process_group, under load
     dist.init_process_group(
-        "nccl" if cuda else "gloo", init_method=f"tcp://{coord}",
+        "nccl" if cuda else "gloo", init_method=f"tcp://{coord}?use_libuv=0",
         world_size=int(os.environ.get("MURB_NUM_PROCESSES", "1")), rank=rank)
     return True

@@ -522,6 +522,10 @@ class ShardedEngine(SimulationEngine):
         self._last_acc_blocks = acc
         self._iteration += n_iterations
 
+    def set_dt(self, dt: float) -> None:
+        super().set_dt(dt)
+        self._local = None   # the local step holds dt
+
     def _step_fn(self):
         if self._local is None:
             self._local = self._local_step_fn()

@@ -57,7 +57,9 @@ def test_parse_reference_flags():
     assert cfg.impl_tag == "gpu+tile+full" and cfg.scheme == "random"
     assert cfg.dt == 1800.0 and cfg.softening == 1e8 and cfg.tol == 1e-5
     assert not cfg.visu_enable and cfg.show_gflops and cfg.verbose
-    assert cfg.device == "cuda" and cfg.unported == [] and cfg.seed == 7
+    assert cfg.device == "cuda" and cfg.seed == 7
+    assert cfg.visu_out is None and cfg.visu_live is None
+    assert cfg.profile is None and cfg.gs_enable and cfg.visu_color
     with pytest.raises(SystemExit):
         parse_args(["-n", "10", "-i", "1", "--soft", "0"])
     with pytest.raises(SystemExit):
@@ -66,12 +68,7 @@ def test_parse_reference_flags():
 
 @pytest.mark.parametrize("argv", [
     ["--im", "no+such+tag"],
-    ["--ngs"],
-    ["--visu-live"],
-    ["--visu-out", "frames"],
-    ["--profile", "trace"],
     ["--precision", "bf16"],
-    ["--cam-azim", "30"],
 ])
 def test_unknown_or_unported_exits_1(argv, capsys):
     rc = cli.main(["-n", "300", "-i", "1", "--nv", "--device", "cpu",
@@ -80,6 +77,53 @@ def test_unknown_or_unported_exits_1(argv, capsys):
     out = capsys.readouterr()
     assert ("not yet ported" in out.out + out.err
             or "does not exist" in out.out), out
+
+
+@pytest.mark.parametrize("argv", [
+    ["--ngs", "--nvc", "--ww", "320", "--wh", "240"],
+    ["--visu-live", "0"],
+    ["--visu-out", "{tmp}/frames"],
+    ["--profile", "{tmp}/trace"],
+    ["--cam-azim", "30", "--cam-elev", "45", "--visu-out", "{tmp}/frames"],
+])
+def test_viewer_and_profile_flags_run_on_the_cpu(argv, tmp_path, monkeypatch,
+                                                 capsys):
+    """The viewer flags and --profile run to the end on the CPU, each with
+    its effect: the window flags reach the viewer's config, the live
+    viewer serves, frames and the Chrome trace are written, the camera is
+    the one asked for."""
+    import json
+
+    made, real = [], cli.create_visu
+
+    def create_visu(cfg):
+        made.append((cfg, real(cfg)))
+        return made[-1][1]
+
+    monkeypatch.setattr(cli, "create_visu", create_visu)
+    argv = [a.format(tmp=tmp_path) for a in argv]
+    res = cli.run(["-n", "300", "-i", "3", "--im", "cpu+naive", "--device",
+                   "cpu", *argv])
+    assert res.rc == 0 and res.engine._iteration == 3
+    cfg, visu = made[0]
+    out = capsys.readouterr().out
+    if "--ngs" in argv:
+        assert (cfg.gs_enable, cfg.visu_color, cfg.win_width,
+                cfg.win_height) == (False, False, 320, 240)
+    if "--visu-live" in argv:
+        assert "Live viewer on http://127.0.0.1:" in out
+        assert visu._frame == 3          # one frame before each iteration
+    if "--visu-out" in argv:
+        pytest.importorskip("matplotlib")
+        assert sorted(os.listdir(tmp_path / "frames")) == [
+            f"frame_{k:06d}.png" for k in range(3)]
+    if "--cam-azim" in argv:
+        assert (visu.azim, visu.elev) == (30.0, 45.0)
+    if "--profile" in argv:
+        assert f"Profiler trace written to {tmp_path}/trace" in out
+        assert "Profiled device time: not measured" in out
+        with open(tmp_path / "trace" / "trace.json") as f:
+            assert json.load(f)["traceEvents"]
 
 
 @pytest.mark.parametrize("argv,out", [
