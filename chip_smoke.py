@@ -118,20 +118,37 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      own: ``tpu+proxy -n 200000 --visu-live 0`` (frames served, one decoded,
      space pauses, close ends it with exit 0) and ``-i 20 --nv --profile
      DIR`` (the Chrome trace parses and holds K1's and K2's kernels; the
-     device time printed).
+     device time printed);
+ 14. the lossy M2L tiers: K7's lossy instance (K7b, 3xTF32 tensor-core
+     products) against float64 and against its plain lossy version, at nf
+     3 and 4, every subset at m=8, C=4 on the random box and m=32, C=2 on
+     the 1M box (5e-6 and 1e-4 of max|f|, which two broken-arithmetic
+     controls must exceed), and far and expand at the 1M step's dense base (m=6,
+     C=4, whose 216 nodes run the pad slots), each launched twice for the
+     same bits and timed in turns with the fp32 instance beside its bound;
+     the sparse M2L's forms (each tier, the scan chunk, the fused form)
+     against float64 with the TF32 flags unchanged; ``tpu+proxy -s random
+     --m2l-dots bf16x3`` and ``mixed`` at N=200,000 through the CLI
+     (validated error, picked tier, FPS); and on phase 9's 1M state and
+     plan ``acc_adaptive`` at fp32, bf16x3, mixed, m2l_rank=128 and the
+     fused bf16x3 form, each within TOL: the error on the 512-row sample,
+     ms a call and its sparse M2L's ms.
 Each piece of the path (the CLI run of phase 4, the ``acc_proxy`` of phase
 5, each CLI run of phase 6, each run of phases 7 to 11) starts from zeroed
 launch counts, which are read right after it: K1 and K2 from phase 4, K3
 from phase 5, K4 from phase 6, K5 and K6 from phase 7, K7 to K9 from the
 ``tpu+proxy -s random`` run of phase 8, K10 to K12 from the two-cluster
 run of phase 9, K13 from the ``tpu+mxu`` run of phase 10, K14 from the
-4-shard ``shard+ring`` run of phase 11.  Every kernel must have launched in
+4-shard ``shard+ring`` run of phase 11, K7b (K7's lossy instance) from the
+``--m2l-dots bf16x3`` run of phase 14.  Every kernel must have launched in
 its piece.  The line before the last is the kernels' JSON
 record (with each kernel's bound: the larger of its bytes over 3.35 TB/s
 and its operations over the 67 TFLOP/s fp32 peak of an H100 SXM; K5's and
 K6's also no less than their MUFU rsqrt floor, one a pair at 16 a clock
 an SM; K13's the largest of its MUFU rsqrt floor, its TF32 products at
-495 TFLOP/s and its fp32 work); the last line is the result object.
+495 TFLOP/s and its fp32 work; K7b's the largest of its build's fp32 work
+and MUFU rsqrt and its three TF32 products); the last line is the result
+object.
 
 Needs a CUDA device and the rest of the repository beside this file; it
 exits non-zero without printing a result otherwise.
@@ -525,6 +542,312 @@ def phase13(smi, n=200_000, device="cuda"):
     print(f"[13 profile] tpu+proxy N={n} -i 20 --profile: trace of "
           f"{len(events)} events, {len(kernels)} kernel events (K1 {k1}, K2 "
           f"{k2}); device time {hit.group(1)} ms over the 20 steps on {smi}")
+
+
+def phase14(dev, smi, drive, time_ms, st9, soft9, plan, pick8,
+            n_main=200_000):
+    """The lossy M2L tiers on the card.  K7's lossy instance (K7b, the
+    m2l_dots tier "bf16x3": the fp32 build of T, the apply as 3xTF32
+    tensor-core products) against its plain version in float64 (unrounded,
+    the reference) and, at m=8, C=4, in fp32 (the plain lossy arithmetic,
+    ops/mxu.split3_matmul), each subset and field count at the random
+    box's shape, at the 1M step's dense base (m=6, C=4: far, the shape the
+    step gives K7b, and expand; m^3 = 216 fills no whole 256-node chunk,
+    so the pad slots run) and at the ladder's top order on the 1M box
+    (m=32, C=2: near is expand there and far admits no cell).  Limits
+    against the largest magnitude of each field, against float64 and
+    against the plain lossy version alike, set from the readings: 5e-6 at
+    m <= 8, 1e-4 at m=32; two controls (the plain sweep with one TF32
+    pass, and with split3 less its small x big product) must read above
+    the limit at m=8 and m=32.  The same bits twice; its time and the
+    fp32 instance's in turns (fp32, lossy, lossy, fp32).  K7b's bound: the larger of the build's fp32 work (12 ops a
+    node pair of each used offset) and its MUFU rsqrt (one each, 16 a
+    clock an SM) and three TF32 products of 2 nf flops a node pair of
+    each cell pair at 495 TFLOP/s.  Then the sparse M2L's forms against
+    float64 on random expansions (the TF32 flags unchanged after each),
+    ``--m2l-dots bf16x3`` and ``mixed`` through the CLI on the random
+    box, and the 1M step (phase 9's state ``st9`` and ``plan``, no engine
+    build) under each tier, m2l_rank=128 and the fused form, each within
+    TOL on the 512-row sample.  ``drive`` and ``time_ms`` are main's;
+    ``pick8`` is phase 8's (m, levels).  Returns (K7b's kernels record,
+    its launches in the bf16x3 CLI run)."""
+    import numpy as np
+    import torch
+
+    from murb_tpu_torch import G, cli
+    from murb_tpu_torch.core.init import init_random
+    from murb_tpu_torch.ops import cuda
+    from murb_tpu_torch.ops import fmm_kernels as fk
+    from murb_tpu_torch.ops import sparse_fmm as sf
+    from murb_tpu_torch.ops.mxu import tf32_round, tf32_split
+    from murb_tpu_torch.ops.fmm import _heavy_setup
+    from murb_tpu_torch.ops.proxy import bounding_box, heavy_split
+    from murb_tpu_torch.ops.validate import measured_force_error
+
+    sms = cuda.sm_count(dev)
+    clk = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,"
+         "nounits", "-i", "0"], capture_output=True, text=True,
+        check=True).stdout.split()[0]) * 1e6
+    q9 = (st9.qx, st9.qy, st9.qz)
+    g9 = st9.m * torch.tensor(G, dtype=torch.float32).item()
+    c9, h9, *_rest, ge9 = _heavy_setup(*q9, g9, 1, sf.HEAVY_FACTOR)
+    h9 = h9.max().expand(3)       # the adaptive solve's cubic box
+
+    def rel_max(got, ref) -> float:
+        return max(float((g.double() - r).abs().max() / r.abs().max())
+                   for g, r in zip(got, ref))
+
+    def plain_with(product, w, hl, soft, **kw):
+        """The plain lossy sweep with ``product`` in place of
+        split3_matmul: the controls that show a limit's power."""
+        saved = fk.split3_matmul
+        fk.split3_matmul = product
+        try:
+            return fk.m2l_level_plain(w, hl, soft, dots="bf16x3", **kw)
+        finally:
+            fk.split3_matmul = saved
+
+    def one_pass(a, b):       # a single TF32 product
+        return tf32_round(a) @ tf32_round(b)
+
+    def lost_term(a, b):      # split3_matmul less its small x big product
+        (ab, _), (bb, bs) = tf32_split(a), tf32_split(b)
+        return ab @ bb + ab @ bs
+
+    def k7b_case(m, C, w, hl, soft, reps, tol,
+                 subsets=("expand", "near", "far"), controls=False,
+                 time_plain=False):
+        rows = {}
+        for subset in subsets:
+            refs = None
+            for nf in (3, 4):
+                kw = dict(m=m, C=C, subset=subset, with_phi=nf == 4)
+                label = f"14 K7b m2l m={m} C={C} {subset} nf={nf}"
+                fb = fk.m2l_level_fused(w, hl, soft, dots="bf16x3", **kw)
+                check(all(torch.equal(a, b) for a, b in zip(
+                    fb, fk.m2l_level_fused(w, hl, soft, dots="bf16x3",
+                                           **kw))),
+                      f"{label}: two launches differ")
+                pairs, flops = m2l_work(m, C, subset, nf)
+                if pairs == 0:
+                    check(all(not x.any() for x in fb),
+                          f"{label}: no cell pair, nonzero fields")
+                    print(f"[{label}] no cell pair: zero fields, the same "
+                          f"bits twice")
+                    continue
+                if refs is None:  # the nf = 4 sweeps hold nf = 3's fields
+                    kw4 = dict(kw, with_phi=True)
+                    refs = (fk.m2l_level_plain(w.double(), hl.double(), soft,
+                                               **kw4),
+                            fk.m2l_level_plain(w, hl, soft, dots="bf16x3",
+                                               **kw4))
+                f64, fpl = refs[0][:nf], [x.double() for x in refs[1][:nf]]
+                err, errp = rel_max(fb, f64), rel_max(fb, fpl)
+                check(err <= tol, f"{label}: {err:.3e} of max|f| against "
+                                  f"float64 (tol {tol:g})")
+                check(errp <= tol, f"{label}: {errp:.3e} of max|f| against "
+                                   f"the plain lossy version (tol {tol:g})")
+                err32 = rel_max(fk.m2l_level_fused(w, hl, soft, **kw), f64)
+                msg, plain_ms = "", None
+                if controls and nf == 3 and subset == "expand":
+                    e1 = rel_max(plain_with(one_pass, w, hl, soft, **kw),
+                                 f64)
+                    e2 = rel_max(plain_with(lost_term, w, hl, soft, **kw),
+                                 f64)
+                    check(min(e1, e2) > tol,
+                          f"{label}: the limit {tol:g} passes a control "
+                          f"({e1:.3e}, {e2:.3e})")
+                    msg = (f"; controls (above the limit): one TF32 pass "
+                           f"{e1:.3e}, split3 less small x big {e2:.3e}")
+                if time_plain:
+                    plain_ms = time_ms(lambda: fk.m2l_level_plain(
+                        w, hl, soft, dots="bf16x3", **kw), reps=1, runs=3)
+                    msg += f"; plain lossy {plain_ms:.4f} ms"
+                t32 = [time_ms(lambda: fk.m2l_level_fused(w, hl, soft,
+                                                          **kw),
+                               reps=reps, runs=3)]
+                tb = [time_ms(lambda: fk.m2l_level_fused(
+                    w, hl, soft, dots="bf16x3", **kw), reps=reps, runs=3)
+                    for _ in range(2)]
+                t32.append(time_ms(lambda: fk.m2l_level_fused(
+                    w, hl, soft, **kw), reps=reps, runs=3))
+                used = (flops / m ** 6 - 2 * nf * pairs) / 12
+                floors = {"fp32": 12 * used * m ** 6 / PEAK_FP32 * 1e3,
+                          "mufu": used * m ** 6 / (16 * sms * clk) * 1e3,
+                          "tensor": 6 * nf * pairs * m ** 6 / 495e12 * 1e3,
+                          "bytes": bound(4 * (1 + nf) * C ** 3 * m ** 3,
+                                         0)[0]}
+                b_ms = max(floors.values())
+                plan_b = fk._plan_on(m, C, subset, nf, dev, "bf16x3")[0]
+                print(f"[{label}] max|df|/max|f| {err:.3e} against float64, "
+                      f"{errp:.3e} against the plain lossy fp32 (tol "
+                      f"{tol:g}; the fp32 instance {err32:.3e}){msg}; the "
+                      f"same bits twice; {len(plan_b.items)} items, "
+                      f"{plan_b.nsplit} splits; lossy {tb[0]:.4f}, "
+                      f"{tb[1]:.4f} ms, fp32 {t32[0]:.4f}, {t32[1]:.4f} ms "
+                      f"in turns; bound {b_ms:.4f} ms (fp32 build "
+                      f"{floors['fp32']:.4f}, MUFU {floors['mufu']:.4f}, "
+                      f"3 TF32 products {floors['tensor']:.4f}), "
+                      f"{b_ms / min(tb):.3f} of it, on {smi}")
+                rows[(subset, nf)] = (err * max(float(x.abs().max())
+                                                for x in f64),
+                                      min(tb), plain_ms, b_ms)
+            del refs
+        return rows
+
+    # K7b's limits against float64 and its plain lossy version, of max|f|,
+    # set between the sound kernel's readings and two controls (the plain
+    # sweep with one TF32 pass, and with split3 less its small x big
+    # product), which must read above them: at m <= 8 5e-6 (K7b 2.9e-6 at
+    # most; the controls 9.2e-6 and 1.8e-5 at m=8, where the fp32
+    # instance's 3e-5 would pass both); at m = 32, where every target sums
+    # 262,144 source nodes, 1e-4 (K7b 3.4e-5; the controls 2.8e-4, 4.6e-4)
+    t14 = time.perf_counter()
+    sr14 = init_random(n_main, SEED, device=dev)
+    g14 = sr14.m * torch.tensor(G, dtype=torch.float32).item()
+    c14, h14 = bounding_box(sr14.qx, sr14.qy, sr14.qz, g14 > 0)
+    ge14 = heavy_split(sr14.qx, sr14.qy, sr14.qz, g14, 1, 100.0,
+                       g14.sum() / (g14 > 0).sum())[4]
+    w14 = fk.p2m_grid_fused(sr14.qx, sr14.qy, sr14.qz, ge14, c14, h14, m=8,
+                            C=4)
+    err7b, ms7b, plain7b, b7b = k7b_case(
+        8, 4, w14, h14 / 4, SOFT, 10, 5e-6, controls=True,
+        time_plain=True)[("expand", 3)]
+    del sr14, w14
+    # the 1M step's dense base (m=6, C=4: m^3 = 216 nodes, a partial
+    # 256-node chunk and pad slots): its far sweep, and expand at the
+    # same order
+    w6 = fk.p2m_grid_fused(*q9, ge9, c9, h9, m=6, C=4)
+    k7b_case(6, 4, w6, h9 / 4, soft9, 10, 5e-6, subsets=("expand", "far"))
+    del w6
+    order14 = fk.cell_order(*q9, c9, h9, 2)
+    w32 = fk.p2m_grid_fused(*q9, ge9, c9, h9, m=32, C=2, order=order14)
+    k7b_case(32, 2, w32, h9 / 2, soft9, 1, 1e-4, controls=True)
+    del w32, order14
+    torch.cuda.empty_cache()
+    t14k = time.perf_counter() - t14
+
+    # the sparse M2L's forms on the card against float64 (random expansions
+    # of 2,000 random cells of a C=16 level at m=6): TF32 runs only here,
+    # so this is where the lossy products' accumulation shows.  Limits from
+    # the readings: 2e-6 of max|f| (4.5e-7 to 7.7e-7), and 5e-5 for the
+    # fused lossy form, whose TF32 GEMMs sum K = 2 m^3 a step's offsets
+    # (2.0e-5; its fp32 form 7.5e-7)
+    rng = np.random.default_rng(SEED)
+    codes = np.unique(rng.integers(0, 16 ** 3, 2000))
+    cells_s = torch.full((len(codes) + 9,), sf._BIG, dtype=torch.int64)
+    cells_s[:len(codes)] = torch.from_numpy(codes)
+    cells_s = cells_s.to(dev)
+    w_s = torch.from_numpy(rng.standard_normal(
+        (len(cells_s) + 1, 6 ** 3)).astype(np.float32)).to(dev)
+    hl_s = torch.tensor([0.2, 0.15, 0.25], device=dev)
+    kw_s = dict(m=6, C=16, with_phi=True)
+    ref_s = sf.m2l_sparse_level(w_s.double(), cells_s, hl_s.double(), 0.05,
+                                **kw_s)
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.get_float32_matmul_precision())
+    for form in ({}, {"m2l_dots": "bf16x3"}, {"m2l_dots": "mixed"},
+                 {"scan_chunk": 5}, {"fused": True},
+                 {"fused": True, "m2l_dots": "bf16x3"}):
+        got = sf.m2l_sparse_level(w_s, cells_s, hl_s, 0.05, **kw_s, **form)
+        e_s = rel_max(got, ref_s)
+        tol_s = 5e-5 if form == {"fused": True, "m2l_dots": "bf16x3"} \
+            else 2e-6
+        check(e_s <= tol_s, f"sparse M2L {form}: {e_s:.3e} of max|f| "
+                            f"against float64 (tol {tol_s:g})")
+        ms_s = time_ms(lambda: sf.m2l_sparse_level(
+            w_s, cells_s, hl_s, 0.05, **kw_s, **form), reps=1, runs=3)
+        check((torch.backends.cuda.matmul.allow_tf32,
+               torch.get_float32_matmul_precision()) == flags,
+              f"sparse M2L {form}: the TF32 flags changed")
+        print(f"[14 sparse M2L {form or 'fp32'}] m=6 C=16 cap "
+              f"{len(cells_s)}: max|df|/max|f| {e_s:.3e} against float64 "
+              f"(tol {tol_s:g}); "
+              f"{ms_s:.3f} ms; TF32 flags unchanged, on {smi}")
+    del w_s, ref_s
+
+    # the tiers through the CLI on the random box: the ladder validates
+    # the tier, stepping it toward fp32 only on a miss (as murb_tpu does)
+    k7b_launches = 0
+    for tier in ("bf16x3", "mixed"):
+        res14, counts = drive(lambda: cli.run([
+            "-n", str(n_main), "-i", "50", "--im", "tpu+proxy", "-s",
+            "random", "--nv", "--gf", "--scan", "--device", "cuda",
+            "--m2l-dots", tier]))
+        check(res14.rc == 0, f"cli --m2l-dots {tier} exit code {res14.rc}")
+        e14 = res14.engine
+        e14.assert_finite()
+        check(e14.using_proxy and e14.levels >= 2,
+              f"--m2l-dots {tier}: m={e14.m} levels={e14.levels}")
+        check(e14.validated_err is not None and e14.validated_err <= TOL,
+              f"--m2l-dots {tier}: validated error {e14.validated_err}")
+        check(counts["K7b"] > 0, f"--m2l-dots {tier}: K7b launched no time")
+        if tier == "bf16x3":
+            k7b_launches = counts["K7b"]
+        print(f"[14 cli] tpu+proxy -s random N={n_main} --m2l-dots {tier}: "
+              f"(m, L)=({e14.m}, {e14.levels}) (fp32's {pick8}), tier "
+              f"picked {e14.m2l_dots}, validated_err "
+              f"{e14.validated_err:.3e}; {res14.fps:.2f} FPS over 49 steps "
+              f"on {smi}; launches {counts}")
+        del e14, res14
+
+    # the 1M step under each tier on phase 9's state and plan (no engine
+    # build): the max error on the 512-row strided sample against float64
+    # and the ms of an acc_adaptive call, and of its sparse M2L (CUDA
+    # events around every m2l_sparse_level call of the call)
+    spans = []
+    real_level = sf.m2l_sparse_level
+
+    def timed_level(*a, **k):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = real_level(*a, **k)
+        ev[1].record()
+        spans.append(ev)
+        return out
+
+    tiers14 = {"fp32": (plan, "fp32", "0"), "bf16x3": (plan, "bf16x3", "0"),
+               "mixed": (plan, "mixed", "0"),
+               "m2l_rank=128": (plan._replace(m2l_rank=128), "fp32", "0"),
+               "bf16x3 MURB_M2L_FUSED=1": (plan, "bf16x3", "1")}
+    env_fused = os.environ.get("MURB_M2L_FUSED")
+    for label, (p14, dots, fused) in tiers14.items():
+        def acc14(a, b, cc, g):
+            os.environ["MURB_M2L_FUSED"] = fused
+            try:
+                return sf.acc_adaptive(a, b, cc, g, soft9, p14,
+                                       m2l_dots=dots)
+            finally:
+                if env_fused is None:
+                    os.environ.pop("MURB_M2L_FUSED")
+                else:
+                    os.environ["MURB_M2L_FUSED"] = env_fused
+
+        t1 = time.perf_counter()
+        err14 = measured_force_error(*q9, g9, soft9, acc14)
+        t_first = time.perf_counter() - t1
+        call_ms = time_ms(lambda: acc14(*q9, g9), reps=2, runs=3)
+        sf.m2l_sparse_level = timed_level
+        try:
+            spans.clear()
+            acc14(*q9, g9)
+            torch.cuda.synchronize()
+            m2l_ms = sum(a.elapsed_time(b) for a, b in spans)
+        finally:
+            sf.m2l_sparse_level = real_level
+        check(err14 <= TOL, f"1M {label}: error {err14:.3e} (tol {TOL:g})")
+        ranks = [sf._resolve_rank(p14, cap) for cap in p14.cell_caps]
+        print(f"[14 1M {label}] acc_adaptive m={p14.m} L={p14.levels} "
+              f"(ranks by level {ranks}): max error on the 512-row sample "
+              f"{err14:.3e}; {call_ms:.3f} ms a call, its sparse M2L "
+              f"{m2l_ms:.3f} ms over {len(spans)} levels (first call and "
+              f"its check {t_first:.1f} s) on {smi}")
+    print(f"[14 time] K7b checks {t14k:.1f} s, the phase "
+          f"{time.perf_counter() - t14:.1f} s")
+    record = {"max_abs_err": err7b, "ms": ms7b, "plain_ms": plain7b,
+              "bound_ms": b7b, "bound_by": "operations", "library_ms": None}
+    return record, k7b_launches
 
 
 def main() -> int:
@@ -990,11 +1313,16 @@ def main() -> int:
 
     def drive(run):
         """Zero every launch count, run one piece of the path, and return
-        its result with the counts it left."""
-        for fn in wrappers.values():
-            fn.launches = 0
+        its result with the counts it left: each wrapper's ``launches``
+        (K13 and K14 join ``wrappers`` in their phases), and K7b's, K7's
+        lossy instance, which counts on K7's wrapper."""
+        counters = {k: (fn, "launches") for k, fn in wrappers.items()}
+        counters["K7b"] = (fk.m2l_level_fused, "lossy_launches")
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
         out = run()
-        return out, {k: fn.launches for k, fn in wrappers.items()}
+        return out, {k: getattr(fn, attr)
+                     for k, (fn, attr) in counters.items()}
 
     res, counts = drive(lambda: cli.run([
         "-n", str(n_main), "-i", "100", "--im", "tpu+proxy", "--nv", "--gf",
@@ -2490,6 +2818,10 @@ def main() -> int:
     # -------------------- 13. the viewer and the profiler through the CLI
     phase13(smi)
 
+    # ---------------------------------------- 14. the lossy M2L tiers
+    record["K7b"], launches["K7b"] = phase14(dev, smi, drive, time_ms, st9,
+                                             soft9, plan, pick8)
+
     for k, count in launches.items():
         check(count > 0, f"{k} launched no time on its piece of the path")
     meta = {
@@ -2507,6 +2839,8 @@ def main() -> int:
                "murb_tpu/ops/hybrid.py:338"),
         "K7": ("m2l_level", "murb_tpu_torch/csrc/fmm.cu",
                "murb_tpu/ops/fmm_pallas.py:85"),
+        "K7b": ("m2l_level_lossy_3xtf32", "murb_tpu_torch/csrc/fmm.cu",
+                "murb_tpu/ops/fmm_pallas.py:85"),
         "K8": ("p2m_grid", "murb_tpu_torch/csrc/cell_runs.cuh",
                "murb_tpu/ops/fmm_pallas.py:315"),
         "K9": ("l2p_grid", "murb_tpu_torch/csrc/cell_runs.cuh",

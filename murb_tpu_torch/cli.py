@@ -84,8 +84,10 @@ def _validated_far_field(cfg: MurbConfig, bodies):
     takes the order of the 1.5x-grown box rounded up to a multiple of 4,
     and hands over to the hierarchy when that exceeds 32; the hierarchy
     takes the depth ``required_levels`` gives and ``fmm_order``'s order, and
-    hands over to the adaptive solver when that exceeds 16.  Returns
-    (kernel, m, levels, certified half-extent, SparsePlan or None)."""
+    hands over to the adaptive solver when that exceeds 16.  The hierarchy
+    rungs and the adaptive solver are measured at ``--m2l-dots``'s tier,
+    the tier the tracked step runs.  Returns (kernel, m, levels, certified
+    half-extent, SparsePlan or None)."""
     from murb_tpu_torch import G
     from murb_tpu_torch.ops.fmm import fmm_order, required_levels
     from murb_tpu_torch.ops.proxy import (half_extent, required_order,
@@ -116,7 +118,7 @@ def _validated_far_field(cfg: MurbConfig, bodies):
     gm = bodies.m * torch.tensor(G, dtype=bodies.dtype).item()
     m, levels, _, err = validate_config(
         bodies.qx, bodies.qy, bodies.qz, gm, cfg.softening, cfg.tol, m,
-        levels, 1, half, validation_ladder(cfg.softening))
+        levels, 1, half, validation_ladder(cfg.softening, cfg.m2l_dots))
     return ("fmm" if levels else "proxy", m, levels,
             certified_half(m, levels, float(half), err, cfg.softening,
                            cfg.tol), None)
@@ -124,9 +126,11 @@ def _validated_far_field(cfg: MurbConfig, bodies):
 
 def _validated_adaptive_plan(cfg: MurbConfig, bodies):
     """The adaptive plan of the initial distribution, its order escalated
-    by 2 (to 12 at most) until the measured error meets ``--tol``
-    (murb_tpu/cli.py:123-172; the compression drop has nothing to drop at
-    the default rank 0)."""
+    by 2 (to 12 at most) until the measured error meets ``--tol``, after
+    dropping the M2L compression on a miss (murb_tpu/cli.py:123-172; at
+    the default rank 0 it has nothing to drop).  The error is measured at
+    ``--m2l-dots``'s tier, the one the step runs (murb_tpu measures it at
+    fp32)."""
     import numpy as np
 
     from murb_tpu_torch import G
@@ -146,7 +150,8 @@ def _validated_adaptive_plan(cfg: MurbConfig, bodies):
     while True:
         err = measured_force_error(
             bodies.qx, bodies.qy, bodies.qz, gm, cfg.softening,
-            lambda a, b, c, g: acc_adaptive(a, b, c, g, cfg.softening, plan))
+            lambda a, b, c, g: acc_adaptive(a, b, c, g, cfg.softening, plan,
+                                            m2l_dots=cfg.m2l_dots))
         if err <= cfg.tol:
             break
         rank = plan.m2l_rank
@@ -177,7 +182,7 @@ def build_engine(cfg: MurbConfig, device: torch.device):
             "murb_tpu_torch (ROADMAP.md Queue 1 item 1)")
     from murb_tpu_torch.ops.fmm import check_m2l_dots
 
-    check_m2l_dots(cfg.m2l_dots)  # the port's level sweeps run fp32 only
+    check_m2l_dots(cfg.m2l_dots)  # fail fast, before device work
     start_iteration = 0
     if cfg.load_state:
         from murb_tpu_torch.core.checkpoint import load_state
@@ -234,7 +239,7 @@ def build_engine(cfg: MurbConfig, device: torch.device):
         block_i=cfg.block_i, block_j=cfg.block_j,
         autotune=True if cfg.autotune else None,
         shards=cfg.shards, gpu_fraction=cfg.gpu_fraction,
-        num_iterations=cfg.n_iterations, **extra)
+        m2l_dots=cfg.m2l_dots, num_iterations=cfg.n_iterations, **extra)
     return engine, start_iteration
 
 

@@ -4,8 +4,12 @@
 // Replace the TPU kernels murb_tpu/ops/fmm_pallas.py:_m2l_kernel (pallas_call
 // at :240, entry m2l_level_fused :169), _p2m_grid_kernel (:355, entry
 // p2m_grid_fused :338) and _l2p_grid_kernel (:406, entry l2p_grid_fused
-// :382).  Everything computes in fp32 with fp32 fmas: the node fields
-// oscillate in sign and cancel heavily, so no TF32 and no bf16 splits.
+// :382).  K8, K9 and K7's fp32 instance compute in fp32 with fp32 fmas;
+// K7's lossy instance (murb_tpu's exact_dots=False, the m2l_dots tier
+// "bf16x3") builds the same transfer entries in fp32 and applies them as
+// 3xTF32 tensor-core products (below).  The node fields oscillate in sign
+// and cancel heavily, so a single TF32 or bf16 pass is not enough for
+// either tier.
 //
 // Cells.  The finest level is a C^3 grid over the box (lo = c - h, cell
 // sizes cs = 2h / C per dimension, the box stays anisotropic).  A body's
@@ -72,10 +76,37 @@
 // Arithmetic: fp32 fmas throughout (the node fields cancel).  Bound: fp32
 // issue, 2 nf flops per node pair of each admitted cell pair plus one
 // build per (item, u, v); at the main path the apply is 6.4e9 flops.
+//
+// K7's lossy instance (m2l_mma_kernel): the same plan, staging, build and
+// fields, the apply on the tensor cores.  For 16 target nodes u (M), 8
+// source nodes v (K) and up to 8 cells of the item (N) one mma.sync
+// m16n8k8 TF32 product adds D[u, cell] += sum_v T[u, v] W[cell, v]; each
+// operand is split by tf32_split (tf32.cuh) into big + small, and three
+// products T_big W_big + T_big W_small + T_small W_big sum in fp32: about
+// 2^-21 of each term (the dropped T_small W_small and the remainders)
+// where murb_tpu's bf16x3 carries 2^-16, so the tier's contract (its
+// error against float64 no larger than murb_tpu's bf16x3 kernel's) holds
+// with room.  An item of 9 to 16 cells takes two N tiles.  The port's K7
+// builds each signed offset's T(o) itself (no mirror pairs), so no
+// product reads a transpose.  A block owns kM2LTargets target nodes as
+// kM2LMmaTiles M tiles by kM2LMmaSlices source slices, a warp one (tile,
+// slice); each lane builds its A fragment's 4 entries T(o)[u, v] in
+// registers (one rsqrt.approx.ftz each) and splits them, and reads its B
+// fragment (the cells' weights, a padded stride so the 8 cells' rows fall
+// on distinct banks) from the staged chunk.  The slices' sums go into the
+// tile's fields in slice order, then out as the fp32 instance's.  Pad
+// sources (kM2LFar, weight 0) and cells past the item's count (weight 0)
+// add exact zeros: T of a pad is finite and its split too.  Bound: the
+// build's fp32 work and its MUFU rsqrt, and 3 TF32 products of 2 nf flops
+// per node pair at the tensor rate; mma.sync reaches about a quarter of
+// that rate (mxu.cu), and an item's N tile of 8 cells runs whole for
+// fewer, so at C = 2 (items of 1 to 8 cells) the tensor work is up to 8
+// times the useful work.
 #include <cuda_runtime.h>
 
 #include "cell_runs.cuh"
 #include "sweep.cuh"
+#include "tf32.cuh"
 
 namespace murb {
 
@@ -95,6 +126,16 @@ constexpr int kM2LMaxTileCells = 64;    // target cells of a cell tile
 // a padded source node: far enough that its T is finite and tiny, and its
 // weight is 0, so it adds exactly 0
 constexpr float kM2LFar = 1e18f;
+// K7's lossy instance: M tiles of 16 target nodes a block, source slices
+// (a warp a (tile, slice)), a slice's nodes a chunk, and the row stride of
+// a cell's staged weights (+4: the B fragment's 8 cells on distinct banks)
+constexpr int kM2LMmaTiles = kM2LTargets / 16;
+constexpr int kM2LMmaSlices = kM2LThreads / 32 / kM2LMmaTiles;
+constexpr int kM2LMmaSliceNodes = kM2LChunk / kM2LMmaSlices;
+constexpr int kM2LMmaStride = kM2LChunk + 4;
+static_assert(kM2LMmaSlices * kM2LMmaTiles * 32 == kM2LThreads,
+              "a warp a (tile, slice)");
+static_assert(kM2LGroup <= 16, "an item fills at most two N tiles of 8");
 
 // Dynamic shared memory of K7's nf-field kernel: its tile's fields.
 constexpr int m2l_fields_bytes(int nf) {
@@ -114,11 +155,24 @@ struct M2LShared {
   float node[3][kGridMaxOrder];  // h_l,d cos(pi (i + 1/2) / m)
 };
 
+// The lossy instance's: the weights' rows at kM2LMmaStride.
+struct M2LMmaChunk {
+  float x[kM2LChunk], y[kM2LChunk], z[kM2LChunk];
+  float w[kM2LGroup][kM2LMmaStride];
+};
+
+struct M2LMmaShared {
+  M2LMmaChunk chunk[2];
+  float node[3][kGridMaxOrder];
+};
+
 // Stage chunk c (source nodes [c kM2LChunk, (c + 1) kM2LChunk)) of item
 // `it` into `st`: the weights of the item's cells by cp.async (zero past
 // m^3), the coordinates computed (kM2LFar past m^3).  Every thread of the
-// block calls it; it commits one cp.async group.
-__device__ __forceinline__ void m2l_stage(M2LChunk& st, const M2LShared& sh,
+// block calls it; it commits one cp.async group.  Chunk and Shared:
+// M2LChunk and M2LShared, or the lossy instance's.
+template <class Chunk, class Shared>
+__device__ __forceinline__ void m2l_stage(Chunk& st, const Shared& sh,
                                           const int* __restrict__ item,
                                           const float* __restrict__ w, int m,
                                           int m3, int c) {
@@ -237,6 +291,52 @@ __device__ __forceinline__ void m2l_item(
   }
 }
 
+// A K7 block's start: the level's node table into `node`, its tile's
+// fields zeroed, and a barrier.  Returns the tile's cell count.
+template <int NF>
+__device__ __forceinline__ int m2l_begin(float (&node)[3][kGridMaxOrder],
+                                         float* fields, const int* row,
+                                         const float* __restrict__ hl,
+                                         int m) {
+  const int nx = row[4] - row[3], ny = row[6] - row[5], nz = row[8] - row[7];
+  const int tcells = nx * ny * nz;
+  const int tid = threadIdx.x;
+  if (tid < 3 * m) {
+    const int d = tid / m, i = tid % m;
+    node[d][i] = hl[d] * static_cast<float>(cos(kPi * (i + 0.5) / m));
+  }
+  for (int e = tid; e < NF * tcells * kM2LTargets; e += kM2LThreads)
+    fields[e] = 0.f;
+  __syncthreads();  // the node table and the zeros are stored
+  return tcells;
+}
+
+// A K7 block's end: wait for the last copies and adds, then store the
+// tile's fields of the block's target nodes into the output (nsplit > 1:
+// the row's split of the scratch).
+template <int NF>
+__device__ __forceinline__ void m2l_end(const float* fields, const int* row,
+                                        int C, int m3, int nsplit,
+                                        float* __restrict__ out) {
+  cp_async_wait_all();
+  __syncthreads();  // the last item's turns are stored
+  const long long cells = static_cast<long long>(C) * C * C;
+  const int ny = row[6] - row[5], nz = row[8] - row[7];
+  const int tcells = (row[4] - row[3]) * ny * nz;
+  const int tid = threadIdx.x, ut = tid % kM2LTargets;
+  const int u = blockIdx.x * kM2LTargets + ut;
+  const bool own = u < m3;
+  float* dst = out + (nsplit > 1 ? row[2] * NF * cells * m3 : 0);
+  const long long plane = cells * m3;
+  for (int e = tid / kM2LTargets; e < NF * tcells && own; e += kM2LSlices) {
+    const int f = e / tcells, k = e % tcells;
+    const int ix = row[3] + k / (ny * nz), iy = row[5] + (k / nz) % ny,
+              iz = row[7] + k % nz;
+    dst[f * plane + ((ix * C + iy) * C + iz) * static_cast<long long>(m3) +
+        u] = fields[e * kM2LTargets + ut];
+  }
+}
+
 // grid (ceil(m^3 / kM2LTargets), rows), kM2LThreads threads,
 // m2l_fields_bytes(NF) bytes of dynamic shared memory.  Row y = rows[y *
 // kM2LRowInts ...]: {first item, end, split, x0, x1, y0, y1, z0, z1}.  The
@@ -254,21 +354,11 @@ m2l_kernel(const float* __restrict__ w, const float* __restrict__ hl,
   const int* row = rows + blockIdx.y * kM2LRowInts;
   const int first = row[0], end = row[1];
   const int m3 = m * m * m;
-  const long long cells = static_cast<long long>(C) * C * C;
-  const int nx = row[4] - row[3], ny = row[6] - row[5], nz = row[8] - row[7];
-  const int tcells = nx * ny * nz;
+  const int tcells = m2l_begin<NF>(sh.node, fields, row, hl, m);
   const int tid = threadIdx.x;
-  if (tid < 3 * m) {
-    const int d = tid / m, i = tid % m;
-    sh.node[d][i] =
-        hl[d] * static_cast<float>(cos(kPi * (i + 0.5) / m));
-  }
-  for (int e = tid; e < NF * tcells * kM2LTargets; e += kM2LThreads)
-    fields[e] = 0.f;
   const int ut = tid % kM2LTargets;
   const int u = blockIdx.x * kM2LTargets + ut;
   const bool own = u < m3;
-  __syncthreads();  // the node table and the zeros are stored
   const int uu = own ? u : 0;
   const float pux = sh.node[0][uu / (m * m)];
   const float puy = sh.node[1][(uu / m) % m];
@@ -299,27 +389,170 @@ m2l_kernel(const float* __restrict__ w, const float* __restrict__ hl,
       default: break;  // the wrapper's plan holds 1..kM2LGroup cells
     }
   }
-  cp_async_wait_all();
-  __syncthreads();  // the last item's turns are stored
-  // the tile's fields for this block's nodes, into dst
-  float* dst = out + (nsplit > 1 ? row[2] * NF * cells * m3 : 0);
-  const long long plane = cells * m3;
-  for (int e = tid / kM2LTargets; e < NF * tcells && own; e += kM2LSlices) {
-    const int f = e / tcells, k = e % tcells;
-    const int ix = row[3] + k / (ny * nz), iy = row[5] + (k / nz) % ny,
-              iz = row[7] + k % nz;
-    dst[f * plane + ((ix * C + iy) * C + iz) * static_cast<long long>(m3) +
-        u] = fields[e * kM2LTargets + ut];
+  m2l_end<NF>(fields, row, C, m3, nsplit, out);
+}
+
+// ------------------------------------------------- K7's lossy instance
+// One item: its cells in NT N tiles of 8 (NT = 1 up to 8 cells, else 2),
+// NF fields, 3xTF32 products (the note at the top).  `buf`, `next` and
+// `fields` as in m2l_item; (px, py, pz)[h]: the lane's target node u0 + g
+// + 8 h relative to the item's shift.
+template <int NT, int NF>
+__device__ __forceinline__ void m2l_mma_item(
+    M2LMmaShared& sh, float* fields, int tcells, int& buf,
+    const int* __restrict__ item, const int* __restrict__ next,
+    const float* __restrict__ w, int m, int m3, const float (&px)[2],
+    const float (&py)[2], const float (&pz)[2], float soft2) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int mt = warp % kM2LMmaTiles, s = warp / kM2LMmaTiles;
+  const int ncell = item[4];
+  const int nch = (m3 + kM2LChunk - 1) / kM2LChunk;
+  float acc[NT][NF][4];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int f = 0; f < NF; ++f)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[nt][f][e] = 0.f;
+  for (int c = 0; c < nch; ++c) {
+    cp_async_wait_all();  // this thread's copies of chunk c landed
+    __syncthreads();      // everyone's did; the other buffer is free
+    if (c + 1 < nch)
+      m2l_stage(sh.chunk[buf ^ 1], sh, item, w, m, m3, c + 1);
+    else if (next != nullptr)
+      m2l_stage(sh.chunk[buf ^ 1], sh, next, w, m, m3, 0);
+    const M2LMmaChunk& st = sh.chunk[buf];
+    // this slice's source nodes of the chunk, whole groups of 8 past m^3
+    // (padded: they add 0) dropped
+    const int j0 = s * kM2LMmaSliceNodes;
+    const int j1 =
+        min(j0 + kM2LMmaSliceNodes, (m3 - c * kM2LChunk + 7) & ~7);
+#pragma unroll 1
+    for (int j = j0; j < j1; j += 8) {
+      // A: T[u, v] at (row g + 8 (q & 1), col t + 4 (q >> 1)), split
+      float tb[NF][4], ts[NF][4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int h = q & 1, v = j + t + 4 * (q >> 1);
+        const float dx = st.x[v] - px[h], dy = st.y[v] - py[h],
+                    dz = st.z[v] - pz[h];
+        const float d2 = fmaf(dx, dx, fmaf(dy, dy, fmaf(dz, dz, soft2)));
+        const float inv = rsqrt_ftz(d2);
+        const float inv3 = inv * inv * inv;
+        tf32_split(dx * inv3, tb[0][q], ts[0][q]);
+        tf32_split(dy * inv3, tb[1][q], ts[1][q]);
+        tf32_split(dz * inv3, tb[2][q], ts[2][q]);
+        if constexpr (NF == 4) tf32_split(inv, tb[3][q], ts[3][q]);
+      }
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        // B: W[cell nt 8 + g, v] at (row t, col g) and (row t + 4, col g)
+        const int k = nt * 8 + g;
+        const bool real = k < ncell;
+        float wb0, ws0, wb1, ws1;
+        tf32_split(real ? st.w[k][j + t] : 0.f, wb0, ws0);
+        tf32_split(real ? st.w[k][j + t + 4] : 0.f, wb1, ws1);
+#pragma unroll
+        for (int f = 0; f < NF; ++f) {
+          mma_tf32(acc[nt][f], tb[f][0], tb[f][1], tb[f][2], tb[f][3], wb0,
+                   wb1);
+          mma_tf32(acc[nt][f], tb[f][0], tb[f][1], tb[f][2], tb[f][3], ws0,
+                   ws1);
+          mma_tf32(acc[nt][f], ts[f][0], ts[f][1], ts[f][2], ts[f][3], wb0,
+                   wb1);
+        }
+      }
+    }
+    buf ^= 1;
+  }
+  // The slices' sums into the tile's fields, slice 0 first: a lane holds
+  // D at (u0 + g + 8 (e >> 1), cell nt 8 + 2 t + (e & 1)).
+  const int* local = item + 8 + kM2LGroup;
+  float* base = fields + mt * 16 + g;
+  for (int r = 0; r < kM2LMmaSlices; ++r) {
+    if (r > 0) __syncthreads();  // slice r - 1's adds are stored
+    if (s != r) continue;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int k = nt * 8 + 2 * t + e;
+        if (k >= ncell) continue;
+        float* o = base + local[k] * kM2LTargets;
+#pragma unroll
+        for (int f = 0; f < NF; ++f) {
+          o[f * tcells * kM2LTargets] += acc[nt][f][e];
+          o[f * tcells * kM2LTargets + 8] += acc[nt][f][2 + e];
+        }
+      }
   }
 }
 
-// Let K7's nf-field kernel take its fields' dynamic shared memory (above
-// the 48 KB default) on the current device.
+// The lossy instance: m2l_kernel's grid, threads, rows, fields and output,
+// the items' apply by m2l_mma_item.
 template <int NF>
-cudaError_t m2l_allow_fields() {
-  return cudaFuncSetAttribute(m2l_kernel<NF>,
+__global__ void __launch_bounds__(kM2LThreads, 1)
+m2l_mma_kernel(const float* __restrict__ w, const float* __restrict__ hl,
+               float soft2, int m, int C, const int* __restrict__ items,
+               const int* __restrict__ rows, int nsplit,
+               float* __restrict__ out) {
+  __shared__ __align__(16) M2LMmaShared sh;
+  extern __shared__ __align__(16) float fields[];  // [NF][tcells][targets]
+  const int* row = rows + blockIdx.y * kM2LRowInts;
+  const int first = row[0], end = row[1];
+  const int m3 = m * m * m;
+  const int tcells = m2l_begin<NF>(sh.node, fields, row, hl, m);
+  const int g = (threadIdx.x & 31) >> 2;
+  const int mt = (threadIdx.x >> 5) % kM2LMmaTiles;
+  float pux[2], puy[2], puz[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int u = blockIdx.x * kM2LTargets + mt * 16 + g + 8 * h;
+    const int uu = u < m3 ? u : 0;  // past m^3: computed, never stored
+    pux[h] = sh.node[0][uu / (m * m)];
+    puy[h] = sh.node[1][(uu / m) % m];
+    puz[h] = sh.node[2][uu % m];
+  }
+  int buf = 0;
+  if (first < end)
+    m2l_stage(sh.chunk[0], sh, items + first * kM2LItemInts, w, m, m3, 0);
+  for (int it = first; it < end; ++it) {
+    const int* item = items + it * kM2LItemInts;
+    const int* next = it + 1 < end ? item + kM2LItemInts : nullptr;
+    // the target nodes relative to the shift 2 h_l o of the item's offset
+    float sx[2], sy[2], sz[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      sx[h] = pux[h] - 2.f * hl[0] * static_cast<float>(item[0]);
+      sy[h] = puy[h] - 2.f * hl[1] * static_cast<float>(item[1]);
+      sz[h] = puz[h] - 2.f * hl[2] * static_cast<float>(item[2]);
+    }
+    if (item[4] <= 8)
+      m2l_mma_item<1, NF>(sh, fields, tcells, buf, item, next, w, m, m3, sx,
+                          sy, sz, soft2);
+    else
+      m2l_mma_item<2, NF>(sh, fields, tcells, buf, item, next, w, m, m3, sx,
+                          sy, sz, soft2);
+  }
+  m2l_end<NF>(fields, row, C, m3, nsplit, out);
+}
+
+using M2LKernel = void (*)(const float*, const float*, float, int, int,
+                           const int*, const int*, int, float*);
+
+// K7's kernel for nf fields: the fp32 instance, or the lossy one.
+inline M2LKernel m2l_pick(bool lossy, int nf) {
+  if (lossy) return nf == 4 ? m2l_mma_kernel<4> : m2l_mma_kernel<3>;
+  return nf == 4 ? m2l_kernel<4> : m2l_kernel<3>;
+}
+
+// Let a K7 kernel of nf fields take its fields' dynamic shared memory
+// (above the 48 KB default) on the current device.
+inline cudaError_t m2l_allow_fields(M2LKernel kernel, int nf) {
+  return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              m2l_fields_bytes(NF));
+                              m2l_fields_bytes(nf));
 }
 
 // out[i] = sum over s of partial[s * count + i], in split order.
@@ -336,6 +569,41 @@ __global__ void sum_splits_kernel(const float* __restrict__ partial,
 
 inline bool grid_ok(int m, int C) {
   return m >= 2 && m <= kGridMaxOrder && C >= 1 && C <= kGridMaxCells;
+}
+
+// K7 (the fp32 instance, or the lossy one): the sweep, then with nsplit >
+// 1 the splits' sum.  The C entries' arguments.
+inline int m2l_level(bool lossy, const float* w, const float* hl,
+                     float soft2, int m, int C, int nf, const int* items,
+                     const int* rows, int nrows, int nsplit, float* partial,
+                     float* out, cudaStream_t stream) {
+  if (!grid_ok(m, C) || (nf != 3 && nf != 4) || nrows < 1 ||
+      nrows > 65535 || nsplit < 1 || nsplit > kM2LMaxSplit ||
+      (nsplit > 1 && partial == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int m3 = m * m * m, ncell = C * C * C;
+  const dim3 grid((m3 + kM2LTargets - 1) / kM2LTargets, nrows);
+  const M2LKernel kernel = m2l_pick(lossy, nf);
+  cudaError_t err = m2l_allow_fields(kernel, nf);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<grid, kM2LThreads, m2l_fields_bytes(nf), stream>>>(
+      w, hl, soft2, m, C, items, rows, nsplit, nsplit > 1 ? partial : out);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || nsplit == 1) return static_cast<int>(err);
+  const long long count = static_cast<long long>(nf) * ncell * m3;
+  sum_splits_kernel<<<static_cast<int>((count + 255) / 256), 256, 0,
+                      stream>>>(partial, nsplit, count, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Blocks of a K7 kernel of nf fields one SM of the current device holds.
+inline int m2l_resident(bool lossy, int nf, int* blocks) {
+  if (nf != 3 && nf != 4) return static_cast<int>(cudaErrorInvalidValue);
+  const M2LKernel kernel = m2l_pick(lossy, nf);
+  cudaError_t err = m2l_allow_fields(kernel, nf);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, kernel, kM2LThreads, m2l_fields_bytes(nf)));
 }
 
 }  // namespace murb
@@ -393,29 +661,19 @@ extern "C" int murb_m2l_level(const float* w, const float* hl, float soft2,
                               const int* rows, int nrows, int nsplit,
                               float* partial, float* out,
                               cudaStream_t stream) {
-  if (!murb::grid_ok(m, C) || (nf != 3 && nf != 4) || nrows < 1 ||
-      nrows > 65535 || nsplit < 1 || nsplit > murb::kM2LMaxSplit ||
-      (nsplit > 1 && partial == nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int m3 = m * m * m, ncell = C * C * C;
-  const dim3 grid((m3 + murb::kM2LTargets - 1) / murb::kM2LTargets, nrows);
-  float* dst = nsplit > 1 ? partial : out;
-  const int smem = murb::m2l_fields_bytes(nf);
-  cudaError_t err = nf == 4 ? murb::m2l_allow_fields<4>()
-                            : murb::m2l_allow_fields<3>();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (nf == 4)
-    murb::m2l_kernel<4><<<grid, murb::kM2LThreads, smem, stream>>>(
-        w, hl, soft2, m, C, items, rows, nsplit, dst);
-  else
-    murb::m2l_kernel<3><<<grid, murb::kM2LThreads, smem, stream>>>(
-        w, hl, soft2, m, C, items, rows, nsplit, dst);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || nsplit == 1) return static_cast<int>(err);
-  const long long count = static_cast<long long>(nf) * ncell * m3;
-  murb::sum_splits_kernel<<<static_cast<int>((count + 255) / 256), 256, 0,
-                            stream>>>(partial, nsplit, count, out);
-  return static_cast<int>(cudaGetLastError());
+  return murb::m2l_level(false, w, hl, soft2, m, C, nf, items, rows, nrows,
+                         nsplit, partial, out, stream);
+}
+
+// K7's lossy instance (3xTF32 tensor-core products), the same arguments;
+// its plan is made for its own resident blocks (murb_m2l_resident_lossy).
+extern "C" int murb_m2l_level_lossy(const float* w, const float* hl,
+                                    float soft2, int m, int C, int nf,
+                                    const int* items, const int* rows,
+                                    int nrows, int nsplit, float* partial,
+                                    float* out, cudaStream_t stream) {
+  return murb::m2l_level(true, w, hl, soft2, m, C, nf, items, rows, nrows,
+                         nsplit, partial, out, stream);
 }
 
 // K8 (l2p 0) and K9 (l2p 1) at order m: the blocks one SM of the current
@@ -428,11 +686,10 @@ extern "C" int murb_runs_resident(int m, int l2p, int* blocks,
 // Blocks of K7's nf-field kernel one SM of the current device holds at
 // once, into *blocks (ops/fmm_kernels.m2l_slots sizes the split with it).
 extern "C" int murb_m2l_resident(int nf, int* blocks) {
-  if (nf != 3 && nf != 4) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = nf == 4 ? murb::m2l_allow_fields<4>()
-                            : murb::m2l_allow_fields<3>();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, nf == 4 ? murb::m2l_kernel<4> : murb::m2l_kernel<3>,
-      murb::kM2LThreads, murb::m2l_fields_bytes(nf)));
+  return murb::m2l_resident(false, nf, blocks);
+}
+
+// The same for K7's lossy instance.
+extern "C" int murb_m2l_resident_lossy(int nf, int* blocks) {
+  return murb::m2l_resident(true, nf, blocks);
 }

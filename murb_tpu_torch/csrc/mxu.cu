@@ -82,6 +82,7 @@
 // and 1.98 GHz) and instruction issue (about 6 slots a pair).  Device
 // memory traffic is O(ni + nj).
 #include "sweep.cuh"
+#include "tf32.cuh"
 
 namespace murb {
 
@@ -93,31 +94,6 @@ constexpr int kPackSources = 512;  // the packed sources' padding
 // chunks a P partial sums before it joins the running P: 128 sources, so
 // the fp32 partials stay as short at 512 sources a tile as at 128
 constexpr int kPartChunks = 16;
-
-// x rounded to TF32 (10 mantissa bits), to nearest, ties away from zero:
-// half a TF32 ulp added to the magnitude bits, the 13 low bits cleared
-// (the bits of cvt.rna.tf32.f32 for finite x).
-__device__ __forceinline__ float tf32_rna(float x) {
-  return __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xFFFFE000u);
-}
-
-__device__ __forceinline__ void tf32_split(float x, float& big,
-                                           float& small) {
-  big = tf32_rna(x);
-  small = tf32_rna(__fsub_rn(x, big));
-}
-
-// d += a b on the tensor cores: m16n8k8, TF32 operands, fp32 accumulators.
-__device__ __forceinline__ void mma_tf32(float (&d)[4], float a0, float a1,
-                                         float a2, float a3, float b0,
-                                         float b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(__float_as_uint(a0)), "r"(__float_as_uint(a1)),
-        "r"(__float_as_uint(a2)), "r"(__float_as_uint(a3)),
-        "r"(__float_as_uint(b0)), "r"(__float_as_uint(b1)));
-}
 
 // One thread a (chunk c, lane 4 g + t): the S fragment of source 8c + g
 // (rows t and t + 4 of both products) and the P fragment of sources

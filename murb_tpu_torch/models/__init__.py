@@ -21,11 +21,10 @@ NOT_YET_PORTED: tuple[str, ...] = ()
 #: block geometry options of the exact sweep engines (K3, K4, K13)
 _BLOCKS = ("block_i", "block_j", "autotune")
 
-#: options of the tracked engines (murb_tpu's registry forwards the same,
-#: less the hierarchy's m2l_dots)
+#: options of the tracked engines (murb_tpu's registry forwards the same)
 _TRACKED = ("num_iterations", "acc_fn", "metric_dtype", "metrics_method",
             "metrics_proxy_m", "fused_proxy_m", "fused_fmm",
-            "fused_adaptive", "validated_half")
+            "fused_adaptive", "m2l_dots", "validated_half")
 
 
 def register(tag: str, factory: Callable, aliases: tuple[str, ...] = ()):
@@ -91,7 +90,8 @@ def _build_registry():
     register("tpu+proxy",
              lambda b, **kw: E.ProxyEngine(
                  b, **_filter(kw, "m", "cells", "levels", "tol",
-                              "adapt_every", "validate", "near")),
+                              "adapt_every", "m2l_dots", "validate",
+                              "near")),
              aliases=("fmm", "barnes-hut"))
     register("tpu+hybrid+fast",
              lambda b, **kw: E.HybridEngine(b, passes=1,

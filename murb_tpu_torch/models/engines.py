@@ -45,6 +45,8 @@ from murb_tpu_torch.ops.proxy_kernels import MAX_ORDER
 # here until a caller needs another value.
 BOX_MARGIN = 1.5    # box growth the static order pick pads for
 COST_SLACK = 30.0   # how much costlier than the exact sweep the proxy may be
+#: the validation ladders' step of a lossy M2L tier that misses tol
+_STRONGER = {"bf16x3": "mixed", "mixed": "fp32"}
 
 
 class NopEngine(SimulationEngine):
@@ -238,7 +240,9 @@ class ProxyEngine(EulerAccelEngine):
     descended) by measurement unless ``validate=False``.  ``near``:
     "auto", "interp" (never the adaptive solver) or "adaptive" (always).
     ``cells=2`` runs the octant mode, ``levels=L`` the hierarchy
-    explicitly.
+    explicitly.  ``m2l_dots``: the M2L sweeps' tier ("fp32", "mixed",
+    "bf16x3"; ops/fmm.level_sweep, ops/sparse_fmm.m2l_sparse_level); the
+    validation ladders step a lossy tier that misses ``tol`` toward fp32.
     """
 
     tag = "tpu+proxy"
@@ -246,7 +250,9 @@ class ProxyEngine(EulerAccelEngine):
     def __init__(self, bodies, soft=None, dt=None, *, m: int = 0,
                  cells: int = 0, levels: int = 0, tol: float = 1e-4,
                  adapt_every: int = 0, validate: bool = True,
-                 near: str = "auto", **kw):
+                 near: str = "auto", m2l_dots: str = "fp32", **kw):
+        from murb_tpu_torch.ops.fmm import check_m2l_dots
+
         super().__init__(bodies, soft, dt, **kw)
         self.tol = tol
         self.adapt_every = int(adapt_every)
@@ -259,7 +265,7 @@ class ProxyEngine(EulerAccelEngine):
         self.near = near
         self.near_mode = "interp"   # resolved: "interp" | "adaptive"
         self._plan = None           # SparsePlan when near_mode == "adaptive"
-        self.m2l_dots = "fp32"      # the M2L tier: the port runs fp32 only
+        self.m2l_dots = check_m2l_dots(m2l_dots)
         self._auto = m == 0 and levels == 0
         if self._auto:
             self._configure()
@@ -348,9 +354,12 @@ class ProxyEngine(EulerAccelEngine):
         """Measured-order selection for the adaptive solver
         (murb_tpu/models/engines.py:498-573): its accuracy is scale-free, so
         the ladder moves m only -- by 2 up to 12 while the error misses tol,
-        else down to 4 while it still meets it.  murb_tpu first drops the
-        M2L compression and the lossy dot tiers on a miss; with rank 0 and
-        fp32, the only tiers the port runs, both have nothing to drop."""
+        else down to 4 while it still meets it.  On a first-rung miss it
+        first drops the M2L compression (when that helps), then steps a
+        lossy dot tier toward fp32 (bf16x3 -> mixed -> fp32) until tol is
+        met or fp32 is reached -- where murb_tpu stops at the first step
+        that does not improve and so can skip fp32 -- and only then
+        escalates m."""
         from murb_tpu_torch.ops.sparse_fmm import (acc_adaptive,
                                                    default_m2l_rank)
         from murb_tpu_torch.ops.validate import measured_force_error
@@ -381,10 +390,13 @@ class ProxyEngine(EulerAccelEngine):
                     self._plan, err = self._plan._replace(m2l_rank=0), err0
             # step a lossy tier through to fp32 (murb_tpu stops at the
             # first step that does not improve and can skip fp32)
-            stronger = {"bf16x3": "mixed", "mixed": "fp32"}
-            while err > self.tol and self.m2l_dots in stronger:
-                self.m2l_dots = stronger[self.m2l_dots]
-                err = err_at(m)
+            while err > self.tol and self.m2l_dots in _STRONGER:
+                old, self.m2l_dots = self.m2l_dots, _STRONGER[self.m2l_dots]
+                errt = err_at(m)
+                print(f"adaptive validation: m2l_dots={old} floors at "
+                      f"{err:.1e} > tol; dropping to {self.m2l_dots} "
+                      f"({errt:.1e})")
+                err = errt
             while err > self.tol and m + 2 <= 12:
                 m += 2
                 err = err_at(m)
@@ -426,16 +438,39 @@ class ProxyEngine(EulerAccelEngine):
         """Measured-order selection (ops/validate): measure the configured
         solver against an exact strided sample and escalate (or descend)
         until the tol contract is met; the ladder's hierarchy rungs run
-        acc_fmm.  murb_tpu's drop of a lossy M2L tier after a miss has
-        nothing to drop while the port runs fp32 only."""
+        acc_fmm at the engine's M2L tier.  When the ladder ends above tol
+        under a lossy tier and measured a hierarchy rung, the tier steps
+        toward fp32 (bf16x3 -> mixed -> fp32) and the ladder runs again
+        from the engine's pick, until tol is met or fp32 is reached
+        (murb_tpu/models/engines.py:620-645, which skips the drop when the
+        ladder's best config is a levels = 0 rung, and stops at a step that
+        does not improve)."""
         from murb_tpu_torch.ops.proxy import validation_ladder
         from murb_tpu_torch.ops.validate import certified_half, validate_config
 
         st = self._state
-        m, levels, cells, err = validate_config(
-            st.qx, st.qy, st.qz, self._gm(st), self.soft, self.tol,
-            self.m, self.levels, self.cells, half,
-            validation_ladder(self.soft))
+        rungs = set()        # the levels of the rungs the ladders measured
+
+        def ladder(tier):
+            make = validation_ladder(self.soft, m2l_dots=tier)
+
+            def make_acc(m, levels, cells):
+                rungs.add(levels)
+                return make(m, levels, cells)
+
+            return validate_config(
+                st.qx, st.qy, st.qz, self._gm(st), self.soft, self.tol,
+                self.m, self.levels, self.cells, half, make_acc)
+
+        m, levels, cells, err = ladder(self.m2l_dots)
+        while (err > self.tol and self.m2l_dots in _STRONGER
+               and any(rungs)):
+            old, self.m2l_dots = self.m2l_dots, _STRONGER[self.m2l_dots]
+            m, levels, cells, err2 = ladder(self.m2l_dots)
+            print(f"hierarchy validation: m2l_dots={old} floors at "
+                  f"{err:.1e} > tol; dropping to {self.m2l_dots} "
+                  f"({err2:.1e})")
+            err = err2
         self.validated_err = err
         self.validated_half = certified_half(m, levels, float(half), err,
                                              self.soft, self.tol)
@@ -473,12 +508,13 @@ class ProxyEngine(EulerAccelEngine):
         if self.near_mode == "adaptive":
             from murb_tpu_torch.ops.sparse_fmm import acc_adaptive
 
-            return acc_adaptive(qx, qy, qz, gm, self.soft, self._plan)
+            return acc_adaptive(qx, qy, qz, gm, self.soft, self._plan,
+                                m2l_dots=self.m2l_dots)
         if self.levels:
             from murb_tpu_torch.ops.fmm import acc_fmm
 
             return acc_fmm(qx, qy, qz, gm, self.soft, m=self.m,
-                           levels=self.levels)
+                           levels=self.levels, m2l_dots=self.m2l_dots)
         from murb_tpu_torch.ops.proxy import acc_proxy
 
         return acc_proxy(qx, qy, qz, gm, self.soft, m=self.m,
@@ -549,20 +585,23 @@ def _resolve_metric_dtype(metric_dtype) -> torch.dtype:
 
 
 def _fused_force_phi(qx, qy, qz, gm, soft, fused_proxy_m, fused_fmm,
-                     fused_adaptive=None):
+                     fused_adaptive=None, m2l_dots: str = "fp32"):
     """(Accel, phi) from one far-field pass: the adaptive hierarchy when
     ``fused_adaptive`` (a SparsePlan) is set, the L-level hierarchy when
-    ``fused_fmm`` = (m, levels) is, else the single-level proxy."""
+    ``fused_fmm`` = (m, levels) is, both at the M2L tier ``m2l_dots``, else
+    the single-level proxy."""
     if fused_adaptive is not None:
         from murb_tpu_torch.ops.sparse_fmm import force_and_potential_adaptive
 
         return force_and_potential_adaptive(qx, qy, qz, gm, soft,
-                                            fused_adaptive)
+                                            fused_adaptive,
+                                            m2l_dots=m2l_dots)
     if fused_fmm:
         from murb_tpu_torch.ops.fmm import force_and_potential_fmm
 
         return force_and_potential_fmm(qx, qy, qz, gm, soft, m=fused_fmm[0],
-                                       levels=fused_fmm[1])
+                                       levels=fused_fmm[1],
+                                       m2l_dots=m2l_dots)
     from murb_tpu_torch.ops.proxy import force_and_potential_proxy
 
     return force_and_potential_proxy(qx, qy, qz, gm, soft, m=fused_proxy_m)
@@ -683,7 +722,7 @@ class LeapfrogEngine(SimulationEngine):
 
 _TRACKING_OPTIONS = ("metric_dtype", "metrics_method", "metrics_proxy_m",
                      "fused_proxy_m", "fused_fmm", "fused_adaptive",
-                     "validated_half")
+                     "m2l_dots", "validated_half")
 
 
 class _Tracked:
@@ -695,7 +734,10 @@ class _Tracked:
                         metric_dtype=None, metrics_method: str = "exact",
                         metrics_proxy_m: int = 16, fused_proxy_m: int = 0,
                         fused_fmm: tuple = (), fused_adaptive=None,
+                        m2l_dots: str = "fp32",
                         validated_half: float | None = None) -> None:
+        from murb_tpu_torch.ops.fmm import check_m2l_dots
+
         if sum(map(bool, (fused_proxy_m, fused_fmm,
                           fused_adaptive is not None))) > 1:
             raise ValueError("fused_proxy_m / fused_fmm / fused_adaptive "
@@ -712,6 +754,7 @@ class _Tracked:
         self._fused_proxy_m = fused_proxy_m
         self._fused_fmm = tuple(fused_fmm)  # (m, levels) or ()
         self._fused_adaptive = fused_adaptive  # SparsePlan or None
+        self._m2l_dots = check_m2l_dots(m2l_dots)  # the fused pass's tier
         self._validated_half = validated_half
 
     @property
@@ -807,7 +850,8 @@ class TrackingEngine(_Tracked, EulerAccelEngine):
         if self._fused:
             acc, phi = _fused_force_phi(state.qx, state.qy, state.qz, gm,
                                         self.soft, self._fused_proxy_m,
-                                        self._fused_fmm, self._fused_adaptive)
+                                        self._fused_fmm, self._fused_adaptive,
+                                        self._m2l_dots)
             mets = _phi_metrics(state, phi, self.soft, self._metric_dtype)
         elif self._use_fused_exact():
             from murb_tpu_torch.ops.hybrid import acc_phi_rows_hybrid
@@ -852,7 +896,7 @@ class LeapfrogTrackingEngine(_Tracked, LeapfrogEngine):
         if self._fused:
             acc, phi = _fused_force_phi(*q, gm, self.soft,
                                         self._fused_proxy_m, self._fused_fmm,
-                                        self._fused_adaptive)
+                                        self._fused_adaptive, self._m2l_dots)
             self._state, self._aux = finish(acc)
             mets = _phi_metrics(self._state, phi, self.soft,
                                 self._metric_dtype)
@@ -945,7 +989,8 @@ class MultiGalaxyTrackingEngine(TrackingEngine):
 
             acc, phi = force_and_potential_fmm_pergal(
                 state.qx, state.qy, state.qz, gm, self.masks, self.soft,
-                m=self._fused_fmm[0], levels=self._fused_fmm[1])
+                m=self._fused_fmm[0], levels=self._fused_fmm[1],
+                m2l_dots=self._m2l_dots)
         elif self._use_fused_exact() and len(self.masks) <= 8:
             from murb_tpu_torch.ops.hybrid import acc_phi_rows_hybrid
 

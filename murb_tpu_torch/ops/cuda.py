@@ -63,6 +63,9 @@ _SIGNATURES = {
     "murb_m2l_level": [_P, _P, _F, _I, _I, _I, _P, _P, _I, _I, _P, _P,
                        _P],
     "murb_m2l_resident": [_I, _P],
+    "murb_m2l_level_lossy": [_P, _P, _F, _I, _I, _I, _P, _P, _I, _I, _P,
+                             _P, _P],
+    "murb_m2l_resident_lossy": [_I, _P],
     "murb_runs_resident": [_I, _I, _P, _P],
     "murb_p2p_sorted": [_P, _P, _P, _P, _I, _P, _P, _L, _F, _I, _P, _P],
     "murb_p2m_window": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _I,

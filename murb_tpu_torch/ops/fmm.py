@@ -20,9 +20,11 @@ match murb_tpu's exactly, so the port picks the same (m, levels).
 
 ``near="p2p"`` leaves the finest level's 27-cell neighbourhood out of the
 sweeps (one "far" sweep there) and sums it exactly with the P2P stage of
-ops/p2p.py (kernel K10) in a cubic box.  Not yet ported: the lossy M2L
-tiers ``m2l_dots="bf16x3"`` and ``"mixed"`` (ROADMAP.md Queue 1 item 12).
-The TPU autotuner knobs ``block`` and ``m2l_tile`` have no counterpart.
+ops/p2p.py (kernel K10) in a cubic box.  ``m2l_dots`` picks the level
+sweeps' tier as murb_tpu's does: "fp32" everywhere, "bf16x3" (K7's lossy
+instance, 3xTF32 products, everywhere) or "mixed" (an expand sweep as its
+near part at fp32 plus its far part lossy; every other sweep fp32).  The
+TPU autotuner knobs ``block`` and ``m2l_tile`` have no counterpart.
 """
 from __future__ import annotations
 
@@ -32,7 +34,7 @@ import math
 import numpy as np
 import torch
 
-from murb_tpu_torch.ops.common import Accel, not_yet_ported
+from murb_tpu_torch.ops.common import Accel
 from murb_tpu_torch.ops.fmm_kernels import (cell_order, l2p_grid_fused,
                                             m2l_level_fused, p2m_grid_fused)
 from murb_tpu_torch.ops.naive import acc_rect
@@ -121,19 +123,37 @@ def l2l(f, *, m: int, C: int):
 
 
 # --------------------------------------------------------- downward pass
+def level_sweep(w, hl, soft, *, m: int, C: int, subset: str,
+                with_phi: bool, m2l_dots: str = "fp32") -> tuple:
+    """One level sweep at the tier ``m2l_dots`` (murb_tpu/ops/fmm.py:
+    fused_sweep): under "mixed" an expand sweep runs as its near part at
+    fp32 plus its far part lossy (expand = near + far, pairwise); every
+    sweep is lossy under "bf16x3" and fp32 otherwise.  One K7 launch a
+    part on CUDA tensors."""
+    kw = dict(m=m, C=C, with_phi=with_phi)
+    if m2l_dots == "mixed" and subset == "expand":
+        near = m2l_level_fused(w, hl, soft, subset="near", dots="fp32", **kw)
+        far = m2l_level_fused(w, hl, soft, subset="far", dots="bf16x3", **kw)
+        return tuple(a + b for a, b in zip(near, far))
+    return m2l_level_fused(w, hl, soft, subset=subset,
+                           dots="bf16x3" if m2l_dots == "bf16x3" else "fp32",
+                           **kw)
+
+
 def fmm_field_grid(w_finest, h, soft, *, m: int, levels: int,
-                   with_phi: bool = False,
-                   finest_subset: str = "expand") -> tuple:
+                   with_phi: bool = False, finest_subset: str = "expand",
+                   m2l_dots: str = "fp32") -> tuple:
     """Finest-level node fields (fx, fy, fz[, phi]) via the full hierarchy:
     coarser expansions by M2M, at each level from l0 = min(2, L) an expand
     sweep, minus a near sweep at every level but the finest, fields carried
     down by L2L (murb_tpu/ops/fmm.py:fmm_field_grid).  ``finest_subset``
     "far" replaces the finest level's expand sweep by one far sweep (far =
     expand minus near, pairwise), leaving the finest near neighbourhood to
-    an exact P2P stage.  Each sweep is one K7 launch on CUDA tensors."""
+    an exact P2P stage.  Each sweep is ``level_sweep`` at ``m2l_dots``."""
     if finest_subset not in ("expand", "far"):
         raise ValueError(f"unknown finest subset {finest_subset!r} "
                          "(expand, far)")
+    check_m2l_dots(m2l_dots)
     l0 = min(2, levels)  # level 1's expand and near lists coincide (C = 2)
     ws = {levels: w_finest}
     for l in range(levels - 1, l0 - 1, -1):
@@ -145,13 +165,12 @@ def fmm_field_grid(w_finest, h, soft, *, m: int, levels: int,
         hl = h / C
         if f is not None:
             f = tuple(l2l(fd, m=m, C=C // 2) for fd in f)
+        kw = dict(m=m, C=C, with_phi=with_phi, m2l_dots=m2l_dots)
         subset = finest_subset if l == levels else "expand"
-        contrib = m2l_level_fused(ws[l], hl, soft, m=m, C=C, subset=subset,
-                                  with_phi=with_phi)
+        contrib = level_sweep(ws[l], hl, soft, subset=subset, **kw)
         f = contrib if f is None else tuple(a + b for a, b in zip(f, contrib))
         if l < levels:
-            near = m2l_level_fused(ws[l], hl, soft, m=m, C=C, subset="near",
-                                   with_phi=with_phi)
+            near = level_sweep(ws[l], hl, soft, subset="near", **kw)
             f = tuple(a - b for a, b in zip(f, near))
     return f
 
@@ -204,15 +223,15 @@ def fmm_order(halfwidth: float, soft: float, levels: int,
 
 
 # ------------------------------------------------------------- top level
+#: the M2L dot tiers (murb_tpu/models/engines.py:_check_m2l_dots)
+M2L_TIERS = ("fp32", "mixed", "bf16x3")
+
+
 def check_m2l_dots(tier: str) -> str:
-    """The level sweeps' matmul tier: "fp32" runs; murb_tpu's lossy tiers
-    "bf16x3" and "mixed" raise "not yet ported"; anything else ValueError."""
-    if tier not in ("fp32", "bf16x3", "mixed"):
+    """The M2L sweeps' dot tier: "fp32", "mixed" or "bf16x3"; anything else
+    raises ValueError."""
+    if tier not in M2L_TIERS:
         raise ValueError(f"unknown m2l_dots tier: {tier!r}")
-    if tier != "fp32":
-        raise not_yet_ported(f"m2l_dots={tier!r} (a lossy M2L tier; the "
-                             "port's level sweeps are fp32)",
-                             "Queue 1 item 12")
     return tier
 
 
@@ -255,7 +274,7 @@ def _fmm_solve(qx, qy, qz, gm, soft, *, m: int, levels: int, heavy_k: int,
     fields = fmm_field_grid(w, h, soft, m=m, levels=levels,
                             with_phi=with_phi,
                             finest_subset="far" if near == "p2p" else
-                            "expand")
+                            "expand", m2l_dots=m2l_dots)
     out = l2p_grid_fused(qx, qy, qz, c, h, fields, m=m, C=C, order=order)
     acc = torch.stack(out[:3], dim=1)
     phi_near = None
@@ -288,7 +307,8 @@ def acc_fmm(qx, qy, qz, gm, soft, *, m: int = 12, levels: int = 2,
     (ref: murb_tpu/ops/fmm.py:acc_fmm).  Heavy bodies are excluded from the
     far field and corrected exactly, as sources and as targets.
     ``near="p2p"`` sums the finest near neighbourhood exactly (ops/p2p.py,
-    capacity ``p2p_pmax``)."""
+    capacity ``p2p_pmax``).  ``m2l_dots``: the level sweeps' tier
+    (``level_sweep``)."""
     acc, _ = _fmm_solve(qx, qy, qz, gm, soft, m=m, levels=levels,
                         heavy_k=heavy_k, heavy_factor=heavy_factor,
                         m2l_dots=m2l_dots, with_phi=False, near=near,
@@ -385,7 +405,8 @@ def force_and_potential_fmm_pergal(qx, qy, qz, gm, masks, soft, *,
     hierarchy on the full weights; each galaxy's potential is a masked
     weight channel through K8 -> M2M -> m2l_phi_multi -> L2L, and one grid
     L2P (K9) interpolates the 3 + G fields.  Heavy bodies are corrected per
-    galaxy with shared distance builds."""
+    galaxy with shared distance builds.  ``m2l_dots`` sets the force
+    sweeps' tier; the potential channels run fp32, as murb_tpu's."""
     _check_modes(m2l_dots, "interp")
     C = 2 ** levels
     c, h, hq, heavy_gm, is_heavy, top_idx, gm_eff = _heavy_setup(
@@ -398,7 +419,8 @@ def force_and_potential_fmm_pergal(qx, qy, qz, gm, masks, soft, *,
 
     w = p2m_one(gm_eff)
     wg = torch.stack([p2m_one(gm_eff * mk) for mk in masks])
-    fields = fmm_field_grid(w, h, soft, m=m, levels=levels)
+    fields = fmm_field_grid(w, h, soft, m=m, levels=levels,
+                            m2l_dots=m2l_dots)
     phi_fields = phi_grid_pergal(wg, h, soft, m=m, levels=levels)
     out = l2p_grid_fused(qx, qy, qz, c, h, tuple(fields) + tuple(phi_fields),
                          m=m, C=C, order=order)

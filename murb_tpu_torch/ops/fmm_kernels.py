@@ -7,7 +7,12 @@ The plain versions are those jnp stages written in PyTorch: the cell
 segment sum of P2M as ``index_add_``, the own-cell gather of L2P, and the
 level sweep over the canonical offset pairs with its mirror identity and
 parity masks.  The CUDA kernels (``csrc/fmm.cu``) compute the same
-functions in fp32.
+functions in fp32.  K7 has two instances, one per dot tier of murb_tpu's
+``m2l_level_fused(exact_dots=...)``: ``dots="fp32"`` (exact_dots=True)
+and the lossy ``dots="bf16x3"`` (exact_dots=False), whose apply runs as
+three TF32 tensor-core products of split operands (``ops/mxu.
+split3_matmul``'s arithmetic, which its plain version computes): the
+tier's accuracy contract, not murb_tpu's bf16 mechanism.
 
 ``p2m_grid_fused``, ``m2l_level_fused`` and ``l2p_grid_fused`` run the
 plain version on CPU tensors and launch the kernel on CUDA tensors, and
@@ -18,7 +23,9 @@ on one box pass one ``CellOrder`` to both.  The box stays on the device.
 For K7 the wrapper hands the kernel its plan (``m2l_plan``, host numpy,
 copied to the device once a shape): each offset's admitted target cells
 in items of up to ``M2L_GROUP``, whose transfer entries the kernel builds
-once, and their split over the card.
+once, and their split over the card (each instance's own resident
+blocks).  ``m2l_level_fused.launches`` counts the fp32 instance's
+launches, ``m2l_level_fused.lossy_launches`` the lossy one's.
 """
 from __future__ import annotations
 
@@ -34,6 +41,7 @@ import torch.nn.functional as F
 
 from murb_tpu_torch.ops import cuda
 from murb_tpu_torch.ops.common import notify_fp32_compute
+from murb_tpu_torch.ops.mxu import split3_matmul
 from murb_tpu_torch.ops.proxy_kernels import _basis, node_table
 
 #: largest order and cells per dimension the kernels take (csrc/fmm.cu,
@@ -70,6 +78,9 @@ M2L_ROW_INTS = 12
 #: the offset subsets: (reach, least |o|_inf, parity rule)
 _M2L_SUBSETS = {"expand": (3, 0, True), "near": (1, 0, False),
             "far": (3, 2, True)}
+#: K7's instances: the dot tier -> its C entries (sweep, resident blocks)
+M2L_DOTS = {"fp32": ("murb_m2l_level", "murb_m2l_resident"),
+            "bf16x3": ("murb_m2l_level_lossy", "murb_m2l_resident_lossy")}
 _PLAIN_CHUNK = 8192  # bodies per step of the plain P2M / L2P
 #: entries of the transfer matrix T the plain M2L builds at a time: all of
 #: it up to m = 20, row blocks above (8.6 GB a whole matrix at m = 32 in
@@ -166,16 +177,27 @@ def _parity_mask(o, even, C: int) -> torch.Tensor:
             & mk(o[2])[None, None, :]).reshape(C ** 3, 1)
 
 
+def _check_dots(dots: str) -> None:
+    if dots not in M2L_DOTS:
+        raise ValueError(f"unknown K7 dot tier {dots!r} "
+                         f"({', '.join(M2L_DOTS)})")
+
+
 def m2l_level_plain(w, hl, soft, *, m: int, C: int, subset: str = "expand",
-                    with_phi: bool = False) -> tuple:
+                    with_phi: bool = False, dots: str = "fp32") -> tuple:
     """Node fields (fx, fy, fz[, phi]), each (C^3, m^3), from the level's
     expansions ``w`` (murb_tpu/ops/fmm.py:m2l_level): for each canonical
     offset pair one transfer build T(o), applied to the +o-shifted weights
     and, by the mirror identity T(-o) = -T(o)^T (+T^T for phi), to the
-    -o-shifted ones.  Out-of-grid offsets read zero-padded weights."""
+    -o-shifted ones.  Out-of-grid offsets read zero-padded weights.
+    ``dots="bf16x3"`` applies T by ``split3_matmul`` (K7's lossy
+    instance's arithmetic) for float32 input; float64 runs unrounded."""
     from murb_tpu_torch.ops.fmm import _SUBSETS, _offsets_paired
 
+    _check_dots(dots)
     dtype, dev = w.dtype, w.device
+    mm = (split3_matmul if dots == "bf16x3" and dtype == torch.float32
+          else torch.matmul)
     m3 = m ** 3
     soft2 = torch.tensor(soft, dtype=dtype) ** 2
     wpad = F.pad(w.reshape(C, C, C, m3), (0, 0, 3, 3, 3, 3, 3, 3))
@@ -210,8 +232,8 @@ def m2l_level_plain(w, hl, soft, *, m: int, C: int, subset: str = "expand",
                                                       else [])
             for i, t in enumerate(ts):
                 sign = 1.0 if i == 3 else -1.0
-                fields[i][:, u] += wp @ t.T
-                fields[i] += sign * (wn[:, u] @ t)
+                fields[i][:, u] += mm(wp, t.T)
+                fields[i] += sign * mm(wn[:, u], t)
     return tuple(fields)
 
 
@@ -537,33 +559,38 @@ def _m2l_plan(m: int, C: int, subset: str, slots: int,
 
 
 @functools.lru_cache(maxsize=None)
-def m2l_slots(device: torch.device, nf: int) -> int:
+def m2l_slots(device: torch.device, nf: int, dots: str = "fp32") -> int:
     """K7's blocks the card holds at once: its SMs times the blocks of the
-    nf-field kernel an SM holds (the occupancy calculator,
-    ``murb_m2l_resident``)."""
+    nf-field kernel of the tier's instance an SM holds (the occupancy
+    calculator, ``murb_m2l_resident`` or ``murb_m2l_resident_lossy``)."""
+    entry = M2L_DOTS[dots][1]
     blocks = ctypes.c_int(0)
     with torch.cuda.device(device):
-        cuda.launch("murb_m2l_resident", nf, ctypes.byref(blocks))
+        cuda.launch(entry, nf, ctypes.byref(blocks))
     if blocks.value < 1:
-        raise RuntimeError(f"murb_m2l_resident nf={nf}: no block fits an SM")
+        raise RuntimeError(f"{entry} nf={nf}: no block fits an SM")
     return cuda.sm_count(device) * blocks.value
 
 
 @functools.lru_cache(maxsize=None)
-def _plan_on(m: int, C: int, subset: str, nf: int, device: torch.device):
-    """The plan for ``device``'s resident blocks and its tables on the
-    device (copied once per shape)."""
-    plan = m2l_plan(m, C, subset, m2l_slots(device, nf))
+def _plan_on(m: int, C: int, subset: str, nf: int, device: torch.device,
+             dots: str = "fp32"):
+    """The plan for ``device``'s resident blocks of the tier's instance and
+    its tables on the device (copied once per shape)."""
+    plan = m2l_plan(m, C, subset, m2l_slots(device, nf, dots))
     return plan, (torch.from_numpy(plan.items).to(device),
                   torch.from_numpy(plan.rows).to(device))
 
 
 def m2l_level_fused(w, hl, soft, *, m: int, C: int, subset: str = "expand",
-                    with_phi: bool = False) -> tuple:
-    """Node fields (fx, fy, fz[, phi]), each (C^3, m^3), of one level sweep.
-    CPU tensors run ``m2l_level_plain``; CUDA tensors launch K7 on the
-    plan ``m2l_plan`` (fp32 inside, fields cast back to ``w``'s dtype)."""
+                    with_phi: bool = False, dots: str = "fp32") -> tuple:
+    """Node fields (fx, fy, fz[, phi]), each (C^3, m^3), of one level sweep
+    at the dot tier ``dots`` ("fp32", or the lossy "bf16x3": murb_tpu's
+    ``exact_dots=dots != "bf16x3"``).  CPU tensors run ``m2l_level_plain``;
+    CUDA tensors launch the tier's K7 instance on the plan ``m2l_plan``
+    (fp32 inside, fields cast back to ``w``'s dtype)."""
     _check_grid(m, C)
+    _check_dots(dots)
     if subset not in _M2L_SUBSETS:
         raise ValueError(f"unknown offset subset {subset!r} "
                          f"({', '.join(_M2L_SUBSETS)})")
@@ -572,7 +599,7 @@ def m2l_level_fused(w, hl, soft, *, m: int, C: int, subset: str = "expand",
                          f"expected {(C ** 3, m ** 3)}")
     if w.device.type == "cpu":
         return m2l_level_plain(w, hl, soft, m=m, C=C, subset=subset,
-                               with_phi=with_phi)
+                               with_phi=with_phi, dots=dots)
     cuda.require_cuda(_TAG, w)
     cuda.refuse_grad(_TAG, w, hl, soft)
     dev = w.device
@@ -581,20 +608,24 @@ def m2l_level_fused(w, hl, soft, *, m: int, C: int, subset: str = "expand",
     w32 = w.to(torch.float32).contiguous()
     hl32 = hl.to(device=dev, dtype=torch.float32).contiguous()
     nf = 4 if with_phi else 3
-    plan, (items, rows) = _plan_on(m, C, subset, nf, dev)
+    plan, (items, rows) = _plan_on(m, C, subset, nf, dev, dots)
     out = torch.empty((nf, C ** 3, m ** 3), dtype=torch.float32, device=dev)
     nscratch = plan.scratch(m, C, nf)
     partial = (torch.empty(nscratch, dtype=torch.float32, device=dev)
                if nscratch else None)
     soft2 = float(np.float32(soft) * np.float32(soft))
     with torch.cuda.device(dev):
-        cuda.launch("murb_m2l_level", w32.data_ptr(), hl32.data_ptr(), soft2,
-                    m, C, nf, items.data_ptr(), rows.data_ptr(),
+        cuda.launch(M2L_DOTS[dots][0], w32.data_ptr(), hl32.data_ptr(),
+                    soft2, m, C, nf, items.data_ptr(), rows.data_ptr(),
                     rows.shape[0], plan.nsplit,
                     None if partial is None else partial.data_ptr(),
                     out.data_ptr(), cuda.stream(dev))
-    m2l_level_fused.launches += 1
+    if dots == "fp32":
+        m2l_level_fused.launches += 1
+    else:
+        m2l_level_fused.lossy_launches += 1
     return tuple(f.to(w.dtype) for f in out)
 
 
 m2l_level_fused.launches = 0
+m2l_level_fused.lossy_launches = 0

@@ -115,6 +115,38 @@ def tf32_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return big, tf32_round(x - big)
 
 
+def split3_matmul(a: torch.Tensor, b: torch.Tensor,
+                  out: torch.Tensor | None = None) -> torch.Tensor:
+    """``a @ b`` (batched alike) as three products of TF32 operands,
+    a_big b_big + a_big b_small + a_small b_big with both sides split by
+    ``tf32_split``: about 2^-21 of each term where murb_tpu's bf16x3 (three
+    bf16 passes) carries 2^-16.  The lossy M2L tier's arithmetic (K7's
+    lossy instance, the sparse M2L's products); a product of two TF32
+    values is exact in fp32, so the three run as plain fp32 products.
+    float32 operands only.  ``out`` (3-D operands): the products are
+    added into it in place (``baddbmm_``) and it is returned."""
+    ab, as_ = tf32_split(a)
+    bb, bs = tf32_split(b)
+    if out is None:
+        return ab @ bb + ab @ bs + as_ @ bb
+    for x, y in ((ab, bb), (ab, bs), (as_, bb)):
+        out.baddbmm_(x, y)
+    return out
+
+
+@contextlib.contextmanager
+def tf32_matmul():
+    """float32 products on the tensor cores (TF32) inside, the precision
+    restored however the block exits: for operands that are TF32 values
+    already (``split3_matmul``'s), where TF32 loses nothing."""
+    saved = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(saved)
+
+
 def _centered_with_point(qx, qy, qz, gm):
     """The coordinates less their G*m-weighted mean, and that mean
     (mxu.py:185-190)."""

@@ -201,17 +201,19 @@ def _two_level(qx, qy, qz, gm_eff, c, h, soft, m: int) -> torch.Tensor:
     return torch.stack(out, dim=1)
 
 
-def validation_ladder(soft):
+def validation_ladder(soft, m2l_dots: str = "fp32"):
     """``make_acc_fn(m, levels, cells) -> acc(qx, qy, qz, gm)`` for
     ops/validate.validate_config: the single-level proxy, or the hierarchy
-    (``acc_fmm``, kernels K7-K9) on a rung with levels > 0, as
-    ``tpu+proxy`` and ``--kernel proxy`` / ``fmm`` validate them."""
+    (``acc_fmm`` at the M2L tier ``m2l_dots``, kernels K7-K9) on a rung
+    with levels > 0, as ``tpu+proxy`` and ``--kernel proxy`` / ``fmm``
+    validate them."""
     def make_acc(m, levels, cells):
         if levels:
             from murb_tpu_torch.ops.fmm import acc_fmm
 
             return lambda qx, qy, qz, g: acc_fmm(qx, qy, qz, g, soft, m=m,
-                                                 levels=levels)
+                                                 levels=levels,
+                                                 m2l_dots=m2l_dots)
         return lambda qx, qy, qz, g: acc_proxy(qx, qy, qz, g, soft, m=m,
                                                cells=cells)
 

@@ -27,14 +27,18 @@ P2P stage (ops/p2p.py) sums exactly:
   near       the exact P2P sweep (kernel K10).
 
 Everything runs on the state's device with no host sync inside a solve;
-the planner and the capacity checks run on the host between steps.  Not
-yet ported: the shared-basis M2L compression (``m2l_rank`` > 0), the fused
-multi-offset M2L (MURB_M2L_FUSED), MURB_M2L_SCAN_CHUNK and the lossy
-``m2l_dots`` tiers (ROADMAP.md Queue 1 item 12); an explicit request for
-any of them raises.
+the planner and the capacity checks run on the host between steps.  The
+sparse M2L keeps murb_tpu's opt-in tiers (``m2l_sparse_level``): the dot
+tiers ``m2l_dots`` "bf16x3" (every product as three TF32 products of split
+operands, ``ops/mxu.split3_matmul``) and "mixed" (the |o|_inf = 2 shell at
+fp32, the outer shells lossy), the shared-basis compression (``m2l_rank``
+> 0, ``m2l_basis``), the fused multi-offset form (MURB_M2L_FUSED) and the
+offsets a batch (MURB_M2L_SCAN_CHUNK); ``solve_adaptive`` reads the two
+variables once (``m2l_schedule``) and passes them down.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 import os
@@ -44,10 +48,11 @@ import numpy as np
 import torch
 
 from murb_tpu_torch.ops.anterp_kernels import l2p_window, p2m_window
-from murb_tpu_torch.ops.common import Accel, not_yet_ported
+from murb_tpu_torch.ops.common import Accel
 from murb_tpu_torch.ops.fmm import (_SUBSETS, _basis_np, _cheb_nodes_np,
                                     _offsets_paired, check_m2l_dots,
                                     fmm_field_grid)
+from murb_tpu_torch.ops.mxu import split3_matmul, tf32_matmul
 from murb_tpu_torch.ops.fmm_kernels import _node_vectors
 from murb_tpu_torch.ops.p2p import (DEFAULT_CHUNK as P2P_CHUNK, DEFAULT_K,
                                     estimate_brick_pairs, morton_key,
@@ -288,8 +293,60 @@ def _neighbor_slots(cells, C: int, offs: np.ndarray, par: np.ndarray):
     return spos, ok & (spos < cap)
 
 
+@functools.lru_cache(maxsize=None)
+def _m2l_basis_cached(m: int, rank: int, device: torch.device):
+    t = torch.as_tensor(_cheb_nodes_np(m), dtype=torch.float64, device=device)
+    m2 = m * m
+    pv = (t.repeat_interleave(m2), t.repeat_interleave(m).repeat(m),
+          t.repeat(m2))
+    dP = torch.stack([v[None, :] - v[:, None] for v in pv])  # (3, m3, m3)
+    canon = torch.as_tensor(_canon_far(), dtype=torch.float64,
+                            device=device)
+    m3 = m ** 3
+    gram = torch.zeros((m3, m3), dtype=torch.float64, device=device)
+    step = max(1, _BASIS_ENTRIES // (4 * m3 * m3))
+    for soh in (0.0, 0.3, 1.0):
+        for k0 in range(0, len(canon), step):
+            D = 2.0 * canon[k0:k0 + step, :, None, None] + dP[None]
+            inv = torch.rsqrt((D * D).sum(1) + soh * soh)
+            ts = torch.cat([D * (inv ** 3)[:, None], inv[:, None]], 1)
+            a = ts.reshape(-1, m3)
+            gram += a.T @ a
+            b = ts.transpose(2, 3).reshape(-1, m3)
+            gram += b.T @ b
+    vec = torch.linalg.eigh(gram)[1]
+    return vec.flip(1)[:, :rank].contiguous()
+
+
+def m2l_basis(m: int, rank: int, device) -> torch.Tensor:
+    """(m^3, rank) float64 orthonormal shared basis of the far transfer
+    family (murb_tpu/ops/sparse_fmm.py:_m2l_basis): the top eigenvectors
+    of the Gram sum_k (T_k^T T_k + T_k T_k^T) over every canonical far
+    offset, the four component kernels (force x/y/z, potential) and
+    soft/hl in {0, 0.3, 1}, at unit half-width (hl scales out of the
+    operators).  T T^T closes the family under the mirror transpose, so
+    one basis serves both signs of T ~ Q (Q^T T Q) Q^T.  Computed in
+    float64 on ``device`` (murb_tpu: numpy, the Gram's products in fp32)
+    and cached per (m, rank, device): at m = 12 the Gram is about 4e13
+    flops.  Eigenvector signs may differ from numpy's; the compressed
+    sweep does not depend on them."""
+    return _m2l_basis_cached(int(m), int(rank), torch.device(device))
+
+
+#: float64 entries of one batch of the basis Gram's transfer stack (128
+#: MiB): all 158 canonical offsets at once up to m = 5
+_BASIS_ENTRIES = 1 << 24
+
+#: murb_tpu's recommended explicit compression ranks (sparse_fmm.py:558):
+#: the 1e-5 singular-value crossings of the far transfer family, rounded
+#: up to 128-lane multiples
+_M2L_RANKS = {8: 384, 10: 640, 12: 896}
+
+
 def default_m2l_rank(m: int) -> int:
-    """Compression off at every order (murb_tpu's default)."""
+    """Compression off at every order (murb_tpu's default: its truncation
+    residuals accumulate to ~1e-4-class force error at flagship scale);
+    an explicit ``m2l_rank`` > 0 is the opt-in tier."""
     return 0
 
 
@@ -308,31 +365,205 @@ def _resolve_rank(plan: SparsePlan, cap: int) -> int:
 #: coarse levels all 158 at once
 _M2L_BATCH_BYTES = 512 << 20
 
+#: gathered-operand bytes of one step of the fused form (murb_tpu's
+#: _M2L_STEP_BYTES): its offsets a step
+_M2L_STEP_BYTES = 128 << 20
 
-def _check_m2l_tiers(m2l_dots: str, rank: int) -> None:
-    check_m2l_dots(m2l_dots)
-    if rank > 0:
-        raise not_yet_ported(f"m2l_rank={rank} (the shared-basis M2L "
-                             "compression)", "Queue 1 item 12")
-    if os.environ.get("MURB_M2L_FUSED", "") == "1":
-        raise not_yet_ported("MURB_M2L_FUSED=1 (the fused multi-offset "
-                             "M2L)", "Queue 1 item 12")
-    if os.environ.get("MURB_M2L_SCAN_CHUNK", "1") not in ("", "1"):
-        raise not_yet_ported("MURB_M2L_SCAN_CHUNK (chunked M2L offsets)",
-                             "Queue 1 item 12")
+def m2l_schedule() -> dict:
+    """The sparse M2L's opt-in schedule from the environment, read once at
+    a public entry (``solve_adaptive``, the sharded step) and passed down:
+    ``scan_chunk`` from MURB_M2L_SCAN_CHUNK (offsets a batch; 0, unset or
+    not a positive integer: the byte budget) and ``fused`` from
+    MURB_M2L_FUSED ("1" on, anything else off).  The fused form is off by
+    default: murb_tpu's cap rule admits no level (its _M2L_FUSED_CAP is 0,
+    the form measured slower at every granularity, sparse_fmm.py:590-600)."""
+    try:
+        chunk = max(0, int(os.environ.get("MURB_M2L_SCAN_CHUNK", "") or 0))
+    except ValueError:
+        chunk = 0
+    return {"scan_chunk": chunk,
+            "fused": os.environ.get("MURB_M2L_FUSED", "") == "1"}
+
+
+class _Products:
+    """The sparse M2L's matrix products at a dot tier: plain products, or
+    under ``lossy`` (float32 only; float64 runs unrounded)
+    ``split3_matmul``'s, inside ``tf32_matmul`` on a card."""
+
+    def __init__(self, lossy: bool, x: torch.Tensor):
+        self.lossy = lossy and x.dtype == torch.float32
+        self.tf32 = self.lossy and x.device.type == "cuda"
+
+    def __call__(self, a, b):
+        if not self.lossy:
+            return a @ b
+        if not self.tf32:
+            return split3_matmul(a, b)
+        with tf32_matmul():
+            return split3_matmul(a, b)
+
+    def sum2(self, a1, b1, a2, b2):
+        """a1 @ b1 + a2 @ b2, batched: fp32 one ``bmm`` and one
+        ``baddbmm``; lossy ``split3_matmul``'s six TF32 products
+        accumulated in place (no sum of materialized products)."""
+        if not self.lossy:
+            return torch.baddbmm(torch.bmm(a1, b1), a2, b2)
+        out = a1.new_zeros(a1.shape[0], a1.shape[1], b1.shape[2])
+        with tf32_matmul() if self.tf32 else contextlib.nullcontext():
+            split3_matmul(a1, b1, out=out)
+            return split3_matmul(a2, b2, out=out)
+
+
+def _transfers(o, pv, hl, soft2, nf: int):
+    """(b, nf, m^3, m^3) transfer matrices of the offsets ``o`` (b, 3):
+    T_d = D_d (D.D + eps^2)^-3/2, T_phi = (D.D + eps^2)^-1/2, D[k, u, v] =
+    p_v - p_u + 2 hl o_k."""
+    D = [2.0 * hl[d] * o[:, d, None, None]
+         + (pv[d][None, :] - pv[d][:, None])[None] for d in range(3)]
+    inv = torch.rsqrt(D[0] * D[0] + D[1] * D[1] + D[2] * D[2] + soft2)
+    inv3 = inv * inv * inv
+    return torch.stack([d * inv3 for d in D] + ([inv] if nf == 4 else []),
+                       1)
 
 
 def m2l_sparse_level(w, cells, hl, soft, *, m: int, C: int,
                      with_phi: bool, m2l_dots: str = "fp32",
-                     rank: int = 0) -> tuple:
+                     rank: int = 0, scan_chunk: int = 0,
+                     fused: bool = False) -> tuple:
     """Far sweep at one sparse level: nf fields (cap, m^3) of the occupied
     targets from the expansions ``w`` (cap + 1, m^3) of their occupied far
-    sources (murb_tpu's per-offset scheduling).  Each canonical offset o
-    builds its transfer matrices once and applies them to the sources at
-    +o and, by the mirror identity T_d(-o) = -T_d(o)^T (T_phi(-o) =
-    +T_phi(o)^T), at -o.  Offsets go in batches under _M2L_BATCH_BYTES:
-    one batched product per sign, every field in its columns."""
-    _check_m2l_tiers(m2l_dots, rank)
+    sources (murb_tpu/ops/sparse_fmm.py:m2l_sparse_level).  Each canonical
+    offset o builds its transfer matrices once and applies them to the
+    sources at +o and, by the mirror identity T_d(-o) = -T_d(o)^T
+    (T_phi(-o) = +T_phi(o)^T), at -o.  The forms, as murb_tpu dispatches
+    them: ``rank`` (0 < rank < m^3) the shared-basis compression
+    (``_m2l_sparse_level_rank``); else the fused multi-offset contraction
+    when ``fused`` (off by default, ``m2l_schedule``); else the batched
+    sweep, ``scan_chunk`` offsets a batch (0: the byte budget).
+    ``m2l_dots``: "fp32"; "bf16x3" every product lossy (three TF32
+    products of split operands, the card's TF32 scope restoring the
+    float32 matmul precision however it exits); "mixed" the |o|_inf = 2
+    shell at fp32 and the outer shells lossy in the batched sweep, every
+    product fp32 in the rank and fused forms (murb_tpu's
+    ``m2l_dots == "bf16x3"`` rule there)."""
+    check_m2l_dots(m2l_dots)
+    rank = rank if 0 < rank < m ** 3 else 0
+    kw = dict(m=m, C=C, with_phi=with_phi)
+    if rank:
+        return _m2l_sparse_level_rank(w, cells, hl, soft, rank=rank,
+                                      lossy=m2l_dots == "bf16x3", **kw)
+    if fused:
+        return _m2l_sparse_level_fused(w, cells, hl, soft,
+                                       lossy=m2l_dots == "bf16x3", **kw)
+    canon = _canon_far()
+    if m2l_dots == "mixed":
+        shell = np.abs(canon).max(1)
+        crit = _m2l_sparse_level_scan(w, cells, hl, soft, canon[shell <= 2],
+                                      lossy=False, scan_chunk=scan_chunk,
+                                      **kw)
+        outer = _m2l_sparse_level_scan(w, cells, hl, soft,
+                                       canon[shell >= 3], lossy=True,
+                                       scan_chunk=scan_chunk, **kw)
+        return tuple(a + b for a, b in zip(crit, outer))
+    return _m2l_sparse_level_scan(w, cells, hl, soft, canon,
+                                  lossy=m2l_dots == "bf16x3",
+                                  scan_chunk=scan_chunk, **kw)
+
+
+def _sources(w, spos, fnd):
+    """The gathered source rows (..., cap, k): zero where no source."""
+    cap = spos.shape[-1]
+    return torch.where(fnd[..., None], w[spos.clamp(max=cap).long()], 0.0)
+
+
+def _m2l_sparse_level_scan(w, cells, hl, soft, canon: np.ndarray, *,
+                           m: int, C: int, with_phi: bool, lossy: bool,
+                           scan_chunk: int = 0) -> tuple:
+    """The batched sweep over the canonical offsets ``canon`` (murb_tpu's
+    per-offset scan): ``scan_chunk`` offsets a batch, else as many as
+    _M2L_BATCH_BYTES holds; one batched product a sign, every field in its
+    columns, the batch's sum added to the fields.  No offsets: zero
+    fields (murb_tpu divides by the count there)."""
+    dtype, dev = w.dtype, w.device
+    cap = cells.shape[0]
+    m3 = m ** 3
+    nf = 4 if with_phi else 3
+    acc = torch.zeros((cap, nf * m3), dtype=dtype, device=dev)
+    if len(canon):
+        spos_p, fnd_p = _neighbor_slots(cells, C, canon,
+                                        _parity_codes(canon))
+        spos_n, fnd_n = _neighbor_slots(cells, C, -canon,
+                                        _parity_codes(-canon))
+        pv = _node_vectors(hl, m, dtype, dev)
+        soft2 = torch.tensor(soft, dtype=dtype) ** 2
+        signs = torch.tensor([-1.0, -1.0, -1.0, 1.0][:nf], dtype=dtype,
+                             device=dev)
+        per = w.element_size() * (cap * (2 + 2 * nf) * m3 + 10 * m3 * m3)
+        batch = scan_chunk or max(1, _M2L_BATCH_BYTES // per)
+        mm = _Products(lossy, w)
+        for k0 in range(0, len(canon), batch):
+            o = torch.as_tensor(canon[k0:k0 + batch], dtype=dtype,
+                                device=dev)
+            T = _transfers(o, pv, hl, soft2, nf)         # (b, nf, m3, m3)
+            b = T.shape[0]
+            t_pos = T.transpose(2, 3).permute(0, 2, 1, 3).reshape(
+                b, m3, nf * m3)
+            t_neg = (T * signs[None, :, None, None]).permute(0, 2, 1, 3) \
+                .reshape(b, m3, nf * m3)
+            sl = slice(k0, k0 + b)
+            part = mm.sum2(_sources(w, spos_p[sl], fnd_p[sl]), t_pos,
+                           _sources(w, spos_n[sl], fnd_n[sl]), t_neg)
+            acc += part.sum(0)
+    return tuple(acc[:, i * m3:(i + 1) * m3] for i in range(nf))
+
+
+def _m2l_sparse_level_fused(w, cells, hl, soft, *, m: int, C: int,
+                            with_phi: bool, lossy: bool) -> tuple:
+    """The fused multi-offset form (murb_tpu's _m2l_sparse_level_fused): NC
+    offsets a step contract jointly over (offset, 2 m^3), the signs along
+    the contraction ([wp | wn] against [-T(-o); -T(+o)], the potential's
+    column block +), the fields along the output columns; NC from
+    _M2L_STEP_BYTES."""
+    dtype, dev = w.dtype, w.device
+    cap = cells.shape[0]
+    m3 = m ** 3
+    nf = 4 if with_phi else 3
+    canon = _canon_far()
+    nc = max(1, min(len(canon), _M2L_STEP_BYTES // max(cap * 2 * m3 * 4,
+                                                        1)))
+    spos_p, fnd_p = _neighbor_slots(cells, C, canon, _parity_codes(canon))
+    spos_n, fnd_n = _neighbor_slots(cells, C, -canon, _parity_codes(-canon))
+    pv = _node_vectors(hl, m, dtype, dev)
+    soft2 = torch.tensor(soft, dtype=dtype) ** 2
+    sg = torch.tensor([-1.0, -1.0, -1.0, 1.0][:nf], dtype=dtype, device=dev)
+    mm = _Products(lossy, w)
+    acc = torch.zeros((cap, nf * m3), dtype=dtype, device=dev)
+    for k0 in range(0, len(canon), nc):
+        o = torch.as_tensor(canon[k0:k0 + nc], dtype=dtype, device=dev)
+        b = o.shape[0]
+
+        def block(T):  # (b, nf, m3, m3) -> (b, m3, nf m3), signed columns
+            return (T * sg[None, :, None, None]).permute(0, 2, 1, 3) \
+                .reshape(b, m3, nf * m3)
+
+        M = torch.cat([block(_transfers(-o, pv, hl, soft2, nf)),
+                       block(_transfers(o, pv, hl, soft2, nf))], 1)
+        sl = slice(k0, k0 + b)
+        wcat = torch.cat([_sources(w, spos_p[sl], fnd_p[sl]),
+                          _sources(w, spos_n[sl], fnd_n[sl])], -1)
+        # contract over (offset, 2 m^3) in one product
+        acc += mm(wcat.permute(1, 0, 2).reshape(cap, b * 2 * m3),
+                  M.reshape(b * 2 * m3, nf * m3))
+    return tuple(acc[:, i * m3:(i + 1) * m3] for i in range(nf))
+
+
+def _m2l_sparse_level_rank(w, cells, hl, soft, *, m: int, C: int,
+                           with_phi: bool, lossy: bool, rank: int) -> tuple:
+    """The shared-basis compressed sweep (murb_tpu's
+    _m2l_sparse_level_rank): the sources projected once, w Q (cap + 1, r);
+    each offset's transfers projected to Q^T T Q (r, r), shared by both
+    signs and every target; the sweep in r-space; the fields back-projected
+    by Q^T once.  Offsets in batches under _M2L_BATCH_BYTES."""
     dtype, dev = w.dtype, w.device
     cap = cells.shape[0]
     m3 = m ** 3
@@ -342,43 +573,39 @@ def m2l_sparse_level(w, cells, hl, soft, *, m: int, C: int,
     spos_n, fnd_n = _neighbor_slots(cells, C, -canon, _parity_codes(-canon))
     pv = _node_vectors(hl, m, dtype, dev)
     soft2 = torch.tensor(soft, dtype=dtype) ** 2
-    signs = torch.tensor([-1.0, -1.0, -1.0, 1.0][:nf], dtype=dtype,
-                         device=dev)
-    per = w.element_size() * (cap * (2 + 2 * nf) * m3 + 10 * m3 * m3)
-    batch = max(1, min(len(canon), _M2L_BATCH_BYTES // per))
-    acc = torch.zeros((cap, nf * m3), dtype=dtype, device=dev)
-
-    def sources(spos, fnd):
-        return torch.where(fnd[..., None], w[spos.clamp(max=cap).long()],
-                           0.0)
-
+    sg = torch.tensor([-1.0, -1.0, -1.0, 1.0][:nf], dtype=dtype, device=dev)
+    mm = _Products(lossy, w)
+    q = m2l_basis(m, rank, dev).to(dtype)                     # (m3, r)
+    wg = mm(w, q)                                             # (cap + 1, r)
+    per = w.element_size() * (cap * 4 * rank + (3 + 2 * nf) * m3 * m3)
+    batch = max(1, _M2L_BATCH_BYTES // per)
+    acc = torch.zeros((cap, nf * rank), dtype=dtype, device=dev)
     for k0 in range(0, len(canon), batch):
         o = torch.as_tensor(canon[k0:k0 + batch], dtype=dtype, device=dev)
-        # D[k, u, v] = p_v - p_u + 2 hl o_k, per dimension
-        D = [2.0 * hl[d] * o[:, d, None, None]
-             + (pv[d][None, :] - pv[d][:, None])[None] for d in range(3)]
-        inv = torch.rsqrt(D[0] * D[0] + D[1] * D[1] + D[2] * D[2] + soft2)
-        inv3 = inv * inv * inv
-        T = torch.stack([d * inv3 for d in D] + ([inv] if with_phi else []),
-                        1)                                  # (b, nf, m3, m3)
+        T = _transfers(o, pv, hl, soft2, nf)                  # (b, nf, ...)
         b = T.shape[0]
-        t_pos = T.transpose(2, 3).permute(0, 2, 1, 3).reshape(b, m3,
-                                                              nf * m3)
-        t_neg = (T * signs[None, :, None, None]).permute(0, 2, 1, 3) \
-            .reshape(b, m3, nf * m3)
+        cr = mm(q.T, mm(T, q))                                # (b, nf, r, r)
+        c_pos = cr.transpose(2, 3).permute(0, 2, 1, 3).reshape(
+            b, rank, nf * rank)
+        c_neg = (cr * sg[None, :, None, None]).permute(0, 2, 1, 3) \
+            .reshape(b, rank, nf * rank)
         sl = slice(k0, k0 + b)
-        part = torch.baddbmm(torch.bmm(sources(spos_p[sl], fnd_p[sl]), t_pos),
-                             sources(spos_n[sl], fnd_n[sl]), t_neg)
+        part = mm.sum2(_sources(wg, spos_p[sl], fnd_p[sl]), c_pos,
+                       _sources(wg, spos_n[sl], fnd_n[sl]), c_neg)
         acc += part.sum(0)
-    return tuple(acc[:, i * m3:(i + 1) * m3] for i in range(nf))
+    return tuple(mm(acc[:, i * rank:(i + 1) * rank], q.T)
+                 for i in range(nf))
 
 
 # ----------------------------------------------------------- full solver
 def hierarchy_fields(w_fin, cells_fin, c, h, soft, plan: SparsePlan,
-                     with_phi: bool, m2l_dots: str = "fp32"):
+                     with_phi: bool, m2l_dots: str = "fp32",
+                     scan_chunk: int = 0, fused: bool = False):
     """Finest-level slot fields from the finest occupied expansions: the
-    parent occupied chain, M2M upward, the dense base, L2L and M2L downward.
-    Returns (nf fields (cap + 1, m^3) with a zero dump row, diagnostics)."""
+    parent occupied chain, M2M upward, the dense base, L2L and M2L downward
+    (every M2L at the tier ``m2l_dots``; ``scan_chunk`` and ``fused`` the
+    sparse M2L's schedule, ``m2l_schedule``).  Returns (nf fields (cap + 1,
+    m^3) with a zero dump row, diagnostics)."""
     m = plan.m
     Ld, L = plan.dense_levels, plan.levels
     cells = {L: cells_fin}
@@ -402,7 +629,8 @@ def hierarchy_fields(w_fin, cells_fin, c, h, soft, plan: SparsePlan,
                           device=up.device).index_add_(0, pid.long(), up)
 
     f_dense = fmm_field_grid(w_dense, h, soft, m=m, levels=Ld,
-                             with_phi=with_phi, finest_subset="far")
+                             with_phi=with_phi, finest_subset="far",
+                             m2l_dots=m2l_dots)
     f = None
     for l in range(Ld + 1, L + 1):
         C = 2 ** l
@@ -415,7 +643,8 @@ def hierarchy_fields(w_fin, cells_fin, c, h, soft, plan: SparsePlan,
                                  C_child=C) for fi in f)
         contrib = m2l_sparse_level(w[l], cells[l], h / C, soft, m=m, C=C,
                                    with_phi=with_phi, m2l_dots=m2l_dots,
-                                   rank=_resolve_rank(plan, cap))
+                                   rank=_resolve_rank(plan, cap),
+                                   scan_chunk=scan_chunk, fused=fused)
         # L2L gave (cap + 1, m^3), M2L (cap, m^3): keep the zero dump row
         # (the next L2L and the final L2P read it for missing slots)
         f = tuple(_with_dump_row(fi[:cap] + ci) for fi, ci in zip(f, contrib))
@@ -423,17 +652,19 @@ def hierarchy_fields(w_fin, cells_fin, c, h, soft, plan: SparsePlan,
 
 
 def adaptive_field(xs, ys, zs, gs, key_s, c, h, soft, plan: SparsePlan,
-                   with_phi: bool, m2l_dots: str = "fp32", ci=None):
+                   with_phi: bool, m2l_dots: str = "fp32", ci=None,
+                   **schedule):
     """Far fields of every Morton-sorted body (``key_s``: the sorted finest
     codes, _BIG for inactive rows; ``ci``: the bodies' int32 cells) via the
     dense levels 2..Ld and the sparse levels Ld+1..L, the finest near
-    neighbourhood excluded.  Returns (per-body field tuple in sorted order,
-    diagnostics)."""
+    neighbourhood excluded (``schedule``: ``hierarchy_fields``'s
+    ``scan_chunk`` and ``fused``).  Returns (per-body field tuple in sorted
+    order, diagnostics)."""
     m, Cfin, cap = plan.m, 2 ** plan.levels, plan.cell_caps[-1]
     cells_fin, slots = _occupied_and_slots(key_s, cap)
     w_fin = p2m_window(xs, ys, zs, gs, c, h, slots, cap, m=m, C=Cfin, ci=ci)
     f, diag = hierarchy_fields(w_fin, cells_fin, c, h, soft, plan, with_phi,
-                               m2l_dots)
+                               m2l_dots, **schedule)
     return l2p_window(xs, ys, zs, c, h, slots, f, m=m, C=Cfin, ci=ci), diag
 
 
@@ -442,7 +673,8 @@ def solve_adaptive(qx, qy, qz, gm, soft, plan: SparsePlan, *, heavy_k: int,
                    m2l_dots: str = "fp32"):
     """(acc (n, 3), phi or None): the adaptive counterpart of
     ops/fmm._fmm_solve -- cubic box, heavy split, sparse far field, exact
-    P2P near field, exact heavy corrections."""
+    P2P near field, exact heavy corrections.  The sparse M2L's schedule
+    comes from the environment here (``m2l_schedule``)."""
     from murb_tpu_torch.ops.fmm import _heavy_setup
     from murb_tpu_torch.ops.naive import acc_rect
     from murb_tpu_torch.ops.proxy import (heavy_source_acc,
@@ -460,7 +692,7 @@ def solve_adaptive(qx, qy, qz, gm, soft, plan: SparsePlan, *, heavy_k: int,
     xs, ys, zs, gs = (v[perm] for v in (qx, qy, qz, gm_eff))
     ci = tuple(v[perm] for v in ci)
     vals, _ = adaptive_field(xs, ys, zs, gs, key_s, c, h, soft, plan,
-                             with_phi, m2l_dots, ci=ci)
+                             with_phi, m2l_dots, ci=ci, **m2l_schedule())
     near, _ = p2p_sweep_kernel_sorted(xs, ys, zs, gs, ci, soft,
                                       pmax=plan.p2p_pmax,
                                       chunk=plan.p2p_chunk,

@@ -43,7 +43,7 @@ from murb_tpu_torch.ops.p2p_kernels import p2p_sweep_kernel_sorted
 from murb_tpu_torch.ops.proxy import heavy_source_acc, heavy_split
 from murb_tpu_torch.ops.sparse_fmm import (_BIG, SparsePlan,
                                            _occupied_and_slots, _slot,
-                                           hierarchy_fields)
+                                           hierarchy_fields, m2l_schedule)
 
 _OFFS27 = [(dx, dy, dz) for dx in (-1, 0, 1) for dy in (-1, 0, 1)
            for dz in (-1, 0, 1)]
@@ -303,7 +303,9 @@ def make_local_step(plan: ShardAdaptivePlan, soft, dt, mesh, *,
     stage run for every shard, the collectives between): the adaptive far
     field with psum'd multipoles, the halo-pool P2P, the stray rows, the
     heavy corrections, the local Euler update.  Returns (blocks', accels);
-    with ``integrate=False`` the blocks come back unchanged."""
+    with ``integrate=False`` the blocks come back unchanged.  The sparse
+    M2L's schedule (MURB_M2L_SCAN_CHUNK, MURB_M2L_FUSED) is read here, once
+    (ops/sparse_fmm.m2l_schedule)."""
     base = plan.base
     m = base.m
     m3 = m ** 3
@@ -312,6 +314,7 @@ def make_local_step(plan: ShardAdaptivePlan, soft, dt, mesh, *,
     Hcap, Scap = plan.export_cap, plan.stray_cap
     sent_i = 2 * Cfin + _SENTINEL_SHIFT
     kh = max(heavy_k, 1)
+    schedule = m2l_schedule()
 
     def step(blocks):
         D = mesh.size
@@ -361,7 +364,7 @@ def make_local_step(plan: ShardAdaptivePlan, soft, dt, mesh, *,
             if wg.device not in fields:
                 fields[wg.device] = hierarchy_fields(
                     wg, s["cells_glob"], s["c"], s["h"], soft, base,
-                    with_phi=False, m2l_dots=m2l_dots)[0]
+                    with_phi=False, m2l_dots=m2l_dots, **schedule)[0]
             f = fields[wg.device]
             zrow = torch.zeros((1, m3), dtype=dtype, device=wg.device)
             f_loc = tuple(torch.cat([fi[s["gslot"].clamp(max=capG).long()],

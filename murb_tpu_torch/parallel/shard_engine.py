@@ -208,7 +208,8 @@ class ShardedEngine(SimulationEngine):
             init_lv = self.fmm_levels if mode == "fmm" else 0
             mv, lvv, _, err = validate_config(
                 bodies.qx, bodies.qy, bodies.qz, _gm(bodies), soft_val, 1e-4,
-                init_m, init_lv, 1, half, validation_ladder(soft_val))
+                init_m, init_lv, 1, half,
+                validation_ladder(soft_val, self.m2l_dots))
             self.validated_err = err
             self.validated_half = certified_half(
                 int(mv), int(lvv), float(half), err, soft_val, 1e-4)
@@ -223,8 +224,9 @@ class ShardedEngine(SimulationEngine):
                        m2l_rank) -> BodyState:
         """Plan the Morton-sharded adaptive solve from the initial
         distribution, validate its order with the single-device ladder
-        (escalate m by 2 to 12), and return the bodies in Morton residence
-        order; ``bodies`` (the property) undoes the permutation."""
+        (escalate m by 2 to 12) at the engine's M2L tier (murb_tpu at
+        fp32), and return the bodies in Morton residence order; ``bodies``
+        (the property) undoes the permutation."""
         from murb_tpu_torch.ops.sparse_fmm import (acc_adaptive,
                                                    adaptive_order,
                                                    best_adaptive_plan,
@@ -248,7 +250,8 @@ class ShardedEngine(SimulationEngine):
                 merr = measured_force_error(
                     bodies.qx, bodies.qy, bodies.qz, gmv, soft_val,
                     lambda a, b, c, g: acc_adaptive(a, b, c, g, soft_val,
-                                                    plan1))
+                                                    plan1,
+                                                    m2l_dots=self.m2l_dots))
                 if merr <= 1e-4:
                     break
                 # drop the M2L compression before escalating m
@@ -641,6 +644,7 @@ class ShardedEngine(SimulationEngine):
 
         m, levels, soft, mesh = self.fmm_m, self.fmm_levels, self.soft, \
             self.mesh
+        m2l_dots = self.m2l_dots
         C = 2 ** levels
 
         def solve(blocks, gm_effs, cs, hs):
@@ -655,7 +659,8 @@ class ShardedEngine(SimulationEngine):
             for b, wk, c, h, o in zip(blocks, w, cs, hs, orders):
                 if wk.device not in fs:   # the redundant sweeps, once a device
                     fs[wk.device] = fmm_field_grid(wk, h, soft, m=m,
-                                                   levels=levels)
+                                                   levels=levels,
+                                                   m2l_dots=m2l_dots)
                 fields = fs[wk.device]
                 out.append(torch.stack(l2p_grid_fused(
                     b.qx, b.qy, b.qz, c, h, fields, m=m, C=C, order=o), 1))

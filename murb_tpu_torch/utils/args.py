@@ -208,9 +208,12 @@ def build_parser() -> argparse.ArgumentParser:
                           "1e-4).")
     ext.add_argument("--m2l-dots", dest="m2l_dots", default="fp32",
                      choices=("fp32", "mixed", "bf16x3"),
-                     help="hierarchy level-sweep tier: fp32 (the default "
-                          "and the only one ported; mixed and bf16x3 exit "
-                          "with 'not yet ported').")
+                     help="M2L tier of the hierarchies: fp32 (the "
+                          "default), mixed (the near shell fp32, the far "
+                          "shell lossy) or bf16x3 (every M2L product "
+                          "lossy: three TF32 products of split operands); "
+                          "the validation ladder steps a lossy tier that "
+                          "misses --tol toward fp32.")
     ext.add_argument("--near", dest="near", default="auto",
                      choices=("auto", "interp", "adaptive"),
                      help="tpu+proxy near-field mode: interp = the dense "

@@ -1,7 +1,8 @@
 """Where the time of a ``tpu+proxy`` or tracked step goes on a CUDA card.
 
     python -m murb_tpu_torch.utils.profile_step [--scheme S] [--near M]
-                                                [--shards D] [TAG ...]
+                                                [--shards D] [--m2l-dots T]
+                                                [--m2l-rank R] [TAG ...]
 
 TAG is ``tpu+proxy`` (the default), ``tpu+tracking``,
 ``tpu+leapfrog+tracking``, ``tpu+mxu`` or ``tpu+tile`` (the exact
@@ -22,7 +23,11 @@ K7-K9; with ``--near adaptive`` the adaptive hierarchy, K10-K12).
 ``two_clusters`` is the N=1,048,576 two-cluster box of murb_tpu's bench
 row ``adaptive_two_clusters_1m`` (``two_clusters``), built through
 ``create_engine("tpu+proxy", ..., soft=0.02, dt=1e-6)`` with the auto
-policy, as that row drives it.  It then runs warm-up steps, and:
+policy, as that row drives it.  T is the hierarchies' M2L tier
+(``--m2l-dots``: fp32, mixed, bf16x3; the engine validates at it and may
+step it toward fp32); R >= 0 replaces the adaptive plan's compression rank
+after the engine's validation (``m2l_rank``; -1, the default, keeps the
+plan's).  It then runs warm-up steps, and:
 
   1. times WINDOWS unprofiled windows of WINDOW_STEPS steps on the host
      clock, each ending in ``torch.cuda.synchronize``;
@@ -33,8 +38,11 @@ policy, as that row drives it.  It then runs warm-up steps, and:
      kernels counted again.
 
 It prints the device time and the device events per step, the busy share
-(device time per step over the median unprofiled window's time per step)
-and the device events that take the most time.  Needs a CUDA device.
+(device time per step over the median unprofiled window's time per step),
+the device time of the kernels launched inside the sparse M2L
+(``ops/sparse_fmm.m2l_sparse_level``, under a ``record_function`` range
+while profiling) where the step runs it, and the device events that take
+the most time.  Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -56,6 +64,8 @@ TAGS = ("tpu+proxy", "tpu+tracking", "tpu+leapfrog+tracking", "tpu+mxu",
         "tpu+tile", "shard+ring", "shard+allgather", "shard+proxy",
         "shard+adaptive")
 SCHEMES = ("galaxy", "random", "milkyway_andromeda", "two_clusters")
+#: the profiler range around each sparse M2L call
+M2L_RANGE = "murb::m2l_sparse_level"
 #: (warm-up steps, steps per window, profiled steps) of the slower steps,
 #: by scheme or tag
 SHORT = {"milkyway_andromeda": (2, 20, 10), "two_clusters": (1, 5, 3),
@@ -135,6 +145,11 @@ def main(argv=()) -> int:
                    default="auto")
     p.add_argument("--shards", type=int, default=1,
                    help="shards of the shard+... tags, all on cuda:0")
+    p.add_argument("--m2l-dots", choices=("fp32", "mixed", "bf16x3"),
+                   default="fp32", help="the hierarchies' M2L tier")
+    p.add_argument("--m2l-rank", type=int, default=-1,
+                   help="the adaptive plan's compression rank after "
+                        "validation (-1: the plan's)")
     p.add_argument("tags", nargs="*", metavar="TAG")
     args = p.parse_args(list(argv))
     unknown = [t for t in args.tags if t not in TAGS]
@@ -150,14 +165,15 @@ def main(argv=()) -> int:
         print("profile_step: no CUDA device available", file=sys.stderr)
         return 1
     for tag in args.tags or TAGS[:1]:
-        rc = profile_tag(tag, args.scheme, args.near, args.shards)
+        rc = profile_tag(tag, args.scheme, args.near, args.shards,
+                         args.m2l_dots, args.m2l_rank)
         if rc:
             return rc
     return 0
 
 
 def _engine(tag: str, scheme: str, near: str, total: int, dev, tmp: str,
-            shards: int = 1):
+            shards: int = 1, m2l_dots: str = "fp32"):
     """(engine, N) the way the CLI (or, for two_clusters, the bench row)
     builds it; the shard+... tags through ``create_engine`` with ``shards``
     shards on ``dev``."""
@@ -168,12 +184,12 @@ def _engine(tag: str, scheme: str, near: str, total: int, dev, tmp: str,
               else {"near": near})
         return create_engine(tag, two_clusters(device=dev),
                              soft=TWO_CLUSTERS_SOFT, dt=TWO_CLUSTERS_DT,
-                             **kw), TWO_CLUSTERS_N
+                             m2l_dots=m2l_dots, **kw), TWO_CLUSTERS_N
     if tag.startswith("shard+"):
         from murb_tpu_torch.core.init import make_bodies
 
         return create_engine(tag, make_bodies(N, scheme, SEED, device=dev),
-                             devices=[dev] * shards), N
+                             devices=[dev] * shards, m2l_dots=m2l_dots), N
     n, extra = N, []
     if scheme == "milkyway_andromeda":
         import os
@@ -187,13 +203,17 @@ def _engine(tag: str, scheme: str, near: str, total: int, dev, tmp: str,
         n, extra = 81_920, ["--scheme-file", tab]
     cfg = parse_args(["-n", str(n), "-i", str(total), "--im", tag, "-s",
                       scheme, "--kernel", "proxy", "--seed", str(SEED),
-                      "--near", near, "--scan", *extra])
+                      "--near", near, "--m2l-dots", m2l_dots, "--scan",
+                      *extra])
     return build_engine(cfg, dev)[0], n
 
 
 def profile_tag(tag: str, scheme: str = "galaxy", near: str = "auto",
-                shards: int = 1) -> int:
+                shards: int = 1, m2l_dots: str = "fp32",
+                m2l_rank: int = -1) -> int:
     import tempfile
+
+    from murb_tpu_torch.ops import sparse_fmm
 
     dev = torch.device("cuda", 0)
     warmup, window_steps, steps = SHORT.get(
@@ -201,7 +221,10 @@ def profile_tag(tag: str, scheme: str = "galaxy", near: str = "auto",
     # every step of the run records its metrics row (tracked tags)
     total = warmup + WINDOWS * window_steps + steps + 1
     with tempfile.TemporaryDirectory() as tmp:
-        eng, n = _engine(tag, scheme, near, total, dev, tmp, shards)
+        eng, n = _engine(tag, scheme, near, total, dev, tmp, shards,
+                         m2l_dots)
+    if m2l_rank >= 0 and getattr(eng, "_plan", None) is not None:
+        eng._plan = eng._plan._replace(m2l_rank=m2l_rank)
     card = torch.cuda.get_device_name(dev)
     where = f" on {shards} shards" if tag.startswith("shard+") else ""
     health = None if tag in ("tpu+mxu", "tpu+tile") else eng.proxy_health()
@@ -216,7 +239,10 @@ def profile_tag(tag: str, scheme: str = "galaxy", near: str = "auto",
         print(f"{tag} N={n} {scheme}{where} near="
               f"{health.get('near', getattr(eng, 'near_mode', 'interp'))}: "
               f"m={health['m']} levels={health['levels']} "
-              f"cells={health.get('cells', 1)} on {card}")
+              f"cells={health.get('cells', 1)} m2l_dots "
+              f"{getattr(eng, 'm2l_dots', m2l_dots)}"
+              f"{'' if m2l_rank < 0 else f' m2l_rank {m2l_rank}'} on "
+              f"{card}")
     eng.run(warmup)
     eng.block_until_ready()
 
@@ -233,10 +259,20 @@ def profile_tag(tag: str, scheme: str = "galaxy", near: str = "auto",
 
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        eng.run(steps)
-        eng.block_until_ready()
+    real_level = sparse_fmm.m2l_sparse_level
+
+    def annotated_level(*a, **k):
+        with torch.profiler.record_function(M2L_RANGE):
+            return real_level(*a, **k)
+
+    sparse_fmm.m2l_sparse_level = annotated_level
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            eng.run(steps)
+            eng.block_until_ready()
+    finally:
+        sparse_fmm.m2l_sparse_level = real_level
     rows = device_rows(prof)
     dev_us = sum(e.self_device_time_total for e in rows)
     events = sum(e.count for e in rows)
@@ -249,6 +285,16 @@ def profile_tag(tag: str, scheme: str = "galaxy", near: str = "auto",
           f"= {dev_ms:.4f} ms/step in {events / steps:.1f} device "
           f"events/step; busy share {dev_ms / step_ms:.3f} of the "
           f"unprofiled step")
+    from torch.autograd import DeviceType
+
+    # the range's host row: its device time is its kernels' (and its
+    # children's), where the device row would be the range's span
+    m2l = [e for e in prof.key_averages() if e.key == M2L_RANGE
+           and e.device_type == DeviceType.CPU]
+    if m2l:
+        print(f"sparse M2L: {m2l[0].device_time_total / 1e3 / steps:.4f} "
+              f"ms/step of device time ({m2l[0].count / steps:.1f} "
+              f"calls/step)")
     for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:TOP]:
         print(f"  {e.self_device_time_total / steps:9.2f} us/step "
               f"{e.count / steps:6.1f}x  {e.key[:90]}")

@@ -75,8 +75,9 @@ the same inputs:
     its wrappers);
   - the parent's build of an entry whose signature this checkout keeps
     (K3 at the three shapes, K14 at D = 1 and 4, K5 and K6, K7 at every
-    shape of ``K7_SHAPES``, K8, K9, K11 and K12 at ``cell_run_cases``
-    through this checkout's glue): both must give the same bits where
+    shape of ``K7_SHAPES``, K13 at 200,192^2 at "high" and "default", K8,
+    K9, K11 and K12 at ``cell_run_cases`` through this checkout's glue):
+    both must give the same bits where
     the arithmetic is unchanged (K8's and K11's P2M fold splits runs of
     many items since the one-run redesign: there each side's distance
     from float64);
@@ -170,7 +171,7 @@ SOURCES = {"murb_p2p_sorted": ["p2p.cu"], "murb_tile_rect": ["tile.cu"],
 #: this checkout's (their arithmetic is meant to be unchanged)
 SAME_ENTRIES = ("murb_tile_rect", "murb_ring_pipelined",
                 "murb_phi_rows_rect", "murb_acc_phi_rows", "murb_m2l_level",
-                *CELL_RUN_ENTRIES)
+                "murb_mxu_rect", *CELL_RUN_ENTRIES)
 OUT = cuda.BUILD_DIR / "kernel_ab"
 SOFT = 2.0e8
 SOFT2 = ctypes.c_float(SOFT ** 2)
@@ -918,6 +919,50 @@ def run_k13_first(old, dev) -> dict:
         res[prec] = r
         print(f"[K13 first vs this, {prec}, {n}^2] max|d|/max|a| {rel:.3e}; "
               f"old {r['old_ms']} ms, new {r['new_ms']} ms")
+    return res
+
+
+def run_k13_same(old, dev) -> dict:
+    """The parent's K13 (same C entry) against this checkout's on the
+    galaxy's packed operands at 200,192^2, at "high" and "default", at the
+    wrapper's geometry and split, in turns; the sums must agree bit for
+    bit."""
+    from murb_tpu_torch.ops import mxu
+
+    q, gm, a_mat, b_mat, cqi = galaxy_operands(dev)
+    n, s = q[0].shape[0], cuda.stream(dev)
+    bi, bj = mxu.MXU_BLOCK_I, mxu.MXU_BLOCK_J
+    slices, per = cuda.tile_split(
+        n, n, cuda.sm_count(dev), cuda.resident("murb_mxu_resident", dev, bi,
+                                                bj), bi, bj)
+    packed = [torch.empty(-(-n // mxu.PACK_SOURCES) * mxu.PACK_SOURCES // 8
+                          * mxu.CHUNK_FLOATS, dtype=torch.float32,
+                          device=dev) for _ in range(2)]
+    scratch = [torch.empty((slices, 4, n), dtype=torch.float32, device=dev)
+               for _ in range(2)]
+    outs = [torch.empty((3, n), dtype=torch.float32, device=dev)
+            for _ in range(2)]
+
+    def f(dll, k, passes):
+        call(dll, "murb_mxu_rect", a_mat.data_ptr(), gm.data_ptr(), n,
+             b_mat.data_ptr(), *(c.data_ptr() for c in cqi), n, bi, bj,
+             passes, slices, per, packed[k].data_ptr(),
+             scratch[k].data_ptr(), *(o.data_ptr() for o in outs[k]), s)
+
+    res = {}
+    for prec in ("high", "default"):
+        passes = mxu.tier_passes(prec)[1]
+        f(old, 0, passes)
+        f(cuda.library(), 1, passes)
+        torch.cuda.synchronize()
+        r = {"slices": slices, "bit_for_bit": bool(torch.equal(*outs)),
+             **in_turns(lambda: f(old, 0, passes),
+                        lambda: f(cuda.library(), 1, passes), reps=3,
+                        runs=3)}
+        res[prec] = r
+        print(f"[K13 parent vs this, {prec}, {n}^2] {slices} slices; bit "
+              f"for bit {r['bit_for_bit']}; parent {r['old_ms']} ms, this "
+              f"{r['new_ms']} ms")
     return res
 
 
@@ -2305,6 +2350,7 @@ def main(argv=None) -> int:
                      "murb_ring_pipelined": ("k14_parent", run_k14_parent),
                      "murb_acc_phi_rows": ("phi_parent", run_phi_parent),
                      "murb_m2l_level": ("k7_parent", run_k7_same),
+                     "murb_mxu_rect": ("k13_parent", run_k13_same),
                      "murb_p2m_grid": ("cell_runs_parent",
                                        run_cell_runs_same)}
         for k in same:

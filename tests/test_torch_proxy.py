@@ -156,25 +156,30 @@ def test_auto_policy_picks_what_jax_picks(n, seed):
     assert te.maybe_adapt() is False
 
 
-def test_wide_box_raises_not_yet_ported():
-    """The random box takes the multi-level hierarchy; the branches of
-    murb_tpu's hierarchy that are still to be ported raise instead of
-    falling back to another solver (the lossy M2L tiers), and the exact
-    P2P near field runs: within 1e-5 of murb_tpu's ``near="p2p"`` on the
-    same state and capacity (fp32 sums in another order)."""
+def test_wide_box_runs_the_lossy_tiers_and_p2p():
+    """The random box takes the multi-level hierarchy: its lossy M2L tiers
+    run (within 1e-5 of murb_tpu's acc_fmm at the tier, which its CPU
+    computes in fp32; the port's lossy arithmetic adds about 1e-7), and so
+    does the exact P2P near field: within 1e-5 of murb_tpu's
+    ``near="p2p"`` on the same state and capacity (fp32 sums in another
+    order)."""
     from murb_tpu.ops import fmm as jfmm
     from murb_tpu.ops.p2p import estimate_brick_pairs, size_pmax
 
     js = jinit.init_random(2048, 1)
     ts = carry(js)
-    for kw in ({"m2l_dots": "bf16x3"}, {"m2l_dots": "mixed"}):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            tfmm.acc_fmm(ts.qx, ts.qy, ts.qz, ts.m, SOFT, m=8, levels=2,
-                         **kw)
+    jgm = jnp.asarray(G, js.qx.dtype) * js.m
+    for tier in ("bf16x3", "mixed"):
+        ref = jfmm.acc_fmm(js.qx, js.qy, js.qz, jgm, SOFT, m=8, levels=2,
+                           m2l_dots=tier)
+        got = tfmm.acc_fmm(ts.qx, ts.qy, ts.qz,
+                           torch.from_numpy(np.array(jgm)), SOFT, m=8,
+                           levels=2, m2l_dots=tier)
+        err = force_stat([v.numpy() for v in got], ref)
+        assert err <= 1e-5, f"port vs JAX acc_fmm {tier}: {err:.2e}"
     u = js.unpadded()
     q = np.stack([u["qx"], u["qy"], u["qz"]], 1)
     pmax = size_pmax(estimate_brick_pairs(q, js.npad, 2))
-    jgm = jnp.asarray(G, js.qx.dtype) * js.m
     ref = jfmm.acc_fmm(js.qx, js.qy, js.qz, jgm, SOFT, m=8, levels=2,
                        near="p2p", p2p_pmax=pmax)
     got = tfmm.acc_fmm(ts.qx, ts.qy, ts.qz, torch.from_numpy(np.array(jgm)),

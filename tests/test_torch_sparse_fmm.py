@@ -198,24 +198,40 @@ def test_m2l_sparse_level_matches_jax(chain, m, C, with_phi):
         close(g.numpy(), r, 1e-10, f"m2l_sparse_level m={m} C={C} field {i}")
 
 
-def test_m2l_tiers_not_ported_raise(chain, monkeypatch):
+def test_m2l_tiers_run(chain, monkeypatch):
+    """Every opt-in form of the sparse M2L runs at a level of the chain
+    (float32): the lossy tiers, the offsets a batch and the fused form
+    within 1e-5 of max|f| of the default sweep, the compression (rank 32
+    of 64) finite; the environment is read by ``m2l_schedule`` at the
+    public entry, never by the level sweep; the rank rules are
+    murb_tpu's (tests/test_torch_m2l_tiers.py holds each form to
+    murb_tpu's)."""
     _, (tcc, _) = chain
-    w = torch.zeros(len(tcc) + 1, 64, dtype=torch.float64)
-    hl = torch.ones(3, dtype=torch.float64)
-    kw = dict(m=4, C=16, with_phi=False)
-    for extra in ({"rank": 32}, {"m2l_dots": "bf16x3"},
-                  {"m2l_dots": "mixed"}):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            ts.m2l_sparse_level(w, tcc, hl, 0.05, **kw, **extra)
-    for env, val in (("MURB_M2L_FUSED", "1"), ("MURB_M2L_SCAN_CHUNK", "5")):
-        monkeypatch.setenv(env, val)
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            ts.m2l_sparse_level(w, tcc, hl, 0.05, **kw)
-        monkeypatch.delenv(env)
+    rng = np.random.default_rng(16)
+    w = torch.from_numpy(rng.standard_normal((len(tcc) + 1, 64))
+                         .astype(np.float32))
+    hl = torch.tensor([3.0, 2.5, 4.0]) / 16
+    kw = dict(m=4, C=16, with_phi=True)
+    ref = ts.m2l_sparse_level(w, tcc, hl, 0.05, **kw)
+    for extra in ({"m2l_dots": "bf16x3"}, {"m2l_dots": "mixed"},
+                  {"scan_chunk": 5}, {"fused": True},
+                  {"fused": True, "m2l_dots": "bf16x3"}):
+        got = ts.m2l_sparse_level(w, tcc, hl, 0.05, **kw, **extra)
+        for g, r in zip(got, ref):
+            assert float((g - r).abs().max()) <= 1e-5 * float(r.abs().max())
+    comp = ts.m2l_sparse_level(w, tcc, hl, 0.05, rank=32, **kw)
+    assert all(bool(torch.isfinite(f).all()) and f.shape == r.shape
+               for f, r in zip(comp, ref))
+    monkeypatch.setenv("MURB_M2L_SCAN_CHUNK", "x")
+    monkeypatch.setenv("MURB_M2L_FUSED", "1")
+    assert ts.m2l_schedule() == {"scan_chunk": 0, "fused": True}
+    again = ts.m2l_sparse_level(w, tcc, hl, 0.05, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(again, ref))
     plan = ts.SparsePlan(m=8, dense_levels=2, levels=4, cell_caps=(64,),
                          p2p_pmax=128)
     assert ts.default_m2l_rank(8) == 0 and ts._resolve_rank(plan, 4096) == 0
     assert ts._resolve_rank(plan._replace(m2l_rank=384), 500) == 0
+    assert ts._resolve_rank(plan._replace(m2l_rank=384), 4096) == 384
 
 
 # ------------------------------------------------- K11 / K12 plain versions

@@ -268,13 +268,7 @@ def test_cli_tracking_csv_matches_murb_tpu(argv, rtol, merger_tab, tmp_path,
 
 
 @pytest.mark.parametrize("argv,msg", [
-    (["--im", "gpu+tracking", "--kernel", "fmm", "--m2l-dots", "bf16x3"],
-     "not yet ported"),
     (["--im", "tpu+kdk", "--kernel", "bogus"], "unknown kernel"),
-    # proxy -> fmm (m > 32) -> the adaptive kernel (m > 16) runs
-    # (tests/test_torch_adaptive_engines.py); a lossy M2L tier is refused
-    (["--im", "gpu+tracking", "--kernel", "proxy", "-s", "random", "--soft",
-      "1e6", "--m2l-dots", "mixed"], "not yet ported"),
     (["--im", "gpu+tracking", "-s", "milkyway_andromeda", "--scheme-file",
       "no/such.tab"], "not found"),
 ])
@@ -282,6 +276,23 @@ def test_cli_tracked_paths_refuse_what_is_not_ported(argv, msg, capsys):
     rc = cli.main(["-n", "512", "-i", "2", "--nv", "--device", "cpu", *argv])
     assert rc == 1
     assert msg in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("argv,tier,fused", [
+    (["--kernel", "fmm", "--m2l-dots", "bf16x3"], "bf16x3", "_fused_fmm"),
+    # proxy -> fmm (m > 32) -> the adaptive kernel (m > 16), at the tier
+    (["--kernel", "proxy", "-s", "random", "--soft", "1e6", "--m2l-dots",
+      "mixed"], "mixed", "_fused_adaptive"),
+])
+def test_cli_tracked_paths_run_the_lossy_m2l_tiers(argv, tier, fused,
+                                                   capsys):
+    """``--m2l-dots`` reaches the tracked step's fused far-field pass."""
+    res = cli.run(["-n", "512", "-i", "2", "--nv", "--device", "cpu", "--im",
+                   "gpu+tracking", *argv])
+    assert res.rc == 0
+    res.engine.assert_finite()
+    assert res.engine._m2l_dots == tier
+    assert getattr(res.engine, fused) not in (None, ())
 
 
 def test_cli_multi_galaxy_on_the_merger_cut(merger_tab, tmp_path):
