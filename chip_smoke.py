@@ -132,7 +132,23 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      (validated error, picked tier, FPS); and on phase 9's 1M state and
      plan ``acc_adaptive`` at fp32, bf16x3, mixed, m2l_rank=128 and the
      fused bf16x3 form, each within TOL: the error on the 512-row sample,
-     ms a call and its sparse M2L's ms.
+     ms a call and its sparse M2L's ms;
+ 15. the bf16 state (``--precision bf16``): the bf16 instances of K3 and
+     K4 (passes 1, 2, 3) at 200,192^2, of K1 and K2 (m=12, k=3) and of K8
+     and K9 (m=4, C=4, k=3) on the 200k galaxy, each bit for bit its fp32
+     instance on the arrays upcast at the same geometry and split; at
+     16384^2 K3's and K4's own sums at the split its wrapper takes (its
+     own resident count), which are the wrapper's outputs before rounding
+     and the fp32 instance's bits at that split; each against its plain
+     version (bf16 out: WithinRel 1e-2, rms floor 1e-4) and float64 (the
+     fp32 instance's contracts), timed in turns with the fp32 instance
+     beside its bound; ``tpu+proxy
+     --precision bf16`` at N=200,000 through the CLI (the configuration the
+     ladder keeps, its error, the warning, FPS, memory half the fp32
+     run's), ``tpu+tile``, ``tpu+hybrid``, ``+fast`` and ``+x3`` at
+     200,192 bodies in bf16; and the card's power (nvidia-smi) through
+     scripts/torch_measure_energy.py around 1000 steps of the 200k proxy
+     run at fp32 and at bf16 (mean W and J a step of the frame loop).
 Each piece of the path (the CLI run of phase 4, the ``acc_proxy`` of phase
 5, each CLI run of phase 6, each run of phases 7 to 11) starts from zeroed
 launch counts, which are read right after it: K1 and K2 from phase 4, K3
@@ -140,7 +156,11 @@ from phase 5, K4 from phase 6, K5 and K6 from phase 7, K7 to K9 from the
 ``tpu+proxy -s random`` run of phase 8, K10 to K12 from the two-cluster
 run of phase 9, K13 from the ``tpu+mxu`` run of phase 10, K14 from the
 4-shard ``shard+ring`` run of phase 11, K7b (K7's lossy instance) from the
-``--m2l-dots bf16x3`` run of phase 14.  Every kernel must have launched in
+``--m2l-dots bf16x3`` run of phase 14, the bf16 instances of K1, K2, K8
+and K9 from phase 15's ``tpu+proxy --precision bf16`` run (the ladder's
+rungs launch all four; the rung it keeps, its pair every step), K3's from its
+``tpu+tile`` run and K4's from each ``tpu+hybrid`` run (each must launch
+in each).  Every kernel must have launched in
 its piece.  The line before the last is the kernels' JSON
 record (with each kernel's bound: the larger of its bytes over 3.35 TB/s
 and its operations over the 67 TFLOP/s fp32 peak of an H100 SXM; K5's and
@@ -850,6 +870,411 @@ def phase14(dev, smi, drive, time_ms, st9, soft9, plan, pick8,
     return record, k7b_launches
 
 
+def phase15(dev, smi, drive, time_ms, within_rel, norm_rel, keep, n_main,
+            fp32_bytes):
+    """15. the bf16 state: each bf16 instance (K1, K2, K3, K4's passes 1, 2
+    and 3, K8, K9) bit for bit its fp32 instance on the arrays upcast (K3
+    and K4 at 16384^2 also at the split of their own resident count, as
+    their wrappers launch them), held to its
+    plain version and to float64, and timed in turns with the fp32
+    instance; ``tpu+proxy --precision bf16`` on the 200k galaxy and
+    ``tpu+tile`` / ``tpu+hybrid`` (+fast, +x3) at 200,192 bodies through
+    the CLI, each launching its bf16 instance; and the card's power
+    through scripts/torch_measure_energy.py around the 200k proxy run at
+    fp32 and at bf16.  Records each bf16 instance through ``keep`` and
+    returns their launch counts on the main path."""
+    import contextlib
+    import io
+
+    import torch
+
+    from murb_tpu_torch import G, cli
+    from murb_tpu_torch.core.init import init_galaxy, init_random
+    from murb_tpu_torch.core.state import in_dtype
+    from murb_tpu_torch.ops import cuda
+    from murb_tpu_torch.ops import fmm_kernels as fk
+    from murb_tpu_torch.ops import proxy_kernels as tk
+    from murb_tpu_torch.ops.hybrid import (acc_hybrid_rect,
+                                           acc_hybrid_rect_plain,
+                                           ext_split_args)
+    from murb_tpu_torch.ops.proxy import bounding_box, heavy_split
+    from murb_tpu_torch.ops.tile import (acc_tile_rect, acc_tile_rect_plain,
+                                         split_args)
+    from murb_tpu_torch.utils.profile_step import graph_ms
+
+    bf16 = torch.bfloat16
+    t_phase = time.perf_counter()
+    launches = {}
+
+    def turns(fn32, fn16, **kw):
+        """The fp32 and the bf16 instance timed in turns (32, 16, 16, 32):
+        the medians of each."""
+        a, b, c, d = (time_ms(f, **kw) for f in (fn32, fn16, fn16, fn32))
+        return statistics.median((a, d)), statistics.median((b, c))
+
+    # ---- K3 and K4: the same bits as the fp32 instance at 200,192^2 (the
+    # main path's tpu+tile and tpu+hybrid), the j split of the fp32
+    # instance given to both
+    st = init_galaxy(n_main, SEED, dtype=bf16, device=dev)
+    q16 = (st.qx, st.qy, st.qz, st.m * in_dtype(G, bf16))
+    q32 = tuple(v.float() for v in q16)
+
+    def sweep(entry, q, split, *passes):
+        n = q[0].shape[0]
+        out = torch.empty((3, n), dtype=torch.float32, device=dev)
+        cuda.launch(entry, *(v.data_ptr() for v in q[:3]), n,
+                    *(v.data_ptr() for v in q), n, ctypes.c_float(SOFT ** 2),
+                    *passes, 0, 0, *split, *(o.data_ptr() for o in out),
+                    cuda.stream(dev))
+        return out
+
+    n = st.npad
+    split, _sc = split_args(n, n, 0, 0, dev)
+    esplit, _esc = ext_split_args(n, n, 0, 0, dev)
+    same = {"K3": torch.equal(sweep("murb_tile_rect", q32, split),
+                              sweep("murb_tile_rect_bf16", q16, split))}
+    for p in (1, 2, 3):
+        sp = esplit if p == 3 else split
+        same[f"K4 p{p}"] = torch.equal(
+            sweep("murb_hybrid_rect", q32, sp, p),
+            sweep("murb_hybrid_rect_bf16", q16, sp, p))
+    check(all(same.values()), f"bf16 instances vs fp32 at {n}^2: {same}")
+    k3_32, k3_16 = turns(lambda: acc_tile_rect(*q32[:3], *q32, SOFT),
+                         lambda: acc_tile_rect(*q16[:3], *q16, SOFT),
+                         reps=3, runs=3)
+    res = {e: cuda.resident(e, dev) for e in (
+        "murb_tile_resident", "murb_tile_resident_bf16",
+        "murb_hybrid_resident", "murb_hybrid_resident_bf16")}
+    print(f"[15 bits] {n}^2: K3 (j split {split[:2]}) and K4 passes 1, 2 "
+          f"(K3's split), 3 (split {esplit[:2]}): the bf16 instances give "
+          f"the fp32 instances' bits on the arrays upcast; resident blocks "
+          f"an SM {res}; K3 in turns through the wrapper: bf16 "
+          f"{k3_16:.4f} ms, fp32 {k3_32:.4f} ms on {smi}")
+    del _sc, _esc
+
+    # ---- at the rows' shape, 16384^2: against the plain version (bf16 out
+    # on both sides: WithinRel 1e-2, rms floor 1e-4) and float64 (the fp32
+    # instance's contracts: K3 WithinRel 5e-6, K4 p1/p2 3e-5, p3 4e-7)
+    sr = init_random(16_300, SEED, dtype=bf16, device=dev)
+    j16 = (sr.qx, sr.qy, sr.qz, sr.m * in_dtype(G, bf16))
+    j32 = tuple(v.float() for v in j16)
+    j64 = tuple(v.double() for v in j16)
+    ns = sr.npad
+    ref64 = acc_tile_rect_plain(*j64[:3], *j64, SOFT)
+    sms = cuda.sm_count(dev)
+    clk = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,"
+         "nounits", "-i", "0"], capture_output=True, text=True,
+        check=True).stdout.split()[0]) * 1e6
+    # the j split each wrapper takes: its own instance's resident count
+    # (the bf16 instances hold other register counts, so their splits may
+    # differ from the fp32 ones')
+    def splits(tier, sfx):
+        if tier != "p3":
+            return split_args(ns, ns, 0, 0, dev, "murb_tile_resident" + sfx)
+        return ext_split_args(ns, ns, 0, 0, dev,
+                              "murb_hybrid_resident" + sfx)
+
+    # each instance alone (its launches in a CUDA graph: no output rounding
+    # to bf16, no wrapper) at its own split, in turns
+    sq16, sq32 = tuple(v.contiguous() for v in j16), j32
+    alone = {}
+    for tier, entry, extra in (("K3", "murb_tile_rect", ()),
+                               ("p3", "murb_hybrid_rect", (3,))):
+        sp = {sfx: splits(tier, sfx) for sfx in ("", "_bf16")}
+        alone[tier] = [graph_ms(lambda: sweep(entry + sfx, q, sp[sfx][0],
+                                              *extra))
+                       for sfx, q in (("", sq32), ("_bf16", sq16),
+                                      ("_bf16", sq16), ("", sq32))]
+        del sp
+    for tier, contract in (("K3", None), ("p1", 3e-5), ("p2", 3e-5),
+                           ("p3", 4e-7)):
+        if tier == "K3":
+            entry, extra = "murb_tile_rect", ()
+            run16 = lambda: acc_tile_rect(*j16[:3], *j16, SOFT)
+            run32 = lambda: acc_tile_rect(*j32[:3], *j32, SOFT)
+            plain = lambda: acc_tile_rect_plain(*j16[:3], *j16, SOFT)
+        else:
+            p = int(tier[1])
+            entry, extra = "murb_hybrid_rect", (p,)
+            run16 = lambda: acc_hybrid_rect(*j16[:3], *j16, SOFT, passes=p)
+            run32 = lambda: acc_hybrid_rect(*j32[:3], *j32, SOFT, passes=p)
+            plain = lambda: acc_hybrid_rect_plain(*j16[:3], *j16, SOFT,
+                                                  passes=p)
+        got = run16()
+        check(got.ax.dtype == bf16, f"bf16 {tier}: outputs {got.ax.dtype}")
+        # the bf16 instance's own fp32 sums at the split its wrapper takes:
+        # the wrapper's outputs are these rounded, and the fp32 instance
+        # gives the same bits at that split on the arrays upcast
+        sp16, sc16 = splits(tier, "_bf16")
+        raw = sweep(entry + "_bf16", sq16, sp16, *extra)
+        check(all(torch.equal(g, r.to(bf16)) for g, r in zip(got, raw)),
+              f"bf16 {tier}: the wrapper's outputs are not the bf16 "
+              f"instance's sums at split {sp16[:2]} rounded")
+        check(torch.equal(raw, sweep(entry, sq32, sp16, *extra)),
+              f"bf16 {tier}: not the fp32 instance's bits at split "
+              f"{sp16[:2]}")
+        del sc16
+        wp = within_rel(got, plain(), 1e-2, 1e-4)
+        check(wp <= 1.0, f"bf16 {tier} vs its plain version: {wp:.2f}x of "
+                         f"WithinRel 1e-2 (rms floor 1e-4)")
+        err = max(float((g.double() - r).abs().max())
+                  for g, r in zip(raw, ref64))
+        if contract is None:
+            w64 = within_rel(raw, ref64, 5e-6, 5e-6)
+            check(w64 <= 1.0, f"bf16 K3 vs float64: {w64:.2f}x of 5e-6")
+            held = f"WithinRel 5e-6 at {w64:.3f}"
+        else:
+            rel = norm_rel(raw, ref64)
+            check(rel <= contract, f"bf16 K4 {tier} vs float64: {rel:.3e} "
+                                   f"> {contract:g}")
+            held = f"max rel {rel:.3e} (contract {contract:g})"
+        ms32, ms16 = turns(run32, run16)
+        plain_ms = time_ms(plain, reps=3)
+        # bf16 in: 2 bytes a value (targets 3, sources 4), fp32 out
+        nbytes, flops = 6 * ns + 8 * ns + 12 * ns, 20 * ns * ns
+        floors = ext_bound_ms(ns, ns, sms, clk) if tier == "p3" else None
+        line = (f"[15 bf16 {tier} {ns}^2] the bf16 instance's fp32 sums at "
+                f"its split {sp16[:2]}: the fp32 instance's bits there, the "
+                f"wrapper's outputs rounded; vs plain at {wp:.3f} of "
+                f"WithinRel 1e-2; vs float64 {held}, max|da| {err:.3e}; in "
+                f"turns: bf16 {ms16:.4f} ms, fp32 {ms32:.4f} ms; plain "
+                f"{plain_ms:.4f} ms")
+        if tier in ("K3", "p3"):
+            line += ("; alone (each at its own split) fp32, bf16, bf16, "
+                     "fp32: " + ", ".join(f"{a:.4f}" for a in alone[tier]))
+            key = "K3-bf16" if tier == "K3" else "K4-bf16"
+            b_ms = keep(key, err, ms16, plain_ms, nbytes, flops,
+                        None if floors is None else max(
+                            floors["mufu"], floors["f2f"], floors["dadd"]))
+            line += f"; bound {b_ms:.4f} ms"
+        print(line)
+
+    # ---- K1 and K2 on the 200k bf16 galaxy at m=12 (K2: k=3)
+    gm = q16[3]
+    c, h = bounding_box(st.qx, st.qy, st.qz, gm > 0)
+    mean_gm = gm.sum() / (gm > 0).sum()
+    gm_eff = heavy_split(st.qx, st.qy, st.qz, gm, 1, 100.0, mean_gm)[4]
+    box = torch.cat([c.reshape(3), h.reshape(3)]).float()
+    b16 = (st.qx, st.qy, st.qz, gm_eff)
+    b32 = tuple(v.float() for v in b16)
+    b64 = tuple(v.double() for v in b16)
+    m = 12
+    w16 = tk.p2m_launch(*b16, box, m)
+    check(torch.equal(w16, tk.p2m_launch(*b32, box, m)),
+          "bf16 K1: not the fp32 instance's bits")
+    w = tk.p2m_fused(*b16, c, h, m=m)
+    check(w.dtype == torch.float32 and torch.equal(w, w16),
+          f"bf16 K1 wrapper: {w.dtype}")
+    w64 = tk.p2m_plain(*b64, c.double(), h.double(), m=m)
+    err_w = float((w.double() - w64).abs().max())
+    scale_w = float(w64.abs().max())
+    check(bool(torch.allclose(w.double(), w64, rtol=1e-4,
+                              atol=1e-6 * scale_w)),
+          f"bf16 K1 vs float64: max|dW| {err_w:.3e}")
+    wp = float((w - tk.p2m_plain(*b16, c, h, m=m)).abs().max()) / scale_w
+    check(wp <= 1e-4, f"bf16 K1 vs its plain version: {wp:.3e} of max|W|")
+    ms32, ms16 = turns(lambda: tk.p2m_fused(*b32, c, h, m=m),
+                       lambda: tk.p2m_fused(*b16, c, h, m=m))
+    alone = [graph_ms(lambda: tk.p2m_launch(*b, box, m))
+             for b in (b32, b16, b16, b32)]
+    plain_ms = time_ms(lambda: tk.p2m_plain(*b16, c, h, m=m))
+    b_ms = keep("K1-bf16", err_w, ms16, plain_ms, 8 * n_main + 4 * m ** 3,
+                n_main * (2 * m ** 3 + 6 * m ** 2))
+    print(f"[15 bf16 K1 m={m} N={n_main}] the fp32 instance's bits; "
+          f"W float32; vs float64 max|dW| {err_w:.3e} (rtol 1e-4 + 1e-6 "
+          f"max|W|), vs plain {wp:.3e} of max|W|; in turns: bf16 {ms16:.4f}"
+          f" ms, fp32 {ms32:.4f} ms through the wrapper, alone (a CUDA "
+          f"graph) fp32, bf16, bf16, fp32: "
+          f"{', '.join(f'{a:.4f}' for a in alone)}; plain {plain_ms:.4f} "
+          f"ms; bound {b_ms:.4f} ms")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    fields = tuple(torch.randn(m ** 3, generator=gen, device=dev)
+                   for _ in range(3))
+    o16 = tk.l2p_launch(st.qx, st.qy, st.qz, box, m, fields)
+    check(torch.equal(o16, tk.l2p_launch(*b32[:3], box, m, fields)),
+          "bf16 K2: not the fp32 instance's bits")
+    got = tk.l2p_fused_multi(st.qx, st.qy, st.qz, c, h, fields, m=m)
+    check(got[0].dtype == bf16, f"bf16 K2 wrapper: {got[0].dtype}")
+    ref = tk.l2p_plain(*b64[:3], c.double(), h.double(),
+                       tuple(f.double() for f in fields), m=m)
+    err_a = max(float((a.double() - r).abs().max())
+                for a, r in zip(o16, ref))
+    w64 = within_rel(list(o16), ref, 1e-4, 1e-5)
+    check(w64 <= 1.0, f"bf16 K2 vs float64: {w64:.2f}x of WithinRel 1e-4")
+    wp = within_rel(got, tk.l2p_plain(st.qx, st.qy, st.qz, c, h, fields,
+                                      m=m), 1e-2, 1e-4)
+    check(wp <= 1.0, f"bf16 K2 vs its plain version: {wp:.2f}x")
+    ms32, ms16 = turns(
+        lambda: tk.l2p_fused_multi(*b32[:3], c, h, fields, m=m),
+        lambda: tk.l2p_fused_multi(st.qx, st.qy, st.qz, c, h, fields, m=m))
+    alone = [graph_ms(lambda: tk.l2p_launch(*b[:3], box, m, fields))
+             for b in (b32, b16, b16, b32)]
+    plain_ms = time_ms(lambda: tk.l2p_plain(st.qx, st.qy, st.qz, c, h,
+                                            fields, m=m))
+    # K2's model (phase 3) with the coordinates in at 2 bytes a value
+    b_ms = keep("K2-bf16", err_a, ms16, plain_ms,
+                6 * n_main + 4 * 3 * (m ** 3 + n_main),
+                n_main * (2 * 3 * m ** 3 + 6 * m ** 2))
+    print(f"[15 bf16 K2 m={m} k=3 N={n_main}] the fp32 instance's bits; "
+          f"vs float64 at {w64:.3f} of WithinRel 1e-4 (max|da| {err_a:.3e}),"
+          f" vs plain at {wp:.3f} of WithinRel 1e-2; in turns: bf16 "
+          f"{ms16:.4f} ms, fp32 {ms32:.4f} ms through the wrapper, alone "
+          f"fp32, bf16, bf16, fp32: {', '.join(f'{a:.4f}' for a in alone)};"
+          f" plain {plain_ms:.4f} ms; bound {b_ms:.4f} ms")
+
+    # ---- K8 and K9 on the 200k bf16 galaxy at the hierarchy's finest level
+    # of the main path's (m, levels) = (4, 2): C = 4; the box in float32 on
+    # both sides, so the cells are the same
+    m8, C = 4, 4
+    c32, h32 = c.float(), h.float()
+    order = fk.cell_order(*b32[:3], c32, h32, C)
+    items8 = fk.p2m_grid_items(order, m8)
+    w16 = fk.p2m_grid_launch(*b16, order, items8, m8)
+    check(torch.equal(w16, fk.p2m_grid_launch(*b32, order, items8, m8)),
+          "bf16 K8: not the fp32 instance's bits")
+    w = fk.p2m_grid_fused(*b16, c32, h32, m=m8, C=C, order=order)
+    check(w.dtype == torch.float32 and torch.equal(w, w16),
+          f"bf16 K8 wrapper: {w.dtype}")
+    w64 = fk.p2m_grid_plain(*b64, c.double(), h.double(), m=m8, C=C)
+    err8 = float((w.double() - w64).abs().max())
+    rel8 = err8 / float(w64.abs().max())
+    check(rel8 <= 1e-5, f"bf16 K8 vs float64: {rel8:.3e} of max|W|")
+    wp = float((w - fk.p2m_grid_plain(*b16, c32, h32, m=m8, C=C)).abs()
+               .max()) / float(w64.abs().max())
+    check(wp <= 1e-5, f"bf16 K8 vs its plain version: {wp:.3e} of max|W|")
+    ms32, ms16 = turns(
+        lambda: fk.p2m_grid_fused(*b32, c32, h32, m=m8, C=C, order=order),
+        lambda: fk.p2m_grid_fused(*b16, c32, h32, m=m8, C=C, order=order))
+    alone = [graph_ms(lambda: fk.p2m_grid_launch(*b, order, items8, m8))
+             for b in (b32, b16, b16, b32)]
+    plain_ms = time_ms(lambda: fk.p2m_grid_plain(*b16, c32, h32, m=m8, C=C),
+                       reps=3)
+    # phase 8's model with q and gm in at 2 bytes a value
+    b_ms = keep("K8-bf16", err8, ms16, plain_ms,
+                16 * n_main + 4 * C ** 3 * m8 ** 3,
+                n_main * (2 * m8 ** 3 + 6 * m8 ** 2))
+    print(f"[15 bf16 K8 m={m8} C={C} N={n_main}] the fp32 instance's bits; "
+          f"W float32; vs float64 {rel8:.3e} of max|W| (tol 1e-5), vs "
+          f"plain {wp:.3e}; in turns: bf16 {ms16:.4f} ms, fp32 {ms32:.4f} "
+          f"ms through the wrapper (prebuilt order), alone fp32, bf16, "
+          f"bf16, fp32: {', '.join(f'{a:.4f}' for a in alone)}; plain "
+          f"{plain_ms:.4f} ms; bound {b_ms:.4f} ms")
+    fields8 = tuple(torch.randn((C ** 3, m8 ** 3), generator=gen, device=dev)
+                    for _ in range(3))
+    items9 = fk.l2p_grid_items(order, m8)
+    o16 = fk.l2p_grid_launch(*b16[:3], order, items9, m8, fields8)
+    check(torch.equal(o16, fk.l2p_grid_launch(*b32[:3], order, items9, m8,
+                                              fields8)),
+          "bf16 K9: not the fp32 instance's bits")
+    got = fk.l2p_grid_fused(*b16[:3], c32, h32, fields8, m=m8, C=C,
+                            order=order)
+    check(got[0].dtype == bf16 and all(
+        torch.equal(g, o.to(bf16)) for g, o in zip(got, o16)),
+        f"bf16 K9 wrapper: {got[0].dtype}")
+    ref = fk.l2p_grid_plain(*b64[:3], c.double(), h.double(),
+                            tuple(f.double() for f in fields8), m=m8, C=C)
+    err9 = max(float((a.double() - r).abs().max()) for a, r in zip(o16, ref))
+    rel9 = err9 / max(float(r.abs().max()) for r in ref)
+    check(rel9 <= 1e-4, f"bf16 K9 vs float64: {rel9:.3e} of max|a|")
+    wp = within_rel(got, fk.l2p_grid_plain(*b16[:3], c32, h32, fields8,
+                                           m=m8, C=C), 1e-2, 1e-3)
+    check(wp <= 1.0, f"bf16 K9 vs its plain version: {wp:.2f}x")
+    ms32, ms16 = turns(
+        lambda: fk.l2p_grid_fused(*b32[:3], c32, h32, fields8, m=m8, C=C,
+                                  order=order),
+        lambda: fk.l2p_grid_fused(*b16[:3], c32, h32, fields8, m=m8, C=C,
+                                  order=order))
+    alone = [graph_ms(lambda: fk.l2p_grid_launch(*b[:3], order, items9, m8,
+                                                 fields8))
+             for b in (b32, b16, b16, b32)]
+    plain_ms = time_ms(lambda: fk.l2p_grid_plain(*b16[:3], c32, h32,
+                                                 fields8, m=m8, C=C), reps=3)
+    b_ms = keep("K9-bf16", err9, ms16, plain_ms,
+                14 * n_main + 4 * 3 * (n_main + C ** 3 * m8 ** 3),
+                n_main * (2 * 3 * m8 ** 3 + 6 * m8 ** 2))
+    print(f"[15 bf16 K9 m={m8} C={C} k=3 N={n_main}] the fp32 instance's "
+          f"bits; vs float64 {rel9:.3e} of max|a| (tol 1e-4), vs plain at "
+          f"{wp:.3f} of WithinRel 1e-2 (rms floor 1e-3); in turns: bf16 "
+          f"{ms16:.4f} ms, fp32 {ms32:.4f} ms through the wrapper, alone "
+          f"fp32, bf16, bf16, fp32: {', '.join(f'{a:.4f}' for a in alone)};"
+          f" plain {plain_ms:.4f} ms; bound {b_ms:.4f} ms")
+    del st, q16, q32, sr, j16, j32, j64, ref64, b16, b32, b64, w64, ref
+    torch.cuda.empty_cache()
+
+    # ---- the main path through the CLI, launch counts read after each run
+    def cli_run(argv):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            res = cli.run(argv)
+        out = buf.getvalue()
+        check(res.rc == 0, f"cli {argv}: exit code {res.rc}\n{out[-2000:]}")
+        res.engine.assert_finite()
+        return res, out
+
+    (res, out), counts = drive(lambda: cli_run([
+        "-n", str(n_main), "-i", "100", "--im", "tpu+proxy", "--precision",
+        "bf16", "--nv", "--gf", "--scan", "--device", "cuda"]))
+    e = res.engine
+    check(e.bodies.dtype == bf16, f"tpu+proxy bf16 state {e.bodies.dtype}")
+    check(2 * e.allocated_bytes == fp32_bytes,
+          f"bf16 bytes {e.allocated_bytes} vs fp32 {fp32_bytes}")
+    # the ladder tries single-level and hierarchy rungs (no rung meets the
+    # tolerance in bf16), so each of the four launches; the rung it keeps
+    # launches its pair every step
+    for k in ("K1-bf16", "K2-bf16", "K8-bf16", "K9-bf16"):
+        check(counts[k] > 0, f"{k} launched no time: {counts}")
+        launches[k] = counts[k]
+    step_pair = ("K8-bf16", "K9-bf16") if e.levels else ("K1-bf16",
+                                                         "K2-bf16")
+    check(all(counts[k] >= 99 for k in step_pair),
+          f"the kept rung ({e.m}, {e.levels}, {e.cells}) did not launch "
+          f"{step_pair} every step: {counts}")
+    for line in out.splitlines():
+        if line.startswith(("WARNING", "  -> mem.", "  -> validated")):
+            print(f"[15 main] {line.strip()}")
+    print(f"[15 main] tpu+proxy --precision bf16 N={n_main} galaxy: (m, "
+          f"levels, cells) = ({e.m}, {e.levels}, {e.cells}), validated err "
+          f"{e.validated_err:.3e}; {res.fps:.2f} FPS ({res.elapsed_ms:.2f} "
+          f"ms for 99 steps); {e.allocated_bytes} bytes, half the fp32 "
+          f"run's {fp32_bytes}; launches {counts} on {smi}")
+    for tag, key in (("tpu+tile", "K3-bf16"), ("tpu+hybrid", "K4-bf16"),
+                     ("tpu+hybrid+fast", "K4-bf16"),
+                     ("tpu+hybrid+x3", "K4-bf16")):
+        (res, _), counts = drive(lambda: cli_run([
+            "-n", "200192", "-i", "4", "--im", tag, "--precision", "bf16",
+            "--nv", "--gf", "--scan", "--device", "cuda"]))
+        check(counts[key] > 0, f"{key} launched no time under {tag}: "
+                               f"{counts}")
+        launches[key] = launches.get(key, 0) + counts[key]
+        print(f"[15 {tag}] --precision bf16 N=200192 (passes "
+              f"{getattr(res.engine, 'passes', '-')}): {res.fps:.3f} FPS "
+              f"over 3 steps after one; launches {counts}")
+
+    # ---- the card's power around the 200k proxy run, fp32 and bf16
+    for prec in ("fp32", "bf16"):
+        csv = os.path.join(ROOT, "build", f"power_{prec}.csv")
+        os.makedirs(os.path.dirname(csv), exist_ok=True)
+        p = subprocess.run(
+            [sys.executable, os.path.join(ROOT, "scripts",
+                                          "torch_measure_energy.py"),
+             "--source", "nvsmi", "--interval", "0.1", "--out", csv, "--",
+             "-n", str(n_main), "-i", "1000", "--im", "tpu+proxy",
+             "--precision", prec, "--nv", "--scan"],
+            capture_output=True, text=True, cwd=ROOT, timeout=300)
+        check(p.returncode == 0, f"energy {prec}: rc {p.returncode}\n"
+                                 f"{p.stderr[-2000:]}")
+        loop = [l for l in p.stdout.splitlines() if l.startswith("loop all")]
+        check(len(loop) == 1, f"energy {prec}: no loop window\n{p.stdout}")
+        order = [l.strip() for l in p.stdout.splitlines()
+                 if l.startswith("  -> validated") or
+                 l.startswith("Entire")]
+        print(f"[15 energy {prec}] tpu+proxy N={n_main} -i 1000 --scan: "
+              f"{loop[0]}; {'; '.join(order)}; on {smi}")
+    print(f"[15 time] phase 15 took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1318,6 +1743,8 @@ def main() -> int:
         lossy instance, which counts on K7's wrapper."""
         counters = {k: (fn, "launches") for k, fn in wrappers.items()}
         counters["K7b"] = (fk.m2l_level_fused, "lossy_launches")
+        for k in ("K1", "K2", "K3", "K4", "K8", "K9"):   # bf16 (phase 15)
+            counters[f"{k}-bf16"] = (wrappers[k], "bf16_launches")
         for fn, attr in counters.values():
             setattr(fn, attr, 0)
         out = run()
@@ -1330,6 +1757,7 @@ def main() -> int:
     check(res.rc == 0, f"cli exit code {res.rc}")
     eng = res.engine
     eng.assert_finite()
+    fp32_bytes = eng.allocated_bytes
     launches = {k: counts[k] for k in ("K1", "K2")}
     check(eng.using_proxy, "tpu+proxy fell back to the exact sweep")
     check(eng.validated_err is not None and eng.validated_err <= TOL,
@@ -2821,13 +3249,18 @@ def main() -> int:
     # ---------------------------------------- 14. the lossy M2L tiers
     record["K7b"], launches["K7b"] = phase14(dev, smi, drive, time_ms, st9,
                                              soft9, plan, pick8)
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------- 15. the bf16 state
+    launches.update(phase15(dev, smi, drive, time_ms, within_rel, norm_rel,
+                            keep, n_main, fp32_bytes))
 
     for k, count in launches.items():
         check(count > 0, f"{k} launched no time on its piece of the path")
     meta = {
         "K1": ("p2m", "murb_tpu_torch/csrc/cell_runs.cuh",
                "murb_tpu/ops/proxy_pallas.py:112"),
-        "K2": ("l2p", "murb_tpu_torch/csrc/cell_runs.cuh",
+        "K2": ("l2p", "murb_tpu_torch/csrc/proxy.cu",
                "murb_tpu/ops/proxy_pallas.py:170"),
         "K3": ("tile_rect", "murb_tpu_torch/csrc/tile.cu",
                "murb_tpu/ops/tile_pallas.py:39"),
@@ -2855,6 +3288,20 @@ def main() -> int:
                 "murb_tpu/ops/mxu.py:49"),
         "K14": ("ring_pipelined", "murb_tpu_torch/csrc/ring.cu",
                 "murb_tpu/ops/ring_pallas.py:50"),
+        # the bf16 instances (phase 15): the same TPU kernels, which took
+        # bf16 refs and upcast them in their bodies
+        "K1-bf16": ("p2m_bf16", "murb_tpu_torch/csrc/cell_runs.cuh",
+                    "murb_tpu/ops/proxy_pallas.py:112"),
+        "K2-bf16": ("l2p_bf16", "murb_tpu_torch/csrc/proxy.cu",
+                    "murb_tpu/ops/proxy_pallas.py:170"),
+        "K3-bf16": ("tile_rect_bf16", "murb_tpu_torch/csrc/tile.cu",
+                    "murb_tpu/ops/tile_pallas.py:39"),
+        "K4-bf16": ("sweep_rows_ext_bf16", "murb_tpu_torch/csrc/hybrid.cu",
+                    "murb_tpu/ops/hybrid.py:63"),
+        "K8-bf16": ("p2m_grid_bf16", "murb_tpu_torch/csrc/cell_runs.cuh",
+                    "murb_tpu/ops/fmm_pallas.py:315"),
+        "K9-bf16": ("l2p_grid_bf16", "murb_tpu_torch/csrc/cell_runs.cuh",
+                    "murb_tpu/ops/fmm_pallas.py:371"),
     }
     kernels = [{"name": kname, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches[k], **record[k]}

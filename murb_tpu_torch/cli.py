@@ -29,8 +29,9 @@ writes a Chrome trace into DIR and prints the device time.
 ``--device cuda`` (the default) puts the state and every kernel on the
 first CUDA device and exits with status 1 when there is none: the port
 never carries on on the CPU.  ``--device cpu`` runs the kernels' plain
-PyTorch versions.  ``--precision bf16``, which the port does not carry
-yet, exits with status 1 and "not yet ported".
+PyTorch versions.  ``--precision bf16`` keeps the state in bf16 (half
+the memory a body takes); the kernels read it and compute in fp32, and
+so does every pairwise chain outside them, rounding once.
 
 Usage:  python -m murb_tpu_torch -n 200000 -i 100 --im tpu+mxu --nv --gf --scan
 """
@@ -44,6 +45,7 @@ import time
 import torch
 
 from murb_tpu_torch.core.init import make_bodies
+from murb_tpu_torch.core.state import host_array
 from murb_tpu_torch.models import (
     available_implementations,
     create_engine,
@@ -55,7 +57,8 @@ from murb_tpu_torch.utils.perf import Perf
 from murb_tpu_torch.utils.strdate import str_date
 from murb_tpu_torch.visu import create_visu
 
-_DTYPES = {"fp32": torch.float32, "fp64": torch.float64}
+_DTYPES = {"fp32": torch.float32, "fp64": torch.float64,
+           "bf16": torch.bfloat16}
 
 
 @dataclasses.dataclass
@@ -176,10 +179,6 @@ def build_engine(cfg: MurbConfig, device: torch.device):
     from ``--load-state``, so a later ``--save-state`` carries the
     cumulative count."""
     canonical = validate_tag(cfg.impl_tag)  # fail fast, before device work
-    if cfg.precision not in _DTYPES:
-        raise NotImplementedError(
-            f"--precision {cfg.precision} is not yet ported to "
-            "murb_tpu_torch (ROADMAP.md Queue 1 item 1)")
     from murb_tpu_torch.ops.fmm import check_m2l_dots
 
     check_m2l_dots(cfg.m2l_dots)  # fail fast, before device work
@@ -361,7 +360,7 @@ def run(argv=None) -> CliRun:
         the positions leave the device."""
         if traj is not None and i_ite % every == 0:
             b = engine.bodies
-            traj.append(i_ite, *(getattr(b, k)[:b.n].cpu().numpy()
+            traj.append(i_ite, *(host_array(getattr(b, k)[:b.n])
                                  for k in ("qx", "qy", "qz")))
 
     def checkpoint(i_ite: int) -> None:

@@ -8,6 +8,13 @@ softening and a format version -- murb_tpu's format, key for key, so a
 checkpoint written by either package loads in the other.  A newer format
 version is refused.
 
+A bf16 state is written as float32 arrays, which is exact, with a
+``dtype`` entry "bfloat16", and loads back as bf16 bit for bit.  murb_tpu's
+``load_state`` reads such a file (as float32 arrays: it reads no
+``dtype`` entry).  murb_tpu writes its own bf16 state as ml_dtypes
+bfloat16, which ``np.savez_compressed`` stores as ``|V2`` and neither
+package's loader can read back (ROADMAP.md Queue 3).
+
 The sharded counterpart of murb_tpu's orbax backend (``save_state_orbax``
 / ``load_state_orbax``) is ``save_state_sharded`` / ``load_state_sharded``
 on ``torch.distributed.checkpoint``: a checkpoint directory in which each
@@ -33,7 +40,9 @@ def _payload(state: BodyState, iteration: int, dt: float,
              soft: float) -> dict:
     """The arrays and metadata of one snapshot (copies the state to the
     host: a device sync, never in the hot loop)."""
-    payload = state.to_numpy()
+    payload = state.to_numpy()  # bf16: float32 arrays (exact)
+    if state.dtype == torch.bfloat16:
+        payload["dtype"] = np.str_("bfloat16")
     payload.update(
         __version__=np.int64(FORMAT_VERSION),
         n=np.int64(state.n),
@@ -72,6 +81,8 @@ def load_state(path: str, *, device: torch.device | str = "cuda"
                 meta[k[len("extra_"):]] = z[k]
         state = BodyState.from_numpy({k: z[k] for k in FIELDS}, int(z["n"]),
                                      int(z["padding"]), device)
+        if "dtype" in z.files and str(z["dtype"]) == "bfloat16":
+            state = state.astype(torch.bfloat16)  # exact: bf16 -> f32 -> bf16
     return state, meta
 
 

@@ -35,6 +35,7 @@ from murb_tpu_torch.ops.common import Accel
 def euler_update(state: BodyState, acc: Accel, dt: float) -> BodyState:
     """Explicit Euler update of positions then velocities (ref:
     Bodies.cpp:259-278)."""
+    dt = in_dtype(dt, state.dtype)  # murb_tpu rounds dt to the state dtype
     ax_dt = acc.ax * dt
     ay_dt = acc.ay * dt
     az_dt = acc.az * dt

@@ -27,12 +27,28 @@ def _gm(state) -> torch.Tensor:
     return state.m * in_dtype(G, state.dtype)
 
 
-def _self_term(gm, soft, dtype, out_dtype) -> torch.Tensor:
+def sweep_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The arithmetic of the exact potential sweep for a state of
+    ``dtype``: its own, float32 for bf16.  murb_tpu forms the sweep in the
+    state dtype, but XLA keeps fp32 inside the fused bf16 chain (distances,
+    rsqrt), the rule of every pairwise chain of the port
+    (ops/common.bf16_chain); rounding each op to bf16 instead reads the
+    2048-body galaxy's potential energy 1.4% off float64 (ROADMAP.md
+    Queue 3)."""
+    return torch.float32 if dtype == torch.bfloat16 else dtype
+
+
+def _soft2(soft, dtype) -> torch.Tensor:
+    """eps^2 as the exact sweep forms it: eps in the state dtype, squared
+    in the sweep's arithmetic."""
+    return torch.tensor(soft, dtype=dtype).to(sweep_dtype(dtype)) ** 2
+
+
+def _self_term(gm, soft2: torch.Tensor, out_dtype) -> torch.Tensor:
     """G m_i / eps, the j == i term every potential sweep includes (the
     reference compensates it, ref:
-    SimulationNBodyCUDAPropertyTracking.cu:296-302); 1/eps is formed in the
-    state dtype as the sweep forms it."""
-    soft2 = torch.tensor(soft, dtype=dtype) ** 2
+    SimulationNBodyCUDAPropertyTracking.cu:296-302); 1/eps is formed from
+    ``soft2`` as the sweep that made phi forms it."""
     return gm.to(out_dtype) * float(torch.rsqrt(soft2))
 
 
@@ -42,16 +58,19 @@ def potential_energy_per_body(qx, qy, qz, m, gm, soft, *, chunk: int = 1024,
     """PE_i = -m_i * sum_j Gm_j * rsqrt(|r_ij|^2 + eps^2), self term removed.
 
     ``method="exact"``: an i-chunked sweep whose distances and rsqrt are in
-    the state dtype and whose sum is in ``out_dtype`` (O(chunk * N) memory),
-    as ``murb_tpu`` computes it.  ``method="proxy"``: the Chebyshev proxy
-    sweep in O(N*m^3) (ops/proxy.potential_proxy; the caller picks
-    ``proxy_m`` from the box)."""
+    the state dtype (``sweep_dtype``: float32 for bf16) and whose sum is in
+    ``out_dtype`` (O(chunk * N) memory), as ``murb_tpu`` computes it.
+    ``method="proxy"``: the Chebyshev proxy sweep in O(N*m^3)
+    (ops/proxy.potential_proxy; the caller picks ``proxy_m`` from the
+    box)."""
     if method == "proxy":
         from murb_tpu_torch.ops.proxy import potential_proxy
 
         sweep = potential_proxy(qx, qy, qz, gm, soft, m=proxy_m).to(out_dtype)
     elif method == "exact":
-        soft2 = float(torch.tensor(soft, dtype=qx.dtype) ** 2)
+        dtype = qx.dtype
+        soft2 = float(_soft2(soft, dtype))
+        qx, qy, qz = (q.to(sweep_dtype(dtype)) for q in (qx, qy, qz))
         gmo = gm.to(out_dtype)
         parts = []
         for s in range(0, qx.shape[0], chunk):
@@ -64,7 +83,7 @@ def potential_energy_per_body(qx, qy, qz, m, gm, soft, *, chunk: int = 1024,
         sweep = torch.cat(parts)
     else:
         raise ValueError(f"unknown metrics method {method!r} (exact, proxy)")
-    return -(m.to(out_dtype) * (sweep - _self_term(gm, soft, qx.dtype,
+    return -(m.to(out_dtype) * (sweep - _self_term(gm, _soft2(soft, m.dtype),
                                                    out_dtype)))
 
 
@@ -114,10 +133,13 @@ def energy_from_phi(state, phi, soft,
                     out_dtype=METRIC_DTYPE) -> torch.Tensor:
     """Total energy from a potential sweep already in hand, phi_i = sum_j
     Gm_j * rsqrt(d^2 + eps^2) with the self term included (compensated
-    here, as the reference kernel does).  The fused tracking paths use it."""
+    here, as the reference kernel does).  The fused tracking paths use it.
+    For a bf16 state 1/eps is formed in fp32 from eps^2 in double, as the
+    kernels (K5, K6) and the proxy's stages take it."""
+    soft2 = (torch.tensor(float(soft) ** 2, dtype=torch.float32)
+             if state.dtype == torch.bfloat16 else _soft2(soft, state.dtype))
     pe = -(state.m.to(out_dtype)
-           * (phi.to(out_dtype) - _self_term(_gm(state), soft, state.dtype,
-                                             out_dtype)))
+           * (phi.to(out_dtype) - _self_term(_gm(state), soft2, out_dtype)))
     ke = kinetic_energy_per_body(state.m, state.vx, state.vy, state.vz,
                                  out_dtype)
     return (pe * 0.5 + ke * 0.5).sum()

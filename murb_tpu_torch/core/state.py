@@ -35,6 +35,20 @@ def in_dtype(x, dtype: torch.dtype):
     return float(torch.tensor(x, dtype=dtype))
 
 
+def numpy_dtype(dtype: torch.dtype) -> np.dtype:
+    """The numpy dtype a state of ``dtype`` is built from and read back
+    as: float32 for bf16, which numpy lacks (bf16 -> float32 is exact)."""
+    if dtype == torch.bfloat16:
+        return np.dtype(np.float32)
+    return torch.empty((), dtype=dtype).numpy().dtype
+
+
+def host_array(t: torch.Tensor) -> np.ndarray:
+    """A host numpy copy of ``t``; bf16 comes back as float32 (exact)."""
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
 def check_device(device: torch.device | str) -> torch.device:
     """The device a state builder is asked for.  A CUDA device with no card
     raises: the builders default to the card and never build on the CPU
@@ -103,7 +117,7 @@ class BodyState:
             n = int(m.shape[0])
         npad = round_up(max(n, 1), pad_multiple)
         padding = npad - n
-        np_dtype = torch.empty((), dtype=dtype).numpy().dtype
+        np_dtype = numpy_dtype(dtype)
 
         def _pad(a, ghosts=None):
             a = np.asarray(a, dtype=np_dtype)
@@ -123,13 +137,18 @@ class BodyState:
             "vy": _pad(vy, None if gv is None else gv[:, 1]),
             "vz": _pad(vz, None if gv is None else gv[:, 2]),
         }
-        return cls.from_numpy(arrays, n, padding, device)
+        state = cls.from_numpy(arrays, n, padding, device)
+        # bf16: sampled as float32 and rounded once, as murb_tpu's schemes
+        # round their float32 samples (murb_tpu/core/init.py:126-144)
+        return state if state.dtype == dtype else state.astype(dtype)
 
     @classmethod
     def from_numpy(cls, arrays: dict, n: int, padding: int,
                    device: torch.device | str = "cuda") -> "BodyState":
         """The same state from its eight padded arrays, ghosts included (the
-        layout of ``murb_tpu``'s ``BodyState``), copied to ``device``."""
+        layout of ``murb_tpu``'s ``BodyState``), copied to ``device``.  An
+        ml_dtypes bfloat16 array (murb_tpu's bf16 state) gives a bf16
+        tensor, through float32 (exact both ways)."""
         device = check_device(device)
         npad = n + padding
         tensors = {}
@@ -137,19 +156,24 @@ class BodyState:
             a = np.ascontiguousarray(np.asarray(arrays[k]))
             if a.shape != (npad,):
                 raise ValueError(f"{k}: shape {a.shape} != ({npad},)")
-            tensors[k] = torch.from_numpy(a.copy()).to(device)
+            if a.dtype.name == "bfloat16":
+                t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+            else:
+                t = torch.from_numpy(a.copy())
+            tensors[k] = t.to(device)
         return cls(**tensors, n=int(n), padding=int(padding))
 
     def to_numpy(self) -> dict[str, np.ndarray]:
         """The eight padded arrays, ghosts included (inverse of
-        ``from_numpy``; a device-to-host sync point)."""
-        return {k: getattr(self, k).cpu().numpy() for k in FIELDS}
+        ``from_numpy``; a device-to-host sync point).  numpy has no
+        bfloat16: a bf16 state gives float32 arrays (exact)."""
+        return {k: host_array(getattr(self, k)) for k in FIELDS}
 
     # ------------------------------------------------------------------ views
     def unpadded(self) -> dict[str, np.ndarray]:
         """Host copies of the first ``n`` bodies (device-to-host sync point:
         call at observation points, never inside the step loop)."""
-        return {k: getattr(self, k)[: self.n].cpu().numpy() for k in FIELDS}
+        return {k: host_array(getattr(self, k)[: self.n]) for k in FIELDS}
 
     def clone(self) -> "BodyState":
         """A copy that shares no storage with this state."""

@@ -33,6 +33,13 @@
 // cancel, fmm.cu's note), no atomics, every sum in a fixed order: the same
 // bits on every run.
 //
+// The P2M takes the body arrays' type as TB and the L2P as Q: float, or
+// __nv_bfloat16 for the bf16 instances of K1 (proxy.cu) and K8 and K9
+// (fmm.cu), which convert each value to fp32 as they load it (sweep.cuh's
+// stage_body and body_f32) and then run the float arithmetic: the same
+// bits as the float instance on the arrays upcast.  K11 and K12
+// (anterp.cu) instantiate float only.
+//
 // P2M: W[r, (u, v, w)] = sum_{j in r} gm_j Sx_j[u] Sy_j[v] Sz_j[w], an
 // (m^2 x nb) . (nb x m) product per run that reduces over its bodies.
 // L2P: a_f[j] = sum_{uvw} Sx_j[u] Sy_j[v] Sz_j[w] F_f[r_j, (u, v, w)] for
@@ -209,16 +216,16 @@ struct RunBody {
   int3 c;
 };
 
-template <class Runs>
+template <class Runs, class Q>
 __device__ __forceinline__ RunBody run_body(const Runs& runs, int run,
                                             long long body, bool valid,
-                                            const float* qx, const float* qy,
-                                            const float* qz) {
+                                            const Q* qx, const Q* qy,
+                                            const Q* qz) {
   RunBody r{0.f, 0.f, 0.f, make_int3(0, 0, 0)};
   if (valid) {
-    r.x = qx[body];
-    r.y = qy[body];
-    r.z = qz[body];
+    r.x = body_f32(qx[body]);
+    r.y = body_f32(qy[body]);
+    r.z = body_f32(qz[body]);
     r.c = runs.cell(run, body);
   }
   return r;
@@ -337,10 +344,13 @@ struct P2MGeom {
 // group owns body slot s of every tile: it copies the slot's coordinates
 // (and cell) of the next tile by cp.async while the group computes this
 // one, the body index (through the permutation) one tile further ahead.
-template <int MW, class Runs>
+// TB: the body arrays' type, float or __nv_bfloat16 (K1's bf16 instance:
+// each value converted to fp32 as the stager loads it, sweep.cuh's
+// stage_body; the same W bits as the float instance on the arrays upcast).
+template <int MW, class Runs, class TB = float>
 __global__ void __launch_bounds__(P2MGeom<MW>::kThreads)
-p2m_runs_kernel(const float* __restrict__ qx, const float* __restrict__ qy,
-                const float* __restrict__ qz, const float* __restrict__ gm,
+p2m_runs_kernel(const TB* __restrict__ qx, const TB* __restrict__ qy,
+                const TB* __restrict__ qz, const TB* __restrict__ gm,
                 Runs runs, const float* __restrict__ box, int m,
                 const long long* __restrict__ bounds,
                 const long long* __restrict__ prefix,
@@ -397,10 +407,10 @@ p2m_runs_kernel(const float* __restrict__ qx, const float* __restrict__ qy,
   // copy slot gt of the tile at j (index `body`) into buffer `buf`
   auto fetch = [&](int buf, long long body, bool valid) {
     float* d = reinterpret_cast<float*>(&rq[buf][gt]);
-    cp_async4(d, qx + body, valid);
-    cp_async4(d + 1, qy + body, valid);
-    cp_async4(d + 2, qz + body, valid);
-    cp_async4(d + 3, gm + body, valid);
+    stage_body(d, qx + body, valid);
+    stage_body(d + 1, qy + body, valid);
+    stage_body(d + 2, qz + body, valid);
+    stage_body(d + 3, gm + body, valid);
     runs.stage_cell(rc[buf][gt], run, body, valid);
     cp_async_commit();
   };
@@ -576,10 +586,12 @@ struct L2PGeom {
   static_assert(kWarp || kPG % 2 == 0, "two pair groups a warp");
 };
 
-template <int MW, class Runs>
+// Q: the coordinate arrays' type, float or __nv_bfloat16 (K9's bf16
+// instance: each coordinate converted to fp32 as run_body loads it).
+template <int MW, class Runs, class Q = float>
 __global__ void __launch_bounds__(L2PGeom<MW>::kThreads)
-l2p_runs_kernel(const float* __restrict__ qx, const float* __restrict__ qy,
-                const float* __restrict__ qz, Runs runs,
+l2p_runs_kernel(const Q* __restrict__ qx, const Q* __restrict__ qy,
+                const Q* __restrict__ qz, Runs runs,
                 const float* __restrict__ box, int m,
                 const long long* __restrict__ bounds,
                 const long long* __restrict__ prefix,
@@ -888,14 +900,14 @@ namespace murb {
 // builds compared in one process), and a flag set by one library's kernel
 // would skip the other's.
 namespace {
-template <int MW, class Runs>
+template <int MW, class Runs, class Q = float>
 cudaError_t l2p_allow_smem() {
   constexpr int kDevices = 64;
   static std::atomic<bool> done[kDevices];
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess || (dev < kDevices && done[dev].load())) return e;
-  e = cudaFuncSetAttribute(l2p_runs_kernel<MW, Runs>,
+  e = cudaFuncSetAttribute(l2p_runs_kernel<MW, Runs, Q>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            L2PGeom<MW>::kDynBytes);
   if (e == cudaSuccess && dev < kDevices) done[dev].store(true);
@@ -907,9 +919,10 @@ cudaError_t l2p_allow_smem() {
 // bodies (prefix: nrun + 1 offsets of each run's items); node_table: m (m
 // - 1) floats of T_j(t_k); partial: nitems m^3 floats of scratch, or
 // nullptr when every run has at most one item (w zeroed by the caller).
-template <class Runs>
-int p2m_runs(const float* qx, const float* qy, const float* qz,
-             const float* gm, Runs runs, const float* box, int m, int nrun,
+// TB: float, or __nv_bfloat16 for K1's bf16 instance.
+template <class Runs, class TB = float>
+int p2m_runs(const TB* qx, const TB* qy, const TB* qz,
+             const TB* gm, Runs runs, const float* box, int m, int nrun,
              const long long* bounds, const long long* prefix,
              int nitems, int chunk, const float* node_table, float* partial,
              float* w, cudaStream_t stream) {
@@ -918,7 +931,7 @@ int p2m_runs(const float* qx, const float* qy, const float* qz,
 #define MURB_P2M_RUNS(MW)                                                  \
   {                                                                        \
     using G = P2MGeom<MW>;                                                 \
-    p2m_runs_kernel<MW, Runs>                                              \
+    p2m_runs_kernel<MW, Runs, TB>                                          \
         <<<(nitems + G::kGroups - 1) / G::kGroups, G::kThreads, 0,         \
            stream>>>(qx, qy, qz, gm, runs, box, m, bounds, prefix, nrun,   \
                      nitems, chunk, node_table, partial, w);               \
@@ -938,9 +951,10 @@ int p2m_runs(const float* qx, const float* qy, const float* qz,
 
 // L2P of 1 to kRunFields fields (each (nrun, m^3), their device pointers in
 // the host array `fields`) into out (k, n), in nitems work items of
-// L2PGeom<MW>::kItem bodies.
-template <class Runs>
-int l2p_runs(const float* qx, const float* qy, const float* qz, Runs runs,
+// L2PGeom<MW>::kItem bodies.  Q: float, or __nv_bfloat16 for K9's bf16
+// instance.
+template <class Runs, class Q = float>
+int l2p_runs(const Q* qx, const Q* qy, const Q* qz, Runs runs,
              int n, const float* box, int m, int nrun,
              const long long* bounds, const long long* prefix, int nitems,
              const float* node_table, const float* const* fields, int k,
@@ -955,14 +969,14 @@ int l2p_runs(const float* qx, const float* qy, const float* qz, Runs runs,
   {                                                                        \
     using G = L2PGeom<MW>;                                                 \
     if constexpr (G::kWarp) {                                              \
-      l2p_runs_kernel<MW, Runs>                                            \
+      l2p_runs_kernel<MW, Runs, Q>                                         \
           <<<(nitems + kRunWarpItems - 1) / kRunWarpItems, G::kThreads, 0, \
              stream>>>(qx, qy, qz, runs, box, m, bounds, prefix, nrun,     \
                        nitems, node_table, f, k, n, out);                  \
     } else {                                                               \
-      const cudaError_t e = l2p_allow_smem<MW, Runs>();                    \
+      const cudaError_t e = l2p_allow_smem<MW, Runs, Q>();                 \
       if (e != cudaSuccess) return static_cast<int>(e);                    \
-      l2p_runs_kernel<MW, Runs><<<nitems, G::kThreads, G::kDynBytes,       \
+      l2p_runs_kernel<MW, Runs, Q><<<nitems, G::kThreads, G::kDynBytes,    \
                                   stream>>>(qx, qy, qz, runs, box, m,      \
                                             bounds, prefix, nrun, nitems,  \
                                             node_table, f, k, n, out);     \

@@ -25,7 +25,10 @@
 // K8, P2M: W[c, (u, v, w)] = sum_{j in c} gm_j Sx_j[u] Sy_j[v] Sz_j[w],
 // and K9, L2P: a_f[i] = sum_{uvw} Sx_i[u] Sy_i[v] Sz_i[w] F_f[c_i, (u, v, w)]
 // for k <= 4 fields a launch (murb_l2p_grid runs groups of 4, 3 + G <= 11
-// fields).  Both are the run kernels of cell_runs.cuh over the cells of the
+// fields).  murb_p2m_grid_bf16 and murb_l2p_grid_bf16 are their bf16
+// instances: they read a bf16 state's arrays and convert each value to
+// fp32 as it is loaded, then compute as the float instances do (the same
+// bits on the arrays upcast).  Both are the run kernels of cell_runs.cuh over the cells of the
 // grid (CellRuns: bodies through the permutation, the run's cell for every
 // body).  The TPU kernel factored the one-hot cell into an extended basis
 // of width C m and did (C m)^3 MXU work per body; here a work item is a run
@@ -626,9 +629,52 @@ extern "C" int murb_p2m_grid(const float* qx, const float* qy,
                         partial, w, stream);
 }
 
+// K8's bf16 instance: murb_p2m_grid's arguments with the four body arrays
+// bf16.
+extern "C" int murb_p2m_grid_bf16(const __nv_bfloat16* qx,
+                                  const __nv_bfloat16* qy,
+                                  const __nv_bfloat16* qz,
+                                  const __nv_bfloat16* gm,
+                                  const long long* perm, const float* box,
+                                  int m, int C, const long long* bounds,
+                                  const long long* prefix, int nitems,
+                                  int chunk, const float* table,
+                                  float* partial, float* w,
+                                  cudaStream_t stream) {
+  if (!murb::grid_ok(m, C)) return static_cast<int>(cudaErrorInvalidValue);
+  return murb::p2m_runs(qx, qy, qz, gm, murb::CellRuns{perm, C}, box, m,
+                        C * C * C, bounds, prefix, nitems, chunk, table,
+                        partial, w, stream);
+}
+
 // K9.  fields: k device pointers (a host array) to (C^3, m^3) fields; out:
 // (k, n) in the bodies' own order; prefix: work items of L2PGeom<MW>::kItem
 // bodies.  One launch per group of at most kRunFields fields.
+namespace murb {
+
+// K9 on Q bodies (float, or __nv_bfloat16 for its bf16 instance).
+template <class Q>
+int l2p_grid(const Q* qx, const Q* qy, const Q* qz, const long long* perm,
+             int n, const float* box, int m, int C, const long long* bounds,
+             const long long* prefix, int nitems, const float* table,
+             const float* const* fields, int k, float* out,
+             cudaStream_t stream) {
+  if (!grid_ok(m, C) || k < 1 || k > kGridMaxTotalFields)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int ncell = C * C * C;
+  for (int f0 = 0; f0 < k; f0 += kRunFields) {
+    const int kg = k - f0 < kRunFields ? k - f0 : kRunFields;
+    const int err = l2p_runs(
+        qx, qy, qz, CellRuns{perm, C}, n, box, m, ncell, bounds, prefix,
+        nitems, table, fields + f0, kg, out + static_cast<long long>(f0) * n,
+        stream);
+    if (err != 0) return err;
+  }
+  return 0;
+}
+
+}  // namespace murb
+
 extern "C" int murb_l2p_grid(const float* qx, const float* qy,
                              const float* qz, const long long* perm, int n,
                              const float* box, int m, int C,
@@ -636,18 +682,24 @@ extern "C" int murb_l2p_grid(const float* qx, const float* qy,
                              int nitems, const float* table,
                              const float* const* fields, int k, float* out,
                              cudaStream_t stream) {
-  if (!murb::grid_ok(m, C) || k < 1 || k > murb::kGridMaxTotalFields)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int ncell = C * C * C;
-  for (int f0 = 0; f0 < k; f0 += murb::kRunFields) {
-    const int kg = k - f0 < murb::kRunFields ? k - f0 : murb::kRunFields;
-    const int err = murb::l2p_runs(
-        qx, qy, qz, murb::CellRuns{perm, C}, n, box, m, ncell, bounds,
-        prefix, nitems, table, fields + f0, kg,
-        out + static_cast<long long>(f0) * n, stream);
-    if (err != 0) return err;
-  }
-  return 0;
+  return murb::l2p_grid(qx, qy, qz, perm, n, box, m, C, bounds, prefix,
+                        nitems, table, fields, k, out, stream);
+}
+
+// K9's bf16 instance: murb_l2p_grid's arguments with the three coordinate
+// arrays bf16 (the fields and outputs float).
+extern "C" int murb_l2p_grid_bf16(const __nv_bfloat16* qx,
+                                  const __nv_bfloat16* qy,
+                                  const __nv_bfloat16* qz,
+                                  const long long* perm, int n,
+                                  const float* box, int m, int C,
+                                  const long long* bounds,
+                                  const long long* prefix, int nitems,
+                                  const float* table,
+                                  const float* const* fields, int k,
+                                  float* out, cudaStream_t stream) {
+  return murb::l2p_grid(qx, qy, qz, perm, n, box, m, C, bounds, prefix,
+                        nitems, table, fields, k, out, stream);
 }
 
 // K7.  w: (C^3, m^3) level expansions; hl: the level's cell half-widths (3,)

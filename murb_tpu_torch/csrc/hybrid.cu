@@ -29,6 +29,11 @@
 // The first design (one target a thread, synchronous staging, no j split,
 // every pair term converted to fp64 and added with three DFMAs: 4 F2F a
 // pair) ran 128 four-warp blocks at 16384^2 and sat on the F2F pipe.
+//
+// bf16 state: murb_hybrid_rect_bf16 runs every tier's bf16 instance (K3's
+// for passes 1/2, the kExt sweep's for passes 3; tile.cuh's TB), which
+// stages bf16 tiles by cp.async and converts them to fp32 in shared
+// memory: the fp32 instance's bits on the arrays upcast.
 #include "tile.cuh"
 
 extern "C" int murb_tile_rect(const float* qxi, const float* qyi,
@@ -38,6 +43,13 @@ extern "C" int murb_tile_rect(const float* qxi, const float* qyi,
                               int block_i, int block_j, int slices,
                               int tiles_per_slice, float* scratch, float* ax,
                               float* ay, float* az, cudaStream_t stream);
+extern "C" int murb_tile_rect_bf16(
+    const __nv_bfloat16* qxi, const __nv_bfloat16* qyi,
+    const __nv_bfloat16* qzi, int ni, const __nv_bfloat16* qxj,
+    const __nv_bfloat16* qyj, const __nv_bfloat16* qzj,
+    const __nv_bfloat16* gmj, int nj, float soft2, int block_i, int block_j,
+    int slices, int tiles_per_slice, float* scratch, float* ax, float* ay,
+    float* az, cudaStream_t stream);
 
 namespace murb {
 
@@ -82,6 +94,39 @@ extern "C" int murb_hybrid_rect(const float* qxi, const float* qyi,
 // card's slots with it (ops/hybrid.ext_split_args).
 extern "C" int murb_hybrid_resident(int block_i, int block_j, int* blocks) {
   return murb::sweep_resident<0, true, true>(
+      block_i ? block_i : murb::kExtTargets,
+      block_j ? block_j : murb::kExtSources, blocks);
+}
+
+// The bf16 instances (a bf16 state's arrays, each value converted to fp32
+// as it is loaded, tile.cuh): murb_hybrid_rect's arguments with the seven
+// body arrays bf16; passes 1 and 2 run K3's bf16 instance, passes 3 the
+// kExt sweep's.
+extern "C" int murb_hybrid_rect_bf16(
+    const __nv_bfloat16* qxi, const __nv_bfloat16* qyi,
+    const __nv_bfloat16* qzi, int ni, const __nv_bfloat16* qxj,
+    const __nv_bfloat16* qyj, const __nv_bfloat16* qzj,
+    const __nv_bfloat16* gmj, int nj, float soft2, int passes, int block_i,
+    int block_j, int slices, int tiles_per_slice, void* scratch, float* ax,
+    float* ay, float* az, cudaStream_t stream) {
+  if (passes < 1 || passes > 3) return static_cast<int>(cudaErrorInvalidValue);
+  if (passes < 3) {
+    return murb_tile_rect_bf16(qxi, qyi, qzi, ni, qxj, qyj, qzj, gmj, nj,
+                               soft2, block_i, block_j, slices,
+                               tiles_per_slice, static_cast<float*>(scratch),
+                               ax, ay, az, stream);
+  }
+  return murb::sweep_launch<0, true, true, __nv_bfloat16>(
+      qxi, qyi, qzi, ni, qxj, qyj, qzj, gmj, nullptr, nj, soft2,
+      block_i ? block_i : murb::kExtTargets,
+      block_j ? block_j : murb::kExtSources, slices, tiles_per_slice,
+      static_cast<double*>(scratch), 0, ax, ay, az, nullptr, stream);
+}
+
+// Blocks of passes 3's bf16 instance an SM holds at once.
+extern "C" int murb_hybrid_resident_bf16(int block_i, int block_j,
+                                         int* blocks) {
+  return murb::sweep_resident<0, true, true, __nv_bfloat16>(
       block_i ? block_i : murb::kExtTargets,
       block_j ? block_j : murb::kExtSources, blocks);
 }

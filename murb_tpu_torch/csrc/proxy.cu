@@ -16,6 +16,13 @@
 // and N m^3 k (L2P), plus 3 m^2 a body for the bases; no atomics, every sum
 // in a fixed order: the same bits on every run.
 //
+// bf16 state: murb_p2m_bf16 and murb_l2p_bf16 are K1's and K2's bf16
+// instances.  They read the bf16 arrays and convert each value to fp32 as
+// it is loaded (sweep.cuh's stage_body and body_f32: K1's stagers load and
+// store where the float instance's cp.async cannot copy 2 bytes), then run
+// the float instances' arithmetic: the same W and fields bits as the float
+// instances on the arrays upcast.
+//
 // K1 is cell_runs.cuh's P2M over one run of all n bodies in place (OneRun):
 // the wrapper hands it the run's bounds {0, n} and prefix of work items
 // {0, nitems}, built once per (n, m, device) (ops/proxy_kernels.one_run).
@@ -69,10 +76,13 @@ struct OneL2PGeom {
   static_assert(kTab % 4 == 0 && kChunk % 4 == 0, "16-byte aligned parts");
 };
 
-template <int MW, int TB>
+// Q: the body arrays' type, float or __nv_bfloat16 (K2's bf16 instance:
+// each coordinate converted to fp32 as it is loaded, the same bits as the
+// float instance on the arrays upcast).
+template <int MW, int TB, class Q = float>
 __global__ void __launch_bounds__(kOneThreads, OneL2PGeom<MW, TB>::kMinBlocks)
-l2p_one_run_kernel(const float* __restrict__ qx, const float* __restrict__ qy,
-                   const float* __restrict__ qz, int n,
+l2p_one_run_kernel(const Q* __restrict__ qx, const Q* __restrict__ qy,
+                   const Q* __restrict__ qz, int n,
                    const float* __restrict__ box, int m,
                    const float* __restrict__ node_table, RunFields fields,
                    int k, float* __restrict__ out) {
@@ -111,9 +121,9 @@ l2p_one_run_kernel(const float* __restrict__ qx, const float* __restrict__ qy,
   for (int i = 0; i < TB; ++i) {
     const long long j = j0 + i * kOneThreads + tid;
     own[i] = j < n;
-    const float tx = own[i] ? run.coord(qx[j], cx, hx, 0) : 0.f;
-    const float ty = own[i] ? run.coord(qy[j], cy, hy, 0) : 0.f;
-    const float tz = own[i] ? run.coord(qz[j], cz, hz, 0) : 0.f;
+    const float tx = own[i] ? run.coord(body_f32(qx[j]), cx, hx, 0) : 0.f;
+    const float ty = own[i] ? run.coord(body_f32(qy[j]), cy, hy, 0) : 0.f;
+    const float tz = own[i] ? run.coord(body_f32(qz[j]), cz, hz, 0) : 0.f;
     float sx[MW];
     basis_span<MW, MW>(tx, tab, m, 0, 1.f, sx);
 #pragma unroll
@@ -192,14 +202,14 @@ l2p_one_run_kernel(const float* __restrict__ qx, const float* __restrict__ qy,
 // cell_runs.cuh's l2p_allow_smem, with internal linkage for the same
 // reason).
 namespace {
-template <int MW, int TB>
+template <int MW, int TB, class Q = float>
 cudaError_t one_run_allow_smem() {
   constexpr int kDevices = 64;
   static std::atomic<bool> done[kDevices];
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess || (dev < kDevices && done[dev].load())) return e;
-  e = cudaFuncSetAttribute(l2p_one_run_kernel<MW, TB>,
+  e = cudaFuncSetAttribute(l2p_one_run_kernel<MW, TB, Q>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            OneL2PGeom<MW, TB>::kDynBytes);
   if (e == cudaSuccess && dev < kDevices) done[dev].store(true);
@@ -217,20 +227,67 @@ cudaError_t one_run_resident(int* blocks) {
       OneL2PGeom<MW, TB>::kDynBytes);
 }
 
-// K2 at MW with TB bodies a thread on the current device.
-template <int MW, int TB>
-cudaError_t l2p_one_run(const float* qx, const float* qy, const float* qz,
+// K2 at MW with TB bodies a thread on the current device, on Q bodies.
+template <int MW, int TB, class Q>
+cudaError_t l2p_one_run(const Q* qx, const Q* qy, const Q* qz,
                         int n, const float* box, int m, const float* table,
                         const RunFields& fields, int k, float* out,
                         cudaStream_t stream) {
   using G = OneL2PGeom<MW, TB>;
-  const cudaError_t e = one_run_allow_smem<MW, TB>();
+  const cudaError_t e = one_run_allow_smem<MW, TB, Q>();
   if (e != cudaSuccess) return e;
-  l2p_one_run_kernel<MW, TB>
+  l2p_one_run_kernel<MW, TB, Q>
       <<<static_cast<int>((n + G::kItem - 1) / G::kItem), kOneThreads,
          G::kDynBytes, stream>>>(qx, qy, qz, n, box, m, table, fields, k,
                                  out);
   return cudaGetLastError();
+}
+
+}  // namespace murb
+
+namespace murb {
+
+// K1 on Q bodies (float, or __nv_bfloat16 for its bf16 instance).
+template <class Q>
+int p2m_one(const Q* qx, const Q* qy, const Q* qz, const Q* gm, int n,
+            const float* box, int m, const long long* bounds,
+            const long long* prefix, int nitems, int chunk,
+            const float* table, float* partial, float* w,
+            cudaStream_t stream) {
+  if (n < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return p2m_runs(qx, qy, qz, gm, OneRun{}, box, m, 1, bounds, prefix,
+                  nitems, chunk, table, partial, w, stream);
+}
+
+// K2 on Q bodies, one launch per group of at most kRunFields fields.
+template <class Q>
+int l2p_one(const Q* qx, const Q* qy, const Q* qz, int n, const float* box,
+            int m, int tb, const float* table, const float* const* fields,
+            int k, float* out, cudaStream_t stream) {
+  if (m < 2 || m > kRunMaxOrder || k < 1 || k > kMaxTotalFields || tb < 1 ||
+      tb > 2 || (tb == 2 && (m + 3) / 4 * 4 > kOneMaxTBMW))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n <= 0) return 0;
+  for (int f0 = 0; f0 < k; f0 += kRunFields) {
+    const int kg = k - f0 < murb::kRunFields ? k - f0 : murb::kRunFields;
+    RunFields f{};
+    for (int i = 0; i < kRunFields; ++i)
+      f.f[i] = fields[f0 + (i < kg ? i : 0)];
+    float* og = out + static_cast<long long>(f0) * n;
+    cudaError_t err = cudaSuccess;
+#define MURB_L2P_ONE(MW)                                                  \
+  {                                                                       \
+    constexpr int kTB2 = MW <= kOneMaxTBMW ? 2 : 1;                       \
+    err = tb == 2 ? l2p_one_run<MW, kTB2>(qx, qy, qz, n, box, m, table, f, \
+                                          kg, og, stream)                 \
+                  : l2p_one_run<MW, 1>(qx, qy, qz, n, box, m, table, f,   \
+                                       kg, og, stream);                   \
+  }
+    MURB_DISPATCH_MW(m, MURB_L2P_ONE)
+#undef MURB_L2P_ONE
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
 }
 
 }  // namespace murb
@@ -244,9 +301,22 @@ extern "C" int murb_p2m(const float* qx, const float* qy, const float* qz,
                         const long long* bounds, const long long* prefix,
                         int nitems, int chunk, const float* table,
                         float* partial, float* w, cudaStream_t stream) {
-  if (n < 1) return static_cast<int>(cudaErrorInvalidValue);
-  return murb::p2m_runs(qx, qy, qz, gm, murb::OneRun{}, box, m, 1, bounds,
-                        prefix, nitems, chunk, table, partial, w, stream);
+  return murb::p2m_one(qx, qy, qz, gm, n, box, m, bounds, prefix, nitems,
+                       chunk, table, partial, w, stream);
+}
+
+// K1's bf16 instance: murb_p2m's arguments with the four body arrays bf16.
+extern "C" int murb_p2m_bf16(const __nv_bfloat16* qx,
+                             const __nv_bfloat16* qy,
+                             const __nv_bfloat16* qz,
+                             const __nv_bfloat16* gm, int n,
+                             const float* box, int m,
+                             const long long* bounds,
+                             const long long* prefix, int nitems, int chunk,
+                             const float* table, float* partial, float* w,
+                             cudaStream_t stream) {
+  return murb::p2m_one(qx, qy, qz, gm, n, box, m, bounds, prefix, nitems,
+                       chunk, table, partial, w, stream);
 }
 
 // K2.  box: [c(3), h(3)]; tb: bodies a thread (1, or 2 at m <=
@@ -257,31 +327,20 @@ extern "C" int murb_l2p(const float* qx, const float* qy, const float* qz,
                         int n, const float* box, int m, int tb,
                         const float* table, const float* const* fields,
                         int k, float* out, cudaStream_t stream) {
-  if (m < 2 || m > murb::kRunMaxOrder || k < 1 ||
-      k > murb::kMaxTotalFields || tb < 1 || tb > 2 ||
-      (tb == 2 && (m + 3) / 4 * 4 > murb::kOneMaxTBMW))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (n <= 0) return 0;
-  for (int f0 = 0; f0 < k; f0 += murb::kRunFields) {
-    const int kg = k - f0 < murb::kRunFields ? k - f0 : murb::kRunFields;
-    murb::RunFields f{};
-    for (int i = 0; i < murb::kRunFields; ++i)
-      f.f[i] = fields[f0 + (i < kg ? i : 0)];
-    float* og = out + static_cast<long long>(f0) * n;
-    cudaError_t err = cudaSuccess;
-#define MURB_L2P_ONE(MW)                                                   \
-  {                                                                        \
-    constexpr int kTB2 = MW <= murb::kOneMaxTBMW ? 2 : 1;                  \
-    err = tb == 2 ? murb::l2p_one_run<MW, kTB2>(qx, qy, qz, n, box, m,     \
-                                                table, f, kg, og, stream)  \
-                  : murb::l2p_one_run<MW, 1>(qx, qy, qz, n, box, m, table, \
-                                             f, kg, og, stream);           \
-  }
-    MURB_DISPATCH_MW(m, MURB_L2P_ONE)
-#undef MURB_L2P_ONE
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  return 0;
+  return murb::l2p_one(qx, qy, qz, n, box, m, tb, table, fields, k, out,
+                       stream);
+}
+
+// K2's bf16 instance: murb_l2p's arguments with the three coordinate
+// arrays bf16 (the fields and outputs float).
+extern "C" int murb_l2p_bf16(const __nv_bfloat16* qx,
+                             const __nv_bfloat16* qy,
+                             const __nv_bfloat16* qz, int n,
+                             const float* box, int m, int tb,
+                             const float* table, const float* const* fields,
+                             int k, float* out, cudaStream_t stream) {
+  return murb::l2p_one(qx, qy, qz, n, box, m, tb, table, fields, k, out,
+                       stream);
 }
 
 // The blocks of K1 (l2p 0) or K2 (l2p 1, tb bodies a thread) at order m

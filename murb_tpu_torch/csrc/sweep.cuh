@@ -24,6 +24,7 @@
 // memory traffic is O(ni + nj * ni / BI) floats and never binds.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <type_traits>
@@ -76,6 +77,39 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src,
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
                "l"(src), "r"(valid ? 4 : 0));
+}
+
+// The first `bytes` (0 to 4) of src to dst by one 4-byte cp.async, the
+// rest of the 4 zero-filled (src is not read when bytes is 0): two bf16
+// values a copy, or one where the second lies past the end.
+__device__ __forceinline__ void cp_async4_n(void* dst, const void* src,
+                                            int bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(bytes));
+}
+
+// One body value into shared memory as fp32 (K1's bf16 instance takes the
+// state's bf16 arrays; every other kernel float): a float by a 4-byte
+// cp.async, zero-filled when !valid; a bf16 by a load converted to fp32
+// (exact) and a store, 0 when !valid, since cp.async copies 4, 8 or 16
+// bytes and never one 2-byte element.  Either way the value is the block's
+// after cp_async_wait_all and a barrier, so the double buffers stay.
+__device__ __forceinline__ void stage_body(float* dst, const float* src,
+                                           bool valid) {
+  cp_async4(dst, src, valid);
+}
+
+__device__ __forceinline__ void stage_body(float* dst,
+                                           const __nv_bfloat16* src,
+                                           bool valid) {
+  *dst = valid ? __bfloat162float(*src) : 0.f;
+}
+
+// A body value read into a register as fp32 (exact for bf16).
+__device__ __forceinline__ float body_f32(float v) { return v; }
+__device__ __forceinline__ float body_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {

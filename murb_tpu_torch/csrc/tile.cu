@@ -43,6 +43,16 @@
 // sum of the first design), so unsplit sums at 128 sources a tile equal the
 // first design's bits.
 //
+// bf16 state: the bf16 instance (murb_tile_rect_bf16) stages each tile's
+// bf16 sources raw, two a 4-byte cp.async (cp.async copies 4, 8 or 16
+// bytes, never one 2-byte value), converts the landed tile into the fp32
+// tile buffer, and runs the float instance's sweep on it (tile.cuh): at
+// the same geometry and split its sums are the float instance's bits on
+// the arrays upcast.  Half the bytes in, which the sweep never waited on.
+// The first design loaded and converted each value synchronously
+// (sweep.cuh's stage_body) and ran 6% slower at 16384^2, K4's passes 3
+// 21% (PERF.md).
+//
 // The sweep is tile.cuh's sweep_rows_kernel with no weight rows; K5 and
 // K6 (phi.cu) run the same template with theirs.  K14 (ring.cu) launches
 // it for each ring step through tile_rect_launch (tile.cuh), adding to the
@@ -58,17 +68,28 @@ namespace murb {
 constexpr int kTileTargets = 128;
 constexpr int kTileSources = 512;
 
+template <class TB>
+int tile_rect(const TB* qxi, const TB* qyi, const TB* qzi, int ni,
+              const TB* qxj, const TB* qyj, const TB* qzj, const TB* gmj,
+              int nj, float soft2, int block_i, int block_j, int slices,
+              int tiles_per_slice, float* scratch, int accumulate, float* ax,
+              float* ay, float* az, cudaStream_t stream) {
+  return sweep_launch<0, true, false, TB>(
+      qxi, qyi, qzi, ni, qxj, qyj, qzj, gmj, nullptr, nj, soft2,
+      block_i ? block_i : kTileTargets, block_j ? block_j : kTileSources,
+      slices, tiles_per_slice, scratch, accumulate, ax, ay, az, nullptr,
+      stream);
+}
+
 int tile_rect_launch(const float* qxi, const float* qyi, const float* qzi,
                      int ni, const float* qxj, const float* qyj,
                      const float* qzj, const float* gmj, int nj, float soft2,
                      int block_i, int block_j, int slices,
                      int tiles_per_slice, float* scratch, int accumulate,
                      float* ax, float* ay, float* az, cudaStream_t stream) {
-  return sweep_launch<0, true>(
-      qxi, qyi, qzi, ni, qxj, qyj, qzj, gmj, nullptr, nj, soft2,
-      block_i ? block_i : kTileTargets, block_j ? block_j : kTileSources,
-      slices, tiles_per_slice, scratch, accumulate, ax, ay, az, nullptr,
-      stream);
+  return tile_rect<float>(qxi, qyi, qzi, ni, qxj, qyj, qzj, gmj, nj, soft2,
+                          block_i, block_j, slices, tiles_per_slice, scratch,
+                          accumulate, ax, ay, az, stream);
 }
 
 }  // namespace murb
@@ -96,6 +117,30 @@ extern "C" int murb_tile_rect(const float* qxi, const float* qyi,
 // *blocks: ops/cuda.tile_split counts the card's slots with it.
 extern "C" int murb_tile_resident(int block_i, int block_j, int* blocks) {
   return murb::sweep_resident<0, true>(
+      block_i ? block_i : murb::kTileTargets,
+      block_j ? block_j : murb::kTileSources, blocks);
+}
+
+// The bf16 instance: murb_tile_rect's arguments with the seven body arrays
+// bf16 (the outputs and scratch float).
+extern "C" int murb_tile_rect_bf16(
+    const __nv_bfloat16* qxi, const __nv_bfloat16* qyi,
+    const __nv_bfloat16* qzi, int ni, const __nv_bfloat16* qxj,
+    const __nv_bfloat16* qyj, const __nv_bfloat16* qzj,
+    const __nv_bfloat16* gmj, int nj, float soft2, int block_i, int block_j,
+    int slices, int tiles_per_slice, float* scratch, float* ax, float* ay,
+    float* az, cudaStream_t stream) {
+  return murb::tile_rect<__nv_bfloat16>(qxi, qyi, qzi, ni, qxj, qyj, qzj,
+                                        gmj, nj, soft2, block_i, block_j,
+                                        slices, tiles_per_slice, scratch, 0,
+                                        ax, ay, az, stream);
+}
+
+// Blocks of the bf16 instance at (block_i, block_j) an SM holds at once:
+// its j split counts the card's slots with it.
+extern "C" int murb_tile_resident_bf16(int block_i, int block_j,
+                                       int* blocks) {
+  return murb::sweep_resident<0, true, false, __nv_bfloat16>(
       block_i ? block_i : murb::kTileTargets,
       block_j ? block_j : murb::kTileSources, blocks);
 }

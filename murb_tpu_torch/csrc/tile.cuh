@@ -192,6 +192,17 @@ __device__ __forceinline__ void tile_sum_ext(const float4* tile,
   }
 }
 
+// TB: the body arrays' type, float or __nv_bfloat16 (the bf16 instances
+// of K3 and K4, the force only).  A bf16 tile is staged raw, two sources
+// a 4-byte cp.async, into the second half of `pos` (two buffers of x, y,
+// z, G*m rows of BJ bf16 each: the fp32 instance's second tile buffer, so
+// the same shared memory), and once it has landed the block converts it
+// into pos[0, BJ), the one fp32 tile the sweep reads (a barrier more a
+// tile; one-warp blocks at BI / R = 32 threads).  The next tile's copies
+// stay in flight while this one is swept, as in the fp32 instance, and
+// the sweep reads the same float4 tile: the same sums, bit for bit, as the
+// fp32 instance on the arrays upcast.  The sources must start 4-byte
+// aligned (the wrappers copy a view that does not).
 // grid (ceil(ni / BI), S), BI / R threads, 2 * BJ * staged_bytes(NR)
 // bytes of static shared memory.  Slice blockIdx.y sweeps tiles
 // [y * tiles_per_slice, min((y + 1) * tiles_per_slice, ceil(nj / BJ))).
@@ -201,18 +212,21 @@ __device__ __forceinline__ void tile_sum_ext(const float4* tile,
 // to ax, ay, az when accumulate != 0), else to scratch[(y * C + c) * ni +
 // i], C channels (fp64 sums and scratch for kExt).  Tile k + 1 lands
 // (cp.async) while tile k is swept, one barrier a tile.
-template <int BI, int BJ, int NR, bool kForce, bool kExt = false>
+template <int BI, int BJ, int NR, bool kForce, bool kExt = false,
+          class TB = float>
 __global__ void __launch_bounds__(BI / sweep_rows(BI, NR))
-sweep_rows_kernel(const float* __restrict__ qxi, const float* __restrict__ qyi,
-                  const float* __restrict__ qzi, int ni,
-                  const float* __restrict__ qxj, const float* __restrict__ qyj,
-                  const float* __restrict__ qzj, const float* __restrict__ gmj,
+sweep_rows_kernel(const TB* __restrict__ qxi, const TB* __restrict__ qyi,
+                  const TB* __restrict__ qzi, int ni,
+                  const TB* __restrict__ qxj, const TB* __restrict__ qyj,
+                  const TB* __restrict__ qzj, const TB* __restrict__ gmj,
                   const float* __restrict__ rows, int nj,
                   int tiles_per_slice, float soft2, int accumulate,
                   float* __restrict__ ax, float* __restrict__ ay,
                   float* __restrict__ az, float* __restrict__ phi,
                   sweep_acc_t<kExt>* __restrict__ scratch) {
   static_assert(!kExt || (NR == 0 && kForce), "the extended tier: force");
+  constexpr bool kB16 = std::is_same_v<TB, __nv_bfloat16>;
+  static_assert(!kB16 || (NR == 0 && kForce), "bf16: the force sweep only");
   constexpr int R = sweep_rows(BI, NR);
   constexpr int T = BI / R;
   constexpr int NRa = NR > 0 ? NR : 1;
@@ -228,9 +242,9 @@ sweep_rows_kernel(const float* __restrict__ qxi, const float* __restrict__ qyi,
   for (int r = 0; r < R; ++r) {
     const int i = i0 + r * T;
     const bool own = i < ni;
-    xi[r] = own ? qxi[i] : 0.f;
-    yi[r] = own ? qyi[i] : 0.f;
-    zi[r] = own ? qzi[i] : 0.f;
+    xi[r] = own ? body_f32(qxi[i]) : 0.f;
+    yi[r] = own ? body_f32(qyi[i]) : 0.f;
+    zi[r] = own ? body_f32(qzi[i]) : 0.f;
     sx[r] = sy[r] = sz[r] = 0.f;
 #pragma unroll
     for (int k = 0; k < NR; ++k) sp[r][k] = 0.f;
@@ -238,10 +252,26 @@ sweep_rows_kernel(const float* __restrict__ qxi, const float* __restrict__ qyi,
   const int tiles = (nj + BJ - 1) / BJ;
   const int t0 = blockIdx.y * tiles_per_slice;
   const int t1 = min(t0 + tiles_per_slice, tiles);
+  // bf16: row c (x, y, z, G*m) of raw buffer b, BJ values
+  auto raw = [&](int b, int c) {
+    return reinterpret_cast<__nv_bfloat16*>(pos + BJ) + (b * 4 + c) * BJ;
+  };
   auto stage = [&](int t, int b) {
-    float4* p = pos + b * BJ;
-    for (int k = tid; k < BJ; k += T)
-      stage_source_async<kForce>(p + k, qxj, qyj, qzj, gmj, t * BJ + k, nj);
+    if constexpr (kB16) {
+      const TB* rows4[4] = {qxj, qyj, qzj, gmj};
+      for (int k = 2 * tid; k < BJ; k += 2 * T) {
+        const int j = t * BJ + k;
+        const int bytes = j >= nj ? 0 : (nj - j >= 2 ? 4 : 2);
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          cp_async4_n(raw(b, c) + k, rows4[c] + (bytes ? j : 0), bytes);
+      }
+    } else {
+      float4* p = pos + b * BJ;
+      for (int k = tid; k < BJ; k += T)
+        stage_source_async<kForce>(p + k, qxj, qyj, qzj, gmj, t * BJ + k,
+                                   nj);
+    }
     if constexpr (NR > 0) {
       float* w = wts + b * BJ * W;
       for (int k = tid; k < BJ; k += T) {
@@ -262,12 +292,24 @@ sweep_rows_kernel(const float* __restrict__ qxi, const float* __restrict__ qyi,
     __syncthreads();      // everyone's did; the other buffer is free
     if (t + 1 < t1) stage(t + 1, (t + 1 - t0) & 1);
     const int b = (t - t0) & 1;
+    const float4* tile = pos + b * BJ;
+    if constexpr (kB16) {
+      // tile t's raw rows landed; the barrier above also ended every read
+      // of the fp32 tile, which now takes them
+      for (int k = tid; k < BJ; k += T)
+        pos[k] = make_float4(__bfloat162float(raw(b, 0)[k]),
+                             __bfloat162float(raw(b, 1)[k]),
+                             __bfloat162float(raw(b, 2)[k]),
+                             __bfloat162float(raw(b, 3)[k]));
+      __syncthreads();
+      tile = pos;
+    }
     if constexpr (kExt) {
-      tile_sum_ext<BJ, R>(pos + b * BJ, xi, yi, zi, soft2, sx, sy, sz);
+      tile_sum_ext<BJ, R>(tile, xi, yi, zi, soft2, sx, sy, sz);
     } else {
       float tx[R], ty[R], tz[R], tp[R][NRa];
-      tile_sum_rows<BJ, R, NR, kForce>(pos + b * BJ, wts + b * BJ * W, xi,
-                                       yi, zi, soft2, tx, ty, tz, tp);
+      tile_sum_rows<BJ, R, NR, kForce>(tile, wts + b * BJ * W, xi, yi, zi,
+                                       soft2, tx, ty, tz, tp);
 #pragma unroll
       for (int r = 0; r < R; ++r) {
         if constexpr (kForce) {
@@ -351,10 +393,10 @@ inline bool sweep_block(int b) {
 // fold when slices > 1 (scratch: (slices, C, ni), doubles for kExt).
 // rows: (NR, nj) weights; phi: (NR, ni).  Returns the cudaError_t of the
 // launches.
-template <int NR, bool kForce, bool kExt = false>
-int sweep_launch(const float* qxi, const float* qyi, const float* qzi,
-                 int ni, const float* qxj, const float* qyj, const float* qzj,
-                 const float* gmj, const float* rows, int nj, float soft2,
+template <int NR, bool kForce, bool kExt = false, class TB = float>
+int sweep_launch(const TB* qxi, const TB* qyi, const TB* qzi,
+                 int ni, const TB* qxj, const TB* qyj, const TB* qzj,
+                 const TB* gmj, const float* rows, int nj, float soft2,
                  int bi, int bj, int slices, int tiles_per_slice,
                  sweep_acc_t<kExt>* scratch, int accumulate, float* ax,
                  float* ay, float* az, float* phi, cudaStream_t stream) {
@@ -371,7 +413,7 @@ int sweep_launch(const float* qxi, const float* qyi, const float* qzi,
   const dim3 grid((ni + bi - 1) / bi, slices);
   const int err = with_blocks(bi, bj, bi, bj, [&](auto bic, auto bjc) {
     constexpr int BI = decltype(bic)::value, BJ = decltype(bjc)::value;
-    sweep_rows_kernel<BI, BJ, NR, kForce, kExt>
+    sweep_rows_kernel<BI, BJ, NR, kForce, kExt, TB>
         <<<grid, BI / sweep_rows(BI, NR), 0, stream>>>(
             qxi, qyi, qzi, ni, qxj, qyj, qzj, gmj, rows, nj, tiles_per_slice,
             soft2, accumulate, ax, ay, az, phi, scratch);
@@ -385,12 +427,12 @@ int sweep_launch(const float* qxi, const float* qyi, const float* qzi,
 
 // Blocks of the sweep at (bi, bj) that one SM of the current device holds
 // at once (registers, shared memory, threads), into *blocks.
-template <int NR, bool kForce, bool kExt = false>
+template <int NR, bool kForce, bool kExt = false, class TB = float>
 int sweep_resident(int bi, int bj, int* blocks) {
   return with_blocks(bi, bj, bi, bj, [&](auto bic, auto bjc) {
     constexpr int BI = decltype(bic)::value, BJ = decltype(bjc)::value;
     return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        blocks, sweep_rows_kernel<BI, BJ, NR, kForce, kExt>,
+        blocks, sweep_rows_kernel<BI, BJ, NR, kForce, kExt, TB>,
         BI / sweep_rows(BI, NR), 0));
   });
 }
@@ -400,7 +442,8 @@ int sweep_resident(int bi, int bj, int* blocks) {
 // 256, 512}; slices, tiles_per_slice the j split (ops/cuda.tile_split),
 // scratch (slices, 3, ni) floats when slices > 1.  accumulate != 0 adds
 // the sums to ax, ay, az instead of writing them.  Returns the
-// cudaError_t of the launches.
+// cudaError_t of the launches.  The bf16 instance (murb_tile_rect_bf16)
+// has its own entry in tile.cu.
 int tile_rect_launch(const float* qxi, const float* qyi, const float* qzi,
                      int ni, const float* qxj, const float* qyj,
                      const float* qzj, const float* gmj, int nj, float soft2,

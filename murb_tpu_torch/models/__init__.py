@@ -89,8 +89,9 @@ def _build_registry():
                       "tpu+tile+full", "tpu+tile+full200k"))
     register("tpu+proxy",
              lambda b, **kw: E.ProxyEngine(
-                 b, **_filter(kw, "m", "cells", "levels", "tol",
-                              "adapt_every", "m2l_dots", "validate",
+                 b, **_filter(kw, "m", "cells", "levels", "tol", "max_m",
+                              "heavy_k", "box_margin", "adapt_every",
+                              "cost_slack", "m2l_dots", "validate",
                               "near")),
              aliases=("fmm", "barnes-hut"))
     register("tpu+hybrid+fast",

@@ -41,10 +41,6 @@ from murb_tpu_torch.ops.common import Accel
 from murb_tpu_torch.ops.naive import acc_chunked, acc_naive
 from murb_tpu_torch.ops.proxy_kernels import MAX_ORDER
 
-# murb_tpu's engine defaults (murb_tpu/models/engines.py:357-363), fixed
-# here until a caller needs another value.
-BOX_MARGIN = 1.5    # box growth the static order pick pads for
-COST_SLACK = 30.0   # how much costlier than the exact sweep the proxy may be
 #: the validation ladders' step of a lossy M2L tier that misses tol
 _STRONGER = {"bf16x3": "mixed", "mixed": "fp32"}
 
@@ -249,12 +245,22 @@ class ProxyEngine(EulerAccelEngine):
 
     def __init__(self, bodies, soft=None, dt=None, *, m: int = 0,
                  cells: int = 0, levels: int = 0, tol: float = 1e-4,
+                 max_m: int = MAX_ORDER, heavy_k: int = 1,
+                 box_margin: float = 1.5, cost_slack: float = 30.0,
                  adapt_every: int = 0, validate: bool = True,
                  near: str = "auto", m2l_dots: str = "fp32", **kw):
         from murb_tpu_torch.ops.fmm import check_m2l_dots
 
         super().__init__(bodies, soft, dt, **kw)
         self.tol = tol
+        # murb_tpu's options (murb_tpu/models/engines.py:357-376): the
+        # highest single-cell order, the heavy bodies summed exactly, the
+        # box growth the static order pick pads for, and how much costlier
+        # than the exact sweep the fast solver may be
+        self.max_m = int(max_m)
+        self.heavy_k = int(heavy_k)
+        self.box_margin = float(box_margin)
+        self.cost_slack = float(cost_slack)
         self.adapt_every = int(adapt_every)
         self.validate = bool(validate)
         self.validated_err: float | None = None
@@ -274,7 +280,7 @@ class ProxyEngine(EulerAccelEngine):
                 cells = 1
             self.m, self.levels, self.cells = int(m), int(levels), \
                 int(cells or 1)
-            self.using_proxy = self.m <= MAX_ORDER
+            self.using_proxy = self.m <= self.max_m
             if near == "adaptive":
                 self._configure_adaptive(force=True)
 
@@ -286,9 +292,9 @@ class ProxyEngine(EulerAccelEngine):
 
         round4 = lambda x: (x + 3) // 4 * 4
         half = half_extent(self._state.unpadded())
-        # margin=0: the BOX_MARGIN factor already pads for growth
+        # margin=0: the box_margin factor already pads for growth
         # (rationale in murb_tpu/models/engines.py:_configure)
-        m1 = round4(required_order(half * BOX_MARGIN, self.soft,
+        m1 = round4(required_order(half * self.box_margin, self.soft,
                                    self.tol, margin=0))
         self.near_mode, self._plan = "interp", None
         # wider boxes go to the hierarchy, whose finest cells restore
@@ -336,7 +342,7 @@ class ProxyEngine(EulerAccelEngine):
             est_ms = 0.0
         else:
             plan, est_ms = best_adaptive_plan(q, npad, m0, device=dev)
-        if not force and est_ms >= min(1.0, COST_SLACK / 30.0) \
+        if not force and est_ms >= min(1.0, self.cost_slack / 30.0) \
                 * exact_cost_ms(npad):
             return  # the exact fallback stays the honest pick
         self._plan = plan
@@ -372,7 +378,8 @@ class ProxyEngine(EulerAccelEngine):
             return measured_force_error(
                 st.qx, st.qy, st.qz, gm, self.soft,
                 lambda qx, qy, qz, g: acc_adaptive(qx, qy, qz, g, self.soft,
-                                                   plan, m2l_dots=tier))
+                                                   plan, heavy_k=self.heavy_k,
+                                                   m2l_dots=tier))
 
         m = self.m
         err = err_at(m)
@@ -422,7 +429,7 @@ class ProxyEngine(EulerAccelEngine):
         # The fast solver must not be drastically costlier than the exact
         # sweep (at small N the node work dominates); rough op counts with
         # a generous slack (murb_tpu/models/engines.py:575-592).
-        self.using_proxy = self.m <= MAX_ORDER
+        self.using_proxy = self.m <= self.max_m
         if self.using_proxy:
             n = self._state.npad
             if self.levels:
@@ -431,7 +438,7 @@ class ProxyEngine(EulerAccelEngine):
             else:
                 p_tot = self.cells ** 3 * self.m ** 3
                 est = self.cells ** 3 * 8 * n * self.m ** 3 + 14 * p_tot ** 2
-            if est > COST_SLACK * 14 * n * n:
+            if est > self.cost_slack * 14 * n * n:
                 self.using_proxy = False
 
     def _validate_order(self, half: float) -> None:
@@ -452,7 +459,8 @@ class ProxyEngine(EulerAccelEngine):
         rungs = set()        # the levels of the rungs the ladders measured
 
         def ladder(tier):
-            make = validation_ladder(self.soft, m2l_dots=tier)
+            make = validation_ladder(self.soft, m2l_dots=tier,
+                                     heavy_k=self.heavy_k)
 
             def make_acc(m, levels, cells):
                 rungs.add(levels)
@@ -509,16 +517,18 @@ class ProxyEngine(EulerAccelEngine):
             from murb_tpu_torch.ops.sparse_fmm import acc_adaptive
 
             return acc_adaptive(qx, qy, qz, gm, self.soft, self._plan,
+                                heavy_k=self.heavy_k,
                                 m2l_dots=self.m2l_dots)
         if self.levels:
             from murb_tpu_torch.ops.fmm import acc_fmm
 
             return acc_fmm(qx, qy, qz, gm, self.soft, m=self.m,
-                           levels=self.levels, m2l_dots=self.m2l_dots)
+                           levels=self.levels, heavy_k=self.heavy_k,
+                           m2l_dots=self.m2l_dots)
         from murb_tpu_torch.ops.proxy import acc_proxy
 
         return acc_proxy(qx, qy, qz, gm, self.soft, m=self.m,
-                         cells=self.cells)
+                         cells=self.cells, heavy_k=self.heavy_k)
 
     def proxy_health(self) -> dict:
         """Is the configuration still adequate for the CURRENT state?  The

@@ -32,7 +32,8 @@ import torch
 import torch.nn.functional as F
 
 from murb_tpu_torch.ops import cuda
-from murb_tpu_torch.ops.common import notify_fp32_compute
+from murb_tpu_torch.ops.common import (bf16_plain, notify_fp32_compute,
+                                       weights_dtype)
 from murb_tpu_torch.ops.fmm_kernels import (RunItems, l2p_item,
                                             node_table, p2m_chunk,
                                             p2m_outputs)
@@ -62,6 +63,7 @@ def _bases(xs, ys, zs, ci, c, h, m: int, C: int):
 
 
 # ---------------------------------------------------------- plain versions
+@bf16_plain(round_outputs=False)
 def p2m_window_plain(xs, ys, zs, gs, c, h, slots, cap: int, *, m: int,
                      C: int, ci) -> torch.Tensor:
     """K11's plain version: (cap + 1, m^3) slot expansions as a segment sum
@@ -79,6 +81,7 @@ def p2m_window_plain(xs, ys, zs, gs, c, h, slots, cap: int, *, m: int,
     return w
 
 
+@bf16_plain
 def l2p_window_plain(xs, ys, zs, c, h, slots, fields, *, m: int, C: int,
                      ci) -> tuple:
     """K12's plain version: per-body values of the (cap + 1, m^3) slot
@@ -168,7 +171,7 @@ def p2m_window(xs, ys, zs, gs, c, h, slots, cap: int, *, m: int, C: int,
     items = window_items(sl, cap, p2m_chunk(n, m, cuda.sm_count(dev)))
     w = p2m_window_launch(x, y, z, g, cells, box, items, m)
     p2m_window.launches += 1
-    return w.to(dtype)
+    return w.to(weights_dtype(dtype))
 
 
 p2m_window.launches = 0

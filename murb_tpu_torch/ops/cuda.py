@@ -8,11 +8,13 @@ root, keyed by a hash of the sources and the flags, and loads it with
 ``ctypes``.  The library is built into a temporary name and renamed into
 place, so concurrent processes never load a half-written file.
 
-There is no fallback: a missing ``nvcc``, a failed build or a refused
-launch raises.  The kernel wrappers (ops/tile.py, ops/hybrid.py,
-ops/mxu.py, ops/proxy_kernels.py, ops/fmm_kernels.py, ops/p2p_kernels.py,
-ops/anterp_kernels.py, ops/ring.py) call ``library()`` only for CUDA
-tensors.
+K1-K4, K8 and K9 also have bf16 instances (the ``*_bf16`` entries),
+which read a bf16 state's arrays as they are; ``kernel_inputs`` upcasts
+bf16 exactly for every other kernel.  There is no fallback: a missing
+``nvcc``, a failed build or a refused launch raises.  The kernel wrappers
+(ops/tile.py, ops/hybrid.py, ops/mxu.py, ops/proxy_kernels.py,
+ops/fmm_kernels.py, ops/p2p_kernels.py, ops/anterp_kernels.py,
+ops/ring.py) call ``library()`` only for CUDA tensors.
 """
 from __future__ import annotations
 
@@ -41,6 +43,21 @@ _SIGNATURES = {
     "murb_tile_rect": [_P, _P, _P, _I, _P, _P, _P, _P, _I, _F, _I, _I,
                        _I, _I, _P, _P, _P, _P, _P],
     "murb_tile_resident": [_I, _I, _P],
+    # the bf16 instances of K3, K4, K1, K2, K8 and K9: the same arguments,
+    # the body arrays bf16
+    "murb_tile_rect_bf16": [_P, _P, _P, _I, _P, _P, _P, _P, _I, _F, _I, _I,
+                            _I, _I, _P, _P, _P, _P, _P],
+    "murb_tile_resident_bf16": [_I, _I, _P],
+    "murb_hybrid_rect_bf16": [_P, _P, _P, _I, _P, _P, _P, _P, _I, _F, _I, _I,
+                              _I, _I, _I, _P, _P, _P, _P, _P],
+    "murb_hybrid_resident_bf16": [_I, _I, _P],
+    "murb_p2m_bf16": [_P, _P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _P, _P,
+                      _P, _P],
+    "murb_l2p_bf16": [_P, _P, _P, _I, _P, _I, _I, _P, _P, _I, _P, _P],
+    "murb_p2m_grid_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _I, _I,
+                           _P, _P, _P, _P],
+    "murb_l2p_grid_bf16": [_P, _P, _P, _P, _I, _P, _I, _I, _P, _P, _I, _P,
+                           _P, _I, _P, _P],
     "murb_hybrid_rect": [_P, _P, _P, _I, _P, _P, _P, _P, _I, _F, _I, _I, _I,
                          _I, _I, _P, _P, _P, _P, _P],
     "murb_hybrid_resident": [_I, _I, _P],
@@ -195,14 +212,17 @@ def refuse_grad(tag: str, *values) -> None:
 
 
 def kernel_inputs(tag: str, device: torch.device, n: int, *tensors,
-                  notify) -> list[torch.Tensor]:
-    """Checked float32 contiguous copies (or views) of 1-D kernel inputs.
+                  notify, bf16: bool = False) -> list[torch.Tensor]:
+    """Checked contiguous copies (or views) of 1-D kernel inputs.
 
     Every tensor must lie on ``device`` with shape ``(n,)`` and need no
     gradient (``refuse_grad``).  float32 is taken as it is; float64 state
-    is cast here, at the wrapper, and announced once through
-    ``notify(tag, dtype)`` (the kernels compute in fp32); any other dtype
-    raises."""
+    is cast to float32 here, at the wrapper, and announced once through
+    ``notify(tag, dtype)`` (the kernels compute in fp32).  bfloat16 is
+    taken as it is, with no copy, when ``bf16`` (the wrapper launches the
+    kernel's bf16 instance, which converts each load to fp32); else it is
+    upcast to float32 here, which is exact, and announced through
+    ``notify`` as float64 is.  Any other dtype raises."""
     refuse_grad(tag, *tensors)
     out = []
     for t in tensors:
@@ -210,13 +230,29 @@ def kernel_inputs(tag: str, device: torch.device, n: int, *tensors,
             raise ValueError(f"{tag}: tensor on {t.device}, expected {device}")
         if t.shape != (n,):
             raise ValueError(f"{tag}: shape {tuple(t.shape)}, expected ({n},)")
-        if t.dtype == torch.float64:
+        if t.dtype == torch.float64 or (t.dtype == torch.bfloat16
+                                        and not bf16):
             notify(tag, t.dtype)
             t = t.to(torch.float32)
-        elif t.dtype != torch.float32:
-            raise TypeError(f"{tag}: dtype {t.dtype} (float32 or float64)")
+        elif t.dtype not in (torch.float32, torch.bfloat16):
+            raise TypeError(f"{tag}: dtype {t.dtype} (float32, float64 or "
+                            "bfloat16)")
         out.append(t.contiguous())
     return out
+
+
+def aligned4(*tensors) -> list[torch.Tensor]:
+    """The tensors, each copied where its data does not start 4-byte
+    aligned: the bf16 sweeps (K3, K4) stage two sources a 4-byte cp.async
+    (csrc/tile.cuh), so a bf16 view from an odd element is copied."""
+    return [t if t.data_ptr() % 4 == 0 else t.clone() for t in tensors]
+
+
+def all_bf16(*tensors) -> bool:
+    """Whether every tensor is bfloat16: a wrapper with a bf16 instance
+    launches it only then (a mixed call, such as the proxy's bf16 node
+    coordinates with float32 weights, upcasts its bf16 inputs)."""
+    return all(t.dtype == torch.bfloat16 for t in tensors)
 
 
 def int_inputs(tag: str, device: torch.device, n: int,

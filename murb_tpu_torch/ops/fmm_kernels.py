@@ -25,7 +25,10 @@ copied to the device once a shape): each offset's admitted target cells
 in items of up to ``M2L_GROUP``, whose transfer entries the kernel builds
 once, and their split over the card (each instance's own resident
 blocks).  ``m2l_level_fused.launches`` counts the fp32 instance's
-launches, ``m2l_level_fused.lossy_launches`` the lossy one's.
+launches, ``m2l_level_fused.lossy_launches`` the lossy one's.  A bf16
+state launches K8's and K9's bf16 instances (``murb_p2m_grid_bf16``,
+``murb_l2p_grid_bf16``), which read the bodies as they are and compute in
+fp32, counted in ``bf16_launches``; K7 takes the float32 weights.
 """
 from __future__ import annotations
 
@@ -40,9 +43,10 @@ import torch
 import torch.nn.functional as F
 
 from murb_tpu_torch.ops import cuda
-from murb_tpu_torch.ops.common import notify_fp32_compute
+from murb_tpu_torch.ops.common import (bf16_plain, notify_fp32_compute,
+                                       weights_dtype)
 from murb_tpu_torch.ops.mxu import split3_matmul
-from murb_tpu_torch.ops.proxy_kernels import _basis, node_table
+from murb_tpu_torch.ops.proxy_kernels import _basis, _entry, node_table
 
 #: largest order and cells per dimension the kernels take (csrc/fmm.cu,
 #: csrc/cell_runs.cuh)
@@ -118,6 +122,7 @@ def _grid_bases(qx, qy, qz, c, h, m: int, C: int):
     return (cx * C + cy) * C + cz, _basis(tx, m), _basis(ty, m), _basis(tz, m)
 
 
+@bf16_plain(round_outputs=False)
 def p2m_grid_plain(qx, qy, qz, gm_eff, c, h, *, m: int,
                    C: int) -> torch.Tensor:
     """W (C^3, m^3): per-cell source expansions, each body into its own
@@ -134,6 +139,7 @@ def p2m_grid_plain(qx, qy, qz, gm_eff, c, h, *, m: int,
     return w
 
 
+@bf16_plain
 def l2p_grid_plain(qx, qy, qz, c, h, fields, *, m: int, C: int) -> tuple:
     """Interpolate (C^3, m^3) node fields back to the bodies, each body
     from its own cell -> tuple of (n,), in the inputs' dtype."""
@@ -195,6 +201,12 @@ def m2l_level_plain(w, hl, soft, *, m: int, C: int, subset: str = "expand",
     from murb_tpu_torch.ops.fmm import _SUBSETS, _offsets_paired
 
     _check_dots(dots)
+    if w.dtype == torch.bfloat16:  # K7 upcasts and casts the fields back
+        return tuple(f.to(w.dtype) for f in m2l_level_plain(
+            w.float(), hl, soft, m=m, C=C, subset=subset,
+            with_phi=with_phi, dots=dots))
+    if hl.dtype == torch.bfloat16:  # exact; the kernel reads hl in fp32
+        hl = hl.float()
     dtype, dev = w.dtype, w.device
     mm = (split3_matmul if dots == "bf16x3" and dtype == torch.float32
           else torch.matmul)
@@ -358,12 +370,12 @@ def p2m_grid_items(order: CellOrder, m: int) -> RunItems:
 
 def p2m_grid_launch(x, y, z, g, order: CellOrder, items: RunItems,
                     m: int) -> torch.Tensor:
-    """K8 alone on float32 inputs, their cell order and work items -> W
-    (C^3, m^3) float32."""
+    """K8 alone on float32 inputs (its bf16 instance on bf16 ones), their
+    cell order and work items -> W (C^3, m^3) float32."""
     dev, C = x.device, order.C
     w, partial = p2m_outputs(items, x.shape[0], C ** 3, m, dev)
     with torch.cuda.device(dev):
-        cuda.launch("murb_p2m_grid", x.data_ptr(), y.data_ptr(),
+        cuda.launch(_entry("murb_p2m_grid", x), x.data_ptr(), y.data_ptr(),
                     z.data_ptr(), g.data_ptr(), order.perm.data_ptr(),
                     order.box.data_ptr(), m, C, items.bounds.data_ptr(),
                     items.prefix.data_ptr(), items.nitems, items.chunk,
@@ -377,22 +389,28 @@ def p2m_grid_fused(qx, qy, qz, gm_eff, c, h, *, m: int, C: int,
                    order: CellOrder | None = None) -> torch.Tensor:
     """W (C^3, m^3) = grid P2M.  CPU tensors run ``p2m_grid_plain``; CUDA
     tensors launch K8 (fp32 inside; float64 inputs are cast here, W cast
-    back)."""
+    back; bf16 inputs take the bf16 instance, counted in ``bf16_launches``,
+    W float32)."""
     _check_grid(m, C)
     if qx.device.type == "cpu":
         return p2m_grid_plain(qx, qy, qz, gm_eff, c, h, m=m, C=C)
     cuda.require_cuda(_TAG, qx)
     cuda.refuse_grad(_TAG, c, h)
     dtype, dev, n = qx.dtype, qx.device, qx.shape[0]
+    b16 = cuda.all_bf16(qx, qy, qz, gm_eff)
     x, y, z, g = cuda.kernel_inputs(_TAG, dev, n, qx, qy, qz, gm_eff,
-                                    notify=notify_fp32_compute)
+                                    notify=notify_fp32_compute, bf16=b16)
     order = _order_for(order, x, y, z, c, h, C)
     w = p2m_grid_launch(x, y, z, g, order, p2m_grid_items(order, m), m)
-    p2m_grid_fused.launches += 1
-    return w.to(dtype)
+    if b16:
+        p2m_grid_fused.bf16_launches += 1
+    else:
+        p2m_grid_fused.launches += 1
+    return w.to(weights_dtype(dtype))
 
 
 p2m_grid_fused.launches = 0
+p2m_grid_fused.bf16_launches = 0
 
 
 # ----------------------------------------------------------- K9 wrapper
@@ -403,13 +421,13 @@ def l2p_grid_items(order: CellOrder, m: int) -> RunItems:
 
 def l2p_grid_launch(x, y, z, order: CellOrder, items: RunItems, m: int,
                     fields) -> torch.Tensor:
-    """K9 alone on float32 inputs, their cell order and work items and 1
-    to 11 float32 contiguous (C^3, m^3) fields -> (k, n) float32, one
-    launch per group of at most 4 fields."""
+    """K9 alone on float32 inputs (its bf16 instance on bf16 ones), their
+    cell order and work items and 1 to 11 float32 contiguous (C^3, m^3)
+    fields -> (k, n) float32, one launch per group of at most 4 fields."""
     dev, n, k = x.device, x.shape[0], len(fields)
     out = torch.empty((k, n), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        cuda.launch("murb_l2p_grid", x.data_ptr(), y.data_ptr(),
+        cuda.launch(_entry("murb_l2p_grid", x), x.data_ptr(), y.data_ptr(),
                     z.data_ptr(), order.perm.data_ptr(), n,
                     order.box.data_ptr(), m, order.C,
                     items.bounds.data_ptr(), items.prefix.data_ptr(),
@@ -423,7 +441,8 @@ def l2p_grid_fused(qx, qy, qz, c, h, fields, *, m: int, C: int,
                    order: CellOrder | None = None) -> tuple:
     """Interpolate 1 to 11 (C^3, m^3) node fields to the bodies -> tuple of
     (n,).  CPU tensors run ``l2p_grid_plain``; CUDA tensors launch K9 once
-    per group of at most 4 fields, and count each launch."""
+    per group of at most 4 fields, and count each launch (a bf16 state's,
+    its bf16 instance's, in ``bf16_launches``)."""
     _check_grid(m, C)
     k = len(fields)
     if not 1 <= k <= MAX_FIELDS:
@@ -438,16 +457,21 @@ def l2p_grid_fused(qx, qy, qz, c, h, fields, *, m: int, C: int,
     cuda.require_cuda(_TAG, qx)
     cuda.refuse_grad(_TAG, c, h, *fields)
     dtype, dev, n = qx.dtype, qx.device, qx.shape[0]
+    b16 = cuda.all_bf16(qx, qy, qz)
     x, y, z = cuda.kernel_inputs(_TAG, dev, n, qx, qy, qz,
-                                 notify=notify_fp32_compute)
+                                 notify=notify_fp32_compute, bf16=b16)
     order = _order_for(order, x, y, z, c, h, C)
     flds = [f.to(torch.float32).contiguous() for f in fields]
     out = l2p_grid_launch(x, y, z, order, l2p_grid_items(order, m), m, flds)
-    l2p_grid_fused.launches += -(-k // _L2P_GROUP)
+    if b16:
+        l2p_grid_fused.bf16_launches += -(-k // _L2P_GROUP)
+    else:
+        l2p_grid_fused.launches += -(-k // _L2P_GROUP)
     return tuple(o.to(dtype) for o in out)
 
 
 l2p_grid_fused.launches = 0
+l2p_grid_fused.bf16_launches = 0
 
 
 # ----------------------------------------------------------- K7 wrapper
@@ -603,7 +627,7 @@ def m2l_level_fused(w, hl, soft, *, m: int, C: int, subset: str = "expand",
     cuda.require_cuda(_TAG, w)
     cuda.refuse_grad(_TAG, w, hl, soft)
     dev = w.device
-    if w.dtype == torch.float64:
+    if w.dtype != torch.float32:  # float64 down, bf16 up (exact)
         notify_fp32_compute(_TAG, w.dtype)
     w32 = w.to(torch.float32).contiguous()
     hl32 = hl.to(device=dev, dtype=torch.float32).contiguous()

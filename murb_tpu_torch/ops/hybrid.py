@@ -19,7 +19,11 @@ matrix-unit passes; the port keeps the accuracy contract of each
 On CUDA tensors ``acc_hybrid_rect`` launches ``csrc/hybrid.cu`` (which
 hands passes 1/2 to K3's kernel, with K3's j split, counted here as K4
 launches) in the block geometry ``block_i``/``block_j`` (as K3's); on CPU
-tensors it runs ``acc_hybrid_rect_plain``.
+tensors it runs ``acc_hybrid_rect_plain``.  A bf16 state launches every
+tier's bf16 instance (``murb_hybrid_rect_bf16``: K3's for passes 1/2, the
+extended sweep's for passes 3), counted in
+``acc_hybrid_rect.bf16_launches``.  K5 and K6 have no bf16 instance:
+their wrappers upcast a bf16 state exactly (ops/cuda.kernel_inputs).
 
 K5 ``phi_rows_rect`` and K6 ``acc_phi_rows_hybrid`` (``csrc/phi.cu``) take
 up to 8 source-weight rows (one masked G*m row per galaxy) and return the
@@ -46,7 +50,8 @@ import ctypes
 import torch
 
 from murb_tpu_torch.ops import cuda
-from murb_tpu_torch.ops.common import Accel, notify_fp32_compute
+from murb_tpu_torch.ops.common import (Accel, bf16_plain, notify_fp32_compute,
+                                       weights_dtype)
 from murb_tpu_torch.ops.naive import _pair_weights
 from murb_tpu_torch.ops.tile import acc_tile_rect_plain, split_args
 
@@ -59,6 +64,7 @@ EXT_BLOCK_I = 128
 EXT_BLOCK_J = 128
 
 
+@bf16_plain
 def acc_hybrid_rect_plain(qxi, qyi, qzi, qxj, qyj, qzj, gmj, soft, *,
                           passes: int = 1) -> Accel:
     """The plain PyTorch version of each tier: passes 1/2 sum in the
@@ -82,12 +88,13 @@ def acc_hybrid_rect_plain(qxi, qyi, qzi, qxj, qyj, qzj, gmj, soft, *,
 
 
 def ext_split_args(ni: int, nj: int, block_i: int, block_j: int,
-                   device: torch.device):
+                   device: torch.device, entry: str = "murb_hybrid_resident"):
     """Passes 3's j split (``ops/tile.split_args``) at (block_i, block_j),
-    0 for ``EXT_BLOCK_I`` x ``EXT_BLOCK_J``: its own resident count and
-    float64 slice sums."""
+    0 for ``EXT_BLOCK_I`` x ``EXT_BLOCK_J``: its own resident count (the
+    bf16 instance's: ``murb_hybrid_resident_bf16``) and float64 slice
+    sums."""
     return split_args(ni, nj, block_i or EXT_BLOCK_I, block_j or EXT_BLOCK_J,
-                      device, "murb_hybrid_resident", torch.float64)
+                      device, entry, torch.float64)
 
 
 def acc_hybrid_rect(qxi, qyi, qzi, qxj, qyj, qzj, gmj, soft, *,
@@ -114,25 +121,35 @@ def acc_hybrid_rect(qxi, qyi, qzi, qxj, qyj, qzj, gmj, soft, *,
                       "relative force error)" if passes == 3 else None))
     dtype, dev = qxi.dtype, qxi.device
     ni, nj = qxi.shape[0], qxj.shape[0]
+    b16 = cuda.all_bf16(qxi, qyi, qzi, qxj, qyj, qzj, gmj)
     xi, yi, zi = cuda.kernel_inputs(tag, dev, ni, qxi, qyi, qzi,
-                                    notify=notify)
+                                    notify=notify, bf16=b16)
     xj, yj, zj, gj = cuda.kernel_inputs(tag, dev, nj, qxj, qyj, qzj, gmj,
-                                        notify=notify)
+                                        notify=notify, bf16=b16)
+    if b16:
+        xj, yj, zj, gj = cuda.aligned4(xj, yj, zj, gj)
     out = torch.empty((3, ni), dtype=torch.float32, device=dev)
-    split, _scratch = (ext_split_args if passes == 3 else split_args)(
-        ni, nj, block_i, block_j, dev)
+    sfx = "_bf16" if b16 else ""
+    split, _scratch = (
+        ext_split_args(ni, nj, block_i, block_j, dev,
+                       "murb_hybrid_resident" + sfx) if passes == 3 else
+        split_args(ni, nj, block_i, block_j, dev, "murb_tile_resident" + sfx))
     with torch.cuda.device(dev):
-        cuda.launch("murb_hybrid_rect", xi.data_ptr(), yi.data_ptr(),
+        cuda.launch("murb_hybrid_rect" + sfx, xi.data_ptr(), yi.data_ptr(),
                     zi.data_ptr(), ni, xj.data_ptr(), yj.data_ptr(),
                     zj.data_ptr(), gj.data_ptr(), nj,
                     ctypes.c_float(float(soft) ** 2), passes, block_i,
                     block_j, *split, out[0].data_ptr(), out[1].data_ptr(),
                     out[2].data_ptr(), cuda.stream(dev))
-    acc_hybrid_rect.launches += 1
+    if b16:
+        acc_hybrid_rect.bf16_launches += 1
+    else:
+        acc_hybrid_rect.launches += 1
     return Accel(*(o.to(dtype) for o in out))
 
 
 acc_hybrid_rect.launches = 0
+acc_hybrid_rect.bf16_launches = 0
 
 
 def acc_hybrid(qx, qy, qz, gm, soft, *, passes: int = 1, block_i: int = 0,
@@ -155,6 +172,7 @@ def _check_rows(tag: str, gm_rows, nj: int, passes: int) -> None:
                          f"expected (R <= {MAX_PHI_ROWS}, {nj})")
 
 
+@bf16_plain(round_outputs=False)
 def phi_rows_rect_plain(qxi, qyi, qzi, qxj, qyj, qzj, gm_rows,
                         soft) -> torch.Tensor:
     """The plain PyTorch K5: (R, ni) potentials in the inputs' dtype,
@@ -229,7 +247,7 @@ def phi_rows_rect(qxi, qyi, qzi, qxj, qyj, qzj, gm_rows, soft, *,
                     ctypes.c_float(float(soft) ** 2), *split,
                     phi.data_ptr(), cuda.stream(dev))
     phi_rows_rect.launches += 1
-    return phi.to(dtype)
+    return phi.to(weights_dtype(dtype))  # float32 for bf16, as murb_tpu's
 
 
 phi_rows_rect.launches = 0
@@ -243,6 +261,7 @@ def phi_rows(qx, qy, qz, gm_rows, soft, *, passes: int = 2,
 
 
 # ------------------------------------- fused force + multi-row potential
+@bf16_plain
 def acc_phi_rows_plain(qx, qy, qz, gm, gm_rows, soft):
     """The plain PyTorch K6, in the inputs' dtype: the force sweep and the
     potential rows, each as its own plain sweep."""

@@ -60,7 +60,7 @@ import contextlib
 import torch
 
 from murb_tpu_torch.ops import cuda
-from murb_tpu_torch.ops.common import Accel, notify_fp32_compute
+from murb_tpu_torch.ops.common import Accel, bf16_plain, notify_fp32_compute
 
 TAG = "tpu+mxu"
 PRECISIONS = ("default", "high", "highest")
@@ -245,6 +245,7 @@ def _plain_tf32(a_mat, b_mat, gmj, cqi, s_passes: int, p_passes: int,
     return out
 
 
+@bf16_plain
 def acc_mxu_rect_plain(qxi, qyi, qzi, qxj, qyj, qzj, gmj, soft, *,
                        precision: str = "high", s_precision: str = "highest",
                        center: bool = True, center_point=None,

@@ -7,9 +7,10 @@ src/murb/implem/SimulationNBodyNaive.cpp:34-53): for every pair (i, j)
 
 Softening keeps the j == i self-term and every zero-mass ghost contribution
 exactly zero, so no masking is needed.  All sweeps compute in the dtype of
-their inputs (float64 inputs give a float64 oracle).  ``soft`` is a Python
-float or a 0-dim tensor, through which autograd reaches the softening
-(murb_tpu_torch.diff).
+their inputs (float64 inputs give a float64 oracle), bf16 ones in float32
+with the outputs rounded once (``ops/common.bf16_chain``).  ``soft`` is a
+Python float or a 0-dim tensor, through which autograd reaches the
+softening (murb_tpu_torch.diff).
 
   * ``acc_naive``         -- one (N, N) broadcast; the differential oracle.
   * ``acc_rect``          -- the rectangular (i-set x j-set) broadcast.
@@ -20,7 +21,7 @@ from __future__ import annotations
 
 import torch
 
-from murb_tpu_torch.ops.common import Accel
+from murb_tpu_torch.ops.common import Accel, bf16_chain
 
 
 def soft_squared(soft, dtype: torch.dtype):
@@ -40,6 +41,7 @@ def _pair_weights(dx, dy, dz, gm_j, soft2):
     return gm_j * (inv * inv * inv)
 
 
+@bf16_chain
 def acc_rect(qxi, qyi, qzi, qxj, qyj, qzj, gmj, soft) -> Accel:
     """Accelerations of the i-set due to the j-set (one broadcast)."""
     soft2 = soft_squared(soft, qxi.dtype)

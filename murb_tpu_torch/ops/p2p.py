@@ -31,6 +31,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from murb_tpu_torch.ops.common import bf16_plain
 from murb_tpu_torch.ops.fmm_kernels import _cell_coords
 
 #: bodies per brick (the K10 block); divides every padded N (256)
@@ -121,6 +122,7 @@ def sorted_cells(qx, qy, qz, active, c, h, C: int):
     return key, ci
 
 
+@bf16_plain
 def p2p_sweep_plain_sorted(xs, ys, zs, gs, ci, soft, *, pmax: int,
                            K: int = DEFAULT_K, chunk: int = DEFAULT_CHUNK,
                            with_phi: bool = False):

@@ -34,7 +34,8 @@ import math
 
 import torch
 
-from murb_tpu_torch.ops.common import Accel
+from murb_tpu_torch.core.state import in_dtype
+from murb_tpu_torch.ops.common import Accel, bf16_chain
 from murb_tpu_torch.ops.fmm_kernels import l2p_grid_fused, p2m_grid_fused
 from murb_tpu_torch.ops.naive import acc_rect, soft_squared
 from murb_tpu_torch.ops.proxy_kernels import (bases, l2p, l2p_fused,
@@ -83,7 +84,9 @@ def _cheb_nodes(m: int, dtype, device) -> torch.Tensor:
 def bounding_box(qx, qy, qz, gm_pos):
     """(center (3,), per-dimension half-widths (3,)) over massive bodies,
     as device tensors."""
-    big = 3.4e38
+    # murb_tpu's 3.4e38 in the state dtype: inf in bf16 (a Python float
+    # past bf16's range would not convert on the card)
+    big = in_dtype(3.4e38, qx.dtype)
     lo = torch.stack([torch.where(gm_pos, q, big).min() for q in (qx, qy, qz)])
     hi = torch.stack([torch.where(gm_pos, q, -big).max()
                       for q in (qx, qy, qz)])
@@ -93,11 +96,15 @@ def bounding_box(qx, qy, qz, gm_pos):
 
 
 def proxy_nodes(c, h, m: int, dtype):
-    """Flat (m^3,) coordinates of the proxy nodes, x-major."""
-    t = _cheb_nodes(m, dtype, c.device)
-    px = (c[0] + h[0] * t)[:, None, None].expand(m, m, m)
-    py = (c[1] + h[1] * t)[None, :, None].expand(m, m, m)
-    pz = (c[2] + h[2] * t)[None, None, :].expand(m, m, m)
+    """Flat (m^3,) coordinates of the proxy nodes, x-major, in ``dtype``
+    (bf16: c + h t formed in float32 and rounded once, ``bf16_chain``'s
+    rule)."""
+    ct = torch.promote_types(dtype, torch.float32)
+    t = _cheb_nodes(m, ct, c.device)
+    c, h = c.to(ct), h.to(ct)
+    px = (c[0] + h[0] * t).to(dtype)[:, None, None].expand(m, m, m)
+    py = (c[1] + h[1] * t).to(dtype)[None, :, None].expand(m, m, m)
+    pz = (c[2] + h[2] * t).to(dtype)[None, None, :].expand(m, m, m)
     return px.reshape(-1), py.reshape(-1), pz.reshape(-1)
 
 
@@ -140,7 +147,7 @@ def heavy_source_acc(qx, qy, qz, hq, heavy_gm, soft) -> torch.Tensor:
 
 
 def acc_proxy(qx, qy, qz, gm, soft, *, m: int = 16, cells: int = 1,
-              fused: bool = True) -> Accel:
+              fused: bool = True, heavy_k: int = HEAVY_K) -> Accel:
     """All-pairs softened-gravity accelerations via the Chebyshev proxy
     (ref: murb_tpu/ops/proxy.py:acc_proxy): one global expansion
     (``cells=1``) or one per octant (``cells=2``).
@@ -148,7 +155,8 @@ def acc_proxy(qx, qy, qz, gm, soft, *, m: int = 16, cells: int = 1,
     ``fused=False`` (``cells=1`` only) runs the plain stages on any device,
     ``bases`` -> ``p2m`` -> the node sweep's plain version -> ``l2p``, and
     launches no kernel: the differentiable path of murb_tpu_torch.diff, as
-    murb_tpu's ``fused=False`` pins its jnp stages."""
+    murb_tpu's ``fused=False`` pins its jnp stages.  ``heavy_k``: how many
+    of the heaviest bodies may leave the expansion (at least 1)."""
     if cells not in (1, 2):
         raise ValueError("cells must be 1 or 2")
     if cells == 2 and not fused:
@@ -160,7 +168,8 @@ def acc_proxy(qx, qy, qz, gm, soft, *, m: int = 16, cells: int = 1,
 
     mean_gm = gm.sum() / gm_pos.sum().clamp(min=1)
     hq, heavy_gm, is_heavy, top_idx, gm_eff = heavy_split(
-        qx, qy, qz, gm, min(HEAVY_K, qx.shape[0]), HEAVY_FACTOR, mean_gm)
+        qx, qy, qz, gm, max(min(heavy_k, qx.shape[0]), 1), HEAVY_FACTOR,
+        mean_gm)
 
     if cells == 2:
         acc = _two_level(qx, qy, qz, gm_eff, c, h, soft, m)
@@ -201,21 +210,22 @@ def _two_level(qx, qy, qz, gm_eff, c, h, soft, m: int) -> torch.Tensor:
     return torch.stack(out, dim=1)
 
 
-def validation_ladder(soft, m2l_dots: str = "fp32"):
+def validation_ladder(soft, m2l_dots: str = "fp32", heavy_k: int = HEAVY_K):
     """``make_acc_fn(m, levels, cells) -> acc(qx, qy, qz, gm)`` for
     ops/validate.validate_config: the single-level proxy, or the hierarchy
     (``acc_fmm`` at the M2L tier ``m2l_dots``, kernels K7-K9) on a rung
     with levels > 0, as ``tpu+proxy`` and ``--kernel proxy`` / ``fmm``
-    validate them."""
+    validate them, with ``heavy_k`` of the heaviest bodies summed exactly."""
     def make_acc(m, levels, cells):
         if levels:
             from murb_tpu_torch.ops.fmm import acc_fmm
 
             return lambda qx, qy, qz, g: acc_fmm(qx, qy, qz, g, soft, m=m,
                                                  levels=levels,
+                                                 heavy_k=heavy_k,
                                                  m2l_dots=m2l_dots)
         return lambda qx, qy, qz, g: acc_proxy(qx, qy, qz, g, soft, m=m,
-                                               cells=cells)
+                                               cells=cells, heavy_k=heavy_k)
 
     return make_acc
 
@@ -230,6 +240,7 @@ def _inv_dist(qxi, qyi, qzi, qxj, qyj, qzj, soft) -> torch.Tensor:
                        + soft_squared(soft, qxi.dtype))
 
 
+@bf16_chain
 def force_and_potential_node_sweep_rows(px, py, pz, w, w_rows, soft):
     """(Accel, phi_rows (R, P)) over the proxy nodes in one broadcast pass:
     the force field of the weights ``w`` and R potential fields of
@@ -244,6 +255,7 @@ def force_and_potential_node_sweep_rows(px, py, pz, w, w_rows, soft):
     return f, w_rows @ inv.T
 
 
+@bf16_chain
 def potential_node_sweep(px, py, pz, w, soft) -> torch.Tensor:
     """phi_u = sum_v w_v rsqrt(|p_u - p_v|^2 + eps^2) over the proxy nodes,
     i-chunked (O(2048 P) memory) for grids of NODE_SWEEP_KERNEL_MIN nodes
@@ -254,12 +266,14 @@ def potential_node_sweep(px, py, pz, w, soft) -> torch.Tensor:
         for s in range(0, px.shape[0], 2048)])
 
 
+@bf16_chain
 def heavy_source_phi_rows(qx, qy, qz, hq, heavy_gm_rows, soft):
     """Exact N x k sweep: (R, n) potentials of the heavy sources under R
     rows of heavy masses ``heavy_gm_rows`` (R, k), one distance build."""
     return heavy_gm_rows @ _inv_dist(qx, qy, qz, *hq, soft).T
 
 
+@bf16_chain
 def heavy_target_phi_rows(qx, qy, qz, gm_rows, hq, soft):
     """Exact k x N sweep: (R, k) potentials at the heavy bodies under R
     rows of source masses ``gm_rows`` (R, n)."""

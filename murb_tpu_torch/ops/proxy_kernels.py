@@ -12,11 +12,15 @@ P2M over one run of all the bodies (``csrc/cell_runs.cuh``), K2 a kernel
 of its own that reads the fields as broadcasts (``csrc/proxy.cu``).
 
 ``p2m_fused`` and ``l2p_fused_multi`` run the plain version on CPU tensors
-and launch the kernel on CUDA tensors.  The box center ``c`` and
-half-widths ``h`` stay on the device; the kernels read them from device
-memory, and K1's run bounds and work items (``one_run``) and the node
-table (``node_table``) are built once per (n, m, device), so a step never
-waits on the device.
+and launch the kernel on CUDA tensors.  A bf16 state launches each
+kernel's bf16 instance (``murb_p2m_bf16``, ``murb_l2p_bf16``), which reads
+the bodies as they are and computes in fp32, counted in
+``bf16_launches``: W stays float32 (``weights_dtype``) and the L2P's
+values are rounded to bf16, as murb_tpu's kernels return them.  The box
+center ``c`` and half-widths ``h`` stay on the device; the kernels read
+them from device memory, and K1's run bounds and work items (``one_run``)
+and the node table (``node_table``) are built once per (n, m, device), so
+a step never waits on the device.
 """
 from __future__ import annotations
 
@@ -27,7 +31,8 @@ import numpy as np
 import torch
 
 from murb_tpu_torch.ops import cuda
-from murb_tpu_torch.ops.common import notify_fp32_compute
+from murb_tpu_torch.ops.common import (bf16_plain, notify_fp32_compute,
+                                       weights_dtype)
 
 #: highest order the kernels take (P = m^3 = 32,768 node outputs)
 MAX_ORDER = 32
@@ -99,16 +104,25 @@ def l2p(sx, syz, fields, m: int) -> tuple:
     return tuple(out[:, i] for i in range(len(fields)))
 
 
+@bf16_plain(round_outputs=False)
 def p2m_plain(qx, qy, qz, gm_eff, c, h, *, m: int) -> torch.Tensor:
-    """The plain PyTorch P2M, in the inputs' dtype."""
+    """The plain PyTorch P2M, in the inputs' dtype (bf16 inputs upcast,
+    W float32: ``weights_dtype``)."""
     sx, syz = bases(qx, qy, qz, c, h, m)
     return p2m(sx, syz, gm_eff, m)
 
 
+@bf16_plain
 def l2p_plain(qx, qy, qz, c, h, fields, *, m: int) -> tuple:
     """The plain PyTorch L2P of a tuple of (m^3,) node fields."""
     sx, syz = bases(qx, qy, qz, c, h, m)
     return l2p(sx, syz, fields, m)
+
+
+def _entry(name: str, x: torch.Tensor) -> str:
+    """The C entry of K1 or K2 for bodies of ``x``'s dtype: the bf16
+    instance for bf16, else the float32 one."""
+    return name + "_bf16" if x.dtype == torch.bfloat16 else name
 
 
 def _box(c, h, dev) -> torch.Tensor:
@@ -162,16 +176,17 @@ def one_run(n: int, m: int, device, sms: int | None = None):
 
 
 def p2m_launch(x, y, z, g, box, m: int) -> torch.Tensor:
-    """K1 alone on n >= 1 float32 bodies and the (6,) box -> W (m^3,)
-    float32: the items' partials through scratch and the fold when the run
-    has several items."""
+    """K1 alone on n >= 1 float32 bodies (its bf16 instance on bf16 ones)
+    and the (6,) box -> W (m^3,) float32: the items' partials through
+    scratch and the fold when the run has several items."""
     dev, n = x.device, x.shape[0]
     run = one_run(n, m, dev)
     w = torch.empty(m ** 3, dtype=torch.float32, device=dev)
     partial = (torch.empty(run.nitems * m ** 3, dtype=torch.float32,
                            device=dev) if run.nitems > 1 else None)
     with torch.cuda.device(dev):
-        cuda.launch("murb_p2m", x.data_ptr(), y.data_ptr(), z.data_ptr(),
+        cuda.launch(_entry("murb_p2m", x), x.data_ptr(), y.data_ptr(),
+                    z.data_ptr(),
                     g.data_ptr(), n, box.data_ptr(), m, run.bounds.data_ptr(),
                     run.prefix.data_ptr(), run.nitems, run.chunk,
                     node_table(m, dev).data_ptr(),
@@ -182,22 +197,28 @@ def p2m_launch(x, y, z, g, box, m: int) -> torch.Tensor:
 
 def p2m_fused(qx, qy, qz, gm_eff, c, h, *, m: int) -> torch.Tensor:
     """W (m^3,) = P2M.  CPU tensors run ``p2m_plain``; CUDA tensors launch
-    K1 (fp32 inside; float64 inputs are cast here, W cast back)."""
+    K1 (fp32 inside; float64 inputs are cast here, W cast back; bf16
+    inputs take the bf16 instance, W float32)."""
     if qx.device.type == "cpu":
         return p2m_plain(qx, qy, qz, gm_eff, c, h, m=m)
     cuda.require_cuda(_TAG, qx)
     _check_order(m)
     dtype, dev, n = qx.dtype, qx.device, qx.shape[0]
     if n == 0:
-        return torch.zeros(m ** 3, dtype=dtype, device=dev)
+        return torch.zeros(m ** 3, dtype=weights_dtype(dtype), device=dev)
+    b16 = cuda.all_bf16(qx, qy, qz, gm_eff)
     x, y, z, g = cuda.kernel_inputs(_TAG, dev, n, qx, qy, qz, gm_eff,
-                                    notify=notify_fp32_compute)
+                                    notify=notify_fp32_compute, bf16=b16)
     w = p2m_launch(x, y, z, g, _box(c, h, dev), m)
-    p2m_fused.launches += 1
-    return w.to(dtype)
+    if b16:
+        p2m_fused.bf16_launches += 1
+    else:
+        p2m_fused.launches += 1
+    return w.to(weights_dtype(dtype))
 
 
 p2m_fused.launches = 0
+p2m_fused.bf16_launches = 0
 
 
 def l2p_bodies(n: int, m: int, sms: int) -> int:
@@ -213,13 +234,15 @@ def l2p_bodies(n: int, m: int, sms: int) -> int:
 
 
 def l2p_launch(x, y, z, box, m: int, fields) -> torch.Tensor:
-    """K2 alone on float32 bodies, the (6,) box and 1 to 11 float32
+    """K2 alone on float32 bodies (its bf16 instance on bf16 ones), the (6,)
+    box and 1 to 11 float32
     contiguous (m^3,) fields -> (k, n) float32, one launch per group of at
     most 4 fields."""
     dev, n, k = x.device, x.shape[0], len(fields)
     out = torch.empty((k, n), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        cuda.launch("murb_l2p", x.data_ptr(), y.data_ptr(), z.data_ptr(), n,
+        cuda.launch(_entry("murb_l2p", x), x.data_ptr(), y.data_ptr(),
+                    z.data_ptr(), n,
                     box.data_ptr(), m, l2p_bodies(n, m, cuda.sm_count(dev)),
                     node_table(m, dev).data_ptr(),
                     cuda.field_pointers(fields), k, out.data_ptr(),
@@ -240,16 +263,21 @@ def l2p_fused_multi(qx, qy, qz, c, h, fields, *, m: int) -> tuple:
     cuda.require_cuda(_TAG, qx)
     _check_order(m)
     dtype, dev, n = qx.dtype, qx.device, qx.shape[0]
+    b16 = cuda.all_bf16(qx, qy, qz)
     x, y, z = cuda.kernel_inputs(_TAG, dev, n, qx, qy, qz,
-                                 notify=notify_fp32_compute)
+                                 notify=notify_fp32_compute, bf16=b16)
     flds = cuda.kernel_inputs(_TAG, dev, m ** 3, *fields,
                               notify=notify_fp32_compute)
     out = l2p_launch(x, y, z, _box(c, h, dev), m, flds)
-    l2p_fused_multi.launches += -(-k // _L2P_GROUP)
+    if b16:
+        l2p_fused_multi.bf16_launches += -(-k // _L2P_GROUP)
+    else:
+        l2p_fused_multi.launches += -(-k // _L2P_GROUP)
     return tuple(o.to(dtype) for o in out)
 
 
 l2p_fused_multi.launches = 0
+l2p_fused_multi.bf16_launches = 0
 
 
 def l2p_fused(qx, qy, qz, c, h, f_ax, f_ay, f_az, *, m: int) -> torch.Tensor:

@@ -21,7 +21,7 @@ import ctypes
 import torch
 
 from murb_tpu_torch.ops import cuda
-from murb_tpu_torch.ops.common import Accel, not_yet_ported, \
+from murb_tpu_torch.ops.common import Accel, bf16_plain, not_yet_ported, \
     notify_fp32_compute
 from murb_tpu_torch.ops.tile import acc_tile_rect_plain
 
@@ -39,6 +39,7 @@ def _check_mesh(mesh, qs, gms) -> None:
                          f"blocks for {mesh.local_size} shards")
 
 
+@bf16_plain
 def acc_ring_pipelined_plain(mesh, qs, gms, soft, *, log=None) -> list:
     """K14's plain version: D ring steps over two slots a shard, on lists.
 

@@ -10,7 +10,11 @@ pad nothing.  ``block_i``/``block_j`` pick one of its compiled geometries
 the plain version has none and ignores them.  When the target blocks
 cannot fill the card, the wrapper splits the j range into slices of whole
 tiles (ops/cuda.tile_split) and hands the kernel a (slices, 3, ni)
-scratch, which the kernel folds in slice order.  It serves ``tpu+tile`` /
+scratch, which the kernel folds in slice order.  A bf16 state (all seven
+arrays bf16) launches K3's bf16 instance, which reads the arrays as they
+are and computes in fp32, counted in ``acc_tile_rect.bf16_launches``;
+the sums are rounded to bf16, as murb_tpu's kernel casts them back.  It
+serves ``tpu+tile`` /
 ``gpu+tile``, K4 passes 1/2 (ops/hybrid.py) and the proxy node sweep at
 P >= 8000 nodes (ops/proxy.node_sweep).
 """
@@ -21,13 +25,15 @@ import ctypes
 import torch
 
 from murb_tpu_torch.ops import cuda
-from murb_tpu_torch.ops.common import Accel, notify_fp32_compute
+from murb_tpu_torch.ops.common import Accel, bf16_plain, notify_fp32_compute
 from murb_tpu_torch.ops.naive import acc_rect_jchunked
 
 
+@bf16_plain
 def acc_tile_rect_plain(qxi, qyi, qzi, qxj, qyj, qzj, gmj, soft) -> Accel:
     """The plain PyTorch sweep (``acc_rect``, j-chunked to bound memory),
-    in the inputs' dtype."""
+    in the inputs' dtype; bf16 inputs are upcast to fp32 and the sums
+    rounded back (``bf16_plain``), as the kernel does."""
     return acc_rect_jchunked(qxi, qyi, qzi, qxj, qyj, qzj, gmj, soft,
                              chunk=4096)
 
@@ -55,7 +61,8 @@ def acc_tile_rect(qxi, qyi, qzi, qxj, qyj, qzj, gmj, soft, *,
     """Accelerations of the i-set due to the j-set (rectangular sweep).
 
     CPU tensors run the plain version; CUDA tensors launch K3 (fp32 inside;
-    float64 inputs are cast here and the outputs cast back)."""
+    float64 inputs are cast here and the outputs cast back; bf16 inputs
+    take the bf16 instance, or, mixed with float32 ones, an exact upcast)."""
     cuda.check_blocks("tpu+tile", block_i, block_j)
     if qxi.device.type == "cpu":
         return acc_tile_rect_plain(qxi, qyi, qzi, qxj, qyj, qzj, gmj, soft)
@@ -65,24 +72,34 @@ def acc_tile_rect(qxi, qyi, qzi, qxj, qyj, qzj, gmj, soft, *,
         raise ValueError("tpu+tile: the sweep needs a positive softening")
     dtype, dev = qxi.dtype, qxi.device
     ni, nj = qxi.shape[0], qxj.shape[0]
+    b16 = cuda.all_bf16(qxi, qyi, qzi, qxj, qyj, qzj, gmj)
     xi, yi, zi = cuda.kernel_inputs("tpu+tile", dev, ni, qxi, qyi, qzi,
-                                    notify=notify_fp32_compute)
+                                    notify=notify_fp32_compute, bf16=b16)
     xj, yj, zj, gj = cuda.kernel_inputs("tpu+tile", dev, nj, qxj, qyj, qzj,
-                                        gmj, notify=notify_fp32_compute)
+                                        gmj, notify=notify_fp32_compute,
+                                        bf16=b16)
+    if b16:
+        xj, yj, zj, gj = cuda.aligned4(xj, yj, zj, gj)
     out = torch.empty((3, ni), dtype=torch.float32, device=dev)
-    split, _scratch = split_args(ni, nj, block_i, block_j, dev)
+    sfx = "_bf16" if b16 else ""
+    split, _scratch = split_args(ni, nj, block_i, block_j, dev,
+                                 "murb_tile_resident" + sfx)
     with torch.cuda.device(dev):
-        cuda.launch("murb_tile_rect", xi.data_ptr(), yi.data_ptr(),
+        cuda.launch("murb_tile_rect" + sfx, xi.data_ptr(), yi.data_ptr(),
                     zi.data_ptr(), ni, xj.data_ptr(), yj.data_ptr(),
                     zj.data_ptr(), gj.data_ptr(), nj,
                     ctypes.c_float(float(soft) ** 2), block_i, block_j,
                     *split, out[0].data_ptr(), out[1].data_ptr(),
                     out[2].data_ptr(), cuda.stream(dev))
-    acc_tile_rect.launches += 1
+    if b16:
+        acc_tile_rect.bf16_launches += 1
+    else:
+        acc_tile_rect.launches += 1
     return Accel(*(o.to(dtype) for o in out))
 
 
 acc_tile_rect.launches = 0
+acc_tile_rect.bf16_launches = 0
 
 
 def acc_tile(qx, qy, qz, gm, soft, *, block_i: int = 0,

@@ -55,7 +55,7 @@ def measured_force_error(qx, qy, qz, gm, soft, acc_fn,
                           chunk=REFERENCE_CHUNK)
     rx, ry, rz = (v.cpu().numpy() for v in r)
     rn = np.sqrt(rx * rx + ry * ry + rz * rz)
-    sel = gm[idx].cpu().numpy() > 0
+    sel = (gm[idx] > 0).cpu().numpy()
     if not np.any(sel):
         return 0.0
     floor = np.maximum(rn, max(float(rn[sel].max()), 1e-300) * FLOOR_FRAC)

@@ -35,7 +35,7 @@ import torch
 from murb_tpu_torch import G
 from murb_tpu_torch.core.integrators import euler_update
 from murb_tpu_torch.ops.anterp_kernels import l2p_window, p2m_window
-from murb_tpu_torch.ops.common import Accel
+from murb_tpu_torch.ops.common import Accel, bf16_chain
 from murb_tpu_torch.ops.naive import acc_rect
 from murb_tpu_torch.ops.p2p import (DEFAULT_K, _SENTINEL_SHIFT, _cell_ixyz,
                                     _morton_np, morton_key, size_pmax)
@@ -278,6 +278,7 @@ def _export_flags(cx, cy, cz, key, active, lo_k, hi_k, C):
     return stray, active & (out_any | stray)
 
 
+@bf16_chain
 def _stray_rows(sg, cs, q, ci, active, gm_eff, soft):
     """(R, 3) exact near rows of the stray targets ``sg`` (3 x (R,), cells
     ``cs``) from this shard's residents within cell distance 1, in passes
@@ -355,7 +356,7 @@ def make_local_step(plan: ShardAdaptivePlan, soft, dt, mesh, *,
             xs, ys, zs, gs = s["sorted"]
             w_loc = p2m_window(xs, ys, zs, gs, s["c"], s["h"], s["slots"],
                                capL, m=m, C=Cfin)
-            w_parts.append(torch.zeros((capG + 1, m3), dtype=dtype,
+            w_parts.append(torch.zeros((capG + 1, m3), dtype=w_loc.dtype,
                                        device=xs.device).index_add_(
                 0, s["gslot"].long(), w_loc[:capL]))
         w_glob = mesh.psum(w_parts)
@@ -366,7 +367,7 @@ def make_local_step(plan: ShardAdaptivePlan, soft, dt, mesh, *,
                     wg, s["cells_glob"], s["c"], s["h"], soft, base,
                     with_phi=False, m2l_dots=m2l_dots, **schedule)[0]
             f = fields[wg.device]
-            zrow = torch.zeros((1, m3), dtype=dtype, device=wg.device)
+            zrow = torch.zeros((1, m3), dtype=f[0].dtype, device=wg.device)
             f_loc = tuple(torch.cat([fi[s["gslot"].clamp(max=capG).long()],
                                      zrow]) for fi in f)
             xs, ys, zs, _ = s["sorted"]

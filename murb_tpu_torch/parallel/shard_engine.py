@@ -44,7 +44,7 @@ import torch
 
 from murb_tpu_torch import DEFAULT_SOFTENING, G
 from murb_tpu_torch.core.integrators import euler_update
-from murb_tpu_torch.core.state import FIELDS, BodyState
+from murb_tpu_torch.core.state import FIELDS, BodyState, in_dtype
 from murb_tpu_torch.models.base import SimulationEngine
 from murb_tpu_torch.ops.common import Accel
 from murb_tpu_torch.ops.naive import acc_rect
@@ -683,7 +683,7 @@ class ShardedEngine(SimulationEngine):
             dtype = blocks[0].dtype
             gm_l = [_gm(b) for b in blocks]
             gm_pos = [g > 0 for g in gm_l]
-            big = 3.4e38
+            big = in_dtype(3.4e38, dtype)  # inf in bf16, as murb_tpu's
             lo = mesh.pmin([torch.stack([torch.where(p, q, big).min()
                                          for q in (b.qx, b.qy, b.qz)])
                             for b, p in zip(blocks, gm_pos)])

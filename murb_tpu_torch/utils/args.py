@@ -117,8 +117,9 @@ def build_parser() -> argparse.ArgumentParser:
                           "(default 123).")
     ext.add_argument("--precision", choices=("fp32", "fp64", "bf16"),
                      default="fp32",
-                     help="state precision (default fp32; bf16 is not yet "
-                          "ported).")
+                     help="state precision (default fp32; bf16 halves the "
+                          "memory a body takes: the kernels read bf16 and "
+                          "compute in fp32).")
     ext.add_argument("--scheme-file", dest="scheme_file", type=str,
                      default=None,
                      help="path to the two-galaxy .tab file for the merger "

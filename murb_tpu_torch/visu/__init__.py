@@ -22,6 +22,8 @@ import os
 import numpy as np
 import torch
 
+from murb_tpu_torch.core.state import host_array
+
 _FRAME_FIELDS = ("qx", "qy", "qz", "vx", "vy", "vz")
 
 
@@ -29,7 +31,7 @@ def host_frame(state) -> dict[str, np.ndarray]:
     """Positions and velocities of the first ``n`` bodies of a
     ``BodyState`` on the host, in one device-to-host copy."""
     rows = torch.stack([getattr(state, k) for k in _FRAME_FIELDS])
-    host = rows[:, : state.n].cpu().numpy()
+    host = host_array(rows[:, : state.n])
     return dict(zip(_FRAME_FIELDS, host))
 
 

@@ -188,3 +188,76 @@ def test_cli_save_every_periodic(tmp_path, capsys):
     assert cli.main(["-n", "300", "-i", "2", "--im", "cpu+optim", "--nv",
                      "--device", "cpu", "--save-every", "2"]) == 1
     assert "--save-every requires --save-state" in capsys.readouterr().err
+
+
+# ------------------------------------------------------- bf16 checkpoints
+def _galaxy16():
+    import jax.numpy as jnp
+
+    js = jinit.init_galaxy(300, 5, dtype=jnp.bfloat16)
+    return js, BodyState.from_numpy({k: np.asarray(getattr(js, k))
+                                     for k in FIELDS}, js.n, js.padding,
+                                    "cpu")
+
+
+def test_bf16_roundtrip(tmp_path):
+    """A bf16 state is written as float32 arrays with its dtype recorded
+    and loads back as bf16 bit for bit (through the CLI's resume too)."""
+    _, s = _galaxy16()
+    path = str(tmp_path / "b.npz")
+    tck.save_state(path, s, iteration=4)
+    with np.load(path) as z:
+        assert z["qx"].dtype == np.float32 and str(z["dtype"]) == "bfloat16"
+    s2, meta = tck.load_state(path, device="cpu")
+    assert s2.dtype == torch.bfloat16 and meta["iteration"] == 4
+    for k in FIELDS:
+        assert torch.equal(getattr(s2, k), getattr(s, k)), k
+    res = cli.run(["-n", "300", "-i", "1", "--im", "cpu+naive", "--nv",
+                   "--device", "cpu", "--precision", "bf16", "--load-state",
+                   path])
+    assert res.rc == 0 and res.engine.bodies.dtype == torch.bfloat16
+
+
+def test_murb_tpu_reads_the_ports_bf16_file(tmp_path):
+    """murb_tpu's load_state reads the port's bf16 checkpoint: float32
+    arrays equal to the bf16 values, and the metadata."""
+    js, s = _galaxy16()
+    path = str(tmp_path / "b.npz")
+    tck.save_state(path, s, iteration=6, dt=1800.0)
+    j2, meta = jck.load_state(path)
+    assert meta["iteration"] == 6 and meta["dt"] == 1800.0
+    for k in FIELDS:
+        np.testing.assert_array_equal(
+            np.asarray(getattr(j2, k)),
+            np.asarray(getattr(js, k)).astype(np.float32), err_msg=k)
+
+
+def test_murb_tpus_own_bf16_file_does_not_load(tmp_path):
+    """The reference's fault, documented (ROADMAP.md Queue 3): murb_tpu
+    saves its bf16 state as ml_dtypes bfloat16, which np.savez_compressed
+    writes as |V2 (murb_tpu/core/checkpoint.py:29, :104), and its own
+    load_state cannot read it back."""
+    js, _ = _galaxy16()
+    path = str(tmp_path / "j.npz")
+    jck.save_state(path, js, iteration=3)
+    with np.load(path) as z:
+        assert z["qx"].dtype.str == "|V2"
+    with pytest.raises(TypeError, match="V2"):
+        jck.load_state(path)
+
+
+def test_fp32_file_under_precision_bf16_keeps_its_dtype(tmp_path):
+    """``--load-state`` of a float32 checkpoint with ``--precision bf16``:
+    murb_tpu's load_state gives the file's float32 state and its CLI runs
+    it as it is (murb_tpu/cli.py:62-76: no cast after the load), so the
+    port keeps float32 too, and the banner's memory is the fp32 state's."""
+    js = jinit.init_random(512, 3)
+    path = str(tmp_path / "f.npz")
+    jck.save_state(path, js, iteration=2)
+    j2, _ = jck.load_state(path)
+    assert j2.qx.dtype == np.float32
+    res = cli.run(["-n", "512", "-i", "1", "--im", "cpu+naive", "--nv",
+                   "--device", "cpu", "--precision", "bf16", "--load-state",
+                   path])
+    assert res.rc == 0 and res.engine.bodies.dtype == torch.float32
+    assert res.engine.allocated_bytes == j2.allocated_bytes

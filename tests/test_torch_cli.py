@@ -68,7 +68,6 @@ def test_parse_reference_flags():
 
 @pytest.mark.parametrize("argv", [
     ["--im", "no+such+tag"],
-    ["--precision", "bf16"],
 ])
 def test_unknown_or_unported_exits_1(argv, capsys):
     rc = cli.main(["-n", "300", "-i", "1", "--nv", "--device", "cpu",
@@ -77,6 +76,17 @@ def test_unknown_or_unported_exits_1(argv, capsys):
     out = capsys.readouterr()
     assert ("not yet ported" in out.out + out.err
             or "does not exist" in out.out), out
+
+
+def test_precision_bf16_exits_0(capsys):
+    """``--precision bf16`` runs (it was refused before the port carried
+    it): a bf16 state, half the fp32 banner's memory."""
+    res = cli.run(["-n", "300", "-i", "1", "--nv", "--device", "cpu",
+                   "--precision", "bf16"])
+    assert res.rc == 0 and res.engine.bodies.dtype == torch.bfloat16
+    out = capsys.readouterr().out
+    assert "precision                 : bf16" in out
+    assert "mem. allocated            : 0.0078125 MB" in out
 
 
 @pytest.mark.parametrize("argv", [
