@@ -16,7 +16,10 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      at 16384^2, 5000x16384 and 8000^2, the m=20 node sweep's shape, each
      launched twice for the same bits; K4's passes 3 held to 4e-7 and to
      at most half the error of the fp32 sum with no j split, launched
-     twice for the same bits, beside its bound; K5 and K6 on the merger,
+     twice for the same bits, beside its bound; K4's passes 1 (its own
+     kernel, csrc/hybrid_fast.cu) against its plain version (1e-3 a body,
+     rms 2e-5) and float64 (5.1e-3), twice for the same bits, in turns
+     with K3; K5 and K6 on the merger,
      81,920^2, at R = 2, 1 and 8 weight rows, each launched twice for the
      same bits, K6's force bit for bit K3's and K5's rows bit for bit K6's
      at K6's geometry and j split);
@@ -24,7 +27,8 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      (``murb_tpu_torch.cli.run``, whose exit code ``cli.main`` returns),
      plus a small CPU-vs-card trajectory check;
   5. K3 on the path: one ``acc_proxy`` at m=20 (8000 nodes) on that state;
-  6. K4 on the path: ``--im tpu+hybrid`` (passes 2, which runs K3's
+  6. K4 on the path: ``--im tpu+hybrid+fast`` (passes 1, its own kernel,
+     and no K3 launch), ``--im tpu+hybrid`` (passes 2, which runs K3's
      kernel) and ``--im tpu+hybrid+x3`` (passes 3, K4's own kernel) at
      N=30,000 through the CLI;
   7. the tracked paths at full width: ``tpu+tracking`` and
@@ -91,7 +95,9 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      to 4 shards, with and without a sleep before every copy and compute, at D
      = 1 bit for bit K3's output, and K3 and K4's tiers at 200,192^2 against
      the same float64 sweep (passes 3 within 4e-7 and half the unsplit
-     fp32 error, twice for the same bits, beside its bound); ``--im
+     fp32 error, twice for the same bits, beside its bound), and passes 1
+     within 5.1e-3 (the whole galaxy and its 512-row sample) in turns
+     with K3; ``--im
      shard+ring --shards 1`` through the CLI
      (its force error after 10 steps held to 5e-4); ``shard+ring`` on 4 shards
      against ``tpu+tile`` (accelerations, positions after 10 steps, FPS) and
@@ -148,7 +154,12 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      run's), ``tpu+tile``, ``tpu+hybrid``, ``+fast`` and ``+x3`` at
      200,192 bodies in bf16; and the card's power (nvidia-smi) through
      scripts/torch_measure_energy.py around 1000 steps of the 200k proxy
-     run at fp32 and at bf16 (mean W and J a step of the frame loop).
+     run at fp32 and at bf16 (mean W and J a step of the frame loop); the
+     1M two-cluster box in bf16 (its plan, validated error, the bf16
+     instances of K10-K12 launched, ms a step in turns with fp32), those
+     three bit for bit their fp32 instances on its sorted bodies, against
+     float64 and in turns with fp32, and the merger's tracked energy in
+     bf16 (row 0 within 1e-3 of float64).
 Each piece of the path (the CLI run of phase 4, the ``acc_proxy`` of phase
 5, each CLI run of phase 6, each run of phases 7 to 11) starts from zeroed
 launch counts, which are read right after it: K1 and K2 from phase 4, K3
@@ -160,7 +171,9 @@ run of phase 9, K13 from the ``tpu+mxu`` run of phase 10, K14 from the
 and K9 from phase 15's ``tpu+proxy --precision bf16`` run (the ladder's
 rungs launch all four; the rung it keeps, its pair every step), K3's from its
 ``tpu+tile`` run and K4's from each ``tpu+hybrid`` run (each must launch
-in each).  Every kernel must have launched in
+in each), K4's passes 1 from phase 6's ``tpu+hybrid+fast`` run (and its
+bf16 instance from phase 15's), K10-K12's bf16 instances from phase 15's
+1M bf16 run.  Every kernel must have launched in
 its piece.  The line before the last is the kernels' JSON
 record (with each kernel's bound: the larger of its bytes over 3.35 TB/s
 and its operations over the 67 TFLOP/s fp32 peak of an H100 SXM; K5's and
@@ -176,6 +189,7 @@ exits non-zero without printing a result otherwise.
 from __future__ import annotations
 
 import ctypes
+import functools
 import itertools
 import json
 import os
@@ -242,6 +256,43 @@ def ext_bound_ms(ni: int, nj: int, sms: int, clk: float) -> dict:
             "mufu": pairs / (16 * per_clock) * 1e3,
             "f2f": 0.75 * pairs / (16 * per_clock) * 1e3,
             "dadd": 0.75 * pairs / (64 * per_clock) * 1e3}
+
+
+#: issue slots a pair of K4's passes 1 (csrc/hybrid_fast.cu): 3 FADD, 3
+#: FFMA, 2 FMUL, 1 IADD and the MUFU rsqrt's own slot, and a sixteenth of a
+#: chunk's 2 LDS.128, 1 LDS.64 and 4 HMMA a lane (16 pairs a lane a chunk)
+FAST_ISSUE = 10 + 7 / 16
+
+
+def fast_bound_ms(ni: int, nj: int, sms: int, clk: float) -> dict:
+    """The floors (ms) of K4's passes 1 over ni x nj pairs at its own
+    instruction count: one MUFU rsqrt a pair at 16 a clock an SM, and
+    FAST_ISSUE issue slots a pair at one warp instruction a clock a
+    sub-partition (128 thread instructions a clock an SM), at ``clk`` Hz
+    on ``sms`` SMs."""
+    pairs = float(ni) * nj
+    per_clock = sms * clk
+    return {"mufu": pairs / (16 * per_clock) * 1e3,
+            "issue": FAST_ISSUE * pairs / (128 * per_clock) * 1e3}
+
+
+def body_errs(got, ref) -> tuple[float, float]:
+    """(max, rms) over bodies of |a - a_ref| / max(|a_ref|, 1e-6 max
+    |a_ref|): the ops/validate statistic and its rms."""
+    import torch
+
+    g = torch.stack([v.double() for v in got], 1)
+    r = torch.stack([v.double() for v in ref], 1)
+    rn = r.norm(dim=1)
+    e = (g - r).norm(dim=1) / torch.clamp(rn, min=1e-6 * float(rn.max()))
+    return float(e.max()), float(e.pow(2).mean().sqrt())
+
+
+def in_turns(time_ms, fn32, fn16, **kw) -> tuple[float, float]:
+    """The fp32 and the bf16 instance timed by ``time_ms`` in turns (32,
+    16, 16, 32): the medians of each."""
+    a, b, c, d = (time_ms(f, **kw) for f in (fn32, fn16, fn16, fn32))
+    return statistics.median((a, d)), statistics.median((b, c))
 
 
 def check(cond: bool, msg: str) -> None:
@@ -896,7 +947,8 @@ def phase15(dev, smi, drive, time_ms, within_rel, norm_rel, keep, n_main,
     from murb_tpu_torch.ops import proxy_kernels as tk
     from murb_tpu_torch.ops.hybrid import (acc_hybrid_rect,
                                            acc_hybrid_rect_plain,
-                                           ext_split_args)
+                                           ext_split_args, fast_packed,
+                                           fast_split_args)
     from murb_tpu_torch.ops.proxy import bounding_box, heavy_split
     from murb_tpu_torch.ops.tile import (acc_tile_rect, acc_tile_rect_plain,
                                          split_args)
@@ -906,11 +958,7 @@ def phase15(dev, smi, drive, time_ms, within_rel, norm_rel, keep, n_main,
     t_phase = time.perf_counter()
     launches = {}
 
-    def turns(fn32, fn16, **kw):
-        """The fp32 and the bf16 instance timed in turns (32, 16, 16, 32):
-        the medians of each."""
-        a, b, c, d = (time_ms(f, **kw) for f in (fn32, fn16, fn16, fn32))
-        return statistics.median((a, d)), statistics.median((b, c))
+    turns = functools.partial(in_turns, time_ms)
 
     # ---- K3 and K4: the same bits as the fp32 instance at 200,192^2 (the
     # main path's tpu+tile and tpu+hybrid), the j split of the fp32
@@ -928,12 +976,30 @@ def phase15(dev, smi, drive, time_ms, within_rel, norm_rel, keep, n_main,
                     cuda.stream(dev))
         return out
 
+    def fast_sweep(entry, q, split):
+        """K4's passes 1 through its C entry (no launch counted), which
+        forms the sources' centre itself."""
+        n = q[0].shape[0]
+        out = torch.empty((3, n), dtype=torch.float32, device=dev)
+        center = torch.empty(3, dtype=torch.float32, device=dev)
+        packed = fast_packed(n, dev)
+        cuda.launch(entry, *(v.data_ptr() for v in q[:3]), n,
+                    *(v.data_ptr() for v in q), n, center.data_ptr(),
+                    ctypes.c_float(SOFT ** 2), 0, 0, *split,
+                    packed.data_ptr(), *(o.data_ptr() for o in out),
+                    cuda.stream(dev))
+        return out
+
     n = st.npad
     split, _sc = split_args(n, n, 0, 0, dev)
     esplit, _esc = ext_split_args(n, n, 0, 0, dev)
+    fsplit, _fsc = fast_split_args(n, n, 0, 0, dev)
     same = {"K3": torch.equal(sweep("murb_tile_rect", q32, split),
-                              sweep("murb_tile_rect_bf16", q16, split))}
-    for p in (1, 2, 3):
+                              sweep("murb_tile_rect_bf16", q16, split)),
+            "K4 p1": torch.equal(fast_sweep("murb_hybrid_fast", q32, fsplit),
+                                 fast_sweep("murb_hybrid_fast_bf16", q16,
+                                            fsplit))}
+    for p in (2, 3):
         sp = esplit if p == 3 else split
         same[f"K4 p{p}"] = torch.equal(
             sweep("murb_hybrid_rect", q32, sp, p),
@@ -945,16 +1011,18 @@ def phase15(dev, smi, drive, time_ms, within_rel, norm_rel, keep, n_main,
     res = {e: cuda.resident(e, dev) for e in (
         "murb_tile_resident", "murb_tile_resident_bf16",
         "murb_hybrid_resident", "murb_hybrid_resident_bf16")}
-    print(f"[15 bits] {n}^2: K3 (j split {split[:2]}) and K4 passes 1, 2 "
-          f"(K3's split), 3 (split {esplit[:2]}): the bf16 instances give "
+    print(f"[15 bits] {n}^2: K3 (j split {split[:2]}) and K4 passes 1 "
+          f"(split {fsplit[:2]}), 2 (K3's split), 3 (split {esplit[:2]}): "
+          f"the bf16 instances give "
           f"the fp32 instances' bits on the arrays upcast; resident blocks "
           f"an SM {res}; K3 in turns through the wrapper: bf16 "
           f"{k3_16:.4f} ms, fp32 {k3_32:.4f} ms on {smi}")
-    del _sc, _esc
+    del _sc, _esc, _fsc
 
     # ---- at the rows' shape, 16384^2: against the plain version (bf16 out
     # on both sides: WithinRel 1e-2, rms floor 1e-4) and float64 (the fp32
-    # instance's contracts: K3 WithinRel 5e-6, K4 p1/p2 3e-5, p3 4e-7)
+    # instance's contracts: K3 WithinRel 5e-6, K4 p1 5.1e-3, p2 3e-5, p3
+    # 4e-7)
     sr = init_random(16_300, SEED, dtype=bf16, device=dev)
     j16 = (sr.qx, sr.qy, sr.qz, sr.m * in_dtype(G, bf16))
     j32 = tuple(v.float() for v in j16)
@@ -970,10 +1038,19 @@ def phase15(dev, smi, drive, time_ms, within_rel, norm_rel, keep, n_main,
     # (the bf16 instances hold other register counts, so their splits may
     # differ from the fp32 ones')
     def splits(tier, sfx):
+        if tier == "p1":
+            return fast_split_args(ns, ns, 0, 0, dev,
+                                   "murb_hybrid_fast_resident" + sfx)
         if tier != "p3":
             return split_args(ns, ns, 0, 0, dev, "murb_tile_resident" + sfx)
         return ext_split_args(ns, ns, 0, 0, dev,
                               "murb_hybrid_resident" + sfx)
+
+    def raw_sweep(tier, entry, q, sp, extra):
+        """A tier's own fp32 sums through its C entry at split ``sp``."""
+        if tier == "p1":
+            return fast_sweep(entry, q, sp)
+        return sweep(entry, q, sp, *extra)
 
     # each instance alone (its launches in a CUDA graph: no output rounding
     # to bf16, no wrapper) at its own split, in turns
@@ -987,7 +1064,7 @@ def phase15(dev, smi, drive, time_ms, within_rel, norm_rel, keep, n_main,
                        for sfx, q in (("", sq32), ("_bf16", sq16),
                                       ("_bf16", sq16), ("", sq32))]
         del sp
-    for tier, contract in (("K3", None), ("p1", 3e-5), ("p2", 3e-5),
+    for tier, contract in (("K3", None), ("p1", 5.1e-3), ("p2", 3e-5),
                            ("p3", 4e-7)):
         if tier == "K3":
             entry, extra = "murb_tile_rect", ()
@@ -996,7 +1073,8 @@ def phase15(dev, smi, drive, time_ms, within_rel, norm_rel, keep, n_main,
             plain = lambda: acc_tile_rect_plain(*j16[:3], *j16, SOFT)
         else:
             p = int(tier[1])
-            entry, extra = "murb_hybrid_rect", (p,)
+            entry, extra = ("murb_hybrid_fast", ()) if p == 1 else (
+                "murb_hybrid_rect", (p,))
             run16 = lambda: acc_hybrid_rect(*j16[:3], *j16, SOFT, passes=p)
             run32 = lambda: acc_hybrid_rect(*j32[:3], *j32, SOFT, passes=p)
             plain = lambda: acc_hybrid_rect_plain(*j16[:3], *j16, SOFT,
@@ -1007,11 +1085,11 @@ def phase15(dev, smi, drive, time_ms, within_rel, norm_rel, keep, n_main,
         # the wrapper's outputs are these rounded, and the fp32 instance
         # gives the same bits at that split on the arrays upcast
         sp16, sc16 = splits(tier, "_bf16")
-        raw = sweep(entry + "_bf16", sq16, sp16, *extra)
+        raw = raw_sweep(tier, entry + "_bf16", sq16, sp16, extra)
         check(all(torch.equal(g, r.to(bf16)) for g, r in zip(got, raw)),
               f"bf16 {tier}: the wrapper's outputs are not the bf16 "
               f"instance's sums at split {sp16[:2]} rounded")
-        check(torch.equal(raw, sweep(entry, sq32, sp16, *extra)),
+        check(torch.equal(raw, raw_sweep(tier, entry, sq32, sp16, extra)),
               f"bf16 {tier}: not the fp32 instance's bits at split "
               f"{sp16[:2]}")
         del sc16
@@ -1033,7 +1111,8 @@ def phase15(dev, smi, drive, time_ms, within_rel, norm_rel, keep, n_main,
         plain_ms = time_ms(plain, reps=3)
         # bf16 in: 2 bytes a value (targets 3, sources 4), fp32 out
         nbytes, flops = 6 * ns + 8 * ns + 12 * ns, 20 * ns * ns
-        floors = ext_bound_ms(ns, ns, sms, clk) if tier == "p3" else None
+        floors = (ext_bound_ms(ns, ns, sms, clk) if tier == "p3" else
+                  fast_bound_ms(ns, ns, sms, clk) if tier == "p1" else None)
         line = (f"[15 bf16 {tier} {ns}^2] the bf16 instance's fp32 sums at "
                 f"its split {sp16[:2]}: the fp32 instance's bits there, the "
                 f"wrapper's outputs rounded; vs plain at {wp:.3f} of "
@@ -1043,10 +1122,11 @@ def phase15(dev, smi, drive, time_ms, within_rel, norm_rel, keep, n_main,
         if tier in ("K3", "p3"):
             line += ("; alone (each at its own split) fp32, bf16, bf16, "
                      "fp32: " + ", ".join(f"{a:.4f}" for a in alone[tier]))
-            key = "K3-bf16" if tier == "K3" else "K4-bf16"
+        if tier != "p2":
+            key = {"K3": "K3-bf16", "p1": "K4-p1-bf16", "p3": "K4-bf16"}[tier]
             b_ms = keep(key, err, ms16, plain_ms, nbytes, flops,
                         None if floors is None else max(
-                            floors["mufu"], floors["f2f"], floors["dadd"]))
+                            v for k, v in floors.items() if k != "fp32"))
             line += f"; bound {b_ms:.4f} ms"
         print(line)
 
@@ -1239,7 +1319,7 @@ def phase15(dev, smi, drive, time_ms, within_rel, norm_rel, keep, n_main,
           f"ms for 99 steps); {e.allocated_bytes} bytes, half the fp32 "
           f"run's {fp32_bytes}; launches {counts} on {smi}")
     for tag, key in (("tpu+tile", "K3-bf16"), ("tpu+hybrid", "K4-bf16"),
-                     ("tpu+hybrid+fast", "K4-bf16"),
+                     ("tpu+hybrid+fast", "K4-p1-bf16"),
                      ("tpu+hybrid+x3", "K4-bf16")):
         (res, _), counts = drive(lambda: cli_run([
             "-n", "200192", "-i", "4", "--im", tag, "--precision", "bf16",
@@ -1275,6 +1355,263 @@ def phase15(dev, smi, drive, time_ms, within_rel, norm_rel, keep, n_main,
     return launches
 
 
+def phase15_adaptive(dev, smi, drive, time_ms, keep, rel_max,
+                     near_body_pairs, e9, st9, soft9, dt9, tab):
+    """15 (continued). The 1M two-cluster box (phase 9's, bench.py:442-460)
+    in bf16 through ``create_engine`` (auto policy; no rung meets 1e-4 in
+    bf16, so the adaptive ladder keeps its best order with a warning): the
+    plan it adopts and its validated error, the bf16 instances of K10, K11
+    and K12 launched on its path and the fp32 ones not, and ms a step in
+    turns with phase 9's fp32 engine; on that state's own sorted bodies and
+    plan, each of the three bit for bit its fp32 instance on the arrays
+    upcast, held to phase 9's contracts (K10 3e-5 of the largest magnitude
+    against float64; K11 and K12 1e-4 against their plain versions on the
+    same fp32 values, their distance from float64 printed) and timed in
+    turns with the fp32
+    instance beside its bound; and the merger (81,920 bodies,
+    bench.py:515-547) through the CLI with ``tpu+tracking+multi
+    --precision bf16``: energy row 0 within 1e-3 of the float64 energy of
+    the same bf16 state (tests/test_torch_bf16_cli.py's rule).  Records the
+    three kernels through ``keep`` and returns their launch counts."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from murb_tpu_torch import cli
+    from murb_tpu_torch.core import metrics as tm
+    from murb_tpu_torch.core.init import (init_milkyway_andromeda,
+                                          milkyway_andromeda_masks)
+    from murb_tpu_torch.models import create_engine
+    from murb_tpu_torch.ops import anterp_kernels as ak
+    from murb_tpu_torch.ops import cuda
+    from murb_tpu_torch.ops import fmm_kernels as fk
+    from murb_tpu_torch.ops import p2p as pp
+    from murb_tpu_torch.ops import p2p_kernels as pk
+    from murb_tpu_torch.ops import sparse_fmm as sf
+    from murb_tpu_torch.ops.fmm import _heavy_setup
+    from murb_tpu_torch.utils.profile_step import graph_ms
+
+    bf16 = torch.bfloat16
+    t_phase = time.perf_counter()
+    launches = {}
+
+    turns = functools.partial(in_turns, time_ms)
+
+    # ---- the 1M box in bf16: plan, validation, 2 steps (the order the
+    # ladder keeps sets the step's cost: every rung misses 1e-4 in bf16)
+    st16 = st9.astype(bf16)
+
+    def build_and_run():
+        buf = io.StringIO()
+        t1 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            e = create_engine("tpu+proxy", st16, soft=soft9, dt=dt9)
+        t_build = time.perf_counter() - t1
+        e.run(2)
+        e.block_until_ready()
+        return e, t_build, buf.getvalue()
+
+    (e16, t_build, said), counts = drive(build_and_run)
+    e16.assert_finite()
+    check(e16.bodies.dtype == bf16 and e16.near_mode == "adaptive"
+          and e16.using_proxy,
+          f"the bf16 two-cluster box took near_mode={e16.near_mode} "
+          f"using_proxy={e16.using_proxy}, state {e16.bodies.dtype}")
+    for k in ("K10", "K11", "K12"):
+        check(counts[f"{k}-bf16"] > 0 and counts[k] == 0,
+              f"{k}: the bf16 run did not launch its bf16 instance alone: "
+              f"{counts}")
+        launches[f"{k}-bf16"] = counts[f"{k}-bf16"]
+    plan = e16._plan
+
+    def step_ms(e, n=1):
+        e.block_until_ready()
+        t1 = time.perf_counter()
+        e.run(n)
+        e.block_until_ready()
+        return (time.perf_counter() - t1) / n * 1e3
+
+    t_steps = [step_ms(e) for e in (e9, e16, e16, e9)]
+    for line in said.splitlines():
+        if line.startswith(("WARNING", "adaptive")):
+            print(f"[15 adaptive] {line.strip()}")
+    print(f"[15 adaptive] tpu+proxy --precision bf16 N={st16.n} two "
+          f"clusters (engine with plan and validation in {t_build:.1f} s): "
+          f"near_mode={e16.near_mode} m={plan.m} dense levels="
+          f"{plan.dense_levels} levels={plan.levels} cell caps "
+          f"{plan.cell_caps} pmax {plan.p2p_pmax}, validated_err "
+          f"{e16.validated_err:.3e} (fp32: m={e9._plan.m}, "
+          f"{e9.validated_err:.3e}); {st16.allocated_bytes} bytes against "
+          f"{st9.allocated_bytes}; ms a step in turns fp32, bf16, bf16, "
+          f"fp32: " + ", ".join(f"{t:.2f}" for t in t_steps)
+          + f"; launches {counts} on {smi}")
+
+    # ---- K10, K11 and K12 on the bf16 state's own sorted bodies, cells
+    # and plan (the cells and the kernels' box from the bf16 box upcast,
+    # ops/fmm_kernels.cell_box)
+    q16 = (st16.qx, st16.qy, st16.qz)
+    c, h, *_rest, ge = _heavy_setup(*q16, e16._gm(st16), 1, sf.HEAVY_FACTOR)
+    h = h.max().expand(3)
+    C = 2 ** plan.levels
+    key, ci = pp.sorted_cells(*q16, ge > 0, c, h, C)
+    key, perm = torch.sort(key, stable=True)
+    b16 = tuple(v[perm] for v in (*q16, ge))
+    b32 = tuple(v.float() for v in b16)
+    b64 = tuple(v.double() for v in b16)
+    ci = tuple(v[perm] for v in ci)
+    cells32 = [v.to(torch.int32).contiguous() for v in ci]
+    c32, h32 = c.float(), h.float()
+    box = torch.cat(fk.cell_box(c, h, C)).to(torch.float32)
+    n, B, m = st16.npad, st16.npad // pp.DEFAULT_K, plan.m
+    sms = cuda.sm_count(dev)
+
+    # K10 (nf 3): the raw fp32 sums of both instances
+    soft2 = float(torch.tensor(soft9, dtype=torch.float32) ** 2)
+    pmax = plan.p2p_pmax
+    o16, np16 = pk.p2p_sorted_launch(*b16, cells32, soft2, pmax=pmax)
+    o32, _ = pk.p2p_sorted_launch(*b32, cells32, soft2, pmax=pmax)
+    check(torch.equal(o16, o32), "bf16 K10: not the fp32 instance's bits")
+    ref, _ = pp.p2p_sweep_plain_sorted(*b64, ci, soft9, pmax=pmax,
+                                       chunk=1024)
+    ref = [r.reshape(-1) for r in ref]
+    err10 = rel_max(list(o16), ref)
+    check(err10 <= 3e-5, f"bf16 K10: {err10:.3e} of max|a| against float64")
+    ms32, ms16 = turns(
+        lambda: pk.p2p_sweep_kernel_sorted(*b32, ci, soft9, pmax=pmax),
+        lambda: pk.p2p_sweep_kernel_sorted(*b16, ci, soft9, pmax=pmax),
+        reps=3, runs=3)
+    plain_ms = time_ms(lambda: pp.p2p_sweep_plain_sorted(
+        *b16, ci, soft9, pmax=pmax, chunk=1024), reps=1, runs=1)
+    near, _swept, _cls = near_body_pairs(ci, pmax, C)
+    # phase 9's model with the body rows in at 8 bytes
+    nbytes, flops = 20 * n + B * B + 8 * B + 12 * n, 20 * near
+    b_ms = keep("K10-bf16", err10 * max(float(r.abs().max()) for r in ref),
+                ms16, plain_ms, nbytes, flops)
+    print(f"[15 bf16 K10 N={n} B={B}] {int(np16)} brick pairs (pmax "
+          f"{pmax}), {near} body pairs pass the mask; the fp32 instance's "
+          f"bits; vs float64 {err10:.3e} of max|a| (tol 3e-5); in turns "
+          f"through the wrapper: bf16 {ms16:.4f} ms, fp32 {ms32:.4f} ms; "
+          f"plain {plain_ms:.4f} ms; bound {b_ms:.4f} ms")
+    del o16, o32, ref
+
+    # K11: W of the finest slots
+    cap = plan.cell_caps[-1]
+    _, slots = sf._occupied_and_slots(key, cap)
+    sl32 = slots.to(torch.int32)
+    items = ak.window_items(sl32, cap, fk.p2m_chunk(n, m, sms))
+    w16 = ak.p2m_window_launch(*b16, cells32, box, items, m)
+    check(torch.equal(w16, ak.p2m_window_launch(*b32, cells32, box, items,
+                                                m)),
+          "bf16 K11: not the fp32 instance's bits")
+    w64 = ak.p2m_window_plain(*b64, c.double(), h.double(), slots, cap, m=m,
+                              C=C, ci=ci)
+    err11 = rel_max([w16[:cap]], [w64[:cap]])
+    # against float64 the in-cell coordinates' fp32 rounding (phase 9's
+    # note) grows with the order: at m=12 it passes phase 9's 1e-4, so the
+    # contract is held against the plain version on the same fp32 values
+    pl11 = rel_max([w16[:cap]], [ak.p2m_window_plain(
+        *b32, c32, h32, slots, cap, m=m, C=C, ci=ci)[:cap]])
+    check(pl11 <= 1e-4, f"bf16 K11 m={m}: {pl11:.3e} of max|W| against its "
+                        f"plain version")
+    wrap = lambda b: ak.p2m_window(*b, c32, h32, slots, cap, m=m, C=C,
+                                   ci=ci)
+    ms32, ms16 = turns(lambda: wrap(b32), lambda: wrap(b16))
+    alone = [graph_ms(lambda: ak.p2m_window_launch(*b, cells32, box, items,
+                                                   m))
+             for b in (b32, b16, b16, b32)]
+    plain_ms = time_ms(lambda: ak.p2m_window_plain(
+        *b16, c32, h32, slots, cap, m=m, C=C, ci=ci), reps=1, runs=3)
+    # phase 9's model with the four body values in at 2 bytes each
+    nbytes = 24 * n + 4 * (cap + 1) * m ** 3
+    flops = n * (2 * m ** 3 + 6 * m ** 2)
+    b_ms = keep("K11-bf16", err11 * float(w64.abs().max()), ms16, plain_ms,
+                nbytes, flops)
+    print(f"[15 bf16 K11 N={n} m={m} C={C} cap={cap}] the fp32 instance's "
+          f"bits; vs its plain version in fp32 {pl11:.3e} of max|W| (tol "
+          f"1e-4), vs float64 {err11:.3e}; in turns: "
+          f"bf16 {ms16:.4f} ms, fp32 {ms32:.4f} ms through the wrapper, "
+          f"alone fp32, bf16, bf16, fp32: "
+          f"{', '.join(f'{a:.4f}' for a in alone)}; plain {plain_ms:.4f} "
+          f"ms; bound {b_ms:.4f} ms")
+
+    # K12: three seeded fields of the finest slots (the dump row 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    f32 = [torch.randn((cap + 1, m ** 3), generator=gen, device=dev)
+           for _ in range(3)]
+    for f in f32:
+        f[cap] = 0.0
+    items12 = ak.window_items(sl32, cap, fk.l2p_item(m))
+    o16 = ak.l2p_window_launch(*b16[:3], cells32, box, items12, m, f32)
+    check(torch.equal(o16, ak.l2p_window_launch(*b32[:3], cells32, box,
+                                                items12, m, f32)),
+          "bf16 K12: not the fp32 instance's bits")
+    a64 = ak.l2p_window_plain(*b64[:3], c.double(), h.double(), slots,
+                              tuple(f.double() for f in f32), m=m, C=C,
+                              ci=ci)
+    err12 = rel_max(list(o16), a64)
+    pl12 = rel_max(list(o16), ak.l2p_window_plain(
+        *b32[:3], c32, h32, slots, f32, m=m, C=C, ci=ci))
+    check(pl12 <= 1e-4, f"bf16 K12 m={m}: {pl12:.3e} of max|a| against its "
+                        f"plain version")
+    wrap = lambda b: ak.l2p_window(*b[:3], c32, h32, slots, f32, m=m, C=C,
+                                   ci=ci)
+    ms32, ms16 = turns(lambda: wrap(b32), lambda: wrap(b16))
+    alone = [graph_ms(lambda: ak.l2p_window_launch(*b[:3], cells32, box,
+                                                   items12, m, f32))
+             for b in (b32, b16, b16, b32)]
+    plain_ms = time_ms(lambda: ak.l2p_window_plain(
+        *b16[:3], c32, h32, slots, f32, m=m, C=C, ci=ci), reps=1, runs=3)
+    nbytes = 18 * n + 4 * 3 * ((cap + 1) * m ** 3 + n)
+    flops = n * (2 * 3 * m ** 3 + 6 * m ** 2)
+    b_ms = keep("K12-bf16", err12 * max(float(a.abs().max()) for a in a64),
+                ms16, plain_ms, nbytes, flops)
+    print(f"[15 bf16 K12 N={n} m={m} nf=3] the fp32 instance's bits; vs "
+          f"its plain version in fp32 {pl12:.3e} of max|a| (tol 1e-4), vs "
+          f"float64 {err12:.3e}; in turns: bf16 "
+          f"{ms16:.4f} ms, fp32 {ms32:.4f} ms through the wrapper, alone "
+          f"fp32, bf16, bf16, fp32: {', '.join(f'{a:.4f}' for a in alone)};"
+          f" plain {plain_ms:.4f} ms; bound {b_ms:.4f} ms")
+    del e16, st16, b16, b32, b64, w16, w64, o16, a64, f32
+    torch.cuda.empty_cache()
+
+    # ---- the merger in bf16 through the CLI (K4 force, K5 metrics): row
+    # 0's energy against the float64 energy of the same bf16 state, each
+    # galaxy's own energy summed, the softening unrounded (K5 takes it so)
+    mg16 = init_milkyway_andromeda(tab, dtype=bf16, device=dev)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res, counts = drive(lambda: cli.run([
+            "-n", str(mg16.n), "-i", "10", "--im", "tpu+tracking+multi",
+            "-s", "milkyway_andromeda", "--scheme-file", tab, "--precision",
+            "bf16", "--nv", "--gf", "--device", "cuda"]))
+    check(res.rc == 0, f"cli tpu+tracking+multi bf16 exit code {res.rc}\n"
+                       f"{buf.getvalue()[-2000:]}")
+    res.engine.assert_finite()
+    check(res.engine.bodies.dtype == bf16, "the merger's state is not bf16")
+    hist = res.engine.finalize_history()   # the galaxies' series summed
+    exact = 0.0
+    for mask in milkyway_andromeda_masks(mg16.npad, mg16.n):
+        sg = tm.masked(mg16, torch.as_tensor(mask, device=dev))
+        q64 = [v.double() for v in (sg.qx, sg.qy, sg.qz, sg.m)]
+        pe = tm.potential_energy_per_body(*q64, tm._gm(sg).double(), SOFT)
+        ke = tm.kinetic_energy_per_body(sg.m, sg.vx, sg.vy, sg.vz)
+        exact += float((0.5 * pe + 0.5 * ke).sum())
+    e0 = float(hist.energies[0])
+    rel = abs(e0 / exact - 1.0)
+    check(bool(np.isfinite(hist.energies).all()) and rel <= 1e-3,
+          f"bf16 merger energy row 0 {e0:.9e} vs float64 {exact:.9e}: rel "
+          f"{rel:.3e} > 1e-3")
+    print(f"[15 merger] tpu+tracking+multi --precision bf16 N={mg16.n} "
+          f"through the CLI: energy row 0 {e0:.9e} vs float64 "
+          f"{exact:.9e} (rel {rel:.3e}, tol 1e-3); {res.fps:.2f} FPS; "
+          f"launches {counts} on {smi}")
+    print(f"[15 time] phase 15's adaptive and merger runs took "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1295,11 +1632,13 @@ def main() -> int:
     from murb_tpu_torch.ops import cuda
     from murb_tpu_torch.ops import fmm_kernels as fk
     from murb_tpu_torch.ops.anterp_kernels import l2p_window, p2m_window
-    from murb_tpu_torch.ops.hybrid import (acc_hybrid_rect,
+    from murb_tpu_torch.ops.hybrid import (acc_hybrid_fast_plain,
+                                           acc_hybrid_rect,
                                            acc_hybrid_rect_plain,
                                            acc_phi_rows_hybrid,
                                            acc_phi_rows_plain,
-                                           ext_split_args, phi_rows,
+                                           ext_split_args, fast_split_args,
+                                           phi_rows,
                                            phi_rows_rect,
                                            phi_rows_rect_plain,
                                            phi_split_args)
@@ -1538,7 +1877,8 @@ def main() -> int:
                     None, *(o.data_ptr() for o in out), cuda.stream(dev))
         return list(out)
 
-    # passes 1/2 run K3's fp32 kernel; passes 3 runs K3's sweep in its
+    # passes 2 runs K3's fp32 kernel (passes 1, its own kernel, below);
+    # passes 3 runs K3's sweep in its
     # extended tier (runs of 4 sources in fp32 folded into fp64, fp64 j
     # slices).  On this input the fp32 tier reads under 1e-6, and how far
     # under moves with K3's j split, which can take it below passes 3's
@@ -1548,7 +1888,7 @@ def main() -> int:
     # for the same bits.  Its bound counts its own work (ext_bound_ms).
     ref = acc_tile_rect_plain(*j64[:3], *j64, SOFT)
     rels, sums = {}, {}
-    for passes, contract in ((1, 3e-5), (2, 3e-5), (3, 4e-7)):
+    for passes, contract in ((2, 3e-5), (3, 4e-7)):
         got = sums[passes] = acc_hybrid_rect(*jset[:3], *jset, SOFT,
                                              passes=passes)
         rel = rels[passes] = norm_rel(got, ref)
@@ -1587,6 +1927,50 @@ def main() -> int:
           f"{cuda.tile_split(sr.npad, sr.npad, sms, resident)[0]} slices "
           f"{rels[2]:.3e}; passes 3 {rels[3]:.3e}, at most half the "
           f"unsplit reading")
+
+    # K4 passes 1, its own kernel (csrc/hybrid_fast.cu), at 16384^2:
+    # against its plain version on the card, the same TF32 arithmetic
+    # (where the card's rsqrt and torch's differ in the last bit, a W next
+    # to a rounding tie takes the other TF32 neighbour: each body within
+    # one TF32 ulp, 1e-3, and the rms over the bodies within 2e-5, as
+    # K13's "default"); against float64 within the tier's 5.1e-3
+    # (tests/test_oracle.py:162-165); twice for the same bits; in turns
+    # with K3 (K3, p1, p1, K3).  Bound: the larger of its MUFU floor and
+    # its issue floor at its own instruction count (fast_bound_ms).
+    ns = sr.npad
+    fast = lambda: acc_hybrid_rect(*jset[:3], *jset, SOFT, passes=1)
+    k3f = lambda: acc_tile_rect(*jset[:3], *jset, SOFT)
+    got = fast()
+    check(all(torch.equal(a, b) for a, b in zip(got, fast())),
+          "K4 passes=1: two launches differ")
+    worst_p, rms_p = body_errs(got, acc_hybrid_fast_plain(*jset[:3], *jset,
+                                                          SOFT))
+    check(worst_p <= 1e-3 and rms_p <= 2e-5,
+          f"K4 passes=1 vs its plain version: max {worst_p:.3e} (tol "
+          f"1e-3), rms {rms_p:.3e} (tol 2e-5)")
+    rel_p1 = norm_rel(got, ref)
+    check(rel_p1 <= 5.1e-3, f"K4 passes=1: max relative force error "
+                            f"{rel_p1:.3e} > 5.1e-3")
+    err_p1 = max(float((g.double() - r).abs().max())
+                 for g, r in zip(got, ref))
+    t_k3a, t_p1a, t_p1b, t_k3b = (time_ms(f) for f in (k3f, fast, fast, k3f))
+    ms_p1 = statistics.median((t_p1a, t_p1b))
+    plain_p1 = time_ms(lambda: acc_hybrid_fast_plain(*jset[:3], *jset,
+                                                     SOFT), reps=3)
+    floors = fast_bound_ms(ns, ns, sms, clk)
+    b_p1 = keep("K4-p1", err_p1, ms_p1, plain_p1, 40 * ns, 20 * ns * ns,
+                max(floors.values()))
+    print(f"[3 K4 hybrid passes=1 N={ns}] its own kernel (resident "
+          f"{cuda.resident('murb_hybrid_fast_resident', dev)} blocks an SM "
+          f"at 256x256, j split {fast_split_args(ns, ns, 0, 0, dev)[0][:2]}"
+          f"): vs its plain version max {worst_p:.3e} (tol 1e-3) rms "
+          f"{rms_p:.3e} (tol 2e-5); max rel force err {rel_p1:.3e} (contract"
+          f" 5.1e-3; passes 2 {rels[2]:.3e}) max|da| {err_p1:.3e}; the same "
+          f"bits twice; in turns K3, p1, p1, K3: {t_k3a:.4f}, {t_p1a:.4f}, "
+          f"{t_p1b:.4f}, {t_k3b:.4f} ms; plain {plain_p1:.4f} ms; bound "
+          f"{b_p1:.4f} ms (" + ", ".join(f"{k} {v:.4f}"
+                                         for k, v in floors.items())
+          + f" at {clk / 1e6:.0f} MHz) on {smi}")
     del st, sr, w64, a64, ref, sums
 
     # K5 and K6 at the merger's shape, 81,920^2: R = 2 (the merger's two
@@ -1739,11 +2123,16 @@ def main() -> int:
     def drive(run):
         """Zero every launch count, run one piece of the path, and return
         its result with the counts it left: each wrapper's ``launches``
-        (K13 and K14 join ``wrappers`` in their phases), and K7b's, K7's
-        lossy instance, which counts on K7's wrapper."""
+        (K13 and K14 join ``wrappers`` in their phases), K7b's, K7's
+        lossy instance, which counts on K7's wrapper, K4's passes 1
+        (its own kernel, counted apart on K4's wrapper) and the bf16
+        instances'."""
         counters = {k: (fn, "launches") for k, fn in wrappers.items()}
         counters["K7b"] = (fk.m2l_level_fused, "lossy_launches")
-        for k in ("K1", "K2", "K3", "K4", "K8", "K9"):   # bf16 (phase 15)
+        counters["K4-p1"] = (acc_hybrid_rect, "fast_launches")
+        counters["K4-p1-bf16"] = (acc_hybrid_rect, "fast_bf16_launches")
+        for k in ("K1", "K2", "K3", "K4", "K8", "K9", "K10", "K11",
+                  "K12"):                                # bf16 (phase 15)
             counters[f"{k}-bf16"] = (wrappers[k], "bf16_launches")
         for fn, attr in counters.values():
             setattr(fn, attr, 0)
@@ -1800,15 +2189,24 @@ def main() -> int:
           f"launches {counts}")
 
     # ------------------------------------------- 6. K4 through the CLI
-    # fp32 state takes passes 2 (K3's kernel, launched by K4's wrapper);
-    # tpu+hybrid+x3 takes passes 3, K4's own kernel, whose count is kept.
-    for tag in ("tpu+hybrid", "tpu+hybrid+x3"):
+    # tpu+hybrid+fast takes passes 1, its own kernel, and must launch no K3
+    # sweep (K3's wrapper or K4's passes 2/3 entry); fp32 state takes
+    # passes 2 (K3's kernel, launched by K4's wrapper); tpu+hybrid+x3
+    # takes passes 3, K4's own kernel, whose count is kept.
+    for tag in ("tpu+hybrid+fast", "tpu+hybrid", "tpu+hybrid+x3"):
         res6, counts = drive(lambda: cli.run([
             "-n", "30000", "-i", "10", "--im", tag, "--nv", "--gf",
             "--device", "cuda"]))
         check(res6.rc == 0, f"cli {tag} exit code {res6.rc}")
         res6.engine.assert_finite()
-        check(counts["K4"] > 0, f"K4 launched no time under {tag}")
+        if tag == "tpu+hybrid+fast":
+            check(counts["K4-p1"] > 0 and counts["K3"] == 0
+                  and counts["K4"] == 0,
+                  f"tpu+hybrid+fast did not run passes 1's kernel alone: "
+                  f"{counts}")
+            launches["K4-p1"] = counts["K4-p1"]
+        else:
+            check(counts["K4"] > 0, f"K4 launched no time under {tag}")
         print(f"[6 K4 path] {tag} N=30000 (passes {res6.engine.passes}): "
               f"{res6.fps:.2f} FPS {res6.gflops:.1f} ref-GFlop/s on {smi}; "
               f"launches {counts}")
@@ -3027,6 +3425,32 @@ def main() -> int:
           + ", ".join(f"{k} {v:.4f}" for k, v in floors.items())
           + f") on {smi}")
     del p3
+    # K4 passes 1 at this size: against the same float64 sweep within the
+    # tier's 5.1e-3, over the whole galaxy and its 512-row strided sample
+    # (ops/validate's), twice for the same bits, and in turns with K3 (K3,
+    # p1, p1, K3)
+    f11 = lambda: acc_hybrid_rect(*q3[:3], *q3, SOFT, passes=1)
+    k3f = lambda: acc_tile_rect(*q3[:3], *q3, SOFT)
+    p1 = f11()
+    check(all(torch.equal(a, b) for a, b in zip(p1, f11())),
+          f"K4 passes=1 at {n3}^2: two launches differ")
+    idx512 = torch.linspace(0, s3.n - 1, 512, device=dev).long()
+    rel_all = norm_rel(p1, ref3)
+    rel_512 = norm_rel([v[idx512] for v in p1], [r[idx512] for r in ref3])
+    check(max(rel_all, rel_512) <= 5.1e-3,
+          f"K4 passes=1 at {n3}^2: max relative force error {rel_all:.3e} "
+          f"(512-row sample {rel_512:.3e}) > 5.1e-3")
+    t11 = [time_ms(f, reps=3, runs=3) for f in (k3f, f11, f11, k3f)]
+    floors = fast_bound_ms(n3, n3, sms, clk)
+    print(f"[11 K4 passes=1 {n3}x{n3}] galaxy, j split "
+          f"{fast_split_args(n3, n3, 0, 0, dev)[0][:2]}: max relative force "
+          f"error against the float64 sweep {rel_all:.3e}, on the 512-row "
+          f"sample {rel_512:.3e} (contract 5.1e-3); the same bits twice; in "
+          f"turns K3, p1, p1, K3: " + ", ".join(f"{t:.4f}" for t in t11)
+          + " ms; bound " + ", ".join(f"{k} {v:.4f}"
+                                      for k, v in floors.items())
+          + f" ms on {smi}")
+    del p1
     del s3, q3, got, again, ref3
     k14 = {}
     for d in (1, 2, 3, 4):
@@ -3254,6 +3678,9 @@ def main() -> int:
     # ------------------------------------------------- 15. the bf16 state
     launches.update(phase15(dev, smi, drive, time_ms, within_rel, norm_rel,
                             keep, n_main, fp32_bytes))
+    launches.update(phase15_adaptive(dev, smi, drive, time_ms, keep,
+                                     rel_max, near_body_pairs, e9, st9,
+                                     soft9, dt9, tab))
 
     for k, count in launches.items():
         check(count > 0, f"{k} launched no time on its piece of the path")
@@ -3298,10 +3725,21 @@ def main() -> int:
                     "murb_tpu/ops/tile_pallas.py:39"),
         "K4-bf16": ("sweep_rows_ext_bf16", "murb_tpu_torch/csrc/hybrid.cu",
                     "murb_tpu/ops/hybrid.py:63"),
+        "K4-p1": ("hybrid_fast", "murb_tpu_torch/csrc/hybrid_fast.cu",
+                  "murb_tpu/ops/hybrid.py:63"),
+        "K4-p1-bf16": ("hybrid_fast_bf16",
+                       "murb_tpu_torch/csrc/hybrid_fast.cu",
+                       "murb_tpu/ops/hybrid.py:63"),
         "K8-bf16": ("p2m_grid_bf16", "murb_tpu_torch/csrc/cell_runs.cuh",
                     "murb_tpu/ops/fmm_pallas.py:315"),
         "K9-bf16": ("l2p_grid_bf16", "murb_tpu_torch/csrc/cell_runs.cuh",
                     "murb_tpu/ops/fmm_pallas.py:371"),
+        "K10-bf16": ("p2p_sorted_bf16", "murb_tpu_torch/csrc/p2p.cu",
+                     "murb_tpu/ops/p2p_pallas.py:56"),
+        "K11-bf16": ("p2m_window_bf16", "murb_tpu_torch/csrc/cell_runs.cuh",
+                     "murb_tpu/ops/anterp_pallas.py:139"),
+        "K12-bf16": ("l2p_window_bf16", "murb_tpu_torch/csrc/cell_runs.cuh",
+                     "murb_tpu/ops/anterp_pallas.py:244"),
     }
     kernels = [{"name": kname, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches[k], **record[k]}

@@ -62,3 +62,31 @@ extern "C" int murb_l2p_window(const float* qx, const float* qy,
                         nslot, bounds, prefix, nitems, table, fields, nf,
                         out, stream);
 }
+
+// The bf16 instances (a bf16 state's sorted bodies, each value converted
+// to fp32 as it is loaded: cell_runs.cuh's TB of the P2M and Q of the L2P,
+// as K8's and K9's): the fp32 instances' bits on the arrays upcast.
+// murb_p2m_window's arguments with the four body arrays bf16.
+extern "C" int murb_p2m_window_bf16(
+    const __nv_bfloat16* qx, const __nv_bfloat16* qy,
+    const __nv_bfloat16* qz, const __nv_bfloat16* gm, const int* cx,
+    const int* cy, const int* cz, const float* box, int m, int nslot,
+    const long long* bounds, const long long* prefix, int nitems, int chunk,
+    const float* table, float* partial, float* w, cudaStream_t stream) {
+  return murb::p2m_runs(qx, qy, qz, gm, murb::SlotRuns{cx, cy, cz}, box, m,
+                        nslot, bounds, prefix, nitems, chunk, table,
+                        partial, w, stream);
+}
+
+// murb_l2p_window's arguments with the three coordinate arrays bf16 (the
+// fields and outputs float).
+extern "C" int murb_l2p_window_bf16(
+    const __nv_bfloat16* qx, const __nv_bfloat16* qy,
+    const __nv_bfloat16* qz, const int* cx, const int* cy, const int* cz,
+    int n, const float* box, int m, int nslot, const long long* bounds,
+    const long long* prefix, int nitems, const float* table,
+    const float* const* fields, int nf, float* out, cudaStream_t stream) {
+  return murb::l2p_runs(qx, qy, qz, murb::SlotRuns{cx, cy, cz}, n, box, m,
+                        nslot, bounds, prefix, nitems, table, fields, nf,
+                        out, stream);
+}

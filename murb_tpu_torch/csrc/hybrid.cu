@@ -1,4 +1,4 @@
-// K4: the exact all-pairs sweep with precision tiers (passes 1/2/3).
+// K4: the exact all-pairs sweep with precision tiers (passes 2 and 3).
 //
 // Replaces the TPU kernel murb_tpu/ops/hybrid.py:_hybrid_kernel
 // (pallas_call at hybrid.py:184; entries acc_hybrid_rect :145 and
@@ -11,8 +11,9 @@
 //
 //   passes 2 -- fp32-class (<= ~3e-5 max relative force error): K3's own
 //               fp32 kernel (tile.cu), launched through this entry.
-//   passes 1 -- the TPU's fast bf16 tier.  It runs the passes-2 code here;
-//               a faster tier is later work (ROADMAP.md Queue 2, K4).
+//   passes 1 -- the TPU's fast tier (W rounded once, one pass): a kernel of
+//               its own, hybrid_fast.cu (murb_hybrid_fast), which this
+//               entry refuses.
 //   passes 3 -- the extended tier (<= ~1e-6): K3's register-tiled sweep
 //               (tile.cuh, sweep_rows_kernel with kExt) with a
 //               Newton-refined rsqrt, each run of 4 sources summed in fp32
@@ -30,8 +31,8 @@
 // every pair term converted to fp64 and added with three DFMAs: 4 F2F a
 // pair) ran 128 four-warp blocks at 16384^2 and sat on the F2F pipe.
 //
-// bf16 state: murb_hybrid_rect_bf16 runs every tier's bf16 instance (K3's
-// for passes 1/2, the kExt sweep's for passes 3; tile.cuh's TB), which
+// bf16 state: murb_hybrid_rect_bf16 runs the tiers' bf16 instances (K3's
+// for passes 2, the kExt sweep's for passes 3; tile.cuh's TB), which
 // stages bf16 tiles by cp.async and converts them to fp32 in shared
 // memory: the fp32 instance's bits on the arrays upcast.
 #include "tile.cuh"
@@ -62,12 +63,13 @@ constexpr int kExtSources = 128;
 
 }  // namespace murb
 
-// block_i, block_j: 0 (the tier's default geometry: K3's for passes 1/2,
-// kExtTargets x kExtSources for passes 3) or a pair of {64, 128, 256,
-// 512}.  slices, tiles_per_slice, scratch: the j split (ops/cuda.tile_split;
-// every slice holds a tile when nj > 0): for passes 1 and 2 K3's (murb_tile_
-// rect, scratch (slices, 3, ni) floats), for passes 3 with its own resident
-// count (murb_hybrid_resident) and scratch (slices, 3, ni) doubles.
+// passes: 2 or 3.  block_i, block_j: 0 (the tier's default geometry: K3's
+// for passes 2, kExtTargets x kExtSources for passes 3) or a pair of {64,
+// 128, 256, 512}.  slices, tiles_per_slice, scratch: the j split
+// (ops/cuda.tile_split; every slice holds a tile when nj > 0): for passes 2
+// K3's (murb_tile_rect, scratch (slices, 3, ni) floats), for passes 3 with
+// its own resident count (murb_hybrid_resident) and scratch (slices, 3, ni)
+// doubles.
 extern "C" int murb_hybrid_rect(const float* qxi, const float* qyi,
                                 const float* qzi, int ni, const float* qxj,
                                 const float* qyj, const float* qzj,
@@ -76,8 +78,8 @@ extern "C" int murb_hybrid_rect(const float* qxi, const float* qyi,
                                 int slices, int tiles_per_slice,
                                 void* scratch, float* ax, float* ay,
                                 float* az, cudaStream_t stream) {
-  if (passes < 1 || passes > 3) return static_cast<int>(cudaErrorInvalidValue);
-  if (passes < 3) {
+  if (passes < 2 || passes > 3) return static_cast<int>(cudaErrorInvalidValue);
+  if (passes == 2) {
     return murb_tile_rect(qxi, qyi, qzi, ni, qxj, qyj, qzj, gmj, nj, soft2,
                           block_i, block_j, slices, tiles_per_slice,
                           static_cast<float*>(scratch), ax, ay, az, stream);
@@ -100,8 +102,8 @@ extern "C" int murb_hybrid_resident(int block_i, int block_j, int* blocks) {
 
 // The bf16 instances (a bf16 state's arrays, each value converted to fp32
 // as it is loaded, tile.cuh): murb_hybrid_rect's arguments with the seven
-// body arrays bf16; passes 1 and 2 run K3's bf16 instance, passes 3 the
-// kExt sweep's.
+// body arrays bf16; passes 2 runs K3's bf16 instance, passes 3 the kExt
+// sweep's.
 extern "C" int murb_hybrid_rect_bf16(
     const __nv_bfloat16* qxi, const __nv_bfloat16* qyi,
     const __nv_bfloat16* qzi, int ni, const __nv_bfloat16* qxj,
@@ -109,8 +111,8 @@ extern "C" int murb_hybrid_rect_bf16(
     const __nv_bfloat16* gmj, int nj, float soft2, int passes, int block_i,
     int block_j, int slices, int tiles_per_slice, void* scratch, float* ax,
     float* ay, float* az, cudaStream_t stream) {
-  if (passes < 1 || passes > 3) return static_cast<int>(cudaErrorInvalidValue);
-  if (passes < 3) {
+  if (passes < 2 || passes > 3) return static_cast<int>(cudaErrorInvalidValue);
+  if (passes == 2) {
     return murb_tile_rect_bf16(qxi, qyi, qzi, ni, qxj, qyj, qzj, gmj, nj,
                                soft2, block_i, block_j, slices,
                                tiles_per_slice, static_cast<float*>(scratch),

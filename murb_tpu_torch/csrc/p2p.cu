@@ -46,6 +46,13 @@
 // A skipped pair would only have added w = 0 and the sources keep their
 // order, so the sums are the first design's bit for bit.  The rsqrt is
 // rsqrt.approx.ftz (d^2 + eps^2 is never denormal for eps > 0).
+//
+// bf16 state (murb_p2p_sorted_bf16): the wrapper packs the bodies as
+// {x, y, z, G m} bf16 rows of 8 bytes.  A source brick is staged raw, one
+// 8-byte cp.async a thread, double-buffered as the fp32 rows are, and once
+// it has landed each thread converts its row into the one fp32 brick the
+// sweep reads (exact; a barrier more a brick), so the sums are the fp32
+// instance's bit for bit on the rows upcast.  The cells stay int.
 #include "sweep.cuh"
 
 namespace murb {
@@ -85,14 +92,27 @@ __device__ __forceinline__ void sweep_sub(const float4* src, const int4* csrc,
   }
 }
 
-template <bool kPhi>
+// A body row {x, y, z, G m} as fp32: a float4 as it is, four bf16 (8
+// bytes, little-endian pairs) converted exactly.
+__device__ __forceinline__ float4 body_row(float4 v) { return v; }
+__device__ __forceinline__ float4 body_row(uint2 v) {
+  return make_float4(__uint_as_float(v.x << 16),
+                     __uint_as_float(v.x & 0xffff0000u),
+                     __uint_as_float(v.y << 16),
+                     __uint_as_float(v.y & 0xffff0000u));
+}
+
+// Row: float4 (the fp32 instance) or uint2 (four bf16, the bf16 instance).
+template <bool kPhi, class Row>
 __global__ void __launch_bounds__(kBrick)
-p2p_kernel(const float4* __restrict__ body, const int4* __restrict__ cell,
+p2p_kernel(const Row* __restrict__ body, const int4* __restrict__ cell,
            const int4* __restrict__ box, const int* __restrict__ order,
            int nbrick, const unsigned char* __restrict__ adj,
            const long long* __restrict__ starts, long long pmax, float soft2,
            float* __restrict__ out) {
-  __shared__ __align__(16) float4 src[2][kBrick];
+  constexpr bool kB16 = std::is_same_v<Row, uint2>;
+  __shared__ __align__(16) float4 src[kB16 ? 1 : 2][kBrick];
+  __shared__ __align__(16) uint2 raw[kB16 ? 2 : 1][kB16 ? kBrick : 1];
   __shared__ __align__(16) int4 csrc[2][kBrick];
   __shared__ __align__(16) int4 bsrc[2][2 * kSubs];
   __shared__ int list[kPass];
@@ -101,7 +121,7 @@ p2p_kernel(const float4* __restrict__ body, const int4* __restrict__ cell,
   const int t = order[blockIdx.x];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const long long i = static_cast<long long>(t) * kBrick + tid;
-  const float4 me = body[i];
+  const float4 me = body_row(body[i]);
   const int4 mc = cell[i];
   // this warp's sub-brick box: box[2k] lo, box[2k + 1] hi
   const long long sub = static_cast<long long>(t) * kSubs + warp;
@@ -112,7 +132,10 @@ p2p_kernel(const float4* __restrict__ body, const int4* __restrict__ cell,
   // threads 0-7 the four sub-brick boxes
   auto stage = [&](int sb, int b) {
     const long long j = static_cast<long long>(sb) * kBrick + tid;
-    cp_async16(&src[b][tid], body + j);
+    if constexpr (kB16)
+      cp_async8(&raw[b][tid], body + j);
+    else
+      cp_async16(&src[b][tid], body + j);
     cp_async16(&csrc[b][tid], cell + j);
     if (tid < 2 * kSubs)
       cp_async16(&bsrc[b][tid],
@@ -155,6 +178,13 @@ p2p_kernel(const float4* __restrict__ body, const int4* __restrict__ cell,
       cp_async_wait_all();  // this thread's copies of brick k landed
       __syncthreads();      // everyone's did; buffer b ^ 1 is free
       if (k + 1 < take) stage(list[k + 1], b ^ 1);
+      const float4* brick = src[kB16 ? 0 : b];
+      if constexpr (kB16) {
+        // brick k's raw rows landed; the barrier above also ended every
+        // read of the fp32 brick, which now takes them
+        src[0][tid] = body_row(raw[b][tid]);
+        __syncthreads();
+      }
 #pragma unroll 1
       for (int q = 0; q < kSubs; ++q) {
         const int4 slo = bsrc[b][2 * q], shi = bsrc[b][2 * q + 1];
@@ -166,7 +196,7 @@ p2p_kernel(const float4* __restrict__ body, const int4* __restrict__ cell,
             max(shi.x - tlo.x, thi.x - slo.x) <= 1 &&
             max(shi.y - tlo.y, thi.y - slo.y) <= 1 &&
             max(shi.z - tlo.z, thi.z - slo.z) <= 1;
-        const float4* s = &src[b][q * kSub];
+        const float4* s = brick + q * kSub;
         const int4* c = &csrc[b][q * kSub];
         if (all_near)
           sweep_sub<kPhi, false>(s, c, me, mc, soft2, ax, ay, az, phi);
@@ -181,6 +211,25 @@ p2p_kernel(const float4* __restrict__ body, const int4* __restrict__ cell,
   out[n + i] = ay;
   out[2 * n + i] = az;
   if (kPhi) out[3 * n + i] = phi;
+}
+
+// K10's launch, the fp32 (Row float4) or the bf16 (uint2) instance.
+template <class Row>
+int p2p_launch(const void* body, const void* cell, const void* box,
+               const int* order, int nbrick, const unsigned char* adj,
+               const long long* starts, long long pmax, float soft2,
+               int with_phi, float* out, cudaStream_t stream) {
+  if (nbrick < 1 || pmax < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const auto* b = static_cast<const Row*>(body);
+  const auto* c = static_cast<const int4*>(cell);
+  const auto* x = static_cast<const int4*>(box);
+  if (with_phi)
+    p2p_kernel<true, Row><<<nbrick, kBrick, 0, stream>>>(
+        b, c, x, order, nbrick, adj, starts, pmax, soft2, out);
+  else
+    p2p_kernel<false, Row><<<nbrick, kBrick, 0, stream>>>(
+        b, c, x, order, nbrick, adj, starts, pmax, soft2, out);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace murb
@@ -198,15 +247,18 @@ extern "C" int murb_p2p_sorted(const void* body, const void* cell,
                                const long long* starts, long long pmax,
                                float soft2, int with_phi, float* out,
                                cudaStream_t stream) {
-  if (nbrick < 1 || pmax < 0) return static_cast<int>(cudaErrorInvalidValue);
-  const auto* b = static_cast<const float4*>(body);
-  const auto* c = static_cast<const int4*>(cell);
-  const auto* x = static_cast<const int4*>(box);
-  if (with_phi)
-    murb::p2p_kernel<true><<<nbrick, murb::kBrick, 0, stream>>>(
-        b, c, x, order, nbrick, adj, starts, pmax, soft2, out);
-  else
-    murb::p2p_kernel<false><<<nbrick, murb::kBrick, 0, stream>>>(
-        b, c, x, order, nbrick, adj, starts, pmax, soft2, out);
-  return static_cast<int>(cudaGetLastError());
+  return murb::p2p_launch<float4>(body, cell, box, order, nbrick, adj,
+                                  starts, pmax, soft2, with_phi, out, stream);
+}
+
+// The bf16 instance: body is (n, 4) bf16 {x, y, z, G m}, 8-byte aligned;
+// every other argument murb_p2p_sorted's.
+extern "C" int murb_p2p_sorted_bf16(const void* body, const void* cell,
+                                    const void* box, const int* order,
+                                    int nbrick, const unsigned char* adj,
+                                    const long long* starts, long long pmax,
+                                    float soft2, int with_phi, float* out,
+                                    cudaStream_t stream) {
+  return murb::p2p_launch<uint2>(body, cell, box, order, nbrick, adj, starts,
+                                 pmax, soft2, with_phi, out, stream);
 }

@@ -183,8 +183,9 @@ class HybridEngine(PallasTileEngine):
 
     @property
     def _tune_tag(self) -> str:
-        # passes 1/2 launch K3's kernel; passes 3 is K4's own
-        design = self.design if self.passes < 3 else ""
+        # passes 2 launches K3's kernel; passes 1 (csrc/hybrid_fast.cu) and
+        # passes 3 are K4's own
+        design = {1: "@k4fast", 2: self.design}.get(self.passes, "")
         return f"{self.tag}/p{self.passes}{design}"
 
     def _acc_blocks(self, qx, qy, qz, gm, bi, bj):

@@ -22,9 +22,12 @@ MURB_ANTERP_PALLAS switch exist only for the TPU and are not ported.
 
 ``p2m_window`` and ``l2p_window`` run the plain version on CPU tensors and
 launch the kernel on CUDA tensors (fp32 inside, results cast back), and
-count each launch.  The kernels read each slot's bodies as one run from
-the slot bounds and work items that ``slot_items`` makes on the device
-(``window_items``: the run kernels' items, shared with K8 and K9).
+count each launch.  A bf16 state launches the kernels' bf16 instances
+(``murb_p2m_window_bf16``, ``murb_l2p_window_bf16``: the bodies read as
+they are and converted to fp32 as loaded), counted in ``bf16_launches``.
+The kernels read each slot's bodies as one run from the slot bounds and
+work items that ``slot_items`` makes on the device (``window_items``: the
+run kernels' items, shared with K8 and K9).
 """
 from __future__ import annotations
 
@@ -34,11 +37,11 @@ import torch.nn.functional as F
 from murb_tpu_torch.ops import cuda
 from murb_tpu_torch.ops.common import (bf16_plain, notify_fp32_compute,
                                        weights_dtype)
-from murb_tpu_torch.ops.fmm_kernels import (RunItems, l2p_item,
+from murb_tpu_torch.ops.fmm_kernels import (RunItems, cell_box, l2p_item,
                                             node_table, p2m_chunk,
                                             p2m_outputs)
 from murb_tpu_torch.ops.p2p import _cell_ixyz
-from murb_tpu_torch.ops.proxy_kernels import _basis
+from murb_tpu_torch.ops.proxy_kernels import _basis, _entry
 
 MAX_ORDER = 32       # kRunMaxOrder (csrc/cell_runs.cuh)
 _PLAIN_CHUNK = 8192  # bodies per step of the plain versions
@@ -123,26 +126,27 @@ def window_items(slots: torch.Tensor, cap: int, chunk: int) -> RunItems:
     return RunItems(*slot_items(slots, cap, chunk), chunk)
 
 
-def _kernel_args(xs, ys, zs, slots, c, h, ci, C: int):
+def _kernel_args(xs, ys, zs, slots, c, h, ci, C: int, bf16: bool = False):
     dev, n = xs.device, xs.shape[0]
     cuda.refuse_grad(_TAG, c, h)
     x, y, z = cuda.kernel_inputs(_TAG, dev, n, xs, ys, zs,
-                                 notify=notify_fp32_compute)
+                                 notify=notify_fp32_compute, bf16=bf16)
     cells = cuda.int_inputs(_TAG, dev, n, *ci)
     (sl,) = cuda.int_inputs(_TAG, dev, n, slots)
-    box = torch.cat([c - h, 2.0 * h / C]).to(torch.float32).contiguous()
+    box = torch.cat(cell_box(c, h, C)).to(torch.float32).contiguous()
     return (x, y, z), cells, sl, box
 
 
 # ----------------------------------------------------------- K11 wrapper
 def p2m_window_launch(x, y, z, g, cells, box, items: RunItems,
                       m: int) -> torch.Tensor:
-    """K11 alone on float32 sorted bodies, their int32 cells, the box and
-    the slots' work items -> W (cap + 1, m^3) float32 (the dump row 0)."""
+    """K11 alone on float32 sorted bodies (its bf16 instance on bf16 ones),
+    their int32 cells, the box and the slots' work items -> W (cap + 1,
+    m^3) float32 (the dump row 0)."""
     dev, nslot = x.device, items.bounds.shape[0] - 1
     w, partial = p2m_outputs(items, x.shape[0], nslot, m, dev)
     with torch.cuda.device(dev):
-        cuda.launch("murb_p2m_window", x.data_ptr(), y.data_ptr(),
+        cuda.launch(_entry("murb_p2m_window", x), x.data_ptr(), y.data_ptr(),
                     z.data_ptr(), g.data_ptr(),
                     *(v.data_ptr() for v in cells), box.data_ptr(), m,
                     nslot, items.bounds.data_ptr(), items.prefix.data_ptr(),
@@ -166,27 +170,35 @@ def p2m_window(xs, ys, zs, gs, c, h, slots, cap: int, *, m: int, C: int,
                                 ci=ci)
     cuda.require_cuda(_TAG, xs)
     dev, dtype, n = xs.device, xs.dtype, xs.shape[0]
-    (x, y, z), cells, sl, box = _kernel_args(xs, ys, zs, slots, c, h, ci, C)
-    (g,) = cuda.kernel_inputs(_TAG, dev, n, gs, notify=notify_fp32_compute)
+    b16 = cuda.all_bf16(xs, ys, zs, gs)
+    (x, y, z), cells, sl, box = _kernel_args(xs, ys, zs, slots, c, h, ci, C,
+                                             b16)
+    (g,) = cuda.kernel_inputs(_TAG, dev, n, gs, notify=notify_fp32_compute,
+                              bf16=b16)
     items = window_items(sl, cap, p2m_chunk(n, m, cuda.sm_count(dev)))
     w = p2m_window_launch(x, y, z, g, cells, box, items, m)
-    p2m_window.launches += 1
+    if b16:
+        p2m_window.bf16_launches += 1
+    else:
+        p2m_window.launches += 1
     return w.to(weights_dtype(dtype))
 
 
 p2m_window.launches = 0
+p2m_window.bf16_launches = 0
 
 
 # ----------------------------------------------------------- K12 wrapper
 def l2p_window_launch(x, y, z, cells, box, items: RunItems, m: int,
                       fields) -> torch.Tensor:
-    """K12 alone on float32 sorted bodies, their int32 cells, the box, the
-    slots' work items and 1 to 4 float32 contiguous (cap + 1, m^3) fields
-    -> (nf, n) float32, the dump bodies 0."""
+    """K12 alone on float32 sorted bodies (its bf16 instance on bf16 ones),
+    their int32 cells, the box, the slots' work items and 1 to 4 float32
+    contiguous (cap + 1, m^3) fields -> (nf, n) float32, the dump bodies
+    0."""
     dev, n, nf = x.device, x.shape[0], len(fields)
     out = torch.zeros((nf, n), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        cuda.launch("murb_l2p_window", x.data_ptr(), y.data_ptr(),
+        cuda.launch(_entry("murb_l2p_window", x), x.data_ptr(), y.data_ptr(),
                     z.data_ptr(), *(v.data_ptr() for v in cells), n,
                     box.data_ptr(), m, items.bounds.shape[0] - 1,
                     items.bounds.data_ptr(), items.prefix.data_ptr(),
@@ -217,12 +229,18 @@ def l2p_window(xs, ys, zs, c, h, slots, fields, *, m: int, C: int,
     cuda.require_cuda(_TAG, xs)
     cuda.refuse_grad(_TAG, *fields)
     dtype = xs.dtype
-    (x, y, z), cells, sl, box = _kernel_args(xs, ys, zs, slots, c, h, ci, C)
+    b16 = cuda.all_bf16(xs, ys, zs)
+    (x, y, z), cells, sl, box = _kernel_args(xs, ys, zs, slots, c, h, ci, C,
+                                             b16)
     flds = [f.to(torch.float32).contiguous() for f in fields]
     out = l2p_window_launch(x, y, z, cells, box,
                             window_items(sl, rows - 1, l2p_item(m)), m, flds)
-    l2p_window.launches += 1
+    if b16:
+        l2p_window.bf16_launches += 1
+    else:
+        l2p_window.launches += 1
     return tuple(o.to(dtype) for o in out)
 
 
 l2p_window.launches = 0
+l2p_window.bf16_launches = 0

@@ -8,7 +8,7 @@ root, keyed by a hash of the sources and the flags, and loads it with
 ``ctypes``.  The library is built into a temporary name and renamed into
 place, so concurrent processes never load a half-written file.
 
-K1-K4, K8 and K9 also have bf16 instances (the ``*_bf16`` entries),
+K1-K4 and K8-K12 also have bf16 instances (the ``*_bf16`` entries),
 which read a bf16 state's arrays as they are; ``kernel_inputs`` upcasts
 bf16 exactly for every other kernel.  There is no fallback: a missing
 ``nvcc``, a failed build or a refused launch raises.  The kernel wrappers
@@ -61,6 +61,13 @@ _SIGNATURES = {
     "murb_hybrid_rect": [_P, _P, _P, _I, _P, _P, _P, _P, _I, _F, _I, _I, _I,
                          _I, _I, _P, _P, _P, _P, _P],
     "murb_hybrid_resident": [_I, _I, _P],
+    # K4's passes 1 (csrc/hybrid_fast.cu) and its bf16 instance
+    "murb_hybrid_fast": [_P, _P, _P, _I, _P, _P, _P, _P, _I, _P, _F, _I, _I,
+                         _I, _I, _P, _P, _P, _P, _P, _P],
+    "murb_hybrid_fast_bf16": [_P, _P, _P, _I, _P, _P, _P, _P, _I, _P, _F, _I,
+                              _I, _I, _I, _P, _P, _P, _P, _P, _P],
+    "murb_hybrid_fast_resident": [_I, _I, _P],
+    "murb_hybrid_fast_resident_bf16": [_I, _I, _P],
     "murb_mxu_rect": [_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                       _P, _P, _P, _P, _P, _P],
     "murb_mxu_resident": [_I, _I, _P],
@@ -89,6 +96,14 @@ _SIGNATURES = {
                         _I, _P, _P, _P, _P],
     "murb_l2p_window": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _P, _P, _I,
                         _P, _P, _I, _P, _P],
+    # the bf16 instances of K10, K11 and K12: the same arguments, the body
+    # arrays (K10: its packed {x, y, z, G m} rows) bf16
+    "murb_p2p_sorted_bf16": [_P, _P, _P, _P, _I, _P, _P, _L, _F, _I, _P,
+                             _P],
+    "murb_p2m_window_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P,
+                             _I, _I, _P, _P, _P, _P],
+    "murb_l2p_window_bf16": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _P, _P,
+                             _I, _P, _P, _I, _P, _P],
     # host arrays of D pointers (qx, qy, qz, bufs, ax, ay, az, scratch), D
     # device ids, D origin, compute and copy streams
     "murb_ring_pipelined": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -356,7 +371,8 @@ def resident(entry: str, device: torch.device, block_i: int = 0,
     """Blocks of a sweep at (block_i, block_j) that one SM of ``device``
     holds at once, from its C entry ``entry`` (``murb_tile_resident``:
     K3, csrc/tile.cu; ``murb_hybrid_resident``: K4's passes 3,
-    csrc/hybrid.cu; ``murb_phi_resident``: K5 and K6, csrc/phi.cu, whose
+    csrc/hybrid.cu; ``murb_hybrid_fast_resident``: K4's passes 1,
+    csrc/hybrid_fast.cu; ``murb_phi_resident``: K5 and K6, csrc/phi.cu, whose
     ``key`` is (weight rows, force); ``murb_mxu_resident``: K13,
     csrc/mxu.cu; the CUDA occupancy calculator)."""
     blocks = ctypes.c_int(0)

@@ -112,6 +112,16 @@ def _cell_coords(q, lo, cs, C: int):
     return cx.long(), 2.0 * (u - cx) - 1.0
 
 
+def cell_box(c, h, C: int):
+    """(lo (3,), cs (3,)): a C^3 grid's corner and cell size over the box
+    (c, h), in float32 at least (a bf16 box upcast first, exactly: the bf16
+    rule of the chains outside the kernels, ops/common.bf16_chain), as the
+    run kernels (K8, K9, K11, K12) read it."""
+    ct = torch.promote_types(c.dtype, torch.float32)
+    c, h = c.to(ct), h.to(ct)
+    return c - h, 2.0 * h / C
+
+
 def _grid_bases(qx, qy, qz, c, h, m: int, C: int):
     """(cell id, Sx, Sy, Sz) of each body on the C^3 grid over the box."""
     lo = c - h
@@ -266,8 +276,7 @@ def cell_order(qx, qy, qz, c, h, C: int) -> CellOrder:
     all on the device, no host sync (the bounds come from a search of the
     sorted ids; ``torch.bincount`` would read the largest id back to the
     host)."""
-    lo = c - h
-    box = torch.cat([lo, 2.0 * h / C]).to(torch.float32)
+    box = torch.cat(cell_box(c, h, C)).to(torch.float32)
     q = torch.stack([qx, qy, qz]).to(torch.float32)
     cell = torch.floor((q - box[:3, None]) / box[3:, None]).clamp_(0, C - 1)
     cell = cell.long()

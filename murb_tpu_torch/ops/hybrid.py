@@ -8,22 +8,32 @@ matrix-unit passes; the port keeps the accuracy contract of each
 
   passes 2 -- fp32-class, <= ~3e-5 max relative force error: K3's fp32
               sweep kernel.
-  passes 1 -- runs the passes-2 code in this port (a faster tier is later
-              work, ROADMAP.md Queue 2 K4).
+  passes 1 -- the fast tier (``tpu+hybrid+fast``), murb_tpu's "W rounded
+              once, one pass" (<= 5.1e-3 on the 4096 galaxy): its own
+              kernel, ``csrc/hybrid_fast.cu``.  The weights W =
+              rsqrt(d^2)^3 on the CUDA cores, rounded to TF32; the
+              j-reduction P = W Q as one TF32 tensor-core pass, Q's
+              columns G m_j (r_j - c, 1) split into two TF32 parts; the
+              epilogue a_i = P[0:3] - (r_i - c) P[3], c the sources'
+              G*m-weighted mean (``fast_center``).  ``acc_hybrid_fast_plain``
+              computes the same arithmetic step by step.
   passes 3 -- the extended tier, <= ~1e-6: K3's register-tiled sweep
               with a Newton-refined rsqrt, each run of ``EXT_RUN`` = 4
               sources summed in fp32 and folded into fp64 sums, and K3's j
               split with fp64 slice partials (``ext_split_args``).  The
               tier ``tpu+hybrid`` picks for fp64 state.
 
-On CUDA tensors ``acc_hybrid_rect`` launches ``csrc/hybrid.cu`` (which
-hands passes 1/2 to K3's kernel, with K3's j split, counted here as K4
-launches) in the block geometry ``block_i``/``block_j`` (as K3's); on CPU
-tensors it runs ``acc_hybrid_rect_plain``.  A bf16 state launches every
-tier's bf16 instance (``murb_hybrid_rect_bf16``: K3's for passes 1/2, the
-extended sweep's for passes 3), counted in
-``acc_hybrid_rect.bf16_launches``.  K5 and K6 have no bf16 instance:
-their wrappers upcast a bf16 state exactly (ops/cuda.kernel_inputs).
+On CUDA tensors ``acc_hybrid_rect`` launches ``csrc/hybrid.cu`` at
+passes 2/3 (which hands passes 2 to K3's kernel, with K3's j split,
+counted here as K4 launches) and ``csrc/hybrid_fast.cu`` at passes 1
+(counted apart, in ``acc_hybrid_rect.fast_launches``), in the block
+geometry ``block_i``/``block_j``; on CPU tensors it runs
+``acc_hybrid_rect_plain``.  A bf16 state launches every tier's bf16
+instance (``murb_hybrid_rect_bf16``: K3's for passes 2, the extended
+sweep's for passes 3, counted in ``acc_hybrid_rect.bf16_launches``;
+``murb_hybrid_fast_bf16`` for passes 1, in ``fast_bf16_launches``).  K5
+and K6 have no bf16 instance: their wrappers upcast a bf16 state exactly
+(ops/cuda.kernel_inputs).
 
 K5 ``phi_rows_rect`` and K6 ``acc_phi_rows_hybrid`` (``csrc/phi.cu``) take
 up to 8 source-weight rows (one masked G*m row per galaxy) and return the
@@ -52,6 +62,7 @@ import torch
 from murb_tpu_torch.ops import cuda
 from murb_tpu_torch.ops.common import (Accel, bf16_plain, notify_fp32_compute,
                                        weights_dtype)
+from murb_tpu_torch.ops.mxu import _fp32_matmul, tf32_round, tf32_split
 from murb_tpu_torch.ops.naive import _pair_weights
 from murb_tpu_torch.ops.tile import acc_tile_rect_plain, split_args
 
@@ -62,17 +73,82 @@ EXT_RUN = 4
 #: kExtTargets, kExtSources)
 EXT_BLOCK_I = 128
 EXT_BLOCK_J = 128
+#: passes 1's default targets a block and sources a tile (csrc/hybrid_fast.cu
+#: kFastBlockI, kFastBlockJ), floats of a packed chunk of 8 sources
+#: (kFastChunk) and the source count the packed array is padded to
+#: (kFastPackSources)
+FAST_BLOCK_I = 256
+FAST_BLOCK_J = 256
+FAST_CHUNK_FLOATS = 96
+FAST_PACK_SOURCES = 512
+
+
+def fast_center(qxj, qyj, qzj, gmj) -> torch.Tensor:
+    """Passes 1's expansion point: the sources' G*m-weighted mean as a
+    float32 (3,) tensor on their device, summed in float64 (0 when the
+    masses sum to 0), with no host sync.  The kernel forms the same mean
+    itself (hybrid_fast_center_kernel, float64 sums in its own order)."""
+    g = gmj.double()
+    tot = g.sum()
+    den = torch.where(tot != 0, tot, torch.ones_like(tot))
+    return (torch.stack([(g * q.double()).sum() for q in (qxj, qyj, qzj)])
+            / den).float()
+
+
+@bf16_plain
+def acc_hybrid_fast_plain(qxi, qyi, qzi, qxj, qyj, qzj, gmj, soft, *,
+                          center=None, w_round=tf32_round,
+                          split: bool = True) -> Accel:
+    """Passes 1's arithmetic (csrc/hybrid_fast.cu) step by step, in the
+    inputs' dtype: d^2 = dx^2 + (dy^2 + (dz^2 + eps^2)) with dx = x_j -
+    x_i, W = rsqrt(d^2)^3 rounded by ``w_round`` (TF32 to nearest, ties
+    away: the kernel's), Q = G m_j (r_j - c, 1) split into TF32 big and
+    small parts (``split``), P = W Q_big + W Q_small summed in fp32 over
+    4096-source chunks, and a = P[0:3] - (r_i - c) P[3].  ``center``
+    (3,): c, else ``fast_center`` of the sources.  float64 inputs run
+    unrounded: the float64 reference.  ``w_round`` and ``split`` exist for
+    the controls that must fail the tier's contract."""
+    exact = qxi.dtype == torch.float64
+    c = (fast_center(qxj, qyj, qzj, gmj) if center is None
+         else torch.as_tensor(center, device=qxi.device)).to(qxi.dtype)
+    cols = torch.stack([gmj * (qxj - c[0]), gmj * (qyj - c[1]),
+                        gmj * (qzj - c[2]), gmj], 1)
+    if exact:
+        q_big, q_small = cols, None
+    elif split:
+        q_big, q_small = tf32_split(cols)
+    else:
+        q_big, q_small = tf32_round(cols), None
+    soft2 = float(soft) ** 2
+    p = torch.zeros((qxi.shape[0], 4), dtype=qxi.dtype, device=qxi.device)
+    with _fp32_matmul():
+        for s in range(0, qxj.shape[0], 4096):
+            sl = slice(s, s + 4096)
+            dx, dy, dz = (qj[sl][None, :] - qi[:, None]
+                          for qi, qj in ((qxi, qxj), (qyi, qyj), (qzi, qzj)))
+            inv = torch.rsqrt(dx * dx + (dy * dy + (dz * dz + soft2)))
+            w = inv * inv * inv
+            if not exact:
+                w = w_round(w)
+            p += w @ q_big[sl]
+            if q_small is not None:
+                p += w @ q_small[sl]
+    return Accel(*(p[:, k] - (q - c[k]) * p[:, 3]
+                   for k, q in enumerate((qxi, qyi, qzi))))
 
 
 @bf16_plain
 def acc_hybrid_rect_plain(qxi, qyi, qzi, qxj, qyj, qzj, gmj, soft, *,
                           passes: int = 1) -> Accel:
-    """The plain PyTorch version of each tier: passes 1/2 sum in the
-    inputs' dtype (``acc_rect``); passes 3 computes each pair term in the
-    inputs' dtype and sums the terms in float64."""
+    """The plain PyTorch version of each tier: passes 1 the fast tier's
+    arithmetic (``acc_hybrid_fast_plain``); passes 2 sums in the inputs'
+    dtype (``acc_rect``); passes 3 computes each pair term in the inputs'
+    dtype and sums the terms in float64."""
     if passes not in (1, 2, 3):
         raise ValueError(f"passes must be 1, 2 or 3, got {passes}")
-    if passes < 3:
+    if passes == 1:
+        return acc_hybrid_fast_plain(qxi, qyi, qzi, qxj, qyj, qzj, gmj, soft)
+    if passes == 2:
         return acc_tile_rect_plain(qxi, qyi, qzi, qxj, qyj, qzj, gmj, soft)
     soft2 = float(soft) ** 2
     sums = [torch.zeros(qxi.shape[0], dtype=torch.float64, device=qxi.device)
@@ -95,6 +171,37 @@ def ext_split_args(ni: int, nj: int, block_i: int, block_j: int,
     sums."""
     return split_args(ni, nj, block_i or EXT_BLOCK_I, block_j or EXT_BLOCK_J,
                       device, entry, torch.float64)
+
+
+def fast_split_args(ni: int, nj: int, block_i: int, block_j: int,
+                    device: torch.device,
+                    entry: str = "murb_hybrid_fast_resident"):
+    """Passes 1's j split (``ops/tile.split_args``) at (block_i, block_j),
+    0 for ``FAST_BLOCK_I`` x ``FAST_BLOCK_J``: its own resident count (the
+    bf16 instance's: ``murb_hybrid_fast_resident_bf16``) and a float32
+    scratch of P's four columns a slice."""
+    return split_args(ni, nj, block_i or FAST_BLOCK_I, block_j or FAST_BLOCK_J,
+                      device, entry, torch.float32, 4)
+
+
+def fast_packed(nj: int, device: torch.device) -> torch.Tensor:
+    """Scratch for passes 1's packed sources: nj padded to
+    ``FAST_PACK_SOURCES``, ``FAST_CHUNK_FLOATS`` floats a chunk of 8."""
+    chunks = -(-nj // FAST_PACK_SOURCES) * (FAST_PACK_SOURCES // 8)
+    return torch.empty(max(chunks, 1) * FAST_CHUNK_FLOATS,
+                       dtype=torch.float32, device=device)
+
+
+def hybrid_entry(passes: int, bf16: bool) -> tuple[str, str]:
+    """(C entry, launch count) of tier ``passes``: passes 1 its own kernel
+    (``murb_hybrid_fast``), counted apart from passes 2/3 (K3's kernel and
+    the extended sweep, ``murb_hybrid_rect``); a bf16 state the entry's
+    bf16 instance."""
+    sfx = "_bf16" if bf16 else ""
+    if passes == 1:
+        return "murb_hybrid_fast" + sfx, "fast" + sfx + "_launches"
+    return "murb_hybrid_rect" + sfx, ("bf16_launches" if bf16
+                                      else "launches")
 
 
 def acc_hybrid_rect(qxi, qyi, qzi, qxj, qyj, qzj, gmj, soft, *,
@@ -126,30 +233,45 @@ def acc_hybrid_rect(qxi, qyi, qzi, qxj, qyj, qzj, gmj, soft, *,
                                     notify=notify, bf16=b16)
     xj, yj, zj, gj = cuda.kernel_inputs(tag, dev, nj, qxj, qyj, qzj, gmj,
                                         notify=notify, bf16=b16)
-    if b16:
-        xj, yj, zj, gj = cuda.aligned4(xj, yj, zj, gj)
     out = torch.empty((3, ni), dtype=torch.float32, device=dev)
     sfx = "_bf16" if b16 else ""
-    split, _scratch = (
-        ext_split_args(ni, nj, block_i, block_j, dev,
-                       "murb_hybrid_resident" + sfx) if passes == 3 else
-        split_args(ni, nj, block_i, block_j, dev, "murb_tile_resident" + sfx))
-    with torch.cuda.device(dev):
-        cuda.launch("murb_hybrid_rect" + sfx, xi.data_ptr(), yi.data_ptr(),
-                    zi.data_ptr(), ni, xj.data_ptr(), yj.data_ptr(),
-                    zj.data_ptr(), gj.data_ptr(), nj,
-                    ctypes.c_float(float(soft) ** 2), passes, block_i,
-                    block_j, *split, out[0].data_ptr(), out[1].data_ptr(),
-                    out[2].data_ptr(), cuda.stream(dev))
-    if b16:
-        acc_hybrid_rect.bf16_launches += 1
+    entry, count = hybrid_entry(passes, b16)
+    if passes == 1:
+        center = torch.empty(3, dtype=torch.float32, device=dev)
+        packed = fast_packed(nj, dev)
+        split, _scratch = fast_split_args(ni, nj, block_i, block_j, dev,
+                                          "murb_hybrid_fast_resident" + sfx)
+        with torch.cuda.device(dev):
+            cuda.launch(entry, xi.data_ptr(), yi.data_ptr(), zi.data_ptr(),
+                        ni, xj.data_ptr(), yj.data_ptr(), zj.data_ptr(),
+                        gj.data_ptr(), nj, center.data_ptr(),
+                        ctypes.c_float(float(soft) ** 2), block_i, block_j,
+                        *split, packed.data_ptr(), out[0].data_ptr(),
+                        out[1].data_ptr(), out[2].data_ptr(),
+                        cuda.stream(dev))
     else:
-        acc_hybrid_rect.launches += 1
+        if b16:
+            xj, yj, zj, gj = cuda.aligned4(xj, yj, zj, gj)
+        split, _scratch = (
+            ext_split_args(ni, nj, block_i, block_j, dev,
+                           "murb_hybrid_resident" + sfx) if passes == 3 else
+            split_args(ni, nj, block_i, block_j, dev,
+                       "murb_tile_resident" + sfx))
+        with torch.cuda.device(dev):
+            cuda.launch(entry, xi.data_ptr(), yi.data_ptr(), zi.data_ptr(),
+                        ni, xj.data_ptr(), yj.data_ptr(), zj.data_ptr(),
+                        gj.data_ptr(), nj, ctypes.c_float(float(soft) ** 2),
+                        passes, block_i, block_j, *split,
+                        out[0].data_ptr(), out[1].data_ptr(),
+                        out[2].data_ptr(), cuda.stream(dev))
+    setattr(acc_hybrid_rect, count, getattr(acc_hybrid_rect, count) + 1)
     return Accel(*(o.to(dtype) for o in out))
 
 
 acc_hybrid_rect.launches = 0
 acc_hybrid_rect.bf16_launches = 0
+acc_hybrid_rect.fast_launches = 0
+acc_hybrid_rect.fast_bf16_launches = 0
 
 
 def acc_hybrid(qx, qy, qz, gm, soft, *, passes: int = 1, block_i: int = 0,

@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from murb_tpu_torch.ops.common import bf16_plain
-from murb_tpu_torch.ops.fmm_kernels import _cell_coords
+from murb_tpu_torch.ops.fmm_kernels import _cell_coords, cell_box
 
 #: bodies per brick (the K10 block); divides every padded N (256)
 DEFAULT_K = 128
@@ -64,11 +64,13 @@ def morton_key(cx, cy, cz, C: int) -> torch.Tensor:
 def _cell_ixyz(qx, qy, qz, c, h, C: int):
     """int32 finest-level cell coordinates, exactly the grid P2M's
     assignment (ops/fmm_kernels._cell_coords): the near/far split holds
-    only if the P2P stage and the field grid agree on every body's cell."""
-    lo = c - h
-    cs = 2.0 * h / C
-    return tuple(_cell_coords(q, lo[d], cs[d], C)[0].to(torch.int32)
-                 for d, q in enumerate((qx, qy, qz)))
+    only if the P2P stage and the field grid agree on every body's cell.
+    A bf16 state's cells come from its positions and box upcast: in bf16,
+    (q - lo) / cs carries 8 bits, which misplaces bodies by a fifth of a
+    cell at C = 128 on the 1M two-cluster box."""
+    lo, cs = cell_box(c, h, C)
+    return tuple(_cell_coords(q.to(lo.dtype), lo[d], cs[d], C)[0]
+                 .to(torch.int32) for d, q in enumerate((qx, qy, qz)))
 
 
 def _brick_boxes(ci_s, K: int):

@@ -17,7 +17,11 @@ length (the launch order), all made on the device with no host sync.
 
 ``p2p_sweep_kernel_sorted`` runs the plain sweep on CPU tensors and
 launches K10 on CUDA tensors (fp32 inside; float64 inputs are cast here
-and the result cast back), and counts each launch.  ``p2p_sweep`` sorts
+and the result cast back), and counts each launch.  A bf16 state (the
+four body arrays bf16) launches K10's bf16 instance
+(``murb_p2p_sorted_bf16``) on bf16 {x, y, z, G m} rows, counted in
+``bf16_launches``: it converts each staged row to fp32, so its sums are
+the fp32 instance's on the rows upcast.  ``p2p_sweep`` sorts
 unsorted bodies for it and unsorts the result (the near field of
 ops/fmm.acc_fmm's ``near="p2p"``); ``acc_p2p`` is the standalone entry
 the tests call.
@@ -31,6 +35,7 @@ from murb_tpu_torch.ops.common import Accel, notify_fp32_compute
 from murb_tpu_torch.ops.p2p import (DEFAULT_CHUNK, DEFAULT_K, SUB_K,
                                     _adjacency, _brick_boxes,
                                     p2p_sweep_plain_sorted, sorted_cells)
+from murb_tpu_torch.ops.proxy_kernels import _entry
 
 _TAG = "tpu+proxy/adaptive (P2P kernel)"
 
@@ -61,6 +66,30 @@ def subbrick_boxes(cells) -> torch.Tensor:
     return box
 
 
+def p2p_sorted_launch(x, y, z, g, cells, soft2: float, *, pmax: int,
+                      with_phi: bool = False):
+    """K10 alone on float32 sorted bodies (its bf16 instance on bf16 ones)
+    and their int32 cells -> ((nf, n) float32 sums in sorted order,
+    n_pairs); the adjacency, the pair rows, the launch order and the
+    packed rows made here on the device."""
+    dev, n = x.device, x.shape[0]
+    B = n // DEFAULT_K
+    adj = _adjacency(*_brick_boxes(cells, DEFAULT_K)).contiguous()
+    counts, starts, n_pairs = pair_rows(adj)
+    order = launch_order(counts)
+    body = torch.stack((x, y, z, g), 1)
+    cell = torch.stack((*cells, torch.zeros_like(cells[0])), 1)
+    box = subbrick_boxes(cells)
+    out = torch.empty((4 if with_phi else 3, n), dtype=torch.float32,
+                      device=dev)
+    with torch.cuda.device(dev):
+        cuda.launch(_entry("murb_p2p_sorted", x), body.data_ptr(), cell.data_ptr(), box.data_ptr(),
+                    order.data_ptr(), B, adj.data_ptr(), starts.data_ptr(),
+                    int(pmax), soft2, int(with_phi), out.data_ptr(),
+                    cuda.stream(dev))
+    return out, n_pairs
+
+
 def p2p_sweep_kernel_sorted(xs, ys, zs, gs, ci, soft, *, pmax: int,
                             chunk: int = DEFAULT_CHUNK,
                             with_phi: bool = False):
@@ -78,29 +107,23 @@ def p2p_sweep_kernel_sorted(xs, ys, zs, gs, ci, soft, *, pmax: int,
     dtype, dev, n = xs.dtype, xs.device, xs.shape[0]
     if n % DEFAULT_K:
         raise ValueError(f"{_TAG}: n={n} is not a multiple of {DEFAULT_K}")
+    b16 = cuda.all_bf16(xs, ys, zs, gs)
     x, y, z, g = cuda.kernel_inputs(_TAG, dev, n, xs, ys, zs, gs,
-                                    notify=notify_fp32_compute)
+                                    notify=notify_fp32_compute, bf16=b16)
     cells = cuda.int_inputs(_TAG, dev, n, *ci)
     B = n // DEFAULT_K
-    adj = _adjacency(*_brick_boxes(cells, DEFAULT_K)).contiguous()
-    counts, starts, n_pairs = pair_rows(adj)
-    order = launch_order(counts)
-    body = torch.stack((x, y, z, g), 1)
-    cell = torch.stack((*cells, torch.zeros_like(cells[0])), 1)
-    box = subbrick_boxes(cells)
-    nf = 4 if with_phi else 3
-    out = torch.empty((nf, n), dtype=torch.float32, device=dev)
     soft2 = float(torch.tensor(soft, dtype=torch.float32) ** 2)
-    with torch.cuda.device(dev):
-        cuda.launch("murb_p2p_sorted", body.data_ptr(), cell.data_ptr(),
-                    box.data_ptr(), order.data_ptr(), B, adj.data_ptr(),
-                    starts.data_ptr(), int(pmax), soft2, int(with_phi),
-                    out.data_ptr(), cuda.stream(dev))
-    p2p_sweep_kernel_sorted.launches += 1
+    out, n_pairs = p2p_sorted_launch(x, y, z, g, cells, soft2, pmax=pmax,
+                                     with_phi=with_phi)
+    if b16:
+        p2p_sweep_kernel_sorted.bf16_launches += 1
+    else:
+        p2p_sweep_kernel_sorted.launches += 1
     return tuple(o.reshape(B, DEFAULT_K).to(dtype) for o in out), n_pairs
 
 
 p2p_sweep_kernel_sorted.launches = 0
+p2p_sweep_kernel_sorted.bf16_launches = 0
 
 
 def p2p_sweep(qx, qy, qz, gm_src, c, h, soft, *, C: int, pmax: int,

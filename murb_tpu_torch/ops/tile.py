@@ -40,18 +40,19 @@ def acc_tile_rect_plain(qxi, qyi, qzi, qxj, qyj, qzj, gmj, soft) -> Accel:
 
 def split_args(ni: int, nj: int, block_i: int, block_j: int,
                device: torch.device, entry: str = "murb_tile_resident",
-               dtype: torch.dtype = torch.float32):
+               dtype: torch.dtype = torch.float32, channels: int = 3):
     """K3's j split on ``device``: ``((slices, tiles_per_slice, scratch
-    pointer or None), scratch)``, the scratch a fresh (slices, 3, ni)
-    ``dtype`` tensor (None for one slice) that the caller keeps until the
-    launch is enqueued.  ``entry`` counts the resident blocks (K4's
-    passes 3: ``murb_hybrid_resident`` with float64 slice sums)."""
+    pointer or None), scratch)``, the scratch a fresh (slices, channels,
+    ni) ``dtype`` tensor (None for one slice) that the caller keeps until
+    the launch is enqueued.  ``entry`` counts the resident blocks (K4's
+    passes 3: ``murb_hybrid_resident`` with float64 slice sums; passes 1:
+    ``murb_hybrid_fast_resident`` with P's four columns)."""
     slices, per = cuda.tile_split(ni, nj, cuda.sm_count(device),
                                   cuda.resident(entry, device, block_i,
                                                 block_j),
                                   block_i, block_j)
-    scratch = (torch.empty((slices, 3, ni), dtype=dtype, device=device)
-               if slices > 1 else None)
+    scratch = (torch.empty((slices, channels, ni), dtype=dtype,
+                           device=device) if slices > 1 else None)
     return (slices, per, None if scratch is None else scratch.data_ptr()), \
         scratch
 

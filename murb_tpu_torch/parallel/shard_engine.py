@@ -327,6 +327,11 @@ class ShardedEngine(SimulationEngine):
 
     @property
     def allocated_bytes(self) -> int:
+        """The state's bytes, once: the shards' blocks, or in uneven mode,
+        whose every shard keeps the whole state, one replica (murb_tpu's
+        banner figure, its global state's)."""
+        if self.mode == "uneven":
+            return self._state[0].allocated_bytes
         return sum(b.allocated_bytes for b in self._state)
 
     @property

@@ -60,7 +60,7 @@ def test_keys_carry_the_device_name(tune_cache, monkeypatch):
 
 @pytest.mark.parametrize("im,key", [
     ("tpu+tile", "torch/tpu+tile@k3rows/n512/cpu"),
-    ("tpu+hybrid+fast", "torch/tpu+hybrid/p1@k3rows/n512/cpu"),
+    ("tpu+hybrid+fast", "torch/tpu+hybrid/p1@k4fast/n512/cpu"),
     ("tpu+hybrid", "torch/tpu+hybrid/p2@k3rows/n512/cpu"),
     ("tpu+hybrid+x3", "torch/tpu+hybrid/p3/n512/cpu"),
     ("tpu+mxu", "torch/tpu+mxu@k13mma/n512/cpu")])
@@ -224,7 +224,7 @@ def test_hybrid_pass_counts_tune_separately(tune_cache):
     e1 = create_engine("tpu+hybrid", bodies, soft=SOFT, dt=DT)
     e2 = create_engine("tpu+hybrid+fast", bodies, soft=SOFT, dt=DT)
     assert e1._tune_tag == "tpu+hybrid/p2@k3rows" and \
-        e2._tune_tag == "tpu+hybrid/p1@k3rows"
+        e2._tune_tag == "tpu+hybrid/p1@k4fast"
     at.store(e2._tune_tag, bodies.npad, {"block_i": 64, "block_j": 64},
              0.1, **CPU)
     e3 = create_engine("tpu+hybrid+fast", bodies, soft=SOFT, dt=DT)

@@ -184,7 +184,9 @@ def test_sweeps_match_murb_tpu_kernels(kernel):
     with an rms floor of 1e-2: murb_tpu's P[0:3] - q P[3] algebra misses
     the float64 sweep by up to 0.21 relative on cancelling components
     (ROADMAP.md Queue 3), where the port's sweep stays within 1e-2 of it
-    with no floor (checked here)."""
+    with no floor (checked here).  K4's passes 1 is the lossy fast tier
+    (TF32 weights, csrc/hybrid_fast.cu) and is held to float64 by its
+    contract, murb_tpu's 5.1e-3 max per-body error."""
     from murb_tpu.ops import hybrid as jh
     from murb_tpu.ops.tile_pallas import acc_tile as jtile
     from murb_tpu_torch.ops import hybrid as th
@@ -210,8 +212,18 @@ def test_sweeps_match_murb_tpu_kernels(kernel):
         floor = 1e-2
     assert got.ax.dtype == BF16 and ref.ax.dtype == jnp.bfloat16
     _check_forces(got, ref, 1e-2, floor, f"bf16 {kernel} vs murb_tpu")
-    _check_forces(got, _float64_forces(j), 1e-2, 0.0,
-                  f"bf16 {kernel} vs float64")
+    exact = _float64_forces(j)
+    if kernel == "hybrid-p1":
+        # the fast tier is lossy (TF32 weights, csrc/hybrid_fast.cu): held to
+        # its contract, murb_tpu's 5.1e-3 max per-body error, bf16 out
+        g = np.stack([f32(a).astype(np.float64) for a in got], 1)
+        e = np.stack([f32(a).astype(np.float64) for a in exact], 1)
+        en = np.linalg.norm(e, axis=1)
+        worst = (np.linalg.norm(g - e, axis=1)
+                 / np.maximum(en, 1e-6 * en.max())).max()
+        assert worst <= 5.1e-3, worst
+    else:
+        _check_forces(got, exact, 1e-2, 0.0, f"bf16 {kernel} vs float64")
 
 
 def test_phi_rows_match_murb_tpu_and_stay_fp32():
