@@ -159,7 +159,17 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      instances of K10-K12 launched, ms a step in turns with fp32), those
      three bit for bit their fp32 instances on its sorted bodies, against
      float64 and in turns with fp32, and the merger's tracked energy in
-     bf16 (row 0 within 1e-3 of float64).
+     bf16 (row 0 within 1e-3 of float64; the CLI's K5-bf16); the bf16
+     instances of K5 and K6 (the merger, 81,920^2, R = 1, 2, 8), K13
+     (200,192^2, "high" and "default") and K14 (the 200k galaxy at D = 1
+     and 4 shards, and 2 shards of 16,383 bodies), each bit for bit its
+     fp32 instance on the arrays upcast at its wrapper's split (K14 at
+     D = 1 also K3's bf16 instance), against its plain version and
+     float64 at the fp32 instance's limits, timed in turns alone and
+     through the wrapper, with its registers and spills; the merger
+     through ``create_engine`` (K6-bf16), ``shard+ring`` on 4 shards of
+     the card (K14-bf16) and ``tpu+mxu --precision bf16`` through the CLI
+     (K13-bf16).
 Each piece of the path (the CLI run of phase 4, the ``acc_proxy`` of phase
 5, each CLI run of phase 6, each run of phases 7 to 11) starts from zeroed
 launch counts, which are read right after it: K1 and K2 from phase 4, K3
@@ -173,7 +183,9 @@ rungs launch all four; the rung it keeps, its pair every step), K3's from its
 ``tpu+tile`` run and K4's from each ``tpu+hybrid`` run (each must launch
 in each), K4's passes 1 from phase 6's ``tpu+hybrid+fast`` run (and its
 bf16 instance from phase 15's), K10-K12's bf16 instances from phase 15's
-1M bf16 run.  Every kernel must have launched in
+1M bf16 run, K5's from its bf16 merger CLI run, K6's, K14's and K13's
+from its bf16 merger through ``create_engine``, 4-shard ``shard+ring``
+and ``tpu+mxu`` runs (each with no launch of the fp32 instance).  Every kernel must have launched in
 its piece.  The line before the last is the kernels' JSON
 record (with each kernel's bound: the larger of its bytes over 3.35 TB/s
 and its operations over the 67 TFLOP/s fp32 peak of an H100 SXM; K5's and
@@ -193,6 +205,7 @@ import functools
 import itertools
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -293,6 +306,16 @@ def in_turns(time_ms, fn32, fn16, **kw) -> tuple[float, float]:
     16, 16, 32): the medians of each."""
     a, b, c, d = (time_ms(f, **kw) for f in (fn32, fn16, fn16, fn32))
     return statistics.median((a, d)), statistics.median((b, c))
+
+
+def timed(engine, n_steps):
+    """(engine, steps per second of ``run`` after one warm-up step)."""
+    engine.run(1)
+    engine.block_until_ready()
+    t0 = time.perf_counter()
+    engine.run(n_steps - 1)
+    engine.block_until_ready()
+    return engine, (n_steps - 1) / (time.perf_counter() - t0)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1590,6 +1613,9 @@ def phase15_adaptive(dev, smi, drive, time_ms, keep, rel_max,
                        f"{buf.getvalue()[-2000:]}")
     res.engine.assert_finite()
     check(res.engine.bodies.dtype == bf16, "the merger's state is not bf16")
+    check(counts["K5-bf16"] > 0 and counts["K5"] == 0,
+          f"the bf16 merger (CLI) did not launch K5-bf16 alone: {counts}")
+    launches["K5-bf16"] = counts["K5-bf16"]
     hist = res.engine.finalize_history()   # the galaxies' series summed
     exact = 0.0
     for mask in milkyway_andromeda_masks(mg16.npad, mg16.n):
@@ -1608,6 +1634,513 @@ def phase15_adaptive(dev, smi, drive, time_ms, keep, rel_max,
           f"{exact:.9e} (rel {rel:.3e}, tol 1e-3); {res.fps:.2f} FPS; "
           f"launches {counts} on {smi}")
     print(f"[15 time] phase 15's adaptive and merger runs took "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def ptxas_report(pattern: str) -> dict:
+    """{key: (registers, spill store bytes)} of the library's kernels
+    whose mangled names match ``pattern`` (its groups form the key), from
+    the build's compiler report (ops/cuda.build_kernels keeps it beside
+    the library)."""
+    from murb_tpu_torch.ops import cuda
+
+    log = cuda.library_path().with_suffix(".log").read_text().splitlines()
+    out = {}
+    for i, line in enumerate(log):
+        m = re.search(pattern, line)
+        if not m or "Compiling entry function" not in line:
+            continue
+        near = " ".join(log[i + 1:i + 4])
+        regs = re.search(r"Used (\d+) registers", near)
+        spill = re.search(r"(\d+) bytes spill stores", near)
+        out[m.groups()] = (int(regs.group(1)) if regs else None,
+                           int(spill.group(1)) if spill else None)
+    return out
+
+
+def phase15_sweeps(dev, smi, drive, time_ms, keep, within_rel, norm_rel,
+                   tab, n_main):
+    """15 (continued). The bf16 instances of K5 and K6 (the merger,
+    81,920^2, R = 1, 2, 8), K14 (the 200k galaxy at D = 1 and 4 shards on
+    the card, and an odd shard length) and K13 (200,192^2 at "high" and
+    "default"): each bit for bit its fp32 instance on the arrays upcast at
+    the split its wrapper launches (K14 at D = 1 also K3's bf16 instance),
+    the wrapper's outputs its sums (rounded where the wrapper rounds),
+    held to its plain version and to float64 at the fp32 instance's
+    limits, and timed in turns with the fp32 instance alone (its C entry,
+    prebuilt inputs) and through the wrapper; the registers and spills of
+    each instance; then the paths: the merger through ``create_engine``
+    (K6), ``shard+ring`` on 4 shards of the card and ``tpu+mxu
+    --precision bf16`` through the CLI, each launching the bf16 instance
+    and no fp32 one.  Records the four instances through ``keep`` and
+    returns their launch counts (K5's from phase15_adaptive's merger CLI
+    run)."""
+    import numpy as np
+    import torch
+
+    from murb_tpu_torch import G, cli
+    from murb_tpu_torch.core import metrics as tm
+    from murb_tpu_torch.core.init import (init_galaxy,
+                                          init_milkyway_andromeda,
+                                          milkyway_andromeda_masks)
+    from murb_tpu_torch.core.state import in_dtype
+    from murb_tpu_torch.models import create_engine
+    from murb_tpu_torch.ops import cuda
+    from murb_tpu_torch.ops import mxu as mxu_ops
+    from murb_tpu_torch.ops import ring as ring_ops
+    from murb_tpu_torch.ops.hybrid import (acc_phi_rows_hybrid,
+                                           acc_phi_rows_plain, phi_rows_rect,
+                                           phi_rows_rect_plain,
+                                           phi_split_args)
+    from murb_tpu_torch.ops.tile import acc_tile_rect, acc_tile_rect_plain
+    from murb_tpu_torch.parallel.mesh import make_mesh, shard_state
+    from murb_tpu_torch.utils.profile_step import graph_ms
+
+    bf16 = torch.bfloat16
+    t_phase = time.perf_counter()
+    launches = {}
+    turns = functools.partial(in_turns, time_ms)
+    soft2 = ctypes.c_float(SOFT ** 2)
+    sms = cuda.sm_count(dev)
+    clk = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,"
+         "nounits", "-i", "0"], capture_output=True, text=True,
+        check=True).stdout.split()[0]) * 1e6
+    regs = ptxas_report(r"sweep_rows_kernelILi256ELi256ELi([0-8])ELb([01])"
+                        r"ELb0E(f|13__nv_bfloat16)E")
+    regs13 = ptxas_report(r"mxu_mma_kernelILi512ELi512ELi([12])E"
+                          r"(f|13__nv_bfloat16)E")
+    kind = {"f": "fp32", "13__nv_bfloat16": "bf16"}
+
+    # ---- K5 and K6 on the bf16 merger at R = 2, 1, 8 (phase 3's rows)
+    mg = init_milkyway_andromeda(tab, dtype=bf16, device=dev)
+    nm = mg.npad
+    q16 = (mg.qx, mg.qy, mg.qz, mg.m * in_dtype(G, bf16))
+    q32 = tuple(v.float() for v in q16)
+    q64 = tuple(v.double() for v in q16)
+    idx = torch.linspace(0, nm - 1, 4096, device=dev).long()
+    qs64 = tuple(v[idx] for v in q64[:3])
+    ref_acc = acc_tile_rect_plain(*qs64, *q64, SOFT)
+    masks = [torch.as_tensor(mk, device=dev, dtype=bf16)
+             for mk in milkyway_andromeda_masks(nm, mg.n)]
+    mufu_ms = float(nm) * nm / (16 * sms * clk) * 1e3
+
+    def merger_rows(nr):
+        """phase 3's rows in bf16, as the engines form them (masks * G*m)."""
+        if nr == 1:
+            return q16[3][None, :].contiguous()
+        out = [masks[0] * q16[3], masks[1] * q16[3]]
+        if nr > 2:
+            g8 = torch.Generator(device=dev).manual_seed(SEED)
+            out.append(q16[3])
+            out += [(torch.rand(nm, generator=g8, device=dev) < 0.5).to(bf16)
+                    * q16[3] for _ in range(nr - 3)]
+        return torch.stack(out[:nr]).contiguous()
+
+    def phi_runner(force, b16, rows32, split):
+        """K6 (force) or K5 through its C entry at ``split`` (no launch
+        counted): a function returning its (3 + R or R, nm) fp32 sums."""
+        q = q16 if b16 else q32
+        nr = rows32.shape[0]
+        out = torch.empty(((3 if force else 0) + nr, nm), dtype=torch.float32,
+                          device=dev)
+        sfx = "_bf16" if b16 else ""
+
+        def run():
+            if force:
+                cuda.launch("murb_acc_phi_rows" + sfx,
+                            *(v.data_ptr() for v in q), nm, rows32.data_ptr(),
+                            nr, soft2, *split, out[0].data_ptr(),
+                            out[1].data_ptr(), out[2].data_ptr(),
+                            out[3:].data_ptr(), cuda.stream(dev))
+            else:
+                cuda.launch("murb_phi_rows_rect" + sfx,
+                            *(v.data_ptr() for v in q[:3]), nm,
+                            *(v.data_ptr() for v in q[:3]), nm,
+                            rows32.data_ptr(), nr, soft2, *split,
+                            out.data_ptr(), cuda.stream(dev))
+            return out
+        return run
+
+    for r in (2, 1, 8):
+        rows16 = merger_rows(r)
+        rows32 = rows16.float()
+        ref_phi = phi_rows_rect_plain(*qs64, *q64[:3], rows16.double(), SOFT)
+        line = {}
+        for force, key in ((False, "K5"), (True, "K6")):
+            sp16, sc16 = phi_split_args(nm, nm, r, force, 0, 0, dev, True)
+            sp32, sc32 = phi_split_args(nm, nm, r, force, 0, 0, dev)
+            raw = phi_runner(force, True, rows32, sp16)().clone()
+            check(torch.equal(raw, phi_runner(force, False, rows32, sp16)()),
+                  f"{key}-bf16 R={r}: not the fp32 instance's bits at split "
+                  f"{sp16[:4]}")
+            phi_raw = raw[3:] if force else raw
+            d = phi_raw[:, idx].double() - ref_phi
+            prel = float((d.abs() / ref_phi.abs()).max())
+            check(prel <= 1e-5, f"{key}-bf16 R={r}: max relative phi error "
+                                f"{prel:.3e} > 1e-5 against float64")
+            err = float(d.abs().max())
+            if force:
+                frel = norm_rel([a[idx] for a in raw[:3]], ref_acc)
+                check(frel <= 3e-5, f"K6-bf16 R={r}: max relative force "
+                                    f"error {frel:.3e} > 3e-5")
+                err = max(float((a[idx].double() - b).abs().max())
+                          for a, b in zip(raw[:3], ref_acc))
+                acc, phi = acc_phi_rows_hybrid(*q16, rows16, SOFT)
+                got = (*acc, *phi)
+                check(all(g.dtype == bf16 for g in got) and all(
+                    torch.equal(g, v.to(bf16)) for g, v in zip(got, raw)),
+                    f"K6-bf16 R={r}: the wrapper's outputs are not its sums "
+                    f"rounded")
+                # K5's bf16 rows at K6's geometry and split (K6's scratch
+                # holds K5's): K6's
+                k5 = phi_runner(False, True, rows32, sp16)()
+                check(torch.equal(k5, raw[3:]),
+                      f"K5-bf16 R={r}: not K6-bf16's rows at its split")
+                wrap = lambda q, rw: acc_phi_rows_hybrid(*q, rw, SOFT)
+                plain = lambda: acc_phi_rows_plain(*q16, rows16, SOFT)
+            else:
+                got = phi_rows_rect(*q16[:3], *q16[:3], rows16, SOFT)
+                check(got.dtype == torch.float32 and torch.equal(got, raw),
+                      f"K5-bf16 R={r}: the wrapper's outputs are not its "
+                      f"sums")
+                wrap = lambda q, rw: phi_rows_rect(*q[:3], *q[:3], rw, SOFT)
+                plain = lambda: phi_rows_rect_plain(*q16[:3], *q16[:3],
+                                                    rows16, SOFT)
+            pv = plain()
+            pv = (*pv[0], *pv[1]) if force else pv
+            if force:   # bf16 out on both sides (phase 15's rule)
+                wp = within_rel(got, pv, 1e-2, 1e-4)
+                check(wp <= 1.0, f"K6-bf16 R={r} vs its plain version: "
+                                 f"{wp:.2f}x of WithinRel 1e-2")
+            else:       # K5's rows float32 on both sides
+                wp = float(((got - pv).abs() / pv.abs()).max())
+                check(wp <= 1e-5, f"K5-bf16 R={r} vs its plain version: "
+                                  f"{wp:.3e} > 1e-5")
+            alone = [graph_ms(phi_runner(force, b, rows32, sp))
+                     for b, sp in ((False, sp32), (True, sp16), (True, sp16),
+                                   (False, sp32))]
+            ms32, ms16 = turns(lambda: wrap(q32, rows32),
+                               lambda: wrap(q16, rows16), reps=5)
+            rg = {kind[t]: regs.get((str(r), str(int(force)), t))
+                  for t in kind}
+            line[key] = (sp16, prel, wp, alone, ms32, ms16, rg)
+            if r == 2:
+                plain_ms = time_ms(plain, reps=1, runs=1)
+                nbytes = ((20 if force else 12) + 8 * r) * nm
+                flops = ((20 if force else 10) + 2 * r) * nm * nm
+                b_ms = keep(f"{key}-bf16", err, ms16, plain_ms, nbytes, flops,
+                            mufu_ms)
+                line[key] += (f"; plain {plain_ms:.4f} ms; bound "
+                              f"{b_ms:.4f} ms",)
+            del sc16, sc32
+        for key, (sp, prel, wp, alone, ms32, ms16, rg, *rest) in line.items():
+            print(f"[15 bf16 {key} {nm}^2 R={r}] {sp[0]}x{sp[1]} in {sp[2]} "
+                  f"slices (its own resident count): the fp32 instance's bits "
+                  f"there, the wrapper's outputs; vs float64 phi {prel:.3e} "
+                  f"(1e-5)" + (", force within 3e-5" if key == "K6" else "")
+                  + f"; vs plain {wp:.3e}; alone (a CUDA graph, each at its "
+                  f"split) fp32, bf16, bf16, fp32: "
+                  + ", ".join(f"{a:.4f}" for a in alone)
+                  + f" ms; through the wrapper in turns bf16 {ms16:.4f} ms, "
+                  f"fp32 {ms32:.4f} ms; registers, spill bytes {rg}"
+                  + "".join(rest) + f" on {smi}")
+    del ref_acc, ref_phi
+
+    # ---- K13 on the bf16 200k galaxy; its float64 sweep on 4096 strided
+    # rows, which K14 below shares (its ghosts add nothing)
+    sg = init_galaxy(n_main, SEED, dtype=bf16, device=dev)
+    g16 = (sg.qx, sg.qy, sg.qz, sg.m * in_dtype(G, bf16))
+    g32 = tuple(v.float() for v in g16)
+    g64 = tuple(v.double() for v in g16)
+    n13 = sg.npad
+    idx13 = torch.linspace(0, sg.n - 1, 4096, device=dev).long()
+    ref13 = acc_tile_rect_plain(*(v[idx13] for v in g64[:3]), *g64, SOFT)
+    bi, bj = mxu_ops.MXU_BLOCK_I, mxu_ops.MXU_BLOCK_J
+
+    def k13_split(sfx):
+        return cuda.tile_split(n13, n13, sms, cuda.resident(
+            "murb_mxu_resident" + sfx, dev, bi, bj), bi, bj)
+
+    def k13_runner(b16, passes, split):
+        """K13 through its C entry at ``split`` (no launch counted), the
+        centre found by the kernel: a function returning (sums, centre)."""
+        q = g16 if b16 else g32
+        center = torch.empty(3, dtype=torch.float32, device=dev)
+        packed = torch.empty(-(-n13 // mxu_ops.PACK_SOURCES)
+                             * mxu_ops.PACK_SOURCES // 8
+                             * mxu_ops.CHUNK_FLOATS, device=dev)
+        scratch = (torch.empty((split[0], 4, n13), device=dev)
+                   if split[0] > 1 else None)
+        out = torch.empty((3, n13), dtype=torch.float32, device=dev)
+
+        def run():
+            cuda.launch("murb_mxu_rect" + ("_bf16" if b16 else ""),
+                        *(v.data_ptr() for v in q[:3]), n13,
+                        *(v.data_ptr() for v in q), n13, soft2, 1,
+                        center.data_ptr(), bi, bj, passes, *split,
+                        packed.data_ptr(),
+                        None if scratch is None else scratch.data_ptr(),
+                        *(o.data_ptr() for o in out), cuda.stream(dev))
+            return out, center
+        return run
+
+    sp16, sp32 = k13_split("_bf16"), k13_split("")
+    for prec, eps in (("high", 5e-4), ("default", 1e-3)):
+        passes = mxu_ops.tier_passes(prec)[1]
+        raw, c16 = (t.clone() for t in k13_runner(True, passes, sp16)())
+        o32, c32 = k13_runner(False, passes, sp16)()
+        check(torch.equal(raw, o32) and torch.equal(c16, c32),
+              f"K13-bf16 {prec}: not the fp32 instance's bits (sums and "
+              f"centre) at split {sp16}")
+        got = mxu_ops.acc_mxu_rect(*g16[:3], *g16, SOFT, precision=prec)
+        check(all(g.dtype == bf16 and torch.equal(g, v.to(bf16))
+                  for g, v in zip(got, raw)),
+              f"K13-bf16 {prec}: the wrapper's outputs are not its sums "
+              f"rounded")
+        plain = mxu_ops.acc_mxu_rect_plain(*g32[:3], *g32, SOFT,
+                                           precision=prec)
+        w64 = within_rel([v[idx13] for v in raw], ref13, eps, eps)
+        check(w64 <= 1.0, f"K13-bf16 {prec}: WithinRel {eps:g} against "
+                          f"float64 exceeded by {w64:.2f}x")
+        if prec == "high":
+            wpl = within_rel(raw, plain, 1e-5, 1e-5)
+            check(wpl <= 1.0, f"K13-bf16 high: WithinRel 1e-5 against its "
+                              f"plain version exceeded by {wpl:.2f}x")
+            held = f"vs plain WithinRel 1e-5 at {wpl:.4f}"
+        else:
+            wpl = within_rel(raw, plain, 1e-3, 1e-3)
+            dd = sum(float((a.double() - b.double()).pow(2).sum())
+                     for a, b in zip(raw, plain))
+            rms = (dd / sum(float(b.double().pow(2).sum())
+                            for b in plain)) ** 0.5
+            check(wpl <= 1.0 and rms <= 2e-5,
+                  f"K13-bf16 default vs its plain version: WithinRel 1e-3 "
+                  f"at {wpl:.2f}x, rms {rms:.3e} (tol 2e-5)")
+            held = (f"vs plain WithinRel 1e-3 at {wpl:.4f}, rms "
+                    f"{rms:.3e} (2e-5)")
+        alone = [graph_ms(lambda: k13_runner(b, passes, sp)()[0], reps=5)
+                 for b, sp in ((False, sp32), (True, sp16), (True, sp16),
+                               (False, sp32))]
+        ms32, ms16 = turns(
+            lambda: mxu_ops.acc_mxu_rect(*g32[:3], *g32, SOFT,
+                                         precision=prec),
+            lambda: mxu_ops.acc_mxu_rect(*g16[:3], *g16, SOFT,
+                                         precision=prec), reps=3, runs=3)
+        err = max(float((a[idx13].double() - b).abs().max())
+                  for a, b in zip(raw, ref13))
+        note = ""
+        if prec == "high":
+            plain_ms = time_ms(lambda: mxu_ops.acc_mxu_rect_plain(
+                *g32[:3], *g32, SOFT), reps=1, runs=1)
+            pairs = float(n13) * n13
+            floors = {"mufu": pairs / (16 * sms * clk) * 1e3,
+                      "tensor": 64 * pairs / 495e12 * 1e3,
+                      "fp32": 3 * pairs / PEAK_FP32 * 1e3}
+            # bf16 in: 2 bytes a body value (3 target, 4 source), fp32 out
+            b_ms = keep("K13-bf16", err, ms16, plain_ms, 26 * n13,
+                        3 * pairs, max(floors.values()))
+            note = f"; plain {plain_ms:.4f} ms; bound {b_ms:.4f} ms"
+        rg = {f"{kind[t]} NP={p}": regs13.get((p, t)) for p in ("1", "2")
+              for t in kind}
+        print(f"[15 bf16 K13 {n13}^2 {prec}] {sp16[0]} slices (its own "
+              f"resident count; fp32's {sp32[0]}): the fp32 instance's bits "
+              f"and centre there, the wrapper's outputs rounded; {held}; vs "
+              f"float64 (4096 rows) WithinRel {eps:g} at {w64:.4f}, max|da| "
+              f"{err:.3e}; alone (a CUDA graph, each at its split) fp32, "
+              f"bf16, bf16, fp32: " + ", ".join(f"{a:.4f}" for a in alone)
+              + f" ms; through the wrapper in turns bf16 {ms16:.4f} ms, fp32 "
+              f"{ms32:.4f} ms{note}; registers, spill bytes {rg} on {smi}")
+    del plain, o32
+
+    # ---- K14: the bf16 ring at D = 1 and 4 on the card, and an odd shard
+    # length (its slot rows an even stride apart)
+    def ring_runner(b16, qs, gs, split, delay=0):
+        """K14 through its C entry at ``split`` (no launch counted), its
+        buffers made once: a function that packs slot 0 and runs the ring,
+        returning the (3, D n) fp32 sums."""
+        d, n = len(qs), qs[0][0].shape[0]
+        ld = ring_ops.slot_stride(n) if b16 else n
+        bufs = [torch.zeros((2, 4, ld), dtype=q[0].dtype, device=dev)
+                for q in qs]
+        outs = [torch.empty((3, n), device=dev) for _ in qs]
+        scr = [torch.empty((split[0], 3, n) if split[0] > 1 else 0,
+                           device=dev) for _ in qs]
+        ptrs = lambda ts: (ctypes.c_void_p * d)(*(t.data_ptr() for t in ts))
+        arrays = [ptrs(q[c] for q in qs) for c in range(3)] + [ptrs(bufs)]
+        arrays += [ptrs(o[c] for o in outs) for c in range(3)] + [ptrs(scr)]
+        ids = (ctypes.c_int * d)(*([dev.index or 0] * d))
+        side = [ring_ops._side_streams(dev, s) for s in range(d)]
+
+        def run():
+            for buf, q, g in zip(bufs, qs, gs):
+                for c, v in enumerate((*q, g)):
+                    buf[0, c, :n] = v
+            streams = [(ctypes.c_void_p * d)(*v) for v in (
+                [torch.cuda.current_stream(dev).cuda_stream] * d,
+                [c.cuda_stream for c, _ in side],
+                [p.cuda_stream for _, p in side])]
+            cuda.launch("murb_ring_pipelined" + ("_bf16" if b16 else ""),
+                        d, n, *((ld,) if b16 else ()),
+                        *(ctypes.addressof(a) for a in arrays),
+                        ctypes.addressof(ids),
+                        *(ctypes.addressof(s) for s in streams), soft2, 0, 0,
+                        *split, delay)
+            return torch.stack([torch.cat([o[c] for o in outs])
+                                for c in range(3)])
+        return run
+
+    def k3_bf16(q, g, split):
+        """K3's bf16 instance through its C entry at ``split``."""
+        n = q[0].shape[0]
+        out = torch.empty((3, n), device=dev)
+        scr = torch.empty((split[0], 3, n), device=dev)
+        cuda.launch("murb_tile_rect_bf16", *(v.data_ptr() for v in q), n,
+                    *(v.data_ptr() for v in q), g.data_ptr(), n, soft2, 0, 0,
+                    *split, scr.data_ptr() if split[0] > 1 else None,
+                    *(o.data_ptr() for o in out), cuda.stream(dev))
+        return out
+
+    res14 = cuda.resident("murb_tile_resident_bf16", dev)
+    res14_32 = cuda.resident("murb_tile_resident", dev)
+    for d in (1, 4):
+        sd = sg.repad(256 * d)
+        mesh_d = make_mesh(devices=[dev] * d)
+        blocks = shard_state(sd, mesh_d)
+        qs = [(b.qx, b.qy, b.qz) for b in blocks]
+        gs = [b.m * in_dtype(G, bf16) for b in blocks]
+        qs32 = [tuple(v.float() for v in q) for q in qs]
+        gs32 = [g.float() for g in gs]
+        nl = sd.npad // d
+        sp16 = ring_ops.ring_split(nl, sms, res14, d)
+        sp32 = ring_ops.ring_split(nl, sms, res14_32, d)
+        raw = ring_runner(True, qs, gs, sp16)().clone()
+        check(torch.equal(raw, ring_runner(False, qs32, gs32, sp16)()),
+              f"K14-bf16 D={d}: not the fp32 instance's bits at split {sp16}")
+        check(torch.equal(raw, ring_runner(True, qs, gs, sp16, 5000)()),
+              f"K14-bf16 D={d}: a 5 us delay before every copy and compute "
+              f"changed the sums")
+        if d == 1:
+            check(torch.equal(raw, k3_bf16(qs[0], gs[0], sp16)),
+                  "K14-bf16 D=1: not K3's bf16 instance's bits")
+        got = ring_ops.acc_ring_pipelined(mesh_d, qs, gs, SOFT)
+        gcat = [torch.cat([a[c] for a in got]) for c in range(3)]
+        check(all(g.dtype == bf16 and torch.equal(g, v.to(bf16))
+                  for g, v in zip(gcat, raw)),
+              f"K14-bf16 D={d}: the wrapper's outputs are not its sums "
+              f"rounded")
+        w64 = within_rel([v[idx13] for v in raw], ref13, 1e-5, 5e-6)
+        check(w64 <= 1.0, f"K14-bf16 D={d}: WithinRel 1e-5 (rms floor 5e-6)"
+                          f" against float64 exceeded by {w64:.2f}x")
+        err = max(float((a[idx13].double() - b).abs().max())
+                  for a, b in zip(raw, ref13))
+        alone = [time_ms(ring_runner(b, q, g, sp), reps=3, runs=3)
+                 for b, q, g, sp in ((False, qs32, gs32, sp32),
+                                     (True, qs, gs, sp16),
+                                     (True, qs, gs, sp16),
+                                     (False, qs32, gs32, sp32))]
+        ms32, ms16 = turns(
+            lambda: ring_ops.acc_ring_pipelined(mesh_d, qs32, gs32, SOFT),
+            lambda: ring_ops.acc_ring_pipelined(mesh_d, qs, gs, SOFT),
+            reps=3, runs=3)
+        note = ""
+        if d == 4:
+            pv = ring_ops.acc_ring_pipelined_plain(mesh_d, qs, gs, SOFT)
+            wp = within_rel(gcat, [torch.cat([a[c] for a in pv])
+                                   for c in range(3)], 1e-2, 1e-4)
+            check(wp <= 1.0, f"K14-bf16 D=4 vs its plain version: {wp:.2f}x "
+                             f"of WithinRel 1e-2")
+            plain_ms = time_ms(lambda: ring_ops.acc_ring_pipelined_plain(
+                mesh_d, qs, gs, SOFT), reps=1, runs=1)
+            nd = sd.npad
+            b_ms = keep("K14-bf16", err, ms16, plain_ms, 20 * nd,
+                        20 * nd * nd)
+            note = (f"; vs plain at {wp:.4f} of WithinRel 1e-2; plain "
+                    f"{plain_ms:.4f} ms; bound {b_ms:.4f} ms")
+            del pv
+        print(f"[15 bf16 K14 N={sd.npad} D={d}] {sp16[0]} j slices a sweep "
+              f"(its own resident count {res14}; fp32's {res14_32}): the "
+              f"fp32 instance's bits there" + (", and K3's bf16 instance's"
+                                               if d == 1 else "")
+              + f", the same with a 5 us protocol delay, the wrapper's "
+              f"outputs rounded; vs float64 (4096 rows) WithinRel 1e-5 at "
+              f"{w64:.4f}, max|da| {err:.3e}; slot copies of "
+              f"{8 * ring_ops.slot_stride(nl)} bytes (fp32 {16 * nl}); alone "
+              f"(the C entry, slot 0 repacked) fp32, bf16, bf16, fp32: "
+              + ", ".join(f"{a:.4f}" for a in alone)
+              + f" ms; through the wrapper in turns bf16 {ms16:.4f} ms, fp32 "
+              f"{ms32:.4f} ms{note} on {smi}")
+        del blocks, qs, gs, qs32, gs32, raw, got, gcat
+    # an odd shard length: two shards of 16,383 bodies (slot rows 16,384
+    # apart) against the fp32 ring at the same split
+    odd = [tuple(v[k * 16_383:(k + 1) * 16_383].contiguous()
+                 for v in g16) for k in range(2)]
+    sp = ring_ops.ring_split(16_383, sms, res14, 2)
+    a16 = ring_runner(True, [o[:3] for o in odd], [o[3] for o in odd], sp)()
+    a32 = ring_runner(False, [tuple(v.float() for v in o[:3]) for o in odd],
+                      [o[3].float() for o in odd], sp)()
+    check(torch.equal(a16, a32), "K14-bf16 D=2, 16,383 bodies a shard: not "
+                                 "the fp32 instance's bits")
+    print(f"[15 bf16 K14 odd] D=2, 16,383 bodies a shard (slot stride "
+          f"{ring_ops.slot_stride(16_383)}): the fp32 instance's bits")
+    del odd, a16, a32, ref13
+    torch.cuda.empty_cache()
+
+    # ---- the paths: K6 (the merger through create_engine), K14
+    # (shard+ring, 4 shards of the card), K13 (tpu+mxu through the CLI)
+    (e6, fps6), counts = drive(lambda: timed(create_engine(
+        "tpu+tracking+multi", mg, soft=SOFT, dt=DT, num_iterations=20,
+        masks=milkyway_andromeda_masks(nm, mg.n)), 20))
+    e6.assert_finite()
+    check(counts["K6-bf16"] > 0 and counts["K6"] == 0,
+          f"the bf16 merger (create_engine) did not launch K6-bf16 alone: "
+          f"{counts}")
+    launches["K6-bf16"] = counts["K6-bf16"]
+    exact = 0.0
+    for mask in milkyway_andromeda_masks(nm, mg.n):
+        sgm = tm.masked(mg, torch.as_tensor(mask, device=dev))
+        qq = [v.double() for v in (sgm.qx, sgm.qy, sgm.qz, sgm.m)]
+        pe = tm.potential_energy_per_body(*qq, tm._gm(sgm).double(), SOFT)
+        ke = tm.kinetic_energy_per_body(sgm.m, sgm.vx, sgm.vy, sgm.vz)
+        exact += float((0.5 * pe + 0.5 * ke).sum())
+    e0 = float(e6.finalize_history().energies[0])
+    rel6 = abs(e0 / exact - 1.0)
+    # K6's rows come back in the state's dtype (murb_tpu's K6 too), and the
+    # energy subtracts each body's self term from its bf16 row
+    # (tests/test_torch_bf16_sweeps.py: 2e-2, murb_tpu's class)
+    check(bool(np.isfinite(e0)) and rel6 <= 2e-2,
+          f"bf16 merger (K6) energy row 0 {e0:.9e} vs float64 {exact:.9e}: "
+          f"rel {rel6:.3e} > 2e-2")
+    print(f"[15 merger K6] create_engine tpu+tracking+multi bf16 N={mg.n}: "
+          f"{fps6:.2f} FPS over 19 steps after one; energy row 0 rel "
+          f"{rel6:.3e} of float64 (2e-2; K6's rows are bf16); launches "
+          f"{counts} on {smi}")
+    (e14, fps14), counts = drive(lambda: timed(create_engine(
+        "shard+ring", sg, soft=SOFT, dt=DT, devices=[dev] * 4), 10))
+    e14.assert_finite()
+    check(e14.ring_impl == "pipelined" and e14.bodies.dtype == bf16,
+          f"shard+ring bf16 took {e14.ring_impl}, {e14.bodies.dtype}")
+    check(counts["K14-bf16"] > 0 and counts["K14"] == 0,
+          f"shard+ring bf16 on 4 shards did not launch K14-bf16 alone: "
+          f"{counts}")
+    launches["K14-bf16"] = counts["K14-bf16"]
+    print(f"[15 shard+ring] create_engine shard+ring bf16 devices=[cuda:0]*4 "
+          f"N={n_main}: {fps14:.3f} FPS over 9 steps after one; launches "
+          f"{counts}")
+    del e6, e14
+    res13, counts = drive(lambda: cli.run([
+        "-n", str(n_main), "-i", "10", "--im", "tpu+mxu", "--precision",
+        "bf16", "--nv", "--gf", "--scan", "--device", "cuda"]))
+    check(res13.rc == 0, f"cli tpu+mxu bf16 exit code {res13.rc}")
+    res13.engine.assert_finite()
+    check(res13.engine.bodies.dtype == bf16, "tpu+mxu: the state is not bf16")
+    check(counts["K13-bf16"] > 0 and counts["K13"] == 0,
+          f"tpu+mxu --precision bf16 did not launch K13-bf16 alone: {counts}")
+    launches["K13-bf16"] = counts["K13-bf16"]
+    print(f"[15 tpu+mxu] --precision bf16 N={n_main} through the CLI: "
+          f"{res13.fps:.3f} FPS over 9 steps; launches {counts} on {smi}")
+    print(f"[15 time] phase 15's K5, K6, K13 and K14 took "
           f"{time.perf_counter() - t_phase:.1f} s")
     return launches
 
@@ -2131,9 +2664,10 @@ def main() -> int:
         counters["K7b"] = (fk.m2l_level_fused, "lossy_launches")
         counters["K4-p1"] = (acc_hybrid_rect, "fast_launches")
         counters["K4-p1-bf16"] = (acc_hybrid_rect, "fast_bf16_launches")
-        for k in ("K1", "K2", "K3", "K4", "K8", "K9", "K10", "K11",
-                  "K12"):                                # bf16 (phase 15)
-            counters[f"{k}-bf16"] = (wrappers[k], "bf16_launches")
+        for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K8", "K9", "K10",
+                  "K11", "K12", "K13", "K14"):           # bf16 (phase 15)
+            if k in wrappers:
+                counters[f"{k}-bf16"] = (wrappers[k], "bf16_launches")
         for fn, attr in counters.values():
             setattr(fn, attr, 0)
         out = run()
@@ -2280,15 +2814,6 @@ def main() -> int:
     fps["merger tracked (K4 + K5)"] = res7.fps
     print(f"[7 merger] tpu+tracking+multi N={mg.n} through the CLI: "
           f"{res7.fps:.2f} FPS; launches {counts}")
-
-    def timed(engine, n_steps):
-        """Steps per second of ``run`` after one warm-up step."""
-        engine.run(1)
-        engine.block_until_ready()
-        t0 = time.perf_counter()
-        engine.run(n_steps - 1)
-        engine.block_until_ready()
-        return engine, (n_steps - 1) / (time.perf_counter() - t0)
 
     (eng7, fps_k6), counts = drive(lambda: timed(create_engine(
         "tpu+tracking+multi", mg, soft=SOFT, dt=DT, num_iterations=50,
@@ -3236,16 +3761,16 @@ def main() -> int:
     # SM (the card's SMs at clocks.max.sm), its TF32 products at the 495
     # TFLOP/s dense peak ("high": two m16n8k8 for S and two for P a 16 x 8
     # tile, 64 flops a pair; "default" 48), and the fp32 work left (3 flops
-    # a pair) at 67 TFLOP/s.  Bytes: A (8 rows) and
-    # gm per source; B (8 rows), the centred target and the output per
-    # target, each once.  The 20-flop model of K3 is printed beside it.
+    # a pair) at 67 TFLOP/s.  Bytes: the bodies (3 values a target, 4 a
+    # source) in and the force out, each once (K13 builds its operands
+    # itself).  The 20-flop model of K3 is printed beside it.
     pairs = float(n10) * n10
     floors = {"mufu": pairs / (16 * sms * clk) * 1e3,
               "tensor": 64 * pairs / 495e12 * 1e3,
               "fp32": 3 * pairs / PEAK_FP32 * 1e3}
-    b13 = keep("K13", abs13, ms13, plain_ms13, 4 * (9 * n10 + 14 * n10),
-               3 * pairs, max(floors.values()))
-    b13_20 = bound(4 * (9 * n10 + 14 * n10), 20 * pairs)[0]
+    b13 = keep("K13", abs13, ms13, plain_ms13, 40 * n10, 3 * pairs,
+               max(floors.values()))
+    b13_20 = bound(40 * n10, 20 * pairs)[0]
     fps["tpu+mxu 200k"] = res10.fps
     print(f"[10 main] tpu+mxu N={n_main} galaxy through the CLI: blocks "
           f"{bi0}x{bj0} (kernel default), {res10.fps:.3f} FPS "
@@ -3681,6 +4206,8 @@ def main() -> int:
     launches.update(phase15_adaptive(dev, smi, drive, time_ms, keep,
                                      rel_max, near_body_pairs, e9, st9,
                                      soft9, dt9, tab))
+    launches.update(phase15_sweeps(dev, smi, drive, time_ms, keep,
+                                   within_rel, norm_rel, tab, n_main))
 
     for k, count in launches.items():
         check(count > 0, f"{k} launched no time on its piece of the path")
@@ -3693,7 +4220,7 @@ def main() -> int:
                "murb_tpu/ops/tile_pallas.py:39"),
         "K4": ("sweep_rows_ext", "murb_tpu_torch/csrc/hybrid.cu",
                "murb_tpu/ops/hybrid.py:63"),
-        "K5": ("phi_rows", "murb_tpu_torch/csrc/phi.cu",
+        "K5": ("phi_rows", "murb_tpu_torch/csrc/phi_rows.cu",
                "murb_tpu/ops/hybrid.py:219"),
         "K6": ("acc_phi_rows", "murb_tpu_torch/csrc/phi.cu",
                "murb_tpu/ops/hybrid.py:338"),
@@ -3740,6 +4267,14 @@ def main() -> int:
                      "murb_tpu/ops/anterp_pallas.py:139"),
         "K12-bf16": ("l2p_window_bf16", "murb_tpu_torch/csrc/cell_runs.cuh",
                      "murb_tpu/ops/anterp_pallas.py:244"),
+        "K5-bf16": ("phi_rows_bf16", "murb_tpu_torch/csrc/phi_rows.cu",
+                    "murb_tpu/ops/hybrid.py:219"),
+        "K6-bf16": ("acc_phi_rows_bf16", "murb_tpu_torch/csrc/phi.cu",
+                    "murb_tpu/ops/hybrid.py:338"),
+        "K13-bf16": ("mxu_rect_bf16", "murb_tpu_torch/csrc/mxu.cu",
+                     "murb_tpu/ops/mxu.py:49"),
+        "K14-bf16": ("ring_pipelined_bf16", "murb_tpu_torch/csrc/ring.cu",
+                     "murb_tpu/ops/ring_pallas.py:50"),
     }
     kernels = [{"name": kname, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches[k], **record[k]}

@@ -43,6 +43,7 @@ import sys
 import time
 
 import torch
+import torch.distributed as dist
 
 from murb_tpu_torch.core.init import make_bodies
 from murb_tpu_torch.core.state import host_array
@@ -326,8 +327,6 @@ def run(argv=None) -> CliRun:
     from murb_tpu_torch.parallel.mesh import maybe_init_distributed
 
     if maybe_init_distributed(device):
-        import torch.distributed as dist
-
         print(f"distributed runtime up: process {dist.get_rank()}/"
               f"{dist.get_world_size()}")
 
@@ -533,7 +532,15 @@ def run(argv=None) -> CliRun:
 
 
 def main(argv=None) -> int:
-    return run(argv).rc
+    """The CLI's exit code.  A process group the run joined is torn down
+    before the process exits: a live gloo group's threads can abort the
+    interpreter's exit ("terminate called without an active
+    exception")."""
+    try:
+        return run(argv).rc
+    finally:
+        if dist.is_available() and dist.is_initialized():
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

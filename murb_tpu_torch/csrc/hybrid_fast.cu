@@ -19,8 +19,8 @@
 //                 split into big = tf32(v) and small = tf32(v - big)
 //   epilogue:     a_i = P[0:3] - (r_i - c) P[3]
 //
-// c is the sources' G*m-weighted mean (hybrid_fast_center_kernel, one
-// block summing in fp64 in a fixed order: the same c every run).  The
+// c is the sources' G*m-weighted mean (sweep.cuh's weighted_center_kernel,
+// one block summing in fp64 in a fixed order: the same c every run).  The
 // rounding of W scales a whole pair term in both P[0:3] and P[3], so the
 // epilogue's cancellation does not amplify it: the tier's error is about
 // 2^-11 a weight (murb_tpu's bf16 W: 2^-9).  Q's split keeps its columns
@@ -75,43 +75,6 @@ constexpr int kFastWarpTargets = 16 * kFastTiles;
 constexpr int kFastChunk = 96;        // floats of a packed chunk of 8
 constexpr int kFastPackSources = 512;  // the packed sources' padding
 constexpr int kFastPart = 16;         // chunks a P partial sums
-
-constexpr int kFastCenterThreads = 1024;
-
-// c = sum_j G m_j r_j / sum_j G m_j (0 when the masses sum to 0) into
-// center[0..2]: one block, fp64 sums, a thread's strided terms and then a
-// tree over the threads, in a fixed order.
-template <class TB>
-__global__ void __launch_bounds__(kFastCenterThreads)
-hybrid_fast_center_kernel(const TB* __restrict__ qxj,
-                          const TB* __restrict__ qyj,
-                          const TB* __restrict__ qzj,
-                          const TB* __restrict__ gmj, int nj,
-                          float* __restrict__ center) {
-  __shared__ double part[4][kFastCenterThreads];
-  double s[4] = {0.0, 0.0, 0.0, 0.0};
-  for (int j = threadIdx.x; j < nj; j += kFastCenterThreads) {
-    const double g = body_f32(gmj[j]);
-    s[0] += g * body_f32(qxj[j]);
-    s[1] += g * body_f32(qyj[j]);
-    s[2] += g * body_f32(qzj[j]);
-    s[3] += g;
-  }
-#pragma unroll
-  for (int k = 0; k < 4; ++k) part[k][threadIdx.x] = s[k];
-  for (int h = kFastCenterThreads / 2; h > 0; h /= 2) {
-    __syncthreads();
-    if (threadIdx.x < h)
-#pragma unroll
-      for (int k = 0; k < 4; ++k)
-        part[k][threadIdx.x] += part[k][threadIdx.x + h];
-  }
-  if (threadIdx.x < 3) {
-    const double tot = part[3][0];
-    center[threadIdx.x] = static_cast<float>(
-        tot != 0.0 ? part[threadIdx.x][0] / tot : 0.0);
-  }
-}
 
 // One thread a (chunk c, lane 4 g + t): the B fragment of sources 8c + 2t
 // and 8c + 2t + 1 (column g: G m (x - c, y - c, z - c, 1), big for g < 4,
@@ -350,7 +313,7 @@ int hybrid_fast_launch(const TB* qxi, const TB* qyi, const TB* qzi, int ni,
       (nj > 0 && packed == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   if (ni <= 0) return 0;
-  hybrid_fast_center_kernel<TB><<<1, kFastCenterThreads, 0, stream>>>(
+  weighted_center_kernel<TB, false><<<1, kCenterThreads, 0, stream>>>(
       qxj, qyj, qzj, gmj, nj, center);
   int err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;

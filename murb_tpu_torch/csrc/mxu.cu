@@ -2,14 +2,26 @@
 // tensor cores.
 //
 // Replaces the TPU kernel murb_tpu/ops/mxu.py:_mxu_kernel (pallas_call at
-// mxu.py:159; entries acc_mxu_rect :96 and acc_mxu :193).  The wrapper
-// (ops/mxu.py) centres the coordinates on the G*m-weighted mean and packs
-// the operands as mxu.py:132-142 does:
+// mxu.py:159; entries acc_mxu_rect :96 and acc_mxu :193).  murb_tpu centres
+// the coordinates on the G*m-weighted mean (cq = q - c) and packs the
+// operands as mxu.py:132-142 does, with jnp ops outside its kernel:
 //
 //   A (8, nj): rows cqx_j, cqy_j, cqz_j, |cq_j|^2, 1, 0, 0, 0
 //   B (8, ni): rows -2 cqx_i, -2 cqy_i, -2 cqz_i, 1, |cq_i|^2 + eps^2, 0, 0, 0
 //
-// and this kernel computes, for every target i,
+// Here that build runs in the kernels, from the bodies as they are (float,
+// or bf16 for a bf16 state: murb_mxu_rect_bf16): weighted_center_kernel
+// (sweep.cuh) forms c in fp64 (c = sum G m r / max(sum G m, 1), murb_tpu's
+// rule, rounded once to fp32) unless the caller gives c, mxu_pack_kernel
+// forms A's columns and Q from the sources, and the sweep forms B's from
+// the targets in registers.  Each value is formed as the plain version's
+// torch ops form it (ops/mxu._operands: fp32, every operation rounded, no
+// contraction), so for a bf16 state the kernel reads 2 bytes a value and
+// forms no fp32 copy, and gives the fp32 instance's bits on the values
+// upcast.  (The centre sets the sums' bits: an fp32 reduction in another
+// order gives other bits at the same error.)
+//
+// This kernel computes, for every target i,
 //
 //   S[i,j] = A[:,j] . B[:,i]          = |r_j - r_i|^2 + eps^2
 //   W[i,j] = rsqrt(S[i,j])^3
@@ -95,39 +107,67 @@ constexpr int kPackSources = 512;  // the packed sources' padding
 // the fp32 partials stay as short at 512 sources a tile as at 128
 constexpr int kPartChunks = 16;
 
+// A body's centred coordinates q - c and their squared norm, each
+// operation rounded on its own as the plain version's torch ops round it
+// ((x^2 + y^2) + z^2, no contraction).
+struct Centred {
+  float x, y, z, n;
+};
+
+template <class TB>
+__device__ __forceinline__ Centred centred(const TB* __restrict__ qx,
+                                           const TB* __restrict__ qy,
+                                           const TB* __restrict__ qz, int i,
+                                           float cx, float cy, float cz) {
+  const float x = __fsub_rn(body_f32(qx[i]), cx);
+  const float y = __fsub_rn(body_f32(qy[i]), cy);
+  const float z = __fsub_rn(body_f32(qz[i]), cz);
+  return {x, y, z,
+          __fadd_rn(__fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y)),
+                    __fmul_rn(z, z))};
+}
+
 // One thread a (chunk c, lane 4 g + t): the S fragment of source 8c + g
 // (rows t and t + 4 of both products) and the P fragment of sources
-// 8c + 2t and 8c + 2t + 1 (column g).  Sources past nj are zero-mass
-// sources at the centre.
-__global__ void mxu_pack_kernel(const float* __restrict__ a,
-                                const float* __restrict__ gmj, int nj,
-                                int chunks, float* __restrict__ packed) {
+// 8c + 2t and 8c + 2t + 1 (column g), formed from the bodies and the
+// centre.  Sources past nj are zero-mass sources at the centre.
+template <class TB>
+__global__ void mxu_pack_kernel(const TB* __restrict__ qxj,
+                                const TB* __restrict__ qyj,
+                                const TB* __restrict__ qzj,
+                                const TB* __restrict__ gmj, int nj,
+                                const float* __restrict__ center, int chunks,
+                                float* __restrict__ packed) {
   const long long idx =
       static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (idx >= 32LL * chunks) return;
   const int c = static_cast<int>(idx >> 5), lane = idx & 31;
   const int g = lane >> 2, t = lane & 3;
-  const long long sj = nj;
+  const float cx = center[0], cy = center[1], cz = center[2];
   const int j = 8 * c + g;
-  const bool real = j < nj;
+  Centred a = {0.f, 0.f, 0.f, 0.f};
+  if (j < nj) a = centred(qxj, qyj, qzj, j, cx, cy, cz);
   float xb, xs, yb, ys, zb, zs, nb, ns;
-  tf32_split(real ? a[j] : 0.f, xb, xs);
-  tf32_split(real ? a[sj + j] : 0.f, yb, ys);
-  tf32_split(real ? a[2 * sj + j] : 0.f, zb, zs);
-  tf32_split(real ? a[3 * sj + j] : 0.f, nb, ns);
+  tf32_split(a.x, xb, xs);
+  tf32_split(a.y, yb, ys);
+  tf32_split(a.z, zb, zs);
+  tf32_split(a.n, nb, ns);
   // rows: R[t] = x_b, y_b, z_b, x_s; R1[t + 4] = y_s, z_s, n_b, 1;
   // R2[t + 4] = y_s, z_s, n_s, 1
   const float r_t = t == 0 ? xb : t == 1 ? yb : t == 2 ? zb : xs;
   const float r1 = t == 0 ? ys : t == 1 ? zs : t == 2 ? nb : 1.f;
   const float r2 = t == 0 ? ys : t == 1 ? zs : t == 2 ? ns : 1.f;
+  const int comp = g & 3;  // columns G m (x, y, z, 1), big then small
+  const TB* qc = comp == 0 ? qxj : comp == 1 ? qyj : qzj;
+  const float cc = comp == 0 ? cx : comp == 1 ? cy : cz;
   float q[2];
 #pragma unroll
   for (int e = 0; e < 2; ++e) {
     const int jj = 8 * c + 2 * t + e;
     float v = 0.f;
     if (jj < nj) {
-      const int comp = g & 3;  // columns G m (x, y, z, 1), big then small
-      v = comp == 3 ? gmj[jj] : __fmul_rn(gmj[jj], a[comp * sj + jj]);
+      const float gm = body_f32(gmj[jj]);
+      v = comp == 3 ? gm : __fmul_rn(gm, __fsub_rn(body_f32(qc[jj]), cc));
     }
     float big, small;
     tf32_split(v, big, small);
@@ -143,15 +183,17 @@ __global__ void mxu_pack_kernel(const float* __restrict__ a,
 // Slice blockIdx.y sweeps tiles [y * tiles_per_slice, min((y + 1) *
 // tiles_per_slice, ceil(nj / BJ))).  NP: TF32 products on P (1 or 2).  With
 // S == 1 the accelerations go to ax/ay/az, else P's columns (G m x, G m y,
-// G m z, G m; the small half added) to scratch[(y * 4 + c) * ni + i].
-template <int BI, int BJ, int NP>
+// G m z, G m; the small half added) to scratch[(y * 4 + c) * ni + i].  The
+// targets' B columns and cq come from their bodies (TB) and the centre.
+template <int BI, int BJ, int NP, class TB>
 __global__ void __launch_bounds__(BI, 1024 / BI)
 mxu_mma_kernel(const float* __restrict__ packed, int nj,
-               const float* __restrict__ b, const float* __restrict__ cqxi,
-               const float* __restrict__ cqyi,
-               const float* __restrict__ cqzi, int ni, int tiles_per_slice,
-               float* __restrict__ ax, float* __restrict__ ay,
-               float* __restrict__ az, float* __restrict__ scratch) {
+               const TB* __restrict__ qxi, const TB* __restrict__ qyi,
+               const TB* __restrict__ qzi, int ni,
+               const float* __restrict__ center, float soft2,
+               int tiles_per_slice, float* __restrict__ ax,
+               float* __restrict__ ay, float* __restrict__ az,
+               float* __restrict__ scratch) {
   constexpr int RT = kMxuTiles;
   constexpr int CH = BJ / 8;                     // chunks a tile
   constexpr int TILE = CH * kChunkFloats;        // floats a tile
@@ -169,12 +211,22 @@ mxu_mma_kernel(const float* __restrict__ packed, int nj,
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int i = base + 16 * r + g + 8 * h;
-      const bool own = i < ni;
+      // B's column: -2 cq, |cq|^2 + eps^2; a target past ni a zero row
+      // with nB = 1
+      float bx = 0.f, by = 0.f, bz = 0.f, nb = 1.f;
+      if (i < ni) {
+        const Centred q =
+            centred(qxi, qyi, qzi, i, center[0], center[1], center[2]);
+        bx = __fmul_rn(-2.f, q.x);
+        by = __fmul_rn(-2.f, q.y);
+        bz = __fmul_rn(-2.f, q.z);
+        nb = __fadd_rn(q.n, soft2);
+      }
       float bxb, bxs, byb, bys, bzb, bzs, nbb, nbs;
-      tf32_split(own ? b[i] : 0.f, bxb, bxs);
-      tf32_split(own ? b[si + i] : 0.f, byb, bys);
-      tf32_split(own ? b[2 * si + i] : 0.f, bzb, bzs);
-      tf32_split(own ? b[4 * si + i] : 1.f, nbb, nbs);
+      tf32_split(bx, bxb, bxs);
+      tf32_split(by, byb, bys);
+      tf32_split(bz, bzb, bzs);
+      tf32_split(nb, nbb, nbs);
       // T[t] = bx, by, bz, bx; T[t + 4] = by, bz, 1, nB
       a1[r][h] = t == 0 ? bxb : t == 1 ? byb : t == 2 ? bzb : bxb;
       a2[r][h] = t == 0 ? bxs : t == 1 ? bys : t == 2 ? bzs : bxs;
@@ -264,10 +316,11 @@ mxu_mma_kernel(const float* __restrict__ packed, int nj,
         out[si] = v[2 * h + 1];
       } else if (t == 0) {
         const float gm = m[2 * h + 1];
-        ax[i] = v[2 * h] - cqxi[i] * gm;
-        ay[i] = v[2 * h + 1] - cqyi[i] * gm;
+        ax[i] = v[2 * h] - __fsub_rn(body_f32(qxi[i]), center[0]) * gm;
+        ay[i] = v[2 * h + 1] - __fsub_rn(body_f32(qyi[i]), center[1]) * gm;
       } else {
-        az[i] = v[2 * h] - cqzi[i] * v[2 * h + 1];
+        az[i] = v[2 * h] -
+                __fsub_rn(body_f32(qzi[i]), center[2]) * v[2 * h + 1];
       }
     }
   }
@@ -275,11 +328,13 @@ mxu_mma_kernel(const float* __restrict__ packed, int nj,
 
 // The slices' P columns, added in slice order, and the epilogue:
 // a_c[i] = sum_y P_c - cq_c[i] sum_y P_3.
+template <class TB>
 __global__ void mxu_fold_kernel(const float* __restrict__ scratch,
                                 int slices, int ni,
-                                const float* __restrict__ cqxi,
-                                const float* __restrict__ cqyi,
-                                const float* __restrict__ cqzi,
+                                const TB* __restrict__ qxi,
+                                const TB* __restrict__ qyi,
+                                const TB* __restrict__ qzi,
+                                const float* __restrict__ center,
                                 float* __restrict__ ax, float* __restrict__ ay,
                                 float* __restrict__ az) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -289,94 +344,154 @@ __global__ void mxu_fold_kernel(const float* __restrict__ scratch,
   for (int y = 0; y < slices; ++y)
 #pragma unroll
     for (int c = 0; c < 4; ++c) p[c] += scratch[(y * 4 + c) * n + i];
-  ax[i] = p[0] - cqxi[i] * p[3];
-  ay[i] = p[1] - cqyi[i] * p[3];
-  az[i] = p[2] - cqzi[i] * p[3];
+  ax[i] = p[0] - __fsub_rn(body_f32(qxi[i]), center[0]) * p[3];
+  ay[i] = p[1] - __fsub_rn(body_f32(qyi[i]), center[1]) * p[3];
+  az[i] = p[2] - __fsub_rn(body_f32(qzi[i]), center[2]) * p[3];
 }
 
-template <int BI, int BJ, int NP>
+template <int BI, int BJ, int NP, class TB>
 int mxu_prepare() {
   constexpr int bytes = 2 * (BJ / 8) * kChunkFloats * sizeof(float);
   return static_cast<int>(cudaFuncSetAttribute(
-      mxu_mma_kernel<BI, BJ, NP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes));
+      mxu_mma_kernel<BI, BJ, NP, TB>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
 }
 
-}  // namespace murb
+template <int BI, int BJ, int NP, class TB>
+int mxu_sweep(dim3 grid, const float* packed, int nj, const TB* qxi,
+              const TB* qyi, const TB* qzi, int ni, const float* center,
+              float soft2, int tiles_per_slice, float* ax, float* ay,
+              float* az, float* scratch, cudaStream_t stream) {
+  constexpr int bytes = 2 * (BJ / 8) * kChunkFloats * sizeof(float);
+  const int err = mxu_prepare<BI, BJ, NP, TB>();
+  if (err != 0) return err;
+  mxu_mma_kernel<BI, BJ, NP, TB><<<grid, BI, bytes, stream>>>(
+      packed, nj, qxi, qyi, qzi, ni, center, soft2, tiles_per_slice, ax, ay,
+      az, scratch);
+  return static_cast<int>(cudaGetLastError());
+}
 
-// a: A (8, nj) row-major; gmj: (nj,); b: B (8, ni) row-major; cqxi..cqzi:
-// the centred target coordinates (ni,).  block_i, block_j: 0 (kMxuBlockI,
-// kMxuBlockJ) or a pair of {64, 128, 256, 512}.  p_passes: TF32 products
-// on P, 1 ("default") or 2 ("high", "highest").  slices, tiles_per_slice:
-// the j split (ops/cuda.tile_split); slices > 1 needs scratch, (slices,
-// 4, ni) floats.  packed: ceil(nj / kPackSources) * kPackSources / 8 *
-// kChunkFloats floats, written here before the sweep reads them.
-extern "C" int murb_mxu_rect(const float* a, const float* gmj, int nj,
-                             const float* b, const float* cqxi,
-                             const float* cqyi, const float* cqzi, int ni,
-                             int block_i, int block_j, int p_passes,
-                             int slices, int tiles_per_slice, float* packed,
-                             float* scratch, float* ax, float* ay, float* az,
-                             cudaStream_t stream) {
+// K13 on bodies of type TB (murb_mxu_rect's arguments).
+template <class TB>
+int mxu_rect(const TB* qxi, const TB* qyi, const TB* qzi, int ni,
+             const TB* qxj, const TB* qyj, const TB* qzj, const TB* gmj,
+             int nj, float soft2, int find_center, float* center,
+             int block_i, int block_j, int p_passes, int slices,
+             int tiles_per_slice, float* packed, float* scratch, float* ax,
+             float* ay, float* az, cudaStream_t stream) {
   if (ni <= 0) return 0;
   if ((p_passes != 1 && p_passes != 2) || slices < 1 || slices > 65535 ||
       tiles_per_slice < 0 || (slices > 1 && scratch == nullptr) ||
-      (nj > 0 && packed == nullptr))
+      center == nullptr || (nj > 0 && packed == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int chunks = (nj + murb::kPackSources - 1) / murb::kPackSources *
-                     (murb::kPackSources / 8);
-  if (chunks > 0) {
-    const long long threads = 32LL * chunks;
-    murb::mxu_pack_kernel<<<static_cast<unsigned>((threads + 255) / 256),
-                            256, 0, stream>>>(a, gmj, nj, chunks, packed);
+  if (find_center) {
+    weighted_center_kernel<TB, true><<<1, kCenterThreads, 0, stream>>>(
+        qxj, qyj, qzj, gmj, nj, center);
     const int err = static_cast<int>(cudaGetLastError());
     if (err != 0) return err;
   }
-  return murb::with_blocks(
-      block_i, block_j, murb::kMxuBlockI, murb::kMxuBlockJ,
-      [&](auto bi, auto bj) {
+  const int chunks = (nj + kPackSources - 1) / kPackSources *
+                     (kPackSources / 8);
+  if (chunks > 0) {
+    const long long threads = 32LL * chunks;
+    mxu_pack_kernel<TB><<<static_cast<unsigned>((threads + 255) / 256), 256,
+                          0, stream>>>(qxj, qyj, qzj, gmj, nj, center,
+                                       chunks, packed);
+    const int err = static_cast<int>(cudaGetLastError());
+    if (err != 0) return err;
+  }
+  return with_blocks(
+      block_i, block_j, kMxuBlockI, kMxuBlockJ, [&](auto bi, auto bj) {
         constexpr int BI = decltype(bi)::value, BJ = decltype(bj)::value;
-        constexpr int bytes = 2 * (BJ / 8) * murb::kChunkFloats * 4;
         const long long tiles = (nj + BJ - 1) / BJ;
         if (static_cast<long long>(slices) * tiles_per_slice < tiles ||
             (slices > 1 &&
              static_cast<long long>(slices - 1) * tiles_per_slice >= tiles))
           return static_cast<int>(cudaErrorInvalidValue);
         const dim3 grid((ni + BI - 1) / BI, slices);
-        int err;
-        if (p_passes == 1) {
-          err = murb::mxu_prepare<BI, BJ, 1>();
-          if (err != 0) return err;
-          murb::mxu_mma_kernel<BI, BJ, 1><<<grid, BI, bytes, stream>>>(
-              packed, nj, b, cqxi, cqyi, cqzi, ni, tiles_per_slice, ax, ay,
-              az, scratch);
-        } else {
-          err = murb::mxu_prepare<BI, BJ, 2>();
-          if (err != 0) return err;
-          murb::mxu_mma_kernel<BI, BJ, 2><<<grid, BI, bytes, stream>>>(
-              packed, nj, b, cqxi, cqyi, cqzi, ni, tiles_per_slice, ax, ay,
-              az, scratch);
-        }
-        err = static_cast<int>(cudaGetLastError());
+        const int err =
+            p_passes == 1
+                ? mxu_sweep<BI, BJ, 1, TB>(grid, packed, nj, qxi, qyi, qzi,
+                                           ni, center, soft2,
+                                           tiles_per_slice, ax, ay, az,
+                                           scratch, stream)
+                : mxu_sweep<BI, BJ, 2, TB>(grid, packed, nj, qxi, qyi, qzi,
+                                           ni, center, soft2,
+                                           tiles_per_slice, ax, ay, az,
+                                           scratch, stream);
         if (err != 0 || slices == 1) return err;
-        murb::mxu_fold_kernel<<<(ni + 255) / 256, 256, 0, stream>>>(
-            scratch, slices, ni, cqxi, cqyi, cqzi, ax, ay, az);
+        mxu_fold_kernel<TB><<<(ni + 255) / 256, 256, 0, stream>>>(
+            scratch, slices, ni, qxi, qyi, qzi, center, ax, ay, az);
         return static_cast<int>(cudaGetLastError());
       });
 }
 
 // Blocks of K13's sweep ("high") at (block_i, block_j) that one SM of the
-// current device holds at once, into *blocks: the wrapper's j split counts
-// the card's slots with it.
-extern "C" int murb_mxu_resident(int block_i, int block_j, int* blocks) {
-  return murb::with_blocks(
-      block_i, block_j, murb::kMxuBlockI, murb::kMxuBlockJ,
-      [&](auto bi, auto bj) {
+// current device holds at once, into *blocks.
+template <class TB>
+int mxu_resident(int block_i, int block_j, int* blocks) {
+  return with_blocks(
+      block_i, block_j, kMxuBlockI, kMxuBlockJ, [&](auto bi, auto bj) {
         constexpr int BI = decltype(bi)::value, BJ = decltype(bj)::value;
-        constexpr int bytes = 2 * (BJ / 8) * murb::kChunkFloats * 4;
-        int err = murb::mxu_prepare<BI, BJ, 2>();
+        constexpr int bytes = 2 * (BJ / 8) * kChunkFloats * 4;
+        const int err = mxu_prepare<BI, BJ, 2, TB>();
         if (err != 0) return err;
         return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            blocks, murb::mxu_mma_kernel<BI, BJ, 2>, BI, bytes));
+            blocks, mxu_mma_kernel<BI, BJ, 2, TB>, BI, bytes));
       });
+}
+
+}  // namespace murb
+
+// qxi..qzi: the targets (ni,); qxj..qzj, gmj: the sources and their G*m
+// (nj,).  center: 3 floats on the device; find_center != 0 writes the
+// sources' centre there first (c = sum G m r / max(sum G m, 1), in fp64),
+// else it holds the centre to use (the caller's point, or 0 uncentred).
+// block_i, block_j: 0 (kMxuBlockI, kMxuBlockJ) or a pair of {64, 128,
+// 256, 512}.  p_passes: TF32 products on P, 1 ("default") or 2 ("high",
+// "highest").  slices, tiles_per_slice: the j split (ops/cuda.tile_split);
+// slices > 1 needs scratch, (slices, 4, ni) floats.  packed:
+// ceil(nj / kPackSources) * kPackSources / 8 * kChunkFloats floats,
+// written here before the sweep reads them.
+extern "C" int murb_mxu_rect(const float* qxi, const float* qyi,
+                             const float* qzi, int ni, const float* qxj,
+                             const float* qyj, const float* qzj,
+                             const float* gmj, int nj, float soft2,
+                             int find_center, float* center, int block_i,
+                             int block_j, int p_passes, int slices,
+                             int tiles_per_slice, float* packed,
+                             float* scratch, float* ax, float* ay, float* az,
+                             cudaStream_t stream) {
+  return murb::mxu_rect<float>(qxi, qyi, qzi, ni, qxj, qyj, qzj, gmj, nj,
+                               soft2, find_center, center, block_i, block_j,
+                               p_passes, slices, tiles_per_slice, packed,
+                               scratch, ax, ay, az, stream);
+}
+
+// The bf16 instance: murb_mxu_rect's arguments with the seven body arrays
+// bf16 (the centre, packed sources, scratch and outputs float).
+extern "C" int murb_mxu_rect_bf16(
+    const __nv_bfloat16* qxi, const __nv_bfloat16* qyi,
+    const __nv_bfloat16* qzi, int ni, const __nv_bfloat16* qxj,
+    const __nv_bfloat16* qyj, const __nv_bfloat16* qzj,
+    const __nv_bfloat16* gmj, int nj, float soft2, int find_center,
+    float* center, int block_i, int block_j, int p_passes, int slices,
+    int tiles_per_slice, float* packed, float* scratch, float* ax, float* ay,
+    float* az, cudaStream_t stream) {
+  return murb::mxu_rect<__nv_bfloat16>(
+      qxi, qyi, qzi, ni, qxj, qyj, qzj, gmj, nj, soft2, find_center, center,
+      block_i, block_j, p_passes, slices, tiles_per_slice, packed, scratch,
+      ax, ay, az, stream);
+}
+
+// Blocks of K13's sweep ("high") at (block_i, block_j) that one SM of the
+// current device holds at once, into *blocks: the wrapper's j split counts
+// the card's slots with it (its own for the bf16 instance).
+extern "C" int murb_mxu_resident(int block_i, int block_j, int* blocks) {
+  return murb::mxu_resident<float>(block_i, block_j, blocks);
+}
+
+extern "C" int murb_mxu_resident_bf16(int block_i, int block_j,
+                                      int* blocks) {
+  return murb::mxu_resident<__nv_bfloat16>(block_i, block_j, blocks);
 }

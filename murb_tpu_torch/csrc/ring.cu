@@ -44,6 +44,15 @@
 // their compute streams sweep at once.  A shard's sweeps run in order on
 // one stream, so one (slices, 3, n) scratch a shard serves all of them.
 // A copy moves 16 n_l bytes and hides behind the next step's sweep.
+//
+// bf16 state: murb_ring_pipelined_bf16 keeps the two slots in bf16, (2, 4,
+// ld) with each row ld values apart, so a copy moves half the bytes (8 ld),
+// and sweeps each ring step with K3's bf16 instance (tile.cu), which
+// stages two sources a 4-byte cp.async: every slot row must start 4-byte
+// aligned, so ld is even (n rounded up to even by the wrapper,
+// ops/ring.slot_stride; the column past an odd n is never swept).  The
+// events, streams and edges are the fp32 ring's, and at D = 1 its sums are
+// K3's bf16 instance's bits.
 #include <vector>
 
 #include "tile.cuh"
@@ -69,27 +78,25 @@ __global__ void ring_delay_kernel(unsigned long long ns) {
       err = static_cast<int>(e_);            \
   } while (0)
 
-// d shards of n bodies each.  Host arrays of d entries: qx/qy/qz (targets,
-// float32 (n,)), bufs ((2, 4, n) float32, slot 0 packed by the caller on
-// its origin stream), ax/ay/az (outputs, (n,)), scratch (K3's (slices, 3,
-// n) floats, unused at one slice), devices, and the origin, compute and
-// copy streams of each shard.  block_i, block_j: 0 (K3's default) or a
-// pair of {64, 128, 256, 512}; slices, tiles_per_slice: K3's j split of
-// every sweep.  The origin streams wait for the whole ring before this
-// returns; nothing is synchronised on the host.
-extern "C" int murb_ring_pipelined(
-    int d, int n, float* const* qx, float* const* qy, float* const* qz,
-    float* const* bufs, float* const* ax, float* const* ay, float* const* az,
-    float* const* scratch, const int* devices, const cudaStream_t* origin,
-    const cudaStream_t* compute, const cudaStream_t* copy, float soft2,
-    int block_i, int block_j, int slices, int tiles_per_slice,
-    long long delay_ns) {
+namespace murb {
+
+// The whole ring for body type TB (float, or __nv_bfloat16 for the bf16
+// ring); ld: the values between two rows of a slot.
+template <class TB>
+int ring_pipelined(int d, int n, int ld, TB* const* qx, TB* const* qy,
+                   TB* const* qz, TB* const* bufs, float* const* ax,
+                   float* const* ay, float* const* az, float* const* scratch,
+                   const int* devices, const cudaStream_t* origin,
+                   const cudaStream_t* compute, const cudaStream_t* copy,
+                   float soft2, int block_i, int block_j, int slices,
+                   int tiles_per_slice, long long delay_ns) {
   if (d <= 0 || n <= 0) return 0;
+  if (ld < n) return static_cast<int>(cudaErrorInvalidValue);
   int err = 0;
   int prev = 0;
   MURB_RING_TRY(cudaGetDevice(&prev));
-  const long long slot = 4LL * n;  // floats a slot
-  const size_t slot_bytes = sizeof(float) * static_cast<size_t>(slot);
+  const long long slot = 4LL * ld;  // values a slot
+  const size_t slot_bytes = sizeof(TB) * static_cast<size_t>(slot);
   std::vector<cudaEvent_t> start(d), comp(d * d), sent(d * d), done(2 * d);
   for (int s = 0; s < d; ++s) {
     MURB_RING_TRY(cudaSetDevice(devices[s]));
@@ -108,7 +115,7 @@ extern "C" int murb_ring_pipelined(
   }
   auto delay = [&](cudaStream_t st) {
     if (delay_ns > 0) {
-      murb::ring_delay_kernel<<<1, 32, 0, st>>>(
+      ring_delay_kernel<<<1, 32, 0, st>>>(
           static_cast<unsigned long long>(delay_ns));
       MURB_RING_TRY(cudaGetLastError());
     }
@@ -121,10 +128,10 @@ extern "C" int murb_ring_pipelined(
         MURB_RING_TRY(cudaStreamWaitEvent(compute[s],
                                           sent[left * d + k - 1], 0));
       delay(compute[s]);
-      const float* src = bufs[s] + (k % 2) * slot;
-      const int st = murb::tile_rect_launch(
-          qx[s], qy[s], qz[s], n, src, src + n, src + 2LL * n, src + 3LL * n,
-          n, soft2, block_i, block_j, slices, tiles_per_slice, scratch[s],
+      const TB* src = bufs[s] + (k % 2) * slot;
+      const int st = tile_rect_launch(
+          qx[s], qy[s], qz[s], n, src, src + ld, src + 2LL * ld,
+          src + 3LL * ld, n, soft2, block_i, block_j, slices, tiles_per_slice, scratch[s],
           k > 0, ax[s], ay[s], az[s], compute[s]);
       if (st && err == 0) err = st;
       MURB_RING_TRY(cudaEventRecord(comp[s * d + k], compute[s]));
@@ -145,8 +152,8 @@ extern "C" int murb_ring_pipelined(
                                           0));
       }
       delay(copy[s]);
-      float* dst = bufs[right] + ((k + 1) % 2) * slot;
-      const float* src = bufs[s] + (k % 2) * slot;
+      TB* dst = bufs[right] + ((k + 1) % 2) * slot;
+      const TB* src = bufs[s] + (k % 2) * slot;
       if (devices[right] == devices[s])
         MURB_RING_TRY(cudaMemcpyAsync(dst, src, slot_bytes,
                                       cudaMemcpyDeviceToDevice, copy[s]));
@@ -169,4 +176,46 @@ extern "C" int murb_ring_pipelined(
       if (e) cudaEventDestroy(e);
   cudaSetDevice(prev);
   return err;
+}
+
+}  // namespace murb
+
+// d shards of n bodies each.  Host arrays of d entries: qx/qy/qz (targets,
+// float32 (n,)), bufs ((2, 4, n) float32, slot 0 packed by the caller on
+// its origin stream), ax/ay/az (outputs, (n,)), scratch (K3's (slices, 3,
+// n) floats, unused at one slice), devices, and the origin, compute and
+// copy streams of each shard.  block_i, block_j: 0 (K3's default) or a
+// pair of {64, 128, 256, 512}; slices, tiles_per_slice: K3's j split of
+// every sweep.  The origin streams wait for the whole ring before this
+// returns; nothing is synchronised on the host.
+extern "C" int murb_ring_pipelined(
+    int d, int n, float* const* qx, float* const* qy, float* const* qz,
+    float* const* bufs, float* const* ax, float* const* ay, float* const* az,
+    float* const* scratch, const int* devices, const cudaStream_t* origin,
+    const cudaStream_t* compute, const cudaStream_t* copy, float soft2,
+    int block_i, int block_j, int slices, int tiles_per_slice,
+    long long delay_ns) {
+  return murb::ring_pipelined<float>(
+      d, n, n, qx, qy, qz, bufs, ax, ay, az, scratch, devices, origin,
+      compute, copy, soft2, block_i, block_j, slices, tiles_per_slice,
+      delay_ns);
+}
+
+// The bf16 ring: murb_ring_pipelined's arguments with ld (the values
+// between two slot rows, even and at least n) after n, and qx/qy/qz and
+// bufs ((2, 4, ld), the first n of each row the block) bf16; the
+// outputs and scratch float, K3's bf16 instance's split.
+extern "C" int murb_ring_pipelined_bf16(
+    int d, int n, int ld, __nv_bfloat16* const* qx, __nv_bfloat16* const* qy,
+    __nv_bfloat16* const* qz, __nv_bfloat16* const* bufs, float* const* ax,
+    float* const* ay, float* const* az, float* const* scratch,
+    const int* devices, const cudaStream_t* origin,
+    const cudaStream_t* compute, const cudaStream_t* copy, float soft2,
+    int block_i, int block_j, int slices, int tiles_per_slice,
+    long long delay_ns) {
+  if (ld % 2) return static_cast<int>(cudaErrorInvalidValue);
+  return murb::ring_pipelined<__nv_bfloat16>(
+      d, n, ld, qx, qy, qz, bufs, ax, ay, az, scratch, devices, origin,
+      compute, copy, soft2, block_i, block_j, slices, tiles_per_slice,
+      delay_ns);
 }

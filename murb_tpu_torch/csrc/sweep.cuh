@@ -1,6 +1,7 @@
 // Device code shared by the exact all-pairs sweeps (tile.cuh: K3, K5, K6
 // and K4's passes 3) and by K7, K10 and K13 (fmm.cu, p2p.cu, mxu.cu): the
-// rsqrt, cp.async and block-geometry helpers.  K3, K4's passes 3, K5 and
+// rsqrt, cp.async and block-geometry helpers, and the sources' weighted
+// centre of K4's passes 1 and K13.  K3, K4's passes 3, K5 and
 // K6 run the register-tiled sweep of tile.cuh (several targets a thread),
 // which K14 (ring.cu) launches for its ring steps; K13 runs on the tensor
 // cores (mxu.cu's note).
@@ -132,6 +133,47 @@ __device__ __forceinline__ void cp_async_commit() {
 // the whole block's copies visible.
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+constexpr int kCenterThreads = 1024;  // weighted_center_kernel's block
+
+// c = sum_j G m_j r_j / den into center[0..2], den = sum_j G m_j (c = 0
+// when it is 0: K4's passes 1), or max(sum_j G m_j, 1) when kAtLeastOne
+// (K13: murb_tpu's mxu.py:_centered_with_point).  One block of
+// kCenterThreads, fp64 sums, a thread's strided terms and then a tree over
+// the threads, in a fixed order: the same c every run, and the same for a
+// bf16 state as for its values upcast.
+template <class TB, bool kAtLeastOne>
+__global__ void __launch_bounds__(kCenterThreads)
+weighted_center_kernel(const TB* __restrict__ qxj,
+                       const TB* __restrict__ qyj,
+                       const TB* __restrict__ qzj,
+                       const TB* __restrict__ gmj, int nj,
+                       float* __restrict__ center) {
+  __shared__ double part[4][kCenterThreads];
+  double s[4] = {0.0, 0.0, 0.0, 0.0};
+  for (int j = threadIdx.x; j < nj; j += kCenterThreads) {
+    const double g = body_f32(gmj[j]);
+    s[0] += g * body_f32(qxj[j]);
+    s[1] += g * body_f32(qyj[j]);
+    s[2] += g * body_f32(qzj[j]);
+    s[3] += g;
+  }
+#pragma unroll
+  for (int k = 0; k < 4; ++k) part[k][threadIdx.x] = s[k];
+  for (int h = kCenterThreads / 2; h > 0; h /= 2) {
+    __syncthreads();
+    if (threadIdx.x < h)
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        part[k][threadIdx.x] += part[k][threadIdx.x + h];
+  }
+  if (threadIdx.x < 3) {
+    const double tot = part[3][0];
+    const double den = kAtLeastOne ? fmax(tot, 1.0) : tot;
+    center[threadIdx.x] = static_cast<float>(
+        den != 0.0 ? part[threadIdx.x][0] / den : 0.0);
+  }
 }
 
 }  // namespace murb

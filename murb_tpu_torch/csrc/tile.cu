@@ -54,9 +54,10 @@
 // 21% (PERF.md).
 //
 // The sweep is tile.cuh's sweep_rows_kernel with no weight rows; K5 and
-// K6 (phi.cu) run the same template with theirs.  K14 (ring.cu) launches
-// it for each ring step through tile_rect_launch (tile.cuh), adding to the
-// step's running sums (accumulate).
+// K6 (phi_rows.cu, phi.cu) run the same template with theirs.  K14
+// (ring.cu) launches it for each ring step through tile_rect_launch
+// (tile.cuh; its bf16 overload in the bf16 ring), adding to the step's
+// running sums (accumulate).
 #include "tile.cuh"
 
 namespace murb {
@@ -90,6 +91,20 @@ int tile_rect_launch(const float* qxi, const float* qyi, const float* qzi,
   return tile_rect<float>(qxi, qyi, qzi, ni, qxj, qyj, qzj, gmj, nj, soft2,
                           block_i, block_j, slices, tiles_per_slice, scratch,
                           accumulate, ax, ay, az, stream);
+}
+
+int tile_rect_launch(const __nv_bfloat16* qxi, const __nv_bfloat16* qyi,
+                     const __nv_bfloat16* qzi, int ni,
+                     const __nv_bfloat16* qxj, const __nv_bfloat16* qyj,
+                     const __nv_bfloat16* qzj, const __nv_bfloat16* gmj,
+                     int nj, float soft2, int block_i, int block_j,
+                     int slices, int tiles_per_slice, float* scratch,
+                     int accumulate, float* ax, float* ay, float* az,
+                     cudaStream_t stream) {
+  return tile_rect<__nv_bfloat16>(qxi, qyi, qzi, ni, qxj, qyj, qzj, gmj, nj,
+                                  soft2, block_i, block_j, slices,
+                                  tiles_per_slice, scratch, accumulate, ax,
+                                  ay, az, stream);
 }
 
 }  // namespace murb
@@ -130,10 +145,10 @@ extern "C" int murb_tile_rect_bf16(
     const __nv_bfloat16* gmj, int nj, float soft2, int block_i, int block_j,
     int slices, int tiles_per_slice, float* scratch, float* ax, float* ay,
     float* az, cudaStream_t stream) {
-  return murb::tile_rect<__nv_bfloat16>(qxi, qyi, qzi, ni, qxj, qyj, qzj,
-                                        gmj, nj, soft2, block_i, block_j,
-                                        slices, tiles_per_slice, scratch, 0,
-                                        ax, ay, az, stream);
+  return murb::tile_rect_launch(qxi, qyi, qzi, ni, qxj, qyj, qzj, gmj, nj,
+                                soft2, block_i, block_j, slices,
+                                tiles_per_slice, scratch, 0, ax, ay, az,
+                                stream);
 }
 
 // Blocks of the bf16 instance at (block_i, block_j) an SM holds at once:

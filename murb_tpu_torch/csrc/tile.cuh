@@ -1,4 +1,4 @@
-// The register-tiled exact sweep that K3 (tile.cu), K5 and K6 (phi.cu)
+// The register-tiled exact sweep that K3 (tile.cu), K5 and K6 (phi.cuh)
 // share, and K3's launch that K14 (ring.cu) reuses for its ring steps.
 //
 // sweep_rows_kernel<BI, BJ, NR, kForce>: BI targets a block, sweep_rows(BI,
@@ -193,16 +193,20 @@ __device__ __forceinline__ void tile_sum_ext(const float4* tile,
 }
 
 // TB: the body arrays' type, float or __nv_bfloat16 (the bf16 instances
-// of K3 and K4, the force only).  A bf16 tile is staged raw, two sources
-// a 4-byte cp.async, into the second half of `pos` (two buffers of x, y,
-// z, G*m rows of BJ bf16 each: the fp32 instance's second tile buffer, so
-// the same shared memory), and once it has landed the block converts it
-// into pos[0, BJ), the one fp32 tile the sweep reads (a barrier more a
-// tile; one-warp blocks at BI / R = 32 threads).  The next tile's copies
-// stay in flight while this one is swept, as in the fp32 instance, and
-// the sweep reads the same float4 tile: the same sums, bit for bit, as the
-// fp32 instance on the arrays upcast.  The sources must start 4-byte
-// aligned (the wrappers copy a view that does not).
+// of K3, K4, K5 and K6).  A bf16 tile is staged raw, two sources a 4-byte
+// cp.async, into the second half of `pos` (two buffers of x, y, z, G*m
+// rows of BJ bf16 each: the fp32 instance's second tile buffer, so the
+// same shared memory), and once it has landed the block converts it into
+// pos[0, BJ), the one fp32 tile the sweep reads (a barrier more a tile;
+// one-warp blocks at BI / R = 32 threads).  Without the force (K5) only
+// the x, y and z rows are staged (there is no G*m array) and the tile's
+// G*m slot is 0, as the fp32 instance's zero-filled one.  The weight rows
+// stay fp32 in both instances (murb_tpu's kernels take them float32) and
+// keep their own double buffer.  The next tile's copies stay in flight
+// while this one is swept, as in the fp32 instance, and the sweep reads
+// the same float4 tile: the same sums, bit for bit, as the fp32 instance
+// on the arrays upcast.  The sources must start 4-byte aligned (the
+// wrappers copy a view that does not).
 // grid (ceil(ni / BI), S), BI / R threads, 2 * BJ * staged_bytes(NR)
 // bytes of static shared memory.  Slice blockIdx.y sweeps tiles
 // [y * tiles_per_slice, min((y + 1) * tiles_per_slice, ceil(nj / BJ))).
@@ -226,7 +230,6 @@ sweep_rows_kernel(const TB* __restrict__ qxi, const TB* __restrict__ qyi,
                   sweep_acc_t<kExt>* __restrict__ scratch) {
   static_assert(!kExt || (NR == 0 && kForce), "the extended tier: force");
   constexpr bool kB16 = std::is_same_v<TB, __nv_bfloat16>;
-  static_assert(!kB16 || (NR == 0 && kForce), "bf16: the force sweep only");
   constexpr int R = sweep_rows(BI, NR);
   constexpr int T = BI / R;
   constexpr int NRa = NR > 0 ? NR : 1;
@@ -252,10 +255,12 @@ sweep_rows_kernel(const TB* __restrict__ qxi, const TB* __restrict__ qyi,
   const int tiles = (nj + BJ - 1) / BJ;
   const int t0 = blockIdx.y * tiles_per_slice;
   const int t1 = min(t0 + tiles_per_slice, tiles);
-  // bf16: row c (x, y, z, G*m) of raw buffer b, BJ values
+  // bf16: row c (x, y, z, G*m) of raw buffer b, BJ values; the rows staged
+  // (G*m only with the force)
   auto raw = [&](int b, int c) {
     return reinterpret_cast<__nv_bfloat16*>(pos + BJ) + (b * 4 + c) * BJ;
   };
+  constexpr int kRawRows = kForce ? 4 : 3;
   auto stage = [&](int t, int b) {
     if constexpr (kB16) {
       const TB* rows4[4] = {qxj, qyj, qzj, gmj};
@@ -263,7 +268,7 @@ sweep_rows_kernel(const TB* __restrict__ qxi, const TB* __restrict__ qyi,
         const int j = t * BJ + k;
         const int bytes = j >= nj ? 0 : (nj - j >= 2 ? 4 : 2);
 #pragma unroll
-        for (int c = 0; c < 4; ++c)
+        for (int c = 0; c < kRawRows; ++c)
           cp_async4_n(raw(b, c) + k, rows4[c] + (bytes ? j : 0), bytes);
       }
     } else {
@@ -300,7 +305,7 @@ sweep_rows_kernel(const TB* __restrict__ qxi, const TB* __restrict__ qyi,
         pos[k] = make_float4(__bfloat162float(raw(b, 0)[k]),
                              __bfloat162float(raw(b, 1)[k]),
                              __bfloat162float(raw(b, 2)[k]),
-                             __bfloat162float(raw(b, 3)[k]));
+                             kForce ? __bfloat162float(raw(b, 3)[k]) : 0.f);
       __syncthreads();
       tile = pos;
     }
@@ -387,12 +392,43 @@ inline bool sweep_block(int b) {
   return b == 64 || b == 128 || b == 256 || b == 512;
 }
 
-// The sweep at (bi, bj) targets a block and sources a tile, each of {64,
-// 128, 256, 512}, in `slices` j slices of `tiles_per_slice` tiles
+// The sweep at the compiled geometry (BI, BJ), BI targets a block and BJ
+// sources a tile, in `slices` j slices of `tiles_per_slice` tiles
 // (ops/cuda.tile_split; every slice holds a tile when nj > 0), with the
 // fold when slices > 1 (scratch: (slices, C, ni), doubles for kExt).
 // rows: (NR, nj) weights; phi: (NR, ni).  Returns the cudaError_t of the
 // launches.
+template <int BI, int BJ, int NR, bool kForce, bool kExt = false,
+          class TB = float>
+int sweep_launch_at(const TB* qxi, const TB* qyi, const TB* qzi, int ni,
+                    const TB* qxj, const TB* qyj, const TB* qzj,
+                    const TB* gmj, const float* rows, int nj, float soft2,
+                    int slices, int tiles_per_slice,
+                    sweep_acc_t<kExt>* scratch, int accumulate, float* ax,
+                    float* ay, float* az, float* phi, cudaStream_t stream) {
+  if (nj < 0 || slices < 1 || slices > 65535 || tiles_per_slice < 0 ||
+      (slices > 1 && scratch == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (ni <= 0) return 0;
+  const long long tiles = (nj + BJ - 1) / BJ;
+  if (static_cast<long long>(slices) * tiles_per_slice < tiles ||
+      (slices > 1 &&
+       static_cast<long long>(slices - 1) * tiles_per_slice >= tiles))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((ni + BI - 1) / BI, slices);
+  sweep_rows_kernel<BI, BJ, NR, kForce, kExt, TB>
+      <<<grid, BI / sweep_rows(BI, NR), 0, stream>>>(
+          qxi, qyi, qzi, ni, qxj, qyj, qzj, gmj, rows, nj, tiles_per_slice,
+          soft2, accumulate, ax, ay, az, phi, scratch);
+  const int err = static_cast<int>(cudaGetLastError());
+  if (err != 0 || slices == 1) return err;
+  sweep_fold_kernel<NR, kForce, kExt><<<(ni + 255) / 256, 256, 0, stream>>>(
+      scratch, slices, ni, accumulate, ax, ay, az, phi);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// sweep_launch_at at (bi, bj), each of {64, 128, 256, 512}, picked at run
+// time (with_blocks).
 template <int NR, bool kForce, bool kExt = false, class TB = float>
 int sweep_launch(const TB* qxi, const TB* qyi, const TB* qzi,
                  int ni, const TB* qxj, const TB* qyj, const TB* qzj,
@@ -400,40 +436,33 @@ int sweep_launch(const TB* qxi, const TB* qyi, const TB* qzi,
                  int bi, int bj, int slices, int tiles_per_slice,
                  sweep_acc_t<kExt>* scratch, int accumulate, float* ax,
                  float* ay, float* az, float* phi, cudaStream_t stream) {
-  if (!sweep_block(bi) || !sweep_block(bj) || nj < 0 || slices < 1 ||
-      slices > 65535 || tiles_per_slice < 0 ||
-      (slices > 1 && scratch == nullptr))
+  if (!sweep_block(bi) || !sweep_block(bj))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (ni <= 0) return 0;
-  const long long tiles = (nj + bj - 1) / bj;
-  if (static_cast<long long>(slices) * tiles_per_slice < tiles ||
-      (slices > 1 &&
-       static_cast<long long>(slices - 1) * tiles_per_slice >= tiles))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((ni + bi - 1) / bi, slices);
-  const int err = with_blocks(bi, bj, bi, bj, [&](auto bic, auto bjc) {
+  return with_blocks(bi, bj, bi, bj, [&](auto bic, auto bjc) {
     constexpr int BI = decltype(bic)::value, BJ = decltype(bjc)::value;
-    sweep_rows_kernel<BI, BJ, NR, kForce, kExt, TB>
-        <<<grid, BI / sweep_rows(BI, NR), 0, stream>>>(
-            qxi, qyi, qzi, ni, qxj, qyj, qzj, gmj, rows, nj, tiles_per_slice,
-            soft2, accumulate, ax, ay, az, phi, scratch);
-    return static_cast<int>(cudaGetLastError());
+    return sweep_launch_at<BI, BJ, NR, kForce, kExt, TB>(
+        qxi, qyi, qzi, ni, qxj, qyj, qzj, gmj, rows, nj, soft2, slices,
+        tiles_per_slice, scratch, accumulate, ax, ay, az, phi, stream);
   });
-  if (err != 0 || slices == 1) return err;
-  sweep_fold_kernel<NR, kForce, kExt><<<(ni + 255) / 256, 256, 0, stream>>>(
-      scratch, slices, ni, accumulate, ax, ay, az, phi);
-  return static_cast<int>(cudaGetLastError());
 }
 
-// Blocks of the sweep at (bi, bj) that one SM of the current device holds
-// at once (registers, shared memory, threads), into *blocks.
+// Blocks of the sweep at the compiled geometry (BI, BJ) that one SM of the
+// current device holds at once (registers, shared memory, threads), into
+// *blocks.
+template <int BI, int BJ, int NR, bool kForce, bool kExt = false,
+          class TB = float>
+int sweep_resident_at(int* blocks) {
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, sweep_rows_kernel<BI, BJ, NR, kForce, kExt, TB>,
+      BI / sweep_rows(BI, NR), 0));
+}
+
+// sweep_resident_at at (bi, bj), picked at run time.
 template <int NR, bool kForce, bool kExt = false, class TB = float>
 int sweep_resident(int bi, int bj, int* blocks) {
   return with_blocks(bi, bj, bi, bj, [&](auto bic, auto bjc) {
     constexpr int BI = decltype(bic)::value, BJ = decltype(bjc)::value;
-    return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        blocks, sweep_rows_kernel<BI, BJ, NR, kForce, kExt, TB>,
-        BI / sweep_rows(BI, NR), 0));
+    return sweep_resident_at<BI, BJ, NR, kForce, kExt, TB>(blocks);
   });
 }
 
@@ -442,13 +471,21 @@ int sweep_resident(int bi, int bj, int* blocks) {
 // 256, 512}; slices, tiles_per_slice the j split (ops/cuda.tile_split),
 // scratch (slices, 3, ni) floats when slices > 1.  accumulate != 0 adds
 // the sums to ax, ay, az instead of writing them.  Returns the
-// cudaError_t of the launches.  The bf16 instance (murb_tile_rect_bf16)
-// has its own entry in tile.cu.
+// cudaError_t of the launches.  The bf16 overload is K3's bf16 instance
+// (murb_tile_rect_bf16's launch; 4-byte aligned sources).
 int tile_rect_launch(const float* qxi, const float* qyi, const float* qzi,
                      int ni, const float* qxj, const float* qyj,
                      const float* qzj, const float* gmj, int nj, float soft2,
                      int block_i, int block_j, int slices,
                      int tiles_per_slice, float* scratch, int accumulate,
                      float* ax, float* ay, float* az, cudaStream_t stream);
+int tile_rect_launch(const __nv_bfloat16* qxi, const __nv_bfloat16* qyi,
+                     const __nv_bfloat16* qzi, int ni,
+                     const __nv_bfloat16* qxj, const __nv_bfloat16* qyj,
+                     const __nv_bfloat16* qzj, const __nv_bfloat16* gmj,
+                     int nj, float soft2, int block_i, int block_j,
+                     int slices, int tiles_per_slice, float* scratch,
+                     int accumulate, float* ax, float* ay, float* az,
+                     cudaStream_t stream);
 
 }  // namespace murb

@@ -117,18 +117,17 @@ def notify_fp32_compute(kernel: str, dtype: torch.dtype,
                         detail: str | None = None) -> None:
     """One notice per kernel tag and dtype when fp64 state enters a kernel
     that computes in fp32 (the contract of the JAX package's Pallas
-    kernels, kept by the CUDA kernels that replace them), or bf16 state a
-    kernel that has no bf16 instance: its wrapper upcasts the inputs to
-    fp32, which is exact (ops/cuda.kernel_inputs)."""
+    kernels, kept by the CUDA kernels that replace them), or bf16 inputs
+    mixed with float32 ones: the wrapper then runs the fp32 instance on
+    them upcast, which is exact (ops/cuda.kernel_inputs)."""
     if (kernel, dtype) in _FP32_NOTIFIED or dtype not in (torch.float64,
                                                          torch.bfloat16):
         return
     _FP32_NOTIFIED.add((kernel, dtype))
     if dtype == torch.bfloat16:
         print(f"[murb-tpu-torch] note: {kernel} upcasts bf16 inputs to "
-              "fp32 (exact): it has no bf16 instance yet, or takes them "
-              "with float32 ones (ROADMAP.md Queue 1, item 1's bf16 "
-              "loads).", file=sys.stderr)
+              "fp32 (exact): the call mixes them with float32 ones, so it "
+              "runs the kernel's fp32 instance.", file=sys.stderr)
         return
     detail = detail or (
         "fp64 state is down-cast for the sweep (~1e-6 relative force error)")

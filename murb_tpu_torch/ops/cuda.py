@@ -8,10 +8,12 @@ root, keyed by a hash of the sources and the flags, and loads it with
 ``ctypes``.  The library is built into a temporary name and renamed into
 place, so concurrent processes never load a half-written file.
 
-K1-K4 and K8-K12 also have bf16 instances (the ``*_bf16`` entries),
-which read a bf16 state's arrays as they are; ``kernel_inputs`` upcasts
-bf16 exactly for every other kernel.  There is no fallback: a missing
-``nvcc``, a failed build or a refused launch raises.  The kernel wrappers
+Every kernel that reads body arrays (K1-K6, K8-K14) also has a bf16
+instance (the ``*_bf16`` entries), which reads a bf16 state's arrays as
+they are; K7 reads fp32 fields only, and ``kernel_inputs`` upcasts bf16
+exactly where a call mixes bf16 with float32 inputs.  There is no
+fallback: a missing ``nvcc``, a failed build or a refused launch
+raises.  The kernel wrappers
 (ops/tile.py, ops/hybrid.py, ops/mxu.py, ops/proxy_kernels.py,
 ops/fmm_kernels.py, ops/p2p_kernels.py, ops/anterp_kernels.py,
 ops/ring.py) call ``library()`` only for CUDA tensors.
@@ -68,9 +70,13 @@ _SIGNATURES = {
                               _I, _I, _I, _P, _P, _P, _P, _P, _P],
     "murb_hybrid_fast_resident": [_I, _I, _P],
     "murb_hybrid_fast_resident_bf16": [_I, _I, _P],
-    "murb_mxu_rect": [_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                      _P, _P, _P, _P, _P, _P],
+    # K13 and its bf16 instance: the bodies, the centre (found or given)
+    "murb_mxu_rect": [_P, _P, _P, _I, _P, _P, _P, _P, _I, _F, _I, _P, _I, _I,
+                      _I, _I, _I, _P, _P, _P, _P, _P, _P],
+    "murb_mxu_rect_bf16": [_P, _P, _P, _I, _P, _P, _P, _P, _I, _F, _I, _P,
+                           _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
     "murb_mxu_resident": [_I, _I, _P],
+    "murb_mxu_resident_bf16": [_I, _I, _P],
     "murb_p2m": [_P, _P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _P, _P, _P,
                  _P],
     "murb_l2p": [_P, _P, _P, _I, _P, _I, _I, _P, _P, _I, _P, _P],
@@ -80,6 +86,13 @@ _SIGNATURES = {
     "murb_acc_phi_rows": [_P, _P, _P, _P, _I, _P, _I, _F, _I, _I, _I, _I,
                           _P, _P, _P, _P, _P, _P],
     "murb_phi_resident": [_I, _I, _I, _I, _P],
+    # the bf16 instances of K5 and K6 (the default geometry only): the same
+    # arguments, the body arrays bf16, the weight rows float32
+    "murb_phi_rows_rect_bf16": [_P, _P, _P, _I, _P, _P, _P, _I, _P, _I, _F,
+                                _I, _I, _I, _I, _P, _P, _P],
+    "murb_acc_phi_rows_bf16": [_P, _P, _P, _P, _I, _P, _I, _F, _I, _I, _I,
+                               _I, _P, _P, _P, _P, _P, _P],
+    "murb_phi_resident_bf16": [_I, _I, _I, _I, _P],
     "murb_p2m_grid": [_P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _I, _I, _P,
                       _P, _P, _P],
     "murb_l2p_grid": [_P, _P, _P, _P, _I, _P, _I, _I, _P, _P, _I, _P, _P,
@@ -108,6 +121,9 @@ _SIGNATURES = {
     # device ids, D origin, compute and copy streams
     "murb_ring_pipelined": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                             _P, _P, _F, _I, _I, _I, _I, _L],
+    # the bf16 ring: ld (the values between two slot rows) after n
+    "murb_ring_pipelined_bf16": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                                 _P, _P, _P, _P, _F, _I, _I, _I, _I, _L],
 }
 
 
@@ -258,15 +274,17 @@ def kernel_inputs(tag: str, device: torch.device, n: int, *tensors,
 
 def aligned4(*tensors) -> list[torch.Tensor]:
     """The tensors, each copied where its data does not start 4-byte
-    aligned: the bf16 sweeps (K3, K4) stage two sources a 4-byte cp.async
+    aligned: the bf16 sweeps (K3-K6) stage two sources a 4-byte cp.async
     (csrc/tile.cuh), so a bf16 view from an odd element is copied."""
     return [t if t.data_ptr() % 4 == 0 else t.clone() for t in tensors]
 
 
 def all_bf16(*tensors) -> bool:
-    """Whether every tensor is bfloat16: a wrapper with a bf16 instance
-    launches it only then (a mixed call, such as the proxy's bf16 node
-    coordinates with float32 weights, upcasts its bf16 inputs)."""
+    """Whether every tensor is bfloat16: a wrapper launches its bf16
+    instance only then (a mixed call, such as the proxy's bf16 node
+    coordinates with float32 weights, upcasts its bf16 inputs).  K5's and
+    K6's weight rows are not body arrays and do not count: both instances
+    read them float32."""
     return all(t.dtype == torch.bfloat16 for t in tensors)
 
 
@@ -322,7 +340,7 @@ def tile_rows(block_i: int = 0) -> int:
     return TILE_ROWS if (block_i or TILE_BLOCK_I) >= 128 else 2
 
 
-#: K5's and K6's default targets a block and sources a tile (csrc/phi.cu
+#: K5's and K6's default targets a block and sources a tile (csrc/phi.cuh
 #: kPhiTargets, kPhiSources) at every row count (the timings in PERF.md)
 PHI_BLOCK_I = 256
 PHI_BLOCK_J = 256
@@ -374,7 +392,8 @@ def resident(entry: str, device: torch.device, block_i: int = 0,
     csrc/hybrid.cu; ``murb_hybrid_fast_resident``: K4's passes 1,
     csrc/hybrid_fast.cu; ``murb_phi_resident``: K5 and K6, csrc/phi.cu, whose
     ``key`` is (weight rows, force); ``murb_mxu_resident``: K13,
-    csrc/mxu.cu; the CUDA occupancy calculator)."""
+    csrc/mxu.cu; each ``_bf16`` name its bf16 instance's; the CUDA
+    occupancy calculator)."""
     blocks = ctypes.c_int(0)
     with torch.cuda.device(device):
         launch(entry, block_i, block_j, *key, ctypes.byref(blocks))

@@ -32,10 +32,15 @@ geometry ``block_i``/``block_j``; on CPU tensors it runs
 instance (``murb_hybrid_rect_bf16``: K3's for passes 2, the extended
 sweep's for passes 3, counted in ``acc_hybrid_rect.bf16_launches``;
 ``murb_hybrid_fast_bf16`` for passes 1, in ``fast_bf16_launches``).  K5
-and K6 have no bf16 instance: their wrappers upcast a bf16 state exactly
-(ops/cuda.kernel_inputs).
+and K6 launch theirs (``murb_phi_rows_rect_bf16``,
+``murb_acc_phi_rows_bf16``, counted in each wrapper's ``bf16_launches``)
+when every body array is bf16: the coordinates (and K6's G*m) are read as
+they are, and the weight rows are packed float32, as murb_tpu's kernels
+take them; the bf16 instances are compiled at the default geometry only
+(``PHI_BLOCK_I`` x ``PHI_BLOCK_J``), so a bf16 call at another raises.
 
-K5 ``phi_rows_rect`` and K6 ``acc_phi_rows_hybrid`` (``csrc/phi.cu``) take
+K5 ``phi_rows_rect`` (``csrc/phi_rows.cu``) and K6 ``acc_phi_rows_hybrid``
+(``csrc/phi.cu``; their shared code ``csrc/phi.cuh``) take
 up to 8 source-weight rows (one masked G*m row per galaxy) and return the
 potentials phi_r[i] = sum_j w_r[j] * rsqrt(|r_j - r_i|^2 + eps^2), the
 j == i term 1/eps included (callers subtract G m_i / eps,
@@ -46,7 +51,7 @@ weight rows (csrc/tile.cuh): 4 targets a thread at every R (2 at block_i
 64, ``cuda.sweep_rows``), each source staged once as {x, y, z, G*m} and
 one weight record, and K3's j split with their own resident count
 (``phi_split_args``).  They are bound by instruction issue and the MUFU
-rsqrt (about 15 slots a pair for K6 and 9 for K5 at R = 2, csrc/phi.cu's
+rsqrt (about 15 slots a pair for K6 and 9 for K5 at R = 2, csrc/phi.cuh's
 note).  The default geometry is 256 targets a block and 256 sources a
 tile at every R (``cuda.PHI_BLOCK_I``, ``PHI_BLOCK_J``): unlike K3, these
 sweeps want many resident warps, and K3's 128 x 512 leaves an SM 9
@@ -87,7 +92,8 @@ def fast_center(qxj, qyj, qzj, gmj) -> torch.Tensor:
     """Passes 1's expansion point: the sources' G*m-weighted mean as a
     float32 (3,) tensor on their device, summed in float64 (0 when the
     masses sum to 0), with no host sync.  The kernel forms the same mean
-    itself (hybrid_fast_center_kernel, float64 sums in its own order)."""
+    itself (csrc/sweep.cuh weighted_center_kernel, float64 sums in its own
+    order)."""
     g = gmj.double()
     tot = g.sum()
     den = torch.where(tot != 0, tot, torch.ones_like(tot))
@@ -310,20 +316,41 @@ def phi_rows_rect_plain(qxi, qyi, qzi, qxj, qyj, qzj, gm_rows,
     return out
 
 
+def phi_bf16_geometry(tag: str, block_i: int, block_j: int) -> None:
+    """Refuse a geometry K5's and K6's bf16 instances are not compiled for
+    (csrc/phi.cuh: the default, ``cuda.PHI_BLOCK_I`` x ``PHI_BLOCK_J``)."""
+    if (block_i or cuda.PHI_BLOCK_I, block_j or cuda.PHI_BLOCK_J) != (
+            cuda.PHI_BLOCK_I, cuda.PHI_BLOCK_J):
+        raise ValueError(
+            f"{tag}: the bf16 instance is compiled at {cuda.PHI_BLOCK_I}x"
+            f"{cuda.PHI_BLOCK_J} only, not {block_i}x{block_j}")
+
+
+def phi_weight_rows(tag: str, dev: torch.device, nj: int,
+                    gm_rows) -> torch.Tensor:
+    """The (R, nj) float32 weight rows that both instances of K5 and K6
+    read (murb_tpu's kernels take them float32): one packed copy, bf16
+    rows widened exactly, float64 ones cast (announced)."""
+    return torch.stack(cuda.kernel_inputs(
+        tag, dev, nj, *gm_rows, notify=notify_fp32_compute,
+        bf16=True)).to(torch.float32)
+
+
 def phi_split_args(ni: int, nj: int, nr: int, force: bool, block_i: int,
-                   block_j: int, device: torch.device):
+                   block_j: int, device: torch.device, bf16: bool = False):
     """K5's (``force`` False) or K6's geometry and j split on ``device``:
     ``((block_i, block_j, slices, tiles_per_slice, scratch pointer or
     None), scratch)``, the geometry resolved from its defaults, the split
-    from the kernel's own resident blocks at ``nr`` rows, and the scratch
-    a fresh (slices, 3 + nr or nr, ni) float32 tensor (None for one slice)
-    that the caller keeps until the launch is enqueued."""
+    from the kernel's own resident blocks at ``nr`` rows (its bf16
+    instance's with ``bf16``), and the scratch a fresh (slices, 3 + nr or
+    nr, ni) float32 tensor (None for one slice) that the caller keeps until
+    the launch is enqueued."""
     bi = block_i or cuda.PHI_BLOCK_I
     bj = block_j or cuda.PHI_BLOCK_J
+    entry = "murb_phi_resident" + ("_bf16" if bf16 else "")
     slices, per = cuda.tile_split(
         ni, nj, cuda.sm_count(device),
-        cuda.resident("murb_phi_resident", device, bi, bj, nr, int(force)),
-        bi, bj)
+        cuda.resident(entry, device, bi, bj, nr, int(force)), bi, bj)
     scratch = (torch.empty((slices, (3 if force else 0) + nr, ni),
                            dtype=torch.float32, device=device)
                if slices > 1 else None)
@@ -352,27 +379,35 @@ def phi_rows_rect(qxi, qyi, qzi, qxj, qyj, qzj, gm_rows, soft, *,
     if not float(soft) > 0.0:
         raise ValueError(f"{tag}: the sweep needs a positive softening")
     dtype, dev = qxi.dtype, qxi.device
+    b16 = cuda.all_bf16(qxi, qyi, qzi, qxj, qyj, qzj)
+    if b16:
+        phi_bf16_geometry(tag, block_i, block_j)
     xi, yi, zi = cuda.kernel_inputs(tag, dev, ni, qxi, qyi, qzi,
-                                    notify=notify_fp32_compute)
+                                    notify=notify_fp32_compute, bf16=b16)
     xj, yj, zj = cuda.kernel_inputs(tag, dev, nj, qxj, qyj, qzj,
-                                    notify=notify_fp32_compute)
-    rows = torch.stack(cuda.kernel_inputs(tag, dev, nj, *gm_rows,
-                                          notify=notify_fp32_compute))
+                                    notify=notify_fp32_compute, bf16=b16)
+    if b16:
+        xj, yj, zj = cuda.aligned4(xj, yj, zj)
+    rows = phi_weight_rows(tag, dev, nj, gm_rows)
     nr = rows.shape[0]
     phi = torch.empty((nr, ni), dtype=torch.float32, device=dev)
     split, _scratch = phi_split_args(ni, nj, nr, False, block_i, block_j,
-                                     dev)
+                                     dev, b16)
     with torch.cuda.device(dev):
-        cuda.launch("murb_phi_rows_rect", xi.data_ptr(), yi.data_ptr(),
-                    zi.data_ptr(), ni, xj.data_ptr(), yj.data_ptr(),
-                    zj.data_ptr(), nj, rows.data_ptr(), nr,
-                    ctypes.c_float(float(soft) ** 2), *split,
-                    phi.data_ptr(), cuda.stream(dev))
-    phi_rows_rect.launches += 1
+        cuda.launch("murb_phi_rows_rect" + ("_bf16" if b16 else ""),
+                    xi.data_ptr(), yi.data_ptr(), zi.data_ptr(), ni,
+                    xj.data_ptr(), yj.data_ptr(), zj.data_ptr(), nj,
+                    rows.data_ptr(), nr, ctypes.c_float(float(soft) ** 2),
+                    *split, phi.data_ptr(), cuda.stream(dev))
+    if b16:
+        phi_rows_rect.bf16_launches += 1
+    else:
+        phi_rows_rect.launches += 1
     return phi.to(weights_dtype(dtype))  # float32 for bf16, as murb_tpu's
 
 
 phi_rows_rect.launches = 0
+phi_rows_rect.bf16_launches = 0
 
 
 def phi_rows(qx, qy, qz, gm_rows, soft, *, passes: int = 2,
@@ -411,22 +446,31 @@ def acc_phi_rows_hybrid(qx, qy, qz, gm, gm_rows, soft, *, passes: int = 2,
     if not float(soft) > 0.0:
         raise ValueError(f"{tag}: the sweep needs a positive softening")
     dtype, dev = qx.dtype, qx.device
+    b16 = cuda.all_bf16(qx, qy, qz, gm)
+    if b16:
+        phi_bf16_geometry(tag, block_i, block_j)
     x, y, z, g = cuda.kernel_inputs(tag, dev, n, qx, qy, qz, gm,
-                                    notify=notify_fp32_compute)
-    rows = torch.stack(cuda.kernel_inputs(tag, dev, n, *gm_rows,
-                                          notify=notify_fp32_compute))
+                                    notify=notify_fp32_compute, bf16=b16)
+    if b16:
+        x, y, z, g = cuda.aligned4(x, y, z, g)
+    rows = phi_weight_rows(tag, dev, n, gm_rows)
     nr = rows.shape[0]
     out = torch.empty((3 + nr, n), dtype=torch.float32, device=dev)
-    split, _scratch = phi_split_args(n, n, nr, True, block_i, block_j, dev)
+    split, _scratch = phi_split_args(n, n, nr, True, block_i, block_j, dev,
+                                     b16)
     with torch.cuda.device(dev):
-        cuda.launch("murb_acc_phi_rows", x.data_ptr(), y.data_ptr(),
-                    z.data_ptr(), g.data_ptr(), n, rows.data_ptr(), nr,
-                    ctypes.c_float(float(soft) ** 2), *split,
-                    out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
-                    out[3:].data_ptr(), cuda.stream(dev))
-    acc_phi_rows_hybrid.launches += 1
+        cuda.launch("murb_acc_phi_rows" + ("_bf16" if b16 else ""),
+                    x.data_ptr(), y.data_ptr(), z.data_ptr(), g.data_ptr(),
+                    n, rows.data_ptr(), nr, ctypes.c_float(float(soft) ** 2),
+                    *split, out[0].data_ptr(), out[1].data_ptr(),
+                    out[2].data_ptr(), out[3:].data_ptr(), cuda.stream(dev))
+    if b16:
+        acc_phi_rows_hybrid.bf16_launches += 1
+    else:
+        acc_phi_rows_hybrid.launches += 1
     out = out.to(dtype)
     return Accel(out[0], out[1], out[2]), out[3:]
 
 
 acc_phi_rows_hybrid.launches = 0
+acc_phi_rows_hybrid.bf16_launches = 0

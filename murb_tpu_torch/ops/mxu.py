@@ -12,11 +12,21 @@ the sweep is S = A^T B (= |r_j - r_i|^2 + eps^2), W = gm_j rsqrt(S)^3,
 P = A W, and the O(N) epilogue a_i = P[0:3, i] - cq_i P[4, i].  Self-pairs
 stay in; they cancel in the epilogue.
 
-The centring and packing are plain torch ops (jnp stages outside the
-Pallas kernel in the reference).  On CUDA tensors ``acc_mxu_rect``
-launches ``csrc/mxu.cu`` (K13, which replaces ``mxu._mxu_kernel``): S and
-P are TF32 tensor-core products (``mma.sync`` m16n8k8).  On CPU tensors it
-runs ``acc_mxu_rect_plain``, the same function at the same tier.
+The reference centres and packs with jnp ops outside its Pallas kernel;
+the plain version does the same with torch ops (``_operands``), and K13
+(``csrc/mxu.cu``, which replaces ``mxu._mxu_kernel``) builds the same
+operands in its own kernels from the bodies as they are: the centre in
+float64 rounded once to the dtype (``_centered_with_point``, the kernel's
+``weighted_center_kernel``), then every value with the plain version's
+fp32 operations.  On CUDA tensors ``acc_mxu_rect`` launches K13: S and P
+are TF32 tensor-core products (``mma.sync`` m16n8k8); a bf16 state
+launches its bf16 instance (``murb_mxu_rect_bf16``, counted in
+``acc_mxu_rect.bf16_launches``), which reads the bf16 bodies and gives the
+fp32 instance's bits on them upcast.  Unlike murb_tpu, which forms the
+operands of a bf16 state in bf16 (mxu.py:117-142), the port forms them in
+fp32 and rounds once, as its other chains outside a kernel do.  On CPU
+tensors it runs ``acc_mxu_rect_plain``, the same function at the same
+tier.
 
 The tiers keep murb_tpu's contracts (``precision`` governs P,
 ``s_precision`` S; the engines pass ``precision`` only, so S runs at
@@ -56,6 +66,7 @@ sources a tile; ops/cuda.check_blocks); the plain version ignores them.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 
 import torch
 
@@ -148,10 +159,14 @@ def tf32_matmul():
 
 
 def _centered_with_point(qx, qy, qz, gm):
-    """The coordinates less their G*m-weighted mean, and that mean
-    (mxu.py:185-190)."""
-    w = gm / torch.clamp(gm.sum(), min=1.0)
-    cx, cy, cz = (w * qx).sum(), (w * qy).sum(), (w * qz).sum()
+    """The coordinates less their centre, and that centre: murb_tpu's
+    sum G m r / max(sum G m, 1) (mxu.py:185-190), summed in float64 and
+    rounded once to the coordinates' dtype, as K13's
+    ``weighted_center_kernel`` forms it (in its own order of sums)."""
+    g = gm.double()
+    den = torch.clamp(g.sum(), min=1.0)
+    cx, cy, cz = (((g * q.double()).sum() / den).to(q.dtype)
+                  for q in (qx, qy, qz))
     return qx - cx, qy - cy, qz - cz, (cx, cy, cz)
 
 
@@ -294,7 +309,9 @@ def acc_mxu_rect(qxi, qyi, qzi, qxj, qyj, qzj, gmj, soft, *,
     ``center_point`` (cx, cy, cz) overrides the centre computed from the
     j-set, so that shards of one system agree.  CPU tensors run the plain
     version; CUDA tensors launch K13 at the tier (fp32 inside; float64
-    inputs are cast here, announced once, and the outputs cast back).
+    inputs are cast here, announced once, and the outputs cast back; an
+    all-bf16 call launches the bf16 instance on the arrays as they are,
+    at its own resident count's split).
     Where the target blocks cannot fill the card, the j range is split
     into slices of whole tiles (ops/cuda.tile_split, K13's own resident
     blocks) and the kernel folds the slices' P in order before its
@@ -313,16 +330,22 @@ def acc_mxu_rect(qxi, qyi, qzi, qxj, qyj, qzj, gmj, soft, *,
         raise ValueError(f"{TAG}: the sweep needs a positive softening")
     dtype, dev = qxi.dtype, qxi.device
     ni, nj = qxi.shape[0], qxj.shape[0]
+    b16 = cuda.all_bf16(qxi, qyi, qzi, qxj, qyj, qzj, gmj)
+    sfx = "_bf16" if b16 else ""
     qi = cuda.kernel_inputs(TAG, dev, ni, qxi, qyi, qzi,
-                            notify=notify_fp32_compute)
-    *qj, gj = cuda.kernel_inputs(TAG, dev, nj, qxj, qyj, qzj, gmj,
-                                 notify=notify_fp32_compute)
-    a_mat, b_mat, cqi = _operands(*qi, *qj, gj, soft, center, center_point)
-    cqi = [c.contiguous() for c in cqi]
+                            notify=notify_fp32_compute, bf16=b16)
+    qj = cuda.kernel_inputs(TAG, dev, nj, qxj, qyj, qzj, gmj,
+                            notify=notify_fp32_compute, bf16=b16)
+    # the centre the kernel uses: found by it (written here), given, or 0
+    find = center and center_point is None
+    point = (torch.zeros(3, dtype=torch.float32, device=dev)
+             if center_point is None else
+             torch.stack([torch.as_tensor(c, dtype=torch.float32, device=dev)
+                          for c in center_point]))
     bi, bj = block_i or MXU_BLOCK_I, block_j or MXU_BLOCK_J
     slices, per = cuda.tile_split(ni, nj, cuda.sm_count(dev),
-                                  cuda.resident("murb_mxu_resident", dev, bi,
-                                                bj), bi, bj)
+                                  cuda.resident("murb_mxu_resident" + sfx,
+                                                dev, bi, bj), bi, bj)
     chunks = -(-nj // PACK_SOURCES) * PACK_SOURCES // 8
     packed = torch.empty(chunks * CHUNK_FLOATS, dtype=torch.float32,
                          device=dev)
@@ -330,18 +353,23 @@ def acc_mxu_rect(qxi, qyi, qzi, qxj, qyj, qzj, gmj, soft, *,
                if slices > 1 else None)
     out = torch.empty((3, ni), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        cuda.launch("murb_mxu_rect", a_mat.data_ptr(), gj.data_ptr(), nj,
-                    b_mat.data_ptr(), cqi[0].data_ptr(), cqi[1].data_ptr(),
-                    cqi[2].data_ptr(), ni, bi, bj, p_passes, slices, per,
+        cuda.launch("murb_mxu_rect" + sfx, *(v.data_ptr() for v in qi), ni,
+                    *(v.data_ptr() for v in qj), nj,
+                    ctypes.c_float(float(soft) ** 2), int(find),
+                    point.data_ptr(), bi, bj, p_passes, slices, per,
                     packed.data_ptr(),
                     None if scratch is None else scratch.data_ptr(),
                     out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
                     cuda.stream(dev))
-    acc_mxu_rect.launches += 1
+    if b16:
+        acc_mxu_rect.bf16_launches += 1
+    else:
+        acc_mxu_rect.launches += 1
     return Accel(*(o.to(dtype) for o in out))
 
 
 acc_mxu_rect.launches = 0
+acc_mxu_rect.bf16_launches = 0
 
 
 def acc_mxu(qx, qy, qz, gm, soft, *, block_i: int = 0, block_j: int = 0,

@@ -10,7 +10,10 @@ to the right neighbour's other slot.
 in one C entry, each ring step swept by K3's register-tiled kernel,
 csrc/tile.cu) when every shard lies on a CUDA device, and runs
 ``acc_ring_pipelined_plain`` when every shard lies on the CPU; there is no
-other path.  The plain version plays the same two-slot protocol on
+other path.  A bf16 state (every block and G*m bf16) launches the bf16
+ring (``murb_ring_pipelined_bf16``, counted in
+``acc_ring_pipelined.bf16_launches``): its two slots are bf16, half the
+bytes a copy, and each step runs K3's bf16 instance.  The plain version plays the same two-slot protocol on
 host-side lists, the sweep in the inputs' dtype.  A ring that spans
 processes is not ported (ROADMAP.md Queue 1, item 1).
 """
@@ -71,6 +74,13 @@ def acc_ring_pipelined_plain(mesh, qs, gms, soft, *, log=None) -> list:
     return acc
 
 
+def slot_stride(n: int) -> int:
+    """The values between two rows of a bf16 ring slot: ``n`` rounded up
+    to even, so that every row starts 4-byte aligned, as K3's bf16
+    instance reads its sources (two a 4-byte copy; csrc/ring.cu)."""
+    return n + (n & 1)
+
+
 def ring_split(n: int, sm_count: int, resident: int, sharing: int,
                block_i: int = 0, block_j: int = 0) -> tuple[int, int]:
     """K3's j split of each of K14's n x n ring sweeps,
@@ -97,8 +107,10 @@ def acc_ring_pipelined(mesh, qs, gms, soft, *, block_i: int = 0,
     """Per-shard accelerations through the D-step ring.
 
     CPU shards run the plain version; CUDA shards launch K14 (fp32 inside;
-    float64 inputs are cast here and the outputs cast back): one C call
-    issues the D^2 sweeps (K3's kernel, split by ``ring_split``; each
+    float64 inputs are cast here and the outputs cast back; a bf16 state
+    runs the bf16 ring on its arrays as they are, its slots (2, 4,
+    ``slot_stride(n)``) bf16): one C call issues the D^2 sweeps (K3's
+    kernel, split by ``ring_split`` at its instance's resident count; each
     shard's (slices, 3, n) scratch is allocated here) and D(D - 1) slot
     copies on each shard's compute and copy streams, and each shard's
     current stream waits for the whole ring.  ``block_i``/``block_j`` pick
@@ -116,19 +128,25 @@ def acc_ring_pipelined(mesh, qs, gms, soft, *, block_i: int = 0,
         raise ValueError(f"{TAG}: the sweep needs a positive softening")
     d, n = mesh.local_size, qs[0][0].shape[0]
     dtype = qs[0][0].dtype
+    b16 = all(cuda.all_bf16(*q, g) for q, g in zip(qs, gms))
+    sfx = "_bf16" if b16 else ""
+    ld = slot_stride(n) if b16 else n
     # one split for every sweep, from the card that the most shards share
     dev0 = max(mesh.devices, key=mesh.devices.count)
     slices, per = ring_split(n, cuda.sm_count(dev0),
-                             cuda.resident("murb_tile_resident", dev0, block_i,
-                                           block_j),
+                             cuda.resident("murb_tile_resident" + sfx, dev0,
+                                           block_i, block_j),
                              mesh.devices.count(dev0), block_i, block_j)
     tgts, bufs, outs, scratch = [], [], [], []
     for dev, q, g in zip(mesh.devices, qs, gms):
         x, y, z, gg = cuda.kernel_inputs(TAG, dev, n, *q, g,
-                                         notify=notify_fp32_compute)
+                                         notify=notify_fp32_compute,
+                                         bf16=b16)
         with torch.cuda.device(dev):
-            buf = torch.empty((2, 4, n), dtype=torch.float32, device=dev)
-            buf[0] = torch.stack([x, y, z, gg])
+            buf = torch.empty((2, 4, ld), dtype=x.dtype, device=dev)
+            for c, v in enumerate((x, y, z, gg)):
+                buf[0, c, :n] = v
+            buf[:, :, n:] = 0   # the even stride's column, never swept
             outs.append(torch.empty((3, n), dtype=torch.float32, device=dev))
             scratch.append(torch.empty((slices, 3, n) if slices > 1 else 0,
                                        dtype=torch.float32, device=dev))
@@ -143,13 +161,17 @@ def acc_ring_pipelined(mesh, qs, gms, soft, *, block_i: int = 0,
     streams = [(ctypes.c_void_p * d)(*v) for v in (
         [torch.cuda.current_stream(dv).cuda_stream for dv in mesh.devices],
         [c.cuda_stream for c, _ in side], [p.cuda_stream for _, p in side])]
-    cuda.launch("murb_ring_pipelined", d, n,
+    cuda.launch("murb_ring_pipelined" + sfx, d, n, *((ld,) if b16 else ()),
                 *(ctypes.addressof(a) for a in arrays), ctypes.addressof(ids),
                 *(ctypes.addressof(s) for s in streams),
                 ctypes.c_float(float(soft) ** 2), block_i, block_j, slices,
                 per, int(delay_ns))
-    acc_ring_pipelined.launches += d * d
+    if b16:
+        acc_ring_pipelined.bf16_launches += d * d
+    else:
+        acc_ring_pipelined.launches += d * d
     return [Accel(*(o.to(dtype) for o in out)) for out in outs]
 
 
 acc_ring_pipelined.launches = 0
+acc_ring_pipelined.bf16_launches = 0

@@ -161,7 +161,8 @@ CELL_RUN_ENTRIES = ("murb_p2m_grid", "murb_l2p_grid", "murb_p2m_window",
 SOURCES = {"murb_p2p_sorted": ["p2p.cu"], "murb_tile_rect": ["tile.cu"],
            "murb_mxu_rect": ["mxu.cu"],
            "murb_ring_pipelined": ["ring.cu", "tile.cu"],
-           "murb_phi_rows_rect": ["phi.cu"], "murb_acc_phi_rows": ["phi.cu"],
+           "murb_phi_rows_rect": ["phi.cu", "phi_rows.cu"],
+           "murb_acc_phi_rows": ["phi.cu", "phi_rows.cu"],
            "murb_m2l_level": ["fmm.cu"],
            "murb_hybrid_rect": ["hybrid.cu", "tile.cu"],
            "murb_p2m_grid": ["fmm.cu"], "murb_l2p_grid": ["fmm.cu"],
@@ -839,8 +840,10 @@ def run_k3(old, dev) -> dict:
 
 
 def galaxy_operands(dev):
-    """The 200k galaxy's positions and G*m, fp32 on ``dev``, and K13's
-    packed operands (A, B, centred targets) of its square sweep."""
+    """The 200k galaxy's positions and G*m, fp32 on ``dev``, and the
+    packed operands (A, B, centred targets) of its square sweep, which
+    K13's first design took (this K13 builds them itself from the
+    bodies)."""
     from murb_tpu_torch import G
     from murb_tpu_torch.core.init import init_galaxy
     from murb_tpu_torch.ops import mxu
@@ -900,11 +903,11 @@ def run_k13_first(old, dev) -> dict:
                          * mxu.CHUNK_FLOATS, dtype=torch.float32, device=dev)
     scratch = torch.empty((slices, 4, n), dtype=torch.float32, device=dev)
 
+    center = torch.empty(3, dtype=torch.float32, device=dev)
+
     def f_new(passes, out):
-        call(cuda.library(), "murb_mxu_rect", a_mat.data_ptr(), gm.data_ptr(),
-             n, b_mat.data_ptr(), *(c.data_ptr() for c in cqi), n, bi, bj,
-             passes, slices, per, packed.data_ptr(), scratch.data_ptr(),
-             *(o.data_ptr() for o in out), s)
+        k13_call(cuda.library(), q, gm, center, bi, bj, passes, slices, per,
+                 packed, scratch, out, s)
 
     res = {}
     f_old()
@@ -922,14 +925,24 @@ def run_k13_first(old, dev) -> dict:
     return res
 
 
+def k13_call(dll, q, gm, center, bi, bj, passes, slices, per, packed,
+             scratch, out, s):
+    """One launch of K13's C entry (this design's arguments: the bodies,
+    the centre found into ``center``) on the square sweep of ``q``."""
+    n = q[0].shape[0]
+    call(dll, "murb_mxu_rect", *(v.data_ptr() for v in q), n,
+         *(v.data_ptr() for v in q), gm.data_ptr(), n, SOFT2, 1,
+         center.data_ptr(), bi, bj, passes, slices, per, packed.data_ptr(),
+         scratch.data_ptr(), *(o.data_ptr() for o in out), s)
+
+
 def run_k13_same(old, dev) -> dict:
     """The parent's K13 (same C entry) against this checkout's on the
-    galaxy's packed operands at 200,192^2, at "high" and "default", at the
-    wrapper's geometry and split, in turns; the sums must agree bit for
-    bit."""
+    galaxy at 200,192^2, at "high" and "default", at the wrapper's
+    geometry and split, in turns; the sums must agree bit for bit."""
     from murb_tpu_torch.ops import mxu
 
-    q, gm, a_mat, b_mat, cqi = galaxy_operands(dev)
+    q, gm, *_ = galaxy_operands(dev)
     n, s = q[0].shape[0], cuda.stream(dev)
     bi, bj = mxu.MXU_BLOCK_I, mxu.MXU_BLOCK_J
     slices, per = cuda.tile_split(
@@ -943,11 +956,12 @@ def run_k13_same(old, dev) -> dict:
     outs = [torch.empty((3, n), dtype=torch.float32, device=dev)
             for _ in range(2)]
 
+    centers = [torch.empty(3, dtype=torch.float32, device=dev)
+               for _ in range(2)]
+
     def f(dll, k, passes):
-        call(dll, "murb_mxu_rect", a_mat.data_ptr(), gm.data_ptr(), n,
-             b_mat.data_ptr(), *(c.data_ptr() for c in cqi), n, bi, bj,
-             passes, slices, per, packed[k].data_ptr(),
-             scratch[k].data_ptr(), *(o.data_ptr() for o in outs[k]), s)
+        k13_call(dll, q, gm, centers[k], bi, bj, passes, slices, per,
+                 packed[k], scratch[k], outs[k], s)
 
     res = {}
     for prec in ("high", "default"):
@@ -2283,10 +2297,12 @@ def main(argv=None) -> int:
     parent = None
     if firsts or same:
         print(f"[{args.parent}] first designs {firsts}; same entries {same}")
-        libs["parent"] = build("ab_parent",
-                               args.parent / "murb_tpu_torch" / "csrc",
+        pcsrc = args.parent / "murb_tpu_torch" / "csrc"
+        # a tree before K5 had its own source holds K5 and K6 in phi.cu
+        libs["parent"] = build("ab_parent", pcsrc,
                                sorted({s for k in firsts + same
-                                       for s in SOURCES[k]}))
+                                       for s in SOURCES[k]
+                                       if (pcsrc / s).exists()}))
         parent = load(libs["parent"],
                       {**{k: FIRST_SIGNATURES.get(k, cuda._SIGNATURES[k])
                           for k in firsts},

@@ -156,7 +156,7 @@ def test_wrappers_run_the_plain_versions_on_cpu_and_check_arguments():
 # ------------------------------------------- the kernels' geometry (K3's)
 @pytest.mark.parametrize("nr", range(1, 9))
 def test_sweep_geometry_mirror_fits_and_keeps_k3s_targets(nr):
-    """ops/cuda's mirrors of csrc/tile.cuh and csrc/phi.cu at R rows: the
+    """ops/cuda's mirrors of csrc/tile.cuh and csrc/phi.cuh at R rows: the
     weight record holds the rows and loads as one float, float2 or float4
     pieces; the staged double buffer of every block_j fits the 48 KB a
     kernel may use without opting in, the default's stays within 24 KB;
@@ -182,9 +182,9 @@ def test_sweep_geometry_mirror_fits_and_keeps_k3s_targets(nr):
 
 def test_sweep_geometry_mirror_matches_the_sources():
     """The constants ops/cuda mirrors, read from csrc/tile.cuh and
-    csrc/phi.cu."""
+    csrc/phi.cuh (K5's and K6's shared header)."""
     tile = (cuda.CSRC / "tile.cuh").read_text()
-    phi = (cuda.CSRC / "phi.cu").read_text()
+    phi = (cuda.CSRC / "phi.cuh").read_text()
     assert f"kMaxPhiRows = {th.MAX_PHI_ROWS};" in tile
     assert f"kPhiTargets = {cuda.PHI_BLOCK_I};" in phi
     assert "nr == 1 ? 1 : nr == 2 ? 2 : nr <= 4 ? 4 : 8" in tile

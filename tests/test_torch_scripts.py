@@ -121,3 +121,50 @@ def test_render_trajectory(tmp_path):
     assert "wrote 4 frames" in r.stdout
     assert sorted(os.listdir(tmp_path / "frames")) == [
         f"frame_{k:06d}.png" for k in range(4)]
+
+
+def _bash(script, tmp_path, **env_vars):
+    """``bash scripts/<script>`` with ``env_vars``, this interpreter's
+    directory first on PATH and /bin:/usr/bin after it (no nsys or ncu),
+    no MURB_ variable inherited."""
+    env = {k: v for k, v in os.environ.items() if not k.startswith("MURB_")}
+    env.update(PATH=os.pathsep.join([os.path.dirname(sys.executable), "/bin",
+                                     "/usr/bin"]), **env_vars)
+    return subprocess.run(["bash", f"scripts/{script}"], capture_output=True,
+                          text=True, cwd=REPO, env=env, timeout=300)
+
+
+def test_profile_script_modes(tmp_path):
+    """scripts/torch_profile_nbody.sh: MODE=RUN a timed --scan run,
+    MODE=TRACE a Chrome trace and the device time it holds (none on the
+    CPU); NSYS and NCU without the tool exit 2 saying so; an unknown mode
+    exits 1."""
+    small = dict(DEVICE="cpu", N="256", I="3", IM="cpu+naive",
+                 OUT=str(tmp_path / "trace"))
+    r = _bash("torch_profile_nbody.sh", tmp_path, MODE="RUN", **small)
+    assert r.returncode == 0, r.stderr
+    assert "Entire simulation took" in r.stdout
+    r = _bash("torch_profile_nbody.sh", tmp_path, MODE="TRACE", **small)
+    assert r.returncode == 0, r.stderr
+    assert "Profiled device time: not measured" in r.stdout
+    assert (tmp_path / "trace" / "trace.json").stat().st_size > 0
+    for mode, tool in (("NSYS", "nsys"), ("NCU", "ncu")):
+        r = _bash("torch_profile_nbody.sh", tmp_path, MODE=mode, **small)
+        assert r.returncode == 2
+        assert f"MODE={mode} needs {tool}, which is not on PATH" in r.stderr
+    r = _bash("torch_profile_nbody.sh", tmp_path, MODE="XPROF", **small)
+    assert r.returncode == 1 and "unknown MODE=XPROF" in r.stderr
+
+
+def test_multihost_script_runs_two_processes(tmp_path):
+    """scripts/torch_run_multihost.sh with NPROC=2 on the CPU: two
+    processes join one gloo group through MURB_COORDINATOR,
+    MURB_NUM_PROCESSES and MURB_PROCESS_ID and run shard+proxy over 2 x 2
+    virtual shards to the end."""
+    r = _bash("torch_run_multihost.sh", tmp_path, NPROC="2", DEVICE="cpu",
+              SHARDS="2", N="512", ITERS="3", IM="shard+proxy")
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "2 processes of 2 cpu shard(s), --im shard+proxy" in r.stdout
+    for k in range(2):
+        assert f"distributed runtime up: process {k}/2" in r.stdout
+    assert r.stdout.count("Entire simulation took") == 2
