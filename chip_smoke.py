@@ -105,7 +105,18 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      ``shard+uneven`` (0.6) on 4 shards against ``tpu+hybrid``; ``shard+proxy``
      on the galaxy (K1/K2) and on the random box (promoted to the hierarchy at
      phase 8's (m, L): K7-K9); ``shard+adaptive`` on the 1M two-cluster box (1
-     shard) and the merger (2 shards): K10-K12, health ok;
+     shard) and the merger (2 shards): K10-K12, health ok; and K14 across
+     processes (its cross-process instance, CUDA IPC and flag words): 2, 3
+     and 4 worker processes of this script (``--ring-worker``) on cuda:0, a
+     gloo group, at P x L = 2x1, 2x2, 3x1 and 4x1 on the 200k galaxy, fp32
+     and bf16, 3 calls each with no delay and with a 5 us delay in one
+     process, then in another, every shard's sums bit for bit the
+     one-process K14 at D = P L and within WithinRel 1e-5 (rms floor 5e-6)
+     of float64, then ``shard+ring`` for 3 steps (bit for bit the
+     one-process engine), the time a call beside the one-process time
+     (time-sliced contexts on one card, not a link), the plain version
+     across processes at 2x2; a worker that fails or outlives its limit
+     fails the run;
  12. the differentiable rollouts (murb_tpu_torch.diff), which launch no
      kernel (every count stays 0 across the phase): the exact adjoint
      (chunked, 16,384 random bodies, float64, 5 Euler steps, remat) against
@@ -185,8 +196,10 @@ in each), K4's passes 1 from phase 6's ``tpu+hybrid+fast`` run (and its
 bf16 instance from phase 15's), K10-K12's bf16 instances from phase 15's
 1M bf16 run, K5's from its bf16 merger CLI run, K6's, K14's and K13's
 from its bf16 merger through ``create_engine``, 4-shard ``shard+ring``
-and ``tpu+mxu`` runs (each with no launch of the fp32 instance).  Every kernel must have launched in
-its piece.  The line before the last is the kernels' JSON
+and ``tpu+mxu`` runs (each with no launch of the fp32 instance), K14's
+cross-process instances from the workers' 3-step ``shard+ring`` runs at
+2x2 (every process's count, zeroed just before the run).  Every kernel
+must have launched in its piece.  The line before the last is the kernels' JSON
 record (with each kernel's bound: the larger of its bytes over 3.35 TB/s
 and its operations over the 67 TFLOP/s fp32 peak of an H100 SXM; K5's and
 K6's also no less than their MUFU rsqrt floor, one a pair at 16 a clock
@@ -207,6 +220,7 @@ import json
 import os
 import re
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -2145,6 +2159,348 @@ def phase15_sweeps(dev, smi, drive, time_ms, keep, within_rel, norm_rel,
     return launches
 
 
+def within_rel(got, ref, eps: float, rms_floor: float, rms=None) -> float:
+    """Catch2 WithinRel with an rms floor (tests/conftest.py); returns the
+    largest ratio of |a - b| to its allowance (<= 1 passes).  ``rms``: each
+    component's rms to floor with, where ``ref`` holds only some rows of
+    the array whose rms sets the floor."""
+    import torch
+
+    worst = 0.0
+    for c, (g, r) in enumerate(zip(got, ref)):
+        g, r = g.double(), r.double()
+        r_rms = float(r.pow(2).mean().sqrt()) if rms is None else rms[c]
+        allow = (eps * torch.maximum(g.abs(), r.abs())
+                 + rms_floor * r_rms + 1e-300)
+        worst = max(worst, float(((g - r).abs() / allow).max()))
+    return worst
+
+
+def gm_of(state):
+    """G*m of a state in its dtype, G rounded to it (the engines' _gm)."""
+    import torch
+
+    from murb_tpu_torch import G
+
+    return state.m * torch.tensor(G, dtype=state.dtype).item()
+
+
+def event_ms(fn, reps: int = 10, runs: int = 5) -> float:
+    """Median over ``runs`` of the mean CUDA-event time of ``reps`` calls
+    of ``fn``, after one warm-up call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(runs):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        out.append(a.elapsed_time(b) / reps)
+    return statistics.median(out)
+
+
+#: phase 11's rings across processes: (processes, local shards of each run)
+RING_LAYOUTS = ((2, (1, 2)), (3, (1,)), (4, (1,)))
+#: the layout whose engine run and timing go to the kernels line
+RING_MAIN = (2, 2)
+RING_DELAY_NS = 5000
+RING_FIELDS = ("qx", "qy", "qz", "vx", "vy", "vz")
+
+
+def ring_worker(rank: int, nproc: int, port: str, work: str) -> int:
+    """One process of phase 11's ring across processes
+    (``chip_smoke.py --ring-worker RANK NPROC PORT DIR``): a gloo group of
+    ``nproc`` processes on cuda:0 (an explicit device list), and for each
+    of its layouts and for fp32 and bf16 on the 200k galaxy: K14's
+    cross-process instance 3 times in a row with no delay, with a 5 us
+    delay in process 0 only, then in the last process only, every call's
+    sums bit for bit the one-process K14's at D = P L (``DIR/ref_*``), the
+    last within WithinRel 1e-5 (rms floor 5e-6) of the float64 sweep; the
+    time a call; ``shard+ring`` for 3 steps through ``create_engine``
+    (auto must take the pipelined ring), its launches counted and its
+    blocks bit for bit the one-process engine's; at RING_MAIN the plain
+    version across processes once.  Prints one ``RING_RESULT`` JSON line;
+    any failure raises (a non-zero exit)."""
+    os.environ.update(MURB_COORDINATOR=f"localhost:{port}",
+                      MURB_NUM_PROCESSES=str(nproc),
+                      MURB_PROCESS_ID=str(rank))
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    from murb_tpu_torch.core.init import init_galaxy
+    from murb_tpu_torch.models import create_engine
+    from murb_tpu_torch.ops import ring as ring_ops
+    from murb_tpu_torch.parallel.mesh import (make_mesh,
+                                              maybe_init_distributed,
+                                              shard_state)
+
+    with open(os.path.join(work, "spec.json")) as f:
+        spec = json.load(f)
+    check(maybe_init_distributed("cuda", backend="gloo"),
+          "ring worker: the coordinator's variables were not read")
+    dev = torch.device("cuda", 0)
+    fn = ring_ops.acc_ring_pipelined
+    counters = ("launches", "bf16_launches", "ipc_launches",
+                "ipc_bf16_launches")
+    out = []
+    for l in dict(RING_LAYOUTS)[nproc]:
+        d = nproc * l
+        for prec, dtype in (("fp32", torch.float32),
+                            ("bf16", torch.bfloat16)):
+            tag = f"K14 across processes {nproc}x{l} {prec} rank {rank}"
+            ref = torch.load(os.path.join(work, f"ref_{d}_{prec}.pt"),
+                             map_location=dev)
+            st = init_galaxy(spec["n"], SEED, dtype=dtype, device=dev)
+            mesh = make_mesh(devices=[dev] * l)
+            check(mesh.size == d and mesh.single_host,
+                  f"{tag}: a mesh of {mesh.size} shards on {mesh.hosts}")
+            sd = st.repad(256 * d)
+            blocks = shard_state(sd, mesh)
+            qs = [(b.qx, b.qy, b.qz) for b in blocks]
+            gs = [gm_of(b) for b in blocks]
+            first, nl = mesh.axis_index(0), sd.npad // d
+            for delayed in (None, 0, nproc - 1):
+                delay = RING_DELAY_NS if rank == delayed else 0
+                for call in range(3):
+                    got = ring_ops.ring_sums(mesh, qs, gs, SOFT,
+                                             delay_ns=delay)
+                    torch.cuda.synchronize()
+                    for s, g in enumerate(got):
+                        check(torch.equal(g, ref["sums"][first + s]),
+                              f"{tag}: shard {first + s}, call {call} with "
+                              f"the delay in process {delayed}: not the "
+                              f"one-process K14's bits at D={d}")
+            r64 = torch.load(os.path.join(work, f"ref64_{prec}.pt"),
+                             map_location=dev)[:, :sd.npad]
+            rms = [float(v.pow(2).mean().sqrt()) for v in r64]
+            mine = r64[:, first * nl:(first + l) * nl]
+            sums = torch.cat(got, dim=1)
+            w64 = within_rel(sums, mine, 1e-5, 5e-6, rms)
+            check(w64 <= 1.0, f"{tag}: WithinRel 1e-5 (rms floor 5e-6) "
+                              f"against float64 exceeded by {w64:.2f}x")
+            err = float((sums.double() - mine).abs().max())
+            ms = event_ms(lambda: ring_ops.ring_sums(mesh, qs, gs, SOFT),
+                          reps=3, runs=3)
+            eng = create_engine("shard+ring", st, soft=SOFT, dt=DT,
+                                devices=[dev] * l)
+            check(eng.ring_impl == "pipelined" and eng.n_shards == d,
+                  f"{tag}: shard+ring took {eng.ring_impl} on "
+                  f"{eng.n_shards} shards")
+            for a in counters:
+                setattr(fn, a, 0)
+            eng.run(3)
+            torch.cuda.synchronize()
+            counts = {a: getattr(fn, a) for a in counters}
+            mine_count = "ipc_bf16_launches" if prec == "bf16" \
+                else "ipc_launches"
+            check(counts[mine_count] == 3 * l * d
+                  and sum(counts.values()) == counts[mine_count],
+                  f"{tag}: 3 engine steps launched {counts}")
+            for s, b in enumerate(eng.blocks):
+                for c, k in enumerate(RING_FIELDS):
+                    check(torch.equal(getattr(b, k),
+                                      ref["engine"][first + s][c]),
+                          f"{tag}: shard {first + s}'s {k} after 3 steps "
+                          f"is not the one-process engine's")
+            res = {"p": nproc, "l": l, "prec": prec, "rank": rank,
+                   "w64": w64, "err": err, "ms": ms,
+                   "launches": counts[mine_count], "npad": sd.npad}
+            if (nproc, l) == RING_MAIN:
+                # the plain version across processes: the boundary slot
+                # through Mesh.ppermute (gloo), the sweeps in torch ops
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                pv = ring_ops.acc_ring_pipelined_plain(mesh, qs, gs, SOFT)
+                torch.cuda.synchronize()
+                res["plain_ms"] = (time.perf_counter() - t0) * 1e3
+                pv = torch.cat([torch.stack(list(a)) for a in pv], dim=1)
+                if prec == "fp32":
+                    res["plain_w"] = within_rel(pv, mine, 1e-5, 5e-6, rms)
+                else:   # bf16 out: phase 15's contract against the kernel
+                    res["plain_w"] = within_rel(
+                        sums.to(torch.bfloat16), pv, 1e-2, 1e-4)
+                check(res["plain_w"] <= 1.0,
+                      f"{tag}: the plain version across processes at "
+                      f"{res['plain_w']:.2f}x of its allowance")
+            out.append(res)
+            del eng, blocks, qs, gs, got, sums, ref, r64
+            torch.cuda.empty_cache()
+    print("RING_RESULT " + json.dumps(out), flush=True)
+    dist.destroy_process_group()
+    return 0
+
+
+def phase11_processes(dev, smi, ref11, time_ms, keep, n_main, tmp):
+    """Phase 11's ring across processes on this one card: time-sliced
+    contexts of 2 to 4 processes, not a link; the protocol is checked.
+
+    Writes the one-process references into ``tmp`` (K14's sums at D = 2,
+    3, 4 on one process, fp32 and bf16, and the one-process engine's blocks
+    after 3 steps; the float64 sweeps: phase 10's ``ref11`` and the bf16
+    galaxy's), then runs ``ring_worker`` in 2, 3 and 4 processes
+    (RING_LAYOUTS), each with a hard time limit; a worker that fails or
+    runs out fails the phase, and the others are killed.  Returns the
+    launches of the cross-process instances in the engine runs at
+    RING_MAIN, every process's."""
+    import torch
+
+    from murb_tpu_torch.core.init import init_galaxy
+    from murb_tpu_torch.models import create_engine
+    from murb_tpu_torch.ops import ring as ring_ops
+    from murb_tpu_torch.ops.tile import acc_tile_rect_plain
+    from murb_tpu_torch.parallel.mesh import make_mesh, shard_state
+
+    t_phase = time.perf_counter()
+    mode = subprocess.run(
+        ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader",
+         "-i", "0"], capture_output=True, text=True).stdout.strip()
+    print(f"[11 processes] compute mode {mode!r} (Default lets several "
+          f"processes share the card)")
+    work = os.path.join(tmp, "ring_processes")
+    os.makedirs(work, exist_ok=True)
+    bf16 = torch.bfloat16
+    ds = sorted({p * l for p, ls in RING_LAYOUTS for l in ls})
+    sb = init_galaxy(n_main, SEED, dtype=bf16, device=dev)
+    sb = max((sb.repad(256 * d) for d in ds), key=lambda s: s.npad)
+    check(ref11[0].shape[0] >= sb.npad, f"the float64 sweep has "
+          f"{ref11[0].shape[0]} rows, the layouts pad to {sb.npad}")
+    q = [v.double() for v in (sb.qx, sb.qy, sb.qz, gm_of(sb))]
+    parts = [acc_tile_rect_plain(*(v[i:i + 8192] for v in q[:3]), *q, SOFT)
+             for i in range(0, sb.npad, 8192)]
+    for prec, r in (("fp32", ref11), ("bf16", [
+            torch.cat([p[c] for p in parts]) for c in range(3)])):
+        torch.save(torch.stack(list(r)).cpu(),
+                   os.path.join(work, f"ref64_{prec}.pt"))
+    del sb, q, parts
+    one = {}
+    for d in ds:
+        for prec, dtype in (("fp32", torch.float32), ("bf16", bf16)):
+            st = init_galaxy(n_main, SEED, dtype=dtype, device=dev)
+            mesh = make_mesh(devices=[dev] * d)
+            blocks = shard_state(st.repad(256 * d), mesh)
+            qs = [(b.qx, b.qy, b.qz) for b in blocks]
+            gs = [gm_of(b) for b in blocks]
+            sums = ring_ops.ring_sums(mesh, qs, gs, SOFT)
+            one[d, prec] = time_ms(
+                lambda: ring_ops.ring_sums(mesh, qs, gs, SOFT), reps=3,
+                runs=3)
+            eng = create_engine("shard+ring", st, soft=SOFT, dt=DT,
+                                devices=[dev] * d)
+            eng.run(3)
+            torch.save({"sums": torch.stack(sums).cpu(),
+                        "engine": torch.stack([torch.stack(
+                            [getattr(b, k) for k in RING_FIELDS])
+                            for b in eng.blocks]).cpu()},
+                       os.path.join(work, f"ref_{d}_{prec}.pt"))
+            del eng, blocks, qs, gs, sums
+    with open(os.path.join(work, "spec.json"), "w") as f:
+        json.dump({"n": n_main}, f)
+    t_ref = time.perf_counter() - t_phase
+    env = {k: v for k, v in os.environ.items() if not k.startswith("MURB_")}
+    results = []
+    for nproc, ls in RING_LAYOUTS:
+        with socket.socket() as so:
+            so.bind(("localhost", 0))
+            port = so.getsockname()[1]
+        logs = [os.path.join(work, f"worker_{nproc}_{r}.log")
+                for r in range(nproc)]
+        procs = []
+        t1 = time.perf_counter()
+        try:
+            for r, log in enumerate(logs):
+                with open(log, "w") as f:
+                    procs.append(subprocess.Popen(
+                        [sys.executable, os.path.abspath(__file__),
+                         "--ring-worker", str(r), str(nproc), str(port),
+                         work], stdout=f, stderr=subprocess.STDOUT,
+                        env=env, cwd=ROOT))
+            # a hard limit for the group; one failure stops the others
+            deadline = time.monotonic() + 60 + 60 * len(ls)
+            while any(p.poll() is None for p in procs):
+                if time.monotonic() > deadline or any(
+                        p.poll() not in (None, 0) for p in procs):
+                    break
+                time.sleep(0.2)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+        texts = []
+        for log in logs:
+            with open(log) as f:
+                texts.append(f.read())
+        check(all(p.returncode == 0 for p in procs),
+              f"ring workers of {nproc} processes (killed at the time "
+              f"limit or after another failed):\n" + "\n".join(
+                  f"-- worker {r} exit {p.returncode}:\n{t[-2000:]}"
+                  for r, (p, t) in enumerate(zip(procs, texts))))
+        for r, text in enumerate(texts):
+            line = [x for x in text.splitlines()
+                    if x.startswith("RING_RESULT ")]
+            check(len(line) == 1, f"ring worker {r} of {nproc}: no result")
+            results += json.loads(line[0].split(" ", 1)[1])
+        print(f"[11 processes] {nproc} processes on cuda:0, layouts "
+              f"{nproc}x{ls}: {time.perf_counter() - t1:.1f} s with start-up")
+    launches = {}
+    for nproc, ls in RING_LAYOUTS:
+        for l in ls:
+            d = nproc * l
+            for prec in ("fp32", "bf16"):
+                rs = [r for r in results
+                      if (r["p"], r["l"], r["prec"]) == (nproc, l, prec)]
+                check(sorted(r["rank"] for r in rs) == list(range(nproc)),
+                      f"K14 across processes {nproc}x{l} {prec}: results "
+                      f"of ranks {[r['rank'] for r in rs]}")
+                nd = rs[0]["npad"]
+                err = max(r["err"] for r in rs)
+                ms = max(r["ms"] for r in rs)
+                n_launch = sum(r["launches"] for r in rs)
+                split = ring_ops.ring_split(
+                    nd // d, torch.cuda.get_device_properties(
+                        dev).multi_processor_count,
+                    ring_ops.cuda.resident(
+                        "murb_tile_resident"
+                        + ("_bf16" if prec == "bf16" else ""), dev), d)
+                note = ""
+                if (nproc, l) == RING_MAIN:
+                    plain = max(r["plain_ms"] for r in rs)
+                    name = "K14-ipc" + ("-bf16" if prec == "bf16" else "")
+                    b_ms = keep(name, err, ms, plain,
+                                (20 if prec == "bf16" else 28) * nd,
+                                20 * nd * nd)
+                    launches[name] = n_launch
+                    note = (f"; plain across processes {plain:.4f} ms at "
+                            f"{max(r['plain_w'] for r in rs):.4f} of its "
+                            f"allowance; bound {b_ms:.4f} ms")
+                print(f"[11 K14 across processes {nproc}x{l} {prec}] "
+                      f"N={nd}, D={d}, {split[0]} j slices a sweep: every "
+                      f"shard's sums bit for bit the one-process K14's at "
+                      f"D={d}, 3 calls each with no delay and with "
+                      f"{RING_DELAY_NS} ns in process 0, then in process "
+                      f"{nproc - 1} only; against float64 WithinRel 1e-5 "
+                      f"(rms floor 5e-6) at "
+                      f"{max(r['w64'] for r in rs):.4f}, max|da| {err:.3e};"
+                      f" 3 shard+ring steps bit for bit the one-process "
+                      f"engine's, {n_launch} launches (all processes); time "
+                      f"a call " + ", ".join(
+                          f"{r['ms']:.4f}" for r in sorted(
+                              rs, key=lambda r: r['rank']))
+                      + f" ms (by process) against one process at D={d} "
+                      f"{one[d, prec]:.4f} ms: time-sliced contexts on one "
+                      f"card, not a link{note} on {smi}")
+    print(f"[11 processes] references {t_ref:.1f} s, the phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2220,21 +2576,7 @@ def main() -> int:
                     "spill" in line and " 0 bytes spill" not in line):
                 print(f"[2 ptxas] {line.strip()}")
 
-    def time_ms(fn, reps: int = 10, runs: int = 5) -> float:
-        """Median over ``runs`` of the mean time of ``reps`` launches."""
-        fn()
-        torch.cuda.synchronize()
-        out = []
-        for _ in range(runs):
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            for _ in range(reps):
-                fn()
-            b.record()
-            torch.cuda.synchronize()
-            out.append(a.elapsed_time(b) / reps)
-        return statistics.median(out)
+    time_ms = event_ms
 
     def norm_rel(got, ref) -> float:
         """Max per-body force error over max(|a_ref|, 1e-6 max |a_ref|)
@@ -2244,17 +2586,6 @@ def main() -> int:
         rn = r.norm(dim=1)
         floor = torch.clamp(rn, min=1e-6 * float(rn.max()))
         return float(((g - r).norm(dim=1) / floor).max())
-
-    def within_rel(got, ref, eps: float, rms_floor: float) -> float:
-        """Catch2 WithinRel with an rms floor (tests/conftest.py); returns
-        the largest ratio of |a - b| to its allowance (<= 1 passes)."""
-        worst = 0.0
-        for g, r in zip(got, ref):
-            g, r = g.double(), r.double()
-            allow = (eps * torch.maximum(g.abs(), r.abs())
-                     + rms_floor * float(r.pow(2).mean().sqrt()) + 1e-300)
-            worst = max(worst, float(((g - r).abs() / allow).max()))
-        return worst
 
     record = {}
 
@@ -4023,7 +4354,12 @@ def main() -> int:
                 k14[d] = (err, ms, float(plain.split()[0]))
         if d == 4:
             keep("K14", *k14[4], 28 * nd, 20 * nd * nd)
-    del ref11, blocks, qs, gs, acc, got
+    del blocks, qs, gs, acc, got
+    torch.cuda.empty_cache()
+    # K14 across 2 to 4 processes on this card (CUDA IPC, flag words)
+    launches.update(phase11_processes(dev, smi, ref11, time_ms, keep,
+                                      n_main, tmpdir.name))
+    del ref11
     torch.cuda.empty_cache()
 
     # the main path through the CLI: --shards 1 is the mesh this card has,
@@ -4275,6 +4611,13 @@ def main() -> int:
                      "murb_tpu/ops/mxu.py:49"),
         "K14-bf16": ("ring_pipelined_bf16", "murb_tpu_torch/csrc/ring.cu",
                      "murb_tpu/ops/ring_pallas.py:50"),
+        # K14 across the processes of one host (phase 11): the same TPU
+        # kernel, whose RDMA and semaphores addressed devices of any process
+        "K14-ipc": ("ring_pipelined_ipc", "murb_tpu_torch/csrc/ring.cu",
+                    "murb_tpu/ops/ring_pallas.py:50"),
+        "K14-ipc-bf16": ("ring_pipelined_ipc_bf16",
+                         "murb_tpu_torch/csrc/ring.cu",
+                         "murb_tpu/ops/ring_pallas.py:50"),
     }
     kernels = [{"name": kname, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches[k], **record[k]}
@@ -4287,4 +4630,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--ring-worker"]:
+        sys.exit(ring_worker(int(sys.argv[2]), int(sys.argv[3]),
+                             sys.argv[4], sys.argv[5]))
     sys.exit(main())

@@ -53,6 +53,9 @@
 // ops/ring.slot_stride; the column past an odd n is never swept).  The
 // events, streams and edges are the fp32 ring's, and at D = 1 its sums are
 // K3's bf16 instance's bits.
+#include <cuda.h>
+
+#include <cstring>
 #include <vector>
 
 #include "tile.cuh"
@@ -218,4 +221,371 @@ extern "C" int murb_ring_pipelined_bf16(
       d, n, ld, qx, qy, qz, bufs, ax, ay, az, scratch, devices, origin,
       compute, copy, soft2, block_i, block_j, slices, tiles_per_slice,
       delay_ns);
+}
+
+// ---------------------------------------------------------------------------
+// K14 across the processes of one host: murb_ring_pipelined_ipc (fp32) and
+// murb_ring_pipelined_ipc_bf16.
+//
+// On the TPU the ring's slot RDMA and its three semaphores address logical
+// device ids, so one shard_map ring spans the processes of a multi-host
+// slice.  Here a mesh of P processes x L local shards (D = P L, global
+// shard p L + s) runs one ring, each process issuing only its own shards'
+// work: the sweeps on their compute streams and the copies on their copy
+// streams, K3's sweep as in the one-process ring.  Each local shard owns a
+// region made once by murb_ring_ipc_alloc (cudaMalloc, so that one
+// cudaIpcMemHandle_t describes it): three 32-bit flag words (recv,
+// capacity, send) at its head, then its two slots (2, 4, ld) at kFlagBytes.
+// A process maps two regions of its neighbours (cudaIpcOpenMemHandle): the
+// right process's first shard's, into whose slot (k + 1) % 2 its last
+// shard's copy writes, and the left process's last shard's.
+//
+// The edges are the one-process ring's.  Inside a process they stay CUDA
+// events.  The three that cross a process boundary become flag words in
+// the consumer's region, written by the producer's stream after the work
+// they guard (cuStreamWriteValue32, whose default puts a memory barrier
+// before the write: the copy's bytes land before the flag) and waited on by
+// the consumer's stream before the work they allow (cuStreamWaitValue32,
+// GEQ), both from the driver through cudaGetDriverEntryPoint:
+//   recv      (murb_tpu's recv_sem) the left process's last shard writes
+//             this process's first shard's recv flag after send(k); that
+//             shard's compute(k + 1) and send(k + 1) wait for it;
+//   capacity  (cap_sem) this process's first shard writes the left
+//             process's last shard's capacity flag after compute(k); that
+//             shard's send(k + 1) waits for it;
+//   send      (send_sem) this process's first shard writes the same
+//             shard's send flag after send(k), which read the slot that
+//             send(k + 1) overwrites.
+// Flag values are epochs that only grow, so nothing is ever reset: at call
+// c (``base`` = c D, passed in) the write after step k is base + k + 1 and
+// the wait before step k > 0 is base + k, above every value of an earlier
+// call, so no call passes on a stale flag.  The slots persist across calls:
+// at the start every local stream waits for every local origin, and at the
+// end the last shard's origin also waits until the right process's last
+// writes into this process have landed (capacity base + D, send base + D -
+// 1); the left process's all land before the first shard's compute(D - 1).
+// So after a call nothing moves into or out of this process's regions, and
+// a region can be freed once its process has synchronised.  Slot 0 is
+// packed from the shard's own block on its origin stream.  delay_ns keeps
+// its meaning: a __nanosleep kernel before every copy and every compute.
+//
+// What bounds it: the one-process ring's sweeps (D L sweeps of n_l^2 pairs
+// a process); a boundary copy is one cudaMemcpyAsync of 16 n_l bytes (8 ld
+// in bf16) into the mapped slot, over NVLink between cards or within the
+// card's memory when the processes share one.  Processes that share a card
+// without MPS run in time-sliced contexts, so their sweeps take turns
+// rather than overlap, and a stream blocked on a flag waits for the
+// producer's context to be scheduled.  A flag holds 32 bits: base + D must
+// stay below 2^32 (checked).
+// ---------------------------------------------------------------------------
+namespace murb {
+
+constexpr long long kFlagBytes = 256;  // the flags' head; slots start here
+enum RingFlag { kRecvFlag = 0, kCapacityFlag = 1, kSendFlag = 2 };
+// a driver-API failure returns kDriverError + its CUresult
+constexpr int kDriverError = 100000;
+
+using StreamValue32 = CUresult (*)(CUstream, CUdeviceptr, cuuint32_t,
+                                   unsigned int);
+
+struct StreamValueOps {
+  StreamValue32 wait = nullptr, write = nullptr;
+  int err = 0;
+};
+
+// cuStreamWaitValue32 and cuStreamWriteValue32 (CUDA 12's ABI), fetched
+// once through the runtime, so that the library links no libcuda itself
+const StreamValueOps& stream_value_ops() {
+  static const StreamValueOps ops = [] {
+    StreamValueOps o;
+    const char* names[2] = {"cuStreamWaitValue32", "cuStreamWriteValue32"};
+    StreamValue32* fns[2] = {&o.wait, &o.write};
+    for (int i = 0; i < 2 && o.err == 0; ++i) {
+      void* fn = nullptr;
+      cudaDriverEntryPointQueryResult found =
+          cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+      const cudaError_t e = cudaGetDriverEntryPointByVersion(
+          names[i], &fn, 12000, cudaEnableDefault, &found);
+#else
+      const cudaError_t e =
+          cudaGetDriverEntryPoint(names[i], &fn, cudaEnableDefault, &found);
+#endif
+      if (e != cudaSuccess)
+        o.err = static_cast<int>(e);
+      else if (found != cudaDriverEntryPointSuccess || fn == nullptr)
+        o.err = static_cast<int>(cudaErrorNotSupported);
+      else
+        *fns[i] = reinterpret_cast<StreamValue32>(fn);
+    }
+    return o;
+  }();
+  return ops;
+}
+
+inline CUdeviceptr flag_word(char* region, RingFlag f) {
+  return reinterpret_cast<CUdeviceptr>(region) +
+         sizeof(cuuint32_t) * static_cast<int>(f);
+}
+
+template <class TB>
+TB* region_slot(char* region, int slot, long long slot_values) {
+  return reinterpret_cast<TB*>(region + kFlagBytes) + slot * slot_values;
+}
+
+// The ring of this process's l shards (global p l + s, first = p l) in a
+// ring of d, body type TB; see the comment above.
+template <class TB>
+int ring_pipelined_ipc(int l, int d, int first, int n, int ld,
+                       TB* const* qx, TB* const* qy, TB* const* qz,
+                       TB* const* gm, float* const* ax, float* const* ay,
+                       float* const* az, float* const* scratch,
+                       const int* devices, const cudaStream_t* origin,
+                       const cudaStream_t* compute, const cudaStream_t* copy,
+                       char* const* regions, char* left_last,
+                       char* right_first, long long base, float soft2,
+                       int block_i, int block_j, int slices,
+                       int tiles_per_slice, long long delay_ns) {
+  if (l <= 0 || n <= 0 || ld < n || d < 2 * l || d % l || first % l ||
+      first < 0 || first + l > d || base < 0 ||
+      base + d > 0xffffffffLL || !left_last || !right_first)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const StreamValueOps& ops = stream_value_ops();
+  if (ops.err) return ops.err;
+  int err = 0;
+  auto driver = [&](CUresult r) {
+    if (r != CUDA_SUCCESS && err == 0) err = kDriverError + static_cast<int>(r);
+  };
+  auto wait_flag = [&](cudaStream_t st, char* region, RingFlag f,
+                       long long v) {
+    driver(ops.wait(st, flag_word(region, f), static_cast<cuuint32_t>(v),
+                    CU_STREAM_WAIT_VALUE_GEQ));
+  };
+  auto write_flag = [&](cudaStream_t st, char* region, RingFlag f,
+                        long long v) {
+    driver(ops.write(st, flag_word(region, f), static_cast<cuuint32_t>(v),
+                     CU_STREAM_WRITE_VALUE_DEFAULT));
+  };
+  int prev = 0;
+  MURB_RING_TRY(cudaGetDevice(&prev));
+  const long long slot = 4LL * ld;  // values a slot
+  const size_t slot_bytes = sizeof(TB) * static_cast<size_t>(slot);
+  std::vector<cudaEvent_t> start(l), comp(l * d), sent(l * d), done(2 * l);
+  TB* const* rows[4] = {qx, qy, qz, gm};
+  for (int s = 0; s < l; ++s) {
+    MURB_RING_TRY(cudaSetDevice(devices[s]));
+    const unsigned flags = cudaEventDisableTiming;
+    MURB_RING_TRY(cudaEventCreateWithFlags(&start[s], flags));
+    MURB_RING_TRY(cudaEventCreateWithFlags(&done[2 * s], flags));
+    MURB_RING_TRY(cudaEventCreateWithFlags(&done[2 * s + 1], flags));
+    for (int k = 0; k < d; ++k) {
+      MURB_RING_TRY(cudaEventCreateWithFlags(&comp[s * d + k], flags));
+      MURB_RING_TRY(cudaEventCreateWithFlags(&sent[s * d + k], flags));
+    }
+    // slot 0: the shard's own block {x, y, z, G*m}, one row each
+    TB* slot0 = region_slot<TB>(regions[s], 0, slot);
+    for (int c = 0; c < 4; ++c)
+      MURB_RING_TRY(cudaMemcpyAsync(slot0 + c * static_cast<long long>(ld),
+                                    rows[c][s], sizeof(TB) * n,
+                                    cudaMemcpyDeviceToDevice, origin[s]));
+    MURB_RING_TRY(cudaEventRecord(start[s], origin[s]));
+  }
+  // the slots persist across calls: every local stream starts after every
+  // local origin, which waited for the whole of the previous call
+  for (int s = 0; s < l; ++s) {
+    MURB_RING_TRY(cudaSetDevice(devices[s]));
+    for (int t = 0; t < l; ++t) {
+      MURB_RING_TRY(cudaStreamWaitEvent(compute[s], start[t], 0));
+      MURB_RING_TRY(cudaStreamWaitEvent(copy[s], start[t], 0));
+    }
+  }
+  auto delay = [&](cudaStream_t st) {
+    if (delay_ns > 0) {
+      ring_delay_kernel<<<1, 32, 0, st>>>(
+          static_cast<unsigned long long>(delay_ns));
+      MURB_RING_TRY(cudaGetLastError());
+    }
+  };
+  const int last = l - 1;
+  for (int k = 0; k < d && !err; ++k) {
+    for (int s = 0; s < l; ++s) {  // compute(s, k)
+      MURB_RING_TRY(cudaSetDevice(devices[s]));
+      if (k > 0) {  // recv: block k has arrived
+        if (s > 0)
+          MURB_RING_TRY(cudaStreamWaitEvent(compute[s],
+                                            sent[(s - 1) * d + k - 1], 0));
+        else
+          wait_flag(compute[0], regions[0], kRecvFlag, base + k);
+      }
+      delay(compute[s]);
+      const TB* src = region_slot<TB>(regions[s], k % 2, slot);
+      const int st = tile_rect_launch(
+          qx[s], qy[s], qz[s], n, src, src + ld, src + 2LL * ld,
+          src + 3LL * ld, n, soft2, block_i, block_j, slices,
+          tiles_per_slice, scratch[s], k > 0, ax[s], ay[s], az[s],
+          compute[s]);
+      if (st && err == 0) err = st;
+      MURB_RING_TRY(cudaEventRecord(comp[s * d + k], compute[s]));
+      if (s == 0)  // capacity: the left process may overwrite our slot
+        write_flag(compute[0], left_last, kCapacityFlag, base + k + 1);
+    }
+    if (k == d - 1) break;
+    for (int s = 0; s < l; ++s) {  // send(s, k)
+      MURB_RING_TRY(cudaSetDevice(devices[s]));
+      if (k > 0) {
+        // recv: our slot k % 2 holds block k
+        if (s > 0)
+          MURB_RING_TRY(cudaStreamWaitEvent(copy[s],
+                                            sent[(s - 1) * d + k - 1], 0));
+        else
+          wait_flag(copy[0], regions[0], kRecvFlag, base + k);
+        // capacity and send: the right neighbour finished reading its
+        // slot (k + 1) % 2, and its own send out of that slot drained
+        if (s < last) {
+          MURB_RING_TRY(cudaStreamWaitEvent(copy[s],
+                                            comp[(s + 1) * d + k - 1], 0));
+          MURB_RING_TRY(cudaStreamWaitEvent(copy[s],
+                                            sent[(s + 1) * d + k - 1], 0));
+        } else {
+          wait_flag(copy[s], regions[s], kCapacityFlag, base + k);
+          wait_flag(copy[s], regions[s], kSendFlag, base + k);
+        }
+      }
+      delay(copy[s]);
+      const TB* src = region_slot<TB>(regions[s], k % 2, slot);
+      TB* dst = region_slot<TB>(s < last ? regions[s + 1] : right_first,
+                                (k + 1) % 2, slot);
+      MURB_RING_TRY(cudaMemcpyAsync(dst, src, slot_bytes, cudaMemcpyDefault,
+                                    copy[s]));
+      MURB_RING_TRY(cudaEventRecord(sent[s * d + k], copy[s]));
+      if (s == last)  // recv: the block reached the right process
+        write_flag(copy[s], right_first, kRecvFlag, base + k + 1);
+      if (s == 0)     // send: our slot k % 2 may be overwritten
+        write_flag(copy[0], left_last, kSendFlag, base + k + 1);
+    }
+  }
+  for (int s = 0; s < l; ++s) {  // the origin waits for the whole ring
+    MURB_RING_TRY(cudaSetDevice(devices[s]));
+    MURB_RING_TRY(cudaEventRecord(done[2 * s], compute[s]));
+    MURB_RING_TRY(cudaEventRecord(done[2 * s + 1], copy[s]));
+    MURB_RING_TRY(cudaStreamWaitEvent(origin[s], done[2 * s], 0));
+    MURB_RING_TRY(cudaStreamWaitEvent(origin[s], done[2 * s + 1], 0));
+  }
+  // and for the right process's last writes into this process's regions
+  // (not after a failure: those flags may never come)
+  if (!err) {
+    MURB_RING_TRY(cudaSetDevice(devices[last]));
+    wait_flag(origin[last], regions[last], kCapacityFlag, base + d);
+    wait_flag(origin[last], regions[last], kSendFlag, base + d - 1);
+  }
+  for (auto* v : {&start, &comp, &sent, &done})
+    for (cudaEvent_t e : *v)
+      if (e) cudaEventDestroy(e);
+  cudaSetDevice(prev);
+  return err;
+}
+
+}  // namespace murb
+
+// One shard's region on ``device``: kFlagBytes of flags (zeroed) and two
+// slots of 4 rows of ``ld`` values of ``value_bytes`` bytes (zeroed), from
+// cudaMalloc; its pointer in *region and its cudaIpcMemHandle_t (64 bytes)
+// in ``handle``.  Synchronises the device.
+extern "C" int murb_ring_ipc_alloc(int device, int ld, int value_bytes,
+                                   void** region, void* handle) {
+  if (ld <= 0 || value_bytes <= 0 || !region || !handle)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int err = 0, prev = 0;
+  MURB_RING_TRY(cudaGetDevice(&prev));
+  MURB_RING_TRY(cudaSetDevice(device));
+  const size_t bytes = murb::kFlagBytes + 8ULL * ld * value_bytes;
+  *region = nullptr;
+  MURB_RING_TRY(cudaMalloc(region, bytes));
+  if (!err) MURB_RING_TRY(cudaMemset(*region, 0, bytes));
+  if (!err) MURB_RING_TRY(cudaDeviceSynchronize());
+  if (!err)
+    MURB_RING_TRY(cudaIpcGetMemHandle(
+        static_cast<cudaIpcMemHandle_t*>(handle), *region));
+  if (err && *region) {
+    cudaFree(*region);
+    *region = nullptr;
+  }
+  cudaSetDevice(prev);
+  return err;
+}
+
+// Maps another process's region (its 64-byte handle) into this process on
+// ``device``; the pointer in *region.
+extern "C" int murb_ring_ipc_open(int device, const void* handle,
+                                  void** region) {
+  if (!handle || !region) return static_cast<int>(cudaErrorInvalidValue);
+  int err = 0, prev = 0;
+  MURB_RING_TRY(cudaGetDevice(&prev));
+  MURB_RING_TRY(cudaSetDevice(device));
+  cudaIpcMemHandle_t h;
+  memcpy(&h, handle, sizeof(h));
+  *region = nullptr;
+  if (!err)
+    MURB_RING_TRY(
+        cudaIpcOpenMemHandle(region, h, cudaIpcMemLazyEnablePeerAccess));
+  cudaSetDevice(prev);
+  return err;
+}
+
+// Unmaps a region that murb_ring_ipc_open mapped (``opened`` 1) or frees
+// one of this process's own (``opened`` 0), on ``device``.
+extern "C" int murb_ring_ipc_release(int device, void* region, int opened) {
+  int err = 0, prev = 0;
+  MURB_RING_TRY(cudaGetDevice(&prev));
+  MURB_RING_TRY(cudaSetDevice(device));
+  MURB_RING_TRY(opened ? cudaIpcCloseMemHandle(region) : cudaFree(region));
+  cudaSetDevice(prev);
+  return err;
+}
+
+// The PCI bus id of ``device`` ("0000:1b:00.0"), NUL-terminated in
+// ``out`` of ``len`` bytes: which shards of the processes share a card.
+extern "C" int murb_ring_ipc_bus_id(int device, char* out, int len) {
+  return static_cast<int>(cudaDeviceGetPCIBusId(out, len, device));
+}
+
+// This process's l shards of a d-shard ring across processes (first: the
+// global index of local shard 0).  Host arrays of l entries: qx/qy/qz and
+// gm (each shard's block, float32 (n,), G included: the targets and slot
+// 0's contents), ax/ay/az, scratch, devices and the origin, compute and
+// copy streams, as murb_ring_pipelined's; regions (this process's, from
+// murb_ring_ipc_alloc with ld = n); left_last and right_first: the left
+// process's last shard's region and the right process's first shard's,
+// mapped by murb_ring_ipc_open; base: the call's epoch, its index times d.
+extern "C" int murb_ring_pipelined_ipc(
+    int l, int d, int first, int n, float* const* qx, float* const* qy,
+    float* const* qz, float* const* gm, float* const* ax, float* const* ay,
+    float* const* az, float* const* scratch, const int* devices,
+    const cudaStream_t* origin, const cudaStream_t* compute,
+    const cudaStream_t* copy, char* const* regions, char* left_last,
+    char* right_first, long long base, float soft2, int block_i,
+    int block_j, int slices, int tiles_per_slice, long long delay_ns) {
+  return murb::ring_pipelined_ipc<float>(
+      l, d, first, n, n, qx, qy, qz, gm, ax, ay, az, scratch, devices,
+      origin, compute, copy, regions, left_last, right_first, base, soft2,
+      block_i, block_j, slices, tiles_per_slice, delay_ns);
+}
+
+// The bf16 ring across processes: murb_ring_pipelined_ipc's arguments with
+// ld (even, at least n, the same in every process) after n, the blocks
+// bf16 and every region made with this ld and 2-byte values.
+extern "C" int murb_ring_pipelined_ipc_bf16(
+    int l, int d, int first, int n, int ld, __nv_bfloat16* const* qx,
+    __nv_bfloat16* const* qy, __nv_bfloat16* const* qz,
+    __nv_bfloat16* const* gm, float* const* ax, float* const* ay,
+    float* const* az, float* const* scratch, const int* devices,
+    const cudaStream_t* origin, const cudaStream_t* compute,
+    const cudaStream_t* copy, char* const* regions, char* left_last,
+    char* right_first, long long base, float soft2, int block_i,
+    int block_j, int slices, int tiles_per_slice, long long delay_ns) {
+  if (ld % 2) return static_cast<int>(cudaErrorInvalidValue);
+  return murb::ring_pipelined_ipc<__nv_bfloat16>(
+      l, d, first, n, ld, qx, qy, qz, gm, ax, ay, az, scratch, devices,
+      origin, compute, copy, regions, left_last, right_first, base, soft2,
+      block_i, block_j, slices, tiles_per_slice, delay_ns);
 }

@@ -124,6 +124,21 @@ _SIGNATURES = {
     # the bf16 ring: ld (the values between two slot rows) after n
     "murb_ring_pipelined_bf16": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                                  _P, _P, _P, _P, _F, _I, _I, _I, _I, _L],
+    # the ring across processes: l, d, first, n, host arrays of l pointers
+    # (qx, qy, qz, gm, ax, ay, az, scratch), l device ids, l origin,
+    # compute and copy streams, l regions, the two mapped neighbour
+    # regions, the call's epoch; the bf16 instance's ld after n
+    "murb_ring_pipelined_ipc": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
+                                _P, _P, _P, _P, _P, _P, _P, _P, _L, _F, _I,
+                                _I, _I, _I, _L],
+    "murb_ring_pipelined_ipc_bf16": [_I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+                                     _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                     _L, _F, _I, _I, _I, _I, _L],
+    # its regions: made and exported, mapped, released; a card's bus id
+    "murb_ring_ipc_alloc": [_I, _I, _I, _P, _P],
+    "murb_ring_ipc_open": [_I, _P, _P],
+    "murb_ring_ipc_release": [_I, _P, _I],
+    "murb_ring_ipc_bus_id": [_I, _P, _I],
 }
 
 

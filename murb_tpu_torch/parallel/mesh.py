@@ -14,11 +14,15 @@ card and on several.
 Across processes (``maybe_init_distributed``) the global mesh is processes
 x local shards, in process order: a collective first combines the local
 list, then calls ``torch.distributed`` (gloo for CPU shards, NCCL for CUDA
-shards), and hands the result back to every local shard.
+shards, or gloo for CUDA shards when asked, as processes that share one
+card need), and hands the result back to every local shard.  The host
+exchange (``Mesh.all_gather_object``, ``Mesh.hosts``) tells the pipelined
+ring (ops/ring.py) whether every process is on this host.
 """
 from __future__ import annotations
 
 import os
+import socket
 
 import torch
 import torch.distributed as dist
@@ -50,6 +54,7 @@ class Mesh:
             raise ValueError("a mesh needs at least one device")
         self.process_index = int(process_index)
         self.process_count = int(process_count)
+        self._hosts = None
 
     @property
     def local_size(self) -> int:
@@ -71,6 +76,31 @@ class Mesh:
     def axis_index(self, k: int) -> int:
         """Global index of local shard ``k`` (``lax.axis_index``)."""
         return self.process_index * self.local_size + k
+
+    # ------------------------------------------------------ host exchange
+    def all_gather_object(self, obj) -> list:
+        """Every process's ``obj`` (picklable), in process order: one
+        ``torch.distributed.all_gather_object``, which gloo and NCCL both
+        run; ``[obj]`` on one process."""
+        if not self.distributed:
+            return [obj]
+        out = [None] * self.process_count
+        dist.all_gather_object(out, obj)
+        return out
+
+    @property
+    def hosts(self) -> list[str]:
+        """Each process's host name (``host_name``), in process order,
+        exchanged once a mesh (every process must ask, as for any
+        collective)."""
+        if self._hosts is None:
+            self._hosts = self.all_gather_object(host_name())
+        return self._hosts
+
+    @property
+    def single_host(self) -> bool:
+        """Whether every process of the mesh runs on this host."""
+        return len(set(self.hosts)) == 1
 
     # ---------------------------------------------------------- collectives
     def _scatter(self, t: torch.Tensor) -> list[torch.Tensor]:
@@ -121,6 +151,11 @@ class Mesh:
         moved = [incoming] + list(blocks[:-1])
         return [b.to(d, non_blocking=True)
                 for b, d in zip(moved, self.devices)]
+
+
+def host_name() -> str:
+    """This process's host, as the mesh's host exchange reports it."""
+    return socket.gethostname()
 
 
 def make_mesh(shards: int = 0, *, device="cuda", devices=None) -> Mesh:
@@ -186,13 +221,15 @@ def gather_state(blocks, mesh: Mesh, n: int, padding: int) -> BodyState:
                         for k in FIELDS}, n=n, padding=padding)
 
 
-def maybe_init_distributed(device="cuda") -> bool:
+def maybe_init_distributed(device="cuda", backend: str | None = None) -> bool:
     """Multi-process bring-up: initialise ``torch.distributed`` when the
     environment names a coordinator (the variables murb_tpu reads):
     ``MURB_COORDINATOR`` (host:port), ``MURB_NUM_PROCESSES`` and
     ``MURB_PROCESS_ID``.  gloo for CPU shards (``device="cpu"``), NCCL for
-    CUDA shards (the default); CUDA with no card raises and starts nothing.
-    Returns True if the runtime is up."""
+    CUDA shards (the default); ``backend="gloo"`` with CUDA shards lets
+    several processes share one card (NCCL refuses two ranks on one
+    device); CUDA with no card raises and starts nothing.  Returns True if
+    the runtime is up."""
     coord = os.environ.get("MURB_COORDINATOR")
     if not coord:
         return False
@@ -210,6 +247,7 @@ def maybe_init_distributed(device="cuda") -> bool:
     # then aborted at exit ("terminate called without an active
     # exception") after destroy_process_group, under load
     dist.init_process_group(
-        "nccl" if cuda else "gloo", init_method=f"tcp://{coord}?use_libuv=0",
+        backend or ("nccl" if cuda else "gloo"),
+        init_method=f"tcp://{coord}?use_libuv=0",
         world_size=int(os.environ.get("MURB_NUM_PROCESSES", "1")), rank=rank)
     return True

@@ -13,8 +13,13 @@ each line runs for every shard in turn, and the collectives of
     mesh.  ``ring_impl="ppermute"`` alternates a rectangular sweep and a
     ``ppermute``; ``"pipelined"`` runs the whole D-step ring through
     kernel K14 (``ops/ring.py``), each slot copy hidden behind the next
-    step's sweep.  ``"auto"`` takes the pipelined ring when every shard is
-    a CUDA device of one process.
+    step's sweep, within one process or across the processes of one host
+    (K14's cross-process instance: slot copies and flag words over CUDA
+    IPC; several processes may share one card, each with a gloo group and
+    an explicit device list, ``ops/ring.py``).  ``"auto"``
+    (``auto_ring_impl``) takes the pipelined ring when every shard is a
+    CUDA device and every process runs on this host; across hosts the
+    ppermute ring.
   * ``proxy`` / ``fmm`` -- the far field by one global Chebyshev expansion
     (K1/K2) or the L-level hierarchy (K8, K7, K9): local P2M, one ``psum``
     of the expansions (independent of N), the node sweeps redundantly on
@@ -56,6 +61,16 @@ def _default_kernel(mesh) -> str:
     """K4's wrapper (passes 2) on CUDA shards, the plain broadcast on CPU
     shards."""
     return "hybrid" if mesh.all_cuda else "jnp"
+
+
+def auto_ring_impl(mesh) -> str:
+    """``ring_impl="auto"``: K14's pipelined ring on an all-CUDA mesh whose
+    processes share this host (murb_tpu's TPU default,
+    murb_tpu/parallel/shard_engine.py:254-258), the ppermute ring on CPU
+    shards and across hosts (the host exchange is made only for an
+    all-CUDA mesh)."""
+    return ("pipelined" if mesh.all_cuda and mesh.single_host
+            else "ppermute")
 
 
 def _rect_kernel(name: str, block_i: int, block_j: int):
@@ -145,8 +160,7 @@ class ShardedEngine(SimulationEngine):
         self.block_i, self.block_j = int(block_i), int(block_j)
         self.tuned = None                 # the sweeps' blocks are given
         if ring_impl == "auto":
-            ring_impl = ("pipelined" if self.mesh.all_cuda
-                         and not self.mesh.distributed else "ppermute")
+            ring_impl = auto_ring_impl(self.mesh)
         if ring_impl not in ("pipelined", "ppermute"):
             raise ValueError(f"unknown ring_impl {ring_impl!r}")
         self.ring_impl = ring_impl
