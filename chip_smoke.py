@@ -115,8 +115,20 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      of float64, then ``shard+ring`` for 3 steps (bit for bit the
      one-process engine), the time a call beside the one-process time
      (time-sliced contexts on one card, not a link), the plain version
-     across processes at 2x2; a worker that fails or outlives its limit
-     fails the run;
+     across processes at 2x2; and K14 across hosts (its cross-host
+     instance: the boundary slot staged through pinned host memory and
+     sent by agent threads on a gloo side group, loopback TCP standing for
+     the network): 2 and 4 worker processes placed on 2 and 4 hosts at 2
+     hosts x 1 x 1, 2 hosts x 1 x 2, 2 hosts x 2 x 1 (IPC inside a host,
+     staged between) and 4 hosts x 1 x 1, fp32 and bf16, 3 calls each with
+     no delay, with 5 us in process 0, then in the last, and with 1 ms
+     before every send of the last process's agent, every shard bit for bit
+     the one-process K14 at D = P L, WithinRel 1e-5 of float64, 3
+     ``shard+ring`` steps (auto) bit for bit with the cross-host instance's
+     launches counted, the time a call beside the IPC ring's at the same P
+     x L (at 2 hosts x 1 x 2 in turns with it, on the same processes), the
+     plain version across 2 hosts at 2 shards a process; a worker that
+     fails or outlives its limit fails the run;
  12. the differentiable rollouts (murb_tpu_torch.diff), which launch no
      kernel (every count stays 0 across the phase): the exact adjoint
      (chunked, 16,384 random bodies, float64, 5 Euler steps, remat) against
@@ -198,7 +210,8 @@ bf16 instance from phase 15's), K10-K12's bf16 instances from phase 15's
 from its bf16 merger through ``create_engine``, 4-shard ``shard+ring``
 and ``tpu+mxu`` runs (each with no launch of the fp32 instance), K14's
 cross-process instances from the workers' 3-step ``shard+ring`` runs at
-2x2 (every process's count, zeroed just before the run).  Every kernel
+2x2 and its cross-host instances from those at 2 hosts x 1 x 2 (every
+process's count, zeroed just before the run).  Every kernel
 must have launched in its piece.  The line before the last is the kernels' JSON
 record (with each kernel's bound: the larger of its bytes over 3.35 TB/s
 and its operations over the 67 TFLOP/s fp32 peak of an H100 SXM; K5's and
@@ -2205,39 +2218,64 @@ def event_ms(fn, reps: int = 10, runs: int = 5) -> float:
     return statistics.median(out)
 
 
-#: phase 11's rings across processes: (processes, local shards of each run)
-RING_LAYOUTS = ((2, (1, 2)), (3, (1,)), (4, (1,)))
-#: the layout whose engine run and timing go to the kernels line
-RING_MAIN = (2, 2)
+#: phase 11's rings across processes: (processes, their hosts, local shards
+#: of each run); hosts None: every process on this machine's own host (CUDA
+#: IPC between them), else one placed host a process (make_mesh(host=...)):
+#: processes on different hosts exchange their boundary slot through
+#: pinned host memory and a gloo side group, loopback TCP standing for the
+#: network between hosts.  One group of worker processes runs every layout
+#: of its process count, in this order
+RING_LAYOUTS = ((2, None, (1, 2)), (3, None, (1,)), (4, None, (1,)),
+                (2, ("h0", "h1"), (1, 2)), (4, ("h0", "h0", "h1", "h1"), (1,)),
+                (4, ("h0", "h1", "h2", "h3"), (1,)))
+#: the layouts whose engine run, timing and plain version go to the kernels
+#: line: processes of one host (K14-ipc), processes on two hosts
+#: (K14-hosts)
+RING_MAIN = (2, None, 2)
+RING_HOSTS_MAIN = (2, ("h0", "h1"), 2)
 RING_DELAY_NS = 5000
+#: the sleep before every send of one agent (a ring across hosts)
+RING_HOST_DELAY_NS = 1_000_000
 RING_FIELDS = ("qx", "qy", "qz", "vx", "vy", "vz")
+
+
+def ring_layout_name(nproc: int, hosts, l: int) -> str:
+    """``2x2`` for 2 processes of one host, 2 shards each; ``2 hosts x 2 x
+    1`` for 4 processes on 2 hosts, 1 shard each."""
+    if hosts is None:
+        return f"{nproc}x{l}"
+    return f"{len(set(hosts))} hosts x {nproc // len(set(hosts))} x {l}"
 
 
 def ring_worker(rank: int, nproc: int, port: str, work: str) -> int:
     """One process of phase 11's ring across processes
     (``chip_smoke.py --ring-worker RANK NPROC PORT DIR``): a gloo group of
     ``nproc`` processes on cuda:0 (an explicit device list), and for each
-    of its layouts and for fp32 and bf16 on the 200k galaxy: K14's
-    cross-process instance 3 times in a row with no delay, with a 5 us
-    delay in process 0 only, then in the last process only, every call's
-    sums bit for bit the one-process K14's at D = P L (``DIR/ref_*``), the
-    last within WithinRel 1e-5 (rms floor 5e-6) of the float64 sweep; the
-    time a call; ``shard+ring`` for 3 steps through ``create_engine``
-    (auto must take the pipelined ring), its launches counted and its
-    blocks bit for bit the one-process engine's; at RING_MAIN the plain
-    version across processes once.  Prints one ``RING_RESULT`` JSON line;
-    any failure raises (a non-zero exit)."""
+    of its layouts (on this machine's host, or this process placed on its
+    host of the layout) and for fp32 and bf16 on the 200k galaxy: K14's
+    cross-process instance (one host) or cross-host instance 3 times in a
+    row with no delay, with a 5 us delay in process 0 only, then in the
+    last process only, and across hosts with a 1 ms
+    sleep before every send of the last process's agent, every call's sums
+    bit for bit the one-process K14's at D = P L (``DIR/ref_*``), the last
+    within WithinRel 1e-5 (rms floor 5e-6) of the float64 sweep; the time a
+    call; ``shard+ring`` for 3 steps through ``create_engine`` (auto must
+    take the pipelined ring), its launches counted and its blocks bit for
+    bit the one-process engine's; at RING_MAIN and RING_HOSTS_MAIN the
+    plain version across processes once, and at RING_HOSTS_MAIN the time
+    a call in turns with the IPC ring of the same processes and blocks
+    placed on one host.  Prints one ``RING_RESULT`` JSON line; any
+    failure raises (a non-zero exit)."""
     os.environ.update(MURB_COORDINATOR=f"localhost:{port}",
                       MURB_NUM_PROCESSES=str(nproc),
                       MURB_PROCESS_ID=str(rank))
     import torch
-    import torch.distributed as dist
 
     sys.path.insert(0, ROOT)
     from murb_tpu_torch.core.init import init_galaxy
     from murb_tpu_torch.models import create_engine
     from murb_tpu_torch.ops import ring as ring_ops
-    from murb_tpu_torch.parallel.mesh import (make_mesh,
+    from murb_tpu_torch.parallel.mesh import (destroy_distributed, make_mesh,
                                               maybe_init_distributed,
                                               shard_state)
 
@@ -2248,92 +2286,117 @@ def ring_worker(rank: int, nproc: int, port: str, work: str) -> int:
     dev = torch.device("cuda", 0)
     fn = ring_ops.acc_ring_pipelined
     counters = ("launches", "bf16_launches", "ipc_launches",
-                "ipc_bf16_launches")
+                "ipc_bf16_launches", "hosts_launches", "hosts_bf16_launches")
     out = []
-    for l in dict(RING_LAYOUTS)[nproc]:
-        d = nproc * l
-        for prec, dtype in (("fp32", torch.float32),
-                            ("bf16", torch.bfloat16)):
-            tag = f"K14 across processes {nproc}x{l} {prec} rank {rank}"
-            ref = torch.load(os.path.join(work, f"ref_{d}_{prec}.pt"),
-                             map_location=dev)
-            st = init_galaxy(spec["n"], SEED, dtype=dtype, device=dev)
-            mesh = make_mesh(devices=[dev] * l)
-            check(mesh.size == d and mesh.single_host,
-                  f"{tag}: a mesh of {mesh.size} shards on {mesh.hosts}")
-            sd = st.repad(256 * d)
-            blocks = shard_state(sd, mesh)
-            qs = [(b.qx, b.qy, b.qz) for b in blocks]
-            gs = [gm_of(b) for b in blocks]
-            first, nl = mesh.axis_index(0), sd.npad // d
-            for delayed in (None, 0, nproc - 1):
-                delay = RING_DELAY_NS if rank == delayed else 0
-                for call in range(3):
-                    got = ring_ops.ring_sums(mesh, qs, gs, SOFT,
-                                             delay_ns=delay)
+    for (_, hosts, ls) in [x for x in RING_LAYOUTS if x[0] == nproc]:
+        host = hosts[rank] if hosts else None
+        # (device delay in process, host delay in process) of each group of
+        # calls
+        delays = [(None, None), (0, None), (nproc - 1, None)]
+        if hosts:
+            delays.append((None, nproc - 1))
+        for l in ls:
+            d = nproc * l
+            lay = ring_layout_name(nproc, hosts, l)
+            for prec, dtype in (("fp32", torch.float32),
+                                ("bf16", torch.bfloat16)):
+                tag = f"K14 across processes {lay} {prec} rank {rank}"
+                ref = torch.load(os.path.join(work, f"ref_{d}_{prec}.pt"),
+                                 map_location=dev)
+                st = init_galaxy(spec["n"], SEED, dtype=dtype, device=dev)
+                mesh = make_mesh(devices=[dev] * l, host=host)
+                check(mesh.size == d and mesh.single_host == (hosts is None)
+                      and (hosts is None or tuple(mesh.hosts) == hosts),
+                      f"{tag}: a mesh of {mesh.size} shards on {mesh.hosts}")
+                sd = st.repad(256 * d)
+                blocks = shard_state(sd, mesh)
+                qs = [(b.qx, b.qy, b.qz) for b in blocks]
+                gs = [gm_of(b) for b in blocks]
+                first, nl = mesh.axis_index(0), sd.npad // d
+                for dev_at, host_at in delays:
+                    delay = RING_DELAY_NS if rank == dev_at else 0
+                    h_delay = RING_HOST_DELAY_NS if rank == host_at else 0
+                    for call in range(3):
+                        got = ring_ops.ring_sums(mesh, qs, gs, SOFT,
+                                                 delay_ns=delay,
+                                                 host_delay_ns=h_delay)
+                        torch.cuda.synchronize()
+                        for s, g in enumerate(got):
+                            check(torch.equal(g, ref["sums"][first + s]),
+                                  f"{tag}: shard {first + s}, call {call} "
+                                  f"with the device delay in process "
+                                  f"{dev_at}, the host delay in process "
+                                  f"{host_at}: not the one-process K14's "
+                                  f"bits at D={d}")
+                r64 = torch.load(os.path.join(work, f"ref64_{prec}.pt"),
+                                 map_location=dev)[:, :sd.npad]
+                rms = [float(v.pow(2).mean().sqrt()) for v in r64]
+                mine = r64[:, first * nl:(first + l) * nl]
+                sums = torch.cat(got, dim=1)
+                w64 = within_rel(sums, mine, 1e-5, 5e-6, rms)
+                check(w64 <= 1.0, f"{tag}: WithinRel 1e-5 (rms floor 5e-6) "
+                                  f"against float64 exceeded by {w64:.2f}x")
+                err = float((sums.double() - mine).abs().max())
+                ms = event_ms(lambda: ring_ops.ring_sums(mesh, qs, gs, SOFT),
+                              reps=3, runs=3)
+                eng = create_engine("shard+ring", st, soft=SOFT, dt=DT,
+                                    devices=[dev] * l, host=host)
+                check(eng.ring_impl == "pipelined" and eng.n_shards == d,
+                      f"{tag}: shard+ring took {eng.ring_impl} on "
+                      f"{eng.n_shards} shards")
+                for a in counters:
+                    setattr(fn, a, 0)
+                eng.run(3)
+                torch.cuda.synchronize()
+                counts = {a: getattr(fn, a) for a in counters}
+                mine_count = ("hosts" if hosts else "ipc") + (
+                    "_bf16_launches" if prec == "bf16" else "_launches")
+                check(counts[mine_count] == 3 * l * d
+                      and sum(counts.values()) == counts[mine_count],
+                      f"{tag}: 3 engine steps launched {counts}")
+                for s, b in enumerate(eng.blocks):
+                    for c, k in enumerate(RING_FIELDS):
+                        check(torch.equal(getattr(b, k),
+                                          ref["engine"][first + s][c]),
+                              f"{tag}: shard {first + s}'s {k} after 3 "
+                              f"steps is not the one-process engine's")
+                res = {"p": nproc, "hosts": hosts, "l": l, "prec": prec,
+                       "rank": rank, "w64": w64, "err": err, "ms": ms,
+                       "launches": counts[mine_count], "npad": sd.npad}
+                if (nproc, hosts, l) in (RING_MAIN, RING_HOSTS_MAIN):
+                    # the plain version across processes: the boundary
+                    # slot through Mesh.ppermute (one host) or the staged
+                    # ends and agents (across hosts), gloo, the sweeps in
+                    # torch ops
                     torch.cuda.synchronize()
-                    for s, g in enumerate(got):
-                        check(torch.equal(g, ref["sums"][first + s]),
-                              f"{tag}: shard {first + s}, call {call} with "
-                              f"the delay in process {delayed}: not the "
-                              f"one-process K14's bits at D={d}")
-            r64 = torch.load(os.path.join(work, f"ref64_{prec}.pt"),
-                             map_location=dev)[:, :sd.npad]
-            rms = [float(v.pow(2).mean().sqrt()) for v in r64]
-            mine = r64[:, first * nl:(first + l) * nl]
-            sums = torch.cat(got, dim=1)
-            w64 = within_rel(sums, mine, 1e-5, 5e-6, rms)
-            check(w64 <= 1.0, f"{tag}: WithinRel 1e-5 (rms floor 5e-6) "
-                              f"against float64 exceeded by {w64:.2f}x")
-            err = float((sums.double() - mine).abs().max())
-            ms = event_ms(lambda: ring_ops.ring_sums(mesh, qs, gs, SOFT),
-                          reps=3, runs=3)
-            eng = create_engine("shard+ring", st, soft=SOFT, dt=DT,
-                                devices=[dev] * l)
-            check(eng.ring_impl == "pipelined" and eng.n_shards == d,
-                  f"{tag}: shard+ring took {eng.ring_impl} on "
-                  f"{eng.n_shards} shards")
-            for a in counters:
-                setattr(fn, a, 0)
-            eng.run(3)
-            torch.cuda.synchronize()
-            counts = {a: getattr(fn, a) for a in counters}
-            mine_count = "ipc_bf16_launches" if prec == "bf16" \
-                else "ipc_launches"
-            check(counts[mine_count] == 3 * l * d
-                  and sum(counts.values()) == counts[mine_count],
-                  f"{tag}: 3 engine steps launched {counts}")
-            for s, b in enumerate(eng.blocks):
-                for c, k in enumerate(RING_FIELDS):
-                    check(torch.equal(getattr(b, k),
-                                      ref["engine"][first + s][c]),
-                          f"{tag}: shard {first + s}'s {k} after 3 steps "
-                          f"is not the one-process engine's")
-            res = {"p": nproc, "l": l, "prec": prec, "rank": rank,
-                   "w64": w64, "err": err, "ms": ms,
-                   "launches": counts[mine_count], "npad": sd.npad}
-            if (nproc, l) == RING_MAIN:
-                # the plain version across processes: the boundary slot
-                # through Mesh.ppermute (gloo), the sweeps in torch ops
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                pv = ring_ops.acc_ring_pipelined_plain(mesh, qs, gs, SOFT)
-                torch.cuda.synchronize()
-                res["plain_ms"] = (time.perf_counter() - t0) * 1e3
-                pv = torch.cat([torch.stack(list(a)) for a in pv], dim=1)
-                if prec == "fp32":
-                    res["plain_w"] = within_rel(pv, mine, 1e-5, 5e-6, rms)
-                else:   # bf16 out: phase 15's contract against the kernel
-                    res["plain_w"] = within_rel(
-                        sums.to(torch.bfloat16), pv, 1e-2, 1e-4)
-                check(res["plain_w"] <= 1.0,
-                      f"{tag}: the plain version across processes at "
-                      f"{res['plain_w']:.2f}x of its allowance")
-            out.append(res)
-            del eng, blocks, qs, gs, got, sums, ref, r64
-            torch.cuda.empty_cache()
+                    t0 = time.perf_counter()
+                    pv = ring_ops.acc_ring_pipelined_plain(mesh, qs, gs,
+                                                           SOFT)
+                    torch.cuda.synchronize()
+                    res["plain_ms"] = (time.perf_counter() - t0) * 1e3
+                    pv = torch.cat([torch.stack(list(a)) for a in pv], dim=1)
+                    if prec == "fp32":
+                        res["plain_w"] = within_rel(pv, mine, 1e-5, 5e-6,
+                                                    rms)
+                    else:   # bf16 out: phase 15's contract on the kernel
+                        res["plain_w"] = within_rel(
+                            sums.to(torch.bfloat16), pv, 1e-2, 1e-4)
+                    check(res["plain_w"] <= 1.0,
+                          f"{tag}: the plain version across processes at "
+                          f"{res['plain_w']:.2f}x of its allowance")
+                if hosts and (nproc, hosts, l) == RING_HOSTS_MAIN:
+                    # the same processes, blocks and card on one host (the
+                    # IPC ring) and on their hosts (staged), in turns
+                    near = make_mesh(devices=[dev] * l)
+                    check(near.single_host, f"{tag}: {near.hosts}")
+                    res["turns"] = [event_ms(
+                        lambda: ring_ops.ring_sums(m, qs, gs, SOFT), reps=3,
+                        runs=3) for m in (near, mesh, mesh, near)]
+                out.append(res)
+                del eng, blocks, qs, gs, got, sums, ref, r64
+                torch.cuda.empty_cache()
     print("RING_RESULT " + json.dumps(out), flush=True)
-    dist.destroy_process_group()
+    destroy_distributed()
     return 0
 
 
@@ -2344,11 +2407,13 @@ def phase11_processes(dev, smi, ref11, time_ms, keep, n_main, tmp):
     Writes the one-process references into ``tmp`` (K14's sums at D = 2,
     3, 4 on one process, fp32 and bf16, and the one-process engine's blocks
     after 3 steps; the float64 sweeps: phase 10's ``ref11`` and the bf16
-    galaxy's), then runs ``ring_worker`` in 2, 3 and 4 processes
-    (RING_LAYOUTS), each with a hard time limit; a worker that fails or
-    runs out fails the phase, and the others are killed.  Returns the
+    galaxy's), then runs ``ring_worker`` in 2, 3 and 4 processes, each
+    group every layout of its size (RING_LAYOUTS: on this host, and placed
+    on 2 and 4 hosts) with a hard time limit; a worker that fails or runs
+    out fails the phase, and the others are killed.  Returns the
     launches of the cross-process instances in the engine runs at
-    RING_MAIN, every process's."""
+    RING_MAIN and of the cross-host instances at RING_HOSTS_MAIN, every
+    process's."""
     import torch
 
     from murb_tpu_torch.core.init import init_galaxy
@@ -2366,7 +2431,7 @@ def phase11_processes(dev, smi, ref11, time_ms, keep, n_main, tmp):
     work = os.path.join(tmp, "ring_processes")
     os.makedirs(work, exist_ok=True)
     bf16 = torch.bfloat16
-    ds = sorted({p * l for p, ls in RING_LAYOUTS for l in ls})
+    ds = sorted({p * l for p, _, ls in RING_LAYOUTS for l in ls})
     sb = init_galaxy(n_main, SEED, dtype=bf16, device=dev)
     sb = max((sb.repad(256 * d) for d in ds), key=lambda s: s.npad)
     check(ref11[0].shape[0] >= sb.npad, f"the float64 sweep has "
@@ -2404,8 +2469,11 @@ def phase11_processes(dev, smi, ref11, time_ms, keep, n_main, tmp):
         json.dump({"n": n_main}, f)
     t_ref = time.perf_counter() - t_phase
     env = {k: v for k, v in os.environ.items() if not k.startswith("MURB_")}
-    results = []
-    for nproc, ls in RING_LAYOUTS:
+    results, groups = [], {}
+    for nproc, hosts, ls in RING_LAYOUTS:
+        groups.setdefault(nproc, []).extend(
+            ring_layout_name(nproc, hosts, l) for l in ls)
+    for nproc, lays in groups.items():
         with socket.socket() as so:
             so.bind(("localhost", 0))
             port = so.getsockname()[1]
@@ -2419,10 +2487,10 @@ def phase11_processes(dev, smi, ref11, time_ms, keep, n_main, tmp):
                     procs.append(subprocess.Popen(
                         [sys.executable, os.path.abspath(__file__),
                          "--ring-worker", str(r), str(nproc), str(port),
-                         work], stdout=f, stderr=subprocess.STDOUT,
-                        env=env, cwd=ROOT))
+                         work], stdout=f, stderr=subprocess.STDOUT, env=env,
+                        cwd=ROOT))
             # a hard limit for the group; one failure stops the others
-            deadline = time.monotonic() + 60 + 60 * len(ls)
+            deadline = time.monotonic() + 60 + 60 * len(lays)
             while any(p.poll() is None for p in procs):
                 if time.monotonic() > deadline or any(
                         p.poll() not in (None, 0) for p in procs):
@@ -2438,30 +2506,36 @@ def phase11_processes(dev, smi, ref11, time_ms, keep, n_main, tmp):
             with open(log) as f:
                 texts.append(f.read())
         check(all(p.returncode == 0 for p in procs),
-              f"ring workers of {nproc} processes (killed at the time "
-              f"limit or after another failed):\n" + "\n".join(
+              f"ring workers of {nproc} processes (killed at the time limit "
+              f"or after another failed):\n" + "\n".join(
                   f"-- worker {r} exit {p.returncode}:\n{t[-2000:]}"
                   for r, (p, t) in enumerate(zip(procs, texts))))
         for r, text in enumerate(texts):
             line = [x for x in text.splitlines()
                     if x.startswith("RING_RESULT ")]
             check(len(line) == 1, f"ring worker {r} of {nproc}: no result")
-            results += json.loads(line[0].split(" ", 1)[1])
+            for res in json.loads(line[0].split(" ", 1)[1]):
+                res["hosts"] = tuple(res["hosts"]) if res["hosts"] else None
+                results.append(res)
         print(f"[11 processes] {nproc} processes on cuda:0, layouts "
-              f"{nproc}x{ls}: {time.perf_counter() - t1:.1f} s with start-up")
-    launches = {}
-    for nproc, ls in RING_LAYOUTS:
+              f"{'; '.join(lays)}: {time.perf_counter() - t1:.1f} s with "
+              f"start-up")
+    launches, by = {}, {}
+    for nproc, hosts, ls in RING_LAYOUTS:
         for l in ls:
             d = nproc * l
+            lay = ring_layout_name(nproc, hosts, l)
             for prec in ("fp32", "bf16"):
-                rs = [r for r in results
-                      if (r["p"], r["l"], r["prec"]) == (nproc, l, prec)]
+                rs = [r for r in results if (r["p"], r["hosts"], r["l"],
+                                             r["prec"]) == (nproc, hosts, l,
+                                                            prec)]
                 check(sorted(r["rank"] for r in rs) == list(range(nproc)),
-                      f"K14 across processes {nproc}x{l} {prec}: results "
-                      f"of ranks {[r['rank'] for r in rs]}")
+                      f"K14 across processes {lay} {prec}: results of "
+                      f"ranks {[r['rank'] for r in rs]}")
                 nd = rs[0]["npad"]
                 err = max(r["err"] for r in rs)
                 ms = max(r["ms"] for r in rs)
+                by[nproc, hosts, l, prec] = ms
                 n_launch = sum(r["launches"] for r in rs)
                 split = ring_ops.ring_split(
                     nd // d, torch.cuda.get_device_properties(
@@ -2470,9 +2544,10 @@ def phase11_processes(dev, smi, ref11, time_ms, keep, n_main, tmp):
                         "murb_tile_resident"
                         + ("_bf16" if prec == "bf16" else ""), dev), d)
                 note = ""
-                if (nproc, l) == RING_MAIN:
+                if (nproc, hosts, l) in (RING_MAIN, RING_HOSTS_MAIN):
                     plain = max(r["plain_ms"] for r in rs)
-                    name = "K14-ipc" + ("-bf16" if prec == "bf16" else "")
+                    name = ("K14-hosts" if hosts else "K14-ipc") + (
+                        "-bf16" if prec == "bf16" else "")
                     b_ms = keep(name, err, ms, plain,
                                 (20 if prec == "bf16" else 28) * nd,
                                 20 * nd * nd)
@@ -2480,13 +2555,35 @@ def phase11_processes(dev, smi, ref11, time_ms, keep, n_main, tmp):
                     note = (f"; plain across processes {plain:.4f} ms at "
                             f"{max(r['plain_w'] for r in rs):.4f} of its "
                             f"allowance; bound {b_ms:.4f} ms")
-                print(f"[11 K14 across processes {nproc}x{l} {prec}] "
-                      f"N={nd}, D={d}, {split[0]} j slices a sweep: every "
-                      f"shard's sums bit for bit the one-process K14's at "
-                      f"D={d}, 3 calls each with no delay and with "
-                      f"{RING_DELAY_NS} ns in process 0, then in process "
-                      f"{nproc - 1} only; against float64 WithinRel 1e-5 "
-                      f"(rms floor 5e-6) at "
+                if "turns" in rs[0]:
+                    turns = [max(r["turns"][i] for r in rs) for i in range(4)]
+                    note += ("; in turns with the IPC ring of the same "
+                             "processes on one host (IPC, staged, staged, "
+                             "IPC; the slowest process) " + ", ".join(
+                                 f"{t:.4f}" for t in turns) + " ms")
+                if hosts:
+                    staged = len([1 for i in range(nproc)
+                                  if hosts[i] != hosts[(i + 1) % nproc]])
+                    nb = (d - 1) * 4 * (2 * ring_ops.slot_stride(nd // d)
+                                        if prec == "bf16" else 4 * nd // d)
+                    ipc_ms = by.get((nproc, None, l, prec))
+                    note += (f"; {staged} staged boundaries, {nb} bytes "
+                             f"staged a boundary a call ((D-1) x one slot); "
+                             f"one host's IPC ring at the same P x L "
+                             + (f"{ipc_ms:.4f} ms" if ipc_ms else
+                                "not run") + " (this run)")
+                    delays = (f"{RING_DELAY_NS} ns in process 0, then in "
+                              f"process {nproc - 1} only, and "
+                              f"{RING_HOST_DELAY_NS} ns before every send "
+                              f"of process {nproc - 1}'s agent")
+                else:
+                    delays = (f"{RING_DELAY_NS} ns in process 0, then in "
+                              f"process {nproc - 1} only")
+                print(f"[11 K14 across processes {lay} {prec}] N={nd}, "
+                      f"D={d}, {split[0]} j slices a sweep: every shard's "
+                      f"sums bit for bit the one-process K14's at D={d}, 3 "
+                      f"calls each with no delay and with {delays}; "
+                      f"against float64 WithinRel 1e-5 (rms floor 5e-6) at "
                       f"{max(r['w64'] for r in rs):.4f}, max|da| {err:.3e};"
                       f" 3 shard+ring steps bit for bit the one-process "
                       f"engine's, {n_launch} launches (all processes); time "
@@ -4618,6 +4715,13 @@ def main() -> int:
         "K14-ipc-bf16": ("ring_pipelined_ipc_bf16",
                          "murb_tpu_torch/csrc/ring.cu",
                          "murb_tpu/ops/ring_pallas.py:50"),
+        # K14 across hosts (phase 11): its boundary slot staged through
+        # pinned host memory, as the TPU kernel's RDMA crossed hosts
+        "K14-hosts": ("ring_pipelined_hosts", "murb_tpu_torch/csrc/ring.cu",
+                      "murb_tpu/ops/ring_pallas.py:50"),
+        "K14-hosts-bf16": ("ring_pipelined_hosts_bf16",
+                           "murb_tpu_torch/csrc/ring.cu",
+                           "murb_tpu/ops/ring_pallas.py:50"),
     }
     kernels = [{"name": kname, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches[k], **record[k]}

@@ -533,14 +533,17 @@ def run(argv=None) -> CliRun:
 
 def main(argv=None) -> int:
     """The CLI's exit code.  A process group the run joined is torn down
-    before the process exits: a live gloo group's threads can abort the
+    before the process exits, the ring's agent threads first
+    (``destroy_distributed``): a live gloo group's threads can abort the
     interpreter's exit ("terminate called without an active
     exception")."""
     try:
         return run(argv).rc
     finally:
         if dist.is_available() and dist.is_initialized():
-            dist.destroy_process_group()
+            from murb_tpu_torch.parallel.mesh import destroy_distributed
+
+            destroy_distributed()
 
 
 if __name__ == "__main__":

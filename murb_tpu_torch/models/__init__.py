@@ -124,7 +124,8 @@ def _build_registry():
              lambda b, **kw: E.Yoshida4Engine(b, **_filter(kw, "acc_fn")))
 
     # the distributed engines (murb_tpu_torch.parallel), imported at first
-    # use; ``devices`` (the port's) may put several shards on one card
+    # use; ``devices`` (the port's) may put several shards on one card,
+    # ``host`` (the port's) names this process's host in the mesh
     def _shard(mode):
         def factory(b, **kw):
             from murb_tpu_torch.parallel.shard_engine import ShardedEngine
@@ -132,7 +133,7 @@ def _build_registry():
             return ShardedEngine(b, mode=mode, **_filter(
                 kw, "shards", "gpu_fraction", "block_i", "block_j",
                 "ring_impl", "kernel", "m", "levels", "m2l_dots", "validate",
-                "adapt_every", "devices"))
+                "adapt_every", "devices", "host"))
 
         return factory
 

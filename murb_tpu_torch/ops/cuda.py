@@ -134,11 +134,26 @@ _SIGNATURES = {
     "murb_ring_pipelined_ipc_bf16": [_I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
                                      _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                      _L, _F, _I, _I, _I, _I, _L],
-    # its regions: made and exported, mapped, released; a card's bus id
+    # the ring across hosts: the ring across processes' arguments with the
+    # inbound stream after the copy streams, and after the epoch the
+    # receiving and sending staged ends, their epoch and the sending end's
+    # previous value; the bf16 instance's ld after n
+    "murb_ring_pipelined_hosts": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
+                                  _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                  _L, _P, _P, _L, _L, _F, _I, _I, _I, _I,
+                                  _L],
+    "murb_ring_pipelined_hosts_bf16": [_I, _I, _I, _I, _I, _P, _P, _P, _P,
+                                       _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                       _P, _P, _P, _L, _P, _P, _L, _L, _F,
+                                       _I, _I, _I, _I, _L],
+    # its regions: made and exported, mapped, released; a card's UUID; a
+    # staged end's pinned host region, made (and proved) and freed
     "murb_ring_ipc_alloc": [_I, _I, _I, _P, _P],
     "murb_ring_ipc_open": [_I, _P, _P],
     "murb_ring_ipc_release": [_I, _P, _I],
-    "murb_ring_ipc_bus_id": [_I, _P, _I],
+    "murb_ring_card_uuid": [_I, _P, _I],
+    "murb_ring_stage_alloc": [_I, _L, _P],
+    "murb_ring_stage_free": [_P],
 }
 
 

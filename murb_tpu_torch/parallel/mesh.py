@@ -17,10 +17,16 @@ list, then calls ``torch.distributed`` (gloo for CPU shards, NCCL for CUDA
 shards, or gloo for CUDA shards when asked, as processes that share one
 card need), and hands the result back to every local shard.  The host
 exchange (``Mesh.all_gather_object``, ``Mesh.hosts``) tells the pipelined
-ring (ops/ring.py) whether every process is on this host.
+ring (ops/ring.py) which of its process boundaries stay on one host (CUDA
+IPC) and which cross hosts (staged through host memory and sent on
+``side_group``, a gloo group beside the main one).  A process's host is
+``host_name()`` unless ``make_mesh(host=...)`` names it: processes of one
+machine placed on separate hosts run exactly the code of a multi-host run.
+``destroy_distributed`` stops the ring's agent threads, then the groups.
 """
 from __future__ import annotations
 
+import datetime
 import os
 import socket
 
@@ -45,7 +51,7 @@ class Mesh:
     axis index ``process_index * local_size + k``."""
 
     def __init__(self, devices, *, process_index: int = 0,
-                 process_count: int = 1):
+                 process_count: int = 1, host: str | None = None):
         self.devices = [torch.device(d) for d in devices]
         self.devices = [torch.device("cuda", torch.cuda.current_device())
                         if d.type == "cuda" and d.index is None else d
@@ -54,6 +60,7 @@ class Mesh:
             raise ValueError("a mesh needs at least one device")
         self.process_index = int(process_index)
         self.process_count = int(process_count)
+        self.host = host
         self._hosts = None
 
     @property
@@ -90,11 +97,11 @@ class Mesh:
 
     @property
     def hosts(self) -> list[str]:
-        """Each process's host name (``host_name``), in process order,
-        exchanged once a mesh (every process must ask, as for any
+        """Each process's host (``host``, else ``host_name()``), in process
+        order, exchanged once a mesh (every process must ask, as for any
         collective)."""
         if self._hosts is None:
-            self._hosts = self.all_gather_object(host_name())
+            self._hosts = self.all_gather_object(self.host or host_name())
         return self._hosts
 
     @property
@@ -158,7 +165,8 @@ def host_name() -> str:
     return socket.gethostname()
 
 
-def make_mesh(shards: int = 0, *, device="cuda", devices=None) -> Mesh:
+def make_mesh(shards: int = 0, *, device="cuda", devices=None,
+              host: str | None = None) -> Mesh:
     """A 1-D mesh of ``shards`` shards over the global mesh (0 = all local
     devices in every process).
 
@@ -168,14 +176,15 @@ def make_mesh(shards: int = 0, *, device="cuda", devices=None) -> Mesh:
     local cards, one each, and may not outnumber them
     (murb_tpu/parallel/mesh.py:21-22); with no card at all this raises
     before building anything.  CPU shards (``device="cpu"``) are virtual,
-    any number of them on the CPU."""
+    any number of them on the CPU.  ``host`` names this process's host in
+    the mesh's host exchange (default ``host_name()``)."""
     pi, pc = _world()
     if devices is not None:
         devices = [torch.device(d) for d in devices]
         if shards and shards != len(devices) * pc:
             raise ValueError(f"requested {shards} shards but the device list "
                              f"gives {len(devices) * pc}")
-        return Mesh(devices, process_index=pi, process_count=pc)
+        return Mesh(devices, process_index=pi, process_count=pc, host=host)
     device = torch.device(device)
     avail = torch.cuda.device_count() if device.type == "cuda" else None
     if avail == 0:
@@ -191,8 +200,9 @@ def make_mesh(shards: int = 0, *, device="cuda", devices=None) -> Mesh:
                          f"{avail * pc} devices")
     if device.type == "cuda":
         return Mesh([torch.device("cuda", k) for k in range(local)],
-                    process_index=pi, process_count=pc)
-    return Mesh([device] * local, process_index=pi, process_count=pc)
+                    process_index=pi, process_count=pc, host=host)
+    return Mesh([device] * local, process_index=pi, process_count=pc,
+                host=host)
 
 
 def shard_state(state: BodyState, mesh: Mesh) -> list[BodyState]:
@@ -251,3 +261,36 @@ def maybe_init_distributed(device="cuda", backend: str | None = None) -> bool:
         init_method=f"tcp://{coord}?use_libuv=0",
         world_size=int(os.environ.get("MURB_NUM_PROCESSES", "1")), rank=rank)
     return True
+
+
+#: the side group's timeout: a staged edge's send or receive that waits
+#: longer fails (ops/ring.py's agents)
+SIDE_TIMEOUT_S = 300.0
+
+_SIDE = []                  # the side group, once made
+
+
+def side_group():
+    """A gloo group of every process beside the main group, made once, by
+    every process together (its first call is a collective of the main
+    group).  The pipelined ring's staged edges send and receive on it from
+    agent threads (ops/ring.py) while the main thread runs the main
+    group's collectives; gloo runs point to point whatever the main
+    backend (NCCL for CUDA shards)."""
+    if not _SIDE:
+        timeout = datetime.timedelta(seconds=SIDE_TIMEOUT_S)
+        _SIDE.append(dist.new_group(backend="gloo", timeout=timeout))
+    return _SIDE[0]
+
+
+def destroy_distributed() -> None:
+    """Tear down what ``maybe_init_distributed`` brought up: first the
+    pipelined ring's agent threads finish their sends and receives and
+    stop (``ops/ring.close_agents``), then the side group and the main
+    group go."""
+    from murb_tpu_torch.ops.ring import close_agents
+
+    close_agents()
+    _SIDE.clear()
+    if dist.is_available() and dist.is_initialized():
+        dist.destroy_process_group()

@@ -13,13 +13,14 @@ each line runs for every shard in turn, and the collectives of
     mesh.  ``ring_impl="ppermute"`` alternates a rectangular sweep and a
     ``ppermute``; ``"pipelined"`` runs the whole D-step ring through
     kernel K14 (``ops/ring.py``), each slot copy hidden behind the next
-    step's sweep, within one process or across the processes of one host
+    step's sweep, within one process, across the processes of one host
     (K14's cross-process instance: slot copies and flag words over CUDA
     IPC; several processes may share one card, each with a gloo group and
-    an explicit device list, ``ops/ring.py``).  ``"auto"``
+    an explicit device list, ``ops/ring.py``) or across hosts (its
+    cross-host instance: the boundary slot staged through pinned host
+    memory and sent on a gloo side group).  ``"auto"``
     (``auto_ring_impl``) takes the pipelined ring when every shard is a
-    CUDA device and every process runs on this host; across hosts the
-    ppermute ring.
+    CUDA device, on one host or many.
   * ``proxy`` / ``fmm`` -- the far field by one global Chebyshev expansion
     (K1/K2) or the L-level hierarchy (K8, K7, K9): local P2M, one ``psum``
     of the expansions (independent of N), the node sweeps redundantly on
@@ -64,13 +65,12 @@ def _default_kernel(mesh) -> str:
 
 
 def auto_ring_impl(mesh) -> str:
-    """``ring_impl="auto"``: K14's pipelined ring on an all-CUDA mesh whose
-    processes share this host (murb_tpu's TPU default,
-    murb_tpu/parallel/shard_engine.py:254-258), the ppermute ring on CPU
-    shards and across hosts (the host exchange is made only for an
-    all-CUDA mesh)."""
-    return ("pipelined" if mesh.all_cuda and mesh.single_host
-            else "ppermute")
+    """``ring_impl="auto"``: K14's pipelined ring on an all-CUDA mesh, one
+    process, the processes of one host or processes on several hosts
+    (murb_tpu's TPU default, murb_tpu/parallel/shard_engine.py:254-258),
+    the ppermute ring on CPU shards.  No host exchange is made here: the
+    ring makes it at its first call."""
+    return "pipelined" if mesh.all_cuda else "ppermute"
 
 
 def _rect_kernel(name: str, block_i: int, block_j: int):
@@ -109,7 +109,8 @@ class ShardedEngine(SimulationEngine):
 
     ``devices``: an explicit device list, one entry per local shard (it may
     repeat a card); by default ``shards`` CUDA cards (0 = all) for a CUDA
-    state, ``shards`` virtual CPU shards (0 = one) for a CPU state."""
+    state, ``shards`` virtual CPU shards (0 = one) for a CPU state.
+    ``host``: this process's host in the mesh (``make_mesh``)."""
 
     tag = "shard"
 
@@ -119,7 +120,8 @@ class ShardedEngine(SimulationEngine):
                  kernel: str = "auto", block_i: int = 0, block_j: int = 0,
                  ring_impl: str = "auto", m: int = 0, levels: int = 0,
                  m2l_dots: str = "fp32", validate: bool = True,
-                 adapt_every: int = 0, devices=None, **kw):
+                 adapt_every: int = 0, devices=None,
+                 host: str | None = None, **kw):
         from murb_tpu_torch.ops.fmm import check_m2l_dots
 
         kwargs = {}
@@ -149,7 +151,8 @@ class ShardedEngine(SimulationEngine):
         if mode in ("proxy", "fmm"):
             mode = self._pick_far(bodies, mode, soft_val, m, levels, validate)
 
-        self.mesh = make_mesh(shards, device=bodies.device, devices=devices)
+        self.mesh = make_mesh(shards, device=bodies.device, devices=devices,
+                              host=host)
         self.n_shards = self.mesh.size
         self.mode = mode
         self.adapt_every = int(adapt_every)

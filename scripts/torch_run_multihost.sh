@@ -12,7 +12,13 @@
 # processes on this host, one run across all of them, and waits for
 # every one (a failure stops the others).  On several hosts, run the
 # python command below on each with MURB_COORDINATOR naming the first
-# host and MURB_PROCESS_ID each process's global rank.
+# host and MURB_PROCESS_ID each process's global rank: nothing else is
+# needed.  `--im shard+ring` then runs the pipelined ring (K14) across the
+# hosts by default (ring_impl auto): each process boundary inside a host
+# stays a CUDA IPC edge, and one that crosses hosts is staged through
+# pinned host memory and sent by the ring's agent threads on a gloo side
+# group that every process makes at the ring's first call
+# (murb_tpu_torch/ops/ring.py).
 #
 #   NPROC=2 DEVICE=cpu N=10000 bash scripts/torch_run_multihost.sh
 set -euo pipefail

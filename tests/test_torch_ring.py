@@ -90,13 +90,15 @@ def test_wrapper_refuses_what_it_does_not_run(monkeypatch):
         ring.acc_ring_pipelined(mesh, qs, gms, SOFT, block_i=96)
     with pytest.raises(ValueError, match="3 shards"):
         ring.acc_ring_pipelined(make_mesh(3, device="cpu"), qs, gms, SOFT)
-    # a mesh of processes on two hosts: the ring across hosts is not
-    # ported (processes of one host run it: test_torch_ring_processes.py)
+    # the kernel's wrapper takes CUDA shards only (the CPU's is the plain
+    # version)
+    with pytest.raises(ValueError, match="all cpu or all cuda"):
+        ring.ring_sums(mesh, qs, gms, SOFT)
+    # a mesh of processes on two hosts is not refused: the ring runs across
+    # hosts (test_torch_ring_hosts.py)
     monkeypatch.setattr(mesh, "process_count", 2)
     monkeypatch.setattr(mesh, "_hosts", ["host-a", "host-b"])
-    with pytest.raises(NotImplementedError, match="across hosts.*not yet "
-                                                  "ported"):
-        ring.acc_ring_pipelined(mesh, qs, gms, SOFT)
+    assert ring._check_mesh(mesh, qs, gms) is None
 
 
 @settings(max_examples=300, deadline=None)

@@ -5,12 +5,13 @@ ring's protocol (its plain version, the boundary slot through the mesh's
 ppermute) and must give the bits of one process with 4 shards at
 ``ring_impl="pipelined"`` (itself held to murb_tpu's interpret-mode ring by
 tests/test_torch_ring.py); their merged log is the one-process protocol
-order; host names that differ by process are refused.  Every worker has a
-hard time limit and is killed when it runs out.  Beside them, pure-Python
-checks of the edges that cross a process, the flags' epochs, the
-regions' exchange and the wrapper's launch of the cross-process instance
-(on meta tensors: the kernel itself runs only on the card, chip_smoke.py
-phase 11)."""
+order; when the same processes report host names that differ, the ring
+runs across those hosts (staged edges) and gives the same bits.  Every
+worker has a hard time limit and is killed when it runs out.  Beside
+them, pure-Python checks of the edges that cross a process, the flags'
+epochs, the regions' exchange and the wrapper's launch of the
+cross-process instance (on meta tensors: the kernel itself runs only on
+the card, chip_smoke.py phase 11)."""
 import contextlib
 import ctypes
 import json
@@ -101,12 +102,12 @@ def test_merged_log_is_the_one_process_protocol_order(runs):
 
 
 def test_processes_on_two_hosts_are_refused(runs):
-    """Processes that report different host names: the pipelined ring
-    raises (not yet ported) and auto keeps the ppermute ring."""
+    """Processes that report different host names are not refused: the
+    pipelined ring runs across their hosts (every process boundary through
+    staged ends) and gives the bits of the same processes on one host;
+    auto keeps the ppermute ring on CPU shards."""
     for r in runs:
-        assert r["HOSTS"].startswith("refused ppermute:"), r["HOSTS"]
-        assert "across hosts" in r["HOSTS"]
-        assert "not yet ported" in r["HOSTS"]
+        assert r["HOSTS"] == "ran ppermute same host-0,host-1", r["HOSTS"]
 
 
 # ------------------------------------------------ the protocol's tables
@@ -121,13 +122,14 @@ def test_processes_on_two_hosts_are_refused(runs):
 ])
 def test_edges_that_cross_a_process(p, l, want):
     """Three edges a shard (recv from the left, capacity and send from the
-    right); those that cross a process are the flags: a process's first
-    shard's recv and its last shard's capacity and send."""
+    right); those that cross a process of one host are the flags ("ipc"):
+    a process's first shard's recv and its last shard's capacity and
+    send; the others are CUDA events."""
     edges = ring.ring_edges(p, l)
     assert len(edges) == 3 * p * l
-    assert {(e, a, b) for e, a, b, crosses in edges if crosses} == want
-    for e, a, b, crosses in edges:
-        assert crosses == (a // l != b // l)
+    assert {(e, a, b) for e, a, b, kind in edges if kind == "ipc"} == want
+    for e, a, b, kind in edges:
+        assert kind == ("ipc" if a // l != b // l else "event")
         assert (e == "recv") == (a == (b - 1) % (p * l))
 
 
@@ -155,7 +157,7 @@ def test_flag_epochs_grow_over_three_calls(d):
 # ---------------------------------------- the wrapper on a faked card
 class _FakeLib:
     """The IPC entries of csrc/ring.cu as the setup calls them: regions
-    and handles numbered by process and shard, every card one bus."""
+    and handles numbered by process and shard, every card one UUID."""
 
     def __init__(self, pi):
         self.pi, self.made, self.opened = pi, 0, []
@@ -167,8 +169,8 @@ class _FakeLib:
             name = f"h{self.pi}.{self.made}".encode()
             ctypes.memmove(handle, name, len(name))
             self.made += 1
-        elif name == "murb_ring_ipc_bus_id":
-            ctypes.memmove(a[1], b"0000:1b:00.0", 12)
+        elif name == "murb_ring_card_uuid":
+            ctypes.memmove(a[1], b"0" * 32, 32)
         elif name == "murb_ring_ipc_open":
             dev, handle, ptr = a
             self.opened.append(handle.raw.rstrip(b"\0").decode())
@@ -195,9 +197,10 @@ def fake_ipc(monkeypatch):
                                                                    stream))
         monkeypatch.setattr(ring, "_IPC", {})
         monkeypatch.setattr(ring, "_HELD", [])
-        monkeypatch.setattr(ring.atexit, "register", lambda fn: None)
+        monkeypatch.setattr(ring, "_register_release", lambda: None)
         for attr in ("launches", "bf16_launches", "ipc_launches",
-                     "ipc_bf16_launches"):
+                     "ipc_bf16_launches", "hosts_launches",
+                     "hosts_bf16_launches"):
             monkeypatch.setattr(ring.acc_ring_pipelined, attr, 0)
         mesh = Mesh([torch.device("cuda", 0)] * shards, process_index=1,
                     process_count=2)
@@ -254,6 +257,7 @@ def test_wrapper_launches_the_cross_process_instance(fake_ipc, shards,
     count = "ipc_bf16_launches" if b16 else "ipc_launches"
     assert getattr(ring.acc_ring_pipelined, count) == 3 * shards * d
     assert ring.acc_ring_pipelined.launches == 0
+    assert ring.acc_ring_pipelined.hosts_launches == 0
     assert len(ring._HELD) == shards + len(want)
 
 
@@ -266,14 +270,14 @@ def test_processes_whose_rings_differ_are_refused(fake_ipc):
 
 def test_auto_takes_the_pipelined_ring_on_one_host():
     """auto: pipelined on an all-CUDA mesh of one host (one process or
-    several), ppermute on CPU shards (no host exchange made) and across
-    hosts."""
+    several) and across hosts, ppermute on CPU shards (no host exchange
+    made)."""
     def mesh(hosts):
         m = Mesh([torch.device("cuda", 0)] * 2, process_count=len(hosts))
         m._hosts = hosts
         return m
     assert auto_ring_impl(mesh(["a"])) == "pipelined"
     assert auto_ring_impl(mesh(["a", "a"])) == "pipelined"
-    assert auto_ring_impl(mesh(["a", "b"])) == "ppermute"
+    assert auto_ring_impl(mesh(["a", "b"])) == "pipelined"
     cpu = Mesh(["cpu"] * 2, process_count=2)
     assert auto_ring_impl(cpu) == "ppermute" and cpu._hosts is None

@@ -9,8 +9,9 @@ process, runs two steps of shard+ring with ring_impl="pipelined" on the
 1024-body galaxy (seed 7, the same on every process) and prints a
 checksum of the global state; plays the plain protocol once on the
 engine's blocks and prints its log (this process's computes, global
-shards); then reports host names that differ by process and prints how
-the ring and the engine's auto policy answer.
+shards); then reports host names that differ by process, runs the ring on
+that mesh (its staged edges) and prints whether it gave the one-host bits
+and what the engine's auto policy takes on CPU shards.
 """
 import json
 import os
@@ -54,21 +55,20 @@ print(f"CHECKSUM {chk.hex()}", flush=True)
 
 g = torch.tensor(G, dtype=torch.float32).item()
 log = []
-ring.acc_ring_pipelined_plain(
-    engine.mesh, [(b.qx, b.qy, b.qz) for b in engine.blocks],
-    [b.m * g for b in engine.blocks], SOFT, log=log)
+qs = [(b.qx, b.qy, b.qz) for b in engine.blocks]
+gs = [b.m * g for b in engine.blocks]
+near = ring.acc_ring_pipelined_plain(engine.mesh, qs, gs, SOFT, log=log)
 print(f"LOG {json.dumps(log)}", flush=True)
 
-# processes on two hosts: the ring refuses the mesh; auto keeps ppermute
+# processes on two hosts: the ring runs across them (staged edges) and
+# gives the one-host bits; auto keeps ppermute on CPU shards
 mesh_mod.host_name = lambda: f"host-{pid}"
 far = mesh_mod.make_mesh(2 * nproc, device="cpu")
-blocks = engine.blocks
-try:
-    ring.acc_ring_pipelined(far, [(b.qx, b.qy, b.qz) for b in blocks],
-                            [b.m * g for b in blocks], SOFT)
-    print("HOSTS ran", flush=True)
-except NotImplementedError as e:
-    print(f"HOSTS refused {auto_ring_impl(far)}: {e}", flush=True)
+got = ring.acc_ring_pipelined(far, qs, gs, SOFT)
+same = all(torch.equal(x, y) for a, b in zip(got, near)
+           for x, y in zip(a, b))
+print(f"HOSTS ran {auto_ring_impl(far)} {'same' if same else 'differ'} "
+      f"{','.join(far.hosts)}", flush=True)
 
-dist.destroy_process_group()
+mesh_mod.destroy_distributed()
 print("WORKER_DONE", flush=True)
