@@ -65,10 +65,10 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      (``acc_fmm(near="p2p")``); the merger through the CLI with ``--near
      adaptive`` and with ``tpu+tracking --kernel adaptive`` (row 0's energy
      held to an exact K6 energy); an N=4096 card-against-CPU check of the
-     adaptive step; the dense far sweep (K7 at m=6, C=4, nf 3 and 4, twice
-     for the same bits); and the repair (K7-K9 at m=18 and m=32 on a
-     prebuilt cell order, each twice for the same bits, K8 and K9 through
-     the wrapper and alone beside their bounds);
+     adaptive step; the dense far sweep (K7 at the plan's m and C = 2^Ld,
+     nf 3 and 4, twice for the same bits); and the repair (K7-K9 at m=18
+     and m=32 on a prebuilt cell order, each twice for the same bits, K8
+     and K9 through the wrapper and alone beside their bounds);
  10. the exact large-N path: K13 (TF32 tensor-core products) against
      float64 (a 4096-row strided sample of the N=200,000 galaxy against all
      of it, held to the direct sweep of the whole galaxy, and the 16384^2
@@ -152,9 +152,10 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      products) against float64 and against its plain lossy version, at nf
      3 and 4, every subset at m=8, C=4 on the random box and m=32, C=2 on
      the 1M box (5e-6 and 1e-4 of max|f|, which two broken-arithmetic
-     controls must exceed), and far and expand at the 1M step's dense base (m=6,
-     C=4, whose 216 nodes run the pad slots), each launched twice for the
-     same bits and timed in turns with the fp32 instance beside its bound;
+     controls must exceed), and far and expand at the 1M step's dense
+     base (the plan's m=6 and C = 2^Ld, whose 216 nodes run the pad
+     slots), each launched twice for the same bits and timed in turns with
+     the fp32 instance beside its bound;
      the sparse M2L's forms (each tier, the scan chunk, the fused form)
      against float64 with the TF32 flags unchanged; ``tpu+proxy -s random
      --m2l-dots bf16x3`` and ``mixed`` at N=200,000 through the CLI
@@ -192,7 +193,15 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      through the wrapper, with its registers and spills; the merger
      through ``create_engine`` (K6-bf16), ``shard+ring`` on 4 shards of
      the card (K14-bf16) and ``tpu+mxu --precision bf16`` through the CLI
-     (K13-bf16).
+     (K13-bf16);
+ 16. the planners' decisions at the card's rates: on the two-cluster box
+     at N = 131,072, 262,144 and 524,288 (and phase 9's 1M engine) and on
+     the merger, the auto policy's pick and its two estimates beside the
+     measured step of the adaptive and the exact branch (the pick must be
+     the faster wherever they differ by more than 15%); the exact model
+     within 1.5x of the step at the three N, the adaptive model within
+     1.5x at 1M; on the 200k random box the step at each (m, levels)
+     ``best_depth`` weighs, its pick within 10% of the fastest.
 Each piece of the path (the CLI run of phase 4, the ``acc_proxy`` of phase
 5, each CLI run of phase 6, each run of phases 7 to 11) starts from zeroed
 launch counts, which are read right after it: K1 and K2 from phase 4, K3
@@ -672,10 +681,11 @@ def phase14(dev, smi, drive, time_ms, st9, soft9, plan, pick8,
     tensor-core products) against its plain version in float64 (unrounded,
     the reference) and, at m=8, C=4, in fp32 (the plain lossy arithmetic,
     ops/mxu.split3_matmul), each subset and field count at the random
-    box's shape, at the 1M step's dense base (m=6, C=4: far, the shape the
-    step gives K7b, and expand; m^3 = 216 fills no whole 256-node chunk,
-    so the pad slots run) and at the ladder's top order on the 1M box
-    (m=32, C=2: near is expand there and far admits no cell).  Limits
+    box's shape, at the 1M step's dense base (phase 9's plan, m=6 at C =
+    2^Ld: far, the shape the step gives K7b, and expand; m^3 = 216 fills
+    no whole 256-node chunk, so the pad slots run) and at the ladder's top
+    order on the 1M box (m=32, C=2: near is expand there and far admits
+    no cell).  Limits
     against the largest magnitude of each field, against float64 and
     against the plain lossy version alike, set from the readings: 5e-6 at
     m <= 8, 1e-4 at m=32; two controls (the plain sweep with one TF32
@@ -836,11 +846,13 @@ def phase14(dev, smi, drive, time_ms, st9, soft9, plan, pick8,
         8, 4, w14, h14 / 4, SOFT, 10, 5e-6, controls=True,
         time_plain=True)[("expand", 3)]
     del sr14, w14
-    # the 1M step's dense base (m=6, C=4: m^3 = 216 nodes, a partial
-    # 256-node chunk and pad slots): its far sweep, and expand at the
-    # same order
-    w6 = fk.p2m_grid_fused(*q9, ge9, c9, h9, m=6, C=4)
-    k7b_case(6, 4, w6, h9 / 4, soft9, 10, 5e-6, subsets=("expand", "far"))
+    # the 1M step's dense base (phase 9's plan: m=6, m^3 = 216 nodes, a
+    # partial 256-node chunk and pad slots, at C = 2^Ld): its far sweep,
+    # and expand at the same order
+    m6, C6 = plan.m, 2 ** plan.dense_levels
+    w6 = fk.p2m_grid_fused(*q9, ge9, c9, h9, m=m6, C=C6)
+    k7b_case(m6, C6, w6, h9 / C6, soft9, 10, 5e-6,
+             subsets=("expand", "far"))
     del w6
     order14 = fk.cell_order(*q9, c9, h9, 2)
     w32 = fk.p2m_grid_fused(*q9, ge9, c9, h9, m=32, C=2, order=order14)
@@ -2172,6 +2184,148 @@ def phase15_sweeps(dev, smi, drive, time_ms, keep, within_rel, norm_rel,
     return launches
 
 
+#: phase 16's clustered sizes below phase 9's 1M box
+PLAN_NS = (131_072, 262_144, 524_288)
+#: where two branches differ by more than this ratio, the auto policy must
+#: pick the faster; a prediction must lie within MODEL_RATIO of its
+#: measurement either way; best_depth's pick within DEPTH_SLACK of the
+#: fastest candidate
+PICK_GAP, MODEL_RATIO, DEPTH_SLACK = 1.15, 1.5, 1.10
+
+
+def phase16(dev, smi, st9, est9, ms9, ms_exact9, tab, pick8,
+            n_main=200_000):
+    """16. The planners' decisions on the card.  On the two-cluster box
+    (``utils/profile_step.two_clusters``, seed 42, soft 0.02, dt 1e-6) at
+    PLAN_NS and, from phase 9 (``st9``, the auto policy's estimates
+    ``est9`` and the measured ms a step ``ms9`` and ``ms_exact9``), at
+    1,048,576, and on the merger (``tab``, soft 2e8, dt 3600): the auto
+    engine's pick (``create_engine("tpu+proxy")``), its estimates at the
+    card's rates (``cost_estimates``), and the wall ms a step of the
+    adaptive branch (the pick, or ``near="adaptive"`` forced) and of the
+    exact one (the pick's fallback, or ``tpu+hybrid``: the same K4
+    passes 2); where the two differ by more than PICK_GAP the pick must
+    be the faster.  The exact model within MODEL_RATIO of the measured
+    step at PLAN_NS, and the adaptive model (the estimate the policy
+    compares, priced at the planning order) at 1M.  On the 200k random
+    box, the step at each (m, levels) ``ops/fmm.best_depth`` weighs,
+    timed in three turns (forward, backward, forward; the least of the
+    three, since host time only adds to a step): its pick within
+    DEPTH_SLACK of the fastest.  ``pick8`` is phase 8's
+    engine's (m, levels) after its validation.  Launches no kernel check
+    of its own: every kernel it runs was held in phases 3, 8 and 9."""
+    import torch
+
+    from murb_tpu_torch.core.init import init_milkyway_andromeda, make_bodies
+    from murb_tpu_torch.models import create_engine
+    from murb_tpu_torch.ops import fmm
+    from murb_tpu_torch.ops.proxy import half_extent
+    from murb_tpu_torch.ops.sparse_fmm import exact_cost_ms
+    from murb_tpu_torch.utils.profile_step import (TWO_CLUSTERS_DT,
+                                                   TWO_CLUSTERS_SOFT,
+                                                   step_ms, two_clusters)
+
+    t_phase = time.perf_counter()
+    rows = []
+
+    def decide(label, st, soft, dt, steps):
+        t0 = time.perf_counter()
+        eng = create_engine("tpu+proxy", st, soft=soft, dt=dt)
+        t_build = time.perf_counter() - t0
+        adopted = eng.using_proxy and eng.near_mode == "adaptive"
+        check(adopted or not eng.using_proxy,
+              f"{label}: the auto policy took the dense hierarchy "
+              f"(m={eng.m}, levels={eng.levels}), neither branch")
+        est = dict(eng.cost_estimates)
+        if adopted:
+            ms_a = step_ms(eng, steps)
+            other = create_engine("tpu+hybrid", st, soft=soft, dt=dt)
+            ms_x = step_ms(other, steps)
+            plan = eng._plan
+        else:
+            ms_x = step_ms(eng, steps)
+            other = create_engine("tpu+proxy", st, soft=soft, dt=dt,
+                                  near="adaptive")
+            ms_a = step_ms(other, steps)
+            plan = other._plan
+        del eng, other
+        torch.cuda.empty_cache()
+        return {"label": label, "npad": st.npad, "adopted": adopted,
+                "est": est, "ms_adaptive": ms_a, "ms_exact": ms_x,
+                "plan": (plan.m, plan.dense_levels, plan.levels),
+                "build_s": t_build}
+
+    for n in PLAN_NS:
+        rows.append(decide(f"two clusters N={n}", two_clusters(n, device=dev),
+                           TWO_CLUSTERS_SOFT, TWO_CLUSTERS_DT, 3))
+    rows.append({"label": f"two clusters N={st9.n} (phase 9)",
+                 "npad": st9.npad, "adopted": True, "est": est9,
+                 "ms_adaptive": ms9, "ms_exact": ms_exact9, "plan": None,
+                 "build_s": 0.0})
+    mg = init_milkyway_andromeda(tab, device=dev)
+    rows.append(decide(f"merger N={mg.n}", mg, SOFT, DT, 5))
+    del mg
+    for r in rows:
+        fast = "adaptive" if r["ms_adaptive"] < r["ms_exact"] else "exact"
+        gap = max(r["ms_adaptive"], r["ms_exact"]) / min(
+            r["ms_adaptive"], r["ms_exact"])
+        pick = "adaptive" if r["adopted"] else "exact"
+        print(f"[16 pick] {r['label']}: predicted adaptive "
+              f"{r['est']['adaptive_ms']:.3f} ms, exact "
+              f"{r['est']['exact_ms']:.3f}; measured adaptive "
+              f"{r['ms_adaptive']:.3f} ms (plan m, Ld, L {r['plan']}), exact "
+              f"{r['ms_exact']:.3f}; picks {pick}, faster {fast} by "
+              f"{gap:.2f}x (engine built in {r['build_s']:.1f} s)")
+        check(gap <= PICK_GAP or pick == fast,
+              f"{r['label']}: the auto policy picked {pick}, but {fast} is "
+              f"{gap:.2f}x faster")
+    # the models against the measurements
+    for r in rows[:len(PLAN_NS)]:
+        ratio = r["est"]["exact_ms"] / r["ms_exact"]
+        print(f"[16 model] exact N={r['npad']}: predicted "
+              f"{r['est']['exact_ms']:.3f} ms, measured {r['ms_exact']:.3f}"
+              f" ({ratio:.2f}x)")
+        check(1 / MODEL_RATIO <= ratio <= MODEL_RATIO,
+              f"exact model at N={r['npad']} {ratio:.2f}x the step")
+        check(r["est"]["exact_ms"] == exact_cost_ms(r["npad"], dev),
+              "the engine's exact estimate is not the card's model")
+    ratio = est9["adaptive_ms"] / ms9
+    print(f"[16 model] adaptive N={st9.n}: predicted "
+          f"{est9['adaptive_ms']:.3f} ms, measured {ms9:.3f} ({ratio:.2f}x)")
+    check(1 / MODEL_RATIO <= ratio <= MODEL_RATIO,
+          f"adaptive model at N={st9.n} {ratio:.2f}x the step")
+
+    # the depth model on the random box
+    r16 = make_bodies(n_main, "random", SEED, device=dev)
+    half = float(half_extent(r16.unpadded()))
+    cands = fmm.depth_candidates(r16.npad, half, SOFT, TOL, device=dev)
+    pick = fmm.best_depth(r16.npad, half, SOFT, TOL, device=dev)
+    engines = {(m, lv): create_engine("tpu+proxy", r16, soft=SOFT, dt=DT,
+                                      m=m, levels=lv, validate=False)
+               for _, m, lv in cands}
+    walls = {k: [] for k in engines}
+    for order in (list(engines), list(engines)[::-1], list(engines)):
+        for k in order:
+            walls[k].append(step_ms(engines[k], 30))
+    # host time only adds to a step: the least of the three turns
+    ms = {k: min(v) for k, v in walls.items()}
+    best = min(ms, key=ms.get)
+    for est, m, lv in cands:
+        print(f"[16 depth] random N={n_main} m={m} L={lv}: est {est:.4g} "
+              f"MAC-eq, {ms[(m, lv)]:.4f} ms a step (runs "
+              f"{', '.join(f'{w:.4f}' for w in walls[(m, lv)])})")
+    print(f"[16 depth] best_depth picks {pick} ({ms[pick]:.4f} ms), the "
+          f"fastest is {best} ({ms[best]:.4f} ms); phase 8's engine kept "
+          f"{pick8} after validation")
+    check(ms[pick] <= DEPTH_SLACK * ms[best],
+          f"best_depth's pick {pick} at {ms[pick]:.4f} ms, the fastest "
+          f"{best} at {ms[best]:.4f}")
+    del engines, r16
+    torch.cuda.empty_cache()
+    print(f"[16 time] phase 16 took {time.perf_counter() - t_phase:.1f} s "
+          f"on {smi}")
+
+
 def within_rel(got, ref, eps: float, rms_floor: float, rms=None) -> float:
     """Catch2 WithinRel with an rms floor (tests/conftest.py); returns the
     largest ratio of |a - b| to its allowance (<= 1 passes).  ``rms``: each
@@ -2200,22 +2354,11 @@ def gm_of(state):
 
 def event_ms(fn, reps: int = 10, runs: int = 5) -> float:
     """Median over ``runs`` of the mean CUDA-event time of ``reps`` calls
-    of ``fn``, after one warm-up call."""
-    import torch
+    of ``fn``, after one warm-up call (``utils/profile_step.event_ms`` at
+    this script's counts)."""
+    from murb_tpu_torch.utils import profile_step
 
-    fn()
-    torch.cuda.synchronize()
-    out = []
-    for _ in range(runs):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(reps):
-            fn()
-        b.record()
-        torch.cuda.synchronize()
-        out.append(a.elapsed_time(b) / reps)
-    return statistics.median(out)
+    return profile_step.event_ms(fn, reps, runs)
 
 
 #: phase 11's rings across processes: (processes, their hosts, local shards
@@ -3549,6 +3692,7 @@ def main() -> int:
         launches[k] = counts[k]
         check(counts[k] > 0, f"{k} launched no time on the adaptive path")
     plan = e9._plan
+    est9 = dict(e9.cost_estimates)      # the policy's estimates (phase 16)
     health9 = e9.proxy_health()
     (_, fps_exact9), counts_x = drive(lambda: timed(create_engine(
         "tpu+hybrid", st9, soft=soft9, dt=dt9), 3))
@@ -3844,11 +3988,11 @@ def main() -> int:
           f"coordinates): card vs CPU plain path positions max rel diff "
           f"{worst:.3e} (tol 1e-4)")
 
-    # the adaptive step's dense far sweep: K7 at the plan's Ld = 2 (C=4)
-    # and order m=6 on this box's own expansions, nf 3 (tpu+proxy) and 4
-    # (the tracked step), against its plain version in float64 (3e-5 of
-    # max|f|), launched twice for the same bits
-    mf, Cf = 6, 4
+    # the adaptive step's dense far sweep: K7 at the plan's order and
+    # dense base (C = 2^Ld) on this box's own expansions, nf 3 (tpu+proxy)
+    # and 4 (the tracked step), against its plain version in float64
+    # (3e-5 of max|f|), launched twice for the same bits
+    mf, Cf = plan.m, 2 ** plan.dense_levels
     wf = fk.p2m_grid_fused(*q9, ge9, c9, h9, m=mf, C=Cf)
     for nf in (3, 4):
         f = fk.m2l_level_fused(wf, h9 / Cf, soft9, m=mf, C=Cf, subset="far",
@@ -4641,6 +4785,11 @@ def main() -> int:
                                      soft9, dt9, tab))
     launches.update(phase15_sweeps(dev, smi, drive, time_ms, keep,
                                    within_rel, norm_rel, tab, n_main))
+    torch.cuda.empty_cache()
+
+    # ------------------------------ 16. the planners' decisions on the card
+    phase16(dev, smi, st9, est9, 1e3 / fps9, 1e3 / fps_exact9, tab, pick8,
+            n_main)
 
     for k, count in launches.items():
         check(count > 0, f"{k} launched no time on its piece of the path")

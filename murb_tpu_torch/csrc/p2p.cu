@@ -22,9 +22,15 @@
 // and stages each listed source brick -- {x, y, z, G m} and the cells as
 // one 16-byte cp.async each a thread, double-buffered so that the next
 // brick lands while this one is swept, one barrier a brick.  Every thread
-// adds, for the sources of the listed bricks in order,
+// adds, for the sources of each listed brick in order, in fp32,
 //     a += gm_s (d.d + eps^2)^-3/2 d,   phi += gm_s (d.d + eps^2)^-1/2
-// then writes its (nf,) result once: no atomics, the same bits every run.
+// folds the brick's sums into fp64 sums (the bricks in order), and writes
+// its (nf,) result once: no atomics, the same bits every run.  The fold
+// keeps the error of a long row at that of one brick's fp32 sum: a plan
+// with coarser finest cells gives a target ~60k sources (the 1M
+// two-cluster box at L = 6), over which one fp32 sum drifted to 3.1e-5 of
+// max|a| against float64 where a brick's drifts to 3e-7; it costs four
+// DADDs a brick a thread.
 // The self pair lands at d = 0: zero force, gm/eps to phi.  Inactive
 // bodies carry gm 0 and the sentinel cell 2C + 9, so they pair with
 // nothing that weighs.  The blocks run in decreasing row length (`order`,
@@ -44,7 +50,7 @@
 //             mask;
 //   mixed     the per-pair test, as before.
 // A skipped pair would only have added w = 0 and the sources keep their
-// order, so the sums are the first design's bit for bit.  The rsqrt is
+// order, so the sums are a sweep of every pair's bit for bit.  The rsqrt is
 // rsqrt.approx.ftz (d^2 + eps^2 is never denormal for eps > 0).
 //
 // bf16 state (murb_p2p_sorted_bf16): the wrapper packs the bodies as
@@ -126,7 +132,8 @@ p2p_kernel(const Row* __restrict__ body, const int4* __restrict__ cell,
   // this warp's sub-brick box: box[2k] lo, box[2k + 1] hi
   const long long sub = static_cast<long long>(t) * kSubs + warp;
   const int4 tlo = box[2 * sub], thi = box[2 * sub + 1];
-  float ax = 0.f, ay = 0.f, az = 0.f, phi = 0.f;
+  float ax = 0.f, ay = 0.f, az = 0.f, phi = 0.f;   // this brick's sums
+  double sx = 0.0, sy = 0.0, sz = 0.0, sphi = 0.0;  // the row's
 
   // stage source brick sb into buffer b: one body, one cell a thread,
   // threads 0-7 the four sub-brick boxes
@@ -203,14 +210,19 @@ p2p_kernel(const Row* __restrict__ body, const int4* __restrict__ cell,
         else
           sweep_sub<kPhi, true>(s, c, me, mc, soft2, ax, ay, az, phi);
       }
+      sx += ax;
+      sy += ay;
+      sz += az;
+      if (kPhi) sphi += phi;
+      ax = ay = az = phi = 0.f;
     }
     done += total;
   }
   const long long n = static_cast<long long>(nbrick) * kBrick;
-  out[i] = ax;
-  out[n + i] = ay;
-  out[2 * n + i] = az;
-  if (kPhi) out[3 * n + i] = phi;
+  out[i] = static_cast<float>(sx);
+  out[n + i] = static_cast<float>(sy);
+  out[2 * n + i] = static_cast<float>(sz);
+  if (kPhi) out[3 * n + i] = static_cast<float>(sphi);
 }
 
 // K10's launch, the fp32 (Row float4) or the bf16 (uint2) instance.

@@ -272,6 +272,9 @@ class ProxyEngine(EulerAccelEngine):
         self.near = near
         self.near_mode = "interp"   # resolved: "interp" | "adaptive"
         self._plan = None           # SparsePlan when near_mode == "adaptive"
+        # the adaptive planner's last estimates {"adaptive_ms", "exact_ms"}
+        # (adaptive_ms 0.0 where the levels were given)
+        self.cost_estimates: dict | None = None
         self.m2l_dots = check_m2l_dots(m2l_dots)
         self._auto = m == 0 and levels == 0
         if self._auto:
@@ -325,9 +328,11 @@ class ProxyEngine(EulerAccelEngine):
     def _configure_adaptive(self, force: bool = False) -> None:
         """Plan the adaptive sparse hierarchy for the current distribution
         (ops/sparse_fmm) and adopt it when its cost model beats the exact
-        kernel's, or always when ``near="adaptive"`` forces it.  The cost
-        models keep murb_tpu's TPU rates (ROADMAP.md: an H100 calibration is
-        open), so the port declines and adopts where murb_tpu does."""
+        kernel's, or always when ``near="adaptive"`` forces it.  Both cost
+        models take the state's device's rates (``sparse_fmm.planner_rates``:
+        murb_tpu's on the CPU, so a CPU state declines and adopts where
+        murb_tpu does; the H100's measured rates on a card).  The two
+        estimates are kept in ``cost_estimates``."""
         from murb_tpu_torch.ops.sparse_fmm import (adaptive_order,
                                                    best_adaptive_plan,
                                                    exact_cost_ms,
@@ -343,8 +348,10 @@ class ProxyEngine(EulerAccelEngine):
             est_ms = 0.0
         else:
             plan, est_ms = best_adaptive_plan(q, npad, m0, device=dev)
+        exact_ms = exact_cost_ms(npad, dev)
+        self.cost_estimates = {"adaptive_ms": est_ms, "exact_ms": exact_ms}
         if not force and est_ms >= min(1.0, self.cost_slack / 30.0) \
-                * exact_cost_ms(npad):
+                * exact_ms:
             return  # the exact fallback stays the honest pick
         self._plan = plan
         self.near_mode = "adaptive"
@@ -420,11 +427,12 @@ class ProxyEngine(EulerAccelEngine):
         self.validated_half = None
 
     def _best_depth(self, half: float) -> tuple[int, int]:
-        """(m, levels) from the shared depth-cost policy (ops/fmm.best_depth,
-        calibrated on a TPU; ROADMAP.md)."""
+        """(m, levels) from the shared depth-cost policy (ops/fmm.best_depth)
+        at the state's device's level overhead."""
         from murb_tpu_torch.ops.fmm import best_depth
 
-        return best_depth(self._state.npad, half, self.soft, self.tol)
+        return best_depth(self._state.npad, half, self.soft, self.tol,
+                          device=self._state.device)
 
     def _apply_cost_model(self) -> None:
         # The fast solver must not be drastically costlier than the exact

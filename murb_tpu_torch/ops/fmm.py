@@ -16,7 +16,9 @@ where every stage stays a dense regular-grid contraction:
 
 Heavy bodies are excluded and corrected exactly, as in ops/proxy.py.  The
 host helpers (offset lists, transfer matrices, the depth-cost policy)
-match murb_tpu's exactly, so the port picks the same (m, levels).
+match murb_tpu's exactly; the depth-cost policy takes its level overhead
+from the state's device type (murb_tpu's on the CPU, so a CPU state picks
+murb_tpu's (m, levels); the H100's measured rate on a card).
 
 ``near="p2p"`` leaves the finest level's 27-cell neighbourhood out of the
 sweeps (one "far" sweep there) and sums it exactly with the P2P stage of
@@ -186,26 +188,50 @@ def required_levels(halfwidth: float, soft: float, *, a_target: float = 1.0,
 
 
 #: The depth-cost model's fixed cost of one more level, in MAC
-#: equivalents, as murb_tpu calibrated it on a TPU v5e
-#: (murb_tpu/ops/fmm.py:460-491).  Kept unchanged so the port picks the
-#: same (m, levels); it waits for an H100 calibration (ROADMAP.md).
-LEVEL_OVERHEAD = 3.5e10
+#: equivalents, by the device type of the state.  "cpu" is murb_tpu's
+#: constant, calibrated on a TPU v5e (murb_tpu/ops/fmm.py:460-491: about
+#: 1.75 ms at its ~2e10 MAC/ms M2L rate), kept so that a CPU state picks
+#: murb_tpu's (m, levels); it is not a time of the port.  "cuda" is the
+#: H100's (NVIDIA H100 80GB HBM3, 700.00 W): 2.474 ms a level times the
+#: step's 2.437e10 MAC/ms, both fitted by scripts/torch_m2l_tier_probe.py
+#: over tpu+proxy's step at 13 (m, levels) on the 200k random box (PERF.md
+#: "Planner rates"; the measurements in
+#: docs/planner_rates/h100_depth_raw.json, which ``--from`` fits again).
+LEVEL_OVERHEAD = {"cpu": 3.5e10, "cuda": 60279289029.630226}
 
 
-def best_depth(n: int, halfwidth: float, soft: float,
-               tol: float = 1e-4) -> tuple[int, int]:
-    """(m, levels) minimising the depth-cost model over the depths from
+def level_overhead(device) -> float:
+    """LEVEL_OVERHEAD of ``device``'s type; raises for a type with none."""
+    kind = torch.device(device).type
+    if kind not in LEVEL_OVERHEAD:
+        raise ValueError(f"no depth-cost rates for device type {kind!r} "
+                         f"(known: {sorted(LEVEL_OVERHEAD)})")
+    return LEVEL_OVERHEAD[kind]
+
+
+def depth_candidates(n: int, halfwidth: float, soft: float,
+                     tol: float = 1e-4,
+                     device="cuda") -> list[tuple[float, int, int]]:
+    """(est, m, levels) of each depth the depth-cost model weighs, from
     required_levels to 4: P2M/L2P work 8 n m^3, the expand sweeps
-    686 8^L m^6, and LEVEL_OVERHEAD per level past the minimum."""
-    best = None
+    686 8^L m^6, and ``device``'s LEVEL_OVERHEAD per level past the
+    minimum."""
+    overhead = level_overhead(device)
     lmin = required_levels(halfwidth, soft)
+    out = []
     for levels in range(lmin, max(lmin, 4) + 1):
         m = fmm_order(halfwidth, soft, levels, tol)
-        est = (8 * n * m ** 3 + 686 * 8 ** levels * m ** 6
-               + LEVEL_OVERHEAD * (levels - lmin))
-        if best is None or est < best[0]:
-            best = (est, m, levels)
-    return best[1], best[2]
+        out.append((8 * n * m ** 3 + 686 * 8 ** levels * m ** 6
+                    + overhead * (levels - lmin), m, levels))
+    return out
+
+
+def best_depth(n: int, halfwidth: float, soft: float, tol: float = 1e-4,
+               device="cuda") -> tuple[int, int]:
+    """(m, levels) of the cheapest depth_candidates (the first on a tie)."""
+    _, m, levels = min(depth_candidates(n, halfwidth, soft, tol, device),
+                       key=lambda c: c[0])
+    return m, levels
 
 
 #: Error prefactor of the hierarchical solver with 3x safety, measured by

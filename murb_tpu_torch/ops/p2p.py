@@ -220,8 +220,10 @@ def size_pmax(n_pairs: int, margin: float = 2.0,
 def p2p_cost_model(n_pairs: int, n: int, m: int, levels: int,
                    K: int = DEFAULT_K) -> float:
     """MAC-equivalent cost of a p2p-mode hierarchy step in the currency of
-    ops/fmm.best_depth (murb_tpu/ops/p2p.py:p2p_cost_model, its TPU rates
-    kept): far field plus ~26 slots a body pair at ~5 MAC equivalents."""
+    ops/fmm.best_depth (murb_tpu/ops/p2p.py:p2p_cost_model): far field plus
+    ~26 slots a body pair at ~5 MAC equivalents.  murb_tpu's weights, from
+    a TPU: no planner of either package calls it, so no card rate was
+    fitted for it."""
     far = 8 * n * m**3 + 686 * 8**levels * m**6
     sweep = n_pairs * K * K * 26 * 5
     return far + sweep

@@ -16,8 +16,9 @@ classes, ops/p2p.subtile_class) and the target bricks in decreasing row
 length (the launch order), all made on the device with no host sync.
 
 ``p2p_sweep_kernel_sorted`` runs the plain sweep on CPU tensors and
-launches K10 on CUDA tensors (fp32 inside; float64 inputs are cast here
-and the result cast back), and counts each launch.  A bf16 state (the
+launches K10 on CUDA tensors (fp32 inside, each source brick's sums
+folded into fp64 sums; float64 inputs are cast here and the result cast
+back), and counts each launch.  A bf16 state (the
 four body arrays bf16) launches K10's bf16 instance
 (``murb_p2p_sorted_bf16``) on bf16 {x, y, z, G m} rows, counted in
 ``bf16_launches``: it converts each staged row to fp32, so its sums are

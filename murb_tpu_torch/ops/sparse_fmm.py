@@ -799,27 +799,73 @@ def p2p_capacity_needed(n_pairs: int) -> int:
     return size_pmax(n_pairs, margin=1.0)
 
 
-# Stage rates murb_tpu measured on a TPU v5e (sparse_fmm.py:1230-1240),
-# kept so the port plans what murb_tpu plans.  They wait for an H100
-# calibration (ROADMAP.md): the offset M2L at the fp32 matmul rate, the
-# plain P2P sweep (the CPU's), the kernel sweep (K10 on a card, at the TPU
-# kernel's rate), the anterpolation per body, the exact kernel.
-_MAC_PER_MS = 2.2e10
-_GATHER_BYTES_PER_MS = 150e9 / 1e3
-_P2P_SLOTS_PER_MS = 1.2e9
-_P2P_SLOTS_PER_MS_KERNEL = 2.1e9
-_ANTERP_US_PER_BODY = 0.38
-_EXACT_SLOTS_PER_MS = 3.9e9
+class PlannerRates(NamedTuple):
+    """The constants of the adaptive and exact cost models
+    (``_cost_from_stats``, ``exact_cost_ms``) for one device type."""
+    mac_per_ms: float            # M2L multiply-adds (sparse and dense)
+    gather_bytes_per_ms: float   # the sparse M2L's source gathers
+    p2p_slots_per_ms: float      # the near sweep the device's plans run
+    anterp_us_per_body: float    # the P2M and L2P windows (K11, K12)
+    misc_ms_per_level: float     # sorts, uniques, chains: a sparse level
+    misc_ms: float               # and once a solve
+    factor: float                # the step over the stage sum
+    exact_slots_per_ms: float    # the exact sweep, 14 slots a pair
 
 
-def _p2p_rate(device) -> float:
-    return (_P2P_SLOTS_PER_MS_KERNEL if _impl(device) == "kernel"
-            else _P2P_SLOTS_PER_MS)
+#: The cost models' constants by the device type of the state.  "cpu" is
+#: murb_tpu's, measured on a TPU v5e (murb_tpu/ops/sparse_fmm.py:1229-1240,
+#: the misc terms and the end-to-end factor :1268-1274), kept so that a CPU
+#: state plans and adopts what murb_tpu does; they are not times of the
+#: port.  Its P2P rate is murb_tpu's jnp sweep's, the one murb_tpu uses
+#: off the TPU (the plain sweep, which a CPU plan runs).  "cuda" is the
+#: H100's (NVIDIA H100 80GB HBM3, 700.00 W), fitted by
+#: scripts/torch_adaptive_stage_probe.py on the two-cluster box at 131,072,
+#: 262,144, 524,288 and 1,048,576 bodies (PERF.md "Planner rates"; the
+#: measurements in docs/planner_rates/h100_stage_raw.json, which ``--from``
+#: fits again):
+#:   mac_per_ms, gather_bytes_per_ms: the sparse M2L a level (orders 4, 6
+#:     and 8, every level) at 1.56e10 MAC/ms and 7.56e7 B/ms plus 8.24 ms a
+#:     call, as the MACs and bytes the model counts at the planning order
+#:     8 cost at the validated order 6 (times (8/6)^6 and (8/6)^3);
+#:   p2p_slots_per_ms: K10's sweep, the median over the four N;
+#:   anterp_us_per_body: K11 + K12 with their glue, the median;
+#:   misc_ms_per_level, misc_ms, factor: least squares over the 18 engine
+#:     steps at the validated order (the plans and their neighbours);
+#:   exact_slots_per_ms: the exact step (K4 passes 2 on K3's kernel), 14
+#:     slots a pair, the median over the four N.
+PLANNER_RATES = {
+    "cpu": PlannerRates(mac_per_ms=2.2e10, gather_bytes_per_ms=150e9 / 1e3,
+                        p2p_slots_per_ms=1.2e9, anterp_us_per_body=0.38,
+                        misc_ms_per_level=0.5, misc_ms=2.0, factor=2.0,
+                        exact_slots_per_ms=3.9e9),
+    "cuda": PlannerRates(mac_per_ms=87405745163.3471,
+                         gather_bytes_per_ms=179135312.097812,
+                         p2p_slots_per_ms=40166084853.96363,
+                         anterp_us_per_body=0.0022878519606213863,
+                         misc_ms_per_level=12.268574321266613,
+                         misc_ms=14.922682950046912,
+                         factor=0.9075862120289167,
+                         exact_slots_per_ms=28478994427.459156),
+}
 
 
-def _cost_from_stats(stats, n_bricks, npad, m, dense_levels, levels,
-                     nf: int = 3, m2l_rank: int = -1,
-                     device="cuda") -> float:
+def planner_rates(device) -> PlannerRates:
+    """PLANNER_RATES of ``device``'s type; raises for a type with none."""
+    kind = torch.device(device).type
+    if kind not in PLANNER_RATES:
+        raise ValueError(f"no planner rates for device type {kind!r} "
+                         f"(known: {sorted(PLANNER_RATES)})")
+    return PLANNER_RATES[kind]
+
+
+def cost_with_rates(rates: PlannerRates, stats, n_bricks, npad, m,
+                    dense_levels, levels, nf: int = 3,
+                    m2l_rank: int = -1) -> float:
+    """murb_tpu's adaptive step model (sparse_fmm.py:1248-1274) in ms at
+    ``rates``: the M2L (the sparse levels of ``stats`` occupied cells and
+    the dense base) at its MAC and gather rates, the P2P sweep's 26 slots a
+    brick pair, the anterpolation a body, the misc terms, all times the
+    end-to-end factor."""
     NO = len(_far_offsets()[0])
     rank = default_m2l_rank(m) if m2l_rank < 0 else m2l_rank
     m3 = m ** 3
@@ -832,29 +878,37 @@ def _cost_from_stats(stats, n_bricks, npad, m, dense_levels, levels,
             per_field = rows * r * r + NO * (m3 * m3 * r + m3 * r * r)
         else:
             per_field = rows * m3 * m3
-        m2l += per_field * nf / _MAC_PER_MS
-        m2l += rows * (r or m3) * 4 / _GATHER_BYTES_PER_MS
-    m2l += 686 * 8 ** dense_levels * m ** 6 * nf / _MAC_PER_MS
-    p2p = n_bricks * DEFAULT_K ** 2 * 26 / _p2p_rate(device)
-    anterp = npad * _ANTERP_US_PER_BODY / 1e3
-    misc = 0.5 * (levels - dense_levels) + 2.0
-    # murb_tpu's end-to-end factor: the solve measured ~2x the stage sum
-    return 2.0 * (m2l + p2p + anterp + misc)
+        m2l += per_field * nf / rates.mac_per_ms
+        m2l += rows * (r or m3) * 4 / rates.gather_bytes_per_ms
+    m2l += 686 * 8 ** dense_levels * m ** 6 * nf / rates.mac_per_ms
+    p2p = n_bricks * DEFAULT_K ** 2 * 26 / rates.p2p_slots_per_ms
+    anterp = npad * rates.anterp_us_per_body / 1e3
+    misc = rates.misc_ms_per_level * (levels - dense_levels) + rates.misc_ms
+    return rates.factor * (m2l + p2p + anterp + misc)
+
+
+def _cost_from_stats(stats, n_bricks, npad, m, dense_levels, levels,
+                     nf: int = 3, m2l_rank: int = -1,
+                     device="cuda") -> float:
+    return cost_with_rates(planner_rates(device), stats, n_bricks, npad, m,
+                           dense_levels, levels, nf, m2l_rank)
 
 
 def plan_cost_ms(q: np.ndarray, npad: int, m: int, dense_levels: int,
                  levels: int, nf: int = 3, m2l_rank: int = -1,
                  device="cuda") -> float:
-    """Estimated adaptive step cost in ms from the stage rates above."""
+    """Estimated adaptive step cost in ms at ``device``'s rates
+    (planner_rates)."""
     return _cost_from_stats(level_stats(q, dense_levels, levels),
                             estimate_brick_pairs(q, npad, levels),
                             npad, m, dense_levels, levels, nf, m2l_rank,
                             device)
 
 
-def exact_cost_ms(npad: int) -> float:
-    """The exact kernel's cost model (murb_tpu's TPU rate)."""
-    return 14.0 * npad * npad / _EXACT_SLOTS_PER_MS
+def exact_cost_ms(npad: int, device="cuda") -> float:
+    """The exact sweep's cost model in ms: 14 slots a body pair at
+    ``device``'s rate (planner_rates)."""
+    return 14.0 * npad * npad / planner_rates(device).exact_slots_per_ms
 
 
 #: error prefactor of the adaptive far shell, err ~ C rho^-m with rho =

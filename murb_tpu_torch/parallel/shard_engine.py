@@ -214,7 +214,7 @@ class ShardedEngine(SimulationEngine):
                     mode = "adaptive"
                 else:
                     self.fmm_m, self.fmm_levels = best_depth(
-                        bodies.npad, half, soft_val)
+                        bodies.npad, half, soft_val, device=bodies.device)
             if mode == "fmm":
                 self.proxy_heavy_k = 1
         if mode != "adaptive" and validate and not m:
@@ -485,7 +485,8 @@ class ShardedEngine(SimulationEngine):
             if fmm_order(half, self.soft, lv_req, 1e-4) > 16:
                 return self._promote_to_adaptive()
             self.fmm_m, self.fmm_levels = best_depth(
-                self._n + self._padding, half, self.soft)
+                self._n + self._padding, half, self.soft,
+                device=self.mesh.devices[0])
         if (mode, getattr(self, "proxy_m", None), getattr(self, "fmm_m", None),
                 getattr(self, "fmm_levels", None)) == old:
             return False

@@ -128,6 +128,81 @@ def graph_ms(fn, reps: int = 20, runs: int = 5) -> float:
     return statistics.median(out)
 
 
+def event_ms(fn, reps: int = 3, runs: int = 3) -> float:
+    """Time (ms) of one call of ``fn`` as a caller pays it: CUDA events
+    around ``reps`` calls from the host (host gaps between the launches
+    included), after one warm-up call; the median of ``runs``."""
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(runs):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        out.append(a.elapsed_time(b) / reps)
+    return statistics.median(out)
+
+
+def device_ms(fn, reps: int = 3) -> float | None:
+    """Device time (ms) of one call of ``fn``: the device rows of
+    ``torch.profiler`` (``device_rows``) over ``reps`` calls, after one
+    warm-up call; None (not measured) where the profiler recorded no
+    device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in device_rows(prof))
+    return us / 1e3 / reps if us > 0 else None
+
+
+def step_ms(engine, steps: int, windows: int = 3) -> float:
+    """Wall time (ms) of one engine step: the median over ``windows`` of
+    ``engine.run(steps)`` on the host clock, each ending in a synchronise,
+    after one warm-up step."""
+    engine.run(1)
+    engine.block_until_ready()
+    out = []
+    for _ in range(windows):
+        t0 = time.perf_counter()
+        engine.run(steps)
+        engine.block_until_ready()
+        out.append((time.perf_counter() - t0) * 1e3 / steps)
+    return statistics.median(out)
+
+
+def fit_relative(rows, ys, names) -> dict:
+    """Least squares of ``ys`` on the columns of ``rows`` with relative
+    residuals (each row divided by its y), for the calibration probes'
+    fits; a column whose coefficient comes out <= 0 is dropped and the
+    rest fitted again.  Returns {name: coefficient}, 0.0 for a dropped
+    column."""
+    import numpy as np
+
+    a = np.asarray(rows, float)
+    y = np.asarray(ys, float)
+    keep = list(range(a.shape[1]))
+    while True:
+        coef = np.linalg.lstsq(a[:, keep] / y[:, None], np.ones(len(y)),
+                               rcond=None)[0]
+        if (coef > 0).all() or len(keep) == 1:
+            break
+        keep = [k for k, v in zip(keep, coef) if v > 0]
+    out = dict.fromkeys(names, 0.0)
+    for k, v in zip(keep, coef):
+        out[names[k]] = float(v)
+    return out
+
+
 def device_rows(prof) -> list:
     """The profiler's per-name rows of device events (no host operators,
     no user annotations)."""

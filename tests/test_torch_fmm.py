@@ -92,12 +92,25 @@ def test_m2m_matrix_and_basis_match_jax(m):
 @pytest.mark.parametrize("half", [1.0e8, 2.5e8, 6.65e8, 1.33e9, 3e9, 1e10,
                                   1e11])
 def test_best_depth_and_levels_match_jax(half):
-    assert tf.LEVEL_OVERHEAD == 3.5e10
+    """On a CPU state the depth model is murb_tpu's (its TPU overhead); on
+    a card the same candidates, each level past the minimum priced at the
+    card's overhead instead."""
+    assert tf.LEVEL_OVERHEAD["cpu"] == 3.5e10
     assert tf.required_levels(half, SOFT) == jf.required_levels(half, SOFT)
+    lmin = tf.required_levels(half, SOFT)
+    extra = tf.LEVEL_OVERHEAD["cuda"] - tf.LEVEL_OVERHEAD["cpu"]
     for n in (1024, 200_192, 1_000_000, 16_777_216):
         for tol in (1e-3, 1e-4, 1e-5):
-            assert tf.best_depth(n, half, SOFT, tol) == \
+            assert tf.best_depth(n, half, SOFT, tol, device="cpu") == \
                 jf.best_depth(n, half, SOFT, tol), (n, tol)
+            cpu = tf.depth_candidates(n, half, SOFT, tol, device="cpu")
+            card = tf.depth_candidates(n, half, SOFT, tol, device="cuda")
+            assert [c[1:] for c in card] == [c[1:] for c in cpu]
+            for (e, _, lv), (e0, _, _) in zip(card, cpu):
+                assert e == pytest.approx(e0 + extra * (lv - lmin),
+                                          rel=1e-12)
+            assert tf.best_depth(n, half, SOFT, tol, device="cuda") == \
+                min(card, key=lambda c: c[0])[1:], (n, tol)
 
 
 # ------------------------------------------------- components in float64

@@ -402,13 +402,25 @@ def test_best_plan_order_and_costs_match_jax():
     for tol in (1e-3, 1e-4, 1e-5, 1e-7):
         assert ts.adaptive_order(tol) == js.adaptive_order(tol)
     for npad in (2048, 82_176, 1_048_576):
-        assert ts.exact_cost_ms(npad) == js.exact_cost_ms(npad)
+        assert ts.exact_cost_ms(npad, "cpu") == js.exact_cost_ms(npad)
+        assert ts.exact_cost_ms(npad, "cuda") == 14.0 * npad * npad \
+            / ts.PLANNER_RATES["cuda"].exact_slots_per_ms
     stats = js.level_stats(q, 2, 6)
     assert ts._cost_from_stats(stats, 1000, 4096, 8, 2, 6, 4, 384,
                                device="cpu") == \
         js._cost_from_stats(stats, 1000, 4096, 8, 2, 6, 4, 384)
-    # on a card the plan names K10 and the model takes the kernel's rate
+    # on a card the plan names K10 and the model takes the card's rates
+    # (K10's sweep among them, faster than the CPU table's plain sweep):
+    # the cheapest geometry at those rates
     cplan, ccost = ts.best_adaptive_plan(q, 4096, 6, device="cuda")
-    assert cplan.p2p_impl == "kernel" and ccost <= tcost
+    assert cplan.p2p_impl == "kernel"
+    assert ts.PLANNER_RATES["cuda"].p2p_slots_per_ms > \
+        ts.PLANNER_RATES["cpu"].p2p_slots_per_ms
+    assert ccost == pytest.approx(ts.plan_cost_ms(
+        q, 4096, 6, cplan.dense_levels, cplan.levels, device="cuda"),
+        rel=1e-12)
+    assert ccost == pytest.approx(min(
+        ts.plan_cost_ms(q, 4096, 6, ld, lv, device="cuda")
+        for ld in (2, 3) for lv in range(ld + 1, 10)), rel=1e-12)
     assert ts.SparsePlan.from_fields(
         **jplan._replace(p2p_impl="pallas")._asdict()).p2p_impl == "kernel"
