@@ -201,7 +201,16 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      the faster wherever they differ by more than 15%); the exact model
      within 1.5x of the step at the three N, the adaptive model within
      1.5x at 1M; on the 200k random box the step at each (m, levels)
-     ``best_depth`` weighs, its pick within 10% of the fastest.
+     ``best_depth`` weighs, its pick within 10% of the fastest;
+ 17. ``tpu+proxy``'s stage geometry (``block``, ``m2l_tile``): each
+     candidate of ``ProxyEngine._fast_candidates`` for K1 and K2 on the
+     200k galaxy at m=12 and for K8 and K7 on the 200k random box at (m,
+     L) = (8, 2) against the plain version in float64 (phase 3's and
+     phase 8's tolerances), today's geometry given explicitly for the
+     bits of 0, ``--autotune`` through the CLI under a temporary cache
+     (every candidate timed, the pick stored under the engine's key) and a
+     second run that reads the pick with no sweep, and the pick against
+     today's in turns with its measured force error held to 1e-4.
 Each piece of the path (the CLI run of phase 4, the ``acc_proxy`` of phase
 5, each CLI run of phase 6, each run of phases 7 to 11) starts from zeroed
 launch counts, which are read right after it: K1 and K2 from phase 4, K3
@@ -2324,6 +2333,243 @@ def phase16(dev, smi, st9, est9, ms9, ms_exact9, tab, pick8,
     torch.cuda.empty_cache()
     print(f"[16 time] phase 16 took {time.perf_counter() - t_phase:.1f} s "
           f"on {smi}")
+
+
+def phase17(dev, smi, time_ms, n_main, tmp):
+    """17. The fast solver's stage geometry (``ProxyEngine``'s ``block``,
+    ``m2l_tile`` and ``autotune``; murb_tpu/models/engines.py:663-743).
+    On the 200k galaxy at m=12 and on the 200k random box at (m, L) = (8,
+    2), for each candidate of the engine's ``_fast_candidates``: K1 and K2
+    (galaxy), K8 and K7 (box) against their plain versions in float64 at
+    phase 3's and phase 8's tolerances, each timed through its wrapper;
+    today's pick given explicitly (K1's ``p2m_chunk``, K2's block by
+    ``l2p_bodies``, K7's 16 cells an item) gives the bits of the pick 0;
+    K9's item is compiled (64 or 256 bodies by order), so every candidate
+    runs K9 at it.  Then, under a temporary MURB_TUNE_CACHE, ``tpu+proxy
+    --autotune`` through the CLI sweeps and stores the pick under the
+    engine's key; a second run reads it with no sweep; the pick and
+    today's geometry are timed in turns on that engine (steps a second
+    and the solver alone by CUDA events), and the pick's measured force
+    error is held to 1e-4 beside the engine's ``validated_err``."""
+    import torch
+
+    from murb_tpu_torch import cli
+    from murb_tpu_torch.core.init import init_galaxy, init_random
+    from murb_tpu_torch.models import create_engine
+    from murb_tpu_torch.ops import cuda
+    from murb_tpu_torch.ops import fmm_kernels as fk
+    from murb_tpu_torch.ops import proxy_kernels as tk
+    from murb_tpu_torch.ops.proxy import HEAVY_FACTOR, _heavy_setup
+    from murb_tpu_torch.ops.validate import measured_force_error
+    from murb_tpu_torch.utils import autotune as at
+
+    t_phase = time.perf_counter()
+    sms = cuda.sm_count(dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def close(got, ref, rtol, atol_rel, label):
+        """max|d| (and max|ref|) of ``got`` against float64 ``ref`` within
+        rtol + atol_rel * max|ref| (phase 3's allclose)."""
+        g = torch.stack([v.double() for v in got])
+        r = torch.stack([v for v in ref])
+        err, scale = float((g - r).abs().max()), float(r.abs().max())
+        check(bool(torch.allclose(g, r, rtol=rtol, atol=atol_rel * scale)),
+              f"{label}: max|d| {err:.3e} vs rtol {rtol:g} + {atol_rel:g} "
+              f"max|ref| ({atol_rel * scale:.3e})")
+        return err, scale
+
+    def rel_max(got, ref):
+        return max(float((g.double() - r).abs().max() / r.abs().max())
+                   for g, r in zip(got, ref))
+
+    def autotuned(args, label):
+        """``tpu+proxy --autotune`` then the same run without it, through
+        the CLI: (the first run's engine, the second's, candidates timed)."""
+        calls = []
+        measure = at.measure_steps
+        at.measure_steps = lambda *a, **k: calls.append(1) or measure(*a, **k)
+        try:
+            argv = ["-n", str(n_main), "-i", "3", "--im", "tpu+proxy",
+                    *args, "--nv", "--scan", "--device", dev.type]
+            r1 = cli.run(argv + ["--autotune"])
+            swept = len(calls)
+            r2 = cli.run(argv)
+        finally:
+            at.measure_steps = measure
+        check(r1.rc == 0 and r2.rc == 0, f"{label}: --autotune exit codes "
+                                         f"{r1.rc}, {r2.rc}")
+        e1, e2 = r1.engine, r2.engine
+        t1 = e1.tuned
+        check(t1 is not None and "sweep" in t1
+              and swept == len(e1._fast_candidates()),
+              f"{label}: --autotune swept {swept} candidates, tuned {t1}")
+        check(len(calls) == swept and e2.tuned is not None
+              and "sweep" not in e2.tuned
+              and (e2.block, e2.m2l_tile) == (e1.block, e1.m2l_tile),
+              f"{label}: the second run did not read the pick")
+        with open(os.environ["MURB_TUNE_CACHE"]) as f:
+            stored = json.load(f)[at._key(e1._fast_tune_tag, e1.bodies.npad,
+                                          dev)]
+        check((stored["block"], stored["m2l_tile"]) == (e1.block,
+                                                        e1.m2l_tile),
+              f"{label}: stored {stored}")
+        return e1, e2, swept
+
+    def pick_in_turns(e, label):
+        """The pick against today's geometry (0, 0) on engine ``e``, in
+        turns (today, pick, pick, today): steps a second over 50 steps and
+        the solver alone by CUDA events; the pick's force error."""
+        pick = (e.block, e.m2l_tile)
+        st = e.bodies
+        q, g = (st.qx, st.qy, st.qz), e._gm(st)
+        fps, solver = [], []
+        for geo in ((0, 0), pick, pick, (0, 0)):
+            e.block, e.m2l_tile = geo
+            fps.append(timed(e, 50)[1])
+            solver.append(time_ms(lambda: e._acc_solver(*q, g, *geo)))
+        e.block, e.m2l_tile = pick
+        err = measured_force_error(
+            *q, g, SOFT, lambda a, b, c, gg: e._acc_solver(a, b, c, gg, *pick))
+        check(e.validated_err is not None and e.validated_err <= TOL
+              and err <= TOL,
+              f"{label}: validated_err {e.validated_err}, the pick's error "
+              f"{err:.3e} (tol {TOL})")
+        e.assert_finite()
+        print(f"[17 {label} pick] (block, m2l_tile) = {pick}: in turns "
+              f"(today, pick, pick, today) {', '.join(f'{v:.2f}' for v in fps)}"
+              f" FPS; the solver alone {', '.join(f'{v:.4f}' for v in solver)}"
+              f" ms; validated_err {e.validated_err:.3e}, the pick's error "
+              f"{err:.3e} (tol {TOL}); on {smi}")
+        return fps, solver
+
+    os.environ["MURB_TUNE_CACHE"] = os.path.join(tmp, "fast_tune.json")
+    try:
+        # ---- the galaxy at m=12: K1 and K2 at each candidate's block
+        st = init_galaxy(n_main, SEED, device=dev)
+        gm = gm_of(st)
+        q = (st.qx, st.qy, st.qz)
+        q64 = tuple(v.double() for v in q)
+        c, h, *_rest, ge = _heavy_setup(*q, gm, 1, HEAVY_FACTOR)
+        n, m = st.qx.shape[0], 12
+        cands = create_engine("tpu+proxy", st, soft=SOFT, dt=DT, m=m,
+                              autotune=False)._fast_candidates()
+        w64 = tk.p2m_plain(*q64, ge.double(), c.double(), h.double(), m=m)
+        fields = tuple(torch.randn(m ** 3, generator=gen, device=dev)
+                       for _ in range(3))
+        a64 = tk.l2p_plain(*q64, c.double(), h.double(),
+                           tuple(f.double() for f in fields), m=m)
+        chunk0 = fk.p2m_chunk(n, m, sms)
+        block0 = tk.ONE_L2P_THREADS * tk.l2p_bodies(n, m, sms)
+        check(torch.equal(tk.p2m_fused(*q, ge, c, h, m=m),
+                          tk.p2m_fused(*q, ge, c, h, m=m, chunk=chunk0))
+              and all(torch.equal(x, y) for x, y in zip(
+                  tk.l2p_fused_multi(*q, c, h, fields, m=m),
+                  tk.l2p_fused_multi(*q, c, h, fields, m=m, block=block0))),
+              f"K1/K2: today's geometry given ({chunk0}, {block0}) is not "
+              f"the bits of 0")
+        for p in cands:
+            b = p["block"]
+            kb = tk.l2p_block_for(b, m)
+            w = tk.p2m_fused(*q, ge, c, h, m=m, chunk=b)
+            a = tk.l2p_fused_multi(*q, c, h, fields, m=m, block=kb)
+            err_w, _ = close([w], [w64], 1e-4, 1e-6, f"K1 block={b}")
+            err_a, _ = close(a, a64, 1e-4, 1e-5, f"K2 block={b}")
+            ms1 = time_ms(lambda: tk.p2m_fused(*q, ge, c, h, m=m, chunk=b))
+            ms2 = time_ms(lambda: tk.l2p_fused_multi(*q, c, h, fields, m=m,
+                                                     block=kb))
+            run = tk.one_run(n, m, dev, chunk=b)
+            print(f"[17 K1/K2 m={m} N={n} block={b}] K1 {run.nitems} items "
+                  f"of {run.chunk} bodies, max|dW| {err_w:.3e} (rtol 1e-4 + "
+                  f"1e-6 max|W|), {ms1:.4f} ms; K2 blocks of "
+                  f"{kb or block0} bodies, max|da| {err_a:.3e} (rtol 1e-4 + "
+                  f"1e-5 max|a|), {ms2:.4f} ms (through the wrappers)")
+        del w64, a64
+        e1, e2, swept = autotuned([], "galaxy")
+        print(f"[17 galaxy autotune] tpu+proxy N={n_main} m={e1.m}: "
+              f"{swept} candidates, ms/step "
+              + json.dumps({f"{p['block']},{p['m2l_tile']}": v
+                            for p, v in e1.tuned["sweep"]})
+              + f"; pick ({e1.block}, {e1.m2l_tile}) "
+              f"{e1.tuned['ms_per_step']:.4f} ms/step, read back with no "
+              f"sweep under key {e1._fast_tune_tag!r}")
+        pick_in_turns(e2, "galaxy")
+        del st, e1, e2
+
+        # ---- the random box at (8, 2): K8 at each block, K7 at each tile
+        sr = init_random(n_main, SEED, device=dev)
+        q = (sr.qx, sr.qy, sr.qz)
+        q64 = tuple(v.double() for v in q)
+        g8 = gm_of(sr)
+        c, h, *_rest, ge = _heavy_setup(*q, g8, 1, HEAVY_FACTOR)
+        e8 = create_engine("tpu+proxy", sr, soft=SOFT, dt=DT,
+                           autotune=False)
+        check((e8.m, e8.levels) == (8, 2),
+              f"random box took (m, L) = ({e8.m}, {e8.levels}), not (8, 2)")
+        m, C = 8, 4
+        cands = e8._fast_candidates()
+        n = sr.qx.shape[0]
+        order = fk.cell_order(*q, c, h, C)
+        w64 = fk.p2m_grid_plain(*q64, ge.double(), c.double(), h.double(),
+                                m=m, C=C)
+        check(torch.equal(fk.p2m_grid_fused(*q, ge, c, h, m=m, C=C,
+                                            order=order),
+                          fk.p2m_grid_fused(*q, ge, c, h, m=m, C=C,
+                                            order=order,
+                                            chunk=fk.p2m_chunk(n, m, sms))),
+              "K8: today's chunk given is not the bits of 0")
+        hl = h / C
+        f64 = fk.m2l_level_plain(w64, hl.double(), SOFT, m=m, C=C)
+        for p in cands:
+            b, tile = p["block"], p["m2l_tile"]
+            if tile == 0:
+                w = fk.p2m_grid_fused(*q, ge, c, h, m=m, C=C, order=order,
+                                      chunk=b)
+                err = rel_max([w], [w64])
+                check(err <= 1e-5, f"K8 block={b}: {err:.3e} of max|W|")
+                ms = time_ms(lambda: fk.p2m_grid_fused(
+                    *q, ge, c, h, m=m, C=C, order=order, chunk=b))
+                items = fk.p2m_grid_items(order, m, b)
+                print(f"[17 K8 m={m} C={C} N={n} block={b}] items of "
+                      f"{items.chunk} bodies, max|dW|/max|W| {err:.3e} (tol "
+                      f"1e-5), {ms:.4f} ms through the wrapper")
+            if b == 0:
+                f = fk.m2l_level_fused(w64.float(), hl, SOFT, m=m, C=C,
+                                       tile=tile)
+                err = rel_max(f, f64)
+                check(err <= 3e-5, f"K7 m2l_tile={tile}: {err:.3e}")
+                ms = time_ms(lambda: fk.m2l_level_fused(
+                    w64.float(), hl, SOFT, m=m, C=C, tile=tile))
+                plan = fk._plan_on(m, C, "expand", 3, dev, "fp32", tile)[0]
+                print(f"[17 K7 m={m} C={C} expand m2l_tile={tile}] "
+                      f"{len(plan.items)} items, {plan.nsplit} splits; "
+                      f"max|df|/max|f| {err:.3e} (tol 3e-5), {ms:.4f} ms")
+        full = fk.m2l_level_fused(w64.float(), hl, SOFT, m=m, C=C,
+                                  tile=fk.M2L_GROUP)
+        check(all(torch.equal(x, y) for x, y in zip(
+            full, fk.m2l_level_fused(w64.float(), hl, SOFT, m=m, C=C))),
+            f"K7: m2l_tile={fk.M2L_GROUP} is not the bits of 0")
+        k9 = fk.l2p_grid_fused(*q, c, h, tuple(x.float() for x in f64),
+                               m=m, C=C, order=order)
+        err9 = rel_max(k9, fk.l2p_grid_plain(*q64, c.double(), h.double(),
+                                             f64, m=m, C=C))
+        check(err9 <= 1e-4, f"K9: {err9:.3e} of max|a|")
+        print(f"[17 K7/K9] m2l_tile={fk.M2L_GROUP} gives the bits of 0; K9 "
+              f"runs its compiled item of {fk.l2p_item(m)} bodies for every "
+              f"candidate: max|da|/max|a| {err9:.3e} (tol 1e-4)")
+        del w64, f64, full, k9, e8
+        e1, e2, swept = autotuned(["-s", "random"], "random")
+        print(f"[17 random autotune] tpu+proxy -s random N={n_main} "
+              f"(m, L) = ({e1.m}, {e1.levels}): {swept} candidates, ms/step "
+              + json.dumps({f"{p['block']},{p['m2l_tile']}": v
+                            for p, v in e1.tuned["sweep"]})
+              + f"; pick ({e1.block}, {e1.m2l_tile}) "
+              f"{e1.tuned['ms_per_step']:.4f} ms/step, read back with no "
+              f"sweep under key {e1._fast_tune_tag!r}")
+        pick_in_turns(e2, "random")
+    finally:
+        del os.environ["MURB_TUNE_CACHE"]
+    torch.cuda.empty_cache()
+    print(f"[17 time] phase 17 took {time.perf_counter() - t_phase:.1f} s")
 
 
 def within_rel(got, ref, eps: float, rms_floor: float, rms=None) -> float:
@@ -4790,6 +5036,9 @@ def main() -> int:
     # ------------------------------ 16. the planners' decisions on the card
     phase16(dev, smi, st9, est9, 1e3 / fps9, 1e3 / fps_exact9, tab, pick8,
             n_main)
+
+    # ----------------------- 17. the fast solver's stage geometry, autotune
+    phase17(dev, smi, time_ms, n_main, tmpdir.name)
 
     for k, count in launches.items():
         check(count > 0, f"{k} launched no time on its piece of the path")

@@ -11,7 +11,8 @@ metrics export.  ``--kernel adaptive`` (and ``--kernel fmm`` on a box whose
 hierarchy would need m > 16) runs the adaptive sparse hierarchy with its
 plan validated to ``--tol``; ``--near`` picks ``tpu+proxy``'s near-field
 mode.  ``--block-i/--block-j/--autotune`` set the exact sweeps' geometry
-(K3, K4, K13), ``--chunk`` the chunked sweep's.  A long run checkpoints
+(K3, K4, K13), ``--autotune`` also ``tpu+proxy``'s stage geometry on a
+card, ``--chunk`` the chunked sweep's.  A long run checkpoints
 (``--save-state``, ``--save-every``), resumes (``--load-state``: the
 checkpoint's dt and softening hold unless given again, and the iteration
 counter carries on), records positions (``--dump-traj``: frame 0 and
@@ -277,12 +278,20 @@ def print_banner(cfg: MurbConfig, engine, device: torch.device) -> None:
         print("  -> validated order           : exact fallback (the cost "
               "model rejected the proxy at this N)")
     if hasattr(engine, "block_i"):
-        tuned = engine.tuned
-        how = (f"tuned, {tuned['ms_per_step']:g} ms/step" if tuned
-               else "given" if engine.block_i or engine.block_j
-               else "kernel default")
-        print(f"  -> sweep blocks (i x j)      : {engine.block_i} x "
-              f"{engine.block_j} ({how})")
+        label, values = "sweep blocks (i x j)      ", (engine.block_i,
+                                                        engine.block_j)
+        text = f"{engine.block_i} x {engine.block_j}"
+    elif getattr(engine, "using_proxy", False) and hasattr(
+            engine, "m2l_tile") and engine.near_mode != "adaptive":
+        label, values = "stage geometry            ", (engine.block,
+                                                        engine.m2l_tile)
+        text = f"block {engine.block}, m2l_tile {engine.m2l_tile}"
+    else:
+        return
+    tuned = engine.tuned
+    how = (f"tuned, {tuned['ms_per_step']:g} ms/step" if tuned
+           else "given" if any(values) else "kernel default")
+    print(f"  -> {label}: {text} ({how})")
 
 
 def _write_profile(prof, out_dir: str, device: torch.device) -> None:

@@ -69,6 +69,18 @@ class SimulationHistory:
         self.ang_momentums[start:start + k] = ang_momentums[:k]
         self.density_centers[start:start + k] = density_centers[:k]
 
+    def set_series(self, energies=None, ang_momentums=None,
+                   density_centers=None) -> None:
+        """Replace whole series (each given one; the history takes its
+        length)."""
+        if energies is not None:
+            self.energies = np.asarray(energies, dtype=self._dtype)
+        if ang_momentums is not None:
+            self.ang_momentums = np.asarray(ang_momentums, dtype=self._dtype)
+        if density_centers is not None:
+            self.density_centers = np.asarray(density_centers,
+                                              dtype=self._dtype)
+
     # ------------------------------------------------------------------- CSV
     def save_metrics_to_csv(self, file_path: str) -> None:
         """Exact column schema of the reference exporter
@@ -87,6 +99,17 @@ class SimulationHistory:
                     f"{float(self.ang_momentums[i]):.17g},"
                     f"{float(dc[0]):.17g},{float(dc[1]):.17g},"
                     f"{float(dc[2]):.17g}\n")
+
+    @classmethod
+    def load_metrics_from_csv(cls, file_path: str) -> "SimulationHistory":
+        """A history from a file ``save_metrics_to_csv`` wrote."""
+        data = np.genfromtxt(file_path, delimiter=",", skip_header=1)
+        if data.ndim == 1:
+            data = data[None, :]
+        hist = cls(data.shape[0])
+        hist.set_series(energies=data[:, 1], ang_momentums=data[:, 2],
+                        density_centers=data[:, 3:6])
+        return hist
 
 
 class MultiGalaxySimulationHistory(SimulationHistory):

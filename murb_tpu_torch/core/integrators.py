@@ -68,6 +68,15 @@ class LeapfrogAux(NamedTuple):
         return cls(*(torch.zeros_like(state.qx) for _ in range(6)))
 
 
+def leapfrog_positions(state: BodyState, aux: LeapfrogAux, iteration: int):
+    """The positions a phase evaluates the force at: x_0 at the first
+    iteration, the x_n buffer after it (ref:
+    SimulationNBodyCUDALeapfrog.cu:335-346)."""
+    if iteration == 0:
+        return state.qx, state.qy, state.qz
+    return aux.nqx, aux.nqy, aux.nqz
+
+
 def leapfrog_first(state: BodyState, aux: LeapfrogAux, acc: Accel,
                    dt: float):
     """Phase 0 (ref kernel devLeapfrogFirst, CUDABodies.cu:216-244): the

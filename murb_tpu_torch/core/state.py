@@ -170,6 +170,15 @@ class BodyState:
         return {k: host_array(getattr(self, k)) for k in FIELDS}
 
     # ------------------------------------------------------------------ views
+    def positions(self) -> torch.Tensor:
+        """Stacked (npad, 3) positions (a copy; for metrics and I/O, not
+        the step loop)."""
+        return torch.stack([self.qx, self.qy, self.qz], dim=-1)
+
+    def velocities(self) -> torch.Tensor:
+        """Stacked (npad, 3) velocities (a copy)."""
+        return torch.stack([self.vx, self.vy, self.vz], dim=-1)
+
     def unpadded(self) -> dict[str, np.ndarray]:
         """Host copies of the first ``n`` bodies (device-to-host sync point:
         call at observation points, never inside the step loop)."""

@@ -91,8 +91,8 @@ def _build_registry():
              lambda b, **kw: E.ProxyEngine(
                  b, **_filter(kw, "m", "cells", "levels", "tol", "max_m",
                               "heavy_k", "box_margin", "adapt_every",
-                              "cost_slack", "m2l_dots", "validate",
-                              "near")),
+                              "cost_slack", "m2l_dots", "block", "m2l_tile",
+                              "autotune", "validate", "near")),
              aliases=("fmm", "barnes-hut"))
     register("tpu+hybrid+fast",
              lambda b, **kw: E.HybridEngine(b, passes=1,

@@ -43,6 +43,10 @@ from murb_tpu_torch.ops.proxy_kernels import MAX_ORDER
 
 #: the validation ladders' step of a lossy M2L tier that misses tol
 _STRONGER = {"bf16x3": "mixed", "mixed": "fp32"}
+#: steps a stage-geometry candidate is timed over: the 200k fast steps
+#: are host-bound (about 3 ms), and 4 steps read the same geometry at
+#: 2.25 and 3.28 ms in one sweep on an H100 (chip_smoke.py phase 17)
+FAST_TUNE_STEPS = 20
 
 
 class NopEngine(SimulationEngine):
@@ -240,6 +244,16 @@ class ProxyEngine(EulerAccelEngine):
     explicitly.  ``m2l_dots``: the M2L sweeps' tier ("fp32", "mixed",
     "bf16x3"; ops/fmm.level_sweep, ops/sparse_fmm.m2l_sparse_level); the
     validation ladders step a lossy tier that misses ``tol`` toward fp32.
+
+    Stage geometry (murb_tpu/models/engines.py:663-724): ``block`` (the
+    bodies a work item of the P2M and L2P kernels) and ``m2l_tile`` (the
+    target cells a K7 item), ``ops/proxy.check_fast_geometry``.  Explicit
+    values win; otherwise a stored pick for this (m, levels, cells), npad
+    and card (utils/autotune, key ``_fast_tune_tag``) is used when one
+    exists, and ``autotune=True`` (or MURB_AUTOTUNE=1) sweeps
+    ``_fast_candidates`` on a CUDA state, whose result stays in ``tuned``;
+    a CPU state only looks up (its plain stages have no geometry).  The
+    exact fallback and the adaptive mode skip, as murb_tpu's.
     """
 
     tag = "tpu+proxy"
@@ -249,7 +263,8 @@ class ProxyEngine(EulerAccelEngine):
                  max_m: int = MAX_ORDER, heavy_k: int = 1,
                  box_margin: float = 1.5, cost_slack: float = 30.0,
                  adapt_every: int = 0, validate: bool = True,
-                 near: str = "auto", m2l_dots: str = "fp32", **kw):
+                 near: str = "auto", m2l_dots: str = "fp32", block: int = 0,
+                 m2l_tile: int = 0, autotune: bool | None = None, **kw):
         from murb_tpu_torch.ops.fmm import check_m2l_dots
 
         super().__init__(bodies, soft, dt, **kw)
@@ -276,6 +291,8 @@ class ProxyEngine(EulerAccelEngine):
         # (adaptive_ms 0.0 where the levels were given)
         self.cost_estimates: dict | None = None
         self.m2l_dots = check_m2l_dots(m2l_dots)
+        self.block, self.m2l_tile = int(block), int(m2l_tile)
+        self.tuned: dict | None = None
         self._auto = m == 0 and levels == 0
         if self._auto:
             self._configure()
@@ -287,6 +304,10 @@ class ProxyEngine(EulerAccelEngine):
             self.using_proxy = self.m <= self.max_m
             if near == "adaptive":
                 self._configure_adaptive(force=True)
+        if block or m2l_tile:
+            self._check_geometry(self.block, self.m2l_tile)
+        else:
+            self._resolve_fast_blocks(autotune)
 
     def _configure(self) -> None:
         """Derive (m, levels, cells, using_proxy, near_mode) from the
@@ -495,19 +516,107 @@ class ProxyEngine(EulerAccelEngine):
             self.m, self.levels, self.cells = int(m), int(levels), int(cells)
             self._apply_cost_model()
 
+    @property
+    def _fast_tune_tag(self) -> str:
+        """The stage geometry's tune key: the stages' shapes depend on (m,
+        levels, cells), not only on npad."""
+        return f"{self.tag}/m{self.m}L{self.levels}c{self.cells}"
+
+    def _check_geometry(self, block: int, m2l_tile: int) -> None:
+        from murb_tpu_torch.ops.proxy import check_fast_geometry
+
+        if self.using_proxy and self.near_mode != "adaptive":
+            check_fast_geometry(self.m, self.levels, self.cells, block,
+                                m2l_tile)
+
+    def _resolve_fast_blocks(self, autotune: bool | None) -> None:
+        """The measured stage geometry (murb_tpu's ``_resolve_fast_blocks``):
+        a stored pick, else a sweep when asked and the state is on a card.
+        The exact fallback and the adaptive mode have no such stages."""
+        from murb_tpu_torch.utils import autotune as at
+
+        if not self.using_proxy or self.near_mode == "adaptive":
+            return
+        if autotune is None:
+            autotune = at.enabled()
+        st = self._state
+        tuned = at.lookup(self._fast_tune_tag, st.npad, device=st.device)
+        if tuned is not None:
+            try:   # a stored pick the kernels cannot run is skipped
+                self._check_geometry(int(tuned.get("block", 0)),
+                                     int(tuned.get("m2l_tile", 0)))
+            except ValueError:
+                tuned = None
+        if tuned is None and autotune and st.device.type == "cuda":
+            tuned = self._run_fast_autotune()
+        if tuned:
+            self.tuned = tuned
+            self.block = int(tuned.get("block", 0))
+            self.m2l_tile = int(tuned.get("m2l_tile", 0))
+
+    def _fast_candidates(self) -> list[dict]:
+        """The port's stage geometries to time, one axis at a time from
+        today's pick (0, 0): ``block`` as powers of two from the stages'
+        least common item (the P2M tile; K2's 128-body block for the
+        single-cell proxy) up to RUN_P2M_MAX_CHUNK, the five largest; in
+        the hierarchy ``m2l_tile`` 4 and 8 (16 is K7's compiled item,
+        today's pick).  At most 8."""
+        from murb_tpu_torch.ops.fmm_kernels import RUN_P2M_MAX_CHUNK, p2m_tile
+        from murb_tpu_torch.ops.proxy_kernels import ONE_L2P_THREADS
+
+        b = p2m_tile(self.m)
+        if not self.levels and self.cells == 1:
+            b = max(b, ONE_L2P_THREADS)
+        blocks = []
+        while b <= RUN_P2M_MAX_CHUNK:
+            blocks.append(b)
+            b *= 2
+        out = [{"block": 0, "m2l_tile": 0}]
+        out += [{"block": b, "m2l_tile": 0} for b in blocks[-5:]]
+        if self.levels:
+            out += [{"block": 0, "m2l_tile": t} for t in (4, 8)]
+        return out
+
+    def _run_fast_autotune(self) -> dict:
+        """Time each candidate over FAST_TUNE_STEPS Euler steps of a copy of
+        the state (utils/autotune.tune) and keep the fastest."""
+        from murb_tpu_torch.utils import autotune as at
+
+        def make_run(params):
+            blk, tile = params["block"], params["m2l_tile"]
+
+            def run(st, n):
+                for _ in range(n):
+                    acc = self._acc_solver(st.qx, st.qy, st.qz, self._gm(st),
+                                           blk, tile)
+                    st = euler_update(st, acc, self._dt)
+                return st
+
+            return run
+
+        return at.tune(self._fast_tune_tag, self._state.npad, make_run,
+                       self._state, candidates=self._fast_candidates(),
+                       steps=FAST_TUNE_STEPS, device=self._state.device)
+
     def maybe_adapt(self) -> bool:
         """Mid-run adaptation: when ``proxy_health`` is not ok (the box
         outgrew the validated order, or the distribution the adaptive
         plan's capacities), re-derive the configuration from the current
-        state.  Returns True if the engine was reconfigured.  Waits on the
-        device; call between frames."""
+        state, and look the stage geometry of a new configuration up again
+        (never a sweep mid-run).  Returns True if the engine was
+        reconfigured.  Waits on the device; call between frames."""
         if not self._auto or self.proxy_health()["ok"]:
             return False
         old = (self.m, self.levels, self.cells, self.using_proxy,
                self.near_mode, self._plan)
         self._configure()
-        return (self.m, self.levels, self.cells, self.using_proxy,
-                self.near_mode, self._plan) != old
+        if (self.m, self.levels, self.cells, self.using_proxy,
+                self.near_mode, self._plan) == old:
+            return False
+        self.block = self.m2l_tile = 0
+        self.tuned = None
+        self._resolve_fast_blocks(autotune=False)
+        return True
 
     def compute_one_iteration(self) -> None:
         if (self.adapt_every and self._iteration
@@ -516,7 +625,10 @@ class ProxyEngine(EulerAccelEngine):
         super().compute_one_iteration()
 
     def _acc_fn(self, qx, qy, qz, gm):
-        """The configured solver (murb_tpu's ``_acc_solver``)."""
+        return self._acc_solver(qx, qy, qz, gm, self.block, self.m2l_tile)
+
+    def _acc_solver(self, qx, qy, qz, gm, block: int, m2l_tile: int):
+        """The configured solver at the stage geometry (block, m2l_tile)."""
         if not self.using_proxy:
             # exact fallback: the fp32-class K4 tier
             from murb_tpu_torch.ops.hybrid import acc_hybrid
@@ -533,11 +645,12 @@ class ProxyEngine(EulerAccelEngine):
 
             return acc_fmm(qx, qy, qz, gm, self.soft, m=self.m,
                            levels=self.levels, heavy_k=self.heavy_k,
-                           m2l_dots=self.m2l_dots)
+                           m2l_dots=self.m2l_dots, block=block,
+                           m2l_tile=m2l_tile)
         from murb_tpu_torch.ops.proxy import acc_proxy
 
         return acc_proxy(qx, qy, qz, gm, self.soft, m=self.m,
-                         cells=self.cells, heavy_k=self.heavy_k)
+                         cells=self.cells, heavy_k=self.heavy_k, block=block)
 
     def proxy_health(self) -> dict:
         """Is the configuration still adequate for the CURRENT state?  The

@@ -315,19 +315,35 @@ def run_items(bounds: torch.Tensor, n: int, chunk: int) -> RunItems:
     return RunItems(bounds, prefix, n // chunk + bounds.shape[0], chunk)
 
 
+def p2m_tile(m: int) -> int:
+    """Bodies a P2M work item stages a tile at order m: 32 (a warp item,
+    padded order up to RUN_WARP_MAX_MW), else RUN_P2M_TILE (a block
+    item)."""
+    return 32 if padded_order(m) <= RUN_WARP_MAX_MW else RUN_P2M_TILE
+
+
 def p2m_chunk(n: int, m: int, sms: int) -> int:
     """Bodies a P2M work item of n bodies at order m on a card of ``sms``
-    SMs: the tile (32 bodies a warp item, RUN_P2M_TILE a block item)
-    doubled while the items would still give each SM its
-    RUN_P2M_ITEMS_AN_SM, up to RUN_P2M_MAX_CHUNK (at N = 1M and m > 8,
-    1024 bodies: the partials' round trip stays under a tenth of the
-    product)."""
-    warp = padded_order(m) <= RUN_WARP_MAX_MW
-    chunk = 32 if warp else RUN_P2M_TILE
-    want = RUN_P2M_ITEMS_AN_SM[0 if warp else 1] * sms
+    SMs: the tile (``p2m_tile``) doubled while the items would still give
+    each SM its RUN_P2M_ITEMS_AN_SM, up to RUN_P2M_MAX_CHUNK (at N = 1M
+    and m > 8, 1024 bodies: the partials' round trip stays under a tenth
+    of the product)."""
+    chunk = p2m_tile(m)
+    want = RUN_P2M_ITEMS_AN_SM[0 if chunk == 32 else 1] * sms
     while chunk < RUN_P2M_MAX_CHUNK and 2 * chunk * want <= n:
         chunk *= 2
     return chunk
+
+
+def check_p2m_chunk(chunk: int, m: int) -> None:
+    """Raise ValueError unless ``chunk`` is a P2M work item the run kernels
+    take at order m: a multiple of ``p2m_tile(m)`` from the tile to
+    RUN_P2M_MAX_CHUNK (callers pass 0 for ``p2m_chunk``'s pick unchecked)."""
+    tile = p2m_tile(m)
+    if chunk % tile or not tile <= chunk <= RUN_P2M_MAX_CHUNK:
+        raise ValueError(f"{_TAG}: a P2M item of {chunk} bodies at m={m}; "
+                         f"the run kernels take multiples of {tile} from "
+                         f"{tile} to {RUN_P2M_MAX_CHUNK}")
 
 
 def fold_split(nitems: int, nrun: int) -> int:
@@ -370,11 +386,12 @@ def _order_for(order, x, y, z, c, h, C: int) -> CellOrder:
 
 
 # ----------------------------------------------------------- K8 wrapper
-def p2m_grid_items(order: CellOrder, m: int) -> RunItems:
-    """K8's work items over ``order``'s cells."""
+def p2m_grid_items(order: CellOrder, m: int, chunk: int = 0) -> RunItems:
+    """K8's work items over ``order``'s cells, of ``chunk`` bodies (0:
+    ``p2m_chunk``'s pick for the card)."""
     n = order.perm.shape[0]
-    return run_items(order.bounds, n,
-                     p2m_chunk(n, m, cuda.sm_count(order.perm.device)))
+    return run_items(order.bounds, n, chunk or p2m_chunk(
+        n, m, cuda.sm_count(order.perm.device)))
 
 
 def p2m_grid_launch(x, y, z, g, order: CellOrder, items: RunItems,
@@ -395,12 +412,17 @@ def p2m_grid_launch(x, y, z, g, order: CellOrder, items: RunItems,
 
 
 def p2m_grid_fused(qx, qy, qz, gm_eff, c, h, *, m: int, C: int,
-                   order: CellOrder | None = None) -> torch.Tensor:
+                   order: CellOrder | None = None,
+                   chunk: int = 0) -> torch.Tensor:
     """W (C^3, m^3) = grid P2M.  CPU tensors run ``p2m_grid_plain``; CUDA
     tensors launch K8 (fp32 inside; float64 inputs are cast here, W cast
     back; bf16 inputs take the bf16 instance, counted in ``bf16_launches``,
-    W float32)."""
+    W float32) in work items of ``chunk`` bodies (0: ``p2m_chunk``'s pick;
+    else ``check_p2m_chunk``'s range, on either device; the plain version
+    has no items)."""
     _check_grid(m, C)
+    if chunk:
+        check_p2m_chunk(chunk, m)
     if qx.device.type == "cpu":
         return p2m_grid_plain(qx, qy, qz, gm_eff, c, h, m=m, C=C)
     cuda.require_cuda(_TAG, qx)
@@ -410,7 +432,8 @@ def p2m_grid_fused(qx, qy, qz, gm_eff, c, h, *, m: int, C: int,
     x, y, z, g = cuda.kernel_inputs(_TAG, dev, n, qx, qy, qz, gm_eff,
                                     notify=notify_fp32_compute, bf16=b16)
     order = _order_for(order, x, y, z, c, h, C)
-    w = p2m_grid_launch(x, y, z, g, order, p2m_grid_items(order, m), m)
+    w = p2m_grid_launch(x, y, z, g, order, p2m_grid_items(order, m, chunk),
+                        m)
     if b16:
         p2m_grid_fused.bf16_launches += 1
     else:
@@ -528,25 +551,40 @@ def _item_work(cells: int) -> int:
     return 52 + 13 * cells
 
 
-def m2l_plan(m: int, C: int, subset: str, slots: int) -> M2LPlan:
+def check_m2l_tile(tile: int) -> None:
+    """Raise ValueError unless ``tile`` target cells an item is one K7
+    runs: 1 to its compiled kM2LGroup (callers pass 0 for the full group
+    unchecked)."""
+    if not 1 <= tile <= M2L_GROUP:
+        raise ValueError(f"{_TAG}: K7 items of {tile} target cells; the "
+                         f"kernel takes 1 to {M2L_GROUP}")
+
+
+def m2l_plan(m: int, C: int, subset: str, slots: int,
+             tile: int = 0) -> M2LPlan:
     """K7's plan (host numpy, cached): cell tiles of ``M2L_CELL_TILE``^3
     cells (the whole grid up to C = 4); per tile, for each offset of the
     subset in order (ox, oy, oz from -reach), the admitted target cells
     -- the box of ``m2l_axis`` ranges, clipped to the tile, x-major -- in
-    items of at most ``M2L_GROUP`` (the kernel's kM2LGroup); as many
-    splits as keep the blocks within the card's ``slots`` (one wave; at
-    most ``M2L_MAX_SPLIT``), each tile's items cut where the running work
-    crosses a split's share."""
-    return _m2l_plan(m, C, subset, slots, M2L_GROUP)
+    items of at most ``tile`` (0: ``M2L_GROUP``, the kernel's kM2LGroup;
+    each item keeps the compiled row width, M2L_ITEM_INTS, and the kernel
+    runs its cell count); as many splits as keep the blocks within the
+    card's ``slots`` (one wave; at most ``M2L_MAX_SPLIT``), each tile's
+    items cut where the running work crosses a split's share."""
+    if tile:
+        check_m2l_tile(tile)
+    return _m2l_plan(m, C, subset, slots, M2L_GROUP, tile or M2L_GROUP)
 
 
 @functools.lru_cache(maxsize=None)
-def _m2l_plan(m: int, C: int, subset: str, slots: int,
-              group: int) -> M2LPlan:
-    """``m2l_plan`` in items of at most ``group`` cells: another value than
-    ``M2L_GROUP`` serves only a kernel compiled with that kM2LGroup (the
-    A/B script's variants of csrc/fmm.cu)."""
+def _m2l_plan(m: int, C: int, subset: str, slots: int, group: int,
+              tile: int = 0) -> M2LPlan:
+    """``m2l_plan`` in rows of ``group`` cells and items of at most
+    ``tile`` of them (0: ``group``): a ``group`` other than ``M2L_GROUP``
+    serves only a kernel compiled with that kM2LGroup (the A/B script's
+    variants of csrc/fmm.cu)."""
     _check_grid(m, C)
+    tile = tile or group
     if subset not in _M2L_SUBSETS:
         raise ValueError(f"unknown offset subset {subset!r} "
                          f"({', '.join(_M2L_SUBSETS)})")
@@ -571,8 +609,8 @@ def _m2l_plan(m: int, C: int, subset: str, slots: int,
             pairs += len(cells)
             olin = (o[0] * C + o[1]) * C + o[2]
             ext = [hi - lo for lo, hi in box]
-            for g in range(0, len(cells), group):
-                grp = cells[g:g + group]
+            for g in range(0, len(cells), tile):
+                grp = cells[g:g + tile]
                 pad = [0] * (group - len(grp))
                 items.append(
                     [*o, olin, len(grp), 0, 0, 0]
@@ -607,23 +645,29 @@ def m2l_slots(device: torch.device, nf: int, dots: str = "fp32") -> int:
 
 @functools.lru_cache(maxsize=None)
 def _plan_on(m: int, C: int, subset: str, nf: int, device: torch.device,
-             dots: str = "fp32"):
-    """The plan for ``device``'s resident blocks of the tier's instance and
-    its tables on the device (copied once per shape)."""
-    plan = m2l_plan(m, C, subset, m2l_slots(device, nf, dots))
+             dots: str = "fp32", tile: int = 0):
+    """The plan for ``device``'s resident blocks of the tier's instance in
+    items of at most ``tile`` cells and its tables on the device (copied
+    once per shape and tile)."""
+    plan = m2l_plan(m, C, subset, m2l_slots(device, nf, dots), tile)
     return plan, (torch.from_numpy(plan.items).to(device),
                   torch.from_numpy(plan.rows).to(device))
 
 
 def m2l_level_fused(w, hl, soft, *, m: int, C: int, subset: str = "expand",
-                    with_phi: bool = False, dots: str = "fp32") -> tuple:
+                    with_phi: bool = False, dots: str = "fp32",
+                    tile: int = 0) -> tuple:
     """Node fields (fx, fy, fz[, phi]), each (C^3, m^3), of one level sweep
     at the dot tier ``dots`` ("fp32", or the lossy "bf16x3": murb_tpu's
     ``exact_dots=dots != "bf16x3"``).  CPU tensors run ``m2l_level_plain``;
-    CUDA tensors launch the tier's K7 instance on the plan ``m2l_plan``
-    (fp32 inside, fields cast back to ``w``'s dtype)."""
+    CUDA tensors launch the tier's K7 instance on the plan ``m2l_plan`` in
+    items of at most ``tile`` target cells (0: ``M2L_GROUP``; else
+    ``check_m2l_tile``'s range, on either device; the plain version has no
+    items) (fp32 inside, fields cast back to ``w``'s dtype)."""
     _check_grid(m, C)
     _check_dots(dots)
+    if tile:
+        check_m2l_tile(tile)
     if subset not in _M2L_SUBSETS:
         raise ValueError(f"unknown offset subset {subset!r} "
                          f"({', '.join(_M2L_SUBSETS)})")
@@ -641,7 +685,7 @@ def m2l_level_fused(w, hl, soft, *, m: int, C: int, subset: str = "expand",
     w32 = w.to(torch.float32).contiguous()
     hl32 = hl.to(device=dev, dtype=torch.float32).contiguous()
     nf = 4 if with_phi else 3
-    plan, (items, rows) = _plan_on(m, C, subset, nf, dev, dots)
+    plan, (items, rows) = _plan_on(m, C, subset, nf, dev, dots, tile)
     out = torch.empty((nf, C ** 3, m ** 3), dtype=torch.float32, device=dev)
     nscratch = plan.scratch(m, C, nf)
     partial = (torch.empty(nscratch, dtype=torch.float32, device=dev)

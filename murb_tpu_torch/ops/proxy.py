@@ -36,11 +36,13 @@ import torch
 
 from murb_tpu_torch.core.state import in_dtype
 from murb_tpu_torch.ops.common import Accel, bf16_chain
-from murb_tpu_torch.ops.fmm_kernels import l2p_grid_fused, p2m_grid_fused
+from murb_tpu_torch.ops.fmm_kernels import (check_m2l_tile,
+                                            check_p2m_chunk, l2p_grid_fused,
+                                            p2m_grid_fused)
 from murb_tpu_torch.ops.naive import acc_rect, soft_squared
-from murb_tpu_torch.ops.proxy_kernels import (bases, l2p, l2p_fused,
-                                              l2p_fused_multi, p2m,
-                                              p2m_fused)
+from murb_tpu_torch.ops.proxy_kernels import (bases, l2p, l2p_block_for,
+                                              l2p_fused, l2p_fused_multi,
+                                              p2m, p2m_fused)
 from murb_tpu_torch.ops.tile import acc_tile_rect, acc_tile_rect_plain
 
 # Bodies heavier than this multiple of the mean mass are excluded from the
@@ -140,14 +142,46 @@ def heavy_split(qx, qy, qz, gm, k: int, heavy_factor: float, mean_gm):
             top_idx, gm * (1.0 - heavy_mask))
 
 
+def check_fast_geometry(m: int, levels: int, cells: int, block: int = 0,
+                        m2l_tile: int = 0) -> None:
+    """Raise ValueError unless the kernels of the fast solver at (m,
+    levels, cells) run the stage geometry (block, m2l_tile), 0 being each
+    stage's own pick.  ``block``, the bodies a work item of the P2M and
+    L2P stages, is the P2M items' (K1, K8: ``fmm_kernels.check_p2m_chunk``)
+    and, for the single-cell proxy, sets K2's block by
+    ``proxy_kernels.l2p_block_for``; K9's item is compiled (64 or 256
+    bodies by order) and keeps it.  ``m2l_tile``, the target cells a K7
+    item, is the hierarchy's (``fmm_kernels.check_m2l_tile``); without
+    levels nothing reads it, as in murb_tpu."""
+    if block:
+        check_p2m_chunk(block, m)
+        if not levels and cells == 1:
+            l2p_block_for(block, m)
+    if m2l_tile and levels:
+        check_m2l_tile(m2l_tile)
+
+
+def _heavy_setup(qx, qy, qz, gm, heavy_k: int, heavy_factor: float):
+    """Box and heavy split shared by the proxy and hierarchy passes: (box
+    center, half-widths) and ``heavy_split``'s outputs for the ``heavy_k``
+    heaviest bodies (at least 1) above ``heavy_factor`` times the mean
+    mass."""
+    gm_pos = gm > 0
+    c, h = bounding_box(qx, qy, qz, gm_pos)
+    mean_gm = gm.sum() / gm_pos.sum().clamp(min=1)
+    k = max(min(heavy_k, qx.shape[0]), 1)
+    return (c, h) + heavy_split(qx, qy, qz, gm, k, heavy_factor, mean_gm)
+
+
 def heavy_source_acc(qx, qy, qz, hq, heavy_gm, soft) -> torch.Tensor:
     """Exact N x k sweep: force contribution of the heavy sources, (n, 3)."""
     a = acc_rect(qx, qy, qz, hq[0], hq[1], hq[2], heavy_gm, soft)
     return torch.stack(list(a), dim=1)
 
 
-def acc_proxy(qx, qy, qz, gm, soft, *, m: int = 16, cells: int = 1,
-              fused: bool = True, heavy_k: int = HEAVY_K) -> Accel:
+def acc_proxy(qx, qy, qz, gm, soft, *, m: int = 16, heavy_k: int = HEAVY_K,
+              heavy_factor: float = HEAVY_FACTOR, cells: int = 1,
+              block: int = 0, fused: bool = True) -> Accel:
     """All-pairs softened-gravity accelerations via the Chebyshev proxy
     (ref: murb_tpu/ops/proxy.py:acc_proxy): one global expansion
     (``cells=1``) or one per octant (``cells=2``).
@@ -156,32 +190,33 @@ def acc_proxy(qx, qy, qz, gm, soft, *, m: int = 16, cells: int = 1,
     ``bases`` -> ``p2m`` -> the node sweep's plain version -> ``l2p``, and
     launches no kernel: the differentiable path of murb_tpu_torch.diff, as
     murb_tpu's ``fused=False`` pins its jnp stages.  ``heavy_k``: how many
-    of the heaviest bodies may leave the expansion (at least 1)."""
+    of the heaviest bodies may leave the expansion (at least 1), each
+    heavier than ``heavy_factor`` times the mean mass.  ``block``: the
+    bodies a work item of the P2M and L2P kernels (``check_fast_geometry``;
+    0 their own picks), where murb_tpu rounds its anterpolation block to
+    one its kernels take; the plain stages have no geometry."""
     if cells not in (1, 2):
         raise ValueError("cells must be 1 or 2")
     if cells == 2 and not fused:
         raise ValueError("acc_proxy: cells=2 has no plain (fused=False) "
                          "path in murb_tpu_torch yet (ROADMAP.md, "
                          "Divergences kept on purpose)")
-    gm_pos = gm > 0
-    c, h = bounding_box(qx, qy, qz, gm_pos)
-
-    mean_gm = gm.sum() / gm_pos.sum().clamp(min=1)
-    hq, heavy_gm, is_heavy, top_idx, gm_eff = heavy_split(
-        qx, qy, qz, gm, max(min(heavy_k, qx.shape[0]), 1), HEAVY_FACTOR,
-        mean_gm)
+    check_fast_geometry(m, 0, cells, block)
+    c, h, hq, heavy_gm, is_heavy, top_idx, gm_eff = _heavy_setup(
+        qx, qy, qz, gm, heavy_k, heavy_factor)
 
     if cells == 2:
-        acc = _two_level(qx, qy, qz, gm_eff, c, h, soft, m)
+        acc = _two_level(qx, qy, qz, gm_eff, c, h, soft, m, block)
     elif not fused:
         sx, syz = bases(qx, qy, qz, c, h, m)
         f = m2l(c, h, p2m(sx, syz, gm_eff, m), soft, m, qx.dtype,
                 fused=False)
         acc = torch.stack(l2p(sx, syz, (f.ax, f.ay, f.az), m), dim=1)
     else:
-        w = p2m_fused(qx, qy, qz, gm_eff, c, h, m=m)
+        w = p2m_fused(qx, qy, qz, gm_eff, c, h, m=m, chunk=block)
         f = m2l(c, h, w, soft, m, qx.dtype)
-        acc = l2p_fused(qx, qy, qz, c, h, f.ax, f.ay, f.az, m=m)
+        acc = l2p_fused(qx, qy, qz, c, h, f.ax, f.ay, f.az, m=m,
+                        block=l2p_block_for(block, m))
     acc = acc + heavy_source_acc(qx, qy, qz, hq, heavy_gm, soft)
 
     # heavy targets: replace their force with the exact k x N sweep
@@ -191,14 +226,17 @@ def acc_proxy(qx, qy, qz, gm, soft, *, m: int = 16, cells: int = 1,
     return Accel(acc[:, 0], acc[:, 1], acc[:, 2])
 
 
-def _two_level(qx, qy, qz, gm_eff, c, h, soft, m: int) -> torch.Tensor:
+def _two_level(qx, qy, qz, gm_eff, c, h, soft, m: int,
+               block: int = 0) -> torch.Tensor:
     """Octant decomposition (murb_tpu/ops/proxy.py:_two_level, its fused
     branch): the eight octant expansions from one grid P2M at C=2 (cell id
-    (cx*2 + cy)*2 + cz, the x-major octant order), one exact sweep over the
-    concatenated octant nodes, one grid L2P -> acc (n, 3)."""
+    (cx*2 + cy)*2 + cz, the x-major octant order; items of ``block``
+    bodies), one exact sweep over the concatenated octant nodes, one grid
+    L2P -> acc (n, 3)."""
     half = 0.5 * h
     p = m ** 3
-    w = p2m_grid_fused(qx, qy, qz, gm_eff, c, h, m=m, C=2)     # (8, m^3)
+    w = p2m_grid_fused(qx, qy, qz, gm_eff, c, h, m=m, C=2,
+                       chunk=block)                             # (8, m^3)
     nodes = [proxy_nodes(c + torch.tensor([ox, oy, oz], dtype=c.dtype,
                                           device=c.device) * half,
                          half, m, qx.dtype)
@@ -280,23 +318,23 @@ def heavy_target_phi_rows(qx, qy, qz, gm_rows, hq, soft):
     return gm_rows @ _inv_dist(*hq, qx, qy, qz, soft).T
 
 
-def _force_and_potential(qx, qy, qz, gm, soft, m: int, masks):
+def _force_and_potential(qx, qy, qz, gm, soft, m: int, masks, heavy_k: int,
+                         heavy_factor: float, block: int):
     """One proxy pass for the force of ``gm`` and R potential rows: the
     total (``masks`` None) or one per mask row (``masks`` (G, n)).  Box,
     heavy split and bases are shared; each weight set costs one P2M, and
-    the L2P interpolates 3 + R fields in one call."""
-    gm_pos = gm > 0
-    c, h = bounding_box(qx, qy, qz, gm_pos)
-    mean_gm = gm.sum() / gm_pos.sum().clamp(min=1)
-    hq, heavy_gm, is_heavy, top_idx, gm_eff = heavy_split(
-        qx, qy, qz, gm, min(HEAVY_K, qx.shape[0]), HEAVY_FACTOR, mean_gm)
+    the L2P interpolates 3 + R fields in one call (``acc_proxy``'s
+    ``heavy_k``, ``heavy_factor`` and ``block``)."""
+    check_fast_geometry(m, 0, 1, block)
+    c, h, hq, heavy_gm, is_heavy, top_idx, gm_eff = _heavy_setup(
+        qx, qy, qz, gm, heavy_k, heavy_factor)
 
-    w = p2m_fused(qx, qy, qz, gm_eff, c, h, m=m)
+    w = p2m_fused(qx, qy, qz, gm_eff, c, h, m=m, chunk=block)
     if masks is None:
         wg = w[None, :]
     else:
-        wg = torch.stack([p2m_fused(qx, qy, qz, gm_eff * mk, c, h, m=m)
-                          for mk in masks])
+        wg = torch.stack([p2m_fused(qx, qy, qz, gm_eff * mk, c, h, m=m,
+                                    chunk=block) for mk in masks])
     px, py, pz = proxy_nodes(c, h, m, qx.dtype)
     if px.shape[0] < NODE_SWEEP_KERNEL_MIN:
         f, phi_nodes = force_and_potential_node_sweep_rows(px, py, pz, w,
@@ -306,7 +344,8 @@ def _force_and_potential(qx, qy, qz, gm, soft, m: int, masks):
         phi_nodes = [potential_node_sweep(px, py, pz, wr, soft)
                      for wr in wg]
     out = l2p_fused_multi(qx, qy, qz, c, h,
-                          (f.ax, f.ay, f.az, *phi_nodes), m=m)
+                          (f.ax, f.ay, f.az, *phi_nodes), m=m,
+                          block=l2p_block_for(block, m))
     acc = torch.stack(out[:3], dim=1) + heavy_source_acc(qx, qy, qz, hq,
                                                          heavy_gm, soft)
     hrows = heavy_gm[None, :] if masks is None else \
@@ -324,26 +363,40 @@ def _force_and_potential(qx, qy, qz, gm, soft, m: int, masks):
     return Accel(acc[:, 0], acc[:, 1], acc[:, 2]), phi
 
 
-def force_and_potential_proxy(qx, qy, qz, gm, soft, *, m: int = 16):
+def force_and_potential_proxy(qx, qy, qz, gm, soft, *, m: int = 16,
+                              heavy_k: int = HEAVY_K,
+                              heavy_factor: float = HEAVY_FACTOR,
+                              block: int = 0):
     """(Accel, phi (n,)): forces and the potential sweep in one proxy pass,
     both at the same positions (the reference's metrics-before-update
     order, ref: SimulationNBodyCUDAPropertyTracking.cu:121-133).  K1 runs
-    once and K2 interpolates 4 fields."""
-    acc, phi = _force_and_potential(qx, qy, qz, gm, soft, m, None)
+    once and K2 interpolates 4 fields.  ``heavy_k``, ``heavy_factor`` and
+    ``block``: as ``acc_proxy``'s."""
+    acc, phi = _force_and_potential(qx, qy, qz, gm, soft, m, None, heavy_k,
+                                    heavy_factor, block)
     return acc, phi[0]
 
 
 def force_and_potential_proxy_pergal(qx, qy, qz, gm, masks, soft, *,
-                                     m: int = 16):
+                                     m: int = 16, heavy_k: int = HEAVY_K,
+                                     heavy_factor: float = HEAVY_FACTOR,
+                                     block: int = 0):
     """(Accel, phi (G, n)): forces plus one potential per galaxy in one
     proxy pass.  ``masks`` (G, n) are 0/1 membership rows; the far field is
     linear in the source masses, so each galaxy adds one P2M of its masked
-    weights, one node potential field and one L2P field (3 + G <= 11)."""
-    return _force_and_potential(qx, qy, qz, gm, soft, m, masks)
+    weights, one node potential field and one L2P field (3 + G <= 11).
+    ``heavy_k``, ``heavy_factor`` and ``block``: as ``acc_proxy``'s."""
+    return _force_and_potential(qx, qy, qz, gm, soft, m, masks, heavy_k,
+                                heavy_factor, block)
 
 
-def potential_proxy(qx, qy, qz, gm, soft, *, m: int = 16) -> torch.Tensor:
+def potential_proxy(qx, qy, qz, gm, soft, *, m: int = 16,
+                    heavy_k: int = HEAVY_K,
+                    heavy_factor: float = HEAVY_FACTOR) -> torch.Tensor:
     """phi_i = sum_j Gm_j rsqrt(|r_ij|^2 + eps^2) via the proxy, self term
     included (the metrics' ``method="proxy"``).  The fused pass's potential:
-    the force fields it also interpolates cost three L2P fields."""
-    return force_and_potential_proxy(qx, qy, qz, gm, soft, m=m)[1]
+    the force fields it also interpolates cost three L2P fields.
+    ``heavy_k`` and ``heavy_factor``: as ``acc_proxy``'s."""
+    return force_and_potential_proxy(qx, qy, qz, gm, soft, m=m,
+                                     heavy_k=heavy_k,
+                                     heavy_factor=heavy_factor)[1]

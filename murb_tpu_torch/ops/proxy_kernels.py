@@ -165,22 +165,24 @@ def one_run_items(n: int, chunk: int, device):
 
 
 @functools.lru_cache(maxsize=64)
-def one_run(n: int, m: int, device, sms: int | None = None):
-    """K1's one run of n bodies at order m: ``one_run_items`` of
-    ``fmm_kernels.p2m_chunk`` bodies for a card of ``sms`` SMs (by default
-    the device's), looked up once per (n, m, device)."""
+def one_run(n: int, m: int, device, sms: int | None = None, chunk: int = 0):
+    """K1's one run of n bodies at order m: ``one_run_items`` of ``chunk``
+    bodies (0: ``fmm_kernels.p2m_chunk``'s pick for a card of ``sms`` SMs,
+    by default the device's), looked up once per (n, m, device, chunk)."""
     from murb_tpu_torch.ops.fmm_kernels import p2m_chunk
 
-    chunk = p2m_chunk(n, m, cuda.sm_count(device) if sms is None else sms)
+    chunk = chunk or p2m_chunk(n, m, cuda.sm_count(device) if sms is None
+                               else sms)
     return one_run_items(n, chunk, device)
 
 
-def p2m_launch(x, y, z, g, box, m: int) -> torch.Tensor:
+def p2m_launch(x, y, z, g, box, m: int, chunk: int = 0) -> torch.Tensor:
     """K1 alone on n >= 1 float32 bodies (its bf16 instance on bf16 ones)
-    and the (6,) box -> W (m^3,) float32: the items' partials through
-    scratch and the fold when the run has several items."""
+    and the (6,) box -> W (m^3,) float32, in items of ``chunk`` bodies (0:
+    ``one_run``'s pick): the items' partials through scratch and the fold
+    when the run has several items."""
     dev, n = x.device, x.shape[0]
-    run = one_run(n, m, dev)
+    run = one_run(n, m, dev, chunk=chunk)
     w = torch.empty(m ** 3, dtype=torch.float32, device=dev)
     partial = (torch.empty(run.nitems * m ** 3, dtype=torch.float32,
                            device=dev) if run.nitems > 1 else None)
@@ -195,10 +197,18 @@ def p2m_launch(x, y, z, g, box, m: int) -> torch.Tensor:
     return w
 
 
-def p2m_fused(qx, qy, qz, gm_eff, c, h, *, m: int) -> torch.Tensor:
+def p2m_fused(qx, qy, qz, gm_eff, c, h, *, m: int,
+              chunk: int = 0) -> torch.Tensor:
     """W (m^3,) = P2M.  CPU tensors run ``p2m_plain``; CUDA tensors launch
     K1 (fp32 inside; float64 inputs are cast here, W cast back; bf16
-    inputs take the bf16 instance, W float32)."""
+    inputs take the bf16 instance, W float32) in work items of ``chunk``
+    bodies (0: ``fmm_kernels.p2m_chunk``'s pick; else
+    ``fmm_kernels.check_p2m_chunk``'s range, on either device; the plain
+    version has no items)."""
+    if chunk:
+        from murb_tpu_torch.ops.fmm_kernels import check_p2m_chunk
+
+        check_p2m_chunk(chunk, m)
     if qx.device.type == "cpu":
         return p2m_plain(qx, qy, qz, gm_eff, c, h, m=m)
     cuda.require_cuda(_TAG, qx)
@@ -209,7 +219,7 @@ def p2m_fused(qx, qy, qz, gm_eff, c, h, *, m: int) -> torch.Tensor:
     b16 = cuda.all_bf16(qx, qy, qz, gm_eff)
     x, y, z, g = cuda.kernel_inputs(_TAG, dev, n, qx, qy, qz, gm_eff,
                                     notify=notify_fp32_compute, bf16=b16)
-    w = p2m_launch(x, y, z, g, _box(c, h, dev), m)
+    w = p2m_launch(x, y, z, g, _box(c, h, dev), m, chunk)
     if b16:
         p2m_fused.bf16_launches += 1
     else:
@@ -233,31 +243,67 @@ def l2p_bodies(n: int, m: int, sms: int) -> int:
     return 2 if -(-n // per) >= ONE_L2P_BLOCKS_AN_SM * sms else 1
 
 
-def l2p_launch(x, y, z, box, m: int, fields) -> torch.Tensor:
+def l2p_blocks(m: int) -> tuple:
+    """The bodies a block K2 runs at order m: ONE_L2P_THREADS (1 body a
+    thread) and, up to padded order ONE_L2P_MAX_TB_MW, twice that (2)."""
+    one = ONE_L2P_THREADS
+    return (one, 2 * one) if (m + 3) // 4 * 4 <= ONE_L2P_MAX_TB_MW else (one,)
+
+
+def check_l2p_block(block: int, m: int) -> None:
+    """Raise ValueError unless ``block`` is one of ``l2p_blocks(m)``
+    (callers pass 0 for ``l2p_bodies``' pick unchecked)."""
+    if block not in l2p_blocks(m):
+        raise ValueError(f"{_TAG}: an L2P block of {block} bodies at m={m}; "
+                         f"K2 runs blocks of {l2p_blocks(m)} bodies")
+
+
+def l2p_block_for(block: int, m: int) -> int:
+    """K2's block for a solver entry's ``block`` (the bodies a work item of
+    the P2M and L2P stages): 0 for 0, else the largest of ``l2p_blocks(m)``
+    not above it (so 1024 runs 256-body blocks where the order allows);
+    below the smallest, ValueError."""
+    if not block:
+        return 0
+    fits = [b for b in l2p_blocks(m) if b <= block]
+    if not fits:
+        raise ValueError(f"{_TAG}: block={block} at m={m}; K2 runs blocks "
+                         f"of {l2p_blocks(m)} bodies, so the single-cell "
+                         f"proxy takes block >= {l2p_blocks(m)[0]}")
+    return fits[-1]
+
+
+def l2p_launch(x, y, z, box, m: int, fields, block: int = 0) -> torch.Tensor:
     """K2 alone on float32 bodies (its bf16 instance on bf16 ones), the (6,)
     box and 1 to 11 float32
     contiguous (m^3,) fields -> (k, n) float32, one launch per group of at
-    most 4 fields."""
+    most 4 fields, in blocks of ``block`` bodies (0: ``l2p_bodies``' pick)."""
     dev, n, k = x.device, x.shape[0], len(fields)
     out = torch.empty((k, n), dtype=torch.float32, device=dev)
+    tb = (block // ONE_L2P_THREADS if block
+          else l2p_bodies(n, m, cuda.sm_count(dev)))
     with torch.cuda.device(dev):
         cuda.launch(_entry("murb_l2p", x), x.data_ptr(), y.data_ptr(),
-                    z.data_ptr(), n,
-                    box.data_ptr(), m, l2p_bodies(n, m, cuda.sm_count(dev)),
+                    z.data_ptr(), n, box.data_ptr(), m, tb,
                     node_table(m, dev).data_ptr(),
                     cuda.field_pointers(fields), k, out.data_ptr(),
                     cuda.stream(dev))
     return out
 
 
-def l2p_fused_multi(qx, qy, qz, c, h, fields, *, m: int) -> tuple:
+def l2p_fused_multi(qx, qy, qz, c, h, fields, *, m: int,
+                    block: int = 0) -> tuple:
     """Interpolate a tuple of 1 to 11 (m^3,) node fields to the bodies ->
     tuple of (n,).  CPU tensors run ``l2p_plain``; CUDA tensors launch K2
-    once per group of at most 4 fields, and count each launch."""
+    once per group of at most 4 fields, in blocks of ``block`` bodies (0:
+    ``l2p_bodies``' pick; else one of ``l2p_blocks(m)``, checked on either
+    device; the plain version has no blocks), and count each launch."""
     k = len(fields)
     if not 1 <= k <= MAX_FIELDS:
         raise ValueError(f"{_TAG}: L2P takes 1 to {MAX_FIELDS} node fields, "
                          f"got {k}")
+    if block:
+        check_l2p_block(block, m)
     if qx.device.type == "cpu":
         return l2p_plain(qx, qy, qz, c, h, fields, m=m)
     cuda.require_cuda(_TAG, qx)
@@ -268,7 +314,7 @@ def l2p_fused_multi(qx, qy, qz, c, h, fields, *, m: int) -> tuple:
                                  notify=notify_fp32_compute, bf16=b16)
     flds = cuda.kernel_inputs(_TAG, dev, m ** 3, *fields,
                               notify=notify_fp32_compute)
-    out = l2p_launch(x, y, z, _box(c, h, dev), m, flds)
+    out = l2p_launch(x, y, z, _box(c, h, dev), m, flds, block)
     if b16:
         l2p_fused_multi.bf16_launches += -(-k // _L2P_GROUP)
     else:
@@ -280,7 +326,9 @@ l2p_fused_multi.launches = 0
 l2p_fused_multi.bf16_launches = 0
 
 
-def l2p_fused(qx, qy, qz, c, h, f_ax, f_ay, f_az, *, m: int) -> torch.Tensor:
-    """a (n, 3) = L2P of the three node force fields."""
+def l2p_fused(qx, qy, qz, c, h, f_ax, f_ay, f_az, *, m: int,
+              block: int = 0) -> torch.Tensor:
+    """a (n, 3) = L2P of the three node force fields (``block``: as
+    ``l2p_fused_multi``'s)."""
     return torch.stack(l2p_fused_multi(qx, qy, qz, c, h, (f_ax, f_ay, f_az),
-                                       m=m), dim=1)
+                                       m=m, block=block), dim=1)

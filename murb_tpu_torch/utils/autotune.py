@@ -139,7 +139,7 @@ def tune(kernel: str, npad: int, make_run_fn, state0, *,
         sweep.append((params, ms))
         if ms < best_ms:
             best, best_ms = params, ms
-    if best is None:
-        best, best_ms = {"block_i": 0, "block_j": 0}, 0.0
+    if best is None:   # every candidate refused: the kernels' own picks
+        best, best_ms = dict.fromkeys(candidates[0], 0), 0.0
     store(kernel, npad, best, best_ms, device=device)
     return {**best, "ms_per_step": best_ms, "sweep": sweep}

@@ -1,6 +1,5 @@
-"""Wall-clock performance timers with FPS / GFlop/s derivation (the part of
-``murb_tpu/utils/perf.py`` the CLI uses; that module cannot be imported
-without JAX).
+"""Wall-clock performance timers with FPS / GFlop/s derivation (port of
+``murb_tpu/utils/perf.py``).
 
 Parity rebuild of ``Perf`` (ref: src/common/utils/Perf.cpp): microsecond
 wall-clock timers, ``getElapsedTime`` in ms, ``getFPS``, and the reference's
@@ -27,6 +26,10 @@ class Perf:
         self._elapsed_us = (time.perf_counter() - self._t0) * 1.0e6
         self._t0 = None
 
+    def reset(self) -> None:
+        self._elapsed_us = 0.0
+        self._t0 = None
+
     def __iadd__(self, other: "Perf") -> "Perf":
         self._elapsed_us += other._elapsed_us
         return self
@@ -46,3 +49,9 @@ class Perf:
         if self._elapsed_us <= 0.0:
             return 0.0
         return flops / (self._elapsed_us / 1.0e6) / float(1024**3)
+
+    def get_mem_bandwidth_gbs(self, bytes_moved: float) -> float:
+        """bytes / elapsed-seconds / 1024^3, GFlop/s' binary divisor."""
+        if self._elapsed_us <= 0.0:
+            return 0.0
+        return bytes_moved / (self._elapsed_us / 1.0e6) / float(1024**3)

@@ -163,7 +163,8 @@ def test_field_grid_routes_each_sweep_as_murb_tpu(monkeypatch, tier,
     every sweep lossy; under "fp32" none."""
     calls = []
 
-    def record(w, hl, soft, *, m, C, subset, with_phi, dots):
+    def record(w, hl, soft, *, m, C, subset, with_phi, dots, tile):
+        assert tile == 0          # K7's own items unless m2l_tile is given
         calls.append((C, subset, dots))
         z = torch.zeros((C ** 3, m ** 3), dtype=w.dtype)
         return (z,) * (4 if with_phi else 3)
