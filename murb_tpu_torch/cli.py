@@ -24,8 +24,11 @@ record and checkpoint points) and can stop on a non-finite state
 ``torch.distributed`` group first (parallel/mesh.maybe_init_distributed).
 The frame loop feeds a viewer (``--visu-out`` PNG frames, ``--visu-live``
 the browser viewer, whose keys pause the run, double or halve dt and end
-it), and ``--profile DIR`` runs the whole run under ``torch.profiler``,
-writes a Chrome trace into DIR and prints the device time.
+it), and ``--profile DIR`` runs the whole run under ``torch.profiler``
+with the program's spans on (utils/trace), writes a Chrome trace into DIR
+and prints the device time, each span's host and device time, the engine
+build's spans (plan, validation, geometry, library) with the plan's attrs,
+and each health check.
 
 ``--device cuda`` (the default) puts the state and every kernel on the
 first CUDA device and exits with status 1 when there is none: the port
@@ -54,6 +57,7 @@ from murb_tpu_torch.models import (
     resolve_tag,
     validate_tag,
 )
+from murb_tpu_torch.utils import trace
 from murb_tpu_torch.utils.args import MurbConfig, parse_args
 from murb_tpu_torch.utils.perf import Perf
 from murb_tpu_torch.utils.strdate import str_date
@@ -295,13 +299,16 @@ def print_banner(cfg: MurbConfig, engine, device: torch.device) -> None:
 
 
 def _write_profile(prof, out_dir: str, device: torch.device) -> None:
-    """Stop the ``--profile`` session, write its Chrome trace into
-    ``out_dir`` and print the device time: the sum of the device rows only
-    (kernels, copies, memsets), never the host operators' rows, which
-    count the same kernels again (utils/profile_step.device_rows)."""
+    """Stop the ``--profile`` profiler and its tracer, write its Chrome
+    trace into ``out_dir``, print the device time: the sum of the device rows
+    only (kernels, copies, memsets), never the host operators' rows, which
+    count the same kernels again (utils/profile_step.device_rows), and the
+    program's spans (utils/trace.profile_rows)."""
     from murb_tpu_torch.utils.profile_step import device_rows
 
     prof.stop()
+    trace.disable()
+    kept = trace.drain()
     os.makedirs(out_dir, exist_ok=True)
     prof.export_chrome_trace(os.path.join(out_dir, "trace.json"))
     print(f"Profiler trace written to {out_dir}")
@@ -314,6 +321,38 @@ def _write_profile(prof, out_dir: str, device: torch.device) -> None:
     else:
         print(f"Profiled device time: not measured (no device events on "
               f"{device})")
+    for name, calls, host_ms, dev_ms in trace.profile_rows(prof):
+        dev_txt = (f"{dev_ms:11.3f} ms" if device.type == "cuda"
+                   else "not measured")
+        print(f"  span {name:<18} {calls:7d}x  host {host_ms:11.3f} ms  "
+              f"device {dev_txt}")
+    _print_records("Health checks and builds in the run", kept,
+                   lambda name: name == "adapt" or name.startswith("build."))
+
+
+def _print_records(title: str, kept: dict, keep=lambda name: True) -> None:
+    """Print the tracer's records (``trace.drain()``'s) whose name ``keep``
+    accepts, each with its host time on the tracer's own clock and its
+    attrs, indented under the printed span it ran in, then the counters:
+    under ``--profile``, the engine build (the planner's plan, the
+    validation's error, the library's load) and the run's health checks
+    and builds (a rebuild, the library's load on a first step)."""
+    inner, lines = {}, []      # id -> the indent of what runs inside it
+    for rec in kept["spans"]:
+        depth = inner.get(rec["parent"], 0)
+        shown = keep(rec["name"])
+        inner[rec["id"]] = depth + shown
+        if not shown:
+            continue
+        ms = ("open" if rec["end_ns"] is None else
+              f"{(rec['end_ns'] - rec['start_ns']) / 1e6:11.3f} ms")
+        attrs = " ".join(f"{k}={v}" for k, v in rec["attrs"].items())
+        lines.append(f"  {'  ' * depth}{rec['name']:<18} {ms}"
+                     + (f"  {attrs}" if attrs else ""))
+    lines += [f"  count {k} = {v}" for k, v in kept["counts"].items()]
+    if lines:
+        print(f"{title} (host clock):")
+        print("\n".join(lines))
 
 
 def run(argv=None) -> CliRun:
@@ -342,12 +381,19 @@ def run(argv=None) -> CliRun:
     if cfg.save_every > 0 and not cfg.save_state:
         print("--save-every requires --save-state", file=sys.stderr)
         return CliRun(1)
+    if cfg.profile:
+        trace.enable()   # the build's spans, printed once it is built
     try:
         engine, start_iteration = build_engine(cfg, device)
     except (ValueError, NotImplementedError, FileNotFoundError) as e:
         # ref: main.cpp:265-268 -- clean exit on unknown implementation
         print(e)
         return CliRun(1)
+    finally:
+        if cfg.profile:
+            trace.disable()
+    if cfg.profile:
+        _print_records("Engine build", trace.drain())
     print_banner(cfg, engine, device)
     visu = create_visu(cfg)
     print("Simulation started...")
@@ -392,6 +438,7 @@ def run(argv=None) -> CliRun:
         prof = profile(activities=[ProfilerActivity.CPU] + (
             [ProfilerActivity.CUDA] if device.type == "cuda" else []))
         prof.start()
+        trace.enable()   # the program's spans, in the trace as murb.<span>
     perf_ite, perf_total = Perf(), Perf()
     physic_time = 0.0
     n_done = n_run = 0

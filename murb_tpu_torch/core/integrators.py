@@ -29,6 +29,7 @@ import torch
 
 from murb_tpu_torch.core.state import BodyState, in_dtype
 from murb_tpu_torch.ops.common import Accel
+from murb_tpu_torch.utils import trace
 
 
 # --------------------------------------------------------------------- Euler
@@ -36,18 +37,19 @@ def euler_update(state: BodyState, acc: Accel, dt: float) -> BodyState:
     """Explicit Euler update of positions then velocities (ref:
     Bodies.cpp:259-278)."""
     dt = in_dtype(dt, state.dtype)  # murb_tpu rounds dt to the state dtype
-    ax_dt = acc.ax * dt
-    ay_dt = acc.ay * dt
-    az_dt = acc.az * dt
-    return dataclasses.replace(
-        state,
-        qx=state.qx + (state.vx + ax_dt * 0.5) * dt,
-        qy=state.qy + (state.vy + ay_dt * 0.5) * dt,
-        qz=state.qz + (state.vz + az_dt * 0.5) * dt,
-        vx=state.vx + ax_dt,
-        vy=state.vy + ay_dt,
-        vz=state.vz + az_dt,
-    )
+    with trace.span("update"):
+        ax_dt = acc.ax * dt
+        ay_dt = acc.ay * dt
+        az_dt = acc.az * dt
+        return dataclasses.replace(
+            state,
+            qx=state.qx + (state.vx + ax_dt * 0.5) * dt,
+            qy=state.qy + (state.vy + ay_dt * 0.5) * dt,
+            qz=state.qz + (state.vz + az_dt * 0.5) * dt,
+            vx=state.vx + ax_dt,
+            vy=state.vy + ay_dt,
+            vz=state.vz + az_dt,
+        )
 
 
 # ------------------------------------------------------------------ Leapfrog

@@ -20,6 +20,7 @@ from murb_tpu_torch import DEFAULT_DT, DEFAULT_SOFTENING, G
 from murb_tpu_torch.core.integrators import euler_update
 from murb_tpu_torch.core.state import BodyState
 from murb_tpu_torch.ops.common import Accel, flops_per_iteration
+from murb_tpu_torch.utils import trace
 
 
 class SimulationEngine:
@@ -76,7 +77,8 @@ class SimulationEngine:
         raise NotImplementedError
 
     def compute_one_iteration(self) -> None:
-        self._state, self._last_acc = self._step(self._state)
+        with trace.span("step", iteration=self._iteration):
+            self._state, self._last_acc = self._step(self._state)
         self._iteration += 1
 
     def run(self, n_iterations: int) -> None:
@@ -114,5 +116,6 @@ class EulerAccelEngine(SimulationEngine):
         raise NotImplementedError
 
     def _step(self, state: BodyState):
-        acc = self._acc_fn(state.qx, state.qy, state.qz, self._gm(state))
+        with trace.span("force"):
+            acc = self._acc_fn(state.qx, state.qy, state.qz, self._gm(state))
         return euler_update(state, acc, self._dt), acc

@@ -40,6 +40,7 @@ from murb_tpu_torch.ops import acc_auto as _default_exact_acc
 from murb_tpu_torch.ops.common import Accel
 from murb_tpu_torch.ops.naive import acc_chunked, acc_naive
 from murb_tpu_torch.ops.proxy_kernels import MAX_ORDER
+from murb_tpu_torch.utils import trace
 
 #: the validation ladders' step of a lossy M2L tier that misses tol
 _STRONGER = {"bf16x3": "mixed", "mixed": "fp32"}
@@ -124,16 +125,17 @@ class PallasTileEngine(EulerAccelEngine):
 
         if autotune is None:
             autotune = at.enabled()
-        tuned = at.lookup(self._tune_tag, self._state.npad,
-                          device=self._state.device)
-        if tuned is not None:
-            try:   # a cached pair the sweeps are not compiled for is skipped
-                check_blocks(self._tune_tag, int(tuned.get("block_i", 0)),
-                             int(tuned.get("block_j", 0)))
-            except ValueError:
-                tuned = None
-        if tuned is None and autotune:
-            tuned = self._run_autotune()
+        with trace.span("build.geometry"):
+            tuned = at.lookup(self._tune_tag, self._state.npad,
+                              device=self._state.device)
+            if tuned is not None:
+                try:   # a cached pair the sweeps are not compiled for: skip
+                    check_blocks(self._tune_tag, int(tuned.get("block_i", 0)),
+                                 int(tuned.get("block_j", 0)))
+                except ValueError:
+                    tuned = None
+            if tuned is None and autotune:
+                tuned = self._run_autotune()
         if tuned:
             self.tuned = tuned
             self.block_i = int(tuned.get("block_i", 0))
@@ -303,7 +305,9 @@ class ProxyEngine(EulerAccelEngine):
                 int(cells or 1)
             self.using_proxy = self.m <= self.max_m
             if near == "adaptive":
-                self._configure_adaptive(force=True)
+                with trace.span("build.plan") as sp:
+                    self._configure_adaptive(force=True)
+                    sp.set(**self._plan_attrs())
         if block or m2l_tile:
             self._check_geometry(self.block, self.m2l_tile)
         else:
@@ -316,27 +320,46 @@ class ProxyEngine(EulerAccelEngine):
         from murb_tpu_torch.ops.proxy import half_extent, required_order
 
         round4 = lambda x: (x + 3) // 4 * 4
-        half = half_extent(self._state.unpadded())
-        # margin=0: the box_margin factor already pads for growth
-        # (rationale in murb_tpu/models/engines.py:_configure)
-        m1 = round4(required_order(half * self.box_margin, self.soft,
-                                   self.tol, margin=0))
-        self.near_mode, self._plan = "interp", None
-        # wider boxes go to the hierarchy, whose finest cells restore
-        # eps/h ~ 1 at any scale
-        m, levels = (m1, 0) if m1 <= 20 else self._best_depth(half)
-        self.m, self.levels, self.cells = int(m), int(levels), 1
-        self._apply_cost_model()
-        if self.near == "adaptive" or (self.near == "auto"
-                                       and not self.using_proxy):
-            # every dense configuration was rejected: try the adaptive
-            # sparse hierarchy before the exact fallback
-            self._configure_adaptive(force=self.near == "adaptive")
+        with trace.span("build.plan") as sp:
+            half = half_extent(self._state.unpadded())
+            # margin=0: the box_margin factor already pads for growth
+            # (rationale in murb_tpu/models/engines.py:_configure)
+            m1 = round4(required_order(half * self.box_margin, self.soft,
+                                       self.tol, margin=0))
+            self.near_mode, self._plan = "interp", None
+            # wider boxes go to the hierarchy, whose finest cells restore
+            # eps/h ~ 1 at any scale
+            m, levels = (m1, 0) if m1 <= 20 else self._best_depth(half)
+            self.m, self.levels, self.cells = int(m), int(levels), 1
+            self._apply_cost_model()
+            if self.near == "adaptive" or (self.near == "auto"
+                                           and not self.using_proxy):
+                # every dense configuration was rejected: try the adaptive
+                # sparse hierarchy before the exact fallback
+                self._configure_adaptive(force=self.near == "adaptive")
+            sp.set(**self._plan_attrs())
         if self.using_proxy and self.validate:
-            if self.near_mode == "adaptive":
-                self._validate_adaptive()
-            else:
-                self._validate_order(half)
+            with trace.span("build.validate") as sp:
+                if self.near_mode == "adaptive":
+                    self._validate_adaptive()
+                else:
+                    self._validate_order(half)
+                sp.set(m=self.m, levels=self.levels, cells=self.cells,
+                       err=self.validated_err)
+
+    def _plan_attrs(self) -> dict:
+        """The plan a ``build.plan`` span picked: (m, levels, cells), the
+        branch, and in the adaptive mode the dense levels, the capacities
+        and the two cost estimates (the planner counts its estimated brick
+        pairs in ``plan.brick_pairs``)."""
+        attrs = {"m": self.m, "levels": self.levels, "cells": self.cells,
+                 "using_proxy": self.using_proxy, "near_mode": self.near_mode}
+        plan = self._plan
+        if plan is not None:
+            attrs.update(dense_levels=plan.dense_levels,
+                         cell_caps=plan.cell_caps, p2p_pmax=plan.p2p_pmax,
+                         **(self.cost_estimates or {}))
+        return attrs
 
     def _active_q(self) -> np.ndarray:
         """(n_active, 3) float32 positions of the massive bodies (host): the
@@ -540,15 +563,16 @@ class ProxyEngine(EulerAccelEngine):
         if autotune is None:
             autotune = at.enabled()
         st = self._state
-        tuned = at.lookup(self._fast_tune_tag, st.npad, device=st.device)
-        if tuned is not None:
-            try:   # a stored pick the kernels cannot run is skipped
-                self._check_geometry(int(tuned.get("block", 0)),
-                                     int(tuned.get("m2l_tile", 0)))
-            except ValueError:
-                tuned = None
-        if tuned is None and autotune and st.device.type == "cuda":
-            tuned = self._run_fast_autotune()
+        with trace.span("build.geometry"):
+            tuned = at.lookup(self._fast_tune_tag, st.npad, device=st.device)
+            if tuned is not None:
+                try:   # a stored pick the kernels cannot run is skipped
+                    self._check_geometry(int(tuned.get("block", 0)),
+                                         int(tuned.get("m2l_tile", 0)))
+                except ValueError:
+                    tuned = None
+            if tuned is None and autotune and st.device.type == "cuda":
+                tuned = self._run_fast_autotune()
         if tuned:
             self.tuned = tuned
             self.block = int(tuned.get("block", 0))
@@ -605,8 +629,15 @@ class ProxyEngine(EulerAccelEngine):
         state, and look the stage geometry of a new configuration up again
         (never a sweep mid-run).  Returns True if the engine was
         reconfigured.  Waits on the device; call between frames."""
-        if not self._auto or self.proxy_health()["ok"]:
-            return False
+        with trace.span("adapt") as sp:
+            ok = not self._auto or self.proxy_health()["ok"]
+            reconfigured = not ok and self._reconfigure()
+            sp.set(ok=ok, reconfigured=reconfigured)
+        return reconfigured
+
+    def _reconfigure(self) -> bool:
+        """The auto policy again on the current state; True if it picked
+        another configuration (whose stage geometry is then looked up)."""
         old = (self.m, self.levels, self.cells, self.using_proxy,
                self.near_mode, self._plan)
         self._configure()
@@ -618,11 +649,13 @@ class ProxyEngine(EulerAccelEngine):
         self._resolve_fast_blocks(autotune=False)
         return True
 
-    def compute_one_iteration(self) -> None:
+    def _step(self, state):
+        # every adapt_every iterations the health check runs first, inside
+        # the step's span
         if (self.adapt_every and self._iteration
                 and self._iteration % self.adapt_every == 0):
             self.maybe_adapt()
-        super().compute_one_iteration()
+        return super()._step(state)
 
     def _acc_fn(self, qx, qy, qz, gm):
         return self._acc_solver(qx, qy, qz, gm, self.block, self.m2l_tile)
@@ -845,9 +878,10 @@ class LeapfrogEngine(SimulationEngine):
         return (aux.nqx, aux.nqy, aux.nqz), lambda acc: leapfrog_last(st, aux)
 
     def compute_one_iteration(self) -> None:
-        q, finish = self._phase()
-        acc = self._acc_fn(*q, self._gm(self._state))
-        self._state, self._aux = finish(acc)
+        with trace.span("step", iteration=self._iteration):
+            q, finish = self._phase()
+            acc = self._acc_fn(*q, self._gm(self._state))
+            self._state, self._aux = finish(acc)
         self._last_acc = acc
         self._iteration += 1
 
@@ -925,7 +959,8 @@ class _Tracked:
         keep = min(n_iterations, self.history.num_iterations - i0)
         rows = []
         for k in range(n_iterations):
-            mets = self._advance()
+            with trace.span("step", iteration=self._iteration):
+                mets = self._advance()
             self._iteration += 1
             if k < keep:
                 rows.append(_pack(mets))

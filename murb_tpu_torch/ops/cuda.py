@@ -30,6 +30,8 @@ from pathlib import Path
 
 import torch
 
+from murb_tpu_torch.utils import trace
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "murb_tpu_torch"
 DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")
@@ -237,7 +239,8 @@ def build_kernels() -> Path:
 @functools.lru_cache(maxsize=1)
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
-    lib = ctypes.CDLL(str(build_kernels()))
+    with trace.span("build.library"):
+        lib = ctypes.CDLL(str(build_kernels()))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes

@@ -70,6 +70,7 @@ from murb_tpu_torch.ops.common import (Accel, bf16_plain, notify_fp32_compute,
 from murb_tpu_torch.ops.mxu import _fp32_matmul, tf32_round, tf32_split
 from murb_tpu_torch.ops.naive import _pair_weights
 from murb_tpu_torch.ops.tile import acc_tile_rect_plain, split_args
+from murb_tpu_torch.utils import trace
 
 #: sources a run of passes 3 sums in fp32 before its fp64 fold
 #: (csrc/tile.cuh kExtRun)
@@ -234,42 +235,40 @@ def acc_hybrid_rect(qxi, qyi, qzi, qxj, qyj, qzj, gmj, soft, *,
                       "relative force error)" if passes == 3 else None))
     dtype, dev = qxi.dtype, qxi.device
     ni, nj = qxi.shape[0], qxj.shape[0]
-    b16 = cuda.all_bf16(qxi, qyi, qzi, qxj, qyj, qzj, gmj)
-    xi, yi, zi = cuda.kernel_inputs(tag, dev, ni, qxi, qyi, qzi,
-                                    notify=notify, bf16=b16)
-    xj, yj, zj, gj = cuda.kernel_inputs(tag, dev, nj, qxj, qyj, qzj, gmj,
+    with trace.span("exact.prepare"):
+        b16 = cuda.all_bf16(qxi, qyi, qzi, qxj, qyj, qzj, gmj)
+        xi, yi, zi = cuda.kernel_inputs(tag, dev, ni, qxi, qyi, qzi,
                                         notify=notify, bf16=b16)
-    out = torch.empty((3, ni), dtype=torch.float32, device=dev)
-    sfx = "_bf16" if b16 else ""
-    entry, count = hybrid_entry(passes, b16)
-    if passes == 1:
-        center = torch.empty(3, dtype=torch.float32, device=dev)
-        packed = fast_packed(nj, dev)
-        split, _scratch = fast_split_args(ni, nj, block_i, block_j, dev,
-                                          "murb_hybrid_fast_resident" + sfx)
-        with torch.cuda.device(dev):
-            cuda.launch(entry, xi.data_ptr(), yi.data_ptr(), zi.data_ptr(),
-                        ni, xj.data_ptr(), yj.data_ptr(), zj.data_ptr(),
-                        gj.data_ptr(), nj, center.data_ptr(),
-                        ctypes.c_float(float(soft) ** 2), block_i, block_j,
-                        *split, packed.data_ptr(), out[0].data_ptr(),
-                        out[1].data_ptr(), out[2].data_ptr(),
-                        cuda.stream(dev))
-    else:
-        if b16:
-            xj, yj, zj, gj = cuda.aligned4(xj, yj, zj, gj)
-        split, _scratch = (
-            ext_split_args(ni, nj, block_i, block_j, dev,
-                           "murb_hybrid_resident" + sfx) if passes == 3 else
-            split_args(ni, nj, block_i, block_j, dev,
-                       "murb_tile_resident" + sfx))
-        with torch.cuda.device(dev):
-            cuda.launch(entry, xi.data_ptr(), yi.data_ptr(), zi.data_ptr(),
-                        ni, xj.data_ptr(), yj.data_ptr(), zj.data_ptr(),
-                        gj.data_ptr(), nj, ctypes.c_float(float(soft) ** 2),
-                        passes, block_i, block_j, *split,
-                        out[0].data_ptr(), out[1].data_ptr(),
-                        out[2].data_ptr(), cuda.stream(dev))
+        xj, yj, zj, gj = cuda.kernel_inputs(tag, dev, nj, qxj, qyj, qzj, gmj,
+                                            notify=notify, bf16=b16)
+        out = torch.empty((3, ni), dtype=torch.float32, device=dev)
+        sfx = "_bf16" if b16 else ""
+        entry, count = hybrid_entry(passes, b16)
+        soft2 = ctypes.c_float(float(soft) ** 2)
+        outs = (out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
+                cuda.stream(dev))
+        if passes == 1:
+            center = torch.empty(3, dtype=torch.float32, device=dev)
+            packed = fast_packed(nj, dev)
+            split, _scratch = fast_split_args(
+                ni, nj, block_i, block_j, dev,
+                "murb_hybrid_fast_resident" + sfx)
+            args = (center.data_ptr(), soft2, block_i, block_j, *split,
+                    packed.data_ptr(), *outs)
+        else:
+            if b16:
+                xj, yj, zj, gj = cuda.aligned4(xj, yj, zj, gj)
+            split, _scratch = (
+                ext_split_args(ni, nj, block_i, block_j, dev,
+                               "murb_hybrid_resident" + sfx)
+                if passes == 3 else
+                split_args(ni, nj, block_i, block_j, dev,
+                           "murb_tile_resident" + sfx))
+            args = (soft2, passes, block_i, block_j, *split, *outs)
+    with trace.span("exact.sweep"), torch.cuda.device(dev):
+        cuda.launch(entry, xi.data_ptr(), yi.data_ptr(), zi.data_ptr(), ni,
+                    xj.data_ptr(), yj.data_ptr(), zj.data_ptr(),
+                    gj.data_ptr(), nj, *args)
     setattr(acc_hybrid_rect, count, getattr(acc_hybrid_rect, count) + 1)
     return Accel(*(o.to(dtype) for o in out))
 

@@ -26,10 +26,18 @@ P2P stage (ops/p2p.py) sums exactly:
              M2L, and L2P from the finest slots (kernel K12).
   near       the exact P2P sweep (kernel K10).
 
-Everything runs on the state's device with no host sync inside a solve;
-the planner and the capacity checks run on the host between steps.  The
-sparse M2L keeps murb_tpu's opt-in tiers (``m2l_sparse_level``): the dot
-tiers ``m2l_dots`` "bf16x3" (every product as three TF32 products of split
+Everything runs on the state's device; the planner and the capacity
+checks run on the host between steps.  A solve does wait on the device:
+each host table it copies to the card (``torch.as_tensor`` of a numpy
+array onto a CUDA device: the sparse M2L's offsets and parity codes in
+``_neighbor_slots``, its signs and each batch of offsets; the M2M and L2L
+matrix of each ops/fmm.m2m and l2l call in the dense base) is a pageable
+copy that PyTorch ends with a stream synchronise.  So a step waits once
+for each ``_neighbor_slots`` table and each sign table of every sparse
+level, once for each batch of offsets, and once for each M2M and L2L
+matrix; how many that is follows the plan's levels.  The sparse M2L
+keeps murb_tpu's opt-in tiers (``m2l_sparse_level``): the dot tiers
+``m2l_dots`` "bf16x3" (every product as three TF32 products of split
 operands, ``ops/mxu.split3_matmul``) and "mixed" (the |o|_inf = 2 shell at
 fp32, the outer shells lossy), the shared-basis compression (``m2l_rank``
 > 0, ``m2l_basis``), the fused multi-offset form (MURB_M2L_FUSED) and the
@@ -58,6 +66,7 @@ from murb_tpu_torch.ops.p2p import (DEFAULT_CHUNK as P2P_CHUNK, DEFAULT_K,
                                     estimate_brick_pairs, morton_key,
                                     size_pmax, sorted_cells)
 from murb_tpu_torch.ops.p2p_kernels import p2p_sweep_kernel_sorted
+from murb_tpu_torch.utils import trace
 
 #: p2p_impl names: the port's own, and murb_tpu's mapped onto them
 _IMPLS = {"plain": "plain", "kernel": "kernel", "jnp": "plain",
@@ -449,25 +458,26 @@ def m2l_sparse_level(w, cells, hl, soft, *, m: int, C: int,
     check_m2l_dots(m2l_dots)
     rank = rank if 0 < rank < m ** 3 else 0
     kw = dict(m=m, C=C, with_phi=with_phi)
-    if rank:
-        return _m2l_sparse_level_rank(w, cells, hl, soft, rank=rank,
-                                      lossy=m2l_dots == "bf16x3", **kw)
-    if fused:
-        return _m2l_sparse_level_fused(w, cells, hl, soft,
-                                       lossy=m2l_dots == "bf16x3", **kw)
-    canon = _canon_far()
-    if m2l_dots == "mixed":
-        shell = np.abs(canon).max(1)
-        crit = _m2l_sparse_level_scan(w, cells, hl, soft, canon[shell <= 2],
-                                      lossy=False, scan_chunk=scan_chunk,
-                                      **kw)
-        outer = _m2l_sparse_level_scan(w, cells, hl, soft,
-                                       canon[shell >= 3], lossy=True,
-                                       scan_chunk=scan_chunk, **kw)
-        return tuple(a + b for a, b in zip(crit, outer))
-    return _m2l_sparse_level_scan(w, cells, hl, soft, canon,
-                                  lossy=m2l_dots == "bf16x3",
-                                  scan_chunk=scan_chunk, **kw)
+    with trace.span("sparse_m2l", level=C.bit_length() - 1):
+        if rank:
+            return _m2l_sparse_level_rank(w, cells, hl, soft, rank=rank,
+                                          lossy=m2l_dots == "bf16x3", **kw)
+        if fused:
+            return _m2l_sparse_level_fused(w, cells, hl, soft,
+                                           lossy=m2l_dots == "bf16x3", **kw)
+        canon = _canon_far()
+        if m2l_dots == "mixed":
+            shell = np.abs(canon).max(1)
+            crit = _m2l_sparse_level_scan(w, cells, hl, soft,
+                                          canon[shell <= 2], lossy=False,
+                                          scan_chunk=scan_chunk, **kw)
+            outer = _m2l_sparse_level_scan(w, cells, hl, soft,
+                                           canon[shell >= 3], lossy=True,
+                                           scan_chunk=scan_chunk, **kw)
+            return tuple(a + b for a, b in zip(crit, outer))
+        return _m2l_sparse_level_scan(w, cells, hl, soft, canon,
+                                      lossy=m2l_dots == "bf16x3",
+                                      scan_chunk=scan_chunk, **kw)
 
 
 def _sources(w, spos, fnd):
@@ -608,39 +618,44 @@ def hierarchy_fields(w_fin, cells_fin, c, h, soft, plan: SparsePlan,
     m^3) with a zero dump row, diagnostics)."""
     m = plan.m
     Ld, L = plan.dense_levels, plan.levels
-    cells = {L: cells_fin}
-    for l in range(L - 1, Ld, -1):
-        ids = torch.where(cells[l + 1] == _BIG, _BIG, cells[l + 1] >> 3)
-        cells[l], _ = _occupied_and_slots(ids, plan.cell_caps[l - Ld - 1])
-    diag = {"n_cells": tuple((cells[l] != _BIG).sum()
-                             for l in range(Ld + 1, L + 1))}
+    with trace.span("adaptive.upward"):
+        cells = {L: cells_fin}
+        for l in range(L - 1, Ld, -1):
+            ids = torch.where(cells[l + 1] == _BIG, _BIG, cells[l + 1] >> 3)
+            cells[l], _ = _occupied_and_slots(ids,
+                                              plan.cell_caps[l - Ld - 1])
+        diag = {"n_cells": tuple((cells[l] != _BIG).sum()
+                                 for l in range(Ld + 1, L + 1))}
 
-    w = {L: w_fin}
-    for l in range(L - 1, Ld, -1):
-        w[l] = m2m_sparse(w[l + 1], cells[l + 1], cells[l], m=m,
-                          C_child=2 ** (l + 1))
-    code = cells[Ld + 1]
-    up = _octant_apply(w[Ld + 1][:-1], code & 7, m, transpose=False)
-    is_pad = code == _BIG
-    px, py, pz = _munpack(code.clamp(max=8 ** (Ld + 1) - 1) >> 3, 2 ** Ld)
-    pid = torch.where(is_pad, 0, _pack(px, py, pz, 2 ** Ld))
-    up = torch.where(is_pad[:, None], 0.0, up)
-    w_dense = torch.zeros((8 ** Ld, m ** 3), dtype=up.dtype,
-                          device=up.device).index_add_(0, pid.long(), up)
+        w = {L: w_fin}
+        for l in range(L - 1, Ld, -1):
+            w[l] = m2m_sparse(w[l + 1], cells[l + 1], cells[l], m=m,
+                              C_child=2 ** (l + 1))
+        code = cells[Ld + 1]
+        up = _octant_apply(w[Ld + 1][:-1], code & 7, m, transpose=False)
+        is_pad = code == _BIG
+        px, py, pz = _munpack(code.clamp(max=8 ** (Ld + 1) - 1) >> 3,
+                              2 ** Ld)
+        pid = torch.where(is_pad, 0, _pack(px, py, pz, 2 ** Ld))
+        up = torch.where(is_pad[:, None], 0.0, up)
+        w_dense = torch.zeros((8 ** Ld, m ** 3), dtype=up.dtype,
+                              device=up.device).index_add_(0, pid.long(), up)
 
-    f_dense = fmm_field_grid(w_dense, h, soft, m=m, levels=Ld,
-                             with_phi=with_phi, finest_subset="far",
-                             m2l_dots=m2l_dots)
+    with trace.span("adaptive.dense"):
+        f_dense = fmm_field_grid(w_dense, h, soft, m=m, levels=Ld,
+                                 with_phi=with_phi, finest_subset="far",
+                                 m2l_dots=m2l_dots)
     f = None
     for l in range(Ld + 1, L + 1):
         C = 2 ** l
         cap = plan.cell_caps[l - Ld - 1]
-        if f is None:
-            f = tuple(l2l_from_dense(fd, cells[l], m=m, C_child=C)
-                      for fd in f_dense)
-        else:
-            f = tuple(l2l_sparse(fi, cells[l - 1], cells[l], m=m,
-                                 C_child=C) for fi in f)
+        with trace.span("adaptive.l2l", level=l):
+            if f is None:
+                f = tuple(l2l_from_dense(fd, cells[l], m=m, C_child=C)
+                          for fd in f_dense)
+            else:
+                f = tuple(l2l_sparse(fi, cells[l - 1], cells[l], m=m,
+                                     C_child=C) for fi in f)
         contrib = m2l_sparse_level(w[l], cells[l], h / C, soft, m=m, C=C,
                                    with_phi=with_phi, m2l_dots=m2l_dots,
                                    rank=_resolve_rank(plan, cap),
@@ -661,11 +676,15 @@ def adaptive_field(xs, ys, zs, gs, key_s, c, h, soft, plan: SparsePlan,
     ``scan_chunk`` and ``fused``).  Returns (per-body field tuple in sorted
     order, diagnostics)."""
     m, Cfin, cap = plan.m, 2 ** plan.levels, plan.cell_caps[-1]
-    cells_fin, slots = _occupied_and_slots(key_s, cap)
-    w_fin = p2m_window(xs, ys, zs, gs, c, h, slots, cap, m=m, C=Cfin, ci=ci)
+    with trace.span("adaptive.p2m"):
+        cells_fin, slots = _occupied_and_slots(key_s, cap)
+        w_fin = p2m_window(xs, ys, zs, gs, c, h, slots, cap, m=m, C=Cfin,
+                           ci=ci)
     f, diag = hierarchy_fields(w_fin, cells_fin, c, h, soft, plan, with_phi,
                                m2l_dots, **schedule)
-    return l2p_window(xs, ys, zs, c, h, slots, f, m=m, C=Cfin, ci=ci), diag
+    with trace.span("adaptive.l2p"):
+        vals = l2p_window(xs, ys, zs, c, h, slots, f, m=m, C=Cfin, ci=ci)
+    return vals, diag
 
 
 def solve_adaptive(qx, qy, qz, gm, soft, plan: SparsePlan, *, heavy_k: int,
@@ -682,39 +701,44 @@ def solve_adaptive(qx, qy, qz, gm, soft, plan: SparsePlan, *, heavy_k: int,
                                           heavy_target_phi_rows)
 
     n = qx.shape[0]
-    c, h, hq, heavy_gm, is_heavy, top_idx, gm_eff = _heavy_setup(
-        qx, qy, qz, gm, heavy_k, heavy_factor)
-    h = h.max().expand(3)       # cubic cells: see ops/fmm._fmm_solve
+    with trace.span("adaptive.sort"):
+        c, h, hq, heavy_gm, is_heavy, top_idx, gm_eff = _heavy_setup(
+            qx, qy, qz, gm, heavy_k, heavy_factor)
+        h = h.max().expand(3)       # cubic cells: see ops/fmm._fmm_solve
 
-    # one stable Morton sort shared by every sparse stage, one unsort
-    key, ci = sorted_cells(qx, qy, qz, gm_eff > 0, c, h, 2 ** plan.levels)
-    key_s, perm = torch.sort(key, stable=True)
-    xs, ys, zs, gs = (v[perm] for v in (qx, qy, qz, gm_eff))
-    ci = tuple(v[perm] for v in ci)
+        # one stable Morton sort shared by every sparse stage, one unsort
+        key, ci = sorted_cells(qx, qy, qz, gm_eff > 0, c, h,
+                               2 ** plan.levels)
+        key_s, perm = torch.sort(key, stable=True)
+        xs, ys, zs, gs = (v[perm] for v in (qx, qy, qz, gm_eff))
+        ci = tuple(v[perm] for v in ci)
     vals, _ = adaptive_field(xs, ys, zs, gs, key_s, c, h, soft, plan,
                              with_phi, m2l_dots, ci=ci, **m2l_schedule())
-    near, _ = p2p_sweep_kernel_sorted(xs, ys, zs, gs, ci, soft,
-                                      pmax=plan.p2p_pmax,
-                                      chunk=plan.p2p_chunk,
-                                      with_phi=with_phi)
+    with trace.span("adaptive.near"):
+        near, _ = p2p_sweep_kernel_sorted(xs, ys, zs, gs, ci, soft,
+                                          pmax=plan.p2p_pmax,
+                                          chunk=plan.p2p_chunk,
+                                          with_phi=with_phi)
 
     def unsort(a):
         out = torch.empty(n, dtype=qx.dtype, device=qx.device)
         out[perm] = a
         return out
 
-    tot = [unsort(v + p.reshape(n)) for v, p in zip(vals, near)]
-    acc = torch.stack(tot[:3], 1) + heavy_source_acc(qx, qy, qz, hq,
-                                                     heavy_gm, soft)
-    ht = torch.stack(list(acc_rect(hq[0], hq[1], hq[2], qx, qy, qz, gm,
-                                   soft)), dim=1)
-    acc[top_idx] = torch.where(is_heavy[:, None], ht, acc[top_idx])
-    phi = None
-    if with_phi:
-        phi = tot[3] + heavy_source_phi_rows(qx, qy, qz, hq,
-                                             heavy_gm[None, :], soft)[0]
-        phi_h = heavy_target_phi_rows(qx, qy, qz, gm[None, :], hq, soft)[0]
-        phi[top_idx] = torch.where(is_heavy, phi_h, phi[top_idx])
+    with trace.span("adaptive.combine"):
+        tot = [unsort(v + p.reshape(n)) for v, p in zip(vals, near)]
+        acc = torch.stack(tot[:3], 1) + heavy_source_acc(qx, qy, qz, hq,
+                                                         heavy_gm, soft)
+        ht = torch.stack(list(acc_rect(hq[0], hq[1], hq[2], qx, qy, qz, gm,
+                                       soft)), dim=1)
+        acc[top_idx] = torch.where(is_heavy[:, None], ht, acc[top_idx])
+        phi = None
+        if with_phi:
+            phi = tot[3] + heavy_source_phi_rows(qx, qy, qz, hq,
+                                                 heavy_gm[None, :], soft)[0]
+            phi_h = heavy_target_phi_rows(qx, qy, qz, gm[None, :], hq,
+                                          soft)[0]
+            phi[top_idx] = torch.where(is_heavy, phi_h, phi[top_idx])
     return acc, phi
 
 
@@ -783,11 +807,12 @@ def plan_adaptive(q: np.ndarray, npad: int, m: int, dense_levels: int,
     of ``device``: K10 ("kernel") on a card, "plain" on the CPU; the pair
     capacity is ``size_pmax``'s for both."""
     stats = level_stats(q, dense_levels, levels)
+    n_pairs = estimate_brick_pairs(q, npad, levels)
+    trace.count("plan.brick_pairs", n_pairs)
     return SparsePlan(
         m=m, dense_levels=dense_levels, levels=levels,
         cell_caps=tuple(int(nc * cell_margin) + 9 for nc in stats),
-        p2p_pmax=size_pmax(estimate_brick_pairs(q, npad, levels),
-                           margin=p2p_margin),
+        p2p_pmax=size_pmax(n_pairs, margin=p2p_margin),
         p2p_impl=_IMPLS[p2p_impl or _impl(device)], m2l_rank=m2l_rank)
 
 

@@ -40,9 +40,9 @@ plan's).  It then runs warm-up steps, and:
 It prints the device time and the device events per step, the busy share
 (device time per step over the median unprofiled window's time per step),
 the device time of the kernels launched inside the sparse M2L
-(``ops/sparse_fmm.m2l_sparse_level``, under a ``record_function`` range
-while profiling) where the step runs it, and the device events that take
-the most time.  Needs a CUDA device.
+(``ops/sparse_fmm.m2l_sparse_level``, the program's ``sparse_m2l`` span:
+the tracer, ``utils/trace``, is on while profiling) where the step runs
+it, and the device events that take the most time.  Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -54,6 +54,7 @@ import time
 import torch
 
 from murb_tpu_torch.cli import build_engine
+from murb_tpu_torch.utils import trace
 from murb_tpu_torch.utils.args import parse_args
 
 N, SEED = 200_000, 123
@@ -64,8 +65,6 @@ TAGS = ("tpu+proxy", "tpu+tracking", "tpu+leapfrog+tracking", "tpu+mxu",
         "tpu+tile", "shard+ring", "shard+allgather", "shard+proxy",
         "shard+adaptive")
 SCHEMES = ("galaxy", "random", "milkyway_andromeda", "two_clusters")
-#: the profiler range around each sparse M2L call
-M2L_RANGE = "murb::m2l_sparse_level"
 #: (warm-up steps, steps per window, profiled steps) of the slower steps,
 #: by scheme or tag
 SHORT = {"milkyway_andromeda": (2, 20, 10), "two_clusters": (1, 5, 3),
@@ -288,8 +287,6 @@ def profile_tag(tag: str, scheme: str = "galaxy", near: str = "auto",
                 m2l_rank: int = -1) -> int:
     import tempfile
 
-    from murb_tpu_torch.ops import sparse_fmm
-
     dev = torch.device("cuda", 0)
     warmup, window_steps, steps = SHORT.get(
         scheme, SHORT.get(tag, (WARMUP, WINDOW_STEPS, STEPS)))
@@ -334,20 +331,15 @@ def profile_tag(tag: str, scheme: str = "galaxy", near: str = "auto",
 
     from torch.profiler import ProfilerActivity, profile
 
-    real_level = sparse_fmm.m2l_sparse_level
-
-    def annotated_level(*a, **k):
-        with torch.profiler.record_function(M2L_RANGE):
-            return real_level(*a, **k)
-
-    sparse_fmm.m2l_sparse_level = annotated_level
+    trace.enable()
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             eng.run(steps)
             eng.block_until_ready()
     finally:
-        sparse_fmm.m2l_sparse_level = real_level
+        trace.disable()
+        trace.drain()
     rows = device_rows(prof)
     dev_us = sum(e.self_device_time_total for e in rows)
     events = sum(e.count for e in rows)
@@ -360,16 +352,11 @@ def profile_tag(tag: str, scheme: str = "galaxy", near: str = "auto",
           f"= {dev_ms:.4f} ms/step in {events / steps:.1f} device "
           f"events/step; busy share {dev_ms / step_ms:.3f} of the "
           f"unprofiled step")
-    from torch.autograd import DeviceType
-
-    # the range's host row: its device time is its kernels' (and its
-    # children's), where the device row would be the range's span
-    m2l = [e for e in prof.key_averages() if e.key == M2L_RANGE
-           and e.device_type == DeviceType.CPU]
+    m2l = [r for r in trace.profile_rows(prof) if r[0] == "sparse_m2l"]
     if m2l:
-        print(f"sparse M2L: {m2l[0].device_time_total / 1e3 / steps:.4f} "
-              f"ms/step of device time ({m2l[0].count / steps:.1f} "
-              f"calls/step)")
+        _, calls, _, m2l_ms = m2l[0]
+        print(f"sparse M2L: {m2l_ms / steps:.4f} ms/step of device time "
+              f"({calls / steps:.1f} calls/step)")
     for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:TOP]:
         print(f"  {e.self_device_time_total / steps:9.2f} us/step "
               f"{e.count / steps:6.1f}x  {e.key[:90]}")
