@@ -358,16 +358,9 @@ class ProxyEngine(EulerAccelEngine):
         if plan is not None:
             attrs.update(dense_levels=plan.dense_levels,
                          cell_caps=plan.cell_caps, p2p_pmax=plan.p2p_pmax,
-                         **(self.cost_estimates or {}))
+                         **(self.cost_estimates or {}),
+                         counts_device=str(self._state.device))
         return attrs
-
-    def _active_q(self) -> np.ndarray:
-        """(n_active, 3) float32 positions of the massive bodies (host): the
-        input of the adaptive planner and its health replica."""
-        u = self._state.unpadded()
-        sel = u["m"] > 0
-        return np.stack([u["qx"][sel], u["qy"][sel], u["qz"][sel]],
-                        1).astype(np.float32)
 
     def _configure_adaptive(self, force: bool = False) -> None:
         """Plan the adaptive sparse hierarchy for the current distribution
@@ -382,7 +375,7 @@ class ProxyEngine(EulerAccelEngine):
                                                    exact_cost_ms,
                                                    plan_adaptive)
 
-        q = self._active_q()
+        q = _active_positions(self._state)
         npad, dev = self._state.npad, self._state.device
         explicit = not self._auto
         m0 = self.m if (explicit and self.m) else adaptive_order(self.tol)
@@ -630,9 +623,14 @@ class ProxyEngine(EulerAccelEngine):
         (never a sweep mid-run).  Returns True if the engine was
         reconfigured.  Waits on the device; call between frames."""
         with trace.span("adapt") as sp:
-            ok = not self._auto or self.proxy_health()["ok"]
+            health = self.proxy_health() if self._auto else {"ok": True}
+            ok = health["ok"]
             reconfigured = not ok and self._reconfigure()
             sp.set(ok=ok, reconfigured=reconfigured)
+            if "p2p_pairs_now" in health:   # the adaptive plan's counts
+                sp.set(counts_device=str(self._state.device),
+                       n_cells_now=health["n_cells_now"],
+                       p2p_pairs_now=health["p2p_pairs_now"])
         return reconfigured
 
     def _reconfigure(self) -> bool:
@@ -691,8 +689,8 @@ class ProxyEngine(EulerAccelEngine):
         accuracy), whether the distribution still fits the plan's
         occupied-cell and pair capacities.  Waits on the device."""
         if self.near_mode == "adaptive":
-            return _adaptive_health(self._active_q(), self._state.npad,
-                                    self._plan)
+            return _adaptive_health(_active_positions(self._state),
+                                    self._state.npad, self._plan)
         from murb_tpu_torch.ops.fmm import fmm_order
         from murb_tpu_torch.ops.proxy import half_extent, required_order
 
@@ -716,10 +714,19 @@ class ProxyEngine(EulerAccelEngine):
         }
 
 
-def _adaptive_health(q: np.ndarray, npad: int, plan) -> dict:
+def _active_positions(state) -> torch.Tensor:
+    """(n_active, 3) float32 positions of the massive bodies, on the state's
+    device: the padded rows have m = 0, so these are the bodies of
+    ``unpadded()`` with m > 0, in order."""
+    sel = state.m > 0
+    return torch.stack([state.qx[sel], state.qy[sel], state.qz[sel]],
+                       1).to(torch.float32)
+
+
+def _adaptive_health(q: torch.Tensor, npad: int, plan) -> dict:
     """Capacity health of an adaptive plan on the massive bodies ``q``
-    (host replicas of the device's occupied lists and pair count), the
-    contract of murb_tpu's adaptive proxy_health."""
+    (the counts of the solve's occupied lists and pair candidates, on
+    ``q``'s device), the contract of murb_tpu's adaptive proxy_health."""
     from murb_tpu_torch.ops.p2p import estimate_brick_pairs
     from murb_tpu_torch.ops.sparse_fmm import level_stats, p2p_capacity_needed
 
@@ -788,11 +795,8 @@ def _fused_proxy_health(state, soft, fused_proxy_m, fused_fmm,
     ``validated_half``: the box half-extent a measured order is certified
     for (ops/validate.certified_half), instead of the static bound."""
     if fused_adaptive is not None:
-        u = state.unpadded()
-        sel = u["m"] > 0
-        q = np.stack([u["qx"][sel], u["qy"][sel], u["qz"][sel]],
-                     1).astype(np.float32)
-        return _adaptive_health(q, state.npad, fused_adaptive)
+        return _adaptive_health(_active_positions(state), state.npad,
+                                fused_adaptive)
     if not (fused_proxy_m or fused_fmm):
         return None
     from murb_tpu_torch.ops.fmm import fmm_order

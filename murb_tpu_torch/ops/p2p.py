@@ -19,8 +19,11 @@ separation ratio whatever the softening, and depth follows occupancy:
           included) per swept pair, summed per target.
 
 This module holds the ids, the brick geometry, K10's plain version (the
-chunked sweep below) and the host-side sizing (``estimate_brick_pairs``,
-``size_pmax``, murb_tpu's, in numpy).  The sweeps an engine calls,
+chunked sweep below) and the planner's sizing (``plan_cells``,
+``estimate_brick_pairs``, ``size_pmax``, murb_tpu's).  The cells and the
+pair count run in torch on the device of their input: an engine passes its
+state's positions, so they run on the card and end in one read of the
+count; numpy input runs on the CPU.  The sweeps an engine calls,
 ``p2p_sweep`` and ``p2p_sweep_kernel_sorted``, are in ops/p2p_kernels.py:
 they run the plain sweep on CPU tensors and K10 on CUDA tensors, sweep the
 same pairs and return the true candidate count, so an engine can see the
@@ -102,12 +105,13 @@ def subtile_class(lo_t, hi_t, lo_s, hi_s) -> torch.Tensor:
     return out
 
 
-def _adjacency(lo, hi) -> torch.Tensor:
-    """(B, B) bool: brick bounding boxes within Chebyshev distance 1."""
+def _adjacency(lo, hi, rows: slice = slice(None)) -> torch.Tensor:
+    """(B, B) bool, or the given ``rows`` of it: brick bounding boxes within
+    Chebyshev distance 1."""
     out = None
     for d in range(3):
-        ab = ((lo[None, :, d] <= hi[:, d, None] + 1)
-              & (lo[:, d, None] <= hi[None, :, d] + 1))
+        lr, hr = lo[rows, d, None], hi[rows, d, None]
+        ab = (lo[None, :, d] <= hr + 1) & (lr <= hi[None, :, d] + 1)
         out = ab if out is None else out & ab
     return out
 
@@ -167,7 +171,7 @@ def p2p_sweep_plain_sorted(xs, ys, zs, gs, ci, soft, *, pmax: int,
     return tuple(acc), n_pairs
 
 
-# ------------------------------------------------------ host-side sizing
+# ------------------------------------------------------ the planner's sizing
 def _morton_np(cx, cy, cz, C: int) -> np.ndarray:
     bits = max(int(C - 1).bit_length(), 1)
     out = np.zeros_like(cx, dtype=np.int64)
@@ -178,35 +182,51 @@ def _morton_np(cx, cy, cz, C: int) -> np.ndarray:
     return out
 
 
-def estimate_brick_pairs(q: np.ndarray, npad: int, levels: int,
-                         K: int = DEFAULT_K) -> int:
-    """Host replica of the device candidate count at depth ``levels``
-    (murb_tpu/ops/p2p.py:estimate_brick_pairs): ``q`` (n_active, 3) are
-    the active bodies' positions; the npad - n_active inactive rows sort
-    last under the sentinel, as on the device.  float32 arithmetic
-    mirrors the device's box and cell mapping."""
+#: (rows, B) compares of the brick adjacency counted at once: its memory
+#: stays bounded at any N (B = 78k bricks at 10^7 bodies)
+ADJ_CHUNK = 1 << 24
+
+
+def plan_cells(q, levels: int) -> torch.Tensor:
+    """(n_active, 3) int64 cells at depth ``levels`` of the positions ``q``
+    ((n_active, 3), numpy or a tensor on any device, where they are
+    computed): the float32 box and cell mapping of murb_tpu's planner
+    (murb_tpu/ops/sparse_fmm.py:_host_cells, its estimate_brick_pairs),
+    the box of ``q`` itself, cubic, at least 1 a side.  Each step is one IEEE float32
+    operation on tensors, as numpy's is (no divisor is a scalar, which
+    PyTorch may turn into a product by its reciprocal), so the cells are
+    numpy's on every device."""
+    q = torch.as_tensor(q).to(torch.float32)
     C = 2 ** levels
-    q = np.asarray(q, np.float32)
-    lo = q.min(0)
-    hi = q.max(0)
-    ctr = (np.float32(0.5) * (lo + hi)).astype(np.float32)
-    h = np.maximum(np.float32(0.5) * (hi - lo), np.float32(1.0))
-    h = np.full(3, h.max(), np.float32)
-    cs = (np.float32(2.0) * h / np.float32(C)).astype(np.float32)
+    lo, hi = q.amin(0), q.amax(0)
+    ctr = 0.5 * (lo + hi)
+    h = torch.clamp_min(0.5 * (hi - lo), 1.0).amax().repeat(3)
+    cs = 2.0 * h / C                     # exact: C is a power of two
     u = (q - (ctr - h)) / cs
-    ci = np.clip(np.floor(u), 0, C - 1).astype(np.int64)
-    order = np.argsort(_morton_np(ci[:, 0], ci[:, 1], ci[:, 2], C),
-                       kind="stable")
-    ci = ci[order]
+    return u.floor().clamp_(0, C - 1).to(torch.int64)
+
+
+def estimate_brick_pairs(q, npad: int, levels: int,
+                         K: int = DEFAULT_K) -> int:
+    """The device candidate count at depth ``levels``
+    (murb_tpu/ops/p2p.py:estimate_brick_pairs) for the active bodies'
+    positions ``q`` (n_active, 3): computed on ``q``'s device (numpy on
+    the CPU), read back once.  The npad - n_active inactive rows sort last
+    under the sentinel, as in the solve.  Any sort of the Morton keys
+    gives murb_tpu's bricks: equal keys are equal cells.  The (B, B)
+    adjacency is counted in rows of ``ADJ_CHUNK`` compares."""
+    ci = plan_cells(q, levels)
+    C = 2 ** levels
+    ci = ci[torch.sort(morton_key(ci[:, 0], ci[:, 1], ci[:, 2], C)).indices]
     sent = 2 * C + _SENTINEL_SHIFT
-    pad = np.full((npad - len(q), 3), sent, dtype=np.int64)
-    ci = np.concatenate([ci, pad], 0)
+    ci = torch.cat([ci, ci.new_full((npad - ci.shape[0], 3), sent)])
     B = npad // K
     cb = ci.reshape(B, K, 3)
-    blo, bhi = cb.min(1), cb.max(1)
-    a = blo[None, :, :] <= bhi[:, None, :] + 1
-    b = blo[:, None, :] <= bhi[None, :, :] + 1
-    return int(np.sum(np.all(a & b, axis=-1)))
+    lo, hi = cb.amin(1), cb.amax(1)
+    rows = max(1, ADJ_CHUNK // B)
+    n = sum(_adjacency(lo, hi, slice(r, r + rows)).sum()
+            for r in range(0, B, rows))
+    return int(n)
 
 
 def size_pmax(n_pairs: int, margin: float = 2.0,

@@ -26,13 +26,16 @@ P2P stage (ops/p2p.py) sums exactly:
              M2L, and L2P from the finest slots (kernel K12).
   near       the exact P2P sweep (kernel K10).
 
-Everything runs on the state's device; the planner and the capacity
-checks run on the host between steps.  A solve does wait on the device:
-each host table it copies to the card (``torch.as_tensor`` of a numpy
-array onto a CUDA device: the sparse M2L's offsets and parity codes in
-``_neighbor_slots``, its signs and each batch of offsets; the M2M and L2L
-matrix of each ops/fmm.m2m and l2l call in the dense base) is a pageable
-copy that PyTorch ends with a stream synchronise.  So a step waits once
+Everything runs on the state's device.  The planner and the capacity
+checks run between steps; their counts (``level_stats``,
+``estimate_brick_pairs``) run where the positions they are given lie,
+the engines' on the state's device, and end in one read each.  A solve
+does wait on the device: each host table it copies to the card
+(``torch.as_tensor`` of a numpy array onto a CUDA device: the sparse M2L's
+offsets and parity codes in ``_neighbor_slots``, its signs and each batch
+of offsets; the M2M and L2L matrix of each ops/fmm.m2m and l2l call in
+the dense base) is a pageable copy that PyTorch ends with a stream
+synchronise.  So a step waits once
 for each ``_neighbor_slots`` table and each sign table of every sparse
 level, once for each batch of offsets, and once for each M2M and L2L
 matrix; how many that is follows the plan's levels.  The sparse M2L
@@ -64,7 +67,7 @@ from murb_tpu_torch.ops.mxu import split3_matmul, tf32_matmul
 from murb_tpu_torch.ops.fmm_kernels import _node_vectors
 from murb_tpu_torch.ops.p2p import (DEFAULT_CHUNK as P2P_CHUNK, DEFAULT_K,
                                     estimate_brick_pairs, morton_key,
-                                    size_pmax, sorted_cells)
+                                    plan_cells, size_pmax, sorted_cells)
 from murb_tpu_torch.ops.p2p_kernels import p2p_sweep_kernel_sorted
 from murb_tpu_torch.utils import trace
 
@@ -769,41 +772,35 @@ def force_and_potential_adaptive(qx, qy, qz, gm, soft, plan: SparsePlan, *,
     return Accel(acc[:, 0], acc[:, 1], acc[:, 2]), phi
 
 
-# ---------------------------------------------------------- host planner
-def _host_cells(q: np.ndarray, L: int):
-    C = 2 ** L
-    q = np.asarray(q, np.float32)
-    lo, hi = q.min(0), q.max(0)
-    ctr = (np.float32(0.5) * (lo + hi)).astype(np.float32)
-    hh = np.maximum(np.float32(0.5) * (hi - lo), np.float32(1.0))
-    hh = np.full(3, hh.max(), np.float32)
-    cs = (np.float32(2.0) * hh / np.float32(C)).astype(np.float32)
-    return np.clip(np.floor((q - (ctr - hh)) / cs), 0, C - 1).astype(np.int64)
-
-
-def level_stats(q: np.ndarray, dense_levels: int, levels: int):
-    """Occupied-cell counts per sparse level of the current distribution:
-    the host replica of the device occupied lists."""
-    ci_fin = _host_cells(q, levels)
-    out = []
+# --------------------------------------------------------------- planner
+def level_stats(q, dense_levels: int, levels: int) -> list[int]:
+    """Occupied-cell counts per sparse level of the distribution ``q``
+    (n_active, 3): what the solve's occupied lists hold
+    (murb_tpu/ops/sparse_fmm.py:level_stats).  Computed on ``q``'s device
+    (numpy on the CPU) from ``plan_cells``' finest cells and read back
+    once: a level's cells are the finest Morton keys shifted right by 3
+    a level, counted as the distinct values of one sorted array."""
+    ci = plan_cells(q, levels)
+    key = torch.sort(morton_key(ci[:, 0], ci[:, 1], ci[:, 2],
+                                2 ** levels)).values
+    counts = []
     for l in range(dense_levels + 1, levels + 1):
-        ci = ci_fin >> (levels - l)
-        C = 2 ** l
-        out.append(int(len(np.unique((ci[:, 0] * C + ci[:, 1]) * C
-                                     + ci[:, 2]))))
-    return out
+        k = key >> 3 * (levels - l)
+        counts.append(1 + (k[1:] != k[:-1]).sum())
+    return torch.stack(counts).tolist() if counts else []
 
 
 def _impl(device) -> str:
     return "kernel" if torch.device(device).type == "cuda" else "plain"
 
 
-def plan_adaptive(q: np.ndarray, npad: int, m: int, dense_levels: int,
+def plan_adaptive(q, npad: int, m: int, dense_levels: int,
                   levels: int, *, cell_margin: float = 1.3,
                   p2p_margin: float = 1.5, p2p_impl: str | None = None,
                   m2l_rank: int = -1, device="cuda") -> SparsePlan:
-    """A SparsePlan for the distribution ``q`` (n_active, 3) at the given
-    geometry, with margined capacities.  ``p2p_impl`` defaults to the sweep
+    """A SparsePlan for the distribution ``q`` (n_active, 3; numpy, or a
+    tensor on the device its counts are to run on) at the given geometry,
+    with margined capacities.  ``p2p_impl`` defaults to the sweep
     of ``device``: K10 ("kernel") on a card, "plain" on the CPU; the pair
     capacity is ``size_pmax``'s for both."""
     stats = level_stats(q, dense_levels, levels)
@@ -919,7 +916,7 @@ def _cost_from_stats(stats, n_bricks, npad, m, dense_levels, levels,
                            dense_levels, levels, nf, m2l_rank)
 
 
-def plan_cost_ms(q: np.ndarray, npad: int, m: int, dense_levels: int,
+def plan_cost_ms(q, npad: int, m: int, dense_levels: int,
                  levels: int, nf: int = 3, m2l_rank: int = -1,
                  device="cuda") -> float:
     """Estimated adaptive step cost in ms at ``device``'s rates
@@ -950,12 +947,12 @@ def adaptive_order(tol: float = 1e-4) -> int:
     return max(4, m + (m % 2))
 
 
-def best_adaptive_plan(q: np.ndarray, npad: int, m: int,
+def best_adaptive_plan(q, npad: int, m: int,
                        max_levels: int = 9, m2l_rank: int = -1,
                        device="cuda") -> tuple[SparsePlan, float]:
     """(plan, est_ms): the cheapest (dense_levels, levels) for the current
-    distribution under the cost model, the per-level counts and pair
-    estimates shared across candidates."""
+    distribution ``q`` (as plan_adaptive's) under the cost model, the
+    per-level counts and pair estimates shared across candidates."""
     per_level = level_stats(q, 2, max_levels)
     nc_at = {l: per_level[l - 3] for l in range(3, max_levels + 1)}
     bricks_at = {L: estimate_brick_pairs(q, npad, L)

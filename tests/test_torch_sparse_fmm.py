@@ -18,15 +18,22 @@ over max(|a|, 1e-6 max|a|)) and within 1e-4 of the naive oracle
 (tests/test_sparse_fmm.py's contract), the potential within 1e-5 of
 murb_tpu's and 2e-4 of the exact one.
 """
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from murb_tpu.ops import anterp_pallas as jap
+from murb_tpu.ops import p2p as jp
 from murb_tpu.ops import sparse_fmm as js
 from murb_tpu.ops.naive import acc_naive
+from murb_tpu_torch.core.init import make_bodies
+from murb_tpu_torch.core.state import BodyState
+from murb_tpu_torch.models.engines import _active_positions
 from murb_tpu_torch.ops import anterp_kernels as tak
+from murb_tpu_torch.ops import p2p as tp
 from murb_tpu_torch.ops import sparse_fmm as ts
 from murb_tpu_torch.ops.p2p import _cell_ixyz
 
@@ -424,3 +431,82 @@ def test_best_plan_order_and_costs_match_jax():
         for ld in (2, 3) for lv in range(ld + 1, 10)), rel=1e-12)
     assert ts.SparsePlan.from_fields(
         **jplan._replace(p2p_impl="pallas")._asdict()).p2p_impl == "kernel"
+
+
+# ---------------------------------------------------- the planner's counts
+COUNT_KINDS = ("two_clusters", "uniform", "galaxy", "one_cell", "faces",
+               "padded")
+
+
+@functools.cache
+def count_bodies(kind: str):
+    """(the active positions as the engines pass them, a float32 tensor
+    (n_active, 3); the same as numpy; npad) of a distribution whose counts
+    must be murb_tpu's exactly."""
+    rng = np.random.default_rng(11)
+    if kind == "galaxy":
+        state = make_bodies(4000, "galaxy", device="cpu")
+    elif kind == "padded":
+        # 1,000 massive bodies among 1,500, padded to 4,096 rows: the
+        # massless ones sit among the massive, inside the box
+        q = clusters(1500, 2048, seed=3)[2]
+        m = np.where(np.arange(1500) % 3 == 1, 0.0, 1e10)
+        v = np.zeros(1500)
+        state = BodyState.from_arrays(m, v + 1, *q.T, v, v, v,
+                                      pad_multiple=4096, device="cpu")
+    else:
+        if kind == "two_clusters":
+            q = clusters()[2]
+        elif kind == "uniform":
+            q = rng.uniform(-100, 100, (4000, 3))
+        elif kind == "one_cell":     # one point: a box of side 2, one cell
+            q = np.tile([3.5, -2.0, 7.25], (4000, 1))
+        else:
+            # on a lattice of step 1/8 in the box [0, 64]^3, which its
+            # corners fix: every body on a face of its cell at C <= 512,
+            # and those at 64 clipped into the last cell
+            q = rng.integers(0, 513, (4000, 3)) * 0.125
+            q[:2] = [[0.0] * 3, [64.0] * 3]
+        v = np.zeros(4000)
+        state = BodyState.from_arrays(np.ones(4000), v + 1, *q.T, v, v, v,
+                                      device="cpu")
+    u = state.unpadded()
+    sel = u["m"] > 0
+    q = np.stack([u["qx"][sel], u["qy"][sel], u["qz"][sel]], 1)
+    return _active_positions(state), q.astype(np.float32), state.npad
+
+
+@pytest.mark.parametrize("levels", range(3, 10))
+@pytest.mark.parametrize("kind", COUNT_KINDS)
+def test_counts_on_a_tensor_match_jax(kind, levels, monkeypatch):
+    """The occupied cells per sparse level and the candidate brick pairs,
+    counted in torch from the engines' tensor, are murb_tpu's numpy counts:
+    with the default adjacency chunk, with chunks of three rows of the
+    (B, B) adjacency, and from numpy input."""
+    qt, q, npad = count_bodies(kind)
+    assert torch.equal(qt, torch.from_numpy(q))
+    want = jp.estimate_brick_pairs(q, npad, levels)
+    assert tp.estimate_brick_pairs(qt, npad, levels) == want
+    assert tp.estimate_brick_pairs(q, npad, levels) == want
+    monkeypatch.setattr(tp, "ADJ_CHUNK", 3 * npad // tp.DEFAULT_K)
+    assert tp.estimate_brick_pairs(qt, npad, levels) == want
+    stats = js.level_stats(q, 2, levels)
+    assert ts.level_stats(qt, 2, levels) == stats
+    assert ts.level_stats(q, 2, levels) == stats
+    if kind == "one_cell":
+        assert stats == [1] * (levels - 2)
+
+
+@pytest.mark.parametrize("rates", ["cpu", "cuda"])
+def test_planner_on_a_tensor_matches_numpy(rates):
+    """best_adaptive_plan and plan_adaptive on the engines' tensor give the
+    plan and cost they give on numpy (murb_tpu's at the CPU's rates)."""
+    qt, q, npad = count_bodies("two_clusters")
+    plan, cost = ts.best_adaptive_plan(qt, npad, 6, device=rates)
+    assert (plan, cost) == ts.best_adaptive_plan(q, npad, 6, device=rates)
+    if rates == "cpu":
+        jplan, jcost = js.best_adaptive_plan(q, npad, 6)
+        assert (plan, cost) == (port_plan(jplan), jcost)
+    assert ts.plan_adaptive(qt, npad, 6, plan.dense_levels, plan.levels,
+                            device=rates) == plan
+

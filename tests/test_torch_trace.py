@@ -24,6 +24,7 @@ from torch.profiler import ProfilerActivity, profile
 from murb_tpu_torch.core.init import make_bodies
 from murb_tpu_torch.core.state import FIELDS
 from murb_tpu_torch.models import create_engine
+from murb_tpu_torch.models.engines import _active_positions
 from murb_tpu_torch.ops import cuda, hybrid
 from murb_tpu_torch.ops.p2p import estimate_brick_pairs
 from murb_tpu_torch.ops.sparse_fmm import acc_adaptive, plan_adaptive
@@ -154,11 +155,12 @@ def test_build_records_the_plan(built, state):
     assert plan["near_mode"] == "adaptive" and plan["using_proxy"]
     assert plan["adaptive_ms"] == eng.cost_estimates["adaptive_ms"]
     assert plan["exact_ms"] == eng.cost_estimates["exact_ms"]
+    assert plan["counts_device"] == "cpu"
     assert tops[1]["attrs"]["m"] == eng.m == eng._plan.m
     assert tops[1]["attrs"]["err"] == eng.validated_err
     # the validation's solves nest under it
     assert set(_names(_children(spans, tops[1]))) >= set(STAGES + TAIL)
-    q = eng._active_q()
+    q = _active_positions(eng.bodies)
     assert rec["counts"] == {"plan.brick_pairs": estimate_brick_pairs(
         q, state.npad, eng._plan.levels)}
 
@@ -172,7 +174,9 @@ def test_exact_build_records_its_geometry(state):
 def test_adaptive_step_tree_and_one_health_check(built):
     eng, _ = built
     trace.enable()
-    eng.run(3)
+    eng.run(2)
+    health = eng.proxy_health()     # what the check at iteration 2 reads
+    eng.run(1)
     spans = trace.drain()["spans"]
     steps = [r for r in spans if r["parent"] is None]
     assert [s["attrs"] for s in steps] == [{"iteration": i}
@@ -185,7 +189,10 @@ def test_adaptive_step_tree_and_one_health_check(built):
         assert _names(_children(spans, force)) == STAGES + [
             "adaptive.l2l", "sparse_m2l"] + TAIL
     (adapt,) = [r for r in spans if r["name"] == "adapt"]
-    assert adapt["attrs"] == {"ok": True, "reconfigured": False}
+    assert adapt["attrs"] == {"ok": True, "reconfigured": False,
+                              "counts_device": "cpu",
+                              "n_cells_now": health["n_cells_now"],
+                              "p2p_pairs_now": health["p2p_pairs_now"]}
 
 
 def test_two_sparse_levels_each_in_its_span(state):
@@ -320,5 +327,6 @@ def test_cli_profile_prints_the_build_and_the_health_checks(tmp_path,
     checks = run.split("Health checks and builds in the run (host "
                        "clock):\n")[1]
     assert checks.count("adapt ") == 1
-    assert "ok=True reconfigured=False" in checks
+    assert "ok=True reconfigured=False counts_device=cpu n_cells_now=(" \
+        in checks
     assert "  span sparse_m2l " in run
